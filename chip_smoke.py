@@ -1,4 +1,4 @@
-"""On-card smoke test of the PyTorch/CUDA port: config 3 end to end.
+"""On-card smoke test of the PyTorch/CUDA port: configs 3, 1 and 2 end to end.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -8,13 +8,20 @@ Phases, one line each:
   0. device: fail without CUDA; print the card's name and power limit;
   1. build: compile the CUDA kernels from gridcodegenerator_tpu_torch/csrc;
   2. each kernel against its plain PyTorch version on the same CUDA inputs,
-     iiwa at small B and N, float64: max abs error <= 1e-9;
-  3. the same at config-3 shapes in float32 (tolerances below), with each
-     kernel's and plain version's device time from CUDA events;
+     iiwa at small B and N (37 lanes: a ragged block), float64: max abs
+     error <= 1e-9;
+  3. the same in float32 (tolerances below), with each kernel's and plain
+     version's device time from CUDA events: the config-3 kernels at
+     config-3 shapes, the GRiD kernels (rnea, id_du, aba, minv) at 1024
+     and 131072 lanes;
   4. config 3 (iiwa, N=64, 5 iterations, B=2048, float32, EE reach) through
      the port's make_ilqr with kernels: every kernel of the path launched,
      nothing plain ran, costs finite and decreasing, final costs agree with
-     a plain solve of the same inputs; solves/s over 10 solves.
+     a plain solve of the same inputs; solves/s over 10 solves;
+  5. configs 1 and 2 (iiwa, float32) through the port's GRiD: id and id_du
+     unbatched and at B=1024, aba, fd_du and minv at B=1024; each call
+     launched exactly its kernel and nothing plain ran; outputs agree with a
+     float64 plain GRiD on the same inputs; µs per call and evals/s.
 Then a JSON line of per-kernel results, and last the device line.
 Any failure raises, so the exit code is non-zero and no result is printed.
 """
@@ -70,6 +77,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from gridcodegenerator_tpu_torch.api import GRiD
     from gridcodegenerator_tpu_torch.models.model import build_model
     from gridcodegenerator_tpu_torch.models.zoo import load_robot
     from gridcodegenerator_tpu_torch.ops import eepose
@@ -126,7 +134,8 @@ def main():
         }
 
     kernels = {
-        "fd_du": (K.fd_du, K.fd_du_plain, K.SOURCE, K.REPLACES),
+        "fd_du": (K.fd_du, K.fd_du_plain, K.SOURCES[K.FD_DU],
+                  K.REPLACES[K.FD_DU]),
         "rollout": (S.rollout, S.rollout_plain, S.SOURCES[S.ROLLOUT],
                     S.REPLACES[S.ROLLOUT]),
         "riccati_factored": (S.riccati_factored, S.riccati_factored_plain,
@@ -136,6 +145,28 @@ def main():
                                S.SOURCES[S.LINESEARCH],
                                S.REPLACES[S.LINESEARCH]),
     }
+
+    # the GRiD API's kernels, and their cases: rnea with and without qdd,
+    # minv dense and upper
+    grid_kernels = {name: (getattr(K, name), getattr(K, name + "_plain"),
+                           K.SOURCES[name], K.REPLACES[name])
+                    for name in (K.RNEA, K.ID_DU, K.ABA, K.MINV)}
+    case_kernel = {"rnea": "rnea", "rnea_bias": "rnea", "id_du": "id_du",
+                   "aba": "aba", "minv": "minv", "minv_upper": "minv"}
+
+    def lane_cases(model, lanes, seed):
+        """Each GRiD kernel case on (n, lanes) inputs ~ U(-1, 1), as
+        bench.py makes them."""
+        rng = np.random.default_rng(seed)
+        q, qd, x = (torch.as_tensor(rng.uniform(-1, 1, (model.n, lanes)),
+                                    dtype=model.dtype, device=dev)
+                    for _ in range(3))
+        return {"rnea": (model, q, qd, x, GRAVITY),
+                "rnea_bias": (model, q, qd, None, GRAVITY),
+                "id_du": (model, q, qd, x, GRAVITY),
+                "aba": (model, q, qd, x, GRAVITY),
+                "minv": (model, q, True),
+                "minv_upper": (model, q, False)}
 
     def as_tuple(o):
         return tuple(t for t in (o if isinstance(o, tuple) else (o,))
@@ -157,6 +188,20 @@ def main():
         small[name] = err
         if not err <= 1e-9:
             raise AssertionError(f"{name} float64: max abs err {err} > 1e-9")
+    for case, args in lane_cases(m64, 37, seed=1).items():
+        kern, plain = grid_kernels[case_kernel[case]][:2]
+        out, ref = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        if out.shape != ref.shape:
+            raise AssertionError(f"{case}: kernel output {tuple(out.shape)}, "
+                                 f"plain {tuple(ref.shape)}")
+        err = max_err((out,), (ref,))
+        small[case] = err
+        if not err <= 1e-9:
+            raise AssertionError(f"{case} float64: max abs err {err} > 1e-9")
+        if case == "minv_upper" and bool(
+                out.permute(2, 0, 1).tril(-1).any()):
+            raise AssertionError("minv upper: nonzero below the diagonal")
     line("small_f64", {"robot": "iiwa", "N": 8, "B": 37,
                        "max_abs_err": small, "tol": 1e-9})
 
@@ -210,6 +255,44 @@ def main():
     line("config3_f32", {k: {f: v[f] for f in (
         "max_abs_err", "kernel_err_vs_f64", "plain_err_vs_f64", "ms",
         "plain_ms")} for k, v in results.items()})
+
+    def check_f32(what, out, ref, ref64):
+        """The float32 rule above, for one output."""
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"{what} float32: non-finite output")
+        ek = float((out.double() - ref64).abs().max())
+        ep = float((ref.double() - ref64).abs().max())
+        bound = F32_FACTOR * ep + F32_FLOOR * max(1.0, float(
+            ref64.abs().max()))
+        if not ek <= bound:
+            raise AssertionError(f"{what} float32: error vs float64 {ek} > "
+                                 f"{bound} ({F32_FACTOR} x plain float32's "
+                                 f"{ep} + floor)")
+        return ek, ep
+
+    grid_f32 = {}
+    for lanes in (1024, N * B):
+        for case, args in lane_cases(m32, lanes, seed=0).items():
+            kern, plain = grid_kernels[case_kernel[case]][:2]
+            out, ref = kern(*args), plain(*args)
+            ref64 = plain(*map(to64, args))
+            torch.cuda.synchronize()
+            ek, ep = check_f32(f"{case} L={lanes}", out, ref, ref64)
+            grid_f32[case, lanes] = {
+                "max_abs_err": max_err((out,), (ref,)),
+                "kernel_err_vs_f64": ek, "plain_err_vs_f64": ep,
+                "ms": time_cuda(lambda: kern(*args), iters=20),
+                "plain_ms": time_cuda(lambda: plain(*args), iters=3)}
+    line("grid_kernels_f32", {f"{case} L={lanes}": v
+                              for (case, lanes), v in grid_f32.items()})
+    for name, (_, _, src, repl) in grid_kernels.items():
+        results[name] = {
+            "name": name, "route": "cuda", "source": src, "replaces": repl,
+            "max_abs_err": max(v["max_abs_err"] for (c, lanes), v
+                               in grid_f32.items()
+                               if case_kernel[c] == name and lanes == 1024),
+            "ms": grid_f32[name, 1024]["ms"],
+            "plain_ms": grid_f32[name, 1024]["plain_ms"]}
 
     # -- phase 4: the slice ------------------------------------------------
     n = m32.n
@@ -303,12 +386,98 @@ def main():
                                 "plain_f64": float(c_p64.mean())},
         "launches": launches, "phases": phases})
 
+    # -- phase 5: configs 1 and 2 through the port's GRiD -------------------
+    g = GRiD("iiwa", dtype=torch.float32, device=dev)
+    p32 = GRiD("iiwa", dtype=torch.float32, device=dev, use_kernels=False)
+    p64 = GRiD("iiwa", dtype=torch.float64, device=dev, use_kernels=False)
+    n, BG = g.num_vel, 1024
+    rng = np.random.default_rng(0)                      # config 1 (bench.py)
+    x1 = tuple(rng.uniform(-1, 1, n) for _ in range(3))
+    xb = (rng.uniform(-1, 1, (BG, n)),) * 3
+    rng = np.random.default_rng(0)                      # config 2 (bench.py)
+    x2 = tuple(rng.uniform(-1, 1, (BG, n)) for _ in range(3))
+    calls = {   # label -> (method, numpy inputs, kernel it launches)
+        "c1_id_B1": ("id", x1, "rnea"),
+        "c1_id_du_B1": ("id_du", x1, "id_du"),
+        "c1_id_B1024": ("id", xb, "rnea"),
+        "c1_id_du_B1024": ("id_du", xb, "id_du"),
+        "c2_aba": ("aba", x2, "aba"),
+        "c2_fd_du": ("fd_du", x2, "fd_du"),
+        "c2_minv": ("minv", x2[:1], "minv"),
+    }
+    ref64 = {k: getattr(p64, m)(*x).double() for k, (m, x, _) in calls.items()}
+    ref32 = {k: getattr(p32, m)(*x) for k, (m, x, _) in calls.items()}
+    torch.cuda.synchronize()
+
+    build.reset_counters()
+    outs = {}
+    for label, (method, x, kernel) in calls.items():
+        before = dict(build.LAUNCHES)
+        outs[label] = getattr(g, method)(*x)
+        torch.cuda.synchronize()
+        added = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
+                 if v != before.get(k, 0)}
+        if added != {kernel: 1}:
+            raise AssertionError(f"GRiD.{method} ({label}) launched "
+                                 f"{added}, expected {{{kernel!r}: 1}}")
+    grid_launches = dict(build.LAUNCHES)
+    if build.PLAIN_CALLS:
+        raise AssertionError(f"GRiD path ran plain versions: "
+                             f"{dict(build.PLAIN_CALLS)}")
+    errs = {}
+    for label, out in outs.items():
+        ref = ref64[label]
+        if out.shape != ref.shape or out.dtype != torch.float32:
+            raise AssertionError(f"{label}: {tuple(out.shape)} {out.dtype}, "
+                                 f"expected {tuple(ref.shape)} float32")
+        if label.startswith("c1_"):   # bench.py config 1's thresholds
+            err = max_err((out,), (ref,))
+            tol = 1e-3 if "id_du" in label else 1e-4
+            if not err < tol:
+                raise AssertionError(f"{label}: error vs float64 {err} "
+                                     f">= {tol}")
+        else:
+            err, _ = check_f32(label, out, ref32[label], ref)
+        errs[label] = err
+
+    def on_card(x):
+        return tuple(torch.as_tensor(a, dtype=torch.float32, device=dev)
+                     for a in x)
+
+    def us(fn, iters):
+        return time_cuda(fn, iters=iters) * 1e3
+
+    t1, tb, t2 = on_card(x1), on_card(xb), on_card(x2)
+    k1 = tuple(t[:, None].contiguous() for t in t1)     # kernel layout, B=1
+    c1 = {
+        "id_us": us(lambda: g.id(*t1), 200),
+        "id_du_us": us(lambda: g.id_du(*t1), 200),
+        "id_bare_kernel_us": us(lambda: K.rnea(g.model, *k1, GRAVITY), 200),
+        "id_du_bare_kernel_us": us(lambda: K.id_du(g.model, *k1, GRAVITY),
+                                   200),
+        "id_us_per_sample_B1024": us(lambda: g.id(*tb), 100) / BG,
+        "id_du_us_per_sample_B1024": us(lambda: g.id_du(*tb), 100) / BG,
+    }
+    c2 = {
+        "aba_us_per_call": us(lambda: g.aba(*t2), 100),
+        "aba_us_per_call_repeat": us(lambda: g.aba(*t2), 100),
+        "fd_du_us_per_call": us(lambda: g.fd_du(*t2), 100),
+        "minv_us_per_call": us(lambda: g.minv(t2[0]), 100),
+    }
+    for k in ("aba", "fd_du", "minv"):
+        c2[f"{k}_evals_per_s"] = BG / (c2[f"{k}_us_per_call"] / 1e6)
+    line("grid", {"configs": [1, 2], "robot": "iiwa", "dtype": "float32",
+                  "B": BG, "device": smi, "config1": c1, "config2": c2,
+                  "max_err_vs_f64_plain": errs, "launches": grid_launches})
+
+    path_launches = {k: launches.get(k, 0) + grid_launches.get(k, 0)
+                     for k in results}
     print(json.dumps({"kernels": [
         {k: results[name][k] for k in ("name", "route", "source",
                                        "replaces")}
-        | {"launches": launches[name]}
+        | {"launches": path_launches[name]}
         | {k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms")}
-        for name in kernels]}), flush=True)
+        for name in results]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

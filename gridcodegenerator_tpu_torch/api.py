@@ -1,0 +1,240 @@
+"""Public API: the per-robot dynamics suite on PyTorch and CUDA.
+
+The counterpart of ``gridcodegenerator_tpu/api.py``. Two tiers:
+
+* **kernel** — the wrappers in ``ops/cuda/kernels.py``, on lane-major
+  ``(dim, B)`` tensors: a CUDA tensor launches the hand-written kernel (any
+  B; the ragged last block is masked) or raises, a CPU tensor runs the plain
+  PyTorch version;
+* **host** — the methods below: accept and return batch-major ``(B, dim)``
+  (or unbatched ``(dim,)``) numpy arrays or tensors, handle layout, dtype,
+  device and the packed ``q_qd_u`` inputs.
+
+Example::
+
+    from gridcodegenerator_tpu_torch import GRiD
+    grid = GRiD("iiwa", device="cuda")        # or a URDF path/XML/topology
+    c     = grid.id(q, qd, qdd)               # RNEA         (B, n)
+    Minv  = grid.minv(q)                      # (B, n, n)
+    qdd   = grid.aba(q, qd, u)                # ABA route
+    dc_du = grid.id_du(q, qd, qdd)            # (B, n, 2n)
+    df_du = grid.fd_du(q, qd, u)              # (B, n, 2n)
+
+The methods whose kernels are not ported yet (``fd``, ``crba``, the EE
+kinematics, ``fk`` and the second-order tensors) raise
+``NotImplementedError`` naming their ROADMAP item; so do floating-base
+robots and ``ee_targets``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from .models.model import RobotModel, build_model
+from .models.zoo import list_robots, load_robot
+from .ops.common import DEFAULT_GRAVITY, check_fixed_base
+from .ops.cuda import kernels as _k
+from .topology.robot import RobotTopology
+from .topology.urdf import parse_urdf
+
+# methods without a kernel in the port yet -> their ROADMAP item
+_NOT_PORTED = {
+    "fd": "Queue 2 item 9 (fd_pallas)",
+    "crba": "Queue 2 item 10 (crba_pallas)",
+    "eepos": "Queue 2 item 12 (eepos_pallas)",
+    "deepos": "Queue 2 item 13 (deepos_pallas)",
+    "d2eepos": "Queue 2 item 14 (d2eepos_pallas)",
+    "idsva_so": "Queue 2 item 15 (idsva_so_pallas)",
+    "fdsva_so": "Queue 2 item 16 (fdsva_so_pallas)",
+    "fk": "Queue 1 item 8 (ops/eepose.py:fk)",
+}
+
+
+def _not_ported(method: str):
+    raise NotImplementedError(f"GRiD.{method} is not ported to PyTorch yet: "
+                              f"ROADMAP {_NOT_PORTED[method]}")
+
+
+def init_robot(source: Union[str, RobotTopology],
+               floating_base: bool = False) -> RobotTopology:
+    """Load a robot: zoo name, URDF path, URDF XML string, or a topology."""
+    if isinstance(source, RobotTopology):
+        return source
+    if "<robot" in source:
+        return parse_urdf(source, floating_base=floating_base)
+    if source.replace("_floating", "") in [
+            n.replace("_floating", "") for n in list_robots()]:
+        return load_robot(source + ("_floating" if floating_base
+                                    and not source.endswith("_floating")
+                                    else ""))
+    return parse_urdf(source, floating_base=floating_base)
+
+
+class GRiD:
+    """Per-robot dynamics suite on one device."""
+
+    def __init__(
+        self,
+        robot: Union[str, RobotTopology],
+        dtype=torch.float32,
+        gravity: float = DEFAULT_GRAVITY,
+        floating_base: bool = False,
+        device="cpu",
+        use_kernels: Optional[bool] = None,
+        ee_targets: Optional[Sequence[str]] = None,
+    ):
+        """``use_kernels``: None runs the CUDA kernels iff ``device`` is a
+        CUDA device (the wrappers dispatch on the tensors' device); False
+        runs the plain PyTorch versions on any device; True insists on a
+        CUDA device."""
+        if ee_targets is not None:
+            raise NotImplementedError(
+                "GRiD(ee_targets=...) is not ported to PyTorch yet: ROADMAP "
+                f"{_NOT_PORTED['eepos']}")
+        self.device = torch.device(device)
+        if use_kernels and self.device.type != "cuda":
+            raise ValueError(f"use_kernels=True needs a CUDA device, "
+                             f"got {self.device}")
+        self.topology = init_robot(robot, floating_base=floating_base)
+        self.model: RobotModel = build_model(self.topology, dtype=dtype,
+                                             device=self.device)
+        check_fixed_base(self.model)
+        self.dtype = dtype
+        self.gravity = float(gravity)
+        self.n = self.model.n
+        self.num_pos = self.model.num_pos
+        self.num_vel = self.model.num_vel
+        self.use_kernels = use_kernels
+        plain = use_kernels is False
+        self._fd_du = _k.fd_du_plain if plain else _k.fd_du
+        self._rnea = _k.rnea_plain if plain else _k.rnea
+        self._id_du = _k.id_du_plain if plain else _k.id_du
+        self._aba = _k.aba_plain if plain else _k.aba
+        self._minv = _k.minv_plain if plain else _k.minv
+
+    # ------------------------------------------------------------------
+    # layout shims: user (B, dim) <-> kernel (dim, B)
+    # ------------------------------------------------------------------
+    def _in(self, x, dim):
+        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        if x.ndim not in (1, 2) or x.shape[-1] != dim:
+            raise ValueError(f"expected ({dim},) or (B, {dim}), got "
+                             f"{tuple(x.shape)}")
+        if x.ndim == 1:
+            return x[:, None].contiguous(), True
+        return x.T.contiguous(), False
+
+    @staticmethod
+    def _out(x, unbatched):
+        # kernel output (..., B) -> user (B, ...) or unbatched (...)
+        x = x.movedim(-1, 0)
+        return x[0] if unbatched else x
+
+    # ------------------------------------------------------------------
+    # host tier
+    # ------------------------------------------------------------------
+    def id(self, q, qd, qdd=None):
+        """RNEA inverse dynamics c(q, qd[, qdd]): (B, nv)."""
+        qk, ub = self._in(q, self.num_pos)
+        qdk, _ = self._in(qd, self.num_vel)
+        qddk = None if qdd is None else self._in(qdd, self.num_vel)[0]
+        return self._out(self._rnea(self.model, qk, qdk, qddk, self.gravity),
+                         ub)
+
+    def minv(self, q, dense: bool = True):
+        """M(q)^-1: (B, nv, nv); ``dense=False`` gives the upper factor."""
+        qk, ub = self._in(q, self.num_pos)
+        return self._out(self._minv(self.model, qk, dense), ub)
+
+    def aba(self, q, qd, u):
+        """Forward dynamics qdd via the articulated-body algorithm: (B, nv)."""
+        qk, ub = self._in(q, self.num_pos)
+        qdk, _ = self._in(qd, self.num_vel)
+        uk, _ = self._in(u, self.num_vel)
+        return self._out(self._aba(self.model, qk, qdk, uk, self.gravity), ub)
+
+    def id_du(self, q, qd, qdd=None):
+        """Analytical dc/d[q|qd]: (B, nv, 2*nv); ``qdd`` defaults to zeros."""
+        qk, ub = self._in(q, self.num_pos)
+        qdk, _ = self._in(qd, self.num_vel)
+        qddk = (torch.zeros_like(qdk) if qdd is None
+                else self._in(qdd, self.num_vel)[0])
+        return self._out(self._id_du(self.model, qk, qdk, qddk,
+                                     self.gravity), ub)
+
+    def fd_du(self, q, qd, u):
+        """Analytical dqdd/d[q|qd]: (B, nv, 2*nv). dqdd/dtau is minv(q)."""
+        qk, ub = self._in(q, self.num_pos)
+        qdk, _ = self._in(qd, self.num_vel)
+        uk, _ = self._in(u, self.num_vel)
+        df_du, _, _ = self._fd_du(self.model, qk, qdk, uk, self.gravity)
+        return self._out(df_du, ub)
+
+    def fd(self, q, qd, u):
+        """Forward dynamics qdd via the Minv route (not ported yet)."""
+        _not_ported("fd")
+
+    def crba(self, q):
+        """Mass matrix M(q) (not ported yet)."""
+        _not_ported("crba")
+
+    def idsva_so(self, q, qd, qdd=None):
+        """Second-order ID tensors (not ported yet)."""
+        _not_ported("idsva_so")
+
+    def fdsva_so(self, q, qd, u):
+        """Second-order FD tensors (not ported yet)."""
+        _not_ported("fdsva_so")
+
+    def eepos(self, q):
+        """End-effector poses (not ported yet)."""
+        _not_ported("eepos")
+
+    def deepos(self, q):
+        """EE pose Jacobians (not ported yet)."""
+        _not_ported("deepos")
+
+    def d2eepos(self, q):
+        """EE pose Hessians (not ported yet)."""
+        _not_ported("d2eepos")
+
+    def fk(self, q):
+        """World transforms of every joint frame (not ported yet)."""
+        _not_ported("fk")
+
+    # -- packed-input convenience (gridData q_qd_u layout parity) ---------
+    def _unpack3(self, q_qd_u):
+        np_, nv = self.num_pos, self.num_vel
+        return (q_qd_u[..., :np_], q_qd_u[..., np_:np_ + nv],
+                q_qd_u[..., np_ + nv:])
+
+    def fd_du_packed(self, q_qd_u):
+        """Packed (B, num_pos + 2*num_vel) input, as the reference's
+        ``d_q_qd_u`` stride-3n buffer."""
+        return self.fd_du(*self._unpack3(q_qd_u))
+
+    def id_packed(self, q_qd_qdd):
+        return self.id(*self._unpack3(q_qd_qdd))
+
+    def aba_packed(self, q_qd_u):
+        return self.aba(*self._unpack3(q_qd_u))
+
+    def fd_packed(self, q_qd_u):
+        return self.fd(*self._unpack3(q_qd_u))
+
+    def idsva_so_packed(self, q_qd_qdd):
+        return self.idsva_so(*self._unpack3(q_qd_qdd))
+
+    def fdsva_so_packed(self, q_qd_u):
+        return self.fdsva_so(*self._unpack3(q_qd_u))
+
+    # ------------------------------------------------------------------
+    def joint_limits(self) -> np.ndarray:
+        return self.model.joint_limits.cpu().numpy()
+
+    def __repr__(self):
+        return (f"GRiD({self.model.name!r}, n={self.n}, dtype={self.dtype}, "
+                f"device={self.device})")

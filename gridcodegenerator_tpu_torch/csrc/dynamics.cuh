@@ -2,10 +2,10 @@
 //
 // Every kernel of this library runs one thread per problem lane; the
 // functions here are that thread's algebra, written for one lane in scalar
-// code: spatial algebra, joint transforms, RNEA, Carpentier's direct Minv,
-// ABA, end-effector FK (position only) and a pivot-free Gauss-Jordan
-// inverse. They follow the plain PyTorch ops of the package
-// (gridcodegenerator_tpu_torch/ops/*.py) step for step.
+// code: spatial algebra, joint transforms, RNEA, the analytical ID gradient,
+// Carpentier's direct Minv, ABA, end-effector FK (position only) and a
+// pivot-free Gauss-Jordan inverse. They follow the plain PyTorch ops of the
+// package (gridcodegenerator_tpu_torch/ops/*.py) step for step.
 //
 // Templates: T is float or double, NJ the joint count (fixed base, 1-dof
 // joints, ids topologically ordered: parent < child, so ascending ids are a
@@ -50,6 +50,17 @@ GT_HDI float gsin(float x) { return sinf(x); }
 GT_HDI double gsin(double x) { return sin(x); }
 GT_HDI float gcos(float x) { return cosf(x); }
 GT_HDI double gcos(double x) { return cos(x); }
+
+// Lane `lane` of a lane-major (K, L) array, to and from K values.
+template <typename T, int K>
+GT_HDI void lane_load(const T* src, long long L, long long lane, T* dst) {
+  for (int k = 0; k < K; ++k) dst[k] = src[k * L + lane];
+}
+
+template <typename T, int K>
+GT_HDI void lane_store(const T* src, long long L, long long lane, T* dst) {
+  for (int k = 0; k < K; ++k) dst[k * L + lane] = src[k];
+}
 
 template <typename T, int NJ>
 struct Robot {
@@ -258,12 +269,148 @@ GT_HD void rnea_bpass(const Robot<T, NJ>& R, const T (*X)[36], const T* qd,
   for (int i = 0; i < NJ; ++i) c[i] = f[i][R.sind[i]] + R.damping(i) * qd[i];
 }
 
-// ---------------------------------------------------------------------------
-// Carpentier's direct Minv -> dense symmetric (NJ, NJ)
-// ---------------------------------------------------------------------------
+// c = RNEA(q, qd[, qdd]) (NJ) from the joint transforms; qdd may be null.
+template <typename T, int NJ>
+GT_HD void rnea_from_x(const Robot<T, NJ>& R, const T (*X)[36], const T* qd,
+                       const T* qdd, T gravity, T* c) {
+  T v[NJ][6], a[NJ][6], f[NJ][6];
+  rnea_fpass(R, X, qd, qdd, gravity, v, a, f);
+  rnea_bpass(R, X, qd, f, c);
+}
 
 template <typename T, int NJ>
-GT_HD void minv_dense(const Robot<T, NJ>& R, const T (*X)[36], T* Mi) {
+GT_HD void rnea_lane(const Robot<T, NJ>& R, const T* q, const T* qd,
+                     const T* qdd, T gravity, T* c) {
+  T X[NJ][36];
+  all_xmats(R, q, X);
+  rnea_from_x(R, X, qd, qdd, gravity, c);
+}
+
+// ---------------------------------------------------------------------------
+// analytical ID gradient dc/d[q, qd]
+// ---------------------------------------------------------------------------
+
+// Column `col` of dc/d[q, qd] (col < NJ: dq_col, else dqd_{col-NJ}): one
+// forward-mode pass, the column-at-a-time form of
+// gridcodegenerator_tpu_torch/ops/id_grad.py:id_grad_inner, so a lane keeps
+// 6-vectors per joint live instead of (6, NJ) column blocks. `f` must be the
+// ACCUMULATED force of rnea_bpass (the crfS term reads it).
+template <typename T, int NJ>
+GT_HD void id_grad_column_pass(const Robot<T, NJ>& R, const T (*X)[36],
+                               const T* qd, const T (*v)[6],
+                               const T (*a)[6], const T (*f)[6],
+                               const T (*Iv)[6], T gravity, int col,
+                               T* dc) {
+  const bool isq = col < NJ;
+  const int j = isq ? col : col - NJ;
+  const T g[6] = {0, 0, 0, 0, 0, -gravity};
+  T dv[NJ][6], da[NJ][6], df[NJ][6];
+  for (int i = 0; i < NJ; ++i) {
+    const int p = R.parent[i], s = R.sind[i];
+    T t[6], m[6];
+    // dv_i = X dv_p + [i == j] (crm(X v_p) S | S)
+    if (p == -1) {
+      for (int k = 0; k < 6; ++k) dv[i][k] = T(0);
+    } else {
+      Xv(X[i], dv[p], dv[i]);
+    }
+    if (i == j) {
+      if (isq) {
+        if (p != -1) {
+          Xv(X[i], v[p], t);
+          mxS(s, t, m);
+          for (int k = 0; k < 6; ++k) dv[i][k] += m[k];
+        }
+      } else {
+        dv[i][s] += T(1);
+      }
+    }
+    // da_i = crm(dv_i) S qd_i + [i == j] (crm(X a_p) S | crm(v_i) S) + X da_p
+    mxS(s, dv[i], m);
+    for (int k = 0; k < 6; ++k) da[i][k] = m[k] * qd[i];
+    if (i == j) {
+      if (isq) {
+        Xv(X[i], p == -1 ? g : a[p], t);
+        mxS(s, t, m);
+      } else {
+        mxS(s, v[i], m);
+      }
+      for (int k = 0; k < 6; ++k) da[i][k] += m[k];
+    }
+    if (p != -1) {
+      Xv(X[i], da[p], t);
+      for (int k = 0; k < 6; ++k) da[i][k] += t[k];
+    }
+    // df_i = crf(dv_i) I v_i + I da_i + crf(v_i) I dv_i
+    T t1[6], t2[6], t3[6];
+    cross_fv(dv[i], Iv[i], t1);
+    Xv(R.Imat(i), da[i], t2);
+    Xv(R.Imat(i), dv[i], t);
+    cross_fv(v[i], t, t3);
+    for (int k = 0; k < 6; ++k) df[i][k] = t1[k] + t2[k] + t3[k];
+  }
+  for (int i = NJ - 1; i >= 0; --i) {
+    const int p = R.parent[i];
+    if (p == -1) continue;
+    T t[6];
+    XTv(X[i], df[i], t);
+    for (int k = 0; k < 6; ++k) df[p][k] += t[k];
+    if (isq && i == j) {   // d(X^T)/dq f = X^T crf(S) f
+      T m[6];
+      crfS(R.sind[i], f[i], m);
+      XTv(X[i], m, t);
+      for (int k = 0; k < 6; ++k) df[p][k] += t[k];
+    }
+  }
+  for (int i = 0; i < NJ; ++i)
+    dc[i] = df[i][R.sind[i]] + ((!isq && i == j) ? R.damping(i) : T(0));
+}
+
+// The columns of dc/d[q, qd] at (q, qd, qdd), from the joint transforms:
+// RNEA at qdd, whose backward pass accumulates f into the parents in place,
+// then one column pass per gradient column on the accumulated f, handing
+// each column dc (NJ) to sink(col, dc).
+template <typename T, int NJ, class Sink>
+GT_HD void id_du_columns(const Robot<T, NJ>& R, const T (*X)[36],
+                         const T* qd, const T* qdd, T gravity, Sink sink) {
+  T v[NJ][6], a[NJ][6], f[NJ][6], c[NJ], Iv[NJ][6];
+  rnea_fpass(R, X, qd, qdd, gravity, v, a, f);
+  rnea_bpass(R, X, qd, f, c);
+  for (int i = 0; i < NJ; ++i) Xv(R.Imat(i), v[i], Iv[i]);
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+  for (int col = 0; col < 2 * NJ; ++col) {
+    T dc[NJ];
+    id_grad_column_pass(R, X, qd, v, a, f, Iv, gravity, col, dc);
+    sink(col, dc);
+  }
+}
+
+// Sink of id_du_columns that stores dc_du (NJ, 2 NJ), row-major.
+template <typename T, int NJ>
+struct StoreColumns {
+  T* dcdu;
+  GT_HDI void operator()(int col, const T* dc) const {
+    for (int r = 0; r < NJ; ++r) dcdu[r * 2 * NJ + col] = dc[r];
+  }
+};
+
+template <typename T, int NJ>
+GT_HD void id_du_lane(const Robot<T, NJ>& R, const T* q, const T* qd,
+                      const T* qdd, T gravity, T* dcdu) {
+  T X[NJ][36];
+  all_xmats(R, q, X);
+  id_du_columns(R, X, qd, qdd, gravity, StoreColumns<T, NJ>{dcdu});
+}
+
+// ---------------------------------------------------------------------------
+// Carpentier's direct Minv (NJ, NJ): the upper factor, or dense symmetric
+// ---------------------------------------------------------------------------
+
+// Writes M[r][c] for r <= c and exact zeros below the diagonal.
+template <typename T, int NJ>
+GT_HD void minv_upper(const Robot<T, NJ>& R, const T (*X)[36], T* Mi) {
   T IA[NJ][36];
   T F[NJ][6][NJ];
   T U[NJ][6];
@@ -326,7 +473,26 @@ GT_HD void minv_dense(const Robot<T, NJ>& R, const T (*X)[36], T* Mi) {
   }
   for (int r = 0; r < NJ; ++r)
     for (int col = 0; col < NJ; ++col)
-      Mi[r * NJ + col] = r <= col ? M[r][col] : M[col][r];
+      Mi[r * NJ + col] = r <= col ? M[r][col] : T(0);
+}
+
+// The upper factor mirrored below the diagonal.
+template <typename T, int NJ>
+GT_HD void minv_dense(const Robot<T, NJ>& R, const T (*X)[36], T* Mi) {
+  minv_upper(R, X, Mi);
+  for (int r = 1; r < NJ; ++r)
+    for (int col = 0; col < r; ++col) Mi[r * NJ + col] = Mi[col * NJ + r];
+}
+
+template <typename T, int NJ>
+GT_HD void minv_lane(const Robot<T, NJ>& R, const T* q, bool dense, T* Mi) {
+  T X[NJ][36];
+  all_xmats(R, q, X);
+  if (dense) {
+    minv_dense(R, X, Mi);
+  } else {
+    minv_upper(R, X, Mi);
+  }
 }
 
 // ---------------------------------------------------------------------------

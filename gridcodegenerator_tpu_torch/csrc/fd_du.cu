@@ -3,10 +3,10 @@
 // Replaces gridcodegenerator_tpu/ops/pallas/kernels.py:fd_du_pallas
 // (with_extras=True). Per lane: joint transforms, Carpentier's Minv, the
 // bias RNEA, qdd = Minv (u - c), RNEA at qdd, the analytical ID gradient
-// dc/d[q, qd], and df/du = -Minv dc/du. The ID gradient runs one
-// forward-mode pass per gradient column (2 NJ of them), the column-at-a-time
-// form of gridcodegenerator_tpu_torch/ops/id_grad.py:id_grad_inner, so a
-// lane keeps 6-vectors per joint live instead of (6, NJ) column blocks.
+// dc/d[q, qd], and df/du = -Minv dc/du. The ID gradient
+// (dynamics.cuh:id_du_columns, shared with csrc/id_du.cu) runs one
+// forward-mode pass per gradient column (2 NJ of them), so a lane keeps
+// 6-vectors per joint live instead of (6, NJ) column blocks.
 //
 // Layout: inputs (NJ, L), outputs df_du (NJ, 2 NJ, L), qdd (NJ, L),
 // Minv (NJ, NJ, L); lane l reads and writes element l of each row, so a
@@ -15,76 +15,19 @@
 
 namespace gt {
 
+// Sink of id_du_columns that stores df/du = -Minv dc/du column by column.
 template <typename T, int NJ>
-GT_HD void id_grad_column_pass(const Robot<T, NJ>& R, const T (*X)[36],
-                               const T* qd, const T (*v)[6],
-                               const T (*a)[6], const T (*f)[6],
-                               const T (*Iv)[6], T gravity, int col,
-                               T* dc) {
-  const bool isq = col < NJ;
-  const int j = isq ? col : col - NJ;
-  const T g[6] = {0, 0, 0, 0, 0, -gravity};
-  T dv[NJ][6], da[NJ][6], df[NJ][6];
-  for (int i = 0; i < NJ; ++i) {
-    const int p = R.parent[i], s = R.sind[i];
-    T t[6], m[6];
-    // dv_i = X dv_p + [i == j] (crm(X v_p) S | S)
-    if (p == -1) {
-      for (int k = 0; k < 6; ++k) dv[i][k] = T(0);
-    } else {
-      Xv(X[i], dv[p], dv[i]);
-    }
-    if (i == j) {
-      if (isq) {
-        if (p != -1) {
-          Xv(X[i], v[p], t);
-          mxS(s, t, m);
-          for (int k = 0; k < 6; ++k) dv[i][k] += m[k];
-        }
-      } else {
-        dv[i][s] += T(1);
-      }
-    }
-    // da_i = crm(dv_i) S qd_i + [i == j] (crm(X a_p) S | crm(v_i) S) + X da_p
-    mxS(s, dv[i], m);
-    for (int k = 0; k < 6; ++k) da[i][k] = m[k] * qd[i];
-    if (i == j) {
-      if (isq) {
-        Xv(X[i], p == -1 ? g : a[p], t);
-        mxS(s, t, m);
-      } else {
-        mxS(s, v[i], m);
-      }
-      for (int k = 0; k < 6; ++k) da[i][k] += m[k];
-    }
-    if (p != -1) {
-      Xv(X[i], da[p], t);
-      for (int k = 0; k < 6; ++k) da[i][k] += t[k];
-    }
-    // df_i = crf(dv_i) I v_i + I da_i + crf(v_i) I dv_i
-    T t1[6], t2[6], t3[6];
-    cross_fv(dv[i], Iv[i], t1);
-    Xv(R.Imat(i), da[i], t2);
-    Xv(R.Imat(i), dv[i], t);
-    cross_fv(v[i], t, t3);
-    for (int k = 0; k < 6; ++k) df[i][k] = t1[k] + t2[k] + t3[k];
-  }
-  for (int i = NJ - 1; i >= 0; --i) {
-    const int p = R.parent[i];
-    if (p == -1) continue;
-    T t[6];
-    XTv(X[i], df[i], t);
-    for (int k = 0; k < 6; ++k) df[p][k] += t[k];
-    if (isq && i == j) {   // d(X^T)/dq f = X^T crf(S) f
-      T m[6];
-      crfS(R.sind[i], f[i], m);
-      XTv(X[i], m, t);
-      for (int k = 0; k < 6; ++k) df[p][k] += t[k];
+struct MinvColumns {
+  const T* Mi;
+  T* dfdu;
+  GT_HDI void operator()(int col, const T* dc) const {
+    for (int r = 0; r < NJ; ++r) {
+      T acc = Mi[r * NJ] * dc[0];
+      for (int k = 1; k < NJ; ++k) acc += Mi[r * NJ + k] * dc[k];
+      dfdu[r * 2 * NJ + col] = -acc;
     }
   }
-  for (int i = 0; i < NJ; ++i)
-    dc[i] = df[i][R.sind[i]] + ((!isq && i == j) ? R.damping(i) : T(0));
-}
+};
 
 template <typename T, int NJ>
 GT_HD void fd_du_lane(const Robot<T, NJ>& R, const T* q, const T* qd,
@@ -92,30 +35,14 @@ GT_HD void fd_du_lane(const Robot<T, NJ>& R, const T* q, const T* qd,
   T X[NJ][36];
   all_xmats(R, q, X);
   minv_dense(R, X, Mi);
-  T v[NJ][6], a[NJ][6], f[NJ][6], c[NJ];
-  rnea_fpass(R, X, qd, (const T*)nullptr, gravity, v, a, f);
-  rnea_bpass(R, X, qd, f, c);
+  T c[NJ];
+  rnea_from_x(R, X, qd, (const T*)nullptr, gravity, c);
   for (int i = 0; i < NJ; ++i) {
     T acc = Mi[i * NJ] * (u[0] - c[0]);
     for (int k = 1; k < NJ; ++k) acc += Mi[i * NJ + k] * (u[k] - c[k]);
     qdd[i] = acc;
   }
-  rnea_fpass(R, X, qd, qdd, gravity, v, a, f);
-  rnea_bpass(R, X, qd, f, c);
-  T Iv[NJ][6];
-  for (int i = 0; i < NJ; ++i) Xv(R.Imat(i), v[i], Iv[i]);
-#ifdef __CUDACC__
-#pragma unroll 1
-#endif
-  for (int col = 0; col < 2 * NJ; ++col) {
-    T dc[NJ];
-    id_grad_column_pass(R, X, qd, v, a, f, Iv, gravity, col, dc);
-    for (int r = 0; r < NJ; ++r) {
-      T acc = Mi[r * NJ] * dc[0];
-      for (int k = 1; k < NJ; ++k) acc += Mi[r * NJ + k] * dc[k];
-      dfdu[r * 2 * NJ + col] = -acc;
-    }
-  }
+  id_du_columns(R, X, qd, qdd, gravity, MinvColumns<T, NJ>{Mi, dfdu});
 }
 
 }  // namespace gt
@@ -133,16 +60,14 @@ __global__ void fd_du_kernel(const T* __restrict__ model,
   if (lane >= L) return;
   const gt::Robot<T, NJ> R(model);
   T ql[NJ], qdl[NJ], ul[NJ];
-  for (int i = 0; i < NJ; ++i) {
-    ql[i] = q[i * L + lane];
-    qdl[i] = qd[i * L + lane];
-    ul[i] = u[i * L + lane];
-  }
+  gt::lane_load<T, NJ>(q, L, lane, ql);
+  gt::lane_load<T, NJ>(qd, L, lane, qdl);
+  gt::lane_load<T, NJ>(u, L, lane, ul);
   T d[NJ * 2 * NJ], a[NJ], m[NJ * NJ];
   gt::fd_du_lane<T, NJ>(R, ql, qdl, ul, gravity, d, a, m);
-  for (int k = 0; k < NJ * 2 * NJ; ++k) dfdu[k * L + lane] = d[k];
-  for (int k = 0; k < NJ; ++k) qdd[k * L + lane] = a[k];
-  for (int k = 0; k < NJ * NJ; ++k) Mi[k * L + lane] = m[k];
+  gt::lane_store<T, NJ * 2 * NJ>(d, L, lane, dfdu);
+  gt::lane_store<T, NJ>(a, L, lane, qdd);
+  gt::lane_store<T, NJ * NJ>(m, L, lane, Mi);
 }
 
 template <typename T, int NJ>

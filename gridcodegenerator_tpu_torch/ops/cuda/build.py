@@ -33,7 +33,8 @@ import torch
 from ...models.model import RobotModel
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
-SOURCES = ("fd_du.cu", "rollout.cu", "linesearch.cu", "riccati.cu")
+SOURCES = ("fd_du.cu", "rollout.cu", "linesearch.cu", "riccati.cu", "rnea.cu",
+           "id_du.cu", "aba.cu", "minv.cu")
 HEADERS = ("dynamics.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libgridtorch.so"
@@ -81,7 +82,7 @@ def _nvcc() -> str:
 def build(verbose: bool = False) -> Path:
     """Compile the sources (once per source hash) and return the library path.
 
-    The four translation units compile in parallel into objects, then link
+    The translation units compile in parallel into objects, then link
     into one shared library; the result is moved into place atomically.
     """
     out_dir = BUILD_ROOT / _source_hash()
@@ -127,6 +128,10 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "gridtorch_model_size": (_I,),
     "gridtorch_fd_du": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_rnea": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_id_du": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_aba": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_minv": (_I, _I, _P, _P, _P, _L, _I, _P),
     "gridtorch_rollout": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _L, _D, _D, _P),
     "gridtorch_linesearch": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _P, _I, _L, _I, _D, _D, _D, _D, _D, _D,

@@ -1,15 +1,27 @@
-"""The fused forward-dynamics gradient: CUDA kernel and plain version.
+"""Per-lane dynamics kernels of the GRiD API: CUDA kernels and plain versions.
 
-``fd_du(model, q, qd, u)`` -> (df_du (n, 2n, L), qdd (n, L), Minv (n, n, L))
-over L lanes (in the solver L = N*B knots, knot-major).
+Lane-major tensors, L lanes on the trailing axis:
 
-Replaces ``gridcodegenerator_tpu/ops/pallas/kernels.py:fd_du_pallas``
-(``with_extras=True``). Kernel: ``csrc/fd_du.cu``, one thread per lane,
-everything in registers and local memory; inputs are read and outputs
-written along the lane axis, so every access is coalesced. What bounds it on
-the card: arithmetic and the local memory that holds each lane's joint
-transforms, inertias and Minv factors — not device memory, since a 7-DoF
-lane reads 21 values and writes 154.
+* ``fd_du(model, q, qd, u)`` -> (df_du (n, 2n, L), qdd (n, L),
+  Minv (n, n, L)): the fused forward-dynamics gradient (in the solver
+  L = N*B knots, knot-major). Replaces
+  ``gridcodegenerator_tpu/ops/pallas/kernels.py:fd_du_pallas``
+  (``with_extras=True``).
+* ``rnea(model, q, qd, qdd=None)`` -> c (n, L); without qdd the bias force.
+  Replaces ``kernels.py:rnea_pallas``.
+* ``id_du(model, q, qd, qdd)`` -> dc_du (n, 2n, L). Replaces
+  ``kernels.py:id_du_pallas``.
+* ``aba(model, q, qd, u)`` -> qdd (n, L). Replaces ``kernels.py:aba_pallas``.
+* ``minv(model, q, dense=True)`` -> Minv (n, n, L), dense or the upper
+  factor (exact zeros below the diagonal). Replaces
+  ``kernels.py:minv_pallas``.
+
+Kernels: ``csrc/<name>.cu``, one thread per lane, everything in registers
+and local memory; inputs are read and outputs written along the lane axis,
+so every access is coalesced. What bounds them on the card: arithmetic and
+the local memory that holds each lane's joint transforms, inertias and
+Minv factors — not device memory, since a 7-DoF lane reads at most 21
+values and writes at most 154.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -20,38 +32,139 @@ from __future__ import annotations
 import torch
 
 from ...models.model import RobotModel
+from ..aba import aba as _aba
 from ..common import DEFAULT_GRAVITY
 from ..fd_grad import fd_grad
+from ..id_grad import id_grad
+from ..minv import minv as _minv
+from ..rnea import rnea as _rnea
 from . import build
 
-NAME = "fd_du"
-SOURCE = "gridcodegenerator_tpu_torch/csrc/fd_du.cu"
-REPLACES = "gridcodegenerator_tpu/ops/pallas/kernels.py:171"
+FD_DU, RNEA, ID_DU, ABA, MINV = "fd_du", "rnea", "id_du", "aba", "minv"
+SOURCES = {k: f"gridcodegenerator_tpu_torch/csrc/{k}.cu"
+           for k in (FD_DU, RNEA, ID_DU, ABA, MINV)}
+REPLACES = {FD_DU: "gridcodegenerator_tpu/ops/pallas/kernels.py:171",
+            RNEA: "gridcodegenerator_tpu/ops/pallas/kernels.py:77",
+            ID_DU: "gridcodegenerator_tpu/ops/pallas/kernels.py:156",
+            ABA: "gridcodegenerator_tpu/ops/pallas/kernels.py:141",
+            MINV: "gridcodegenerator_tpu/ops/pallas/kernels.py:98"}
 
+
+def _lanes(model: RobotModel, what: str, inputs):
+    """Check the (n, L) inputs of kernel ``what`` (None entries skipped) ->
+    (dtype code, joint count, L)."""
+    first = inputs["q"]
+    dcode, nj = build.kernel_key(model, first, what)
+    n, L = model.n, first.shape[-1]
+    for name, t in inputs.items():
+        if t is not None and tuple(t.shape) != (n, L):
+            raise ValueError(f"{what}: {name} is {tuple(t.shape)}, "
+                             f"expected {(n, L)}")
+    build.require(inputs, first.dtype, first.device, what)
+    return dcode, nj, L
+
+
+def _empty(like: torch.Tensor, *shape):
+    return torch.empty(shape, dtype=like.dtype, device=like.device)
+
+
+def _launched(what: str, err: int):
+    build.check(err, what)
+    build.LAUNCHES[what] += 1
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
 
 def fd_du_plain(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
     """Plain PyTorch version: ``fd_grad(return_extras=True)``."""
-    build.PLAIN_CALLS[NAME] += 1
+    build.PLAIN_CALLS[FD_DU] += 1
     return fd_grad(model, q, qd, u, gravity, return_extras=True)
 
+
+def rnea_plain(model: RobotModel, q, qd, qdd=None, gravity=DEFAULT_GRAVITY):
+    build.PLAIN_CALLS[RNEA] += 1
+    return _rnea(model, q, qd, qdd, gravity)
+
+
+def id_du_plain(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
+    build.PLAIN_CALLS[ID_DU] += 1
+    return id_grad(model, q, qd, qdd, gravity)
+
+
+def aba_plain(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
+    build.PLAIN_CALLS[ABA] += 1
+    return _aba(model, q, qd, u, gravity)
+
+
+def minv_plain(model: RobotModel, q, dense: bool = True):
+    build.PLAIN_CALLS[MINV] += 1
+    return _minv(model, q, dense)
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
 
 def fd_du(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
     if not q.is_cuda:
         return fd_du_plain(model, q, qd, u, gravity)
-    what = "fd_du"
-    dcode, nj = build.kernel_key(model, q, what)
-    n, L = model.n, q.shape[-1]
-    for t in (q, qd, u):
-        if t.shape != (n, L):
-            raise ValueError(f"{what}: expected ({n}, {L}), got {tuple(t.shape)}")
-    build.require(dict(q=q, qd=qd, u=u), q.dtype, q.device, what)
-    df_du = torch.empty((n, 2 * n, L), dtype=q.dtype, device=q.device)
-    qdd = torch.empty((n, L), dtype=q.dtype, device=q.device)
-    Mi = torch.empty((n, n, L), dtype=q.dtype, device=q.device)
-    err = build.lib().gridtorch_fd_du(
+    dcode, nj, L = _lanes(model, FD_DU, dict(q=q, qd=qd, u=u))
+    n = model.n
+    df_du = _empty(q, n, 2 * n, L)
+    qdd, Mi = _empty(q, n, L), _empty(q, n, n, L)
+    _launched(FD_DU, build.lib().gridtorch_fd_du(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(u), build.ptr(df_du), build.ptr(qdd),
-        build.ptr(Mi), L, float(gravity), build.stream_ptr(q.device))
-    build.check(err, what)
-    build.LAUNCHES[NAME] += 1
+        build.ptr(Mi), L, float(gravity), build.stream_ptr(q.device)))
     return df_du, qdd, Mi
+
+
+def rnea(model: RobotModel, q, qd, qdd=None, gravity=DEFAULT_GRAVITY):
+    if not q.is_cuda:
+        return rnea_plain(model, q, qd, qdd, gravity)
+    dcode, nj, L = _lanes(model, RNEA, dict(q=q, qd=qd, qdd=qdd))
+    c = _empty(q, model.n, L)
+    _launched(RNEA, build.lib().gridtorch_rnea(
+        dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
+        build.ptr(qd), build.ptr(qdd), build.ptr(c), L, float(gravity),
+        build.stream_ptr(q.device)))
+    return c
+
+
+def id_du(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
+    if not q.is_cuda:
+        return id_du_plain(model, q, qd, qdd, gravity)
+    if qdd is None:
+        raise ValueError(f"{ID_DU}: qdd is required")
+    dcode, nj, L = _lanes(model, ID_DU, dict(q=q, qd=qd, qdd=qdd))
+    dc_du = _empty(q, model.n, 2 * model.n, L)
+    _launched(ID_DU, build.lib().gridtorch_id_du(
+        dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
+        build.ptr(qd), build.ptr(qdd), build.ptr(dc_du), L, float(gravity),
+        build.stream_ptr(q.device)))
+    return dc_du
+
+
+def aba(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
+    if not q.is_cuda:
+        return aba_plain(model, q, qd, u, gravity)
+    dcode, nj, L = _lanes(model, ABA, dict(q=q, qd=qd, u=u))
+    qdd = _empty(q, model.n, L)
+    _launched(ABA, build.lib().gridtorch_aba(
+        dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
+        build.ptr(qd), build.ptr(u), build.ptr(qdd), L, float(gravity),
+        build.stream_ptr(q.device)))
+    return qdd
+
+
+def minv(model: RobotModel, q, dense: bool = True):
+    if not q.is_cuda:
+        return minv_plain(model, q, dense)
+    dcode, nj, L = _lanes(model, MINV, dict(q=q))
+    Mi = _empty(q, model.n, model.n, L)
+    _launched(MINV, build.lib().gridtorch_minv(
+        dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
+        build.ptr(Mi), L, int(bool(dense)), build.stream_ptr(q.device)))
+    return Mi

@@ -1,8 +1,11 @@
 """The port's plain dynamics ops against the JAX package's (CPU, float64).
 
 Inputs are made with numpy from a seed and fed to both packages; the
-constants reach the port through ``model_from_numpy``. Tolerance: 1e-10
-absolute, the oracle tolerance of the JAX package's own tests.
+constants reach the port through ``model_from_numpy``. The plain twins of
+the port's kernels are also held against the JAX Pallas kernels they
+replace, run in interpret mode as ``tests/test_pallas.py`` runs them.
+Tolerance: 1e-10 absolute, the oracle tolerance of the JAX package's own
+tests.
 """
 
 import jax.numpy as jnp
@@ -18,6 +21,7 @@ from gridcodegenerator_tpu.ops import fd_grad as jax_fd_grad
 from gridcodegenerator_tpu.ops import linalg as jax_linalg
 from gridcodegenerator_tpu.ops import minv as jax_minv
 from gridcodegenerator_tpu.ops import rnea as jax_rnea
+from gridcodegenerator_tpu.ops.pallas import kernels as pk
 from gridcodegenerator_tpu_torch.models.model import (ARRAY_FIELDS,
                                                        STATIC_FIELDS,
                                                        model_from_numpy)
@@ -108,3 +112,34 @@ def test_gj_inverse_matches_jax():
     eye = np.einsum("ikb,kjb->ijb", ours.numpy(), A)
     np.testing.assert_allclose(eye, np.eye(m)[:, :, None] + 0 * eye,
                                atol=1e-12)
+
+
+# plain twin of a port kernel -> (its JAX Pallas kernel, interpret mode, and
+# the number of (n, B) inputs both take)
+PALLAS = {
+    "rnea": (kernels.rnea_plain,
+             lambda m: pk.rnea_pallas(m, -9.81, block_b=8, interpret=True), 3),
+    "rnea_bias": (kernels.rnea_plain,
+                  lambda m: pk.rnea_pallas(m, -9.81, with_qdd=False,
+                                           block_b=8, interpret=True), 2),
+    "id_du": (kernels.id_du_plain,
+              lambda m: pk.id_du_pallas(m, -9.81, block_b=8, interpret=True),
+              3),
+    "aba": (kernels.aba_plain,
+            lambda m: pk.aba_pallas(m, -9.81, block_b=8, interpret=True), 3),
+    "minv": (lambda m, q: kernels.minv_plain(m, q, True),
+             lambda m: pk.minv_pallas(m, True, block_b=8, interpret=True), 1),
+    "minv_upper": (lambda m, q: kernels.minv_plain(m, q, False),
+                   lambda m: pk.minv_pallas(m, False, block_b=8,
+                                            interpret=True), 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PALLAS))
+def test_plain_twin_matches_jax_pallas_kernel(pair, case):
+    jm, tm, _ = pair
+    plain, pallas, nargs = PALLAS[case]
+    rng = np.random.default_rng(5)
+    x = [rng.uniform(-1, 1, (jm.n, 8)) for _ in range(nargs)]   # B = 8
+    _close(plain(tm, *map(_t, x)),
+           pallas(jm)(*(jnp.asarray(a) for a in x)))

@@ -25,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from gridcodegenerator_tpu_torch.api import GRiD
 from gridcodegenerator_tpu_torch.models.model import build_model
 from gridcodegenerator_tpu_torch.models.zoo import load_robot
 from gridcodegenerator_tpu_torch.ops import eepose
@@ -38,7 +39,11 @@ from gridcodegenerator_tpu_torch.trajopt.ilqr import (ILQRConfig, make_ilqr,
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-9
-KERNELS = ("fd_du", "rollout", "riccati_factored", "linesearch_rollout")
+# kernel cases: each kernel, plus the bias form of rnea and the upper factor
+# of minv, which launch the rnea and minv kernels
+KERNELS = ("fd_du", "rollout", "riccati_factored", "linesearch_rollout",
+           "rnea", "rnea_bias", "id_du", "aba", "minv", "minv_upper")
+KERNEL_OF = {"rnea_bias": "rnea", "minv_upper": "minv"}
 
 
 def path_inputs(model, N, B, seed):
@@ -70,8 +75,15 @@ def path_inputs(model, N, B, seed):
         hi = torch.full((n, 1), 3.5, dtype=model.dtype, device=dev)
     al = torch.as_tensor(rng.uniform(0.05, 1.0, (4, B)), dtype=model.dtype,
                          device=dev)
+    q, qd, u = fold(X[:N, :n]), fold(X[:N, n:]), fold(U)
     return {
-        "fd_du": (model, fold(X[:N, :n]), fold(X[:N, n:]), fold(U), -9.81),
+        "fd_du": (model, q, qd, u, -9.81),
+        "rnea": (model, q, qd, u, -9.81),   # u as qdd
+        "rnea_bias": (model, q, qd, None, -9.81),
+        "id_du": (model, q, qd, u, -9.81),
+        "aba": (model, q, qd, u, -9.81),
+        "minv": (model, q, True),
+        "minv_upper": (model, q, False),
         "rollout": (model, x0, U, 0.01, -9.81, lo, hi),
         "riccati_factored": ric,
         "linesearch_rollout": (model, X[0].contiguous(), U,
@@ -85,7 +97,13 @@ WRAPPERS = {"fd_du": (K.fd_du, K.fd_du_plain),
             "riccati_factored": (S.riccati_factored,
                                  S.riccati_factored_plain),
             "linesearch_rollout": (S.linesearch_rollout,
-                                   S.linesearch_rollout_plain)}
+                                   S.linesearch_rollout_plain),
+            "rnea": (K.rnea, K.rnea_plain),
+            "rnea_bias": (K.rnea, K.rnea_plain),
+            "id_du": (K.id_du, K.id_du_plain),
+            "aba": (K.aba, K.aba_plain),
+            "minv": (K.minv, K.minv_plain),
+            "minv_upper": (K.minv, K.minv_plain)}
 
 
 def _outs(o):
@@ -122,7 +140,8 @@ def test_cpu_tensors_take_the_plain_version(name):
     build.reset_counters()
     wrapper, plain = WRAPPERS[name]
     got = _outs(wrapper(*args))
-    assert build.PLAIN_CALLS[name] == 1 and not build.LAUNCHES
+    assert build.PLAIN_CALLS[KERNEL_OF.get(name, name)] == 1
+    assert not build.LAUNCHES
     want = _outs(plain(*args))
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
@@ -164,8 +183,27 @@ HARNESS = r"""
 #include "rollout.cu"
 #include "linesearch.cu"
 #include "riccati.cu"
+#include "rnea.cu"
+#include "id_du.cu"
+#include "aba.cu"
+#include "minv.cu"
 using namespace gt;
 typedef long long ll;
+
+// (q, qd, x) -> out over L lanes for the per-lane functions of rnea (x =
+// qdd, may be null), id_du (x = qdd) and aba (x = u)
+template <int NJ, int OUT, class F>
+void lanes3(const double* q, const double* qd, const double* x, double* out,
+            ll L, F lane_fn) {
+  for (ll l = 0; l < L; ++l) {
+    double ql[NJ], qdl[NJ], xl[NJ], ol[OUT];
+    lane_load<double, NJ>(q, L, l, ql);
+    lane_load<double, NJ>(qd, L, l, qdl);
+    if (x) lane_load<double, NJ>(x, L, l, xl);
+    lane_fn(ql, qdl, x ? xl : nullptr, ol);
+    lane_store<double, OUT>(ol, L, l, out);
+  }
+}
 
 template <int NJ>
 void fd_du_all(const double* m, const double* q, const double* qd,
@@ -188,6 +226,37 @@ extern "C" int size_##NJ() { return Layout<NJ>::SIZE; }                     \
 extern "C" void fd_du_##NJ(const double* m, const double* q,                \
     const double* qd, const double* u, double* d, double* a, double* mi,    \
     ll L) { fd_du_all<NJ>(m, q, qd, u, d, a, mi, L); }                       \
+extern "C" void rnea_##NJ(const double* m, const double* q,                 \
+    const double* qd, const double* qdd, double* c, ll L) {                 \
+  Robot<double, NJ> R(m);                                                   \
+  lanes3<NJ, NJ>(q, qd, qdd, c, L, [&](const double* a, const double* b,    \
+      const double* x, double* o) {                                         \
+    rnea_lane<double, NJ>(R, a, b, x, -9.81, o); });                        \
+}                                                                           \
+extern "C" void id_du_##NJ(const double* m, const double* q,                \
+    const double* qd, const double* qdd, double* d, ll L) {                 \
+  Robot<double, NJ> R(m);                                                   \
+  lanes3<NJ, NJ * 2 * NJ>(q, qd, qdd, d, L, [&](const double* a,            \
+      const double* b, const double* x, double* o) {                        \
+    id_du_lane<double, NJ>(R, a, b, x, -9.81, o); });                       \
+}                                                                           \
+extern "C" void aba_##NJ(const double* m, const double* q,                  \
+    const double* qd, const double* u, double* qdd, ll L) {                 \
+  Robot<double, NJ> R(m);                                                   \
+  lanes3<NJ, NJ>(q, qd, u, qdd, L, [&](const double* a, const double* b,   \
+      const double* x, double* o) {                                         \
+    aba<double, NJ>(R, a, b, x, -9.81, o); });                              \
+}                                                                           \
+extern "C" void minv_##NJ(const double* m, const double* q, double* mi,    \
+    ll L, int dense) {                                                      \
+  Robot<double, NJ> R(m);                                                   \
+  for (ll l = 0; l < L; ++l) {                                              \
+    double ql[NJ], ml[NJ * NJ];                                             \
+    lane_load<double, NJ>(q, L, l, ql);                                     \
+    minv_lane<double, NJ>(R, ql, dense != 0, ml);                           \
+    lane_store<double, NJ * NJ>(ml, L, l, mi);                              \
+  }                                                                         \
+}                                                                           \
 extern "C" void rollout_##NJ(const double* m, const double* x0,            \
     const double* U, const double* lo, const double* hi, double* X, int N,  \
     ll B) {                                                                 \
@@ -251,6 +320,22 @@ def _host_run(lib, name, args):
         getattr(lib, f"fd_du_{n}")(_p(build.model_buffer(m)), _p(q), _p(qd),
                                    _p(u), *map(_p, out), ll(L))
         return out
+    if name in ("rnea", "rnea_bias", "id_du", "aba"):
+        m, q, qd, x, _ = args
+        n, L = q.shape
+        out = torch.empty((n, 2 * n, L) if name == "id_du" else (n, L),
+                          dtype=q.dtype)
+        fn = KERNEL_OF.get(name, name)
+        getattr(lib, f"{fn}_{n}")(_p(build.model_buffer(m)), _p(q), _p(qd),
+                                  _p(x), _p(out), ll(L))
+        return (out,)
+    if name in ("minv", "minv_upper"):
+        m, q, dense = args
+        n, L = q.shape
+        out = torch.empty(n, n, L, dtype=q.dtype)
+        getattr(lib, f"minv_{n}")(_p(build.model_buffer(m)), _p(q), _p(out),
+                                  ll(L), ctypes.c_int(int(dense)))
+        return (out,)
     if name == "rollout":
         m, x0, U, _, _, lo, hi = args
         N, n, B = U.shape
@@ -292,6 +377,8 @@ def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
     want = _outs(WRAPPERS[name][1](*args))
     assert len(got) == len(want)
     assert _max_err(got, want) <= TOL
+    if name == "minv_upper":   # exact zeros below the diagonal
+        assert not got[0].permute(2, 0, 1).tril(-1).any()
 
 
 # ---------------------------------------------------------------------------
@@ -316,10 +403,13 @@ def test_cuda_kernel_matches_plain(cuda_device, name, robot):
     build.reset_counters()
     got = _outs(kern(*args))
     torch.cuda.synchronize()
-    assert build.LAUNCHES[name] == 1 and not build.PLAIN_CALLS
+    assert build.LAUNCHES[KERNEL_OF.get(name, name)] == 1
+    assert not build.PLAIN_CALLS
     want = _outs(plain(*args))
     assert all(g.is_cuda and g.shape == w.shape for g, w in zip(got, want))
     assert _max_err(got, want) <= TOL
+    if name == "minv_upper":   # exact zeros below the diagonal
+        assert not got[0].permute(2, 0, 1).tril(-1).any()
 
 
 @pytest.mark.cuda
@@ -342,3 +432,29 @@ def test_cuda_slice_launches_every_kernel(cuda_device):
     ref = make_ilqr(m, cost, ILQRConfig(N=8, iters=2, use_kernels=False))(
         x0, U0)
     assert float((res.cost_trace - ref.cost_trace).abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_cuda_grid_launches_one_kernel_per_call(cuda_device):
+    """Each GRiD method launches exactly its kernel, unbatched and at a
+    ragged B, and matches the plain GRiD on the same inputs (float64)."""
+    g = GRiD("iiwa", dtype=torch.float64, device=cuda_device)
+    plain = GRiD("iiwa", dtype=torch.float64, device=cuda_device,
+                 use_kernels=False)
+    rng = np.random.default_rng(4)
+    calls = {"id": ("rnea", 3), "id_du": ("id_du", 3), "aba": ("aba", 3),
+             "fd_du": ("fd_du", 3), "minv": ("minv", 1)}
+    for shape in ((7,), (37, 7)):
+        x = [rng.uniform(-1, 1, shape) for _ in range(3)]
+        for method, (kernel, nargs) in calls.items():
+            build.reset_counters()
+            got = getattr(g, method)(*x[:nargs])
+            torch.cuda.synchronize()
+            assert dict(build.LAUNCHES) == {kernel: 1}, method
+            assert not build.PLAIN_CALLS
+            want = getattr(plain, method)(*x[:nargs])
+            assert build.PLAIN_CALLS[kernel] == 1
+            assert got.is_cuda and got.shape == want.shape
+            assert _max_err((got,), (want,)) <= TOL
+    with pytest.raises(NotImplementedError):   # 12 joints: no instance
+        GRiD("hyq", device=cuda_device).id(np.zeros(12), np.zeros(12))
