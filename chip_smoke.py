@@ -1,4 +1,5 @@
-"""On-card smoke test of the PyTorch/CUDA port: configs 3, 1 and 2 end to end.
+"""On-card smoke test of the PyTorch/CUDA port: configs 3, 1 and 2 end to end,
+and the rest of the GRiD API's first-order calls.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -9,19 +10,22 @@ Phases, one line each:
   1. build: compile the CUDA kernels from gridcodegenerator_tpu_torch/csrc;
   2. each kernel against its plain PyTorch version on the same CUDA inputs,
      iiwa at small B and N (37 lanes: a ragged block), float64: max abs
-     error <= 1e-9;
+     error <= 1e-9; and every GRiD kernel case on hyq (12 joints, branched,
+     4 EEs);
   3. the same in float32 (tolerances below), with each kernel's and plain
      version's device time from CUDA events: the config-3 kernels at
-     config-3 shapes, the GRiD kernels (rnea, id_du, aba, minv) at 1024
-     and 131072 lanes;
+     config-3 shapes, the GRiD kernels (rnea, id_du, aba, minv, fd, crba,
+     eepos, deepos) at 1024 and 131072 lanes;
   4. config 3 (iiwa, N=64, 5 iterations, B=2048, float32, EE reach) through
      the port's make_ilqr with kernels: every kernel of the path launched,
      nothing plain ran, costs finite and decreasing, final costs agree with
      a plain solve of the same inputs; solves/s over 10 solves;
   5. configs 1 and 2 (iiwa, float32) through the port's GRiD: id and id_du
-     unbatched and at B=1024, aba, fd_du and minv at B=1024; each call
-     launched exactly its kernel and nothing plain ran; outputs agree with a
-     float64 plain GRiD on the same inputs; µs per call and evals/s.
+     unbatched and at B=1024, aba, fd_du and minv at B=1024; then fd, crba,
+     eepos and deepos unbatched and at B=1024, and hyq's eepos at B=1024;
+     each call launched exactly its kernel and nothing plain ran; outputs
+     agree with a float64 plain GRiD on the same inputs; fk (plain torch,
+     no kernel) agrees too; µs per call and evals/s.
 Then a JSON line of per-kernel results, and last the device line.
 Any failure raises, so the exit code is non-zero and no result is printed.
 """
@@ -147,26 +151,39 @@ def main():
     }
 
     # the GRiD API's kernels, and their cases: rnea with and without qdd,
-    # minv dense and upper
+    # minv dense and upper; fd_du's cases (config 3's kernel) run in phase
+    # 2 on hyq only
     grid_kernels = {name: (getattr(K, name), getattr(K, name + "_plain"),
                            K.SOURCES[name], K.REPLACES[name])
-                    for name in (K.RNEA, K.ID_DU, K.ABA, K.MINV)}
+                    for name in (K.RNEA, K.ID_DU, K.ABA, K.MINV, K.FD,
+                                 K.CRBA, K.EEPOS, K.DEEPOS)}
     case_kernel = {"rnea": "rnea", "rnea_bias": "rnea", "id_du": "id_du",
-                   "aba": "aba", "minv": "minv", "minv_upper": "minv"}
+                   "aba": "aba", "minv": "minv", "minv_upper": "minv",
+                   "fd": "fd", "crba": "crba", "eepos": "eepos",
+                   "deepos": "deepos", "fd_du": "fd_du"}
+    case_fns = {name: fns[:2] for name, fns in grid_kernels.items()} | {
+        "fd_du": (K.fd_du, K.fd_du_plain)}
 
-    def lane_cases(model, lanes, seed):
+    def lane_cases(model, lanes, seed, with_fd_du=False):
         """Each GRiD kernel case on (n, lanes) inputs ~ U(-1, 1), as
         bench.py makes them."""
         rng = np.random.default_rng(seed)
         q, qd, x = (torch.as_tensor(rng.uniform(-1, 1, (model.n, lanes)),
                                     dtype=model.dtype, device=dev)
                     for _ in range(3))
-        return {"rnea": (model, q, qd, x, GRAVITY),
-                "rnea_bias": (model, q, qd, None, GRAVITY),
-                "id_du": (model, q, qd, x, GRAVITY),
-                "aba": (model, q, qd, x, GRAVITY),
-                "minv": (model, q, True),
-                "minv_upper": (model, q, False)}
+        cases = {"rnea": (model, q, qd, x, GRAVITY),
+                 "rnea_bias": (model, q, qd, None, GRAVITY),
+                 "id_du": (model, q, qd, x, GRAVITY),
+                 "aba": (model, q, qd, x, GRAVITY),
+                 "minv": (model, q, True),
+                 "minv_upper": (model, q, False),
+                 "fd": (model, q, qd, x, GRAVITY),
+                 "crba": (model, q),
+                 "eepos": (model, q),
+                 "deepos": (model, q)}
+        if with_fd_du:
+            cases["fd_du"] = (model, q, qd, x, GRAVITY)
+        return cases
 
     def as_tuple(o):
         return tuple(t for t in (o if isinstance(o, tuple) else (o,))
@@ -188,22 +205,33 @@ def main():
         small[name] = err
         if not err <= 1e-9:
             raise AssertionError(f"{name} float64: max abs err {err} > 1e-9")
-    for case, args in lane_cases(m64, 37, seed=1).items():
-        kern, plain = grid_kernels[case_kernel[case]][:2]
-        out, ref = kern(*args), plain(*args)
-        torch.cuda.synchronize()
-        if out.shape != ref.shape:
-            raise AssertionError(f"{case}: kernel output {tuple(out.shape)}, "
-                                 f"plain {tuple(ref.shape)}")
-        err = max_err((out,), (ref,))
-        small[case] = err
-        if not err <= 1e-9:
-            raise AssertionError(f"{case} float64: max abs err {err} > 1e-9")
-        if case == "minv_upper" and bool(
-                out.permute(2, 0, 1).tril(-1).any()):
-            raise AssertionError("minv upper: nonzero below the diagonal")
+    hyq64 = build_model(load_robot("hyq"), dtype=torch.float64, device=dev)
+    small_hyq = {}
+    for errs, cases in ((small, lane_cases(m64, 37, seed=1)),
+                        (small_hyq, lane_cases(hyq64, 37, seed=1,
+                                               with_fd_du=True))):
+        for case, args in cases.items():
+            kern, plain = case_fns[case_kernel[case]]
+            out, ref = as_tuple(kern(*args)), as_tuple(plain(*args))
+            torch.cuda.synchronize()
+            what = f"{args[0].name} {case}"
+            if len(out) != len(ref) or any(o.shape != r.shape
+                                           for o, r in zip(out, ref)):
+                raise AssertionError(f"{what}: kernel and plain outputs "
+                                     f"differ in number or shape")
+            err = max_err(out, ref)
+            errs[case] = err
+            if not err <= 1e-9:
+                raise AssertionError(f"{what} float64: max abs err {err} "
+                                     f"> 1e-9")
+            if case == "minv_upper" and bool(
+                    out[0].permute(2, 0, 1).tril(-1).any()):
+                raise AssertionError(f"{what}: nonzero below the diagonal")
     line("small_f64", {"robot": "iiwa", "N": 8, "B": 37,
                        "max_abs_err": small, "tol": 1e-9})
+    line("small_f64_hyq", {"robot": "hyq", "joints": hyq64.n,
+                           "ees": build.ee_buffer(hyq64).shape[0],
+                           "B": 37, "max_abs_err": small_hyq, "tol": 1e-9})
 
     # -- phase 3: config-3 shapes, float32 ----------------------------------
     m32 = build_model(topo, dtype=torch.float32, device=dev)
@@ -273,7 +301,7 @@ def main():
     grid_f32 = {}
     for lanes in (1024, N * B):
         for case, args in lane_cases(m32, lanes, seed=0).items():
-            kern, plain = grid_kernels[case_kernel[case]][:2]
+            kern, plain = case_fns[case_kernel[case]]
             out, ref = kern(*args), plain(*args)
             ref64 = plain(*map(to64, args))
             torch.cuda.synchronize()
@@ -386,34 +414,45 @@ def main():
                                 "plain_f64": float(c_p64.mean())},
         "launches": launches, "phases": phases})
 
-    # -- phase 5: configs 1 and 2 through the port's GRiD -------------------
-    g = GRiD("iiwa", dtype=torch.float32, device=dev)
-    p32 = GRiD("iiwa", dtype=torch.float32, device=dev, use_kernels=False)
-    p64 = GRiD("iiwa", dtype=torch.float64, device=dev, use_kernels=False)
+    # -- phase 5: configs 1 and 2 and the rest of the API through GRiD -----
+    grids = {robot: (GRiD(robot, dtype=torch.float32, device=dev),
+                     GRiD(robot, dtype=torch.float32, device=dev,
+                          use_kernels=False),
+                     GRiD(robot, dtype=torch.float64, device=dev,
+                          use_kernels=False))
+             for robot in ("iiwa", "hyq")}
+    g = grids["iiwa"][0]
     n, BG = g.num_vel, 1024
     rng = np.random.default_rng(0)                      # config 1 (bench.py)
     x1 = tuple(rng.uniform(-1, 1, n) for _ in range(3))
     xb = (rng.uniform(-1, 1, (BG, n)),) * 3
     rng = np.random.default_rng(0)                      # config 2 (bench.py)
     x2 = tuple(rng.uniform(-1, 1, (BG, n)) for _ in range(3))
-    calls = {   # label -> (method, numpy inputs, kernel it launches)
-        "c1_id_B1": ("id", x1, "rnea"),
-        "c1_id_du_B1": ("id_du", x1, "id_du"),
-        "c1_id_B1024": ("id", xb, "rnea"),
-        "c1_id_du_B1024": ("id_du", xb, "id_du"),
-        "c2_aba": ("aba", x2, "aba"),
-        "c2_fd_du": ("fd_du", x2, "fd_du"),
-        "c2_minv": ("minv", x2[:1], "minv"),
+    xh = (np.random.default_rng(0).uniform(-1, 1, (BG, 12)),)
+    calls = {   # label -> (robot, method, numpy inputs, kernel it launches)
+        "c1_id_B1": ("iiwa", "id", x1, "rnea"),
+        "c1_id_du_B1": ("iiwa", "id_du", x1, "id_du"),
+        "c1_id_B1024": ("iiwa", "id", xb, "rnea"),
+        "c1_id_du_B1024": ("iiwa", "id_du", xb, "id_du"),
+        "c2_aba": ("iiwa", "aba", x2, "aba"),
+        "c2_fd_du": ("iiwa", "fd_du", x2, "fd_du"),
+        "c2_minv": ("iiwa", "minv", x2[:1], "minv"),
+        "hyq_eepos_B1024": ("hyq", "eepos", xh, "eepos"),
     }
-    ref64 = {k: getattr(p64, m)(*x).double() for k, (m, x, _) in calls.items()}
-    ref32 = {k: getattr(p32, m)(*x) for k, (m, x, _) in calls.items()}
+    for method, nargs in (("fd", 3), ("crba", 1), ("eepos", 1),
+                          ("deepos", 1)):
+        calls[f"api_{method}_B1"] = ("iiwa", method, x1[:nargs], method)
+        calls[f"api_{method}_B1024"] = ("iiwa", method, x2[:nargs], method)
+    ref64 = {k: getattr(grids[r][2], m)(*x).double()
+             for k, (r, m, x, _) in calls.items()}
+    ref32 = {k: getattr(grids[r][1], m)(*x) for k, (r, m, x, _) in calls.items()}
     torch.cuda.synchronize()
 
     build.reset_counters()
     outs = {}
-    for label, (method, x, kernel) in calls.items():
+    for label, (robot, method, x, kernel) in calls.items():
         before = dict(build.LAUNCHES)
-        outs[label] = getattr(g, method)(*x)
+        outs[label] = getattr(grids[robot][0], method)(*x)
         torch.cuda.synchronize()
         added = {k: v - before.get(k, 0) for k, v in build.LAUNCHES.items()
                  if v != before.get(k, 0)}
@@ -421,6 +460,13 @@ def main():
             raise AssertionError(f"GRiD.{method} ({label}) launched "
                                  f"{added}, expected {{{kernel!r}: 1}}")
     grid_launches = dict(build.LAUNCHES)
+    # fk has no kernel: plain torch on the card, no launch and no plain call
+    outs["api_fk_B1024"] = g.fk(x2[0])
+    torch.cuda.synchronize()
+    ref64["api_fk_B1024"] = grids["iiwa"][2].fk(x2[0]).double()
+    ref32["api_fk_B1024"] = grids["iiwa"][1].fk(x2[0])
+    if dict(build.LAUNCHES) != grid_launches:
+        raise AssertionError("GRiD.fk launched a kernel")
     if build.PLAIN_CALLS:
         raise AssertionError(f"GRiD path ran plain versions: "
                              f"{dict(build.PLAIN_CALLS)}")
@@ -466,9 +512,18 @@ def main():
     }
     for k in ("aba", "fd_du", "minv"):
         c2[f"{k}_evals_per_s"] = BG / (c2[f"{k}_us_per_call"] / 1e6)
+    api = {}
+    for method, nargs in (("fd", 3), ("crba", 1), ("eepos", 1),
+                          ("deepos", 1), ("fk", 1)):
+        fn = getattr(g, method)
+        api[f"{method}_us_B1"] = us(lambda: fn(*t1[:nargs]), 200)
+        api[f"{method}_us_B1024"] = us(lambda: fn(*t2[:nargs]), 100)
+    th = on_card(xh)
+    api["hyq_eepos_us_B1024"] = us(lambda: grids["hyq"][0].eepos(*th), 100)
     line("grid", {"configs": [1, 2], "robot": "iiwa", "dtype": "float32",
                   "B": BG, "device": smi, "config1": c1, "config2": c2,
-                  "max_err_vs_f64_plain": errs, "launches": grid_launches})
+                  "api": api, "max_err_vs_f64_plain": errs,
+                  "launches": grid_launches})
 
     path_launches = {k: launches.get(k, 0) + grid_launches.get(k, 0)
                      for k in results}

@@ -16,14 +16,18 @@ Example::
     grid = GRiD("iiwa", device="cuda")        # or a URDF path/XML/topology
     c     = grid.id(q, qd, qdd)               # RNEA         (B, n)
     Minv  = grid.minv(q)                      # (B, n, n)
+    qdd   = grid.fd(q, qd, u)                 # Minv route
     qdd   = grid.aba(q, qd, u)                # ABA route
+    M     = grid.crba(q)                      # (B, n, n)
     dc_du = grid.id_du(q, qd, qdd)            # (B, n, 2n)
     df_du = grid.fd_du(q, qd, u)              # (B, n, 2n)
+    pose  = grid.eepos(q)                     # (B, 6*num_ees)
+    J     = grid.deepos(q)                    # (B, 6*num_ees, n)
+    Tw    = grid.fk(q)                        # (B, n, 4, 4), plain torch
 
-The methods whose kernels are not ported yet (``fd``, ``crba``, the EE
-kinematics, ``fk`` and the second-order tensors) raise
-``NotImplementedError`` naming their ROADMAP item; so do floating-base
-robots and ``ee_targets``.
+The methods whose kernels are not ported yet (``d2eepos`` and the
+second-order tensors) raise ``NotImplementedError`` naming their ROADMAP
+item; so do floating-base robots.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ import torch
 
 from .models.model import RobotModel, build_model
 from .models.zoo import list_robots, load_robot
+from .ops import eepose as _eepose
 from .ops.common import DEFAULT_GRAVITY, check_fixed_base
 from .ops.cuda import kernels as _k
 from .topology.robot import RobotTopology
@@ -42,14 +47,9 @@ from .topology.urdf import parse_urdf
 
 # methods without a kernel in the port yet -> their ROADMAP item
 _NOT_PORTED = {
-    "fd": "Queue 2 item 9 (fd_pallas)",
-    "crba": "Queue 2 item 10 (crba_pallas)",
-    "eepos": "Queue 2 item 12 (eepos_pallas)",
-    "deepos": "Queue 2 item 13 (deepos_pallas)",
     "d2eepos": "Queue 2 item 14 (d2eepos_pallas)",
     "idsva_so": "Queue 2 item 15 (idsva_so_pallas)",
     "fdsva_so": "Queue 2 item 16 (fdsva_so_pallas)",
-    "fk": "Queue 1 item 8 (ops/eepose.py:fk)",
 }
 
 
@@ -89,11 +89,11 @@ class GRiD:
         """``use_kernels``: None runs the CUDA kernels iff ``device`` is a
         CUDA device (the wrappers dispatch on the tensors' device); False
         runs the plain PyTorch versions on any device; True insists on a
-        CUDA device."""
-        if ee_targets is not None:
-            raise NotImplementedError(
-                "GRiD(ee_targets=...) is not ported to PyTorch yet: ROADMAP "
-                f"{_NOT_PORTED['eepos']}")
+        CUDA device.
+
+        ``ee_targets``: fixed-joint frame names to treat as end effectors
+        (default: every fixed joint, or the leaf links without any); an
+        unknown name raises ``ValueError``."""
         self.device = torch.device(device)
         if use_kernels and self.device.type != "cuda":
             raise ValueError(f"use_kernels=True needs a CUDA device, "
@@ -107,6 +107,8 @@ class GRiD:
         self.n = self.model.n
         self.num_pos = self.model.num_pos
         self.num_vel = self.model.num_vel
+        self.ee_targets = None if ee_targets is None else tuple(ee_targets)
+        self.num_ees = _eepose.num_ees(self.model, self.ee_targets)
         self.use_kernels = use_kernels
         plain = use_kernels is False
         self._fd_du = _k.fd_du_plain if plain else _k.fd_du
@@ -114,6 +116,10 @@ class GRiD:
         self._id_du = _k.id_du_plain if plain else _k.id_du
         self._aba = _k.aba_plain if plain else _k.aba
         self._minv = _k.minv_plain if plain else _k.minv
+        self._fd = _k.fd_plain if plain else _k.fd
+        self._crba = _k.crba_plain if plain else _k.crba
+        self._eepos = _k.eepos_plain if plain else _k.eepos
+        self._deepos = _k.deepos_plain if plain else _k.deepos
 
     # ------------------------------------------------------------------
     # layout shims: user (B, dim) <-> kernel (dim, B)
@@ -174,12 +180,16 @@ class GRiD:
         return self._out(df_du, ub)
 
     def fd(self, q, qd, u):
-        """Forward dynamics qdd via the Minv route (not ported yet)."""
-        _not_ported("fd")
+        """Forward dynamics qdd via the Minv route: (B, nv)."""
+        qk, ub = self._in(q, self.num_pos)
+        qdk, _ = self._in(qd, self.num_vel)
+        uk, _ = self._in(u, self.num_vel)
+        return self._out(self._fd(self.model, qk, qdk, uk, self.gravity), ub)
 
     def crba(self, q):
-        """Mass matrix M(q) (not ported yet)."""
-        _not_ported("crba")
+        """Mass matrix M(q): (B, nv, nv)."""
+        qk, ub = self._in(q, self.num_pos)
+        return self._out(self._crba(self.model, qk), ub)
 
     def idsva_so(self, q, qd, qdd=None):
         """Second-order ID tensors (not ported yet)."""
@@ -190,20 +200,24 @@ class GRiD:
         _not_ported("fdsva_so")
 
     def eepos(self, q):
-        """End-effector poses (not ported yet)."""
-        _not_ported("eepos")
+        """End-effector poses [xyz, rpy] per EE: (B, 6*num_ees)."""
+        qk, ub = self._in(q, self.num_pos)
+        return self._out(self._eepos(self.model, qk, self.ee_targets), ub)
 
     def deepos(self, q):
-        """EE pose Jacobians (not ported yet)."""
-        _not_ported("deepos")
+        """EE pose Jacobians: (B, 6*num_ees, num_pos)."""
+        qk, ub = self._in(q, self.num_pos)
+        return self._out(self._deepos(self.model, qk, self.ee_targets), ub)
 
     def d2eepos(self, q):
         """EE pose Hessians (not ported yet)."""
         _not_ported("d2eepos")
 
     def fk(self, q):
-        """World transforms of every joint frame (not ported yet)."""
-        _not_ported("fk")
+        """World homogeneous transforms of every joint frame: (B, n, 4, 4).
+        Plain PyTorch on any device (it has no kernel)."""
+        qk, ub = self._in(q, self.num_pos)
+        return self._out(_eepose.fk(self.model, qk), ub)
 
     # -- packed-input convenience (gridData q_qd_u layout parity) ---------
     def _unpack3(self, q_qd_u):

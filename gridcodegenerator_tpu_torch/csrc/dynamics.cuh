@@ -3,9 +3,10 @@
 // Every kernel of this library runs one thread per problem lane; the
 // functions here are that thread's algebra, written for one lane in scalar
 // code: spatial algebra, joint transforms, RNEA, the analytical ID gradient,
-// Carpentier's direct Minv, ABA, end-effector FK (position only) and a
-// pivot-free Gauss-Jordan inverse. They follow the plain PyTorch ops of the
-// package (gridcodegenerator_tpu_torch/ops/*.py) step for step.
+// Carpentier's direct Minv, forward dynamics, ABA, CRBA, end-effector pose
+// and its Jacobian, and a pivot-free Gauss-Jordan inverse. They follow the
+// plain PyTorch ops of the package (gridcodegenerator_tpu_torch/ops/*.py)
+// step for step.
 //
 // Templates: T is float or double, NJ the joint count (fixed base, 1-dof
 // joints, ids topologically ordered: parent < child, so ascending ids are a
@@ -46,10 +47,24 @@ struct Layout {
   static constexpr int SIZE = SUBTREE + NJ * NJ;
 };
 
+// Packed end-effector rows, one buffer of T (ops/cuda/build.py:ee_buffer):
+// per EE, its fixed frame Tfixed (4, 4; identity without one), then its
+// chain mask (NJ; 1 = joint on the EE's chain).
+template <int NJ>
+struct EERow {
+  static constexpr int TFIX = 0;
+  static constexpr int CHAIN = 16;
+  static constexpr int SIZE = CHAIN + NJ;
+};
+
 GT_HDI float gsin(float x) { return sinf(x); }
 GT_HDI double gsin(double x) { return sin(x); }
 GT_HDI float gcos(float x) { return cosf(x); }
 GT_HDI double gcos(double x) { return cos(x); }
+GT_HDI float gsqrt(float x) { return sqrtf(x); }
+GT_HDI double gsqrt(double x) { return sqrt(x); }
+GT_HDI float gatan2(float y, float x) { return atan2f(y, x); }
+GT_HDI double gatan2(double y, double x) { return atan2(y, x); }
 
 // Lane `lane` of a lane-major (K, L) array, to and from K values.
 template <typename T, int K>
@@ -496,6 +511,64 @@ GT_HD void minv_lane(const Robot<T, NJ>& R, const T* q, bool dense, T* Mi) {
 }
 
 // ---------------------------------------------------------------------------
+// forward dynamics via the Minv route: qdd = Minv (u - c) (NJ)
+// ---------------------------------------------------------------------------
+
+// From the joint transforms: Minv dense, the bias RNEA (no qdd), then the
+// matvec; also hands back Minv (NJ, NJ).
+template <typename T, int NJ>
+GT_HD void fd_from_x(const Robot<T, NJ>& R, const T (*X)[36], const T* qd,
+                     const T* u, T gravity, T* qdd, T* Mi) {
+  minv_dense(R, X, Mi);
+  T c[NJ];
+  rnea_from_x(R, X, qd, (const T*)nullptr, gravity, c);
+  for (int i = 0; i < NJ; ++i) {
+    T acc = Mi[i * NJ] * (u[0] - c[0]);
+    for (int k = 1; k < NJ; ++k) acc += Mi[i * NJ + k] * (u[k] - c[k]);
+    qdd[i] = acc;
+  }
+}
+
+template <typename T, int NJ>
+GT_HD void fd_lane(const Robot<T, NJ>& R, const T* q, const T* qd,
+                   const T* u, T gravity, T* qdd) {
+  T X[NJ][36], Mi[NJ * NJ];
+  all_xmats(R, q, X);
+  fd_from_x(R, X, qd, u, gravity, qdd, Mi);
+}
+
+// ---------------------------------------------------------------------------
+// CRBA mass matrix M (NJ, NJ), both triangles
+// ---------------------------------------------------------------------------
+
+// Composite inertias accumulate into the parents (descending ids); column
+// i's composite force is carried up the ancestor chain (parent[], not i-1:
+// the tree may branch) and projected on each ancestor's axis.
+template <typename T, int NJ>
+GT_HD void crba_lane(const Robot<T, NJ>& R, const T* q, T* M) {
+  T X[NJ][36], Ic[NJ][36];
+  all_xmats(R, q, X);
+  for (int i = 0; i < NJ; ++i)
+    for (int k = 0; k < 36; ++k) Ic[i][k] = R.Imat(i)[k];
+  for (int i = NJ - 1; i >= 0; --i)
+    if (R.parent[i] != -1) XTMX_add(X[i], Ic[i], Ic[R.parent[i]]);
+  for (int k = 0; k < NJ * NJ; ++k) M[k] = T(0);
+  for (int i = 0; i < NJ; ++i) {
+    const int s = R.sind[i];
+    T fh[6], t[6];
+    for (int r = 0; r < 6; ++r) fh[r] = Ic[i][r * 6 + s];
+    M[i * NJ + i] = fh[s];
+    for (int j = i; R.parent[j] != -1;) {
+      XTv(X[j], fh, t);
+      j = R.parent[j];
+      for (int r = 0; r < 6; ++r) fh[r] = t[r];
+      M[j * NJ + i] = fh[R.sind[j]];
+      M[i * NJ + j] = fh[R.sind[j]];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // ABA forward dynamics: qdd (NJ)
 // ---------------------------------------------------------------------------
 
@@ -579,7 +652,7 @@ GT_HD void euler_step(const Robot<T, NJ>& R, T* x, const T* u, T dt,
 }
 
 // ---------------------------------------------------------------------------
-// end-effector position: T = T_c0 ... T_ck Tfixed over the packed EE chain
+// end-effector kinematics: T = T_c0 ... T_ck Tfixed over an EE chain
 // ---------------------------------------------------------------------------
 
 template <typename T>
@@ -617,12 +690,40 @@ GT_HD void joint_T(const T* TT, int jtype, int sind, T qi, T* out) {
   mm44(TT, Tj, out);
 }
 
+// d/dq of joint_T: Ttree dTj/dq.
+template <typename T>
+GT_HD void joint_dT(const T* TT, int jtype, int sind, T qi, T* out) {
+  const T o = T(1), z = T(0);
+  T D[16];
+  if (jtype == 0) {
+    const T c = gcos(qi), s = gsin(qi);
+    const int ax = sind % 3;
+    if (ax == 0) {
+      const T m[16] = {z, z, z, z, z, -s, -c, z, z, c, -s, z, z, z, z, z};
+      for (int k = 0; k < 16; ++k) D[k] = m[k];
+    } else if (ax == 1) {
+      const T m[16] = {-s, z, c, z, z, z, z, z, -c, z, -s, z, z, z, z, z};
+      for (int k = 0; k < 16; ++k) D[k] = m[k];
+    } else {
+      const T m[16] = {-s, -c, z, z, c, -s, z, z, z, z, z, z, z, z, z, z};
+      for (int k = 0; k < 16; ++k) D[k] = m[k];
+    }
+  } else {   // prismatic: unit translation along axis sind - 3
+    for (int k = 0; k < 16; ++k) D[k] = z;
+    D[(sind - 3) * 4 + 3] = o;
+  }
+  mm44(TT, D, out);
+}
+
+// Chain product over the joints with chain[i] != 0 (ascending ids run root
+// to leaf), times Tfix; Tfix alone for an empty chain.
 template <typename T, int NJ>
-GT_HD void ee_xyz(const Robot<T, NJ>& R, const T* q, T* xyz) {
-  T Tc[16], Tj[16], tmp[16];
+GT_HD void ee_chain_T(const Robot<T, NJ>& R, const T* q, const T* chain,
+                      const T* Tfix, T* Tc) {
+  T Tj[16], tmp[16];
   bool first = true;
   for (int i = 0; i < NJ; ++i) {
-    if (!R.in_ee_chain(i)) continue;
+    if (chain[i] == T(0)) continue;
     joint_T(R.Ttree(i), R.jtype[i], R.sind[i], q[i], Tj);
     if (first) {
       for (int k = 0; k < 16; ++k) Tc[k] = Tj[k];
@@ -633,14 +734,124 @@ GT_HD void ee_xyz(const Robot<T, NJ>& R, const T* q, T* xyz) {
     }
   }
   if (first) {
-    for (int k = 0; k < 16; ++k) Tc[k] = R.Tfixed()[k];
+    for (int k = 0; k < 16; ++k) Tc[k] = Tfix[k];
   } else {
-    mm44(Tc, R.Tfixed(), tmp);
+    mm44(Tc, Tfix, tmp);
     for (int k = 0; k < 16; ++k) Tc[k] = tmp[k];
   }
+}
+
+// Position of the Layout's EE (the line-search cost's).
+template <typename T, int NJ>
+GT_HD void ee_xyz(const Robot<T, NJ>& R, const T* q, T* xyz) {
+  T Tc[16];
+  ee_chain_T(R, q, R.c + Layout<NJ>::EECHAIN, R.Tfixed(), Tc);
   xyz[0] = Tc[3];
   xyz[1] = Tc[7];
   xyz[2] = Tc[11];
+}
+
+// [x, y, z, roll, pitch, yaw] of a transform: roll = atan2(R21, R22),
+// pitch = -atan2(R20, sqrt(R21^2 + R22^2)), yaw = atan2(R10, R00).
+template <typename T>
+GT_HDI void pose_from_T(const T* Tm, T* p) {
+  p[0] = Tm[3];
+  p[1] = Tm[7];
+  p[2] = Tm[11];
+  p[3] = gatan2(Tm[9], Tm[10]);
+  p[4] = -gatan2(Tm[8], gsqrt(Tm[9] * Tm[9] + Tm[10] * Tm[10]));
+  p[5] = gatan2(Tm[4], Tm[0]);
+}
+
+template <typename T>
+GT_HDI T datan2(T y, T x, T dy, T dx) {
+  return (x * dy - y * dx) / (x * x + y * y);
+}
+
+// Directional derivative of pose_from_T at Tm along dT.
+template <typename T>
+GT_HDI void pose_jvp(const T* Tm, const T* dT, T* p) {
+  p[0] = dT[3];
+  p[1] = dT[7];
+  p[2] = dT[11];
+  const T r = gsqrt(Tm[9] * Tm[9] + Tm[10] * Tm[10]);
+  const T dr = (Tm[9] * dT[9] + Tm[10] * dT[10]) / r;
+  p[3] = datan2(Tm[9], Tm[10], dT[9], dT[10]);
+  p[4] = -datan2(Tm[8], r, dT[8], dr);
+  p[5] = datan2(Tm[4], Tm[0], dT[4], dT[0]);
+}
+
+// Poses of the `ne` rows of the EE buffer `ee`: EE e's [xyz, rpy] goes to
+// out[(6 e + k) * stride], k < 6.
+template <typename T, int NJ>
+GT_HD void ee_pose_lane(const Robot<T, NJ>& R, const T* ee, int ne,
+                        const T* q, T* out, long long stride) {
+  using E = EERow<NJ>;
+  for (int e = 0; e < ne; ++e) {
+    const T* row = ee + e * E::SIZE;
+    T Tc[16], p[6];
+    ee_chain_T(R, q, row + E::CHAIN, row + E::TFIX, Tc);
+    pose_from_T(Tc, p);
+    for (int k = 0; k < 6; ++k) out[(6 * e + k) * stride] = p[k];
+  }
+}
+
+// Pose Jacobians of the `ne` rows of `ee`, chain form: for the a-th joint
+// of a chain of k, dT/dq_a = prefix_a . dT_a . suffix_a (prefix_a =
+// T_0 ... T_a-1, suffix_a = T_a+1 ... T_k-1 Tfix), pushed through the pose
+// JVP at T = T_0 suffix_0; joints off the chain get zero columns. EE e,
+// joint column j -> out[((6 e + k) NJ + j) * stride].
+template <typename T, int NJ>
+GT_HD void ee_jac_lane(const Robot<T, NJ>& R, const T* ee, int ne,
+                       const T* q, T* out, long long stride) {
+  using E = EERow<NJ>;
+  for (int e = 0; e < ne; ++e) {
+    const T* row = ee + e * E::SIZE;
+    const T* mask = row + E::CHAIN;
+    T* oe = out + 6 * e * NJ * stride;
+    int chain[NJ];
+    int k = 0;
+    for (int j = 0; j < NJ; ++j) {
+      if (mask[j] != T(0)) {
+        chain[k++] = j;
+      } else {
+        for (int r = 0; r < 6; ++r) oe[(r * NJ + j) * stride] = T(0);
+      }
+    }
+    if (k == 0) continue;
+    T Ts[NJ][16], suf[NJ][16], acc[16], tmp[16];
+    for (int a = 0; a < k; ++a) {
+      const int j = chain[a];
+      joint_T(R.Ttree(j), R.jtype[j], R.sind[j], q[j], Ts[a]);
+    }
+    for (int m = 0; m < 16; ++m) acc[m] = row[E::TFIX + m];
+    for (int a = k - 1; a >= 0; --a) {
+      for (int m = 0; m < 16; ++m) suf[a][m] = acc[m];
+      mm44(Ts[a], suf[a], acc);
+    }
+    // acc is now the full chain transform; tmp carries prefix_a
+    for (int a = 0; a < k; ++a) {
+      const int j = chain[a];
+      T dT[16], d[16], p[6];
+      joint_dT(R.Ttree(j), R.jtype[j], R.sind[j], q[j], dT);
+      if (a == 0) {
+        mm44(dT, suf[a], d);
+      } else {
+        T pd[16];
+        mm44(tmp, dT, pd);
+        mm44(pd, suf[a], d);
+      }
+      pose_jvp(acc, d, p);
+      for (int r = 0; r < 6; ++r) oe[(r * NJ + j) * stride] = p[r];
+      if (a == 0) {
+        for (int m = 0; m < 16; ++m) tmp[m] = Ts[0][m];
+      } else {
+        T nx[16];
+        mm44(tmp, Ts[a], nx);
+        for (int m = 0; m < 16; ++m) tmp[m] = nx[m];
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -696,6 +907,16 @@ GT_HD void gj_inverse(const T* A, T* Ainv) {
     if ((dtype) == gt::kF64 && (nj) == 7) {                                 \
       using T = double;                                                     \
       constexpr int NJ = 7;                                                 \
+      return __VA_ARGS__;                                                   \
+    }                                                                       \
+    if ((dtype) == gt::kF32 && (nj) == 12) {                                \
+      using T = float;                                                      \
+      constexpr int NJ = 12;                                                \
+      return __VA_ARGS__;                                                   \
+    }                                                                       \
+    if ((dtype) == gt::kF64 && (nj) == 12) {                                \
+      using T = double;                                                     \
+      constexpr int NJ = 12;                                                \
       return __VA_ARGS__;                                                   \
     }                                                                       \
     return (int)cudaErrorInvalidValue;                                      \

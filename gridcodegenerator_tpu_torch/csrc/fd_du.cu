@@ -2,7 +2,8 @@
 //
 // Replaces gridcodegenerator_tpu/ops/pallas/kernels.py:fd_du_pallas
 // (with_extras=True). Per lane: joint transforms, Carpentier's Minv, the
-// bias RNEA, qdd = Minv (u - c), RNEA at qdd, the analytical ID gradient
+// bias RNEA, qdd = Minv (u - c) (dynamics.cuh:fd_from_x, shared with
+// csrc/fd.cu), RNEA at qdd, the analytical ID gradient
 // dc/d[q, qd], and df/du = -Minv dc/du. The ID gradient
 // (dynamics.cuh:id_du_columns, shared with csrc/id_du.cu) runs one
 // forward-mode pass per gradient column (2 NJ of them), so a lane keeps
@@ -34,14 +35,7 @@ GT_HD void fd_du_lane(const Robot<T, NJ>& R, const T* q, const T* qd,
                       const T* u, T gravity, T* dfdu, T* qdd, T* Mi) {
   T X[NJ][36];
   all_xmats(R, q, X);
-  minv_dense(R, X, Mi);
-  T c[NJ];
-  rnea_from_x(R, X, qd, (const T*)nullptr, gravity, c);
-  for (int i = 0; i < NJ; ++i) {
-    T acc = Mi[i * NJ] * (u[0] - c[0]);
-    for (int k = 1; k < NJ; ++k) acc += Mi[i * NJ + k] * (u[k] - c[k]);
-    qdd[i] = acc;
-  }
+  fd_from_x(R, X, qd, u, gravity, qdd, Mi);
   id_du_columns(R, X, qd, qdd, gravity, MinvColumns<T, NJ>{Mi, dfdu});
 }
 
@@ -86,6 +80,7 @@ extern "C" int gridtorch_model_size(int nj) {
   switch (nj) {
     case 2: return gt::Layout<2>::SIZE;
     case 7: return gt::Layout<7>::SIZE;
+    case 12: return gt::Layout<12>::SIZE;
   }
   return -1;
 }

@@ -4,7 +4,8 @@ The counterpart of ``gridcodegenerator_tpu/ops/pallas/fuse.py``: where the
 JAX package tiles a batch axis over a Pallas grid and keeps the robot
 constants resident in VMEM, the port runs one thread per problem lane, masks
 the ragged last block, and hands the robot constants over in one packed
-device buffer (:func:`model_buffer`).
+device buffer (:func:`model_buffer`; the end-effector kernels also take
+one row per EE, :func:`ee_buffer`).
 
 The sources under ``gridcodegenerator_tpu_torch/csrc/`` are compiled with
 ``nvcc`` for ``sm_90a`` into one shared library with a plain C interface, at
@@ -31,10 +32,12 @@ import numpy as np
 import torch
 
 from ...models.model import RobotModel
+from ..eepose import ee_chains
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("fd_du.cu", "rollout.cu", "linesearch.cu", "riccati.cu", "rnea.cu",
-           "id_du.cu", "aba.cu", "minv.cu")
+           "id_du.cu", "aba.cu", "minv.cu", "fd.cu", "crba.cu", "eepos.cu",
+           "deepos.cu")
 HEADERS = ("dynamics.cuh",)
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libgridtorch.so"
@@ -43,7 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 # joint counts and dtypes the library is instantiated for (csrc/dynamics.cuh:
 # GT_DISPATCH); a robot or dtype outside these raises in the wrapper
-SUPPORTED_JOINTS = (2, 7)
+SUPPORTED_JOINTS = (2, 7, 12)
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 # launches per kernel since the last reset: each wrapper adds one right after
@@ -132,6 +135,10 @@ _SIGNATURES = {
     "gridtorch_id_du": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
     "gridtorch_aba": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
     "gridtorch_minv": (_I, _I, _P, _P, _P, _L, _I, _P),
+    "gridtorch_fd": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_crba": (_I, _I, _P, _P, _P, _L, _P),
+    "gridtorch_eepos": (_I, _I, _P, _P, _I, _P, _P, _L, _P),
+    "gridtorch_deepos": (_I, _I, _P, _P, _I, _P, _P, _L, _P),
     "gridtorch_rollout": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _L, _D, _D, _P),
     "gridtorch_linesearch": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                              _P, _P, _P, _I, _L, _I, _D, _D, _D, _D, _D, _D,
@@ -202,7 +209,28 @@ def kernel_key(model: RobotModel, like: torch.Tensor, what: str):
     return DTYPE_CODES[dtype], model.n
 
 
+def _ee_row(model: RobotModel, chain, fid):
+    """(Tfixed (16,), chain mask (n,)) of one EE, float64 on the host."""
+    Tfix = (model.Tfixed[fid].double().cpu().numpy() if fid is not None
+            else np.eye(4))
+    mask = np.zeros(model.n)
+    mask[list(chain)] = 1.0
+    return Tfix.ravel(), mask
+
+
+def _cached(cache: dict, model: RobotModel, key, make):
+    """``make()`` once per (model, key); the model is held so that its id
+    cannot be reused while the entry lives."""
+    hit = cache.get((id(model), key))
+    if hit is not None and hit[0] is model:
+        return hit[1]
+    buf = make()
+    cache[id(model), key] = (model, buf)
+    return buf
+
+
 _model_buffers = {}
+_ee_buffers = {}
 
 
 def model_buffer(model: RobotModel, ee_index: int = 0) -> torch.Tensor:
@@ -214,31 +242,36 @@ def model_buffer(model: RobotModel, ee_index: int = 0) -> torch.Tensor:
     joint type (n; 0 revolute, 1 prismatic) | EE chain mask (n) |
     subtree mask (n,n).
     """
-    key = (id(model), ee_index)
-    hit = _model_buffers.get(key)
-    if hit is not None and hit[0] is model:
-        return hit[1]
-    from ..eepose import ee_chains
-    n = model.n
-    chain, fid = ee_chains(model)[ee_index]
-    Tfix = (model.Tfixed[fid].double().cpu().numpy() if fid is not None
-            else np.eye(4))
-    mask = np.zeros(n)
-    mask[list(chain)] = 1.0
-    host = lambda t: t.detach().double().cpu().numpy().ravel()
-    parts = [host(model.Xtree), host(model.Imat), host(model.damping),
-             host(model.Ttree), Tfix.ravel(),
-             np.asarray(model.parent, np.float64),
-             np.asarray(model.S_ind, np.float64),
-             np.asarray([0.0 if j == "revolute" else 1.0
-                         for j in model.jtype]),
-             mask, host(model.subtree_mask)]
-    flat = np.concatenate(parts)
-    if model.device.type == "cuda":
-        expect = lib().gridtorch_model_size(n)
-        if flat.size != expect:
-            raise RuntimeError(f"packed model has {flat.size} values, the "
-                               f"kernels expect {expect}")
-    buf = torch.as_tensor(flat, dtype=model.dtype, device=model.device)
-    _model_buffers[key] = (model, buf)
-    return buf
+    def make():
+        Tfix, mask = _ee_row(model, *ee_chains(model)[ee_index])
+        host = lambda t: t.detach().double().cpu().numpy().ravel()
+        parts = [host(model.Xtree), host(model.Imat), host(model.damping),
+                 host(model.Ttree), Tfix,
+                 np.asarray(model.parent, np.float64),
+                 np.asarray(model.S_ind, np.float64),
+                 np.asarray([0.0 if j == "revolute" else 1.0
+                             for j in model.jtype]),
+                 mask, host(model.subtree_mask)]
+        flat = np.concatenate(parts)
+        if model.device.type == "cuda":
+            expect = lib().gridtorch_model_size(model.n)
+            if flat.size != expect:
+                raise RuntimeError(f"packed model has {flat.size} values, "
+                                   f"the kernels expect {expect}")
+        return torch.as_tensor(flat, dtype=model.dtype, device=model.device)
+    return _cached(_model_buffers, model, ee_index, make)
+
+
+def ee_buffer(model: RobotModel, targets=None) -> torch.Tensor:
+    """One row per EE of ``ee_chains(model, targets)`` in the layout of
+    ``csrc/dynamics.cuh`` (``EERow<NJ>``): its Tfixed (4,4; identity
+    without a fixed frame) | its chain mask (n). (num_ees, 16 + n), on the
+    model's device and in its dtype."""
+    targets = None if targets is None else tuple(targets)
+
+    def make():
+        rows = [np.concatenate(_ee_row(model, chain, fid))
+                for chain, fid in ee_chains(model, targets)]
+        flat = np.asarray(rows, np.float64).reshape(len(rows), 16 + model.n)
+        return torch.as_tensor(flat, dtype=model.dtype, device=model.device)
+    return _cached(_ee_buffers, model, targets, make)

@@ -15,13 +15,20 @@ Lane-major tensors, L lanes on the trailing axis:
 * ``minv(model, q, dense=True)`` -> Minv (n, n, L), dense or the upper
   factor (exact zeros below the diagonal). Replaces
   ``kernels.py:minv_pallas``.
+* ``fd(model, q, qd, u)`` -> qdd (n, L), the Minv route. Replaces
+  ``kernels.py:fd_pallas``.
+* ``crba(model, q)`` -> M (n, n, L). Replaces ``kernels.py:crba_pallas``.
+* ``eepos(model, q, targets=None)`` -> (6 ne, L) EE poses [xyz, rpy].
+  Replaces ``kernels.py:eepos_pallas``.
+* ``deepos(model, q, targets=None)`` -> (6 ne, n, L) EE pose Jacobians.
+  Replaces ``kernels.py:deepos_pallas``.
 
 Kernels: ``csrc/<name>.cu``, one thread per lane, everything in registers
 and local memory; inputs are read and outputs written along the lane axis,
 so every access is coalesced. What bounds them on the card: arithmetic and
 the local memory that holds each lane's joint transforms, inertias and
 Minv factors — not device memory, since a 7-DoF lane reads at most 21
-values and writes at most 154.
+values and writes at most 154 (deepos: 42 per EE).
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -34,6 +41,10 @@ import torch
 from ...models.model import RobotModel
 from ..aba import aba as _aba
 from ..common import DEFAULT_GRAVITY
+from ..crba import crba as _crba
+from ..eepose import deepos as _deepos
+from ..eepose import eepos as _eepos
+from ..fd import forward_dynamics
 from ..fd_grad import fd_grad
 from ..id_grad import id_grad
 from ..minv import minv as _minv
@@ -41,13 +52,13 @@ from ..rnea import rnea as _rnea
 from . import build
 
 FD_DU, RNEA, ID_DU, ABA, MINV = "fd_du", "rnea", "id_du", "aba", "minv"
+FD, CRBA, EEPOS, DEEPOS = "fd", "crba", "eepos", "deepos"
 SOURCES = {k: f"gridcodegenerator_tpu_torch/csrc/{k}.cu"
-           for k in (FD_DU, RNEA, ID_DU, ABA, MINV)}
-REPLACES = {FD_DU: "gridcodegenerator_tpu/ops/pallas/kernels.py:171",
-            RNEA: "gridcodegenerator_tpu/ops/pallas/kernels.py:77",
-            ID_DU: "gridcodegenerator_tpu/ops/pallas/kernels.py:156",
-            ABA: "gridcodegenerator_tpu/ops/pallas/kernels.py:141",
-            MINV: "gridcodegenerator_tpu/ops/pallas/kernels.py:98"}
+           for k in (FD_DU, RNEA, ID_DU, ABA, MINV, FD, CRBA, EEPOS, DEEPOS)}
+REPLACES = {k: f"gridcodegenerator_tpu/ops/pallas/kernels.py:{line}"
+            for k, line in ((FD_DU, 171), (RNEA, 77), (ID_DU, 156),
+                            (ABA, 141), (MINV, 98), (FD, 126), (CRBA, 112),
+                            (EEPOS, 375), (DEEPOS, 390))}
 
 
 def _lanes(model: RobotModel, what: str, inputs):
@@ -101,6 +112,26 @@ def aba_plain(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
 def minv_plain(model: RobotModel, q, dense: bool = True):
     build.PLAIN_CALLS[MINV] += 1
     return _minv(model, q, dense)
+
+
+def fd_plain(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
+    build.PLAIN_CALLS[FD] += 1
+    return forward_dynamics(model, q, qd, u, gravity)
+
+
+def crba_plain(model: RobotModel, q):
+    build.PLAIN_CALLS[CRBA] += 1
+    return _crba(model, q)
+
+
+def eepos_plain(model: RobotModel, q, targets=None):
+    build.PLAIN_CALLS[EEPOS] += 1
+    return _eepos(model, q, targets)
+
+
+def deepos_plain(model: RobotModel, q, targets=None):
+    build.PLAIN_CALLS[DEEPOS] += 1
+    return _deepos(model, q, targets)
 
 
 # ---------------------------------------------------------------------------
@@ -168,3 +199,51 @@ def minv(model: RobotModel, q, dense: bool = True):
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(Mi), L, int(bool(dense)), build.stream_ptr(q.device)))
     return Mi
+
+
+def fd(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
+    if not q.is_cuda:
+        return fd_plain(model, q, qd, u, gravity)
+    dcode, nj, L = _lanes(model, FD, dict(q=q, qd=qd, u=u))
+    qdd = _empty(q, model.n, L)
+    _launched(FD, build.lib().gridtorch_fd(
+        dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
+        build.ptr(qd), build.ptr(u), build.ptr(qdd), L, float(gravity),
+        build.stream_ptr(q.device)))
+    return qdd
+
+
+def crba(model: RobotModel, q):
+    if not q.is_cuda:
+        return crba_plain(model, q)
+    dcode, nj, L = _lanes(model, CRBA, dict(q=q))
+    M = _empty(q, model.n, model.n, L)
+    _launched(CRBA, build.lib().gridtorch_crba(
+        dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
+        build.ptr(M), L, build.stream_ptr(q.device)))
+    return M
+
+
+def _ee_launch(what: str, model: RobotModel, q, targets, *cols):
+    """Launch EE kernel ``what`` over the EE rows of ``targets``: output
+    (6 ne, *cols, L)."""
+    dcode, nj, L = _lanes(model, what, dict(q=q))
+    ee = build.ee_buffer(model, targets)
+    out = _empty(q, 6 * ee.shape[0], *cols, L)
+    _launched(what, getattr(build.lib(), f"gridtorch_{what}")(
+        dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(ee),
+        ee.shape[0], build.ptr(q), build.ptr(out), L,
+        build.stream_ptr(q.device)))
+    return out
+
+
+def eepos(model: RobotModel, q, targets=None):
+    if not q.is_cuda:
+        return eepos_plain(model, q, targets)
+    return _ee_launch(EEPOS, model, q, targets)
+
+
+def deepos(model: RobotModel, q, targets=None):
+    if not q.is_cuda:
+        return deepos_plain(model, q, targets)
+    return _ee_launch(DEEPOS, model, q, targets, model.n)

@@ -7,12 +7,14 @@ R22^2)), yaw = atan2(R10, R00). The Jacobian is the chain form of
 dT_a . suffix_a, pushed through the derivative of the pose extraction.
 
 End-effectors default to the robot's fixed-joint frames when it has any,
-and to the leaf links otherwise. Fixed base, 1-dof joints.
+and to the leaf links otherwise; ``targets`` names the fixed-joint frames to
+use instead. ``fk`` gives the world transform of every joint frame. Fixed
+base, 1-dof joints.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -20,18 +22,28 @@ from ..models.model import RobotModel
 from .common import check_fixed_base
 
 
-def ee_chains(model: RobotModel) -> List[Tuple[Tuple[int, ...],
-                                                Optional[int]]]:
-    """Per-EE (joint chain root->parent, fixed-joint index or None)."""
-    chains = []
+def _fixed_chain(model: RobotModel, fid: int):
+    j = model.fixed_parent[fid]
+    return ((model.ancestors[j] + (j,)) if j >= 0 else (), fid)
+
+
+def ee_chains(model: RobotModel, targets: Optional[Sequence[str]] = None
+              ) -> List[Tuple[Tuple[int, ...], Optional[int]]]:
+    """Per-EE (joint chain root->parent, fixed-joint index or None).
+
+    ``targets`` names fixed-joint frames; an unknown name raises
+    ``ValueError``."""
+    if targets is not None:
+        return [_fixed_chain(model, model.fixed_names.index(t))
+                for t in targets]
     if model.fixed_parent:
-        for fid, j in enumerate(model.fixed_parent):
-            chain = (model.ancestors[j] + (j,)) if j >= 0 else ()
-            chains.append((chain, fid))
-    else:
-        for leaf in model.leaves:
-            chains.append((model.ancestors[leaf] + (leaf,), None))
-    return chains
+        return [_fixed_chain(model, fid)
+                for fid in range(len(model.fixed_parent))]
+    return [(model.ancestors[leaf] + (leaf,), None) for leaf in model.leaves]
+
+
+def num_ees(model: RobotModel, targets: Optional[Sequence[str]] = None) -> int:
+    return len(ee_chains(model, targets))
 
 
 def _mm44(A, B):
@@ -131,27 +143,27 @@ def _pose_jvp(T, dT):
     return torch.cat([dT[:3, 3], torch.stack([droll, dpitch, dyaw])], dim=0)
 
 
-def eepos(model: RobotModel, q):
+def eepos(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
     """EE poses: q (num_pos, B...) -> (num_ees*6, B...)."""
     check_fixed_base(model)
     return torch.cat([_pose_from_T(_chain_T(model, q, chain, fid))
-                      for chain, fid in ee_chains(model)], dim=0)
+                      for chain, fid in ee_chains(model, targets)], dim=0)
 
 
-def eexyz(model: RobotModel, q):
+def eexyz(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
     """EE xyz positions only: q (num_pos, B...) -> (num_ees*3, B...)."""
     check_fixed_base(model)
     return torch.cat([_chain_T(model, q, chain, fid)[:3, 3]
-                      for chain, fid in ee_chains(model)], dim=0)
+                      for chain, fid in ee_chains(model, targets)], dim=0)
 
 
-def deepos(model: RobotModel, q):
+def deepos(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
     """EE pose Jacobian, chain form: (num_ees*6, num_pos, B...)."""
     check_fixed_base(model)
     npos = model.num_pos
     zero = torch.zeros((6,) + q.shape[1:], dtype=q.dtype, device=q.device)
     blocks = []
-    for chain, fid in ee_chains(model):
+    for chain, fid in ee_chains(model, targets):
         cols = {}
         if chain:
             Ts, dTs = [], []
@@ -176,3 +188,15 @@ def deepos(model: RobotModel, q):
         blocks.append(torch.stack([cols.get(c, zero) for c in range(npos)],
                                   dim=1))
     return torch.cat(blocks, dim=0)
+
+
+def fk(model: RobotModel, q):
+    """World transforms of every joint frame: q (num_pos, B...) ->
+    (n, 4, 4, B...); each parent's transform is reused down the tree."""
+    check_fixed_base(model)
+    Tw = [None] * model.n
+    for i in range(model.n):   # ids are topologically ordered
+        Ti = _joint_T_lanes(model, i, q[i])
+        p = model.parent[i]
+        Tw[i] = Ti if p < 0 else _mm44(Tw[p], Ti)
+    return torch.stack(Tw)

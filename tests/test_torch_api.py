@@ -97,10 +97,9 @@ def test_grids_hold_the_same_robot(grids):
 
 # method -> its arguments for a 7-joint robot
 UNPORTED = {m: (np.zeros(7),) * k for m, k in (
-    ("fd", 3), ("crba", 1), ("eepos", 1), ("deepos", 1), ("d2eepos", 1),
-    ("fk", 1), ("idsva_so", 3), ("fdsva_so", 3))}
+    ("d2eepos", 1), ("idsva_so", 3), ("fdsva_so", 3))}
 UNPORTED.update({m: (np.zeros(21),) for m in (
-    "fd_packed", "idsva_so_packed", "fdsva_so_packed")})
+    "idsva_so_packed", "fdsva_so_packed")})
 
 
 @pytest.mark.parametrize("method", sorted(UNPORTED))
@@ -111,10 +110,9 @@ def test_unported_methods_raise(method):
 
 
 @pytest.mark.parametrize("kwargs,error", [
-    (dict(ee_targets=["ee"]), NotImplementedError),
     (dict(floating_base=True), NotImplementedError),
     (dict(use_kernels=True), ValueError),   # kernels need a CUDA device
-], ids=["ee_targets", "floating_base", "use_kernels_on_cpu"])
+], ids=["floating_base", "use_kernels_on_cpu"])
 def test_constructor_refuses(kwargs, error):
     with pytest.raises(error):
         GRiD("iiwa", **kwargs)
@@ -127,7 +125,9 @@ def test_each_call_runs_one_plain_version_on_cpu(use_kernels):
     x = np.random.default_rng(0).uniform(-1, 1, (3, 4, 7))
     for method, kernel, nargs in (("id", "rnea", 3), ("id_du", "id_du", 2),
                                   ("aba", "aba", 3), ("fd_du", "fd_du", 3),
-                                  ("minv", "minv", 1)):
+                                  ("minv", "minv", 1), ("fd", "fd", 3),
+                                  ("crba", "crba", 1), ("eepos", "eepos", 1),
+                                  ("deepos", "deepos", 1)):
         build.reset_counters()
         getattr(g, method)(*x[:nargs])
         assert dict(build.PLAIN_CALLS) == {kernel: 1}, method

@@ -43,7 +43,18 @@ TOL = 1e-9
 # of minv, which launch the rnea and minv kernels
 KERNELS = ("fd_du", "rollout", "riccati_factored", "linesearch_rollout",
            "rnea", "rnea_bias", "id_du", "aba", "minv", "minv_upper")
-KERNEL_OF = {"rnea_bias": "rnea", "minv_upper": "minv"}
+# the GRiD API's kernel cases; the _targets cases run the EE kernels on
+# some of the robot's EEs (GRiD(ee_targets=...))
+GRID_CASES = ("rnea", "rnea_bias", "id_du", "aba", "minv", "minv_upper",
+              "fd_du", "fd", "crba", "eepos", "eepos_targets", "deepos",
+              "deepos_targets")
+KERNEL_OF = {"rnea_bias": "rnea", "minv_upper": "minv",
+             "eepos_targets": "eepos", "deepos_targets": "deepos"}
+# EE targets per robot (pendulum2 has no fixed frames to name); gym_ant's
+# EEs are welded to the base, so their chains are empty
+TARGETS = {"pendulum2": None, "iiwa": ["ee_fixed"],
+           "hyq": ["lf_foot_fixed", "rh_foot_fixed"],
+           "gym_ant": ["front_left_leg_weld", "back_leg_weld"]}
 
 
 def path_inputs(model, N, B, seed):
@@ -92,6 +103,33 @@ def path_inputs(model, N, B, seed):
     }
 
 
+def grid_inputs(model, robot, L, seed):
+    """Each GRiD kernel case on (n, L) inputs ~ U(-1, 1)."""
+    rng = np.random.default_rng(seed)
+    q, qd, x = (torch.as_tensor(rng.uniform(-1, 1, (model.n, L)),
+                                dtype=model.dtype, device=model.device)
+                for _ in range(3))
+    tg = TARGETS[robot]
+    return {"rnea": (model, q, qd, x, -9.81),
+            "rnea_bias": (model, q, qd, None, -9.81),
+            "id_du": (model, q, qd, x, -9.81),
+            "aba": (model, q, qd, x, -9.81),
+            "minv": (model, q, True),
+            "minv_upper": (model, q, False),
+            "fd_du": (model, q, qd, x, -9.81),
+            "fd": (model, q, qd, x, -9.81),
+            "crba": (model, q),
+            "eepos": (model, q),
+            "eepos_targets": (model, q, tg),
+            "deepos": (model, q),
+            "deepos_targets": (model, q, tg)}
+
+
+def grid_params(robots):
+    return [(case, robot) for robot in robots for case in GRID_CASES
+            if TARGETS[robot] or not case.endswith("_targets")]
+
+
 WRAPPERS = {"fd_du": (K.fd_du, K.fd_du_plain),
             "rollout": (S.rollout, S.rollout_plain),
             "riccati_factored": (S.riccati_factored,
@@ -103,7 +141,13 @@ WRAPPERS = {"fd_du": (K.fd_du, K.fd_du_plain),
             "id_du": (K.id_du, K.id_du_plain),
             "aba": (K.aba, K.aba_plain),
             "minv": (K.minv, K.minv_plain),
-            "minv_upper": (K.minv, K.minv_plain)}
+            "minv_upper": (K.minv, K.minv_plain),
+            "fd": (K.fd, K.fd_plain),
+            "crba": (K.crba, K.crba_plain),
+            "eepos": (K.eepos, K.eepos_plain),
+            "eepos_targets": (K.eepos, K.eepos_plain),
+            "deepos": (K.deepos, K.deepos_plain),
+            "deepos_targets": (K.deepos, K.deepos_plain)}
 
 
 def _outs(o):
@@ -146,14 +190,29 @@ def test_cpu_tensors_take_the_plain_version(name):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("case", GRID_CASES)
+def test_cpu_tensors_take_the_plain_version_grid(case):
+    m = build_model(load_robot("hyq"), dtype=torch.float64)
+    args = grid_inputs(m, "hyq", 3, seed=0)[case]
+    build.reset_counters()
+    wrapper, plain = WRAPPERS[case]
+    got = _outs(wrapper(*args))
+    assert dict(build.PLAIN_CALLS) == {KERNEL_OF.get(case, case): 1}
+    assert not build.LAUNCHES
+    want = _outs(plain(*args))
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
 def test_kernel_key_refuses_what_the_build_does_not_cover():
     x = torch.zeros(3, dtype=torch.float64)
     fl = build_model(load_robot("iiwa_floating"), dtype=torch.float64)
     with pytest.raises(NotImplementedError):
         build.kernel_key(fl, x, "t")
+    hum = build_model(load_robot("gym_humanoid"), dtype=torch.float64)
+    with pytest.raises(NotImplementedError):   # 17 joints: not instantiated
+        build.kernel_key(hum, x, "t")
     hyq = build_model(load_robot("hyq"), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):   # 12 joints: not instantiated
-        build.kernel_key(hyq, x, "t")
+    assert build.kernel_key(hyq, x, "t") == (1, 12)
     iiwa = build_model(load_robot("iiwa"), dtype=torch.float64)
     assert build.kernel_key(iiwa, x, "t") == (1, 7)
     with pytest.raises(ValueError):   # model and inputs disagree on dtype
@@ -174,6 +233,25 @@ def test_model_buffer_layout():
     assert build.model_buffer(m) is buf
 
 
+def test_ee_buffer_layout():
+    m = build_model(load_robot("hyq"), dtype=torch.float64)
+    buf = build.ee_buffer(m)
+    assert buf.shape == (4, 16 + m.n)
+    for row, (chain, fid) in zip(buf, eepose.ee_chains(m)):
+        np.testing.assert_array_equal(row[:16].reshape(4, 4).numpy(),
+                                      m.Tfixed[fid].numpy())
+        assert row[16:].nonzero().flatten().tolist() == list(chain)
+    sub = build.ee_buffer(m, TARGETS["hyq"])
+    torch.testing.assert_close(sub, buf[[0, 3]], rtol=0, atol=0)
+    assert build.ee_buffer(m) is buf
+    assert build.ee_buffer(m, TARGETS["hyq"]) is sub
+    pend = build_model(load_robot("pendulum2"), dtype=torch.float64)
+    np.testing.assert_array_equal(build.ee_buffer(pend).numpy(),
+                                  [[*np.eye(4).ravel(), 1.0, 1.0]])
+    ant = build_model(load_robot("gym_ant"), dtype=torch.float64)
+    assert not build.ee_buffer(ant)[:, 16:].any()   # welded to the base
+
+
 # ---------------------------------------------------------------------------
 # host build of the kernels' per-lane code
 # ---------------------------------------------------------------------------
@@ -187,6 +265,10 @@ HARNESS = r"""
 #include "id_du.cu"
 #include "aba.cu"
 #include "minv.cu"
+#include "fd.cu"
+#include "crba.cu"
+#include "eepos.cu"
+#include "deepos.cu"
 using namespace gt;
 typedef long long ll;
 
@@ -257,6 +339,41 @@ extern "C" void minv_##NJ(const double* m, const double* q, double* mi,    \
     lane_store<double, NJ * NJ>(ml, L, l, mi);                              \
   }                                                                         \
 }                                                                           \
+extern "C" void fd_##NJ(const double* m, const double* q,                   \
+    const double* qd, const double* u, double* qdd, ll L) {                 \
+  Robot<double, NJ> R(m);                                                   \
+  lanes3<NJ, NJ>(q, qd, u, qdd, L, [&](const double* a, const double* b,   \
+      const double* x, double* o) {                                         \
+    fd_lane<double, NJ>(R, a, b, x, -9.81, o); });                          \
+}                                                                           \
+extern "C" void crba_##NJ(const double* m, const double* q, double* M,     \
+    ll L) {                                                                 \
+  Robot<double, NJ> R(m);                                                   \
+  for (ll l = 0; l < L; ++l) {                                              \
+    double ql[NJ], ml[NJ * NJ];                                             \
+    lane_load<double, NJ>(q, L, l, ql);                                     \
+    crba_lane<double, NJ>(R, ql, ml);                                       \
+    lane_store<double, NJ * NJ>(ml, L, l, M);                               \
+  }                                                                         \
+}                                                                           \
+extern "C" void eepos_##NJ(const double* m, const double* ee, int ne,      \
+    const double* q, double* out, ll L) {                                   \
+  Robot<double, NJ> R(m);                                                   \
+  for (ll l = 0; l < L; ++l) {                                              \
+    double ql[NJ];                                                          \
+    lane_load<double, NJ>(q, L, l, ql);                                     \
+    ee_pose_lane<double, NJ>(R, ee, ne, ql, out + l, L);                    \
+  }                                                                         \
+}                                                                           \
+extern "C" void deepos_##NJ(const double* m, const double* ee, int ne,     \
+    const double* q, double* out, ll L) {                                   \
+  Robot<double, NJ> R(m);                                                   \
+  for (ll l = 0; l < L; ++l) {                                              \
+    double ql[NJ];                                                          \
+    lane_load<double, NJ>(q, L, l, ql);                                     \
+    ee_jac_lane<double, NJ>(R, ee, ne, ql, out + l, L);                     \
+  }                                                                         \
+}                                                                           \
 extern "C" void rollout_##NJ(const double* m, const double* x0,            \
     const double* U, const double* lo, const double* hi, double* X, int N,  \
     ll B) {                                                                 \
@@ -286,6 +403,8 @@ extern "C" void ric_##NJ(const double* A, const double* Bm,                \
 }
 HOST(2)
 HOST(7)
+HOST(8)
+HOST(12)
 """
 
 
@@ -329,6 +448,31 @@ def _host_run(lib, name, args):
         getattr(lib, f"{fn}_{n}")(_p(build.model_buffer(m)), _p(q), _p(qd),
                                   _p(x), _p(out), ll(L))
         return (out,)
+    if name == "fd":
+        m, q, qd, u, _ = args
+        n, L = q.shape
+        out = torch.empty(n, L, dtype=q.dtype)
+        getattr(lib, f"fd_{n}")(_p(build.model_buffer(m)), _p(q), _p(qd),
+                                _p(u), _p(out), ll(L))
+        return (out,)
+    if name == "crba":
+        m, q = args
+        n, L = q.shape
+        out = torch.empty(n, n, L, dtype=q.dtype)
+        getattr(lib, f"crba_{n}")(_p(build.model_buffer(m)), _p(q), _p(out),
+                                  ll(L))
+        return (out,)
+    if name in ("eepos", "eepos_targets", "deepos", "deepos_targets"):
+        m, q, *targets = args
+        n, L = q.shape
+        ee = build.ee_buffer(m, *targets)
+        ne = ee.shape[0]
+        kernel = KERNEL_OF.get(name, name)
+        out = torch.empty((6 * ne, L) if kernel == "eepos" else (6 * ne, n, L),
+                          dtype=q.dtype)
+        getattr(lib, f"{kernel}_{n}")(_p(build.model_buffer(m)), _p(ee),
+                                      ctypes.c_int(ne), _p(q), _p(out), ll(L))
+        return (out,)
     if name in ("minv", "minv_upper"):
         m, q, dense = args
         n, L = q.shape
@@ -367,7 +511,7 @@ def _host_run(lib, name, args):
     return X, U, c
 
 
-@pytest.mark.parametrize("robot", ["pendulum2", "iiwa"])
+@pytest.mark.parametrize("robot", ["pendulum2", "iiwa", "hyq"])
 @pytest.mark.parametrize("name", KERNELS)
 def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
     m = build_model(load_robot(robot), dtype=torch.float64)
@@ -379,6 +523,22 @@ def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
     assert _max_err(got, want) <= TOL
     if name == "minv_upper":   # exact zeros below the diagonal
         assert not got[0].permute(2, 0, 1).tril(-1).any()
+
+
+@pytest.mark.parametrize("case,robot", grid_params(
+    ["pendulum2", "iiwa", "hyq", "gym_ant"]))
+def test_host_build_of_grid_kernel_matches_plain(host_lib, case, robot):
+    """Every GRiD kernel's lane code on chains (pendulum2, iiwa), a branched
+    robot with 12 joints and 4 EEs (hyq), and EEs with empty chains
+    (gym_ant, 8 joints)."""
+    m = build_model(load_robot(robot), dtype=torch.float64)
+    assert getattr(host_lib, f"size_{m.n}")() == build.model_buffer(m).numel()
+    args = grid_inputs(m, robot, 9, seed=6)[case]
+    got = _host_run(host_lib, case, args)
+    want = _outs(WRAPPERS[case][1](*args))
+    assert len(got) == len(want)
+    assert all(g.shape == w.shape for g, w in zip(got, want))
+    assert _max_err(got, want) <= TOL
 
 
 # ---------------------------------------------------------------------------
@@ -393,7 +553,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("robot", ["pendulum2", "iiwa"])
+@pytest.mark.parametrize("robot", ["pendulum2", "iiwa", "hyq"])
 @pytest.mark.parametrize("name", KERNELS)
 def test_cuda_kernel_matches_plain(cuda_device, name, robot):
     m = build_model(load_robot(robot), dtype=torch.float64,
@@ -410,6 +570,23 @@ def test_cuda_kernel_matches_plain(cuda_device, name, robot):
     assert _max_err(got, want) <= TOL
     if name == "minv_upper":   # exact zeros below the diagonal
         assert not got[0].permute(2, 0, 1).tril(-1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,robot", grid_params(["iiwa", "hyq"]))
+def test_cuda_grid_kernel_matches_plain(cuda_device, case, robot):
+    m = build_model(load_robot(robot), dtype=torch.float64,
+                    device=cuda_device)
+    args = grid_inputs(m, robot, 37, seed=3)[case]   # a ragged block
+    kern, plain = WRAPPERS[case]
+    build.reset_counters()
+    got = _outs(kern(*args))
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {KERNEL_OF.get(case, case): 1}
+    assert not build.PLAIN_CALLS
+    want = _outs(plain(*args))
+    assert all(g.is_cuda and g.shape == w.shape for g, w in zip(got, want))
+    assert _max_err(got, want) <= TOL
 
 
 @pytest.mark.cuda
@@ -443,7 +620,9 @@ def test_cuda_grid_launches_one_kernel_per_call(cuda_device):
                  use_kernels=False)
     rng = np.random.default_rng(4)
     calls = {"id": ("rnea", 3), "id_du": ("id_du", 3), "aba": ("aba", 3),
-             "fd_du": ("fd_du", 3), "minv": ("minv", 1)}
+             "fd_du": ("fd_du", 3), "minv": ("minv", 1), "fd": ("fd", 3),
+             "crba": ("crba", 1), "eepos": ("eepos", 1),
+             "deepos": ("deepos", 1)}
     for shape in ((7,), (37, 7)):
         x = [rng.uniform(-1, 1, shape) for _ in range(3)]
         for method, (kernel, nargs) in calls.items():
@@ -456,5 +635,6 @@ def test_cuda_grid_launches_one_kernel_per_call(cuda_device):
             assert build.PLAIN_CALLS[kernel] == 1
             assert got.is_cuda and got.shape == want.shape
             assert _max_err((got,), (want,)) <= TOL
-    with pytest.raises(NotImplementedError):   # 12 joints: no instance
-        GRiD("hyq", device=cuda_device).id(np.zeros(12), np.zeros(12))
+    with pytest.raises(NotImplementedError):   # 17 joints: no instance
+        GRiD("gym_humanoid", device=cuda_device).id(np.zeros(17),
+                                                     np.zeros(17))
