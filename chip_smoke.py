@@ -1,5 +1,5 @@
-"""On-card smoke test of the PyTorch/CUDA port: configs 3, 1 and 2 end to end,
-and the rest of the GRiD API's first-order calls.
+"""On-card smoke test of the PyTorch/CUDA port: configs 3, 1, 2 and 4 end to
+end, and the rest of the GRiD API.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -7,15 +7,20 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
 Phases, one line each:
   0. device: fail without CUDA; print the card's name and power limit;
-  1. build: compile the CUDA kernels from gridcodegenerator_tpu_torch/csrc;
+  1. build: compile the CUDA kernels from gridcodegenerator_tpu_torch/csrc
+     (and the host operation counter, utils/opcount.py);
   2. each kernel against its plain PyTorch version on the same CUDA inputs,
      iiwa at small B and N (37 lanes: a ragged block), float64: max abs
      error <= 1e-9; and every GRiD kernel case on hyq (12 joints, branched,
-     4 EEs);
+     4 EEs); idsva_so, fdsva_so (iiwa, hyq), riccati with and without a
+     stationary curvature and the line search with QuadCost (iiwa) within
+     1e-9 * max(1, max|ref|);
   3. the same in float32 (tolerances below), with each kernel's and plain
      version's device time from CUDA events: the config-3 kernels at
      config-3 shapes, the GRiD kernels (rnea, id_du, aba, minv, fd, crba,
-     eepos, deepos) at 1024 and 131072 lanes;
+     eepos, deepos) at 1024 and 131072 lanes, riccati (stationary) at the
+     config-3 QuadCost shapes, idsva_so and fdsva_so at 1024 lanes and at
+     config 4's N*B lanes (iiwa 32768, hyq 16384);
   4. config 3 (iiwa, N=64, 5 iterations, B=2048, float32, EE reach) through
      the port's make_ilqr with kernels: every kernel of the path launched,
      nothing plain ran, costs finite and decreasing, final costs agree with
@@ -23,10 +28,26 @@ Phases, one line each:
   5. configs 1 and 2 (iiwa, float32) through the port's GRiD: id and id_du
      unbatched and at B=1024, aba, fd_du and minv at B=1024; then fd, crba,
      eepos and deepos unbatched and at B=1024, and hyq's eepos at B=1024;
-     each call launched exactly its kernel and nothing plain ran; outputs
-     agree with a float64 plain GRiD on the same inputs; fk (plain torch,
-     no kernel) agrees too; µs per call and evals/s.
-Then a JSON line of per-kernel results, and last the device line.
+     then idsva_so and fdsva_so unbatched and at B=1024 (iiwa) and B=512
+     (hyq); each call launched exactly its kernel and nothing plain ran;
+     outputs agree with a float64 plain GRiD on the same inputs; fk (plain
+     torch, no kernel) agrees too; µs per call and evals/s;
+  6. config 4 (SQP with exact second-order Hessians, QuadCost, N=32, 4
+     iterations, float32) on iiwa (B=1024) and hyq (B=512) through
+     make_sqp: rollout, fd_du, fdsva_so and the line search launched every
+     iteration, nothing plain ran (the DDP backward is plain torch by
+     design, not a kernel's plain twin); costs finite and non-increasing;
+     on the first 64 problems, final costs against a float64 plain solve
+     and a float64 kernel solve against it (after iteration 1 for SQP, at
+     the end for the QuadCost task);
+     solves/s and the time of each phase; then config 3's QuadCost task
+     (first-order iLQR, iiwa, N=64, 5 iterations, B=2048) through the
+     riccati kernel, likewise.
+Then a JSON line of per-kernel results (launches on the main paths of
+phases 4-6, error, times, and the roofline bound: the larger of the bytes
+each call must move over 3.35 TB/s and the operations its function needs,
+counted by utils/opcount.py, over 67 TFLOP/s float32; beside them the
+operations the kernel's lane code executes), and last the device line.
 Any failure raises, so the exit code is non-zero and no result is printed.
 """
 
@@ -40,6 +61,7 @@ import numpy as np
 import torch
 
 N, ITERS, B, DT = 64, 5, 2048, 0.01
+N4, ITERS4, B4 = 32, 4, {"iiwa": 1024, "hyq": 512}   # config 4 (bench.py)
 GRAVITY = -9.81
 DEVICE = torch.device("cuda:0")
 
@@ -56,6 +78,19 @@ DEVICE = torch.device("cuda:0")
 # sum in other orders (and the card contracts into FMAs).
 F32_FACTOR = 10.0
 F32_FLOOR = 1e-5
+# Phase 6 holds a float64 kernel solve against the plain float64 solve on
+# the first 64 problems, at one iteration: at least F64_SHARE of the
+# problems within rel F64_REL. Both solves amplify rounding: the alpha = 1
+# line-search rollout is an unstable closed loop (rounding-level gains part
+# its cost by up to 40% at config 3's N=64), and config 4's exact-Hessian
+# backward turns rounding-level input differences into other gains. The
+# first-order QuadCost solve converges all the same, so it is held at its
+# last iteration. The SQP solve does not: scaling its second-order tensors
+# by 1 + 1e-15 parts a share of the problems by the last iteration
+# (tests/test_torch_sqp.py, config4_float64_sensitivity), so it is held
+# after its first. A wrong kernel moves most problems.
+F64_REL = 1e-5
+F64_SHARE = 0.9
 
 
 def line(tag, obj):
@@ -88,15 +123,20 @@ def main():
     from gridcodegenerator_tpu_torch.ops.cuda import build
     from gridcodegenerator_tpu_torch.ops.cuda import kernels as K
     from gridcodegenerator_tpu_torch.ops.cuda import sweeps as S
-    from gridcodegenerator_tpu_torch.trajopt.cost import EEReachCost
+    from gridcodegenerator_tpu_torch.trajopt.cost import EEReachCost, QuadCost
     from gridcodegenerator_tpu_torch.trajopt.ilqr import (
         ILQRConfig, make_ilqr, resolve_control_bounds)
+    from gridcodegenerator_tpu_torch.trajopt.sqp import SQPConfig, make_sqp
+    from gridcodegenerator_tpu_torch.utils import opcount
     from gridcodegenerator_tpu_torch.utils.timing import time_cuda
 
     # -- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
     build.lib()
-    line("build", {"seconds": round(time.perf_counter() - t0, 3),
+    t1 = time.perf_counter()
+    opcount.lib()
+    line("build", {"seconds": round(t1 - t0, 3),
+                   "opcount_seconds": round(time.perf_counter() - t1, 3),
                    "library": str(build.build().relative_to(
                        build.BUILD_ROOT.parents[1]))})
 
@@ -137,6 +177,101 @@ def main():
                                    GRAVITY, lo, hi, cost),
         }
 
+    def quad_cost(model, goal):
+        """bench.py's QuadCost: Q 0.1, R 1e-3, Qf 100, x_goal zero but for
+        ``goal`` ({index: value})."""
+        n = model.n
+        full = lambda v, k: torch.full((k,), v, dtype=model.dtype, device=dev)
+        xg = full(0.0, 2 * n)
+        for i, v in goal.items():
+            xg[i] = v
+        return QuadCost(Q=full(0.1, 2 * n), R=full(1e-3, n),
+                        Qf=full(100.0, 2 * n), x_goal=xg)
+
+    QUAD3 = {0: 1.0, 1: 0.5}    # config 3's QuadCost task (bench.py:187)
+    QUAD4 = {0: 0.5}            # config 4 (bench.py:218)
+
+    def quad_inputs(model, n_knots, batch, seed):
+        """The dense Riccati sweep's and the QuadCost line search's inputs as
+        config 3's QuadCost task makes them on its first iteration (plain
+        ops): the stationary curvature block, and per-knot blocks (scaled
+        per knot, so that the knot index matters)."""
+        n = model.n
+        cost = quad_cost(model, QUAD3)
+        cfg = ILQRConfig(N=n_knots, dt=DT, iters=ITERS, use_kernels=False)
+        _, parts = make_ilqr(model, cost, cfg, expose_parts=True)
+        rng = np.random.default_rng(seed)
+        x0 = torch.as_tensor(rng.uniform(-0.2, 0.2, (2 * n, batch)),
+                             dtype=model.dtype, device=dev)
+        U0 = torch.zeros((n_knots, n, batch), dtype=model.dtype, device=dev)
+        X = parts["rollout"](x0, U0)
+        A, Bm = parts["linearize"](X[:n_knots], U0)
+        fold = lambda Z: Z.transpose(0, 1).reshape(Z.shape[1], -1)
+        unfold = lambda z: z.reshape(z.shape[:-1] + (n_knots, batch)).movedim(
+            -2, 0)
+        _, Vx0, Vxx0 = cost.terminal_expansion(X[n_knots])
+        _, lx, lu, lxx, luu, lux = cost.stage_expansion(fold(X[:n_knots]),
+                                                        fold(U0))
+        head = (A, Bm, unfold(lx).contiguous(), unfold(lu).contiguous())
+        tail = (Vx0.contiguous(), Vxx0.contiguous(), cfg.reg)
+        scale = (1.0 + torch.arange(n_knots, dtype=model.dtype, device=dev)
+                 / n_knots)[:, None, None, None]
+        ric = head + tuple(c[..., :batch].contiguous()
+                           for c in (lxx, luu, lux)) + tail
+        ric_stacked = head + tuple((unfold(c) * scale).contiguous()
+                                   for c in (lxx, luu, lux)) + tail
+        ks, Ks = S.riccati_plain(*ric)
+        lo, hi = resolve_control_bounds(model, cfg)
+        al = torch.tensor(cfg.alphas, dtype=model.dtype, device=dev)[:, None]
+        return {"riccati": ric, "riccati_stacked": ric_stacked,
+                "linesearch_quad": (model, X[0].contiguous(), U0,
+                                    X[:n_knots].contiguous(), ks, Ks,
+                                    al.repeat(1, batch), DT, GRAVITY, lo, hi,
+                                    cost)}
+
+    def so_cases(model, lanes, seed):
+        """idsva_so (q, qd, qdd) and fdsva_so (q, qd, u) on (n, lanes)
+        inputs ~ U(-1, 1)."""
+        rng = np.random.default_rng(seed)
+        q, qd, x = (torch.as_tensor(rng.uniform(-1, 1, (model.n, lanes)),
+                                    dtype=model.dtype, device=dev)
+                    for _ in range(3))
+        return {"idsva_so": (model, q, qd, x, GRAVITY),
+                "fdsva_so": (model, q, qd, x, GRAVITY)}
+
+    def roofline(name, model, args, out):
+        """The least time the card could take for one call of kernel
+        ``name`` on ``args`` -> ``out`` (bound_ms, bound_by "bytes" or
+        "operations"): each input and output tensor moved once, and the
+        operations one lane of the function needs (utils/opcount.py) times
+        the lanes; and the operations the kernel executes (ops_executed)."""
+        kw, extra = {}, ()
+        if name == "rollout":
+            kw, lanes = dict(N=args[2].shape[0]), args[1].shape[-1]
+        elif name.startswith("linesearch"):
+            name, cost = "linesearch_rollout", args[-1]
+            kw, lanes = dict(N=args[2].shape[0], cost=cost), args[6].numel()
+            extra = (build.cost_buffer(cost, args[1]),)
+        elif name == "riccati_factored":
+            kw = dict(N=args[0].shape[0], rank=args[4].shape[0])
+            lanes = args[0].shape[-1]
+        elif name.startswith("riccati"):
+            name = "riccati"
+            kw = dict(N=args[0].shape[0], stationary=args[4].ndim == 3)
+            lanes = args[0].shape[-1]
+        else:
+            lanes = args[1].shape[-1]
+            if name in ("eepos", "deepos"):
+                extra = (build.ee_buffer(model),)
+        if isinstance(args[0], type(model)):
+            extra += (build.model_buffer(model),)
+        ops = opcount.ops_per_lane(name, model, **kw) * lanes
+        ms, by = opcount.bound_ms(ops, opcount.tensor_bytes(args, out, extra),
+                                  model.dtype)
+        return {"bound_ms": ms, "bound_by": by, "ops": ops,
+                "ops_executed": opcount.ops_per_lane(
+                    name, model, executed=True, **kw) * lanes}
+
     kernels = {
         "fd_du": (K.fd_du, K.fd_du_plain, K.SOURCES[K.FD_DU],
                   K.REPLACES[K.FD_DU]),
@@ -162,7 +297,13 @@ def main():
                    "fd": "fd", "crba": "crba", "eepos": "eepos",
                    "deepos": "deepos", "fd_du": "fd_du"}
     case_fns = {name: fns[:2] for name, fns in grid_kernels.items()} | {
-        "fd_du": (K.fd_du, K.fd_du_plain)}
+        "fd_du": (K.fd_du, K.fd_du_plain),
+        "idsva_so": (K.idsva_so, K.idsva_so_plain),
+        "fdsva_so": (K.fdsva_so, K.fdsva_so_plain),
+        "riccati": (S.riccati, S.riccati_plain),
+        "riccati_stacked": (S.riccati, S.riccati_plain),
+        "linesearch_quad": (S.linesearch_rollout,
+                            S.linesearch_rollout_plain)}
 
     def lane_cases(model, lanes, seed, with_fd_du=False):
         """Each GRiD kernel case on (n, lanes) inputs ~ U(-1, 1), as
@@ -227,8 +368,30 @@ def main():
             if case == "minv_upper" and bool(
                     out[0].permute(2, 0, 1).tril(-1).any()):
                 raise AssertionError(f"{what}: nonzero below the diagonal")
+    # the second-order kernels, riccati and the QuadCost line search:
+    # within 1e-9 of each output's scale max(1, max|ref|)
+    small_new = {}
+    new_cases = [(f"{m.name} {c}", c, a) for m in (m64, hyq64)
+                 for c, a in so_cases(m, 37, seed=1).items()]
+    new_cases += [(f"iiwa {c}", c, a)
+                  for c, a in quad_inputs(m64, 8, 37, seed=1).items()]
+    for what, case, args in new_cases:
+        kern, plain = case_fns[case]
+        out, ref = as_tuple(kern(*args)), as_tuple(plain(*args))
+        torch.cuda.synchronize()
+        if len(out) != len(ref) or any(o.shape != r.shape
+                                       for o, r in zip(out, ref)):
+            raise AssertionError(f"{what}: kernel and plain outputs differ "
+                                 f"in number or shape")
+        err = max_err(out, ref)
+        tol = 1e-9 * max(1.0, max(float(r.abs().max()) for r in ref))
+        if not err <= tol:
+            raise AssertionError(f"{what} float64: max abs err {err} > {tol}")
+        small_new[what] = {"max_abs_err": err, "tol": tol}
     line("small_f64", {"robot": "iiwa", "N": 8, "B": 37,
                        "max_abs_err": small, "tol": 1e-9})
+    line("small_f64_second_order_quad", {"B": 37, "N": 8,
+                                         "cases": small_new})
     line("small_f64_hyq", {"robot": "hyq", "joints": hyq64.n,
                            "ees": build.ee_buffer(hyq64).shape[0],
                            "B": 37, "max_abs_err": small_hyq, "tol": 1e-9})
@@ -236,6 +399,9 @@ def main():
     # -- phase 3: config-3 shapes, float32 ----------------------------------
     m32 = build_model(topo, dtype=torch.float32, device=dev)
     m32_64 = m32.to(dtype=torch.float64)
+    hyq32 = build_model(load_robot("hyq"), dtype=torch.float32, device=dev)
+    hyq32_64 = hyq32.to(dtype=torch.float64)
+    f64_of = {id(m32): m32_64, id(hyq32): hyq32_64}
 
     def to64(a):
         if isinstance(a, torch.Tensor):
@@ -243,7 +409,10 @@ def main():
         if isinstance(a, EEReachCost):
             return dataclasses.replace(a, model=m32_64,
                                        goal_xyz=a.goal_xyz.double())
-        return m32_64 if a is m32 else a
+        if isinstance(a, QuadCost):
+            return QuadCost(Q=a.Q.double(), R=a.R.double(), Qf=a.Qf.double(),
+                            x_goal=a.x_goal.double())
+        return f64_of.get(id(a), a)
 
     def per_row(t, rows):
         """Max over all but the lane axis, the lanes cut into ``rows``."""
@@ -279,10 +448,11 @@ def main():
             "max_abs_err": max_err(out, ref),
             "kernel_err_vs_f64": max_err(out, ref64),
             "plain_err_vs_f64": max_err(ref, ref64),
-            "ms": ms, "plain_ms": plain_ms}
+            "ms": ms, "plain_ms": plain_ms} | roofline(name, m32, args, out)
     line("config3_f32", {k: {f: v[f] for f in (
         "max_abs_err", "kernel_err_vs_f64", "plain_err_vs_f64", "ms",
-        "plain_ms")} for k, v in results.items()})
+        "plain_ms", "bound_ms", "bound_by", "ops", "ops_executed")}
+        for k, v in results.items()})
 
     def check_f32(what, out, ref, ref64):
         """The float32 rule above, for one output."""
@@ -310,7 +480,9 @@ def main():
                 "max_abs_err": max_err((out,), (ref,)),
                 "kernel_err_vs_f64": ek, "plain_err_vs_f64": ep,
                 "ms": time_cuda(lambda: kern(*args), iters=20),
-                "plain_ms": time_cuda(lambda: plain(*args), iters=3)}
+                "plain_ms": time_cuda(lambda: plain(*args), iters=3),
+                "bound": (roofline(case, m32, args, (out,))
+                          if case == case_kernel[case] else None)}
     line("grid_kernels_f32", {f"{case} L={lanes}": v
                               for (case, lanes), v in grid_f32.items()})
     for name, (_, _, src, repl) in grid_kernels.items():
@@ -320,7 +492,47 @@ def main():
                                in grid_f32.items()
                                if case_kernel[c] == name and lanes == 1024),
             "ms": grid_f32[name, 1024]["ms"],
-            "plain_ms": grid_f32[name, 1024]["plain_ms"]}
+            "plain_ms": grid_f32[name, 1024]["plain_ms"]} | grid_f32[
+                name, 1024]["bound"]
+
+    def timed_f32(what, kern, plain, args, model, name, iters):
+        """The float32 rule on every output, and the kernel's and plain
+        version's times and bound."""
+        out, ref = as_tuple(kern(*args)), as_tuple(plain(*args))
+        ref64 = as_tuple(plain(*map(to64, args)))
+        torch.cuda.synchronize()
+        ek = ep = 0.0
+        for k, (o, r, r64) in enumerate(zip(out, ref, ref64)):
+            e = check_f32(f"{what} output {k}", o, r, r64)
+            ek, ep = max(ek, e[0]), max(ep, e[1])
+        del ref64
+        return {"max_abs_err": max_err(out, ref), "kernel_err_vs_f64": ek,
+                "plain_err_vs_f64": ep,
+                "ms": time_cuda(lambda: kern(*args), iters=iters),
+                "plain_ms": time_cuda(lambda: plain(*args), iters=2)} | \
+            roofline(name, model, args, out)
+
+    # riccati with the stationary curvature at config 3's QuadCost shapes
+    new_f32 = {f"riccati N={N} B={B}": timed_f32(
+        "riccati", S.riccati, S.riccati_plain,
+        quad_inputs(m32, N, B, seed=0)["riccati"], m32, "riccati", 20)}
+    # idsva_so and fdsva_so at 1024 lanes and at config 4's N*B lanes
+    for model in (m32, hyq32):
+        for lanes in (1024, N4 * B4[model.name]):
+            for case, args in so_cases(model, lanes, seed=0).items():
+                what = f"{model.name} {case} L={lanes}"
+                new_f32[what] = timed_f32(what, *case_fns[case], args, model,
+                                          case, 10)
+                del args
+            torch.cuda.empty_cache()
+    line("second_order_riccati_f32", new_f32)
+    for name, key in (("riccati", f"riccati N={N} B={B}"),
+                      ("idsva_so", f"iiwa idsva_so L={N4 * B4['iiwa']}"),
+                      ("fdsva_so", f"iiwa fdsva_so L={N4 * B4['iiwa']}")):
+        src = (S if name == "riccati" else K).SOURCES[name]
+        repl = (S if name == "riccati" else K).REPLACES[name]
+        results[name] = {"name": name, "route": "cuda", "source": src,
+                         "replaces": repl} | new_f32[key]
 
     # -- phase 4: the slice ------------------------------------------------
     n = m32.n
@@ -443,6 +655,12 @@ def main():
                           ("deepos", 1)):
         calls[f"api_{method}_B1"] = ("iiwa", method, x1[:nargs], method)
         calls[f"api_{method}_B1024"] = ("iiwa", method, x2[:nargs], method)
+    rng = np.random.default_rng(1)
+    xh5 = tuple(rng.uniform(-1, 1, (B4["hyq"], 12)) for _ in range(3))
+    for method in ("idsva_so", "fdsva_so"):
+        calls[f"api_{method}_B1"] = ("iiwa", method, x1, method)
+        calls[f"api_{method}_B1024"] = ("iiwa", method, x2, method)
+        calls[f"hyq_{method}_B512"] = ("hyq", method, xh5, method)
     ref64 = {k: getattr(grids[r][2], m)(*x).double()
              for k, (r, m, x, _) in calls.items()}
     ref32 = {k: getattr(grids[r][1], m)(*x) for k, (r, m, x, _) in calls.items()}
@@ -520,18 +738,162 @@ def main():
         api[f"{method}_us_B1024"] = us(lambda: fn(*t2[:nargs]), 100)
     th = on_card(xh)
     api["hyq_eepos_us_B1024"] = us(lambda: grids["hyq"][0].eepos(*th), 100)
+    th5 = on_card(xh5)
+    for method in ("idsva_so", "fdsva_so"):
+        fn, fh = getattr(g, method), getattr(grids["hyq"][0], method)
+        api[f"{method}_us_B1"] = us(lambda: fn(*t1), 100)
+        api[f"{method}_us_B1024"] = us(lambda: fn(*t2), 50)
+        api[f"hyq_{method}_us_B512"] = us(lambda: fh(*th5), 50)
     line("grid", {"configs": [1, 2], "robot": "iiwa", "dtype": "float32",
                   "B": BG, "device": smi, "config1": c1, "config2": c2,
                   "api": api, "max_err_vs_f64_plain": errs,
                   "launches": grid_launches})
 
-    path_launches = {k: launches.get(k, 0) + grid_launches.get(k, 0)
+    # -- phase 6: config 4 (SQP) and config 3's QuadCost task -------------
+    def first64(make, cfg_cls, cfg_kw, model32, goal, x0n, c_k32, f64_at):
+        """On the first 64 problems: the float32 kernel solve's final costs,
+        and a plain float32 solve's, each against a plain float64 solve
+        (shares within rel 1e-3, median rel. differences); and a float64
+        kernel solve against the plain float64 solve, iteration by
+        iteration, held at iteration ``f64_at`` (see F64_REL)."""
+        def run(model, use_kernels):
+            n = model.n
+            x = torch.as_tensor(x0n[:, :64], dtype=model.dtype, device=dev)
+            U = torch.zeros((cfg_kw["N"], n, x.shape[-1]), dtype=model.dtype,
+                            device=dev)
+            cfg = cfg_cls(**cfg_kw, use_kernels=use_kernels)
+            return make(model, quad_cost(model, goal), cfg)(
+                x, U).cost_trace.double().cpu()
+        m64_ = f64_of[id(model32)]
+        t_p32, t_p64, t_k64 = (run(model32, False), run(m64_, False),
+                               run(m64_, None))
+        c_p32, c_p64 = t_p32[-1], t_p64[-1]
+        k = c_k32.double().cpu()[:c_p64.shape[0]]
+        r_k, r_p = rel(k, c_p64), rel(c_p32, c_p64)
+        r_at = rel(t_k64[f64_at], t_p64[f64_at])
+        at = float((r_at <= F64_REL).double().mean())
+        out = {"f32_kernel_vs_f64_plain": share(r_k),
+               "f32_plain_vs_f64_plain": share(r_p),
+               "kernel_median_rel": float(r_k.median()),
+               "plain_median_rel": float(r_p.median()),
+               "f64_held_at_iter": f64_at,
+               "f64_kernel_vs_plain_share_at_iter": at,
+               "f64_kernel_vs_plain_max_rel_at_iter": float(r_at.max()),
+               "f64_kernel_vs_plain_share_per_iter": [
+                   share(rel(a, b)) for a, b in zip(t_k64, t_p64)]}
+        if not at >= F64_SHARE:
+            raise AssertionError(f"float64 kernel solve at iteration {f64_at} "
+                                 f"within rel {F64_REL} of the plain one on "
+                                 f"{at} of the problems < {F64_SHARE}: {out}")
+        # the rule of config 3 (phase 4): the kernel solve agrees with the
+        # float64 solve on no fewer problems than the plain float32 solve
+        # does, less 5 points
+        if not (out["f32_kernel_vs_f64_plain"]
+                >= out["f32_plain_vs_f64_plain"] - 0.05):
+            raise AssertionError(f"float32 kernel solve less accurate than the "
+                                 f"plain float32 solve: {out}")
+        return out
+
+    def check_run(what, res, expect, n_knots, batch, iters, n):
+        runs = dict(build.LAUNCHES)
+        if runs != expect or build.PLAIN_CALLS:
+            raise AssertionError(f"{what} launches {runs} (expected "
+                                 f"{expect}), plain calls "
+                                 f"{dict(build.PLAIN_CALLS)}")
+        if (res.X.shape != (n_knots + 1, 2 * n, batch)
+                or res.U.shape != (n_knots, n, batch)
+                or res.cost_trace.shape != (iters + 1, batch)):
+            raise AssertionError(f"{what} returned the wrong shapes")
+        tr = res.cost_trace
+        if not bool(torch.isfinite(tr).all()):
+            raise AssertionError(f"{what}: non-finite cost")
+        if not bool((tr[1:] <= tr[:-1]).all()):
+            raise AssertionError(f"{what}: cost increased")
+        return runs
+
+    path_runs = [launches, grid_launches]
+    config4 = {}
+    rng = np.random.default_rng(0)              # config 4 (bench.py:211)
+    for robot in ("iiwa", "hyq"):
+        m = m32 if robot == "iiwa" else hyq32
+        n, b4 = m.n, B4[robot]
+        cfg_kw = dict(N=N4, dt=DT, iters=ITERS4)
+        solve4, parts4 = make_sqp(m, quad_cost(m, QUAD4), SQPConfig(**cfg_kw),
+                                  expose_parts=True)
+        x0n = rng.uniform(-0.2, 0.2, (2 * n, b4))
+        x4 = torch.as_tensor(x0n, dtype=torch.float32, device=dev)
+        U4 = torch.zeros((N4, n, b4), dtype=torch.float32, device=dev)
+        build.reset_counters()
+        res4 = solve4(x4, U4)
+        torch.cuda.synchronize()
+        path_runs.append(check_run(
+            f"config 4 {robot}", res4,
+            {"rollout": 1, "fd_du": ITERS4, "fdsva_so": ITERS4,
+             "linesearch_rollout": ITERS4}, N4, b4, ITERS4, n))
+        agree = first64(make_sqp, SQPConfig, cfg_kw, m, QUAD4,
+                        x4.double().cpu().numpy(), res4.cost, f64_at=1)
+        ms4 = time_cuda(lambda: solve4(x4, U4), iters=5, warmup=1)
+        X = parts4["rollout"](x4, U4)
+        A, Bm = parts4["linearize"](X[:N4], U4)
+        so = parts4["second_order"](X, U4)
+        ks, Ks = parts4["backward"](X, U4, A, Bm, so)
+        phases = {
+            "rollout_ms": time_cuda(lambda: parts4["rollout"](x4, U4), iters=5),
+            "linearize_ms": time_cuda(lambda: parts4["linearize"](X[:N4], U4),
+                                      iters=5),
+            "fdsva_so_ms": time_cuda(lambda: parts4["second_order"](X, U4),
+                                     iters=5),
+            "backward_ms": time_cuda(
+                lambda: parts4["backward"](X, U4, A, Bm, so), iters=5),
+            "forward_ms": time_cuda(lambda: parts4["forward"](X, U4, ks, Ks),
+                                    iters=5)}
+        config4[robot] = {
+            "B": b4, "solve_ms": ms4, "solves_per_s": b4 / (ms4 / 1e3),
+            "cost_first_mean": float(res4.cost_trace[0].mean()),
+            "cost_last_mean": float(res4.cost_trace[-1].mean()),
+            "first64_final_cost": agree, "launches": path_runs[-1],
+            "phases": phases}
+        del X, A, Bm, so, ks, Ks
+        torch.cuda.empty_cache()
+    line("config4", {"config": 4, "N": N4, "iters": ITERS4, "dtype": "float32",
+                     "device": smi, "backward": "plain torch (DDP terms)",
+                     "robots": config4})
+
+    cfg_q = dict(N=N, dt=DT, iters=ITERS)
+    solve_q = make_ilqr(m32, quad_cost(m32, QUAD3), ILQRConfig(**cfg_q))
+    build.reset_counters()
+    res_q = solve_q(x0, U0)
+    torch.cuda.synchronize()
+    path_runs.append(check_run(
+        "config 3 QuadCost", res_q,
+        {"rollout": 1, "fd_du": ITERS, "riccati": ITERS,
+         "linesearch_rollout": ITERS}, N, B, ITERS, m32.n))
+    agree_q = first64(make_ilqr, ILQRConfig, cfg_q, m32, QUAD3,
+                      x0.double().cpu().numpy(), res_q.cost, f64_at=ITERS)
+    ms_q = time_cuda(lambda: solve_q(x0, U0), iters=10, warmup=1)
+    line("config3_quad", {"config": 3, "task": "QuadCost", "robot": "iiwa",
+                          "N": N, "iters": ITERS, "B": B, "dtype": "float32",
+                          "device": smi, "solve_ms": ms_q,
+                          "quad_task_solves_per_s": B / (ms_q / 1e3),
+                          "cost_first_mean": float(res_q.cost_trace[0].mean()),
+                          "cost_last_mean": float(res_q.cost_trace[-1].mean()),
+                          "first64_final_cost": agree_q,
+                          "launches": path_runs[-1]})
+
+    path_launches = {k: sum(run.get(k, 0) for run in path_runs)
                      for k in results}
+    missing = [k for k, v in path_launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels the main paths never launched: "
+                             f"{missing}")
     print(json.dumps({"kernels": [
         {k: results[name][k] for k in ("name", "route", "source",
                                        "replaces")}
         | {"launches": path_launches[name]}
-        | {k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms")}
+        | {k: results[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by", "ops",
+                                         "ops_executed")}
+        | {"library_ms": None}
         for name in results]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

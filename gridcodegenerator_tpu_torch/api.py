@@ -13,7 +13,7 @@ The counterpart of ``gridcodegenerator_tpu/api.py``. Two tiers:
 Example::
 
     from gridcodegenerator_tpu_torch import GRiD
-    grid = GRiD("iiwa", device="cuda")        # or a URDF path/XML/topology
+    grid = GRiD("iiwa")                       # or a URDF path/XML/topology
     c     = grid.id(q, qd, qdd)               # RNEA         (B, n)
     Minv  = grid.minv(q)                      # (B, n, n)
     qdd   = grid.fd(q, qd, u)                 # Minv route
@@ -24,10 +24,12 @@ Example::
     pose  = grid.eepos(q)                     # (B, 6*num_ees)
     J     = grid.deepos(q)                    # (B, 6*num_ees, n)
     Tw    = grid.fk(q)                        # (B, n, 4, 4), plain torch
+    d2tau = grid.idsva_so(q, qd, qdd)         # (B, 4, n, n, n)
+    d2qdd = grid.fdsva_so(q, qd, u)           # (B, 4, n, n, n)
 
-The methods whose kernels are not ported yet (``d2eepos`` and the
-second-order tensors) raise ``NotImplementedError`` naming their ROADMAP
-item; so do floating-base robots.
+``GRiD`` runs on the card unless ``device="cpu"`` is asked for. The method
+whose kernel is not ported yet (``d2eepos``) raises ``NotImplementedError``
+naming its ROADMAP item; so do floating-base robots.
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .models.model import RobotModel, build_model
+from .models.model import RobotModel, build_model, resolve_device
 from .models.zoo import list_robots, load_robot
 from .ops import eepose as _eepose
 from .ops.common import DEFAULT_GRAVITY, check_fixed_base
@@ -48,8 +50,6 @@ from .topology.urdf import parse_urdf
 # methods without a kernel in the port yet -> their ROADMAP item
 _NOT_PORTED = {
     "d2eepos": "Queue 2 item 14 (d2eepos_pallas)",
-    "idsva_so": "Queue 2 item 15 (idsva_so_pallas)",
-    "fdsva_so": "Queue 2 item 16 (fdsva_so_pallas)",
 }
 
 
@@ -82,11 +82,14 @@ class GRiD:
         dtype=torch.float32,
         gravity: float = DEFAULT_GRAVITY,
         floating_base: bool = False,
-        device="cpu",
+        device="cuda",
         use_kernels: Optional[bool] = None,
         ee_targets: Optional[Sequence[str]] = None,
     ):
-        """``use_kernels``: None runs the CUDA kernels iff ``device`` is a
+        """``device``: the card by default; without a CUDA device this
+        raises unless ``device="cpu"`` is asked for.
+
+        ``use_kernels``: None runs the CUDA kernels iff ``device`` is a
         CUDA device (the wrappers dispatch on the tensors' device); False
         runs the plain PyTorch versions on any device; True insists on a
         CUDA device.
@@ -94,7 +97,7 @@ class GRiD:
         ``ee_targets``: fixed-joint frame names to treat as end effectors
         (default: every fixed joint, or the leaf links without any); an
         unknown name raises ``ValueError``."""
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         if use_kernels and self.device.type != "cuda":
             raise ValueError(f"use_kernels=True needs a CUDA device, "
                              f"got {self.device}")
@@ -120,6 +123,8 @@ class GRiD:
         self._crba = _k.crba_plain if plain else _k.crba
         self._eepos = _k.eepos_plain if plain else _k.eepos
         self._deepos = _k.deepos_plain if plain else _k.deepos
+        self._idsva_so = _k.idsva_so_plain if plain else _k.idsva_so
+        self._fdsva_so = _k.fdsva_so_plain if plain else _k.fdsva_so
 
     # ------------------------------------------------------------------
     # layout shims: user (B, dim) <-> kernel (dim, B)
@@ -192,12 +197,27 @@ class GRiD:
         return self._out(self._crba(self.model, qk), ub)
 
     def idsva_so(self, q, qd, qdd=None):
-        """Second-order ID tensors (not ported yet)."""
-        _not_ported("idsva_so")
+        """Second-order ID tensors [d2tau/dq2, d2tau/dqd2, cross, dM/dq]:
+        (B, 4, nv, nv, nv), cross[i, j, k] = d2tau_i / dqd_j dq_k.
+
+        ``qdd`` defaults to zeros, as the JAX API's does; pass the realized
+        accelerations (e.g. from :meth:`fd`) whenever the tensors must be
+        consistent with a trajectory."""
+        qk, ub = self._in(q, self.num_pos)
+        qdk, _ = self._in(qd, self.num_vel)
+        qddk = (torch.zeros_like(qdk) if qdd is None
+                else self._in(qdd, self.num_vel)[0])
+        return self._out(self._idsva_so(self.model, qk, qdk, qddk,
+                                        self.gravity), ub)
 
     def fdsva_so(self, q, qd, u):
-        """Second-order FD tensors (not ported yet)."""
-        _not_ported("fdsva_so")
+        """Second-order FD tensors [d2qdd/dq2, d2qdd/dqd2, cross,
+        dMinv/dq]: (B, 4, nv, nv, nv)."""
+        qk, ub = self._in(q, self.num_pos)
+        qdk, _ = self._in(qd, self.num_vel)
+        uk, _ = self._in(u, self.num_vel)
+        return self._out(self._fdsva_so(self.model, qk, qdk, uk,
+                                        self.gravity), ub)
 
     def eepos(self, q):
         """End-effector poses [xyz, rpy] per EE: (B, 6*num_ees)."""

@@ -1,7 +1,8 @@
 // fd_du: the fused forward-dynamics gradient, one thread per lane.
 //
 // Replaces gridcodegenerator_tpu/ops/pallas/kernels.py:fd_du_pallas
-// (with_extras=True). Per lane: joint transforms, Carpentier's Minv, the
+// (with_extras=True). Per lane (dynamics.cuh:fd_du_lane, shared with
+// csrc/fdsva_so.cu): joint transforms, Carpentier's Minv, the
 // bias RNEA, qdd = Minv (u - c) (dynamics.cuh:fd_from_x, shared with
 // csrc/fd.cu), RNEA at qdd, the analytical ID gradient
 // dc/d[q, qd], and df/du = -Minv dc/du. The ID gradient
@@ -13,33 +14,6 @@
 // Minv (NJ, NJ, L); lane l reads and writes element l of each row, so a
 // warp's accesses are contiguous.
 #include "dynamics.cuh"
-
-namespace gt {
-
-// Sink of id_du_columns that stores df/du = -Minv dc/du column by column.
-template <typename T, int NJ>
-struct MinvColumns {
-  const T* Mi;
-  T* dfdu;
-  GT_HDI void operator()(int col, const T* dc) const {
-    for (int r = 0; r < NJ; ++r) {
-      T acc = Mi[r * NJ] * dc[0];
-      for (int k = 1; k < NJ; ++k) acc += Mi[r * NJ + k] * dc[k];
-      dfdu[r * 2 * NJ + col] = -acc;
-    }
-  }
-};
-
-template <typename T, int NJ>
-GT_HD void fd_du_lane(const Robot<T, NJ>& R, const T* q, const T* qd,
-                      const T* u, T gravity, T* dfdu, T* qdd, T* Mi) {
-  T X[NJ][36];
-  all_xmats(R, q, X);
-  fd_from_x(R, X, qd, u, gravity, qdd, Mi);
-  id_du_columns(R, X, qd, qdd, gravity, MinvColumns<T, NJ>{Mi, dfdu});
-}
-
-}  // namespace gt
 
 #ifdef __CUDACC__
 

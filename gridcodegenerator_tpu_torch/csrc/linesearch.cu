@@ -1,17 +1,24 @@
-// linesearch: feedback rollouts for every step size at once, with the EE
-// reach cost summed in the sweep; one thread per (step size, problem).
+// linesearch: feedback rollouts for every step size at once, with the cost
+// summed in the sweep; one thread per (step size, problem).
 //
 // Replaces gridcodegenerator_tpu/ops/pallas/sweeps.py:
 // linesearch_rollout_pallas and the in-kernel hooks of
-// gridcodegenerator_tpu/trajopt/cost.py:EEReachCost.pallas_cost. Lane
+// gridcodegenerator_tpu/trajopt/cost.py:EEReachCost.pallas_cost and
+// QuadCost.pallas_cost: the lane is a template on the cost (EECost,
+// QuadCostK), whose constants come from a small packed buffer
+// (ops/cuda/build.py:cost_buffer, cached per cost). Lane
 // l = a B + b runs step-size row a for problem b (alpha-major, the order of
 // the solver's widened lanes); every row re-reads the same unwidened
 // Uref/Xref/k/K, so the widened inputs never exist in device memory.
 //
-// u_t = clamp(Uref_t + alpha k_t + K_t (x_t - Xref_t)); stage cost
-// 0.5 (w_pos |ee(q) - goal|^2 + w_vel |qd|^2 + w_u |u|^2) before each step,
-// terminal cost 0.5 (w_pos_f |ee(q) - goal|^2 + w_vel |qd|^2) at the end,
-// with ee() the position-only FK of the packed EE chain.
+// u_t = clamp(Uref_t + alpha k_t + K_t (x_t - Xref_t)); the stage cost
+// before each step, the terminal cost at the end:
+// * EECost (kind 0; buffer goal (3) | w_pos | w_pos_f | w_vel | w_u):
+//   stage 0.5 (w_pos |ee(q) - goal|^2 + w_vel |qd|^2 + w_u |u|^2), terminal
+//   0.5 (w_pos_f |ee(q) - goal|^2 + w_vel |qd|^2), with ee() the
+//   position-only FK of the packed EE chain;
+// * QuadCostK (kind 1; buffer Q (2 NJ) | R (NJ) | Qf (2 NJ) | x_goal (2 NJ)):
+//   stage 0.5 (sum Q (x - xg)^2 + sum R u^2), terminal 0.5 sum Qf (x - xg)^2.
 //
 // Layout: x0 (2 NJ, B), Uref/k (N, NJ, B), Xref (N, 2 NJ, B),
 // K (N, NJ, 2 NJ, B), alpha_rows (na, B), bounds (NJ) or null;
@@ -20,20 +27,15 @@
 
 namespace gt {
 
-struct EECost {
-  double goal[3];
-  double w_pos, w_pos_f, w_vel, w_u;
-};
-
 // (|ee(q) - goal|^2, |qd|^2) of state x
 template <typename T, int NJ>
-GT_HD void ee_squares(const Robot<T, NJ>& R, const T* x, const EECost& c,
+GT_HD void ee_squares(const Robot<T, NJ>& R, const T* x, const T* goal,
                       T* e2, T* v2) {
   T xyz[3];
   ee_xyz(R, x, xyz);
   T s = T(0);
   for (int i = 0; i < 3; ++i) {
-    const T d = xyz[i] - (T)c.goal[i];
+    const T d = xyz[i] - goal[i];
     s += d * d;
   }
   *e2 = s;
@@ -43,12 +45,51 @@ GT_HD void ee_squares(const Robot<T, NJ>& R, const T* x, const EECost& c,
 }
 
 template <typename T, int NJ>
+struct EECost {
+  const T* c;   // goal (3) | w_pos | w_pos_f | w_vel | w_u
+  GT_HD T stage(const Robot<T, NJ>& R, const T* x, const T* u) const {
+    T e2, v2, u2 = T(0);
+    ee_squares(R, x, c, &e2, &v2);
+    for (int j = 0; j < NJ; ++j) u2 += u[j] * u[j];
+    return T(0.5) * (c[3] * e2 + c[5] * v2 + c[6] * u2);
+  }
+  GT_HD T terminal(const Robot<T, NJ>& R, const T* x) const {
+    T e2, v2;
+    ee_squares(R, x, c, &e2, &v2);
+    return T(0.5) * (c[4] * e2 + c[5] * v2);
+  }
+};
+
+template <typename T, int NJ>
+struct QuadCostK {
+  static constexpr int NX = 2 * NJ;
+  const T* c;   // Q (NX) | R (NJ) | Qf (NX) | x_goal (NX)
+  GT_HD T squares(const T* w, const T* x) const {
+    const T* xg = c + 2 * NX + NJ;
+    T acc = T(0);
+    for (int i = 0; i < NX; ++i) {
+      const T d = x[i] - xg[i];
+      acc += w[i] * d * d;
+    }
+    return acc;
+  }
+  GT_HD T stage(const Robot<T, NJ>&, const T* x, const T* u) const {
+    T acc = squares(c, x);
+    for (int j = 0; j < NJ; ++j) acc += c[NX + j] * u[j] * u[j];
+    return T(0.5) * acc;
+  }
+  GT_HD T terminal(const Robot<T, NJ>&, const T* x) const {
+    return T(0.5) * squares(c + NX + NJ, x);
+  }
+};
+
+template <typename T, int NJ, class Cost>
 GT_HD void linesearch_lane(const Robot<T, NJ>& R, const T* x0,
                            const T* Uref, const T* Xref, const T* k,
                            const T* K, const T* alpha_rows, const T* lo,
                            const T* hi, T* Xo, T* Uo, T* cost, int N,
                            long long B, int na, long long lane, T dt,
-                           T gravity, const EECost& c) {
+                           T gravity, const Cost& c) {
   constexpr int NX = 2 * NJ;
   const long long b = lane % B;
   const long long W = (long long)na * B;
@@ -71,24 +112,19 @@ GT_HD void linesearch_lane(const Robot<T, NJ>& R, const T* x0,
       const long long ij = ((long long)t * NJ + j) * B + b;
       u[j] = clamp_bounds(Uref[ij] + (alpha * k[ij] + s), lo, hi, j);
     }
-    T e2, v2, u2 = T(0);
-    ee_squares(R, x, c, &e2, &v2);
-    for (int j = 0; j < NJ; ++j) u2 += u[j] * u[j];
-    acc += T(0.5) * ((T)c.w_pos * e2 + (T)c.w_vel * v2 + (T)c.w_u * u2);
+    acc += c.stage(R, x, u);
     euler_step(R, x, u, dt, gravity);
     for (int i = 0; i < NX; ++i) Xo[((long long)t * NX + i) * W + lane] = x[i];
     for (int j = 0; j < NJ; ++j) Uo[((long long)t * NJ + j) * W + lane] = u[j];
   }
-  T e2, v2;
-  ee_squares(R, x, c, &e2, &v2);
-  cost[lane] = acc + T(0.5) * ((T)c.w_pos_f * e2 + (T)c.w_vel * v2);
+  cost[lane] = acc + c.terminal(R, x);
 }
 
 }  // namespace gt
 
 #ifdef __CUDACC__
 
-template <typename T, int NJ>
+template <typename T, int NJ, class Cost>
 __global__ void linesearch_kernel(
     const T* __restrict__ model, const T* __restrict__ x0,
     const T* __restrict__ Uref, const T* __restrict__ Xref,
@@ -96,10 +132,11 @@ __global__ void linesearch_kernel(
     const T* __restrict__ alpha_rows, const T* __restrict__ lo,
     const T* __restrict__ hi, T* __restrict__ X, T* __restrict__ U,
     T* __restrict__ cost, int N, long long B, int na, T dt, T gravity,
-    gt::EECost c) {
+    const T* __restrict__ cbuf) {
   const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (lane >= (long long)na * B) return;
   const gt::Robot<T, NJ> R(model);
+  const Cost c{cbuf};
   gt::linesearch_lane<T, NJ>(R, x0, Uref, Xref, k, K, alpha_rows, lo, hi, X,
                              U, cost, N, B, na, lane, dt, gravity, c);
 }
@@ -111,15 +148,27 @@ static int launch_linesearch(const void* model, const void* x0,
                              const void* alpha_rows, const void* lo,
                              const void* hi, void* X, void* U, void* cost,
                              int N, long long B, int na, double dt,
-                             double gravity, const gt::EECost& c,
+                             double gravity, int kind, const void* cbuf,
                              cudaStream_t stream) {
   const long long lanes = (long long)na * B;
   if (lanes == 0 || N == 0) return 0;
   const int block = 64;
-  linesearch_kernel<T, NJ><<<gt_grid(lanes, block), block, 0, stream>>>(
-      (const T*)model, (const T*)x0, (const T*)Uref, (const T*)Xref,
-      (const T*)k, (const T*)K, (const T*)alpha_rows, (const T*)lo,
-      (const T*)hi, (T*)X, (T*)U, (T*)cost, N, B, na, (T)dt, (T)gravity, c);
+  const dim3 grid = gt_grid(lanes, block);
+#define GT_LS_ARGS                                                          \
+  (const T*)model, (const T*)x0, (const T*)Uref, (const T*)Xref,            \
+      (const T*)k, (const T*)K, (const T*)alpha_rows, (const T*)lo,         \
+      (const T*)hi, (T*)X, (T*)U, (T*)cost, N, B, na, (T)dt, (T)gravity,    \
+      (const T*)cbuf
+  if (kind == 0) {
+    linesearch_kernel<T, NJ, gt::EECost<T, NJ>>
+        <<<grid, block, 0, stream>>>(GT_LS_ARGS);
+  } else if (kind == 1) {
+    linesearch_kernel<T, NJ, gt::QuadCostK<T, NJ>>
+        <<<grid, block, 0, stream>>>(GT_LS_ARGS);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+#undef GT_LS_ARGS
   return (int)cudaGetLastError();
 }
 
@@ -127,21 +176,12 @@ extern "C" int gridtorch_linesearch(
     int dtype, int nj, const void* model, const void* x0, const void* Uref,
     const void* Xref, const void* k, const void* K, const void* alpha_rows,
     const void* lo, const void* hi, void* X, void* U, void* cost, int N,
-    long long B, int na, double dt, double gravity, double gx, double gy,
-    double gz, double w_pos, double w_pos_f, double w_vel, double w_u,
-    void* stream) {
-  gt::EECost c;
-  c.goal[0] = gx;
-  c.goal[1] = gy;
-  c.goal[2] = gz;
-  c.w_pos = w_pos;
-  c.w_pos_f = w_pos_f;
-  c.w_vel = w_vel;
-  c.w_u = w_u;
+    long long B, int na, double dt, double gravity, int kind,
+    const void* cbuf, void* stream) {
   GT_DISPATCH(dtype, nj,
               launch_linesearch<T, NJ>(model, x0, Uref, Xref, k, K,
                                        alpha_rows, lo, hi, X, U, cost, N, B,
-                                       na, dt, gravity, c,
+                                       na, dt, gravity, kind, cbuf,
                                        (cudaStream_t)stream));
 }
 

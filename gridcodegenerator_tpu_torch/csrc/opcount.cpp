@@ -1,0 +1,317 @@
+// opcount: the floating-point operations of one lane of each kernel, counted
+// by running lane code on the host over a counting number type. Built with
+// the host C++ compiler (never nvcc) by
+// gridcodegenerator_tpu_torch/utils/opcount.py.
+//
+// Counted: every +, -, * and / on the number type, and each sin, cos,
+// sqrt and atan2, one each (a fused multiply-add on the card is two).
+// Negation, comparisons, loads, stores and index arithmetic are not
+// counted. The lane code's work depends on the robot's topology and the
+// shapes (joints, EEs, knots, factor rank), not on the values, so one lane
+// counts what every lane of a launch does.
+//
+// Two counts per kernel:
+// * executed: every operation the kernel's lane code does;
+// * needed: the arithmetic of the function, the bound's numerator. Constants
+//   fold: literals and the robot's constants (GRiD generates code per
+//   robot) are known, the lane's inputs are not, and an operation whose
+//   operands are all known, or that multiplies by a known 0 or +-1, divides
+//   by a known +-1, or adds a known 0, costs nothing (the zero blocks of
+//   spatial transforms and cross-product matrices). The second-order lanes
+//   run with DStored: D1-D4 of each joint formed once and each product
+//   D_fam[st] x computed once, as the reference algorithm does
+//   (gridcodegenerator_tpu/ops/so.py:idsva_so_analytical), where the
+//   kernels form D_st x at every use to save per-thread memory.
+#include <cmath>
+#include <vector>
+
+namespace opc {
+
+struct C {
+  double v;
+  bool known;   // a literal or a robot constant, not input data
+  static long long n;
+  static bool fold;
+  C() : v(0), known(true) {}
+  C(double x) : v(x), known(true) {}
+  static C input(double x) {
+    C c(x);
+    c.known = false;
+    return c;
+  }
+  explicit operator int() const { return (int)v; }
+};
+long long C::n = 0;
+bool C::fold = false;
+
+inline bool is(C a, double x) { return C::fold && a.known && a.v == x; }
+
+// The result r of an operation on a and b, counted unless it folds.
+inline C counted(double r) {
+  ++C::n;
+  return C::input(r);
+}
+inline C same(C a, double r) {   // r is +-a: free, a's kind
+  C c(r);
+  c.known = a.known;
+  return c;
+}
+
+inline C operator+(C a, C b) {
+  const double r = a.v + b.v;
+  if (C::fold && a.known && b.known) return C(r);
+  if (is(a, 0)) return same(b, r);
+  if (is(b, 0)) return same(a, r);
+  return counted(r);
+}
+inline C operator-(C a, C b) {
+  const double r = a.v - b.v;
+  if (C::fold && a.known && b.known) return C(r);
+  if (is(b, 0)) return same(a, r);
+  if (is(a, 0)) return same(b, r);
+  return counted(r);
+}
+inline C operator*(C a, C b) {
+  const double r = a.v * b.v;
+  if (C::fold && a.known && b.known) return C(r);
+  if (is(a, 0) || is(b, 0)) return C(0.0 * r);
+  if (is(a, 1) || is(a, -1)) return same(b, r);
+  if (is(b, 1) || is(b, -1)) return same(a, r);
+  return counted(r);
+}
+inline C operator/(C a, C b) {
+  const double r = a.v / b.v;
+  if (C::fold && a.known && b.known) return C(r);
+  if (is(a, 0)) return C(r);
+  if (is(b, 1) || is(b, -1)) return same(a, r);
+  return counted(r);
+}
+inline C operator-(C a) { return same(a, -a.v); }
+inline C& operator+=(C& a, C b) { return a = a + b; }
+inline C& operator-=(C& a, C b) { return a = a - b; }
+inline C& operator*=(C& a, C b) { return a = a * b; }
+inline bool operator<(C a, C b) { return a.v < b.v; }
+inline bool operator>(C a, C b) { return a.v > b.v; }
+inline bool operator<=(C a, C b) { return a.v <= b.v; }
+inline bool operator>=(C a, C b) { return a.v >= b.v; }
+inline bool operator==(C a, C b) { return a.v == b.v; }
+inline bool operator!=(C a, C b) { return a.v != b.v; }
+inline C fn(C a, double r) { return C::fold && a.known ? C(r) : counted(r); }
+inline C gsin(C a) { return fn(a, std::sin(a.v)); }
+inline C gcos(C a) { return fn(a, std::cos(a.v)); }
+inline C gsqrt(C a) { return fn(a, std::sqrt(a.v)); }
+inline C gatan2(C y, C x) {
+  const double r = std::atan2(y.v, x.v);
+  return C::fold && y.known && x.known ? C(r) : counted(r);
+}
+
+}  // namespace opc
+
+#include "fd_du.cu"
+#include "rollout.cu"
+#include "linesearch.cu"
+#include "riccati.cu"
+#include "rnea.cu"
+#include "id_du.cu"
+#include "aba.cu"
+#include "minv.cu"
+#include "fd.cu"
+#include "crba.cu"
+#include "eepos.cu"
+#include "deepos.cu"
+#include "idsva_so.cu"
+#include "fdsva_so.cu"
+
+using opc::C;
+using namespace gt;
+
+namespace {
+
+// The reference algorithm's D products: D1-D4 of every joint formed once as
+// 6x6 matrices (gridcodegenerator_tpu/ops/so.py:_sva_so_stages), and each
+// product D_fam[st] x, x the stage vector `vec` of joint k, computed at its
+// first use and reused (so.py:idsva_so_analytical, its memoized Dv).
+template <typename T, int NJ>
+struct DStored {
+  const SOStages<T, NJ>& s;
+  std::vector<T> D;            // (4, NJ, 36)
+  std::vector<T> psid_sd;      // (NJ, 6)
+  mutable std::vector<T> memo;   // (4, NJ, 4, NJ, 6)
+  mutable std::vector<char> have;
+
+  explicit DStored(const SOStages<T, NJ>& st)
+      : s(st), D(4 * NJ * 36), psid_sd(NJ * 6), memo(16 * NJ * NJ * 6),
+        have(16 * NJ * NJ, 0) {
+    for (int i = 0; i < NJ; ++i) {
+      T cS[36], cP[36], fS[36], fP[36], A[36], B[36], C3[36], E[36], F[36];
+      crm_mat(s.S[i], cS);
+      crm_mat(s.psid[i], cP);
+      for (int r = 0; r < 6; ++r)
+        for (int c = 0; c < 6; ++c) {   // crf(x) = -crm(x)^T
+          fS[r * 6 + c] = -cS[c * 6 + r];
+          fP[r * 6 + c] = -cP[c * 6 + r];
+        }
+      T* D1 = &D[(0 * NJ + i) * 36];
+      T* D2 = &D[(1 * NJ + i) * 36];
+      T* D3 = &D[(2 * NJ + i) * 36];
+      T* D4 = &D[(3 * NJ + i) * 36];
+      mm6(fS, s.IC[i], A);                  // D1 = crf(S) IC - IC crm(S)
+      mm6(s.IC[i], cS, B);
+      for (int k = 0; k < 36; ++k) D1[k] = A[k] - B[k];
+      mm6(fP, s.IC[i], A);                  // D2 = crf(psid) IC
+      icrf_mat(s.ICpsid[i], B);             //   + icrf(IC psid)
+      mm6(s.IC[i], cP, C3);                 //   - IC crm(psid)
+      mm6(fS, s.BC[i], E);                  //   + crf(S) BC
+      mm6(s.BC[i], cS, F);                  //   - BC crm(S)
+      for (int k = 0; k < 36; ++k)
+        D2[k] = A[k] + B[k] - C3[k] + E[k] - F[k];
+      icrf_mat(s.T1[i], D4);                // D4 = icrf(IC S)
+      for (int k = 0; k < 36; ++k) D3[k] = D1[k] + D4[k];
+      for (int k = 0; k < 6; ++k)
+        psid_sd[i * 6 + k] = s.psid[i][k] + s.Sd[i][k];
+    }
+  }
+
+  void operator()(int fam, int st, int vec, int k, T* w) const {
+    const int id = (((fam - 1) * NJ + st) * 4 + vec) * NJ + k;
+    T* m = &memo[id * 6];
+    if (!have[id]) {
+      T buf[6];
+      const T* x = vec == kPsidSd ? &psid_sd[k * 6] : so_vec(s, vec, k, buf);
+      Xv(&D[((fam - 1) * NJ + st) * 36], x, m);
+      have[id] = 1;
+    }
+    for (int i = 0; i < 6; ++i) w[i] = m[i];
+  }
+};
+
+std::vector<C> constants(const double* src, long long n) {
+  std::vector<C> out(n);
+  for (long long i = 0; i < n; ++i) out[i] = C(src[i]);
+  return out;
+}
+
+std::vector<C> inputs(long long n) {
+  return std::vector<C>(n, C::input(0.0));
+}
+
+// Kernel ids, in the order of utils/opcount.py:KERNELS.
+enum {
+  RNEA, ID_DU, ABA, MINV, FD, CRBA, EEPOS, DEEPOS, FD_DU, ROLLOUT,
+  LINESEARCH, RICCATI_FACTORED, RICCATI, IDSVA_SO, FDSVA_SO
+};
+
+// One lane (one problem for the sweeps) of kernel `kernel`; `flag` is the
+// line search's cost kind or riccati's stationary flag. `needed` selects
+// the count (see the top). The lane's inputs are zeros, or the first
+// 3 NJ values of `in` as (q, qd, x) if given; its first `nout` outputs go
+// to `out`.
+template <int NJ>
+long long count(int kernel, const double* model, const double* ee, int ne,
+                const double* cost, int ncost, int N, int r, int flag,
+                bool needed, const double* in, double* out, int nout) {
+  constexpr int NX = 2 * NJ;
+  C::fold = needed;
+  std::vector<C> m = constants(model, Layout<NJ>::SIZE);
+  std::vector<C> e = constants(ee, (long long)ne * EERow<NJ>::SIZE);
+  std::vector<C> cb(ncost);
+  for (int i = 0; i < ncost; ++i) cb[i] = C::input(cost[i]);
+  const Robot<C, NJ> R(m.data());
+  const long long big = (long long)(N > 0 ? N : 1) * NX * NX * 4 +
+                        4LL * NJ * NJ * NJ + 64;
+  std::vector<C> a = inputs(big), b = inputs(big), c = inputs(big),
+                 d = inputs(big), x = inputs(big), y = inputs(big),
+                 z = inputs(big), w = inputs(big);
+  if (in)
+    for (int i = 0; i < NJ; ++i) {
+      a[i] = C::input(in[i]);
+      b[i] = C::input(in[NJ + i]);
+      c[i] = C::input(in[2 * NJ + i]);
+    }
+  const C g(-9.81), dt(0.01), reg(1e-6);
+  C::n = 0;
+  switch (kernel) {
+    case RNEA: rnea_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data()); break;
+    case ID_DU: id_du_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data()); break;
+    case ABA: aba<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data()); break;
+    case MINV: minv_lane<C, NJ>(R, a.data(), true, x.data()); break;
+    case FD: fd_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data()); break;
+    case CRBA: crba_lane<C, NJ>(R, a.data(), x.data()); break;
+    case EEPOS: ee_pose_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
+    case DEEPOS: ee_jac_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
+    case FD_DU:
+      fd_du_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data(),
+                        y.data(), z.data());
+      break;
+    case ROLLOUT:
+      rollout_lane<C, NJ>(R, a.data(), b.data(), nullptr, nullptr, x.data(),
+                          N, 1, 0, dt, g);
+      break;
+    case LINESEARCH:
+      if (flag == 0) {
+        const EECost<C, NJ> ec{cb.data()};
+        linesearch_lane<C, NJ>(R, a.data(), b.data(), c.data(), d.data(),
+                               y.data(), z.data(), nullptr, nullptr, x.data(),
+                               w.data(), x.data() + big - 1, N, 1, 1, 0, dt,
+                               g, ec);
+      } else {
+        const QuadCostK<C, NJ> qc{cb.data()};
+        linesearch_lane<C, NJ>(R, a.data(), b.data(), c.data(), d.data(),
+                               y.data(), z.data(), nullptr, nullptr, x.data(),
+                               w.data(), x.data() + big - 1, N, 1, 1, 0, dt,
+                               g, qc);
+      }
+      break;
+    case RICCATI_FACTORED:
+      riccati_lane<C, NJ>(a.data(), b.data(), c.data(), d.data(), y.data(),
+                          z.data(), w.data(), x.data(), x.data() + big / 2,
+                          N, 1, r, 0, reg, C(1e-2), C(1e-4));
+      break;
+    case RICCATI:
+      riccati_dense_lane<C, NJ>(a.data(), b.data(), c.data(), d.data(),
+                                y.data(), z.data(), w.data(), flag != 0,
+                                c.data(), d.data(), x.data(),
+                                x.data() + big / 2, N, 1, 0, reg);
+      break;
+    case IDSVA_SO:
+      if (needed)
+        idsva_so_lane<C, NJ, DStored>(R, a.data(), b.data(), c.data(), g,
+                                      x.data(), 1);
+      else
+        idsva_so_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data(),
+                             1);
+      break;
+    case FDSVA_SO:
+      if (needed)
+        fdsva_so_lane<C, NJ, DStored>(R, a.data(), b.data(), c.data(), g,
+                                      x.data(), y.data(), 1);
+      else
+        fdsva_so_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data(),
+                             y.data(), 1);
+      break;
+    default: return -1;
+  }
+  const long long ops = C::n;
+  for (int i = 0; i < nout && i < big; ++i) out[i] = x[i].v;
+  return ops;
+}
+
+}  // namespace
+
+extern "C" long long gridtorch_opcount(int kernel, int nj, const double* model,
+                                       const double* ee, int ne,
+                                       const double* cost, int ncost, int N,
+                                       int r, int flag, int needed,
+                                       const double* in, double* out,
+                                       int nout) {
+#define GT_COUNT(NJ)                                                       \
+  count<NJ>(kernel, model, ee, ne, cost, ncost, N, r, flag, needed != 0, \
+            in, out, nout)
+  switch (nj) {
+    case 2: return GT_COUNT(2);
+    case 7: return GT_COUNT(7);
+    case 12: return GT_COUNT(12);
+  }
+#undef GT_COUNT
+  return -1;
+}

@@ -1,23 +1,217 @@
-// riccati_factored: the backward Riccati sweep for a Gauss-Newton-factored
-// stage cost, one thread per problem.
+// riccati_factored and riccati: the backward Riccati sweeps, one thread per
+// problem, sharing one knot step (riccati_knot).
 //
-// Replaces gridcodegenerator_tpu/ops/pallas/sweeps.py:riccati_pallas_factored.
-// The TPU kernel walked the knots as a sequential "arbitrary" grid axis in
-// reverse and carried (Vx, Vxx) in VMEM scratch between grid steps. Blocks
-// on the GPU run in no order, so the knot loop t = N-1 .. 0 runs inside the
-// thread and (Vx, Vxx) stay in that thread's registers and local memory.
+// riccati_factored replaces gridcodegenerator_tpu/ops/pallas/sweeps.py:
+// riccati_pallas_factored (a Gauss-Newton-factored stage cost); riccati
+// replaces sweeps.py:riccati_pallas (dense curvature blocks per knot, or one
+// stationary block). The TPU kernels walked the knots as a sequential
+// "arbitrary" grid axis in reverse and carried (Vx, Vxx) in VMEM scratch
+// between grid steps. Blocks on the GPU run in no order, so the knot loop
+// t = N-1 .. 0 runs inside the thread and (Vx, Vxx) stay in that thread's
+// registers and local memory.
 //
-// Per knot: lxx = blkdiag(Jw^T Jw, qd_diag I), luu = u_diag I, lux = 0;
-// Quu + reg I is inverted by pivot-free Gauss-Jordan; the value update is
-// the full form (it cancels the regularization to O(reg^2)), then
-// symmetrized.
+// Per knot (riccati_knot): Qx = lx + A^T Vx, Qu = lu + B^T Vx,
+// Qxx = lxx + A^T Vxx A, Qux = lux + B^T Vxx A, Quu = luu + B^T Vxx B, with
+// the curvature (lxx, luu, lux) added by a policy: FactoredCurv forms
+// blkdiag(Jw^T Jw, qd_diag I), u_diag I and 0 from the factor, DenseCurv
+// adds the blocks it holds. Quu + reg I is inverted by pivot-free
+// Gauss-Jordan; the value update is the full form (it cancels the
+// regularization to O(reg^2)), then symmetrized.
 //
-// Layout: A (N, NX, NX, B), Bm (N, NX, NJ, B), Vx0 (NX, B), Vxx0 (NX, NX, B);
-// lx (NX, N B), lu (NJ, N B), Jw (r, NJ, N B) in the solver's knot-major
-// lane layout, lane t B + b; outputs k (N, NJ, B), K (N, NJ, NX, B).
+// What bounds them on the card: the serial knot loop and per-thread
+// arithmetic (O(NX^3) per knot) with local memory, at one thread per
+// problem; device memory carries each knot's A and B once. Under a
+// stationary curvature the lane reads its one block once, before the loop.
+//
+// Layouts: A (N, NX, NX, B), Bm (N, NX, NJ, B), Vx0 (NX, B),
+// Vxx0 (NX, NX, B); outputs k (N, NJ, B), K (N, NJ, NX, B).
+// riccati_factored: lx (NX, N B), lu (NJ, N B), Jw (r, NJ, N B) in the
+// solver's knot-major lane layout, lane t B + b. riccati: lx (N, NX, B),
+// lu (N, NJ, B); lxx (NX, NX, B), luu (NJ, NJ, B), lux (NJ, NX, B), each
+// with a leading N axis unless stationary.
 #include "dynamics.cuh"
 
 namespace gt {
+
+template <typename T, int NJ, class Curv>
+GT_HD void riccati_knot(const T* At, const T* Bt, const T* lx, const T* lu,
+                        const Curv& cv, T reg, T* Vx, T* Vxx, T* kt,
+                        T* Kt) {
+  constexpr int NX = 2 * NJ;
+  // Qx = lx + A^T Vx, Qu = lu + B^T Vx
+  T Qx[NX], Qu[NJ];
+  for (int i = 0; i < NX; ++i) {
+    T s = At[i] * Vx[0];
+    for (int k = 1; k < NX; ++k) s += At[k * NX + i] * Vx[k];
+    Qx[i] = lx[i] + s;
+  }
+  for (int i = 0; i < NJ; ++i) {
+    T s = Bt[i] * Vx[0];
+    for (int k = 1; k < NX; ++k) s += Bt[k * NJ + i] * Vx[k];
+    Qu[i] = lu[i] + s;
+  }
+  // VA = Vxx A; Qxx = A^T VA + lxx
+  T VA[NX * NX];
+  for (int i = 0; i < NX; ++i)
+    for (int j = 0; j < NX; ++j) {
+      T s = Vxx[i * NX] * At[j];
+      for (int k = 1; k < NX; ++k) s += Vxx[i * NX + k] * At[k * NX + j];
+      VA[i * NX + j] = s;
+    }
+  T Qxx[NX * NX];
+  for (int i = 0; i < NX; ++i)
+    for (int j = 0; j < NX; ++j) {
+      T s = At[i] * VA[j];
+      for (int k = 1; k < NX; ++k) s += At[k * NX + i] * VA[k * NX + j];
+      Qxx[i * NX + j] = s;
+    }
+  cv.add_xx(Qxx);
+  // Qux = B^T VA + lux; Quu = B^T Vxx B + luu
+  T Qux[NJ * NX];
+  for (int i = 0; i < NJ; ++i)
+    for (int j = 0; j < NX; ++j) {
+      T s = Bt[i] * VA[j];
+      for (int k = 1; k < NX; ++k) s += Bt[k * NJ + i] * VA[k * NX + j];
+      Qux[i * NX + j] = s;
+    }
+  cv.add_ux(Qux);
+  T VB[NX * NJ];
+  for (int i = 0; i < NX; ++i)
+    for (int j = 0; j < NJ; ++j) {
+      T s = Vxx[i * NX] * Bt[j];
+      for (int k = 1; k < NX; ++k) s += Vxx[i * NX + k] * Bt[k * NJ + j];
+      VB[i * NJ + j] = s;
+    }
+  T Quu[NJ * NJ], Qreg[NJ * NJ], Qinv[NJ * NJ];
+  for (int i = 0; i < NJ; ++i)
+    for (int j = 0; j < NJ; ++j) {
+      T s = Bt[i] * VB[j];
+      for (int k = 1; k < NX; ++k) s += Bt[k * NJ + i] * VB[k * NJ + j];
+      Quu[i * NJ + j] = s;
+    }
+  cv.add_uu(Quu);
+  for (int i = 0; i < NJ * NJ; ++i) Qreg[i] = Quu[i];
+  for (int i = 0; i < NJ; ++i) Qreg[i * NJ + i] = Quu[i * NJ + i] + reg;
+  gj_inverse<T, NJ>(Qreg, Qinv);
+  // k = -Quu^-1 Qu, K = -Quu^-1 Qux
+  for (int i = 0; i < NJ; ++i) {
+    T s = Qinv[i * NJ] * Qu[0];
+    for (int j = 1; j < NJ; ++j) s += Qinv[i * NJ + j] * Qu[j];
+    kt[i] = -s;
+    for (int m = 0; m < NX; ++m) {
+      T sm = Qinv[i * NJ] * Qux[m];
+      for (int j = 1; j < NJ; ++j) sm += Qinv[i * NJ + j] * Qux[j * NX + m];
+      Kt[i * NX + m] = -sm;
+    }
+  }
+  // full value update
+  T Quuk[NJ], QuuK[NJ * NX];
+  for (int i = 0; i < NJ; ++i) {
+    T s = Quu[i * NJ] * kt[0];
+    for (int j = 1; j < NJ; ++j) s += Quu[i * NJ + j] * kt[j];
+    Quuk[i] = s;
+    for (int m = 0; m < NX; ++m) {
+      T sm = Quu[i * NJ] * Kt[m];
+      for (int j = 1; j < NJ; ++j) sm += Quu[i * NJ + j] * Kt[j * NX + m];
+      QuuK[i * NX + m] = sm;
+    }
+  }
+  for (int m = 0; m < NX; ++m) {
+    T s1 = Kt[m] * Quuk[0], s2 = Kt[m] * Qu[0], s3 = Qux[m] * kt[0];
+    for (int i = 1; i < NJ; ++i) {
+      s1 += Kt[i * NX + m] * Quuk[i];
+      s2 += Kt[i * NX + m] * Qu[i];
+      s3 += Qux[i * NX + m] * kt[i];
+    }
+    Vx[m] = Qx[m] + s1 + s2 + s3;
+  }
+  for (int m = 0; m < NX; ++m)
+    for (int l = 0; l < NX; ++l) {
+      T s1 = Kt[m] * QuuK[l], s2 = Kt[m] * Qux[l], s3 = Qux[m] * Kt[l];
+      for (int i = 1; i < NJ; ++i) {
+        s1 += Kt[i * NX + m] * QuuK[i * NX + l];
+        s2 += Kt[i * NX + m] * Qux[i * NX + l];
+        s3 += Qux[i * NX + m] * Kt[i * NX + l];
+      }
+      VA[m * NX + l] = Qxx[m * NX + l] + s1 + s2 + s3;   // VA reused as Vxx'
+    }
+  for (int m = 0; m < NX; ++m)
+    for (int l = 0; l < NX; ++l)
+      Vxx[m * NX + l] = T(0.5) * (VA[m * NX + l] + VA[l * NX + m]);
+}
+
+// lxx = blkdiag(Jw^T Jw, qd_diag I), luu = u_diag I, lux = 0, from the
+// factor Jw (r, NJ, N B) at knot-major lane ln.
+template <typename T, int NJ>
+struct FactoredCurv {
+  const T* Jw;
+  long long NB, ln;
+  int r;
+  T qd_diag, u_diag;
+  GT_HD void add_xx(T* Qxx) const {
+    constexpr int NX = 2 * NJ;
+    for (int i = 0; i < NJ; ++i)
+      for (int j = 0; j < NJ; ++j) {
+        T s = Jw[(long long)i * NB + ln] * Jw[(long long)j * NB + ln];
+        for (int rr = 1; rr < r; ++rr)
+          s += Jw[((long long)rr * NJ + i) * NB + ln] *
+               Jw[((long long)rr * NJ + j) * NB + ln];
+        Qxx[i * NX + j] += s;
+      }
+    for (int i = NJ; i < NX; ++i) Qxx[i * NX + i] += qd_diag;
+  }
+  GT_HDI void add_ux(T*) const {}
+  GT_HD void add_uu(T* Quu) const {
+    for (int i = 0; i < NJ; ++i) Quu[i * NJ + i] += u_diag;
+  }
+};
+
+// Dense curvature blocks held by the lane: load() reads one knot's (or the
+// stationary) lxx, luu, lux of problem b at element offset `off` of each
+// block's (..., B) layout.
+template <typename T, int NJ>
+struct DenseCurv {
+  static constexpr int NX = 2 * NJ;
+  T lxx[NX * NX], luu[NJ * NJ], lux[NJ * NX];
+  GT_HD void load(const T* gxx, const T* guu, const T* gux, long long t,
+                  long long B, long long b) {
+    for (int i = 0; i < NX * NX; ++i)
+      lxx[i] = gxx[(t * NX * NX + i) * B + b];
+    for (int i = 0; i < NJ * NJ; ++i) luu[i] = guu[(t * NJ * NJ + i) * B + b];
+    for (int i = 0; i < NJ * NX; ++i) lux[i] = gux[(t * NJ * NX + i) * B + b];
+  }
+  GT_HD void add_xx(T* Qxx) const {
+    for (int i = 0; i < NX * NX; ++i) Qxx[i] += lxx[i];
+  }
+  GT_HD void add_ux(T* Qux) const {
+    for (int i = 0; i < NJ * NX; ++i) Qux[i] += lux[i];
+  }
+  GT_HD void add_uu(T* Quu) const {
+    for (int i = 0; i < NJ * NJ; ++i) Quu[i] += luu[i];
+  }
+};
+
+// Knot t's A and B of problem b, and the terminal value function.
+template <typename T, int NJ>
+GT_HD void riccati_load_ab(const T* A, const T* Bm, int t, long long B,
+                           long long b, T* At, T* Bt) {
+  constexpr int NX = 2 * NJ;
+  for (int i = 0; i < NX * NX; ++i)
+    At[i] = A[((long long)t * NX * NX + i) * B + b];
+  for (int i = 0; i < NX * NJ; ++i)
+    Bt[i] = Bm[((long long)t * NX * NJ + i) * B + b];
+}
+
+template <typename T, int NJ>
+GT_HD void riccati_store(T* ks, T* Ks, int t, long long B, long long b,
+                         const T* kt, const T* Kt) {
+  constexpr int NX = 2 * NJ;
+  for (int i = 0; i < NJ; ++i) {
+    ks[((long long)t * NJ + i) * B + b] = kt[i];
+    for (int m = 0; m < NX; ++m)
+      Ks[(((long long)t * NJ + i) * NX + m) * B + b] = Kt[i * NX + m];
+  }
+}
 
 template <typename T, int NJ>
 GT_HD void riccati_lane(const T* A, const T* Bm, const T* lx, const T* lu,
@@ -33,124 +227,40 @@ GT_HD void riccati_lane(const T* A, const T* Bm, const T* lx, const T* lu,
 #pragma unroll 1
 #endif
   for (int t = N - 1; t >= 0; --t) {
-    T At[NX * NX], Bt[NX * NJ];
-    for (int i = 0; i < NX * NX; ++i)
-      At[i] = A[((long long)t * NX * NX + i) * B + b];
-    for (int i = 0; i < NX * NJ; ++i)
-      Bt[i] = Bm[((long long)t * NX * NJ + i) * B + b];
+    T At[NX * NX], Bt[NX * NJ], lxt[NX], lut[NJ], kt[NJ], Kt[NJ * NX];
+    riccati_load_ab<T, NJ>(A, Bm, t, B, b, At, Bt);
     const long long ln = (long long)t * B + b;
-    // Qx = lx + A^T Vx, Qu = lu + B^T Vx
-    T Qx[NX], Qu[NJ];
-    for (int i = 0; i < NX; ++i) {
-      T s = At[i] * Vx[0];
-      for (int k = 1; k < NX; ++k) s += At[k * NX + i] * Vx[k];
-      Qx[i] = lx[i * NB + ln] + s;
-    }
-    for (int i = 0; i < NJ; ++i) {
-      T s = Bt[i] * Vx[0];
-      for (int k = 1; k < NX; ++k) s += Bt[k * NJ + i] * Vx[k];
-      Qu[i] = lu[i * NB + ln] + s;
-    }
-    // VA = Vxx A; Qxx = A^T VA + blkdiag(Jw^T Jw, qd_diag I)
-    T VA[NX * NX];
-    for (int i = 0; i < NX; ++i)
-      for (int j = 0; j < NX; ++j) {
-        T s = Vxx[i * NX] * At[j];
-        for (int k = 1; k < NX; ++k) s += Vxx[i * NX + k] * At[k * NX + j];
-        VA[i * NX + j] = s;
-      }
-    T Qxx[NX * NX];
-    for (int i = 0; i < NX; ++i)
-      for (int j = 0; j < NX; ++j) {
-        T s = At[i] * VA[j];
-        for (int k = 1; k < NX; ++k) s += At[k * NX + i] * VA[k * NX + j];
-        Qxx[i * NX + j] = s;
-      }
-    for (int i = 0; i < NJ; ++i)
-      for (int j = 0; j < NJ; ++j) {
-        T s = Jw[(long long)i * NB + ln] * Jw[(long long)j * NB + ln];
-        for (int rr = 1; rr < r; ++rr)
-          s += Jw[((long long)rr * NJ + i) * NB + ln] *
-               Jw[((long long)rr * NJ + j) * NB + ln];
-        Qxx[i * NX + j] += s;
-      }
-    for (int i = NJ; i < NX; ++i) Qxx[i * NX + i] += qd_diag;
-    // Qux = B^T VA; Quu = B^T Vxx B + u_diag I
-    T Qux[NJ * NX];
-    for (int i = 0; i < NJ; ++i)
-      for (int j = 0; j < NX; ++j) {
-        T s = Bt[i] * VA[j];
-        for (int k = 1; k < NX; ++k) s += Bt[k * NJ + i] * VA[k * NX + j];
-        Qux[i * NX + j] = s;
-      }
-    T VB[NX * NJ];
-    for (int i = 0; i < NX; ++i)
-      for (int j = 0; j < NJ; ++j) {
-        T s = Vxx[i * NX] * Bt[j];
-        for (int k = 1; k < NX; ++k) s += Vxx[i * NX + k] * Bt[k * NJ + j];
-        VB[i * NJ + j] = s;
-      }
-    T Quu[NJ * NJ], Qreg[NJ * NJ], Qinv[NJ * NJ];
-    for (int i = 0; i < NJ; ++i)
-      for (int j = 0; j < NJ; ++j) {
-        T s = Bt[i] * VB[j];
-        for (int k = 1; k < NX; ++k) s += Bt[k * NJ + i] * VB[k * NJ + j];
-        if (i == j) s += u_diag;
-        Quu[i * NJ + j] = s;
-        Qreg[i * NJ + j] = i == j ? s + reg : s;
-      }
-    gj_inverse<T, NJ>(Qreg, Qinv);
-    // k = -Quu^-1 Qu, K = -Quu^-1 Qux
-    T kt[NJ], Kt[NJ * NX];
-    for (int i = 0; i < NJ; ++i) {
-      T s = Qinv[i * NJ] * Qu[0];
-      for (int j = 1; j < NJ; ++j) s += Qinv[i * NJ + j] * Qu[j];
-      kt[i] = -s;
-      for (int m = 0; m < NX; ++m) {
-        T sm = Qinv[i * NJ] * Qux[m];
-        for (int j = 1; j < NJ; ++j) sm += Qinv[i * NJ + j] * Qux[j * NX + m];
-        Kt[i * NX + m] = -sm;
-      }
-    }
-    // full value update
-    T Quuk[NJ], QuuK[NJ * NX];
-    for (int i = 0; i < NJ; ++i) {
-      T s = Quu[i * NJ] * kt[0];
-      for (int j = 1; j < NJ; ++j) s += Quu[i * NJ + j] * kt[j];
-      Quuk[i] = s;
-      for (int m = 0; m < NX; ++m) {
-        T sm = Quu[i * NJ] * Kt[m];
-        for (int j = 1; j < NJ; ++j) sm += Quu[i * NJ + j] * Kt[j * NX + m];
-        QuuK[i * NX + m] = sm;
-      }
-    }
-    for (int m = 0; m < NX; ++m) {
-      T s1 = Kt[m] * Quuk[0], s2 = Kt[m] * Qu[0], s3 = Qux[m] * kt[0];
-      for (int i = 1; i < NJ; ++i) {
-        s1 += Kt[i * NX + m] * Quuk[i];
-        s2 += Kt[i * NX + m] * Qu[i];
-        s3 += Qux[i * NX + m] * kt[i];
-      }
-      Vx[m] = Qx[m] + s1 + s2 + s3;
-    }
-    for (int m = 0; m < NX; ++m)
-      for (int l = 0; l < NX; ++l) {
-        T s1 = Kt[m] * QuuK[l], s2 = Kt[m] * Qux[l], s3 = Qux[m] * Kt[l];
-        for (int i = 1; i < NJ; ++i) {
-          s1 += Kt[i * NX + m] * QuuK[i * NX + l];
-          s2 += Kt[i * NX + m] * Qux[i * NX + l];
-          s3 += Qux[i * NX + m] * Kt[i * NX + l];
-        }
-        VA[m * NX + l] = Qxx[m * NX + l] + s1 + s2 + s3;   // VA reused as Vxx'
-      }
-    for (int m = 0; m < NX; ++m)
-      for (int l = 0; l < NX; ++l)
-        Vxx[m * NX + l] = T(0.5) * (VA[m * NX + l] + VA[l * NX + m]);
-    for (int i = 0; i < NJ; ++i) {
-      ks[((long long)t * NJ + i) * B + b] = kt[i];
-      for (int m = 0; m < NX; ++m)
-        Ks[(((long long)t * NJ + i) * NX + m) * B + b] = Kt[i * NX + m];
-    }
+    for (int i = 0; i < NX; ++i) lxt[i] = lx[i * NB + ln];
+    for (int i = 0; i < NJ; ++i) lut[i] = lu[i * NB + ln];
+    const FactoredCurv<T, NJ> cv{Jw, NB, ln, r, qd_diag, u_diag};
+    riccati_knot<T, NJ>(At, Bt, lxt, lut, cv, reg, Vx, Vxx, kt, Kt);
+    riccati_store<T, NJ>(ks, Ks, t, B, b, kt, Kt);
+  }
+}
+
+template <typename T, int NJ>
+GT_HD void riccati_dense_lane(const T* A, const T* Bm, const T* lx,
+                              const T* lu, const T* lxx, const T* luu,
+                              const T* lux, bool stationary, const T* Vx0,
+                              const T* Vxx0, T* ks, T* Ks, int N,
+                              long long B, long long b, T reg) {
+  constexpr int NX = 2 * NJ;
+  T Vx[NX], Vxx[NX * NX];
+  for (int i = 0; i < NX; ++i) Vx[i] = Vx0[i * B + b];
+  for (int i = 0; i < NX * NX; ++i) Vxx[i] = Vxx0[i * B + b];
+  DenseCurv<T, NJ> cv;
+  if (stationary) cv.load(lxx, luu, lux, 0, B, b);
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+  for (int t = N - 1; t >= 0; --t) {
+    T At[NX * NX], Bt[NX * NJ], lxt[NX], lut[NJ], kt[NJ], Kt[NJ * NX];
+    riccati_load_ab<T, NJ>(A, Bm, t, B, b, At, Bt);
+    for (int i = 0; i < NX; ++i) lxt[i] = lx[((long long)t * NX + i) * B + b];
+    for (int i = 0; i < NJ; ++i) lut[i] = lu[((long long)t * NJ + i) * B + b];
+    if (!stationary) cv.load(lxx, luu, lux, t, B, b);
+    riccati_knot<T, NJ>(At, Bt, lxt, lut, cv, reg, Vx, Vxx, kt, Kt);
+    riccati_store<T, NJ>(ks, Ks, t, B, b, kt, Kt);
   }
 }
 
@@ -188,6 +298,51 @@ static int launch_riccati(const void* A, const void* Bm, const void* lx,
       (const T*)Vx0, (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, r, (T)reg,
       (T)qd_diag, (T)u_diag);
   return (int)cudaGetLastError();
+}
+
+template <typename T, int NJ>
+__global__ void riccati_dense_kernel(
+    const T* __restrict__ A, const T* __restrict__ Bm,
+    const T* __restrict__ lx, const T* __restrict__ lu,
+    const T* __restrict__ lxx, const T* __restrict__ luu,
+    const T* __restrict__ lux, int stationary, const T* __restrict__ Vx0,
+    const T* __restrict__ Vxx0, T* __restrict__ ks, T* __restrict__ Ks,
+    int N, long long B, T reg) {
+  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= B) return;
+  gt::riccati_dense_lane<T, NJ>(A, Bm, lx, lu, lxx, luu, lux,
+                                stationary != 0, Vx0, Vxx0, ks, Ks, N, B, b,
+                                reg);
+}
+
+template <typename T, int NJ>
+static int launch_riccati_dense(const void* A, const void* Bm,
+                                const void* lx, const void* lu,
+                                const void* lxx, const void* luu,
+                                const void* lux, int stationary,
+                                const void* Vx0, const void* Vxx0, void* ks,
+                                void* Ks, int N, long long B, double reg,
+                                cudaStream_t stream) {
+  if (B == 0 || N == 0) return 0;
+  const int block = 32;
+  riccati_dense_kernel<T, NJ><<<gt_grid(B, block), block, 0, stream>>>(
+      (const T*)A, (const T*)Bm, (const T*)lx, (const T*)lu, (const T*)lxx,
+      (const T*)luu, (const T*)lux, stationary, (const T*)Vx0,
+      (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, (T)reg);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int gridtorch_riccati(int dtype, int nj, const void* A,
+                                 const void* Bm, const void* lx,
+                                 const void* lu, const void* lxx,
+                                 const void* luu, const void* lux,
+                                 int stationary, const void* Vx0,
+                                 const void* Vxx0, void* ks, void* Ks, int N,
+                                 long long B, double reg, void* stream) {
+  GT_DISPATCH(dtype, nj,
+              launch_riccati_dense<T, NJ>(A, Bm, lx, lu, lxx, luu, lux,
+                                          stationary, Vx0, Vxx0, ks, Ks, N,
+                                          B, reg, (cudaStream_t)stream));
 }
 
 extern "C" int gridtorch_riccati_factored(

@@ -1,7 +1,8 @@
 """RobotModel: the per-robot constants every op and kernel reads.
 
 The counterpart of ``gridcodegenerator_tpu/models/model.py``. Spatial
-inertias, tree transforms and limits are tensors on an explicit ``device``;
+inertias, tree transforms and limits are tensors on one ``device``: the
+card by default (``"cuda"``), the CPU only when asked (``device="cpu"``);
 the topology (parents, BFS waves, ancestor and subtree sets, joint axes) is
 static Python data, so every op unrolls over it in Python.
 
@@ -75,8 +76,19 @@ class RobotModel:
             for f in ARRAY_FIELDS})
 
 
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without one present
+    raises instead of falling back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} asked for, but no CUDA device is present: "
+            "pass device='cpu' to run the plain PyTorch versions on the CPU")
+    return dev
+
+
 def build_model(topo: RobotTopology, dtype=torch.float32,
-                device="cpu") -> RobotModel:
+                device="cuda") -> RobotModel:
     """Bake a RobotTopology into a RobotModel on ``device``."""
     n = topo.get_num_joints()
     nv = topo.get_num_vel()
@@ -127,7 +139,7 @@ def build_model(topo: RobotTopology, dtype=torch.float32,
 
 
 def model_from_numpy(arrays: Mapping[str, np.ndarray], static: Mapping,
-                     dtype=None, device="cpu") -> RobotModel:
+                     dtype=None, device="cuda") -> RobotModel:
     """RobotModel from numpy array leaves and static topology fields.
 
     ``arrays`` holds every name in :data:`ARRAY_FIELDS` (for instance
@@ -135,6 +147,7 @@ def model_from_numpy(arrays: Mapping[str, np.ndarray], static: Mapping,
     name in :data:`STATIC_FIELDS`. ``dtype=None`` keeps each array's own
     floating type.
     """
+    device = resolve_device(device)
     tensors = {f: torch.as_tensor(np.array(arrays[f]), device=device)
                for f in ARRAY_FIELDS}
     if dtype is not None:

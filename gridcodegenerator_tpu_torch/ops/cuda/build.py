@@ -37,8 +37,8 @@ from ..eepose import ee_chains
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("fd_du.cu", "rollout.cu", "linesearch.cu", "riccati.cu", "rnea.cu",
            "id_du.cu", "aba.cu", "minv.cu", "fd.cu", "crba.cu", "eepos.cu",
-           "deepos.cu")
-HEADERS = ("dynamics.cuh",)
+           "deepos.cu", "idsva_so.cu", "fdsva_so.cu")
+HEADERS = ("dynamics.cuh", "so.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libgridtorch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -141,10 +141,13 @@ _SIGNATURES = {
     "gridtorch_deepos": (_I, _I, _P, _P, _I, _P, _P, _L, _P),
     "gridtorch_rollout": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _L, _D, _D, _P),
     "gridtorch_linesearch": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _P, _I, _L, _I, _D, _D, _D, _D, _D, _D,
-                             _D, _D, _D, _P),
+                             _P, _P, _P, _I, _L, _I, _D, _D, _I, _P, _P),
     "gridtorch_riccati_factored": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _I, _L, _I, _D, _D, _D, _P),
+    "gridtorch_riccati": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                          _P, _I, _L, _D, _P),
+    "gridtorch_idsva_so": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_fdsva_so": (_I, _I, _P, _P, _P, _P, _P, _P, _L, _D, _P),
 }
 
 
@@ -231,6 +234,7 @@ def _cached(cache: dict, model: RobotModel, key, make):
 
 _model_buffers = {}
 _ee_buffers = {}
+_cost_buffers = {}
 
 
 def model_buffer(model: RobotModel, ee_index: int = 0) -> torch.Tensor:
@@ -275,3 +279,13 @@ def ee_buffer(model: RobotModel, targets=None) -> torch.Tensor:
         flat = np.asarray(rows, np.float64).reshape(len(rows), 16 + model.n)
         return torch.as_tensor(flat, dtype=model.dtype, device=model.device)
     return _cached(_ee_buffers, model, targets, make)
+
+
+def cost_buffer(cost, like: torch.Tensor) -> torch.Tensor:
+    """The line-search kernel's cost constants (``cost.kernel_weights``
+    values, in the layout of ``csrc/linesearch.cu``) in the dtype and on the
+    device of ``like``; cached per cost, dtype and device."""
+    def make():
+        return torch.as_tensor(cost.kernel_weights["values"], dtype=like.dtype,
+                               device=like.device)
+    return _cached(_cost_buffers, cost, (like.dtype, like.device), make)

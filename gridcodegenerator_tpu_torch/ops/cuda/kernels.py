@@ -22,6 +22,12 @@ Lane-major tensors, L lanes on the trailing axis:
   Replaces ``kernels.py:eepos_pallas``.
 * ``deepos(model, q, targets=None)`` -> (6 ne, n, L) EE pose Jacobians.
   Replaces ``kernels.py:deepos_pallas``.
+* ``idsva_so(model, q, qd, qdd)`` -> (4, n, n, n, L) IDSVA-SO
+  [d2tau/dq2, d2tau/dqd2, d2tau/dqd dq, dM/dq]. Replaces
+  ``kernels.py:idsva_so_pallas``.
+* ``fdsva_so(model, q, qd, u)`` -> (4, n, n, n, L) FDSVA-SO
+  [d2qdd/dq2, d2qdd/dqd2, d2qdd/dqd dq, dMinv/dq] (in the solver L = N*B
+  knots, knot-major). Replaces ``kernels.py:fdsva_so_pallas``.
 
 Kernels: ``csrc/<name>.cu``, one thread per lane, everything in registers
 and local memory; inputs are read and outputs written along the lane axis,
@@ -49,16 +55,21 @@ from ..fd_grad import fd_grad
 from ..id_grad import id_grad
 from ..minv import minv as _minv
 from ..rnea import rnea as _rnea
+from ..so import fdsva_so as _fdsva_so
+from ..so import idsva_so as _idsva_so
 from . import build
 
 FD_DU, RNEA, ID_DU, ABA, MINV = "fd_du", "rnea", "id_du", "aba", "minv"
 FD, CRBA, EEPOS, DEEPOS = "fd", "crba", "eepos", "deepos"
+IDSVA_SO, FDSVA_SO = "idsva_so", "fdsva_so"
 SOURCES = {k: f"gridcodegenerator_tpu_torch/csrc/{k}.cu"
-           for k in (FD_DU, RNEA, ID_DU, ABA, MINV, FD, CRBA, EEPOS, DEEPOS)}
+           for k in (FD_DU, RNEA, ID_DU, ABA, MINV, FD, CRBA, EEPOS, DEEPOS,
+                     IDSVA_SO, FDSVA_SO)}
 REPLACES = {k: f"gridcodegenerator_tpu/ops/pallas/kernels.py:{line}"
             for k, line in ((FD_DU, 171), (RNEA, 77), (ID_DU, 156),
                             (ABA, 141), (MINV, 98), (FD, 126), (CRBA, 112),
-                            (EEPOS, 375), (DEEPOS, 390))}
+                            (EEPOS, 375), (DEEPOS, 390), (IDSVA_SO, 264),
+                            (FDSVA_SO, 303))}
 
 
 def _lanes(model: RobotModel, what: str, inputs):
@@ -132,6 +143,16 @@ def eepos_plain(model: RobotModel, q, targets=None):
 def deepos_plain(model: RobotModel, q, targets=None):
     build.PLAIN_CALLS[DEEPOS] += 1
     return _deepos(model, q, targets)
+
+
+def idsva_so_plain(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
+    build.PLAIN_CALLS[IDSVA_SO] += 1
+    return _idsva_so(model, q, qd, qdd, gravity)
+
+
+def fdsva_so_plain(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
+    build.PLAIN_CALLS[FDSVA_SO] += 1
+    return _fdsva_so(model, q, qd, u, gravity)
 
 
 # ---------------------------------------------------------------------------
@@ -247,3 +268,34 @@ def deepos(model: RobotModel, q, targets=None):
     if not q.is_cuda:
         return deepos_plain(model, q, targets)
     return _ee_launch(DEEPOS, model, q, targets, model.n)
+
+
+def idsva_so(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
+    if not q.is_cuda:
+        return idsva_so_plain(model, q, qd, qdd, gravity)
+    if qdd is None:
+        raise ValueError(f"{IDSVA_SO}: qdd is required")
+    dcode, nj, L = _lanes(model, IDSVA_SO, dict(q=q, qd=qd, qdd=qdd))
+    n = model.n
+    out = _empty(q, 4, n, n, n, L)
+    _launched(IDSVA_SO, build.lib().gridtorch_idsva_so(
+        dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
+        build.ptr(qd), build.ptr(qdd), build.ptr(out), L, float(gravity),
+        build.stream_ptr(q.device)))
+    return out
+
+
+def fdsva_so(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
+    """The kernel writes the IDSVA-SO tensors of each lane into a scratch of
+    the output's size, then contracts them into the output."""
+    if not q.is_cuda:
+        return fdsva_so_plain(model, q, qd, u, gravity)
+    dcode, nj, L = _lanes(model, FDSVA_SO, dict(q=q, qd=qd, u=u))
+    n = model.n
+    out = _empty(q, 4, n, n, n, L)
+    scratch = _empty(q, 4, n, n, n, L)
+    _launched(FDSVA_SO, build.lib().gridtorch_fdsva_so(
+        dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
+        build.ptr(qd), build.ptr(u), build.ptr(out), build.ptr(scratch), L,
+        float(gravity), build.stream_ptr(q.device)))
+    return out

@@ -3,10 +3,15 @@
 * ``rollout`` — open-loop N-step rollout with the control clamp.
   Replaces ``gridcodegenerator_tpu/ops/pallas/sweeps.py:rollout_pallas``.
 * ``linesearch_rollout`` — feedback rollouts for every step size at once,
-  with the EE reach cost summed inside the sweep. Replaces
+  with the cost (EE reach or quadratic) summed inside the sweep. Replaces
   ``sweeps.py:linesearch_rollout_pallas``.
 * ``riccati_factored`` — the backward Riccati sweep fed by the Gauss-Newton
   factor of the cost. Replaces ``sweeps.py:riccati_pallas_factored``.
+* ``riccati`` — the backward Riccati sweep with dense curvature blocks, per
+  knot or one stationary block. Replaces ``sweeps.py:riccati_pallas``.
+
+Both Riccati sweeps run the same knot step (:func:`riccati_knot` here,
+``csrc/riccati.cu:riccati_knot`` in the kernels).
 
 On the TPU the horizon was a sequential grid axis carrying state in VMEM
 scratch from one grid step to the next. Blocks on the GPU run in no order,
@@ -36,12 +41,17 @@ from . import build
 ROLLOUT = "rollout"
 LINESEARCH = "linesearch_rollout"
 RICCATI = "riccati_factored"
+RICCATI_DENSE = "riccati"
 SOURCES = {ROLLOUT: "gridcodegenerator_tpu_torch/csrc/rollout.cu",
            LINESEARCH: "gridcodegenerator_tpu_torch/csrc/linesearch.cu",
-           RICCATI: "gridcodegenerator_tpu_torch/csrc/riccati.cu"}
+           RICCATI: "gridcodegenerator_tpu_torch/csrc/riccati.cu",
+           RICCATI_DENSE: "gridcodegenerator_tpu_torch/csrc/riccati.cu"}
 REPLACES = {ROLLOUT: "gridcodegenerator_tpu/ops/pallas/sweeps.py:406",
             LINESEARCH: "gridcodegenerator_tpu/ops/pallas/sweeps.py:486",
-            RICCATI: "gridcodegenerator_tpu/ops/pallas/sweeps.py:267"}
+            RICCATI: "gridcodegenerator_tpu/ops/pallas/sweeps.py:267",
+            RICCATI_DENSE: "gridcodegenerator_tpu/ops/pallas/sweeps.py:689"}
+# the line-search kernel's cost kinds (csrc/linesearch.cu)
+COST_KINDS = {"ee": 0, "quad": 1}
 
 
 def euler_step(model: RobotModel, x, u, dt, gravity=DEFAULT_GRAVITY):
@@ -105,8 +115,9 @@ def linesearch_rollout_plain(model: RobotModel, x0, Uref, Xref, k, K,
 
     u_t = clamp(Uref_t + alpha * k_t + K_t (x_t - Xref_t)), lanes
     alpha-major ([a0*B | a1*B | ...]) -> (X (N,nx,na*B), U (N,n,na*B),
-    cost (na*B)). ``cost`` (an ``EEReachCost``) is summed along the sweep:
-    stage cost at each knot, terminal cost at the end.
+    cost (na*B)). ``cost`` (an ``EEReachCost`` or a ``QuadCost``) is summed
+    along the sweep: ``ls_stage`` at each knot, ``ls_terminal`` at the
+    end.
     """
     build.PLAIN_CALLS[LINESEARCH] += 1
     na = alpha_rows.shape[0]
@@ -141,10 +152,7 @@ def linesearch_rollout(model: RobotModel, x0, Uref, Xref, k, K, alpha_rows,
     expect = dict(x0=(nx, B), Uref=(N, n, B), Xref=(N, nx, B), k=(N, n, B),
                   K=(N, n, nx, B), alpha_rows=(na, B))
     given = dict(x0=x0, Uref=Uref, Xref=Xref, k=k, K=K, alpha_rows=alpha_rows)
-    for name, shp in expect.items():
-        if tuple(given[name].shape) != shp:
-            raise ValueError(f"{LINESEARCH}: {name} is "
-                             f"{tuple(given[name].shape)}, expected {shp}")
+    _check_shapes(LINESEARCH, expect, given)
     build.require(dict(given, u_lo=u_lo, u_hi=u_hi), x0.dtype, x0.device,
                   LINESEARCH)
     dev, dt_ = x0.device, x0.dtype
@@ -152,21 +160,52 @@ def linesearch_rollout(model: RobotModel, x0, Uref, Xref, k, K, alpha_rows,
     U = torch.empty((N, n, na * B), dtype=dt_, device=dev)
     c = torch.empty((na * B,), dtype=dt_, device=dev)
     w = cost.kernel_weights
+    if w["kind"] not in COST_KINDS:
+        raise NotImplementedError(f"{LINESEARCH}: no kernel cost {w['kind']!r}")
     err = build.lib().gridtorch_linesearch(
         dcode, nj, build.ptr(build.model_buffer(model, w["ee_index"])),
         build.ptr(x0), build.ptr(Uref),
         build.ptr(Xref), build.ptr(k), build.ptr(K), build.ptr(alpha_rows),
         build.ptr(u_lo), build.ptr(u_hi), build.ptr(X), build.ptr(U),
-        build.ptr(c), N, B, na, float(dt), float(gravity), *w["goal"],
-        w["w_pos"], w["w_pos_f"], w["w_vel"], w["w_u"], build.stream_ptr(dev))
+        build.ptr(c), N, B, na, float(dt), float(gravity),
+        COST_KINDS[w["kind"]], build.ptr(build.cost_buffer(cost, x0)),
+        build.stream_ptr(dev))
     build.check(err, LINESEARCH)
     build.LAUNCHES[LINESEARCH] += 1
     return X, U, c
 
 
 # ---------------------------------------------------------------------------
-# factored Riccati sweep
+# Riccati sweeps
 # ---------------------------------------------------------------------------
+
+def riccati_knot(At, Bt, Vx, Vxx, lx, lu, lxx, luu, lux, reg, dQxx=None,
+                 dQux=None):
+    """One backward knot: Q assembly, gains from Gauss-Jordan on
+    Quu + reg I, and the FULL value update (it cancels the regularization
+    to O(reg^2)), symmetrized. ``dQxx``/``dQux`` are added to Qxx/Qux
+    before the gains (the second-order DDP terms).
+    -> (k (n,B), K (n,nx,B), Vx (nx,B), Vxx (nx,nx,B))."""
+    n = Bt.shape[1]
+    AT, BT = At.transpose(0, 1), Bt.transpose(0, 1)
+    Qx = lx + bmv(AT, Vx)
+    Qu = lu + bmv(BT, Vx)
+    VxxA = bmm(Vxx, At)
+    Qxx = lxx + bmm(AT, VxxA)
+    Qux = lux + bmm(BT, VxxA)
+    Quu = luu + bmm(BT, bmm(Vxx, Bt))
+    if dQxx is not None:
+        Qxx = Qxx + dQxx
+        Qux = Qux + dQux
+    eye_n = torch.eye(n, dtype=At.dtype, device=At.device)[:, :, None]
+    Quu_inv = gj_inverse(Quu + reg * eye_n)
+    k_t = -bmv(Quu_inv, Qu)
+    K_t = -bmm(Quu_inv, Qux)
+    KT, QuxT = K_t.transpose(0, 1), Qux.transpose(0, 1)
+    Vx = Qx + bmv(KT, bmv(Quu, k_t)) + bmv(KT, Qu) + bmv(QuxT, k_t)
+    Vxx = Qxx + bmm(KT, bmm(Quu, K_t)) + bmm(KT, Qux) + bmm(QuxT, K_t)
+    return k_t, K_t, Vx, 0.5 * (Vxx + Vxx.transpose(0, 1))
+
 
 def riccati_factored_plain(A, Bm, lx, lu, Jw, Vx0, Vxx0, reg, qd_diag,
                            u_diag):
@@ -175,37 +214,24 @@ def riccati_factored_plain(A, Bm, lx, lu, Jw, Vx0, Vxx0, reg, qd_diag,
 
     A (N,nx,nx,B), Bm (N,nx,n,B), Vx0 (nx,B), Vxx0 (nx,nx,B); lx (nx,N*B),
     lu (n,N*B) and Jw (r,n,N*B) in the solver's knot-major lane layout
-    (lane = t*B + b). -> (k (N,n,B), K (N,n,nx,B)). The value update is the
-    full form, which cancels the regularization to O(reg^2).
+    (lane = t*B + b). -> (k (N,n,B), K (N,n,nx,B)).
     """
     build.PLAIN_CALLS[RICCATI] += 1
     N, nx, n, B = Bm.shape
     eye_n = torch.eye(n, dtype=A.dtype, device=A.device)[:, :, None]
     qd_eye = torch.zeros((nx, nx, 1), dtype=A.dtype, device=A.device)
     qd_eye[n:, n:] = eye_n
+    lux = torch.zeros((n, nx, 1), dtype=A.dtype, device=A.device)
     Vx, Vxx = Vx0, Vxx0
     ks, Ks = [None] * N, [None] * N
     for t in range(N - 1, -1, -1):
-        At, Bt = A[t], Bm[t]
         lane = slice(t * B, (t + 1) * B)
-        AT, BT = At.transpose(0, 1), Bt.transpose(0, 1)
         Jt = Jw[:, :, lane]
-        Qx = lx[:, lane] + bmv(AT, Vx)
-        Qu = lu[:, lane] + bmv(BT, Vx)
-        VxxA = bmm(Vxx, At)
-        Qxx = bmm(AT, VxxA)
-        Qxx[:n, :n] = Qxx[:n, :n] + bmm(Jt.transpose(0, 1), Jt)
-        Qxx = Qxx + qd_diag * qd_eye
-        Qux = bmm(BT, VxxA)
-        Quu = bmm(BT, bmm(Vxx, Bt)) + u_diag * eye_n
-        Quu_inv = gj_inverse(Quu + reg * eye_n)
-        k_t = -bmv(Quu_inv, Qu)
-        K_t = -bmm(Quu_inv, Qux)
-        KT, QuxT = K_t.transpose(0, 1), Qux.transpose(0, 1)
-        Vx = Qx + bmv(KT, bmv(Quu, k_t)) + bmv(KT, Qu) + bmv(QuxT, k_t)
-        Vxx = Qxx + bmm(KT, bmm(Quu, K_t)) + bmm(KT, Qux) + bmm(QuxT, K_t)
-        Vxx = 0.5 * (Vxx + Vxx.transpose(0, 1))
-        ks[t], Ks[t] = k_t, K_t
+        lxx = qd_diag * qd_eye + torch.zeros_like(Vxx)
+        lxx[:n, :n] = lxx[:n, :n] + bmm(Jt.transpose(0, 1), Jt)
+        ks[t], Ks[t], Vx, Vxx = riccati_knot(
+            A[t], Bm[t], Vx, Vxx, lx[:, lane], lu[:, lane], lxx,
+            u_diag * eye_n, lux, reg)
     return torch.stack(ks), torch.stack(Ks)
 
 
@@ -215,16 +241,11 @@ def riccati_factored(A, Bm, lx, lu, Jw, Vx0, Vxx0, reg, qd_diag, u_diag):
                                       qd_diag, u_diag)
     N, nx, n, B = Bm.shape
     r = Jw.shape[0]
-    if n not in build.SUPPORTED_JOINTS or A.dtype not in build.DTYPE_CODES:
-        raise NotImplementedError(
-            f"{RICCATI}: no CUDA kernel for n={n}, {A.dtype}")
+    _check_riccati_key(RICCATI, n, A.dtype)
     expect = dict(A=(N, nx, nx, B), lx=(nx, N * B), lu=(n, N * B),
                   Jw=(r, n, N * B), Vx0=(nx, B), Vxx0=(nx, nx, B))
     given = dict(A=A, lx=lx, lu=lu, Jw=Jw, Vx0=Vx0, Vxx0=Vxx0)
-    for name, shp in expect.items():
-        if tuple(given[name].shape) != shp:
-            raise ValueError(f"{RICCATI}: {name} is "
-                             f"{tuple(given[name].shape)}, expected {shp}")
+    _check_shapes(RICCATI, expect, given)
     if not 1 <= r <= 6:
         raise NotImplementedError(f"{RICCATI}: factor rank {r} not in 1..6")
     build.require(dict(given, Bm=Bm), A.dtype, A.device, RICCATI)
@@ -238,3 +259,62 @@ def riccati_factored(A, Bm, lx, lu, Jw, Vx0, Vxx0, reg, qd_diag, u_diag):
     build.check(err, RICCATI)
     build.LAUNCHES[RICCATI] += 1
     return ks, Ks
+
+
+def riccati_plain(A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg):
+    """Backward Riccati sweep with dense curvature.
+
+    A (N,nx,nx,B), Bm (N,nx,n,B), lx (N,nx,B), lu (N,n,B); lxx (nx,nx,B),
+    luu (n,n,B), lux (n,nx,B) for a stationary curvature (one block for
+    every knot), or each with a leading N axis; Vx0 (nx,B), Vxx0 (nx,nx,B).
+    -> (k (N,n,B), K (N,n,nx,B)).
+    """
+    build.PLAIN_CALLS[RICCATI_DENSE] += 1
+    N = A.shape[0]
+    stationary = lxx.ndim == 3
+    Vx, Vxx = Vx0, Vxx0
+    ks, Ks = [None] * N, [None] * N
+    for t in range(N - 1, -1, -1):
+        curv = (lxx, luu, lux) if stationary else (lxx[t], luu[t], lux[t])
+        ks[t], Ks[t], Vx, Vxx = riccati_knot(A[t], Bm[t], Vx, Vxx, lx[t],
+                                             lu[t], *curv, reg)
+    return torch.stack(ks), torch.stack(Ks)
+
+
+def riccati(A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg):
+    if not A.is_cuda:
+        return riccati_plain(A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg)
+    N, nx, n, B = Bm.shape
+    _check_riccati_key(RICCATI_DENSE, n, A.dtype)
+    stationary = lxx.ndim == 3
+    lead = () if stationary else (N,)
+    expect = dict(A=(N, nx, nx, B), lx=(N, nx, B), lu=(N, n, B),
+                  lxx=lead + (nx, nx, B), luu=lead + (n, n, B),
+                  lux=lead + (n, nx, B), Vx0=(nx, B), Vxx0=(nx, nx, B))
+    given = dict(A=A, lx=lx, lu=lu, lxx=lxx, luu=luu, lux=lux, Vx0=Vx0,
+                 Vxx0=Vxx0)
+    _check_shapes(RICCATI_DENSE, expect, given)
+    build.require(dict(given, Bm=Bm), A.dtype, A.device, RICCATI_DENSE)
+    ks = torch.empty((N, n, B), dtype=A.dtype, device=A.device)
+    Ks = torch.empty((N, n, nx, B), dtype=A.dtype, device=A.device)
+    err = build.lib().gridtorch_riccati(
+        build.DTYPE_CODES[A.dtype], n, build.ptr(A), build.ptr(Bm),
+        build.ptr(lx), build.ptr(lu), build.ptr(lxx), build.ptr(luu),
+        build.ptr(lux), int(stationary), build.ptr(Vx0), build.ptr(Vxx0),
+        build.ptr(ks), build.ptr(Ks), N, B, float(reg),
+        build.stream_ptr(A.device))
+    build.check(err, RICCATI_DENSE)
+    build.LAUNCHES[RICCATI_DENSE] += 1
+    return ks, Ks
+
+
+def _check_riccati_key(what, n, dtype):
+    if n not in build.SUPPORTED_JOINTS or dtype not in build.DTYPE_CODES:
+        raise NotImplementedError(f"{what}: no CUDA kernel for n={n}, {dtype}")
+
+
+def _check_shapes(what, expect, given):
+    for name, shp in expect.items():
+        if tuple(given[name].shape) != shp:
+            raise ValueError(f"{what}: {name} is "
+                             f"{tuple(given[name].shape)}, expected {shp}")

@@ -1,9 +1,18 @@
-"""End-effector reach cost for the trajectory optimizer.
+"""Cost models for the trajectory optimizers.
 
-The counterpart of ``gridcodegenerator_tpu/trajopt/cost.py:EEReachCost``:
-0.5*w*||ee_xyz(q) - goal||^2 with a Gauss-Newton Hessian from the FK
-Jacobian, plus quadratic velocity and control regularizers. States are
+The counterpart of ``gridcodegenerator_tpu/trajopt/cost.py``. States are
 x = [q; qd] (2n, B...), controls u (n, B...).
+
+* :class:`QuadCost` — diagonal quadratic tracking cost with closed-form
+  expansions and a stationary curvature;
+* :class:`EEReachCost` — 0.5*w*||ee_xyz(q) - goal||^2 with a Gauss-Newton
+  Hessian from the FK Jacobian, plus quadratic velocity and control
+  regularizers.
+
+Both carry the line-search hooks: ``ls_stage``/``ls_terminal`` (the cost as
+the line-search kernel sums it along the sweep, in plain torch) and
+``kernel_weights`` (the kernel's cost kind and its packed constants, read
+from the device once, not on every launch).
 """
 
 from __future__ import annotations
@@ -15,6 +24,81 @@ import torch
 
 from ..models.model import RobotModel
 from ..ops import eepose as _eepose
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class QuadCost:
+    """0.5 (x-xg)^T Q (x-xg) + 0.5 u^T R u, terminal Qf; diagonal weights."""
+
+    Q: torch.Tensor         # (2n,)
+    R: torch.Tensor         # (n,)
+    Qf: torch.Tensor        # (2n,)
+    x_goal: torch.Tensor    # (2n,) shared goal
+
+    # the stage curvature (lxx, luu, lux) does not depend on x, u or t, and
+    # stage() ignores t: the solver folds the horizon into the lane axis
+    stationary_curvature = True
+    time_invariant = True
+
+    def __post_init__(self):
+        if self.x_goal.ndim != 1:
+            raise NotImplementedError(
+                "the port's QuadCost takes one shared (2n,) goal: a "
+                "per-problem (2n, B) goal is ROADMAP Queue 1 item 5")
+
+    @staticmethod
+    def _col(w, like):
+        return w.to(device=like.device, dtype=like.dtype).reshape(
+            (-1,) + (1,) * (like.ndim - 1))
+
+    def stage(self, x, u):
+        dx = x - self._col(self.x_goal, x)
+        return (0.5 * (self._col(self.Q, x) * dx * dx).sum(0)
+                + 0.5 * (self._col(self.R, u) * u * u).sum(0))
+
+    def terminal(self, x):
+        dx = x - self._col(self.x_goal, x)
+        return 0.5 * (self._col(self.Qf, x) * dx * dx).sum(0)
+
+    @staticmethod
+    def _diag(w, like):
+        """diag(w) broadcast over the batch of ``like``: (m, m, B...)."""
+        d = torch.diag(w.to(device=like.device, dtype=like.dtype))
+        return d.reshape(d.shape + (1,) * (like.ndim - 1)).expand(
+            d.shape + like.shape[1:])
+
+    def stage_expansion(self, x, u):
+        """-> (l, lx (2n,B...), lu (n,B...), lxx (2n,2n,B...),
+        luu (n,n,B...), lux (n,2n,B...)); the curvature blocks are
+        broadcast views."""
+        dx = x - self._col(self.x_goal, x)
+        lux = torch.zeros((), dtype=x.dtype, device=x.device).expand(
+            (u.shape[0], x.shape[0]) + x.shape[1:])
+        return (self.stage(x, u), self._col(self.Q, x) * dx,
+                self._col(self.R, u) * u, self._diag(self.Q, x),
+                self._diag(self.R, u), lux)
+
+    def terminal_expansion(self, x):
+        """-> (l, lx (2n,B...), lxx (2n,2n,B...))."""
+        dx = x - self._col(self.x_goal, x)
+        return (self.terminal(x), self._col(self.Qf, x) * dx,
+                self._diag(self.Qf, x))
+
+    # the line-search kernel sums exactly stage() and terminal()
+    def ls_stage(self, x, u):
+        return self.stage(x, u)
+
+    def ls_terminal(self, x):
+        return self.terminal(x)
+
+    @functools.cached_property
+    def kernel_weights(self):
+        """The line-search kernel's cost: kind "quad", constants
+        Q (2n) | R (n) | Qf (2n) | x_goal (2n)."""
+        vals = torch.cat([self.Q, self.R, self.Qf, self.x_goal])
+        return dict(kind="quad",
+                    values=tuple(float(v) for v in vals.detach().cpu().double()),
+                    ee_index=0)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -117,9 +201,10 @@ class EEReachCost:
 
     @functools.cached_property
     def kernel_weights(self):
-        """Scalars the CUDA line-search kernel takes for its in-kernel cost
-        (read from the device once, not on every launch)."""
+        """The line-search kernel's cost: kind "ee", constants
+        goal (3) | w_pos | w_pos_f | w_vel | w_u, on the EE ``ee_index``."""
         g = [float(v) for v in self.goal_xyz.detach().cpu().double()]
-        return dict(goal=g, w_pos=float(self.w_pos), w_pos_f=float(self.w_pos_f),
-                    w_vel=float(self.w_vel), w_u=float(self.w_u),
+        return dict(kind="ee",
+                    values=tuple(g + [float(self.w_pos), float(self.w_pos_f),
+                                      float(self.w_vel), float(self.w_u)]),
                     ee_index=int(self.ee_index))

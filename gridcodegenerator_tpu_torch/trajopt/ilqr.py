@@ -1,14 +1,21 @@
-"""Batched first-order iLQR on the port's kernels.
+"""Batched iLQR and DDP on the port's kernels.
 
-The counterpart of ``gridcodegenerator_tpu/trajopt/ilqr.py:make_ilqr`` for
-its first-order path with a Gauss-Newton-factored cost (``EEReachCost``).
+The counterpart of ``gridcodegenerator_tpu/trajopt/ilqr.py:make_ilqr``.
 Every tensor carries a trailing batch axis B of independent problems. One
 solve is an open-loop rollout, then ``iters`` iterations of
 
 1. ``linearize``: one ``fd_du`` over all N*B knots, knot-major lanes
    (lane = t*B + b), assembled into the discrete A, B blocks;
-2. ``backward``: the factored Riccati sweep;
-3. ``forward``: one line-search rollout over every step size, with the cost
+2. ``second_order`` (``use_second_order`` only): one ``fdsva_so`` over the
+   same N*B lanes, (4, n, n, n, N*B);
+3. ``backward``: the Riccati sweep. A Gauss-Newton-factored cost
+   (``EEReachCost``) runs the factored sweep kernel; a cost with a
+   stationary curvature (``QuadCost``) runs the dense sweep kernel with one
+   curvature block (first order needs one of the two); with
+   ``use_second_order`` it is the exact DDP sweep, plain torch on every
+   device (the JAX package runs it in XLA too): each knot contracts V'_x
+   with its lane slice [t*B, (t+1)*B) of the flat second-order tensors;
+4. ``forward``: one line-search rollout over every step size, with the cost
    summed in the sweep, then the per-problem argmin and accept step.
 
 ``ILQRConfig.use_kernels``: None runs the CUDA kernels iff the tensors are
@@ -30,7 +37,6 @@ from ..models.model import RobotModel
 from ..ops.common import DEFAULT_GRAVITY, check_fixed_base
 from ..ops.cuda import kernels as _k
 from ..ops.cuda import sweeps as _s
-from .cost import EEReachCost
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,8 +51,8 @@ class ILQRConfig:
     u_max: object = None          # array, or None; both None = the robot's
                                   # effort limits (no clamp if it has none)
     use_kernels: Optional[bool] = None
+    use_second_order: bool = False   # exact DDP terms from FDSVA-SO
     # parts of the JAX solver the port leaves out; setting one raises
-    use_second_order: bool = False
     parallel_riccati: bool = False
     ls_two_stage: bool = False
     knot_axis: Optional[str] = None
@@ -82,35 +88,46 @@ def resolve_control_bounds(model: RobotModel, cfg: ILQRConfig):
     return col(-eff), col(eff)
 
 
-def make_ilqr(model: RobotModel, cost: EEReachCost, cfg: ILQRConfig,
+def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
               expose_parts: bool = False):
     """Build a batched solver: solve(x0 (2n,B), U0 (N,n,B)) -> ILQRResult.
 
-    ``expose_parts=True`` also returns the phase closures ({rollout,
-    linearize, backward, forward, total_cost}) so each phase can be timed
-    on its own.
+    ``cost`` is an ``EEReachCost`` (first order only) or any cost with
+    ``stage_expansion`` (``QuadCost``). ``expose_parts=True`` also returns
+    the phase closures ({rollout, linearize, second_order, backward,
+    forward, total_cost}) so each phase can be timed on its own.
     """
     check_fixed_base(model)
-    for flag in ("use_second_order", "parallel_riccati", "ls_two_stage"):
+    for flag in ("parallel_riccati", "ls_two_stage"):
         if getattr(cfg, flag):
             raise NotImplementedError(f"ILQRConfig.{flag} is not ported")
     if cfg.knot_axis is not None:
         raise NotImplementedError("ILQRConfig.knot_axis is not ported")
-    if not hasattr(cost, "gn_stage_factor"):
+    factored = hasattr(cost, "gn_stage_factor")
+    if cfg.use_second_order and not hasattr(cost, "stage_expansion"):
         raise NotImplementedError(
-            "the port's solver takes a Gauss-Newton-factored cost "
-            "(EEReachCost)")
+            "DDP with a Gauss-Newton-factored cost (EEReachCost) is not "
+            "ported: ROADMAP Queue 1 item 10")
+    if not factored and not hasattr(cost, "stage_expansion"):
+        raise NotImplementedError(
+            "the solver needs a cost with gn_stage_factor or stage_expansion")
+    if not (factored or cfg.use_second_order
+            or getattr(cost, "stationary_curvature", False)):
+        raise NotImplementedError(
+            "first-order iLQR with a per-knot stage curvature is not ported: "
+            "the dense sweep reads one stationary block (QuadCost)")
     n, nx = model.num_vel, 2 * model.num_vel
     N, dt, grav = cfg.N, cfg.dt, cfg.gravity
     na = len(cfg.alphas)
     alphas = torch.tensor(cfg.alphas, dtype=model.dtype, device=model.device)
     u_lo, u_hi = resolve_control_bounds(model, cfg)
-    qd_d, u_d = cost.gn_factor_diags
     plain = cfg.use_kernels is False
     fd_du = _k.fd_du_plain if plain else _k.fd_du
+    fdsva = _k.fdsva_so_plain if plain else _k.fdsva_so
     roll = _s.rollout_plain if plain else _s.rollout
     ls_roll = _s.linesearch_rollout_plain if plain else _s.linesearch_rollout
-    riccati = _s.riccati_factored_plain if plain else _s.riccati_factored
+    ric_gn = _s.riccati_factored_plain if plain else _s.riccati_factored
+    ric = _s.riccati_plain if plain else _s.riccati
 
     def on_device(t):
         if cfg.use_kernels and not t.is_cuda:
@@ -119,6 +136,10 @@ def make_ilqr(model: RobotModel, cost: EEReachCost, cfg: ILQRConfig,
     def fold(Z):
         """(N, d, B) -> (d, N*B), knot-major (lane = t*B + b)."""
         return Z.transpose(0, 1).reshape(Z.shape[1], -1)
+
+    def unfold(z):
+        """(..., N*B) -> (N, ..., B), the inverse of :func:`fold`."""
+        return z.reshape(z.shape[:-1] + (N, -1)).movedim(-2, 0)
 
     def rollout(x0, U):
         on_device(x0)
@@ -149,15 +170,54 @@ def make_ilqr(model: RobotModel, cost: EEReachCost, cfg: ILQRConfig,
         Bmat = Bmat.reshape(nx, n, N, B).permute(2, 0, 1, 3).contiguous()
         return Amat, Bmat
 
-    def backward(X, U, Amat, Bmat):
-        """Factored Riccati sweep: the (r, n) GN factor and flat lx/lu go in
-        the knot-major lane layout."""
+    def second_order(X, U):
+        """One fdsva_so over the N*B knot-major lanes -> (4,n,n,n,N*B)."""
         on_device(X)
+        return fdsva(model, fold(X[:N, :n]), fold(X[:N, n:]), fold(U), grav)
+
+    def ddp_backward(X, U, Amat, Bmat, so_flat):
+        """The exact-Hessian sweep: the knot step with V'_x contracted with
+        the second-order tensors of the semi-implicit Euler map."""
+        B = X.shape[-1]
+        _, Vx, Vxx = cost.terminal_expansion(X[N])
+        _, lxf, luf, lxxf, luuf, luxf = cost.stage_expansion(fold(X[:N]),
+                                                             fold(U))
+        lx, lu, lxx, luu, lux = map(unfold, (lxf, luf, lxxf, luuf, luxf))
+        ks, Ks = [None] * N, [None] * N
+        for t in range(N - 1, -1, -1):
+            d2q, d2qd, cr, dMi = (so_flat[c, ..., t * B:(t + 1) * B]
+                                  for c in range(4))
+            w = dt * Vx[n:] + dt * dt * Vx[:n]              # (n, B)
+            hqq, hdd, hcr, hMq = (torch.einsum("i...,ijk...->jk...", w, s)
+                                  for s in (d2q, d2qd, cr, dMi))
+            dQxx = torch.cat([torch.cat([hqq, hcr.transpose(0, 1)], dim=1),
+                              torch.cat([hcr, hdd], dim=1)], dim=0)
+            dQux = torch.cat([hMq, torch.zeros_like(hMq)], dim=1)
+            ks[t], Ks[t], Vx, Vxx = _s.riccati_knot(
+                Amat[t], Bmat[t], Vx, Vxx, lx[t], lu[t], lxx[t], luu[t],
+                lux[t], cfg.reg, dQxx, dQux)
+        return torch.stack(ks), torch.stack(Ks)
+
+    def backward(X, U, Amat, Bmat, so_flat=None):
+        """The Riccati sweep (see the module docstring for its three forms)."""
+        on_device(X)
+        if cfg.use_second_order:
+            return ddp_backward(X, U, Amat, Bmat, so_flat)
         _, Vx0, Vxx0 = cost.terminal_expansion(X[N])
-        Jw, lxf, luf = cost.gn_stage_factor(fold(X[:N]), fold(U))
-        return riccati(Amat, Bmat, lxf.contiguous(), luf.contiguous(),
-                       Jw.contiguous(), Vx0.contiguous(), Vxx0.contiguous(),
-                       cfg.reg, qd_d, u_d)
+        if factored:
+            # the (r, n) GN factor and flat lx/lu go in the knot-major layout
+            Jw, lxf, luf = cost.gn_stage_factor(fold(X[:N]), fold(U))
+            return ric_gn(Amat, Bmat, lxf.contiguous(), luf.contiguous(),
+                          Jw.contiguous(), Vx0.contiguous(),
+                          Vxx0.contiguous(), cfg.reg, *cost.gn_factor_diags)
+        B = X.shape[-1]
+        _, lxf, luf, lxxf, luuf, luxf = cost.stage_expansion(fold(X[:N]),
+                                                             fold(U))
+        # the stationary curvature: one block for every knot
+        curv = (c[..., :B].contiguous() for c in (lxxf, luuf, luxf))
+        return ric(Amat, Bmat, unfold(lxf).contiguous(),
+                   unfold(luf).contiguous(), *curv, Vx0.contiguous(),
+                   Vxx0.contiguous(), cfg.reg)
 
     def forward(X, U, ks, Ks):
         """Line search: every step size in one sweep, then the argmin."""
@@ -185,7 +245,8 @@ def make_ilqr(model: RobotModel, cost: EEReachCost, cfg: ILQRConfig,
         ks = Ks = None
         for _ in range(cfg.iters):
             Amat, Bmat = linearize(X[:N], U)
-            ks, Ks = backward(X, U, Amat, Bmat)
+            so_flat = second_order(X, U) if cfg.use_second_order else None
+            ks, Ks = backward(X, U, Amat, Bmat, so_flat)
             Xn, Un, cn = forward(X, U, ks, Ks)
             acc = cn < c
             X = torch.where(acc[None, None], Xn, X)
@@ -196,6 +257,6 @@ def make_ilqr(model: RobotModel, cost: EEReachCost, cfg: ILQRConfig,
 
     if expose_parts:
         return solve, {"rollout": rollout, "linearize": linearize,
-                       "backward": backward, "forward": forward,
-                       "total_cost": total_cost}
+                       "second_order": second_order, "backward": backward,
+                       "forward": forward, "total_cost": total_cost}
     return solve

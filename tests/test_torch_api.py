@@ -32,7 +32,7 @@ DTYPES = {"f64": (torch.float64, jnp.float64),
 def grids(request):
     robot, dt = request.param
     tdt, jdt = DTYPES[dt]
-    return dt, GRiD(robot, dtype=tdt), JaxGRiD(robot, dtype=jdt,
+    return dt, GRiD(robot, dtype=tdt, device="cpu"), JaxGRiD(robot, dtype=jdt,
                                                use_pallas=False)
 
 
@@ -96,15 +96,64 @@ def test_grids_hold_the_same_robot(grids):
 
 
 # method -> its arguments for a 7-joint robot
-UNPORTED = {m: (np.zeros(7),) * k for m, k in (
-    ("d2eepos", 1), ("idsva_so", 3), ("fdsva_so", 3))}
-UNPORTED.update({m: (np.zeros(21),) for m in (
-    "idsva_so_packed", "fdsva_so_packed")})
+UNPORTED = {"d2eepos": (np.zeros(7),)}
+
+
+# second-order call -> how to call it on either GRiD
+SO_CALLS = {
+    "idsva_so": lambda g, x: g.idsva_so(x["q"], x["qd"], x["qdd"]),
+    "idsva_so_zero_qdd": lambda g, x: g.idsva_so(x["q"], x["qd"]),
+    "fdsva_so": lambda g, x: g.fdsva_so(x["q"], x["qd"], x["u"]),
+    "idsva_so_packed": lambda g, x: g.idsva_so_packed(
+        _packed(x["q"], x["qd"], x["qdd"])),
+    "fdsva_so_packed": lambda g, x: g.fdsva_so_packed(
+        _packed(x["q"], x["qd"], x["u"])),
+}
+
+
+@pytest.fixture(scope="module")
+def so_grids():
+    return (GRiD("pendulum2", dtype=torch.float64, device="cpu"),
+            JaxGRiD("pendulum2", dtype=jnp.float64, use_pallas=False))
+
+
+@pytest.mark.parametrize("batch", [None, 3], ids=["unbatched", "B3"])
+@pytest.mark.parametrize("call", sorted(SO_CALLS))
+def test_grid_second_order_matches_jax_grid(so_grids, call, batch):
+    """pendulum2, float64: (B, 4, n, n, n) or unbatched (4, n, n, n)."""
+    ours, ref = so_grids
+    rng = np.random.default_rng(12)
+    shape = (ours.n,) if batch is None else (batch, ours.n)
+    x = {k: rng.uniform(-1, 1, shape) for k in ("q", "qd", "qdd", "u")}
+    got, want = SO_CALLS[call](ours, x), np.asarray(SO_CALLS[call](ref, x))
+    assert tuple(got.shape) == want.shape == (
+        () if batch is None else (batch,)) + (4,) + (ours.n,) * 3
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL64)
+
+
+@pytest.mark.parametrize("call", ["idsva_so", "fdsva_so"])
+def test_grid_second_order_iiwa_matches_jax_ops(call):
+    """iiwa, float64, B=3, against the JAX ops the JAX GRiD runs (eagerly:
+    the JAX GRiD jit-compiles the unrolled 7-joint trace for minutes on the
+    CPU)."""
+    from gridcodegenerator_tpu.ops import so as jax_so
+    g = GRiD("iiwa", dtype=torch.float64, device="cpu")
+    ref = JaxGRiD("iiwa", dtype=jnp.float64, use_pallas=False)
+    x = np.random.default_rng(13).uniform(-1, 1, (3, 3, 7))
+    got = getattr(g, call)(*x)
+    if call == "idsva_so":
+        want = jax_so.idsva_so(ref.model, *(jnp.asarray(a.T) for a in x),
+                               form="analytical")
+    else:
+        want = jax_so.fdsva_so(ref.model, *(jnp.asarray(a.T) for a in x))
+    np.testing.assert_allclose(got.numpy(), np.moveaxis(np.asarray(want), -1,
+                                                        0), rtol=0,
+                               atol=ATOL64)
 
 
 @pytest.mark.parametrize("method", sorted(UNPORTED))
 def test_unported_methods_raise(method):
-    g = GRiD("iiwa", dtype=torch.float64)
+    g = GRiD("iiwa", dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP Queue"):
         getattr(g, method)(*UNPORTED[method])
 
@@ -115,19 +164,22 @@ def test_unported_methods_raise(method):
 ], ids=["floating_base", "use_kernels_on_cpu"])
 def test_constructor_refuses(kwargs, error):
     with pytest.raises(error):
-        GRiD("iiwa", **kwargs)
+        GRiD("iiwa", device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("use_kernels", [None, False])
 def test_each_call_runs_one_plain_version_on_cpu(use_kernels):
     """On the CPU both settings run the plain versions, one per call."""
-    g = GRiD("iiwa", dtype=torch.float64, use_kernels=use_kernels)
+    g = GRiD("iiwa", dtype=torch.float64, device="cpu",
+             use_kernels=use_kernels)
     x = np.random.default_rng(0).uniform(-1, 1, (3, 4, 7))
     for method, kernel, nargs in (("id", "rnea", 3), ("id_du", "id_du", 2),
                                   ("aba", "aba", 3), ("fd_du", "fd_du", 3),
                                   ("minv", "minv", 1), ("fd", "fd", 3),
                                   ("crba", "crba", 1), ("eepos", "eepos", 1),
-                                  ("deepos", "deepos", 1)):
+                                  ("deepos", "deepos", 1),
+                                  ("idsva_so", "idsva_so", 3),
+                                  ("fdsva_so", "fdsva_so", 3)):
         build.reset_counters()
         getattr(g, method)(*x[:nargs])
         assert dict(build.PLAIN_CALLS) == {kernel: 1}, method
@@ -139,14 +191,31 @@ def test_robot_sources_agree(tmp_path):
     path = tmp_path / "iiwa.urdf"
     path.write_text(iiwa_urdf())
     q = np.random.default_rng(1).uniform(-1, 1, (3, 7))
-    ref = GRiD("iiwa", dtype=torch.float64).id(q, q, q)
+    ref = GRiD("iiwa", dtype=torch.float64, device="cpu").id(q, q, q)
     for src in (iiwa_urdf(), str(path), load_robot("iiwa"),
                 init_robot("iiwa")):
-        got = GRiD(src, dtype=torch.float64).id(q, q, q)
+        got = GRiD(src, dtype=torch.float64, device="cpu").id(q, q, q)
         torch.testing.assert_close(got, ref, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("shape", [(4, 8), (8,), (2, 3, 7)])
 def test_bad_shapes_raise(shape):
     with pytest.raises(ValueError):
-        GRiD("iiwa").minv(np.zeros(shape))
+        GRiD("iiwa", device="cpu").minv(np.zeros(shape))
+
+
+def test_default_device_is_the_card(monkeypatch):
+    """Without a CUDA device the default raises at construction instead of
+    falling back to the CPU; device="cpu" is the explicit request."""
+    from gridcodegenerator_tpu_torch.models.model import (build_model,
+                                                           model_from_numpy)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    topo = load_robot("pendulum2")
+    cpu = build_model(topo, device="cpu")
+    arrays = {f: getattr(cpu, f).numpy() for f in ARRAY_FIELDS}
+    static = {f: getattr(cpu, f) for f in STATIC_FIELDS}
+    for make in (lambda: GRiD("pendulum2"), lambda: build_model(topo),
+                 lambda: model_from_numpy(arrays, static)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    assert GRiD("pendulum2", device="cpu").device.type == "cpu"

@@ -29,14 +29,15 @@ HYQ_TARGETS = ["lf_foot_fixed", "rh_foot_fixed"]
 def grids(request):
     robot, dt = request.param
     tdt, jdt = DTYPES[dt]
-    return dt, GRiD(robot, dtype=tdt), JaxGRiD(robot, dtype=jdt,
+    return dt, GRiD(robot, dtype=tdt, device="cpu"), JaxGRiD(robot, dtype=jdt,
                                                use_pallas=False)
 
 
 @pytest.fixture(scope="module")
 def hyq_grids():
     """A branched robot with two of its four feet as EE targets."""
-    return ("f64", GRiD("hyq", dtype=torch.float64, ee_targets=HYQ_TARGETS),
+    return ("f64", GRiD("hyq", dtype=torch.float64, device="cpu",
+                ee_targets=HYQ_TARGETS),
             JaxGRiD("hyq", dtype=jnp.float64, use_pallas=False,
                     ee_targets=HYQ_TARGETS))
 
@@ -79,8 +80,9 @@ def test_hyq_grid_with_ee_targets_matches_jax_grid(hyq_grids, call, batch):
 
 
 def test_grid_ee_targets():
-    g = GRiD("hyq", dtype=torch.float64, ee_targets=HYQ_TARGETS)
+    g = GRiD("hyq", dtype=torch.float64, device="cpu",
+                ee_targets=HYQ_TARGETS)
     assert g.ee_targets == tuple(HYQ_TARGETS) and g.num_ees == 2
-    assert GRiD("hyq").num_ees == 4 and GRiD("hyq").ee_targets is None
+    assert GRiD("hyq", device="cpu").num_ees == 4 and GRiD("hyq", device="cpu").ee_targets is None
     with pytest.raises(ValueError):
-        GRiD("hyq", ee_targets=["lf_foot_fixed", "no_such_frame"])
+        GRiD("hyq", device="cpu", ee_targets=["lf_foot_fixed", "no_such_frame"])

@@ -39,7 +39,8 @@ B = 6
 def pair(request):
     jm = jax_build_model(jax_load_robot(request.param), dtype=jnp.float64)
     tm = model_from_numpy({f: np.asarray(getattr(jm, f)) for f in ARRAY_FIELDS},
-                          {f: getattr(jm, f) for f in STATIC_FIELDS})
+                          {f: getattr(jm, f) for f in STATIC_FIELDS},
+                          device="cpu")
     rng = np.random.default_rng(7)
     q, qd, u, qdd = (rng.uniform(-1, 1, (jm.n, B)) for _ in range(4))
     return jm, tm, dict(q=q, qd=qd, u=u, qdd=qdd)

@@ -36,7 +36,8 @@ N, B, ITERS = 8, 4, 2
 def problem():
     jm = jax_build_model(jax_load_robot("iiwa"), dtype=jnp.float64)
     tm = model_from_numpy({f: np.asarray(getattr(jm, f)) for f in ARRAY_FIELDS},
-                          {f: getattr(jm, f) for f in STATIC_FIELDS})
+                          {f: getattr(jm, f) for f in STATIC_FIELDS},
+                          device="cpu")
     n = jm.n
     goal = jax_eepose.eepos(jm, jnp.full((n, 1), 0.5, jnp.float64))[:3, 0]
     jcost = JaxEEReachCost(model=jm, goal_xyz=goal, w_pos=0.5, w_pos_f=200.0)
@@ -107,11 +108,11 @@ def test_left_out_options_raise(problem, flag):
 
 
 def test_control_bounds_are_per_dof_effort_limits():
-    m = build_model(load_robot("iiwa"), dtype=torch.float32)
+    m = build_model(load_robot("iiwa"), dtype=torch.float32, device="cpu")
     lo, hi = resolve_control_bounds(m, ILQRConfig())
     assert lo.shape == (7, 1) and hi.shape == (7, 1)
     assert torch.equal(hi, torch.full((7, 1), 300.0)) and torch.equal(lo, -hi)
     lo, hi = resolve_control_bounds(m, ILQRConfig(u_min=-2.0, u_max=3.0))
     assert torch.equal(lo, torch.full((7, 1), -2.0))
-    p = build_model(load_robot("pendulum2"), dtype=torch.float32)
+    p = build_model(load_robot("pendulum2"), dtype=torch.float32, device="cpu")
     assert resolve_control_bounds(p, ILQRConfig()) == (None, None)

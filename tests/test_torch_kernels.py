@@ -32,9 +32,11 @@ from gridcodegenerator_tpu_torch.ops import eepose
 from gridcodegenerator_tpu_torch.ops.cuda import build
 from gridcodegenerator_tpu_torch.ops.cuda import kernels as K
 from gridcodegenerator_tpu_torch.ops.cuda import sweeps as S
-from gridcodegenerator_tpu_torch.trajopt.cost import EEReachCost
+from gridcodegenerator_tpu_torch.trajopt.cost import EEReachCost, QuadCost
 from gridcodegenerator_tpu_torch.trajopt.ilqr import (ILQRConfig, make_ilqr,
                                                       resolve_control_bounds)
+from gridcodegenerator_tpu_torch.trajopt.sqp import SQPConfig, make_sqp
+from gridcodegenerator_tpu_torch.utils import opcount
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -42,14 +44,18 @@ TOL = 1e-9
 # kernel cases: each kernel, plus the bias form of rnea and the upper factor
 # of minv, which launch the rnea and minv kernels
 KERNELS = ("fd_du", "rollout", "riccati_factored", "linesearch_rollout",
-           "rnea", "rnea_bias", "id_du", "aba", "minv", "minv_upper")
+           "rnea", "rnea_bias", "id_du", "aba", "minv", "minv_upper",
+           "idsva_so", "fdsva_so", "riccati", "riccati_stacked",
+           "linesearch_quad")
 # the GRiD API's kernel cases; the _targets cases run the EE kernels on
 # some of the robot's EEs (GRiD(ee_targets=...))
 GRID_CASES = ("rnea", "rnea_bias", "id_du", "aba", "minv", "minv_upper",
               "fd_du", "fd", "crba", "eepos", "eepos_targets", "deepos",
               "deepos_targets")
 KERNEL_OF = {"rnea_bias": "rnea", "minv_upper": "minv",
-             "eepos_targets": "eepos", "deepos_targets": "deepos"}
+             "eepos_targets": "eepos", "deepos_targets": "deepos",
+             "riccati_stacked": "riccati",
+             "linesearch_quad": "linesearch_rollout"}
 # EE targets per robot (pendulum2 has no fixed frames to name); gym_ant's
 # EEs are welded to the base, so their chains are empty
 TARGETS = {"pendulum2": None, "iiwa": ["ee_fixed"],
@@ -87,6 +93,24 @@ def path_inputs(model, N, B, seed):
     al = torch.as_tensor(rng.uniform(0.05, 1.0, (4, B)), dtype=model.dtype,
                          device=dev)
     q, qd, u = fold(X[:N, :n]), fold(X[:N, n:]), fold(U)
+    # dense Riccati curvature: symmetric lxx, well-conditioned SPD luu, any
+    # lux, per knot (stacked) and one block (stationary)
+    nx = 2 * n
+
+    def rand(*shape):
+        return torch.as_tensor(rng.uniform(-1, 1, shape), dtype=model.dtype,
+                               device=dev)
+    Mx, Mu = rand(N, nx, nx, B), rand(N, n, n, B)
+    lxx = torch.einsum("tikb,tjkb->tijb", Mx, Mx) / nx
+    luu = (torch.einsum("tikb,tjkb->tijb", Mu, Mu) / n
+           + torch.eye(n, dtype=model.dtype, device=dev)[:, :, None])
+    lux = 0.1 * rand(N, n, nx, B)
+    dense = (A, Bm, rand(N, nx, B), rand(N, n, B))
+    tail = (Vx0.contiguous(), Vxx0.contiguous(), cfg.reg)
+    quad = QuadCost(Q=torch.as_tensor(rng.uniform(0.05, 1, nx)),
+                    R=torch.as_tensor(rng.uniform(1e-3, 1e-2, n)),
+                    Qf=torch.as_tensor(rng.uniform(10, 100, nx)),
+                    x_goal=torch.as_tensor(rng.uniform(-0.5, 0.5, nx)))
     return {
         "fd_du": (model, q, qd, u, -9.81),
         "rnea": (model, q, qd, u, -9.81),   # u as qdd
@@ -100,6 +124,14 @@ def path_inputs(model, N, B, seed):
         "linesearch_rollout": (model, X[0].contiguous(), U,
                                X[:N].contiguous(), ks, Ks, al, 0.01, -9.81,
                                lo, hi, cost),
+        "linesearch_quad": (model, X[0].contiguous(), U, X[:N].contiguous(),
+                            ks, Ks, al, 0.01, -9.81, lo, hi, quad),
+        "idsva_so": (model, q, qd, u, -9.81),   # u as qdd
+        "fdsva_so": (model, q, qd, u, -9.81),
+        "riccati": dense + (lxx[0].contiguous(), luu[0].contiguous(),
+                            lux[0].contiguous()) + tail,
+        "riccati_stacked": dense + tuple(c.contiguous()
+                                         for c in (lxx, luu, lux)) + tail,
     }
 
 
@@ -147,7 +179,13 @@ WRAPPERS = {"fd_du": (K.fd_du, K.fd_du_plain),
             "eepos": (K.eepos, K.eepos_plain),
             "eepos_targets": (K.eepos, K.eepos_plain),
             "deepos": (K.deepos, K.deepos_plain),
-            "deepos_targets": (K.deepos, K.deepos_plain)}
+            "deepos_targets": (K.deepos, K.deepos_plain),
+            "idsva_so": (K.idsva_so, K.idsva_so_plain),
+            "fdsva_so": (K.fdsva_so, K.fdsva_so_plain),
+            "riccati": (S.riccati, S.riccati_plain),
+            "riccati_stacked": (S.riccati, S.riccati_plain),
+            "linesearch_quad": (S.linesearch_rollout,
+                                S.linesearch_rollout_plain)}
 
 
 def _outs(o):
@@ -179,7 +217,7 @@ def test_port_imports_no_jax():
 
 @pytest.mark.parametrize("name", KERNELS)
 def test_cpu_tensors_take_the_plain_version(name):
-    m = build_model(load_robot("pendulum2"), dtype=torch.float64)
+    m = build_model(load_robot("pendulum2"), dtype=torch.float64, device="cpu")
     args = path_inputs(m, 4, 3, seed=0)[name]
     build.reset_counters()
     wrapper, plain = WRAPPERS[name]
@@ -192,7 +230,7 @@ def test_cpu_tensors_take_the_plain_version(name):
 
 @pytest.mark.parametrize("case", GRID_CASES)
 def test_cpu_tensors_take_the_plain_version_grid(case):
-    m = build_model(load_robot("hyq"), dtype=torch.float64)
+    m = build_model(load_robot("hyq"), dtype=torch.float64, device="cpu")
     args = grid_inputs(m, "hyq", 3, seed=0)[case]
     build.reset_counters()
     wrapper, plain = WRAPPERS[case]
@@ -205,15 +243,15 @@ def test_cpu_tensors_take_the_plain_version_grid(case):
 
 def test_kernel_key_refuses_what_the_build_does_not_cover():
     x = torch.zeros(3, dtype=torch.float64)
-    fl = build_model(load_robot("iiwa_floating"), dtype=torch.float64)
+    fl = build_model(load_robot("iiwa_floating"), dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError):
         build.kernel_key(fl, x, "t")
-    hum = build_model(load_robot("gym_humanoid"), dtype=torch.float64)
+    hum = build_model(load_robot("gym_humanoid"), dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError):   # 17 joints: not instantiated
         build.kernel_key(hum, x, "t")
-    hyq = build_model(load_robot("hyq"), dtype=torch.float64)
+    hyq = build_model(load_robot("hyq"), dtype=torch.float64, device="cpu")
     assert build.kernel_key(hyq, x, "t") == (1, 12)
-    iiwa = build_model(load_robot("iiwa"), dtype=torch.float64)
+    iiwa = build_model(load_robot("iiwa"), dtype=torch.float64, device="cpu")
     assert build.kernel_key(iiwa, x, "t") == (1, 7)
     with pytest.raises(ValueError):   # model and inputs disagree on dtype
         build.kernel_key(iiwa, x.float(), "t")
@@ -222,7 +260,7 @@ def test_kernel_key_refuses_what_the_build_does_not_cover():
 
 
 def test_model_buffer_layout():
-    m = build_model(load_robot("iiwa"), dtype=torch.float64)
+    m = build_model(load_robot("iiwa"), dtype=torch.float64, device="cpu")
     buf = build.model_buffer(m)
     n = m.n
     assert buf.numel() == 36 * n * 2 + n + 16 * n + 16 + 4 * n + n * n
@@ -234,7 +272,7 @@ def test_model_buffer_layout():
 
 
 def test_ee_buffer_layout():
-    m = build_model(load_robot("hyq"), dtype=torch.float64)
+    m = build_model(load_robot("hyq"), dtype=torch.float64, device="cpu")
     buf = build.ee_buffer(m)
     assert buf.shape == (4, 16 + m.n)
     for row, (chain, fid) in zip(buf, eepose.ee_chains(m)):
@@ -245,10 +283,10 @@ def test_ee_buffer_layout():
     torch.testing.assert_close(sub, buf[[0, 3]], rtol=0, atol=0)
     assert build.ee_buffer(m) is buf
     assert build.ee_buffer(m, TARGETS["hyq"]) is sub
-    pend = build_model(load_robot("pendulum2"), dtype=torch.float64)
+    pend = build_model(load_robot("pendulum2"), dtype=torch.float64, device="cpu")
     np.testing.assert_array_equal(build.ee_buffer(pend).numpy(),
                                   [[*np.eye(4).ravel(), 1.0, 1.0]])
-    ant = build_model(load_robot("gym_ant"), dtype=torch.float64)
+    ant = build_model(load_robot("gym_ant"), dtype=torch.float64, device="cpu")
     assert not build.ee_buffer(ant)[:, 16:].any()   # welded to the base
 
 
@@ -269,6 +307,8 @@ HARNESS = r"""
 #include "crba.cu"
 #include "eepos.cu"
 #include "deepos.cu"
+#include "idsva_so.cu"
+#include "fdsva_so.cu"
 using namespace gt;
 typedef long long ll;
 
@@ -384,14 +424,52 @@ extern "C" void rollout_##NJ(const double* m, const double* x0,            \
 extern "C" void ls_##NJ(const double* m, const double* x0,                 \
     const double* Ur, const double* Xr, const double* k, const double* K,   \
     const double* al, const double* lo, const double* hi, double* X,        \
-    double* U, double* c, int N, ll B, int na, const double* w) {           \
+    double* U, double* c, int N, ll B, int na, int kind, const double* w) { \
   Robot<double, NJ> R(m);                                                   \
-  EECost e;                                                                 \
-  for (int i = 0; i < 3; ++i) e.goal[i] = w[i];                             \
-  e.w_pos = w[3]; e.w_pos_f = w[4]; e.w_vel = w[5]; e.w_u = w[6];           \
-  for (ll l = 0; l < (ll)na * B; ++l)                                       \
-    linesearch_lane<double, NJ>(R, x0, Ur, Xr, k, K, al, lo, hi, X, U, c,   \
-                                N, B, na, l, 0.01, -9.81, e);               \
+  const EECost<double, NJ> e{w};                                            \
+  const QuadCostK<double, NJ> qc{w};                                        \
+  for (ll l = 0; l < (ll)na * B; ++l) {                                     \
+    if (kind == 0)                                                          \
+      linesearch_lane<double, NJ>(R, x0, Ur, Xr, k, K, al, lo, hi, X, U, c, \
+                                  N, B, na, l, 0.01, -9.81, e);             \
+    else                                                                    \
+      linesearch_lane<double, NJ>(R, x0, Ur, Xr, k, K, al, lo, hi, X, U, c, \
+                                  N, B, na, l, 0.01, -9.81, qc);            \
+  }                                                                         \
+}                                                                           \
+extern "C" void ricd_##NJ(const double* A, const double* Bm,               \
+    const double* lx, const double* lu, const double* lxx,                  \
+    const double* luu, const double* lux, int stationary,                   \
+    const double* Vx0, const double* Vxx0, double* ks, double* Ks, int N,   \
+    ll B, double reg) {                                                     \
+  for (ll b = 0; b < B; ++b)                                                \
+    riccati_dense_lane<double, NJ>(A, Bm, lx, lu, lxx, luu, lux,            \
+                                   stationary != 0, Vx0, Vxx0, ks, Ks, N,   \
+                                   B, b, reg);                              \
+}                                                                           \
+extern "C" void idsva_so_##NJ(const double* m, const double* q,             \
+    const double* qd, const double* qdd, double* out, ll L) {               \
+  Robot<double, NJ> R(m);                                                   \
+  for (ll l = 0; l < L; ++l) {                                              \
+    double ql[NJ], qdl[NJ], xl[NJ];                                         \
+    lane_load<double, NJ>(q, L, l, ql);                                     \
+    lane_load<double, NJ>(qd, L, l, qdl);                                   \
+    lane_load<double, NJ>(qdd, L, l, xl);                                   \
+    idsva_so_lane<double, NJ>(R, ql, qdl, xl, -9.81, out + l, L);           \
+  }                                                                         \
+}                                                                           \
+extern "C" void fdsva_so_##NJ(const double* m, const double* q,             \
+    const double* qd, const double* u, double* out, double* scratch,        \
+    ll L) {                                                                 \
+  Robot<double, NJ> R(m);                                                   \
+  for (ll l = 0; l < L; ++l) {                                              \
+    double ql[NJ], qdl[NJ], xl[NJ];                                         \
+    lane_load<double, NJ>(q, L, l, ql);                                     \
+    lane_load<double, NJ>(qd, L, l, qdl);                                   \
+    lane_load<double, NJ>(u, L, l, xl);                                     \
+    fdsva_so_lane<double, NJ>(R, ql, qdl, xl, -9.81, out + l, scratch + l,  \
+                              L);                                           \
+  }                                                                         \
 }                                                                           \
 extern "C" void ric_##NJ(const double* A, const double* Bm,                \
     const double* lx, const double* lu, const double* Jw,                   \
@@ -487,6 +565,27 @@ def _host_run(lib, name, args):
         getattr(lib, f"rollout_{n}")(_p(build.model_buffer(m)), _p(x0), _p(U),
                                      _p(lo), _p(hi), _p(X), N, ll(B))
         return (X,)
+    if name in ("idsva_so", "fdsva_so"):
+        m, q, qd, x, _ = args
+        n, L = q.shape
+        # NaN where the card would hand over uninitialised memory: every
+        # entry the lane does not write shows
+        out = torch.full((4, n, n, n, L), float("nan"), dtype=q.dtype)
+        scratch = torch.full_like(out, float("nan"))
+        extra = (_p(scratch),) if name == "fdsva_so" else ()
+        getattr(lib, f"{name}_{n}")(_p(build.model_buffer(m)), _p(q), _p(qd),
+                                    _p(x), _p(out), *extra, ll(L))
+        return (out,)
+    if name in ("riccati", "riccati_stacked"):
+        A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg = args
+        N, nx, n, B = Bm.shape
+        ks = torch.empty(N, n, B, dtype=A.dtype)
+        Ks = torch.empty(N, n, nx, B, dtype=A.dtype)
+        getattr(lib, f"ricd_{n}")(*map(_p, (A, Bm, lx, lu, lxx, luu, lux)),
+                                  ctypes.c_int(int(lxx.ndim == 3)),
+                                  *map(_p, (Vx0, Vxx0, ks, Ks)), N, ll(B),
+                                  D(reg))
+        return ks, Ks
     if name == "riccati_factored":
         A, Bm, lx, lu, Jw, Vx0, Vxx0, reg, qd, ud = args
         N, nx, n, B = Bm.shape
@@ -503,18 +602,17 @@ def _host_run(lib, name, args):
     U = torch.empty(N, n, na * B, dtype=x0.dtype)
     c = torch.empty(na * B, dtype=x0.dtype)
     w = cost.kernel_weights
-    wv = torch.tensor(w["goal"] + [w["w_pos"], w["w_pos_f"], w["w_vel"],
-                                   w["w_u"]], dtype=torch.float64)
+    wv = torch.tensor(w["values"], dtype=torch.float64)
     getattr(lib, f"ls_{n}")(_p(build.model_buffer(m, w["ee_index"])),
                             *map(_p, (x0, Ur, Xr, k, Km, al, lo, hi, X, U, c)),
-                            N, ll(B), na, _p(wv))
+                            N, ll(B), na, S.COST_KINDS[w["kind"]], _p(wv))
     return X, U, c
 
 
 @pytest.mark.parametrize("robot", ["pendulum2", "iiwa", "hyq"])
 @pytest.mark.parametrize("name", KERNELS)
 def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
-    m = build_model(load_robot(robot), dtype=torch.float64)
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
     assert getattr(host_lib, f"size_{m.n}")() == build.model_buffer(m).numel()
     args = path_inputs(m, 6, 5, seed=2)[name]
     got = _host_run(host_lib, name, args)
@@ -531,7 +629,7 @@ def test_host_build_of_grid_kernel_matches_plain(host_lib, case, robot):
     """Every GRiD kernel's lane code on chains (pendulum2, iiwa), a branched
     robot with 12 joints and 4 EEs (hyq), and EEs with empty chains
     (gym_ant, 8 joints)."""
-    m = build_model(load_robot(robot), dtype=torch.float64)
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
     assert getattr(host_lib, f"size_{m.n}")() == build.model_buffer(m).numel()
     args = grid_inputs(m, robot, 9, seed=6)[case]
     got = _host_run(host_lib, case, args)
@@ -539,6 +637,65 @@ def test_host_build_of_grid_kernel_matches_plain(host_lib, case, robot):
     assert len(got) == len(want)
     assert all(g.shape == w.shape for g, w in zip(got, want))
     assert _max_err(got, want) <= TOL
+
+
+@pytest.fixture(scope="module")
+def counts():
+    if shutil.which("g++") is None and shutil.which("c++") is None:
+        pytest.skip("no host C++ compiler")
+    m = build_model(load_robot("iiwa"), dtype=torch.float64, device="cpu")
+    quad = path_inputs(m, 2, 1, seed=0)["linesearch_quad"][-1]
+    return m, quad
+
+
+@pytest.mark.parametrize("kernel", opcount.KERNELS)
+def test_operation_counts(counts, kernel):
+    """Every kernel's lane does work; the sweeps' work grows by the same
+    amount with every knot; the bound takes the slower of its two limits."""
+    m, quad = counts
+    kw = dict(cost=quad) if kernel == "linesearch_rollout" else {}
+    if kernel in ("rollout", "linesearch_rollout", "riccati_factored",
+                  "riccati"):
+        c4, c8, c12 = (opcount.ops_per_lane(kernel, m, N=N, **kw)
+                       for N in (4, 8, 12))
+        assert 0 < c4 < c8 < c12 and c12 - c8 == c8 - c4
+        kw["N"] = 8
+    else:
+        assert opcount.ops_per_lane(kernel, m) > 0
+    # the function's arithmetic is at most what the lane code executes
+    assert (0 < opcount.ops_per_lane(kernel, m, **kw)
+            <= opcount.ops_per_lane(kernel, m, executed=True, **kw))
+    ms, by = opcount.bound_ms(67e9, 1.0, torch.float32)
+    assert by == "operations" and abs(ms - 1.0) < 1e-12
+    assert opcount.bound_ms(1.0, 3.35e9, torch.float32) == (1.0, "bytes")
+
+
+@pytest.mark.parametrize("executed", [False, True])
+@pytest.mark.parametrize("robot", ["iiwa", "hyq"])
+@pytest.mark.parametrize("kernel", ["idsva_so", "fdsva_so"])
+def test_counted_second_order_lanes_compute_the_function(counts, kernel,
+                                                         robot, executed):
+    """The counted second-order lanes (the kernel's own, and the reference
+    algorithm's with D1-D4 stored and constants folded) compute what the
+    plain version does."""
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    q, qd, x = np.random.default_rng(7).uniform(-1, 1, (3, m.n))
+    want = getattr(K, kernel + "_plain")(
+        m, *(torch.as_tensor(v)[:, None] for v in (q, qd, x)), -9.81)
+    got = opcount.so_lane_values(kernel, m, q, qd, x, executed=executed)
+    want = want[..., 0].numpy()
+    assert np.abs(got - want).max() <= TOL * max(1.0, np.abs(want).max())
+
+
+def test_operation_counts_follow_the_work(counts):
+    m, quad = counts
+    ops = lambda k, **kw: opcount.ops_per_lane(k, m, **kw)
+    assert ops("fdsva_so") > ops("idsva_so")
+    assert ops("fd_du") > ops("fd") > ops("minv")
+    assert ops("riccati", N=8, stationary=False) == ops("riccati", N=8)
+    ee = EEReachCost(model=m, goal_xyz=torch.zeros(3, dtype=torch.float64))
+    assert (ops("linesearch_rollout", N=8, cost=ee)
+            > ops("linesearch_rollout", N=8, cost=quad))
 
 
 # ---------------------------------------------------------------------------
@@ -622,7 +779,8 @@ def test_cuda_grid_launches_one_kernel_per_call(cuda_device):
     calls = {"id": ("rnea", 3), "id_du": ("id_du", 3), "aba": ("aba", 3),
              "fd_du": ("fd_du", 3), "minv": ("minv", 1), "fd": ("fd", 3),
              "crba": ("crba", 1), "eepos": ("eepos", 1),
-             "deepos": ("deepos", 1)}
+             "deepos": ("deepos", 1), "idsva_so": ("idsva_so", 3),
+             "fdsva_so": ("fdsva_so", 3)}
     for shape in ((7,), (37, 7)):
         x = [rng.uniform(-1, 1, shape) for _ in range(3)]
         for method, (kernel, nargs) in calls.items():
@@ -638,3 +796,39 @@ def test_cuda_grid_launches_one_kernel_per_call(cuda_device):
     with pytest.raises(NotImplementedError):   # 17 joints: no instance
         GRiD("gym_humanoid", device=cuda_device).id(np.zeros(17),
                                                      np.zeros(17))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["iiwa", "hyq"])
+def test_cuda_sqp_and_quad_ilqr_launch_every_kernel(cuda_device, robot):
+    """SQP (config 4's path) and first-order QuadCost iLQR on the card
+    launch their kernels, run no plain version, and match plain solves:
+    iLQR within 1e-8; SQP within 1e-6 of the cost scale, since its
+    exact-Hessian sweep amplifies rounding (on the CPU, scaling the plain
+    second-order tensors by 1 + 1e-12 moves hyq's cost trace here by
+    2.4e-8 of its scale)."""
+    m = build_model(load_robot(robot), dtype=torch.float64,
+                    device=cuda_device)
+    n = m.n
+    xg = torch.zeros(2 * n, dtype=torch.float64, device=cuda_device)
+    xg[0] = 0.5
+    full = lambda v, k: torch.full((k,), v, dtype=torch.float64,
+                                   device=cuda_device)
+    cost = QuadCost(Q=full(0.1, 2 * n), R=full(1e-3, n),
+                    Qf=full(100.0, 2 * n), x_goal=xg)
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.2, 0.2,
+                                                          (2 * n, 33)),
+                         device=cuda_device)
+    U0 = torch.zeros((6, n, 33), dtype=torch.float64, device=cuda_device)
+    for make, cfg, second in ((make_sqp, SQPConfig, "fdsva_so"),
+                              (make_ilqr, ILQRConfig, "riccati")):
+        build.reset_counters()
+        res = make(m, cost, cfg(N=6, iters=2, use_kernels=True))(x0, U0)
+        torch.cuda.synchronize()
+        assert dict(build.LAUNCHES) == {"rollout": 1, "fd_du": 2, second: 2,
+                                        "linesearch_rollout": 2}
+        assert not build.PLAIN_CALLS
+        ref = make(m, cost, cfg(N=6, iters=2, use_kernels=False))(x0, U0)
+        tol = (1e-6 * float(ref.cost_trace.abs().max())
+               if make is make_sqp else 1e-8)
+        assert float((res.cost_trace - ref.cost_trace).abs().max()) <= tol

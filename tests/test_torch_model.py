@@ -35,7 +35,7 @@ def _jax_leaves(jm):
 @pytest.mark.parametrize("name", ROBOTS)
 def test_build_model_matches_jax(name):
     jm = jax_build_model(jax_load_robot(name), dtype=jnp.float64)
-    tm = build_model(load_robot(name), dtype=torch.float64)
+    tm = build_model(load_robot(name), dtype=torch.float64, device="cpu")
     arrays, static = _jax_leaves(jm)
     for f in ARRAY_FIELDS:
         np.testing.assert_array_equal(getattr(tm, f).numpy(), arrays[f],
@@ -48,11 +48,12 @@ def test_build_model_matches_jax(name):
 def test_model_from_numpy_carries_jax_constants(name):
     jm = jax_build_model(jax_load_robot(name), dtype=jnp.float64)
     arrays, static = _jax_leaves(jm)
-    tm = model_from_numpy(arrays, static)
+    tm = model_from_numpy(arrays, static, device="cpu")
     assert tm.dtype == torch.float64 and tm.device.type == "cpu"
     for f in ARRAY_FIELDS:
         np.testing.assert_array_equal(getattr(tm, f).numpy(), arrays[f])
-    t32 = model_from_numpy(arrays, static, dtype=torch.float32)
+    t32 = model_from_numpy(arrays, static, dtype=torch.float32,
+                           device="cpu")
     assert all(getattr(t32, f).dtype == torch.float32 for f in ARRAY_FIELDS)
     back = t32.to(dtype=torch.float64)
     np.testing.assert_array_equal(back.Imat.numpy(),
@@ -65,7 +66,7 @@ def test_zoo_lists_the_same_robots():
 
 
 def test_floating_base_raises():
-    m = build_model(load_robot("iiwa_floating"), dtype=torch.float64)
+    m = build_model(load_robot("iiwa_floating"), dtype=torch.float64, device="cpu")
     assert m.floating_base
     q = torch.zeros((m.num_pos, 2), dtype=torch.float64)
     with pytest.raises(NotImplementedError):

@@ -53,7 +53,8 @@ EE_ROBOTS = DYNAMICS_ROBOTS + ("gym_ant",)
 def pair(robot):
     jm = jax_build_model(jax_load_robot(robot), dtype=jnp.float64)
     tm = model_from_numpy({f: np.asarray(getattr(jm, f)) for f in ARRAY_FIELDS},
-                          {f: getattr(jm, f) for f in STATIC_FIELDS})
+                          {f: getattr(jm, f) for f in STATIC_FIELDS},
+                          device="cpu")
     return jm, tm
 
 

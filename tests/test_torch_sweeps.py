@@ -32,7 +32,8 @@ GRAV, DT = -9.81, 0.01
 def iiwa():
     jm = jax_build_model(jax_load_robot("iiwa"), dtype=jnp.float64)
     tm = model_from_numpy({f: np.asarray(getattr(jm, f)) for f in ARRAY_FIELDS},
-                          {f: getattr(jm, f) for f in STATIC_FIELDS})
+                          {f: getattr(jm, f) for f in STATIC_FIELDS},
+                          device="cpu")
     return jm, tm
 
 
