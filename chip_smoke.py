@@ -1,5 +1,5 @@
 """On-card smoke test of the PyTorch/CUDA port: configs 3, 1, 2 and 4 end to
-end, and the rest of the GRiD API.
+end, the rest of the GRiD API, and the per-robot generated modules.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -7,63 +7,98 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
 Phases, one line each:
   0. device: fail without CUDA; print the card's name and power limit;
-  1. build: compile the CUDA kernels from gridcodegenerator_tpu_torch/csrc
-     (and the host operation counter, utils/opcount.py);
+  1. build: compile the CUDA kernels from gridcodegenerator_tpu_torch/csrc,
+     one library per joint count, every nvcc at once (and the host
+     operation counter, utils/opcount.py);
   2. each kernel against its plain PyTorch version on the same CUDA inputs,
      iiwa at small B and N (37 lanes: a ragged block), float64: max abs
      error <= 1e-9; and every GRiD kernel case on hyq (12 joints, branched,
      4 EEs); idsva_so, fdsva_so (iiwa, hyq), riccati with and without a
      stationary curvature and the line search with QuadCost (iiwa) within
-     1e-9 * max(1, max|ref|);
+     1e-9 * max(1, max|ref|); so are d2eepos on iiwa, hyq, gym_ant (its
+     welded EEs, and its four feet) and dm_quadruped, and every GRiD kernel
+     case on gym_ant (8 joints, EEs at the feet) and dm_quadruped (16
+     joints, branched);
   3. the same in float32 (tolerances below), with each kernel's and plain
-     version's device time from CUDA events: the config-3 kernels at
-     config-3 shapes, the GRiD kernels (rnea, id_du, aba, minv, fd, crba,
-     eepos, deepos) at 1024 and 131072 lanes, riccati (stationary) at the
-     config-3 QuadCost shapes, idsva_so and fdsva_so at 1024 lanes and at
-     config 4's N*B lanes (iiwa 32768, hyq 16384);
+     version's device time from CUDA events: the config-3 kernels and the
+     feedback rollout at config-3 shapes, the GRiD kernels (rnea, id_du,
+     aba, minv, fd, crba, eepos, deepos) at 1024 and 131072 lanes, riccati
+     (stationary) at the config-3 QuadCost shapes, idsva_so and fdsva_so at
+     1024 lanes and at config 4's N*B lanes (iiwa 32768, hyq 16384),
+     d2eepos at 1024 lanes and at L_HESS lanes (iiwa, hyq, dm_quadruped);
+     and, in float64, the feedback rollout against the line search's
+     alpha = 1 row on the same inputs (the two share their control law and
+     step) within 1e-9 * max(1, max|ref|);
   4. config 3 (iiwa, N=64, 5 iterations, B=2048, float32, EE reach) through
      the port's make_ilqr with kernels: every kernel of the path launched,
      nothing plain ran, costs finite and decreasing, final costs agree with
-     a plain solve of the same inputs; solves/s over 10 solves;
+     a plain solve of the same inputs; solves/s over 10 solves; then the
+     solved policy run as a tracking controller through feedback_rollout
+     (feedforward 0, the final gains): from x0 it retraces the solve, from
+     a perturbed x0 it stays finite;
   5. configs 1 and 2 (iiwa, float32) through the port's GRiD: id and id_du
      unbatched and at B=1024, aba, fd_du and minv at B=1024; then fd, crba,
-     eepos and deepos unbatched and at B=1024, and hyq's eepos at B=1024;
-     then idsva_so and fdsva_so unbatched and at B=1024 (iiwa) and B=512
-     (hyq); each call launched exactly its kernel and nothing plain ran;
-     outputs agree with a float64 plain GRiD on the same inputs; fk (plain
-     torch, no kernel) agrees too; µs per call and evals/s;
+     eepos, deepos and d2eepos unbatched and at B=1024, and hyq's eepos at
+     B=1024; then idsva_so, fdsva_so and d2eepos unbatched and at B=1024
+     (iiwa) and B=512 (hyq); each call launched exactly its kernel and
+     nothing plain ran; outputs agree with a float64 plain GRiD on the same
+     inputs; fk (plain torch, no kernel) agrees too; µs per call and
+     evals/s;
   6. config 4 (SQP with exact second-order Hessians, QuadCost, N=32, 4
-     iterations, float32) on iiwa (B=1024) and hyq (B=512) through
-     make_sqp: rollout, fd_du, fdsva_so and the line search launched every
-     iteration, nothing plain ran (the DDP backward is plain torch by
-     design, not a kernel's plain twin); costs finite and non-increasing;
-     on the first 64 problems, final costs against a float64 plain solve
-     and a float64 kernel solve against it (after iteration 1 for SQP, at
-     the end for the QuadCost task);
+     iterations, float32) on iiwa (B=1024), hyq, gym_ant and dm_quadruped
+     (B=512) through make_sqp: rollout, fd_du, fdsva_so and the line search
+     launched every iteration, nothing plain ran (the DDP backward is plain
+     torch by design, not a kernel's plain twin); costs finite and
+     non-increasing; on the first 64 problems, final costs against a
+     float64 plain solve and a float64 kernel solve against it (after
+     iteration 1 for SQP, at the end for the QuadCost task);
      solves/s and the time of each phase; then config 3's QuadCost task
      (first-order iLQR, iiwa, N=64, 5 iterations, B=2048) through the
-     riccati kernel, likewise.
+     riccati kernel, likewise;
+  7. codegen: gen_all_code's module for iiwa and for hyq, written to a
+     temporary directory and imported: nothing of JAX loaded, each of its
+     12 algorithms at B=1024 launched exactly its kernel and agrees with
+     the port's GRiD; then its single_timing_table.
 Then a JSON line of per-kernel results (launches on the main paths of
-phases 4-6, error, times, and the roofline bound: the larger of the bytes
+phases 4-7, error, times, and the roofline bound: the larger of the bytes
 each call must move over 3.35 TB/s and the operations its function needs,
 counted by utils/opcount.py, over 67 TFLOP/s float32; beside them the
 operations the kernel's lane code executes), and last the device line.
 Any failure raises, so the exit code is non-zero and no result is printed.
 """
 
+import copy
 import dataclasses
+import importlib.util
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 N, ITERS, B, DT = 64, 5, 2048, 0.01
-N4, ITERS4, B4 = 32, 4, {"iiwa": 1024, "hyq": 512}   # config 4 (bench.py)
+# config 4 (bench.py:212-213)
+N4, ITERS4 = 32, 4
+B4 = {"iiwa": 1024, "hyq": 512, "gym_ant": 512, "dm_quadruped": 512}
+# dm_quadruped's joint damping (30) on its light links makes the
+# semi-implicit Euler step diverge at bench.py's dt = 0.01, in the JAX
+# reference too (every problem's rollout non-finite by knot 32:
+# tests/test_torch_sweeps.py::test_dm_quadruped_euler_step_diverges_at_0_01);
+# its config-4 solves run at the largest of 0.01 / 5^k that is stable
+DT4 = {"dm_quadruped": 0.002}
 GRAVITY = -9.81
 DEVICE = torch.device("cuda:0")
+L1 = 1024            # lanes of the GRiD kernels' small case (and of codegen)
+# d2eepos's large case: dm_quadruped writes 6144 values a lane (3.2 GB at
+# 131072 lanes in float32), so hyq and dm_quadruped run 16384
+L_HESS = {"iiwa": N * B, "hyq": 16384, "dm_quadruped": 16384}
+# the step size folded into the feedback rollout's feedforward term in
+# phases 2 and 3
+FB_ALPHA = 0.25
 
 # Phase 3 judges each float32 kernel against a float64 run of its plain
 # version on the same inputs and the same (float32-rounded) robot constants:
@@ -97,6 +132,15 @@ def line(tag, obj):
     print(f"{tag}: {json.dumps(obj)}", flush=True)
 
 
+def leaf_ees(topo):
+    """``topo`` with its fixed frames dropped, so that its EEs are its leaf
+    links. gym_ant's fixed frames are all welded to the base (empty chains):
+    this way its EE kernels run on its four feet."""
+    topo = copy.copy(topo)
+    topo.fixed_joints = []
+    return topo
+
+
 def max_err(out, ref):
     """Max abs difference over paired outputs."""
     return max(float((o.double() - r.double()).abs().max())
@@ -117,6 +161,8 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     from gridcodegenerator_tpu_torch.api import GRiD
+    from gridcodegenerator_tpu_torch.codegen import ALGORITHMS, gen_all_code
+    from gridcodegenerator_tpu_torch.codegen.emit import KERNELS as GEN_KERNELS
     from gridcodegenerator_tpu_torch.models.model import build_model
     from gridcodegenerator_tpu_torch.models.zoo import load_robot
     from gridcodegenerator_tpu_torch.ops import eepose
@@ -132,13 +178,16 @@ def main():
 
     # -- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
-    build.lib()
+    libs = build.build()
+    for nj in libs:
+        build.lib(nj)
     t1 = time.perf_counter()
     opcount.lib()
     line("build", {"seconds": round(t1 - t0, 3),
                    "opcount_seconds": round(time.perf_counter() - t1, 3),
-                   "library": str(build.build().relative_to(
-                       build.BUILD_ROOT.parents[1]))})
+                   "sources": len(build.SOURCES), "nvcc_jobs": os.cpu_count(),
+                   "libraries": {nj: str(p.relative_to(
+                       build.BUILD_ROOT.parents[1])) for nj, p in libs.items()}})
 
     topo = load_robot("iiwa")
 
@@ -171,6 +220,12 @@ def main():
         return {
             "fd_du": (model, q, qd, u, GRAVITY),
             "rollout": (model, x0, U0, DT, GRAVITY, lo, hi),
+            # one step size folded into the feedforward term: alpha = 0.25,
+            # the line search's fourth row (alpha = 1 is an unstable closed
+            # loop at config 3: float32 overflows on some problems)
+            "feedback_rollout": (model, X[0].contiguous(), U0,
+                                 X[:n_knots].contiguous(), FB_ALPHA * ks, Ks,
+                                 DT, GRAVITY, lo, hi),
             "riccati_factored": tuple(ric),
             "linesearch_rollout": (model, X[0].contiguous(), U0,
                                    X[:n_knots].contiguous(), ks, Ks, al, DT,
@@ -246,7 +301,7 @@ def main():
         operations one lane of the function needs (utils/opcount.py) times
         the lanes; and the operations the kernel executes (ops_executed)."""
         kw, extra = {}, ()
-        if name == "rollout":
+        if name in ("rollout", "feedback_rollout"):
             kw, lanes = dict(N=args[2].shape[0]), args[1].shape[-1]
         elif name.startswith("linesearch"):
             name, cost = "linesearch_rollout", args[-1]
@@ -261,7 +316,7 @@ def main():
             lanes = args[0].shape[-1]
         else:
             lanes = args[1].shape[-1]
-            if name in ("eepos", "deepos"):
+            if name in ("eepos", "deepos", "d2eepos"):
                 extra = (build.ee_buffer(model),)
         if isinstance(args[0], type(model)):
             extra += (build.model_buffer(model),)
@@ -277,6 +332,8 @@ def main():
                   K.REPLACES[K.FD_DU]),
         "rollout": (S.rollout, S.rollout_plain, S.SOURCES[S.ROLLOUT],
                     S.REPLACES[S.ROLLOUT]),
+        "feedback_rollout": (S.feedback_rollout, S.feedback_rollout_plain,
+                             S.SOURCES[S.FEEDBACK], S.REPLACES[S.FEEDBACK]),
         "riccati_factored": (S.riccati_factored, S.riccati_factored_plain,
                              S.SOURCES[S.RICCATI], S.REPLACES[S.RICCATI]),
         "linesearch_rollout": (S.linesearch_rollout,
@@ -300,6 +357,7 @@ def main():
         "fd_du": (K.fd_du, K.fd_du_plain),
         "idsva_so": (K.idsva_so, K.idsva_so_plain),
         "fdsva_so": (K.fdsva_so, K.fdsva_so_plain),
+        "d2eepos": (K.d2eepos, K.d2eepos_plain),
         "riccati": (S.riccati, S.riccati_plain),
         "riccati_stacked": (S.riccati, S.riccati_plain),
         "linesearch_quad": (S.linesearch_rollout,
@@ -375,7 +433,23 @@ def main():
                  for c, a in so_cases(m, 37, seed=1).items()]
     new_cases += [(f"iiwa {c}", c, a)
                   for c, a in quad_inputs(m64, 8, 37, seed=1).items()]
+    # d2eepos on chains, branched robots, gym_ant's welded EEs (zero blocks)
+    # and its feet; every GRiD kernel case on the 8- and 16-joint instances
+    gym64, gymw64, dmq64 = (build_model(t, dtype=torch.float64, device=dev)
+                            for t in (leaf_ees(load_robot("gym_ant")),
+                                      load_robot("gym_ant"),
+                                      load_robot("dm_quadruped")))
+    for what, m in (("iiwa", m64), ("hyq", hyq64), ("gym_ant welded", gymw64),
+                    ("gym_ant feet", gym64), ("dm_quadruped", dmq64)):
+        q = torch.as_tensor(np.random.default_rng(1).uniform(
+            -1, 1, (m.n, 37)), dtype=torch.float64, device=dev)
+        new_cases.append((f"{what} d2eepos", "d2eepos", (m, q)))
+    for m in (gym64, dmq64):
+        new_cases += [(f"{m.name} {c}", c, a) for c, a in (
+            lane_cases(m, 37, seed=1, with_fd_du=True)
+            | so_cases(m, 37, seed=1)).items()]
     for what, case, args in new_cases:
+        case = case_kernel.get(case, case)
         kern, plain = case_fns[case]
         out, ref = as_tuple(kern(*args)), as_tuple(plain(*args))
         torch.cuda.synchronize()
@@ -390,8 +464,12 @@ def main():
         small_new[what] = {"max_abs_err": err, "tol": tol}
     line("small_f64", {"robot": "iiwa", "N": 8, "B": 37,
                        "max_abs_err": small, "tol": 1e-9})
-    line("small_f64_second_order_quad", {"B": 37, "N": 8,
-                                         "cases": small_new})
+    slice5 = ("gym_ant", "dm_quadruped", "d2eepos")
+    line("small_f64_second_order_quad", {"B": 37, "N": 8, "cases": {
+        k: v for k, v in small_new.items() if not any(
+            w in k for w in slice5)}})
+    line("small_f64_d2eepos_8_16_joints", {"B": 37, "cases": {
+        k: v for k, v in small_new.items() if any(w in k for w in slice5)}})
     line("small_f64_hyq", {"robot": "hyq", "joints": hyq64.n,
                            "ees": build.ee_buffer(hyq64).shape[0],
                            "B": 37, "max_abs_err": small_hyq, "tol": 1e-9})
@@ -401,7 +479,10 @@ def main():
     m32_64 = m32.to(dtype=torch.float64)
     hyq32 = build_model(load_robot("hyq"), dtype=torch.float32, device=dev)
     hyq32_64 = hyq32.to(dtype=torch.float64)
-    f64_of = {id(m32): m32_64, id(hyq32): hyq32_64}
+    gym32, dmq32 = (build_model(load_robot(r), dtype=torch.float32, device=dev)
+                    for r in ("gym_ant", "dm_quadruped"))
+    f64_of = {id(m): m.to(dtype=torch.float64) for m in (gym32, dmq32)}
+    f64_of |= {id(m32): m32_64, id(hyq32): hyq32_64}
 
     def to64(a):
         if isinstance(a, torch.Tensor):
@@ -469,7 +550,7 @@ def main():
         return ek, ep
 
     grid_f32 = {}
-    for lanes in (1024, N * B):
+    for lanes in (L1, N * B):
         for case, args in lane_cases(m32, lanes, seed=0).items():
             kern, plain = case_fns[case_kernel[case]]
             out, ref = kern(*args), plain(*args)
@@ -490,10 +571,10 @@ def main():
             "name": name, "route": "cuda", "source": src, "replaces": repl,
             "max_abs_err": max(v["max_abs_err"] for (c, lanes), v
                                in grid_f32.items()
-                               if case_kernel[c] == name and lanes == 1024),
-            "ms": grid_f32[name, 1024]["ms"],
-            "plain_ms": grid_f32[name, 1024]["plain_ms"]} | grid_f32[
-                name, 1024]["bound"]
+                               if case_kernel[c] == name and lanes == L1),
+            "ms": grid_f32[name, L1]["ms"],
+            "plain_ms": grid_f32[name, L1]["plain_ms"]} | grid_f32[
+                name, L1]["bound"]
 
     def timed_f32(what, kern, plain, args, model, name, iters):
         """The float32 rule on every output, and the kernel's and plain
@@ -518,7 +599,7 @@ def main():
         quad_inputs(m32, N, B, seed=0)["riccati"], m32, "riccati", 20)}
     # idsva_so and fdsva_so at 1024 lanes and at config 4's N*B lanes
     for model in (m32, hyq32):
-        for lanes in (1024, N4 * B4[model.name]):
+        for lanes in (L1, N4 * B4[model.name]):
             for case, args in so_cases(model, lanes, seed=0).items():
                 what = f"{model.name} {case} L={lanes}"
                 new_f32[what] = timed_f32(what, *case_fns[case], args, model,
@@ -526,6 +607,49 @@ def main():
                 del args
             torch.cuda.empty_cache()
     line("second_order_riccati_f32", new_f32)
+
+    # d2eepos at L1 lanes and at L_HESS lanes (inputs ~ U(-1, 1))
+    hess_f32 = {}
+    for model in (m32, hyq32, dmq32):
+        for lanes in (L1, L_HESS[model.name]):
+            q = torch.as_tensor(np.random.default_rng(0).uniform(
+                -1, 1, (model.n, lanes)), dtype=torch.float32, device=dev)
+            what = f"{model.name} d2eepos L={lanes}"
+            hess_f32[what] = timed_f32(what, K.d2eepos, K.d2eepos_plain,
+                                       (model, q), model, "d2eepos", 10)
+            del q
+            torch.cuda.empty_cache()
+    # the feedback rollout (kff = k) against the line search's alpha = 1
+    # row on the same float64 inputs (config-3 shapes, gains from its first
+    # backward): the two sweeps share the control law and the step. The
+    # alpha = 1 row is an unstable closed loop that sends some problems to
+    # huge values, so each problem is held to its own scale:
+    # 1e-9 * max(1, max|ref|) over its lane.
+    ls = list(map(to64, ins["linesearch_rollout"]))
+    ls[6] = torch.ones_like(ls[6][:1])
+    out_ls = S.linesearch_rollout(*ls)[:2]
+    out_fb = S.feedback_rollout(*ls[:6], *ls[7:11])   # kff = k
+    torch.cuda.synchronize()
+    lane_err = torch.stack([(a - b).abs().flatten(0, -2).amax(0)
+                            for a, b in zip(out_fb, out_ls)]).amax(0)
+    lane_scale = torch.stack([b.abs().flatten(0, -2).amax(0)
+                              for b in out_ls]).amax(0).clamp(min=1.0)
+    rel = lane_err / lane_scale
+    if not bool((rel <= 1e-9).all()):
+        raise AssertionError(f"feedback_rollout vs the line search's alpha = 1 "
+                             f"row, float64: {int((~(rel <= 1e-9)).sum())} "
+                             f"problems off by more than 1e-9 of their scale "
+                             f"(worst {float(rel.max())})")
+    hess_f32["feedback_rollout vs linesearch alpha=1 f64"] = {
+        "max_abs_err": float(lane_err.max()),
+        "max_err_over_problem_scale": float(rel.max()), "tol": 1e-9,
+        "problem_scale_max": float(lane_scale.max())}
+    del ls, out_fb, out_ls
+    line("d2eepos_f32_feedback_f64", hess_f32)
+    results["d2eepos"] = {"name": "d2eepos", "route": "cuda",
+                          "source": K.SOURCES[K.D2EEPOS],
+                          "replaces": K.REPLACES[K.D2EEPOS]} | hess_f32[
+                              f"iiwa d2eepos L={L1}"]
     for name, key in (("riccati", f"riccati N={N} B={B}"),
                       ("idsva_so", f"iiwa idsva_so L={N4 * B4['iiwa']}"),
                       ("fdsva_so", f"iiwa fdsva_so L={N4 * B4['iiwa']}")):
@@ -626,6 +750,41 @@ def main():
                                 "plain_f64": float(c_p64.mean())},
         "launches": launches, "phases": phases})
 
+    # The solved policy as a tracking controller (feedback_rollout, the
+    # sweep entry point): feedforward 0, the solve's final gains K about its
+    # X and U. From x0 every deviation is zero, so it retraces the solve;
+    # from a perturbed x0 the gains act.
+    lo, hi = resolve_control_bounds(m32, cfg)
+    Xref, kff = res.X[:N].contiguous(), torch.zeros_like(res.k)
+    x0p = x0 + 1e-3 * torch.as_tensor(
+        np.random.default_rng(5).standard_normal(x0.shape),
+        dtype=torch.float32, device=dev)
+    build.reset_counters()
+    track = [S.feedback_rollout(m32, x, res.U, Xref, kff, res.K, DT, GRAVITY,
+                                lo, hi) for x in (x0, x0p)]
+    torch.cuda.synchronize()
+    track_launches = dict(build.LAUNCHES)
+    if track_launches != {"feedback_rollout": 2} or build.PLAIN_CALLS:
+        raise AssertionError(f"tracking launches {track_launches}, plain "
+                             f"calls {dict(build.PLAIN_CALLS)}")
+    retrace = max_err(track[0], (res.X[1:], res.U))
+    tol = F32_FLOOR * max(1.0, float(res.X.abs().max()),
+                          float(res.U.abs().max()))
+    if not retrace <= tol:
+        raise AssertionError(f"tracking from x0 leaves the solve: {retrace} "
+                             f"> {tol}")
+    if not all(bool(torch.isfinite(t).all()) for t in track[1]):
+        raise AssertionError("tracking from a perturbed x0: non-finite")
+    line("tracking", {"config": 3, "kernel": "feedback_rollout",
+                      "retrace_max_abs_err": retrace, "tol": tol,
+                      "perturbed_x0_max_state_dev": float(
+                          (track[1][0] - res.X[1:]).abs().max()),
+                      "ms": time_cuda(lambda: S.feedback_rollout(
+                          m32, x0p, res.U, Xref, kff, res.K, DT, GRAVITY,
+                          lo, hi), iters=10),
+                      "launches": track_launches})
+    del track
+
     # -- phase 5: configs 1 and 2 and the rest of the API through GRiD -----
     grids = {robot: (GRiD(robot, dtype=torch.float32, device=dev),
                      GRiD(robot, dtype=torch.float32, device=dev,
@@ -634,7 +793,7 @@ def main():
                           use_kernels=False))
              for robot in ("iiwa", "hyq")}
     g = grids["iiwa"][0]
-    n, BG = g.num_vel, 1024
+    n, BG = g.num_vel, L1
     rng = np.random.default_rng(0)                      # config 1 (bench.py)
     x1 = tuple(rng.uniform(-1, 1, n) for _ in range(3))
     xb = (rng.uniform(-1, 1, (BG, n)),) * 3
@@ -652,7 +811,7 @@ def main():
         "hyq_eepos_B1024": ("hyq", "eepos", xh, "eepos"),
     }
     for method, nargs in (("fd", 3), ("crba", 1), ("eepos", 1),
-                          ("deepos", 1)):
+                          ("deepos", 1), ("d2eepos", 1)):
         calls[f"api_{method}_B1"] = ("iiwa", method, x1[:nargs], method)
         calls[f"api_{method}_B1024"] = ("iiwa", method, x2[:nargs], method)
     rng = np.random.default_rng(1)
@@ -661,6 +820,7 @@ def main():
         calls[f"api_{method}_B1"] = ("iiwa", method, x1, method)
         calls[f"api_{method}_B1024"] = ("iiwa", method, x2, method)
         calls[f"hyq_{method}_B512"] = ("hyq", method, xh5, method)
+    calls["hyq_d2eepos_B512"] = ("hyq", "d2eepos", xh5[:1], "d2eepos")
     ref64 = {k: getattr(grids[r][2], m)(*x).double()
              for k, (r, m, x, _) in calls.items()}
     ref32 = {k: getattr(grids[r][1], m)(*x) for k, (r, m, x, _) in calls.items()}
@@ -732,7 +892,7 @@ def main():
         c2[f"{k}_evals_per_s"] = BG / (c2[f"{k}_us_per_call"] / 1e6)
     api = {}
     for method, nargs in (("fd", 3), ("crba", 1), ("eepos", 1),
-                          ("deepos", 1), ("fk", 1)):
+                          ("deepos", 1), ("d2eepos", 1), ("fk", 1)):
         fn = getattr(g, method)
         api[f"{method}_us_B1"] = us(lambda: fn(*t1[:nargs]), 200)
         api[f"{method}_us_B1024"] = us(lambda: fn(*t2[:nargs]), 100)
@@ -744,6 +904,8 @@ def main():
         api[f"{method}_us_B1"] = us(lambda: fn(*t1), 100)
         api[f"{method}_us_B1024"] = us(lambda: fn(*t2), 50)
         api[f"hyq_{method}_us_B512"] = us(lambda: fh(*th5), 50)
+    api["hyq_d2eepos_us_B512"] = us(
+        lambda: grids["hyq"][0].d2eepos(th5[0]), 50)
     line("grid", {"configs": [1, 2], "robot": "iiwa", "dtype": "float32",
                   "B": BG, "device": smi, "config1": c1, "config2": c2,
                   "api": api, "max_err_vs_f64_plain": errs,
@@ -811,13 +973,14 @@ def main():
             raise AssertionError(f"{what}: cost increased")
         return runs
 
-    path_runs = [launches, grid_launches]
+    path_runs = [launches, track_launches, grid_launches]
     config4 = {}
     rng = np.random.default_rng(0)              # config 4 (bench.py:211)
-    for robot in ("iiwa", "hyq"):
-        m = m32 if robot == "iiwa" else hyq32
+    models4 = {"iiwa": m32, "hyq": hyq32, "gym_ant": gym32,
+               "dm_quadruped": dmq32}
+    for robot, m in models4.items():
         n, b4 = m.n, B4[robot]
-        cfg_kw = dict(N=N4, dt=DT, iters=ITERS4)
+        cfg_kw = dict(N=N4, dt=DT4.get(robot, DT), iters=ITERS4)
         solve4, parts4 = make_sqp(m, quad_cost(m, QUAD4), SQPConfig(**cfg_kw),
                                   expose_parts=True)
         x0n = rng.uniform(-0.2, 0.2, (2 * n, b4))
@@ -848,7 +1011,7 @@ def main():
             "forward_ms": time_cuda(lambda: parts4["forward"](X, U4, ks, Ks),
                                     iters=5)}
         config4[robot] = {
-            "B": b4, "solve_ms": ms4, "solves_per_s": b4 / (ms4 / 1e3),
+            "B": b4, "dt": cfg_kw["dt"], "solve_ms": ms4, "solves_per_s": b4 / (ms4 / 1e3),
             "cost_first_mean": float(res4.cost_trace[0].mean()),
             "cost_last_mean": float(res4.cost_trace[-1].mean()),
             "first64_final_cost": agree, "launches": path_runs[-1],
@@ -879,6 +1042,60 @@ def main():
                           "cost_last_mean": float(res_q.cost_trace[-1].mean()),
                           "first64_final_cost": agree_q,
                           "launches": path_runs[-1]})
+
+    # -- phase 7: the generated per-robot modules --------------------------
+    gen = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for robot in ("iiwa", "hyq"):
+            path = gen_all_code(load_robot(robot), f"grid_{robot}",
+                                os.path.join(tmp, f"grid_{robot}.py"))
+            spec = importlib.util.spec_from_file_location(f"grid_{robot}",
+                                                          path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            mod.configure(device=dev)           # float32, the card
+            ref = grids[robot][0]
+            rng = np.random.default_rng(2)
+            x = [rng.uniform(-1, 1, (L1, ref.n)) for _ in range(3)]
+            nargs = {a: len(args.split(", ")) for a, _, args in ALGORITHMS}
+            want = {a: getattr(ref, a)(*x[:k]) for a, k in nargs.items()}
+            torch.cuda.synchronize()
+            build.reset_counters()
+            errs = {}
+            for algo, k in nargs.items():
+                before = dict(build.LAUNCHES)
+                got = getattr(mod, algo)(*x[:k])
+                torch.cuda.synchronize()
+                added = {c: v - before.get(c, 0)
+                         for c, v in build.LAUNCHES.items()
+                         if v != before.get(c, 0)}
+                kernel = GEN_KERNELS[algo][0]
+                if added != {kernel: 1}:
+                    raise AssertionError(f"grid_{robot}.{algo} launched "
+                                         f"{added}, expected {{{kernel!r}: 1}}")
+                err = max_err((got,), (want[algo],))
+                tol = 1e-6 * max(1.0, float(want[algo].abs().max()))
+                if got.shape != want[algo].shape or not err <= tol:
+                    raise AssertionError(f"grid_{robot}.{algo}: "
+                                         f"{tuple(got.shape)}, max abs err "
+                                         f"{err} vs GRiD (tol {tol})")
+                errs[algo] = err
+            if build.PLAIN_CALLS:
+                raise AssertionError(f"grid_{robot} ran plain versions: "
+                                     f"{dict(build.PLAIN_CALLS)}")
+            path_runs.append(dict(build.LAUNCHES))
+            print(f"grid_{robot}.single_timing_table(batch_size={L1}):",
+                  flush=True)
+            gen[robot] = {"max_abs_err_vs_grid": errs,
+                          "launches": path_runs[-1],
+                          "single_call_s": mod.single_timing_table(
+                              batch_size=L1, iters=20)}
+    jax_loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "gridcodegenerator_tpu"))
+    if jax_loaded:
+        raise AssertionError(f"JAX modules loaded: {jax_loaded}")
+    line("codegen", {"robots": gen, "B": L1, "dtype": "float32",
+                     "device": smi})
 
     path_launches = {k: sum(run.get(k, 0) for run in path_runs)
                      for k in results}

@@ -23,13 +23,13 @@ Example::
     df_du = grid.fd_du(q, qd, u)              # (B, n, 2n)
     pose  = grid.eepos(q)                     # (B, 6*num_ees)
     J     = grid.deepos(q)                    # (B, 6*num_ees, n)
+    H     = grid.d2eepos(q)                   # (B, 6*num_ees, n, n)
     Tw    = grid.fk(q)                        # (B, n, 4, 4), plain torch
     d2tau = grid.idsva_so(q, qd, qdd)         # (B, 4, n, n, n)
     d2qdd = grid.fdsva_so(q, qd, u)           # (B, 4, n, n, n)
 
-``GRiD`` runs on the card unless ``device="cpu"`` is asked for. The method
-whose kernel is not ported yet (``d2eepos``) raises ``NotImplementedError``
-naming its ROADMAP item; so do floating-base robots.
+``GRiD`` runs on the card unless ``device="cpu"`` is asked for; a
+floating-base robot raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -46,17 +46,6 @@ from .ops.common import DEFAULT_GRAVITY, check_fixed_base
 from .ops.cuda import kernels as _k
 from .topology.robot import RobotTopology
 from .topology.urdf import parse_urdf
-
-# methods without a kernel in the port yet -> their ROADMAP item
-_NOT_PORTED = {
-    "d2eepos": "Queue 2 item 14 (d2eepos_pallas)",
-}
-
-
-def _not_ported(method: str):
-    raise NotImplementedError(f"GRiD.{method} is not ported to PyTorch yet: "
-                              f"ROADMAP {_NOT_PORTED[method]}")
-
 
 def init_robot(source: Union[str, RobotTopology],
                floating_base: bool = False) -> RobotTopology:
@@ -123,6 +112,7 @@ class GRiD:
         self._crba = _k.crba_plain if plain else _k.crba
         self._eepos = _k.eepos_plain if plain else _k.eepos
         self._deepos = _k.deepos_plain if plain else _k.deepos
+        self._d2eepos = _k.d2eepos_plain if plain else _k.d2eepos
         self._idsva_so = _k.idsva_so_plain if plain else _k.idsva_so
         self._fdsva_so = _k.fdsva_so_plain if plain else _k.fdsva_so
 
@@ -230,8 +220,9 @@ class GRiD:
         return self._out(self._deepos(self.model, qk, self.ee_targets), ub)
 
     def d2eepos(self, q):
-        """EE pose Hessians (not ported yet)."""
-        _not_ported("d2eepos")
+        """EE pose Hessians, symmetric: (B, 6*num_ees, num_pos, num_pos)."""
+        qk, ub = self._in(q, self.num_pos)
+        return self._out(self._d2eepos(self.model, qk, self.ee_targets), ub)
 
     def fk(self, q):
         """World homogeneous transforms of every joint frame: (B, n, 4, 4).

@@ -678,6 +678,28 @@ GT_HD void euler_step(const Robot<T, NJ>& R, T* x, const T* u, T dt,
   }
 }
 
+// The feedback control of problem b at knot t:
+// u = clamp(Uref_t + (alpha k_t + K_t (x - Xref_t))), on Uref and k
+// (N, NJ, B), Xref (N, 2 NJ, B) and K (N, NJ, 2 NJ, B). The line search
+// (csrc/linesearch.cu) passes its step size; the feedback rollout
+// (csrc/feedback_rollout.cu) alpha = 1, its step size folded into k.
+template <typename T, int NJ>
+GT_HD void feedback_u(const T* x, const T* Uref, const T* Xref, const T* k,
+                      const T* K, T alpha, const T* lo, const T* hi, int t,
+                      long long B, long long b, T* u) {
+  constexpr int NX = 2 * NJ;
+  T dx[NX];
+  for (int m = 0; m < NX; ++m)
+    dx[m] = x[m] - Xref[((long long)t * NX + m) * B + b];
+  for (int j = 0; j < NJ; ++j) {
+    const T* Kj = K + ((long long)t * NJ + j) * NX * B + b;
+    T s = Kj[0] * dx[0];
+    for (int m = 1; m < NX; ++m) s += Kj[m * B] * dx[m];
+    const long long ij = ((long long)t * NJ + j) * B + b;
+    u[j] = clamp_bounds(Uref[ij] + (alpha * k[ij] + s), lo, hi, j);
+  }
+}
+
 // ---------------------------------------------------------------------------
 // end-effector kinematics: T = T_c0 ... T_ck Tfixed over an EE chain
 // ---------------------------------------------------------------------------
@@ -738,6 +760,26 @@ GT_HD void joint_dT(const T* TT, int jtype, int sind, T qi, T* out) {
   } else {   // prismatic: unit translation along axis sind - 3
     for (int k = 0; k < 16; ++k) D[k] = z;
     D[(sind - 3) * 4 + 3] = o;
+  }
+  mm44(TT, D, out);
+}
+
+// d2/dq2 of joint_T: Ttree d2Tj/dq2, -R on the rotating 2x2 block of a
+// revolute joint; zero for a prismatic one.
+template <typename T>
+GT_HD void joint_d2T(const T* TT, int jtype, int sind, T qi, T* out) {
+  T D[16];
+  for (int k = 0; k < 16; ++k) D[k] = T(0);
+  if (jtype == 0) {
+    const T c = gcos(qi), s = gsin(qi);
+    const int ax = sind % 3;
+    if (ax == 0) {
+      D[5] = -c; D[6] = s; D[9] = -s; D[10] = -c;
+    } else if (ax == 1) {
+      D[0] = -c; D[2] = -s; D[8] = s; D[10] = -c;
+    } else {
+      D[0] = -c; D[1] = s; D[4] = -s; D[5] = -c;
+    }
   }
   mm44(TT, D, out);
 }
@@ -806,6 +848,38 @@ GT_HDI void pose_jvp(const T* Tm, const T* dT, T* p) {
   p[3] = datan2(Tm[9], Tm[10], dT[9], dT[10]);
   p[4] = -datan2(Tm[8], r, dT[8], dr);
   p[5] = datan2(Tm[4], Tm[0], dT[4], dT[0]);
+}
+
+// Second derivative of atan2(y, x) along directions 1 and 2 with the
+// second-order direction (y12, x12): f'[d12] + f''[d1, d2]; with
+// r2 = x^2 + y^2, f_yy = -2xy/r2^2, f_xx = 2xy/r2^2, f_xy = (y^2-x^2)/r2^2.
+template <typename T>
+GT_HDI T hatan2(T y, T x, T y1, T x1, T y2, T x2, T y12, T x12) {
+  const T r2 = x * x + y * y;
+  return (x * y12 - y * x12) / r2 +
+         (T(2) * x * y * (x1 * x2 - y1 * y2) +
+          (y * y - x * x) * (y1 * x2 + x1 * y2)) / (r2 * r2);
+}
+
+// Second directional derivative of pose_from_T at Tm:
+// f'(Tm)[d2] + f''(Tm)[d1, d2'] along d1 and d2' with the second-order
+// direction h. Pitch nests r = sqrt(T21^2 + T22^2), whose second derivative
+// on that pair is (d1 . d2' + T . h) / r - r1 r2 / r.
+template <typename T>
+GT_HDI void pose_hvp(const T* Tm, const T* d1, const T* d2, const T* h,
+                     T* p) {
+  p[0] = h[3];
+  p[1] = h[7];
+  p[2] = h[11];
+  const T a = Tm[9], b = Tm[10];
+  const T r = gsqrt(a * a + b * b);
+  const T r1 = (a * d1[9] + b * d1[10]) / r;
+  const T r2 = (a * d2[9] + b * d2[10]) / r;
+  const T r12 =
+      (a * h[9] + b * h[10] + d1[9] * d2[9] + d1[10] * d2[10] - r1 * r2) / r;
+  p[3] = hatan2(a, b, d1[9], d1[10], d2[9], d2[10], h[9], h[10]);
+  p[4] = -hatan2(Tm[8], r, d1[8], r1, d2[8], r2, h[8], r12);
+  p[5] = hatan2(Tm[4], Tm[0], d1[4], d1[0], d2[4], d2[0], h[4], h[0]);
 }
 
 // Poses of the `ne` rows of the EE buffer `ee`: EE e's [xyz, rpy] goes to
@@ -881,6 +955,103 @@ GT_HD void ee_jac_lane(const Robot<T, NJ>& R, const T* ee, int ne,
   }
 }
 
+// o = prefix B, 4x4; the first chain joint's prefix is the identity.
+template <typename T>
+GT_HDI void prefix_mul(const T* prefix, bool first, const T* B, T* o) {
+  if (first) {
+    for (int m = 0; m < 16; ++m) o[m] = B[m];
+  } else {
+    mm44(prefix, B, o);
+  }
+}
+
+// The six pose entries p of joint pair (i, j) and (j, i) of one EE block.
+template <typename T, int NJ>
+GT_HDI void store_pair(T* oe, long long stride, int i, int j, const T* p) {
+  for (int r = 0; r < 6; ++r) {
+    oe[((r * NJ + i) * NJ + j) * stride] = p[r];
+    oe[((r * NJ + j) * NJ + i) * stride] = p[r];
+  }
+}
+
+// Pose Hessians of the `ne` rows of `ee`, chain form
+// (gridcodegenerator_tpu_torch/ops/eepose.py:d2eepos): for chain joints
+// a < b, d2T/dq_a dq_b = W_ab . dT_b . suffix_b with W_ab = prefix_a . dT_a
+// . T_a+1 ... T_b-1 (one sweep per a), and d2T/dq_a^2 = prefix_a . d2T_a .
+// suffix_a; each goes through pose_hvp at the full chain transform along
+// dT/dq_a = prefix_a . dT_a . suffix_a (the Jacobian's, kept per chain
+// joint). Entries whose row or column joint is off the chain are zero. EE
+// e, joints (i, j) -> out[(((6 e + r) NJ + i) NJ + j) * stride], written
+// symmetric.
+template <typename T, int NJ>
+GT_HD void ee_hess_lane(const Robot<T, NJ>& R, const T* ee, int ne,
+                        const T* q, T* out, long long stride) {
+  using E = EERow<NJ>;
+  for (int e = 0; e < ne; ++e) {
+    const T* row = ee + e * E::SIZE;
+    const T* mask = row + E::CHAIN;
+    T* oe = out + 6LL * e * NJ * NJ * stride;
+    int chain[NJ];
+    int k = 0;
+    for (int j = 0; j < NJ; ++j)
+      if (mask[j] != T(0)) chain[k++] = j;
+    for (int i = 0; i < NJ; ++i)
+      for (int j = 0; j < NJ; ++j)
+        if (mask[i] == T(0) || mask[j] == T(0))
+          for (int r = 0; r < 6; ++r)
+            oe[((r * NJ + i) * NJ + j) * stride] = T(0);
+    if (k == 0) continue;
+    T Ts[NJ][16], dTs[NJ][16], suf[NJ][16], dTf[NJ][16], full[16];
+    for (int a = 0; a < k; ++a) {
+      const int j = chain[a];
+      joint_T(R.Ttree(j), R.jtype[j], R.sind[j], q[j], Ts[a]);
+      joint_dT(R.Ttree(j), R.jtype[j], R.sind[j], q[j], dTs[a]);
+    }
+    for (int m = 0; m < 16; ++m) full[m] = row[E::TFIX + m];
+    for (int a = k - 1; a >= 0; --a) {
+      for (int m = 0; m < 16; ++m) suf[a][m] = full[m];
+      mm44(Ts[a], suf[a], full);
+    }
+    // pass 1: dT/dq_a and the diagonal, carrying prefix_a in pre
+    T pre[16], t1[16], t2[16], p[6];
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+    for (int a = 0; a < k; ++a) {
+      const int j = chain[a];
+      prefix_mul(pre, a == 0, dTs[a], t1);
+      mm44(t1, suf[a], dTf[a]);
+      joint_d2T(R.Ttree(j), R.jtype[j], R.sind[j], q[j], t2);
+      prefix_mul(pre, a == 0, t2, t1);
+      mm44(t1, suf[a], t2);
+      pose_hvp(full, dTf[a], dTf[a], t2, p);
+      store_pair<T, NJ>(oe, stride, j, j, p);
+      prefix_mul(pre, a == 0, Ts[a], t1);
+      for (int m = 0; m < 16; ++m) pre[m] = t1[m];
+    }
+    // pass 2: the pairs a < b, W = prefix_a . dT_a . T_a+1 ... T_b-1
+#ifdef __CUDACC__
+#pragma unroll 1
+#endif
+    for (int a = 0; a < k - 1; ++a) {
+      T W[16];
+      prefix_mul(pre, a == 0, dTs[a], W);
+      for (int b = a + 1; b < k; ++b) {
+        mm44(W, dTs[b], t1);
+        mm44(t1, suf[b], t2);
+        pose_hvp(full, dTf[a], dTf[b], t2, p);
+        store_pair<T, NJ>(oe, stride, chain[a], chain[b], p);
+        if (b + 1 < k) {
+          mm44(W, Ts[b], t1);
+          for (int m = 0; m < 16; ++m) W[m] = t1[m];
+        }
+      }
+      prefix_mul(pre, a == 0, Ts[a], t1);
+      for (int m = 0; m < 16; ++m) pre[m] = t1[m];
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // pivot-free Gauss-Jordan inverse of an SPD (M, M) matrix
 // ---------------------------------------------------------------------------
@@ -911,39 +1082,22 @@ GT_HD void gj_inverse(const T* A, T* Ainv) {
 }  // namespace gt
 
 #ifdef __CUDACC__
-// One instance per (dtype, joint count) the package supports
-// (ops/cuda/build.py: SUPPORTED_JOINTS, DTYPE_CODES). The trailing
-// arguments are an expression in T and NJ that returns the error code.
+// Each library of the package holds one joint count, GT_NJ, given on the
+// nvcc command line (ops/cuda/build.py: one library per SUPPORTED_JOINTS
+// entry), in float and double (DTYPE_CODES). The trailing arguments are an
+// expression in T and NJ that returns the error code.
+#ifndef GT_NJ
+#error "GT_NJ (the joint count of this library) must be defined"
+#endif
 #define GT_DISPATCH(dtype, nj, ...)                                         \
   do {                                                                      \
-    if ((dtype) == gt::kF32 && (nj) == 2) {                                 \
+    constexpr int NJ = GT_NJ;                                               \
+    if ((nj) == NJ && (dtype) == gt::kF32) {                                \
       using T = float;                                                      \
-      constexpr int NJ = 2;                                                 \
       return __VA_ARGS__;                                                   \
     }                                                                       \
-    if ((dtype) == gt::kF32 && (nj) == 7) {                                 \
-      using T = float;                                                      \
-      constexpr int NJ = 7;                                                 \
-      return __VA_ARGS__;                                                   \
-    }                                                                       \
-    if ((dtype) == gt::kF64 && (nj) == 2) {                                 \
+    if ((nj) == NJ && (dtype) == gt::kF64) {                                \
       using T = double;                                                     \
-      constexpr int NJ = 2;                                                 \
-      return __VA_ARGS__;                                                   \
-    }                                                                       \
-    if ((dtype) == gt::kF64 && (nj) == 7) {                                 \
-      using T = double;                                                     \
-      constexpr int NJ = 7;                                                 \
-      return __VA_ARGS__;                                                   \
-    }                                                                       \
-    if ((dtype) == gt::kF32 && (nj) == 12) {                                \
-      using T = float;                                                      \
-      constexpr int NJ = 12;                                                \
-      return __VA_ARGS__;                                                   \
-    }                                                                       \
-    if ((dtype) == gt::kF64 && (nj) == 12) {                                \
-      using T = double;                                                     \
-      constexpr int NJ = 12;                                                \
       return __VA_ARGS__;                                                   \
     }                                                                       \
     return (int)cudaErrorInvalidValue;                                      \

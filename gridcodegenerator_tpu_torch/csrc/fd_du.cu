@@ -51,12 +51,7 @@ static int launch_fd_du(const void* model, const void* q, const void* qd,
 }
 
 extern "C" int gridtorch_model_size(int nj) {
-  switch (nj) {
-    case 2: return gt::Layout<2>::SIZE;
-    case 7: return gt::Layout<7>::SIZE;
-    case 12: return gt::Layout<12>::SIZE;
-  }
-  return -1;
+  return nj == GT_NJ ? gt::Layout<GT_NJ>::SIZE : -1;
 }
 
 extern "C" int gridtorch_fd_du(int dtype, int nj, const void* model,

@@ -101,17 +101,8 @@ GT_HD void linesearch_lane(const Robot<T, NJ>& R, const T* x0,
 #pragma unroll 1
 #endif
   for (int t = 0; t < N; ++t) {
-    T dx[NX];
-    for (int m = 0; m < NX; ++m)
-      dx[m] = x[m] - Xref[((long long)t * NX + m) * B + b];
     T u[NJ];
-    for (int j = 0; j < NJ; ++j) {
-      const T* Kj = K + ((long long)t * NJ + j) * NX * B + b;
-      T s = Kj[0] * dx[0];
-      for (int m = 1; m < NX; ++m) s += Kj[m * B] * dx[m];
-      const long long ij = ((long long)t * NJ + j) * B + b;
-      u[j] = clamp_bounds(Uref[ij] + (alpha * k[ij] + s), lo, hi, j);
-    }
+    feedback_u<T, NJ>(x, Uref, Xref, k, K, alpha, lo, hi, t, B, b, u);
     acc += c.stage(R, x, u);
     euler_step(R, x, u, dt, gravity);
     for (int i = 0; i < NX; ++i) Xo[((long long)t * NX + i) * W + lane] = x[i];

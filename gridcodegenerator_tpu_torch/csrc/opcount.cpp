@@ -121,6 +121,8 @@ inline C gatan2(C y, C x) {
 #include "deepos.cu"
 #include "idsva_so.cu"
 #include "fdsva_so.cu"
+#include "d2eepos.cu"
+#include "feedback_rollout.cu"
 
 using opc::C;
 using namespace gt;
@@ -198,7 +200,8 @@ std::vector<C> inputs(long long n) {
 // Kernel ids, in the order of utils/opcount.py:KERNELS.
 enum {
   RNEA, ID_DU, ABA, MINV, FD, CRBA, EEPOS, DEEPOS, FD_DU, ROLLOUT,
-  LINESEARCH, RICCATI_FACTORED, RICCATI, IDSVA_SO, FDSVA_SO
+  LINESEARCH, RICCATI_FACTORED, RICCATI, IDSVA_SO, FDSVA_SO, D2EEPOS,
+  FEEDBACK_ROLLOUT
 };
 
 // One lane (one problem for the sweeps) of kernel `kernel`; `flag` is the
@@ -218,7 +221,7 @@ long long count(int kernel, const double* model, const double* ee, int ne,
   for (int i = 0; i < ncost; ++i) cb[i] = C::input(cost[i]);
   const Robot<C, NJ> R(m.data());
   const long long big = (long long)(N > 0 ? N : 1) * NX * NX * 4 +
-                        4LL * NJ * NJ * NJ + 64;
+                        4LL * NJ * NJ * NJ + 6LL * ne * NJ * NJ + 64;
   std::vector<C> a = inputs(big), b = inputs(big), c = inputs(big),
                  d = inputs(big), x = inputs(big), y = inputs(big),
                  z = inputs(big), w = inputs(big);
@@ -239,6 +242,7 @@ long long count(int kernel, const double* model, const double* ee, int ne,
     case CRBA: crba_lane<C, NJ>(R, a.data(), x.data()); break;
     case EEPOS: ee_pose_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
     case DEEPOS: ee_jac_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
+    case D2EEPOS: ee_hess_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
     case FD_DU:
       fd_du_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data(),
                         y.data(), z.data());
@@ -246,6 +250,11 @@ long long count(int kernel, const double* model, const double* ee, int ne,
     case ROLLOUT:
       rollout_lane<C, NJ>(R, a.data(), b.data(), nullptr, nullptr, x.data(),
                           N, 1, 0, dt, g);
+      break;
+    case FEEDBACK_ROLLOUT:
+      feedback_rollout_lane<C, NJ>(R, a.data(), b.data(), c.data(), d.data(),
+                                   y.data(), nullptr, nullptr, x.data(),
+                                   w.data(), N, 1, 0, dt, g);
       break;
     case LINESEARCH:
       if (flag == 0) {
@@ -310,7 +319,9 @@ extern "C" long long gridtorch_opcount(int kernel, int nj, const double* model,
   switch (nj) {
     case 2: return GT_COUNT(2);
     case 7: return GT_COUNT(7);
+    case 8: return GT_COUNT(8);
     case 12: return GT_COUNT(12);
+    case 16: return GT_COUNT(16);
   }
 #undef GT_COUNT
   return -1;

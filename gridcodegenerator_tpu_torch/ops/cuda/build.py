@@ -8,9 +8,10 @@ device buffer (:func:`model_buffer`; the end-effector kernels also take
 one row per EE, :func:`ee_buffer`).
 
 The sources under ``gridcodegenerator_tpu_torch/csrc/`` are compiled with
-``nvcc`` for ``sm_90a`` into one shared library with a plain C interface, at
-first use, into ``build/torch_kernels/<hash of the sources>/`` at the root of
-the checkout, and loaded with ``ctypes``. Every C entry point launches on the
+``nvcc`` for ``sm_90a`` into one shared library with a plain C interface per
+joint count (``-DGT_NJ=<n>``; float and double), at first use, into
+``build/torch_kernels/nj<n>-<hash of the sources>/`` at the root of the
+checkout, and loaded with ``ctypes``. Every C entry point launches on the
 stream it is given, allocates nothing, and returns ``cudaGetLastError()``.
 Nothing here is imported or built until a kernel is launched on a CUDA
 tensor.
@@ -19,6 +20,7 @@ tensor.
 from __future__ import annotations
 
 import collections
+import concurrent.futures
 import ctypes
 import hashlib
 import os
@@ -37,16 +39,18 @@ from ..eepose import ee_chains
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("fd_du.cu", "rollout.cu", "linesearch.cu", "riccati.cu", "rnea.cu",
            "id_du.cu", "aba.cu", "minv.cu", "fd.cu", "crba.cu", "eepos.cu",
-           "deepos.cu", "idsva_so.cu", "fdsva_so.cu")
+           "deepos.cu", "idsva_so.cu", "fdsva_so.cu", "d2eepos.cu",
+           "feedback_rollout.cu")
 HEADERS = ("dynamics.cuh", "so.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libgridtorch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-# joint counts and dtypes the library is instantiated for (csrc/dynamics.cuh:
-# GT_DISPATCH); a robot or dtype outside these raises in the wrapper
-SUPPORTED_JOINTS = (2, 7, 12)
+# joint counts a library is built for (csrc/dynamics.cuh: GT_DISPATCH, one
+# joint count per library) and dtypes; a robot or dtype outside these raises
+# in the wrapper
+SUPPORTED_JOINTS = (2, 7, 8, 12, 16)
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 # launches per kernel since the last reset: each wrapper adds one right after
@@ -55,7 +59,7 @@ LAUNCHES = collections.Counter()
 # calls of each kernel's plain PyTorch version
 PLAIN_CALLS = collections.Counter()
 
-_lib = None
+_libs = {}
 _lib_lock = threading.Lock()
 
 
@@ -64,13 +68,19 @@ def reset_counters():
     PLAIN_CALLS.clear()
 
 
-def _source_hash() -> str:
+def _flags(nj: int) -> tuple:
+    return NVCC_FLAGS + (f"-DGT_NJ={nj}",)
+
+
+def _lib_path(nj: int) -> Path:
+    """Where the library of ``nj`` joints lives: keyed by the sources and
+    the flags."""
     h = hashlib.sha256()
     for name in HEADERS + SOURCES:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return h.hexdigest()[:16]
+    h.update(" ".join(_flags(nj)).encode())
+    return BUILD_ROOT / f"nj{nj}-{h.hexdigest()[:16]}" / LIB_NAME
 
 
 def _nvcc() -> str:
@@ -82,46 +92,58 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the sources (once per source hash) and return the library path.
+def build(joints=SUPPORTED_JOINTS, verbose: bool = False) -> dict:
+    """Compile the library of each joint count in ``joints`` that is not
+    built for the current sources yet; ``{joint count: library path}``.
 
-    The translation units compile in parallel into objects, then link
-    into one shared library; the result is moved into place atomically.
+    Every (joint count, source) pair is one ``nvcc -c``, and all of them
+    run in one pool of ``os.cpu_count()`` processes; then each library
+    links from its objects and moves into place atomically.
     """
-    out_dir = BUILD_ROOT / _source_hash()
-    lib = out_dir / LIB_NAME
-    if lib.exists():
-        return lib
+    libs = {nj: _lib_path(nj) for nj in joints}
+    todo = [nj for nj, lib in libs.items() if not lib.exists()]
+    if not todo:
+        return libs
     nvcc = _nvcc()
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(prefix="build-", dir=BUILD_ROOT))
+    tmp = {nj: Path(tempfile.mkdtemp(prefix=f"build-nj{nj}-", dir=BUILD_ROOT))
+           for nj in todo}
     extra = ("-Xptxas", "-v") if verbose else ()
-    procs = []
-    for src in SOURCES:
-        obj = tmp / (src + ".o")
-        cmd = [nvcc, *NVCC_FLAGS, *extra, "-I", str(CSRC), "-c",
-               str(CSRC / src), "-o", str(obj)]
-        procs.append((src, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
-    objs = []
-    for src, p in procs:
-        log, _ = p.communicate()
-        if p.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{log}")
-        if verbose and log:
-            print(f"[nvcc {src}]\n{log}", flush=True)
-        objs.append(str(tmp / (src + ".o")))
-    res = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o",
-                          str(tmp / LIB_NAME)], capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{res.stdout}{res.stderr}")
-    try:
-        os.replace(tmp, out_dir)
-    except OSError:
-        if not lib.exists():   # another process finished first otherwise
-            raise
-        shutil.rmtree(tmp, ignore_errors=True)
-    return lib
+
+    def run(cmd):
+        return subprocess.run(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+
+    def compile_one(job):
+        nj, src = job
+        return run([nvcc, *_flags(nj), *extra, "-I", str(CSRC), "-c",
+                    str(CSRC / src), "-o", str(tmp[nj] / (src + ".o"))])
+
+    def link(nj):
+        return run([nvcc, *_flags(nj), "-shared",
+                    *(str(tmp[nj] / (src + ".o")) for src in SOURCES), "-o",
+                    str(tmp[nj] / LIB_NAME)])
+
+    jobs = [(nj, src) for nj in todo for src in SOURCES]
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        for (nj, src), res in zip(jobs, pool.map(compile_one, jobs)):
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src} ({nj} joints):\n"
+                                   f"{res.stdout}")
+            if verbose and res.stdout:
+                print(f"[nvcc {src}, {nj} joints]\n{res.stdout}", flush=True)
+        for nj, res in zip(todo, pool.map(link, todo)):
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({nj} joints):\n"
+                                   f"{res.stdout}")
+    for nj in todo:
+        try:
+            os.replace(tmp[nj], libs[nj].parent)
+        except OSError:
+            if not libs[nj].exists():   # another process finished first
+                raise
+            shutil.rmtree(tmp[nj], ignore_errors=True)
+    return libs
 
 
 _P = ctypes.c_void_p
@@ -148,21 +170,26 @@ _SIGNATURES = {
                           _P, _I, _L, _D, _P),
     "gridtorch_idsva_so": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
     "gridtorch_fdsva_so": (_I, _I, _P, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_d2eepos": (_I, _I, _P, _P, _I, _P, _P, _L, _P),
+    "gridtorch_feedback_rollout": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                                   _P, _P, _I, _L, _D, _D, _P),
 }
 
 
-def lib() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib
+def lib(nj: int) -> ctypes.CDLL:
+    """The loaded kernel library of ``nj`` joints, built on first use."""
+    if nj not in SUPPORTED_JOINTS:
+        raise NotImplementedError(f"no CUDA kernel library for {nj} joints "
+                                  f"(built for {SUPPORTED_JOINTS})")
     with _lib_lock:
-        if _lib is None:
-            handle = ctypes.CDLL(str(build()))
+        if nj not in _libs:
+            handle = ctypes.CDLL(str(build((nj,))[nj]))
             for name, args in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(args)
                 fn.restype = ctypes.c_int
-            _lib = handle
-    return _lib
+            _libs[nj] = handle
+    return _libs[nj]
 
 
 def check(err: int, what: str):
@@ -258,7 +285,7 @@ def model_buffer(model: RobotModel, ee_index: int = 0) -> torch.Tensor:
                  mask, host(model.subtree_mask)]
         flat = np.concatenate(parts)
         if model.device.type == "cuda":
-            expect = lib().gridtorch_model_size(model.n)
+            expect = lib(model.n).gridtorch_model_size(model.n)
             if flat.size != expect:
                 raise RuntimeError(f"packed model has {flat.size} values, "
                                    f"the kernels expect {expect}")

@@ -22,6 +22,8 @@ Lane-major tensors, L lanes on the trailing axis:
   Replaces ``kernels.py:eepos_pallas``.
 * ``deepos(model, q, targets=None)`` -> (6 ne, n, L) EE pose Jacobians.
   Replaces ``kernels.py:deepos_pallas``.
+* ``d2eepos(model, q, targets=None)`` -> (6 ne, n, n, L) EE pose Hessians.
+  Replaces ``kernels.py:d2eepos_pallas``.
 * ``idsva_so(model, q, qd, qdd)`` -> (4, n, n, n, L) IDSVA-SO
   [d2tau/dq2, d2tau/dqd2, d2tau/dqd dq, dM/dq]. Replaces
   ``kernels.py:idsva_so_pallas``.
@@ -34,7 +36,9 @@ and local memory; inputs are read and outputs written along the lane axis,
 so every access is coalesced. What bounds them on the card: arithmetic and
 the local memory that holds each lane's joint transforms, inertias and
 Minv factors — not device memory, since a 7-DoF lane reads at most 21
-values and writes at most 154 (deepos: 42 per EE).
+values and writes at most 154 (deepos: 42 per EE) — but for the
+second-order outputs (4 n^3 values a lane; d2eepos 6 n^2 per EE), whose
+writes are the least time.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -48,6 +52,7 @@ from ...models.model import RobotModel
 from ..aba import aba as _aba
 from ..common import DEFAULT_GRAVITY
 from ..crba import crba as _crba
+from ..eepose import d2eepos as _d2eepos
 from ..eepose import deepos as _deepos
 from ..eepose import eepos as _eepos
 from ..fd import forward_dynamics
@@ -61,15 +66,15 @@ from . import build
 
 FD_DU, RNEA, ID_DU, ABA, MINV = "fd_du", "rnea", "id_du", "aba", "minv"
 FD, CRBA, EEPOS, DEEPOS = "fd", "crba", "eepos", "deepos"
-IDSVA_SO, FDSVA_SO = "idsva_so", "fdsva_so"
+IDSVA_SO, FDSVA_SO, D2EEPOS = "idsva_so", "fdsva_so", "d2eepos"
 SOURCES = {k: f"gridcodegenerator_tpu_torch/csrc/{k}.cu"
            for k in (FD_DU, RNEA, ID_DU, ABA, MINV, FD, CRBA, EEPOS, DEEPOS,
-                     IDSVA_SO, FDSVA_SO)}
+                     IDSVA_SO, FDSVA_SO, D2EEPOS)}
 REPLACES = {k: f"gridcodegenerator_tpu/ops/pallas/kernels.py:{line}"
             for k, line in ((FD_DU, 171), (RNEA, 77), (ID_DU, 156),
                             (ABA, 141), (MINV, 98), (FD, 126), (CRBA, 112),
                             (EEPOS, 375), (DEEPOS, 390), (IDSVA_SO, 264),
-                            (FDSVA_SO, 303))}
+                            (FDSVA_SO, 303), (D2EEPOS, 407))}
 
 
 def _lanes(model: RobotModel, what: str, inputs):
@@ -145,6 +150,11 @@ def deepos_plain(model: RobotModel, q, targets=None):
     return _deepos(model, q, targets)
 
 
+def d2eepos_plain(model: RobotModel, q, targets=None):
+    build.PLAIN_CALLS[D2EEPOS] += 1
+    return _d2eepos(model, q, targets)
+
+
 def idsva_so_plain(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
     build.PLAIN_CALLS[IDSVA_SO] += 1
     return _idsva_so(model, q, qd, qdd, gravity)
@@ -166,7 +176,7 @@ def fd_du(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
     n = model.n
     df_du = _empty(q, n, 2 * n, L)
     qdd, Mi = _empty(q, n, L), _empty(q, n, n, L)
-    _launched(FD_DU, build.lib().gridtorch_fd_du(
+    _launched(FD_DU, build.lib(nj).gridtorch_fd_du(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(u), build.ptr(df_du), build.ptr(qdd),
         build.ptr(Mi), L, float(gravity), build.stream_ptr(q.device)))
@@ -178,7 +188,7 @@ def rnea(model: RobotModel, q, qd, qdd=None, gravity=DEFAULT_GRAVITY):
         return rnea_plain(model, q, qd, qdd, gravity)
     dcode, nj, L = _lanes(model, RNEA, dict(q=q, qd=qd, qdd=qdd))
     c = _empty(q, model.n, L)
-    _launched(RNEA, build.lib().gridtorch_rnea(
+    _launched(RNEA, build.lib(nj).gridtorch_rnea(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(qdd), build.ptr(c), L, float(gravity),
         build.stream_ptr(q.device)))
@@ -192,7 +202,7 @@ def id_du(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
         raise ValueError(f"{ID_DU}: qdd is required")
     dcode, nj, L = _lanes(model, ID_DU, dict(q=q, qd=qd, qdd=qdd))
     dc_du = _empty(q, model.n, 2 * model.n, L)
-    _launched(ID_DU, build.lib().gridtorch_id_du(
+    _launched(ID_DU, build.lib(nj).gridtorch_id_du(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(qdd), build.ptr(dc_du), L, float(gravity),
         build.stream_ptr(q.device)))
@@ -204,7 +214,7 @@ def aba(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
         return aba_plain(model, q, qd, u, gravity)
     dcode, nj, L = _lanes(model, ABA, dict(q=q, qd=qd, u=u))
     qdd = _empty(q, model.n, L)
-    _launched(ABA, build.lib().gridtorch_aba(
+    _launched(ABA, build.lib(nj).gridtorch_aba(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(u), build.ptr(qdd), L, float(gravity),
         build.stream_ptr(q.device)))
@@ -216,7 +226,7 @@ def minv(model: RobotModel, q, dense: bool = True):
         return minv_plain(model, q, dense)
     dcode, nj, L = _lanes(model, MINV, dict(q=q))
     Mi = _empty(q, model.n, model.n, L)
-    _launched(MINV, build.lib().gridtorch_minv(
+    _launched(MINV, build.lib(nj).gridtorch_minv(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(Mi), L, int(bool(dense)), build.stream_ptr(q.device)))
     return Mi
@@ -227,7 +237,7 @@ def fd(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
         return fd_plain(model, q, qd, u, gravity)
     dcode, nj, L = _lanes(model, FD, dict(q=q, qd=qd, u=u))
     qdd = _empty(q, model.n, L)
-    _launched(FD, build.lib().gridtorch_fd(
+    _launched(FD, build.lib(nj).gridtorch_fd(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(u), build.ptr(qdd), L, float(gravity),
         build.stream_ptr(q.device)))
@@ -239,7 +249,7 @@ def crba(model: RobotModel, q):
         return crba_plain(model, q)
     dcode, nj, L = _lanes(model, CRBA, dict(q=q))
     M = _empty(q, model.n, model.n, L)
-    _launched(CRBA, build.lib().gridtorch_crba(
+    _launched(CRBA, build.lib(nj).gridtorch_crba(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(M), L, build.stream_ptr(q.device)))
     return M
@@ -251,7 +261,7 @@ def _ee_launch(what: str, model: RobotModel, q, targets, *cols):
     dcode, nj, L = _lanes(model, what, dict(q=q))
     ee = build.ee_buffer(model, targets)
     out = _empty(q, 6 * ee.shape[0], *cols, L)
-    _launched(what, getattr(build.lib(), f"gridtorch_{what}")(
+    _launched(what, getattr(build.lib(nj), f"gridtorch_{what}")(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(ee),
         ee.shape[0], build.ptr(q), build.ptr(out), L,
         build.stream_ptr(q.device)))
@@ -270,6 +280,12 @@ def deepos(model: RobotModel, q, targets=None):
     return _ee_launch(DEEPOS, model, q, targets, model.n)
 
 
+def d2eepos(model: RobotModel, q, targets=None):
+    if not q.is_cuda:
+        return d2eepos_plain(model, q, targets)
+    return _ee_launch(D2EEPOS, model, q, targets, model.n, model.n)
+
+
 def idsva_so(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
     if not q.is_cuda:
         return idsva_so_plain(model, q, qd, qdd, gravity)
@@ -278,7 +294,7 @@ def idsva_so(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
     dcode, nj, L = _lanes(model, IDSVA_SO, dict(q=q, qd=qd, qdd=qdd))
     n = model.n
     out = _empty(q, 4, n, n, n, L)
-    _launched(IDSVA_SO, build.lib().gridtorch_idsva_so(
+    _launched(IDSVA_SO, build.lib(nj).gridtorch_idsva_so(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(qdd), build.ptr(out), L, float(gravity),
         build.stream_ptr(q.device)))
@@ -294,7 +310,7 @@ def fdsva_so(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
     n = model.n
     out = _empty(q, 4, n, n, n, L)
     scratch = _empty(q, 4, n, n, n, L)
-    _launched(FDSVA_SO, build.lib().gridtorch_fdsva_so(
+    _launched(FDSVA_SO, build.lib(nj).gridtorch_fdsva_so(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(u), build.ptr(out), build.ptr(scratch), L,
         float(gravity), build.stream_ptr(q.device)))

@@ -2,6 +2,9 @@
 
 * ``rollout`` — open-loop N-step rollout with the control clamp.
   Replaces ``gridcodegenerator_tpu/ops/pallas/sweeps.py:rollout_pallas``.
+* ``feedback_rollout`` — closed-loop N-step rollout of one step size, the
+  step size folded into the feedforward term. Replaces
+  ``sweeps.py:feedback_rollout_pallas``.
 * ``linesearch_rollout`` — feedback rollouts for every step size at once,
   with the cost (EE reach or quadratic) summed inside the sweep. Replaces
   ``sweeps.py:linesearch_rollout_pallas``.
@@ -39,14 +42,17 @@ from ..spatial import bmm, bmv
 from . import build
 
 ROLLOUT = "rollout"
+FEEDBACK = "feedback_rollout"
 LINESEARCH = "linesearch_rollout"
 RICCATI = "riccati_factored"
 RICCATI_DENSE = "riccati"
 SOURCES = {ROLLOUT: "gridcodegenerator_tpu_torch/csrc/rollout.cu",
+           FEEDBACK: "gridcodegenerator_tpu_torch/csrc/feedback_rollout.cu",
            LINESEARCH: "gridcodegenerator_tpu_torch/csrc/linesearch.cu",
            RICCATI: "gridcodegenerator_tpu_torch/csrc/riccati.cu",
            RICCATI_DENSE: "gridcodegenerator_tpu_torch/csrc/riccati.cu"}
 REPLACES = {ROLLOUT: "gridcodegenerator_tpu/ops/pallas/sweeps.py:406",
+            FEEDBACK: "gridcodegenerator_tpu/ops/pallas/sweeps.py:440",
             LINESEARCH: "gridcodegenerator_tpu/ops/pallas/sweeps.py:486",
             RICCATI: "gridcodegenerator_tpu/ops/pallas/sweeps.py:267",
             RICCATI_DENSE: "gridcodegenerator_tpu/ops/pallas/sweeps.py:689"}
@@ -96,13 +102,57 @@ def rollout(model: RobotModel, x0, U, dt, gravity=DEFAULT_GRAVITY,
     build.require(dict(x0=x0, U=U, u_lo=u_lo, u_hi=u_hi), x0.dtype,
                   x0.device, ROLLOUT)
     X = torch.empty((N, nx, B), dtype=x0.dtype, device=x0.device)
-    err = build.lib().gridtorch_rollout(
+    err = build.lib(nj).gridtorch_rollout(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(x0),
         build.ptr(U), build.ptr(u_lo), build.ptr(u_hi), build.ptr(X), N, B,
         float(dt), float(gravity), build.stream_ptr(x0.device))
     build.check(err, ROLLOUT)
     build.LAUNCHES[ROLLOUT] += 1
     return X
+
+
+# ---------------------------------------------------------------------------
+# feedback rollout
+# ---------------------------------------------------------------------------
+
+def feedback_rollout_plain(model: RobotModel, x0, Uref, Xref, kff, K, dt,
+                           gravity=DEFAULT_GRAVITY, u_lo=None, u_hi=None):
+    """(x0 (nx,B), Uref (N,n,B), Xref (N,nx,B), kff (N,n,B), K (N,n,nx,B))
+    -> (X (N,nx,B), U (N,n,B)): u_t = clamp(Uref_t + kff_t + K_t (x_t -
+    Xref_t)), X the state after each step, U the clamped controls."""
+    build.PLAIN_CALLS[FEEDBACK] += 1
+    xs, us, x = [], [], x0
+    for t in range(Uref.shape[0]):
+        u = _clamp(Uref[t] + (kff[t] + bmv(K[t], x - Xref[t])), u_lo, u_hi)
+        x = euler_step(model, x, u, dt, gravity)
+        xs.append(x)
+        us.append(u)
+    return torch.stack(xs), torch.stack(us)
+
+
+def feedback_rollout(model: RobotModel, x0, Uref, Xref, kff, K, dt,
+                     gravity=DEFAULT_GRAVITY, u_lo=None, u_hi=None):
+    if not x0.is_cuda:
+        return feedback_rollout_plain(model, x0, Uref, Xref, kff, K, dt,
+                                      gravity, u_lo, u_hi)
+    dcode, nj = build.kernel_key(model, x0, FEEDBACK)
+    n, nx = model.n, 2 * model.n
+    N, B = Uref.shape[0], x0.shape[-1]
+    given = dict(x0=x0, Uref=Uref, Xref=Xref, kff=kff, K=K)
+    _check_shapes(FEEDBACK, dict(x0=(nx, B), Uref=(N, n, B), Xref=(N, nx, B),
+                                 kff=(N, n, B), K=(N, n, nx, B)), given)
+    build.require(dict(given, u_lo=u_lo, u_hi=u_hi), x0.dtype, x0.device,
+                  FEEDBACK)
+    X = torch.empty((N, nx, B), dtype=x0.dtype, device=x0.device)
+    U = torch.empty((N, n, B), dtype=x0.dtype, device=x0.device)
+    err = build.lib(nj).gridtorch_feedback_rollout(
+        dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(x0),
+        build.ptr(Uref), build.ptr(Xref), build.ptr(kff), build.ptr(K),
+        build.ptr(u_lo), build.ptr(u_hi), build.ptr(X), build.ptr(U), N, B,
+        float(dt), float(gravity), build.stream_ptr(x0.device))
+    build.check(err, FEEDBACK)
+    build.LAUNCHES[FEEDBACK] += 1
+    return X, U
 
 
 # ---------------------------------------------------------------------------
@@ -162,7 +212,7 @@ def linesearch_rollout(model: RobotModel, x0, Uref, Xref, k, K, alpha_rows,
     w = cost.kernel_weights
     if w["kind"] not in COST_KINDS:
         raise NotImplementedError(f"{LINESEARCH}: no kernel cost {w['kind']!r}")
-    err = build.lib().gridtorch_linesearch(
+    err = build.lib(nj).gridtorch_linesearch(
         dcode, nj, build.ptr(build.model_buffer(model, w["ee_index"])),
         build.ptr(x0), build.ptr(Uref),
         build.ptr(Xref), build.ptr(k), build.ptr(K), build.ptr(alpha_rows),
@@ -251,7 +301,7 @@ def riccati_factored(A, Bm, lx, lu, Jw, Vx0, Vxx0, reg, qd_diag, u_diag):
     build.require(dict(given, Bm=Bm), A.dtype, A.device, RICCATI)
     ks = torch.empty((N, n, B), dtype=A.dtype, device=A.device)
     Ks = torch.empty((N, n, nx, B), dtype=A.dtype, device=A.device)
-    err = build.lib().gridtorch_riccati_factored(
+    err = build.lib(n).gridtorch_riccati_factored(
         build.DTYPE_CODES[A.dtype], n, build.ptr(A), build.ptr(Bm),
         build.ptr(lx), build.ptr(lu), build.ptr(Jw), build.ptr(Vx0),
         build.ptr(Vxx0), build.ptr(ks), build.ptr(Ks), N, B, r, float(reg),
@@ -297,7 +347,7 @@ def riccati(A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg):
     build.require(dict(given, Bm=Bm), A.dtype, A.device, RICCATI_DENSE)
     ks = torch.empty((N, n, B), dtype=A.dtype, device=A.device)
     Ks = torch.empty((N, n, nx, B), dtype=A.dtype, device=A.device)
-    err = build.lib().gridtorch_riccati(
+    err = build.lib(n).gridtorch_riccati(
         build.DTYPE_CODES[A.dtype], n, build.ptr(A), build.ptr(Bm),
         build.ptr(lx), build.ptr(lu), build.ptr(lxx), build.ptr(luu),
         build.ptr(lux), int(stationary), build.ptr(Vx0), build.ptr(Vxx0),

@@ -104,6 +104,24 @@ def _joint_T_parts(model: RobotModel, i: int, qi, deriv: bool):
     raise NotImplementedError(model.jtype[i])
 
 
+def _joint_d2T(model: RobotModel, i: int, qi):
+    """Ttree . d2Tj/dq2 of joint i, (4,4,B...): -R on the rotating 2x2 block
+    of a revolute joint; None (zero) for a prismatic one."""
+    if model.jtype[i] != "revolute":
+        return None
+    z = torch.zeros_like(qi)
+    c, s = torch.cos(qi), torch.sin(qi)
+    ax = model.S_ind[i] % 3
+    if ax == 0:
+        R = [[z, z, z], [z, -c, s], [z, -s, -c]]
+    elif ax == 1:
+        R = [[-c, z, -s], [z, z, z], [s, z, -c]]
+    else:
+        R = [[-c, s, z], [-s, -c, z], [z, z, z]]
+    return _mm44(model.Ttree[i], _stack44([R[0] + [z], R[1] + [z],
+                                           R[2] + [z], [z, z, z, z]]))
+
+
 def _joint_T_lanes(model: RobotModel, i: int, qi):
     """Link->parent transform of joint i: qi (B...) -> (4,4,B...)."""
     return _mm44(model.Ttree[i], _joint_T_parts(model, i, qi, False)[0])
@@ -143,6 +161,36 @@ def _pose_jvp(T, dT):
     return torch.cat([dT[:3, 3], torch.stack([droll, dpitch, dyaw])], dim=0)
 
 
+def _hatan2(y, x, y1, x1, y2, x2, y12, x12):
+    """Second derivative of atan2(y, x) along directions 1 and 2, with the
+    second-order direction (y12, x12): f'[d12] + f''[d1, d2], where, with
+    r2 = x^2 + y^2, f_yy = -2xy/r2^2, f_xx = 2xy/r2^2, f_xy = (y^2-x^2)/r2^2."""
+    r2 = x * x + y * y
+    return ((x * y12 - y * x12) / r2
+            + (2 * x * y * (x1 * x2 - y1 * y2)
+               + (y * y - x * x) * (y1 * x2 + x1 * y2)) / (r2 * r2))
+
+
+def _pose_hvp(T, dT1, dT2, d2T):
+    """Second directional derivative of :func:`_pose_from_T` at T:
+    f'(T)[d2T] + f''(T)[dT1, dT2], in closed form. Pitch nests
+    r = sqrt(T21^2 + T22^2), whose second derivative is
+    (dT1 . dT2 + T . d2T) / r - r1 r2 / r on the (T21, T22) pair."""
+    a, b = T[2, 1], T[2, 2]
+    r = torch.sqrt(a * a + b * b)
+    r1 = (a * dT1[2, 1] + b * dT1[2, 2]) / r
+    r2 = (a * dT2[2, 1] + b * dT2[2, 2]) / r
+    r12 = (a * d2T[2, 1] + b * d2T[2, 2] + dT1[2, 1] * dT2[2, 1]
+           + dT1[2, 2] * dT2[2, 2] - r1 * r2) / r
+    roll = _hatan2(a, b, dT1[2, 1], dT1[2, 2], dT2[2, 1], dT2[2, 2],
+                   d2T[2, 1], d2T[2, 2])
+    pitch = -_hatan2(T[2, 0], r, dT1[2, 0], r1, dT2[2, 0], r2, d2T[2, 0],
+                     r12)
+    yaw = _hatan2(T[1, 0], T[0, 0], dT1[1, 0], dT1[0, 0], dT2[1, 0],
+                  dT2[0, 0], d2T[1, 0], d2T[0, 0])
+    return torch.cat([d2T[:3, 3], torch.stack([roll, pitch, yaw])], dim=0)
+
+
 def eepos(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
     """EE poses: q (num_pos, B...) -> (num_ees*6, B...)."""
     check_fixed_base(model)
@@ -157,36 +205,82 @@ def eexyz(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
                       for chain, fid in ee_chains(model, targets)], dim=0)
 
 
+def _chain_parts(model: RobotModel, q, chain):
+    """Per chain joint a: T_a and dT_a (Ttree applied), prefix_a = T_0 ...
+    T_a-1 (None for a = 0) and suffix_a = T_a+1 ... T_k-1 Tfixed (None for
+    the last joint without a fixed frame); and the full chain transform."""
+    chain, fid = chain
+    Ts, dTs = [], []
+    for j in chain:
+        Tj, dTj = _joint_T_parts(model, j, q[j], True)
+        Ts.append(_mm44(model.Ttree[j], Tj))
+        dTs.append(_mm44(model.Ttree[j], dTj))
+    k = len(chain)
+    prefix, acc = [None] * k, None
+    for a in range(k):
+        prefix[a] = acc
+        acc = Ts[a] if acc is None else _mm44(acc, Ts[a])
+    suffix = [None] * k
+    acc = model.Tfixed[fid] if fid is not None else None
+    for a in range(k - 1, -1, -1):
+        suffix[a] = acc
+        acc = Ts[a] if acc is None else _mm44(Ts[a], acc)
+    return Ts, dTs, prefix, suffix, acc
+
+
 def deepos(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
     """EE pose Jacobian, chain form: (num_ees*6, num_pos, B...)."""
     check_fixed_base(model)
     npos = model.num_pos
     zero = torch.zeros((6,) + q.shape[1:], dtype=q.dtype, device=q.device)
     blocks = []
-    for chain, fid in ee_chains(model, targets):
+    for chain in ee_chains(model, targets):
         cols = {}
-        if chain:
-            Ts, dTs = [], []
-            for j in chain:
-                Tj, dTj = _joint_T_parts(model, j, q[j], True)
-                Ts.append(_mm44(model.Ttree[j], Tj))
-                dTs.append(_mm44(model.Ttree[j], dTj))
-            k = len(chain)
-            prefix, acc = [None] * k, None
-            for a in range(k):
-                prefix[a] = acc
-                acc = Ts[a] if acc is None else _mm44(acc, Ts[a])
-            suffix = [None] * k
-            acc = model.Tfixed[fid] if fid is not None else None
-            for a in range(k - 1, -1, -1):
-                suffix[a] = acc
-                acc = Ts[a] if acc is None else _mm44(Ts[a], acc)
-            Tfull = acc
-            for a, j in enumerate(chain):
+        if chain[0]:
+            _, dTs, prefix, suffix, Tfull = _chain_parts(model, q, chain)
+            for a, j in enumerate(chain[0]):
                 dT = _mm44_opt(_mm44_opt(prefix[a], dTs[a]), suffix[a])
                 cols[j] = _pose_jvp(Tfull, dT)
         blocks.append(torch.stack([cols.get(c, zero) for c in range(npos)],
                                   dim=1))
+    return torch.cat(blocks, dim=0)
+
+
+def d2eepos(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
+    """EE pose Hessian, chain form: (num_ees*6, num_pos, num_pos, B...),
+    symmetric; ``gridcodegenerator_tpu/ops/eepose.py:d2eepos_chain``.
+
+    For chain joints a < b, d2T/dq_a dq_b = W_ab . dT_b . suffix_b with
+    W_ab = prefix_a . dT_a . T_a+1 ... T_b-1 (one sweep per a), and
+    d2T/dq_a^2 = prefix_a . d2T_a . suffix_a; each goes through the pose
+    extraction's second derivative (:func:`_pose_hvp`). Joints off the
+    chain, and every entry of an EE with an empty chain, are zero."""
+    check_fixed_base(model)
+    npos = model.num_pos
+    zero = torch.zeros((6,) + q.shape[1:], dtype=q.dtype, device=q.device)
+    zero44 = torch.zeros((4, 4) + q.shape[1:], dtype=q.dtype, device=q.device)
+    blocks = []
+    for chain in ee_chains(model, targets):
+        H = {}
+        if chain[0]:
+            js = chain[0]
+            Ts, dTs, prefix, suffix, Tfull = _chain_parts(model, q, chain)
+            dTf = [_mm44_opt(_mm44_opt(prefix[a], dTs[a]), suffix[a])
+                   for a in range(len(js))]
+            for a, ja in enumerate(js):
+                d2j = _joint_d2T(model, ja, q[ja])
+                d2T = (zero44 if d2j is None else
+                       _mm44_opt(_mm44_opt(prefix[a], d2j), suffix[a]))
+                H[ja, ja] = _pose_hvp(Tfull, dTf[a], dTf[a], d2T)
+                W = _mm44_opt(prefix[a], dTs[a])
+                for b in range(a + 1, len(js)):
+                    d2T = _mm44_opt(_mm44(W, dTs[b]), suffix[b])
+                    H[ja, js[b]] = H[js[b], ja] = _pose_hvp(Tfull, dTf[a],
+                                                            dTf[b], d2T)
+                    W = _mm44(W, Ts[b])
+        blocks.append(torch.stack([
+            torch.stack([H.get((r, c), zero) for c in range(npos)], dim=1)
+            for r in range(npos)], dim=1))
     return torch.cat(blocks, dim=0)
 
 

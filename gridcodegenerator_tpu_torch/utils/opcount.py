@@ -42,7 +42,7 @@ BUILD_ROOT = build.BUILD_ROOT.parent / "opcount"
 # kernel ids of csrc/opcount.cpp
 KERNELS = ("rnea", "id_du", "aba", "minv", "fd", "crba", "eepos", "deepos",
            "fd_du", "rollout", "linesearch_rollout", "riccati_factored",
-           "riccati", "idsva_so", "fdsva_so")
+           "riccati", "idsva_so", "fdsva_so", "d2eepos", "feedback_rollout")
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.float32: 67e12, torch.float64: 34e12}
 

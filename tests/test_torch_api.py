@@ -95,10 +95,6 @@ def test_grids_hold_the_same_robot(grids):
     np.testing.assert_array_equal(ours.joint_limits(), ref.joint_limits())
 
 
-# method -> its arguments for a 7-joint robot
-UNPORTED = {"d2eepos": (np.zeros(7),)}
-
-
 # second-order call -> how to call it on either GRiD
 SO_CALLS = {
     "idsva_so": lambda g, x: g.idsva_so(x["q"], x["qd"], x["qdd"]),
@@ -151,13 +147,6 @@ def test_grid_second_order_iiwa_matches_jax_ops(call):
                                atol=ATOL64)
 
 
-@pytest.mark.parametrize("method", sorted(UNPORTED))
-def test_unported_methods_raise(method):
-    g = GRiD("iiwa", dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue"):
-        getattr(g, method)(*UNPORTED[method])
-
-
 @pytest.mark.parametrize("kwargs,error", [
     (dict(floating_base=True), NotImplementedError),
     (dict(use_kernels=True), ValueError),   # kernels need a CUDA device
@@ -178,6 +167,7 @@ def test_each_call_runs_one_plain_version_on_cpu(use_kernels):
                                   ("minv", "minv", 1), ("fd", "fd", 3),
                                   ("crba", "crba", 1), ("eepos", "eepos", 1),
                                   ("deepos", "deepos", 1),
+                                  ("d2eepos", "d2eepos", 1),
                                   ("idsva_so", "idsva_so", 3),
                                   ("fdsva_so", "fdsva_so", 3)):
         build.reset_counters()

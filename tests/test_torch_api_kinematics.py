@@ -1,10 +1,11 @@
-"""The port's GRiD calls fd, crba, eepos, deepos, fk and fd_packed, and
-``ee_targets``, against the JAX package's GRiD (CPU).
+"""The port's GRiD calls fd, crba, eepos, deepos, d2eepos, fk and
+fd_packed, and ``ee_targets``, against the JAX package's GRiD (CPU).
 
 Inputs are made with numpy from a seed and fed to both; the JAX GRiD runs
 its XLA tier (``use_pallas=False``), the port's its plain versions (CPU
 tensors). Tolerances as in ``test_torch_api.py``: 1e-10 absolute in
-float64; in float32 1e-4 for values and 1e-3 for the EE Jacobian.
+float64; in float32 1e-4 for values and 1e-3 for the EE Jacobian and
+Hessian.
 """
 
 import jax.numpy as jnp
@@ -50,6 +51,7 @@ CALLS = {
     "crba": (lambda g, x: g.crba(x["q"]), "value"),
     "eepos": (lambda g, x: g.eepos(x["q"]), "value"),
     "deepos": (lambda g, x: g.deepos(x["q"]), "gradient"),
+    "d2eepos": (lambda g, x: g.d2eepos(x["q"]), "gradient"),
     "fk": (lambda g, x: g.fk(x["q"]), "value"),
 }
 

@@ -14,6 +14,7 @@ against its plain PyTorch version.
 This file imports no jax, so it also runs where jax is not installed.
 """
 
+import copy
 import ctypes
 import os
 import shutil
@@ -46,31 +47,41 @@ TOL = 1e-9
 KERNELS = ("fd_du", "rollout", "riccati_factored", "linesearch_rollout",
            "rnea", "rnea_bias", "id_du", "aba", "minv", "minv_upper",
            "idsva_so", "fdsva_so", "riccati", "riccati_stacked",
-           "linesearch_quad")
+           "linesearch_quad", "feedback_rollout")
 # the GRiD API's kernel cases; the _targets cases run the EE kernels on
 # some of the robot's EEs (GRiD(ee_targets=...))
 GRID_CASES = ("rnea", "rnea_bias", "id_du", "aba", "minv", "minv_upper",
               "fd_du", "fd", "crba", "eepos", "eepos_targets", "deepos",
-              "deepos_targets")
+              "deepos_targets", "d2eepos", "d2eepos_targets")
 KERNEL_OF = {"rnea_bias": "rnea", "minv_upper": "minv",
              "eepos_targets": "eepos", "deepos_targets": "deepos",
+             "d2eepos_targets": "d2eepos",
              "riccati_stacked": "riccati",
              "linesearch_quad": "linesearch_rollout"}
 # EE targets per robot (pendulum2 has no fixed frames to name); gym_ant's
 # EEs are welded to the base, so their chains are empty
 TARGETS = {"pendulum2": None, "iiwa": ["ee_fixed"],
            "hyq": ["lf_foot_fixed", "rh_foot_fixed"],
-           "gym_ant": ["front_left_leg_weld", "back_leg_weld"]}
+           "gym_ant": ["front_left_leg_weld", "back_leg_weld"],
+           "dm_quadruped": ["toe_front_left_weld", "toe_back_right_weld"]}
+# every joint count the kernels are built for: 2, 7, 12 (branched, 4 EEs),
+# 8 (EEs on the base) and 16 (branched, 4 EEs)
+ROBOTS = ("pendulum2", "iiwa", "hyq", "gym_ant", "dm_quadruped")
+# the sweeps' time step: dm_quadruped's joint damping (30) on its light links
+# makes semi-implicit Euler diverge at 0.01 (in the JAX reference too), so
+# its sweeps run at a step where the rollouts stay bounded
+DT = {"dm_quadruped": 0.002}
 
 
 def path_inputs(model, N, B, seed):
     """Each kernel's arguments as the solver's first iteration makes them
     (plain ops), from random initial states and controls."""
     n, dev = model.n, model.device
+    dt = DT.get(model.name, 0.01)
     goal = eepose.eepos(model, torch.full((n, 1), 0.5, dtype=model.dtype,
                                           device=dev))[:3, 0]
     cost = EEReachCost(model=model, goal_xyz=goal, w_pos=0.5, w_pos_f=200.0)
-    cfg = ILQRConfig(N=N, iters=1, use_kernels=False)
+    cfg = ILQRConfig(N=N, dt=dt, iters=1, use_kernels=False)
     _, parts = make_ilqr(model, cost, cfg, expose_parts=True)
     rng = np.random.default_rng(seed)
     x0 = torch.as_tensor(rng.uniform(-0.3, 0.3, (2 * n, B)),
@@ -113,19 +124,21 @@ def path_inputs(model, N, B, seed):
                     x_goal=torch.as_tensor(rng.uniform(-0.5, 0.5, nx)))
     return {
         "fd_du": (model, q, qd, u, -9.81),
+        "feedback_rollout": (model, X[0].contiguous(), U, X[:N].contiguous(),
+                             0.5 * ks, Ks, dt, -9.81, lo, hi),
         "rnea": (model, q, qd, u, -9.81),   # u as qdd
         "rnea_bias": (model, q, qd, None, -9.81),
         "id_du": (model, q, qd, u, -9.81),
         "aba": (model, q, qd, u, -9.81),
         "minv": (model, q, True),
         "minv_upper": (model, q, False),
-        "rollout": (model, x0, U, 0.01, -9.81, lo, hi),
+        "rollout": (model, x0, U, dt, -9.81, lo, hi),
         "riccati_factored": ric,
         "linesearch_rollout": (model, X[0].contiguous(), U,
-                               X[:N].contiguous(), ks, Ks, al, 0.01, -9.81,
+                               X[:N].contiguous(), ks, Ks, al, dt, -9.81,
                                lo, hi, cost),
         "linesearch_quad": (model, X[0].contiguous(), U, X[:N].contiguous(),
-                            ks, Ks, al, 0.01, -9.81, lo, hi, quad),
+                            ks, Ks, al, dt, -9.81, lo, hi, quad),
         "idsva_so": (model, q, qd, u, -9.81),   # u as qdd
         "fdsva_so": (model, q, qd, u, -9.81),
         "riccati": dense + (lxx[0].contiguous(), luu[0].contiguous(),
@@ -154,7 +167,9 @@ def grid_inputs(model, robot, L, seed):
             "eepos": (model, q),
             "eepos_targets": (model, q, tg),
             "deepos": (model, q),
-            "deepos_targets": (model, q, tg)}
+            "deepos_targets": (model, q, tg),
+            "d2eepos": (model, q),
+            "d2eepos_targets": (model, q, tg)}
 
 
 def grid_params(robots):
@@ -180,6 +195,10 @@ WRAPPERS = {"fd_du": (K.fd_du, K.fd_du_plain),
             "eepos_targets": (K.eepos, K.eepos_plain),
             "deepos": (K.deepos, K.deepos_plain),
             "deepos_targets": (K.deepos, K.deepos_plain),
+            "d2eepos": (K.d2eepos, K.d2eepos_plain),
+            "d2eepos_targets": (K.d2eepos, K.d2eepos_plain),
+            "feedback_rollout": (S.feedback_rollout,
+                                 S.feedback_rollout_plain),
             "idsva_so": (K.idsva_so, K.idsva_so_plain),
             "fdsva_so": (K.fdsva_so, K.fdsva_so_plain),
             "riccati": (S.riccati, S.riccati_plain),
@@ -309,6 +328,8 @@ HARNESS = r"""
 #include "deepos.cu"
 #include "idsva_so.cu"
 #include "fdsva_so.cu"
+#include "d2eepos.cu"
+#include "feedback_rollout.cu"
 using namespace gt;
 typedef long long ll;
 
@@ -414,27 +435,46 @@ extern "C" void deepos_##NJ(const double* m, const double* ee, int ne,     \
     ee_jac_lane<double, NJ>(R, ee, ne, ql, out + l, L);                     \
   }                                                                         \
 }                                                                           \
-extern "C" void rollout_##NJ(const double* m, const double* x0,            \
-    const double* U, const double* lo, const double* hi, double* X, int N,  \
-    ll B) {                                                                 \
+extern "C" void d2eepos_##NJ(const double* m, const double* ee, int ne,    \
+    const double* q, double* out, ll L) {                                   \
+  Robot<double, NJ> R(m);                                                   \
+  for (ll l = 0; l < L; ++l) {                                              \
+    double ql[NJ];                                                          \
+    lane_load<double, NJ>(q, L, l, ql);                                     \
+    ee_hess_lane<double, NJ>(R, ee, ne, ql, out + l, L);                    \
+  }                                                                         \
+}                                                                           \
+extern "C" void fbr_##NJ(const double* m, const double* x0,                \
+    const double* Ur, const double* Xr, const double* kff, const double* K, \
+    const double* lo, const double* hi, double* X, double* U, int N,        \
+    ll B, double dt) {                                                      \
   Robot<double, NJ> R(m);                                                   \
   for (ll b = 0; b < B; ++b)                                                \
-    rollout_lane<double, NJ>(R, x0, U, lo, hi, X, N, B, b, 0.01, -9.81);    \
+    feedback_rollout_lane<double, NJ>(R, x0, Ur, Xr, kff, K, lo, hi, X, U,  \
+                                      N, B, b, dt, -9.81);                  \
+}                                                                           \
+extern "C" void rollout_##NJ(const double* m, const double* x0,            \
+    const double* U, const double* lo, const double* hi, double* X, int N,  \
+    ll B, double dt) {                                                      \
+  Robot<double, NJ> R(m);                                                   \
+  for (ll b = 0; b < B; ++b)                                                \
+    rollout_lane<double, NJ>(R, x0, U, lo, hi, X, N, B, b, dt, -9.81);      \
 }                                                                           \
 extern "C" void ls_##NJ(const double* m, const double* x0,                 \
     const double* Ur, const double* Xr, const double* k, const double* K,   \
     const double* al, const double* lo, const double* hi, double* X,        \
-    double* U, double* c, int N, ll B, int na, int kind, const double* w) { \
+    double* U, double* c, int N, ll B, int na, int kind, const double* w,   \
+    double dt) {                                                            \
   Robot<double, NJ> R(m);                                                   \
   const EECost<double, NJ> e{w};                                            \
   const QuadCostK<double, NJ> qc{w};                                        \
   for (ll l = 0; l < (ll)na * B; ++l) {                                     \
     if (kind == 0)                                                          \
       linesearch_lane<double, NJ>(R, x0, Ur, Xr, k, K, al, lo, hi, X, U, c, \
-                                  N, B, na, l, 0.01, -9.81, e);             \
+                                  N, B, na, l, dt, -9.81, e);               \
     else                                                                    \
       linesearch_lane<double, NJ>(R, x0, Ur, Xr, k, K, al, lo, hi, X, U, c, \
-                                  N, B, na, l, 0.01, -9.81, qc);            \
+                                  N, B, na, l, dt, -9.81, qc);              \
   }                                                                         \
 }                                                                           \
 extern "C" void ricd_##NJ(const double* A, const double* Bm,               \
@@ -483,6 +523,7 @@ HOST(2)
 HOST(7)
 HOST(8)
 HOST(12)
+HOST(16)
 """
 
 
@@ -540,14 +581,15 @@ def _host_run(lib, name, args):
         getattr(lib, f"crba_{n}")(_p(build.model_buffer(m)), _p(q), _p(out),
                                   ll(L))
         return (out,)
-    if name in ("eepos", "eepos_targets", "deepos", "deepos_targets"):
+    if name.startswith(("eepos", "deepos", "d2eepos")):
         m, q, *targets = args
         n, L = q.shape
         ee = build.ee_buffer(m, *targets)
         ne = ee.shape[0]
         kernel = KERNEL_OF.get(name, name)
-        out = torch.empty((6 * ne, L) if kernel == "eepos" else (6 * ne, n, L),
-                          dtype=q.dtype)
+        cols = {"eepos": (), "deepos": (n,), "d2eepos": (n, n)}[kernel]
+        # NaN where the card would hand over uninitialised memory
+        out = torch.full((6 * ne, *cols, L), float("nan"), dtype=q.dtype)
         getattr(lib, f"{kernel}_{n}")(_p(build.model_buffer(m)), _p(ee),
                                       ctypes.c_int(ne), _p(q), _p(out), ll(L))
         return (out,)
@@ -559,12 +601,21 @@ def _host_run(lib, name, args):
                                   ll(L), ctypes.c_int(int(dense)))
         return (out,)
     if name == "rollout":
-        m, x0, U, _, _, lo, hi = args
+        m, x0, U, dt, _, lo, hi = args
         N, n, B = U.shape
         X = torch.empty(N, 2 * n, B, dtype=U.dtype)
         getattr(lib, f"rollout_{n}")(_p(build.model_buffer(m)), _p(x0), _p(U),
-                                     _p(lo), _p(hi), _p(X), N, ll(B))
+                                     _p(lo), _p(hi), _p(X), N, ll(B), D(dt))
         return (X,)
+    if name == "feedback_rollout":
+        m, x0, Ur, Xr, kff, Km, dt, _, lo, hi = args
+        N, n, B = Ur.shape
+        X = torch.empty(N, 2 * n, B, dtype=Ur.dtype)
+        U = torch.empty(N, n, B, dtype=Ur.dtype)
+        getattr(lib, f"fbr_{n}")(*map(_p, (build.model_buffer(m), x0, Ur, Xr,
+                                           kff, Km, lo, hi, X, U)), N, ll(B),
+                                 D(dt))
+        return X, U
     if name in ("idsva_so", "fdsva_so"):
         m, q, qd, x, _ = args
         n, L = q.shape
@@ -595,7 +646,7 @@ def _host_run(lib, name, args):
                                            Ks)), N, ll(B), Jw.shape[0],
                                  D(reg), D(qd), D(ud))
         return ks, Ks
-    m, x0, Ur, Xr, k, Km, al, _, _, lo, hi, cost = args
+    m, x0, Ur, Xr, k, Km, al, dt, _, lo, hi, cost = args
     N, n, B = Ur.shape
     na = al.shape[0]
     X = torch.empty(N, 2 * n, na * B, dtype=x0.dtype)
@@ -605,11 +656,12 @@ def _host_run(lib, name, args):
     wv = torch.tensor(w["values"], dtype=torch.float64)
     getattr(lib, f"ls_{n}")(_p(build.model_buffer(m, w["ee_index"])),
                             *map(_p, (x0, Ur, Xr, k, Km, al, lo, hi, X, U, c)),
-                            N, ll(B), na, S.COST_KINDS[w["kind"]], _p(wv))
+                            N, ll(B), na, S.COST_KINDS[w["kind"]], _p(wv),
+                            D(dt))
     return X, U, c
 
 
-@pytest.mark.parametrize("robot", ["pendulum2", "iiwa", "hyq"])
+@pytest.mark.parametrize("robot", ROBOTS)
 @pytest.mark.parametrize("name", KERNELS)
 def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
@@ -623,12 +675,24 @@ def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
         assert not got[0].permute(2, 0, 1).tril(-1).any()
 
 
-@pytest.mark.parametrize("case,robot", grid_params(
-    ["pendulum2", "iiwa", "hyq", "gym_ant"]))
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_host_feedback_rollout_is_the_line_search_alpha_1_row(host_lib,
+                                                              robot):
+    """The feedback rollout's lane with kff = k is the line search's alpha =
+    1 row bit for bit: the two share the control law and the Euler step."""
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    ls = list(path_inputs(m, 6, 5, seed=2)["linesearch_rollout"])
+    ls[6] = torch.ones_like(ls[6][:1])
+    X, U, _ = _host_run(host_lib, "linesearch_rollout", ls)
+    Xf, Uf = _host_run(host_lib, "feedback_rollout", ls[:6] + ls[7:11])
+    assert torch.equal(Xf, X) and torch.equal(Uf, U)
+
+
+@pytest.mark.parametrize("case,robot", grid_params(ROBOTS))
 def test_host_build_of_grid_kernel_matches_plain(host_lib, case, robot):
-    """Every GRiD kernel's lane code on chains (pendulum2, iiwa), a branched
-    robot with 12 joints and 4 EEs (hyq), and EEs with empty chains
-    (gym_ant, 8 joints)."""
+    """Every GRiD kernel's lane code on chains (pendulum2, iiwa), branched
+    robots with 12 and 16 joints and 4 EEs (hyq, dm_quadruped), and EEs
+    with empty chains (gym_ant, 8 joints)."""
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
     assert getattr(host_lib, f"size_{m.n}")() == build.model_buffer(m).numel()
     args = grid_inputs(m, robot, 9, seed=6)[case]
@@ -636,6 +700,29 @@ def test_host_build_of_grid_kernel_matches_plain(host_lib, case, robot):
     want = _outs(WRAPPERS[case][1](*args))
     assert len(got) == len(want)
     assert all(g.shape == w.shape for g, w in zip(got, want))
+    assert _max_err(got, want) <= TOL
+
+
+def gym_ant_feet(dtype, device):
+    """gym_ant with its fixed frames dropped, so that its EEs are its four
+    leaf links: its fixed frames all sit on the base (empty chains)."""
+    topo = copy.copy(load_robot("gym_ant"))
+    topo.fixed_joints = []
+    return build_model(topo, dtype=dtype, device=device)
+
+
+EE_KERNELS = ("eepos", "deepos", "d2eepos")
+
+
+@pytest.mark.parametrize("case", EE_KERNELS)
+def test_host_build_of_ee_kernel_on_gym_ant_feet(host_lib, case):
+    """The EE kernels' lane code on the 8-joint instance, on chains that
+    are not empty."""
+    m = gym_ant_feet(torch.float64, "cpu")
+    args = grid_inputs(m, "gym_ant", 9, seed=6)[case]
+    got = _host_run(host_lib, case, args)
+    want = _outs(WRAPPERS[case][1](*args))
+    assert float(want[0].abs().max()) > 0.1
     assert _max_err(got, want) <= TOL
 
 
@@ -654,8 +741,8 @@ def test_operation_counts(counts, kernel):
     amount with every knot; the bound takes the slower of its two limits."""
     m, quad = counts
     kw = dict(cost=quad) if kernel == "linesearch_rollout" else {}
-    if kernel in ("rollout", "linesearch_rollout", "riccati_factored",
-                  "riccati"):
+    if kernel in ("rollout", "feedback_rollout", "linesearch_rollout",
+                  "riccati_factored", "riccati"):
         c4, c8, c12 = (opcount.ops_per_lane(kernel, m, N=N, **kw)
                        for N in (4, 8, 12))
         assert 0 < c4 < c8 < c12 and c12 - c8 == c8 - c4
@@ -710,7 +797,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("robot", ["pendulum2", "iiwa", "hyq"])
+@pytest.mark.parametrize("robot", ROBOTS)
 @pytest.mark.parametrize("name", KERNELS)
 def test_cuda_kernel_matches_plain(cuda_device, name, robot):
     m = build_model(load_robot(robot), dtype=torch.float64,
@@ -730,7 +817,7 @@ def test_cuda_kernel_matches_plain(cuda_device, name, robot):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case,robot", grid_params(["iiwa", "hyq"]))
+@pytest.mark.parametrize("case,robot", grid_params(ROBOTS[1:]))
 def test_cuda_grid_kernel_matches_plain(cuda_device, case, robot):
     m = build_model(load_robot(robot), dtype=torch.float64,
                     device=cuda_device)
@@ -743,6 +830,20 @@ def test_cuda_grid_kernel_matches_plain(cuda_device, case, robot):
     assert not build.PLAIN_CALLS
     want = _outs(plain(*args))
     assert all(g.is_cuda and g.shape == w.shape for g, w in zip(got, want))
+    assert _max_err(got, want) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", EE_KERNELS)
+def test_cuda_ee_kernel_on_gym_ant_feet(cuda_device, case):
+    m = gym_ant_feet(torch.float64, cuda_device)
+    args = grid_inputs(m, "gym_ant", 37, seed=3)[case]   # a ragged block
+    build.reset_counters()
+    got = _outs(WRAPPERS[case][0](*args))
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {case: 1} and not build.PLAIN_CALLS
+    want = _outs(WRAPPERS[case][1](*args))
+    assert float(want[0].abs().max()) > 0.1
     assert _max_err(got, want) <= TOL
 
 
@@ -779,7 +880,8 @@ def test_cuda_grid_launches_one_kernel_per_call(cuda_device):
     calls = {"id": ("rnea", 3), "id_du": ("id_du", 3), "aba": ("aba", 3),
              "fd_du": ("fd_du", 3), "minv": ("minv", 1), "fd": ("fd", 3),
              "crba": ("crba", 1), "eepos": ("eepos", 1),
-             "deepos": ("deepos", 1), "idsva_so": ("idsva_so", 3),
+             "deepos": ("deepos", 1), "d2eepos": ("d2eepos", 1),
+             "idsva_so": ("idsva_so", 3),
              "fdsva_so": ("fdsva_so", 3)}
     for shape in ((7,), (37, 7)):
         x = [rng.uniform(-1, 1, shape) for _ in range(3)]

@@ -3,10 +3,12 @@
 The JAX kernels run in Pallas interpret mode on the CPU, as the JAX
 package's own ``tests/test_pallas_sweeps.py`` runs them; the port's plain
 versions (what its wrappers run on CPU tensors) take the same numpy inputs.
+The feedback rollout is also held against the ``lax.scan`` of that file.
 float64, tolerance 1e-10 absolute (scaled by the gains' size for the
 n=7 Riccati case).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,8 +16,10 @@ import torch
 
 from gridcodegenerator_tpu.models.model import build_model as jax_build_model
 from gridcodegenerator_tpu.models.zoo import load_robot as jax_load_robot
+from gridcodegenerator_tpu.ops.aba import aba as jax_aba
 from gridcodegenerator_tpu.ops import eepose as jax_eepose
 from gridcodegenerator_tpu.ops.pallas import sweeps as jax_sweeps
+from gridcodegenerator_tpu.ops.spatial import bmv as jax_bmv
 from gridcodegenerator_tpu.trajopt.cost import EEReachCost as JaxEEReachCost
 from gridcodegenerator_tpu_torch.models.model import (ARRAY_FIELDS,
                                                        STATIC_FIELDS,
@@ -66,6 +70,83 @@ def test_rollout_matches_jax_kernel(iiwa, bounded):
                           None if hi is None else _t(hi))
     assert build.PLAIN_CALLS["rollout"] == 1 and not build.LAUNCHES
     _close(ours, ref)
+
+
+@pytest.mark.parametrize("dt,finite", [(0.01, False), (0.002, True)])
+def test_dm_quadruped_euler_step_diverges_at_0_01(dt, finite):
+    """Config 4's dm_quadruped (bench.py:212-213, dt 0.01): its joint
+    damping on light links makes the semi-implicit Euler step unstable, so
+    from x0 ~ U(-0.2, 0.2), U = 0 every rollout of the JAX reference (a scan
+    of its ABA) and of the port leaves the finite numbers by knot 32; at
+    dt 0.002 both stay bounded, and they agree (1e-10)."""
+    jm = jax_build_model(jax_load_robot("dm_quadruped"), dtype=jnp.float64)
+    tm = model_from_numpy({f: np.asarray(getattr(jm, f)) for f in ARRAY_FIELDS},
+                          {f: getattr(jm, f) for f in STATIC_FIELDS},
+                          device="cpu")
+    n, N, B = jm.n, 32, 4
+    x0 = np.random.default_rng(0).uniform(-0.2, 0.2, (2 * n, B))
+    U = np.zeros((N, n, B))
+
+    def body(x, u):
+        q, qd = x[:n], x[n:]
+        qd_new = qd + dt * jax_aba(jm, q, qd, u, GRAV)
+        xn = jnp.concatenate([q + dt * qd_new, qd_new], axis=0)
+        return xn, xn
+
+    with np.errstate(all="ignore"):
+        _, ref = jax.lax.scan(body, jnp.asarray(x0), jnp.asarray(U))
+        ref = np.asarray(ref)
+        ours = sweeps.rollout(tm, _t(x0), _t(U), dt, GRAV)
+    last = lambda X: np.isfinite(np.asarray(X)[-1]).all(axis=0)
+    assert last(ref).tolist() == last(ours).tolist() == [finite] * B
+    if finite:
+        assert np.abs(ref).max() < 10
+        _close(ours, ref)
+
+
+@pytest.mark.parametrize("bounded", [False, True])
+def test_feedback_rollout_matches_jax_kernel_and_scan(iiwa, bounded):
+    """u_t = clamp(Uref_t + kff_t + K_t (x_t - Xref_t)); X after each step,
+    U after the clamp."""
+    jm, tm = iiwa
+    n, N, B = jm.n, 8, 4
+    nx = 2 * n
+    rng = np.random.default_rng(4)
+    x0 = rng.uniform(-0.5, 0.5, (nx, B))
+    Uref = rng.uniform(-1, 1, (N, n, B))
+    Xref = rng.uniform(-0.5, 0.5, (N, nx, B))
+    kff = 0.1 * rng.uniform(-1, 1, (N, n, B))
+    K = 0.1 * rng.uniform(-1, 1, (N, n, nx, B))
+    lo = hi = None
+    if bounded:   # per-dof (n, 1) bounds, active on some controls
+        lo, hi = -0.6 * np.ones((n, 1)), 0.7 * np.ones((n, 1))
+    ins = (x0, Uref, Xref, kff, K)
+    X_r, U_r = jax_sweeps.feedback_rollout_pallas(
+        jm, N, DT, GRAV, lo, hi, block_b=B, interpret=True)(
+            *map(jnp.asarray, ins))
+
+    def body(x, inp):
+        xr, ur, k_t, K_t = inp
+        u = ur + k_t + jax_bmv(K_t, x - xr)
+        if bounded:
+            u = jnp.clip(u, lo, hi)
+        q, qd = x[:n], x[n:]
+        qd_new = qd + DT * jax_aba(jm, q, qd, u, GRAV)
+        xn = jnp.concatenate([q + DT * qd_new, qd_new], axis=0)
+        return xn, (xn, u)
+
+    _, (X_s, U_s) = jax.lax.scan(body, jnp.asarray(x0), tuple(
+        map(jnp.asarray, (Xref, Uref, kff, K))))
+    build.reset_counters()
+    X_o, U_o = sweeps.feedback_rollout(
+        tm, *map(_t, ins), DT, GRAV, None if lo is None else _t(lo),
+        None if hi is None else _t(hi))
+    assert build.PLAIN_CALLS["feedback_rollout"] == 1 and not build.LAUNCHES
+    assert X_o.shape == (N, nx, B) and U_o.shape == (N, n, B)
+    if bounded:
+        assert bool((U_o == 0.7).any()) and bool((U_o == -0.6).any())
+    for ours, ref in ((X_o, X_r), (U_o, U_r), (X_o, X_s), (U_o, U_s)):
+        _close(ours, ref)
 
 
 def test_linesearch_rollout_matches_jax_kernel(iiwa):
