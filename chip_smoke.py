@@ -9,7 +9,9 @@ Phases, one line each:
   0. device: fail without CUDA; print the card's name and power limit;
   1. build: compile the CUDA kernels from gridcodegenerator_tpu_torch/csrc,
      one library per joint count, every nvcc at once (and the host
-     operation counter, utils/opcount.py);
+     operation counter, utils/opcount.py); the block plan (knots a block,
+     shared bytes) and cudaFuncGetAttributes of every fd_du and fdsva_so
+     instance (a warp per knot);
   2. each kernel against its plain PyTorch version on the same CUDA inputs,
      iiwa at small B and N (37 lanes: a ragged block), float64: max abs
      error <= 1e-9; and every GRiD kernel case on hyq (12 joints, branched,
@@ -19,12 +21,16 @@ Phases, one line each:
      welded EEs, and its four feet) and dm_quadruped, and every GRiD kernel
      case on gym_ant (8 joints, EEs at the feet) and dm_quadruped (16
      joints, branched);
-  3. the same in float32 (tolerances below), with each kernel's and plain
-     version's device time from CUDA events: the config-3 kernels and the
+  3. the same in float32 (tolerances below): fd_du and fdsva_so at 37
+     lanes on iiwa, hyq, gym_ant and dm_quadruped; with each kernel's and
+     plain version's device time from CUDA events: the config-3 kernels and the
      feedback rollout at config-3 shapes, the GRiD kernels (rnea, id_du,
      aba, minv, fd, crba, eepos, deepos) at 1024 and 131072 lanes, riccati
      (stationary) at the config-3 QuadCost shapes, idsva_so and fdsva_so at
      1024 lanes and at config 4's N*B lanes (iiwa 32768, hyq 16384),
+     fd_du at 1024 lanes and at config 4's N*B lanes on its four robots,
+     fdsva_so at config 4's N*B lanes on gym_ant and dm_quadruped (these
+     held to the float32 rule on their first 1024 lanes),
      d2eepos at 1024 lanes and at L_HESS lanes (iiwa, hyq, dm_quadruped);
      and, in float64, the feedback rollout against the line search's
      alpha = 1 row on the same inputs (the two share their control law and
@@ -188,6 +194,13 @@ def main():
                    "sources": len(build.SOURCES), "nvcc_jobs": os.cpu_count(),
                    "libraries": {nj: str(p.relative_to(
                        build.BUILD_ROOT.parents[1])) for nj, p in libs.items()}})
+    # the warp-per-knot kernels: knots a block, shared bytes a block and
+    # cudaFuncGetAttributes of every instance
+    line("warp_kernel_plans", {
+        f"{what} {str(dtype)[6:]} nj{nj}": build.warp_kernel_info(what, nj,
+                                                                  dtype)
+        for what in ("fd_du", "fdsva_so") for nj in build.SUPPORTED_JOINTS
+        for dtype in (torch.float32, torch.float64)})
 
     topo = load_robot("iiwa")
 
@@ -549,6 +562,24 @@ def main():
                                  f"{ep} + floor)")
         return ek, ep
 
+    # fd_du and fdsva_so (a warp per knot, G knots a block) in float32 at
+    # 37 lanes, a ragged block, on every robot of phase 2, by the rule above
+    warp37 = {}
+    for model in (m32, hyq32, gym32, dmq32):
+        args = so_cases(model, 37, seed=1)["fdsva_so"]
+        for name in ("fd_du", "fdsva_so"):
+            kern, plain = case_fns[name]
+            out, ref = as_tuple(kern(*args)), as_tuple(plain(*args))
+            ref64 = as_tuple(plain(*map(to64, args)))
+            torch.cuda.synchronize()
+            errs = [check_f32(f"{model.name} {name} L=37 output {k}", o, r,
+                              r64)
+                    for k, (o, r, r64) in enumerate(zip(out, ref, ref64))]
+            warp37[f"{model.name} {name}"] = {
+                "kernel_err_vs_f64": max(e[0] for e in errs),
+                "plain_err_vs_f64": max(e[1] for e in errs)}
+    line("warp_kernels_f32_37_lanes", warp37)
+
     grid_f32 = {}
     for lanes in (L1, N * B):
         for case, args in lane_cases(m32, lanes, seed=0).items():
@@ -607,6 +638,33 @@ def main():
                 del args
             torch.cuda.empty_cache()
     line("second_order_riccati_f32", new_f32)
+
+    # the warp-per-knot kernels at the main paths' other shapes: fd_du at
+    # L1 lanes and at config 4's N*B lanes, fdsva_so at config 4's lanes on
+    # gym_ant and dm_quadruped; each held to the float32 rule on its first
+    # L1 lanes (a float64 plain fdsva_so of 16384 16-joint lanes would take
+    # gigabytes)
+    warp_f32 = {}
+    for name, model, lanes in (
+            ("fd_du", m32, L1), ("fd_du", m32, N4 * B4["iiwa"]),
+            ("fd_du", gym32, N4 * B4["gym_ant"]),
+            ("fd_du", hyq32, N4 * B4["hyq"]),
+            ("fd_du", dmq32, N4 * B4["dm_quadruped"]),
+            ("fdsva_so", gym32, N4 * B4["gym_ant"]),
+            ("fdsva_so", dmq32, N4 * B4["dm_quadruped"])):
+        what = f"{model.name} {name} L={lanes}"
+        args = so_cases(model, lanes, seed=0)["fdsva_so"]
+        kern, plain = case_fns[name]
+        out = as_tuple(kern(*args))
+        head = (model, *(a[:, :L1].contiguous() for a in args[1:4]), GRAVITY)
+        ref, ref64 = as_tuple(plain(*head)), as_tuple(plain(*map(to64, head)))
+        for k, (o, r, r64) in enumerate(zip(out, ref, ref64)):
+            check_f32(f"{what} output {k}", o[..., :L1], r, r64)
+        warp_f32[what] = {"ms": time_cuda(lambda: kern(*args), iters=10)} | \
+            roofline(name, model, args, out)
+        del args, out, ref, ref64
+        torch.cuda.empty_cache()
+    line("warp_kernels_f32", warp_f32)
 
     # d2eepos at L1 lanes and at L_HESS lanes (inputs ~ U(-1, 1))
     hess_f32 = {}
@@ -1023,7 +1081,8 @@ def main():
                      "robots": config4})
 
     cfg_q = dict(N=N, dt=DT, iters=ITERS)
-    solve_q = make_ilqr(m32, quad_cost(m32, QUAD3), ILQRConfig(**cfg_q))
+    solve_q, parts_q = make_ilqr(m32, quad_cost(m32, QUAD3),
+                                 ILQRConfig(**cfg_q), expose_parts=True)
     build.reset_counters()
     res_q = solve_q(x0, U0)
     torch.cuda.synchronize()
@@ -1034,6 +1093,16 @@ def main():
     agree_q = first64(make_ilqr, ILQRConfig, cfg_q, m32, QUAD3,
                       x0.double().cpu().numpy(), res_q.cost, f64_at=ITERS)
     ms_q = time_cuda(lambda: solve_q(x0, U0), iters=10, warmup=1)
+    X = parts_q["rollout"](x0, U0)
+    A, Bm = parts_q["linearize"](X[:N], U0)
+    ks, Ks = parts_q["backward"](X, U0, A, Bm)
+    phases_q = {
+        "rollout_ms": time_cuda(lambda: parts_q["rollout"](x0, U0)),
+        "linearize_ms": time_cuda(lambda: parts_q["linearize"](X[:N], U0)),
+        "backward_ms": time_cuda(lambda: parts_q["backward"](X, U0, A, Bm)),
+        "forward_ms": time_cuda(lambda: parts_q["forward"](X, U0, ks, Ks)),
+    }
+    del X, A, Bm, ks, Ks
     line("config3_quad", {"config": 3, "task": "QuadCost", "robot": "iiwa",
                           "N": N, "iters": ITERS, "B": B, "dtype": "float32",
                           "device": smi, "solve_ms": ms_q,
@@ -1041,7 +1110,7 @@ def main():
                           "cost_first_mean": float(res_q.cost_trace[0].mean()),
                           "cost_last_mean": float(res_q.cost_trace[-1].mean()),
                           "first64_final_cost": agree_q,
-                          "launches": path_runs[-1]})
+                          "launches": path_runs[-1], "phases": phases_q})
 
     # -- phase 7: the generated per-robot modules --------------------------
     gen = {}

@@ -1,6 +1,7 @@
 // Per-lane rigid-body dynamics for the port's CUDA kernels.
 //
-// Every kernel of this library runs one thread per problem lane; the
+// Every kernel of this library but fd_du and fdsva_so (csrc/warp.cuh: a warp
+// per knot) runs one thread per problem lane; the
 // functions here are that thread's algebra, written for one lane in scalar
 // code: spatial algebra, joint transforms, RNEA, the analytical ID gradient,
 // Carpentier's direct Minv, forward dynamics, ABA, CRBA, end-effector pose
@@ -535,33 +536,6 @@ GT_HD void fd_lane(const Robot<T, NJ>& R, const T* q, const T* qd,
   T X[NJ][36], Mi[NJ * NJ];
   all_xmats(R, q, X);
   fd_from_x(R, X, qd, u, gravity, qdd, Mi);
-}
-
-// ---------------------------------------------------------------------------
-// forward-dynamics gradient df/d[q, qd] = -Minv dc/d[q, qd], with qdd and Minv
-// ---------------------------------------------------------------------------
-
-// Sink of id_du_columns that stores df/du = -Minv dc/du column by column.
-template <typename T, int NJ>
-struct MinvColumns {
-  const T* Mi;
-  T* dfdu;
-  GT_HDI void operator()(int col, const T* dc) const {
-    for (int r = 0; r < NJ; ++r) {
-      T acc = Mi[r * NJ] * dc[0];
-      for (int k = 1; k < NJ; ++k) acc += Mi[r * NJ + k] * dc[k];
-      dfdu[r * 2 * NJ + col] = -acc;
-    }
-  }
-};
-
-template <typename T, int NJ>
-GT_HD void fd_du_lane(const Robot<T, NJ>& R, const T* q, const T* qd,
-                      const T* u, T gravity, T* dfdu, T* qdd, T* Mi) {
-  T X[NJ][36];
-  all_xmats(R, q, X);
-  fd_from_x(R, X, qd, u, gravity, qdd, Mi);
-  id_du_columns(R, X, qd, qdd, gravity, MinvColumns<T, NJ>{Mi, dfdu});
 }
 
 // ---------------------------------------------------------------------------

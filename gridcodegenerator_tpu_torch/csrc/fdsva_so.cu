@@ -1,63 +1,100 @@
 // fdsva_so: second-order forward dynamics (4, NJ, NJ, NJ) per lane,
-// [d2qdd/dq2, d2qdd/dqd2, d2qdd/dqd dq, dMinv/dq]; one thread per lane.
+// [d2qdd/dq2, d2qdd/dqd2, d2qdd/dqd dq, dMinv/dq]; one knot (lane) a warp,
+// or a few warps where a knot's shared memory is large.
 //
 // Replaces gridcodegenerator_tpu/ops/pallas/kernels.py:fdsva_so_pallas, the
-// monolithic route the JAX package takes for nv <= 16 (2, 7 and 12 joints
-// here). Per lane (so.cuh:fdsva_so_lane): the fd_du lane code (df/du, qdd
-// and Minv, dynamics.cuh:fd_du_lane, shared with csrc/fd_du.cu), the
-// idsva_so lane code at (q, qd, qdd) into a scratch the wrapper allocates
-// (the output's size), then the implicit-function contractions of
-// ops/so.py:fdsva_compose from the scratch into the output.
+// monolithic route the JAX package takes for nv <= 16 (every instance
+// here). A block holds G knots (warp.cuh:fdsva_so_knot): fd_du's knot
+// program (df/du, qdd and Minv stay in shared memory), IDSVA-SO at (q, qd,
+// qdd) accumulating into the knot's whole 4 NJ^3 tensor in shared memory
+// (the stage quantities a row or entry a thread, a level of the tree a
+// phase; the nine stages a (j, a, st) triple a thread; the corrections a
+// (j, a) pair a thread), then the implicit-function contractions of
+// ops/so.py:fdsva_compose, a (c, j, k) column a thread, in place. Each
+// output value is written to device memory once, G consecutive lanes at a
+// time; there is no device-memory scratch.
 //
-// What bounds it on the card: device-memory traffic, as in idsva_so, now
-// twice over: the scratch is written and updated by the IDSVA-SO stages and
-// read back by the contractions, which read the dM slice (NJ^3) once and
-// update the output in place; their n^4 multiply-adds per tensor run on
-// df/du and Minv held in per-thread memory. In the solver the lanes are
-// the N B knots, knot-major, so a warp's accesses are contiguous.
+// What bounds it on the card: the output's bytes (4 NJ^3 values a lane);
+// the design's limits are the serial phases and shared-memory bandwidth.
+// A knot holds the tensor and the stage quantities over fd_du's work
+// space, 4 NJ^3 + 3 NJ^2 + 130 NJ values: 19.2k at 16 joints (77 KB in
+// float32, 154 KB in float64), so one or two knots fit an SM; a knot
+// then takes 2 or 4 warps (warp.cuh:BlockPlan: the width that puts the
+// most knots, then warps, on an SM), which meet at a named barrier after
+// each phase. G, the threads a knot, the bytes a block and
+// cudaFuncGetAttributes of each instance: `gridtorch_fdsva_so_info`. The
+// plans (G x threads a knot, bytes a block), float32 | float64:
+//   2 joints   2 x 16, 4688    | 4 x 16, 16912
+//   7 joints   4 x 16, 43072   | 5 x 32, 104368
+//   8 joints   8 x 32, 109600  | 8 x 32, 218368
+//   12 joints  6 x 64, 222112  | 3 x 64, 227024
+//   16 joints  2 x 128, 167008 | 1 x 128, 173984
 //
-// Layout: q, qd, u (NJ, L); out and scratch (4, NJ, NJ, NJ, L).
-#include "so.cuh"
+// Layout: q, qd, u (NJ, L); out (4, NJ, NJ, NJ, L).
+#include "warp.cuh"
 
 #ifdef __CUDACC__
+
+extern __shared__ double gt_smem[];
 
 template <typename T, int NJ>
 __global__ void fdsva_so_kernel(const T* __restrict__ model,
                                 const T* __restrict__ q,
                                 const T* __restrict__ qd,
                                 const T* __restrict__ u, T* __restrict__ out,
-                                T* __restrict__ scratch, long long L,
-                                T gravity) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const gt::Robot<T, NJ> R(model);
-  T ql[NJ], qdl[NJ], ul[NJ];
-  gt::lane_load<T, NJ>(q, L, lane, ql);
-  gt::lane_load<T, NJ>(qd, L, lane, qdl);
-  gt::lane_load<T, NJ>(u, L, lane, ul);
-  gt::fdsva_so_lane<T, NJ>(R, ql, qdl, ul, gravity, out + lane,
-                           scratch + lane, L);
+                                long long L, T gravity) {
+  using O = gt::SOKnot<NJ>;
+  using P = gt::SOPlan<T, NJ>;
+  constexpr int N = P::LANES, S = P::STRIDE;
+  auto& H = *reinterpret_cast<gt::SOHead<T, NJ>*>(gt_smem);
+  T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  const int tid = threadIdx.x, nt = blockDim.x, G = nt / N;
+  const long long l0 = (long long)blockIdx.x * G;
+  H.R.load(model, tid, nt);
+  gt::load_inputs<T, NJ, S>(q, qd, u, L, l0, G, knots, tid, nt);
+  __syncthreads();
+  if (tid == 0) H.lists.build(H.R);
+  __syncthreads();
+  gt::fdsva_so_knot<T, NJ>(gt::WarpPar<N>{tid % N, 1 + tid / N}, H.R,
+                           H.lists, knots + (long long)(tid / N) * S, gravity);
+  __syncthreads();
+  gt::store_rows<T, S>(knots + O::TILE, 4 * O::N3, out, L, l0, G, tid, nt);
 }
 
 template <typename T, int NJ>
 static int launch_fdsva_so(const void* model, const void* q, const void* qd,
-                           const void* u, void* out, void* scratch,
-                           long long L, double gravity, cudaStream_t stream) {
+                           const void* u, void* out, long long L,
+                           double gravity, cudaStream_t stream) {
+  using P = gt::SOPlan<T, NJ>;
   if (L == 0) return 0;
-  const int block = 64;
-  fdsva_so_kernel<T, NJ><<<gt_grid(L, block), block, 0, stream>>>(
-      (const T*)model, (const T*)q, (const T*)qd, (const T*)u, (T*)out,
-      (T*)scratch, L, (T)gravity);
+  if (P::G < 1) return (int)cudaErrorInvalidConfiguration;
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      fdsva_so_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)P::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  fdsva_so_kernel<T, NJ><<<(unsigned)((L + P::G - 1) / P::G),
+                           P::LANES * P::G, P::BYTES, stream>>>(
+      (const T*)model, (const T*)q, (const T*)qd, (const T*)u, (T*)out, L,
+      (T)gravity);
   return (int)cudaGetLastError();
 }
 
 extern "C" int gridtorch_fdsva_so(int dtype, int nj, const void* model,
                                   const void* q, const void* qd,
-                                  const void* u, void* out, void* scratch,
-                                  long long L, double gravity, void* stream) {
+                                  const void* u, void* out, long long L,
+                                  double gravity, void* stream) {
   GT_DISPATCH(dtype, nj,
-              launch_fdsva_so<T, NJ>(model, q, qd, u, out, scratch, L,
-                                     gravity, (cudaStream_t)stream));
+              launch_fdsva_so<T, NJ>(model, q, qd, u, out, L, gravity,
+                                     (cudaStream_t)stream));
+}
+
+// The block plan (G, 0 if one knot does not fit; threads a knot; bytes a
+// block, for one knot if G is 0) and cudaFuncGetAttributes of the instance
+// (warp.cuh:kernel_info), into out[8].
+extern "C" int gridtorch_fdsva_so_info(int dtype, int nj, int* out) {
+  GT_DISPATCH(dtype, nj,
+              gt::kernel_info<gt::SOPlan<T, NJ>>(
+                  (const void*)fdsva_so_kernel<T, NJ>, out));
 }
 
 #endif

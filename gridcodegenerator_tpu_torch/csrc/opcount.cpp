@@ -11,7 +11,8 @@
 // counts what every lane of a launch does.
 //
 // Two counts per kernel:
-// * executed: every operation the kernel's lane code does;
+// * executed: every operation the kernel's lane code does (fd_du and
+//   fdsva_so: every thread of the knot's warp, warp.cuh);
 // * needed: the arithmetic of the function, the bound's numerator. Constants
 //   fold: literals and the robot's constants (GRiD generates code per
 //   robot) are known, the lane's inputs are not, and an operation whose
@@ -178,8 +179,12 @@ struct DStored {
     const int id = (((fam - 1) * NJ + st) * 4 + vec) * NJ + k;
     T* m = &memo[id * 6];
     if (!have[id]) {
-      T buf[6];
-      const T* x = vec == kPsidSd ? &psid_sd[k * 6] : so_vec(s, vec, k, buf);
+      T x[6];
+      if (vec == kPsidSd) {
+        for (int i = 0; i < 6; ++i) x[i] = psid_sd[k * 6 + i];
+      } else {
+        so_vec(s, vec, k, x);
+      }
       Xv(&D[((fam - 1) * NJ + st) * 36], x, m);
       have[id] = 1;
     }
@@ -243,9 +248,9 @@ long long count(int kernel, const double* model, const double* ee, int ne,
     case EEPOS: ee_pose_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
     case DEEPOS: ee_jac_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
     case D2EEPOS: ee_hess_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
-    case FD_DU:
-      fd_du_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data(),
-                        y.data(), z.data());
+    case FD_DU:   // the warp's 32 threads, every phase
+      fd_du_host<C, NJ>(m.data(), a.data(), b.data(), c.data(), x.data(),
+                        y.data(), z.data(), 1, g);
       break;
     case ROLLOUT:
       rollout_lane<C, NJ>(R, a.data(), b.data(), nullptr, nullptr, x.data(),
@@ -292,11 +297,11 @@ long long count(int kernel, const double* model, const double* ee, int ne,
       break;
     case FDSVA_SO:
       if (needed)
-        fdsva_so_lane<C, NJ, DStored>(R, a.data(), b.data(), c.data(), g,
-                                      x.data(), y.data(), 1);
+        fdsva_so_host<C, NJ, DStored>(m.data(), a.data(), b.data(), c.data(),
+                                      x.data(), 1, g);
       else
-        fdsva_so_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data(),
-                             y.data(), 1);
+        fdsva_so_host<C, NJ>(m.data(), a.data(), b.data(), c.data(),
+                             x.data(), 1, g);
       break;
     default: return -1;
   }

@@ -1,6 +1,7 @@
-// Per-lane second-order dynamics: IDSVA-SO and the FDSVA-SO contractions.
+// Per-lane second-order dynamics: IDSVA-SO.
 //
-// The lane code of csrc/idsva_so.cu and csrc/fdsva_so.cu, following
+// The lane code of csrc/idsva_so.cu, whose stages (SOBody) and pair
+// corrections csrc/warp.cuh's fdsva_so program shares, following
 // gridcodegenerator_tpu_torch/ops/so.py step for step (the analytical,
 // loop-unrolled form of gridcodegenerator_tpu/ops/so.py):
 //
@@ -22,9 +23,6 @@
 //   algorithm's, and the output array itself is the accumulator:
 //   read-modify-write in device memory. Every entry is zeroed first, since
 //   entries no stage writes are zero and the output comes uninitialised.
-// * fdsva_compose_lane: the implicit-function contractions of ops/so.py:
-//   fdsva_compose from the IDSVA-SO tensors of the lane (in a scratch of
-//   the output's size) into the output, n^4 multiply-adds per tensor.
 //
 // Output layout, lane-major: entry (c, i, j, k) of lane l at
 // (((c NJ + i) NJ + j) NJ + k) L + l; the cross and dM tensors store the
@@ -237,15 +235,16 @@ GT_HD void D3v(const SOStages<T, NJ>& s, int st, const T* w, T* o) {
 // psi-dot + S-dot of a joint.
 enum SOVec { kS = 0, kPsid = 1, kPsidd = 2, kPsidSd = 3 };
 
-// Vector `vec` of joint k: a row of the stages, or psi-dot + S-dot formed
-// in `buf`.
+// Vector `vec` of joint k into x: a row of the stages, or psi-dot + S-dot.
+// (Copied, not pointed at: a pointer that may address either the stages or
+// a local array would take generic loads on the card.)
 template <typename T, int NJ>
-GT_HDI const T* so_vec(const SOStages<T, NJ>& s, int vec, int k, T* buf) {
-  if (vec == kS) return s.S[k];
-  if (vec == kPsid) return s.psid[k];
-  if (vec == kPsidd) return s.psidd[k];
-  for (int i = 0; i < 6; ++i) buf[i] = s.psid[k][i] + s.Sd[k][i];
-  return buf;
+GT_HDI void so_vec(const SOStages<T, NJ>& s, int vec, int k, T* x) {
+  for (int i = 0; i < 6; ++i)
+    x[i] = vec == kS       ? s.S[k][i]
+           : vec == kPsid  ? s.psid[k][i]
+           : vec == kPsidd ? s.psidd[k][i]
+                           : s.psid[k][i] + s.Sd[k][i];
 }
 
 // w = D_fam[st] x, x the vector `vec` of joint k, formed where it is used.
@@ -253,8 +252,8 @@ template <typename T, int NJ>
 struct DFormed {
   const SOStages<T, NJ>& s;
   GT_HD void operator()(int fam, int st, int vec, int k, T* w) const {
-    T buf[6];
-    const T* x = so_vec(s, vec, k, buf);
+    T x[6];
+    so_vec(s, vec, k, x);
     if (fam == 1) D1v(s, st, x, w);
     else if (fam == 2) D2v(s, st, x, w);
     else if (fam == 3) D3v(s, st, x, w);
@@ -262,12 +261,20 @@ struct DFormed {
   }
 };
 
+#ifdef GT_RACE_CHECK
+void gt_race_touch(const void* p);
+#endif
+
 template <typename T, int NJ>
 struct SOOut {
   T* o;          // the lane's entry (0, 0, 0, 0)
   long long L;   // lane stride
   GT_HDI T& at(int c, int i, int j, int k) const {
-    return o[((((long long)c * NJ + i) * NJ + j) * NJ + k) * L];
+    T& r = o[((((long long)c * NJ + i) * NJ + j) * NJ + k) * L];
+#ifdef GT_RACE_CHECK
+    gt_race_touch(&r);   // host build: which thread of a phase touched it
+#endif
+    return r;
   }
   GT_HDI T& dq2(int i, int j, int k) const { return at(0, i, j, k); }
   GT_HDI T& dqd2(int i, int j, int k) const { return at(1, i, j, k); }
@@ -406,6 +413,49 @@ struct SOBody {
   }
 };
 
+// The p1..p6 corrections of the (j, a) pair (a an ancestor of j or j
+// itself), over st in subtree(j) ascending.
+template <typename T, int NJ, class Rb>
+GT_HD void so_pair_corrections(const Rb& R, const SOStages<T, NJ>& s,
+                               const SOOut<T, NJ>& o, int j, int a) {
+  const T* Sj = s.S[j];
+  const T* Sa = s.S[a];
+  T p1[6], p2[6], p3[6], p4[6], p5[6], ps[6], t[6];
+  cross_mv(s.psid[a], Sj, p1);
+  cross_mv(s.psidd[a], Sj, p2);
+  cross_mv(Sa, Sj, p3);
+  for (int k = 0; k < 6; ++k) ps[k] = s.psid[a][k] + s.Sd[a][k];
+  cross_mv(ps, Sj, p4);
+  cross_mv(s.psid[j], Sa, t);
+  for (int k = 0; k < 6; ++k) p4[k] = p4[k] - T(2) * t[k];
+  cross_mv(Sj, Sa, p5);
+  for (int st = j; st < NJ; ++st) {
+    if (R.subtree(j, st) == T(0)) continue;
+    const T c12 = -dot6(p1, s.T2[st]) + dot6(p2, s.T1[st]);
+    o.dq2(st, a, j) = o.dq2(st, a, j) + c12;
+    if (a < j) {
+      o.dq2(st, j, a) = o.dq2(st, j, a) + c12;
+      o.dvdq(st, j, a) = o.dvdq(st, j, a) - dot6(p3, s.T2[st]) +
+                         dot6(p4, s.T1[st]);
+      const T c5 = dot6(p5, s.T3[st]);
+      o.dq2(a, j, st) = o.dq2(a, j, st) - c5;
+      if (st != j) o.dq2(a, st, j) = o.dq2(a, st, j) - c5;
+      o.dvdq(a, j, st) = o.dvdq(a, j, st) - dot6(p5, s.T4[st]);
+    }
+  }
+  if (a < j) {
+    // p6 = crm(S_a)^T T1_j + (crf(S_j) IC_j)^T S_a
+    //    = -crf(S_a) T1_j + IC_j^T (-crm(S_j) S_a)
+    T p6[6], u[6], c[6];
+    cross_fv(Sa, s.T1[j], c);
+    cross_mv(Sj, Sa, u);
+    for (int k = 0; k < 6; ++k) u[k] = -u[k];
+    XTv(s.IC[j], u, t);
+    for (int k = 0; k < 6; ++k) p6[k] = -c[k] + t[k];
+    o.dqd2(a, j, j) = dot6(p6, Sj);
+  }
+}
+
 // IDSVA-SO of one lane into `o` (the lane's entry 0, lane stride L).
 template <typename T, int NJ, template <typename, int> class DOp = DFormed>
 GT_HD void idsva_so_lane(const Robot<T, NJ>& R, const T* q, const T* qd,
@@ -421,105 +471,9 @@ GT_HD void idsva_so_lane(const Robot<T, NJ>& R, const T* q, const T* qd,
 #endif
   for (int stage = 1; stage <= 9; ++stage)
     for_triples(R, SOBody<T, NJ, DOp<T, NJ>>{s, o, D, stage});
-  // p1..p6 corrections over (j, a) pairs
   for (int j = 0; j < NJ; ++j)
-    for (int a = 0; a <= j; ++a) {
-      if (R.subtree(a, j) == T(0)) continue;
-      const T* Sj = s.S[j];
-      const T* Sa = s.S[a];
-      T p1[6], p2[6], p3[6], p4[6], p5[6], ps[6], t[6];
-      cross_mv(s.psid[a], Sj, p1);
-      cross_mv(s.psidd[a], Sj, p2);
-      cross_mv(Sa, Sj, p3);
-      for (int k = 0; k < 6; ++k) ps[k] = s.psid[a][k] + s.Sd[a][k];
-      cross_mv(ps, Sj, p4);
-      cross_mv(s.psid[j], Sa, t);
-      for (int k = 0; k < 6; ++k) p4[k] = p4[k] - T(2) * t[k];
-      cross_mv(Sj, Sa, p5);
-      for (int st = j; st < NJ; ++st) {
-        if (R.subtree(j, st) == T(0)) continue;
-        const T c12 = -dot6(p1, s.T2[st]) + dot6(p2, s.T1[st]);
-        o.dq2(st, a, j) = o.dq2(st, a, j) + c12;
-        if (a < j) {
-          o.dq2(st, j, a) = o.dq2(st, j, a) + c12;
-          o.dvdq(st, j, a) = o.dvdq(st, j, a) - dot6(p3, s.T2[st]) +
-                             dot6(p4, s.T1[st]);
-          const T c5 = dot6(p5, s.T3[st]);
-          o.dq2(a, j, st) = o.dq2(a, j, st) - c5;
-          if (st != j) o.dq2(a, st, j) = o.dq2(a, st, j) - c5;
-          o.dvdq(a, j, st) = o.dvdq(a, j, st) - dot6(p5, s.T4[st]);
-        }
-      }
-      if (a < j) {
-        // p6 = crm(S_a)^T T1_j + (crf(S_j) IC_j)^T S_a
-        //    = -crf(S_a) T1_j + IC_j^T (-crm(S_j) S_a)
-        T p6[6], u[6], c[6];
-        cross_fv(Sa, s.T1[j], c);
-        cross_mv(Sj, Sa, u);
-        for (int k = 0; k < 6; ++k) u[k] = -u[k];
-        XTv(s.IC[j], u, t);
-        for (int k = 0; k < 6; ++k) p6[k] = -c[k] + t[k];
-        o.dqd2(a, j, j) = dot6(p6, Sj);
-      }
-    }
-}
-
-// FDSVA-SO of one lane from its IDSVA-SO tensors `Ts` (lane entry 0, stride
-// L), df/du (NJ, 2 NJ) and Minv (NJ, NJ) into `out` (same layout as Ts):
-//   inner_q[m,j,k] = d2tau_q[m,j,k] + C[m,j,k] + C[m,k,j],
-//   inner_cross[m,k,j] = tau_cross[m,k,j] + D[m,j,k],
-//   inner_tau[m,k,j] = E[m,j,k], inner_qd = d2tau_qd, with
-//   (C, D, E)[m,j,k] = sum_p dM[m,p,j] (dfdq, dfdqd, Minv)[p,k];
-// then out_c[i,j,k] = -sum_m Minv[i,m] inner_c[m,j,k], in place, one
-// (j, k) column at a time.
-template <typename T, int NJ>
-GT_HD void fdsva_compose_lane(const T* Ts, const T* dfdu, const T* Mi,
-                              T* out, long long L) {
-  constexpr int N3 = NJ * NJ * NJ;
-  for (int e = 0; e < 3 * N3; ++e) out[(long long)e * L] = Ts[(long long)e * L];
-  for (int e = 3 * N3; e < 4 * N3; ++e) out[(long long)e * L] = T(0);
-  const SOOut<T, NJ> t{(T*)Ts, L};
-  const SOOut<T, NJ> o{out, L};
-  for (int m = 0; m < NJ; ++m)
-    for (int j = 0; j < NJ; ++j) {
-      T r[NJ];
-      for (int p = 0; p < NJ; ++p) r[p] = t.at(3, m, p, j);
-      for (int k = 0; k < NJ; ++k) {
-        T cq = r[0] * dfdu[k], cd = r[0] * dfdu[NJ + k], ce = r[0] * Mi[k];
-        for (int p = 1; p < NJ; ++p) {
-          cq += r[p] * dfdu[p * 2 * NJ + k];
-          cd += r[p] * dfdu[p * 2 * NJ + NJ + k];
-          ce += r[p] * Mi[p * NJ + k];
-        }
-        o.at(0, m, j, k) += cq;
-        o.at(0, m, k, j) += cq;
-        o.at(2, m, k, j) += cd;
-        o.at(3, m, k, j) = ce;
-      }
-    }
-  for (int c = 0; c < 4; ++c)
-    for (int j = 0; j < NJ; ++j)
-      for (int k = 0; k < NJ; ++k) {
-        T col[NJ];
-        for (int m = 0; m < NJ; ++m) col[m] = o.at(c, m, j, k);
-        for (int i = 0; i < NJ; ++i) {
-          T acc = Mi[i * NJ] * col[0];
-          for (int m = 1; m < NJ; ++m) acc += Mi[i * NJ + m] * col[m];
-          o.at(c, i, j, k) = -acc;
-        }
-      }
-}
-
-// FDSVA-SO of one lane: the fd_du lane (df/du, qdd, Minv), IDSVA-SO at
-// (q, qd, qdd) into the scratch, then the contractions into `out`.
-template <typename T, int NJ, template <typename, int> class DOp = DFormed>
-GT_HD void fdsva_so_lane(const Robot<T, NJ>& R, const T* q, const T* qd,
-                         const T* u, T gravity, T* out, T* scratch,
-                         long long L) {
-  T dfdu[NJ * 2 * NJ], qdd[NJ], Mi[NJ * NJ];
-  fd_du_lane(R, q, qd, u, gravity, dfdu, qdd, Mi);
-  idsva_so_lane<T, NJ, DOp>(R, q, qd, qdd, gravity, scratch, L);
-  fdsva_compose_lane<T, NJ>(scratch, dfdu, Mi, out, L);
+    for (int a = 0; a <= j; ++a)
+      if (R.subtree(a, j) != T(0)) so_pair_corrections(R, s, o, j, a);
 }
 
 }  // namespace gt

@@ -1,0 +1,1238 @@
+// One warp per knot: the fd_du and fdsva_so programs of csrc/fd_du.cu and
+// csrc/fdsva_so.cu, written once for the card and for the host.
+//
+// A block holds G knots, a warp each (a half warp up to 8 joints, where the
+// 2 NJ gradient columns fit in 16 threads: two knots a warp; 2 or 4 times
+// that where it puts more knots or warps on an SM: BlockPlan), and copies
+// the robot constants into shared memory once (RobotConst). Each knot's
+// state lives in shared memory in one buffer of T at the offsets of
+// FDKnot / SOKnot, so arrays indexed by the run-time parent and S_ind never
+// go to local memory. A program is a sequence of phases: `par(f)` runs f(t)
+// for the knot's threads t (Par::LANES of them), then synchronises them.
+// On the card (WarpPar) thread t is a lane and the phases are split by
+// __syncwarp() (a named barrier for a knot of several warps); on the host
+// (HostPar) f runs for t = 0, 1, ... in turn before the next phase starts,
+// which is how the g++ host build of the tests and csrc/opcount.cpp drive
+// the same code. Inside one phase no
+// thread reads what another thread of that phase writes; each phase below
+// says how its work is split.
+//
+// The design follows the reference GRiDCodeGenerator (a thread block per
+// knot with its state in shared memory, GRiD paper, arXiv:2109.06976),
+// carried to a warp per knot: 2 NJ <= 32 gradient columns for every
+// instance up to 16 joints.
+#pragma once
+
+#include "so.cuh"
+
+namespace gt {
+
+constexpr int WARP = 32;
+// the fewest threads a knot takes: a half warp where its 2 NJ gradient
+// columns fit (two knots a warp), else a warp
+template <int NJ>
+GT_HDI constexpr int knot_lanes() { return 2 * NJ <= 16 ? 16 : 32; }
+// a knot takes up to 4 such groups (BlockPlan)
+constexpr int MAX_KNOT_GROUPS = 4;
+constexpr int MIN_WARPS = 12;
+// threads a block takes at most
+constexpr int MAX_BLOCK_THREADS = 512;
+// the register file of an SM, and the registers a thread of each kernel
+// is planned with (ptxas reports fd_du 60-68 | 96-106 and fdsva_so 96-102
+// | 168-188 in float32 | float64)
+constexpr long long SM_REGS = 65536;
+template <typename T>
+GT_HDI constexpr int fd_regs() { return sizeof(T) == 4 ? 72 : 112; }
+template <typename T>
+GT_HDI constexpr int so_regs() { return sizeof(T) == 4 ? 104 : 192; }
+// shared memory of an SM (228 KB), of which a block may use 227 KB, and
+// what the card keeps back for each resident block
+constexpr long long SM_SMEM = 233472;
+constexpr long long SMEM_LIMIT = 232448;
+constexpr long long SMEM_PER_BLOCK = 1024;
+// knots a block holds at most: 8 gives full 32-byte sectors for the
+// output rows in float32 (4 in float64)
+constexpr int MAX_KNOTS = 8;
+
+#ifdef __CUDACC__
+// The knot's N threads on the card. N = 16 puts two knots in a warp, which
+// run the same phases in step (the same robot), so the whole warp
+// synchronises; a block holds an even number of such knots. N = 32: a
+// warp. N = 64 or 128: the knot's warps meet at named barrier `bar` (1 +
+// the knot's index in the block; 0 is __syncthreads').
+template <int N>
+struct WarpPar {
+  static constexpr int LANES = N;
+  int lane;
+  int bar;
+  template <class F>
+  GT_HDI void operator()(F&& f) const {
+#ifdef __CUDA_ARCH__
+    f(lane);
+    if (N <= WARP) {
+      __syncwarp();
+    } else {
+      asm volatile("bar.sync %0, %1;" ::"r"(bar), "r"(N) : "memory");
+    }
+#endif
+  }
+};
+#endif
+
+#ifdef GT_RACE_CHECK
+void gt_race_phase();
+void gt_race_thread(int t);
+extern bool gt_race_reverse;
+#endif
+
+// The host's N threads: every thread of a phase in turn, then the next
+// phase. The race check of the tests' host build can also run them in
+// reverse order: a phase in which one thread reads what another writes
+// then gives another result.
+template <int N>
+struct HostPar {
+  static constexpr int LANES = N;
+  template <class F>
+  void operator()(F&& f) const {
+#ifdef GT_RACE_CHECK
+    gt_race_phase();
+    for (int n = 0; n < N; ++n) {
+      const int t = gt_race_reverse ? N - 1 - n : n;
+      gt_race_thread(t);
+      f(t);
+    }
+#else
+    for (int t = 0; t < N; ++t) f(t);
+#endif
+  }
+};
+
+// The packed robot constants (Layout<NJ>) and the topology as ints, in
+// shared memory; the accessors of Robot. The joints are also listed by
+// level (depth in the tree: 0 for a joint on the base), ascending ids
+// within a level: the joints of level l are ljoint[lstart[l] ..
+// lstart[l + 1]). Joints of one level depend on each other through no
+// tree pass, so a pass takes one phase a level, not one a joint.
+template <typename T, int NJ>
+struct RobotConst {
+  using L = Layout<NJ>;
+  T c[L::SIZE];
+  int parent[NJ];
+  int sind[NJ];
+  int jtype[NJ];
+  int nlev;
+  int lstart[NJ + 1];
+  int ljoint[NJ];
+  int cstart[NJ + 1];   // children of p: clist[cstart[p] .. cstart[p + 1]),
+  int clist[NJ];        // descending
+  // the joints related to j (its subtree, descending, rsub[j] of them, then
+  // its ancestors, descending): rlist[rstart[j] .. rstart[j + 1])
+  int rstart[NJ + 1];
+  int rsub[NJ];
+  int rlist[NJ * NJ];
+
+  // Copy from the packed buffer `model`, thread `tid` of `nthreads`; thread
+  // 0 also lists the levels.
+  GT_HD void load(const T* model, int tid, int nthreads) {
+    for (int e = tid; e < L::SIZE; e += nthreads) c[e] = model[e];
+    for (int i = tid; i < NJ; i += nthreads) {
+      parent[i] = (int)model[L::PARENT + i];
+      sind[i] = (int)model[L::SIND + i];
+      jtype[i] = (int)model[L::JTYPE + i];
+    }
+    if (tid != 0) return;
+    int lev[NJ];
+    nlev = 0;
+    for (int i = 0; i < NJ; ++i) {
+      const int p = (int)model[L::PARENT + i];
+      lev[i] = p < 0 ? 0 : lev[p] + 1;
+      if (lev[i] >= nlev) nlev = lev[i] + 1;
+    }
+    int n = 0;
+    for (int l = 0; l < nlev; ++l) {
+      lstart[l] = n;
+      for (int i = 0; i < NJ; ++i)
+        if (lev[i] == l) ljoint[n++] = i;
+    }
+    lstart[nlev] = n;
+    n = 0;
+    for (int p = 0; p < NJ; ++p) {
+      cstart[p] = n;
+      for (int i = NJ - 1; i > p; --i)
+        if ((int)model[L::PARENT + i] == p) clist[n++] = i;
+    }
+    cstart[NJ] = n;
+    n = 0;
+    for (int j = 0; j < NJ; ++j) {
+      rstart[j] = n;
+      for (int i = NJ - 1; i >= j; --i)
+        if (model[L::SUBTREE + j * NJ + i] != T(0)) rlist[n++] = i;
+      rsub[j] = n - rstart[j];
+      for (int i = j - 1; i >= 0; --i)
+        if (model[L::SUBTREE + i * NJ + j] != T(0)) rlist[n++] = i;
+    }
+    rstart[NJ] = n;
+  }
+  GT_HDI const T* Xtree(int i) const { return c + L::XTREE + 36 * i; }
+  GT_HDI const T* Imat(int i) const { return c + L::IMAT + 36 * i; }
+  GT_HDI T damping(int i) const { return c[L::DAMP + i]; }
+  GT_HDI T subtree(int i, int col) const {
+    return c[L::SUBTREE + i * NJ + col];
+  }
+};
+
+// Deals the work items of one phase to the knot's W threads round robin:
+// thread t takes the items e of a loop of n with (first + e) % W == t, and
+// the next loop of the phase starts where this one ended, so that several
+// small loops spread over the threads.
+template <int W>
+struct Deal {
+  int t;
+  int first;
+  template <class F>
+  GT_HDI void operator()(int n, F&& f) {
+    for (int e = ((t - first) % W + W) % W; e < n; e += W) f(e);
+    first += n;
+  }
+};
+
+// f(i, e) for every joint i of level l and e < K
+template <int K, int W, class Rb, class F>
+GT_HDI void level(Deal<W>& d, const Rb& R, int l, F&& f) {
+  const int b = R.lstart[l];
+  d((R.lstart[l + 1] - b) * K,
+    [&](int e) { f(R.ljoint[b + e / K], e % K); });
+}
+
+// f(p, e, c) for every joint p of level l - 1, e < K, and each child c of p
+// (of level l) in descending order, the order of a serial backward sweep:
+// the thread that owns entry e of p adds in all of p's children.
+template <int K, int W, class Rb, class F>
+GT_HDI void children(Deal<W>& d, const Rb& R, int l, F&& f) {
+  level<K>(d, R, l - 1, [&](int p, int e) {
+    for (int n = R.cstart[p]; n < R.cstart[p + 1]; ++n) f(p, e, R.clist[n]);
+  });
+}
+
+// ---------------------------------------------------------------------------
+// entries of the spatial products, for threads that each own one entry
+// (the same arithmetic, in the same order, as dynamics.cuh's full forms)
+// ---------------------------------------------------------------------------
+
+// row r of X v (Xv), and of X^T v (XTv); v may be strided
+template <typename T>
+GT_HDI T xrow(const T* X, const T* v, int r, int vs = 1) {
+  T acc = X[r * 6] * v[0];
+  for (int j = 1; j < 6; ++j) acc += X[r * 6 + j] * v[j * vs];
+  return acc;
+}
+
+template <typename T>
+GT_HDI T xcol(const T* X, const T* v, int r, int vs = 1) {
+  T acc = X[r] * v[0];
+  for (int j = 1; j < 6; ++j) acc += X[j * 6 + r] * v[j * vs];
+  return acc;
+}
+
+// Entry k of a 6-vector held in registers (compile-time indices), by
+// selects: threads of a warp that want different entries take no branch.
+template <typename T>
+GT_HDI T pick6(const T* o, int k) {
+  T r = o[0];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int m = 1; m < 6; ++m) r = k == m ? o[m] : r;
+  return r;
+}
+
+// Row r of X v and of X^T v, and X v, X^T v, for a motion transform X =
+// [[E, 0], [F, E]] (joint_xmat): its upper-right block is exactly zero, so
+// those products (exact zeros) drop out; where r is known at compile time
+// (an unrolled loop) the test folds away.
+template <typename T>
+GT_HDI T xmrow(const T* X, const T* v, int r, int vs = 1) {
+  T acc = X[r * 6] * v[0];
+  for (int j = 1; j < 6; ++j)
+    if (r >= 3 || j < 3) acc += X[r * 6 + j] * v[j * vs];
+  return acc;
+}
+
+template <typename T>
+GT_HDI T xmcol(const T* X, const T* v, int r, int vs = 1) {
+  const int j0 = r < 3 ? 0 : 3;
+  T acc = X[j0 * 6 + r] * v[j0 * vs];
+  for (int j = j0 + 1; j < 6; ++j) acc += X[j * 6 + r] * v[j * vs];
+  return acc;
+}
+
+template <typename T>
+GT_HDI void Xmv(const T* X, const T* v, T* o) {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int r = 0; r < 6; ++r) o[r] = xmrow(X, v, r);
+}
+
+template <typename T>
+GT_HDI void XmTv(const T* X, const T* v, T* o) {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int r = 0; r < 6; ++r) o[r] = xmcol(X, v, r);
+}
+
+// component k of cross_mv(a, b): the whole product, then the entry (a
+// switch on a k that differs between the threads would run its six cases
+// one after another)
+template <typename T>
+GT_HDI T crm_k(const T* a, const T* b, int k) {
+  T o[6];
+  cross_mv(a, b, o);
+  return pick6(o, k);
+}
+
+// entry (r, c) of skew(w) = [[0, -w2, w1], [w2, 0, -w0], [-w1, w0, 0]] and
+// of crm_mat(v) = [W, 0; V, W] (so.cuh), for indices known at compile time
+template <typename T>
+GT_HDI T skew_rc(const T* w, int r, int c) {
+  switch (r * 3 + c) {
+    case 1: return -w[2];
+    case 2: return w[1];
+    case 3: return w[2];
+    case 5: return -w[0];
+    case 6: return -w[1];
+    case 7: return w[0];
+    default: return T(0);
+  }
+}
+
+template <typename T>
+GT_HDI T crm_rc(const T* v, int r, int c) {
+  if (r < 3) return c < 3 ? skew_rc(v, r, c) : T(0);
+  return c < 3 ? skew_rc(v + 3, r - 3, c) : skew_rc(v, r - 3, c - 3);
+}
+
+// the unit vector e_s in registers (no run-time index into an array)
+template <typename T>
+GT_HDI void unit6(int s, T* e) {
+  for (int k = 0; k < 6; ++k) e[k] = k == s ? T(1) : T(0);
+}
+
+// ---------------------------------------------------------------------------
+// fd_du: one knot's state (offsets into its buffer of T)
+// ---------------------------------------------------------------------------
+
+template <int NJ>
+struct FDKnot {
+  static constexpr int NC = 2 * NJ;   // gradient columns
+  static constexpr int Q = 0, QD = Q + NJ, U = QD + NJ;   // inputs
+  // outputs: qdd, Minv (NJ, NJ) (the upper factor, then mirrored), df/du
+  // (NJ, 2 NJ)
+  static constexpr int QDD = U + NJ, MI = QDD + NJ, DFDU = MI + NJ * NJ;
+  static constexpr int SCR = DFDU + NJ * NC;   // work space from here on
+  static constexpr int X = SCR;                // (NJ, 36) joint transforms
+  static constexpr int V = X + 36 * NJ;        // (NJ, 6) velocities,
+  static constexpr int A = V + 6 * NJ;         // accelerations,
+  static constexpr int F = A + 6 * NJ;         // forces,
+  static constexpr int IV = F + 6 * NJ;        // I v
+  static constexpr int C = IV + 6 * NJ;        // (NJ) bias forces
+  // Minv's work space: IA (NJ, 36), F (NJ, 6, NJ), U (NJ, 6), Dinv (NJ),
+  // (NJ, 36) temporaries, one a joint, and X^T U (NJ, 6)
+  static constexpr int IA = C + NJ, FM = IA + 36 * NJ, UU = FM + 6 * NJ * NJ;
+  static constexpr int DINV = UU + 6 * NJ, TMP = DINV + NJ;
+  static constexpr int XU = TMP + 36 * NJ;
+  // the gradient's per-column state (NJ, 18, NJ): dv, da, df of each joint
+  // for each column of one pass (the q columns, then the qd ones), column
+  // fastest. It aliases Minv's work space: Minv is done before the columns
+  // start. (Two passes of NJ columns hold half the state of one pass of
+  // 2 NJ: twice the knots fit on an SM, and the knots are bound by latency,
+  // not by issue.)
+  static constexpr int COL = IA;
+  static constexpr int MINV_END = XU + 6 * NJ, COL_END = COL + 18 * NJ * NJ;
+  static constexpr int SIZE = MINV_END > COL_END ? MINV_END : COL_END;
+};
+
+// df/du, qdd and Minv of the knot whose q, qd, u sit at FDKnot's offsets in
+// `k` (Carpentier's Minv, the bias RNEA, qdd = Minv (u - c), RNEA at qdd,
+// the analytical ID gradient dc/d[q, qd] one column a thread, df/du =
+// -Minv dc/du): the arithmetic of dynamics.cuh's fd_from_x and
+// id_du_columns, split over the knot's threads. The tree passes take a
+// phase a level (RobotConst), a row or entry of each joint of the level a
+// thread; a backward pass adds a level's joints into their parents, each
+// entry of a parent owned by one thread, which adds the parent's children
+// in descending order as the serial sweep does, so every value comes out
+// as the serial code computes it.
+template <typename T, int NJ, class Rb, class Par>
+GT_HD void fd_du_knot(const Par& par, const Rb& R, T* k, T gravity) {
+  using O = FDKnot<NJ>;
+  constexpr int NC = O::NC;
+  constexpr int W = Par::LANES;
+  static_assert(NJ <= W, "a thread per gradient column");
+  const T* q = k + O::Q;
+  const T* qd = k + O::QD;
+  const T* u = k + O::U;
+  T* qdd = k + O::QDD;
+  T* Mi = k + O::MI;
+  T* X = k + O::X;
+  T* v = k + O::V;
+  T* a = k + O::A;
+  T* f = k + O::F;
+  T* Iv = k + O::IV;
+  T* c = k + O::C;
+  T* IA = k + O::IA;
+  T* FM = k + O::FM;
+  T* UU = k + O::UU;
+  T* Dinv = k + O::DINV;
+  T* tmp = k + O::TMP;
+  T* XU = k + O::XU;
+  T* col = k + O::COL;
+  const T g[6] = {0, 0, 0, 0, 0, -gravity};
+  const int nlev = R.nlev;
+
+  // joint transforms (a joint a thread); Minv's IA and F set up
+  par([&](int t) {
+    if (t < NJ) joint_xmat(R.Xtree(t), R.jtype[t], R.sind[t], q[t], X + 36 * t);
+    for (int e = t; e < 36 * NJ; e += W) IA[e] = R.Imat(0)[e];
+    for (int e = t; e < 6 * NJ * NJ; e += W) FM[e] = T(0);
+  });
+
+  // The RNEA, a level a phase. Row r of v_i and of a_i (`with_qdd` adds
+  // qdd; reads all of v_i, so a level's a comes a phase after its v); then
+  // I v_i (the bias pass) and f_i = I a_i + crf(v_i) I v_i, a joint a
+  // thread.
+  auto v_row = [&](int i, int r) {
+    const int p = R.parent[i];
+    T x = p == -1 ? T(0) : xrow(X + 36 * i, v + 6 * p, r);
+    if (r == R.sind[i]) x = p == -1 ? qd[i] : x + qd[i];
+    v[6 * i + r] = x;
+  };
+  auto a_row = [&](int i, int r, bool with_qdd) {
+    const int p = R.parent[i], s = R.sind[i];
+    T x;
+    if (p == -1) {
+      x = xrow(X + 36 * i, g, r);
+    } else {
+      T vJ[6];
+      for (int m = 0; m < 6; ++m) vJ[m] = m == s ? qd[i] : T(0);
+      x = xrow(X + 36 * i, a + 6 * p, r) + crm_k(v + 6 * i, vJ, r);
+    }
+    if (with_qdd && r == s) x += qdd[i];
+    a[6 * i + r] = x;
+  };
+  // phase l + 1 of a forward pass: a of level l, v of level l + 1 (the
+  // bias pass only); then I v and f
+  auto rnea_forward = [&](bool with_qdd) {
+    if (!with_qdd) {
+      par([&](int t) {
+        Deal<W> d{t, 0};
+        level<6>(d, R, 0, v_row);
+      });
+    }
+    for (int l = 0; l < nlev; ++l) {
+      par([&](int t) {
+        Deal<W> d{t, 0};
+        level<6>(d, R, l, [&](int i, int r) { a_row(i, r, with_qdd); });
+        if (!with_qdd && l + 1 < nlev) level<6>(d, R, l + 1, v_row);
+      });
+    }
+    par([&](int t) {
+      for (int i = t; i < NJ; i += W) {
+        T iv[6], ia[6], c[6];
+        if (with_qdd) {
+          for (int m = 0; m < 6; ++m) iv[m] = Iv[6 * i + m];
+        } else {
+          Xv(R.Imat(i), v + 6 * i, iv);
+          for (int m = 0; m < 6; ++m) Iv[6 * i + m] = iv[m];
+        }
+        Xv(R.Imat(i), a + 6 * i, ia);
+        cross_fv(v + 6 * i, iv, c);
+        for (int m = 0; m < 6; ++m) f[6 * i + m] = ia[m] + c[m];
+      }
+    });
+  };
+  // backward pass: f_p += X_c^T f_c, a level a phase
+  auto rnea_backward = [&]() {
+    for (int l = nlev - 1; l >= 1; --l) {
+      par([&](int t) {
+        Deal<W> d{t, 0};
+        children<6>(d, R, l, [&](int p, int r, int ch) {
+          f[6 * p + r] += xcol(X + 36 * ch, f + 6 * ch, r);
+        });
+      });
+    }
+  };
+
+  rnea_forward(false);
+  rnea_backward();
+
+  // Minv, backward pass (deepest level first): (A) per joint i of the
+  // level, row i of the factor M_i, U_i, Dinv_i, X_i^T U_i and tmp_i =
+  // X_i^T IA_i (the first such phase also takes the bias forces c); (B)
+  // over the children c of each parent p, IA_p += X_c^T (IA_c - U_c
+  // Dinv_c U_c^T) X_c = tmp_c X_c - (X_c^T U_c) Dinv_c (X_c^T U_c)^T and
+  // F_p += X_c^T (F_c + U_c M_c) = X_c^T F_c + (X_c^T U_c) M_c.
+  for (int l = nlev - 1; l >= 0; --l) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      if (l == nlev - 1)
+        d(NJ, [&](int i) {
+          c[i] = f[6 * i + R.sind[i]] + R.damping(i) * qd[i];
+        });
+      level<NJ>(d, R, l, [&](int i, int cc) {
+        const int s = R.sind[i];
+        const T di = T(1) / IA[36 * i + s * 6 + s];
+        T m = -di * FM[(i * 6 + s) * NJ + cc] * R.subtree(i, cc);
+        if (cc == i) m += di;
+        Mi[i * NJ + cc] = m;
+      });
+      level<6>(d, R, l, [&](int i, int r) {
+        const int s = R.sind[i];
+        UU[6 * i + r] = IA[36 * i + r * 6 + s];
+        XU[6 * i + r] = xcol(X + 36 * i, IA + 36 * i + s, r, 6);
+        if (r == 0) Dinv[i] = T(1) / IA[36 * i + s * 6 + s];
+      });
+      level<36>(d, R, l, [&](int i, int e) {
+        if (R.parent[i] == -1) return;
+        tmp[36 * i + e] = xcol(X + 36 * i, IA + 36 * i + e % 6, e / 6, 6);
+      });
+    });
+    if (l == 0) break;
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      children<36>(d, R, l, [&](int p, int e, int ch) {
+        const int r = e / 6, cc = e % 6;
+        const T* tc = tmp + 36 * ch;
+        const T* Xc = X + 36 * ch;
+        T acc = tc[r * 6] * Xc[cc];
+        for (int m = 1; m < 6; ++m) acc += tc[r * 6 + m] * Xc[m * 6 + cc];
+        IA[36 * p + e] += acc - XU[6 * ch + r] * Dinv[ch] * XU[6 * ch + cc];
+      });
+      children<6 * NJ>(d, R, l, [&](int p, int e, int ch) {
+        const int r = e / NJ, cc = e % NJ;
+        FM[(p * 6 + r) * NJ + cc] +=
+            xcol(X + 36 * ch, FM + (ch * 6) * NJ + cc, r, NJ) +
+            XU[6 * ch + r] * Mi[ch * NJ + cc] * R.subtree(ch, cc);
+      });
+    });
+  }
+  // forward pass (level by level), columns cc >= i: M_i += -Dinv_i (X_i^T
+  // U_i) . F_p, then F_i = X_i F_p + e_s M_i
+  for (int l = 0; l < nlev; ++l) {
+    if (l > 0) {
+      par([&](int t) {
+        Deal<W> d{t, 0};
+        level<NJ>(d, R, l, [&](int i, int cc) {
+          if (cc < i) return;
+          const int p = R.parent[i];
+          T contr = XU[6 * i] * FM[(p * 6) * NJ + cc];
+          for (int m = 1; m < 6; ++m)
+            contr += XU[6 * i + m] * FM[(p * 6 + m) * NJ + cc];
+          Mi[i * NJ + cc] += -Dinv[i] * contr;
+        });
+      });
+    }
+    if (l + 1 == nlev) break;   // no joint reads the last level's F
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      level<6 * NJ>(d, R, l, [&](int i, int e) {
+        const int r = e / NJ, cc = e % NJ;
+        if (cc < i) return;
+        const int p = R.parent[i];
+        T fn = p == -1 ? T(0) : xrow(X + 36 * i, FM + (p * 6) * NJ + cc, r, NJ);
+        if (r == R.sind[i]) fn += Mi[i * NJ + cc];
+        FM[(i * 6 + r) * NJ + cc] = fn;
+      });
+    });
+  }
+  // Minv dense (the upper factor mirrored) and qdd = Minv (u - c), a row a
+  // thread, reading the upper factor only
+  par([&](int t) {
+    for (int e = t; e < NJ * NJ; e += W) {
+      const int r = e / NJ, cc = e % NJ;
+      if (r > cc) Mi[e] = Mi[cc * NJ + r];
+    }
+    if (t >= NJ) return;
+    T acc = Mi[t < 1 ? t * NJ : t] * (u[0] - c[0]);
+    for (int m = 1; m < NJ; ++m)
+      acc += Mi[t <= m ? t * NJ + m : m * NJ + t] * (u[m] - c[m]);
+    qdd[t] = acc;
+  });
+
+  // RNEA at qdd (v and I v are unchanged); f accumulates into the parents
+  rnea_forward(true);
+  rnea_backward();
+
+  // The ID gradient, one column a thread, the q columns in one phase and
+  // the qd columns in the next (column NJ pass + j: d/dq_j, then d/dqd_j),
+  // each over its own dv/da/df in `col` (column fastest). For column j, dv_i
+  // and da_i are zero unless i lies in subtree(j), and df_i unless i lies
+  // in subtree(j) or on the path from the root to j (RobotConst: rlist), so
+  // each thread walks those joints only: step n of every thread is the
+  // n-th joint of its own list, so the threads run one path (walking all
+  // joints, the warp would run every joint some column needs). Then the
+  // thread's column of df/du = -Minv dc.
+  for (int pass = 0; pass < 2; ++pass) par([&](int t) {
+    if (t >= NJ) return;
+    const bool isq = pass == 0;
+    const int j = t, r0 = R.rstart[j], nsub = R.rsub[j];
+    auto st = [&](int i, int m) -> T& { return col[(i * 18 + m) * NJ + t]; };
+    // forward over subtree(j), ascending: j first
+    for (int n = r0 + nsub - 1; n >= r0; --n) {
+      const int i = R.rlist[n], p = R.parent[i], s = R.sind[i];
+      const bool at_j = i == j;
+      const T* Xi = X + 36 * i;
+      T e[6], dv[6], da[6], tv[6], mv[6];
+      unit6(s, e);
+      // dv_i = X dv_p + [i == j] (crm(X v_p) S | S)
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int m = 0; m < 6; ++m)
+        dv[m] = at_j ? T(0) : xmrow(Xi, &st(p, 0), m, NJ);
+      if (at_j) {
+        if (isq) {
+          if (p != -1) {
+            Xmv(Xi, v + 6 * p, tv);
+            cross_mv(tv, e, mv);
+            for (int m = 0; m < 6; ++m) dv[m] += mv[m];
+          }
+        } else {
+          for (int m = 0; m < 6; ++m) dv[m] += e[m];
+        }
+      }
+      // da_i = crm(dv_i) S qd_i + [i == j] (crm(X a_p) S | crm(v_i) S)
+      //        + X da_p
+      cross_mv(dv, e, mv);
+      for (int m = 0; m < 6; ++m) da[m] = mv[m] * qd[i];
+      if (at_j) {
+        if (isq) {
+          if (p == -1) {
+            Xmv(Xi, g, tv);
+          } else {
+            Xmv(Xi, a + 6 * p, tv);
+          }
+          cross_mv(tv, e, mv);
+        } else {
+          cross_mv(v + 6 * i, e, mv);
+        }
+        for (int m = 0; m < 6; ++m) da[m] += mv[m];
+      } else {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int m = 0; m < 6; ++m) da[m] += xmrow(Xi, &st(p, 6), m, NJ);
+      }
+      // df_i = crf(dv_i) I v_i + I da_i + crf(v_i) I dv_i
+      T t1[6], t2[6], t3[6];
+      cross_fv(dv, Iv + 6 * i, t1);
+      Xv(R.Imat(i), da, t2);
+      Xv(R.Imat(i), dv, tv);
+      cross_fv(v + 6 * i, tv, t3);
+      for (int m = 0; m < 6; ++m) {
+        st(i, m) = dv[m];
+        st(i, 6 + m) = da[m];
+        st(i, 12 + m) = t1[m] + t2[m] + t3[m];
+      }
+    }
+    // the ancestors' df start at zero, but for j's parent in a q column,
+    // which starts at d(X_j^T)/dq_j f_j = X_j^T crf(S_j) f_j; the backward
+    // pass adds each related joint into its parent, descending
+    T dxf[6] = {0, 0, 0, 0, 0, 0};
+    if (isq) {
+      T e[6], mv[6];
+      unit6(R.sind[j], e);
+      cross_fv(e, f + 6 * j, mv);
+      XmTv(X + 36 * j, mv, dxf);
+    }
+    unsigned related = 0;
+    for (int n = r0; n < R.rstart[j + 1]; ++n) {
+      const int i = R.rlist[n];
+      related |= 1u << i;
+      if (n >= r0 + nsub) {
+        const bool jp = i == R.parent[j];
+        for (int m = 0; m < 6; ++m) st(i, 12 + m) = jp ? dxf[m] : T(0);
+      }
+    }
+    for (int n = r0; n < R.rstart[j + 1]; ++n) {
+      const int i = R.rlist[n], p = R.parent[i];
+      if (p == -1) continue;
+      T tv[6];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int m = 0; m < 6; ++m) tv[m] = xmcol(X + 36 * i, &st(i, 12), m, NJ);
+      for (int m = 0; m < 6; ++m) st(p, 12 + m) += tv[m];
+    }
+    T dc[NJ];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int i = 0; i < NJ; ++i) {
+      const T x = st(i, 12 + R.sind[i]);   // stale unless related
+      dc[i] = ((related >> i) & 1u ? x : T(0)) +
+              ((!isq && i == j) ? R.damping(i) : T(0));
+    }
+    for (int r = 0; r < NJ; ++r) {
+      T acc = Mi[r * NJ] * dc[0];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int m = 1; m < NJ; ++m) acc += Mi[r * NJ + m] * dc[m];
+      k[O::DFDU + r * NC + pass * NJ + t] = -acc;
+    }
+  });
+}
+
+// ---------------------------------------------------------------------------
+// fdsva_so: one knot's state. FDKnot's inputs and outputs stay; its work
+// space is taken over, once fd_du is done, by the IDSVA-SO stage quantities
+// and the knot's whole (4, NJ, NJ, NJ) tensor.
+// ---------------------------------------------------------------------------
+
+template <int NJ>
+struct SOKnot {
+  using FD = FDKnot<NJ>;
+  static constexpr int N3 = NJ * NJ * NJ;
+  static constexpr int STG = FD::SCR;          // SOStages<T, NJ>
+  static constexpr int XJ = STG + 126 * NJ;    // (NJ, 36) joint transforms
+  static constexpr int XUP = XJ + 36 * NJ;     // (NJ, 36) world transforms
+  static constexpr int V = XUP + 36 * NJ, A = V + 6 * NJ, F = A + 6 * NJ;
+  static constexpr int ICV = F + 6 * NJ;       // (NJ, 6) IC v
+  // (4, NJ, NJ, NJ), so.cuh's layout: over XJ .. ICV, which only the stage
+  // quantities' own phases use
+  static constexpr int TILE = XJ;
+  static constexpr int STAGES_END = ICV + 6 * NJ, TILE_END = TILE + 4 * N3;
+  static constexpr int END = STAGES_END > TILE_END ? STAGES_END : TILE_END;
+  static constexpr int SIZE = END > FD::SIZE ? END : FD::SIZE;
+};
+
+// The (j, a, st) triples of for_triples and the (j, a) pairs, packed
+// j | a << 8 | st << 16, in for_triples' order, and the pairs x <= y of
+// the contractions; built once per block.
+template <int NJ>
+struct SOLists {
+  static constexpr int MAX_TRIPLES = NJ * (NJ + 1) * (NJ + 2) / 6;
+  static constexpr int MAX_PAIRS = NJ * (NJ + 1) / 2;
+  int ntrip, npair;
+  int trip[MAX_TRIPLES];
+  int pair[MAX_PAIRS];
+  int sym[MAX_PAIRS];   // x | y << 8, x <= y: the contractions' pairs
+
+  template <class Rb>
+  GT_HD void build(const Rb& R) {
+    int n = 0;
+    for (int y = 0; y < NJ; ++y)
+      for (int x = 0; x <= y; ++x) sym[n++] = x | y << 8;
+    ntrip = npair = 0;
+    for (int j = 0; j < NJ; ++j)
+      for (int a = 0; a <= j; ++a) {
+        if (R.subtree(a, j) == 0) continue;
+        pair[npair++] = j | a << 8;
+        for (int st = j; st < NJ; ++st)
+          if (R.subtree(j, st) != 0) trip[ntrip++] = j | a << 8 | st << 16;
+      }
+  }
+};
+
+// so.cuh's so_stages, split over the knot's threads: a phase a level of the
+// tree, parallel over the 6 or 36 entries of each joint's quantities.
+template <typename T, int NJ, class Rb, class Par>
+GT_HD void so_stages_knot(const Par& par, const Rb& R, T* k, T gravity) {
+  using O = SOKnot<NJ>;
+  constexpr int W = Par::LANES;
+  const T* q = k + O::FD::Q;
+  const T* qd = k + O::FD::QD;
+  const T* qdd = k + O::FD::QDD;
+  SOStages<T, NJ>& s = *reinterpret_cast<SOStages<T, NJ>*>(k + O::STG);
+  T* XJ = k + O::XJ;
+  T* Xup = k + O::XUP;
+  T* v = k + O::V;
+  T* a = k + O::A;
+  T* f = k + O::F;
+  T* ICv = k + O::ICV;
+  const T g[6] = {0, 0, 0, 0, 0, -gravity};
+
+  par([&](int t) {
+    if (t < NJ)
+      joint_xmat(R.Xtree(t), R.jtype[t], R.sind[t], q[t], XJ + 36 * t);
+  });
+  for (int l = 0; l < R.nlev; ++l) {   // Xup_i = X_i Xup_p, a level a phase
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      level<36>(d, R, l, [&](int i, int e) {
+        const int p = R.parent[i], r = e / 6, c = e % 6;
+        const T* Xi = XJ + 36 * i;
+        if (p == -1) {
+          Xup[36 * i + e] = Xi[e];
+        } else {
+          const T* Xp = Xup + 36 * p;
+          T acc = Xi[r * 6] * Xp[c];
+          for (int m = 1; m < 6; ++m) acc += Xi[r * 6 + m] * Xp[m * 6 + c];
+          Xup[36 * i + e] = acc;
+        }
+      });
+    });
+  }
+  // S = column S_ind of Xup^-1; Xup^T I into XJ
+  par([&](int t) {
+    for (int e = t; e < 6 * NJ; e += W)
+      s.S[e / 6][e % 6] = xinv_motion(Xup + 36 * (e / 6), e % 6,
+                                      R.sind[e / 6]);
+    for (int e = t; e < 36 * NJ; e += W) {
+      const int i = e / 36, r = (e % 36) / 6, c = e % 6;
+      const T* X = Xup + 36 * i;
+      const T* I = R.Imat(i);
+      T acc = X[r] * I[c];
+      for (int m = 1; m < 6; ++m) acc += X[m * 6 + r] * I[m * 6 + c];
+      XJ[e] = acc;
+    }
+  });
+  par([&](int t) {   // IC = Xup^T I Xup
+    for (int e = t; e < 36 * NJ; e += W) {
+      const int i = e / 36, r = (e % 36) / 6, c = e % 6;
+      const T* tm = XJ + 36 * i;
+      const T* X = Xup + 36 * i;
+      T acc = tm[r * 6] * X[c];
+      for (int m = 1; m < 6; ++m) acc += tm[r * 6 + m] * X[m * 6 + c];
+      s.IC[i][r * 6 + c] = acc;
+    }
+  });
+  // From here on a joint a thread, its 6-vectors whole in registers:
+  // split by row, every thread would form the whole cross product for its
+  // one entry. v, a and psi-dot along the tree, a level a phase:
+  for (int l = 0; l < R.nlev; ++l) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      level<1>(d, R, l, [&](int i, int) {
+        const int p = R.parent[i];
+        const T* S = s.S[i];
+        T vJ[6], vi[6], ai[6], ps[6];
+        for (int m = 0; m < 6; ++m) vJ[m] = S[m] * qd[i];
+        if (p == -1) {
+          for (int m = 0; m < 6; ++m) {
+            vi[m] = vJ[m];
+            ai[m] = g[m] + S[m] * qdd[i];
+            ps[m] = T(0);
+          }
+        } else {
+          T c[6];
+          cross_mv(v + 6 * p, vJ, c);
+          for (int m = 0; m < 6; ++m) {
+            vi[m] = v[6 * p + m] + vJ[m];
+            ai[m] = a[6 * p + m] + (S[m] * qdd[i] + c[m]);
+          }
+          cross_mv(v + 6 * p, S, ps);
+        }
+        for (int m = 0; m < 6; ++m) {
+          v[6 * i + m] = vi[m];
+          a[6 * i + m] = ai[m];
+          s.psid[i][m] = ps[m];
+        }
+      });
+    });
+  }
+  par([&](int t) {   // psi-ddot, S-dot, IC v
+    for (int i = t; i < NJ; i += W) {
+      const int p = R.parent[i];
+      const T* S = s.S[i];
+      T o[6], o2[6];
+      if (p == -1) {
+        cross_mv(g, S, o);
+        for (int m = 0; m < 6; ++m) s.psidd[i][m] = o[m];
+      } else {
+        cross_mv(a + 6 * p, S, o);
+        cross_mv(v + 6 * p, s.psid[i], o2);
+        for (int m = 0; m < 6; ++m) s.psidd[i][m] = o[m] + o2[m];
+      }
+      cross_mv(v + 6 * i, S, o);
+      for (int m = 0; m < 6; ++m) s.Sd[i][m] = o[m];
+      Xv(s.IC[i], v + 6 * i, o);
+      for (int m = 0; m < 6; ++m) ICv[6 * i + m] = o[m];
+    }
+  });
+  // BC = crf(v) IC + icrf(IC v) - IC crm(v), a column c of a joint a
+  // thread: column c of crm(v) is crm(v) e_c, of icrf(IC v) crf(e_c) IC v;
+  // f = IC a + crf(v) IC v, a joint a thread
+  par([&](int t) {
+    for (int e = t; e < 6 * NJ; e += W) {
+      const int i = e / 6, c = e % 6;
+      const T* vi = v + 6 * i;
+      const T* IC = s.IC[i];
+      T ec[6], cm[6], ci[6];
+      unit6(c, ec);
+      cross_mv(vi, ec, cm);
+      cross_fv(ec, ICv + 6 * i, ci);
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int r = 0; r < 6; ++r) {
+        T a1 = -crm_rc(vi, 0, r) * IC[c];
+        for (int m = 1; m < 6; ++m) a1 += -crm_rc(vi, m, r) * IC[m * 6 + c];
+        T a3 = IC[r * 6] * cm[0];
+        for (int m = 1; m < 6; ++m) a3 += IC[r * 6 + m] * cm[m];
+        s.BC[i][r * 6 + c] = a1 + ci[r] - a3;
+      }
+    }
+    for (int i = t; i < NJ; i += W) {
+      T Ia[6], c[6];
+      Xv(s.IC[i], a + 6 * i, Ia);
+      cross_fv(v + 6 * i, ICv + 6 * i, c);
+      for (int m = 0; m < 6; ++m) f[6 * i + m] = Ia[m] + c[m];
+    }
+  });
+  // composite IC, BC, f: each parent's entry adds in its children, a level
+  // a phase
+  for (int l = R.nlev - 1; l >= 1; --l) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      children<78>(d, R, l, [&](int p, int e, int c) {
+        if (e < 36) s.IC[p][e] += s.IC[c][e];
+        else if (e < 72) s.BC[p][e - 36] += s.BC[c][e - 36];
+        else f[6 * p + e - 72] += f[6 * c + e - 72];
+      });
+    });
+  }
+  par([&](int t) {   // T1-T4 and IC psi-dot
+    for (int i = t; i < NJ; i += W) {
+      const T* S = s.S[i];
+      T ps[6], t1[6], t2[6], t3[6];
+      for (int n = 0; n < 6; ++n) ps[n] = s.psid[i][n] + s.Sd[i][n];
+      Xv(s.IC[i], S, t1);
+      for (int m = 0; m < 6; ++m) s.T1[i][m] = t1[m];
+      Xv(s.IC[i], s.psid[i], t1);
+      for (int m = 0; m < 6; ++m) s.ICpsid[i][m] = t1[m];
+      XTv(s.BC[i], S, t1);
+      for (int m = 0; m < 6; ++m) s.T2[i][m] = -t1[m];
+      Xv(s.BC[i], s.psid[i], t1);
+      Xv(s.IC[i], s.psidd[i], t2);
+      cross_fv(S, f + 6 * i, t3);
+      for (int m = 0; m < 6; ++m) s.T3[i][m] = t1[m] + t2[m] + t3[m];
+      Xv(s.BC[i], S, t1);
+      Xv(s.IC[i], ps, t2);
+      for (int m = 0; m < 6; ++m) s.T4[i][m] = t1[m] + t2[m];
+    }
+  });
+}
+
+// FDSVA-SO of the knot whose q, qd, u sit at FDKnot's offsets in `k`, into
+// its tile (SOKnot::TILE, so.cuh's layout with lane stride 1):
+// 1. fd_du_knot: df/du, qdd and Minv;
+// 2. IDSVA-SO at (q, qd, qdd): the stage quantities, then the nine stages
+//    of so.cuh's SOBody, each stage split over the (j, a, st) triples (a
+//    triple a thread), then the pair corrections (a (j, a) pair a thread,
+//    its st loop serial). No two triples of one stage, and no two pairs,
+//    touch the same entry: each stage writes entries indexed by the
+//    triple's own (j, a, st) with a <= j <= st, and the writes of two
+//    triples would coincide only where the stage's own conditions (a < j,
+//    j != st) exclude them. Entries written by more than one stage, or
+//    twice in one, keep the algorithm's order: the stages run in turn, and
+//    all of one triple's writes are one thread's, in program order. The
+//    host build checks this (GT_RACE_CHECK: no entry touched by two
+//    threads of one phase).
+// 3. The contractions of ops/so.py:fdsva_compose, a (c, j, k) column a
+//    thread: (a) inner_q and inner_cross in place from dM (slice 3, read
+//    only); (b) -Minv inner_c for c < 3, and G = Minv dM[:, p, k] for
+//    slice 3, each in place on its own column; (c) slice 3 = -G Minv, in
+//    place on the (i, :, k) row of G a thread.
+template <typename T, int NJ, template <typename, int> class DOp = DFormed,
+          class Rb, class Par>
+GT_HD void fdsva_so_knot(const Par& par, const Rb& R, const SOLists<NJ>& lists,
+                         T* k, T gravity) {
+  using O = SOKnot<NJ>;
+  constexpr int W = Par::LANES;
+  constexpr int N2 = NJ * NJ;
+  constexpr int NC = 2 * NJ;
+  fd_du_knot<T, NJ>(par, R, k, gravity);
+  so_stages_knot<T, NJ>(par, R, k, gravity);
+  const SOStages<T, NJ>& s =
+      *reinterpret_cast<const SOStages<T, NJ>*>(k + O::STG);
+  T* tile = k + O::TILE;
+  const T* Mi = k + O::FD::MI;
+  const T* dfdu = k + O::FD::DFDU;
+  const SOOut<T, NJ> o{tile, 1};
+  par([&](int t) {
+    for (int e = t; e < 4 * O::N3; e += W) tile[e] = T(0);
+  });
+  const DOp<T, NJ> D{s};
+  for (int stage = 1; stage <= 9; ++stage) {
+    par([&](int t) {
+      const SOBody<T, NJ, DOp<T, NJ>> body{s, o, D, stage};
+      for (int n = t; n < lists.ntrip; n += W) {
+        const int w = lists.trip[n];
+        body(w & 255, (w >> 8) & 255, w >> 16);
+      }
+    });
+  }
+  par([&](int t) {
+    for (int n = t; n < lists.npair; n += W) {
+      const int w = lists.pair[n];
+      so_pair_corrections(R, s, o, w & 255, w >> 8);
+    }
+  });
+  // (a) slice 0: Ts + C[m,x,y] + C[m,y,x], a pair x <= y a thread, which
+  //     forms C[m,x,y] and C[m,y,x] once for both entries; slice 2 at (m,
+  //     x, y): Ts + D[m,y,x], an entry a thread; with (C, D)[m,j,k] =
+  //     sum_p Ts(3,m,p,j) (dfdq, dfdqd)[p,k]
+  // slice 3 is only read here, by every thread (not through o.at, which the
+  // host build's race check watches)
+  auto ts3 = [&](int m, int p, int j) -> T {
+    return tile[((3 * NJ + m) * NJ + p) * NJ + j];
+  };
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(SOLists<NJ>::MAX_PAIRS, [&](int n) {
+      const int x = lists.sym[n] & 255, y = lists.sym[n] >> 8;
+      for (int m = 0; m < NJ; ++m) {
+        T c1 = ts3(m, 0, x) * dfdu[y], c2 = ts3(m, 0, y) * dfdu[x];
+        for (int p = 1; p < NJ; ++p) {
+          c1 += ts3(m, p, x) * dfdu[p * NC + y];
+          c2 += ts3(m, p, y) * dfdu[p * NC + x];
+        }
+        o.at(0, m, x, y) = o.at(0, m, x, y) + c1 + c2;
+        if (x != y) o.at(0, m, y, x) = o.at(0, m, y, x) + c2 + c1;
+      }
+    });
+    d(N2, [&](int e) {
+      const int x = e / NJ, y = e % NJ;
+      for (int m = 0; m < NJ; ++m) {
+        T cd = ts3(m, 0, y) * dfdu[NJ + x];
+        for (int p = 1; p < NJ; ++p)
+          cd += ts3(m, p, y) * dfdu[p * NC + NJ + x];
+        o.at(2, m, x, y) += cd;
+      }
+    });
+  });
+  // (b) out_c[:, x, y] = -Minv inner_c[:, x, y] (c < 3); G[:, x, y] =
+  //     Minv Ts(3, :, x, y)
+  par([&](int t) {
+    for (int e = t; e < 4 * N2; e += W) {
+      const int c = e / N2, x = (e % N2) / NJ, y = e % NJ;
+      T cv[NJ];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int m = 0; m < NJ; ++m) cv[m] = o.at(c, m, x, y);
+      for (int i = 0; i < NJ; ++i) {
+        T acc = Mi[i * NJ] * cv[0];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int m = 1; m < NJ; ++m) acc += Mi[i * NJ + m] * cv[m];
+        o.at(c, i, x, y) = c < 3 ? -acc : acc;
+      }
+    }
+  });
+  // (c) slice 3 at (i, J, K) = -sum_p G(i, p, K) Minv[p, J]
+  par([&](int t) {
+    for (int e = t; e < N2; e += W) {
+      const int i = e / NJ, kk = e % NJ;
+      T gv[NJ];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int p = 0; p < NJ; ++p) gv[p] = o.at(3, i, p, kk);
+      for (int jj = 0; jj < NJ; ++jj) {
+        T acc = gv[0] * Mi[jj];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int p = 1; p < NJ; ++p) acc += gv[p] * Mi[p * NJ + jj];
+        o.at(3, i, jj, kk) = -acc;
+      }
+    }
+  });
+}
+
+// ---------------------------------------------------------------------------
+// blocks: G knots after a head of block-wide constants
+// ---------------------------------------------------------------------------
+
+// Shared-memory plan of a block: `Head` (the constants), then G knots of
+// KNOT values of T, each knot STRIDE values after the last. STRIDE pads
+// KNOT to 16 banks past a multiple of 32, so that the two knots of a warp
+// (LANES = 16) reading the same offset hit other banks. The knots an SM
+// holds are bounded by its shared memory, its 2048 threads, 32 blocks
+// and its registers (REGS a thread, allocated 256 a warp at a time).
+GT_HDI constexpr int knots_per_sm(long long head, long long knot_bytes,
+                                  int lanes, int g, int regs) {
+  const long long bytes = head + g * knot_bytes;
+  const long long threads = (long long)g * lanes;
+  const long long warps = (threads + WARP - 1) / WARP;
+  const long long warp_regs = (regs * WARP + 255) / 256 * 256;
+  long long b = SM_SMEM / (bytes + SMEM_PER_BLOCK);
+  if (2048 / threads < b) b = 2048 / threads;
+  if (SM_REGS / (warps * warp_regs) < b) b = SM_REGS / (warps * warp_regs);
+  if (b > 32) b = 32;
+  if (bytes > SMEM_LIMIT || threads > MAX_BLOCK_THREADS) return 0;
+  return g * (int)b;
+}
+
+// G, at most MAX_KNOTS and a multiple of the knots a warp holds: the one
+// that puts the most knots on an SM, the larger on a tie; 0 if one knot
+// does not fit
+GT_HDI constexpr int best_knots(long long head, long long knot_bytes,
+                                int lanes, int regs) {
+  const int step = lanes < WARP ? WARP / lanes : 1;
+  int best = 0, most = 0;
+  for (int g = step; g <= MAX_KNOTS; g += step) {
+    const int n = knots_per_sm(head, knot_bytes, lanes, g, regs);
+    if (n > 0 && n >= most) {
+      best = g;
+      most = n;
+    }
+  }
+  return best;
+}
+
+// Threads a knot takes: `base` times 1, 2 or 4, the one that puts the most
+// knots on an SM (they are bound by their phases' latency, so knots an SM
+// set the rate), then, on a tie, the most warps up to MIN_WARPS, then the
+// fewest threads.
+GT_HDI constexpr int lanes_for(long long head, long long knot_bytes, int base,
+                               int regs) {
+  int best = base, best_knots_sm = -1, best_warps = -1;
+  for (int lanes = base; lanes <= MAX_KNOT_GROUPS * base; lanes *= 2) {
+    const int g = best_knots(head, knot_bytes, lanes, regs);
+    if (g == 0) continue;
+    const int n = knots_per_sm(head, knot_bytes, lanes, g, regs);
+    int warps = n * lanes / WARP;
+    if (warps > MIN_WARPS) warps = MIN_WARPS;
+    if (n > best_knots_sm || (n == best_knots_sm && warps > best_warps)) {
+      best = lanes;
+      best_knots_sm = n;
+      best_warps = warps;
+    }
+  }
+  return best;
+}
+
+template <typename T, class Head, int KNOT, int BASE, int REGS>
+struct BlockPlan {
+  static constexpr int WORDS = (int)sizeof(T) / 4;
+  static constexpr int STRIDE =
+      KNOT + ((16 / WORDS - KNOT % (32 / WORDS)) + 32 / WORDS) % (32 / WORDS);
+  static constexpr long long HEAD = (sizeof(Head) + 15) / 16 * 16;
+  static constexpr long long KNOT_BYTES = (long long)STRIDE * sizeof(T);
+  static constexpr int LANES = lanes_for(HEAD, KNOT_BYTES, BASE, REGS);
+  static constexpr int G = best_knots(HEAD, KNOT_BYTES, LANES, REGS);
+  static constexpr long long BYTES = HEAD + (G > 0 ? G : 1) * KNOT_BYTES;
+};
+
+// The two kernels' plans: fd_du's head is the robot constants, fdsva_so's
+// also the (j, a, st) lists.
+template <typename T, int NJ>
+struct SOHead {
+  RobotConst<T, NJ> R;
+  SOLists<NJ> lists;
+};
+
+template <typename T, int NJ>
+using FDPlan = BlockPlan<T, RobotConst<T, NJ>, FDKnot<NJ>::SIZE,
+                         knot_lanes<NJ>(), fd_regs<T>()>;
+template <typename T, int NJ>
+using SOPlan = BlockPlan<T, SOHead<T, NJ>, SOKnot<NJ>::SIZE,
+                         knot_lanes<NJ>(), so_regs<T>()>;
+
+// Knot g of the block takes lane l0 + g. The block reads the (NJ, G) tiles
+// of q, qd and u (G consecutive lanes a row) into its knots; lanes past L
+// read zeros.
+template <typename T, int NJ, int KNOT>
+GT_HD void load_inputs(const T* q, const T* qd, const T* u, long long L,
+                       long long l0, int G, T* knots, int tid, int nthreads) {
+  for (int e = tid; e < 3 * NJ * G; e += nthreads) {
+    const int w = e / (NJ * G), r = (e / G) % NJ, g = e % G;
+    const T* src = w == 0 ? q : (w == 1 ? qd : u);
+    const long long l = l0 + g;
+    knots[(long long)g * KNOT + w * NJ + r] = l < L ? src[r * L + l] : T(0);
+  }
+}
+
+// Row r < rows of each knot's block at `first` (knot 0's row 0) to row r of
+// the lane-major (rows, L) output, G consecutive lanes at a time.
+template <typename T, int KNOT>
+GT_HD void store_rows(const T* first, int rows, T* dst, long long L,
+                      long long l0, int G, int tid, int nthreads) {
+  for (int e = tid; e < rows * G; e += nthreads) {
+    const int r = e / G, g = e % G;
+    const long long l = l0 + g;
+    if (l < L) dst[r * L + l] = first[(long long)g * KNOT + r];
+  }
+}
+
+}  // namespace gt
+
+#ifndef __CUDACC__
+#include <limits>
+#include <vector>
+
+namespace gt {
+
+// Host drivers (the tests' g++ build, csrc/opcount.cpp): the block code of
+// the kernels with G = 1, every lane in turn, each knot's buffer filled
+// with NaN first so that a read of state no phase wrote shows.
+template <typename T, int NJ>
+void fd_du_host(const T* model, const T* q, const T* qd, const T* u, T* dfdu,
+                T* qdd, T* Mi, long long L, T gravity) {
+  using O = FDKnot<NJ>;
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load(model, 0, 1);
+  std::vector<T> k(O::SIZE);
+  for (long long l = 0; l < L; ++l) {
+    for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+    load_inputs<T, NJ, O::SIZE>(q, qd, u, L, l, 1, k.data(), 0, 1);
+    fd_du_knot<T, NJ>(HostPar<FDPlan<T, NJ>::LANES>{}, R[0], k.data(),
+                      gravity);
+    store_rows<T, O::SIZE>(k.data() + O::DFDU, 2 * NJ * NJ, dfdu, L, l, 1,
+                           0, 1);
+    store_rows<T, O::SIZE>(k.data() + O::QDD, NJ, qdd, L, l, 1, 0, 1);
+    store_rows<T, O::SIZE>(k.data() + O::MI, NJ * NJ, Mi, L, l, 1, 0, 1);
+  }
+}
+
+template <typename T, int NJ, template <typename, int> class DOp = DFormed>
+void fdsva_so_host(const T* model, const T* q, const T* qd, const T* u,
+                   T* out, long long L, T gravity) {
+  using O = SOKnot<NJ>;
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load(model, 0, 1);
+  std::vector<SOLists<NJ>> lists(1);
+  lists[0].build(R[0]);
+  std::vector<T> k(O::SIZE);
+  for (long long l = 0; l < L; ++l) {
+    for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+    load_inputs<T, NJ, O::SIZE>(q, qd, u, L, l, 1, k.data(), 0, 1);
+    fdsva_so_knot<T, NJ, DOp>(HostPar<SOPlan<T, NJ>::LANES>{}, R[0],
+                              lists[0], k.data(), gravity);
+    store_rows<T, O::SIZE>(k.data() + O::TILE, 4 * O::N3, out, L, l, 1, 0,
+                           1);
+  }
+}
+
+}  // namespace gt
+#endif
+
+#ifdef __CUDACC__
+namespace gt {
+
+// The block plan P of kernel `fn` and its launch attributes, for the
+// wrappers and chip_smoke.py: out = {G, threads a knot, dynamic shared
+// bytes a block, registers a thread, local (stack) bytes a thread, static
+// shared bytes, max threads a block, max dynamic shared bytes}.
+template <class P>
+inline int kernel_info(const void* fn, int* out) {
+  cudaFuncAttributes a;
+  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  out[0] = P::G;
+  out[1] = P::LANES;
+  out[2] = (int)P::BYTES;
+  out[3] = a.numRegs;
+  out[4] = (int)a.localSizeBytes;
+  out[5] = (int)a.sharedSizeBytes;
+  out[6] = a.maxThreadsPerBlock;
+  out[7] = a.maxDynamicSharedSizeBytes;
+  return (int)err;
+}
+
+}  // namespace gt
+#endif

@@ -2,8 +2,10 @@
 
 The counterpart of ``gridcodegenerator_tpu/ops/pallas/fuse.py``: where the
 JAX package tiles a batch axis over a Pallas grid and keeps the robot
-constants resident in VMEM, the port runs one thread per problem lane, masks
-the ragged last block, and hands the robot constants over in one packed
+constants resident in VMEM, the port runs one thread per problem lane (fd_du
+and fdsva_so: one warp per lane, the constants copied into shared memory
+once a block), masks the ragged last block, and hands the robot constants
+over in one packed
 device buffer (:func:`model_buffer`; the end-effector kernels also take
 one row per EE, :func:`ee_buffer`).
 
@@ -41,7 +43,7 @@ SOURCES = ("fd_du.cu", "rollout.cu", "linesearch.cu", "riccati.cu", "rnea.cu",
            "id_du.cu", "aba.cu", "minv.cu", "fd.cu", "crba.cu", "eepos.cu",
            "deepos.cu", "idsva_so.cu", "fdsva_so.cu", "d2eepos.cu",
            "feedback_rollout.cu")
-HEADERS = ("dynamics.cuh", "so.cuh")
+HEADERS = ("dynamics.cuh", "so.cuh", "warp.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libgridtorch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -169,7 +171,9 @@ _SIGNATURES = {
     "gridtorch_riccati": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                           _P, _I, _L, _D, _P),
     "gridtorch_idsva_so": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
-    "gridtorch_fdsva_so": (_I, _I, _P, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_fdsva_so": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_fd_du_info": (_I, _I, _P),
+    "gridtorch_fdsva_so_info": (_I, _I, _P),
     "gridtorch_d2eepos": (_I, _I, _P, _P, _I, _P, _P, _L, _P),
     "gridtorch_feedback_rollout": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _I, _L, _D, _D, _P),
@@ -190,6 +194,23 @@ def lib(nj: int) -> ctypes.CDLL:
                 fn.restype = ctypes.c_int
             _libs[nj] = handle
     return _libs[nj]
+
+
+INFO_FIELDS = ("knots_per_block", "threads_per_knot", "smem_bytes_per_block",
+               "registers", "local_bytes", "static_smem_bytes",
+               "max_threads_per_block", "max_dynamic_smem_bytes")
+
+
+def warp_kernel_info(what: str, nj: int, dtype) -> dict:
+    """The block plan and ``cudaFuncGetAttributes`` of the ``nj``-joint
+    ``dtype`` instance of the warp-per-knot kernel ``what`` (``fd_du`` or
+    ``fdsva_so``): {knots_per_block (0: one knot does not fit),
+    smem_bytes_per_block, registers, local_bytes, ...}."""
+    out = (ctypes.c_int * len(INFO_FIELDS))()
+    err = getattr(lib(nj), f"gridtorch_{what}_info")(DTYPE_CODES[dtype], nj,
+                                                     out)
+    check(err, f"{what} info")
+    return dict(zip(INFO_FIELDS, out))
 
 
 def check(err: int, what: str):

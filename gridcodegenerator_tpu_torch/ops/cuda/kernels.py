@@ -32,8 +32,10 @@ Lane-major tensors, L lanes on the trailing axis:
   knots, knot-major). Replaces ``kernels.py:fdsva_so_pallas``.
 
 Kernels: ``csrc/<name>.cu``, one thread per lane, everything in registers
-and local memory; inputs are read and outputs written along the lane axis,
-so every access is coalesced. What bounds them on the card: arithmetic and
+and local memory; but ``fd_du`` and ``fdsva_so``: one warp per lane
+(knot), its state in shared memory, G knots a block (``csrc/warp.cuh``).
+Inputs are read and outputs written along the lane axis, so every access
+is coalesced. What bounds them on the card: arithmetic and
 the local memory that holds each lane's joint transforms, inertias and
 Minv factors — not device memory, since a 7-DoF lane reads at most 21
 values and writes at most 154 (deepos: 42 per EE) — but for the
@@ -98,6 +100,17 @@ def _empty(like: torch.Tensor, *shape):
 def _launched(what: str, err: int):
     build.check(err, what)
     build.LAUNCHES[what] += 1
+
+
+_plans = {}
+
+
+def _plan(what: str, nj: int, dtype) -> dict:
+    """``build.warp_kernel_info`` of an instance, once per process."""
+    key = what, nj, dtype
+    if key not in _plans:
+        _plans[key] = build.warp_kernel_info(what, nj, dtype)
+    return _plans[key]
 
 
 # ---------------------------------------------------------------------------
@@ -302,16 +315,21 @@ def idsva_so(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
 
 
 def fdsva_so(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
-    """The kernel writes the IDSVA-SO tensors of each lane into a scratch of
-    the output's size, then contracts them into the output."""
+    """Each knot's IDSVA-SO tensors and their contractions stay in the
+    kernel's shared memory; raises if one knot does not fit there."""
     if not q.is_cuda:
         return fdsva_so_plain(model, q, qd, u, gravity)
     dcode, nj, L = _lanes(model, FDSVA_SO, dict(q=q, qd=qd, u=u))
+    plan = _plan(FDSVA_SO, nj, q.dtype)
+    if plan["knots_per_block"] < 1:
+        raise RuntimeError(
+            f"{FDSVA_SO}: one {nj}-joint {q.dtype} knot needs "
+            f"{plan['smem_bytes_per_block']} B of shared memory, more than "
+            f"a block may use")
     n = model.n
     out = _empty(q, 4, n, n, n, L)
-    scratch = _empty(q, 4, n, n, n, L)
     _launched(FDSVA_SO, build.lib(nj).gridtorch_fdsva_so(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
-        build.ptr(qd), build.ptr(u), build.ptr(out), build.ptr(scratch), L,
-        float(gravity), build.stream_ptr(q.device)))
+        build.ptr(qd), build.ptr(u), build.ptr(out), L, float(gravity),
+        build.stream_ptr(q.device)))
     return out

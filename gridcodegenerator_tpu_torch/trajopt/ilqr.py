@@ -70,12 +70,16 @@ class ILQRResult(NamedTuple):
 def resolve_control_bounds(model: RobotModel, cfg: ILQRConfig):
     """Per-dof (u_min, u_max) as (n, 1) tensors on the model's device: the
     config's if set, else ±the robot's effort limits; None where unbounded.
-    Bounds are rounded through float32, as the JAX solver does."""
+    As in the JAX solver, a scalar bound stays exact (in the model's dtype)
+    and array bounds and effort limits are rounded through float32."""
     n = model.num_vel
 
     def col(b):
         if b is None:
             return None
+        if np.isscalar(b):
+            return torch.full((n, 1), float(b), dtype=model.dtype,
+                              device=model.device)
         arr = np.broadcast_to(np.asarray(b, np.float32), (n,)).reshape(n, 1)
         return torch.as_tensor(arr.copy(), dtype=model.dtype,
                                device=model.device)

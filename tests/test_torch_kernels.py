@@ -16,6 +16,7 @@ This file imports no jax, so it also runs where jax is not installed.
 
 import copy
 import ctypes
+import importlib.util
 import os
 import shutil
 import subprocess
@@ -314,6 +315,8 @@ def test_ee_buffer_layout():
 # ---------------------------------------------------------------------------
 
 HARNESS = r"""
+#define GT_RACE_CHECK
+#include <unordered_map>
 #include "fd_du.cu"
 #include "rollout.cu"
 #include "linesearch.cu"
@@ -348,27 +351,45 @@ void lanes3(const double* q, const double* qd, const double* x, double* out,
   }
 }
 
-template <int NJ>
-void fd_du_all(const double* m, const double* q, const double* qd,
-               const double* u, double* d, double* a, double* mi, ll L) {
-  Robot<double, NJ> R(m);
-  for (ll l = 0; l < L; ++l) {
-    double ql[NJ], qdl[NJ], ul[NJ], dl[NJ * 2 * NJ], al[NJ], ml[NJ * NJ];
-    for (int i = 0; i < NJ; ++i) {
-      ql[i] = q[i * L + l]; qdl[i] = qd[i * L + l]; ul[i] = u[i * L + l];
-    }
-    fd_du_lane<double, NJ>(R, ql, qdl, ul, -9.81, dl, al, ml);
-    for (int k = 0; k < NJ * 2 * NJ; ++k) d[k * L + l] = dl[k];
-    for (int k = 0; k < NJ; ++k) a[k * L + l] = al[k];
-    for (int k = 0; k < NJ * NJ; ++k) mi[k * L + l] = ml[k];
-  }
+// the host's race check of the warp programs (warp.cuh, so.cuh): which
+// thread of which phase last touched each tensor entry
+static std::unordered_map<const void*, std::pair<long, int>> g_touch;
+static long g_phase = 0, g_races = 0, g_touches = 0;
+static int g_thread = 0;
+void gt::gt_race_phase() { ++g_phase; }
+void gt::gt_race_thread(int t) { g_thread = t; }
+void gt::gt_race_touch(const void* p) {
+  auto& e = g_touch[p];
+  if (e.first == g_phase && e.second != g_thread) ++g_races;
+  e = {g_phase, g_thread};
+  ++g_touches;
+}
+bool gt::gt_race_reverse = false;
+extern "C" void race_reverse(int on) { gt::gt_race_reverse = on != 0; }
+extern "C" void race_reset() { g_touch.clear(); g_races = g_touches = 0; }
+extern "C" long race_count() { return g_races; }
+extern "C" long touch_count() { return g_touches; }
+
+// the warp kernels' block plans: {G, threads a knot, bytes a block} of
+// fd_du and fdsva_so in float32 and float64
+template <typename P>
+void plan_into(int* out) {
+  out[0] = P::G;
+  out[1] = P::LANES;
+  out[2] = (int)P::BYTES;
 }
 
 #define HOST(NJ)                                                            \
 extern "C" int size_##NJ() { return Layout<NJ>::SIZE; }                     \
+extern "C" void plans_##NJ(int* out) {                                      \
+  plan_into<FDPlan<float, NJ>>(out);                                        \
+  plan_into<FDPlan<double, NJ>>(out + 3);                                   \
+  plan_into<SOPlan<float, NJ>>(out + 6);                                    \
+  plan_into<SOPlan<double, NJ>>(out + 9);                                   \
+}                                                                           \
 extern "C" void fd_du_##NJ(const double* m, const double* q,                \
     const double* qd, const double* u, double* d, double* a, double* mi,    \
-    ll L) { fd_du_all<NJ>(m, q, qd, u, d, a, mi, L); }                       \
+    ll L) { fd_du_host<double, NJ>(m, q, qd, u, d, a, mi, L, -9.81); }       \
 extern "C" void rnea_##NJ(const double* m, const double* q,                 \
     const double* qd, const double* qdd, double* c, ll L) {                 \
   Robot<double, NJ> R(m);                                                   \
@@ -499,17 +520,9 @@ extern "C" void idsva_so_##NJ(const double* m, const double* q,             \
   }                                                                         \
 }                                                                           \
 extern "C" void fdsva_so_##NJ(const double* m, const double* q,             \
-    const double* qd, const double* u, double* out, double* scratch,        \
-    ll L) {                                                                 \
-  Robot<double, NJ> R(m);                                                   \
-  for (ll l = 0; l < L; ++l) {                                              \
-    double ql[NJ], qdl[NJ], xl[NJ];                                         \
-    lane_load<double, NJ>(q, L, l, ql);                                     \
-    lane_load<double, NJ>(qd, L, l, qdl);                                   \
-    lane_load<double, NJ>(u, L, l, xl);                                     \
-    fdsva_so_lane<double, NJ>(R, ql, qdl, xl, -9.81, out + l, scratch + l,  \
-                              L);                                           \
-  }                                                                         \
+    const double* qd, const double* u, double* out, ll L) {                 \
+  race_reset();                                                             \
+  fdsva_so_host<double, NJ>(m, q, qd, u, out, L, -9.81);                    \
 }                                                                           \
 extern "C" void ric_##NJ(const double* A, const double* Bm,                \
     const double* lx, const double* lu, const double* Jw,                   \
@@ -622,10 +635,8 @@ def _host_run(lib, name, args):
         # NaN where the card would hand over uninitialised memory: every
         # entry the lane does not write shows
         out = torch.full((4, n, n, n, L), float("nan"), dtype=q.dtype)
-        scratch = torch.full_like(out, float("nan"))
-        extra = (_p(scratch),) if name == "fdsva_so" else ()
         getattr(lib, f"{name}_{n}")(_p(build.model_buffer(m)), _p(q), _p(qd),
-                                    _p(x), _p(out), *extra, ll(L))
+                                    _p(x), _p(out), ll(L))
         return (out,)
     if name in ("riccati", "riccati_stacked"):
         A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg = args
@@ -673,6 +684,85 @@ def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
     assert _max_err(got, want) <= TOL
     if name == "minv_upper":   # exact zeros below the diagonal
         assert not got[0].permute(2, 0, 1).tril(-1).any()
+
+
+@pytest.mark.parametrize("nj", build.SUPPORTED_JOINTS)
+def test_warp_block_plans_fit_an_sm(host_lib, nj):
+    """Every fd_du and fdsva_so instance's block plan (csrc/warp.cuh:
+    BlockPlan) holds a knot, fits a block's 227 KB and 512 threads, keeps
+    whole warps (two half-warp knots a warp) and a thread per gradient
+    column of a pass; a knot takes 1, 2 or 4 times its fewest threads."""
+    out = (ctypes.c_int * 12)()
+    getattr(host_lib, f"plans_{nj}")(out)
+    base = 16 if 2 * nj <= 16 else 32
+    for k in range(4):
+        g, lanes, nbytes = out[3 * k: 3 * k + 3]
+        assert g >= 1 and lanes in (base, 2 * base, 4 * base)
+        assert g * lanes <= 512 and (g * lanes) % 32 == 0
+        assert lanes >= nj
+        assert 0 < nbytes <= 232448
+
+
+def test_compare_kernels_reads_ptxas_report():
+    """compare_kernels.py keeps the two warp kernels' instances from a
+    ptxas report, with the frames of called functions (cumulative)."""
+    spec = importlib.util.spec_from_file_location(
+        "compare_kernels", Path(__file__).resolve().parents[1] /
+        "compare_kernels.py")
+    ck = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ck)
+    fd = "_Z12fd_du_kernelIdLi7EEvPKT_S2_S2_S2_PS0_S3_S3_xS0_"
+    other = "_Z11rnea_kernelIfLi7EEvPKT_"
+    report = "\n".join([
+        f"ptxas info    : Compiling entry function '{other}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {other}",
+        "    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, 16 bytes cumulative stack size",
+        f"ptxas info    : Compiling entry function '{fd}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fd}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 98 registers, 72 bytes cumulative stack size, "
+        "560 bytes cmem[0]"])
+    assert ck.parse_ptxas(report) == {"fd_du f64 nj7": {
+        "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 98,
+        "smem": 0, "cumulative_stack": 72}}
+
+
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_host_fdsva_so_phases_touch_disjoint_entries(host_lib, robot):
+    """The fdsva_so warp program splits the IDSVA-SO stages over (j, a, st)
+    triples, the corrections over (j, a) pairs and the contractions over
+    columns (csrc/warp.cuh): run phase by phase on the host, no entry of
+    the knot's tensor is touched by two threads of one phase."""
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    args = path_inputs(m, 2, 2, seed=2)["fdsva_so"]
+    host_lib.race_count.restype = ctypes.c_long
+    host_lib.touch_count.restype = ctypes.c_long
+    got = _host_run(host_lib, "fdsva_so", args)
+    assert host_lib.touch_count() > 4 * m.n ** 3
+    assert host_lib.race_count() == 0
+    assert _max_err(got, _outs(K.fdsva_so_plain(*args))) <= TOL
+
+
+@pytest.mark.parametrize("name", ["fd_du", "fdsva_so"])
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
+                                                        name):
+    """No thread of a phase of the warp programs (csrc/warp.cuh) reads what
+    another thread of that phase writes: run phase by phase on the host with
+    the threads of each phase in reverse order, fd_du and fdsva_so give the
+    same bits."""
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    args = path_inputs(m, 2, 2, seed=3)["fdsva_so"]
+    got = _host_run(host_lib, name, args)
+    host_lib.race_reverse(1)
+    try:
+        rev = _host_run(host_lib, name, args)
+    finally:
+        host_lib.race_reverse(0)
+    for a, b in zip(got, rev):
+        assert torch.equal(a, b)
+    assert _max_err(got, _outs(getattr(K, f"{name}_plain")(*args))) <= TOL
 
 
 @pytest.mark.parametrize("robot", ROBOTS)

@@ -129,6 +129,25 @@ def test_quad_ilqr_matches_jax(robot):
     _check(res, dict(X=r.X, U=r.U, cost_trace=r.cost_trace))
 
 
+@pytest.mark.parametrize("bound", [5.1, 20.3])
+def test_quad_ilqr_keeps_scalar_bounds_exact(bound):
+    """Scalar control bounds that bind stay exact in float64, as the JAX
+    solver keeps a Python scalar: rounded through float32 they move U by
+    ~1e-7 on pendulum2."""
+    jm, tm, jcost, tcost, x0, U0 = problem("pendulum2")
+    r = jax.jit(jax_make_ilqr(jm, jcost, JaxILQRConfig(
+        N=N, iters=ITERS, u_min=-bound, u_max=bound)))(jnp.asarray(x0),
+                                                       jnp.asarray(U0))
+    res = make_ilqr(tm, tcost, ILQRConfig(N=N, iters=ITERS, u_min=-bound,
+                                          u_max=bound, use_kernels=False))(
+        torch.as_tensor(x0), torch.as_tensor(U0))
+    assert float(res.U.abs().max()) == bound   # the bound binds
+    for f in ("cost_trace", "U"):
+        np.testing.assert_allclose(getattr(res, f).numpy(),
+                                   np.asarray(getattr(r, f)), rtol=0,
+                                   atol=ATOL, err_msg=f)
+
+
 def test_sqp_parts_and_refusals():
     _, tm, _, tcost, x0, U0 = problem("pendulum2")
     solve, parts = make_sqp(tm, tcost, SQPConfig(N=N, iters=1),
