@@ -9,9 +9,11 @@ Phases, one line each:
   0. device: fail without CUDA; print the card's name and power limit;
   1. build: compile the CUDA kernels from gridcodegenerator_tpu_torch/csrc,
      one library per joint count, every nvcc at once (and the host
-     operation counter, utils/opcount.py); the block plan (knots a block,
-     shared bytes) and cudaFuncGetAttributes of every fd_du and fdsva_so
-     instance (a warp per knot);
+     operation counter, utils/opcount.py); the block plan (knots,
+     problems or rollouts a block, shared bytes) and cudaFuncGetAttributes
+     of every instance of the thread-group kernels: fd_du and fdsva_so (a
+     warp per knot), riccati_factored (a warp per problem) and
+     linesearch_rollout (a group of threads per rollout);
   2. each kernel against its plain PyTorch version on the same CUDA inputs,
      iiwa at small B and N (37 lanes: a ragged block), float64: max abs
      error <= 1e-9; and every GRiD kernel case on hyq (12 joints, branched,
@@ -32,16 +34,17 @@ Phases, one line each:
      fdsva_so at config 4's N*B lanes on gym_ant and dm_quadruped (these
      held to the float32 rule on their first 1024 lanes),
      d2eepos at 1024 lanes and at L_HESS lanes (iiwa, hyq, dm_quadruped);
-     and, in float64, the feedback rollout against the line search's
-     alpha = 1 row on the same inputs (the two share their control law and
-     step) within 1e-9 * max(1, max|ref|);
+     and, in float64, the feedback rollout (kff = FB_ALPHA k) against the
+     line search's alpha = FB_ALPHA row on the same inputs within
+     1e-9 * max(1, max|ref|) of each problem;
   4. config 3 (iiwa, N=64, 5 iterations, B=2048, float32, EE reach) through
      the port's make_ilqr with kernels: every kernel of the path launched,
      nothing plain ran, costs finite and decreasing, final costs agree with
      a plain solve of the same inputs; solves/s over 10 solves; then the
      solved policy run as a tracking controller through feedback_rollout
-     (feedforward 0, the final gains): from x0 it retraces the solve, from
-     a perturbed x0 it stays finite;
+     (feedforward 0, the final gains): from x0 it retraces the solve as
+     closely as the plain float32 replay does (and meets the float32 rule
+     against a float64 plain replay), from a perturbed x0 it stays finite;
   5. configs 1 and 2 (iiwa, float32) through the port's GRiD: id and id_du
      unbatched and at B=1024, aba, fd_du and minv at B=1024; then fd, crba,
      eepos, deepos and d2eepos unbatched and at B=1024, and hyq's eepos at
@@ -194,12 +197,12 @@ def main():
                    "sources": len(build.SOURCES), "nvcc_jobs": os.cpu_count(),
                    "libraries": {nj: str(p.relative_to(
                        build.BUILD_ROOT.parents[1])) for nj, p in libs.items()}})
-    # the warp-per-knot kernels: knots a block, shared bytes a block and
-    # cudaFuncGetAttributes of every instance
+    # the thread-group kernels: knots (problems, rollouts) a block, shared
+    # bytes a block and cudaFuncGetAttributes of every instance
     line("warp_kernel_plans", {
         f"{what} {str(dtype)[6:]} nj{nj}": build.warp_kernel_info(what, nj,
                                                                   dtype)
-        for what in ("fd_du", "fdsva_so") for nj in build.SUPPORTED_JOINTS
+        for what in build.WARP_KERNELS for nj in build.SUPPORTED_JOINTS
         for dtype in (torch.float32, torch.float64)})
 
     topo = load_robot("iiwa")
@@ -677,16 +680,19 @@ def main():
                                        (model, q), model, "d2eepos", 10)
             del q
             torch.cuda.empty_cache()
-    # the feedback rollout (kff = k) against the line search's alpha = 1
-    # row on the same float64 inputs (config-3 shapes, gains from its first
-    # backward): the two sweeps share the control law and the step. The
-    # alpha = 1 row is an unstable closed loop that sends some problems to
-    # huge values, so each problem is held to its own scale:
-    # 1e-9 * max(1, max|ref|) over its lane.
+    # the feedback rollout (kff = FB_ALPHA k, exact) against the line
+    # search's alpha = FB_ALPHA row on the same float64 inputs (config-3
+    # shapes, gains from its first backward): the two compute the same
+    # control law and Euler step, the feedback rollout a problem a thread,
+    # the line search a rollout a thread group, each value in the serial
+    # order (the card may contract other products into FMAs). The rollouts
+    # part by rounding that the closed loop amplifies, so each problem is
+    # held to its own scale: 1e-9 * max(1, max|ref|) over its lane.
     ls = list(map(to64, ins["linesearch_rollout"]))
-    ls[6] = torch.ones_like(ls[6][:1])
+    ls[6] = torch.full_like(ls[6][:1], FB_ALPHA)
     out_ls = S.linesearch_rollout(*ls)[:2]
-    out_fb = S.feedback_rollout(*ls[:6], *ls[7:11])   # kff = k
+    out_fb = S.feedback_rollout(*ls[:4], FB_ALPHA * ls[4], *ls[5:6],
+                                *ls[7:11])
     torch.cuda.synchronize()
     lane_err = torch.stack([(a - b).abs().flatten(0, -2).amax(0)
                             for a, b in zip(out_fb, out_ls)]).amax(0)
@@ -694,11 +700,12 @@ def main():
                               for b in out_ls]).amax(0).clamp(min=1.0)
     rel = lane_err / lane_scale
     if not bool((rel <= 1e-9).all()):
-        raise AssertionError(f"feedback_rollout vs the line search's alpha = 1 "
-                             f"row, float64: {int((~(rel <= 1e-9)).sum())} "
-                             f"problems off by more than 1e-9 of their scale "
-                             f"(worst {float(rel.max())})")
-    hess_f32["feedback_rollout vs linesearch alpha=1 f64"] = {
+        raise AssertionError(f"feedback_rollout vs the line search's alpha = "
+                             f"{FB_ALPHA} row, float64: "
+                             f"{int((~(rel <= 1e-9)).sum())} problems off by "
+                             f"more than 1e-9 of their scale (worst "
+                             f"{float(rel.max())})")
+    hess_f32[f"feedback_rollout vs linesearch alpha={FB_ALPHA} f64"] = {
         "max_abs_err": float(lane_err.max()),
         "max_err_over_problem_scale": float(rel.max()), "tol": 1e-9,
         "problem_scale_max": float(lane_scale.max())}
@@ -810,8 +817,14 @@ def main():
 
     # The solved policy as a tracking controller (feedback_rollout, the
     # sweep entry point): feedforward 0, the solve's final gains K about its
-    # X and U. From x0 every deviation is zero, so it retraces the solve;
-    # from a perturbed x0 the gains act.
+    # X and U. From x0 every deviation starts at zero, so it retraces the
+    # solve up to the rounding by which the feedback rollout's thread and
+    # the line search's thread group part (their values are the same
+    # functions, the card contracts other products into FMAs), which the
+    # closed loop amplifies. So the replay is held to the float32 rule
+    # against a float64 plain replay of the same inputs, and its distance
+    # to the solve to F32_FACTOR times the plain float32 replay's, plus
+    # F32_FLOOR of the scale. From a perturbed x0 the gains act.
     lo, hi = resolve_control_bounds(m32, cfg)
     Xref, kff = res.X[:N].contiguous(), torch.zeros_like(res.k)
     x0p = x0 + 1e-3 * torch.as_tensor(
@@ -825,16 +838,25 @@ def main():
     if track_launches != {"feedback_rollout": 2} or build.PLAIN_CALLS:
         raise AssertionError(f"tracking launches {track_launches}, plain "
                              f"calls {dict(build.PLAIN_CALLS)}")
+    targs = (m32, x0, res.U, Xref, kff, res.K, DT, GRAVITY, lo, hi)
+    track_plain = S.feedback_rollout_plain(*targs)
+    track64 = S.feedback_rollout_plain(*map(to64, targs))
+    for k, (o, r, r64) in enumerate(zip(track[0], track_plain, track64)):
+        check_f32(f"tracking from x0 output {k}", o, r, r64)
+    del track64
     retrace = max_err(track[0], (res.X[1:], res.U))
-    tol = F32_FLOOR * max(1.0, float(res.X.abs().max()),
-                          float(res.U.abs().max()))
+    retrace_plain = max_err(track_plain, (res.X[1:], res.U))
+    tol = F32_FACTOR * retrace_plain + F32_FLOOR * max(
+        1.0, float(res.X.abs().max()), float(res.U.abs().max()))
     if not retrace <= tol:
         raise AssertionError(f"tracking from x0 leaves the solve: {retrace} "
-                             f"> {tol}")
+                             f"> {tol} ({F32_FACTOR} x the plain replay's "
+                             f"{retrace_plain} + floor)")
     if not all(bool(torch.isfinite(t).all()) for t in track[1]):
         raise AssertionError("tracking from a perturbed x0: non-finite")
     line("tracking", {"config": 3, "kernel": "feedback_rollout",
-                      "retrace_max_abs_err": retrace, "tol": tol,
+                      "retrace_max_abs_err": retrace,
+                      "plain_retrace_max_abs_err": retrace_plain, "tol": tol,
                       "perturbed_x0_max_state_dev": float(
                           (track[1][0] - res.X[1:]).abs().max()),
                       "ms": time_cuda(lambda: S.feedback_rollout(

@@ -1,31 +1,38 @@
-"""fd_du and fdsva_so of this checkout against those of another, on one card.
+"""The thread-group kernels of this checkout against those of another, on one
+card.
 
     python3 compare_kernels.py --other DIR [--other DIR2 ...]
+                               [--kernels riccati_factored,linesearch]
                                [--out build/compare_kernels.json]
 
 Each DIR is another checkout of this repository (for example the parent
-commit, unpacked with ``git archive``), named by its directory. Every
-tree's ``csrc/fd_du.cu`` and
-``csrc/fdsva_so.cu`` are compiled with nvcc for sm_90a, one library per
-joint count and tree, every nvcc at once, with ``-Xptxas -v``; the script
-prints each kernel instance's registers, stack, spills and static shared
-memory as ptxas reports them, this tree's block plans and
-``cudaFuncGetAttributes`` (``build.warp_kernel_info``), and then each
-kernel's device time per launch (CUDA events) at the main paths' shapes in
-float32, every tree on the same inputs ~ U(-1, 1), in turns: the others,
-this, this, the others in reverse. It also checks this tree on every shape
-by the float32 rule of ``chip_smoke.py``: against a float64 plain run on
-the first 1024 lanes, within 10 x the first other tree's own error plus
-1e-5 of the scale. And it clocks this tree's knot programs phase by phase
-(csrc/warp.cuh, built into a kernel that wraps each phase in clock64()):
-at each shape, the cycles of every phase of knot 0 of block 0, in program
-order, and of the whole knot, while the other blocks run as in a launch.
-Needs one NVIDIA GPU and nvcc.
+commit, unpacked with ``git archive``), named by its directory. The
+kernels (``--kernels``, any of fd_du, fdsva_so, riccati_factored and
+linesearch; by default the last two) are compiled from every tree's
+``csrc/`` with nvcc for sm_90a, one library per joint count and tree, every
+nvcc at once, with ``-Xptxas -v``; the script prints each kernel instance's
+registers, stack, spills and static shared memory as ptxas reports them,
+this tree's block plans and ``cudaFuncGetAttributes``
+(``build.warp_kernel_info``), and then each kernel's device time per launch
+(CUDA events) at the main paths' shapes in float32, every tree on the same
+inputs, in turns: the others, this, this, the others in reverse. The GRiD
+kernels run on inputs ~ U(-1, 1); the sweeps on the inputs of the solver's
+first iteration (plain ops: config 3's EE reach and QuadCost task at N=64,
+B=2048, config 4's QuadCost at N=32, each with six step sizes). It also
+checks this tree on every shape by the float32 rule of ``chip_smoke.py``:
+against a float64 plain run on the first problems (or lanes), within 10 x
+the first other tree's own error plus 1e-5 of the scale (the line search
+per step-size row). And it clocks this tree's programs phase by phase
+(csrc/warp.cuh, csrc/sweep_warp.cuh, built into kernels that wrap each
+phase in clock64()): the cycles of every phase of unit 0 of block 0, while
+the other blocks run as in a launch; for the sweeps the mean of each phase
+over the knots. Needs one NVIDIA GPU and nvcc.
 """
 
 import argparse
 import concurrent.futures
 import ctypes
+import dataclasses
 import json
 import os
 import re
@@ -39,23 +46,36 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 JOINTS = (2, 7, 8, 12, 16)
-SOURCES = ("fd_du.cu", "fdsva_so.cu")
+SOURCES = {"fd_du": "fd_du.cu", "fdsva_so": "fdsva_so.cu",
+           "riccati_factored": "riccati.cu", "linesearch": "linesearch.cu"}
 # (kernel, robot, lanes): config 3 and the GRiD API (iiwa 131072 and 1024
-# lanes), config 4's N*B lanes (iiwa 32768, the others 16384)
+# lanes), config 4's N*B lanes (iiwa 32768, the others 16384); the sweeps
+# (kernel, robot, (cost, N, B)): config 3 (EE reach and QuadCost task, N=64,
+# B=2048) and config 4 (QuadCost, N=32, iiwa B=1024, the others 512)
 SHAPES = [("fd_du", "iiwa", 131072), ("fd_du", "iiwa", 1024),
           ("fd_du", "iiwa", 32768), ("fd_du", "gym_ant", 16384),
           ("fd_du", "hyq", 16384), ("fd_du", "dm_quadruped", 16384),
           ("fdsva_so", "iiwa", 32768), ("fdsva_so", "iiwa", 1024),
           ("fdsva_so", "gym_ant", 16384), ("fdsva_so", "hyq", 16384),
-          ("fdsva_so", "dm_quadruped", 16384)]
+          ("fdsva_so", "dm_quadruped", 16384),
+          ("riccati_factored", "iiwa", ("ee", 64, 2048)),
+          ("linesearch", "iiwa", ("ee", 64, 2048)),
+          ("linesearch", "iiwa", ("quad3", 64, 2048)),
+          ("linesearch", "iiwa", ("quad4", 32, 1024)),
+          ("linesearch", "hyq", ("quad4", 32, 512)),
+          ("linesearch", "gym_ant", ("quad4", 32, 512)),
+          ("linesearch", "dm_quadruped", ("quad4", 32, 512))]
+DT = {"dm_quadruped": 0.002}
+# the sweeps' lanes held against float64: the first CHECK problems
+CHECK = 256
 
 
-# the knot programs with a clock around each phase; knot 0 of block 0 keeps
-# its phases' cycles
+# the programs with a clock around each phase; unit 0 of block 0 keeps its
+# phases' cycles
 PHASE_CLOCK_CU = r"""
 #include <type_traits>
 
-#include "warp.cuh"
+#include "sweep_warp.cuh"
 
 extern __shared__ double gt_smem[];
 
@@ -121,6 +141,106 @@ extern "C" int phase_clock(int so, int nj, const void* model, const void* q,
       (const float*)u, L, -9.81f, rec, phases, knot);
   return (int)cudaGetLastError();
 }
+
+template <int NJ>
+__global__ void clocked_ric(const float* A, const float* Bm, const float* lx,
+                            const float* lu, const float* Jw,
+                            const float* Vx0, const float* Vxx0, float* ks,
+                            float* Ks, int N, long long B, int r, float reg,
+                            float qd, float ud, long long* rec, int* phases,
+                            long long* knot) {
+  using P = gt::RicPlan<float, NJ>;
+  constexpr int W = P::LANES;
+  float* knots =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long long c0 = clock64();
+  const bool first = blockIdx.x == 0 && tid < W;
+  int count = 0;
+  const ClockPar<W> par{tid % W, 1 + tid / W, first ? rec : nullptr, &count};
+  const gt::FactoredIn<float, NJ> in{A, Bm, lx, lu, Jw, B, N, r, qd, ud};
+  gt::riccati_block<float, NJ, P::G>(par, tid, nt, tid / W, knots, P::STRIDE,
+                                     (long long)blockIdx.x * P::G, in, Vx0,
+                                     Vxx0, ks, Ks, N, B, reg);
+  if (first && tid == 0) {
+    *phases = count;
+    *knot = clock64() - c0;
+  }
+}
+
+extern "C" int ric_clock(int nj, const void* A, const void* Bm,
+                         const void* lx, const void* lu, const void* Jw,
+                         const void* Vx0, const void* Vxx0, void* ks,
+                         void* Ks, int N, long long B, int r, double reg,
+                         double qd, double ud, long long* rec, int* phases,
+                         long long* knot) {
+  constexpr int NJ = GT_NJ;
+  using P = gt::RicPlan<float, NJ>;
+  if (nj != NJ) return (int)cudaErrorInvalidValue;
+  gt::smem_attrs(clocked_ric<NJ>, P::BYTES);
+  clocked_ric<NJ><<<(unsigned)((B + P::G - 1) / P::G), P::G * P::LANES,
+                    P::BYTES>>>(
+      (const float*)A, (const float*)Bm, (const float*)lx, (const float*)lu,
+      (const float*)Jw, (const float*)Vx0, (const float*)Vxx0, (float*)ks,
+      (float*)Ks, N, B, r, (float)reg, (float)qd, (float)ud, rec, phases,
+      knot);
+  return (int)cudaGetLastError();
+}
+
+template <int NJ, class Cost>
+__global__ void clocked_ls(const float* model, const float* x0,
+                           const float* Uref, const float* Xref,
+                           const float* k, const float* K, const float* al,
+                           const float* lo, const float* hi, float* X,
+                           float* U, float* cost, int N, long long B, int na,
+                           int rows, float dt, const float* cbuf, int ncost,
+                           long long* rec, int* phases, long long* knot) {
+  using P = gt::LSPlan<float, NJ>;
+  constexpr int W = P::LANES;
+  auto& H = *reinterpret_cast<gt::LSHead<float, NJ>*>(gt_smem);
+  float* tiles =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  float* rolls = tiles + 2 * P::G * P::TILE;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long long c0 = clock64();
+  H.load(model, cbuf, ncost, lo, hi, tid, nt);
+  __syncthreads();
+  const bool first = blockIdx.x == 0 && blockIdx.y == 0 && tid < W;
+  int count = 0;
+  const ClockPar<W> par{tid % W, 1 + tid / W, first ? rec : nullptr, &count};
+  gt::linesearch_block<float, NJ, Cost, P::G>(
+      par, tid, nt, tid / W, H, tiles, P::TILE, rolls, P::STRIDE, rows,
+      (long long)blockIdx.x * P::G, blockIdx.y * rows, x0, Uref, Xref, k, K,
+      al, X, U, cost, N, B, na, dt, -9.81f);
+  if (first && tid == 0) {
+    *phases = count;
+    *knot = clock64() - c0;
+  }
+}
+
+extern "C" int ls_clock(int kind, int nj, const void* model, const void* x0,
+                        const void* Uref, const void* Xref, const void* k,
+                        const void* K, const void* al, const void* lo,
+                        const void* hi, void* X, void* U, void* cost, int N,
+                        long long B, int na, double dt, const void* cbuf,
+                        long long* rec, int* phases, long long* knot) {
+  constexpr int NJ = GT_NJ;
+  using P = gt::LSPlan<float, NJ>;
+  if (nj != NJ) return (int)cudaErrorInvalidValue;
+  const int rows = P::rows_for(na);
+  const dim3 grid((unsigned)((B + P::G - 1) / P::G),
+                  (unsigned)((na + rows - 1) / rows));
+  auto fn = kind == 0 ? clocked_ls<NJ, gt::EECostW<float, NJ>>
+                      : clocked_ls<NJ, gt::QuadCostW<float, NJ>>;
+  gt::smem_attrs(fn, P::BYTES);
+  fn<<<grid, P::G * rows * P::LANES, (int)P::bytes(rows)>>>(
+      (const float*)model, (const float*)x0, (const float*)Uref,
+      (const float*)Xref, (const float*)k, (const float*)K, (const float*)al,
+      (const float*)lo, (const float*)hi, (float*)X, (float*)U, (float*)cost,
+      N, B, na, rows, (float)dt, (const float*)cbuf, kind == 0 ? 7 : 7 * NJ,
+      rec, phases, knot);
+  return (int)cudaGetLastError();
+}
 """
 
 
@@ -129,14 +249,13 @@ def nvcc():
     return build._nvcc(), build.NVCC_FLAGS
 
 
-def compile_tree(tree: Path, out: Path, clocked: bool = False):
+def compile_tree(tree: Path, out: Path, sources, clocked: bool = False):
     """{nj: library path}, and the ptxas report of every object; with
-    `clocked`, also {nj: phase-clock library path} of the joint counts the
-    shapes use."""
+    `clocked`, also {nj: phase-clock library path}."""
     exe, flags = nvcc()
     csrc = tree / "gridcodegenerator_tpu_torch" / "csrc"
-    jobs = [(nj, csrc / src) for nj in JOINTS for src in SOURCES]
-    clock_joints = (7, 8, 12, 16) if clocked else ()
+    jobs = [(nj, csrc / src) for nj in JOINTS for src in sources]
+    clock_joints = JOINTS if clocked else ()
     if clocked:
         (out / "phase_clock.cu").write_text(PHASE_CLOCK_CU)
         jobs += [(nj, out / "phase_clock.cu") for nj in clock_joints]
@@ -161,21 +280,29 @@ def compile_tree(tree: Path, out: Path, clocked: bool = False):
     for nj in JOINTS:
         lib = out / f"lib_nj{nj}.so"
         subprocess.run([exe, *flags, "-shared",
-                        *(str(out / f"{src}.nj{nj}.o") for src in SOURCES),
+                        *(str(out / f"{src}.nj{nj}.o") for src in sources),
                         "-o", str(lib)], check=True, capture_output=True)
         libs[nj] = lib
     return libs, "\n".join(reports), clocks
 
 
+KERNEL_NAMES = ("fd_du_kernel", "fdsva_so_kernel", "riccati_factored_kernel",
+                "linesearch_kernel")
+
+
 def parse_ptxas(text: str) -> dict:
     """{"fd_du f32 nj7": {registers, stack, spill_stores, spill_loads,
-    smem}} for the fd_du and fdsva_so kernel instances in ptxas's report."""
+    smem, cumulative_stack}} for the instances of the thread-group kernels
+    (fd_du, fdsva_so, riccati_factored, linesearch_ee, linesearch_quad) in
+    ptxas's report."""
     def key(mangled):
         m = re.match(r"_Z\d+(\w+?_kernel)I([fd])Li(\d+)E", mangled)
-        if not m or m.group(1) not in ("fd_du_kernel", "fdsva_so_kernel"):
+        if not m or m.group(1) not in KERNEL_NAMES:
             return None
-        return (f"{m.group(1)[:-7]} {'f32' if m.group(2) == 'f' else 'f64'} "
-                f"nj{m.group(3)}")
+        name = m.group(1)[:-7]
+        if name == "linesearch":
+            name += "_ee" if "EECost" in mangled else "_quad"
+        return f"{name} {'f32' if m.group(2) == 'f' else 'f64'} nj{m.group(3)}"
 
     stats, cur, props = {}, None, None
     for line in text.splitlines():
@@ -211,26 +338,136 @@ def parse_ptxas(text: str) -> dict:
     return stats
 
 
-def bind(libs: dict, scratch: bool) -> dict:
+def bind(libs: dict, kernels, scratch: bool) -> dict:
     P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_double)
+    sig = {"fd_du": [I, I, P, P, P, P, P, P, P, L, D, P],
+           "fdsva_so": ([I, I, P, P, P, P, P, P, L, D, P] if scratch
+                        else [I, I, P, P, P, P, P, L, D, P]),
+           "riccati_factored": [I, I] + [P] * 9 + [I, L, I, D, D, D, P],
+           "linesearch": [I, I] + [P] * 12 + [I, L, I, D, D, I, P, P]}
     out = {}
     for nj, path in libs.items():
         h = ctypes.CDLL(str(path))
-        h.gridtorch_fd_du.argtypes = [I, I, P, P, P, P, P, P, P, L, D, P]
-        h.gridtorch_fdsva_so.argtypes = ([I, I, P, P, P, P, P, P, L, D, P]
-                                         if scratch else
-                                         [I, I, P, P, P, P, P, L, D, P])
-        h.gridtorch_fd_du.restype = h.gridtorch_fdsva_so.restype = I
+        for k in kernels:
+            fn = getattr(h, f"gridtorch_{k}")
+            fn.argtypes, fn.restype = sig[k], I
         out[nj] = h
     return out
+
+
+def bind_clock(path: Path):
+    P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_double)
+    h = ctypes.CDLL(str(path))
+    h.phase_clock.argtypes = [I, I, P, P, P, P, L, P, P, P]
+    h.ric_clock.argtypes = [I] + [P] * 9 + [I, L, I, D, D, D, P, P, P]
+    h.ls_clock.argtypes = [I, I] + [P] * 12 + [I, L, I, D, P, P, P, P]
+    for fn in (h.phase_clock, h.ric_clock, h.ls_clock):
+        fn.restype = I
+    return h
+
+
+def sweep_inputs(m, cost_kind, N, B, dev):
+    """The riccati_factored (EE reach only) and line-search arguments as the
+    solver's first iteration makes them with the plain ops, from x0 ~
+    U(-0.2, 0.2) (seed 0) and U0 = 0, six step sizes; as chip_smoke.py's
+    phases 3 and 6 make them."""
+    from gridcodegenerator_tpu_torch.ops import eepose
+    from gridcodegenerator_tpu_torch.ops.cuda import sweeps as S
+    from gridcodegenerator_tpu_torch.trajopt.cost import EEReachCost, QuadCost
+    from gridcodegenerator_tpu_torch.trajopt.ilqr import (
+        ILQRConfig, make_ilqr, resolve_control_bounds)
+    n, dt = m.n, DT.get(m.name, 0.01)
+    if cost_kind == "ee":
+        goal = eepose.eepos(m, torch.full((n, 1), 0.5, dtype=m.dtype,
+                                          device=dev))[:3, 0]
+        cost = EEReachCost(model=m, goal_xyz=goal, w_pos=0.5, w_pos_f=200.0)
+    else:
+        full = lambda v, k: torch.full((k,), v, dtype=m.dtype, device=dev)
+        xg = full(0.0, 2 * n)
+        xg[0] = 1.0 if cost_kind == "quad3" else 0.5
+        if cost_kind == "quad3":
+            xg[1] = 0.5
+        cost = QuadCost(Q=full(0.1, 2 * n), R=full(1e-3, n),
+                        Qf=full(100.0, 2 * n), x_goal=xg)
+    cfg = ILQRConfig(N=N, dt=dt, iters=1, use_kernels=False)
+    _, parts = make_ilqr(m, cost, cfg, expose_parts=True)
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.2, 0.2,
+                                                           (2 * n, B)),
+                         dtype=m.dtype, device=dev)
+    U0 = torch.zeros((N, n, B), dtype=m.dtype, device=dev)
+    X = parts["rollout"](x0, U0)
+    A, Bm = parts["linearize"](X[:N], U0)
+    fold = lambda Z: Z.transpose(0, 1).reshape(Z.shape[1], -1)
+    _, Vx0, Vxx0 = cost.terminal_expansion(X[N])
+    ric = None
+    if cost_kind == "ee":
+        Jw, lx, lu = cost.gn_stage_factor(fold(X[:N]), fold(U0))
+        ric = (A, Bm, lx.contiguous(), lu.contiguous(), Jw.contiguous(),
+               Vx0.contiguous(), Vxx0.contiguous(), cfg.reg,
+               *cost.gn_factor_diags)
+        ks, Ks = S.riccati_factored_plain(*ric)
+    else:
+        unfold = lambda z: z.reshape(z.shape[:-1] + (N, B)).movedim(-2, 0)
+        _, lx, lu, lxx, luu, lux = cost.stage_expansion(fold(X[:N]),
+                                                        fold(U0))
+        ks, Ks = S.riccati_plain(A, Bm, unfold(lx).contiguous(),
+                                 unfold(lu).contiguous(),
+                                 *(c[..., :B].contiguous()
+                                   for c in (lxx, luu, lux)),
+                                 Vx0.contiguous(), Vxx0.contiguous(),
+                                 cfg.reg)
+    lo, hi = resolve_control_bounds(m, cfg)
+    al = torch.tensor(cfg.alphas, dtype=m.dtype, device=dev)[:, None]
+    ls = (m, X[0].contiguous(), U0, X[:N].contiguous(), ks.contiguous(),
+          Ks.contiguous(), al.repeat(1, B).contiguous(), dt, -9.81, lo, hi,
+          cost)
+    return ric, ls
+
+
+def head_ric(ric, B, nb):
+    """riccati_factored's arguments on the first nb problems."""
+    A, Bm, lx, lu, Jw, Vx0, Vxx0, *rest = ric
+    knot = lambda z: z.reshape(z.shape[:-1] + (-1, B))[..., :nb].reshape(
+        z.shape[:-1] + (-1,)).contiguous()
+    return (A[..., :nb].contiguous(), Bm[..., :nb].contiguous(), knot(lx),
+            knot(lu), knot(Jw), Vx0[:, :nb].contiguous(),
+            Vxx0[..., :nb].contiguous(), *rest)
+
+
+def head_ls(ls, nb):
+    """The line search's arguments on the first nb problems."""
+    m, x0, Ur, Xr, k, K, al, *rest = ls
+    cut = lambda z: z[..., :nb].contiguous()
+    return (m, cut(x0), cut(Ur), cut(Xr), cut(k), cut(K), cut(al), *rest)
+
+
+def to64(args, m64):
+    from gridcodegenerator_tpu_torch.trajopt.cost import EEReachCost, QuadCost
+
+    def one(a):
+        if isinstance(a, torch.Tensor):
+            return a.double()
+        if isinstance(a, EEReachCost):
+            return dataclasses.replace(a, model=m64,
+                                       goal_xyz=a.goal_xyz.double())
+        if isinstance(a, QuadCost):
+            return QuadCost(Q=a.Q.double(), R=a.R.double(), Qf=a.Qf.double(),
+                            x_goal=a.x_goal.double())
+        return a
+    return (m64,) + tuple(one(a) for a in args[1:])
 
 
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, type=Path, action="append")
+    ap.add_argument("--kernels", default="riccati_factored,linesearch")
     ap.add_argument("--out", default="build/compare_kernels.json")
     args = ap.parse_args()
+    kernels = tuple(args.kernels.split(","))
+    if any(k not in SOURCES for k in kernels):
+        raise ValueError(f"--kernels: each of {tuple(SOURCES)}")
     if not torch.cuda.is_available():
         raise RuntimeError("compare_kernels.py needs a CUDA device")
     sys.path.insert(0, str(ROOT))
@@ -238,8 +475,10 @@ def main():
     from gridcodegenerator_tpu_torch.models.zoo import load_robot
     from gridcodegenerator_tpu_torch.ops.cuda import build
     from gridcodegenerator_tpu_torch.ops.cuda import kernels as K
+    from gridcodegenerator_tpu_torch.ops.cuda import sweeps as S
     from gridcodegenerator_tpu_torch.utils.timing import time_cuda
 
+    torch.backends.cuda.matmul.allow_tf32 = False
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
@@ -247,104 +486,206 @@ def main():
     trees = {"this": ROOT} | {d.resolve().name: d.resolve()
                               for d in args.other}
     others = list(trees)[1:]
+    (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="compare-", dir=ROOT / "build"))
     result = {"device": smi, "ptxas": {}, "info": {}, "times": []}
+    sources = sorted({SOURCES[k] for k in kernels})
     libs = {}
     for name, tree in trees.items():
         (work / name).mkdir()
-        built, report, clocks = compile_tree(tree, work / name,
+        built, report, clocks = compile_tree(tree, work / name, sources,
                                              clocked=name == "this")
         if name == "this":
-            clock_libs = {nj: ctypes.CDLL(str(p)) for nj, p in clocks.items()}
+            clock_libs = {nj: bind_clock(p) for nj, p in clocks.items()}
         result["ptxas"][name] = parse_ptxas(report)
         scratch = "void* scratch" in (tree / "gridcodegenerator_tpu_torch"
                                       / "csrc" / "fdsva_so.cu").read_text()
-        libs[name] = (bind(built, scratch), scratch)
+        libs[name] = bind(built, kernels, scratch), scratch
     for nj in JOINTS:
         for dtype in (torch.float32, torch.float64):
-            for what in ("fd_du", "fdsva_so"):
+            for what in kernels:
                 result["info"][f"{what} {str(dtype)[6:]} nj{nj}"] = \
                     build.warp_kernel_info(what, nj, dtype)
     print("ptxas: " + json.dumps(result["ptxas"]), flush=True)
     print("info: " + json.dumps(result["info"]), flush=True)
 
     dev = torch.device("cuda:0")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()
     models = {}
-    for what, robot, lanes in SHAPES:
+    rec = torch.zeros(4096, dtype=torch.int64, device=dev)
+    phases = torch.zeros(1, dtype=torch.int32, device=dev)
+    knot = torch.zeros(1, dtype=torch.int64, device=dev)
+    clock_out = lambda: (ptr(rec), ptr(phases), ptr(knot))
+    for what, robot, shape in SHAPES:
+        if what not in kernels:
+            continue
         if robot not in models:
             models[robot] = build_model(load_robot(robot),
                                         dtype=torch.float32, device=dev)
         m = models[robot]
+        m64 = m.to(dtype=torch.float64)
         n = m.n
-        rng = np.random.default_rng(0)
-        q, qd, u = (torch.as_tensor(rng.uniform(-1, 1, (n, lanes)),
-                                    dtype=torch.float32, device=dev)
-                    for _ in range(3))
-        mb = build.model_buffer(m)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        ptr = lambda t: t.data_ptr()
+        clock = clock_libs[n]
+        if what in ("fd_du", "fdsva_so"):
+            lanes = shape
+            rng = np.random.default_rng(0)
+            q, qd, u = (torch.as_tensor(rng.uniform(-1, 1, (n, lanes)),
+                                        dtype=torch.float32, device=dev)
+                        for _ in range(3))
+            mb = build.model_buffer(m)
 
-        def runner(tree):
-            h, scratch = libs[tree]
-            lib = h[n]
-            if what == "fd_du":
-                outs = (torch.empty(n, 2 * n, lanes, device=dev),
-                        torch.empty(n, lanes, device=dev),
-                        torch.empty(n, n, lanes, device=dev))
+            def runner(tree):
+                lib = libs[tree][0][n]
+                if what == "fd_du":
+                    outs = (torch.empty(n, 2 * n, lanes, device=dev),
+                            torch.empty(n, lanes, device=dev),
+                            torch.empty(n, n, lanes, device=dev))
+
+                    def fn():
+                        build.check(lib.gridtorch_fd_du(
+                            0, n, ptr(mb), ptr(q), ptr(qd), ptr(u),
+                            *map(ptr, outs), lanes, -9.81, stream), what)
+                    return fn, outs
+                outs = (torch.empty(4, n, n, n, lanes, device=dev),)
+                extra = ((torch.empty(4, n, n, n, lanes, device=dev),)
+                         if libs[tree][1] else ())
 
                 def fn():
-                    build.check(lib.gridtorch_fd_du(
+                    build.check(lib.gridtorch_fdsva_so(
                         0, n, ptr(mb), ptr(q), ptr(qd), ptr(u),
-                        *map(ptr, outs), lanes, -9.81, stream), what)
+                        ptr(outs[0]), *map(ptr, extra), lanes, -9.81,
+                        stream), what)
                 return fn, outs
-            outs = (torch.empty(4, n, n, n, lanes, device=dev),)
-            extra = ((torch.empty(4, n, n, n, lanes, device=dev),)
-                     if scratch else ())
 
-            def fn():
-                build.check(lib.gridtorch_fdsva_so(
-                    0, n, ptr(mb), ptr(q), ptr(qd), ptr(u), ptr(outs[0]),
-                    *map(ptr, extra), lanes, -9.81, stream), what)
-            return fn, outs
+            sub = slice(0, min(lanes, 1024))
+            plain = getattr(K, f"{what}_plain")
+            ref64 = plain(m64, q[:, sub].double(), qd[:, sub].double(),
+                          u[:, sub].double())
+            ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
+            cut = lambda outs: tuple(o[..., sub] for o in outs)
+            rows = 1
+            label = lanes
+
+            def clock_fn():
+                return clock.phase_clock(what == "fdsva_so", n, ptr(mb),
+                                         ptr(q), ptr(qd), ptr(u), lanes,
+                                         *clock_out())
+        else:
+            cost_kind, N, B = shape
+            ric, ls = sweep_inputs(m, cost_kind, N, B, dev)
+            label = f"{cost_kind} N={N} B={B}"
+            nb = min(B, CHECK)
+            if what == "riccati_factored":
+                A, Bm, lx, lu, Jw, Vx0, Vxx0, *scalars = ric
+                reg, qdg, udg = map(float, scalars)
+                r = Jw.shape[0]
+
+                def runner(tree):
+                    lib = libs[tree][0][n]
+                    outs = (torch.empty(N, n, B, device=dev),
+                            torch.empty(N, n, 2 * n, B, device=dev))
+
+                    def fn():
+                        build.check(lib.gridtorch_riccati_factored(
+                            0, n, *map(ptr, (A, Bm, lx, lu, Jw, Vx0, Vxx0)),
+                            *map(ptr, outs), N, B, r, reg, qdg, udg, stream),
+                            what)
+                    return fn, outs
+                ref64 = S.riccati_factored_plain(
+                    *(a.double() if isinstance(a, torch.Tensor) else a
+                      for a in head_ric(ric, B, nb)))
+                cut = lambda outs: tuple(o[..., :nb] for o in outs)
+                rows = 1
+
+                def clock_fn():
+                    outs = (torch.empty(N, n, B, device=dev),
+                            torch.empty(N, n, 2 * n, B, device=dev))
+                    return clock.ric_clock(
+                        n, *map(ptr, (A, Bm, lx, lu, Jw, Vx0, Vxx0)),
+                        *map(ptr, outs), N, B, r, reg, qdg, udg,
+                        *clock_out())
+            else:
+                _, x0, Ur, Xr, kf, Km, al, dt, g, lo, hi, cost = ls
+                na = al.shape[0]
+                w = cost.kernel_weights
+                kind = S.COST_KINDS[w["kind"]]
+                mb = build.model_buffer(m, w["ee_index"])
+                cb = build.cost_buffer(cost, x0)
+
+                def runner(tree):
+                    lib = libs[tree][0][n]
+                    outs = (torch.empty(N, 2 * n, na * B, device=dev),
+                            torch.empty(N, n, na * B, device=dev),
+                            torch.empty(na * B, device=dev))
+
+                    def fn():
+                        build.check(lib.gridtorch_linesearch(
+                            0, n, ptr(mb), *map(ptr, (x0, Ur, Xr, kf, Km, al,
+                                                      lo, hi)),
+                            *map(ptr, outs), N, B, na, dt, g, kind, ptr(cb),
+                            stream), what)
+                    return fn, outs
+                head = head_ls(ls, nb)
+                ref64 = S.linesearch_rollout_plain(*to64(head, m64))
+                cut = lambda outs: tuple(
+                    o.reshape(o.shape[:-1] + (na, B))[..., :nb]
+                    .reshape(o.shape[:-1] + (na * nb,)) for o in outs)
+                rows = na
+
+                def clock_fn():
+                    outs = (torch.empty(N, 2 * n, na * B, device=dev),
+                            torch.empty(N, n, na * B, device=dev),
+                            torch.empty(na * B, device=dev))
+                    return clock.ls_clock(
+                        kind, n, ptr(mb), *map(ptr, (x0, Ur, Xr, kf, Km, al,
+                                                     lo, hi)),
+                        *map(ptr, outs), N, B, na, dt, ptr(cb),
+                        *clock_out())
 
         run = {tree: runner(tree) for tree in trees}
         for fn, _ in run.values():
             fn()
         torch.cuda.synchronize()
-        m64 = m.to(dtype=torch.float64)
-        plain = getattr(K, f"{what}_plain")
-        sub = slice(0, min(lanes, 1024))
-        ref64 = plain(m64, q[:, sub].double(), qd[:, sub].double(),
-                      u[:, sub].double())
-        ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
-        err = {tree: max(float((o[..., sub].double() - r).abs().max())
-                         for o, r in zip(outs, ref64))
-               for tree, (_, outs) in run.items()}
-        scale = max(1.0, max(float(r.abs().max()) for r in ref64))
-        if not err["this"] <= 10 * err[others[0]] + 1e-5 * scale:
-            raise AssertionError(f"{what} {robot} L={lanes}: this tree's "
-                                 f"error vs float64 {err}")
-        iters = 20 if lanes <= 32768 else 10
+
+        def row_err(outs):   # per output, per step-size row
+            return [(o.double() - r).abs().reshape(-1, rows, o.shape[-1]
+                                                   // rows).amax(dim=(0, 2))
+                    for o, r in zip(cut(outs), ref64)]
+        err = {tree: row_err(outs) for tree, (_, outs) in run.items()}
+        scale = [r.abs().reshape(-1, rows, r.shape[-1] // rows).amax(
+            dim=(0, 2)).clamp(min=1.0) for r in ref64]
+        for e, e0, s in zip(err["this"], err[others[0]], scale):
+            # rows the other tree leaves non-finite (float32 overflow of
+            # an unstable alpha = 1 loop) bound nothing
+            if not bool(((e <= 10 * e0 + 1e-5 * s) | ~e0.isfinite()).all()):
+                raise AssertionError(f"{what} {robot} {label}: this tree's "
+                                     f"error vs float64 {e.tolist()}, "
+                                     f"{others[0]}'s {e0.tolist()}")
+        iters = 20 if what in ("fd_du", "fdsva_so") and shape <= 32768 else 10
         order = others + ["this", "this"] + others[::-1]
         ms = {tree: [] for tree in trees}
         for tree in order:
             ms[tree].append(time_cuda(run[tree][0], iters=iters))
-        rec = torch.zeros(4096, dtype=torch.int64, device=dev)
-        phases = torch.zeros(1, dtype=torch.int32, device=dev)
-        knot = torch.zeros(1, dtype=torch.int64, device=dev)
-        build.check(clock_libs[n].phase_clock(
-            ctypes.c_int(what == "fdsva_so"), ctypes.c_int(n),
-            ctypes.c_void_p(ptr(mb)), ctypes.c_void_p(ptr(q)),
-            ctypes.c_void_p(ptr(qd)), ctypes.c_void_p(ptr(u)),
-            ctypes.c_longlong(lanes), ctypes.c_void_p(ptr(rec)),
-            ctypes.c_void_p(ptr(phases)), ctypes.c_void_p(ptr(knot))),
-            "phase clock")
+        build.check(clock_fn(), "phase clock")
         torch.cuda.synchronize()
-        nph = int(phases.item())
-        row = {"kernel": what, "robot": robot, "joints": n, "lanes": lanes,
-               "ms": ms, "err_vs_f64_first_1024": err,
-               "knot_cycles": int(knot.item()),
-               "phase_cycles": rec[:min(nph, 4096)].tolist()}
+        nph = min(int(phases.item()), 4096)
+        cyc = rec[:nph].tolist()
+        row = {"kernel": what, "robot": robot, "joints": n, "shape": label,
+               "ms": ms,
+               "err_vs_f64": {t: max(float(x.max()) for x in e)
+                              for t, e in err.items()},
+               "knot_cycles": int(knot.item())}
+        if what in ("fd_du", "fdsva_so"):
+            row["phase_cycles"] = cyc
+        else:   # the mean of each phase position over the knots
+            steps = N
+            per = nph // steps
+            arr = np.asarray(cyc[:per * steps]).reshape(steps, per)
+            row |= {"phases": nph, "phases_per_step": per,
+                    "step_phase_cycles_mean": arr.mean(0).round(1).tolist(),
+                    "step_cycles_mean": float(arr.sum(1).mean()),
+                    "after_last_step": cyc[per * steps:]}
         result["times"].append(row)
         print("time: " + json.dumps(row), flush=True)
         del run

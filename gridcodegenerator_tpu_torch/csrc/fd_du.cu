@@ -95,7 +95,8 @@ extern "C" int gridtorch_fd_du(int dtype, int nj, const void* model,
 }
 
 // The block plan (G; threads a knot; bytes a block) and
-// cudaFuncGetAttributes of the instance (warp.cuh:kernel_info), into out[8].
+// cudaFuncGetAttributes of the instance (warp.cuh:kernel_info), into
+// out[10].
 extern "C" int gridtorch_fd_du_info(int dtype, int nj, int* out) {
   GT_DISPATCH(dtype, nj,
               gt::kernel_info<gt::FDPlan<T, NJ>>(

@@ -90,7 +90,7 @@ extern "C" int gridtorch_fdsva_so(int dtype, int nj, const void* model,
 
 // The block plan (G, 0 if one knot does not fit; threads a knot; bytes a
 // block, for one knot if G is 0) and cudaFuncGetAttributes of the instance
-// (warp.cuh:kernel_info), into out[8].
+// (warp.cuh:kernel_info), into out[10].
 extern "C" int gridtorch_fdsva_so_info(int dtype, int nj, int* out) {
   GT_DISPATCH(dtype, nj,
               gt::kernel_info<gt::SOPlan<T, NJ>>(

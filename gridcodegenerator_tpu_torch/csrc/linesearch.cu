@@ -1,14 +1,14 @@
 // linesearch: feedback rollouts for every step size at once, with the cost
-// summed in the sweep; one thread per (step size, problem).
+// summed in the sweep; a group of threads per (step size, problem).
 //
 // Replaces gridcodegenerator_tpu/ops/pallas/sweeps.py:
 // linesearch_rollout_pallas and the in-kernel hooks of
 // gridcodegenerator_tpu/trajopt/cost.py:EEReachCost.pallas_cost and
-// QuadCost.pallas_cost: the lane is a template on the cost (EECost,
-// QuadCostK), whose constants come from a small packed buffer
-// (ops/cuda/build.py:cost_buffer, cached per cost). Lane
+// QuadCost.pallas_cost: the program is a template on the cost (EECostW,
+// QuadCostW in csrc/sweep_warp.cuh), whose constants come from a small
+// packed buffer (ops/cuda/build.py:cost_buffer, cached per cost). Lane
 // l = a B + b runs step-size row a for problem b (alpha-major, the order of
-// the solver's widened lanes); every row re-reads the same unwidened
+// the solver's widened lanes); the rows of a problem share its unwidened
 // Uref/Xref/k/K, so the widened inputs never exist in device memory.
 //
 // u_t = clamp(Uref_t + alpha k_t + K_t (x_t - Xref_t)); the stage cost
@@ -20,10 +20,25 @@
 // * QuadCostK (kind 1; buffer Q (2 NJ) | R (NJ) | Qf (2 NJ) | x_goal (2 NJ)):
 //   stage 0.5 (sum Q (x - xg)^2 + sum R u^2), terminal 0.5 sum Qf (x - xg)^2.
 //
+// The kernel (csrc/sweep_warp.cuh:linesearch_block) holds G problems and
+// `rows` of their step-size rows a block (LSPlan), a rollout a group of
+// LANES threads: each Euler step is 4 L - 1 phases for a tree of L levels
+// (the control law and the joint transforms a joint a thread, ABA's passes a
+// level a phase, a row or entry of each joint's quantities a thread), the
+// state in shared memory. The block reads each knot's K, Xref, Uref and k
+// once for all its rows, G lanes a row with cp.async into a second buffer
+// while the step before runs, and writes X and U G lanes a row.
+// What bounds it on the card: operations (the ABA steps; bytes: N (2 NJ^2 +
+// 4 NJ) values a problem in, N 3 NJ a rollout out); the design's limits are
+// the step's serial phases (a chain of L joints is L levels) and the
+// rollouts shared memory holds on an SM. The plans (problems a block x
+// threads a rollout, rows a block, bytes a block):
+// `gridtorch_linesearch_info`.
+//
 // Layout: x0 (2 NJ, B), Uref/k (N, NJ, B), Xref (N, 2 NJ, B),
 // K (N, NJ, 2 NJ, B), alpha_rows (na, B), bounds (NJ) or null;
 // X (N, 2 NJ, na B), U (N, NJ, na B), cost (na B).
-#include "dynamics.cuh"
+#include "sweep_warp.cuh"
 
 namespace gt {
 
@@ -83,6 +98,8 @@ struct QuadCostK {
   }
 };
 
+// One rollout serially: the arithmetic the function needs (csrc/opcount.cpp
+// counts it for the bound).
 template <typename T, int NJ, class Cost>
 GT_HD void linesearch_lane(const Robot<T, NJ>& R, const T* x0,
                            const T* Uref, const T* Xref, const T* k,
@@ -115,6 +132,8 @@ GT_HD void linesearch_lane(const Robot<T, NJ>& R, const T* x0,
 
 #ifdef __CUDACC__
 
+extern __shared__ double gt_smem[];
+
 template <typename T, int NJ, class Cost>
 __global__ void linesearch_kernel(
     const T* __restrict__ model, const T* __restrict__ x0,
@@ -122,14 +141,21 @@ __global__ void linesearch_kernel(
     const T* __restrict__ k, const T* __restrict__ K,
     const T* __restrict__ alpha_rows, const T* __restrict__ lo,
     const T* __restrict__ hi, T* __restrict__ X, T* __restrict__ U,
-    T* __restrict__ cost, int N, long long B, int na, T dt, T gravity,
-    const T* __restrict__ cbuf) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= (long long)na * B) return;
-  const gt::Robot<T, NJ> R(model);
-  const Cost c{cbuf};
-  gt::linesearch_lane<T, NJ>(R, x0, Uref, Xref, k, K, alpha_rows, lo, hi, X,
-                             U, cost, N, B, na, lane, dt, gravity, c);
+    T* __restrict__ cost, int N, long long B, int na, int rows, T dt,
+    T gravity, const T* __restrict__ cbuf, int ncost) {
+  using P = gt::LSPlan<T, NJ>;
+  constexpr int W = P::LANES;
+  auto& H = *reinterpret_cast<gt::LSHead<T, NJ>*>(gt_smem);
+  T* tiles = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  T* rolls = tiles + 2 * P::G * P::TILE;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  H.load(model, cbuf, ncost, lo, hi, tid, nt);
+  __syncthreads();
+  gt::linesearch_block<T, NJ, Cost, P::G>(
+      gt::WarpPar<W>{tid % W, 1 + tid / W}, tid, nt, tid / W, H, tiles,
+      P::TILE, rolls, P::STRIDE, rows, (long long)blockIdx.x * P::G,
+      blockIdx.y * rows, x0, Uref, Xref, k, K, alpha_rows, X, U, cost, N, B,
+      na, dt, gravity);
 }
 
 template <typename T, int NJ>
@@ -141,21 +167,29 @@ static int launch_linesearch(const void* model, const void* x0,
                              int N, long long B, int na, double dt,
                              double gravity, int kind, const void* cbuf,
                              cudaStream_t stream) {
-  const long long lanes = (long long)na * B;
-  if (lanes == 0 || N == 0) return 0;
-  const int block = 64;
-  const dim3 grid = gt_grid(lanes, block);
+  using P = gt::LSPlan<T, NJ>;
+  static_assert(P::ROWS >= 1, "one line-search rollout a problem must fit");
+  if (na == 0 || B == 0 || N == 0) return 0;
+  const int rows = P::rows_for(na);
+  const dim3 grid((unsigned)((B + P::G - 1) / P::G),
+                  (unsigned)((na + rows - 1) / rows));
+  const int threads = P::G * rows * P::LANES;
+  const int bytes = (int)P::bytes(rows);
 #define GT_LS_ARGS                                                          \
   (const T*)model, (const T*)x0, (const T*)Uref, (const T*)Xref,            \
       (const T*)k, (const T*)K, (const T*)alpha_rows, (const T*)lo,         \
-      (const T*)hi, (T*)X, (T*)U, (T*)cost, N, B, na, (T)dt, (T)gravity,    \
-      (const T*)cbuf
+      (const T*)hi, (T*)X, (T*)U, (T*)cost, N, B, na, rows, (T)dt,          \
+      (T)gravity, (const T*)cbuf
   if (kind == 0) {
-    linesearch_kernel<T, NJ, gt::EECost<T, NJ>>
-        <<<grid, block, 0, stream>>>(GT_LS_ARGS);
+    auto fn = linesearch_kernel<T, NJ, gt::EECostW<T, NJ>>;
+    static const cudaError_t attr = gt::smem_attrs(fn, P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    fn<<<grid, threads, bytes, stream>>>(GT_LS_ARGS, 7);
   } else if (kind == 1) {
-    linesearch_kernel<T, NJ, gt::QuadCostK<T, NJ>>
-        <<<grid, block, 0, stream>>>(GT_LS_ARGS);
+    auto fn = linesearch_kernel<T, NJ, gt::QuadCostW<T, NJ>>;
+    static const cudaError_t attr = gt::smem_attrs(fn, P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    fn<<<grid, threads, bytes, stream>>>(GT_LS_ARGS, 7 * NJ);
   } else {
     return (int)cudaErrorInvalidValue;
   }
@@ -174,6 +208,16 @@ extern "C" int gridtorch_linesearch(
                                        alpha_rows, lo, hi, X, U, cost, N, B,
                                        na, dt, gravity, kind, cbuf,
                                        (cudaStream_t)stream));
+}
+
+// The block plan (problems a block; threads a rollout; bytes a block at
+// the most rows; rows a block at most) and cudaFuncGetAttributes of the EE
+// instance (warp.cuh:kernel_info), into out[10].
+extern "C" int gridtorch_linesearch_info(int dtype, int nj, int* out) {
+  GT_DISPATCH(dtype, nj,
+              gt::kernel_info<gt::LSPlan<T, NJ>>(
+                  (const void*)linesearch_kernel<T, NJ, gt::EECostW<T, NJ>>,
+                  out));
 }
 
 #endif

@@ -12,7 +12,9 @@
 //
 // Two counts per kernel:
 // * executed: every operation the kernel's lane code does (fd_du and
-//   fdsva_so: every thread of the knot's warp, warp.cuh);
+//   fdsva_so: every thread of the knot's warp, warp.cuh; riccati_factored
+//   and linesearch_rollout: every thread of the problem's or rollout's
+//   group, sweep_warp.cuh);
 // * needed: the arithmetic of the function, the bound's numerator. Constants
 //   fold: literals and the robot's constants (GRiD generates code per
 //   robot) are known, the lane's inputs are not, and an operation whose
@@ -261,25 +263,41 @@ long long count(int kernel, const double* model, const double* ee, int ne,
                                    y.data(), nullptr, nullptr, x.data(),
                                    w.data(), N, 1, 0, dt, g);
       break;
-    case LINESEARCH:
-      if (flag == 0) {
+    case LINESEARCH:   // executed: the rollout's group, every phase
+      if (needed && flag == 0) {
         const EECost<C, NJ> ec{cb.data()};
         linesearch_lane<C, NJ>(R, a.data(), b.data(), c.data(), d.data(),
                                y.data(), z.data(), nullptr, nullptr, x.data(),
                                w.data(), x.data() + big - 1, N, 1, 1, 0, dt,
                                g, ec);
-      } else {
+      } else if (needed) {
         const QuadCostK<C, NJ> qc{cb.data()};
         linesearch_lane<C, NJ>(R, a.data(), b.data(), c.data(), d.data(),
                                y.data(), z.data(), nullptr, nullptr, x.data(),
                                w.data(), x.data() + big - 1, N, 1, 1, 0, dt,
                                g, qc);
+      } else if (flag == 0) {
+        linesearch_host<C, NJ, EECostW<C, NJ>>(
+            m.data(), a.data(), b.data(), c.data(), d.data(), y.data(),
+            z.data(), nullptr, nullptr, x.data(), w.data(),
+            x.data() + big - 1, N, 1, 1, dt, g, cb.data(), ncost);
+      } else {
+        linesearch_host<C, NJ, QuadCostW<C, NJ>>(
+            m.data(), a.data(), b.data(), c.data(), d.data(), y.data(),
+            z.data(), nullptr, nullptr, x.data(), w.data(),
+            x.data() + big - 1, N, 1, 1, dt, g, cb.data(), ncost);
       }
       break;
-    case RICCATI_FACTORED:
-      riccati_lane<C, NJ>(a.data(), b.data(), c.data(), d.data(), y.data(),
-                          z.data(), w.data(), x.data(), x.data() + big / 2,
-                          N, 1, r, 0, reg, C(1e-2), C(1e-4));
+    case RICCATI_FACTORED:   // executed: the problem's warp, every phase
+      if (needed)
+        riccati_lane<C, NJ>(a.data(), b.data(), c.data(), d.data(), y.data(),
+                            z.data(), w.data(), x.data(), x.data() + big / 2,
+                            N, 1, r, 0, reg, C(1e-2), C(1e-4));
+      else
+        riccati_factored_host<C, NJ>(a.data(), b.data(), c.data(), d.data(),
+                                     y.data(), z.data(), w.data(), x.data(),
+                                     x.data() + big / 2, N, 1, r, reg,
+                                     C(1e-2), C(1e-4));
       break;
     case RICCATI:
       riccati_dense_lane<C, NJ>(a.data(), b.data(), c.data(), d.data(),

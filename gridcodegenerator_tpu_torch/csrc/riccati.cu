@@ -1,5 +1,4 @@
-// riccati_factored and riccati: the backward Riccati sweeps, one thread per
-// problem, sharing one knot step (riccati_knot).
+// riccati_factored and riccati: the backward Riccati sweeps.
 //
 // riccati_factored replaces gridcodegenerator_tpu/ops/pallas/sweeps.py:
 // riccati_pallas_factored (a Gauss-Newton-factored stage cost); riccati
@@ -7,8 +6,7 @@
 // stationary block). The TPU kernels walked the knots as a sequential
 // "arbitrary" grid axis in reverse and carried (Vx, Vxx) in VMEM scratch
 // between grid steps. Blocks on the GPU run in no order, so the knot loop
-// t = N-1 .. 0 runs inside the thread and (Vx, Vxx) stay in that thread's
-// registers and local memory.
+// t = N-1 .. 0 runs inside the block.
 //
 // Per knot (riccati_knot): Qx = lx + A^T Vx, Qu = lu + B^T Vx,
 // Qxx = lxx + A^T Vxx A, Qux = lux + B^T Vxx A, Quu = luu + B^T Vxx B, with
@@ -18,10 +16,20 @@
 // Gauss-Jordan; the value update is the full form (it cancels the
 // regularization to O(reg^2)), then symmetrized.
 //
-// What bounds them on the card: the serial knot loop and per-thread
-// arithmetic (O(NX^3) per knot) with local memory, at one thread per
-// problem; device memory carries each knot's A and B once. Under a
-// stationary curvature the lane reads its one block once, before the loop.
+// riccati_factored runs a warp per problem (csrc/sweep_warp.cuh:
+// riccati_knot_warp, 6 + NJ phases a knot, an entry of each product a
+// thread), G problems a block, (Vx, Vxx) and the knot's Q blocks in shared
+// memory; the block stages each knot's A, B, lx, lu and Jw for its G
+// problems with cp.async into a second buffer while the knot before is
+// computed (G lanes a row: whole sectors), and writes k and K G lanes a row.
+// What bounds it on the card: bytes and operations in equal measure (A and
+// B are read once; O(NX^3) a knot); the design's limits are the knot's
+// serial phases and shared-memory bandwidth. The plans (problems a block x
+// threads a problem, bytes a block): `gridtorch_riccati_factored_info`.
+//
+// riccati (dense) keeps one thread per problem (riccati_dense_lane), its
+// state in that thread's registers and local memory; under a stationary
+// curvature the lane reads its one block once, before the loop.
 //
 // Layouts: A (N, NX, NX, B), Bm (N, NX, NJ, B), Vx0 (NX, B),
 // Vxx0 (NX, NX, B); outputs k (N, NJ, B), K (N, NJ, NX, B).
@@ -29,7 +37,7 @@
 // solver's knot-major lane layout, lane t B + b. riccati: lx (N, NX, B),
 // lu (N, NJ, B); lxx (NX, NX, B), luu (NJ, NJ, B), lux (NJ, NX, B), each
 // with a leading N axis unless stationary.
-#include "dynamics.cuh"
+#include "sweep_warp.cuh"
 
 namespace gt {
 
@@ -213,6 +221,8 @@ GT_HD void riccati_store(T* ks, T* Ks, int t, long long B, long long b,
   }
 }
 
+// One problem serially: the arithmetic the function needs
+// (csrc/opcount.cpp counts it for the bound).
 template <typename T, int NJ>
 GT_HD void riccati_lane(const T* A, const T* Bm, const T* lx, const T* lu,
                         const T* Jw, const T* Vx0, const T* Vxx0, T* ks,
@@ -268,21 +278,24 @@ GT_HD void riccati_dense_lane(const T* A, const T* Bm, const T* lx,
 
 #ifdef __CUDACC__
 
+extern __shared__ double gt_smem[];
+
 template <typename T, int NJ>
-__global__ void riccati_kernel(const T* __restrict__ A,
-                               const T* __restrict__ Bm,
-                               const T* __restrict__ lx,
-                               const T* __restrict__ lu,
-                               const T* __restrict__ Jw,
-                               const T* __restrict__ Vx0,
-                               const T* __restrict__ Vxx0,
-                               T* __restrict__ ks, T* __restrict__ Ks, int N,
-                               long long B, int r, T reg, T qd_diag,
-                               T u_diag) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  gt::riccati_lane<T, NJ>(A, Bm, lx, lu, Jw, Vx0, Vxx0, ks, Ks, N, B, r, b,
-                          reg, qd_diag, u_diag);
+__global__ void riccati_factored_kernel(
+    const T* __restrict__ A, const T* __restrict__ Bm,
+    const T* __restrict__ lx, const T* __restrict__ lu,
+    const T* __restrict__ Jw, const T* __restrict__ Vx0,
+    const T* __restrict__ Vxx0, T* __restrict__ ks, T* __restrict__ Ks,
+    int N, long long B, int r, T reg, T qd_diag, T u_diag) {
+  using P = gt::RicPlan<T, NJ>;
+  constexpr int W = P::LANES;
+  T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const gt::FactoredIn<T, NJ> in{A, Bm, lx, lu, Jw, B, N, r, qd_diag, u_diag};
+  gt::riccati_block<T, NJ, P::G>(gt::WarpPar<W>{tid % W, 1 + tid / W}, tid,
+                                 nt, tid / W, knots, P::STRIDE,
+                                 (long long)blockIdx.x * P::G, in, Vx0, Vxx0,
+                                 ks, Ks, N, B, reg);
 }
 
 template <typename T, int NJ>
@@ -291,9 +304,15 @@ static int launch_riccati(const void* A, const void* Bm, const void* lx,
                           const void* Vxx0, void* ks, void* Ks, int N,
                           long long B, int r, double reg, double qd_diag,
                           double u_diag, cudaStream_t stream) {
+  using P = gt::RicPlan<T, NJ>;
+  static_assert(P::G >= 1, "one riccati_factored problem must fit");
   if (B == 0 || N == 0) return 0;
-  const int block = 32;
-  riccati_kernel<T, NJ><<<gt_grid(B, block), block, 0, stream>>>(
+  if (r < 1 || r > gt::RicKnot<NJ>::RMAX) return (int)cudaErrorInvalidValue;
+  static const cudaError_t attr =
+      gt::smem_attrs(riccati_factored_kernel<T, NJ>, P::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  riccati_factored_kernel<T, NJ><<<(unsigned)((B + P::G - 1) / P::G),
+                                   P::LANES * P::G, P::BYTES, stream>>>(
       (const T*)A, (const T*)Bm, (const T*)lx, (const T*)lu, (const T*)Jw,
       (const T*)Vx0, (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, r, (T)reg,
       (T)qd_diag, (T)u_diag);
@@ -354,6 +373,15 @@ extern "C" int gridtorch_riccati_factored(
               launch_riccati<T, NJ>(A, Bm, lx, lu, Jw, Vx0, Vxx0, ks, Ks, N,
                                     B, r, reg, qd_diag, u_diag,
                                     (cudaStream_t)stream));
+}
+
+// The block plan (problems a block; threads a problem; bytes a block) and
+// cudaFuncGetAttributes of the instance (warp.cuh:kernel_info), into
+// out[10].
+extern "C" int gridtorch_riccati_factored_info(int dtype, int nj, int* out) {
+  GT_DISPATCH(dtype, nj,
+              gt::kernel_info<gt::RicPlan<T, NJ>>(
+                  (const void*)riccati_factored_kernel<T, NJ>, out));
 }
 
 #endif

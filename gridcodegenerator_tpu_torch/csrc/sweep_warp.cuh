@@ -1,0 +1,1230 @@
+// Thread-group programs of two sweeps: the factored Riccati sweep (a warp
+// per problem) and the line-search rollouts (a group of threads per
+// rollout), written once for the card and for the host.
+//
+// Both follow csrc/warp.cuh: a program is a sequence of phases, `par(f)`
+// runs f(t) for the group's threads t (Par::LANES of them) and then
+// synchronises them (WarpPar on the card, HostPar on the host); no thread of
+// a phase reads what another thread of that phase writes. Each program's
+// state sits in shared memory at the offsets of RicKnot / LSRoll, so no
+// per-thread array is indexed at run time.
+//
+// A block holds G consecutive problems (LSPlan: also `rows` step-size rows
+// of each) and walks the horizon in a loop. Each step the block stages the
+// inputs of the next knot into a second buffer with cp.async (G
+// consecutive lanes of a row at a time: whole 32-byte sectors at G = 8 in
+// float32), while the current knot is computed; it writes its outputs the
+// same way. Every value keeps the order of operations of the serial lane
+// code (csrc/riccati.cu:riccati_knot, csrc/dynamics.cuh:aba; products with
+// the exactly zero upper-right block of a joint transform are skipped), so
+// the host build gives the same bits as that code; only the end-effector
+// position of the line search's cost is formed in another order (from the
+// leaf up).
+#pragma once
+
+#include "warp.cuh"
+
+namespace gt {
+
+// ---------------------------------------------------------------------------
+// copies between device and shared memory
+// ---------------------------------------------------------------------------
+
+// One value from device memory into shared memory: cp.async on the card
+// (completed by async_wait), a plain copy on the host.
+template <typename T>
+GT_HDI void async_copy(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
+               "l"(src), "n"((int)sizeof(T))
+               : "memory");
+#else
+  *dst = *src;
+#endif
+}
+
+GT_HDI void async_commit() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// wait until at most N committed groups of this thread are in flight
+template <int N>
+GT_HDI void async_wait() {
+#ifdef __CUDA_ARCH__
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+GT_HDI void block_sync() {
+#ifdef __CUDA_ARCH__
+  __syncthreads();
+#endif
+}
+
+// rows x G values of a lane-major array into the buffers of G units (G a
+// compile-time constant: the index arithmetic folds), S values apart:
+// (row, g) at src[row * stride + g] goes to dst[g * S + row]; units
+// g >= nvalid (past the last lane) get zeros
+template <int G, typename T>
+GT_HD void stage_runs(const T* src, long long stride, int rows, int nvalid,
+                      T* dst, long long S, int tid, int nt) {
+  for (int e = tid; e < rows * G; e += nt) {
+    const int row = e / G, g = e % G;
+    T* d = dst + g * S + row;
+    if (g < nvalid) {
+      async_copy(d, src + row * stride + g);
+    } else {
+      *d = T(0);
+    }
+  }
+}
+
+// the reverse, for units g < nvalid (and, where only >= 0, unit `only`)
+template <int G, typename T>
+GT_HD void store_runs(const T* src, long long S, int rows, int nvalid, T* dst,
+                      long long stride, int tid, int nt, int only = -1) {
+  for (int e = tid; e < rows * G; e += nt) {
+    const int row = e / G, g = e % G;
+    if (g < nvalid && (only < 0 || g == only))
+      dst[row * stride + g] = src[g * S + row];
+  }
+}
+
+// ---------------------------------------------------------------------------
+// riccati_factored: a warp per problem
+// ---------------------------------------------------------------------------
+
+// One problem's state (offsets into its buffer of T). Two tile buffers (A,
+// B, lx, lu and the factor Jw of a knot, rank <= RMAX) so that knot t - 1
+// arrives while knot t is computed; then the value function and the knot's
+// Q blocks; the augmented matrix of Gauss-Jordan and its pivots' inverses.
+// The gains K and Quu K go over VA, dead after Q's assembly.
+template <int NJ>
+struct RicKnot {
+  static constexpr int NX = 2 * NJ, RMAX = 6;
+  static constexpr int AT = 0, BT = AT + NX * NX, LX = BT + NX * NJ;
+  static constexpr int LU = LX + NX, JW = LU + NJ, TILE = JW + RMAX * NJ;
+  static constexpr int VX = 2 * TILE, VXX = VX + NX, QX = VXX + NX * NX;
+  static constexpr int QU = QX + NX, QXX = QU + NJ, QUX = QXX + NX * NX;
+  static constexpr int QUU = QUX + NJ * NX, KT = QUU + NJ * NJ;
+  static constexpr int QUUK = KT + NJ, VA = QUUK + NJ;
+  static constexpr int KK = VA, QUUKK = VA + NJ * NX;   // over VA
+  static constexpr int VB = VA + NX * NX, AUG = VB + NX * NJ;
+  static constexpr int PIV = AUG + 2 * NJ * NJ, SIZE = PIV + NJ;
+};
+
+// The inputs of riccati_factored: A (N, NX, NX, B), Bm (N, NX, NJ, B); lx
+// (NX, N B), lu (NJ, N B) and Jw (r, NJ, N B) at knot-major lanes t B + b.
+// The curvature is a policy of the knot program (xx, ux, uu: the entry of
+// lxx, lux, luu added to the product s, as FactoredCurv adds it):
+// blkdiag(Jw^T Jw, qd_diag I), 0, u_diag I.
+template <typename T, int NJ>
+struct FactoredIn {
+  using O = RicKnot<NJ>;
+  static constexpr int NX = 2 * NJ;
+  const T *A, *Bm, *lx, *lu, *Jw;
+  long long B;
+  int N, r;
+  T qd_diag, u_diag;
+  // knot t of problems b0 .. b0 + G - 1 into the tiles at `dst`
+  template <int G>
+  GT_HD void stage(int t, long long b0, int nvalid, T* dst, long long S,
+                   int tid, int nt) const {
+    const long long NB = (long long)N * B, ln = (long long)t * B + b0;
+    stage_runs<G>(A + (long long)t * NX * NX * B + b0, B, NX * NX, nvalid,
+                  dst + O::AT, S, tid, nt);
+    stage_runs<G>(Bm + (long long)t * NX * NJ * B + b0, B, NX * NJ, nvalid,
+                  dst + O::BT, S, tid, nt);
+    stage_runs<G>(lx + ln, NB, NX, nvalid, dst + O::LX, S, tid, nt);
+    stage_runs<G>(lu + ln, NB, NJ, nvalid, dst + O::LU, S, tid, nt);
+    stage_runs<G>(Jw + ln, NB, r * NJ, nvalid, dst + O::JW, S, tid, nt);
+  }
+  GT_HDI T xx(const T* tile, int i, int j, T s) const {
+    if (i < NJ && j < NJ) {
+      const T* J = tile + O::JW;
+      T a = J[i] * J[j];
+      for (int rr = 1; rr < r; ++rr) a += J[rr * NJ + i] * J[rr * NJ + j];
+      return s + a;
+    }
+    return i == j && i >= NJ ? s + qd_diag : s;
+  }
+  GT_HDI T ux(const T*, int, int, T s) const { return s; }
+  GT_HDI T uu(const T*, int i, int j, T s) const {
+    return i == j ? s + u_diag : s;
+  }
+};
+
+// entry (i, j) of the inverse that the in-place Gauss-Jordan below leaves
+// in the right half of `aug` (its last pivot row not yet scaled)
+template <typename T, int NJ>
+GT_HDI T gj_inv(const T* aug, const T* piv, int i, int j) {
+  const T x = aug[i * 2 * NJ + NJ + j];
+  return i == NJ - 1 ? x * piv[i] : x;
+}
+
+// One backward knot of the problem whose state sits at `k`, from the tile
+// at `tile`: riccati.cu:riccati_knot split over the warp, an entry of each
+// product a thread (two neighbouring entries where they share an operand:
+// fewer shared-memory loads), 6 + NJ phases:
+// 1. Qx, Qu (A^T Vx, B^T Vx) and VA = Vxx A, VB = Vxx B;
+// 2. Qxx = A^T VA + lxx, Qux = B^T VA + lux, Quu = B^T VB + luu, and the
+//    augmented [Quu + reg I | I] with the first pivot's inverse;
+// 3. Gauss-Jordan without pivoting, a pivot p a phase, an entry a thread,
+//    in place: rows i != p, the columns still read later (left j > p, right
+//    NJ + j for j <= p; the others keep their values exactly); the pivot
+//    row is scaled when the next pivot reads it, by the thread of each
+//    entry, as the serial code scales it; the thread of entry (p + 1, p +
+//    1) stores that pivot's inverse;
+// 4. k = -Quu^-1 Qu, K = -Quu^-1 Qux (the last pivot row scaled as read);
+// 5. Quu k, Quu K;
+// 6. the full value update (Vxx' over Qxx, each entry by its own thread);
+// 7. Vxx = (Vxx' + Vxx'^T) / 2.
+template <typename T, int NJ, class In, class Par>
+GT_HD void riccati_knot_warp(const Par& par, T* k, const T* tile,
+                             const In& cv, T reg) {
+  using O = RicKnot<NJ>;
+  constexpr int NX = 2 * NJ, W = Par::LANES, M2 = 2 * NJ;
+  const T* At = tile + O::AT;
+  const T* Bt = tile + O::BT;
+  const T* lx = tile + O::LX;
+  const T* lu = tile + O::LU;
+  T* Vx = k + O::VX;
+  T* Vxx = k + O::VXX;
+  T* Qx = k + O::QX;
+  T* Qu = k + O::QU;
+  T* Qxx = k + O::QXX;
+  T* Qux = k + O::QUX;
+  T* Quu = k + O::QUU;
+  T* kt = k + O::KT;
+  T* Quuk = k + O::QUUK;
+  T* VA = k + O::VA;
+  T* Kt = k + O::KK;
+  T* QuuK = k + O::QUUKK;
+  T* VB = k + O::VB;
+  T* aug = k + O::AUG;
+  T* piv = k + O::PIV;
+
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(NX, [&](int i) {
+      T s = At[i] * Vx[0];
+      for (int m = 1; m < NX; ++m) s += At[m * NX + i] * Vx[m];
+      Qx[i] = lx[i] + s;
+    });
+    d(NJ, [&](int i) {
+      T s = Bt[i] * Vx[0];
+      for (int m = 1; m < NX; ++m) s += Bt[m * NJ + i] * Vx[m];
+      Qu[i] = lu[i] + s;
+    });
+    d(NX * NX / 2, [&](int e) {   // VA[i][j, j + 1]
+      const int i = 2 * e / NX, j = 2 * e % NX;
+      const T* v = Vxx + i * NX;
+      T s0 = v[0] * At[j], s1 = v[0] * At[j + 1];
+      for (int m = 1; m < NX; ++m) {
+        s0 += v[m] * At[m * NX + j];
+        s1 += v[m] * At[m * NX + j + 1];
+      }
+      VA[i * NX + j] = s0;
+      VA[i * NX + j + 1] = s1;
+    });
+    d(NJ * NX / 2, [&](int e) {   // VB[i, i + 1][j]
+      const int i = 2 * (e / NJ), j = e % NJ;
+      const T* v = Vxx + i * NX;
+      T s0 = v[0] * Bt[j], s1 = v[NX] * Bt[j];
+      for (int m = 1; m < NX; ++m) {
+        const T b = Bt[m * NJ + j];
+        s0 += v[m] * b;
+        s1 += v[NX + m] * b;
+      }
+      VB[i * NJ + j] = s0;
+      VB[(i + 1) * NJ + j] = s1;
+    });
+  });
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(NX * NX / 2, [&](int e) {   // Qxx[i][j, j + 1]
+      const int i = 2 * e / NX, j = 2 * e % NX;
+      T s0 = At[i] * VA[j], s1 = At[i] * VA[j + 1];
+      for (int m = 1; m < NX; ++m) {
+        const T a = At[m * NX + i];
+        s0 += a * VA[m * NX + j];
+        s1 += a * VA[m * NX + j + 1];
+      }
+      Qxx[i * NX + j] = cv.xx(tile, i, j, s0);
+      Qxx[i * NX + j + 1] = cv.xx(tile, i, j + 1, s1);
+    });
+    d(NJ * NX / 2, [&](int e) {   // Qux[i][j, j + 1]
+      const int i = 2 * e / NX, j = 2 * e % NX;
+      T s0 = Bt[i] * VA[j], s1 = Bt[i] * VA[j + 1];
+      for (int m = 1; m < NX; ++m) {
+        const T b = Bt[m * NJ + i];
+        s0 += b * VA[m * NX + j];
+        s1 += b * VA[m * NX + j + 1];
+      }
+      Qux[i * NX + j] = cv.ux(tile, i, j, s0);
+      Qux[i * NX + j + 1] = cv.ux(tile, i, j + 1, s1);
+    });
+    d(NJ * NJ, [&](int e) {
+      const int i = e / NJ, j = e % NJ;
+      T s = Bt[i] * VB[j];
+      for (int m = 1; m < NX; ++m) s += Bt[m * NJ + i] * VB[m * NJ + j];
+      const T q = cv.uu(tile, i, j, s);
+      Quu[e] = q;
+      aug[i * M2 + j] = i == j ? q + reg : q;
+      aug[i * M2 + NJ + j] = i == j ? T(1) : T(0);
+      if (e == 0) piv[0] = T(1) / (q + reg);
+    });
+  });
+  for (int p = 0; p < NJ; ++p) {
+    par([&](int t) {
+      // rows i != p, columns j: left p + 1 .. NJ - 1, then right NJ .. NJ + p
+      for (int e = t; e < (NJ - 1) * NJ; e += W) {
+        const int i = e / NJ + (e / NJ >= p), c = e % NJ;
+        const int j = c < NJ - 1 - p ? p + 1 + c : NJ + c - (NJ - 1 - p);
+        const T rp = aug[p * M2 + j] * piv[p];
+        T x = aug[i * M2 + j], ci = aug[i * M2 + p];
+        if (i == p - 1) {   // the last pivot row, scaled as it is read
+          x = x * piv[i];
+          ci = ci * piv[i];
+        }
+        x = x - ci * rp;
+        aug[i * M2 + j] = x;
+        if (i == p + 1 && j == p + 1) piv[i] = T(1) / x;
+      }
+    });
+  }
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(NJ, [&](int i) {
+      T s = gj_inv<T, NJ>(aug, piv, i, 0) * Qu[0];
+      for (int j = 1; j < NJ; ++j) s += gj_inv<T, NJ>(aug, piv, i, j) * Qu[j];
+      kt[i] = -s;
+    });
+    d(NJ * NX, [&](int e) {
+      const int i = e / NX, m = e % NX;
+      T s = gj_inv<T, NJ>(aug, piv, i, 0) * Qux[m];
+      for (int j = 1; j < NJ; ++j)
+        s += gj_inv<T, NJ>(aug, piv, i, j) * Qux[j * NX + m];
+      Kt[e] = -s;
+    });
+  });
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(NJ, [&](int i) {
+      T s = Quu[i * NJ] * kt[0];
+      for (int j = 1; j < NJ; ++j) s += Quu[i * NJ + j] * kt[j];
+      Quuk[i] = s;
+    });
+    d(NJ * NX, [&](int e) {
+      const int i = e / NX, m = e % NX;
+      T s = Quu[i * NJ] * Kt[m];
+      for (int j = 1; j < NJ; ++j) s += Quu[i * NJ + j] * Kt[j * NX + m];
+      QuuK[e] = s;
+    });
+  });
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(NX, [&](int m) {
+      T s1 = Kt[m] * Quuk[0], s2 = Kt[m] * Qu[0], s3 = Qux[m] * kt[0];
+      for (int i = 1; i < NJ; ++i) {
+        s1 += Kt[i * NX + m] * Quuk[i];
+        s2 += Kt[i * NX + m] * Qu[i];
+        s3 += Qux[i * NX + m] * kt[i];
+      }
+      Vx[m] = Qx[m] + s1 + s2 + s3;
+    });
+    d(NX * NX / 2, [&](int e) {   // Vxx'[m][l, l + 1]
+      const int m = 2 * e / NX, l = 2 * e % NX;
+      T a1 = Kt[m] * QuuK[l], a2 = Kt[m] * Qux[l], a3 = Qux[m] * Kt[l];
+      T b1 = Kt[m] * QuuK[l + 1], b2 = Kt[m] * Qux[l + 1],
+        b3 = Qux[m] * Kt[l + 1];
+      for (int i = 1; i < NJ; ++i) {
+        const T km = Kt[i * NX + m], qm = Qux[i * NX + m];
+        const int o = i * NX + l;
+        a1 += km * QuuK[o];
+        a2 += km * Qux[o];
+        a3 += qm * Kt[o];
+        b1 += km * QuuK[o + 1];
+        b2 += km * Qux[o + 1];
+        b3 += qm * Kt[o + 1];
+      }
+      Qxx[m * NX + l] = Qxx[m * NX + l] + a1 + a2 + a3;
+      Qxx[m * NX + l + 1] = Qxx[m * NX + l + 1] + b1 + b2 + b3;
+    });
+  });
+  par([&](int t) {
+    for (int e = t; e < NX * NX; e += W) {
+      const int m = e / NX, l = e % NX;
+      Vxx[e] = T(0.5) * (Qxx[m * NX + l] + Qxx[l * NX + m]);
+    }
+  });
+}
+
+// The block: G problems (units), unit `unit` runs its program with `par`.
+// Knot N - 1 down to 0; the tiles of knot t - 1 are staged while knot t is
+// computed; the gains of knot t are written (G lanes a row) at the start of
+// the next step. `only` >= 0 (the host build) writes only that unit's lanes.
+template <typename T, int NJ, int G, class In, class Par>
+GT_HD void riccati_block(const Par& par, int tid, int nt, int unit, T* knots,
+                         long long S, long long b0, const In& in,
+                         const T* Vx0, const T* Vxx0, T* ks, T* Ks, int N,
+                         long long B, T reg, int only = -1) {
+  using O = RicKnot<NJ>;
+  constexpr int NX = 2 * NJ;
+  const int nvalid = (int)(B - b0 < G ? B - b0 : G);
+  T* k = knots + unit * S;
+  auto store = [&](int t) {
+    store_runs<G>(knots + O::KT, S, NJ, nvalid,
+                  ks + (long long)t * NJ * B + b0, B, tid, nt, only);
+    store_runs<G>(knots + O::KK, S, NJ * NX, nvalid,
+                  Ks + (long long)t * NJ * NX * B + b0, B, tid, nt, only);
+  };
+  stage_runs<G>(Vx0 + b0, B, NX, nvalid, knots + O::VX, S, tid, nt);
+  stage_runs<G>(Vxx0 + b0, B, NX * NX, nvalid, knots + O::VXX, S, tid, nt);
+  in.template stage<G>(N - 1, b0, nvalid, knots + ((N - 1) & 1) * O::TILE, S,
+                       tid, nt);
+  async_commit();
+  for (int t = N - 1; t >= 0; --t) {
+    block_sync();   // knot t + 1 is done: its gains out, its tiles free
+    if (t + 1 < N) store(t + 1);
+    if (t > 0) {
+      in.template stage<G>(t - 1, b0, nvalid,
+                           knots + ((t - 1) & 1) * O::TILE, S, tid, nt);
+      async_commit();
+      async_wait<1>();
+    } else {
+      async_wait<0>();
+    }
+    block_sync();   // knot t's tiles have landed
+    riccati_knot_warp<T, NJ>(par, k, k + (t & 1) * O::TILE, in, reg);
+  }
+  block_sync();
+  store(0);
+}
+
+struct NoHead {
+  int unused;
+};
+
+// the registers a thread is planned with (ptxas reports 88-128 | 84-124 at
+// 7-16 joints, 161 | 139 at 2, float32 | float64)
+template <typename T>
+GT_HDI constexpr int ric_regs() { return sizeof(T) == 4 ? 96 : 104; }
+
+// riccati_factored's plan: the threads a problem as BlockPlan picks them;
+// G the most problems a block, up to 8, that fit (whole sectors; B = 2048
+// problems then fill the card in one wave of blocks)
+GT_HDI constexpr int ric_g(long long head, long long knot_bytes, int lanes) {
+  int g = MAX_KNOTS;
+  while (g > 0 && (head + g * knot_bytes > SMEM_LIMIT ||
+                   g * lanes > MAX_BLOCK_THREADS))
+    --g;
+  return g;
+}
+
+template <typename T, int NJ>
+struct RicPlan {
+  using BP = BlockPlan<T, NoHead, RicKnot<NJ>::SIZE, WARP, ric_regs<T>()>;
+  static constexpr int LANES = BP::LANES, STRIDE = BP::STRIDE, ROWS = 1;
+  static constexpr long long HEAD = BP::HEAD;
+  static constexpr int G = ric_g(HEAD, BP::KNOT_BYTES, LANES);
+  static constexpr long long BYTES = HEAD + (G > 0 ? G : 1) * BP::KNOT_BYTES;
+};
+
+// ---------------------------------------------------------------------------
+// linesearch_rollout: a thread group per rollout
+// ---------------------------------------------------------------------------
+
+// One rollout's state: the joint transforms X, the articulated inertias
+// IA (of the joints with children; a leaf's is its I), the backward pass's
+// X^T Ia (TMP; the EE cost's chain transforms over it, formed and read in
+// the forward phases), velocities v (accelerations a over them: no joint
+// reads v once the bias forces are formed), the bias terms c and pA, the
+// backward pass's pa, each joint's 1 / D and u - tau_damp - pA[S] once its
+// IA and pA are final, then the state x = [q; qd], the control u, the step
+// size, the cost so far, and two copies of (x, u) after a step for the
+// block to write out while the next step runs.
+template <int NJ>
+struct LSRoll {
+  static constexpr int NX = 2 * NJ;
+  static constexpr int X = 0, IA = X + 36 * NJ, TMP = IA + 36 * NJ;
+  static constexpr int TJ = TMP;   // (NJ, 16)
+  static constexpr int V = TMP + 36 * NJ, A = V;
+  static constexpr int CB = V + 6 * NJ, PA = CB + 6 * NJ, PAC = PA + 6 * NJ;
+  static constexpr int DINV = PAC + 6 * NJ, UU = DINV + NJ;
+  static constexpr int XS = UU + NJ, U = XS + NX, ALPHA = U + NJ;
+  static constexpr int COST = ALPHA + 1;
+  static constexpr int OUT = COST + 1, SIZE = OUT + 2 * (NX + NJ);
+};
+
+// One problem's inputs at one knot, shared by its step-size rows: K (NJ,
+// NX), Xref (NX), Uref (NJ), k (NJ).
+template <int NJ>
+struct LSTile {
+  static constexpr int NX = 2 * NJ;
+  static constexpr int KM = 0, XR = KM + NJ * NX, UR = XR + NX, KF = UR + NJ;
+  static constexpr int SIZE = KF + NJ;
+};
+
+// The block's constants: the robot, the cost's (csrc/linesearch.cu: EE 7,
+// quadratic 7 NJ values) and the control bounds.
+template <typename T, int NJ>
+struct LSHead {
+  RobotConst<T, NJ> R;
+  T cost[7 * NJ];
+  T lo[NJ], hi[NJ];
+  int has_lo, has_hi;
+  GT_HD void load(const T* model, const T* cbuf, int ncost, const T* lo_,
+                  const T* hi_, int tid, int nt) {
+    R.load(model, tid, nt);
+    for (int e = tid; e < ncost; e += nt) cost[e] = cbuf[e];
+    for (int i = tid; i < NJ; i += nt) {
+      if (lo_) lo[i] = lo_[i];
+      if (hi_) hi[i] = hi_[i];
+    }
+    if (tid == 0) {
+      has_lo = lo_ != nullptr;
+      has_hi = hi_ != nullptr;
+    }
+  }
+};
+
+// The costs of the group program (the arithmetic of linesearch.cu's EECost
+// and QuadCostK). `prep` runs a joint a thread in the step's first phase,
+// with cos and sin of a revolute joint's q; stage and terminal run on one
+// thread. EE: rows 0-2 of each chain joint's transform Ttree_i Tj(q_i)
+// (joint_T's product, formed without its 4x4 temporaries) a joint a
+// thread, then the EE position T_c0 ... T_ck Tfixed applied to the origin,
+// from the leaf up (matrix-vector products).
+template <typename T, int NJ>
+struct EECostW {
+  static constexpr bool FK = true;
+  template <class Rb>
+  GT_HDI void prep(const Rb& R, int i, T qi, T c, T s, T* Tj) const {
+    if (!R.in_ee_chain(i)) return;
+    const T* TT = R.Ttree(i);
+    T tt[12], m[12];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int e = 0; e < 12; ++e) tt[e] = TT[e];
+    if (R.jtype[i] == 0) {   // TT [R_axis(q), 0; 0, 1]
+      const T o = T(1), z = T(0);
+      const int ax = R.sind[i] % 3;
+      const T r00 = ax == 0 ? o : c, r01 = ax == 2 ? -s : z,
+              r02 = ax == 1 ? s : z;
+      const T r10 = ax == 2 ? s : z, r11 = ax == 1 ? o : c,
+              r12 = ax == 0 ? -s : z;
+      const T r20 = ax == 1 ? -s : z, r21 = ax == 0 ? s : z,
+              r22 = ax == 2 ? o : c;
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int r = 0; r < 3; ++r) {
+        const T a0 = tt[r * 4], a1 = tt[r * 4 + 1], a2 = tt[r * 4 + 2];
+        m[r * 4] = a0 * r00 + a1 * r10 + a2 * r20;
+        m[r * 4 + 1] = a0 * r01 + a1 * r11 + a2 * r21;
+        m[r * 4 + 2] = a0 * r02 + a1 * r12 + a2 * r22;
+        m[r * 4 + 3] = tt[r * 4 + 3];
+      }
+    } else {   // TT [I, q e_k; 0, 1]
+      const int kk = R.sind[i] - 3;
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int r = 0; r < 3; ++r) {
+        for (int col = 0; col < 3; ++col) m[r * 4 + col] = tt[r * 4 + col];
+        const T tk = kk == 0 ? tt[r * 4] : kk == 1 ? tt[r * 4 + 1]
+                                                   : tt[r * 4 + 2];
+        m[r * 4 + 3] = tk * qi + tt[r * 4 + 3];
+      }
+    }
+    T* M = Tj + 16 * i;
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int e = 0; e < 12; ++e) M[e] = m[e];
+  }
+  // |ee(q) - goal|^2 and |qd|^2
+  struct Squares {
+    T e2, v2;
+  };
+  template <class Rb>
+  GT_HDI Squares squares(const Rb& R, const T* c, const T* Tj,
+                         const T* x) const {
+    const T* Tf = R.Tfixed();
+    T p0 = Tf[3], p1 = Tf[7], p2 = Tf[11];
+    for (int i = NJ - 1; i >= 0; --i) {
+      if (!R.in_ee_chain(i)) continue;
+      const T* M = Tj + 16 * i;
+      const T n0 = M[0] * p0 + M[1] * p1 + M[2] * p2 + M[3];
+      const T n1 = M[4] * p0 + M[5] * p1 + M[6] * p2 + M[7];
+      const T n2 = M[8] * p0 + M[9] * p1 + M[10] * p2 + M[11];
+      p0 = n0;
+      p1 = n1;
+      p2 = n2;
+    }
+    const T d0 = p0 - c[0], d1 = p1 - c[1], d2 = p2 - c[2];
+    T v2 = T(0);
+    for (int i = 0; i < NJ; ++i) v2 += x[NJ + i] * x[NJ + i];
+    T e2 = T(0);
+    e2 += d0 * d0;
+    e2 += d1 * d1;
+    e2 += d2 * d2;
+    return {e2, v2};
+  }
+  // c: goal (3) | w_pos | w_pos_f | w_vel | w_u
+  template <class Rb>
+  GT_HDI T stage(const Rb& R, const T* c, const T* Tj, const T* x,
+                 const T* u) const {
+    T u2 = T(0);
+    const Squares q = squares(R, c, Tj, x);
+    for (int j = 0; j < NJ; ++j) u2 += u[j] * u[j];
+    return T(0.5) * (c[3] * q.e2 + c[5] * q.v2 + c[6] * u2);
+  }
+  template <class Rb>
+  GT_HDI T terminal(const Rb& R, const T* c, const T* Tj, const T* x) const {
+    const Squares q = squares(R, c, Tj, x);
+    return T(0.5) * (c[4] * q.e2 + c[5] * q.v2);
+  }
+};
+
+template <typename T, int NJ>
+struct QuadCostW {
+  static constexpr bool FK = false;
+  static constexpr int NX = 2 * NJ;
+  template <class Rb>
+  GT_HDI void prep(const Rb&, int, T, T, T, T*) const {}
+  // c: Q (NX) | R (NJ) | Qf (NX) | x_goal (NX)
+  GT_HDI T squares(const T* c, const T* w, const T* x) const {
+    const T* xg = c + 2 * NX + NJ;
+    T acc = T(0);
+    for (int i = 0; i < NX; ++i) {
+      const T d = x[i] - xg[i];
+      acc += w[i] * d * d;
+    }
+    return acc;
+  }
+  template <class Rb>
+  GT_HDI T stage(const Rb&, const T* c, const T*, const T* x,
+                 const T* u) const {
+    T acc = squares(c, c, x);
+    for (int j = 0; j < NJ; ++j) acc += c[NX + j] * u[j] * u[j];
+    return T(0.5) * acc;
+  }
+  template <class Rb>
+  GT_HDI T terminal(const Rb&, const T* c, const T*, const T* x) const {
+    return T(0.5) * squares(c, c + NX + NJ, x);
+  }
+};
+
+// X_i(q_i) from cos and sin of a revolute q_i: dynamics.cuh:joint_xmat's
+// arithmetic, with X_tree read into registers first and E formed by
+// selects (no run-time index into a local array)
+template <typename T>
+GT_HDI void ls_xmat(const T* XT, int jtype, int sind, T qi, T c, T s,
+                    T* X) {
+  T xt[36], out[36], E[9];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int e = 0; e < 36; ++e) xt[e] = XT[e];
+  const T o = T(1), z = T(0);
+  if (jtype == 0) {   // E = R_axis(q)^T on both 3x3 blocks
+    const int ax = sind % 3;
+    E[0] = ax == 0 ? o : c;
+    E[1] = ax == 2 ? s : z;
+    E[2] = ax == 1 ? -s : z;
+    E[3] = ax == 2 ? -s : z;
+    E[4] = ax == 1 ? o : c;
+    E[5] = ax == 0 ? s : z;
+    E[6] = ax == 1 ? s : z;
+    E[7] = ax == 0 ? -s : z;
+    E[8] = ax == 2 ? o : c;
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int r = 0; r < 3; ++r)
+      for (int col = 0; col < 6; ++col) {
+        out[r * 6 + col] = E[r * 3] * xt[col] + E[r * 3 + 1] * xt[6 + col] +
+                           E[r * 3 + 2] * xt[12 + col];
+        out[(r + 3) * 6 + col] = E[r * 3] * xt[18 + col] +
+                                 E[r * 3 + 1] * xt[24 + col] +
+                                 E[r * 3 + 2] * xt[30 + col];
+      }
+  } else {   // [[I, 0], [-skew(q e_k), I]] X_tree
+    const int k = sind - 3;
+    E[0] = z;
+    E[1] = k == 2 ? -qi : z;
+    E[2] = k == 1 ? qi : z;
+    E[3] = k == 2 ? qi : z;
+    E[4] = z;
+    E[5] = k == 0 ? -qi : z;
+    E[6] = k == 1 ? -qi : z;
+    E[7] = k == 0 ? qi : z;
+    E[8] = z;
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int r = 0; r < 3; ++r)
+      for (int col = 0; col < 6; ++col) {
+        out[r * 6 + col] = xt[r * 6 + col];
+        out[(r + 3) * 6 + col] =
+            xt[(r + 3) * 6 + col] -
+            (E[r * 3] * xt[col] + E[r * 3 + 1] * xt[6 + col] +
+             E[r * 3 + 2] * xt[12 + col]);
+      }
+  }
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int e = 0; e < 36; ++e) X[e] = out[e];
+}
+
+// row r of joint i's velocity v_i = X_i v_p + S_i qd_i
+template <typename T, int NJ, class Rb>
+GT_HDI void ls_v_row(const Rb& R, const T* X, T* v, const T* xs, int i,
+                     int r) {
+  const int p = R.parent[i];
+  T x = p == -1 ? T(0) : xmrow(X + 36 * i, v + 6 * p, r);
+  if (r == R.sind[i]) x = p == -1 ? xs[NJ + i] : x + xs[NJ + i];
+  v[6 * i + r] = x;
+}
+
+// joint i's bias terms c_i = v_i x (S_i qd_i), pA_i = v_i x* I_i v_i; for a
+// leaf (IA_i = I_i, pA_i final) also 1 / D_i and u_i - tau_damp - pA_i[S]
+template <typename T, int NJ, class Rb>
+GT_HDI void ls_bias(const Rb& R, const T* v, const T* xs, const T* u, T* cb,
+                    T* pA, T* dinv, T* uu, int i) {
+  const int s = R.sind[i];
+  const T qd = xs[NJ + i];
+  T vi[6], vJ[6], Iv[6], c[6], f[6];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int m = 0; m < 6; ++m) {
+    vi[m] = v[6 * i + m];
+    vJ[m] = m == s ? qd : T(0);
+  }
+  cross_mv(vi, vJ, c);
+  Xv(R.Imat(i), vi, Iv);
+  cross_fv(vi, Iv, f);
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int m = 0; m < 6; ++m) {
+    cb[6 * i + m] = c[m];
+    pA[6 * i + m] = f[m];
+  }
+  if (R.cstart[i] == R.cstart[i + 1]) {
+    dinv[i] = T(1) / R.Imat(i)[s * 6 + s];
+    uu[i] = (u[i] - R.damping(i) * qd) - pick6(f, s);
+  }
+}
+
+// joint i's articulated inertia: its I for a leaf
+template <typename T, class Rb>
+GT_HDI const T* ls_ia(const Rb& R, const T* IA, int i) {
+  return R.cstart[i] == R.cstart[i + 1] ? R.Imat(i) : IA + 36 * i;
+}
+
+// One step of the rollout whose state sits at `k`, from its problem's tile
+// of the knot: the control law, the stage cost, and a semi-implicit Euler
+// step on ABA (dynamics.cuh:feedback_u, euler_step, aba), in 4 L - 1 phases
+// for a tree of L levels:
+// 1. u = clamp(Uref + (alpha k + K (x - Xref))) a joint a thread; the joint
+//    transforms (and the cost's) a joint a thread; v of level 0 a row a
+//    thread;
+// 2. .. L + 1: v of level l a row a thread, and c = v x S qd and pA = v x*
+//    I v of level l - 1 a joint a thread (a leaf's 1 / D and u - tau_damp -
+//    pA[S] too); the stage cost (the first of these, on the group's last
+//    thread);
+// then per level l = L - 1 .. 1, deepest first, two phases:
+//    (a) for each joint i of level l, column c of X^T Ia a thread (Ia =
+//        IA - U Dinv U^T, its column formed in registers) and row r of pa
+//        a thread;
+//    (b) for each parent of level l - 1, row r of IA_p (from I_p) and of
+//        pA_p a thread, which adds in the children in descending order, as
+//        the serial sweep does; the thread of row S_p then forms 1 / D_p
+//        and u_p - tau_damp - pA_p[S];
+// then per level l = 0 .. L - 1: qdd, a and the Euler update of joint i
+// (its q and qd) a joint a thread.
+// A thread reads its operands into registers before it writes: a store to
+// shared memory keeps the loads after it from starting early.
+template <typename T, int NJ, class Cost, class Rb, class Par>
+GT_HD void linesearch_step(const Par& par, const Rb& R, const Cost& cost,
+                           const T* cc, T* k, const T* tile, const T* lo,
+                           const T* hi, T dt, T gravity) {
+  using O = LSRoll<NJ>;
+  using P = LSTile<NJ>;
+  constexpr int NX = 2 * NJ, W = Par::LANES;
+  T* X = k + O::X;
+  T* IA = k + O::IA;
+  T* tmp = k + O::TMP;
+  T* Tj = k + O::TJ;
+  T* v = k + O::V;
+  T* a = k + O::A;
+  T* cb = k + O::CB;
+  T* pA = k + O::PA;
+  T* pac = k + O::PAC;
+  T* dinv = k + O::DINV;
+  T* uu = k + O::UU;
+  T* xs = k + O::XS;
+  T* u = k + O::U;
+  const T alpha = k[O::ALPHA];
+  const int nlev = R.nlev;
+
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(NJ, [&](int j) {
+      const T* Kj = tile + P::KM + j * NX;
+      const T* xr = tile + P::XR;
+      T s = Kj[0] * (xs[0] - xr[0]);
+      for (int m = 1; m < NX; ++m) s += Kj[m] * (xs[m] - xr[m]);
+      u[j] = clamp_bounds(tile[P::UR + j] + (alpha * tile[P::KF + j] + s),
+                          lo, hi, j);
+    });
+    d(NJ, [&](int i) {
+      const T q = xs[i];
+      const bool rev = R.jtype[i] == 0;
+      const T c = rev ? gcos(q) : T(0), sn = rev ? gsin(q) : T(0);
+      ls_xmat(R.Xtree(i), R.jtype[i], R.sind[i], q, c, sn, X + 36 * i);
+      cost.prep(R, i, q, c, sn, Tj);
+    });
+    level<6>(d, R, 0,
+             [&](int i, int r) { ls_v_row<T, NJ>(R, X, v, xs, i, r); });
+  });
+  for (int l = 1; l <= nlev; ++l) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      level<1>(d, R, l - 1, [&](int i, int) {
+        ls_bias<T, NJ>(R, v, xs, u, cb, pA, dinv, uu, i);
+      });
+      if (l < nlev)
+        level<6>(d, R, l,
+                 [&](int i, int r) { ls_v_row<T, NJ>(R, X, v, xs, i, r); });
+      if (l == 1 && t == W - 1)
+        k[O::COST] = k[O::COST] + cost.stage(R, cc, Tj, xs, u);
+    });
+  }
+  for (int l = nlev - 1; l >= 1; --l) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      level<6>(d, R, l, [&](int i, int c) {
+        const int s = R.sind[i];
+        const T* Ii = ls_ia(R, IA, i);
+        const T* Xi = X + 36 * i;
+        const T di = dinv[i], usc = Ii[c * 6 + s];
+        T col[6], xi[36], o[6];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int e = 0; e < 36; ++e) xi[e] = Xi[e];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int m = 0; m < 6; ++m)
+          col[m] = Ii[m * 6 + c] - (Ii[m * 6 + s] * di) * usc;
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int r = 0; r < 6; ++r) {   // X's upper-right block is zero
+          const int m0 = r < 3 ? 0 : 3;
+          T acc = xi[m0 * 6 + r] * col[m0];
+          for (int m = m0 + 1; m < 6; ++m) acc += xi[m * 6 + r] * col[m];
+          o[r] = acc;
+        }
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int r = 0; r < 6; ++r) tmp[36 * i + r * 6 + c] = o[r];
+      });
+      level<6>(d, R, l, [&](int i, int r) {
+        const int s = R.sind[i];
+        const T* Ii = ls_ia(R, IA, i);
+        const T* c = cb + 6 * i;
+        const T di = dinv[i];
+        const T ur = Ii[r * 6 + s] * di;
+        T tr = (Ii[r * 6] - ur * Ii[s]) * c[0];
+        for (int m = 1; m < 6; ++m)
+          tr += (Ii[r * 6 + m] - ur * Ii[m * 6 + s]) * c[m];
+        pac[6 * i + r] = pA[6 * i + r] + tr + Ii[r * 6 + s] * (di * uu[i]);
+      });
+    });
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      level<6>(d, R, l - 1, [&](int p, int r) {
+        if (R.cstart[p] == R.cstart[p + 1]) return;
+        const T* Ip = R.Imat(p);
+        T o[6];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int c = 0; c < 6; ++c) o[c] = Ip[r * 6 + c];
+        T pr = pA[6 * p + r];
+        for (int n = R.cstart[p]; n < R.cstart[p + 1]; ++n) {
+          const int ch = R.clist[n];
+          const T* tc = tmp + 36 * ch + r * 6;
+          const T* Xc = X + 36 * ch;
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+          for (int c = 0; c < 6; ++c) {
+            const int m0 = c < 3 ? 0 : 3;
+            T acc = tc[m0] * Xc[m0 * 6 + c];
+            for (int m = m0 + 1; m < 6; ++m) acc += tc[m] * Xc[m * 6 + c];
+            o[c] += acc;
+          }
+          pr += xmcol(Xc, pac + 6 * ch, r);
+        }
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int c = 0; c < 6; ++c) IA[36 * p + r * 6 + c] = o[c];
+        pA[6 * p + r] = pr;
+        if (r == R.sind[p]) {
+          dinv[p] = T(1) / pick6(o, r);
+          uu[p] = (u[p] - R.damping(p) * xs[NJ + p]) - pr;
+        }
+      });
+    });
+  }
+  for (int l = 0; l < nlev; ++l) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      level<1>(d, R, l, [&](int i, int) {
+        const int p = R.parent[i], s = R.sind[i];
+        const T* Xi = X + 36 * i;
+        const T* Ii = ls_ia(R, IA, i);
+        T ap[6];
+        if (p == -1) {
+          const T g[6] = {0, 0, 0, 0, 0, -gravity};
+          Xmv(Xi, g, ap);
+        } else {
+          Xmv(Xi, a + 6 * p, ap);
+        }
+        for (int m = 0; m < 6; ++m) ap[m] += cb[6 * i + m];
+        T dot = Ii[s] * ap[0];
+        for (int m = 1; m < 6; ++m) dot += Ii[m * 6 + s] * ap[m];
+        const T qdd = dinv[i] * (uu[i] - dot);
+        const T qdn = xs[NJ + i] + dt * qdd;
+        const T qn = xs[i] + dt * qdn;
+        for (int m = 0; m < 6; ++m)
+          a[6 * i + m] = m == s ? ap[m] + qdd : ap[m];
+        xs[i] = qn;
+        xs[NJ + i] = qdn;
+      });
+    });
+  }
+}
+
+// after the last step: cost = acc + terminal
+template <typename T, int NJ, class Cost, class Rb, class Par>
+GT_HD void linesearch_finish(const Par& par, const Rb& R, const Cost& cost,
+                             const T* cc, T* k) {
+  using O = LSRoll<NJ>;
+  constexpr int W = Par::LANES;
+  const T* xs = k + O::XS;
+  T* Tj = k + O::TJ;
+  if (Cost::FK) par([&](int t) {
+    for (int i = t; i < NJ; i += W) {
+      const T q = xs[i];
+      const bool rev = R.jtype[i] == 0;
+      cost.prep(R, i, q, rev ? gcos(q) : T(0), rev ? gsin(q) : T(0), Tj);
+    }
+  });
+  par([&](int t) {
+    if (t == W - 1) k[O::COST] = k[O::COST] + cost.terminal(R, cc, Tj, xs);
+  });
+}
+
+// The block: G problems x `rows` step-size rows of them (rows a0 ..), unit
+// r G + g the rollout of row a0 + r, problem b0 + g. Each knot's tiles are
+// read once for all rows, the next knot's staged while this one is
+// computed; each unit copies its (x, u) after a step into one of two
+// slots, which the block writes to X and U (N, NX | NJ, na B),
+// alpha-major lanes a B + b, G lanes a row, while the next step runs: one
+// block barrier a step. `only` >= 0 (the host build) writes only that
+// unit's lanes.
+template <typename T, int NJ, class Cost, int G, class Par>
+GT_HD void linesearch_block(
+    const Par& par, int tid, int nt, int unit, const LSHead<T, NJ>& H,
+    T* tiles, long long TS, T* rolls, long long S, int rows, long long b0,
+    int a0, const T* x0, const T* Uref, const T* Xref, const T* kf,
+    const T* K, const T* alpha_rows, T* Xo, T* Uo, T* cost_out, int N,
+    long long B, int na, T dt, T gravity, int only = -1) {
+  using O = LSRoll<NJ>;
+  using P = LSTile<NJ>;
+  constexpr int NX = 2 * NJ, W = Par::LANES;
+  const int nvalid = (int)(B - b0 < G ? B - b0 : G);
+  const int nrow = na - a0 < rows ? na - a0 : rows;
+  const long long WL = (long long)na * B;
+  const Cost cost{};
+  const T* lo = H.has_lo ? H.lo : nullptr;
+  const T* hi = H.has_hi ? H.hi : nullptr;
+  T* k = rolls + unit * S;
+  const int g = unit % G;
+  auto stage = [&](int t, int buf) {
+    T* dst = tiles + (long long)buf * G * TS;
+    stage_runs<G>(K + (long long)t * NJ * NX * B + b0, B, NJ * NX, nvalid,
+                  dst + P::KM, TS, tid, nt);
+    stage_runs<G>(Xref + (long long)t * NX * B + b0, B, NX, nvalid,
+                  dst + P::XR, TS, tid, nt);
+    stage_runs<G>(Uref + (long long)t * NJ * B + b0, B, NJ, nvalid,
+                  dst + P::UR, TS, tid, nt);
+    stage_runs<G>(kf + (long long)t * NJ * B + b0, B, NJ, nvalid,
+                  dst + P::KF, TS, tid, nt);
+  };
+  // step t's (x, u) from the slots to X and U
+  auto store = [&](int t) {
+    const int slot = O::OUT + (t & 1) * (NX + NJ);
+    for (int r = 0; r < nrow; ++r) {
+      const int o = only < 0 ? -1 : (only / G == r ? only % G : G);
+      const long long lane = (long long)(a0 + r) * B + b0;
+      store_runs<G>(rolls + (long long)r * G * S + slot, S, NX, nvalid,
+                    Xo + (long long)t * NX * WL + lane, WL, tid, nt, o);
+      store_runs<G>(rolls + (long long)r * G * S + slot + NX, S, NJ, nvalid,
+                    Uo + (long long)t * NJ * WL + lane, WL, tid, nt, o);
+    }
+  };
+  for (int r = 0; r < rows; ++r)
+    stage_runs<G>(x0 + b0, B, NX, nvalid,
+                  rolls + (long long)r * G * S + O::XS, S, tid, nt);
+  for (int e = tid; e < rows * G; e += nt) {
+    const int r = e / G, gg = e % G;
+    T* kk = rolls + e * S;
+    kk[O::ALPHA] = r < nrow && gg < nvalid
+                       ? alpha_rows[(long long)(a0 + r) * B + b0 + gg]
+                       : T(0);
+    kk[O::COST] = T(0);
+  }
+  stage(0, 0);
+  async_commit();
+  async_wait<0>();
+  block_sync();
+  for (int t = 0; t < N; ++t) {
+    if (t + 1 < N) {   // its buffer's last reader, step t - 1, is done
+      stage(t + 1, (t + 1) & 1);
+      async_commit();
+    }
+    if (t > 0) store(t - 1);
+    linesearch_step<T, NJ>(par, H.R, cost, H.cost, k,
+                           tiles + ((long long)(t & 1) * G + g) * TS, lo, hi,
+                           dt, gravity);
+    par([&](int ln) {
+      T* out = k + O::OUT + (t & 1) * (NX + NJ);
+      for (int e = ln; e < NX + NJ; e += W)
+        out[e] = e < NX ? k[O::XS + e] : k[O::U + e - NX];
+    });
+    async_wait<0>();
+    block_sync();   // step t done everywhere; knot t + 1's tiles landed
+  }
+  linesearch_finish<T, NJ>(par, H.R, cost, H.cost, k);
+  block_sync();
+  store(N - 1);
+  for (int e = tid; e < nrow * G; e += nt) {
+    const int r = e / G, gg = e % G;
+    if (gg < nvalid && (only < 0 || only == e))
+      cost_out[(long long)(a0 + r) * B + b0 + gg] = rolls[e * S + O::COST];
+  }
+}
+
+// The line search's block plan: G problems a block (ls_g), each of its
+// step-size rows a rollout of LANES threads
+// (ls_lanes), ROWS rows a block at most: the number that puts the most
+// rollouts on an SM (shared memory, threads, registers), then the most
+// rows a block (each tile read by more rollouts).
+GT_HDI constexpr long long ls_block_bytes(long long head, long long tile_b,
+                                          long long roll_b, int g, int rows) {
+  return head + 2 * g * tile_b + (long long)g * rows * roll_b;
+}
+
+GT_HDI constexpr int ls_rollouts_sm(long long head, long long tile_b,
+                                    long long roll_b, int lanes, int g,
+                                    int rows, int regs) {
+  const long long bytes = ls_block_bytes(head, tile_b, roll_b, g, rows);
+  const long long threads = (long long)g * rows * lanes;
+  if (bytes > SMEM_LIMIT || threads > MAX_BLOCK_THREADS) return 0;
+  const long long warps = (threads + WARP - 1) / WARP;
+  const long long warp_regs = (regs * WARP + 255) / 256 * 256;
+  // a block's warps share the SM's four quarters of the register file
+  if (warps > 4 * (SM_REGS / 4 / warp_regs)) return 0;
+  long long b = SM_SMEM / (bytes + SMEM_PER_BLOCK);
+  if (2048 / threads < b) b = 2048 / threads;
+  if (SM_REGS / (warps * warp_regs) < b) b = SM_REGS / (warps * warp_regs);
+  if (b > 32) b = 32;
+  return g * rows * (int)b;
+}
+
+constexpr int LS_MAX_ROWS = 8;
+
+// {lanes, rows} packed lanes | rows << 16
+GT_HDI constexpr int ls_rows(long long head, long long tile_b,
+                             long long roll_b, int lanes, int g, int regs) {
+  int best = 0, most = 0;
+  for (int rows = 1; rows <= LS_MAX_ROWS; ++rows) {
+    const int n = ls_rollouts_sm(head, tile_b, roll_b, lanes, g, rows, regs);
+    if (n > 0 && n >= most) {
+      best = rows;
+      most = n;
+    }
+  }
+  return best;
+}
+
+// problems a block: 8 (whole sectors in float32; 4 in float64) where one
+// row of them fits, else fewer
+GT_HDI constexpr int ls_g(long long head, long long tile_b, long long roll_b,
+                          int lanes) {
+  int g = MAX_KNOTS;
+  while (g > 1 && (ls_block_bytes(head, tile_b, roll_b, g, 1) > SMEM_LIMIT ||
+                   g * lanes > MAX_BLOCK_THREADS))
+    g /= 2;
+  return g;
+}
+
+// the registers a thread is planned with (ptxas reports 76-92 | 130-172,
+// float32 | float64)
+template <typename T>
+GT_HDI constexpr int ls_regs() { return sizeof(T) == 4 ? 80 : 184; }
+
+// Threads a rollout, by joint count: each library is built for one of the
+// zoo's robots, and the width is the one that ran fastest for it on the
+// card (compare_kernels.py): the chain of 7 (iiwa) and the legs of 3
+// (hyq, 12) at 8, four legs of 2 (gym_ant, 8) at 16, dm_quadruped (16) at
+// 32. A step's phases are a tree level each, so a chain leaves most of a
+// wide group idle; a narrow group runs 4 rollouts a warp.
+template <int NJ>
+GT_HDI constexpr int ls_lanes() { return NJ == 8 ? 16 : NJ == 16 ? 32 : 8; }
+
+// knot strides padded as BlockPlan pads them
+template <typename T>
+GT_HDI constexpr int pad_stride(int n) {
+  return n + ((16 / ((int)sizeof(T) / 4) - n % (32 / ((int)sizeof(T) / 4))) +
+              32 / ((int)sizeof(T) / 4)) %
+                 (32 / ((int)sizeof(T) / 4));
+}
+
+template <typename T, int NJ>
+struct LSPlan {
+  static constexpr int STRIDE = pad_stride<T>(LSRoll<NJ>::SIZE);
+  static constexpr int TILE = LSTile<NJ>::SIZE;
+  static constexpr long long HEAD = (sizeof(LSHead<T, NJ>) + 15) / 16 * 16;
+  static constexpr int LANES = ls_lanes<NJ>();
+  static constexpr int G = ls_g(HEAD, (long long)TILE * sizeof(T),
+                                (long long)STRIDE * sizeof(T), LANES);
+  static constexpr int ROWS =
+      ls_rows(HEAD, (long long)TILE * sizeof(T),
+              (long long)STRIDE * sizeof(T), LANES, G, ls_regs<T>());
+  // rows a block for na step sizes: as even a split as ROWS allows
+  static constexpr int rows_for(int na) {
+    return (na + (na + ROWS - 1) / ROWS - 1) / ((na + ROWS - 1) / ROWS);
+  }
+  static constexpr long long bytes(int rows) {
+    return HEAD + (long long)(2 * G * TILE + G * rows * STRIDE) * sizeof(T);
+  }
+  static constexpr long long BYTES =
+      HEAD + (long long)(2 * G * TILE + G * ROWS * STRIDE) * sizeof(T);
+};
+
+#ifdef __CUDACC__
+// A kernel's dynamic shared-memory limit, and the largest carve-out of an
+// SM's L1 for shared memory, so that as many blocks as the plan counts fit.
+template <class K>
+inline cudaError_t smem_attrs(K* fn, long long bytes) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fn,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+#endif
+
+}  // namespace gt
+
+#ifndef __CUDACC__
+#include <limits>
+#include <type_traits>
+#include <vector>
+
+namespace gt {
+
+// Host entry points (the tests' g++ build, csrc/opcount.cpp): the block
+// code of the kernels with the card's G and rows, one unit at a time over the
+// valid units of each block (the block's shared memory filled with NaN
+// first, so that a read of state no phase wrote shows), writing only that
+// unit's lanes. A number type other than float (csrc/opcount.cpp's
+// counting type) takes double's plan.
+template <typename T>
+using PlanType =
+    typename std::conditional<sizeof(T) == 4, float, double>::type;
+
+template <typename T>
+void fill_nan(std::vector<T>& v) {
+  for (auto& x : v) x = T(std::numeric_limits<double>::quiet_NaN());
+}
+
+template <typename T, int NJ>
+void riccati_factored_host(const T* A, const T* Bm, const T* lx, const T* lu,
+                           const T* Jw, const T* Vx0, const T* Vxx0, T* ks,
+                           T* Ks, int N, long long B, int r, T reg, T qd_diag,
+                           T u_diag) {
+  using O = RicKnot<NJ>;
+  using P = RicPlan<PlanType<T>, NJ>;
+  const FactoredIn<T, NJ> in{A, Bm, lx, lu, Jw, B, N, r, qd_diag, u_diag};
+  std::vector<T> knots((long long)P::G * O::SIZE);
+  for (long long b0 = 0; b0 < B; b0 += P::G)
+    for (int g = 0; g < P::G && b0 + g < B; ++g) {
+      fill_nan(knots);
+#ifdef GT_RACE_CHECK
+      gt_race_watch(knots.data() + g * O::SIZE, O::SIZE * (long)sizeof(T));
+#endif
+      riccati_block<T, NJ, P::G>(HostPar<P::LANES>{}, 0, 1, g, knots.data(),
+                                 O::SIZE, b0, in, Vx0, Vxx0, ks, Ks, N, B,
+                                 reg, g);
+    }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
+template <typename T, int NJ, class Cost>
+void linesearch_host(const T* model, const T* x0, const T* Uref,
+                     const T* Xref, const T* kf, const T* K,
+                     const T* alpha_rows, const T* lo, const T* hi, T* Xo,
+                     T* Uo, T* cost, int N, long long B, int na, T dt,
+                     T gravity, const T* cbuf, int ncost) {
+  using O = LSRoll<NJ>;
+  using P = LSPlan<PlanType<T>, NJ>;
+  using TL = LSTile<NJ>;
+  static_assert(P::ROWS >= 1, "one line-search rollout a problem must fit");
+  std::vector<LSHead<T, NJ>> H(1);
+  H[0].load(model, cbuf, ncost, lo, hi, 0, 1);
+  const int rows = P::rows_for(na);
+  std::vector<T> tiles(2 * P::G * TL::SIZE);
+  std::vector<T> rolls((long long)P::G * rows * O::SIZE);
+  for (int a0 = 0; a0 < na; a0 += rows)
+    for (long long b0 = 0; b0 < B; b0 += P::G)
+      for (int e = 0; e < rows * P::G; ++e) {
+        if (a0 + e / P::G >= na || b0 + e % P::G >= B) continue;
+        fill_nan(tiles);
+        fill_nan(rolls);
+#ifdef GT_RACE_CHECK
+        gt_race_watch(rolls.data() + e * O::SIZE, O::SIZE * (long)sizeof(T));
+#endif
+        linesearch_block<T, NJ, Cost, P::G>(
+            HostPar<P::LANES>{}, 0, 1, e, H[0], tiles.data(), TL::SIZE,
+            rolls.data(), O::SIZE, rows, b0, a0, x0, Uref, Xref, kf, K,
+            alpha_rows, Xo, Uo, cost, N, B, na, dt, gravity, e);
+      }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
+}  // namespace gt
+#endif

@@ -82,6 +82,10 @@ struct WarpPar {
 #ifdef GT_RACE_CHECK
 void gt_race_phase();
 void gt_race_thread(int t);
+void gt_race_done();
+// a buffer whose entries each thread of a phase writes are recorded (the
+// harness compares it before and after each thread); null: none
+void gt_race_watch(const void* p, long bytes);
 extern bool gt_race_reverse;
 #endif
 
@@ -101,6 +105,7 @@ struct HostPar {
       gt_race_thread(t);
       f(t);
     }
+    gt_race_done();
 #else
     for (int t = 0; t < N; ++t) f(t);
 #endif
@@ -179,6 +184,9 @@ struct RobotConst {
   GT_HDI T subtree(int i, int col) const {
     return c[L::SUBTREE + i * NJ + col];
   }
+  GT_HDI const T* Ttree(int i) const { return c + L::TTREE + 16 * i; }
+  GT_HDI const T* Tfixed() const { return c + L::TFIX; }
+  GT_HDI bool in_ee_chain(int i) const { return c[L::EECHAIN + i] != T(0); }
 };
 
 // Deals the work items of one phase to the knot's W threads round robin:
@@ -1117,6 +1125,7 @@ struct BlockPlan {
   static constexpr int LANES = lanes_for(HEAD, KNOT_BYTES, BASE, REGS);
   static constexpr int G = best_knots(HEAD, KNOT_BYTES, LANES, REGS);
   static constexpr long long BYTES = HEAD + (G > 0 ? G : 1) * KNOT_BYTES;
+  static constexpr int ROWS = 1;   // programs a block per problem
 };
 
 // The two kernels' plans: fd_du's head is the robot constants, fdsva_so's
@@ -1218,9 +1227,21 @@ namespace gt {
 // The block plan P of kernel `fn` and its launch attributes, for the
 // wrappers and chip_smoke.py: out = {G, threads a knot, dynamic shared
 // bytes a block, registers a thread, local (stack) bytes a thread, static
-// shared bytes, max threads a block, max dynamic shared bytes}.
+// shared bytes, max threads a block, max dynamic shared bytes, programs a
+// block per problem (the line search's step-size rows), blocks an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor)}.
 template <class P>
 inline int kernel_info(const void* fn, int* out) {
+  out[8] = P::ROWS;
+  // the launch's attributes, which the occupancy calculator reads
+  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)P::BYTES);
+  cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                       (int)cudaSharedmemCarveoutMaxShared);
+  int blocks = 0;
+  const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, fn, P::G * P::ROWS * P::LANES, (size_t)P::BYTES);
+  out[9] = occ == cudaSuccess ? blocks : -1;
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, fn);
   out[0] = P::G;

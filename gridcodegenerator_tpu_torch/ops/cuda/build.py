@@ -3,11 +3,11 @@
 The counterpart of ``gridcodegenerator_tpu/ops/pallas/fuse.py``: where the
 JAX package tiles a batch axis over a Pallas grid and keeps the robot
 constants resident in VMEM, the port runs one thread per problem lane (fd_du
-and fdsva_so: one warp per lane, the constants copied into shared memory
-once a block), masks the ragged last block, and hands the robot constants
-over in one packed
-device buffer (:func:`model_buffer`; the end-effector kernels also take
-one row per EE, :func:`ee_buffer`).
+and fdsva_so: one warp per lane, riccati_factored a warp per problem,
+linesearch_rollout a group of threads per rollout, the constants copied
+into shared memory once a block), masks the ragged last block, and hands
+the robot constants over in one packed device buffer (:func:`model_buffer`;
+the end-effector kernels also take one row per EE, :func:`ee_buffer`).
 
 The sources under ``gridcodegenerator_tpu_torch/csrc/`` are compiled with
 ``nvcc`` for ``sm_90a`` into one shared library with a plain C interface per
@@ -43,7 +43,7 @@ SOURCES = ("fd_du.cu", "rollout.cu", "linesearch.cu", "riccati.cu", "rnea.cu",
            "id_du.cu", "aba.cu", "minv.cu", "fd.cu", "crba.cu", "eepos.cu",
            "deepos.cu", "idsva_so.cu", "fdsva_so.cu", "d2eepos.cu",
            "feedback_rollout.cu")
-HEADERS = ("dynamics.cuh", "so.cuh", "warp.cuh")
+HEADERS = ("dynamics.cuh", "so.cuh", "warp.cuh", "sweep_warp.cuh")
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 LIB_NAME = "libgridtorch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -174,6 +174,8 @@ _SIGNATURES = {
     "gridtorch_fdsva_so": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
     "gridtorch_fd_du_info": (_I, _I, _P),
     "gridtorch_fdsva_so_info": (_I, _I, _P),
+    "gridtorch_riccati_factored_info": (_I, _I, _P),
+    "gridtorch_linesearch_info": (_I, _I, _P),
     "gridtorch_d2eepos": (_I, _I, _P, _P, _I, _P, _P, _L, _P),
     "gridtorch_feedback_rollout": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _I, _L, _D, _D, _P),
@@ -198,14 +200,23 @@ def lib(nj: int) -> ctypes.CDLL:
 
 INFO_FIELDS = ("knots_per_block", "threads_per_knot", "smem_bytes_per_block",
                "registers", "local_bytes", "static_smem_bytes",
-               "max_threads_per_block", "max_dynamic_smem_bytes")
+               "max_threads_per_block", "max_dynamic_smem_bytes",
+               "rows_per_block", "blocks_per_sm")
+# the kernels of a thread group per knot, problem or rollout, by the name of
+# their C info entry point
+WARP_KERNELS = ("fd_du", "fdsva_so", "riccati_factored", "linesearch")
 
 
 def warp_kernel_info(what: str, nj: int, dtype) -> dict:
     """The block plan and ``cudaFuncGetAttributes`` of the ``nj``-joint
-    ``dtype`` instance of the warp-per-knot kernel ``what`` (``fd_du`` or
-    ``fdsva_so``): {knots_per_block (0: one knot does not fit),
-    smem_bytes_per_block, registers, local_bytes, ...}."""
+    ``dtype`` instance of the thread-group kernel ``what`` (one of
+    ``WARP_KERNELS``): {knots_per_block (problems a block; 0: one knot does
+    not fit), threads_per_knot, smem_bytes_per_block (the line search: at
+    the most rows), registers, local_bytes, ..., rows_per_block (the line
+    search's step-size rows a block at most; 1 for the others),
+    blocks_per_sm (the occupancy calculator's, at the plan's block)}."""
+    if what not in WARP_KERNELS:
+        raise ValueError(f"no block plan for {what!r}")
     out = (ctypes.c_int * len(INFO_FIELDS))()
     err = getattr(lib(nj), f"gridtorch_{what}_info")(DTYPE_CODES[dtype], nj,
                                                      out)

@@ -13,17 +13,21 @@
 * ``riccati`` — the backward Riccati sweep with dense curvature blocks, per
   knot or one stationary block. Replaces ``sweeps.py:riccati_pallas``.
 
-Both Riccati sweeps run the same knot step (:func:`riccati_knot` here,
-``csrc/riccati.cu:riccati_knot`` in the kernels).
+Both Riccati sweeps run the same knot step (:func:`riccati_knot` here;
+``csrc/riccati.cu:riccati_knot`` in the dense kernel,
+``csrc/sweep_warp.cuh:riccati_knot_warp`` in the factored one).
 
 On the TPU the horizon was a sequential grid axis carrying state in VMEM
 scratch from one grid step to the next. Blocks on the GPU run in no order,
-so each kernel runs the whole horizon loop inside one thread per problem
-lane and keeps the carry (the state, or the value function) per thread.
-What bounds them on the card: the serial horizon and per-thread arithmetic
-with spilled local memory, at low occupancy (one thread per problem:
-B = 2048 lanes are 64 warps on a 132-SM card); device-memory traffic is
-small beside it.
+so each kernel runs the whole horizon loop inside a block. ``rollout``,
+``feedback_rollout`` and ``riccati`` keep one thread per problem lane and
+its carry (the state, or the value function) in that thread: the serial
+horizon and per-thread arithmetic with local memory bound them, at low
+occupancy (B = 2048 lanes are 64 warps on a 132-SM card).
+``riccati_factored`` runs a warp per problem and ``linesearch_rollout`` a
+group of threads per rollout (``csrc/sweep_warp.cuh``), their state in
+shared memory; the block stages each knot's inputs for G consecutive
+problems with cp.async while the knot before is computed.
 
 Integrator: semi-implicit Euler — qd' = qd + dt*qdd, q' = q + dt*qd'.
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel

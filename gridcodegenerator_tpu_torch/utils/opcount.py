@@ -11,7 +11,10 @@ shapes, not on the values, so one lane counts what every lane of a launch
 does. By default it counts the arithmetic the function needs: constants
 (literals, the robot's constants) folded, and IDSVA-SO's D1-D4 formed once
 per joint with each product D x computed once, as the reference algorithm
-does; ``executed=True`` counts every operation the kernel's lane code does.
+does; ``executed=True`` counts every operation the kernel's lane code does
+(the thread-group kernels, fd_du, fdsva_so, riccati_factored and
+linesearch_rollout: every thread of the knot's, problem's or rollout's
+group, phase by phase, as ``HostPar`` runs them).
 
 ``bound_ms(ops, nbytes, dtype)`` is the least time one NVIDIA H100 SXM could
 take for that work: the larger of the bytes over the memory rate and the

@@ -16,6 +16,7 @@ This file imports no jax, so it also runs where jax is not installed.
 
 import copy
 import ctypes
+import dataclasses
 import importlib.util
 import os
 import shutil
@@ -316,6 +317,7 @@ def test_ee_buffer_layout():
 
 HARNESS = r"""
 #define GT_RACE_CHECK
+#include <cstring>
 #include <unordered_map>
 #include "fd_du.cu"
 #include "rollout.cu"
@@ -356,36 +358,70 @@ void lanes3(const double* q, const double* qd, const double* x, double* out,
 static std::unordered_map<const void*, std::pair<long, int>> g_touch;
 static long g_phase = 0, g_races = 0, g_touches = 0;
 static int g_thread = 0;
-void gt::gt_race_phase() { ++g_phase; }
-void gt::gt_race_thread(int t) { g_thread = t; }
 void gt::gt_race_touch(const void* p) {
   auto& e = g_touch[p];
   if (e.first == g_phase && e.second != g_thread) ++g_races;
   e = {g_phase, g_thread};
   ++g_touches;
 }
+// the watched buffer of the sweep programs (sweep_warp.cuh): compared
+// before and after each thread of a phase, each changed double a touch by
+// that thread
+static const unsigned char* g_watch = nullptr;
+static long g_watch_bytes = 0;
+static bool g_watch_on = false;
+static std::vector<unsigned char> g_snap;
+static int g_prev = -1;
+static void watch_diff() {
+  if (!g_watch_on || !g_watch || g_prev < 0) return;
+  for (long o = 0; o < g_watch_bytes; o += 8)
+    if (std::memcmp(g_watch + o, g_snap.data() + o, 8) != 0)
+      gt::gt_race_touch(g_watch + o);
+}
+static void watch_snap() {
+  if (g_watch_on && g_watch) std::memcpy(g_snap.data(), g_watch, g_watch_bytes);
+}
+void gt::gt_race_phase() { ++g_phase; g_prev = -1; watch_snap(); }
+void gt::gt_race_thread(int t) {
+  const int t_now = t;
+  if (g_prev >= 0) { g_thread = g_prev; watch_diff(); watch_snap(); }
+  g_prev = g_thread = t_now;
+}
+void gt::gt_race_done() { watch_diff(); g_prev = -1; }
+void gt::gt_race_watch(const void* p, long bytes) {
+  g_watch = static_cast<const unsigned char*>(p);
+  g_watch_bytes = bytes;
+  g_snap.resize(bytes);
+}
 bool gt::gt_race_reverse = false;
 extern "C" void race_reverse(int on) { gt::gt_race_reverse = on != 0; }
+extern "C" void race_watch(int on) { g_watch_on = on != 0; }
 extern "C" void race_reset() { g_touch.clear(); g_races = g_touches = 0; }
 extern "C" long race_count() { return g_races; }
 extern "C" long touch_count() { return g_touches; }
 
-// the warp kernels' block plans: {G, threads a knot, bytes a block} of
-// fd_du and fdsva_so in float32 and float64
+// the warp kernels' block plans: {G, threads a knot, bytes a block, rows
+// a block} of fd_du, fdsva_so, riccati_factored and linesearch_rollout in
+// float32 and float64
 template <typename P>
 void plan_into(int* out) {
   out[0] = P::G;
   out[1] = P::LANES;
   out[2] = (int)P::BYTES;
+  out[3] = P::ROWS;
 }
 
 #define HOST(NJ)                                                            \
 extern "C" int size_##NJ() { return Layout<NJ>::SIZE; }                     \
 extern "C" void plans_##NJ(int* out) {                                      \
   plan_into<FDPlan<float, NJ>>(out);                                        \
-  plan_into<FDPlan<double, NJ>>(out + 3);                                   \
-  plan_into<SOPlan<float, NJ>>(out + 6);                                    \
-  plan_into<SOPlan<double, NJ>>(out + 9);                                   \
+  plan_into<FDPlan<double, NJ>>(out + 4);                                   \
+  plan_into<SOPlan<float, NJ>>(out + 8);                                    \
+  plan_into<SOPlan<double, NJ>>(out + 12);                                  \
+  plan_into<RicPlan<float, NJ>>(out + 16);                                  \
+  plan_into<RicPlan<double, NJ>>(out + 20);                                 \
+  plan_into<LSPlan<float, NJ>>(out + 24);                                   \
+  plan_into<LSPlan<double, NJ>>(out + 28);                                  \
 }                                                                           \
 extern "C" void fd_du_##NJ(const double* m, const double* q,                \
     const double* qd, const double* u, double* d, double* a, double* mi,    \
@@ -486,17 +522,13 @@ extern "C" void ls_##NJ(const double* m, const double* x0,                 \
     const double* al, const double* lo, const double* hi, double* X,        \
     double* U, double* c, int N, ll B, int na, int kind, const double* w,   \
     double dt) {                                                            \
-  Robot<double, NJ> R(m);                                                   \
-  const EECost<double, NJ> e{w};                                            \
-  const QuadCostK<double, NJ> qc{w};                                        \
-  for (ll l = 0; l < (ll)na * B; ++l) {                                     \
-    if (kind == 0)                                                          \
-      linesearch_lane<double, NJ>(R, x0, Ur, Xr, k, K, al, lo, hi, X, U, c, \
-                                  N, B, na, l, dt, -9.81, e);               \
-    else                                                                    \
-      linesearch_lane<double, NJ>(R, x0, Ur, Xr, k, K, al, lo, hi, X, U, c, \
-                                  N, B, na, l, dt, -9.81, qc);              \
-  }                                                                         \
+  race_reset();                                                             \
+  if (kind == 0)                                                            \
+    linesearch_host<double, NJ, EECostW<double, NJ>>(m, x0, Ur, Xr, k, K,   \
+        al, lo, hi, X, U, c, N, B, na, dt, -9.81, w, 7);                    \
+  else                                                                      \
+    linesearch_host<double, NJ, QuadCostW<double, NJ>>(m, x0, Ur, Xr, k, K, \
+        al, lo, hi, X, U, c, N, B, na, dt, -9.81, w, 7 * NJ);               \
 }                                                                           \
 extern "C" void ricd_##NJ(const double* A, const double* Bm,               \
     const double* lx, const double* lu, const double* lxx,                  \
@@ -528,9 +560,9 @@ extern "C" void ric_##NJ(const double* A, const double* Bm,                \
     const double* lx, const double* lu, const double* Jw,                   \
     const double* Vx0, const double* Vxx0, double* ks, double* Ks, int N,   \
     ll B, int r, double reg, double qd, double ud) {                        \
-  for (ll b = 0; b < B; ++b)                                                \
-    riccati_lane<double, NJ>(A, Bm, lx, lu, Jw, Vx0, Vxx0, ks, Ks, N, B,    \
-                             r, b, reg, qd, ud);                            \
+  race_reset();                                                             \
+  riccati_factored_host<double, NJ>(A, Bm, lx, lu, Jw, Vx0, Vxx0, ks, Ks,   \
+                                    N, B, r, reg, qd, ud);                  \
 }
 HOST(2)
 HOST(7)
@@ -688,23 +720,34 @@ def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
 
 @pytest.mark.parametrize("nj", build.SUPPORTED_JOINTS)
 def test_warp_block_plans_fit_an_sm(host_lib, nj):
-    """Every fd_du and fdsva_so instance's block plan (csrc/warp.cuh:
-    BlockPlan) holds a knot, fits a block's 227 KB and 512 threads, keeps
-    whole warps (two half-warp knots a warp) and a thread per gradient
-    column of a pass; a knot takes 1, 2 or 4 times its fewest threads."""
-    out = (ctypes.c_int * 12)()
+    """Every instance's block plan of the thread-group kernels holds a knot
+    (or problem, or rollout), fits a block's 227 KB and 512 threads and
+    keeps whole warps: fd_du and fdsva_so (csrc/warp.cuh: BlockPlan) two
+    half-warp knots a warp and a thread per gradient column of a pass, a
+    knot 1, 2 or 4 times its fewest threads; riccati_factored 1, 2 or 4
+    warps a problem; the line search (csrc/sweep_warp.cuh: LSPlan) 8
+    problems a block (4 where 8 do not fit), 1 to 8 of their step-size rows, 8, 16 or 32 threads
+    a rollout."""
+    out = (ctypes.c_int * 32)()
     getattr(host_lib, f"plans_{nj}")(out)
     base = 16 if 2 * nj <= 16 else 32
-    for k in range(4):
-        g, lanes, nbytes = out[3 * k: 3 * k + 3]
-        assert g >= 1 and lanes in (base, 2 * base, 4 * base)
-        assert g * lanes <= 512 and (g * lanes) % 32 == 0
-        assert lanes >= nj
+    for k in range(8):
+        g, lanes, nbytes, rows = out[4 * k: 4 * k + 4]
         assert 0 < nbytes <= 232448
+        assert g * rows * lanes <= 512 and (g * rows * lanes) % 32 == 0
+        if k < 4:
+            assert g >= 1 and rows == 1 and lanes in (base, 2 * base,
+                                                      4 * base)
+            assert lanes >= nj
+        elif k < 6:
+            assert g >= 1 and rows == 1 and lanes in (32, 64, 128)
+        else:
+            assert g in (4, 8) and 1 <= rows <= 8 and lanes in (8, 16, 32)
 
 
 def test_compare_kernels_reads_ptxas_report():
-    """compare_kernels.py keeps the two warp kernels' instances from a
+    """compare_kernels.py keeps the thread-group kernels' instances (fd_du,
+    fdsva_so, riccati_factored, the line search with each cost) from a
     ptxas report, with the frames of called functions (cumulative)."""
     spec = importlib.util.spec_from_file_location(
         "compare_kernels", Path(__file__).resolve().parents[1] /
@@ -713,7 +756,17 @@ def test_compare_kernels_reads_ptxas_report():
     spec.loader.exec_module(ck)
     fd = "_Z12fd_du_kernelIdLi7EEvPKT_S2_S2_S2_PS0_S3_S3_xS0_"
     other = "_Z11rnea_kernelIfLi7EEvPKT_"
+    ric = "_Z23riccati_factored_kernelIfLi12EEvPKT_S2_S2_S2_S2_S2_S2_PS0_"
+    ls = "_Z17linesearch_kernelIfLi7EN2gt9QuadCostWIfLi7EEEEvPKT_S5_"
     report = "\n".join([
+        f"ptxas info    : Compiling entry function '{ric}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {ric}",
+        "    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, 8 bytes cumulative stack size",
+        f"ptxas info    : Compiling entry function '{ls}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {ls}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 80 registers, 0 bytes cumulative stack size",
         f"ptxas info    : Compiling entry function '{other}' for 'sm_90a'",
         f"ptxas info    : Function properties for {other}",
         "    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -723,9 +776,15 @@ def test_compare_kernels_reads_ptxas_report():
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 98 registers, 72 bytes cumulative stack size, "
         "560 bytes cmem[0]"])
-    assert ck.parse_ptxas(report) == {"fd_du f64 nj7": {
-        "stack": 0, "spill_stores": 0, "spill_loads": 0, "registers": 98,
-        "smem": 0, "cumulative_stack": 72}}
+    assert ck.parse_ptxas(report) == {
+        "fd_du f64 nj7": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                          "registers": 98, "smem": 0, "cumulative_stack": 72},
+        "riccati_factored f32 nj12": {
+            "stack": 8, "spill_stores": 0, "spill_loads": 0,
+            "registers": 56, "smem": 0, "cumulative_stack": 8},
+        "linesearch_quad f32 nj7": {
+            "stack": 0, "spill_stores": 0, "spill_loads": 0,
+            "registers": 80, "smem": 0, "cumulative_stack": 0}}
 
 
 @pytest.mark.parametrize("robot", ROBOTS)
@@ -744,16 +803,21 @@ def test_host_fdsva_so_phases_touch_disjoint_entries(host_lib, robot):
     assert _max_err(got, _outs(K.fdsva_so_plain(*args))) <= TOL
 
 
-@pytest.mark.parametrize("name", ["fd_du", "fdsva_so"])
+SWEEP_PROGRAMS = ("riccati_factored", "linesearch_rollout", "linesearch_quad")
+
+
+@pytest.mark.parametrize("name", ("fd_du", "fdsva_so") + SWEEP_PROGRAMS)
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
                                                         name):
-    """No thread of a phase of the warp programs (csrc/warp.cuh) reads what
-    another thread of that phase writes: run phase by phase on the host with
-    the threads of each phase in reverse order, fd_du and fdsva_so give the
-    same bits."""
+    """No thread of a phase of the thread-group programs (csrc/warp.cuh,
+    csrc/sweep_warp.cuh) reads what another thread of that phase writes:
+    run phase by phase on the host with the threads of each phase in
+    reverse order, fd_du, fdsva_so, riccati_factored and the line search
+    (both costs) give the same bits."""
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
-    args = path_inputs(m, 2, 2, seed=3)["fdsva_so"]
+    key = name if name in SWEEP_PROGRAMS else "fdsva_so"
+    args = path_inputs(m, 2, 2, seed=3)[key]
     got = _host_run(host_lib, name, args)
     host_lib.race_reverse(1)
     try:
@@ -762,7 +826,60 @@ def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
         host_lib.race_reverse(0)
     for a, b in zip(got, rev):
         assert torch.equal(a, b)
-    assert _max_err(got, _outs(getattr(K, f"{name}_plain")(*args))) <= TOL
+    assert _max_err(got, _outs(WRAPPERS[name][1](*args))) <= TOL
+
+
+@pytest.mark.parametrize("name", SWEEP_PROGRAMS)
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_host_sweep_phases_write_disjoint_entries(host_lib, robot, name):
+    """The Riccati and line-search programs (csrc/sweep_warp.cuh) split each
+    phase over the group's threads: run phase by phase on the host, no
+    entry of a problem's or rollout's state is written by two threads of
+    one phase (the harness compares the state before and after each
+    thread)."""
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    args = path_inputs(m, 2, 2, seed=2)[name]
+    host_lib.race_count.restype = ctypes.c_long
+    host_lib.touch_count.restype = ctypes.c_long
+    host_lib.race_watch(1)
+    try:
+        got = _host_run(host_lib, name, args)
+    finally:
+        host_lib.race_watch(0)
+    assert host_lib.touch_count() > 2 * (2 * m.n) ** 2
+    assert host_lib.race_count() == 0
+    assert _max_err(got, _outs(WRAPPERS[name][1](*args))) <= TOL
+
+
+@pytest.mark.parametrize("N", [1, 3])
+@pytest.mark.parametrize("na", [1, 6])
+@pytest.mark.parametrize("name", ["linesearch_rollout", "linesearch_quad"])
+@pytest.mark.parametrize("robot", ["pendulum2", "iiwa", "hyq"])
+def test_host_line_search_on_ragged_blocks(host_lib, robot, name, na, N):
+    """The line search's block code with the card's plan: 11 problems (8 a
+    block: a ragged second block), one step size or six (split over blocks
+    of rows), one knot or three."""
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    args = list(path_inputs(m, N, 11, seed=4)[name])
+    args[6] = torch.as_tensor(np.random.default_rng(5).uniform(
+        0.05, 1.0, (na, 11)), dtype=torch.float64)
+    got = _host_run(host_lib, name, args)
+    want = _outs(WRAPPERS[name][1](*args))
+    assert got[0].shape == want[0].shape == (N, 2 * m.n, na * 11)
+    assert _max_err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("N", [1, 3])
+@pytest.mark.parametrize("robot", ["pendulum2", "iiwa", "hyq",
+                                   "dm_quadruped"])
+def test_host_riccati_factored_on_ragged_blocks(host_lib, robot, N):
+    """riccati_factored's block code with the card's plan on 11 problems
+    (a ragged last block), one knot or three."""
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    args = path_inputs(m, N, 11, seed=4)["riccati_factored"]
+    got = _host_run(host_lib, "riccati_factored", args)
+    want = _outs(S.riccati_factored_plain(*args))
+    assert _max_err(got, want) <= TOL
 
 
 @pytest.mark.parametrize("robot", ROBOTS)
@@ -904,6 +1021,34 @@ def test_cuda_kernel_matches_plain(cuda_device, name, robot):
     assert _max_err(got, want) <= TOL
     if name == "minv_upper":   # exact zeros below the diagonal
         assert not got[0].permute(2, 0, 1).tril(-1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ROBOTS)
+@pytest.mark.parametrize("name", SWEEP_PROGRAMS)
+def test_cuda_sweep_programs_in_float32(cuda_device, name, robot):
+    """The float32 instances of riccati_factored and the line search
+    (csrc/sweep_warp.cuh) launch on every robot and agree with a float64
+    plain run within 1e-4 of each output's scale (6 knots: the closed
+    loops do not amplify rounding far)."""
+    m = build_model(load_robot(robot), dtype=torch.float64,
+                    device=cuda_device)
+    args = path_inputs(m, 6, 37, seed=3)[name]
+    m32 = m.to(dtype=torch.float32)
+    a32 = tuple(m32 if a is m else a.float() if isinstance(a, torch.Tensor)
+                else a for a in args)
+    if isinstance(args[-1], EEReachCost):
+        a32 = a32[:-1] + (dataclasses.replace(
+            args[-1], model=m32, goal_xyz=args[-1].goal_xyz.float()),)
+    build.reset_counters()
+    got = _outs(WRAPPERS[name][0](*a32))
+    torch.cuda.synchronize()
+    assert build.LAUNCHES[KERNEL_OF.get(name, name)] == 1
+    want = _outs(WRAPPERS[name][1](*args))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and bool(torch.isfinite(g).all())
+        assert float((g.double() - w).abs().max()) <= 1e-4 * max(
+            1.0, float(w.abs().max()))
 
 
 @pytest.mark.cuda
