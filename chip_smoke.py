@@ -12,17 +12,19 @@ Phases, one line each:
      operation counter, utils/opcount.py); the block plan (knots,
      problems or rollouts a block, shared bytes) and cudaFuncGetAttributes
      of every instance of the thread-group kernels: fd_du and fdsva_so (a
-     warp per knot), riccati_factored (a warp per problem) and
-     linesearch_rollout (a group of threads per rollout);
+     warp per knot), riccati_factored and riccati (a warp per problem;
+     riccati's stationary and per-knot instances), linesearch_rollout and
+     rollout (a group of threads per rollout);
   2. each kernel against its plain PyTorch version on the same CUDA inputs,
      iiwa at small B and N (37 lanes: a ragged block), float64: max abs
      error <= 1e-9; and every GRiD kernel case on hyq (12 joints, branched,
-     4 EEs); idsva_so, fdsva_so (iiwa, hyq), riccati with and without a
-     stationary curvature and the line search with QuadCost (iiwa) within
-     1e-9 * max(1, max|ref|); so are d2eepos on iiwa, hyq, gym_ant (its
-     welded EEs, and its four feet) and dm_quadruped, and every GRiD kernel
-     case on gym_ant (8 joints, EEs at the feet) and dm_quadruped (16
-     joints, branched);
+     4 EEs); idsva_so, fdsva_so (iiwa, hyq) and the line search with
+     QuadCost (iiwa) within 1e-9 * max(1, max|ref|); so are d2eepos on
+     iiwa, hyq, gym_ant (its welded EEs, and its four feet) and
+     dm_quadruped, every GRiD kernel case on gym_ant (8 joints, EEs at the
+     feet) and dm_quadruped (16 joints, branched), and riccati (stationary
+     and per knot) and rollout on iiwa, hyq, gym_ant and dm_quadruped (dt
+     0.002);
   3. the same in float32 (tolerances below): fd_du and fdsva_so at 37
      lanes on iiwa, hyq, gym_ant and dm_quadruped; with each kernel's and
      plain version's device time from CUDA events: the config-3 kernels and the
@@ -262,14 +264,15 @@ def main():
     QUAD3 = {0: 1.0, 1: 0.5}    # config 3's QuadCost task (bench.py:187)
     QUAD4 = {0: 0.5}            # config 4 (bench.py:218)
 
-    def quad_inputs(model, n_knots, batch, seed):
+    def quad_inputs(model, n_knots, batch, seed, dt=DT):
         """The dense Riccati sweep's and the QuadCost line search's inputs as
         config 3's QuadCost task makes them on its first iteration (plain
         ops): the stationary curvature block, and per-knot blocks (scaled
-        per knot, so that the knot index matters)."""
+        per knot, so that the knot index matters); and a rollout of
+        controls ~ U(-4, 4) under bounds (-3, 3.5)."""
         n = model.n
         cost = quad_cost(model, QUAD3)
-        cfg = ILQRConfig(N=n_knots, dt=DT, iters=ITERS, use_kernels=False)
+        cfg = ILQRConfig(N=n_knots, dt=dt, iters=ITERS, use_kernels=False)
         _, parts = make_ilqr(model, cost, cfg, expose_parts=True)
         rng = np.random.default_rng(seed)
         x0 = torch.as_tensor(rng.uniform(-0.2, 0.2, (2 * n, batch)),
@@ -294,11 +297,17 @@ def main():
         ks, Ks = S.riccati_plain(*ric)
         lo, hi = resolve_control_bounds(model, cfg)
         al = torch.tensor(cfg.alphas, dtype=model.dtype, device=dev)[:, None]
+        U = torch.as_tensor(rng.uniform(-4, 4, (n_knots, n, batch)),
+                            dtype=model.dtype, device=dev)
+        bound = lambda v: torch.full((n, 1), v, dtype=model.dtype,
+                                     device=dev)
         return {"riccati": ric, "riccati_stacked": ric_stacked,
                 "linesearch_quad": (model, X[0].contiguous(), U0,
                                     X[:n_knots].contiguous(), ks, Ks,
-                                    al.repeat(1, batch), DT, GRAVITY, lo, hi,
-                                    cost)}
+                                    al.repeat(1, batch), dt, GRAVITY, lo, hi,
+                                    cost),
+                "rollout": (model, x0, U, dt, GRAVITY, bound(-3.0),
+                            bound(3.5))}
 
     def so_cases(model, lanes, seed):
         """idsva_so (q, qd, qdd) and fdsva_so (q, qd, u) on (n, lanes)
@@ -376,6 +385,7 @@ def main():
         "d2eepos": (K.d2eepos, K.d2eepos_plain),
         "riccati": (S.riccati, S.riccati_plain),
         "riccati_stacked": (S.riccati, S.riccati_plain),
+        "rollout": (S.rollout, S.rollout_plain),
         "linesearch_quad": (S.linesearch_rollout,
                             S.linesearch_rollout_plain)}
 
@@ -447,8 +457,8 @@ def main():
     small_new = {}
     new_cases = [(f"{m.name} {c}", c, a) for m in (m64, hyq64)
                  for c, a in so_cases(m, 37, seed=1).items()]
-    new_cases += [(f"iiwa {c}", c, a)
-                  for c, a in quad_inputs(m64, 8, 37, seed=1).items()]
+    new_cases.append(("iiwa linesearch_quad", "linesearch_quad",
+                      quad_inputs(m64, 8, 37, seed=1)["linesearch_quad"]))
     # d2eepos on chains, branched robots, gym_ant's welded EEs (zero blocks)
     # and its feet; every GRiD kernel case on the 8- and 16-joint instances
     gym64, gymw64, dmq64 = (build_model(t, dtype=torch.float64, device=dev)
@@ -464,6 +474,12 @@ def main():
         new_cases += [(f"{m.name} {c}", c, a) for c, a in (
             lane_cases(m, 37, seed=1, with_fd_du=True)
             | so_cases(m, 37, seed=1)).items()]
+    # the dense riccati and the rollout (thread-group programs, one plan
+    # per joint count) on every robot of configs 3 and 4
+    for m in (m64, hyq64, gymw64, dmq64):
+        ins_q = quad_inputs(m, 8, 37, seed=1, dt=DT4.get(m.name, DT))
+        new_cases += [(f"sweep {m.name} {c}", c, ins_q[c])
+                      for c in ("riccati", "riccati_stacked", "rollout")]
     for what, case, args in new_cases:
         case = case_kernel.get(case, case)
         kern, plain = case_fns[case]
@@ -481,11 +497,15 @@ def main():
     line("small_f64", {"robot": "iiwa", "N": 8, "B": 37,
                        "max_abs_err": small, "tol": 1e-9})
     slice5 = ("gym_ant", "dm_quadruped", "d2eepos")
+    sweeps = {k[6:]: small_new.pop(k) for k in list(small_new)
+              if k.startswith("sweep ")}
     line("small_f64_second_order_quad", {"B": 37, "N": 8, "cases": {
         k: v for k, v in small_new.items() if not any(
             w in k for w in slice5)}})
     line("small_f64_d2eepos_8_16_joints", {"B": 37, "cases": {
         k: v for k, v in small_new.items() if any(w in k for w in slice5)}})
+    line("small_f64_riccati_rollout_4_robots", {"B": 37, "N": 8,
+                                                "cases": sweeps})
     line("small_f64_hyq", {"robot": "hyq", "joints": hyq64.n,
                            "ees": build.ee_buffer(hyq64).shape[0],
                            "B": 37, "max_abs_err": small_hyq, "tol": 1e-9})

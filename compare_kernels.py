@@ -2,13 +2,14 @@
 card.
 
     python3 compare_kernels.py --other DIR [--other DIR2 ...]
-                               [--kernels riccati_factored,linesearch]
+                               [--kernels riccati_factored,linesearch,...]
                                [--out build/compare_kernels.json]
 
 Each DIR is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive``), named by its directory. The
-kernels (``--kernels``, any of fd_du, fdsva_so, riccati_factored and
-linesearch; by default the last two) are compiled from every tree's
+kernels (``--kernels``, any of fd_du, fdsva_so, riccati_factored,
+linesearch, riccati and rollout; by default the last four) are compiled
+from every tree's
 ``csrc/`` with nvcc for sm_90a, one library per joint count and tree, every
 nvcc at once, with ``-Xptxas -v``; the script prints each kernel instance's
 registers, stack, spills and static shared memory as ptxas reports them,
@@ -18,7 +19,9 @@ this tree's block plans and ``cudaFuncGetAttributes``
 inputs, in turns: the others, this, this, the others in reverse. The GRiD
 kernels run on inputs ~ U(-1, 1); the sweeps on the inputs of the solver's
 first iteration (plain ops: config 3's EE reach and QuadCost task at N=64,
-B=2048, config 4's QuadCost at N=32, each with six step sizes). It also
+B=2048, config 4's QuadCost at N=32, each with six step sizes; the dense
+riccati on the QuadCost task's stationary curvature, the rollout on the
+solver's first rollout, U0 = 0). It also
 checks this tree on every shape by the float32 rule of ``chip_smoke.py``:
 against a float64 plain run on the first problems (or lanes), within 10 x
 the first other tree's own error plus 1e-5 of the scale (the line search
@@ -26,7 +29,10 @@ per step-size row). And it clocks this tree's programs phase by phase
 (csrc/warp.cuh, csrc/sweep_warp.cuh, built into kernels that wrap each
 phase in clock64()): the cycles of every phase of unit 0 of block 0, while
 the other blocks run as in a launch; for the sweeps the mean of each phase
-over the knots. Needs one NVIDIA GPU and nvcc.
+over the knots. For the rollout it also times this tree's block shapes
+(threads a rollout x problems a block, csrc/rollout.cu: RollShape) at
+every rollout shape, against the plan's output. Needs one NVIDIA GPU and
+nvcc.
 """
 
 import argparse
@@ -47,11 +53,16 @@ import torch
 ROOT = Path(__file__).resolve().parent
 JOINTS = (2, 7, 8, 12, 16)
 SOURCES = {"fd_du": "fd_du.cu", "fdsva_so": "fdsva_so.cu",
-           "riccati_factored": "riccati.cu", "linesearch": "linesearch.cu"}
+           "riccati_factored": "riccati.cu", "linesearch": "linesearch.cu",
+           "riccati": "riccati.cu", "rollout": "rollout.cu"}
+DEFAULT_KERNELS = "riccati_factored,linesearch,riccati,rollout"
 # (kernel, robot, lanes): config 3 and the GRiD API (iiwa 131072 and 1024
 # lanes), config 4's N*B lanes (iiwa 32768, the others 16384); the sweeps
 # (kernel, robot, (cost, N, B)): config 3 (EE reach and QuadCost task, N=64,
-# B=2048) and config 4 (QuadCost, N=32, iiwa B=1024, the others 512)
+# B=2048) and config 4 (QuadCost, N=32, iiwa B=1024, the others 512); the
+# dense riccati at the QuadCost task's (iiwa, N=64, B=2048) and on the
+# 16-joint plan (dm_quadruped, N=32, B=512); the rollout at config 3's and
+# config 4's first rollout ("roll", N, B)
 SHAPES = [("fd_du", "iiwa", 131072), ("fd_du", "iiwa", 1024),
           ("fd_du", "iiwa", 32768), ("fd_du", "gym_ant", 16384),
           ("fd_du", "hyq", 16384), ("fd_du", "dm_quadruped", 16384),
@@ -64,7 +75,18 @@ SHAPES = [("fd_du", "iiwa", 131072), ("fd_du", "iiwa", 1024),
           ("linesearch", "iiwa", ("quad4", 32, 1024)),
           ("linesearch", "hyq", ("quad4", 32, 512)),
           ("linesearch", "gym_ant", ("quad4", 32, 512)),
-          ("linesearch", "dm_quadruped", ("quad4", 32, 512))]
+          ("linesearch", "dm_quadruped", ("quad4", 32, 512)),
+          ("riccati", "iiwa", ("quad3", 64, 2048)),
+          ("riccati", "dm_quadruped", ("quad4", 32, 512)),
+          ("rollout", "iiwa", ("roll", 64, 2048)),
+          ("rollout", "iiwa", ("roll", 32, 1024)),
+          ("rollout", "hyq", ("roll", 32, 512)),
+          ("rollout", "gym_ant", ("roll", 32, 512)),
+          ("rollout", "dm_quadruped", ("roll", 32, 512))]
+# the rollout's block shapes timed beside its plan: (threads a rollout,
+# problems a block), whole warps a block (8 x 2 is half a warp)
+ROLL_SHAPES = ((8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 2), (32, 4),
+               (32, 8))
 DT = {"dm_quadruped": 0.002}
 # the sweeps' lanes held against float64: the first CHECK problems
 CHECK = 256
@@ -75,7 +97,7 @@ CHECK = 256
 PHASE_CLOCK_CU = r"""
 #include <type_traits>
 
-#include "sweep_warp.cuh"
+#include "rollout.cu"
 
 extern __shared__ double gt_smem[];
 
@@ -210,8 +232,9 @@ __global__ void clocked_ls(const float* model, const float* x0,
   const ClockPar<W> par{tid % W, 1 + tid / W, first ? rec : nullptr, &count};
   gt::linesearch_block<float, NJ, Cost, P::G>(
       par, tid, nt, tid / W, H, tiles, P::TILE, rolls, P::STRIDE, rows,
-      (long long)blockIdx.x * P::G, blockIdx.y * rows, x0, Uref, Xref, k, K,
-      al, X, U, cost, N, B, na, dt, -9.81f);
+      (long long)blockIdx.x * P::G, blockIdx.y * rows, x0,
+      gt::FeedbackLaw<float, NJ>{Uref, Xref, k, K, al}, X, U, cost, N, B, na,
+      dt, -9.81f);
   if (first && tid == 0) {
     *phases = count;
     *knot = clock64() - c0;
@@ -240,6 +263,115 @@ extern "C" int ls_clock(int kind, int nj, const void* model, const void* x0,
       N, B, na, rows, (float)dt, (const float*)cbuf, kind == 0 ? 7 : 7 * NJ,
       rec, phases, knot);
   return (int)cudaGetLastError();
+}
+
+// the dense riccati with a stationary curvature
+template <int NJ>
+__global__ void clocked_ricd(const float* A, const float* Bm, const float* lx,
+                             const float* lu, const float* lxx,
+                             const float* luu, const float* lux,
+                             const float* Vx0, const float* Vxx0, float* ks,
+                             float* Ks, int N, long long B, float reg,
+                             long long* rec, int* phases, long long* knot) {
+  using P = gt::RicPlan<float, NJ, gt::RIC_STATIONARY>;
+  constexpr int W = P::LANES;
+  float* knots =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long long c0 = clock64();
+  const bool first = blockIdx.x == 0 && tid < W;
+  int count = 0;
+  const ClockPar<W> par{tid % W, 1 + tid / W, first ? rec : nullptr, &count};
+  const gt::DenseIn<float, NJ, true> in{A, Bm, lx, lu, lxx, luu, lux, B};
+  gt::riccati_block<float, NJ, P::G>(par, tid, nt, tid / W, knots, P::STRIDE,
+                                     (long long)blockIdx.x * P::G, in, Vx0,
+                                     Vxx0, ks, Ks, N, B, reg);
+  if (first && tid == 0) {
+    *phases = count;
+    *knot = clock64() - c0;
+  }
+}
+
+extern "C" int ricd_clock(int nj, const void* A, const void* Bm,
+                          const void* lx, const void* lu, const void* lxx,
+                          const void* luu, const void* lux, const void* Vx0,
+                          const void* Vxx0, void* ks, void* Ks, int N,
+                          long long B, double reg, long long* rec,
+                          int* phases, long long* knot) {
+  constexpr int NJ = GT_NJ;
+  using P = gt::RicPlan<float, NJ, gt::RIC_STATIONARY>;
+  if (nj != NJ) return (int)cudaErrorInvalidValue;
+  gt::smem_attrs(clocked_ricd<NJ>, P::BYTES);
+  clocked_ricd<NJ><<<(unsigned)((B + P::G - 1) / P::G), P::G * P::LANES,
+                     P::BYTES>>>(
+      (const float*)A, (const float*)Bm, (const float*)lx, (const float*)lu,
+      (const float*)lxx, (const float*)luu, (const float*)lux,
+      (const float*)Vx0, (const float*)Vxx0, (float*)ks, (float*)Ks, N, B,
+      (float)reg, rec, phases, knot);
+  return (int)cudaGetLastError();
+}
+
+// the open-loop rollout
+template <int NJ>
+__global__ void clocked_roll(const float* model, const float* x0,
+                             const float* U, const float* lo, const float* hi,
+                             float* X, int N, long long B, float dt,
+                             long long* rec, int* phases, long long* knot) {
+  using P = gt::RollPlan<float, NJ>;
+  constexpr int W = P::LANES;
+  auto& H = *reinterpret_cast<gt::LSHead<float, NJ>*>(gt_smem);
+  float* tiles =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  float* rolls = tiles + 2 * P::G * P::TILE;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long long c0 = clock64();
+  H.load(model, nullptr, 0, lo, hi, tid, nt);
+  __syncthreads();
+  const bool first = blockIdx.x == 0 && tid < W;
+  int count = 0;
+  const ClockPar<W> par{tid % W, 1 + tid / W, first ? rec : nullptr, &count};
+  gt::linesearch_block<float, NJ, gt::NoCost<float, NJ>, P::G>(
+      par, tid, nt, tid / W, H, tiles, P::TILE, rolls, P::STRIDE, 1,
+      (long long)blockIdx.x * P::G, 0, x0, gt::OpenLoop<float, NJ>{U}, X,
+      nullptr, nullptr, N, B, 1, dt, -9.81f);
+  if (first && tid == 0) {
+    *phases = count;
+    *knot = clock64() - c0;
+  }
+}
+
+extern "C" int roll_clock(int nj, const void* model, const void* x0,
+                          const void* U, const void* lo, const void* hi,
+                          void* X, int N, long long B, double dt,
+                          long long* rec, int* phases, long long* knot) {
+  constexpr int NJ = GT_NJ;
+  using P = gt::RollPlan<float, NJ>;
+  if (nj != NJ) return (int)cudaErrorInvalidValue;
+  gt::smem_attrs(clocked_roll<NJ>, P::BYTES);
+  clocked_roll<NJ><<<(unsigned)((B + P::G - 1) / P::G), P::G * P::LANES,
+                     P::BYTES>>>(
+      (const float*)model, (const float*)x0, (const float*)U,
+      (const float*)lo, (const float*)hi, (float*)X, N, B, (float)dt, rec,
+      phases, knot);
+  return (int)cudaGetLastError();
+}
+
+// the rollout kernel at block shape (lanes threads a rollout, g problems a
+// block), float32
+extern "C" int roll_shape(int lanes, int g, int nj, const void* model,
+                          const void* x0, const void* U, const void* lo,
+                          const void* hi, void* X, int N, long long B,
+                          double dt) {
+  constexpr int NJ = GT_NJ;
+  if (nj != NJ) return (int)cudaErrorInvalidValue;
+#define GT_SHAPE(W, G)                                                      \
+  if (lanes == W && g == G)                                                 \
+    return launch_rollout<float, NJ, gt::RollShape<float, NJ, W, G>>(       \
+        model, x0, U, lo, hi, X, N, B, dt, -9.81, 0);
+  GT_SHAPE(8, 4) GT_SHAPE(8, 8) GT_SHAPE(16, 2) GT_SHAPE(16, 4)
+  GT_SHAPE(16, 8) GT_SHAPE(32, 2) GT_SHAPE(32, 4) GT_SHAPE(32, 8)
+#undef GT_SHAPE
+  return (int)cudaErrorInvalidValue;
 }
 """
 
@@ -287,14 +419,16 @@ def compile_tree(tree: Path, out: Path, sources, clocked: bool = False):
 
 
 KERNEL_NAMES = ("fd_du_kernel", "fdsva_so_kernel", "riccati_factored_kernel",
-                "linesearch_kernel")
+                "linesearch_kernel", "riccati_kernel", "rollout_kernel",
+                "riccati_dense_kernel")
 
 
 def parse_ptxas(text: str) -> dict:
     """{"fd_du f32 nj7": {registers, stack, spill_stores, spill_loads,
     smem, cumulative_stack}} for the instances of the thread-group kernels
-    (fd_du, fdsva_so, riccati_factored, linesearch_ee, linesearch_quad) in
-    ptxas's report."""
+    (fd_du, fdsva_so, riccati_factored, linesearch_ee, linesearch_quad,
+    riccati_stationary, riccati_stacked, rollout; an earlier tree's
+    riccati_dense) in ptxas's report."""
     def key(mangled):
         m = re.match(r"_Z\d+(\w+?_kernel)I([fd])Li(\d+)E", mangled)
         if not m or m.group(1) not in KERNEL_NAMES:
@@ -302,6 +436,8 @@ def parse_ptxas(text: str) -> dict:
         name = m.group(1)[:-7]
         if name == "linesearch":
             name += "_ee" if "EECost" in mangled else "_quad"
+        if name == "riccati":
+            name += "_stationary" if "Lb1E" in mangled else "_stacked"
         return f"{name} {'f32' if m.group(2) == 'f' else 'f64'} nj{m.group(3)}"
 
     stats, cur, props = {}, None, None
@@ -345,7 +481,9 @@ def bind(libs: dict, kernels, scratch: bool) -> dict:
            "fdsva_so": ([I, I, P, P, P, P, P, P, L, D, P] if scratch
                         else [I, I, P, P, P, P, P, L, D, P]),
            "riccati_factored": [I, I] + [P] * 9 + [I, L, I, D, D, D, P],
-           "linesearch": [I, I] + [P] * 12 + [I, L, I, D, D, I, P, P]}
+           "linesearch": [I, I] + [P] * 12 + [I, L, I, D, D, I, P, P],
+           "riccati": [I, I] + [P] * 7 + [I] + [P] * 4 + [I, L, D, P],
+           "rollout": [I, I] + [P] * 6 + [I, L, D, D, P]}
     out = {}
     for nj, path in libs.items():
         h = ctypes.CDLL(str(path))
@@ -363,22 +501,28 @@ def bind_clock(path: Path):
     h.phase_clock.argtypes = [I, I, P, P, P, P, L, P, P, P]
     h.ric_clock.argtypes = [I] + [P] * 9 + [I, L, I, D, D, D, P, P, P]
     h.ls_clock.argtypes = [I, I] + [P] * 12 + [I, L, I, D, P, P, P, P]
-    for fn in (h.phase_clock, h.ric_clock, h.ls_clock):
+    h.ricd_clock.argtypes = [I] + [P] * 11 + [I, L, D, P, P, P]
+    h.roll_clock.argtypes = [I] + [P] * 6 + [I, L, D, P, P, P]
+    h.roll_shape.argtypes = [I, I, I] + [P] * 6 + [I, L, D]
+    for fn in (h.phase_clock, h.ric_clock, h.ls_clock, h.ricd_clock,
+               h.roll_clock, h.roll_shape):
         fn.restype = I
     return h
 
 
 def sweep_inputs(m, cost_kind, N, B, dev):
-    """The riccati_factored (EE reach only) and line-search arguments as the
-    solver's first iteration makes them with the plain ops, from x0 ~
-    U(-0.2, 0.2) (seed 0) and U0 = 0, six step sizes; as chip_smoke.py's
-    phases 3 and 6 make them."""
+    """The sweeps' arguments as the solver's first iteration makes them with
+    the plain ops, from x0 ~ U(-0.2, 0.2) (seed 0) and U0 = 0, six step
+    sizes; as chip_smoke.py's phases 3 and 6 make them: {riccati_factored
+    (EE reach) or riccati (QuadCost, stationary), linesearch, rollout}."""
     from gridcodegenerator_tpu_torch.ops import eepose
     from gridcodegenerator_tpu_torch.ops.cuda import sweeps as S
     from gridcodegenerator_tpu_torch.trajopt.cost import EEReachCost, QuadCost
     from gridcodegenerator_tpu_torch.trajopt.ilqr import (
         ILQRConfig, make_ilqr, resolve_control_bounds)
     n, dt = m.n, DT.get(m.name, 0.01)
+    if cost_kind == "roll":
+        cost_kind = "quad4"
     if cost_kind == "ee":
         goal = eepose.eepos(m, torch.full((n, 1), 0.5, dtype=m.dtype,
                                           device=dev))[:3, 0]
@@ -401,29 +545,31 @@ def sweep_inputs(m, cost_kind, N, B, dev):
     A, Bm = parts["linearize"](X[:N], U0)
     fold = lambda Z: Z.transpose(0, 1).reshape(Z.shape[1], -1)
     _, Vx0, Vxx0 = cost.terminal_expansion(X[N])
-    ric = None
+    out = {}
     if cost_kind == "ee":
         Jw, lx, lu = cost.gn_stage_factor(fold(X[:N]), fold(U0))
         ric = (A, Bm, lx.contiguous(), lu.contiguous(), Jw.contiguous(),
                Vx0.contiguous(), Vxx0.contiguous(), cfg.reg,
                *cost.gn_factor_diags)
         ks, Ks = S.riccati_factored_plain(*ric)
+        out["riccati_factored"] = ric
     else:
         unfold = lambda z: z.reshape(z.shape[:-1] + (N, B)).movedim(-2, 0)
         _, lx, lu, lxx, luu, lux = cost.stage_expansion(fold(X[:N]),
                                                         fold(U0))
-        ks, Ks = S.riccati_plain(A, Bm, unfold(lx).contiguous(),
-                                 unfold(lu).contiguous(),
-                                 *(c[..., :B].contiguous()
-                                   for c in (lxx, luu, lux)),
-                                 Vx0.contiguous(), Vxx0.contiguous(),
-                                 cfg.reg)
+        ric = (A, Bm, unfold(lx).contiguous(), unfold(lu).contiguous(),
+               *(c[..., :B].contiguous() for c in (lxx, luu, lux)),
+               Vx0.contiguous(), Vxx0.contiguous(), cfg.reg)
+        ks, Ks = S.riccati_plain(*ric)
+        out["riccati"] = ric
     lo, hi = resolve_control_bounds(m, cfg)
     al = torch.tensor(cfg.alphas, dtype=m.dtype, device=dev)[:, None]
-    ls = (m, X[0].contiguous(), U0, X[:N].contiguous(), ks.contiguous(),
-          Ks.contiguous(), al.repeat(1, B).contiguous(), dt, -9.81, lo, hi,
-          cost)
-    return ric, ls
+    out["linesearch"] = (m, X[0].contiguous(), U0, X[:N].contiguous(),
+                         ks.contiguous(), Ks.contiguous(),
+                         al.repeat(1, B).contiguous(), dt, -9.81, lo, hi,
+                         cost)
+    out["rollout"] = (m, x0, U0, dt, -9.81, lo, hi)
+    return out
 
 
 def head_ric(ric, B, nb):
@@ -462,7 +608,7 @@ def to64(args, m64):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, type=Path, action="append")
-    ap.add_argument("--kernels", default="riccati_factored,linesearch")
+    ap.add_argument("--kernels", default=DEFAULT_KERNELS)
     ap.add_argument("--out", default="build/compare_kernels.json")
     args = ap.parse_args()
     kernels = tuple(args.kernels.split(","))
@@ -573,10 +719,11 @@ def main():
                                          *clock_out())
         else:
             cost_kind, N, B = shape
-            ric, ls = sweep_inputs(m, cost_kind, N, B, dev)
+            ins = sweep_inputs(m, cost_kind, N, B, dev)
             label = f"{cost_kind} N={N} B={B}"
             nb = min(B, CHECK)
             if what == "riccati_factored":
+                ric = ins[what]
                 A, Bm, lx, lu, Jw, Vx0, Vxx0, *scalars = ric
                 reg, qdg, udg = map(float, scalars)
                 r = Jw.shape[0]
@@ -605,8 +752,65 @@ def main():
                         n, *map(ptr, (A, Bm, lx, lu, Jw, Vx0, Vxx0)),
                         *map(ptr, outs), N, B, r, reg, qdg, udg,
                         *clock_out())
+            elif what == "riccati":
+                ric = ins[what]
+                A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg = ric
+                stat = int(lxx.ndim == 3)
+
+                def runner(tree):
+                    lib = libs[tree][0][n]
+                    outs = (torch.empty(N, n, B, device=dev),
+                            torch.empty(N, n, 2 * n, B, device=dev))
+
+                    def fn():
+                        build.check(lib.gridtorch_riccati(
+                            0, n, *map(ptr, (A, Bm, lx, lu, lxx, luu, lux)),
+                            stat, ptr(Vx0), ptr(Vxx0), *map(ptr, outs), N, B,
+                            float(reg), stream), what)
+                    return fn, outs
+                ref64 = S.riccati_plain(*(
+                    a[..., :nb].double() if isinstance(a, torch.Tensor)
+                    else a for a in ric))
+                cut = lambda outs: tuple(o[..., :nb] for o in outs)
+                rows = 1
+
+                def clock_fn():
+                    outs = (torch.empty(N, n, B, device=dev),
+                            torch.empty(N, n, 2 * n, B, device=dev))
+                    return clock.ricd_clock(
+                        n, *map(ptr, (A, Bm, lx, lu, lxx, luu, lux, Vx0,
+                                      Vxx0)),
+                        *map(ptr, outs), N, B, float(reg), *clock_out())
+            elif what == "rollout":
+                _, x0, U0, dt, g, lo, hi = ins[what]
+                mb = build.model_buffer(m)
+
+                def launch(lib_fn, X):
+                    return lib_fn(0, n, ptr(mb), ptr(x0), ptr(U0), ptr(lo),
+                                  ptr(hi), ptr(X), N, B, dt, g, stream)
+
+                def runner(tree):
+                    lib = libs[tree][0][n]
+                    outs = (torch.empty(N, 2 * n, B, device=dev),)
+
+                    def fn():
+                        build.check(launch(lib.gridtorch_rollout, outs[0]),
+                                    what)
+                    return fn, outs
+                ref64 = (S.rollout_plain(m64, x0[:, :nb].double(),
+                                         U0[..., :nb].double(), dt, g,
+                                         *(None if b is None else b.double()
+                                           for b in (lo, hi))),)
+                cut = lambda outs: tuple(o[..., :nb] for o in outs)
+                rows = 1
+
+                def clock_fn():
+                    X = torch.empty(N, 2 * n, B, device=dev)
+                    return clock.roll_clock(
+                        n, ptr(mb), ptr(x0), ptr(U0), ptr(lo), ptr(hi),
+                        ptr(X), N, B, dt, *clock_out())
             else:
-                _, x0, Ur, Xr, kf, Km, al, dt, g, lo, hi, cost = ls
+                _, x0, Ur, Xr, kf, Km, al, dt, g, lo, hi, cost = ins[what]
                 na = al.shape[0]
                 w = cost.kernel_weights
                 kind = S.COST_KINDS[w["kind"]]
@@ -626,7 +830,7 @@ def main():
                             *map(ptr, outs), N, B, na, dt, g, kind, ptr(cb),
                             stream), what)
                     return fn, outs
-                head = head_ls(ls, nb)
+                head = head_ls(ins[what], nb)
                 ref64 = S.linesearch_rollout_plain(*to64(head, m64))
                 cut = lambda outs: tuple(
                     o.reshape(o.shape[:-1] + (na, B))[..., :nb]
@@ -667,6 +871,21 @@ def main():
         ms = {tree: [] for tree in trees}
         for tree in order:
             ms[tree].append(time_cuda(run[tree][0], iters=iters))
+        if what == "rollout":   # the block shapes against the plan
+            X = torch.empty(N, 2 * n, B, device=dev)
+            ref = run["this"][1][0]
+            shapes = {}
+            for lanes_g in ROLL_SHAPES:
+                def shape_fn():
+                    build.check(clock.roll_shape(
+                        *lanes_g, n, ptr(mb), ptr(x0), ptr(U0), ptr(lo),
+                        ptr(hi), ptr(X), N, B, dt), "rollout shape")
+                shape_fn()
+                torch.cuda.synchronize()
+                shapes["x".join(map(str, lanes_g))] = {
+                    "ms": time_cuda(shape_fn, iters=iters),
+                    "max_abs_diff_vs_plan": float((X - ref).abs().max())}
+            del X
         build.check(clock_fn(), "phase clock")
         torch.cuda.synchronize()
         nph = min(int(phases.item()), 4096)
@@ -676,6 +895,8 @@ def main():
                "err_vs_f64": {t: max(float(x.max()) for x in e)
                               for t, e in err.items()},
                "knot_cycles": int(knot.item())}
+        if what == "rollout":
+            row["block_shapes"] = shapes
         if what in ("fd_du", "fdsva_so"):
             row["phase_cycles"] = cyc
         else:   # the mean of each phase position over the knots

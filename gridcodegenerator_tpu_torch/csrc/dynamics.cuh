@@ -1,8 +1,9 @@
 // Per-lane rigid-body dynamics for the port's CUDA kernels.
 //
-// Every kernel of this library but fd_du and fdsva_so (csrc/warp.cuh: a warp
-// per knot) runs one thread per problem lane; the
-// functions here are that thread's algebra, written for one lane in scalar
+// Every kernel of this library but the thread-group ones (csrc/warp.cuh:
+// fd_du and fdsva_so; csrc/sweep_warp.cuh: the Riccati sweeps and the
+// rollouts) runs one thread per problem lane; the functions here are that
+// thread's algebra, written for one lane in scalar
 // code: spatial algebra, joint transforms, RNEA, the analytical ID gradient,
 // Carpentier's direct Minv, forward dynamics, ABA, CRBA, end-effector pose
 // and its Jacobian, and a pivot-free Gauss-Jordan inverse. They follow the

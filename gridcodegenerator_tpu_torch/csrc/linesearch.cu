@@ -20,9 +20,9 @@
 // * QuadCostK (kind 1; buffer Q (2 NJ) | R (NJ) | Qf (2 NJ) | x_goal (2 NJ)):
 //   stage 0.5 (sum Q (x - xg)^2 + sum R u^2), terminal 0.5 sum Qf (x - xg)^2.
 //
-// The kernel (csrc/sweep_warp.cuh:linesearch_block) holds G problems and
-// `rows` of their step-size rows a block (LSPlan), a rollout a group of
-// LANES threads: each Euler step is 4 L - 1 phases for a tree of L levels
+// The kernel (csrc/sweep_warp.cuh:linesearch_block with the control law
+// FeedbackLaw) holds G problems and `rows` of their step-size rows a block
+// (LSPlan), a rollout a group of LANES threads: each Euler step is 4 L - 1 phases for a tree of L levels
 // (the control law and the joint transforms a joint a thread, ABA's passes a
 // level a phase, a row or entry of each joint's quantities a thread), the
 // state in shared memory. The block reads each knot's K, Xref, Uref and k
@@ -154,7 +154,8 @@ __global__ void linesearch_kernel(
   gt::linesearch_block<T, NJ, Cost, P::G>(
       gt::WarpPar<W>{tid % W, 1 + tid / W}, tid, nt, tid / W, H, tiles,
       P::TILE, rolls, P::STRIDE, rows, (long long)blockIdx.x * P::G,
-      blockIdx.y * rows, x0, Uref, Xref, k, K, alpha_rows, X, U, cost, N, B,
+      blockIdx.y * rows, x0,
+      gt::FeedbackLaw<T, NJ>{Uref, Xref, k, K, alpha_rows}, X, U, cost, N, B,
       na, dt, gravity);
 }
 

@@ -12,9 +12,9 @@
 //
 // Two counts per kernel:
 // * executed: every operation the kernel's lane code does (fd_du and
-//   fdsva_so: every thread of the knot's warp, warp.cuh; riccati_factored
-//   and linesearch_rollout: every thread of the problem's or rollout's
-//   group, sweep_warp.cuh);
+//   fdsva_so: every thread of the knot's warp, warp.cuh; the Riccati sweeps
+//   and the rollouts: every thread of the problem's or rollout's group,
+//   sweep_warp.cuh);
 // * needed: the arithmetic of the function, the bound's numerator. Constants
 //   fold: literals and the robot's constants (GRiD generates code per
 //   robot) are known, the lane's inputs are not, and an operation whose
@@ -254,9 +254,13 @@ long long count(int kernel, const double* model, const double* ee, int ne,
       fd_du_host<C, NJ>(m.data(), a.data(), b.data(), c.data(), x.data(),
                         y.data(), z.data(), 1, g);
       break;
-    case ROLLOUT:
-      rollout_lane<C, NJ>(R, a.data(), b.data(), nullptr, nullptr, x.data(),
-                          N, 1, 0, dt, g);
+    case ROLLOUT:   // executed: the rollout's group, every phase
+      if (needed)
+        rollout_lane<C, NJ>(R, a.data(), b.data(), nullptr, nullptr,
+                            x.data(), N, 1, 0, dt, g);
+      else
+        rollout_host<C, NJ>(m.data(), a.data(), b.data(), nullptr, nullptr,
+                            x.data(), N, 1, dt, g);
       break;
     case FEEDBACK_ROLLOUT:
       feedback_rollout_lane<C, NJ>(R, a.data(), b.data(), c.data(), d.data(),
@@ -299,11 +303,17 @@ long long count(int kernel, const double* model, const double* ee, int ne,
                                      x.data() + big / 2, N, 1, r, reg,
                                      C(1e-2), C(1e-4));
       break;
-    case RICCATI:
-      riccati_dense_lane<C, NJ>(a.data(), b.data(), c.data(), d.data(),
-                                y.data(), z.data(), w.data(), flag != 0,
-                                c.data(), d.data(), x.data(),
-                                x.data() + big / 2, N, 1, 0, reg);
+    case RICCATI:   // executed: the problem's warp, every phase
+      if (needed)
+        riccati_dense_lane<C, NJ>(a.data(), b.data(), c.data(), d.data(),
+                                  y.data(), z.data(), w.data(), flag != 0,
+                                  c.data(), d.data(), x.data(),
+                                  x.data() + big / 2, N, 1, 0, reg);
+      else
+        riccati_dense_host<C, NJ>(a.data(), b.data(), c.data(), d.data(),
+                                  y.data(), z.data(), w.data(), flag != 0,
+                                  c.data(), d.data(), x.data(),
+                                  x.data() + big / 2, N, 1, reg);
       break;
     case IDSVA_SO:
       if (needed)

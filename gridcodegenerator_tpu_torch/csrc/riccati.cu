@@ -16,20 +16,23 @@
 // Gauss-Jordan; the value update is the full form (it cancels the
 // regularization to O(reg^2)), then symmetrized.
 //
-// riccati_factored runs a warp per problem (csrc/sweep_warp.cuh:
-// riccati_knot_warp, 6 + NJ phases a knot, an entry of each product a
-// thread), G problems a block, (Vx, Vxx) and the knot's Q blocks in shared
-// memory; the block stages each knot's A, B, lx, lu and Jw for its G
-// problems with cp.async into a second buffer while the knot before is
-// computed (G lanes a row: whole sectors), and writes k and K G lanes a row.
-// What bounds it on the card: bytes and operations in equal measure (A and
-// B are read once; O(NX^3) a knot); the design's limits are the knot's
-// serial phases and shared-memory bandwidth. The plans (problems a block x
-// threads a problem, bytes a block): `gridtorch_riccati_factored_info`.
-//
-// riccati (dense) keeps one thread per problem (riccati_dense_lane), its
-// state in that thread's registers and local memory; under a stationary
-// curvature the lane reads its one block once, before the loop.
+// Both run a warp per problem (csrc/sweep_warp.cuh: riccati_knot_warp,
+// 6 + NJ phases a knot, an entry of each product a thread), G problems a
+// block, (Vx, Vxx) and the knot's Q blocks in shared memory; the block
+// stages each knot's A, B, lx, lu and curvature for its G problems with
+// cp.async into a second buffer while the knot before is computed (G lanes
+// a row: whole sectors), and writes k and K G lanes a row. The curvature is
+// the knot program's input policy: FactoredIn (the factor Jw in the tile),
+// DenseIn (the dense blocks in the tile, or a stationary block staged once
+// into each problem's state before the first knot; each its own layout and
+// plan). What bounds them on the card: bytes and operations in equal
+// measure (A and B are read once; O(NX^3) a knot); the design's limits are
+// the knot's serial phases and shared-memory bandwidth. The plans (problems
+// a block x threads a problem, bytes a block):
+// `gridtorch_riccati_factored_info`, `gridtorch_riccati_info` (stationary),
+// `gridtorch_riccati_stacked_info`. riccati_lane and riccati_dense_lane are
+// the serial functions: csrc/opcount.cpp counts the bound from them, and
+// the host tests hold the block code to their bits.
 //
 // Layouts: A (N, NX, NX, B), Bm (N, NX, NJ, B), Vx0 (NX, B),
 // Vxx0 (NX, NX, B); outputs k (N, NJ, B), K (N, NJ, NX, B).
@@ -319,35 +322,47 @@ static int launch_riccati(const void* A, const void* Bm, const void* lx,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int NJ>
-__global__ void riccati_dense_kernel(
+// the dense sweep: STAT, a stationary curvature in each problem's state
+template <typename T, int NJ, bool STAT>
+using DensePlan =
+    gt::RicPlan<T, NJ, STAT ? gt::RIC_STATIONARY : gt::RIC_DENSE>;
+
+template <typename T, int NJ, bool STAT>
+__global__ void riccati_kernel(
     const T* __restrict__ A, const T* __restrict__ Bm,
     const T* __restrict__ lx, const T* __restrict__ lu,
     const T* __restrict__ lxx, const T* __restrict__ luu,
-    const T* __restrict__ lux, int stationary, const T* __restrict__ Vx0,
+    const T* __restrict__ lux, const T* __restrict__ Vx0,
     const T* __restrict__ Vxx0, T* __restrict__ ks, T* __restrict__ Ks,
     int N, long long B, T reg) {
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  gt::riccati_dense_lane<T, NJ>(A, Bm, lx, lu, lxx, luu, lux,
-                                stationary != 0, Vx0, Vxx0, ks, Ks, N, B, b,
-                                reg);
+  using P = DensePlan<T, NJ, STAT>;
+  constexpr int W = P::LANES;
+  T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const gt::DenseIn<T, NJ, STAT> in{A, Bm, lx, lu, lxx, luu, lux, B};
+  gt::riccati_block<T, NJ, P::G>(gt::WarpPar<W>{tid % W, 1 + tid / W}, tid,
+                                 nt, tid / W, knots, P::STRIDE,
+                                 (long long)blockIdx.x * P::G, in, Vx0, Vxx0,
+                                 ks, Ks, N, B, reg);
 }
 
-template <typename T, int NJ>
-static int launch_riccati_dense(const void* A, const void* Bm,
-                                const void* lx, const void* lu,
-                                const void* lxx, const void* luu,
-                                const void* lux, int stationary,
-                                const void* Vx0, const void* Vxx0, void* ks,
-                                void* Ks, int N, long long B, double reg,
-                                cudaStream_t stream) {
+template <typename T, int NJ, bool STAT>
+static int launch_dense(const void* A, const void* Bm, const void* lx,
+                        const void* lu, const void* lxx, const void* luu,
+                        const void* lux, const void* Vx0, const void* Vxx0,
+                        void* ks, void* Ks, int N, long long B, double reg,
+                        cudaStream_t stream) {
+  using P = DensePlan<T, NJ, STAT>;
+  static_assert(P::G >= 1, "one riccati problem must fit");
   if (B == 0 || N == 0) return 0;
-  const int block = 32;
-  riccati_dense_kernel<T, NJ><<<gt_grid(B, block), block, 0, stream>>>(
+  static const cudaError_t attr =
+      gt::smem_attrs(riccati_kernel<T, NJ, STAT>, P::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  riccati_kernel<T, NJ, STAT><<<(unsigned)((B + P::G - 1) / P::G),
+                                P::LANES * P::G, P::BYTES, stream>>>(
       (const T*)A, (const T*)Bm, (const T*)lx, (const T*)lu, (const T*)lxx,
-      (const T*)luu, (const T*)lux, stationary, (const T*)Vx0,
-      (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, (T)reg);
+      (const T*)luu, (const T*)lux, (const T*)Vx0, (const T*)Vxx0, (T*)ks,
+      (T*)Ks, N, B, (T)reg);
   return (int)cudaGetLastError();
 }
 
@@ -358,10 +373,15 @@ extern "C" int gridtorch_riccati(int dtype, int nj, const void* A,
                                  int stationary, const void* Vx0,
                                  const void* Vxx0, void* ks, void* Ks, int N,
                                  long long B, double reg, void* stream) {
+  if (stationary)
+    GT_DISPATCH(dtype, nj,
+                launch_dense<T, NJ, true>(
+                    A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, ks, Ks, N, B,
+                    reg, (cudaStream_t)stream));
   GT_DISPATCH(dtype, nj,
-              launch_riccati_dense<T, NJ>(A, Bm, lx, lu, lxx, luu, lux,
-                                          stationary, Vx0, Vxx0, ks, Ks, N,
-                                          B, reg, (cudaStream_t)stream));
+              launch_dense<T, NJ, false>(
+                  A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, ks, Ks, N, B, reg,
+                  (cudaStream_t)stream));
 }
 
 extern "C" int gridtorch_riccati_factored(
@@ -377,11 +397,24 @@ extern "C" int gridtorch_riccati_factored(
 
 // The block plan (problems a block; threads a problem; bytes a block) and
 // cudaFuncGetAttributes of the instance (warp.cuh:kernel_info), into
-// out[10].
+// out[10]: riccati_factored, the dense sweep with a stationary curvature
+// (riccati) and with a block per knot (riccati_stacked).
 extern "C" int gridtorch_riccati_factored_info(int dtype, int nj, int* out) {
   GT_DISPATCH(dtype, nj,
               gt::kernel_info<gt::RicPlan<T, NJ>>(
                   (const void*)riccati_factored_kernel<T, NJ>, out));
+}
+
+extern "C" int gridtorch_riccati_info(int dtype, int nj, int* out) {
+  GT_DISPATCH(dtype, nj,
+              gt::kernel_info<DensePlan<T, NJ, true>>(
+                  (const void*)riccati_kernel<T, NJ, true>, out));
+}
+
+extern "C" int gridtorch_riccati_stacked_info(int dtype, int nj, int* out) {
+  GT_DISPATCH(dtype, nj,
+              gt::kernel_info<DensePlan<T, NJ, false>>(
+                  (const void*)riccati_kernel<T, NJ, false>, out));
 }
 
 #endif

@@ -1,8 +1,9 @@
-// Thread-group programs of two sweeps: the factored Riccati sweep (a warp
-// per problem) and the line-search rollouts (a group of threads per
-// rollout), written once for the card and for the host.
+// Thread-group programs of the sweeps: the Riccati sweeps (a warp per
+// problem: riccati_factored and the dense riccati) and the rollouts (a group
+// of threads per rollout: the line search and the open-loop rollout),
+// written once for the card and for the host.
 //
-// Both follow csrc/warp.cuh: a program is a sequence of phases, `par(f)`
+// All follow csrc/warp.cuh: a program is a sequence of phases, `par(f)`
 // runs f(t) for the group's threads t (Par::LANES of them) and then
 // synchronises them (WarpPar on the card, HostPar on the host); no thread of
 // a phase reads what another thread of that phase writes. Each program's
@@ -14,10 +15,13 @@
 // inputs of the next knot into a second buffer with cp.async (G
 // consecutive lanes of a row at a time: whole 32-byte sectors at G = 8 in
 // float32), while the current knot is computed; it writes its outputs the
-// same way. Every value keeps the order of operations of the serial lane
-// code (csrc/riccati.cu:riccati_knot, csrc/dynamics.cuh:aba; products with
-// the exactly zero upper-right block of a joint transform are skipped), so
-// the host build gives the same bits as that code; only the end-effector
+// same way. The Riccati knot takes its curvature from an input policy
+// (FactoredIn, DenseIn), the rollout step its control law (FeedbackLaw,
+// OpenLoop) and its cost (EECostW, QuadCostW, NoCost) from policies. Every
+// value keeps the order of operations of the serial lane code
+// (csrc/riccati.cu:riccati_knot, csrc/dynamics.cuh:aba; products with the
+// exactly zero upper-right block of a joint transform are skipped), so the
+// host build gives the same bits as that code; only the end-effector
 // position of the line search's cost is formed in another order (from the
 // leaf up).
 #pragma once
@@ -94,36 +98,51 @@ GT_HD void store_runs(const T* src, long long S, int rows, int nvalid, T* dst,
 }
 
 // ---------------------------------------------------------------------------
-// riccati_factored: a warp per problem
+// the Riccati sweeps: a warp per problem
 // ---------------------------------------------------------------------------
 
+// Where a Riccati program's curvature sits: the factor Jw in the knot's
+// tile (riccati_factored), dense blocks in the knot's tile (riccati, a block
+// per knot), or dense blocks staged once into the problem's state (riccati,
+// stationary).
+enum { RIC_FACTORED, RIC_DENSE, RIC_STATIONARY };
+
 // One problem's state (offsets into its buffer of T). Two tile buffers (A,
-// B, lx, lu and the factor Jw of a knot, rank <= RMAX) so that knot t - 1
-// arrives while knot t is computed; then the value function and the knot's
-// Q blocks; the augmented matrix of Gauss-Jordan and its pivots' inverses.
-// The gains K and Quu K go over VA, dead after Q's assembly.
-template <int NJ>
+// B, lx, lu and the knot's curvature: the factor Jw, rank <= RMAX, or the
+// dense lxx, luu, lux) so that knot t - 1 arrives while knot t is computed;
+// then the value function and the knot's Q blocks; the augmented matrix of
+// Gauss-Jordan and its pivots' inverses; last a stationary curvature. The
+// gains K and Quu K go over VA, dead after Q's assembly. CURV is the
+// curvature's place, each its own layout.
+template <int NJ, int CURV = RIC_FACTORED>
 struct RicKnot {
   static constexpr int NX = 2 * NJ, RMAX = 6;
+  // the dense blocks, from the curvature's base
+  static constexpr int CXX = 0, CUU = CXX + NX * NX, CUX = CUU + NJ * NJ;
+  static constexpr int DENSE = CUX + NJ * NX;
   static constexpr int AT = 0, BT = AT + NX * NX, LX = BT + NX * NJ;
-  static constexpr int LU = LX + NX, JW = LU + NJ, TILE = JW + RMAX * NJ;
+  static constexpr int LU = LX + NX, JW = LU + NJ;
+  static constexpr int TILE =
+      JW + (CURV == RIC_FACTORED ? RMAX * NJ : CURV == RIC_DENSE ? DENSE : 0);
   static constexpr int VX = 2 * TILE, VXX = VX + NX, QX = VXX + NX * NX;
   static constexpr int QU = QX + NX, QXX = QU + NJ, QUX = QXX + NX * NX;
   static constexpr int QUU = QUX + NJ * NX, KT = QUU + NJ * NJ;
   static constexpr int QUUK = KT + NJ, VA = QUUK + NJ;
   static constexpr int KK = VA, QUUKK = VA + NJ * NX;   // over VA
   static constexpr int VB = VA + NX * NX, AUG = VB + NX * NJ;
-  static constexpr int PIV = AUG + 2 * NJ * NJ, SIZE = PIV + NJ;
+  static constexpr int PIV = AUG + 2 * NJ * NJ, CS = PIV + NJ;
+  static constexpr int SIZE = CS + (CURV == RIC_STATIONARY ? DENSE : 0);
 };
 
 // The inputs of riccati_factored: A (N, NX, NX, B), Bm (N, NX, NJ, B); lx
 // (NX, N B), lu (NJ, N B) and Jw (r, NJ, N B) at knot-major lanes t B + b.
-// The curvature is a policy of the knot program (xx, ux, uu: the entry of
-// lxx, lux, luu added to the product s, as FactoredCurv adds it):
-// blkdiag(Jw^T Jw, qd_diag I), 0, u_diag I.
+// The curvature is a policy of the knot program: `curv` gives its base in
+// the problem's buffer (a compile-time choice of tile or state), and xx,
+// ux, uu the entry of lxx, lux, luu added to the product s, as FactoredCurv
+// adds it: blkdiag(Jw^T Jw, qd_diag I), 0, u_diag I.
 template <typename T, int NJ>
 struct FactoredIn {
-  using O = RicKnot<NJ>;
+  using O = RicKnot<NJ, RIC_FACTORED>;
   static constexpr int NX = 2 * NJ;
   const T *A, *Bm, *lx, *lu, *Jw;
   long long B;
@@ -142,9 +161,11 @@ struct FactoredIn {
     stage_runs<G>(lu + ln, NB, NJ, nvalid, dst + O::LU, S, tid, nt);
     stage_runs<G>(Jw + ln, NB, r * NJ, nvalid, dst + O::JW, S, tid, nt);
   }
-  GT_HDI T xx(const T* tile, int i, int j, T s) const {
+  template <int G>
+  GT_HDI void stage_once(long long, int, T*, long long, int, int) const {}
+  GT_HDI const T* curv(const T*, const T* tile) const { return tile + O::JW; }
+  GT_HDI T xx(const T* J, int i, int j, T s) const {
     if (i < NJ && j < NJ) {
-      const T* J = tile + O::JW;
       T a = J[i] * J[j];
       for (int rr = 1; rr < r; ++rr) a += J[rr * NJ + i] * J[rr * NJ + j];
       return s + a;
@@ -157,6 +178,62 @@ struct FactoredIn {
   }
 };
 
+// The inputs of riccati: A, Bm as above; lx (N, NX, B), lu (N, NJ, B); lxx
+// (NX, NX, B), luu (NJ, NJ, B), lux (NJ, NX, B), each with a leading N axis
+// unless STATIONARY. A stationary curvature is staged once, into each
+// problem's state beside its value function (stage_once); a per-knot one
+// into the knot's tile with A and B. xx, ux, uu add the entry to the
+// product as DenseCurv adds it (s + l).
+template <typename T, int NJ, bool STATIONARY>
+struct DenseIn {
+  using O = RicKnot<NJ, STATIONARY ? RIC_STATIONARY : RIC_DENSE>;
+  static constexpr int NX = 2 * NJ;
+  const T *A, *Bm, *lx, *lu, *lxx, *luu, *lux;
+  long long B;
+  // knot t's blocks (block 0: the stationary ones) of problems b0 .. into
+  // the dense blocks at `dst`
+  template <int G>
+  GT_HD void stage_curv(int t, long long b0, int nvalid, T* dst, long long S,
+                        int tid, int nt) const {
+    stage_runs<G>(lxx + (long long)t * NX * NX * B + b0, B, NX * NX, nvalid,
+                  dst + O::CXX, S, tid, nt);
+    stage_runs<G>(luu + (long long)t * NJ * NJ * B + b0, B, NJ * NJ, nvalid,
+                  dst + O::CUU, S, tid, nt);
+    stage_runs<G>(lux + (long long)t * NJ * NX * B + b0, B, NJ * NX, nvalid,
+                  dst + O::CUX, S, tid, nt);
+  }
+  template <int G>
+  GT_HD void stage(int t, long long b0, int nvalid, T* dst, long long S,
+                   int tid, int nt) const {
+    stage_runs<G>(A + (long long)t * NX * NX * B + b0, B, NX * NX, nvalid,
+                  dst + O::AT, S, tid, nt);
+    stage_runs<G>(Bm + (long long)t * NX * NJ * B + b0, B, NX * NJ, nvalid,
+                  dst + O::BT, S, tid, nt);
+    stage_runs<G>(lx + (long long)t * NX * B + b0, B, NX, nvalid,
+                  dst + O::LX, S, tid, nt);
+    stage_runs<G>(lu + (long long)t * NJ * B + b0, B, NJ, nvalid,
+                  dst + O::LU, S, tid, nt);
+    if (!STATIONARY) stage_curv<G>(t, b0, nvalid, dst + O::JW, S, tid, nt);
+  }
+  template <int G>
+  GT_HD void stage_once(long long b0, int nvalid, T* knots, long long S,
+                        int tid, int nt) const {
+    if (STATIONARY) stage_curv<G>(0, b0, nvalid, knots + O::CS, S, tid, nt);
+  }
+  GT_HDI const T* curv(const T* k, const T* tile) const {
+    return STATIONARY ? k + O::CS : tile + O::JW;
+  }
+  GT_HDI T xx(const T* c, int i, int j, T s) const {
+    return s + c[O::CXX + i * NX + j];
+  }
+  GT_HDI T ux(const T* c, int i, int j, T s) const {
+    return s + c[O::CUX + i * NX + j];
+  }
+  GT_HDI T uu(const T* c, int i, int j, T s) const {
+    return s + c[O::CUU + i * NJ + j];
+  }
+};
+
 // entry (i, j) of the inverse that the in-place Gauss-Jordan below leaves
 // in the right half of `aug` (its last pivot row not yet scaled)
 template <typename T, int NJ>
@@ -166,7 +243,8 @@ GT_HDI T gj_inv(const T* aug, const T* piv, int i, int j) {
 }
 
 // One backward knot of the problem whose state sits at `k`, from the tile
-// at `tile`: riccati.cu:riccati_knot split over the warp, an entry of each
+// at `tile` (the layout and the curvature: the policy In):
+// riccati.cu:riccati_knot split over the warp, an entry of each
 // product a thread (two neighbouring entries where they share an operand:
 // fewer shared-memory loads), 6 + NJ phases:
 // 1. Qx, Qu (A^T Vx, B^T Vx) and VA = Vxx A, VB = Vxx B;
@@ -185,7 +263,7 @@ GT_HDI T gj_inv(const T* aug, const T* piv, int i, int j) {
 template <typename T, int NJ, class In, class Par>
 GT_HD void riccati_knot_warp(const Par& par, T* k, const T* tile,
                              const In& cv, T reg) {
-  using O = RicKnot<NJ>;
+  using O = typename In::O;
   constexpr int NX = 2 * NJ, W = Par::LANES, M2 = 2 * NJ;
   const T* At = tile + O::AT;
   const T* Bt = tile + O::BT;
@@ -206,6 +284,7 @@ GT_HD void riccati_knot_warp(const Par& par, T* k, const T* tile,
   T* VB = k + O::VB;
   T* aug = k + O::AUG;
   T* piv = k + O::PIV;
+  const T* cc = cv.curv(k, tile);   // no thread of the knot writes it
 
   par([&](int t) {
     Deal<W> d{t, 0};
@@ -253,8 +332,8 @@ GT_HD void riccati_knot_warp(const Par& par, T* k, const T* tile,
         s0 += a * VA[m * NX + j];
         s1 += a * VA[m * NX + j + 1];
       }
-      Qxx[i * NX + j] = cv.xx(tile, i, j, s0);
-      Qxx[i * NX + j + 1] = cv.xx(tile, i, j + 1, s1);
+      Qxx[i * NX + j] = cv.xx(cc, i, j, s0);
+      Qxx[i * NX + j + 1] = cv.xx(cc, i, j + 1, s1);
     });
     d(NJ * NX / 2, [&](int e) {   // Qux[i][j, j + 1]
       const int i = 2 * e / NX, j = 2 * e % NX;
@@ -264,14 +343,14 @@ GT_HD void riccati_knot_warp(const Par& par, T* k, const T* tile,
         s0 += b * VA[m * NX + j];
         s1 += b * VA[m * NX + j + 1];
       }
-      Qux[i * NX + j] = cv.ux(tile, i, j, s0);
-      Qux[i * NX + j + 1] = cv.ux(tile, i, j + 1, s1);
+      Qux[i * NX + j] = cv.ux(cc, i, j, s0);
+      Qux[i * NX + j + 1] = cv.ux(cc, i, j + 1, s1);
     });
     d(NJ * NJ, [&](int e) {
       const int i = e / NJ, j = e % NJ;
       T s = Bt[i] * VB[j];
       for (int m = 1; m < NX; ++m) s += Bt[m * NJ + i] * VB[m * NJ + j];
-      const T q = cv.uu(tile, i, j, s);
+      const T q = cv.uu(cc, i, j, s);
       Quu[e] = q;
       aug[i * M2 + j] = i == j ? q + reg : q;
       aug[i * M2 + NJ + j] = i == j ? T(1) : T(0);
@@ -365,14 +444,16 @@ GT_HD void riccati_knot_warp(const Par& par, T* k, const T* tile,
 
 // The block: G problems (units), unit `unit` runs its program with `par`.
 // Knot N - 1 down to 0; the tiles of knot t - 1 are staged while knot t is
-// computed; the gains of knot t are written (G lanes a row) at the start of
-// the next step. `only` >= 0 (the host build) writes only that unit's lanes.
+// computed (a stationary curvature once, with the value function, before
+// the first knot); the gains of knot t are written (G lanes a row) at the
+// start of the next step. `only` >= 0 (the host build) writes only that
+// unit's lanes.
 template <typename T, int NJ, int G, class In, class Par>
 GT_HD void riccati_block(const Par& par, int tid, int nt, int unit, T* knots,
                          long long S, long long b0, const In& in,
                          const T* Vx0, const T* Vxx0, T* ks, T* Ks, int N,
                          long long B, T reg, int only = -1) {
-  using O = RicKnot<NJ>;
+  using O = typename In::O;
   constexpr int NX = 2 * NJ;
   const int nvalid = (int)(B - b0 < G ? B - b0 : G);
   T* k = knots + unit * S;
@@ -384,6 +465,7 @@ GT_HD void riccati_block(const Par& par, int tid, int nt, int unit, T* knots,
   };
   stage_runs<G>(Vx0 + b0, B, NX, nvalid, knots + O::VX, S, tid, nt);
   stage_runs<G>(Vxx0 + b0, B, NX * NX, nvalid, knots + O::VXX, S, tid, nt);
+  in.template stage_once<G>(b0, nvalid, knots, S, tid, nt);
   in.template stage<G>(N - 1, b0, nvalid, knots + ((N - 1) & 1) * O::TILE, S,
                        tid, nt);
   async_commit();
@@ -414,9 +496,10 @@ struct NoHead {
 template <typename T>
 GT_HDI constexpr int ric_regs() { return sizeof(T) == 4 ? 96 : 104; }
 
-// riccati_factored's plan: the threads a problem as BlockPlan picks them;
+// The Riccati sweeps' plans: the threads a problem as BlockPlan picks them;
 // G the most problems a block, up to 8, that fit (whole sectors; B = 2048
-// problems then fill the card in one wave of blocks)
+// problems then fill the card in one wave of blocks). Each curvature's
+// place has its own layout, so its own plan.
 GT_HDI constexpr int ric_g(long long head, long long knot_bytes, int lanes) {
   int g = MAX_KNOTS;
   while (g > 0 && (head + g * knot_bytes > SMEM_LIMIT ||
@@ -425,9 +508,10 @@ GT_HDI constexpr int ric_g(long long head, long long knot_bytes, int lanes) {
   return g;
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, int CURV = RIC_FACTORED>
 struct RicPlan {
-  using BP = BlockPlan<T, NoHead, RicKnot<NJ>::SIZE, WARP, ric_regs<T>()>;
+  using BP =
+      BlockPlan<T, NoHead, RicKnot<NJ, CURV>::SIZE, WARP, ric_regs<T>()>;
   static constexpr int LANES = BP::LANES, STRIDE = BP::STRIDE, ROWS = 1;
   static constexpr long long HEAD = BP::HEAD;
   static constexpr int G = ric_g(HEAD, BP::KNOT_BYTES, LANES);
@@ -435,7 +519,7 @@ struct RicPlan {
 };
 
 // ---------------------------------------------------------------------------
-// linesearch_rollout: a thread group per rollout
+// the rollouts (linesearch_rollout, rollout): a thread group per rollout
 // ---------------------------------------------------------------------------
 
 // One rollout's state: the joint transforms X, the articulated inertias
@@ -467,6 +551,60 @@ struct LSTile {
   static constexpr int NX = 2 * NJ;
   static constexpr int KM = 0, XR = KM + NJ * NX, UR = XR + NX, KF = UR + NJ;
   static constexpr int SIZE = KF + NJ;
+};
+
+// The control laws of the step: `stage` reads knot t's inputs of problems
+// b0 .. b0 + G - 1 into their tiles (TILE values each), `alpha` is the step
+// size of lane a B + b, and `u` forms joint j's control from the tile and
+// the state xs. STORES_U: the block writes u out too.
+// The line search's: u = clamp(Uref + (alpha k + K (x - Xref))) on LSTile.
+template <typename T, int NJ>
+struct FeedbackLaw {
+  using P = LSTile<NJ>;
+  static constexpr int NX = 2 * NJ, TILE = P::SIZE;
+  static constexpr bool STORES_U = true;
+  const T *Uref, *Xref, *kf, *K, *alpha_rows;
+  template <int G>
+  GT_HD void stage(int t, long long b0, int nvalid, long long B, T* dst,
+                   long long TS, int tid, int nt) const {
+    stage_runs<G>(K + (long long)t * NJ * NX * B + b0, B, NJ * NX, nvalid,
+                  dst + P::KM, TS, tid, nt);
+    stage_runs<G>(Xref + (long long)t * NX * B + b0, B, NX, nvalid,
+                  dst + P::XR, TS, tid, nt);
+    stage_runs<G>(Uref + (long long)t * NJ * B + b0, B, NJ, nvalid,
+                  dst + P::UR, TS, tid, nt);
+    stage_runs<G>(kf + (long long)t * NJ * B + b0, B, NJ, nvalid,
+                  dst + P::KF, TS, tid, nt);
+  }
+  GT_HDI T alpha(long long lane) const { return alpha_rows[lane]; }
+  GT_HDI T u(const T* tile, const T* xs, T alpha, int j, const T* lo,
+             const T* hi) const {
+    const T* Kj = tile + P::KM + j * NX;
+    const T* xr = tile + P::XR;
+    T s = Kj[0] * (xs[0] - xr[0]);
+    for (int m = 1; m < NX; ++m) s += Kj[m] * (xs[m] - xr[m]);
+    return clamp_bounds(tile[P::UR + j] + (alpha * tile[P::KF + j] + s), lo,
+                        hi, j);
+  }
+};
+
+// The open-loop rollout's: u = clamp(U_t), U (N, NJ, B); its tile is U_t.
+template <typename T, int NJ>
+struct OpenLoop {
+  static constexpr int TILE = NJ;
+  static constexpr bool STORES_U = false;
+  const T* U;
+  template <int G>
+  GT_HD void stage(int t, long long b0, int nvalid, long long B, T* dst,
+                   long long TS, int tid, int nt) const {
+    stage_runs<G>(U + (long long)t * NJ * B + b0, B, NJ, nvalid, dst, TS,
+                  tid, nt);
+  }
+  GT_HDI T alpha(long long) const { return T(0); }
+  GT_HDI T u(const T* tile, const T*, T, int j, const T* lo,
+             const T* hi) const {
+    return clamp_bounds(tile[j], lo, hi, j);
+  }
 };
 
 // The block's constants: the robot, the cost's (csrc/linesearch.cu: EE 7,
@@ -501,7 +639,7 @@ struct LSHead {
 // from the leaf up (matrix-vector products).
 template <typename T, int NJ>
 struct EECostW {
-  static constexpr bool FK = true;
+  static constexpr bool FK = true, SUMS = true;
   template <class Rb>
   GT_HDI void prep(const Rb& R, int i, T qi, T c, T s, T* Tj) const {
     if (!R.in_ee_chain(i)) return;
@@ -594,7 +732,7 @@ struct EECostW {
 
 template <typename T, int NJ>
 struct QuadCostW {
-  static constexpr bool FK = false;
+  static constexpr bool FK = false, SUMS = true;
   static constexpr int NX = 2 * NJ;
   template <class Rb>
   GT_HDI void prep(const Rb&, int, T, T, T, T*) const {}
@@ -618,6 +756,22 @@ struct QuadCostW {
   template <class Rb>
   GT_HDI T terminal(const Rb&, const T* c, const T*, const T* x) const {
     return T(0.5) * squares(c, c + NX + NJ, x);
+  }
+};
+
+// No cost (the open-loop rollout): its phases do no work and read nothing.
+template <typename T, int NJ>
+struct NoCost {
+  static constexpr bool FK = false, SUMS = false;
+  template <class Rb>
+  GT_HDI void prep(const Rb&, int, T, T, T, T*) const {}
+  template <class Rb>
+  GT_HDI T stage(const Rb&, const T*, const T*, const T*, const T*) const {
+    return T(0);
+  }
+  template <class Rb>
+  GT_HDI T terminal(const Rb&, const T*, const T*, const T*) const {
+    return T(0);
   }
 };
 
@@ -732,10 +886,11 @@ GT_HDI const T* ls_ia(const Rb& R, const T* IA, int i) {
 }
 
 // One step of the rollout whose state sits at `k`, from its problem's tile
-// of the knot: the control law, the stage cost, and a semi-implicit Euler
-// step on ABA (dynamics.cuh:feedback_u, euler_step, aba), in 4 L - 1 phases
-// for a tree of L levels:
-// 1. u = clamp(Uref + (alpha k + K (x - Xref))) a joint a thread; the joint
+// of the knot: the control law (Law), the stage cost, and a semi-implicit
+// Euler step on ABA (dynamics.cuh:feedback_u, euler_step, aba), in 4 L - 1
+// phases for a tree of L levels:
+// 1. u = clamp(Uref + (alpha k + K (x - Xref))) (or clamp(U_t)) a joint a
+//    thread; the joint
 //    transforms (and the cost's) a joint a thread; v of level 0 a row a
 //    thread;
 // 2. .. L + 1: v of level l a row a thread, and c = v x S qd and pA = v x*
@@ -754,13 +909,12 @@ GT_HDI const T* ls_ia(const Rb& R, const T* IA, int i) {
 // (its q and qd) a joint a thread.
 // A thread reads its operands into registers before it writes: a store to
 // shared memory keeps the loads after it from starting early.
-template <typename T, int NJ, class Cost, class Rb, class Par>
+template <typename T, int NJ, class Cost, class Law, class Rb, class Par>
 GT_HD void linesearch_step(const Par& par, const Rb& R, const Cost& cost,
-                           const T* cc, T* k, const T* tile, const T* lo,
-                           const T* hi, T dt, T gravity) {
+                           const Law& law, const T* cc, T* k, const T* tile,
+                           const T* lo, const T* hi, T dt, T gravity) {
   using O = LSRoll<NJ>;
-  using P = LSTile<NJ>;
-  constexpr int NX = 2 * NJ, W = Par::LANES;
+  constexpr int W = Par::LANES;
   T* X = k + O::X;
   T* IA = k + O::IA;
   T* tmp = k + O::TMP;
@@ -779,14 +933,7 @@ GT_HD void linesearch_step(const Par& par, const Rb& R, const Cost& cost,
 
   par([&](int t) {
     Deal<W> d{t, 0};
-    d(NJ, [&](int j) {
-      const T* Kj = tile + P::KM + j * NX;
-      const T* xr = tile + P::XR;
-      T s = Kj[0] * (xs[0] - xr[0]);
-      for (int m = 1; m < NX; ++m) s += Kj[m] * (xs[m] - xr[m]);
-      u[j] = clamp_bounds(tile[P::UR + j] + (alpha * tile[P::KF + j] + s),
-                          lo, hi, j);
-    });
+    d(NJ, [&](int j) { u[j] = law.u(tile, xs, alpha, j, lo, hi); });
     d(NJ, [&](int i) {
       const T q = xs[i];
       const bool rev = R.jtype[i] == 0;
@@ -806,7 +953,7 @@ GT_HD void linesearch_step(const Par& par, const Rb& R, const Cost& cost,
       if (l < nlev)
         level<6>(d, R, l,
                  [&](int i, int r) { ls_v_row<T, NJ>(R, X, v, xs, i, r); });
-      if (l == 1 && t == W - 1)
+      if (Cost::SUMS && l == 1 && t == W - 1)
         k[O::COST] = k[O::COST] + cost.stage(R, cc, Tj, xs, u);
     });
   }
@@ -936,29 +1083,30 @@ GT_HD void linesearch_finish(const Par& par, const Rb& R, const Cost& cost,
       cost.prep(R, i, q, rev ? gcos(q) : T(0), rev ? gsin(q) : T(0), Tj);
     }
   });
-  par([&](int t) {
+  if (Cost::SUMS) par([&](int t) {
     if (t == W - 1) k[O::COST] = k[O::COST] + cost.terminal(R, cc, Tj, xs);
   });
 }
 
 // The block: G problems x `rows` step-size rows of them (rows a0 ..), unit
-// r G + g the rollout of row a0 + r, problem b0 + g. Each knot's tiles are
-// read once for all rows, the next knot's staged while this one is
-// computed; each unit copies its (x, u) after a step into one of two
+// r G + g the rollout of row a0 + r, problem b0 + g. Each knot's tiles (the
+// law's) are read once for all rows, the next knot's staged while this one
+// is computed; each unit copies its (x, u) after a step into one of two
 // slots, which the block writes to X and U (N, NX | NJ, na B),
 // alpha-major lanes a B + b, G lanes a row, while the next step runs: one
-// block barrier a step. `only` >= 0 (the host build) writes only that
-// unit's lanes.
-template <typename T, int NJ, class Cost, int G, class Par>
-GT_HD void linesearch_block(
-    const Par& par, int tid, int nt, int unit, const LSHead<T, NJ>& H,
-    T* tiles, long long TS, T* rolls, long long S, int rows, long long b0,
-    int a0, const T* x0, const T* Uref, const T* Xref, const T* kf,
-    const T* K, const T* alpha_rows, T* Xo, T* Uo, T* cost_out, int N,
-    long long B, int na, T dt, T gravity, int only = -1) {
+// block barrier a step. U is written only under a law that STORES_U, cost
+// only under a cost that SUMS (the open-loop rollout: one row, X only).
+// `only` >= 0 (the host build) writes only that unit's lanes.
+template <typename T, int NJ, class Cost, int G, class Law, class Par>
+GT_HD void linesearch_block(const Par& par, int tid, int nt, int unit,
+                            const LSHead<T, NJ>& H, T* tiles, long long TS,
+                            T* rolls, long long S, int rows, long long b0,
+                            int a0, const T* x0, const Law& law, T* Xo,
+                            T* Uo, T* cost_out, int N, long long B, int na,
+                            T dt, T gravity, int only = -1) {
   using O = LSRoll<NJ>;
-  using P = LSTile<NJ>;
   constexpr int NX = 2 * NJ, W = Par::LANES;
+  constexpr int OUT = NX + (Law::STORES_U ? NJ : 0);
   const int nvalid = (int)(B - b0 < G ? B - b0 : G);
   const int nrow = na - a0 < rows ? na - a0 : rows;
   const long long WL = (long long)na * B;
@@ -968,15 +1116,8 @@ GT_HD void linesearch_block(
   T* k = rolls + unit * S;
   const int g = unit % G;
   auto stage = [&](int t, int buf) {
-    T* dst = tiles + (long long)buf * G * TS;
-    stage_runs<G>(K + (long long)t * NJ * NX * B + b0, B, NJ * NX, nvalid,
-                  dst + P::KM, TS, tid, nt);
-    stage_runs<G>(Xref + (long long)t * NX * B + b0, B, NX, nvalid,
-                  dst + P::XR, TS, tid, nt);
-    stage_runs<G>(Uref + (long long)t * NJ * B + b0, B, NJ, nvalid,
-                  dst + P::UR, TS, tid, nt);
-    stage_runs<G>(kf + (long long)t * NJ * B + b0, B, NJ, nvalid,
-                  dst + P::KF, TS, tid, nt);
+    law.template stage<G>(t, b0, nvalid, B, tiles + (long long)buf * G * TS,
+                          TS, tid, nt);
   };
   // step t's (x, u) from the slots to X and U
   auto store = [&](int t) {
@@ -986,8 +1127,10 @@ GT_HD void linesearch_block(
       const long long lane = (long long)(a0 + r) * B + b0;
       store_runs<G>(rolls + (long long)r * G * S + slot, S, NX, nvalid,
                     Xo + (long long)t * NX * WL + lane, WL, tid, nt, o);
-      store_runs<G>(rolls + (long long)r * G * S + slot + NX, S, NJ, nvalid,
-                    Uo + (long long)t * NJ * WL + lane, WL, tid, nt, o);
+      if (Law::STORES_U)
+        store_runs<G>(rolls + (long long)r * G * S + slot + NX, S, NJ,
+                      nvalid, Uo + (long long)t * NJ * WL + lane, WL, tid,
+                      nt, o);
     }
   };
   for (int r = 0; r < rows; ++r)
@@ -997,7 +1140,7 @@ GT_HD void linesearch_block(
     const int r = e / G, gg = e % G;
     T* kk = rolls + e * S;
     kk[O::ALPHA] = r < nrow && gg < nvalid
-                       ? alpha_rows[(long long)(a0 + r) * B + b0 + gg]
+                       ? law.alpha((long long)(a0 + r) * B + b0 + gg)
                        : T(0);
     kk[O::COST] = T(0);
   }
@@ -1011,12 +1154,12 @@ GT_HD void linesearch_block(
       async_commit();
     }
     if (t > 0) store(t - 1);
-    linesearch_step<T, NJ>(par, H.R, cost, H.cost, k,
+    linesearch_step<T, NJ>(par, H.R, cost, law, H.cost, k,
                            tiles + ((long long)(t & 1) * G + g) * TS, lo, hi,
                            dt, gravity);
     par([&](int ln) {
       T* out = k + O::OUT + (t & 1) * (NX + NJ);
-      for (int e = ln; e < NX + NJ; e += W)
+      for (int e = ln; e < OUT; e += W)
         out[e] = e < NX ? k[O::XS + e] : k[O::U + e - NX];
     });
     async_wait<0>();
@@ -1025,11 +1168,12 @@ GT_HD void linesearch_block(
   linesearch_finish<T, NJ>(par, H.R, cost, H.cost, k);
   block_sync();
   store(N - 1);
-  for (int e = tid; e < nrow * G; e += nt) {
-    const int r = e / G, gg = e % G;
-    if (gg < nvalid && (only < 0 || only == e))
-      cost_out[(long long)(a0 + r) * B + b0 + gg] = rolls[e * S + O::COST];
-  }
+  if (Cost::SUMS)
+    for (int e = tid; e < nrow * G; e += nt) {
+      const int r = e / G, gg = e % G;
+      if (gg < nvalid && (only < 0 || only == e))
+        cost_out[(long long)(a0 + r) * B + b0 + gg] = rolls[e * S + O::COST];
+    }
 }
 
 // The line search's block plan: G problems a block (ls_g), each of its
@@ -1130,6 +1274,37 @@ struct LSPlan {
       HEAD + (long long)(2 * G * TILE + G * ROWS * STRIDE) * sizeof(T);
 };
 
+// The open-loop rollout's block: G problems, a rollout each, LANES threads
+// a rollout (whole warps a block), its tile U_t (NJ values a problem).
+template <typename T, int NJ, int LANES_, int G_>
+struct RollShape {
+  static constexpr int LANES = LANES_, G = G_, ROWS = 1;
+  static constexpr int STRIDE = pad_stride<T>(LSRoll<NJ>::SIZE);
+  static constexpr int TILE = OpenLoop<T, NJ>::TILE;
+  static constexpr long long HEAD = (sizeof(LSHead<T, NJ>) + 15) / 16 * 16;
+  static constexpr long long BYTES =
+      HEAD + (long long)(2 * G * TILE + G * STRIDE) * sizeof(T);
+  static_assert(G * LANES % WARP == 0 && G * LANES <= MAX_BLOCK_THREADS,
+                "a rollout block is whole warps");
+  static_assert(BYTES <= SMEM_LIMIT, "a rollout block fits an SM");
+};
+
+// The rollout's plan by joint count: the block shape that ran fastest for
+// the zoo's robot of that count at its main shapes on the card
+// (compare_kernels.py's block shapes; the table is in PERF.md). They hold
+// 4-16 rollouts an SM (B = 512-2048), so a step's latency sets the time,
+// not rollouts an SM: the trees (hyq 12, gym_ant 8, dm_quadruped 16 joints)
+// run a level's joints in one round of 32 threads; the chain of 7 (iiwa)
+// has a joint a level, and 8 threads (4 rollouts a warp) execute a quarter
+// of the warp instructions of 32. 4 problems a block (2 at 8 joints).
+template <int NJ>
+GT_HDI constexpr int roll_lanes() { return NJ == 2 || NJ == 7 ? 8 : 32; }
+template <int NJ>
+GT_HDI constexpr int roll_g() { return NJ == 8 ? 2 : 4; }
+
+template <typename T, int NJ>
+using RollPlan = RollShape<T, NJ, roll_lanes<NJ>(), roll_g<NJ>()>;
+
 #ifdef __CUDACC__
 // A kernel's dynamic shared-memory limit, and the largest carve-out of an
 // SM's L1 for shared memory, so that as many blocks as the plan counts fit.
@@ -1168,14 +1343,13 @@ void fill_nan(std::vector<T>& v) {
   for (auto& x : v) x = T(std::numeric_limits<double>::quiet_NaN());
 }
 
-template <typename T, int NJ>
-void riccati_factored_host(const T* A, const T* Bm, const T* lx, const T* lu,
-                           const T* Jw, const T* Vx0, const T* Vxx0, T* ks,
-                           T* Ks, int N, long long B, int r, T reg, T qd_diag,
-                           T u_diag) {
-  using O = RicKnot<NJ>;
-  using P = RicPlan<PlanType<T>, NJ>;
-  const FactoredIn<T, NJ> in{A, Bm, lx, lu, Jw, B, N, r, qd_diag, u_diag};
+// the block code of a Riccati sweep (the policy In) with the card's plan
+template <typename T, int NJ, int CURV, class In>
+void riccati_host(const In& in, const T* Vx0, const T* Vxx0, T* ks, T* Ks,
+                  int N, long long B, T reg) {
+  using O = typename In::O;
+  using P = RicPlan<PlanType<T>, NJ, CURV>;
+  static_assert(P::G >= 1, "one Riccati problem must fit");
   std::vector<T> knots((long long)P::G * O::SIZE);
   for (long long b0 = 0; b0 < B; b0 += P::G)
     for (int g = 0; g < P::G && b0 + g < B; ++g) {
@@ -1192,38 +1366,82 @@ void riccati_factored_host(const T* A, const T* Bm, const T* lx, const T* lu,
 #endif
 }
 
+template <typename T, int NJ>
+void riccati_factored_host(const T* A, const T* Bm, const T* lx, const T* lu,
+                           const T* Jw, const T* Vx0, const T* Vxx0, T* ks,
+                           T* Ks, int N, long long B, int r, T reg, T qd_diag,
+                           T u_diag) {
+  const FactoredIn<T, NJ> in{A, Bm, lx, lu, Jw, B, N, r, qd_diag, u_diag};
+  riccati_host<T, NJ, RIC_FACTORED>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
+}
+
+template <typename T, int NJ>
+void riccati_dense_host(const T* A, const T* Bm, const T* lx, const T* lu,
+                        const T* lxx, const T* luu, const T* lux,
+                        bool stationary, const T* Vx0, const T* Vxx0, T* ks,
+                        T* Ks, int N, long long B, T reg) {
+  if (stationary) {
+    const DenseIn<T, NJ, true> in{A, Bm, lx, lu, lxx, luu, lux, B};
+    riccati_host<T, NJ, RIC_STATIONARY>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
+  } else {
+    const DenseIn<T, NJ, false> in{A, Bm, lx, lu, lxx, luu, lux, B};
+    riccati_host<T, NJ, RIC_DENSE>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
+  }
+}
+
+// the block code of the rollouts (the law and the cost) with the card's G
+// and `rows` step-size rows a block, one unit at a time
+template <typename T, int NJ, class Cost, int G, int LANES, class Law>
+void rollouts_host(const Law& law, const T* model, const T* x0, const T* lo,
+                   const T* hi, T* Xo, T* Uo, T* cost, int N, long long B,
+                   int na, int rows, T dt, T gravity, const T* cbuf,
+                   int ncost) {
+  using O = LSRoll<NJ>;
+  std::vector<LSHead<T, NJ>> H(1);
+  H[0].load(model, cbuf, ncost, lo, hi, 0, 1);
+  std::vector<T> tiles(2 * G * Law::TILE);
+  std::vector<T> rolls((long long)G * rows * O::SIZE);
+  for (int a0 = 0; a0 < na; a0 += rows)
+    for (long long b0 = 0; b0 < B; b0 += G)
+      for (int e = 0; e < rows * G; ++e) {
+        if (a0 + e / G >= na || b0 + e % G >= B) continue;
+        fill_nan(tiles);
+        fill_nan(rolls);
+#ifdef GT_RACE_CHECK
+        gt_race_watch(rolls.data() + e * O::SIZE, O::SIZE * (long)sizeof(T));
+#endif
+        linesearch_block<T, NJ, Cost, G>(
+            HostPar<LANES>{}, 0, 1, e, H[0], tiles.data(), Law::TILE,
+            rolls.data(), O::SIZE, rows, b0, a0, x0, law, Xo, Uo, cost, N, B,
+            na, dt, gravity, e);
+      }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
 template <typename T, int NJ, class Cost>
 void linesearch_host(const T* model, const T* x0, const T* Uref,
                      const T* Xref, const T* kf, const T* K,
                      const T* alpha_rows, const T* lo, const T* hi, T* Xo,
                      T* Uo, T* cost, int N, long long B, int na, T dt,
                      T gravity, const T* cbuf, int ncost) {
-  using O = LSRoll<NJ>;
   using P = LSPlan<PlanType<T>, NJ>;
-  using TL = LSTile<NJ>;
   static_assert(P::ROWS >= 1, "one line-search rollout a problem must fit");
-  std::vector<LSHead<T, NJ>> H(1);
-  H[0].load(model, cbuf, ncost, lo, hi, 0, 1);
-  const int rows = P::rows_for(na);
-  std::vector<T> tiles(2 * P::G * TL::SIZE);
-  std::vector<T> rolls((long long)P::G * rows * O::SIZE);
-  for (int a0 = 0; a0 < na; a0 += rows)
-    for (long long b0 = 0; b0 < B; b0 += P::G)
-      for (int e = 0; e < rows * P::G; ++e) {
-        if (a0 + e / P::G >= na || b0 + e % P::G >= B) continue;
-        fill_nan(tiles);
-        fill_nan(rolls);
-#ifdef GT_RACE_CHECK
-        gt_race_watch(rolls.data() + e * O::SIZE, O::SIZE * (long)sizeof(T));
-#endif
-        linesearch_block<T, NJ, Cost, P::G>(
-            HostPar<P::LANES>{}, 0, 1, e, H[0], tiles.data(), TL::SIZE,
-            rolls.data(), O::SIZE, rows, b0, a0, x0, Uref, Xref, kf, K,
-            alpha_rows, Xo, Uo, cost, N, B, na, dt, gravity, e);
-      }
-#ifdef GT_RACE_CHECK
-  gt_race_watch(nullptr, 0);
-#endif
+  const FeedbackLaw<T, NJ> law{Uref, Xref, kf, K, alpha_rows};
+  rollouts_host<T, NJ, Cost, P::G, P::LANES>(law, model, x0, lo, hi, Xo, Uo,
+                                             cost, N, B, na, P::rows_for(na),
+                                             dt, gravity, cbuf, ncost);
+}
+
+template <typename T, int NJ>
+void rollout_host(const T* model, const T* x0, const T* U, const T* lo,
+                  const T* hi, T* X, int N, long long B, T dt, T gravity) {
+  using P = RollPlan<PlanType<T>, NJ>;
+  const OpenLoop<T, NJ> law{U};
+  rollouts_host<T, NJ, NoCost<T, NJ>, P::G, P::LANES>(
+      law, model, x0, lo, hi, X, nullptr, nullptr, N, B, 1, 1, dt, gravity,
+      nullptr, 0);
 }
 
 }  // namespace gt

@@ -14,20 +14,20 @@
   knot or one stationary block. Replaces ``sweeps.py:riccati_pallas``.
 
 Both Riccati sweeps run the same knot step (:func:`riccati_knot` here;
-``csrc/riccati.cu:riccati_knot`` in the dense kernel,
-``csrc/sweep_warp.cuh:riccati_knot_warp`` in the factored one).
+``csrc/sweep_warp.cuh:riccati_knot_warp`` in both kernels, the curvature an
+input policy: the factor, dense blocks per knot, or one stationary block
+staged once).
 
 On the TPU the horizon was a sequential grid axis carrying state in VMEM
 scratch from one grid step to the next. Blocks on the GPU run in no order,
-so each kernel runs the whole horizon loop inside a block. ``rollout``,
-``feedback_rollout`` and ``riccati`` keep one thread per problem lane and
-its carry (the state, or the value function) in that thread: the serial
-horizon and per-thread arithmetic with local memory bound them, at low
-occupancy (B = 2048 lanes are 64 warps on a 132-SM card).
-``riccati_factored`` runs a warp per problem and ``linesearch_rollout`` a
-group of threads per rollout (``csrc/sweep_warp.cuh``), their state in
-shared memory; the block stages each knot's inputs for G consecutive
-problems with cp.async while the knot before is computed.
+so each kernel runs the whole horizon loop inside a block.
+``riccati_factored`` and ``riccati`` run a warp per problem,
+``linesearch_rollout`` and ``rollout`` a group of threads per rollout on
+one step program (``csrc/sweep_warp.cuh``; the rollout's control law is
+u = clamp(U_t), and it sums no cost), their state in shared memory; the
+block stages each knot's inputs for G consecutive problems with cp.async
+while the knot before is computed. ``feedback_rollout`` keeps one thread
+per problem lane and its state in that thread.
 
 Integrator: semi-implicit Euler — qd' = qd + dt*qdd, q' = q + dt*qd'.
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel

@@ -44,7 +44,7 @@ class QuadCost:
         if self.x_goal.ndim != 1:
             raise NotImplementedError(
                 "the port's QuadCost takes one shared (2n,) goal: a "
-                "per-problem (2n, B) goal is ROADMAP Queue 1 item 5")
+                "per-problem (2n, B) goal is ROADMAP Queue 1 item 3")
 
     @staticmethod
     def _col(w, like):

@@ -111,7 +111,7 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
     if cfg.use_second_order and not hasattr(cost, "stage_expansion"):
         raise NotImplementedError(
             "DDP with a Gauss-Newton-factored cost (EEReachCost) is not "
-            "ported: ROADMAP Queue 1 item 10")
+            "ported: ROADMAP Queue 1 item 3")
     if not factored and not hasattr(cost, "stage_expansion"):
         raise NotImplementedError(
             "the solver needs a cost with gn_stage_factor or stage_expansion")

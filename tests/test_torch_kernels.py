@@ -401,8 +401,9 @@ extern "C" long race_count() { return g_races; }
 extern "C" long touch_count() { return g_touches; }
 
 // the warp kernels' block plans: {G, threads a knot, bytes a block, rows
-// a block} of fd_du, fdsva_so, riccati_factored and linesearch_rollout in
-// float32 and float64
+// a block} of fd_du, fdsva_so, riccati_factored, linesearch_rollout, the
+// dense riccati (stationary, then a block per knot) and rollout in float32
+// and float64
 template <typename P>
 void plan_into(int* out) {
   out[0] = P::G;
@@ -422,6 +423,12 @@ extern "C" void plans_##NJ(int* out) {                                      \
   plan_into<RicPlan<double, NJ>>(out + 20);                                 \
   plan_into<LSPlan<float, NJ>>(out + 24);                                   \
   plan_into<LSPlan<double, NJ>>(out + 28);                                  \
+  plan_into<RicPlan<float, NJ, RIC_STATIONARY>>(out + 32);                  \
+  plan_into<RicPlan<double, NJ, RIC_STATIONARY>>(out + 36);                 \
+  plan_into<RicPlan<float, NJ, RIC_DENSE>>(out + 40);                       \
+  plan_into<RicPlan<double, NJ, RIC_DENSE>>(out + 44);                      \
+  plan_into<RollPlan<float, NJ>>(out + 48);                                 \
+  plan_into<RollPlan<double, NJ>>(out + 52);                                \
 }                                                                           \
 extern "C" void fd_du_##NJ(const double* m, const double* q,                \
     const double* qd, const double* u, double* d, double* a, double* mi,    \
@@ -513,6 +520,12 @@ extern "C" void fbr_##NJ(const double* m, const double* x0,                \
 extern "C" void rollout_##NJ(const double* m, const double* x0,            \
     const double* U, const double* lo, const double* hi, double* X, int N,  \
     ll B, double dt) {                                                      \
+  race_reset();                                                             \
+  rollout_host<double, NJ>(m, x0, U, lo, hi, X, N, B, dt, -9.81);           \
+}                                                                           \
+extern "C" void rollout_lane_##NJ(const double* m, const double* x0,       \
+    const double* U, const double* lo, const double* hi, double* X, int N,  \
+    ll B, double dt) {                                                      \
   Robot<double, NJ> R(m);                                                   \
   for (ll b = 0; b < B; ++b)                                                \
     rollout_lane<double, NJ>(R, x0, U, lo, hi, X, N, B, b, dt, -9.81);      \
@@ -531,6 +544,16 @@ extern "C" void ls_##NJ(const double* m, const double* x0,                 \
         al, lo, hi, X, U, c, N, B, na, dt, -9.81, w, 7 * NJ);               \
 }                                                                           \
 extern "C" void ricd_##NJ(const double* A, const double* Bm,               \
+    const double* lx, const double* lu, const double* lxx,                  \
+    const double* luu, const double* lux, int stationary,                   \
+    const double* Vx0, const double* Vxx0, double* ks, double* Ks, int N,   \
+    ll B, double reg) {                                                     \
+  race_reset();                                                             \
+  riccati_dense_host<double, NJ>(A, Bm, lx, lu, lxx, luu, lux,              \
+                                 stationary != 0, Vx0, Vxx0, ks, Ks, N, B,  \
+                                 reg);                                      \
+}                                                                           \
+extern "C" void ricd_lane_##NJ(const double* A, const double* Bm,          \
     const double* lx, const double* lu, const double* lxx,                  \
     const double* luu, const double* lux, int stationary,                   \
     const double* Vx0, const double* Vxx0, double* ks, double* Ks, int N,   \
@@ -591,8 +614,11 @@ def _p(t):
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
-def _host_run(lib, name, args):
-    """Run the host build of kernel ``name`` on the wrapper's arguments."""
+def _host_run(lib, name, args, lane=False):
+    """Run the host build of kernel ``name`` on the wrapper's arguments: the
+    kernel's block code (the sweeps), or with ``lane`` the serial lane
+    function (rollout and the dense riccati)."""
+    serial = "_lane" if lane else ""
     ll, D = ctypes.c_longlong, ctypes.c_double
     if name == "fd_du":
         m, q, qd, u, _ = args
@@ -649,8 +675,9 @@ def _host_run(lib, name, args):
         m, x0, U, dt, _, lo, hi = args
         N, n, B = U.shape
         X = torch.empty(N, 2 * n, B, dtype=U.dtype)
-        getattr(lib, f"rollout_{n}")(_p(build.model_buffer(m)), _p(x0), _p(U),
-                                     _p(lo), _p(hi), _p(X), N, ll(B), D(dt))
+        getattr(lib, f"rollout{serial}_{n}")(
+            _p(build.model_buffer(m)), _p(x0), _p(U), _p(lo), _p(hi), _p(X),
+            N, ll(B), D(dt))
         return (X,)
     if name == "feedback_rollout":
         m, x0, Ur, Xr, kff, Km, dt, _, lo, hi = args
@@ -675,10 +702,10 @@ def _host_run(lib, name, args):
         N, nx, n, B = Bm.shape
         ks = torch.empty(N, n, B, dtype=A.dtype)
         Ks = torch.empty(N, n, nx, B, dtype=A.dtype)
-        getattr(lib, f"ricd_{n}")(*map(_p, (A, Bm, lx, lu, lxx, luu, lux)),
-                                  ctypes.c_int(int(lxx.ndim == 3)),
-                                  *map(_p, (Vx0, Vxx0, ks, Ks)), N, ll(B),
-                                  D(reg))
+        getattr(lib, f"ricd{serial}_{n}")(
+            *map(_p, (A, Bm, lx, lu, lxx, luu, lux)),
+            ctypes.c_int(int(lxx.ndim == 3)), *map(_p, (Vx0, Vxx0, ks, Ks)),
+            N, ll(B), D(reg))
         return ks, Ks
     if name == "riccati_factored":
         A, Bm, lx, lu, Jw, Vx0, Vxx0, reg, qd, ud = args
@@ -724,14 +751,17 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
     (or problem, or rollout), fits a block's 227 KB and 512 threads and
     keeps whole warps: fd_du and fdsva_so (csrc/warp.cuh: BlockPlan) two
     half-warp knots a warp and a thread per gradient column of a pass, a
-    knot 1, 2 or 4 times its fewest threads; riccati_factored 1, 2 or 4
-    warps a problem; the line search (csrc/sweep_warp.cuh: LSPlan) 8
-    problems a block (4 where 8 do not fit), 1 to 8 of their step-size rows, 8, 16 or 32 threads
-    a rollout."""
-    out = (ctypes.c_int * 32)()
+    knot 1, 2 or 4 times its fewest threads; the Riccati sweeps
+    (riccati_factored, the dense riccati with a stationary curvature and
+    with a block per knot) 1, 2 or 4 warps a problem; the line search
+    (csrc/sweep_warp.cuh: LSPlan) 8 problems a block (4 where 8 do not
+    fit), 1 to 8 of their step-size rows, 8, 16 or 32 threads a rollout;
+    the open-loop rollout (RollPlan) 2, 4 or 8 problems a block of 8, 16
+    or 32 threads each."""
+    out = (ctypes.c_int * 56)()
     getattr(host_lib, f"plans_{nj}")(out)
     base = 16 if 2 * nj <= 16 else 32
-    for k in range(8):
+    for k in range(14):
         g, lanes, nbytes, rows = out[4 * k: 4 * k + 4]
         assert 0 < nbytes <= 232448
         assert g * rows * lanes <= 512 and (g * rows * lanes) % 32 == 0
@@ -739,16 +769,19 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
             assert g >= 1 and rows == 1 and lanes in (base, 2 * base,
                                                       4 * base)
             assert lanes >= nj
-        elif k < 6:
+        elif k < 6 or 8 <= k < 12:
             assert g >= 1 and rows == 1 and lanes in (32, 64, 128)
-        else:
+        elif k < 8:
             assert g in (4, 8) and 1 <= rows <= 8 and lanes in (8, 16, 32)
+        else:
+            assert g in (2, 4, 8) and rows == 1 and lanes in (8, 16, 32)
 
 
 def test_compare_kernels_reads_ptxas_report():
     """compare_kernels.py keeps the thread-group kernels' instances (fd_du,
-    fdsva_so, riccati_factored, the line search with each cost) from a
-    ptxas report, with the frames of called functions (cumulative)."""
+    fdsva_so, riccati_factored, the line search with each cost, the dense
+    riccati by its curvature, the rollout) from a ptxas report, with the
+    frames of called functions (cumulative)."""
     spec = importlib.util.spec_from_file_location(
         "compare_kernels", Path(__file__).resolve().parents[1] /
         "compare_kernels.py")
@@ -758,7 +791,19 @@ def test_compare_kernels_reads_ptxas_report():
     other = "_Z11rnea_kernelIfLi7EEvPKT_"
     ric = "_Z23riccati_factored_kernelIfLi12EEvPKT_S2_S2_S2_S2_S2_S2_PS0_"
     ls = "_Z17linesearch_kernelIfLi7EN2gt9QuadCostWIfLi7EEEEvPKT_S5_"
+    ricd = "_Z14riccati_kernelIdLi16ELb1EEvPKT_S2_S2_S2_S2_S2_S2_S2_S2_PS0_"
+    roll = ("_Z14rollout_kernelIdLi16EN2gt9RollShapeIdLi16ELi32ELi4EEEEvPKT_"
+            "S5_S5_S5_S5_PS3_ixS3_S3_")
     report = "\n".join([
+        f"ptxas info    : Compiling entry function '{ricd}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {ricd}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 80 registers, used 16 barriers",
+        f"ptxas info    : Compiling entry function '{roll}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {roll}",
+        "    112 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 172 registers, used 1 barriers, 112 bytes "
+        "cumulative stack size",
         f"ptxas info    : Compiling entry function '{ric}' for 'sm_90a'",
         f"ptxas info    : Function properties for {ric}",
         "    8 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -784,7 +829,13 @@ def test_compare_kernels_reads_ptxas_report():
             "registers": 56, "smem": 0, "cumulative_stack": 8},
         "linesearch_quad f32 nj7": {
             "stack": 0, "spill_stores": 0, "spill_loads": 0,
-            "registers": 80, "smem": 0, "cumulative_stack": 0}}
+            "registers": 80, "smem": 0, "cumulative_stack": 0},
+        "riccati_stationary f64 nj16": {
+            "stack": 0, "spill_stores": 0, "spill_loads": 0,
+            "registers": 80, "smem": 0},
+        "rollout f64 nj16": {
+            "stack": 112, "spill_stores": 0, "spill_loads": 0,
+            "registers": 172, "smem": 0, "cumulative_stack": 112}}
 
 
 @pytest.mark.parametrize("robot", ROBOTS)
@@ -803,7 +854,8 @@ def test_host_fdsva_so_phases_touch_disjoint_entries(host_lib, robot):
     assert _max_err(got, _outs(K.fdsva_so_plain(*args))) <= TOL
 
 
-SWEEP_PROGRAMS = ("riccati_factored", "linesearch_rollout", "linesearch_quad")
+SWEEP_PROGRAMS = ("riccati_factored", "linesearch_rollout", "linesearch_quad",
+                  "riccati", "riccati_stacked", "rollout")
 
 
 @pytest.mark.parametrize("name", ("fd_du", "fdsva_so") + SWEEP_PROGRAMS)
@@ -813,8 +865,9 @@ def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
     """No thread of a phase of the thread-group programs (csrc/warp.cuh,
     csrc/sweep_warp.cuh) reads what another thread of that phase writes:
     run phase by phase on the host with the threads of each phase in
-    reverse order, fd_du, fdsva_so, riccati_factored and the line search
-    (both costs) give the same bits."""
+    reverse order, fd_du, fdsva_so, the Riccati sweeps (factored, dense
+    stationary and per knot), the line search (both costs) and the rollout
+    give the same bits."""
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
     key = name if name in SWEEP_PROGRAMS else "fdsva_so"
     args = path_inputs(m, 2, 2, seed=3)[key]
@@ -832,7 +885,7 @@ def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
 @pytest.mark.parametrize("name", SWEEP_PROGRAMS)
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_host_sweep_phases_write_disjoint_entries(host_lib, robot, name):
-    """The Riccati and line-search programs (csrc/sweep_warp.cuh) split each
+    """The Riccati and rollout programs (csrc/sweep_warp.cuh) split each
     phase over the group's threads: run phase by phase on the host, no
     entry of a problem's or rollout's state is written by two threads of
     one phase (the harness compares the state before and after each
@@ -851,35 +904,89 @@ def test_host_sweep_phases_write_disjoint_entries(host_lib, robot, name):
     assert _max_err(got, _outs(WRAPPERS[name][1](*args))) <= TOL
 
 
-@pytest.mark.parametrize("N", [1, 3])
-@pytest.mark.parametrize("na", [1, 6])
-@pytest.mark.parametrize("name", ["linesearch_rollout", "linesearch_quad"])
-@pytest.mark.parametrize("robot", ["pendulum2", "iiwa", "hyq"])
-def test_host_line_search_on_ragged_blocks(host_lib, robot, name, na, N):
+# the batches of the newer programs' ragged-block cases, by the plan's G
+RAGGED_B = ("1", "G-1", "G+1", "37")
+# the double plan's index in plans_<nj> (the host build runs it)
+PLAN_INDEX = {"riccati": 9, "riccati_stacked": 11, "rollout": 13}
+
+
+def _ragged_b(host_lib, name, nj, B):
+    """The batch named B ("G-1", ...) for the double plan of ``name``."""
+    out = (ctypes.c_int * 56)()
+    getattr(host_lib, f"plans_{nj}")(out)
+    g = out[4 * PLAN_INDEX[name]]
+    return {"1": 1, "G-1": max(g - 1, 1), "G+1": g + 1, "37": 37}[B]
+
+
+def _ragged_cases(old_ids, old, new):
+    """The earlier cases under their ids, then the newer programs' cases."""
+    return ([pytest.param(*c, id=old_ids(*c)) for c in old]
+            + [pytest.param(*c, id="-".join(map(str, c))) for c in new])
+
+
+@pytest.mark.parametrize("robot,name,na,N,B", _ragged_cases(
+    lambda robot, name, na, N, B: f"{robot}-{name}-{na}-{N}",
+    [(robot, name, na, N, "11") for robot in ("pendulum2", "iiwa", "hyq")
+     for name in ("linesearch_rollout", "linesearch_quad") for na in (1, 6)
+     for N in (1, 3)],
+    [(robot, "rollout", 1, N, B) for robot in ("pendulum2", "iiwa", "hyq",
+                                                "dm_quadruped")
+     for N in (1, 2, 5) for B in RAGGED_B]))
+def test_host_line_search_on_ragged_blocks(host_lib, robot, name, na, N, B):
     """The line search's block code with the card's plan: 11 problems (8 a
     block: a ragged second block), one step size or six (split over blocks
-    of rows), one knot or three."""
+    of rows), one knot or three; and the open-loop rollout's (the same
+    block, one row) on 1, G - 1, G + 1 and 37 problems, 1, 2 or 5 knots."""
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
-    args = list(path_inputs(m, N, 11, seed=4)[name])
-    args[6] = torch.as_tensor(np.random.default_rng(5).uniform(
-        0.05, 1.0, (na, 11)), dtype=torch.float64)
+    B = 11 if B == "11" else _ragged_b(host_lib, name, m.n, B)
+    args = list(path_inputs(m, N, B, seed=4)[name])
+    if name != "rollout":
+        args[6] = torch.as_tensor(np.random.default_rng(5).uniform(
+            0.05, 1.0, (na, B)), dtype=torch.float64)
     got = _host_run(host_lib, name, args)
     want = _outs(WRAPPERS[name][1](*args))
-    assert got[0].shape == want[0].shape == (N, 2 * m.n, na * 11)
+    assert got[0].shape == want[0].shape == (N, 2 * m.n, na * B)
     assert _max_err(got, want) <= TOL
 
 
-@pytest.mark.parametrize("N", [1, 3])
-@pytest.mark.parametrize("robot", ["pendulum2", "iiwa", "hyq",
-                                   "dm_quadruped"])
-def test_host_riccati_factored_on_ragged_blocks(host_lib, robot, N):
+@pytest.mark.parametrize("robot,N,name,B", _ragged_cases(
+    lambda robot, N, name, B: f"{robot}-{N}",
+    [(robot, N, "riccati_factored", "11")
+     for robot in ("pendulum2", "iiwa", "hyq", "dm_quadruped")
+     for N in (1, 3)],
+    [(robot, N, name, B) for robot in ("pendulum2", "iiwa", "hyq",
+                                       "dm_quadruped")
+     for name in ("riccati", "riccati_stacked") for N in (1, 2, 5)
+     for B in RAGGED_B]))
+def test_host_riccati_factored_on_ragged_blocks(host_lib, robot, N, name, B):
     """riccati_factored's block code with the card's plan on 11 problems
-    (a ragged last block), one knot or three."""
+    (a ragged last block), one knot or three; and the dense riccati's
+    (stationary and per knot) on 1, G - 1, G + 1 and 37 problems, 1, 2 or
+    5 knots."""
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
-    args = path_inputs(m, N, 11, seed=4)["riccati_factored"]
-    got = _host_run(host_lib, "riccati_factored", args)
-    want = _outs(S.riccati_factored_plain(*args))
+    B = 11 if B == "11" else _ragged_b(host_lib, name, m.n, B)
+    args = path_inputs(m, N, B, seed=4)[name]
+    got = _host_run(host_lib, name, args)
+    want = _outs(WRAPPERS[name][1](*args))
+    assert got[0].shape == want[0].shape
     assert _max_err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("robot", ROBOTS)
+@pytest.mark.parametrize("name", ["riccati", "riccati_stacked", "rollout"])
+def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
+                                                        robot):
+    """The block code of the dense riccati (stationary and per knot) and
+    of the rollout (csrc/sweep_warp.cuh), run on the host with the card's
+    plans, gives the bits of the serial functions riccati_dense_lane and
+    rollout_lane: every value keeps the serial order of operations."""
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    args = path_inputs(m, 6, 11, seed=2)[name]
+    got = _host_run(host_lib, name, args)
+    lane = _host_run(host_lib, name, args, lane=True)
+    assert len(got) == len(lane)
+    for a, b in zip(got, lane):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("robot", ROBOTS)
