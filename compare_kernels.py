@@ -7,8 +7,9 @@ card.
 
 Each DIR is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive``), named by its directory. The
-kernels (``--kernels``, any of fd_du, fdsva_so, riccati_factored,
-linesearch, riccati and rollout; by default the last four) are compiled
+kernels (``--kernels``, any of fd_du, fdsva_so, idsva_so,
+riccati_factored, linesearch, riccati, rollout and feedback_rollout; by
+default riccati_factored, linesearch, riccati and rollout) are compiled
 from every tree's
 ``csrc/`` with nvcc for sm_90a, one library per joint count and tree, every
 nvcc at once, with ``-Xptxas -v``; the script prints each kernel instance's
@@ -17,11 +18,13 @@ this tree's block plans and ``cudaFuncGetAttributes``
 (``build.warp_kernel_info``), and then each kernel's device time per launch
 (CUDA events) at the main paths' shapes in float32, every tree on the same
 inputs, in turns: the others, this, this, the others in reverse. The GRiD
-kernels run on inputs ~ U(-1, 1); the sweeps on the inputs of the solver's
-first iteration (plain ops: config 3's EE reach and QuadCost task at N=64,
-B=2048, config 4's QuadCost at N=32, each with six step sizes; the dense
-riccati on the QuadCost task's stationary curvature, the rollout on the
-solver's first rollout, U0 = 0). It also
+kernels (fd_du, fdsva_so, idsva_so with u as qdd) run on inputs ~ U(-1,
+1); the sweeps on the inputs of the solver's first iteration (plain ops:
+config 3's EE reach and QuadCost task at N=64, B=2048, config 4's
+QuadCost at N=32, each with six step sizes; the dense riccati on the
+QuadCost task's stationary curvature, the rollout on the solver's first
+rollout, U0 = 0; the feedback rollout on the line search's inputs with
+kff = FB_ALPHA k, config 3's tracking shape and config 4's trees). It also
 checks this tree on every shape by the float32 rule of ``chip_smoke.py``:
 against a float64 plain run on the first problems (or lanes), within 10 x
 the first other tree's own error plus 1e-5 of the scale (the line search
@@ -29,16 +32,22 @@ per step-size row). And it clocks this tree's programs phase by phase
 (csrc/warp.cuh, csrc/sweep_warp.cuh, built into kernels that wrap each
 phase in clock64()): the cycles of every phase of unit 0 of block 0, while
 the other blocks run as in a launch; for the sweeps the mean of each phase
-over the knots. For the rollout it also times this tree's block shapes
-(threads a rollout x problems a block, csrc/rollout.cu: RollShape) at
-every rollout shape, against the plan's output. Needs one NVIDIA GPU and
-nvcc.
+over the knots (for the knot programs also the cycles of the block's head:
+the robot's constants and lists). For the rollout and the feedback
+rollout it also times this tree's block shapes (threads a rollout x
+problems a block, csrc/sweep_warp.cuh: RollShape), for idsva_so its knot
+shapes (threads a knot x knots a block, csrc/warp.cuh: KnotShape; those
+that fit an SM; as many blocks as the card holds, each taking every
+gridDim.x-th group of lanes, and a block a group), at every shape of the
+kernel, against the plan's output.
+Needs one NVIDIA GPU and nvcc.
 """
 
 import argparse
 import concurrent.futures
 import ctypes
 import dataclasses
+import itertools
 import json
 import os
 import re
@@ -53,8 +62,11 @@ import torch
 ROOT = Path(__file__).resolve().parent
 JOINTS = (2, 7, 8, 12, 16)
 SOURCES = {"fd_du": "fd_du.cu", "fdsva_so": "fdsva_so.cu",
-           "riccati_factored": "riccati.cu", "linesearch": "linesearch.cu",
-           "riccati": "riccati.cu", "rollout": "rollout.cu"}
+           "idsva_so": "idsva_so.cu", "riccati_factored": "riccati.cu",
+           "linesearch": "linesearch.cu", "riccati": "riccati.cu",
+           "rollout": "rollout.cu", "feedback_rollout": "feedback_rollout.cu"}
+# the kernels of a knot a thread group, on (n, lanes) inputs
+KNOT_KERNELS = ("fd_du", "fdsva_so", "idsva_so")
 DEFAULT_KERNELS = "riccati_factored,linesearch,riccati,rollout"
 # (kernel, robot, lanes): config 3 and the GRiD API (iiwa 131072 and 1024
 # lanes), config 4's N*B lanes (iiwa 32768, the others 16384); the sweeps
@@ -62,7 +74,9 @@ DEFAULT_KERNELS = "riccati_factored,linesearch,riccati,rollout"
 # B=2048) and config 4 (QuadCost, N=32, iiwa B=1024, the others 512); the
 # dense riccati at the QuadCost task's (iiwa, N=64, B=2048) and on the
 # 16-joint plan (dm_quadruped, N=32, B=512); the rollout at config 3's and
-# config 4's first rollout ("roll", N, B)
+# config 4's first rollout ("roll", N, B); idsva_so at the GRiD API's 1024
+# lanes and config 4's N*B; the feedback rollout at config 3's tracking
+# shape (N=64, B=2048) and on config 4's trees (N=32, B=512)
 SHAPES = [("fd_du", "iiwa", 131072), ("fd_du", "iiwa", 1024),
           ("fd_du", "iiwa", 32768), ("fd_du", "gym_ant", 16384),
           ("fd_du", "hyq", 16384), ("fd_du", "dm_quadruped", 16384),
@@ -82,11 +96,26 @@ SHAPES = [("fd_du", "iiwa", 131072), ("fd_du", "iiwa", 1024),
           ("rollout", "iiwa", ("roll", 32, 1024)),
           ("rollout", "hyq", ("roll", 32, 512)),
           ("rollout", "gym_ant", ("roll", 32, 512)),
-          ("rollout", "dm_quadruped", ("roll", 32, 512))]
+          ("rollout", "dm_quadruped", ("roll", 32, 512)),
+          ("idsva_so", "iiwa", 1024), ("idsva_so", "iiwa", 32768),
+          ("idsva_so", "hyq", 16384), ("idsva_so", "gym_ant", 16384),
+          ("idsva_so", "dm_quadruped", 16384),
+          ("feedback_rollout", "iiwa", ("ee", 64, 2048)),
+          ("feedback_rollout", "hyq", ("quad4", 32, 512)),
+          ("feedback_rollout", "gym_ant", ("quad4", 32, 512)),
+          ("feedback_rollout", "dm_quadruped", ("quad4", 32, 512))]
 # the rollout's block shapes timed beside its plan: (threads a rollout,
 # problems a block), whole warps a block (8 x 2 is half a warp)
 ROLL_SHAPES = ((8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 2), (32, 4),
                (32, 8))
+# idsva_so's knot shapes timed beside its plan: (threads a knot as a
+# multiple of the fewest, knots a block); the phase-clock library builds
+# those that fit an SM
+IDSO_SHAPES = ((1, 2), (1, 4), (1, 6), (1, 8), (2, 2), (2, 4), (2, 8),
+               (4, 2), (4, 4))
+# the step size folded into the feedback rollout's kff (a power of 2: the
+# fold is exact)
+FB_ALPHA = 0.25
 DT = {"dm_quadruped": 0.002}
 # the sweeps' lanes held against float64: the first CHECK problems
 CHECK = 256
@@ -98,6 +127,8 @@ PHASE_CLOCK_CU = r"""
 #include <type_traits>
 
 #include "rollout.cu"
+#include "idsva_so.cu"
+#include "feedback_rollout.cu"
 
 extern __shared__ double gt_smem[];
 
@@ -118,12 +149,19 @@ struct ClockPar {
   }
 };
 
-template <typename T, int NJ, bool SO>
+// the knot programs: MODE 0 fd_du, 1 fdsva_so, 2 idsva_so (u as qdd)
+template <int MODE, typename T, int NJ>
+using KnotPlan = typename std::conditional<
+    MODE == 0, gt::FDPlan<T, NJ>,
+    typename std::conditional<MODE == 1, gt::SOPlan<T, NJ>,
+                              gt::IDSOPlan<T, NJ>>::type>::type;
+
+template <typename T, int NJ, int MODE>
 __global__ void clocked(const T* model, const T* q, const T* qd, const T* u,
                         long long L, T gravity, long long* rec, int* phases,
                         long long* knot) {
-  using P = typename std::conditional<SO, gt::SOPlan<T, NJ>,
-                                      gt::FDPlan<T, NJ>>::type;
+  using P = KnotPlan<MODE, T, NJ>;
+  constexpr bool SO = MODE > 0;
   constexpr int N = P::LANES, S = P::STRIDE;
   auto& H = *reinterpret_cast<gt::SOHead<T, NJ>*>(gt_smem);
   T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
@@ -136,32 +174,45 @@ __global__ void clocked(const T* model, const T* q, const T* qd, const T* u,
   if (SO && tid == 0) H.lists.build(H.R);
   __syncthreads();
   const bool first = blockIdx.x == 0 && tid < N;
+  if (first && tid == 0) knot[1] = clock64() - c0;   // the block's head
   int count = 0;
   const ClockPar<N> par{tid % N, 1 + tid / N, first ? rec : nullptr, &count};
   T* k = knots + (long long)(tid / N) * S;
-  if (SO) gt::fdsva_so_knot<T, NJ>(par, H.R, H.lists, k, gravity);
-  else gt::fd_du_knot<T, NJ>(par, H.R, k, gravity);
+  if constexpr (MODE == 2)
+    gt::idsva_so_knot<T, NJ, gt::IDKnot<NJ>>(par, H.R, H.lists, k, gravity);
+  else if constexpr (MODE == 1)
+    gt::fdsva_so_knot<T, NJ>(par, H.R, H.lists, k, gravity);
+  else
+    gt::fd_du_knot<T, NJ>(par, H.R, k, gravity);
   if (first && tid == 0) {
     *phases = count;
     *knot = clock64() - c0;
   }
 }
 
-extern "C" int phase_clock(int so, int nj, const void* model, const void* q,
-                           const void* qd, const void* u, long long L,
-                           long long* rec, int* phases, long long* knot) {
+template <int MODE>
+static int knot_clock(const void* model, const void* q, const void* qd,
+                      const void* u, long long L, long long* rec,
+                      int* phases, long long* knot) {
   constexpr int NJ = GT_NJ;
-  if (nj != NJ) return (int)cudaErrorInvalidValue;
-  using FP = gt::FDPlan<float, NJ>;
-  using SP = gt::SOPlan<float, NJ>;
-  auto fn = so ? clocked<float, NJ, true> : clocked<float, NJ, false>;
-  const int G = so ? SP::G : FP::G, lanes = so ? SP::LANES : FP::LANES;
-  const int bytes = (int)(so ? SP::BYTES : FP::BYTES);
-  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  fn<<<(unsigned)((L + G - 1) / G), lanes * G, bytes>>>(
+  using P = KnotPlan<MODE, float, NJ>;
+  auto fn = clocked<float, NJ, MODE>;
+  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       (int)P::BYTES);
+  fn<<<(unsigned)((L + P::G - 1) / P::G), P::LANES * P::G, P::BYTES>>>(
       (const float*)model, (const float*)q, (const float*)qd,
       (const float*)u, L, -9.81f, rec, phases, knot);
   return (int)cudaGetLastError();
+}
+
+extern "C" int phase_clock(int mode, int nj, const void* model,
+                           const void* q, const void* qd, const void* u,
+                           long long L, long long* rec, int* phases,
+                           long long* knot) {
+  if (nj != GT_NJ) return (int)cudaErrorInvalidValue;
+  if (mode == 0) return knot_clock<0>(model, q, qd, u, L, rec, phases, knot);
+  if (mode == 1) return knot_clock<1>(model, q, qd, u, L, rec, phases, knot);
+  return knot_clock<2>(model, q, qd, u, L, rec, phases, knot);
 }
 
 template <int NJ>
@@ -373,7 +424,110 @@ extern "C" int roll_shape(int lanes, int g, int nj, const void* model,
 #undef GT_SHAPE
   return (int)cudaErrorInvalidValue;
 }
+
+// the feedback rollout
+template <int NJ>
+__global__ void clocked_fbr(const float* model, const float* x0,
+                            const float* Uref, const float* Xref,
+                            const float* kff, const float* K, const float* lo,
+                            const float* hi, float* X, float* U, int N,
+                            long long B, float dt, long long* rec,
+                            int* phases, long long* knot) {
+  using P = gt::FBPlan<float, NJ>;
+  constexpr int W = P::LANES;
+  auto& H = *reinterpret_cast<gt::LSHead<float, NJ>*>(gt_smem);
+  float* tiles =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  float* rolls = tiles + 2 * P::G * P::TILE;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long long c0 = clock64();
+  H.load(model, nullptr, 0, lo, hi, tid, nt);
+  __syncthreads();
+  const bool first = blockIdx.x == 0 && tid < W;
+  int count = 0;
+  const ClockPar<W> par{tid % W, 1 + tid / W, first ? rec : nullptr, &count};
+  gt::linesearch_block<float, NJ, gt::NoCost<float, NJ>, P::G>(
+      par, tid, nt, tid / W, H, tiles, P::TILE, rolls, P::STRIDE, 1,
+      (long long)blockIdx.x * P::G, 0, x0,
+      gt::FoldedStepLaw<float, NJ>{{Uref, Xref, kff, K, nullptr}}, X, U,
+      nullptr, N, B, 1, dt, -9.81f);
+  if (first && tid == 0) {
+    *phases = count;
+    *knot = clock64() - c0;
+  }
+}
+
+extern "C" int fbr_clock(int nj, const void* model, const void* x0,
+                         const void* Uref, const void* Xref, const void* kff,
+                         const void* K, const void* lo, const void* hi,
+                         void* X, void* U, int N, long long B, double dt,
+                         long long* rec, int* phases, long long* knot) {
+  constexpr int NJ = GT_NJ;
+  using P = gt::FBPlan<float, NJ>;
+  if (nj != NJ) return (int)cudaErrorInvalidValue;
+  gt::smem_attrs(clocked_fbr<NJ>, P::BYTES);
+  clocked_fbr<NJ><<<(unsigned)((B + P::G - 1) / P::G), P::G * P::LANES,
+                    P::BYTES>>>(
+      (const float*)model, (const float*)x0, (const float*)Uref,
+      (const float*)Xref, (const float*)kff, (const float*)K,
+      (const float*)lo, (const float*)hi, (float*)X, (float*)U, N, B,
+      (float)dt, rec, phases, knot);
+  return (int)cudaGetLastError();
+}
+
+// the feedback rollout kernel at block shape (lanes threads a rollout, g
+// problems a block), float32
+extern "C" int fbr_shape(int lanes, int g, int nj, const void* model,
+                         const void* x0, const void* Uref, const void* Xref,
+                         const void* kff, const void* K, const void* lo,
+                         const void* hi, void* X, void* U, int N, long long B,
+                         double dt) {
+  constexpr int NJ = GT_NJ;
+  if (nj != NJ) return (int)cudaErrorInvalidValue;
+#define GT_SHAPE(W, G)                                                      \
+  if (lanes == W && g == G)                                                 \
+    return launch_feedback_rollout<                                         \
+        float, NJ,                                                          \
+        gt::RollShape<float, NJ, W, G, gt::FoldedStepLaw<float, NJ>>>(      \
+        model, x0, Uref, Xref, kff, K, lo, hi, X, U, N, B, dt, -9.81, 0);
+  GT_SHAPE(8, 4) GT_SHAPE(8, 8) GT_SHAPE(16, 2) GT_SHAPE(16, 4)
+  GT_SHAPE(16, 8) GT_SHAPE(32, 2) GT_SHAPE(32, 4) GT_SHAPE(32, 8)
+#undef GT_SHAPE
+  return (int)cudaErrorInvalidValue;
+}
+
+// the idsva_so kernel at knot shape (M times the fewest threads a knot of
+// fd_du and fdsva_so, G knots a block), float32, with as many blocks as the
+// card holds (`resident`) or a block a group; a shape that does not fit an
+// SM is not built
+template <int M, int G>
+static int idso_shape_launch(const void* model, const void* q,
+                             const void* qd, const void* qdd, void* out,
+                             long long L, bool resident) {
+  constexpr int NJ = GT_NJ, W = M * gt::knot_lanes<NJ>();
+  using P = gt::KnotShape<float, gt::SOHead<float, NJ>, gt::IDKnot<NJ>::SIZE,
+                          W, G>;
+  if constexpr (P::BYTES <= gt::SMEM_LIMIT && W * G <= 512 &&
+                W * G % 32 == 0)
+    return launch_idsva_so<float, NJ, P>(model, q, qd, qdd, out, L, -9.81,
+                                         0, resident);
+  return (int)cudaErrorInvalidConfiguration;
+}
+
+extern "C" int idso_shape(int mult, int g, int resident, int nj,
+                          const void* model, const void* q, const void* qd,
+                          const void* qdd, void* out, long long L) {
+  if (nj != GT_NJ) return (int)cudaErrorInvalidValue;
+#define GT_SHAPE(M, G)                                                      \
+  if (mult == M && g == G)                                                  \
+    return idso_shape_launch<M, G>(model, q, qd, qdd, out, L, resident);
+  GT_SHAPE(1, 2) GT_SHAPE(1, 4) GT_SHAPE(1, 6) GT_SHAPE(1, 8) GT_SHAPE(2, 2)
+  GT_SHAPE(2, 4) GT_SHAPE(2, 8) GT_SHAPE(4, 2) GT_SHAPE(4, 4)
+#undef GT_SHAPE
+  return (int)cudaErrorInvalidValue;
+}
 """
+
 
 
 def nvcc():
@@ -420,15 +574,17 @@ def compile_tree(tree: Path, out: Path, sources, clocked: bool = False):
 
 KERNEL_NAMES = ("fd_du_kernel", "fdsva_so_kernel", "riccati_factored_kernel",
                 "linesearch_kernel", "riccati_kernel", "rollout_kernel",
-                "riccati_dense_kernel")
+                "riccati_dense_kernel", "idsva_so_kernel",
+                "feedback_rollout_kernel")
 
 
 def parse_ptxas(text: str) -> dict:
     """{"fd_du f32 nj7": {registers, stack, spill_stores, spill_loads,
     smem, cumulative_stack}} for the instances of the thread-group kernels
-    (fd_du, fdsva_so, riccati_factored, linesearch_ee, linesearch_quad,
-    riccati_stationary, riccati_stacked, rollout; an earlier tree's
-    riccati_dense) in ptxas's report."""
+    (fd_du, fdsva_so, idsva_so, riccati_factored, linesearch_ee,
+    linesearch_quad, riccati_stationary, riccati_stacked, rollout,
+    feedback_rollout; an earlier tree's riccati_dense and its per-lane
+    idsva_so and feedback_rollout) in ptxas's report."""
     def key(mangled):
         m = re.match(r"_Z\d+(\w+?_kernel)I([fd])Li(\d+)E", mangled)
         if not m or m.group(1) not in KERNEL_NAMES:
@@ -483,7 +639,9 @@ def bind(libs: dict, kernels, scratch: bool) -> dict:
            "riccati_factored": [I, I] + [P] * 9 + [I, L, I, D, D, D, P],
            "linesearch": [I, I] + [P] * 12 + [I, L, I, D, D, I, P, P],
            "riccati": [I, I] + [P] * 7 + [I] + [P] * 4 + [I, L, D, P],
-           "rollout": [I, I] + [P] * 6 + [I, L, D, D, P]}
+           "rollout": [I, I] + [P] * 6 + [I, L, D, D, P],
+           "idsva_so": [I, I, P, P, P, P, P, L, D, P],
+           "feedback_rollout": [I, I] + [P] * 10 + [I, L, D, D, P]}
     out = {}
     for nj, path in libs.items():
         h = ctypes.CDLL(str(path))
@@ -504,8 +662,12 @@ def bind_clock(path: Path):
     h.ricd_clock.argtypes = [I] + [P] * 11 + [I, L, D, P, P, P]
     h.roll_clock.argtypes = [I] + [P] * 6 + [I, L, D, P, P, P]
     h.roll_shape.argtypes = [I, I, I] + [P] * 6 + [I, L, D]
+    h.fbr_clock.argtypes = [I] + [P] * 10 + [I, L, D, P, P, P]
+    h.fbr_shape.argtypes = [I, I, I] + [P] * 10 + [I, L, D]
+    h.idso_shape.argtypes = [I, I, I, I] + [P] * 5 + [L]
     for fn in (h.phase_clock, h.ric_clock, h.ls_clock, h.ricd_clock,
-               h.roll_clock, h.roll_shape):
+               h.roll_clock, h.roll_shape, h.fbr_clock, h.fbr_shape,
+               h.idso_shape):
         fn.restype = I
     return h
 
@@ -514,7 +676,8 @@ def sweep_inputs(m, cost_kind, N, B, dev):
     """The sweeps' arguments as the solver's first iteration makes them with
     the plain ops, from x0 ~ U(-0.2, 0.2) (seed 0) and U0 = 0, six step
     sizes; as chip_smoke.py's phases 3 and 6 make them: {riccati_factored
-    (EE reach) or riccati (QuadCost, stationary), linesearch, rollout}."""
+    (EE reach) or riccati (QuadCost, stationary), linesearch, rollout,
+    feedback_rollout (the line search's inputs, kff = FB_ALPHA k)}."""
     from gridcodegenerator_tpu_torch.ops import eepose
     from gridcodegenerator_tpu_torch.ops.cuda import sweeps as S
     from gridcodegenerator_tpu_torch.trajopt.cost import EEReachCost, QuadCost
@@ -569,6 +732,9 @@ def sweep_inputs(m, cost_kind, N, B, dev):
                          al.repeat(1, B).contiguous(), dt, -9.81, lo, hi,
                          cost)
     out["rollout"] = (m, x0, U0, dt, -9.81, lo, hi)
+    out["feedback_rollout"] = (m, X[0].contiguous(), U0, X[:N].contiguous(),
+                               (FB_ALPHA * ks).contiguous(), Ks.contiguous(),
+                               dt, -9.81, lo, hi)
     return out
 
 
@@ -661,7 +827,7 @@ def main():
     models = {}
     rec = torch.zeros(4096, dtype=torch.int64, device=dev)
     phases = torch.zeros(1, dtype=torch.int32, device=dev)
-    knot = torch.zeros(1, dtype=torch.int64, device=dev)
+    knot = torch.zeros(2, dtype=torch.int64, device=dev)
     clock_out = lambda: (ptr(rec), ptr(phases), ptr(knot))
     for what, robot, shape in SHAPES:
         if what not in kernels:
@@ -673,7 +839,7 @@ def main():
         m64 = m.to(dtype=torch.float64)
         n = m.n
         clock = clock_libs[n]
-        if what in ("fd_du", "fdsva_so"):
+        if what in KNOT_KERNELS:
             lanes = shape
             rng = np.random.default_rng(0)
             q, qd, u = (torch.as_tensor(rng.uniform(-1, 1, (n, lanes)),
@@ -694,6 +860,12 @@ def main():
                             *map(ptr, outs), lanes, -9.81, stream), what)
                     return fn, outs
                 outs = (torch.empty(4, n, n, n, lanes, device=dev),)
+                if what == "idsva_so":
+                    def fn():
+                        build.check(lib.gridtorch_idsva_so(
+                            0, n, ptr(mb), ptr(q), ptr(qd), ptr(u),
+                            ptr(outs[0]), lanes, -9.81, stream), what)
+                    return fn, outs
                 extra = ((torch.empty(4, n, n, n, lanes, device=dev),)
                          if libs[tree][1] else ())
 
@@ -714,9 +886,9 @@ def main():
             label = lanes
 
             def clock_fn():
-                return clock.phase_clock(what == "fdsva_so", n, ptr(mb),
-                                         ptr(q), ptr(qd), ptr(u), lanes,
-                                         *clock_out())
+                return clock.phase_clock(KNOT_KERNELS.index(what), n,
+                                         ptr(mb), ptr(q), ptr(qd), ptr(u),
+                                         lanes, *clock_out())
         else:
             cost_kind, N, B = shape
             ins = sweep_inputs(m, cost_kind, N, B, dev)
@@ -809,6 +981,34 @@ def main():
                     return clock.roll_clock(
                         n, ptr(mb), ptr(x0), ptr(U0), ptr(lo), ptr(hi),
                         ptr(X), N, B, dt, *clock_out())
+            elif what == "feedback_rollout":
+                fb = ins[what]
+                _, x0, Ur, Xr, kf, Km, dt, g, lo, hi = fb
+                mb = build.model_buffer(m)
+                fb_in = tuple(map(ptr, (mb, x0, Ur, Xr, kf, Km, lo, hi)))
+
+                def fb_outs():
+                    return (torch.empty(N, 2 * n, B, device=dev),
+                            torch.empty(N, n, B, device=dev))
+
+                def runner(tree):
+                    lib = libs[tree][0][n]
+                    outs = fb_outs()
+
+                    def fn():
+                        build.check(lib.gridtorch_feedback_rollout(
+                            0, n, *fb_in, *map(ptr, outs), N, B, dt, g,
+                            stream), what)
+                    return fn, outs
+                cut_fb = lambda z: z[..., :nb].contiguous()
+                head = fb[:1] + tuple(map(cut_fb, fb[1:6])) + fb[6:]
+                ref64 = S.feedback_rollout_plain(*to64(head, m64))
+                cut = lambda outs: tuple(o[..., :nb] for o in outs)
+                rows = 1
+
+                def clock_fn():
+                    return clock.fbr_clock(n, *fb_in, *map(ptr, fb_outs()),
+                                           N, B, dt, *clock_out())
             else:
                 _, x0, Ur, Xr, kf, Km, al, dt, g, lo, hi, cost = ins[what]
                 na = al.shape[0]
@@ -866,7 +1066,7 @@ def main():
                 raise AssertionError(f"{what} {robot} {label}: this tree's "
                                      f"error vs float64 {e.tolist()}, "
                                      f"{others[0]}'s {e0.tolist()}")
-        iters = 20 if what in ("fd_du", "fdsva_so") and shape <= 32768 else 10
+        iters = 20 if what in KNOT_KERNELS and shape <= 32768 else 10
         order = others + ["this", "this"] + others[::-1]
         ms = {tree: [] for tree in trees}
         for tree in order:
@@ -886,6 +1086,44 @@ def main():
                     "ms": time_cuda(shape_fn, iters=iters),
                     "max_abs_diff_vs_plan": float((X - ref).abs().max())}
             del X
+        if what == "feedback_rollout":   # the block shapes against the plan
+            outs = fb_outs()
+            shapes = {}
+            for lanes_g in ROLL_SHAPES:
+                def shape_fn():
+                    build.check(clock.fbr_shape(
+                        *lanes_g, n, *fb_in, *map(ptr, outs), N, B, dt),
+                        "feedback rollout shape")
+                shape_fn()
+                torch.cuda.synchronize()
+                shapes["x".join(map(str, lanes_g))] = {
+                    "ms": time_cuda(shape_fn, iters=iters),
+                    "max_abs_diff_vs_plan": max(
+                        float((o - r).abs().max())
+                        for o, r in zip(outs, run["this"][1]))}
+            del outs
+        if what == "idsva_so":   # the knot shapes that fit, against the plan
+            out = torch.empty(4, n, n, n, lanes, device=dev)
+            shapes = {}
+            base = 16 if 2 * n <= 16 else 32   # warp.cuh:knot_lanes
+            for (mult, g), resident in itertools.product(IDSO_SHAPES,
+                                                         (1, 0)):
+                def shape_fn():
+                    return clock.idso_shape(mult, g, resident, n, ptr(mb),
+                                            ptr(q), ptr(qd), ptr(u), ptr(out),
+                                            lanes)
+                code = shape_fn()
+                if code == 9:   # cudaErrorInvalidConfiguration: does not fit
+                    continue
+                build.check(code, "idsva_so shape")
+                torch.cuda.synchronize()
+                key = f"{mult * base}x{g}" + ("" if resident else " a group"
+                                              " a block")
+                shapes[key] = {
+                    "ms": time_cuda(shape_fn, iters=iters),
+                    "max_abs_diff_vs_plan": float(
+                        (out - run["this"][1][0]).abs().max())}
+            del out
         build.check(clock_fn(), "phase clock")
         torch.cuda.synchronize()
         nph = min(int(phases.item()), 4096)
@@ -894,11 +1132,12 @@ def main():
                "ms": ms,
                "err_vs_f64": {t: max(float(x.max()) for x in e)
                               for t, e in err.items()},
-               "knot_cycles": int(knot.item())}
-        if what == "rollout":
+               "knot_cycles": int(knot[0])}
+        if what in ("rollout", "feedback_rollout", "idsva_so"):
             row["block_shapes"] = shapes
-        if what in ("fd_du", "fdsva_so"):
+        if what in KNOT_KERNELS:
             row["phase_cycles"] = cyc
+            row["head_cycles"] = int(knot[1])
         else:   # the mean of each phase position over the knots
             steps = N
             per = nph // steps

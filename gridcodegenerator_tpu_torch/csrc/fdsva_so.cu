@@ -7,9 +7,10 @@
 // here). A block holds G knots (warp.cuh:fdsva_so_knot): fd_du's knot
 // program (df/du, qdd and Minv stay in shared memory), IDSVA-SO at (q, qd,
 // qdd) accumulating into the knot's whole 4 NJ^3 tensor in shared memory
-// (the stage quantities a row or entry a thread, a level of the tree a
-// phase; the nine stages a (j, a, st) triple a thread; the corrections a
-// (j, a) pair a thread), then the implicit-function contractions of
+// (warp.cuh:idsva_so_knot, the program csrc/idsva_so.cu runs alone: the
+// stage quantities a row or entry a thread, a level of the tree a phase;
+// the nine stages a (j, a, st) triple a thread; the corrections a (j, a)
+// pair a thread), then the implicit-function contractions of
 // ops/so.py:fdsva_compose, a (c, j, k) column a thread, in place. Each
 // output value is written to device memory once, G consecutive lanes at a
 // time; there is no device-memory scratch.

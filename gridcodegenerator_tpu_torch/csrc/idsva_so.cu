@@ -1,52 +1,102 @@
 // idsva_so: second-order inverse dynamics (4, NJ, NJ, NJ) per lane,
-// [d2tau/dq2, d2tau/dqd2, d2tau/dqd dq, dM/dq]; one thread per lane.
+// [d2tau/dq2, d2tau/dqd2, d2tau/dqd dq, dM/dq]; one knot (lane) a warp,
+// or a few warps where a knot's shared memory is large.
 //
 // Replaces gridcodegenerator_tpu/ops/pallas/kernels.py:idsva_so_pallas. The
 // TPU kernel traced the analytical algorithm into one Pallas body per lane
 // tile, its (joint, ancestor, subtree) loops unrolled at trace time into
 // (8, 128) vector operations, and chunked large robots with lax.map to fit
-// VMEM. Here each thread runs so.cuh:idsva_so_lane: the stage quantities in
-// per-thread memory, then the nine stages and the p-corrections with
-// ancestors and subtrees read at run time from the packed subtree mask.
+// VMEM. Here a block holds G knots and runs fdsva_so's IDSVA-SO program on
+// each (warp.cuh:idsva_so_knot, the program fdsva_so runs after fd_du): the
+// stage quantities a row or entry a thread, a level of the tree a phase;
+// the nine stages a (j, a, st) triple a thread; the corrections a (j, a)
+// pair a thread; the knot's whole 4 NJ^3 tensor accumulating in shared
+// memory. Each output value is written to device memory once, G
+// consecutive lanes at a time; there is no device-memory scratch. A block
+// builds its head (the robot's constants and the (j, a, st) lists: 22-68k
+// cycles, mostly on one thread) once and then takes every gridDim.x-th
+// group of G lanes; the grid is as many blocks as the card holds at once
+// (launch_idsva_so: but for rows of G lanes under 16 bytes).
+// so.cuh:idsva_so_lane is the serial function: csrc/opcount.cpp counts the
+// bound from it, and the host tests hold the knot program to it.
 //
-// What bounds it on the card: device-memory traffic. A lane writes 4 NJ^3
-// values (1372 at 7 joints, 6912 at 12) and updates many of them in place,
-// far more than it reads (3 NJ); its arithmetic (about 100 6-vector
-// products per (joint, ancestor, subtree) triple) runs on a per-thread
-// stack of NJ 6x6 inertias and 6-vectors. The design keeps every access
-// coalesced (lane-major, a warp's 32 lanes on 32 neighbouring addresses),
-// forms the D1-D4 operators where they are used instead of storing four
-// 6x6 matrices per joint, and keeps the stage loops rolled (one body,
-// switch on the stage) so the code stays small.
+// What bounds it on the card: the output's bytes (4 NJ^3 values a lane,
+// 3 NJ read); the design's limits are the serial phases and, on wide trees,
+// the knots an SM. A knot (warp.cuh:IDKnot) holds q, qd, qdd, the stage
+// quantities and the tensor over their transforms, 3 NJ + 126 NJ + 4 NJ^3
+// values: 2275 at 7 joints (9.1 KB in float32), 18448 at 16 (73.8 KB, 147.6
+// KB in float64: 2 or 1 knots an SM). The plan (warp.cuh:IDSOPlan: threads
+// a knot by joint count, G the largest power of 2 that fits), the bytes a
+// block and cudaFuncGetAttributes of each instance:
+// `gridtorch_idsva_so_info`.
 //
 // Layout: q, qd, qdd (NJ, L); out (4, NJ, NJ, NJ, L).
-#include "so.cuh"
+#include "warp.cuh"
 
 #ifdef __CUDACC__
 
-template <typename T, int NJ>
+extern __shared__ double gt_smem[];
+
+// P: the block's shape (IDSOPlan, or a KnotShape to compare)
+template <typename T, int NJ, class P>
 __global__ void idsva_so_kernel(const T* __restrict__ model,
                                 const T* __restrict__ q,
                                 const T* __restrict__ qd,
                                 const T* __restrict__ qdd,
                                 T* __restrict__ out, long long L, T gravity) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const gt::Robot<T, NJ> R(model);
-  T ql[NJ], qdl[NJ], qddl[NJ];
-  gt::lane_load<T, NJ>(q, L, lane, ql);
-  gt::lane_load<T, NJ>(qd, L, lane, qdl);
-  gt::lane_load<T, NJ>(qdd, L, lane, qddl);
-  gt::idsva_so_lane<T, NJ>(R, ql, qdl, qddl, gravity, out + lane, L);
+  using O = gt::IDKnot<NJ>;
+  constexpr int N = P::LANES, S = P::STRIDE;
+  auto& H = *reinterpret_cast<gt::SOHead<T, NJ>*>(gt_smem);
+  T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  const int tid = threadIdx.x, nt = blockDim.x, G = nt / N;
+  H.R.load(model, tid, nt);
+  __syncthreads();
+  if (tid == 0) H.lists.build(H.R);
+  // G lanes at a time, gridDim.x G apart: the head above is built once a
+  // block, not once a group of G lanes
+  for (long long l0 = (long long)blockIdx.x * G; l0 < L;
+       l0 += (long long)gridDim.x * G) {
+    // the inputs sit below the tile: they load while the last group stores
+    gt::load_inputs<T, NJ, S>(q, qd, qdd, L, l0, G, knots, tid, nt);
+    __syncthreads();
+    gt::idsva_so_knot<T, NJ, O>(gt::WarpPar<N>{tid % N, 1 + tid / N}, H.R,
+                                H.lists, knots + (long long)(tid / N) * S,
+                                gravity);
+    __syncthreads();
+    gt::store_rows<T, S>(knots + O::TILE, 4 * O::N3, out, L, l0, G, tid,
+                         nt);
+  }
 }
 
-template <typename T, int NJ>
+// `resident`: as many blocks as the card holds at once (each takes every
+// gridDim.x-th group), else a block a group. The plan's launch is resident
+// where a block's run of a row is 16 bytes or more (G sizeof(T)): there
+// the head, built once, saves 12-38%; shorter runs (16 joints in float32,
+// 2 lanes) share 32-byte sectors with 3 other blocks' runs, and there a
+// block a group (lanes in order) ran 21-70% faster on the large knots of
+// hyq and dm_quadruped (compare_kernels.py's knot shapes; PERF.md).
+template <typename T, int NJ, class P>
 static int launch_idsva_so(const void* model, const void* q, const void* qd,
                            const void* qdd, void* out, long long L,
-                           double gravity, cudaStream_t stream) {
+                           double gravity, cudaStream_t stream,
+                           bool resident = P::G * sizeof(T) >= 16) {
   if (L == 0) return 0;
-  const int block = 64;
-  idsva_so_kernel<T, NJ><<<gt_grid(L, block), block, 0, stream>>>(
+  if (P::G < 1) return (int)cudaErrorInvalidConfiguration;
+  static const cudaError_t attr =
+      gt::smem_attrs(idsva_so_kernel<T, NJ, P>, P::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  static int per_sm = 0;
+  if (per_sm == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, idsva_so_kernel<T, NJ, P>, P::LANES * P::G, P::BYTES);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long groups = (L + P::G - 1) / P::G;
+  const long long most = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  const long long blocks = resident && most < groups ? most : groups;
+  idsva_so_kernel<T, NJ, P><<<(unsigned)blocks, P::LANES * P::G, P::BYTES,
+                              stream>>>(
       (const T*)model, (const T*)q, (const T*)qd, (const T*)qdd, (T*)out, L,
       (T)gravity);
   return (int)cudaGetLastError();
@@ -57,8 +107,19 @@ extern "C" int gridtorch_idsva_so(int dtype, int nj, const void* model,
                                   const void* qdd, void* out, long long L,
                                   double gravity, void* stream) {
   GT_DISPATCH(dtype, nj,
-              launch_idsva_so<T, NJ>(model, q, qd, qdd, out, L, gravity,
-                                     (cudaStream_t)stream));
+              (launch_idsva_so<T, NJ, gt::IDSOPlan<T, NJ>>(
+                  model, q, qd, qdd, out, L, gravity,
+                  (cudaStream_t)stream)));
+}
+
+// The block plan (G, 0 if one knot does not fit; threads a knot; bytes a
+// block, for one knot if G is 0) and cudaFuncGetAttributes of the instance
+// (warp.cuh:kernel_info), into out[10].
+extern "C" int gridtorch_idsva_so_info(int dtype, int nj, int* out) {
+  GT_DISPATCH(dtype, nj,
+              gt::kernel_info<gt::IDSOPlan<T, NJ>>(
+                  (const void*)idsva_so_kernel<T, NJ, gt::IDSOPlan<T, NJ>>,
+                  out));
 }
 
 #endif

@@ -11,10 +11,10 @@
 // counts what every lane of a launch does.
 //
 // Two counts per kernel:
-// * executed: every operation the kernel's lane code does (fd_du and
-//   fdsva_so: every thread of the knot's warp, warp.cuh; the Riccati sweeps
-//   and the rollouts: every thread of the problem's or rollout's group,
-//   sweep_warp.cuh);
+// * executed: every operation the kernel's lane code does (fd_du, fdsva_so
+//   and idsva_so: every thread of the knot's warp, warp.cuh; the Riccati
+//   sweeps and the rollouts, open-loop, feedback and line search: every
+//   thread of the problem's or rollout's group, sweep_warp.cuh);
 // * needed: the arithmetic of the function, the bound's numerator. Constants
 //   fold: literals and the robot's constants (GRiD generates code per
 //   robot) are known, the lane's inputs are not, and an operation whose
@@ -262,10 +262,15 @@ long long count(int kernel, const double* model, const double* ee, int ne,
         rollout_host<C, NJ>(m.data(), a.data(), b.data(), nullptr, nullptr,
                             x.data(), N, 1, dt, g);
       break;
-    case FEEDBACK_ROLLOUT:
-      feedback_rollout_lane<C, NJ>(R, a.data(), b.data(), c.data(), d.data(),
-                                   y.data(), nullptr, nullptr, x.data(),
-                                   w.data(), N, 1, 0, dt, g);
+    case FEEDBACK_ROLLOUT:   // executed: the rollout's group, every phase
+      if (needed)
+        feedback_rollout_lane<C, NJ>(R, a.data(), b.data(), c.data(),
+                                     d.data(), y.data(), nullptr, nullptr,
+                                     x.data(), w.data(), N, 1, 0, dt, g);
+      else
+        feedback_rollout_host<C, NJ>(m.data(), a.data(), b.data(), c.data(),
+                                     d.data(), y.data(), nullptr, nullptr,
+                                     x.data(), w.data(), N, 1, dt, g);
       break;
     case LINESEARCH:   // executed: the rollout's group, every phase
       if (needed && flag == 0) {
@@ -315,13 +320,13 @@ long long count(int kernel, const double* model, const double* ee, int ne,
                                   c.data(), d.data(), x.data(),
                                   x.data() + big / 2, N, 1, reg);
       break;
-    case IDSVA_SO:
+    case IDSVA_SO:   // executed: the knot's threads, every phase
       if (needed)
         idsva_so_lane<C, NJ, DStored>(R, a.data(), b.data(), c.data(), g,
                                       x.data(), 1);
       else
-        idsva_so_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data(),
-                             1);
+        idsva_so_host<C, NJ>(m.data(), a.data(), b.data(), c.data(),
+                             x.data(), 1, g);
       break;
     case FDSVA_SO:
       if (needed)

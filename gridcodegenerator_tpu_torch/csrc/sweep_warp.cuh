@@ -588,6 +588,14 @@ struct FeedbackLaw {
   }
 };
 
+// The feedback rollout's: the line search's law with the step size exactly
+// 1 (the caller folds it into kf), and no tensor of step sizes: alpha k + s
+// is then k + s under any contraction into FMAs.
+template <typename T, int NJ>
+struct FoldedStepLaw : FeedbackLaw<T, NJ> {
+  GT_HDI T alpha(long long) const { return T(1); }
+};
+
 // The open-loop rollout's: u = clamp(U_t), U (N, NJ, B); its tile is U_t.
 template <typename T, int NJ>
 struct OpenLoop {
@@ -1274,13 +1282,15 @@ struct LSPlan {
       HEAD + (long long)(2 * G * TILE + G * ROWS * STRIDE) * sizeof(T);
 };
 
-// The open-loop rollout's block: G problems, a rollout each, LANES threads
-// a rollout (whole warps a block), its tile U_t (NJ values a problem).
-template <typename T, int NJ, int LANES_, int G_>
+// A one-row rollout's block (the open-loop and the feedback rollout): G
+// problems, a rollout each, LANES threads a rollout (whole warps a block),
+// its tile the law's (OpenLoop: U_t, NJ values a problem; FoldedStepLaw:
+// LSTile, 2 NJ^2 + 4 NJ).
+template <typename T, int NJ, int LANES_, int G_, class Law = OpenLoop<T, NJ>>
 struct RollShape {
   static constexpr int LANES = LANES_, G = G_, ROWS = 1;
   static constexpr int STRIDE = pad_stride<T>(LSRoll<NJ>::SIZE);
-  static constexpr int TILE = OpenLoop<T, NJ>::TILE;
+  static constexpr int TILE = Law::TILE;
   static constexpr long long HEAD = (sizeof(LSHead<T, NJ>) + 15) / 16 * 16;
   static constexpr long long BYTES =
       HEAD + (long long)(2 * G * TILE + G * STRIDE) * sizeof(T);
@@ -1305,25 +1315,22 @@ GT_HDI constexpr int roll_g() { return NJ == 8 ? 2 : 4; }
 template <typename T, int NJ>
 using RollPlan = RollShape<T, NJ, roll_lanes<NJ>(), roll_g<NJ>()>;
 
-#ifdef __CUDACC__
-// A kernel's dynamic shared-memory limit, and the largest carve-out of an
-// SM's L1 for shared memory, so that as many blocks as the plan counts fit.
-template <class K>
-inline cudaError_t smem_attrs(K* fn, long long bytes) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return e;
-  return cudaFuncSetAttribute(fn,
-                              cudaFuncAttributePreferredSharedMemoryCarveout,
-                              (int)cudaSharedmemCarveoutMaxShared);
-}
-#endif
+// The feedback rollout's plan by joint count, chosen as the rollout's
+// (compare_kernels.py's block shapes at its main shapes; PERF.md): the
+// same step, with K, Xref, Uref and kf staged a knot; the rollout's
+// widths, and its problems a block but 8 on the chain of 7 (and
+// pendulum2).
+template <int NJ>
+GT_HDI constexpr int fb_g() { return NJ == 2 || NJ == 7 ? 8 : roll_g<NJ>(); }
+
+template <typename T, int NJ>
+using FBPlan = RollShape<T, NJ, roll_lanes<NJ>(), fb_g<NJ>(),
+                         FoldedStepLaw<T, NJ>>;
 
 }  // namespace gt
 
 #ifndef __CUDACC__
 #include <limits>
-#include <type_traits>
 #include <vector>
 
 namespace gt {
@@ -1333,11 +1340,7 @@ namespace gt {
 // valid units of each block (the block's shared memory filled with NaN
 // first, so that a read of state no phase wrote shows), writing only that
 // unit's lanes. A number type other than float (csrc/opcount.cpp's
-// counting type) takes double's plan.
-template <typename T>
-using PlanType =
-    typename std::conditional<sizeof(T) == 4, float, double>::type;
-
+// counting type) takes double's plan (warp.cuh: PlanType).
 template <typename T>
 void fill_nan(std::vector<T>& v) {
   for (auto& x : v) x = T(std::numeric_limits<double>::quiet_NaN());
@@ -1441,6 +1444,18 @@ void rollout_host(const T* model, const T* x0, const T* U, const T* lo,
   const OpenLoop<T, NJ> law{U};
   rollouts_host<T, NJ, NoCost<T, NJ>, P::G, P::LANES>(
       law, model, x0, lo, hi, X, nullptr, nullptr, N, B, 1, 1, dt, gravity,
+      nullptr, 0);
+}
+
+template <typename T, int NJ>
+void feedback_rollout_host(const T* model, const T* x0, const T* Uref,
+                           const T* Xref, const T* kf, const T* K,
+                           const T* lo, const T* hi, T* X, T* U, int N,
+                           long long B, T dt, T gravity) {
+  using P = FBPlan<PlanType<T>, NJ>;
+  const FoldedStepLaw<T, NJ> law{{Uref, Xref, kf, K, nullptr}};
+  rollouts_host<T, NJ, NoCost<T, NJ>, P::G, P::LANES>(
+      law, model, x0, lo, hi, X, U, nullptr, N, B, 1, 1, dt, gravity,
       nullptr, 0);
 }
 

@@ -702,6 +702,8 @@ template <int NJ>
 struct SOKnot {
   using FD = FDKnot<NJ>;
   static constexpr int N3 = NJ * NJ * NJ;
+  // IDSVA-SO's inputs: q, qd and fd_du's qdd
+  static constexpr int Q = FD::Q, QD = FD::QD, QDD = FD::QDD;
   static constexpr int STG = FD::SCR;          // SOStages<T, NJ>
   static constexpr int XJ = STG + 126 * NJ;    // (NJ, 36) joint transforms
   static constexpr int XUP = XJ + 36 * NJ;     // (NJ, 36) world transforms
@@ -713,6 +715,23 @@ struct SOKnot {
   static constexpr int STAGES_END = ICV + 6 * NJ, TILE_END = TILE + 4 * N3;
   static constexpr int END = STAGES_END > TILE_END ? STAGES_END : TILE_END;
   static constexpr int SIZE = END > FD::SIZE ? END : FD::SIZE;
+};
+
+// idsva_so: one knot's state. Its inputs q, qd, qdd, then SOStages and the
+// tile over XJ .. ICV, laid out as in SOKnot, with no fd_du work space:
+// 3 NJ + 126 NJ + 4 NJ^3 values (2275 at 7 joints, 18448 at 16).
+template <int NJ>
+struct IDKnot {
+  static constexpr int N3 = NJ * NJ * NJ;
+  static constexpr int Q = 0, QD = Q + NJ, QDD = QD + NJ;
+  static constexpr int STG = QDD + NJ;
+  static constexpr int XJ = STG + 126 * NJ;
+  static constexpr int XUP = XJ + 36 * NJ;
+  static constexpr int V = XUP + 36 * NJ, A = V + 6 * NJ, F = A + 6 * NJ;
+  static constexpr int ICV = F + 6 * NJ;
+  static constexpr int TILE = XJ;
+  static constexpr int STAGES_END = ICV + 6 * NJ, TILE_END = TILE + 4 * N3;
+  static constexpr int SIZE = STAGES_END > TILE_END ? STAGES_END : TILE_END;
 };
 
 // The (j, a, st) triples of for_triples and the (j, a) pairs, packed
@@ -744,14 +763,14 @@ struct SOLists {
 };
 
 // so.cuh's so_stages, split over the knot's threads: a phase a level of the
-// tree, parallel over the 6 or 36 entries of each joint's quantities.
-template <typename T, int NJ, class Rb, class Par>
+// tree, parallel over the 6 or 36 entries of each joint's quantities. O is
+// the knot's layout (SOKnot, IDKnot).
+template <typename T, int NJ, class O, class Rb, class Par>
 GT_HD void so_stages_knot(const Par& par, const Rb& R, T* k, T gravity) {
-  using O = SOKnot<NJ>;
   constexpr int W = Par::LANES;
-  const T* q = k + O::FD::Q;
-  const T* qd = k + O::FD::QD;
-  const T* qdd = k + O::FD::QDD;
+  const T* q = k + O::Q;
+  const T* qd = k + O::QD;
+  const T* qdd = k + O::QDD;
   SOStages<T, NJ>& s = *reinterpret_cast<SOStages<T, NJ>*>(k + O::STG);
   T* XJ = k + O::XJ;
   T* Xup = k + O::XUP;
@@ -923,41 +942,30 @@ GT_HD void so_stages_knot(const Par& par, const Rb& R, T* k, T gravity) {
   });
 }
 
-// FDSVA-SO of the knot whose q, qd, u sit at FDKnot's offsets in `k`, into
-// its tile (SOKnot::TILE, so.cuh's layout with lane stride 1):
-// 1. fd_du_knot: df/du, qdd and Minv;
-// 2. IDSVA-SO at (q, qd, qdd): the stage quantities, then the nine stages
-//    of so.cuh's SOBody, each stage split over the (j, a, st) triples (a
-//    triple a thread), then the pair corrections (a (j, a) pair a thread,
-//    its st loop serial). No two triples of one stage, and no two pairs,
-//    touch the same entry: each stage writes entries indexed by the
-//    triple's own (j, a, st) with a <= j <= st, and the writes of two
-//    triples would coincide only where the stage's own conditions (a < j,
-//    j != st) exclude them. Entries written by more than one stage, or
-//    twice in one, keep the algorithm's order: the stages run in turn, and
-//    all of one triple's writes are one thread's, in program order. The
-//    host build checks this (GT_RACE_CHECK: no entry touched by two
-//    threads of one phase).
-// 3. The contractions of ops/so.py:fdsva_compose, a (c, j, k) column a
-//    thread: (a) inner_q and inner_cross in place from dM (slice 3, read
-//    only); (b) -Minv inner_c for c < 3, and G = Minv dM[:, p, k] for
-//    slice 3, each in place on its own column; (c) slice 3 = -G Minv, in
-//    place on the (i, :, k) row of G a thread.
-template <typename T, int NJ, template <typename, int> class DOp = DFormed,
-          class Rb, class Par>
-GT_HD void fdsva_so_knot(const Par& par, const Rb& R, const SOLists<NJ>& lists,
-                         T* k, T gravity) {
-  using O = SOKnot<NJ>;
+// IDSVA-SO of the knot whose q, qd, qdd sit at O's offsets in `k` (O:
+// SOKnot, qdd from fd_du; IDKnot, qdd an input), into its tile (O::TILE,
+// so.cuh's layout with lane stride 1): the stage quantities, then the nine
+// stages of so.cuh's SOBody, each stage split over the (j, a, st) triples
+// (a triple a thread), then the pair corrections (a (j, a) pair a thread,
+// its st loop serial). No two triples of one stage, and no two pairs,
+// touch the same entry: each stage writes entries indexed by the triple's
+// own (j, a, st) with a <= j <= st, and the writes of two triples would
+// coincide only where the stage's own conditions (a < j, j != st) exclude
+// them. Entries written by more than one stage, or twice in one, keep the
+// algorithm's order: the stages run in turn, and all of one triple's
+// writes are one thread's, in program order. The host build checks this
+// (GT_RACE_CHECK: no entry touched by two threads of one phase).
+// Force-inlined: fdsva_so then compiles to the machine code of the program
+// written out in fdsva_so_knot (a call boundary moved its registers).
+template <typename T, int NJ, class O,
+          template <typename, int> class DOp = DFormed, class Rb, class Par>
+GT_HDI void idsva_so_knot(const Par& par, const Rb& R,
+                          const SOLists<NJ>& lists, T* k, T gravity) {
   constexpr int W = Par::LANES;
-  constexpr int N2 = NJ * NJ;
-  constexpr int NC = 2 * NJ;
-  fd_du_knot<T, NJ>(par, R, k, gravity);
-  so_stages_knot<T, NJ>(par, R, k, gravity);
+  so_stages_knot<T, NJ, O>(par, R, k, gravity);
   const SOStages<T, NJ>& s =
       *reinterpret_cast<const SOStages<T, NJ>*>(k + O::STG);
   T* tile = k + O::TILE;
-  const T* Mi = k + O::FD::MI;
-  const T* dfdu = k + O::FD::DFDU;
   const SOOut<T, NJ> o{tile, 1};
   par([&](int t) {
     for (int e = t; e < 4 * O::N3; e += W) tile[e] = T(0);
@@ -978,6 +986,31 @@ GT_HD void fdsva_so_knot(const Par& par, const Rb& R, const SOLists<NJ>& lists,
       so_pair_corrections(R, s, o, w & 255, w >> 8);
     }
   });
+}
+
+// FDSVA-SO of the knot whose q, qd, u sit at FDKnot's offsets in `k`, into
+// its tile (SOKnot::TILE, so.cuh's layout with lane stride 1):
+// 1. fd_du_knot: df/du, qdd and Minv;
+// 2. idsva_so_knot at (q, qd, qdd), over SOKnot's layout;
+// 3. The contractions of ops/so.py:fdsva_compose, a (c, j, k) column a
+//    thread: (a) inner_q and inner_cross in place from dM (slice 3, read
+//    only); (b) -Minv inner_c for c < 3, and G = Minv dM[:, p, k] for
+//    slice 3, each in place on its own column; (c) slice 3 = -G Minv, in
+//    place on the (i, :, k) row of G a thread.
+template <typename T, int NJ, template <typename, int> class DOp = DFormed,
+          class Rb, class Par>
+GT_HD void fdsva_so_knot(const Par& par, const Rb& R, const SOLists<NJ>& lists,
+                         T* k, T gravity) {
+  using O = SOKnot<NJ>;
+  constexpr int W = Par::LANES;
+  constexpr int N2 = NJ * NJ;
+  constexpr int NC = 2 * NJ;
+  fd_du_knot<T, NJ>(par, R, k, gravity);
+  idsva_so_knot<T, NJ, O, DOp>(par, R, lists, k, gravity);
+  T* tile = k + O::TILE;
+  const T* Mi = k + O::FD::MI;
+  const T* dfdu = k + O::FD::DFDU;
+  const SOOut<T, NJ> o{tile, 1};
   // (a) slice 0: Ts + C[m,x,y] + C[m,y,x], a pair x <= y a thread, which
   //     forms C[m,x,y] and C[m,y,x] once for both entries; slice 2 at (m,
   //     x, y): Ts + D[m,y,x], an entry a thread; with (C, D)[m,j,k] =
@@ -1077,15 +1110,16 @@ GT_HDI constexpr int knots_per_sm(long long head, long long knot_bytes,
 }
 
 // G, at most MAX_KNOTS and a multiple of the knots a warp holds: the one
-// that puts the most knots on an SM, the larger on a tie; 0 if one knot
-// does not fit
+// that puts the most knots on an SM, the larger on a tie; with `pow2`, the
+// largest power of 2 that fits (a block's run of a row then fills whole
+// 32-byte sectors or an aligned part of one); 0 if one knot does not fit
 GT_HDI constexpr int best_knots(long long head, long long knot_bytes,
-                                int lanes, int regs) {
+                                int lanes, int regs, bool pow2 = false) {
   const int step = lanes < WARP ? WARP / lanes : 1;
   int best = 0, most = 0;
-  for (int g = step; g <= MAX_KNOTS; g += step) {
+  for (int g = step; g <= MAX_KNOTS; g = pow2 ? 2 * g : g + step) {
     const int n = knots_per_sm(head, knot_bytes, lanes, g, regs);
-    if (n > 0 && n >= most) {
+    if (n > 0 && (pow2 || n >= most)) {
       best = g;
       most = n;
     }
@@ -1128,8 +1162,22 @@ struct BlockPlan {
   static constexpr int ROWS = 1;   // programs a block per problem
 };
 
-// The two kernels' plans: fd_du's head is the robot constants, fdsva_so's
-// also the (j, a, st) lists.
+// A block of G knots of LANES threads each, its knots padded as BlockPlan
+// pads them: another shape of a kernel than its plan's, which
+// compare_kernels.py times beside the plan.
+template <typename T, class Head, int KNOT, int LANES_, int G_>
+struct KnotShape {
+  static constexpr int WORDS = (int)sizeof(T) / 4;
+  static constexpr int STRIDE =
+      KNOT + ((16 / WORDS - KNOT % (32 / WORDS)) + 32 / WORDS) % (32 / WORDS);
+  static constexpr long long HEAD = (sizeof(Head) + 15) / 16 * 16;
+  static constexpr int LANES = LANES_, G = G_, ROWS = 1;
+  static constexpr long long BYTES =
+      HEAD + (long long)G * STRIDE * (long long)sizeof(T);
+};
+
+// The kernels' plans: fd_du's head is the robot constants, fdsva_so's and
+// idsva_so's also the (j, a, st) lists.
 template <typename T, int NJ>
 struct SOHead {
   RobotConst<T, NJ> R;
@@ -1142,6 +1190,30 @@ using FDPlan = BlockPlan<T, RobotConst<T, NJ>, FDKnot<NJ>::SIZE,
 template <typename T, int NJ>
 using SOPlan = BlockPlan<T, SOHead<T, NJ>, SOKnot<NJ>::SIZE,
                          knot_lanes<NJ>(), so_regs<T>()>;
+// idsva_so's plan: fdsva_so's head, its own knot. Threads a knot by joint
+// count, the width that ran fastest for the zoo's robot of that count at
+// config 4's N B lanes (compare_kernels.py's knot shapes; PERF.md): a warp
+// up to 8 joints (with no gradient columns to fill, the phases are the
+// (j, a, st) triples: a half-warp knot runs a 7-joint chain's 84 in twice
+// the rounds), 64 threads at 12 (hyq), 128 at 16 (dm_quadruped). The
+// (4, NJ, NJ, NJ) tile is the kernel's output, G knots writing G
+// consecutive lanes of each row, so G is the largest power of 2 that fits,
+// not the one with the most knots an SM: a run of 6 lanes straddles
+// sectors, and G = 6 and 2 ran 13% to 3.3x slower than 4 or 8 at the same
+// width.
+template <int NJ>
+GT_HDI constexpr int idso_lanes() {
+  return NJ == 12 ? 2 * WARP : NJ == 16 ? 4 * WARP : WARP;
+}
+template <typename T, int NJ>
+using IDSOKnot = KnotShape<T, SOHead<T, NJ>, IDKnot<NJ>::SIZE,
+                           idso_lanes<NJ>(), 1>;
+template <typename T, int NJ>
+using IDSOPlan = KnotShape<
+    T, SOHead<T, NJ>, IDKnot<NJ>::SIZE, idso_lanes<NJ>(),
+    best_knots(IDSOKnot<T, NJ>::HEAD,
+               IDSOKnot<T, NJ>::STRIDE * (long long)sizeof(T),
+               idso_lanes<NJ>(), so_regs<T>(), true)>;
 
 // Knot g of the block takes lane l0 + g. The block reads the (NJ, G) tiles
 // of q, qd and u (G consecutive lanes a row) into its knots; lanes past L
@@ -1173,13 +1245,20 @@ GT_HD void store_rows(const T* first, int rows, T* dst, long long L,
 
 #ifndef __CUDACC__
 #include <limits>
+#include <type_traits>
 #include <vector>
 
 namespace gt {
 
 // Host drivers (the tests' g++ build, csrc/opcount.cpp): the block code of
 // the kernels with G = 1, every lane in turn, each knot's buffer filled
-// with NaN first so that a read of state no phase wrote shows.
+// with NaN first so that a read of state no phase wrote shows (idsva_so:
+// the card's G, each block's valid knots in turn). A number type other
+// than float (csrc/opcount.cpp's counting type) takes double's plan.
+template <typename T>
+using PlanType =
+    typename std::conditional<sizeof(T) == 4, float, double>::type;
+
 template <typename T, int NJ>
 void fd_du_host(const T* model, const T* q, const T* qd, const T* u, T* dfdu,
                 T* qdd, T* Mi, long long L, T gravity) {
@@ -1218,11 +1297,46 @@ void fdsva_so_host(const T* model, const T* q, const T* qd, const T* u,
   }
 }
 
+template <typename T, int NJ, template <typename, int> class DOp = DFormed>
+void idsva_so_host(const T* model, const T* q, const T* qd, const T* qdd,
+                   T* out, long long L, T gravity) {
+  using O = IDKnot<NJ>;
+  using P = IDSOPlan<PlanType<T>, NJ>;
+  static_assert(P::G >= 1, "one idsva_so knot must fit");
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load(model, 0, 1);
+  std::vector<SOLists<NJ>> lists(1);
+  lists[0].build(R[0]);
+  std::vector<T> k((long long)P::G * O::SIZE);
+  for (long long l0 = 0; l0 < L; l0 += P::G) {
+    for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+    load_inputs<T, NJ, O::SIZE>(q, qd, qdd, L, l0, P::G, k.data(), 0, 1);
+    for (int g = 0; g < P::G && l0 + g < L; ++g)
+      idsva_so_knot<T, NJ, O, DOp>(HostPar<P::LANES>{}, R[0], lists[0],
+                                   k.data() + (long long)g * O::SIZE,
+                                   gravity);
+    store_rows<T, O::SIZE>(k.data() + O::TILE, 4 * O::N3, out, L, l0, P::G,
+                           0, 1);
+  }
+}
+
 }  // namespace gt
 #endif
 
 #ifdef __CUDACC__
 namespace gt {
+
+// A kernel's dynamic shared-memory limit, and the largest carve-out of an
+// SM's L1 for shared memory, so that as many blocks as the plan counts fit.
+template <class K>
+inline cudaError_t smem_attrs(K* fn, long long bytes) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(fn,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
 
 // The block plan P of kernel `fn` and its launch attributes, for the
 // wrappers and chip_smoke.py: out = {G, threads a knot, dynamic shared

@@ -2,11 +2,11 @@
 
 The counterpart of ``gridcodegenerator_tpu/ops/pallas/fuse.py``: where the
 JAX package tiles a batch axis over a Pallas grid and keeps the robot
-constants resident in VMEM, the port runs one thread per problem lane (fd_du
-and fdsva_so: one warp per lane; the Riccati sweeps a warp per problem;
-linesearch_rollout and rollout a group of threads per rollout; the
-constants copied into shared memory once a block), masks the ragged last
-block, and hands
+constants resident in VMEM, the port runs one thread per problem lane (fd_du,
+fdsva_so and idsva_so: one warp per lane; the Riccati sweeps a warp per
+problem; linesearch_rollout, rollout and feedback_rollout a group of
+threads per rollout; the constants copied into shared memory once a
+block), masks the ragged last block, and hands
 the robot constants over in one packed device buffer (:func:`model_buffer`;
 the end-effector kernels also take one row per EE, :func:`ee_buffer`).
 
@@ -180,6 +180,8 @@ _SIGNATURES = {
     "gridtorch_riccati_info": (_I, _I, _P),
     "gridtorch_riccati_stacked_info": (_I, _I, _P),
     "gridtorch_rollout_info": (_I, _I, _P),
+    "gridtorch_idsva_so_info": (_I, _I, _P),
+    "gridtorch_feedback_rollout_info": (_I, _I, _P),
     "gridtorch_d2eepos": (_I, _I, _P, _P, _I, _P, _P, _L, _P),
     "gridtorch_feedback_rollout": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _I, _L, _D, _D, _P),
@@ -210,7 +212,8 @@ INFO_FIELDS = ("knots_per_block", "threads_per_knot", "smem_bytes_per_block",
 # their C info entry point (riccati: the dense sweep's stationary instance,
 # riccati_stacked: its instance with a block per knot)
 WARP_KERNELS = ("fd_du", "fdsva_so", "riccati_factored", "linesearch",
-                "riccati", "riccati_stacked", "rollout")
+                "riccati", "riccati_stacked", "rollout", "idsva_so",
+                "feedback_rollout")
 
 
 def warp_kernel_info(what: str, nj: int, dtype) -> dict:

@@ -32,8 +32,9 @@ Lane-major tensors, L lanes on the trailing axis:
   knots, knot-major). Replaces ``kernels.py:fdsva_so_pallas``.
 
 Kernels: ``csrc/<name>.cu``, one thread per lane, everything in registers
-and local memory; but ``fd_du`` and ``fdsva_so``: one warp per lane
-(knot), its state in shared memory, G knots a block (``csrc/warp.cuh``).
+and local memory; but ``fd_du``, ``fdsva_so`` and ``idsva_so``: one warp
+per lane (knot), its state in shared memory, G knots a block
+(``csrc/warp.cuh``).
 Inputs are read and outputs written along the lane axis, so every access
 is coalesced. What bounds them on the card: arithmetic and
 the local memory that holds each lane's joint transforms, inertias and
@@ -299,12 +300,25 @@ def d2eepos(model: RobotModel, q, targets=None):
     return _ee_launch(D2EEPOS, model, q, targets, model.n, model.n)
 
 
+def _fits(what: str, nj: int, dtype):
+    """Raise if one knot of ``what`` does not fit a block's shared memory."""
+    plan = _plan(what, nj, dtype)
+    if plan["knots_per_block"] < 1:
+        raise RuntimeError(
+            f"{what}: one {nj}-joint {dtype} knot needs "
+            f"{plan['smem_bytes_per_block']} B of shared memory, more than "
+            f"a block may use")
+
+
 def idsva_so(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
+    """Each knot's IDSVA-SO tensors stay in the kernel's shared memory
+    until written; raises if one knot does not fit there."""
     if not q.is_cuda:
         return idsva_so_plain(model, q, qd, qdd, gravity)
     if qdd is None:
         raise ValueError(f"{IDSVA_SO}: qdd is required")
     dcode, nj, L = _lanes(model, IDSVA_SO, dict(q=q, qd=qd, qdd=qdd))
+    _fits(IDSVA_SO, nj, q.dtype)
     n = model.n
     out = _empty(q, 4, n, n, n, L)
     _launched(IDSVA_SO, build.lib(nj).gridtorch_idsva_so(
@@ -320,12 +334,7 @@ def fdsva_so(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
     if not q.is_cuda:
         return fdsva_so_plain(model, q, qd, u, gravity)
     dcode, nj, L = _lanes(model, FDSVA_SO, dict(q=q, qd=qd, u=u))
-    plan = _plan(FDSVA_SO, nj, q.dtype)
-    if plan["knots_per_block"] < 1:
-        raise RuntimeError(
-            f"{FDSVA_SO}: one {nj}-joint {q.dtype} knot needs "
-            f"{plan['smem_bytes_per_block']} B of shared memory, more than "
-            f"a block may use")
+    _fits(FDSVA_SO, nj, q.dtype)
     n = model.n
     out = _empty(q, 4, n, n, n, L)
     _launched(FDSVA_SO, build.lib(nj).gridtorch_fdsva_so(

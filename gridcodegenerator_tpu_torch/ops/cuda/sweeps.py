@@ -22,12 +22,12 @@ On the TPU the horizon was a sequential grid axis carrying state in VMEM
 scratch from one grid step to the next. Blocks on the GPU run in no order,
 so each kernel runs the whole horizon loop inside a block.
 ``riccati_factored`` and ``riccati`` run a warp per problem,
-``linesearch_rollout`` and ``rollout`` a group of threads per rollout on
-one step program (``csrc/sweep_warp.cuh``; the rollout's control law is
-u = clamp(U_t), and it sums no cost), their state in shared memory; the
-block stages each knot's inputs for G consecutive problems with cp.async
-while the knot before is computed. ``feedback_rollout`` keeps one thread
-per problem lane and its state in that thread.
+``linesearch_rollout``, ``rollout`` and ``feedback_rollout`` a group of
+threads per rollout on one step program (``csrc/sweep_warp.cuh``; the
+rollout's control law is u = clamp(U_t), the feedback rollout's the line
+search's at a step size of 1, and neither sums a cost), their state in
+shared memory; the block stages each knot's inputs for G consecutive
+problems with cp.async while the knot before is computed.
 
 Integrator: semi-implicit Euler — qd' = qd + dt*qdd, q' = q + dt*qd'.
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel

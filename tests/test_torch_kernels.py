@@ -402,8 +402,8 @@ extern "C" long touch_count() { return g_touches; }
 
 // the warp kernels' block plans: {G, threads a knot, bytes a block, rows
 // a block} of fd_du, fdsva_so, riccati_factored, linesearch_rollout, the
-// dense riccati (stationary, then a block per knot) and rollout in float32
-// and float64
+// dense riccati (stationary, then a block per knot), rollout, idsva_so and
+// feedback_rollout in float32 and float64
 template <typename P>
 void plan_into(int* out) {
   out[0] = P::G;
@@ -429,6 +429,10 @@ extern "C" void plans_##NJ(int* out) {                                      \
   plan_into<RicPlan<double, NJ, RIC_DENSE>>(out + 44);                      \
   plan_into<RollPlan<float, NJ>>(out + 48);                                 \
   plan_into<RollPlan<double, NJ>>(out + 52);                                \
+  plan_into<IDSOPlan<float, NJ>>(out + 56);                                 \
+  plan_into<IDSOPlan<double, NJ>>(out + 60);                                \
+  plan_into<FBPlan<float, NJ>>(out + 64);                                   \
+  plan_into<FBPlan<double, NJ>>(out + 68);                                  \
 }                                                                           \
 extern "C" void fd_du_##NJ(const double* m, const double* q,                \
     const double* qd, const double* u, double* d, double* a, double* mi,    \
@@ -512,6 +516,14 @@ extern "C" void fbr_##NJ(const double* m, const double* x0,                \
     const double* Ur, const double* Xr, const double* kff, const double* K, \
     const double* lo, const double* hi, double* X, double* U, int N,        \
     ll B, double dt) {                                                      \
+  race_reset();                                                             \
+  feedback_rollout_host<double, NJ>(m, x0, Ur, Xr, kff, K, lo, hi, X, U, N, \
+                                    B, dt, -9.81);                          \
+}                                                                           \
+extern "C" void fbr_lane_##NJ(const double* m, const double* x0,           \
+    const double* Ur, const double* Xr, const double* kff, const double* K, \
+    const double* lo, const double* hi, double* X, double* U, int N,        \
+    ll B, double dt) {                                                      \
   Robot<double, NJ> R(m);                                                   \
   for (ll b = 0; b < B; ++b)                                                \
     feedback_rollout_lane<double, NJ>(R, x0, Ur, Xr, kff, K, lo, hi, X, U,  \
@@ -565,6 +577,11 @@ extern "C" void ricd_lane_##NJ(const double* A, const double* Bm,          \
 }                                                                           \
 extern "C" void idsva_so_##NJ(const double* m, const double* q,             \
     const double* qd, const double* qdd, double* out, ll L) {               \
+  race_reset();                                                             \
+  idsva_so_host<double, NJ>(m, q, qd, qdd, out, L, -9.81);                  \
+}                                                                           \
+extern "C" void idsva_so_lane_##NJ(const double* m, const double* q,        \
+    const double* qd, const double* qdd, double* out, ll L) {               \
   Robot<double, NJ> R(m);                                                   \
   for (ll l = 0; l < L; ++l) {                                              \
     double ql[NJ], qdl[NJ], xl[NJ];                                         \
@@ -616,8 +633,9 @@ def _p(t):
 
 def _host_run(lib, name, args, lane=False):
     """Run the host build of kernel ``name`` on the wrapper's arguments: the
-    kernel's block code (the sweeps), or with ``lane`` the serial lane
-    function (rollout and the dense riccati)."""
+    kernel's block code (the sweeps, fd_du and the second-order kernels),
+    or with ``lane`` the serial lane function (the rollouts, the dense
+    riccati and idsva_so)."""
     serial = "_lane" if lane else ""
     ll, D = ctypes.c_longlong, ctypes.c_double
     if name == "fd_du":
@@ -684,9 +702,9 @@ def _host_run(lib, name, args, lane=False):
         N, n, B = Ur.shape
         X = torch.empty(N, 2 * n, B, dtype=Ur.dtype)
         U = torch.empty(N, n, B, dtype=Ur.dtype)
-        getattr(lib, f"fbr_{n}")(*map(_p, (build.model_buffer(m), x0, Ur, Xr,
-                                           kff, Km, lo, hi, X, U)), N, ll(B),
-                                 D(dt))
+        getattr(lib, f"fbr{serial}_{n}")(
+            *map(_p, (build.model_buffer(m), x0, Ur, Xr, kff, Km, lo, hi, X,
+                      U)), N, ll(B), D(dt))
         return X, U
     if name in ("idsva_so", "fdsva_so"):
         m, q, qd, x, _ = args
@@ -694,8 +712,8 @@ def _host_run(lib, name, args, lane=False):
         # NaN where the card would hand over uninitialised memory: every
         # entry the lane does not write shows
         out = torch.full((4, n, n, n, L), float("nan"), dtype=q.dtype)
-        getattr(lib, f"{name}_{n}")(_p(build.model_buffer(m)), _p(q), _p(qd),
-                                    _p(x), _p(out), ll(L))
+        getattr(lib, f"{name}{serial}_{n}")(_p(build.model_buffer(m)), _p(q),
+                                            _p(qd), _p(x), _p(out), ll(L))
         return (out,)
     if name in ("riccati", "riccati_stacked"):
         A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg = args
@@ -756,16 +774,17 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
     with a block per knot) 1, 2 or 4 warps a problem; the line search
     (csrc/sweep_warp.cuh: LSPlan) 8 problems a block (4 where 8 do not
     fit), 1 to 8 of their step-size rows, 8, 16 or 32 threads a rollout;
-    the open-loop rollout (RollPlan) 2, 4 or 8 problems a block of 8, 16
-    or 32 threads each."""
-    out = (ctypes.c_int * 56)()
+    the open-loop rollout (RollPlan) and the feedback rollout (FBPlan) 2, 4
+    or 8 problems a block of 8, 16 or 32 threads each; idsva_so (IDSOPlan)
+    as fdsva_so."""
+    out = (ctypes.c_int * 72)()
     getattr(host_lib, f"plans_{nj}")(out)
     base = 16 if 2 * nj <= 16 else 32
-    for k in range(14):
+    for k in range(18):
         g, lanes, nbytes, rows = out[4 * k: 4 * k + 4]
         assert 0 < nbytes <= 232448
         assert g * rows * lanes <= 512 and (g * rows * lanes) % 32 == 0
-        if k < 4:
+        if k < 4 or 14 <= k < 16:
             assert g >= 1 and rows == 1 and lanes in (base, 2 * base,
                                                       4 * base)
             assert lanes >= nj
@@ -773,15 +792,16 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
             assert g >= 1 and rows == 1 and lanes in (32, 64, 128)
         elif k < 8:
             assert g in (4, 8) and 1 <= rows <= 8 and lanes in (8, 16, 32)
-        else:
+        else:   # the rollouts: RollPlan (12, 13), FBPlan (16, 17)
             assert g in (2, 4, 8) and rows == 1 and lanes in (8, 16, 32)
 
 
 def test_compare_kernels_reads_ptxas_report():
     """compare_kernels.py keeps the thread-group kernels' instances (fd_du,
-    fdsva_so, riccati_factored, the line search with each cost, the dense
-    riccati by its curvature, the rollout) from a ptxas report, with the
-    frames of called functions (cumulative)."""
+    fdsva_so, idsva_so, riccati_factored, the line search with each cost,
+    the dense riccati by its curvature, the rollout, the feedback rollout)
+    from a ptxas report, with the frames of called functions
+    (cumulative)."""
     spec = importlib.util.spec_from_file_location(
         "compare_kernels", Path(__file__).resolve().parents[1] /
         "compare_kernels.py")
@@ -794,7 +814,20 @@ def test_compare_kernels_reads_ptxas_report():
     ricd = "_Z14riccati_kernelIdLi16ELb1EEvPKT_S2_S2_S2_S2_S2_S2_S2_S2_PS0_"
     roll = ("_Z14rollout_kernelIdLi16EN2gt9RollShapeIdLi16ELi32ELi4EEEEvPKT_"
             "S5_S5_S5_S5_PS3_ixS3_S3_")
+    ids = "_Z15idsva_so_kernelIfLi7EEvPKT_S2_S2_S2_PS0_xS0_"
+    fbr = ("_Z23feedback_rollout_kernelIdLi12EN2gt9RollShapeIdLi12ELi32ELi4ENS0_"
+           "13FoldedStepLawIdLi12EEEEEEvPKT_S7_S7_S7_S7_S7_S7_S7_PS5_S8_ixS5_"
+           "S5_")
     report = "\n".join([
+        f"ptxas info    : Compiling entry function '{ids}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {ids}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 96 registers, 0 bytes cumulative stack size",
+        f"ptxas info    : Compiling entry function '{fbr}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {fbr}",
+        "    48 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 48 bytes "
+        "cumulative stack size",
         f"ptxas info    : Compiling entry function '{ricd}' for 'sm_90a'",
         f"ptxas info    : Function properties for {ricd}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -835,39 +868,52 @@ def test_compare_kernels_reads_ptxas_report():
             "registers": 80, "smem": 0},
         "rollout f64 nj16": {
             "stack": 112, "spill_stores": 0, "spill_loads": 0,
-            "registers": 172, "smem": 0, "cumulative_stack": 112}}
+            "registers": 172, "smem": 0, "cumulative_stack": 112},
+        "idsva_so f32 nj7": {
+            "stack": 0, "spill_stores": 0, "spill_loads": 0,
+            "registers": 96, "smem": 0, "cumulative_stack": 0},
+        "feedback_rollout f64 nj12": {
+            "stack": 48, "spill_stores": 0, "spill_loads": 0,
+            "registers": 168, "smem": 0, "cumulative_stack": 48}}
 
 
-@pytest.mark.parametrize("robot", ROBOTS)
-def test_host_fdsva_so_phases_touch_disjoint_entries(host_lib, robot):
+@pytest.mark.parametrize("robot,name", (
+    [pytest.param(r, "fdsva_so", id=r) for r in ROBOTS]
+    + [pytest.param(r, "idsva_so", id=f"{r}-idsva_so") for r in ROBOTS]))
+def test_host_fdsva_so_phases_touch_disjoint_entries(host_lib, robot, name):
     """The fdsva_so warp program splits the IDSVA-SO stages over (j, a, st)
     triples, the corrections over (j, a) pairs and the contractions over
-    columns (csrc/warp.cuh): run phase by phase on the host, no entry of
-    the knot's tensor is touched by two threads of one phase."""
+    columns (csrc/warp.cuh); idsva_so runs the same IDSVA-SO program alone:
+    run phase by phase on the host, no entry of the knot's tensor is
+    touched by two threads of one phase."""
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
-    args = path_inputs(m, 2, 2, seed=2)["fdsva_so"]
+    args = path_inputs(m, 2, 2, seed=2)[name]
     host_lib.race_count.restype = ctypes.c_long
     host_lib.touch_count.restype = ctypes.c_long
-    got = _host_run(host_lib, "fdsva_so", args)
-    assert host_lib.touch_count() > 4 * m.n ** 3
+    got = _host_run(host_lib, name, args)
+    # fdsva_so's contractions touch every entry; idsva_so's stages at least
+    # every entry that comes out non-zero
+    least = 4 * m.n ** 3 if name == "fdsva_so" else int((got[0] != 0).sum())
+    assert host_lib.touch_count() > least > 0
     assert host_lib.race_count() == 0
-    assert _max_err(got, _outs(K.fdsva_so_plain(*args))) <= TOL
+    assert _max_err(got, _outs(WRAPPERS[name][1](*args))) <= TOL
 
 
 SWEEP_PROGRAMS = ("riccati_factored", "linesearch_rollout", "linesearch_quad",
-                  "riccati", "riccati_stacked", "rollout")
+                  "riccati", "riccati_stacked", "rollout", "feedback_rollout")
 
 
-@pytest.mark.parametrize("name", ("fd_du", "fdsva_so") + SWEEP_PROGRAMS)
+@pytest.mark.parametrize("name", ("fd_du", "fdsva_so", "idsva_so")
+                         + SWEEP_PROGRAMS)
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
                                                         name):
     """No thread of a phase of the thread-group programs (csrc/warp.cuh,
     csrc/sweep_warp.cuh) reads what another thread of that phase writes:
     run phase by phase on the host with the threads of each phase in
-    reverse order, fd_du, fdsva_so, the Riccati sweeps (factored, dense
-    stationary and per knot), the line search (both costs) and the rollout
-    give the same bits."""
+    reverse order, fd_du, fdsva_so, idsva_so, the Riccati sweeps (factored,
+    dense stationary and per knot), the line search (both costs) and the
+    open-loop and feedback rollouts give the same bits."""
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
     key = name if name in SWEEP_PROGRAMS else "fdsva_so"
     args = path_inputs(m, 2, 2, seed=3)[key]
@@ -907,12 +953,13 @@ def test_host_sweep_phases_write_disjoint_entries(host_lib, robot, name):
 # the batches of the newer programs' ragged-block cases, by the plan's G
 RAGGED_B = ("1", "G-1", "G+1", "37")
 # the double plan's index in plans_<nj> (the host build runs it)
-PLAN_INDEX = {"riccati": 9, "riccati_stacked": 11, "rollout": 13}
+PLAN_INDEX = {"riccati": 9, "riccati_stacked": 11, "rollout": 13,
+              "idsva_so": 15, "feedback_rollout": 17}
 
 
 def _ragged_b(host_lib, name, nj, B):
     """The batch named B ("G-1", ...) for the double plan of ``name``."""
-    out = (ctypes.c_int * 56)()
+    out = (ctypes.c_int * 72)()
     getattr(host_lib, f"plans_{nj}")(out)
     g = out[4 * PLAN_INDEX[name]]
     return {"1": 1, "G-1": max(g - 1, 1), "G+1": g + 1, "37": 37}[B]
@@ -929,18 +976,19 @@ def _ragged_cases(old_ids, old, new):
     [(robot, name, na, N, "11") for robot in ("pendulum2", "iiwa", "hyq")
      for name in ("linesearch_rollout", "linesearch_quad") for na in (1, 6)
      for N in (1, 3)],
-    [(robot, "rollout", 1, N, B) for robot in ("pendulum2", "iiwa", "hyq",
-                                                "dm_quadruped")
+    [(robot, name, 1, N, B) for name in ("rollout", "feedback_rollout")
+     for robot in ("pendulum2", "iiwa", "hyq", "dm_quadruped")
      for N in (1, 2, 5) for B in RAGGED_B]))
 def test_host_line_search_on_ragged_blocks(host_lib, robot, name, na, N, B):
     """The line search's block code with the card's plan: 11 problems (8 a
     block: a ragged second block), one step size or six (split over blocks
-    of rows), one knot or three; and the open-loop rollout's (the same
-    block, one row) on 1, G - 1, G + 1 and 37 problems, 1, 2 or 5 knots."""
+    of rows), one knot or three; and the open-loop and feedback rollouts'
+    (the same block, one row) on 1, G - 1, G + 1 and 37 problems, 1, 2 or
+    5 knots."""
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
     B = 11 if B == "11" else _ragged_b(host_lib, name, m.n, B)
     args = list(path_inputs(m, N, B, seed=4)[name])
-    if name != "rollout":
+    if name.startswith("linesearch"):
         args[6] = torch.as_tensor(np.random.default_rng(5).uniform(
             0.05, 1.0, (na, B)), dtype=torch.float64)
     got = _host_run(host_lib, name, args)
@@ -973,27 +1021,58 @@ def test_host_riccati_factored_on_ragged_blocks(host_lib, robot, N, name, B):
 
 
 @pytest.mark.parametrize("robot", ROBOTS)
-@pytest.mark.parametrize("name", ["riccati", "riccati_stacked", "rollout"])
+@pytest.mark.parametrize("name", ["riccati", "riccati_stacked", "rollout",
+                                  "feedback_rollout", "idsva_so"])
 def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
                                                         robot):
-    """The block code of the dense riccati (stationary and per knot) and
-    of the rollout (csrc/sweep_warp.cuh), run on the host with the card's
-    plans, gives the bits of the serial functions riccati_dense_lane and
-    rollout_lane: every value keeps the serial order of operations."""
+    """The block code of the dense riccati (stationary and per knot), of
+    the open-loop and feedback rollouts (csrc/sweep_warp.cuh) and idsva_so's
+    knot program (csrc/warp.cuh), run on the host with the card's plans,
+    gives the bits of the serial functions riccati_dense_lane,
+    rollout_lane, feedback_rollout_lane and idsva_so_lane: every value
+    keeps the serial order of operations. idsva_so is held to TOL: its
+    knot program (warp.cuh:so_stages_knot, the phase of BC and f, which
+    fdsva_so runs too) forms f's bias term crf(v) IC v as a cross product,
+    where so.cuh:so_stages multiplies by crf(v)'s 6x6 matrix, zeros
+    included; that sum's other order is the only difference."""
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
     args = path_inputs(m, 6, 11, seed=2)[name]
     got = _host_run(host_lib, name, args)
     lane = _host_run(host_lib, name, args, lane=True)
     assert len(got) == len(lane)
+    if name == "idsva_so":
+        assert _max_err(got, lane) <= TOL
+        assert torch.equal(got[0] == 0, lane[0] == 0)
+        return
     for a, b in zip(got, lane):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("robot,B", _ragged_cases(
+    lambda robot, B: f"{robot}-{B}", [],
+    [(robot, B) for robot in ROBOTS for B in RAGGED_B]))
+def test_host_idsva_so_on_ragged_blocks(host_lib, robot, B):
+    """idsva_so's block code with the card's plan (G knots a block, the
+    inputs past the last lane read as zeros, the output rows masked) on 1,
+    G - 1, G + 1 and 37 lanes."""
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    L = _ragged_b(host_lib, "idsva_so", m.n, B)
+    rng = np.random.default_rng(8)
+    q, qd, qdd = (torch.as_tensor(rng.uniform(-1, 1, (m.n, L)))
+                  for _ in range(3))
+    args = (m, q, qd, qdd, -9.81)
+    got = _host_run(host_lib, "idsva_so", args)
+    want = _outs(K.idsva_so_plain(*args))
+    assert got[0].shape == want[0].shape == (4, m.n, m.n, m.n, L)
+    assert _max_err(got, want) <= TOL
 
 
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_host_feedback_rollout_is_the_line_search_alpha_1_row(host_lib,
                                                               robot):
-    """The feedback rollout's lane with kff = k is the line search's alpha =
-    1 row bit for bit: the two share the control law and the Euler step."""
+    """The feedback rollout with kff = k is the line search's alpha = 1 row
+    bit for bit: the two run one block and step program, and alpha k + s is
+    k + s at alpha = 1."""
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
     ls = list(path_inputs(m, 6, 5, seed=2)["linesearch_rollout"])
     ls[6] = torch.ones_like(ls[6][:1])
