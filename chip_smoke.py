@@ -11,8 +11,9 @@ Phases, one line each:
      one library per joint count, every nvcc at once (and the host
      operation counter, utils/opcount.py); the block plan (knots,
      problems or rollouts a block, shared bytes) and cudaFuncGetAttributes
-     of every instance of the thread-group kernels: fd_du, fdsva_so and
-     idsva_so (a warp per knot), riccati_factored and riccati (a warp per
+     of every instance of the thread-group kernels: fd_du, fdsva_so,
+     idsva_so and id_du (a warp per knot), d2eepos (a warp per lane),
+     riccati_factored and riccati (a warp per
      problem; riccati's stationary and per-knot instances),
      linesearch_rollout, rollout and feedback_rollout (a group of threads
      per rollout);

@@ -8,8 +8,9 @@ card.
 Each DIR is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive``), named by its directory. The
 kernels (``--kernels``, any of fd_du, fdsva_so, idsva_so,
-riccati_factored, linesearch, riccati, rollout and feedback_rollout; by
-default riccati_factored, linesearch, riccati and rollout) are compiled
+riccati_factored, linesearch, riccati, rollout, feedback_rollout, id_du and
+d2eepos; by default riccati_factored, linesearch, riccati and rollout) are
+compiled
 from every tree's
 ``csrc/`` with nvcc for sm_90a, one library per joint count and tree, every
 nvcc at once, with ``-Xptxas -v``; the script prints each kernel instance's
@@ -18,8 +19,8 @@ this tree's block plans and ``cudaFuncGetAttributes``
 (``build.warp_kernel_info``), and then each kernel's device time per launch
 (CUDA events) at the main paths' shapes in float32, every tree on the same
 inputs, in turns: the others, this, this, the others in reverse. The GRiD
-kernels (fd_du, fdsva_so, idsva_so with u as qdd) run on inputs ~ U(-1,
-1); the sweeps on the inputs of the solver's first iteration (plain ops:
+kernels (fd_du, fdsva_so, idsva_so and id_du with u as qdd, d2eepos on q
+at every EE of the robot) run on inputs ~ U(-1, 1); the sweeps on the inputs of the solver's first iteration (plain ops:
 config 3's EE reach and QuadCost task at N=64, B=2048, config 4's
 QuadCost at N=32, each with six step sizes; the dense riccati on the
 QuadCost task's stationary curvature, the rollout on the solver's first
@@ -38,8 +39,10 @@ rollout it also times this tree's block shapes (threads a rollout x
 problems a block, csrc/sweep_warp.cuh: RollShape), for idsva_so its knot
 shapes (threads a knot x knots a block, csrc/warp.cuh: KnotShape; those
 that fit an SM; as many blocks as the card holds, each taking every
-gridDim.x-th group of lanes, and a block a group), at every shape of the
-kernel, against the plan's output.
+gridDim.x-th group of lanes, and a block a group), for id_du one and two
+column passes, for d2eepos its shapes (threads a lane x lanes a block,
+staged or direct stores), at every shape of the kernel, against the plan's
+output.
 Needs one NVIDIA GPU and nvcc.
 """
 
@@ -64,9 +67,11 @@ JOINTS = (2, 7, 8, 12, 16)
 SOURCES = {"fd_du": "fd_du.cu", "fdsva_so": "fdsva_so.cu",
            "idsva_so": "idsva_so.cu", "riccati_factored": "riccati.cu",
            "linesearch": "linesearch.cu", "riccati": "riccati.cu",
-           "rollout": "rollout.cu", "feedback_rollout": "feedback_rollout.cu"}
-# the kernels of a knot a thread group, on (n, lanes) inputs
-KNOT_KERNELS = ("fd_du", "fdsva_so", "idsva_so")
+           "rollout": "rollout.cu", "feedback_rollout": "feedback_rollout.cu",
+           "id_du": "id_du.cu", "d2eepos": "d2eepos.cu"}
+# the kernels of a knot a thread group, on (n, lanes) inputs (d2eepos: q
+# only)
+KNOT_KERNELS = ("fd_du", "fdsva_so", "idsva_so", "id_du", "d2eepos")
 DEFAULT_KERNELS = "riccati_factored,linesearch,riccati,rollout"
 # (kernel, robot, lanes): config 3 and the GRiD API (iiwa 131072 and 1024
 # lanes), config 4's N*B lanes (iiwa 32768, the others 16384); the sweeps
@@ -76,7 +81,9 @@ DEFAULT_KERNELS = "riccati_factored,linesearch,riccati,rollout"
 # 16-joint plan (dm_quadruped, N=32, B=512); the rollout at config 3's and
 # config 4's first rollout ("roll", N, B); idsva_so at the GRiD API's 1024
 # lanes and config 4's N*B; the feedback rollout at config 3's tracking
-# shape (N=64, B=2048) and on config 4's trees (N=32, B=512)
+# shape (N=64, B=2048) and on config 4's trees (N=32, B=512); id_du and
+# d2eepos at configs 1 and 2's B=1 and 1024 lanes, config 3's 131072 and
+# 16384 lanes on the trees (gym_ant: its EEs welded to the base, zeros only)
 SHAPES = [("fd_du", "iiwa", 131072), ("fd_du", "iiwa", 1024),
           ("fd_du", "iiwa", 32768), ("fd_du", "gym_ant", 16384),
           ("fd_du", "hyq", 16384), ("fd_du", "dm_quadruped", 16384),
@@ -103,7 +110,13 @@ SHAPES = [("fd_du", "iiwa", 131072), ("fd_du", "iiwa", 1024),
           ("feedback_rollout", "iiwa", ("ee", 64, 2048)),
           ("feedback_rollout", "hyq", ("quad4", 32, 512)),
           ("feedback_rollout", "gym_ant", ("quad4", 32, 512)),
-          ("feedback_rollout", "dm_quadruped", ("quad4", 32, 512))]
+          ("feedback_rollout", "dm_quadruped", ("quad4", 32, 512)),
+          ("id_du", "iiwa", 1), ("id_du", "iiwa", 1024),
+          ("id_du", "iiwa", 131072), ("id_du", "hyq", 16384),
+          ("id_du", "dm_quadruped", 16384),
+          ("d2eepos", "iiwa", 1), ("d2eepos", "iiwa", 1024),
+          ("d2eepos", "iiwa", 131072), ("d2eepos", "hyq", 16384),
+          ("d2eepos", "gym_ant", 16384), ("d2eepos", "dm_quadruped", 16384)]
 # the rollout's block shapes timed beside its plan: (threads a rollout,
 # problems a block), whole warps a block (8 x 2 is half a warp)
 ROLL_SHAPES = ((8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 2), (32, 4),
@@ -113,6 +126,11 @@ ROLL_SHAPES = ((8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 2), (32, 4),
 # those that fit an SM
 IDSO_SHAPES = ((1, 2), (1, 4), (1, 6), (1, 8), (2, 2), (2, 4), (2, 8),
                (4, 2), (4, 4))
+# id_du's column passes timed beside its plan's (each with its BlockPlan)
+IDU_PASSES = (1, 2)
+# d2eepos's shapes timed beside its plan: (threads a lane, lanes a block),
+# each with the staged and the direct stores
+D2_SHAPES = ((8, 8), (8, 16), (16, 4), (16, 8), (32, 4), (32, 8))
 # the step size folded into the feedback rollout's kff (a power of 2: the
 # fold is exact)
 FB_ALPHA = 0.25
@@ -129,6 +147,8 @@ PHASE_CLOCK_CU = r"""
 #include "rollout.cu"
 #include "idsva_so.cu"
 #include "feedback_rollout.cu"
+#include "id_du.cu"
+#include "d2eepos.cu"
 
 extern __shared__ double gt_smem[];
 
@@ -149,19 +169,22 @@ struct ClockPar {
   }
 };
 
-// the knot programs: MODE 0 fd_du, 1 fdsva_so, 2 idsva_so (u as qdd)
+// the knot programs: MODE 0 fd_du, 1 fdsva_so, 2 idsva_so, 3 id_du (u as
+// qdd)
 template <int MODE, typename T, int NJ>
 using KnotPlan = typename std::conditional<
     MODE == 0, gt::FDPlan<T, NJ>,
-    typename std::conditional<MODE == 1, gt::SOPlan<T, NJ>,
-                              gt::IDSOPlan<T, NJ>>::type>::type;
+    typename std::conditional<
+        MODE == 1, gt::SOPlan<T, NJ>,
+        typename std::conditional<MODE == 2, gt::IDSOPlan<T, NJ>,
+                                  gt::IDUPlan<T, NJ>>::type>::type>::type;
 
 template <typename T, int NJ, int MODE>
 __global__ void clocked(const T* model, const T* q, const T* qd, const T* u,
                         long long L, T gravity, long long* rec, int* phases,
                         long long* knot) {
   using P = KnotPlan<MODE, T, NJ>;
-  constexpr bool SO = MODE > 0;
+  constexpr bool SO = MODE == 1 || MODE == 2;
   constexpr int N = P::LANES, S = P::STRIDE;
   auto& H = *reinterpret_cast<gt::SOHead<T, NJ>*>(gt_smem);
   T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
@@ -178,7 +201,9 @@ __global__ void clocked(const T* model, const T* q, const T* qd, const T* u,
   int count = 0;
   const ClockPar<N> par{tid % N, 1 + tid / N, first ? rec : nullptr, &count};
   T* k = knots + (long long)(tid / N) * S;
-  if constexpr (MODE == 2)
+  if constexpr (MODE == 3)
+    gt::id_du_knot<T, NJ, gt::idu_passes<NJ>()>(par, H.R, k, gravity);
+  else if constexpr (MODE == 2)
     gt::idsva_so_knot<T, NJ, gt::IDKnot<NJ>>(par, H.R, H.lists, k, gravity);
   else if constexpr (MODE == 1)
     gt::fdsva_so_knot<T, NJ>(par, H.R, H.lists, k, gravity);
@@ -212,7 +237,96 @@ extern "C" int phase_clock(int mode, int nj, const void* model,
   if (nj != GT_NJ) return (int)cudaErrorInvalidValue;
   if (mode == 0) return knot_clock<0>(model, q, qd, u, L, rec, phases, knot);
   if (mode == 1) return knot_clock<1>(model, q, qd, u, L, rec, phases, knot);
-  return knot_clock<2>(model, q, qd, u, L, rec, phases, knot);
+  if (mode == 2) return knot_clock<2>(model, q, qd, u, L, rec, phases, knot);
+  return knot_clock<3>(model, q, qd, u, L, rec, phases, knot);
+}
+
+// d2eepos's plan, a row of blocks an EE; block (0, 0) (EE 0) clocks its
+// knot 0
+template <int NJ>
+__global__ void clocked_d2(const float* model, const float* ee, int ne,
+                           const float* q, float* out, long long L,
+                           long long* rec, int* phases, long long* knot) {
+  using P = gt::D2Plan<float, NJ>;
+  constexpr int N = P::LANES, S = P::STRIDE, G = P::G;
+  auto& H = *reinterpret_cast<gt::EEHead<float, NJ>*>(gt_smem);
+  float* knots =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  const int tid = threadIdx.x, nt = blockDim.x, e = blockIdx.y;
+  const long long l0 = (long long)blockIdx.x * G;
+  const long long c0 = clock64();
+  H.load(model, tid, nt);
+  gt::load_q<float, NJ, S>(q, L, l0, G, knots, tid, nt);
+  __syncthreads();
+  H.select(ee + e * gt::EERow<NJ>::SIZE, tid, nt);
+  __syncthreads();
+  const bool first = blockIdx.x == 0 && e == 0 && tid < N;
+  if (first && tid == 0) knot[1] = clock64() - c0;   // the block's head
+  int count = 0;
+  const ClockPar<N> par{tid % N, 1 + tid / N, first ? rec : nullptr, &count};
+  float* oe = out + 6LL * e * NJ * NJ * L;
+  constexpr bool STAGE = gt::d2_stage<NJ>();
+  gt::d2eepos_knot<float, NJ, STAGE>(par, H, knots + (long long)(tid / N) * S,
+                                    oe, L, l0 + tid / N);
+  __syncthreads();
+  gt::d2eepos_store<float, NJ, S, G, STAGE>(H, knots, oe, L, l0, tid, nt);
+  if (first && tid == 0) {
+    *phases = count;
+    *knot = clock64() - c0;
+  }
+}
+
+extern "C" int d2_clock(int nj, const void* model, const void* ee, int ne,
+                        const void* q, void* out, long long L, long long* rec,
+                        int* phases, long long* knot) {
+  constexpr int NJ = GT_NJ;
+  using P = gt::D2Plan<float, NJ>;
+  if (nj != NJ) return (int)cudaErrorInvalidValue;
+  gt::smem_attrs(clocked_d2<NJ>, P::BYTES);
+  clocked_d2<NJ><<<dim3((unsigned)((L + P::G - 1) / P::G), (unsigned)ne),
+                   P::G * P::LANES, P::BYTES>>>(
+      (const float*)model, (const float*)ee, ne, (const float*)q,
+      (float*)out, L, rec, phases, knot);
+  return (int)cudaGetLastError();
+}
+
+// the id_du kernel with `passes` column passes (its BlockPlan), float32
+extern "C" int idu_shape(int passes, int nj, const void* model,
+                         const void* q, const void* qd, const void* qdd,
+                         void* out, long long L) {
+  if (nj != GT_NJ) return (int)cudaErrorInvalidValue;
+  if (passes == 1)
+    return launch_id_du<float, GT_NJ, 1>(model, q, qd, qdd, out, L, -9.81, 0);
+  return launch_id_du<float, GT_NJ, 2>(model, q, qd, qdd, out, L, -9.81, 0);
+}
+
+// the d2eepos kernel at shape (lanes threads a lane, g lanes a block),
+// staged or direct stores, float32; a shape that does not fit an SM is not
+// built
+template <int W, int G, bool STAGE>
+static int d2_shape_launch(const void* model, const void* ee, int ne,
+                           const void* q, void* out, long long L) {
+  constexpr int NJ = GT_NJ;
+  using P = gt::KnotShape<float, gt::EEHead<float, NJ>, gt::D2Knot<NJ>::SIZE,
+                          W, G>;
+  if constexpr (P::BYTES <= gt::SMEM_LIMIT && W * G <= 512 &&
+                W * G % 32 == 0)
+    return launch_d2eepos<float, NJ, P, STAGE>(model, ee, ne, q, out, L, 0);
+  return (int)cudaErrorInvalidConfiguration;
+}
+
+extern "C" int d2_shape(int lanes, int g, int stage, int nj,
+                        const void* model, const void* ee, int ne,
+                        const void* q, void* out, long long L) {
+  if (nj != GT_NJ) return (int)cudaErrorInvalidValue;
+#define GT_SHAPE(W, G)                                                      \
+  if (lanes == W && g == G)                                                 \
+    return stage ? d2_shape_launch<W, G, true>(model, ee, ne, q, out, L)    \
+                 : d2_shape_launch<W, G, false>(model, ee, ne, q, out, L);
+  GT_SHAPE(8, 8) GT_SHAPE(8, 16) GT_SHAPE(16, 4) GT_SHAPE(16, 8)
+  GT_SHAPE(32, 4) GT_SHAPE(32, 8)
+#undef GT_SHAPE
+  return (int)cudaErrorInvalidValue;
 }
 
 template <int NJ>
@@ -575,7 +689,7 @@ def compile_tree(tree: Path, out: Path, sources, clocked: bool = False):
 KERNEL_NAMES = ("fd_du_kernel", "fdsva_so_kernel", "riccati_factored_kernel",
                 "linesearch_kernel", "riccati_kernel", "rollout_kernel",
                 "riccati_dense_kernel", "idsva_so_kernel",
-                "feedback_rollout_kernel")
+                "feedback_rollout_kernel", "id_du_kernel", "d2eepos_kernel")
 
 
 def parse_ptxas(text: str) -> dict:
@@ -583,8 +697,9 @@ def parse_ptxas(text: str) -> dict:
     smem, cumulative_stack}} for the instances of the thread-group kernels
     (fd_du, fdsva_so, idsva_so, riccati_factored, linesearch_ee,
     linesearch_quad, riccati_stationary, riccati_stacked, rollout,
-    feedback_rollout; an earlier tree's riccati_dense and its per-lane
-    idsva_so and feedback_rollout) in ptxas's report."""
+    feedback_rollout, id_du, d2eepos; an earlier tree's riccati_dense and
+    its per-lane idsva_so, feedback_rollout, id_du and d2eepos) in
+    ptxas's report."""
     def key(mangled):
         m = re.match(r"_Z\d+(\w+?_kernel)I([fd])Li(\d+)E", mangled)
         if not m or m.group(1) not in KERNEL_NAMES:
@@ -641,7 +756,9 @@ def bind(libs: dict, kernels, scratch: bool) -> dict:
            "riccati": [I, I] + [P] * 7 + [I] + [P] * 4 + [I, L, D, P],
            "rollout": [I, I] + [P] * 6 + [I, L, D, D, P],
            "idsva_so": [I, I, P, P, P, P, P, L, D, P],
-           "feedback_rollout": [I, I] + [P] * 10 + [I, L, D, D, P]}
+           "feedback_rollout": [I, I] + [P] * 10 + [I, L, D, D, P],
+           "id_du": [I, I, P, P, P, P, P, L, D, P],
+           "d2eepos": [I, I, P, P, I, P, P, L, P]}
     out = {}
     for nj, path in libs.items():
         h = ctypes.CDLL(str(path))
@@ -665,9 +782,12 @@ def bind_clock(path: Path):
     h.fbr_clock.argtypes = [I] + [P] * 10 + [I, L, D, P, P, P]
     h.fbr_shape.argtypes = [I, I, I] + [P] * 10 + [I, L, D]
     h.idso_shape.argtypes = [I, I, I, I] + [P] * 5 + [L]
+    h.d2_clock.argtypes = [I, P, P, I, P, P, L, P, P, P]
+    h.idu_shape.argtypes = [I, I] + [P] * 5 + [L]
+    h.d2_shape.argtypes = [I, I, I, I, P, P, I, P, P, L]
     for fn in (h.phase_clock, h.ric_clock, h.ls_clock, h.ricd_clock,
                h.roll_clock, h.roll_shape, h.fbr_clock, h.fbr_shape,
-               h.idso_shape):
+               h.idso_shape, h.d2_clock, h.idu_shape, h.d2_shape):
         fn.restype = I
     return h
 
@@ -846,9 +966,30 @@ def main():
                                         dtype=torch.float32, device=dev)
                         for _ in range(3))
             mb = build.model_buffer(m)
+            eb = build.ee_buffer(m)
+            ne = eb.shape[0]
+
+            def d2_out():
+                return torch.empty(6 * ne, n, n, lanes, device=dev)
 
             def runner(tree):
                 lib = libs[tree][0][n]
+                if what == "id_du":
+                    outs = (torch.empty(n, 2 * n, lanes, device=dev),)
+
+                    def fn():
+                        build.check(lib.gridtorch_id_du(
+                            0, n, ptr(mb), ptr(q), ptr(qd), ptr(u),
+                            ptr(outs[0]), lanes, -9.81, stream), what)
+                    return fn, outs
+                if what == "d2eepos":
+                    outs = (d2_out(),)
+
+                    def fn():
+                        build.check(lib.gridtorch_d2eepos(
+                            0, n, ptr(mb), ptr(eb), ne, ptr(q), ptr(outs[0]),
+                            lanes, stream), what)
+                    return fn, outs
                 if what == "fd_du":
                     outs = (torch.empty(n, 2 * n, lanes, device=dev),
                             torch.empty(n, lanes, device=dev),
@@ -878,14 +1019,18 @@ def main():
 
             sub = slice(0, min(lanes, 1024))
             plain = getattr(K, f"{what}_plain")
-            ref64 = plain(m64, q[:, sub].double(), qd[:, sub].double(),
-                          u[:, sub].double())
+            ref64 = (plain(m64, q[:, sub].double()) if what == "d2eepos"
+                     else plain(m64, q[:, sub].double(), qd[:, sub].double(),
+                                u[:, sub].double()))
             ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
             cut = lambda outs: tuple(o[..., sub] for o in outs)
             rows = 1
             label = lanes
 
             def clock_fn():
+                if what == "d2eepos":
+                    return clock.d2_clock(n, ptr(mb), ptr(eb), ne, ptr(q),
+                                          ptr(d2_out()), lanes, *clock_out())
                 return clock.phase_clock(KNOT_KERNELS.index(what), n,
                                          ptr(mb), ptr(q), ptr(qd), ptr(u),
                                          lanes, *clock_out())
@@ -1124,6 +1269,39 @@ def main():
                     "max_abs_diff_vs_plan": float(
                         (out - run["this"][1][0]).abs().max())}
             del out
+        if what == "id_du":   # the column passes against the plan
+            out = torch.empty(n, 2 * n, lanes, device=dev)
+            shapes = {}
+            for passes in IDU_PASSES:
+                def shape_fn():
+                    build.check(clock.idu_shape(passes, n, ptr(mb), ptr(q),
+                                                ptr(qd), ptr(u), ptr(out),
+                                                lanes), "id_du shape")
+                shape_fn()
+                torch.cuda.synchronize()
+                shapes[f"{passes} pass{'es' if passes > 1 else ''}"] = {
+                    "ms": time_cuda(shape_fn, iters=iters),
+                    "max_abs_diff_vs_plan": float(
+                        (out - run["this"][1][0]).abs().max())}
+            del out
+        if what == "d2eepos":   # the shapes that fit, against the plan
+            out = d2_out()
+            shapes = {}
+            for (w, g), stage in itertools.product(D2_SHAPES, (1, 0)):
+                def shape_fn():
+                    return clock.d2_shape(w, g, stage, n, ptr(mb), ptr(eb),
+                                          ne, ptr(q), ptr(out), lanes)
+                code = shape_fn()
+                if code == 9:   # cudaErrorInvalidConfiguration: does not fit
+                    continue
+                build.check(code, "d2eepos shape")
+                torch.cuda.synchronize()
+                key = f"{w}x{g}" + ("" if stage else " direct")
+                shapes[key] = {
+                    "ms": time_cuda(shape_fn, iters=iters),
+                    "max_abs_diff_vs_plan": float(
+                        (out - run["this"][1][0]).abs().max())}
+            del out
         build.check(clock_fn(), "phase clock")
         torch.cuda.synchronize()
         nph = min(int(phases.item()), 4096)
@@ -1133,7 +1311,8 @@ def main():
                "err_vs_f64": {t: max(float(x.max()) for x in e)
                               for t, e in err.items()},
                "knot_cycles": int(knot[0])}
-        if what in ("rollout", "feedback_rollout", "idsva_so"):
+        if what in ("rollout", "feedback_rollout", "idsva_so", "id_du",
+                    "d2eepos"):
             row["block_shapes"] = shapes
         if what in KNOT_KERNELS:
             row["phase_cycles"] = cyc

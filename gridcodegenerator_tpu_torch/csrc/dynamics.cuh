@@ -1,9 +1,10 @@
 // Per-lane rigid-body dynamics for the port's CUDA kernels.
 //
 // Every kernel of this library but the thread-group ones (csrc/warp.cuh:
-// fd_du and fdsva_so; csrc/sweep_warp.cuh: the Riccati sweeps and the
-// rollouts) runs one thread per problem lane; the functions here are that
-// thread's algebra, written for one lane in scalar
+// fd_du, fdsva_so, idsva_so, id_du and d2eepos; csrc/sweep_warp.cuh: the
+// Riccati sweeps and the rollouts) runs one thread per problem lane; the
+// functions here are that thread's algebra (and the thread-group kernels'
+// serial reference), written for one lane in scalar
 // code: spatial algebra, joint transforms, RNEA, the analytical ID gradient,
 // Carpentier's direct Minv, forward dynamics, ABA, CRBA, end-effector pose
 // and its Jacobian, and a pivot-free Gauss-Jordan inverse. They follow the
@@ -830,10 +831,10 @@ GT_HDI void pose_jvp(const T* Tm, const T* dT, T* p) {
 // r2 = x^2 + y^2, f_yy = -2xy/r2^2, f_xx = 2xy/r2^2, f_xy = (y^2-x^2)/r2^2.
 template <typename T>
 GT_HDI T hatan2(T y, T x, T y1, T x1, T y2, T x2, T y12, T x12) {
-  const T r2 = x * x + y * y;
-  return (x * y12 - y * x12) / r2 +
-         (T(2) * x * y * (x1 * x2 - y1 * y2) +
-          (y * y - x * x) * (y1 * x2 + x1 * y2)) / (r2 * r2);
+  const T inv = T(1) / (x * x + y * y);   // one division, not two
+  return ((x * y12 - y * x12) +
+          (T(2) * x * y * (x1 * x2 - y1 * y2) +
+           (y * y - x * x) * (y1 * x2 + x1 * y2)) * inv) * inv;
 }
 
 // Second directional derivative of pose_from_T at Tm:
@@ -847,11 +848,11 @@ GT_HDI void pose_hvp(const T* Tm, const T* d1, const T* d2, const T* h,
   p[1] = h[7];
   p[2] = h[11];
   const T a = Tm[9], b = Tm[10];
-  const T r = gsqrt(a * a + b * b);
-  const T r1 = (a * d1[9] + b * d1[10]) / r;
-  const T r2 = (a * d2[9] + b * d2[10]) / r;
+  const T r = gsqrt(a * a + b * b), ir = T(1) / r;
+  const T r1 = (a * d1[9] + b * d1[10]) * ir;
+  const T r2 = (a * d2[9] + b * d2[10]) * ir;
   const T r12 =
-      (a * h[9] + b * h[10] + d1[9] * d2[9] + d1[10] * d2[10] - r1 * r2) / r;
+      (a * h[9] + b * h[10] + d1[9] * d2[9] + d1[10] * d2[10] - r1 * r2) * ir;
   p[3] = hatan2(a, b, d1[9], d1[10], d2[9], d2[10], h[9], h[10]);
   p[4] = -hatan2(Tm[8], r, d1[8], r1, d2[8], r2, h[8], r12);
   p[5] = hatan2(Tm[4], Tm[0], d1[4], d1[0], d2[4], d2[0], h[4], h[0]);

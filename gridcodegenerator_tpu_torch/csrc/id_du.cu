@@ -1,48 +1,72 @@
-// id_du: the analytical inverse-dynamics gradient dc/d[q, qd], one thread
-// per lane.
+// id_du: the analytical inverse-dynamics gradient dc/d[q, qd], one knot
+// (lane) a warp: fd_du's knot program without Minv.
 //
-// Replaces gridcodegenerator_tpu/ops/pallas/kernels.py:id_du_pallas. Per
-// lane (dynamics.cuh:id_du_lane): the joint transforms, RNEA at qdd, whose
-// backward pass accumulates each child's force into its parent in place,
-// then one forward-mode pass per gradient column (2 NJ of them) on those
-// accumulated forces. It is the second half of fd_du's lane without the
-// -Minv product.
+// Replaces gridcodegenerator_tpu/ops/pallas/kernels.py:id_du_pallas:
+// (q, qd, qdd) (NJ, L) -> dc_du (NJ, 2 NJ, L).
 //
-// What bounds it on the card: arithmetic (2 NJ column passes, each a forward
-// and a backward sweep of 6x6 products) and per-thread local memory (the
-// joint transforms plus three (NJ, 6) column buffers), not device memory: a
-// 7-joint lane reads 21 values and writes 98. The design trades the
-// (6, NJ) column blocks of the plain version for one column at a time, so
-// a lane holds 6-vectors per joint; outputs (NJ, 2 NJ, L) are written along
-// the lane axis, so a warp's stores are contiguous.
-#include "dynamics.cuh"
+// A block holds G knots (warp.cuh:id_du_knot), a half warp each up to 8
+// joints, a warp above (2 or 4 times that where it puts more knots or
+// warps on an SM, warp.cuh:BlockPlan): the joint transforms a joint a
+// thread; one RNEA forward at the given qdd (which also forms I v) and
+// the backward accumulation, a level of the tree a phase, a row of each
+// joint's 6-vectors a thread (warp.cuh:rnea_forward_knot,
+// rnea_backward_knot, fd_du's passes); the ID gradient a column a thread,
+// each walking only its column joint's subtree and root path
+// (warp.cuh:id_grad_columns_knot, fd_du's), its dc stored into the knot's
+// output block. The robot constants are copied into shared memory once a
+// block and every knot's state lives there (warp.cuh:IDUKnot), indexed by
+// the run-time topology without local memory. The block reads its (NJ, G)
+// input tiles and writes each output row as G consecutive lanes.
+// dynamics.cuh:id_du_lane is the serial function: csrc/opcount.cpp counts
+// the bound from it, and the host tests hold the knot program to the
+// plain version.
+//
+// What bounds it on the card: operations (12.8k a 7-joint lane, the
+// bound's count; a lane reads 21 values and writes 98); the design's
+// limits are the serial phases' latency and the knots shared memory holds
+// on an SM (a knot: 38 NJ^2 + 63 NJ values with one pass of 2 NJ columns,
+// 2303 at 7 joints, 9.2 KB float32). G, the threads a knot, the bytes a
+// block and cudaFuncGetAttributes of each instance: `gridtorch_id_du_info`.
+#include "warp.cuh"
 
 #ifdef __CUDACC__
 
-template <typename T, int NJ>
+extern __shared__ double gt_smem[];
+
+template <typename T, int NJ, int PASSES>
 __global__ void id_du_kernel(const T* __restrict__ model,
                              const T* __restrict__ q,
                              const T* __restrict__ qd,
                              const T* __restrict__ qdd,
                              T* __restrict__ dcdu, long long L, T gravity) {
-  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const gt::Robot<T, NJ> R(model);
-  T ql[NJ], qdl[NJ], qddl[NJ], d[NJ * 2 * NJ];
-  gt::lane_load<T, NJ>(q, L, lane, ql);
-  gt::lane_load<T, NJ>(qd, L, lane, qdl);
-  gt::lane_load<T, NJ>(qdd, L, lane, qddl);
-  gt::id_du_lane<T, NJ>(R, ql, qdl, qddl, gravity, d);
-  gt::lane_store<T, NJ * 2 * NJ>(d, L, lane, dcdu);
+  using O = gt::IDUKnot<NJ, PASSES>;
+  using P = gt::IDUPlan<T, NJ, PASSES>;
+  constexpr int N = P::LANES, S = P::STRIDE;
+  auto& R = *reinterpret_cast<gt::RobotConst<T, NJ>*>(gt_smem);
+  T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  const int tid = threadIdx.x, nt = blockDim.x, G = nt / N;
+  const long long l0 = (long long)blockIdx.x * G;
+  R.load(model, tid, nt);
+  gt::load_inputs<T, NJ, S>(q, qd, qdd, L, l0, G, knots, tid, nt);
+  __syncthreads();
+  gt::id_du_knot<T, NJ, PASSES>(gt::WarpPar<N>{tid % N, 1 + tid / N}, R,
+                                knots + (long long)(tid / N) * S, gravity);
+  __syncthreads();
+  gt::store_rows<T, S>(knots + O::DC, 2 * NJ * NJ, dcdu, L, l0, G, tid, nt);
 }
 
-template <typename T, int NJ>
+template <typename T, int NJ, int PASSES = gt::idu_passes<NJ>()>
 static int launch_id_du(const void* model, const void* q, const void* qd,
                         const void* qdd, void* dcdu, long long L,
                         double gravity, cudaStream_t stream) {
+  using P = gt::IDUPlan<T, NJ, PASSES>;
+  static_assert(P::G >= 1, "one id_du knot must fit in shared memory");
   if (L == 0) return 0;
-  const int block = 128;
-  id_du_kernel<T, NJ><<<gt_grid(L, block), block, 0, stream>>>(
+  static const cudaError_t attr =
+      gt::smem_attrs(id_du_kernel<T, NJ, PASSES>, P::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  id_du_kernel<T, NJ, PASSES><<<(unsigned)((L + P::G - 1) / P::G),
+                                P::LANES * P::G, P::BYTES, stream>>>(
       (const T*)model, (const T*)q, (const T*)qd, (const T*)qdd, (T*)dcdu, L,
       (T)gravity);
   return (int)cudaGetLastError();
@@ -55,6 +79,16 @@ extern "C" int gridtorch_id_du(int dtype, int nj, const void* model,
   GT_DISPATCH(dtype, nj,
               launch_id_du<T, NJ>(model, q, qd, qdd, dcdu, L, gravity,
                                   (cudaStream_t)stream));
+}
+
+// The block plan (G; threads a knot; bytes a block) and
+// cudaFuncGetAttributes of the instance (warp.cuh:kernel_info), into
+// out[10].
+extern "C" int gridtorch_id_du_info(int dtype, int nj, int* out) {
+  GT_DISPATCH(dtype, nj,
+              (gt::kernel_info<gt::IDUPlan<T, NJ>>(
+                  (const void*)id_du_kernel<T, NJ, gt::idu_passes<NJ>()>,
+                  out)));
 }
 
 #endif

@@ -11,10 +11,11 @@
 // counts what every lane of a launch does.
 //
 // Two counts per kernel:
-// * executed: every operation the kernel's lane code does (fd_du, fdsva_so
-//   and idsva_so: every thread of the knot's warp, warp.cuh; the Riccati
-//   sweeps and the rollouts, open-loop, feedback and line search: every
-//   thread of the problem's or rollout's group, sweep_warp.cuh);
+// * executed: every operation the kernel's lane code does (fd_du, fdsva_so,
+//   idsva_so, id_du and d2eepos: every thread of the knot's group,
+//   warp.cuh; the Riccati sweeps and the rollouts, open-loop, feedback and
+//   line search: every thread of the problem's or rollout's group,
+//   sweep_warp.cuh);
 // * needed: the arithmetic of the function, the bound's numerator. Constants
 //   fold: literals and the robot's constants (GRiD generates code per
 //   robot) are known, the lane's inputs are not, and an operation whose
@@ -24,7 +25,10 @@
 //   run with DStored: D1-D4 of each joint formed once and each product
 //   D_fam[st] x computed once, as the reference algorithm does
 //   (gridcodegenerator_tpu/ops/so.py:idsva_so_analytical), where the
-//   kernels form D_st x at every use to save per-thread memory.
+//   kernels form D_st x at every use to save per-thread memory. d2eepos
+//   counts the cheaper of its two algorithms: the chain form
+//   (dynamics.cuh:ee_hess_lane) and the knot program's twists
+//   (warp.cuh:d2eepos_knot), which needs fewer.
 #include <cmath>
 #include <vector>
 
@@ -242,14 +246,30 @@ long long count(int kernel, const double* model, const double* ee, int ne,
   C::n = 0;
   switch (kernel) {
     case RNEA: rnea_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data()); break;
-    case ID_DU: id_du_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data()); break;
+    case ID_DU:   // executed: the knot's threads, every phase
+      if (needed)
+        id_du_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data());
+      else
+        id_du_host<C, NJ>(m.data(), a.data(), b.data(), c.data(), x.data(), 1,
+                          g);
+      break;
     case ABA: aba<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data()); break;
     case MINV: minv_lane<C, NJ>(R, a.data(), true, x.data()); break;
     case FD: fd_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data()); break;
     case CRBA: crba_lane<C, NJ>(R, a.data(), x.data()); break;
     case EEPOS: ee_pose_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
     case DEEPOS: ee_jac_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
-    case D2EEPOS: ee_hess_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
+    case D2EEPOS:   // executed: the lane's group, every phase, and its
+                    // share of the block's store; needed: the fewer of the
+                    // chain form's and the knot program's twist form's
+      d2eepos_host<C, NJ>(m.data(), e.data(), ne, a.data(), x.data(), 1);
+      if (needed) {
+        const long long twist = C::n;
+        C::n = 0;
+        ee_hess_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1);
+        if (twist < C::n) C::n = twist;
+      }
+      break;
     case FD_DU:   // the warp's 32 threads, every phase
       fd_du_host<C, NJ>(m.data(), a.data(), b.data(), c.data(), x.data(),
                         y.data(), z.data(), 1, g);

@@ -1,5 +1,7 @@
-// One warp per knot: the fd_du and fdsva_so programs of csrc/fd_du.cu and
-// csrc/fdsva_so.cu, written once for the card and for the host.
+// One warp per knot: the fd_du, fdsva_so, idsva_so and id_du programs of
+// csrc/fd_du.cu, csrc/fdsva_so.cu, csrc/idsva_so.cu and csrc/id_du.cu, and
+// d2eepos's group of threads a lane (csrc/d2eepos.cu), written once for
+// the card and for the host.
 //
 // A block holds G knots, a warp each (a half warp up to 8 joints, where the
 // 2 NJ gradient columns fit in 16 threads: two knots a warp; 2 or 4 times
@@ -361,16 +363,259 @@ struct FDKnot {
   static constexpr int SIZE = MINV_END > COL_END ? MINV_END : COL_END;
 };
 
+// ---------------------------------------------------------------------------
+// the RNEA passes and the ID-gradient columns of one knot, shared by fd_du
+// and id_du: the knot's state sits at the offsets of O (FDKnot, IDUKnot):
+// Q, QD, QDD, X (NJ, 36), V, A, F, IV (NJ, 6 each) and the columns' state
+// COL. Force-inlined, and the RNEA passes take their pointers, gravity and
+// level count from the caller (RneaView, nlev), formed once at the top of
+// the knot's program: so fd_du_knot compiles to the machine code of the
+// program written out in one function (a pointer formed or R.nlev read
+// inside the passes moved its registers). The tree passes take a phase a
+// level (RobotConst), a row or entry of each joint of the level a thread;
+// a backward pass adds a level's joints into their parents, each entry of
+// a parent owned by one thread, which adds the parent's children in
+// descending order as the serial sweep does, so every value comes out as
+// the serial code computes it.
+// ---------------------------------------------------------------------------
+
+// What a forward pass forms: RNEA_BIAS v, a without qdd, I v and f (fd_du's
+// bias pass); RNEA_AT_QDD a with qdd and f, reading v and I v (fd_du's pass
+// at its qdd); RNEA_FULL v, a with qdd, I v and f (id_du's one pass).
+enum RneaMode { RNEA_BIAS, RNEA_AT_QDD, RNEA_FULL };
+
+// The forward pass, a level a phase: row r of v_i and of a_i (a reads all
+// of v_i, so a level's a comes a phase after its v: phase l + 1 holds a of
+// level l and v of level l + 1); then I v_i and f_i = I a_i + crf(v_i)
+// I v_i, a joint a thread.
+template <typename T>
+struct RneaView {
+  const T* qd;
+  const T* qdd;
+  T* X;
+  T* v;
+  T* a;
+  T* f;
+  T* Iv;
+  const T* g;   // gravity's spatial acceleration (6)
+};
+
+template <RneaMode MODE, typename T, int NJ, class Rb, class Par>
+GT_HDI void rnea_forward_knot(const Par& par, const Rb& R,
+                              const RneaView<T>& V, int nlev) {
+  constexpr int W = Par::LANES;
+  constexpr bool with_qdd = MODE != RNEA_BIAS, with_v = MODE != RNEA_AT_QDD;
+  const T* qd = V.qd;
+  const T* qdd = V.qdd;
+  const T* X = V.X;
+  T* v = V.v;
+  T* a = V.a;
+  T* f = V.f;
+  T* Iv = V.Iv;
+  const T* g = V.g;
+  auto v_row = [&](int i, int r) {
+    const int p = R.parent[i];
+    T x = p == -1 ? T(0) : xrow(X + 36 * i, v + 6 * p, r);
+    if (r == R.sind[i]) x = p == -1 ? qd[i] : x + qd[i];
+    v[6 * i + r] = x;
+  };
+  auto a_row = [&](int i, int r) {
+    const int p = R.parent[i], s = R.sind[i];
+    T x;
+    if (p == -1) {
+      x = xrow(X + 36 * i, g, r);
+    } else {
+      T vJ[6];
+      for (int m = 0; m < 6; ++m) vJ[m] = m == s ? qd[i] : T(0);
+      x = xrow(X + 36 * i, a + 6 * p, r) + crm_k(v + 6 * i, vJ, r);
+    }
+    if (with_qdd && r == s) x += qdd[i];
+    a[6 * i + r] = x;
+  };
+  if (with_v) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      level<6>(d, R, 0, v_row);
+    });
+  }
+  for (int l = 0; l < nlev; ++l) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      level<6>(d, R, l, a_row);
+      if (with_v && l + 1 < nlev) level<6>(d, R, l + 1, v_row);
+    });
+  }
+  par([&](int t) {
+    for (int i = t; i < NJ; i += W) {
+      T iv[6], ia[6], c[6];
+      if (!with_v) {
+        for (int m = 0; m < 6; ++m) iv[m] = Iv[6 * i + m];
+      } else {
+        Xv(R.Imat(i), v + 6 * i, iv);
+        for (int m = 0; m < 6; ++m) Iv[6 * i + m] = iv[m];
+      }
+      Xv(R.Imat(i), a + 6 * i, ia);
+      cross_fv(v + 6 * i, iv, c);
+      for (int m = 0; m < 6; ++m) f[6 * i + m] = ia[m] + c[m];
+    }
+  });
+}
+
+// The backward pass: f_p += X_c^T f_c, a level a phase.
+template <typename T, class Rb, class Par>
+GT_HDI void rnea_backward_knot(const Par& par, const Rb& R,
+                               const RneaView<T>& V, int nlev) {
+  constexpr int W = Par::LANES;
+  const T* X = V.X;
+  T* f = V.f;
+  for (int l = nlev - 1; l >= 1; --l) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      children<6>(d, R, l, [&](int p, int r, int ch) {
+        f[6 * p + r] += xcol(X + 36 * ch, f + 6 * ch, r);
+      });
+    });
+  }
+}
+
+// The ID gradient dc/d[q, qd] on the accumulated forces of rnea_backward_knot,
+// one column a thread, in PASSES phases of 2 NJ / PASSES columns (2: the q
+// columns, then the qd ones; 1: all 2 NJ at once), each thread over its
+// column's dv/da/df in COL (column fastest). For column j, dv_i and da_i
+// are zero unless i lies in subtree(j), and df_i unless i lies in
+// subtree(j) or on the path from the root to j (RobotConst: rlist), so each
+// thread walks those joints only: step n of every thread is the n-th joint
+// of its own list, so the threads run one path (walking all joints, the
+// warp would run every joint some column needs). Each thread hands its
+// column's dc (NJ) to sink(pass, t, dc): column pass * 2 NJ / PASSES + t
+// in [q, qd] order.
+template <typename T, int NJ, class O, int PASSES, class Rb, class Par,
+          class Sink>
+GT_HDI void id_grad_columns_knot(const Par& par, const Rb& R, T* k,
+                                 T gravity, Sink&& sink) {
+  constexpr int COLS = 2 * NJ / PASSES;
+  static_assert(PASSES == 1 || PASSES == 2, "one or two column passes");
+  static_assert(COLS <= Par::LANES, "a thread per gradient column");
+  const T* qd = k + O::QD;
+  const T* X = k + O::X;
+  const T* v = k + O::V;
+  const T* a = k + O::A;
+  const T* f = k + O::F;
+  const T* Iv = k + O::IV;
+  T* col = k + O::COL;
+  const T g[6] = {0, 0, 0, 0, 0, -gravity};
+  for (int pass = 0; pass < PASSES; ++pass) par([&](int t) {
+    if (t >= COLS) return;
+    const bool isq = PASSES == 2 ? pass == 0 : t < NJ;
+    const int j = PASSES == 2 || t < NJ ? t : t - NJ;
+    const int r0 = R.rstart[j], nsub = R.rsub[j];
+    auto st = [&](int i, int m) -> T& { return col[(i * 18 + m) * COLS + t]; };
+    // forward over subtree(j), ascending: j first
+    for (int n = r0 + nsub - 1; n >= r0; --n) {
+      const int i = R.rlist[n], p = R.parent[i], s = R.sind[i];
+      const bool at_j = i == j;
+      const T* Xi = X + 36 * i;
+      T e[6], dv[6], da[6], tv[6], mv[6];
+      unit6(s, e);
+      // dv_i = X dv_p + [i == j] (crm(X v_p) S | S)
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int m = 0; m < 6; ++m)
+        dv[m] = at_j ? T(0) : xmrow(Xi, &st(p, 0), m, COLS);
+      if (at_j) {
+        if (isq) {
+          if (p != -1) {
+            Xmv(Xi, v + 6 * p, tv);
+            cross_mv(tv, e, mv);
+            for (int m = 0; m < 6; ++m) dv[m] += mv[m];
+          }
+        } else {
+          for (int m = 0; m < 6; ++m) dv[m] += e[m];
+        }
+      }
+      // da_i = crm(dv_i) S qd_i + [i == j] (crm(X a_p) S | crm(v_i) S)
+      //        + X da_p
+      cross_mv(dv, e, mv);
+      for (int m = 0; m < 6; ++m) da[m] = mv[m] * qd[i];
+      if (at_j) {
+        if (isq) {
+          if (p == -1) {
+            Xmv(Xi, g, tv);
+          } else {
+            Xmv(Xi, a + 6 * p, tv);
+          }
+          cross_mv(tv, e, mv);
+        } else {
+          cross_mv(v + 6 * i, e, mv);
+        }
+        for (int m = 0; m < 6; ++m) da[m] += mv[m];
+      } else {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int m = 0; m < 6; ++m) da[m] += xmrow(Xi, &st(p, 6), m, COLS);
+      }
+      // df_i = crf(dv_i) I v_i + I da_i + crf(v_i) I dv_i
+      T t1[6], t2[6], t3[6];
+      cross_fv(dv, Iv + 6 * i, t1);
+      Xv(R.Imat(i), da, t2);
+      Xv(R.Imat(i), dv, tv);
+      cross_fv(v + 6 * i, tv, t3);
+      for (int m = 0; m < 6; ++m) {
+        st(i, m) = dv[m];
+        st(i, 6 + m) = da[m];
+        st(i, 12 + m) = t1[m] + t2[m] + t3[m];
+      }
+    }
+    // the ancestors' df start at zero, but for j's parent in a q column,
+    // which starts at d(X_j^T)/dq_j f_j = X_j^T crf(S_j) f_j; the backward
+    // pass adds each related joint into its parent, descending
+    T dxf[6] = {0, 0, 0, 0, 0, 0};
+    if (isq) {
+      T e[6], mv[6];
+      unit6(R.sind[j], e);
+      cross_fv(e, f + 6 * j, mv);
+      XmTv(X + 36 * j, mv, dxf);
+    }
+    unsigned related = 0;
+    for (int n = r0; n < R.rstart[j + 1]; ++n) {
+      const int i = R.rlist[n];
+      related |= 1u << i;
+      if (n >= r0 + nsub) {
+        const bool jp = i == R.parent[j];
+        for (int m = 0; m < 6; ++m) st(i, 12 + m) = jp ? dxf[m] : T(0);
+      }
+    }
+    for (int n = r0; n < R.rstart[j + 1]; ++n) {
+      const int i = R.rlist[n], p = R.parent[i];
+      if (p == -1) continue;
+      T tv[6];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int m = 0; m < 6; ++m)
+        tv[m] = xmcol(X + 36 * i, &st(i, 12), m, COLS);
+      for (int m = 0; m < 6; ++m) st(p, 12 + m) += tv[m];
+    }
+    T dc[NJ];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int i = 0; i < NJ; ++i) {
+      const T x = st(i, 12 + R.sind[i]);   // stale unless related
+      dc[i] = ((related >> i) & 1u ? x : T(0)) +
+              ((!isq && i == j) ? R.damping(i) : T(0));
+    }
+    sink(pass, t, dc);
+  });
+}
+
 // df/du, qdd and Minv of the knot whose q, qd, u sit at FDKnot's offsets in
 // `k` (Carpentier's Minv, the bias RNEA, qdd = Minv (u - c), RNEA at qdd,
 // the analytical ID gradient dc/d[q, qd] one column a thread, df/du =
 // -Minv dc/du): the arithmetic of dynamics.cuh's fd_from_x and
-// id_du_columns, split over the knot's threads. The tree passes take a
-// phase a level (RobotConst), a row or entry of each joint of the level a
-// thread; a backward pass adds a level's joints into their parents, each
-// entry of a parent owned by one thread, which adds the parent's children
-// in descending order as the serial sweep does, so every value comes out
-// as the serial code computes it.
+// id_du_columns, split over the knot's threads.
 template <typename T, int NJ, class Rb, class Par>
 GT_HD void fd_du_knot(const Par& par, const Rb& R, T* k, T gravity) {
   using O = FDKnot<NJ>;
@@ -394,9 +639,9 @@ GT_HD void fd_du_knot(const Par& par, const Rb& R, T* k, T gravity) {
   T* Dinv = k + O::DINV;
   T* tmp = k + O::TMP;
   T* XU = k + O::XU;
-  T* col = k + O::COL;
   const T g[6] = {0, 0, 0, 0, 0, -gravity};
   const int nlev = R.nlev;
+  const RneaView<T> rv{qd, qdd, X, v, a, f, Iv, g};
 
   // joint transforms (a joint a thread); Minv's IA and F set up
   par([&](int t) {
@@ -405,74 +650,8 @@ GT_HD void fd_du_knot(const Par& par, const Rb& R, T* k, T gravity) {
     for (int e = t; e < 6 * NJ * NJ; e += W) FM[e] = T(0);
   });
 
-  // The RNEA, a level a phase. Row r of v_i and of a_i (`with_qdd` adds
-  // qdd; reads all of v_i, so a level's a comes a phase after its v); then
-  // I v_i (the bias pass) and f_i = I a_i + crf(v_i) I v_i, a joint a
-  // thread.
-  auto v_row = [&](int i, int r) {
-    const int p = R.parent[i];
-    T x = p == -1 ? T(0) : xrow(X + 36 * i, v + 6 * p, r);
-    if (r == R.sind[i]) x = p == -1 ? qd[i] : x + qd[i];
-    v[6 * i + r] = x;
-  };
-  auto a_row = [&](int i, int r, bool with_qdd) {
-    const int p = R.parent[i], s = R.sind[i];
-    T x;
-    if (p == -1) {
-      x = xrow(X + 36 * i, g, r);
-    } else {
-      T vJ[6];
-      for (int m = 0; m < 6; ++m) vJ[m] = m == s ? qd[i] : T(0);
-      x = xrow(X + 36 * i, a + 6 * p, r) + crm_k(v + 6 * i, vJ, r);
-    }
-    if (with_qdd && r == s) x += qdd[i];
-    a[6 * i + r] = x;
-  };
-  // phase l + 1 of a forward pass: a of level l, v of level l + 1 (the
-  // bias pass only); then I v and f
-  auto rnea_forward = [&](bool with_qdd) {
-    if (!with_qdd) {
-      par([&](int t) {
-        Deal<W> d{t, 0};
-        level<6>(d, R, 0, v_row);
-      });
-    }
-    for (int l = 0; l < nlev; ++l) {
-      par([&](int t) {
-        Deal<W> d{t, 0};
-        level<6>(d, R, l, [&](int i, int r) { a_row(i, r, with_qdd); });
-        if (!with_qdd && l + 1 < nlev) level<6>(d, R, l + 1, v_row);
-      });
-    }
-    par([&](int t) {
-      for (int i = t; i < NJ; i += W) {
-        T iv[6], ia[6], c[6];
-        if (with_qdd) {
-          for (int m = 0; m < 6; ++m) iv[m] = Iv[6 * i + m];
-        } else {
-          Xv(R.Imat(i), v + 6 * i, iv);
-          for (int m = 0; m < 6; ++m) Iv[6 * i + m] = iv[m];
-        }
-        Xv(R.Imat(i), a + 6 * i, ia);
-        cross_fv(v + 6 * i, iv, c);
-        for (int m = 0; m < 6; ++m) f[6 * i + m] = ia[m] + c[m];
-      }
-    });
-  };
-  // backward pass: f_p += X_c^T f_c, a level a phase
-  auto rnea_backward = [&]() {
-    for (int l = nlev - 1; l >= 1; --l) {
-      par([&](int t) {
-        Deal<W> d{t, 0};
-        children<6>(d, R, l, [&](int p, int r, int ch) {
-          f[6 * p + r] += xcol(X + 36 * ch, f + 6 * ch, r);
-        });
-      });
-    }
-  };
-
-  rnea_forward(false);
-  rnea_backward();
+  rnea_forward_knot<RNEA_BIAS, T, NJ>(par, R, rv, nlev);
+  rnea_backward_knot<T>(par, R, rv, nlev);
 
   // Minv, backward pass (deepest level first): (A) per joint i of the
   // level, row i of the factor M_i, U_i, Dinv_i, X_i^T U_i and tmp_i =
@@ -568,119 +747,13 @@ GT_HD void fd_du_knot(const Par& par, const Rb& R, T* k, T gravity) {
   });
 
   // RNEA at qdd (v and I v are unchanged); f accumulates into the parents
-  rnea_forward(true);
-  rnea_backward();
+  rnea_forward_knot<RNEA_AT_QDD, T, NJ>(par, R, rv, nlev);
+  rnea_backward_knot<T>(par, R, rv, nlev);
 
-  // The ID gradient, one column a thread, the q columns in one phase and
-  // the qd columns in the next (column NJ pass + j: d/dq_j, then d/dqd_j),
-  // each over its own dv/da/df in `col` (column fastest). For column j, dv_i
-  // and da_i are zero unless i lies in subtree(j), and df_i unless i lies
-  // in subtree(j) or on the path from the root to j (RobotConst: rlist), so
-  // each thread walks those joints only: step n of every thread is the
-  // n-th joint of its own list, so the threads run one path (walking all
-  // joints, the warp would run every joint some column needs). Then the
-  // thread's column of df/du = -Minv dc.
-  for (int pass = 0; pass < 2; ++pass) par([&](int t) {
-    if (t >= NJ) return;
-    const bool isq = pass == 0;
-    const int j = t, r0 = R.rstart[j], nsub = R.rsub[j];
-    auto st = [&](int i, int m) -> T& { return col[(i * 18 + m) * NJ + t]; };
-    // forward over subtree(j), ascending: j first
-    for (int n = r0 + nsub - 1; n >= r0; --n) {
-      const int i = R.rlist[n], p = R.parent[i], s = R.sind[i];
-      const bool at_j = i == j;
-      const T* Xi = X + 36 * i;
-      T e[6], dv[6], da[6], tv[6], mv[6];
-      unit6(s, e);
-      // dv_i = X dv_p + [i == j] (crm(X v_p) S | S)
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-      for (int m = 0; m < 6; ++m)
-        dv[m] = at_j ? T(0) : xmrow(Xi, &st(p, 0), m, NJ);
-      if (at_j) {
-        if (isq) {
-          if (p != -1) {
-            Xmv(Xi, v + 6 * p, tv);
-            cross_mv(tv, e, mv);
-            for (int m = 0; m < 6; ++m) dv[m] += mv[m];
-          }
-        } else {
-          for (int m = 0; m < 6; ++m) dv[m] += e[m];
-        }
-      }
-      // da_i = crm(dv_i) S qd_i + [i == j] (crm(X a_p) S | crm(v_i) S)
-      //        + X da_p
-      cross_mv(dv, e, mv);
-      for (int m = 0; m < 6; ++m) da[m] = mv[m] * qd[i];
-      if (at_j) {
-        if (isq) {
-          if (p == -1) {
-            Xmv(Xi, g, tv);
-          } else {
-            Xmv(Xi, a + 6 * p, tv);
-          }
-          cross_mv(tv, e, mv);
-        } else {
-          cross_mv(v + 6 * i, e, mv);
-        }
-        for (int m = 0; m < 6; ++m) da[m] += mv[m];
-      } else {
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-        for (int m = 0; m < 6; ++m) da[m] += xmrow(Xi, &st(p, 6), m, NJ);
-      }
-      // df_i = crf(dv_i) I v_i + I da_i + crf(v_i) I dv_i
-      T t1[6], t2[6], t3[6];
-      cross_fv(dv, Iv + 6 * i, t1);
-      Xv(R.Imat(i), da, t2);
-      Xv(R.Imat(i), dv, tv);
-      cross_fv(v + 6 * i, tv, t3);
-      for (int m = 0; m < 6; ++m) {
-        st(i, m) = dv[m];
-        st(i, 6 + m) = da[m];
-        st(i, 12 + m) = t1[m] + t2[m] + t3[m];
-      }
-    }
-    // the ancestors' df start at zero, but for j's parent in a q column,
-    // which starts at d(X_j^T)/dq_j f_j = X_j^T crf(S_j) f_j; the backward
-    // pass adds each related joint into its parent, descending
-    T dxf[6] = {0, 0, 0, 0, 0, 0};
-    if (isq) {
-      T e[6], mv[6];
-      unit6(R.sind[j], e);
-      cross_fv(e, f + 6 * j, mv);
-      XmTv(X + 36 * j, mv, dxf);
-    }
-    unsigned related = 0;
-    for (int n = r0; n < R.rstart[j + 1]; ++n) {
-      const int i = R.rlist[n];
-      related |= 1u << i;
-      if (n >= r0 + nsub) {
-        const bool jp = i == R.parent[j];
-        for (int m = 0; m < 6; ++m) st(i, 12 + m) = jp ? dxf[m] : T(0);
-      }
-    }
-    for (int n = r0; n < R.rstart[j + 1]; ++n) {
-      const int i = R.rlist[n], p = R.parent[i];
-      if (p == -1) continue;
-      T tv[6];
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-      for (int m = 0; m < 6; ++m) tv[m] = xmcol(X + 36 * i, &st(i, 12), m, NJ);
-      for (int m = 0; m < 6; ++m) st(p, 12 + m) += tv[m];
-    }
-    T dc[NJ];
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-    for (int i = 0; i < NJ; ++i) {
-      const T x = st(i, 12 + R.sind[i]);   // stale unless related
-      dc[i] = ((related >> i) & 1u ? x : T(0)) +
-              ((!isq && i == j) ? R.damping(i) : T(0));
-    }
+  // the ID gradient in two passes of NJ columns, then each column of
+  // df/du = -Minv dc, by the column's thread
+  id_grad_columns_knot<T, NJ, O, 2>(par, R, k, gravity,
+                                    [&](int pass, int t, const T* dc) {
     for (int r = 0; r < NJ; ++r) {
       T acc = Mi[r * NJ] * dc[0];
 #ifdef __CUDACC__
@@ -689,6 +762,59 @@ GT_HD void fd_du_knot(const Par& par, const Rb& R, T* k, T gravity) {
       for (int m = 1; m < NJ; ++m) acc += Mi[r * NJ + m] * dc[m];
       k[O::DFDU + r * NC + pass * NJ + t] = -acc;
     }
+  });
+}
+
+// ---------------------------------------------------------------------------
+// id_du: one knot's state and program, fd_du's without Minv
+// ---------------------------------------------------------------------------
+
+// The knot's inputs q, qd, qdd, its output dc/du (NJ, 2 NJ), the joint
+// transforms, v, a, f, I v and the columns' state (NJ, 18, 2 NJ / PASSES):
+// 20 NJ^2 + 63 NJ values with two passes (1421 at 7 joints, 6128 at 16),
+// 38 NJ^2 + 63 NJ with one.
+template <int NJ, int PASSES>
+struct IDUKnot {
+  static constexpr int NC = 2 * NJ, COLS = NC / PASSES;
+  static constexpr int Q = 0, QD = Q + NJ, QDD = QD + NJ;
+  static constexpr int DC = QDD + NJ;          // (NJ, 2 NJ) dc/d[q, qd]
+  static constexpr int X = DC + NJ * NC;       // (NJ, 36)
+  static constexpr int V = X + 36 * NJ, A = V + 6 * NJ, F = A + 6 * NJ;
+  static constexpr int IV = F + 6 * NJ;
+  static constexpr int COL = IV + 6 * NJ;      // (NJ, 18, COLS)
+  static constexpr int SIZE = COL + 18 * NJ * COLS;
+};
+
+// The column passes of id_du: one pass of 2 NJ columns runs the q and qd
+// columns side by side, where each of two passes leaves half the knot's
+// column threads idle (compare_kernels.py times both; PERF.md).
+template <int NJ>
+GT_HDI constexpr int idu_passes() { return 1; }
+
+// dc/d[q, qd] of the knot whose q, qd, qdd sit at IDUKnot's offsets in `k`
+// (dynamics.cuh:id_du_lane, split over the knot's threads): the joint
+// transforms a joint a thread, one RNEA forward at qdd that also forms
+// I v, the backward accumulation, then the ID-gradient columns, each
+// column's dc stored by its thread.
+template <typename T, int NJ, int PASSES, class Rb, class Par>
+GT_HD void id_du_knot(const Par& par, const Rb& R, T* k, T gravity) {
+  using O = IDUKnot<NJ, PASSES>;
+  static_assert(NJ <= Par::LANES, "a thread per joint");
+  par([&](int t) {
+    if (t < NJ)
+      joint_xmat(R.Xtree(t), R.jtype[t], R.sind[t], k[O::Q + t],
+                 k + O::X + 36 * t);
+  });
+  const int nlev = R.nlev;
+  const T g[6] = {0, 0, 0, 0, 0, -gravity};
+  const RneaView<T> rv{k + O::QD, k + O::QDD, k + O::X, k + O::V,
+                       k + O::A,  k + O::F,   k + O::IV, g};
+  rnea_forward_knot<RNEA_FULL, T, NJ>(par, R, rv, nlev);
+  rnea_backward_knot<T>(par, R, rv, nlev);
+  id_grad_columns_knot<T, NJ, O, PASSES>(par, R, k, gravity,
+                                         [&](int pass, int t, const T* dc) {
+    for (int r = 0; r < NJ; ++r)
+      k[O::DC + r * O::NC + pass * O::COLS + t] = dc[r];
   });
 }
 
@@ -1086,6 +1212,332 @@ GT_HD void fdsva_so_knot(const Par& par, const Rb& R, const SOLists<NJ>& lists,
 }
 
 // ---------------------------------------------------------------------------
+// d2eepos: a group of threads a lane, its EE chain's state in shared memory
+// ---------------------------------------------------------------------------
+
+// The block's head: the joints' Ttree and type, and the EE the block is
+// at: its fixed frame and its chain (joints ascending, root to leaf;
+// pos[j] a joint's place in it, -1 off it). Every lane of a block is at
+// the same EE.
+template <typename T, int NJ>
+struct EEHead {
+  T tt[16 * NJ];
+  // each joint's twist (omega, v) Lambda = Ttree K Ttree^-1 of its
+  // generator K: a revolute joint's axis e_ax (omega = R e_ax, v = p x
+  // omega), a prismatic one's e_sind-3 (omega = 0, v = R e); Ttree = [R p;
+  // 0 1]
+  T lam[6 * NJ];
+  T tfix[16];
+  int jtype[NJ];
+  int sind[NJ];
+  int k;
+  int chain[NJ];
+  int pos[NJ];
+
+  GT_HD void load(const T* model, int tid, int nthreads) {
+    using L = Layout<NJ>;
+    for (int e = tid; e < 16 * NJ; e += nthreads) tt[e] = model[L::TTREE + e];
+    for (int i = tid; i < NJ; i += nthreads) {
+      jtype[i] = (int)model[L::JTYPE + i];
+      sind[i] = (int)model[L::SIND + i];
+      const T* TT = model + L::TTREE + 16 * i;
+      const int ax = sind[i] % 3;
+      T* o = lam + 6 * i;
+      for (int r = 0; r < 3; ++r) {
+        o[r] = jtype[i] == 0 ? TT[r * 4 + ax] : T(0);
+        o[3 + r] = jtype[i] == 0 ? T(0) : TT[r * 4 + ax];
+      }
+      if (jtype[i] == 0)
+        for (int r = 0; r < 3; ++r) {
+          const int a = (r + 1) % 3, b = (r + 2) % 3;
+          o[3 + r] = TT[a * 4 + 3] * o[b] - TT[b * 4 + 3] * o[a];
+        }
+    }
+  }
+  // the EE of row `row` (EERow<NJ>), a joint's place in its chain a thread
+  GT_HD void select(const T* row, int tid, int nthreads) {
+    using E = EERow<NJ>;
+    for (int e = tid; e < 16; e += nthreads) tfix[e] = row[E::TFIX + e];
+    for (int j = tid; j < NJ; j += nthreads) {
+      int before = 0;
+      for (int i = 0; i < j; ++i) before += row[E::CHAIN + i] != T(0) ? 1 : 0;
+      const bool on = row[E::CHAIN + j] != T(0);
+      pos[j] = on ? before : -1;
+      if (on) chain[before] = j;
+      if (j == NJ - 1) k = before + (on ? 1 : 0);
+    }
+  }
+};
+
+// Ttree J for J the joint's motion T_j(q), dT_j/dq or d2T_j/dq2 (`which`
+// 0, 1, 2; dynamics.cuh's joint_T, joint_dT, joint_d2T), by columns of
+// Ttree: a revolute joint turns the plane (p, r) = ((ax + 1) % 3, (ax + 2)
+// % 3) of its axis ax, J[p][p] = J[r][r] = d^w cos, J[r][p] = -J[p][r] =
+// d^w sin, J[ax][ax] = J[3][3] = [w == 0]; a prismatic one moves along
+// sind - 3. Each entry is its two or one non-zero products, in registers.
+template <typename T>
+GT_HDI void joint_mat(const T* TT, int jtype, int sind, int which, T qi,
+                      T* out) {
+  const T one = which == 0 ? T(1) : T(0);
+  if (jtype == 0) {
+    const T co = gcos(qi), si = gsin(qi);
+    const T cw = which == 0 ? co : which == 1 ? -si : -co;
+    const T sw = which == 0 ? si : which == 1 ? co : -si;
+    const int ax = sind % 3, p = (ax + 1) % 3, r = (ax + 2) % 3;
+    for (int i = 0; i < 4; ++i) {
+      const T tp = TT[i * 4 + p], tr = TT[i * 4 + r];
+      out[i * 4 + ax] = TT[i * 4 + ax] * one;
+      out[i * 4 + p] = tp * cw + tr * sw;
+      out[i * 4 + r] = tr * cw - tp * sw;
+      out[i * 4 + 3] = TT[i * 4 + 3] * one;
+    }
+  } else {
+    const int tr = sind - 3;
+    for (int i = 0; i < 4; ++i) {
+      for (int c = 0; c < 3; ++c) out[i * 4 + c] = TT[i * 4 + c] * one;
+      out[i * 4 + 3] = which == 0   ? TT[i * 4 + 3] + qi * TT[i * 4 + tr]
+                       : which == 1 ? TT[i * 4 + tr]
+                                    : T(0);
+    }
+  }
+}
+
+// One lane's state at one EE, by chain position a < k: q; the joint
+// transforms T_a (4x4); the prefixes pre_a = T_0 ... T_a-1 (a = 2 .. k -
+// 1; pre_1 is T_0), rows 0-2; the suffixes suf_a = T_a+1 ... T_k-1 Tfix
+// (a <= k - 2; suf_k-1 is Tfix); the twists xi_a = Ad(pre_a) lambda_a
+// (omega, v) of dT/dq_a = Xi_a F (Xi_a = [skew(omega) v; 0 0] = pre_a dT_a
+// T_a^-1 pre_a^-1); rows 0-2 of dTf_a = Xi_a F; rows 0-2 of the chain's
+// full transform F = T_0 suf_0; and the lane's (6, NJ, NJ) Hessian block
+// of the EE by chain positions: 63 NJ + 6 NJ^2 + 12 values (747 at 7
+// joints, 2556 at 16).
+template <int NJ>
+struct D2Knot {
+  static constexpr int Q = 0;
+  static constexpr int TS = Q + NJ, PRE = TS + 16 * NJ, SUF = PRE + 12 * NJ;
+  static constexpr int XI = SUF + 16 * NJ, DTF = XI + 6 * NJ;
+  static constexpr int FULL = DTF + 12 * NJ;
+  static constexpr int TILE = FULL + 12;
+  static constexpr int SIZE = TILE + 6 * NJ * NJ;
+};
+
+// entry (r, c) of A B, 4x4 (dynamics.cuh:mm44's arithmetic)
+template <typename T>
+GT_HDI T mm44_rc(const T* A, const T* B, int r, int c) {
+  T acc = A[r * 4] * B[c];
+  for (int m = 1; m < 4; ++m) acc += A[r * 4 + m] * B[m * 4 + c];
+  return acc;
+}
+
+// component r of (a x b), 3-vectors at strides sa, sb
+template <typename T>
+GT_HDI T cross3_r(const T* a, int sa, const T* b, int sb, int r) {
+  const int i = (r + 1) % 3, j = (r + 2) % 3;
+  return a[i * sa] * b[j * sb] - a[j * sa] * b[i * sb];
+}
+
+// The (6, NJ, NJ) pose Hessian block of one lane at the block's EE
+// (H.select): dynamics.cuh:ee_hess_lane's function, in the frame of the
+// chain's full transform F = T_0 ... T_k-1 Tfix, formed as the chain form
+// forms it, T_0 suf_0 (formed as pre_k Tfix, F's float32 rounding moved
+// the Hessian of a near-singular pose, where atan2's 1/r^3 terms amplify
+// it, far from the plain version's). A joint's derivative is
+// dT_a = Lambda_a T_a, with Lambda_a = Ttree K Ttree^-1 a constant twist
+// of the joint (EEHead::lam; K its generator, K^2 = d2T_a T_a^-1 Ttree
+// conjugated away), so with Xi_a = pre_a Lambda_a pre_a^-1:
+// dF/dq_a = Xi_a F, and for a <= b d2F/dq_a dq_b = Xi_a Xi_b F (the
+// chain form's pre_a dT_a T_a+1 ... T_b-1 dT_b suf_b, and pre_a d2T_a
+// suf_a on the diagonal). Split over the group's threads:
+// 1. T_a, a chain joint's matrix a thread (joint_mat);
+// 2. k - 1 phases of the prefix and suffix products, an entry a thread;
+// 3. xi_a = Ad(pre_a) lambda_a, a component a thread, and F;
+// 4. dTf_a = Xi_a F, rows 0-2, an entry a thread (omega_a x F's columns);
+// 5. the pairs a <= b, a pair a thread: Xi_a dTf_b at the 8 entries
+//    pose_hvp reads (omega_a x dTf_b's columns), then pose_hvp at F along
+//    dTf_a and dTf_b. STAGE: into the knot's tile by chain positions, both
+//    triangles (d2eepos_store writes them out); else straight to `out`
+//    (the EE's block, entry (0, 0, 0) of lane 0) at lane `lane` < L.
+// Only rows 0-2 of a transform are formed (row 3 is [0 0 0 1]).
+template <typename T, int NJ, bool STAGE, class Par>
+GT_HD void d2eepos_knot(const Par& par, const EEHead<T, NJ>& H, T* k, T* out,
+                        long long L, long long lane) {
+  using O = D2Knot<NJ>;
+  constexpr int W = Par::LANES;
+  const int kc = H.k;
+  if (kc == 0) return;
+  const T* q = k + O::Q;
+  T* TS = k + O::TS;
+  T* PRE = k + O::PRE;
+  T* XI = k + O::XI;
+  T* DTF = k + O::DTF;
+  T* FULL = k + O::FULL;
+  T* SUF = k + O::SUF;
+  // rows 0-2 of pre_s, s >= 1; suf_a
+  auto pre = [&](int s) -> const T* {
+    return s == 1 ? TS : PRE + 12 * s - 12;
+  };
+  auto suf = [&](int a) -> const T* {
+    return a == kc - 1 ? H.tfix : SUF + 16 * a;
+  };
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(kc, [&](int a) {
+      const int j = H.chain[a];
+      joint_mat(H.tt + 16 * j, H.jtype[j], H.sind[j], 0, q[j], TS + 16 * a);
+    });
+  });
+  // step s: suf_k-1-s = T_k-s suf_k-s and pre_s+1 = pre_s T_s (s + 1 <
+  // k); a suffix, a right factor, keeps its row 3
+  for (int s = 1; s < kc; ++s) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      d(s + 1 < kc ? 24 : 12, [&](int x) {
+        const int e = x % 12, r = e / 4, c = e % 4;
+        if (x < 12) {
+          T* o = SUF + 16 * (kc - 1 - s);
+          o[e] = mm44_rc(TS + 16 * (kc - s), suf(kc - s), r, c);
+          if (r == 2) o[12 + c] = c == 3 ? T(1) : T(0);
+        } else {
+          PRE[12 * s + e] = mm44_rc(pre(s), TS + 16 * s, r, c);
+        }
+      });
+    });
+  }
+  par([&](int t) {   // xi_a = (R omega, R v + p x R omega) of pre_a; F
+    Deal<W> d{t, 0};
+    d(6 * kc + 12, [&](int x) {
+      if (x < 6 * kc) {
+        const int a = x / 6, m = x % 6;
+        const T* lam = H.lam + 6 * H.chain[a];
+        if (a == 0) {
+          XI[m] = lam[m];
+          return;
+        }
+        const T* P = pre(a);
+        auto rot = [&](const T* w, int r) {
+          return P[r * 4] * w[0] + P[r * 4 + 1] * w[1] + P[r * 4 + 2] * w[2];
+        };
+        if (m < 3) {
+          XI[6 * a + m] = rot(lam, m);
+        } else {
+          const int r = m - 3, i = (r + 1) % 3, j = (r + 2) % 3;
+          XI[6 * a + m] = rot(lam + 3, r) + (P[i * 4 + 3] * rot(lam, j) -
+                                             P[j * 4 + 3] * rot(lam, i));
+        }
+      } else {
+        const int e = x - 6 * kc;
+        FULL[e] = mm44_rc(TS, suf(0), e / 4, e % 4);
+      }
+    });
+  });
+  par([&](int t) {   // dTf_a = Xi_a F: omega_a x F's column c (+ v_a, c = 3)
+    Deal<W> d{t, 0};
+    d(12 * kc, [&](int x) {
+      const int a = x / 12, r = (x % 12) / 4, c = x % 4;
+      const T* xi = XI + 6 * a;
+      T y = cross3_r(xi, 1, FULL + c, 4, r);
+      if (c == 3) y += xi[3 + r];
+      DTF[x] = y;
+    });
+  });
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(kc * (kc + 1) / 2, [&](int n) {   // pair n of the rows a <= b
+      int a = 0;
+      while (n >= kc - a) {
+        n -= kc - a;
+        ++a;
+      }
+      const int b = a + n;
+      const T* xi = XI + 6 * a;
+      const T* D = DTF + 12 * b;
+      T h[12];
+      for (int e = 0; e < 12; ++e) h[e] = T(0);
+      h[0] = cross3_r(xi, 1, D, 4, 0);
+      h[3] = cross3_r(xi, 1, D + 3, 4, 0);
+      h[4] = cross3_r(xi, 1, D, 4, 1);
+      h[7] = cross3_r(xi, 1, D + 3, 4, 1);
+      for (int c = 0; c < 4; ++c) h[8 + c] = cross3_r(xi, 1, D + c, 4, 2);
+      T p[6];
+      pose_hvp(FULL, DTF + 12 * a, D, h, p);
+      for (int r = 0; r < 6; ++r) {
+        if (STAGE) {
+          k[O::TILE + (r * NJ + a) * NJ + b] = p[r];
+          k[O::TILE + (r * NJ + b) * NJ + a] = p[r];
+        } else if (lane < L) {
+          const int i = H.chain[a], j = H.chain[b];
+          out[((long long)(r * NJ + i) * NJ + j) * L + lane] = p[r];
+          out[((long long)(r * NJ + j) * NJ + i) * L + lane] = p[r];
+        }
+      }
+    });
+  });
+}
+
+// Zeros into the rows of `out` (the EE's block, lane-major) whose row or
+// column joint is off the chain: rows first, first + STEP, ... of RUN
+// lanes from lane z0.
+template <typename T, int NJ, int RUN, int STEP>
+GT_HD void d2eepos_zero_rows(const EEHead<T, NJ>& H, T* out, long long L,
+                             long long z0, int first, int tid,
+                             int nthreads) {
+  constexpr int ROWS = 6 * NJ * NJ;
+  const int n = (ROWS - first + STEP - 1) / STEP;
+  for (int x = tid; x < n * RUN; x += nthreads) {
+    const int row = first + x / RUN * STEP;
+    const long long l = z0 + x % RUN;
+    if (l < L && (H.pos[row / NJ % NJ] < 0 || H.pos[row % NJ] < 0))
+      out[row * L + l] = T(0);
+  }
+}
+
+// The block's (6, NJ, NJ) blocks of its G lanes at the block's EE to
+// `out` (the EE's block, lane-major). The zeros, where the row or the
+// column joint is off the chain, need no lane's state: the QUAD groups of
+// G lanes that make a 128-byte run share them, group g writing the rows
+// g, g + QUAD, ... of all QUAD G lanes (a ragged last quad: each group its
+// own lanes). The chain's 6 k^2 rows come from each knot's tile (STAGE;
+// else d2eepos_knot wrote them), G consecutive lanes a row.
+template <typename T, int NJ, int S, int G, bool STAGE>
+GT_HD void d2eepos_store(const EEHead<T, NJ>& H, const T* knots, T* out,
+                         long long L, long long l0, int tid, int nthreads) {
+  constexpr int RUN = 128 / (G * (int)sizeof(T));
+  constexpr int QUAD = RUN > 1 ? RUN : 1;
+  const int kc = H.k;
+  if (kc < NJ) {
+    const long long g = l0 / G, groups = (L + G - 1) / G;
+    if ((g / QUAD + 1) * QUAD <= groups)
+      d2eepos_zero_rows<T, NJ, QUAD * G, QUAD>(H, out, L, g / QUAD * QUAD * G,
+                                               (int)(g % QUAD), tid,
+                                               nthreads);
+    else
+      d2eepos_zero_rows<T, NJ, G, 1>(H, out, L, l0, 0, tid, nthreads);
+  }
+  if (!STAGE) return;
+  const int k2 = kc * kc;
+  for (int x = tid; x < 6 * k2 * G; x += nthreads) {
+    const int e = x / G, g = x % G;
+    const long long l = l0 + g;
+    if (l >= L) continue;
+    const int r = e / k2, a = e / kc % kc, b = e % kc;
+    out[((r * NJ + H.chain[a]) * NJ + H.chain[b]) * L + l] =
+        knots[(long long)g * S + D2Knot<NJ>::TILE + (r * NJ + a) * NJ + b];
+  }
+}
+
+// The block reads the (NJ, G) tile of q (G consecutive lanes a row) into
+// its knots; lanes past L read zeros.
+template <typename T, int NJ, int KNOT>
+GT_HD void load_q(const T* q, long long L, long long l0, int G, T* knots,
+                  int tid, int nthreads) {
+  for (int e = tid; e < NJ * G; e += nthreads) {
+    const int r = e / G, g = e % G;
+    const long long l = l0 + g;
+    knots[(long long)g * KNOT + r] = l < L ? q[r * L + l] : T(0);
+  }
+}
+
+// ---------------------------------------------------------------------------
 // blocks: G knots after a head of block-wide constants
 // ---------------------------------------------------------------------------
 
@@ -1215,6 +1667,34 @@ using IDSOPlan = KnotShape<
                IDSOKnot<T, NJ>::STRIDE * (long long)sizeof(T),
                idso_lanes<NJ>(), so_regs<T>(), true)>;
 
+// id_du's plan: fd_du's head and threads a knot, its own knot (IDUKnot,
+// PASSES column passes), G the knots that put the most on an SM.
+template <typename T, int NJ, int PASSES = idu_passes<NJ>()>
+using IDUPlan = BlockPlan<T, RobotConst<T, NJ>, IDUKnot<NJ, PASSES>::SIZE,
+                          knot_lanes<NJ>(), fd_regs<T>()>;
+// d2eepos's plan: threads a lane and the store route by joint count, the
+// shape that ran fastest for the zoo's robots at their main shapes
+// (compare_kernels.py's shapes; PERF.md): up to 8 joints (a chain) 8
+// threads a lane, each pair's entries written straight out (four lanes a
+// warp: at 131072 iiwa lanes 1.7x the staged warp a lane, and as fast at
+// 1 and 1024); above, a warp a lane, its block staged (the wide trees'
+// short chains, most of the block zeros). G the largest power of 2 that
+// fits (its output rows are G consecutive lanes: 32-byte runs at G = 8 in
+// float32, 4 in float64).
+template <int NJ>
+GT_HDI constexpr int d2_lanes() { return NJ <= 8 ? 8 : WARP; }
+template <int NJ>
+GT_HDI constexpr bool d2_stage() { return NJ > 8; }
+template <typename T, int NJ>
+using D2Knot1 = KnotShape<T, EEHead<T, NJ>, D2Knot<NJ>::SIZE, d2_lanes<NJ>(),
+                          1>;
+template <typename T, int NJ>
+using D2Plan = KnotShape<
+    T, EEHead<T, NJ>, D2Knot<NJ>::SIZE, d2_lanes<NJ>(),
+    best_knots(D2Knot1<T, NJ>::HEAD,
+               D2Knot1<T, NJ>::STRIDE * (long long)sizeof(T), d2_lanes<NJ>(),
+               fd_regs<T>(), true)>;
+
 // Knot g of the block takes lane l0 + g. The block reads the (NJ, G) tiles
 // of q, qd and u (G consecutive lanes a row) into its knots; lanes past L
 // read zeros.
@@ -1318,6 +1798,70 @@ void idsva_so_host(const T* model, const T* q, const T* qd, const T* qdd,
     store_rows<T, O::SIZE>(k.data() + O::TILE, 4 * O::N3, out, L, l0, P::G,
                            0, 1);
   }
+}
+
+// id_du's block code with the card's G, each block's valid knots in turn
+template <typename T, int NJ, int PASSES = idu_passes<NJ>()>
+void id_du_host(const T* model, const T* q, const T* qd, const T* qdd,
+                T* dcdu, long long L, T gravity) {
+  using O = IDUKnot<NJ, PASSES>;
+  using P = IDUPlan<PlanType<T>, NJ, PASSES>;
+  static_assert(P::G >= 1, "one id_du knot must fit");
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load(model, 0, 1);
+  std::vector<T> k((long long)P::G * O::SIZE);
+  for (long long l0 = 0; l0 < L; l0 += P::G) {
+    for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+    load_inputs<T, NJ, O::SIZE>(q, qd, qdd, L, l0, P::G, k.data(), 0, 1);
+    for (int g = 0; g < P::G && l0 + g < L; ++g) {
+#ifdef GT_RACE_CHECK
+      gt_race_watch(k.data() + (long long)g * O::SIZE,
+                    O::SIZE * (long)sizeof(T));
+#endif
+      id_du_knot<T, NJ, PASSES>(HostPar<P::LANES>{}, R[0],
+                                k.data() + (long long)g * O::SIZE, gravity);
+    }
+    store_rows<T, O::SIZE>(k.data() + O::DC, 2 * NJ * NJ, dcdu, L, l0, P::G,
+                           0, 1);
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
+// d2eepos's block code with the card's G: at each EE, each block's valid
+// knots in turn, then the block's store
+template <typename T, int NJ, bool STAGE = d2_stage<NJ>()>
+void d2eepos_host(const T* model, const T* ee, int ne, const T* q, T* out,
+                  long long L) {
+  using O = D2Knot<NJ>;
+  using P = D2Plan<PlanType<T>, NJ>;
+  static_assert(P::G >= 1, "one d2eepos knot must fit");
+  std::vector<EEHead<T, NJ>> H(1);
+  H[0].load(model, 0, 1);
+  std::vector<T> k((long long)P::G * O::SIZE);
+  for (int e = 0; e < ne; ++e) {
+    H[0].select(ee + e * EERow<NJ>::SIZE, 0, 1);
+    T* oe = out + 6LL * e * NJ * NJ * L;
+    for (long long l0 = 0; l0 < L; l0 += P::G) {
+      for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+      load_q<T, NJ, O::SIZE>(q, L, l0, P::G, k.data(), 0, 1);
+      for (int g = 0; g < P::G && l0 + g < L; ++g) {
+#ifdef GT_RACE_CHECK
+        gt_race_watch(k.data() + (long long)g * O::SIZE,
+                      O::SIZE * (long)sizeof(T));
+#endif
+        d2eepos_knot<T, NJ, STAGE>(HostPar<P::LANES>{}, H[0],
+                                   k.data() + (long long)g * O::SIZE, oe, L,
+                                   l0 + g);
+      }
+      d2eepos_store<T, NJ, O::SIZE, P::G, STAGE>(H[0], k.data(), oe, L, l0,
+                                                 0, 1);
+    }
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
 }
 
 }  // namespace gt

@@ -3,10 +3,10 @@
 The counterpart of ``gridcodegenerator_tpu/ops/pallas/fuse.py``: where the
 JAX package tiles a batch axis over a Pallas grid and keeps the robot
 constants resident in VMEM, the port runs one thread per problem lane (fd_du,
-fdsva_so and idsva_so: one warp per lane; the Riccati sweeps a warp per
-problem; linesearch_rollout, rollout and feedback_rollout a group of
-threads per rollout; the constants copied into shared memory once a
-block), masks the ragged last block, and hands
+fdsva_so, idsva_so, id_du and d2eepos: a warp or a part of one per lane;
+the Riccati sweeps a warp per problem; linesearch_rollout, rollout and
+feedback_rollout a group of threads per rollout; the constants copied into
+shared memory once a block), masks the ragged last block, and hands
 the robot constants over in one packed device buffer (:func:`model_buffer`;
 the end-effector kernels also take one row per EE, :func:`ee_buffer`).
 
@@ -182,6 +182,8 @@ _SIGNATURES = {
     "gridtorch_rollout_info": (_I, _I, _P),
     "gridtorch_idsva_so_info": (_I, _I, _P),
     "gridtorch_feedback_rollout_info": (_I, _I, _P),
+    "gridtorch_id_du_info": (_I, _I, _P),
+    "gridtorch_d2eepos_info": (_I, _I, _P),
     "gridtorch_d2eepos": (_I, _I, _P, _P, _I, _P, _P, _L, _P),
     "gridtorch_feedback_rollout": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _I, _L, _D, _D, _P),
@@ -213,7 +215,7 @@ INFO_FIELDS = ("knots_per_block", "threads_per_knot", "smem_bytes_per_block",
 # riccati_stacked: its instance with a block per knot)
 WARP_KERNELS = ("fd_du", "fdsva_so", "riccati_factored", "linesearch",
                 "riccati", "riccati_stacked", "rollout", "idsva_so",
-                "feedback_rollout")
+                "feedback_rollout", "id_du", "d2eepos")
 
 
 def warp_kernel_info(what: str, nj: int, dtype) -> dict:

@@ -9,12 +9,13 @@ sweeps a "lane" is one problem over all N knots (the line search: one step
 size of one problem). The lane code's work depends on the topology and the
 shapes, not on the values, so one lane counts what every lane of a launch
 does. By default it counts the arithmetic the function needs: constants
-(literals, the robot's constants) folded, and IDSVA-SO's D1-D4 formed once
+(literals, the robot's constants) folded, IDSVA-SO's D1-D4 formed once
 per joint with each product D x computed once, as the reference algorithm
-does; ``executed=True`` counts every operation the kernel's lane code does
-(the thread-group kernels, fd_du, fdsva_so, riccati_factored and
-linesearch_rollout: every thread of the knot's, problem's or rollout's
-group, phase by phase, as ``HostPar`` runs them).
+does, and d2eepos by the cheaper of the chain form and the kernel's twist
+form; ``executed=True`` counts every operation the kernel's lane code does
+(the thread-group kernels, fd_du, fdsva_so, idsva_so, id_du, d2eepos, the
+Riccati sweeps and the rollouts: every thread of the knot's, lane's,
+problem's or rollout's group, phase by phase, as ``HostPar`` runs them).
 
 ``bound_ms(ops, nbytes, dtype)`` is the least time one NVIDIA H100 SXM could
 take for that work: the larger of the bytes over the memory rate and the

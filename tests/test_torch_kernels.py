@@ -402,8 +402,8 @@ extern "C" long touch_count() { return g_touches; }
 
 // the warp kernels' block plans: {G, threads a knot, bytes a block, rows
 // a block} of fd_du, fdsva_so, riccati_factored, linesearch_rollout, the
-// dense riccati (stationary, then a block per knot), rollout, idsva_so and
-// feedback_rollout in float32 and float64
+// dense riccati (stationary, then a block per knot), rollout, idsva_so,
+// feedback_rollout, id_du and d2eepos in float32 and float64
 template <typename P>
 void plan_into(int* out) {
   out[0] = P::G;
@@ -433,6 +433,10 @@ extern "C" void plans_##NJ(int* out) {                                      \
   plan_into<IDSOPlan<double, NJ>>(out + 60);                                \
   plan_into<FBPlan<float, NJ>>(out + 64);                                   \
   plan_into<FBPlan<double, NJ>>(out + 68);                                  \
+  plan_into<IDUPlan<float, NJ>>(out + 72);                                  \
+  plan_into<IDUPlan<double, NJ>>(out + 76);                                 \
+  plan_into<D2Plan<float, NJ>>(out + 80);                                   \
+  plan_into<D2Plan<double, NJ>>(out + 84);                                  \
 }                                                                           \
 extern "C" void fd_du_##NJ(const double* m, const double* q,                \
     const double* qd, const double* u, double* d, double* a, double* mi,    \
@@ -445,6 +449,11 @@ extern "C" void rnea_##NJ(const double* m, const double* q,                 \
     rnea_lane<double, NJ>(R, a, b, x, -9.81, o); });                        \
 }                                                                           \
 extern "C" void id_du_##NJ(const double* m, const double* q,                \
+    const double* qd, const double* qdd, double* d, ll L) {                 \
+  race_reset();                                                             \
+  id_du_host<double, NJ>(m, q, qd, qdd, d, L, -9.81);                       \
+}                                                                           \
+extern "C" void id_du_lane_##NJ(const double* m, const double* q,           \
     const double* qd, const double* qdd, double* d, ll L) {                 \
   Robot<double, NJ> R(m);                                                   \
   lanes3<NJ, NJ * 2 * NJ>(q, qd, qdd, d, L, [&](const double* a,            \
@@ -505,6 +514,16 @@ extern "C" void deepos_##NJ(const double* m, const double* ee, int ne,     \
 }                                                                           \
 extern "C" void d2eepos_##NJ(const double* m, const double* ee, int ne,    \
     const double* q, double* out, ll L) {                                   \
+  race_reset();                                                             \
+  d2eepos_host<double, NJ>(m, ee, ne, q, out, L);                           \
+}                                                                           \
+extern "C" void d2eepos_route_##NJ(const double* m, const double* ee,       \
+    int ne, const double* q, double* out, ll L, int stage) {                \
+  if (stage) d2eepos_host<double, NJ, true>(m, ee, ne, q, out, L);          \
+  else d2eepos_host<double, NJ, false>(m, ee, ne, q, out, L);               \
+}                                                                           \
+extern "C" void d2eepos_lane_##NJ(const double* m, const double* ee,        \
+    int ne, const double* q, double* out, ll L) {                           \
   Robot<double, NJ> R(m);                                                   \
   for (ll l = 0; l < L; ++l) {                                              \
     double ql[NJ];                                                          \
@@ -633,9 +652,9 @@ def _p(t):
 
 def _host_run(lib, name, args, lane=False):
     """Run the host build of kernel ``name`` on the wrapper's arguments: the
-    kernel's block code (the sweeps, fd_du and the second-order kernels),
-    or with ``lane`` the serial lane function (the rollouts, the dense
-    riccati and idsva_so)."""
+    kernel's block code (the sweeps, fd_du, id_du, d2eepos and the
+    second-order kernels), or with ``lane`` the serial lane function (the
+    rollouts, the dense riccati, idsva_so, id_du and d2eepos)."""
     serial = "_lane" if lane else ""
     ll, D = ctypes.c_longlong, ctypes.c_double
     if name == "fd_du":
@@ -652,7 +671,7 @@ def _host_run(lib, name, args, lane=False):
         n, L = q.shape
         out = torch.empty((n, 2 * n, L) if name == "id_du" else (n, L),
                           dtype=q.dtype)
-        fn = KERNEL_OF.get(name, name)
+        fn = KERNEL_OF.get(name, name) + (serial if name == "id_du" else "")
         getattr(lib, f"{fn}_{n}")(_p(build.model_buffer(m)), _p(q), _p(qd),
                                   _p(x), _p(out), ll(L))
         return (out,)
@@ -679,8 +698,9 @@ def _host_run(lib, name, args, lane=False):
         cols = {"eepos": (), "deepos": (n,), "d2eepos": (n, n)}[kernel]
         # NaN where the card would hand over uninitialised memory
         out = torch.full((6 * ne, *cols, L), float("nan"), dtype=q.dtype)
-        getattr(lib, f"{kernel}_{n}")(_p(build.model_buffer(m)), _p(ee),
-                                      ctypes.c_int(ne), _p(q), _p(out), ll(L))
+        fn = kernel + (serial if kernel == "d2eepos" else "")
+        getattr(lib, f"{fn}_{n}")(_p(build.model_buffer(m)), _p(ee),
+                                  ctypes.c_int(ne), _p(q), _p(out), ll(L))
         return (out,)
     if name in ("minv", "minv_upper"):
         m, q, dense = args
@@ -776,15 +796,26 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
     fit), 1 to 8 of their step-size rows, 8, 16 or 32 threads a rollout;
     the open-loop rollout (RollPlan) and the feedback rollout (FBPlan) 2, 4
     or 8 problems a block of 8, 16 or 32 threads each; idsva_so (IDSOPlan)
-    as fdsva_so."""
-    out = (ctypes.c_int * 72)()
+    as fdsva_so; id_du (IDUPlan) as fd_du, a thread per gradient column of
+    its one pass; d2eepos (D2Plan) 8 threads a lane up to 8 joints, a warp
+    above, G a power of 2 that makes each output row's run 32 bytes or
+    more."""
+    out = (ctypes.c_int * 88)()
     getattr(host_lib, f"plans_{nj}")(out)
     base = 16 if 2 * nj <= 16 else 32
-    for k in range(18):
+    for k in range(22):
         g, lanes, nbytes, rows = out[4 * k: 4 * k + 4]
         assert 0 < nbytes <= 232448
         assert g * rows * lanes <= 512 and (g * rows * lanes) % 32 == 0
-        if k < 4 or 14 <= k < 16:
+        if k >= 20:   # d2eepos, float32 then float64
+            assert rows == 1 and lanes == (8 if nj <= 8 else 32)
+            assert g in (1, 2, 4, 8)
+            assert g * (4 if k == 20 else 8) >= 32
+        elif k >= 18:   # id_du
+            assert g >= 1 and rows == 1 and lanes in (base, 2 * base,
+                                                      4 * base)
+            assert lanes >= 2 * nj
+        elif k < 4 or 14 <= k < 16:
             assert g >= 1 and rows == 1 and lanes in (base, 2 * base,
                                                       4 * base)
             assert lanes >= nj
@@ -799,9 +830,9 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
 def test_compare_kernels_reads_ptxas_report():
     """compare_kernels.py keeps the thread-group kernels' instances (fd_du,
     fdsva_so, idsva_so, riccati_factored, the line search with each cost,
-    the dense riccati by its curvature, the rollout, the feedback rollout)
-    from a ptxas report, with the frames of called functions
-    (cumulative)."""
+    the dense riccati by its curvature, the rollout, the feedback rollout,
+    id_du, d2eepos) from a ptxas report, with the frames of called
+    functions (cumulative)."""
     spec = importlib.util.spec_from_file_location(
         "compare_kernels", Path(__file__).resolve().parents[1] /
         "compare_kernels.py")
@@ -818,7 +849,19 @@ def test_compare_kernels_reads_ptxas_report():
     fbr = ("_Z23feedback_rollout_kernelIdLi12EN2gt9RollShapeIdLi12ELi32ELi4ENS0_"
            "13FoldedStepLawIdLi12EEEEEEvPKT_S7_S7_S7_S7_S7_S7_S7_PS5_S8_ixS5_"
            "S5_")
+    idu = "_Z12id_du_kernelIfLi7ELi1EEvPKT_S2_S2_S2_PS0_xS0_"
+    d2 = ("_Z14d2eepos_kernelIdLi12EN2gt9KnotShapeIdNS0_6EEHeadIdLi12EEELi3220E"
+          "Li32ELi8EEELb1EEvPKT_S8_iS8_PS6_x")
     report = "\n".join([
+        f"ptxas info    : Compiling entry function '{idu}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {idu}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 59 registers, used 16 barriers",
+        f"ptxas info    : Compiling entry function '{d2}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {d2}",
+        "    176 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 122 registers, used 1 barriers, 176 bytes "
+        "cumulative stack size",
         f"ptxas info    : Compiling entry function '{ids}' for 'sm_90a'",
         f"ptxas info    : Function properties for {ids}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -874,7 +917,12 @@ def test_compare_kernels_reads_ptxas_report():
             "registers": 96, "smem": 0, "cumulative_stack": 0},
         "feedback_rollout f64 nj12": {
             "stack": 48, "spill_stores": 0, "spill_loads": 0,
-            "registers": 168, "smem": 0, "cumulative_stack": 48}}
+            "registers": 168, "smem": 0, "cumulative_stack": 48},
+        "id_du f32 nj7": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                          "registers": 59, "smem": 0},
+        "d2eepos f64 nj12": {
+            "stack": 176, "spill_stores": 0, "spill_loads": 0,
+            "registers": 122, "smem": 0, "cumulative_stack": 176}}
 
 
 @pytest.mark.parametrize("robot,name", (
@@ -904,7 +952,7 @@ SWEEP_PROGRAMS = ("riccati_factored", "linesearch_rollout", "linesearch_quad",
 
 
 @pytest.mark.parametrize("name", ("fd_du", "fdsva_so", "idsva_so")
-                         + SWEEP_PROGRAMS)
+                         + SWEEP_PROGRAMS + ("id_du", "d2eepos"))
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
                                                         name):
@@ -912,11 +960,14 @@ def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
     csrc/sweep_warp.cuh) reads what another thread of that phase writes:
     run phase by phase on the host with the threads of each phase in
     reverse order, fd_du, fdsva_so, idsva_so, the Riccati sweeps (factored,
-    dense stationary and per knot), the line search (both costs) and the
-    open-loop and feedback rollouts give the same bits."""
+    dense stationary and per knot), the line search (both costs), the
+    open-loop and feedback rollouts, id_du and d2eepos give the same
+    bits."""
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
     key = name if name in SWEEP_PROGRAMS else "fdsva_so"
     args = path_inputs(m, 2, 2, seed=3)[key]
+    if name == "d2eepos":   # q
+        args = args[:2]
     got = _host_run(host_lib, name, args)
     host_lib.race_reverse(1)
     try:
@@ -950,16 +1001,86 @@ def test_host_sweep_phases_write_disjoint_entries(host_lib, robot, name):
     assert _max_err(got, _outs(WRAPPERS[name][1](*args))) <= TOL
 
 
+@pytest.mark.parametrize("name", ["id_du", "d2eepos", "d2eepos_targets"])
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_host_knot_phases_write_disjoint_entries(host_lib, robot, name):
+    """id_du's and d2eepos's knot programs (csrc/warp.cuh) split each phase
+    over the knot's threads: run phase by phase on the host, no entry of a
+    knot's state is written by two threads of one phase (the harness
+    compares the knot before and after each thread); d2eepos on every EE of
+    the robot and on some of them (gym_ant: its four feet, on every
+    EE)."""
+    if robot == "gym_ant":
+        m = gym_ant_feet(torch.float64, "cpu")
+    else:
+        m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    if name.endswith("_targets") and (robot == "gym_ant" or not TARGETS[robot]):
+        name = "d2eepos"
+    args = grid_inputs(m, robot, 3, seed=9)[name]
+    host_lib.race_count.restype = ctypes.c_long
+    host_lib.touch_count.restype = ctypes.c_long
+    host_lib.race_watch(1)
+    try:
+        got = _host_run(host_lib, name, args)
+    finally:
+        host_lib.race_watch(0)
+    if name == "id_du":
+        least = 3 * m.n * m.n
+    else:   # the chains' 4x4 matrices at least
+        targets = args[2] if name == "d2eepos_targets" else None
+        least = 3 * 16 * sum(len(c) for c, _ in eepose.ee_chains(m, targets))
+    assert least > 0
+    assert host_lib.touch_count() > least
+    assert host_lib.race_count() == 0
+    assert _max_err(got, _outs(WRAPPERS[name][1](*args))) <= TOL
+
+
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_host_id_du_is_fd_du_without_minv(host_lib, robot):
+    """id_du and fd_du run one RNEA and ID-gradient program
+    (warp.cuh:id_grad_columns_knot): -Minv times id_du's dc/du at fd_du's
+    own qdd is fd_du's df/du."""
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    args = path_inputs(m, 2, 3, seed=5)["fd_du"]
+    dfdu, qdd, Mi = _host_run(host_lib, "fd_du", args)
+    dc, = _host_run(host_lib, "id_du", (m, args[1], args[2], qdd, -9.81))
+    got = -torch.einsum("ijl,jkl->ikl", Mi, dc)
+    assert float(dfdu.abs().max()) > 1.0
+    assert _max_err((got,), (dfdu,)) <= TOL
+
+
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_host_d2eepos_direct_stores_match_the_staged(host_lib, robot):
+    """d2eepos's two store routes (csrc/warp.cuh:d2eepos_knot): each pair's
+    entries written straight out by its thread, and staged in the knot's
+    tile and written as rows of G lanes, give the same bits on every
+    entry, zeros included."""
+    m = gym_ant_feet(torch.float64, "cpu") if robot == "gym_ant" else (
+        build_model(load_robot(robot), dtype=torch.float64, device="cpu"))
+    _, q = grid_inputs(m, robot, 11, seed=10)["d2eepos"]
+    ee = build.ee_buffer(m)
+    staged, direct = (torch.full((6 * ee.shape[0], m.n, m.n, q.shape[1]),
+                                 float("nan"), dtype=q.dtype)
+                      for _ in range(2))
+    for out, stage in ((staged, 1), (direct, 0)):
+        getattr(host_lib, f"d2eepos_route_{m.n}")(
+            _p(build.model_buffer(m)), _p(ee), ctypes.c_int(ee.shape[0]),
+            _p(q), _p(out), ctypes.c_longlong(q.shape[1]), ctypes.c_int(stage))
+    assert torch.equal(direct, staged)
+    assert _max_err((staged,), _outs(K.d2eepos_plain(m, q))) <= TOL
+
+
 # the batches of the newer programs' ragged-block cases, by the plan's G
 RAGGED_B = ("1", "G-1", "G+1", "37")
 # the double plan's index in plans_<nj> (the host build runs it)
 PLAN_INDEX = {"riccati": 9, "riccati_stacked": 11, "rollout": 13,
-              "idsva_so": 15, "feedback_rollout": 17}
+              "idsva_so": 15, "feedback_rollout": 17, "id_du": 19,
+              "d2eepos": 21}
 
 
 def _ragged_b(host_lib, name, nj, B):
     """The batch named B ("G-1", ...) for the double plan of ``name``."""
-    out = (ctypes.c_int * 72)()
+    out = (ctypes.c_int * 88)()
     getattr(host_lib, f"plans_{nj}")(out)
     g = out[4 * PLAN_INDEX[name]]
     return {"1": 1, "G-1": max(g - 1, 1), "G+1": g + 1, "37": 37}[B]
@@ -1022,7 +1143,8 @@ def test_host_riccati_factored_on_ragged_blocks(host_lib, robot, N, name, B):
 
 @pytest.mark.parametrize("robot", ROBOTS)
 @pytest.mark.parametrize("name", ["riccati", "riccati_stacked", "rollout",
-                                  "feedback_rollout", "idsva_so"])
+                                  "feedback_rollout", "idsva_so", "id_du",
+                                  "d2eepos"])
 def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
                                                         robot):
     """The block code of the dense riccati (stationary and per knot), of
@@ -1030,19 +1152,27 @@ def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
     knot program (csrc/warp.cuh), run on the host with the card's plans,
     gives the bits of the serial functions riccati_dense_lane,
     rollout_lane, feedback_rollout_lane and idsva_so_lane: every value
-    keeps the serial order of operations. idsva_so is held to TOL: its
+    keeps the serial order of operations. id_du's and d2eepos's knot
+    programs are held to TOL against id_du_lane and ee_hess_lane: id_du's
+    columns skip the structural zeros of the transforms and walk only the
+    related joints, and d2eepos forms a mixed second derivative as Xi_a
+    dT/dq_b, not along the chain. idsva_so is held to TOL: its
     knot program (warp.cuh:so_stages_knot, the phase of BC and f, which
     fdsva_so runs too) forms f's bias term crf(v) IC v as a cross product,
     where so.cuh:so_stages multiplies by crf(v)'s 6x6 matrix, zeros
     included; that sum's other order is the only difference."""
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
-    args = path_inputs(m, 6, 11, seed=2)[name]
+    args = (grid_inputs(m, robot, 11, seed=2)[name] if name == "d2eepos"
+            else path_inputs(m, 6, 11, seed=2)[name])
     got = _host_run(host_lib, name, args)
     lane = _host_run(host_lib, name, args, lane=True)
     assert len(got) == len(lane)
     if name == "idsva_so":
         assert _max_err(got, lane) <= TOL
         assert torch.equal(got[0] == 0, lane[0] == 0)
+        return
+    if name in ("id_du", "d2eepos"):
+        assert _max_err(got, lane) <= TOL
         return
     for a, b in zip(got, lane):
         assert torch.equal(a, b)
@@ -1064,6 +1194,23 @@ def test_host_idsva_so_on_ragged_blocks(host_lib, robot, B):
     got = _host_run(host_lib, "idsva_so", args)
     want = _outs(K.idsva_so_plain(*args))
     assert got[0].shape == want[0].shape == (4, m.n, m.n, m.n, L)
+    assert _max_err(got, want) <= TOL
+
+
+@pytest.mark.parametrize("robot,name,B", _ragged_cases(
+    lambda robot, name, B: f"{robot}-{name}-{B}", [],
+    [(robot, name, B) for name in ("id_du", "d2eepos") for robot in ROBOTS
+     for B in RAGGED_B]))
+def test_host_id_du_and_d2eepos_on_ragged_blocks(host_lib, robot, name, B):
+    """id_du's and d2eepos's block code with the card's plan (G knots a
+    block, the inputs past the last lane read as zeros, the output rows
+    masked) on 1, G - 1, G + 1 and 37 lanes."""
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    L = _ragged_b(host_lib, name, m.n, B)
+    args = grid_inputs(m, robot, L, seed=11)[name]
+    got = _host_run(host_lib, name, args)
+    want = _outs(WRAPPERS[name][1](*args))
+    assert got[0].shape == want[0].shape and got[0].shape[-1] == L
     assert _max_err(got, want) <= TOL
 
 
