@@ -1,5 +1,5 @@
-"""On-card smoke test of the PyTorch/CUDA port: configs 3, 1, 2 and 4 end to
-end, the rest of the GRiD API, and the per-robot generated modules.
+"""On-card smoke test of the PyTorch/CUDA port: configs 3, 1, 2, 4 and 5 end
+to end, the rest of the GRiD API, and the per-robot generated modules.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -8,15 +8,16 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 Phases, one line each:
   0. device: fail without CUDA; print the card's name and power limit;
   1. build: compile the CUDA kernels from gridcodegenerator_tpu_torch/csrc,
-     one library per joint count, every nvcc at once (and the host
-     operation counter, utils/opcount.py); the block plan (knots,
-     problems or rollouts a block, shared bytes) and cudaFuncGetAttributes
-     of every instance of the thread-group kernels: fd_du, fdsva_so,
-     idsva_so and id_du (a warp per knot), d2eepos (a warp per lane),
-     riccati_factored and riccati (a warp per
-     problem; riccati's stationary and per-knot instances),
-     linesearch_rollout, rollout and feedback_rollout (a group of threads
-     per rollout);
+     one library per joint count (2, 7, 8, 12, 16, 17 and 28), every nvcc
+     at once, and print each library's seconds (and the host operation
+     counter, utils/opcount.py); the block plan (knots, problems or
+     rollouts a block, shared bytes) and cudaFuncGetAttributes of every
+     instance of the thread-group kernels: fd_du, fdsva_so, idsva_so and
+     id_du (a warp per knot), d2eepos (a warp per lane), riccati_factored
+     and riccati (a warp per problem; riccati's stationary and per-knot
+     instances), linesearch_rollout, rollout and feedback_rollout (a group
+     of threads per rollout); each holds a knot, but idsva_so and fdsva_so
+     at 28 joints, which hold none (their wrappers refuse);
   2. each kernel against its plain PyTorch version on the same CUDA inputs,
      iiwa at small B and N (37 lanes: a ragged block), float64: max abs
      error <= 1e-9; and every GRiD kernel case on hyq (12 joints, branched,
@@ -26,7 +27,9 @@ Phases, one line each:
      dm_quadruped, every GRiD kernel case on gym_ant (8 joints, EEs at the
      feet) and dm_quadruped (16 joints, branched), and riccati (stationary
      and per knot) and rollout on iiwa, hyq, gym_ant and dm_quadruped (dt
-     0.002);
+     0.002); and all 17 kernels on gym_humanoid (17 joints, dt 0.002) and
+     all but idsva_so and fdsva_so on atlas (28), whose wrappers must
+     refuse the launch;
   3. the same in float32 (tolerances below): fd_du and fdsva_so at 37
      lanes on iiwa, hyq, gym_ant and dm_quadruped; with each kernel's and
      plain version's device time from CUDA events: the config-3 kernels and the
@@ -71,9 +74,21 @@ Phases, one line each:
   7. codegen: gen_all_code's module for iiwa and for hyq, written to a
      temporary directory and imported: nothing of JAX loaded, each of its
      12 algorithms at B=1024 launched exactly its kernel and agrees with
-     the port's GRiD; then its single_timing_table.
+     the port's GRiD; then its single_timing_table;
+  8. config 5 (scenario-tree MPC, S=4096, N=16, 2 iterations, float32,
+     QuadCost) on atlas (dt 0.01) and gym_humanoid (dt 0.002) through
+     parallel/scenario.py: the step launched the rollout, fd_du, the
+     stationary riccati and the line search (N*S = 65536 fd_du lanes) and
+     nothing plain ran; costs finite and non-increasing; the consensus u0
+     finite and inside the scenarios' first controls, dof by dof; U_next
+     the shifted plan; step ms and scenario solves/s over 5 steps; each
+     kernel at the step's shapes by the float32 rule, with its times and
+     bound; 3 closed-loop periods (one aba launch each), the state finite;
+     a float64 kernel step on the first 64 scenarios against the plain
+     one (costs by phase 6's rule; u0, U_next and every scenario's cost
+     within U0_REL).
 Then a JSON line of per-kernel results (launches on the main paths of
-phases 4-7, error, times, and the roofline bound: the larger of the bytes
+phases 4-8, error, times, and the roofline bound: the larger of the bytes
 each call must move over 3.35 TB/s and the operations its function needs,
 counted by utils/opcount.py, over 67 TFLOP/s float32; beside them the
 operations the kernel's lane code executes), and last the device line.
@@ -103,6 +118,26 @@ B4 = {"iiwa": 1024, "hyq": 512, "gym_ant": 512, "dm_quadruped": 512}
 # tests/test_torch_sweeps.py::test_dm_quadruped_euler_step_diverges_at_0_01);
 # its config-4 solves run at the largest of 0.01 / 5^k that is stable
 DT4 = {"dm_quadruped": 0.002}
+# config 5 (bench.py:231-272): scenario-tree MPC, S scenarios of the zero
+# state (spread 0.02), N knots, ITERS5 iterations, QuadCost Q 0.1, R 1e-3,
+# Qf 10, x_goal[0] 0.2, float32, on atlas (28 joints) and gym_humanoid
+# (17). gym_humanoid's Euler step diverges at bench.py's dt = 0.01 from
+# that spread, in the JAX reference too (some of 64 rollouts non-finite by
+# knot 16: tests/test_torch_mpc.py::
+# test_gym_humanoid_euler_step_diverges_at_0_01), so it runs at the largest
+# of 0.01 / 5^k that is stable
+S5, N5, ITERS5, SPREAD5 = 4096, 16, 2, 0.02
+DT5 = {"gym_humanoid": 0.002}
+ROBOTS5 = ("atlas", "gym_humanoid")
+# the closed loop's periods, and the scenarios of the float64 check
+PERIODS5, S5_F64 = 3, 64
+# Phase 8 holds the consensus u0, U_next and costs of a float64 kernel step
+# on the first S5_F64 scenarios to the plain step's within U0_REL of
+# max(1, max|value|):
+# the first-order QuadCost solve is well conditioned there (on the CPU,
+# scaling the scenario states by 1 + 1e-13 moved u0 by 1.4e-14 on atlas,
+# 4.8e-15 on gym_humanoid; float32 and float64 u0 agreed within 1e-7)
+U0_REL = 1e-9
 GRAVITY = -9.81
 DEVICE = torch.device("cuda:0")
 L1 = 1024            # lanes of the GRiD kernels' small case (and of codegen)
@@ -182,6 +217,8 @@ def main():
     from gridcodegenerator_tpu_torch.ops.cuda import build
     from gridcodegenerator_tpu_torch.ops.cuda import kernels as K
     from gridcodegenerator_tpu_torch.ops.cuda import sweeps as S
+    from gridcodegenerator_tpu_torch.parallel.scenario import (
+        ScenarioMPCConfig, closed_loop, make_scenario_step)
     from gridcodegenerator_tpu_torch.trajopt.cost import EEReachCost, QuadCost
     from gridcodegenerator_tpu_torch.trajopt.ilqr import (
         ILQRConfig, make_ilqr, resolve_control_bounds)
@@ -200,18 +237,27 @@ def main():
                    "opcount_seconds": round(time.perf_counter() - t1, 3),
                    "sources": len(build.SOURCES), "nvcc_jobs": os.cpu_count(),
                    "libraries": {nj: str(p.relative_to(
-                       build.BUILD_ROOT.parents[1])) for nj, p in libs.items()}})
+                       build.BUILD_ROOT.parents[1])) for nj, p in libs.items()},
+                   "library_seconds": {nj: round(sec, 3) for nj, sec in
+                                       build.NVCC_SECONDS.items()}})
     # the thread-group kernels: knots (problems, rollouts) a block, shared
-    # bytes a block and cudaFuncGetAttributes of every instance
-    line("warp_kernel_plans", {
-        f"{what} {str(dtype)[6:]} nj{nj}": build.warp_kernel_info(what, nj,
-                                                                  dtype)
-        for what in build.WARP_KERNELS for nj in build.SUPPORTED_JOINTS
-        for dtype in (torch.float32, torch.float64)})
+    # bytes a block and cudaFuncGetAttributes of every instance; each holds
+    # one knot at least, but idsva_so's and fdsva_so's at 28 joints, whose
+    # wrappers refuse the launch (build.fits)
+    plans = {(what, nj, dtype): build.warp_kernel_info(what, nj, dtype)
+             for what in build.WARP_KERNELS for nj in build.SUPPORTED_JOINTS
+             for dtype in (torch.float32, torch.float64)}
+    line("warp_kernel_plans", {f"{what} {str(dtype)[6:]} nj{nj}": info
+                               for (what, nj, dtype), info in plans.items()})
+    for (what, nj, dtype), info in plans.items():
+        refused = nj == 28 and what in ("idsva_so", "fdsva_so")
+        if (info["knots_per_block"] < 1) != refused:
+            raise AssertionError(f"{what} {dtype} at {nj} joints: "
+                                 f"{info['knots_per_block']} knots a block")
 
     topo = load_robot("iiwa")
 
-    def path_inputs(model, n_knots, batch, seed):
+    def path_inputs(model, n_knots, batch, seed, dt=DT):
         """Each kernel's inputs as the solver's first iteration makes them,
         from x0 ~ U(-0.2, 0.2) and U0 = 0 (computed with the plain ops)."""
         n = model.n
@@ -219,7 +265,7 @@ def main():
                                               device=dev))[:3, 0]
         cost = EEReachCost(model=model, goal_xyz=goal, w_pos=0.5,
                            w_pos_f=200.0)
-        cfg = ILQRConfig(N=n_knots, dt=DT, iters=ITERS, use_kernels=False)
+        cfg = ILQRConfig(N=n_knots, dt=dt, iters=ITERS, use_kernels=False)
         _, parts = make_ilqr(model, cost, cfg, expose_parts=True)
         rng = np.random.default_rng(seed)
         x0 = torch.as_tensor(rng.uniform(-0.2, 0.2, (2 * n, batch)),
@@ -239,32 +285,34 @@ def main():
         al = al.repeat(1, batch)
         return {
             "fd_du": (model, q, qd, u, GRAVITY),
-            "rollout": (model, x0, U0, DT, GRAVITY, lo, hi),
+            "rollout": (model, x0, U0, dt, GRAVITY, lo, hi),
             # one step size folded into the feedforward term: alpha = 0.25,
             # the line search's fourth row (alpha = 1 is an unstable closed
             # loop at config 3: float32 overflows on some problems)
             "feedback_rollout": (model, X[0].contiguous(), U0,
                                  X[:n_knots].contiguous(), FB_ALPHA * ks, Ks,
-                                 DT, GRAVITY, lo, hi),
+                                 dt, GRAVITY, lo, hi),
             "riccati_factored": tuple(ric),
             "linesearch_rollout": (model, X[0].contiguous(), U0,
-                                   X[:n_knots].contiguous(), ks, Ks, al, DT,
+                                   X[:n_knots].contiguous(), ks, Ks, al, dt,
                                    GRAVITY, lo, hi, cost),
         }
 
-    def quad_cost(model, goal):
-        """bench.py's QuadCost: Q 0.1, R 1e-3, Qf 100, x_goal zero but for
-        ``goal`` ({index: value})."""
+    def quad_cost(model, goal, qf=100.0):
+        """bench.py's QuadCost: Q 0.1, R 1e-3, Qf ``qf`` (configs 3 and 4:
+        100; config 5: 10), x_goal zero but for ``goal`` ({index:
+        value})."""
         n = model.n
         full = lambda v, k: torch.full((k,), v, dtype=model.dtype, device=dev)
         xg = full(0.0, 2 * n)
         for i, v in goal.items():
             xg[i] = v
         return QuadCost(Q=full(0.1, 2 * n), R=full(1e-3, n),
-                        Qf=full(100.0, 2 * n), x_goal=xg)
+                        Qf=full(qf, 2 * n), x_goal=xg)
 
     QUAD3 = {0: 1.0, 1: 0.5}    # config 3's QuadCost task (bench.py:187)
     QUAD4 = {0: 0.5}            # config 4 (bench.py:218)
+    QUAD5 = {0: 0.2}            # config 5 (bench.py:254)
 
     def quad_inputs(model, n_knots, batch, seed, dt=DT):
         """The dense Riccati sweep's and the QuadCost line search's inputs as
@@ -511,6 +559,65 @@ def main():
     line("small_f64_hyq", {"robot": "hyq", "joints": hyq64.n,
                            "ees": build.ee_buffer(hyq64).shape[0],
                            "B": 37, "max_abs_err": small_hyq, "tol": 1e-9})
+
+    # every kernel on the 17- and 28-joint instances (gym_humanoid, atlas;
+    # the sweeps at config 5's dt): within 1e-9 of each output's scale; at
+    # 28 joints one knot of idsva_so or fdsva_so does not fit a block, and
+    # their wrappers refuse before any launch
+    kernel_of = case_kernel | {"rollout_bounded": "rollout",
+                               "riccati_stacked": "riccati",
+                               "linesearch_quad": "linesearch_rollout"}
+    fns_of = case_fns | {k: kernels[k][:2] for k in kernels} | {
+        "rnea_bias": case_fns["rnea"], "minv_upper": case_fns["minv"],
+        "rollout_bounded": case_fns["rollout"]}
+    all_kernels = set(K.SOURCES) | set(S.SOURCES)
+    humanoids = {}
+    for robot in ROBOTS5:
+        m = build_model(load_robot(robot), dtype=torch.float64, device=dev)
+        dt5 = DT5.get(robot, DT)
+        q = torch.as_tensor(np.random.default_rng(1).uniform(
+            -1, 1, (m.n, 37)), dtype=torch.float64, device=dev)
+        quad = quad_inputs(m, 8, 37, seed=1, dt=dt5)
+        quad["rollout_bounded"] = quad.pop("rollout")
+        cases = (path_inputs(m, 8, 37, seed=1, dt=dt5)
+                 | lane_cases(m, 37, seed=1) | {"d2eepos": (m, q)} | quad
+                 | so_cases(m, 37, seed=1))
+        errs, refused = {}, {}
+        for case, args in cases.items():
+            name = kernel_of.get(case, case)
+            kern, plain = fns_of[case]
+            what = f"{robot} {case}"
+            if m.n == 28 and name in ("idsva_so", "fdsva_so"):
+                build.reset_counters()
+                try:
+                    kern(*args)
+                except RuntimeError as e:
+                    if "shared memory" not in str(e) or build.LAUNCHES:
+                        raise
+                    refused[case] = str(e)
+                    continue
+                raise AssertionError(f"{what}: a 28-joint knot launched")
+            out, ref = as_tuple(kern(*args)), as_tuple(plain(*args))
+            torch.cuda.synchronize()
+            if len(out) != len(ref) or any(o.shape != r.shape
+                                           for o, r in zip(out, ref)):
+                raise AssertionError(f"{what}: kernel and plain outputs "
+                                     f"differ in number or shape")
+            err = max_err(out, ref)
+            tol = 1e-9 * max(1.0, max(float(r.abs().max()) for r in ref))
+            if not err <= tol:
+                raise AssertionError(f"{what} float64: max abs err {err} > "
+                                     f"{tol}")
+            errs[case] = {"max_abs_err": err, "tol": tol}
+        covered = {kernel_of.get(c, c) for c in list(errs) + list(refused)}
+        if covered != all_kernels:
+            raise AssertionError(f"{robot}: kernels not held "
+                                 f"{sorted(all_kernels - covered)}")
+        humanoids[robot] = {"joints": m.n, "dt": dt5, "cases": errs,
+                            "refused": refused}
+        del cases, quad
+        torch.cuda.empty_cache()
+    line("small_f64_17_28_joints", {"B": 37, "N": 8, "robots": humanoids})
 
     # -- phase 3: config-3 shapes, float32 ----------------------------------
     m32 = build_model(topo, dtype=torch.float32, device=dev)
@@ -1203,6 +1310,173 @@ def main():
     line("codegen", {"robots": gen, "B": L1, "dtype": "float32",
                      "device": smi})
 
+    # -- phase 8: config 5, scenario-tree MPC on one card ------------------
+    step5 = {"rollout": 1, "fd_du": ITERS5, "riccati": ITERS5,
+             "linesearch_rollout": ITERS5}
+    config5, grid5 = {}, {}
+    for robot in ROBOTS5:
+        dt5 = DT5.get(robot, DT)
+        m = build_model(load_robot(robot), dtype=torch.float32, device=dev)
+        m64 = m.to(dtype=torch.float64)
+        f64_of[id(m)] = m64
+        n = m.n
+        cost5 = quad_cost(m, QUAD5, qf=10.0)
+        cfg5 = ScenarioMPCConfig(ILQRConfig(N=N5, dt=dt5, iters=ITERS5), S5)
+        step = make_scenario_step(m, cost5, cfg5)
+        x0n = SPREAD5 * np.random.default_rng(0).standard_normal((2 * n, S5))
+        x0s = torch.as_tensor(x0n, dtype=torch.float32, device=dev)
+        U0 = torch.zeros((N5, n, S5), dtype=torch.float32, device=dev)
+        build.reset_counters()
+        u0, U_next, costs = step(x0s, U0)
+        torch.cuda.synchronize()
+        runs = dict(build.LAUNCHES)
+        if runs != step5 or build.PLAIN_CALLS:
+            raise AssertionError(f"config 5 {robot} step launches {runs} "
+                                 f"(expected {step5}), plain calls "
+                                 f"{dict(build.PLAIN_CALLS)}")
+        path_runs.append(runs)
+        # the solve behind the step, for its cost trace and first controls:
+        # the same kernels on the same inputs give the same bits
+        res = make_ilqr(m, cost5, cfg5.ilqr)(x0s, U0)
+        tr = res.cost_trace
+        if not (torch.equal(res.cost, costs) and torch.equal(
+                U_next, torch.cat([res.U[1:], res.U[-1:]]))):
+            raise AssertionError(f"config 5 {robot}: the step's costs or "
+                                 f"U_next are not its solve's, shifted")
+        if not bool(torch.isfinite(tr).all()):
+            raise AssertionError(f"config 5 {robot}: non-finite cost")
+        if not bool((tr[1:] <= tr[:-1]).all()):
+            raise AssertionError(f"config 5 {robot}: cost increased")
+        lo, hi = res.U[0].amin(dim=1), res.U[0].amax(dim=1)
+        slack = 1e-6 * max(1.0, float(res.U[0].abs().max()))
+        if not (bool(torch.isfinite(u0).all()) and u0.shape == (n,)
+                and bool((u0 >= lo - slack).all())
+                and bool((u0 <= hi + slack).all())):
+            raise AssertionError(f"config 5 {robot}: consensus u0 {u0} "
+                                 f"outside the scenarios' first controls")
+        ms5 = time_cuda(lambda: step(x0s, U0), iters=5, warmup=1)
+
+        # the step's kernels at its shapes (float32 rule, times, bounds), on
+        # the inputs its first iteration makes; aba at the closed loop's one
+        # lane
+        _, parts5 = make_ilqr(m, cost5, cfg5.ilqr, expose_parts=True)
+        X = parts5["rollout"](x0s, U0)
+        fold = lambda Z: Z.transpose(0, 1).reshape(Z.shape[1], -1)
+        A, Bm = parts5["linearize"](X[:N5], U0)
+        _, Vx0, Vxx0 = cost5.terminal_expansion(X[N5])
+        _, lx, lu, lxx, luu, lux = cost5.stage_expansion(fold(X[:N5]),
+                                                         fold(U0))
+        unfold = lambda z: z.reshape(z.shape[:-1] + (N5, S5)).movedim(-2, 0)
+        ric = (A, Bm, unfold(lx).contiguous(), unfold(lu).contiguous(),
+               *(c[..., :S5].contiguous() for c in (lxx, luu, lux)),
+               Vx0.contiguous(), Vxx0.contiguous(), cfg5.ilqr.reg)
+        ks, Ks = S.riccati(*ric)
+        blo, bhi = resolve_control_bounds(m, cfg5.ilqr)
+        al = torch.tensor(cfg5.ilqr.alphas, dtype=torch.float32,
+                          device=dev)[:, None].repeat(1, S5)
+        q1 = torch.zeros((n, 1), dtype=torch.float32, device=dev)
+        cases5 = {
+            "rollout": (m, x0s, U0, dt5, GRAVITY, blo, bhi),
+            "fd_du": (m, fold(X[:N5, :n]), fold(X[:N5, n:]), fold(U0),
+                      GRAVITY),
+            "riccati": ric,
+            "linesearch_quad": (m, X[0].contiguous(), U0,
+                                X[:N5].contiguous(), ks, Ks, al, dt5,
+                                GRAVITY, blo, bhi, cost5),
+            "aba": (m, q1, q1, u0[:, None].contiguous(), GRAVITY)}
+        build.reset_counters()
+        kern5 = {}
+        for case, args in cases5.items():
+            name = kernel_of.get(case, case)
+            kern5[name] = timed_f32(f"config 5 {robot} {case}", *fns_of[case],
+                                    args, m, case, 10) | {
+                "launches_per_step": step5.get(name, 0)}
+        del X, A, Bm, ric, ks, Ks, cases5, parts5
+        # the GRiD kernels at L1 lanes on this instance (the per-lane ones
+        # keep their joint transforms in local memory: at 28 joints 13-71
+        # KB of stack a thread, ptxas)
+        cases = lane_cases(m, L1, seed=0)
+        cases["d2eepos"] = cases["eepos"]
+        grid5[robot] = {
+            case: timed_f32(f"{robot} {case} L={L1}", *fns_of[case], args,
+                            m, case, 10)
+            for case, args in cases.items() if case in all_kernels}
+        del cases
+        torch.cuda.empty_cache()
+
+        # three closed-loop periods: a scenario step each, then the
+        # consensus control through dynamics_step (one aba launch)
+        build.reset_counters()
+        xs, us = closed_loop(m, cost5, cfg5, torch.zeros(
+            2 * n, dtype=torch.float32, device=dev), PERIODS5,
+            torch.Generator(device=dev).manual_seed(0), SPREAD5)
+        torch.cuda.synchronize()
+        runs = dict(build.LAUNCHES)
+        want = {k: PERIODS5 * v for k, v in step5.items()} | {
+            "aba": PERIODS5}
+        if runs != want or build.PLAIN_CALLS:
+            raise AssertionError(f"config 5 {robot} closed loop launches "
+                                 f"{runs} (expected {want}), plain calls "
+                                 f"{dict(build.PLAIN_CALLS)}")
+        path_runs.append(runs)
+        if xs.shape != (PERIODS5 + 1, 2 * n) or not bool(
+                torch.isfinite(xs).all()):
+            raise AssertionError(f"config 5 {robot} closed loop: states "
+                                 f"{tuple(xs.shape)}, finite "
+                                 f"{bool(torch.isfinite(xs).all())}")
+
+        # float64 on the first S5_F64 scenarios: the kernel step against the
+        # plain step, costs by phase 6's QuadCost rule at the last iteration,
+        # and the consensus u0, U_next and every scenario's cost within
+        # U0_REL of their scale
+        cost64 = to64(cost5)
+        x64 = torch.as_tensor(x0n[:, :S5_F64], dtype=torch.float64,
+                              device=dev)
+        U64 = torch.zeros((N5, n, S5_F64), dtype=torch.float64, device=dev)
+        f64 = {}
+        for uk in (None, False):
+            icfg = ILQRConfig(N=N5, dt=dt5, iters=ITERS5, use_kernels=uk)
+            f64[uk] = (make_scenario_step(m64, cost64, ScenarioMPCConfig(
+                icfg, S5_F64))(x64, U64), make_ilqr(m64, cost64, icfg)(
+                    x64, U64).cost_trace.double().cpu())
+        (u0_k, Un_k, c_k), t_k = f64[None]
+        (u0_p, Un_p, c_p), t_p = f64[False]
+        r_at = rel(t_k[-1], t_p[-1])
+        at = float((r_at <= F64_REL).double().mean())
+        f64_err = {}
+        for what, k_, p_ in (("u0", u0_k, u0_p), ("U_next", Un_k, Un_p),
+                             ("costs", c_k, c_p)):
+            err = float((k_ - p_).abs().max())
+            tol = U0_REL * max(1.0, float(p_.abs().max()))
+            f64_err[what] = {"max_abs_err": err, "tol": tol}
+            if not err <= tol:
+                raise AssertionError(f"config 5 {robot} float64: {what} off "
+                                     f"by {err} (tol {tol})")
+        if not at >= F64_SHARE:
+            raise AssertionError(f"config 5 {robot} float64: costs within "
+                                 f"rel {F64_REL} on {at}")
+        config5[robot] = {
+            "joints": n, "dt": dt5, "S": S5, "N": N5, "iters": ITERS5,
+            "dtype": "float32", "device": smi, "step_ms": ms5,
+            "scenario_solves_per_s": S5 / (ms5 / 1e3),
+            "launches": path_runs[-2], "closed_loop_launches": runs,
+            "cost_first_mean": float(tr[0].mean()),
+            "cost_last_mean": float(tr[-1].mean()),
+            "u0": u0.tolist(), "closed_loop_final_state_max": float(
+                xs[-1].abs().max()),
+            "f64_first64": {"costs_within_rel": F64_REL, "share": at,
+                            "max_rel": float(r_at.max()), **f64_err},
+            "kernels": kern5}
+        del x0s, U0, res, step, f64
+        torch.cuda.empty_cache()
+    line("config5", {"config": 5, "robots": config5})
+    line("grid_kernels_f32_17_28", {"L": L1, "robots": grid5})
+    for name in ("fd_du", "riccati", "linesearch_rollout", "rollout", "aba"):
+        results[name]["config5"] = {
+            robot: {k: v["kernels"][name][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                "launches_per_step")} for robot, v in config5.items()}
+
     path_launches = {k: sum(run.get(k, 0) for run in path_runs)
                      for k in results}
     missing = [k for k, v in path_launches.items() if v == 0]
@@ -1217,6 +1491,8 @@ def main():
                                          "bound_ms", "bound_by", "ops",
                                          "ops_executed")}
         | {"library_ms": None}
+        | ({"config5": results[name]["config5"]}
+           if "config5" in results[name] else {})
         for name in results]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,8 +12,9 @@ riccati_factored, linesearch, riccati, rollout, feedback_rollout, id_du and
 d2eepos; by default riccati_factored, linesearch, riccati and rollout) are
 compiled
 from every tree's
-``csrc/`` with nvcc for sm_90a, one library per joint count and tree, every
-nvcc at once, with ``-Xptxas -v``; the script prints each kernel instance's
+``csrc/`` with nvcc for sm_90a, one library per joint count and tree (the
+counts of JOINTS that the tree's ``build.py`` lists), every nvcc at once,
+with ``-Xptxas -v``; the script prints each kernel instance's
 registers, stack, spills and static shared memory as ptxas reports them,
 this tree's block plans and ``cudaFuncGetAttributes``
 (``build.warp_kernel_info``), and then each kernel's device time per launch
@@ -36,7 +37,8 @@ the other blocks run as in a launch; for the sweeps the mean of each phase
 over the knots (for the knot programs also the cycles of the block's head:
 the robot's constants and lists). For the rollout and the feedback
 rollout it also times this tree's block shapes (threads a rollout x
-problems a block, csrc/sweep_warp.cuh: RollShape), for idsva_so its knot
+problems a block, csrc/sweep_warp.cuh: RollShape; those that fit an SM),
+for idsva_so its knot
 shapes (threads a knot x knots a block, csrc/warp.cuh: KnotShape; those
 that fit an SM; as many blocks as the card holds, each taking every
 gridDim.x-th group of lanes, and a block a group), for id_du one and two
@@ -63,7 +65,7 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-JOINTS = (2, 7, 8, 12, 16)
+JOINTS = (2, 7, 8, 12, 16, 17, 28)
 SOURCES = {"fd_du": "fd_du.cu", "fdsva_so": "fdsva_so.cu",
            "idsva_so": "idsva_so.cu", "riccati_factored": "riccati.cu",
            "linesearch": "linesearch.cu", "riccati": "riccati.cu",
@@ -221,13 +223,17 @@ static int knot_clock(const void* model, const void* q, const void* qd,
                       int* phases, long long* knot) {
   constexpr int NJ = GT_NJ;
   using P = KnotPlan<MODE, float, NJ>;
-  auto fn = clocked<float, NJ, MODE>;
-  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)P::BYTES);
-  fn<<<(unsigned)((L + P::G - 1) / P::G), P::LANES * P::G, P::BYTES>>>(
-      (const float*)model, (const float*)q, (const float*)qd,
-      (const float*)u, L, -9.81f, rec, phases, knot);
-  return (int)cudaGetLastError();
+  if constexpr (P::G < 1) {   // one knot does not fit a block
+    return (int)cudaErrorInvalidConfiguration;
+  } else {
+    auto fn = clocked<float, NJ, MODE>;
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)P::BYTES);
+    fn<<<(unsigned)((L + P::G - 1) / P::G), P::LANES * P::G, P::BYTES>>>(
+        (const float*)model, (const float*)q, (const float*)qd,
+        (const float*)u, L, -9.81f, rec, phases, knot);
+    return (int)cudaGetLastError();
+  }
 }
 
 extern "C" int phase_clock(int mode, int nj, const void* model,
@@ -345,7 +351,8 @@ __global__ void clocked_ric(const float* A, const float* Bm, const float* lx,
   const bool first = blockIdx.x == 0 && tid < W;
   int count = 0;
   const ClockPar<W> par{tid % W, 1 + tid / W, first ? rec : nullptr, &count};
-  const gt::FactoredIn<float, NJ> in{A, Bm, lx, lu, Jw, B, N, r, qd, ud};
+  const gt::FactoredIn<float, NJ, P::BUFS> in{
+      A, Bm, lx, lu, Jw, B, N, r, qd, ud};
   gt::riccati_block<float, NJ, P::G>(par, tid, nt, tid / W, knots, P::STRIDE,
                                      (long long)blockIdx.x * P::G, in, Vx0,
                                      Vxx0, ks, Ks, N, B, reg);
@@ -447,7 +454,8 @@ __global__ void clocked_ricd(const float* A, const float* Bm, const float* lx,
   const bool first = blockIdx.x == 0 && tid < W;
   int count = 0;
   const ClockPar<W> par{tid % W, 1 + tid / W, first ? rec : nullptr, &count};
-  const gt::DenseIn<float, NJ, true> in{A, Bm, lx, lu, lxx, luu, lux, B};
+  const gt::DenseIn<float, NJ, true, P::BUFS> in{
+      A, Bm, lx, lu, lxx, luu, lux, B};
   gt::riccati_block<float, NJ, P::G>(par, tid, nt, tid / W, knots, P::STRIDE,
                                      (long long)blockIdx.x * P::G, in, Vx0,
                                      Vxx0, ks, Ks, N, B, reg);
@@ -521,8 +529,28 @@ extern "C" int roll_clock(int nj, const void* model, const void* x0,
   return (int)cudaGetLastError();
 }
 
+// whether a rollout block of G problems of W threads, with a tile of TILE
+// values a problem, fits an SM in float32 (asked before RollShape, which
+// refuses a shape that does not fit)
+template <int W, int G, int TILE>
+constexpr bool roll_fits() {
+  return gt::roll_bytes<float, GT_NJ>(G, TILE) <= gt::SMEM_LIMIT &&
+         W * G <= 512 && W * G % 32 == 0;
+}
+
+template <int W, int G>
+static int roll_shape_launch(const void* model, const void* x0,
+                             const void* U, const void* lo, const void* hi,
+                             void* X, int N, long long B, double dt) {
+  constexpr int NJ = GT_NJ;
+  if constexpr (roll_fits<W, G, NJ>())
+    return launch_rollout<float, NJ, gt::RollShape<float, NJ, W, G>>(
+        model, x0, U, lo, hi, X, N, B, dt, -9.81, 0);
+  return (int)cudaErrorInvalidConfiguration;
+}
+
 // the rollout kernel at block shape (lanes threads a rollout, g problems a
-// block), float32
+// block), float32; a shape that does not fit an SM is not built
 extern "C" int roll_shape(int lanes, int g, int nj, const void* model,
                           const void* x0, const void* U, const void* lo,
                           const void* hi, void* X, int N, long long B,
@@ -531,8 +559,7 @@ extern "C" int roll_shape(int lanes, int g, int nj, const void* model,
   if (nj != NJ) return (int)cudaErrorInvalidValue;
 #define GT_SHAPE(W, G)                                                      \
   if (lanes == W && g == G)                                                 \
-    return launch_rollout<float, NJ, gt::RollShape<float, NJ, W, G>>(       \
-        model, x0, U, lo, hi, X, N, B, dt, -9.81, 0);
+    return roll_shape_launch<W, G>(model, x0, U, lo, hi, X, N, B, dt);
   GT_SHAPE(8, 4) GT_SHAPE(8, 8) GT_SHAPE(16, 2) GT_SHAPE(16, 4)
   GT_SHAPE(16, 8) GT_SHAPE(32, 2) GT_SHAPE(32, 4) GT_SHAPE(32, 8)
 #undef GT_SHAPE
@@ -589,8 +616,23 @@ extern "C" int fbr_clock(int nj, const void* model, const void* x0,
   return (int)cudaGetLastError();
 }
 
+template <int W, int G>
+static int fbr_shape_launch(const void* model, const void* x0,
+                            const void* Uref, const void* Xref,
+                            const void* kff, const void* K, const void* lo,
+                            const void* hi, void* X, void* U, int N,
+                            long long B, double dt) {
+  constexpr int NJ = GT_NJ;
+  if constexpr (roll_fits<W, G, gt::LSTile<NJ>::SIZE>())
+    return launch_feedback_rollout<
+        float, NJ,
+        gt::RollShape<float, NJ, W, G, gt::FoldedStepLaw<float, NJ>>>(
+        model, x0, Uref, Xref, kff, K, lo, hi, X, U, N, B, dt, -9.81, 0);
+  return (int)cudaErrorInvalidConfiguration;
+}
+
 // the feedback rollout kernel at block shape (lanes threads a rollout, g
-// problems a block), float32
+// problems a block), float32; a shape that does not fit an SM is not built
 extern "C" int fbr_shape(int lanes, int g, int nj, const void* model,
                          const void* x0, const void* Uref, const void* Xref,
                          const void* kff, const void* K, const void* lo,
@@ -600,10 +642,8 @@ extern "C" int fbr_shape(int lanes, int g, int nj, const void* model,
   if (nj != NJ) return (int)cudaErrorInvalidValue;
 #define GT_SHAPE(W, G)                                                      \
   if (lanes == W && g == G)                                                 \
-    return launch_feedback_rollout<                                         \
-        float, NJ,                                                          \
-        gt::RollShape<float, NJ, W, G, gt::FoldedStepLaw<float, NJ>>>(      \
-        model, x0, Uref, Xref, kff, K, lo, hi, X, U, N, B, dt, -9.81, 0);
+    return fbr_shape_launch<W, G>(model, x0, Uref, Xref, kff, K, lo, hi, X, \
+                                  U, N, B, dt);
   GT_SHAPE(8, 4) GT_SHAPE(8, 8) GT_SHAPE(16, 2) GT_SHAPE(16, 4)
   GT_SHAPE(16, 8) GT_SHAPE(32, 2) GT_SHAPE(32, 4) GT_SHAPE(32, 8)
 #undef GT_SHAPE
@@ -649,13 +689,25 @@ def nvcc():
     return build._nvcc(), build.NVCC_FLAGS
 
 
+def tree_joints(tree: Path) -> tuple:
+    """The joint counts of JOINTS that the tree's build lists (an earlier
+    tree may build fewer)."""
+    text = (tree / "gridcodegenerator_tpu_torch" / "ops" / "cuda"
+            / "build.py").read_text()
+    listed = re.search(r"SUPPORTED_JOINTS = \(([^)]*)\)", text).group(1)
+    return tuple(nj for nj in JOINTS
+                 if str(nj) in (v.strip() for v in listed.split(",")))
+
+
 def compile_tree(tree: Path, out: Path, sources, clocked: bool = False):
-    """{nj: library path}, and the ptxas report of every object; with
-    `clocked`, also {nj: phase-clock library path}."""
+    """{nj: library path} at the joint counts the tree builds, and the
+    ptxas report of every object; with `clocked`, also {nj: phase-clock
+    library path}."""
     exe, flags = nvcc()
     csrc = tree / "gridcodegenerator_tpu_torch" / "csrc"
-    jobs = [(nj, csrc / src) for nj in JOINTS for src in sources]
-    clock_joints = JOINTS if clocked else ()
+    joints = tree_joints(tree)
+    jobs = [(nj, csrc / src) for nj in joints for src in sources]
+    clock_joints = joints if clocked else ()
     if clocked:
         (out / "phase_clock.cu").write_text(PHASE_CLOCK_CU)
         jobs += [(nj, out / "phase_clock.cu") for nj in clock_joints]
@@ -677,7 +729,7 @@ def compile_tree(tree: Path, out: Path, sources, clocked: bool = False):
         reports = list(pool.map(one, jobs))
     clocks = {nj: out / f"phase_clock{nj}.so" for nj in clock_joints}
     libs = {}
-    for nj in JOINTS:
+    for nj in joints:
         lib = out / f"lib_nj{nj}.so"
         subprocess.run([exe, *flags, "-shared",
                         *(str(out / f"{src}.nj{nj}.o") for src in sources),
@@ -1222,10 +1274,13 @@ def main():
             shapes = {}
             for lanes_g in ROLL_SHAPES:
                 def shape_fn():
-                    build.check(clock.roll_shape(
+                    return clock.roll_shape(
                         *lanes_g, n, ptr(mb), ptr(x0), ptr(U0), ptr(lo),
-                        ptr(hi), ptr(X), N, B, dt), "rollout shape")
-                shape_fn()
+                        ptr(hi), ptr(X), N, B, dt)
+                code = shape_fn()
+                if code == 9:   # cudaErrorInvalidConfiguration: does not fit
+                    continue
+                build.check(code, "rollout shape")
                 torch.cuda.synchronize()
                 shapes["x".join(map(str, lanes_g))] = {
                     "ms": time_cuda(shape_fn, iters=iters),
@@ -1236,10 +1291,12 @@ def main():
             shapes = {}
             for lanes_g in ROLL_SHAPES:
                 def shape_fn():
-                    build.check(clock.fbr_shape(
-                        *lanes_g, n, *fb_in, *map(ptr, outs), N, B, dt),
-                        "feedback rollout shape")
-                shape_fn()
+                    return clock.fbr_shape(*lanes_g, n, *fb_in,
+                                           *map(ptr, outs), N, B, dt)
+                code = shape_fn()
+                if code == 9:   # cudaErrorInvalidConfiguration: does not fit
+                    continue
+                build.check(code, "feedback rollout shape")
                 torch.cuda.synchronize()
                 shapes["x".join(map(str, lanes_g))] = {
                     "ms": time_cuda(shape_fn, iters=iters),

@@ -340,21 +340,29 @@ long long count(int kernel, const double* model, const double* ee, int ne,
                                   c.data(), d.data(), x.data(),
                                   x.data() + big / 2, N, 1, reg);
       break;
-    case IDSVA_SO:   // executed: the knot's threads, every phase
-      if (needed)
+    case IDSVA_SO:   // executed: the knot's threads, every phase; none
+                     // where one knot does not fit a block (the wrapper
+                     // refuses the launch)
+      if (needed) {
         idsva_so_lane<C, NJ, DStored>(R, a.data(), b.data(), c.data(), g,
                                       x.data(), 1);
-      else
-        idsva_so_host<C, NJ>(m.data(), a.data(), b.data(), c.data(),
-                             x.data(), 1, g);
+      } else {
+        if constexpr (IDSOPlan<double, NJ>::G >= 1)
+          idsva_so_host<C, NJ>(m.data(), a.data(), b.data(), c.data(),
+                               x.data(), 1, g);
+        else
+          return -1;
+      }
       break;
     case FDSVA_SO:
       if (needed)
         fdsva_so_host<C, NJ, DStored>(m.data(), a.data(), b.data(), c.data(),
                                       x.data(), 1, g);
-      else
+      else if (SOPlan<double, NJ>::G >= 1)
         fdsva_so_host<C, NJ>(m.data(), a.data(), b.data(), c.data(),
                              x.data(), 1, g);
+      else
+        return -1;
       break;
     default: return -1;
   }
@@ -380,6 +388,8 @@ extern "C" long long gridtorch_opcount(int kernel, int nj, const double* model,
     case 8: return GT_COUNT(8);
     case 12: return GT_COUNT(12);
     case 16: return GT_COUNT(16);
+    case 17: return GT_COUNT(17);
+    case 28: return GT_COUNT(28);
   }
 #undef GT_COUNT
   return -1;

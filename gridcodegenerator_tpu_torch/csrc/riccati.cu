@@ -294,7 +294,8 @@ __global__ void riccati_factored_kernel(
   constexpr int W = P::LANES;
   T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
   const int tid = threadIdx.x, nt = blockDim.x;
-  const gt::FactoredIn<T, NJ> in{A, Bm, lx, lu, Jw, B, N, r, qd_diag, u_diag};
+  const gt::FactoredIn<T, NJ, P::BUFS> in{
+      A, Bm, lx, lu, Jw, B, N, r, qd_diag, u_diag};
   gt::riccati_block<T, NJ, P::G>(gt::WarpPar<W>{tid % W, 1 + tid / W}, tid,
                                  nt, tid / W, knots, P::STRIDE,
                                  (long long)blockIdx.x * P::G, in, Vx0, Vxx0,
@@ -339,7 +340,8 @@ __global__ void riccati_kernel(
   constexpr int W = P::LANES;
   T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
   const int tid = threadIdx.x, nt = blockDim.x;
-  const gt::DenseIn<T, NJ, STAT> in{A, Bm, lx, lu, lxx, luu, lux, B};
+  const gt::DenseIn<T, NJ, STAT, P::BUFS> in{
+      A, Bm, lx, lu, lxx, luu, lux, B};
   gt::riccati_block<T, NJ, P::G>(gt::WarpPar<W>{tid % W, 1 + tid / W}, tid,
                                  nt, tid / W, knots, P::STRIDE,
                                  (long long)blockIdx.x * P::G, in, Vx0, Vxx0,

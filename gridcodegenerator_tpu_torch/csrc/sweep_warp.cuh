@@ -107,15 +107,17 @@ GT_HD void store_runs(const T* src, long long S, int rows, int nvalid, T* dst,
 // stationary).
 enum { RIC_FACTORED, RIC_DENSE, RIC_STATIONARY };
 
-// One problem's state (offsets into its buffer of T). Two tile buffers (A,
+// One problem's state (offsets into its buffer of T). BUFS tile buffers (A,
 // B, lx, lu and the knot's curvature: the factor Jw, rank <= RMAX, or the
-// dense lxx, luu, lux) so that knot t - 1 arrives while knot t is computed;
-// then the value function and the knot's Q blocks; the augmented matrix of
-// Gauss-Jordan and its pivots' inverses; last a stationary curvature. The
-// gains K and Quu K go over VA, dead after Q's assembly. CURV is the
-// curvature's place, each its own layout.
-template <int NJ, int CURV = RIC_FACTORED>
+// dense lxx, luu, lux): with two, knot t - 1 arrives while knot t is
+// computed; with one (where two do not fit a block), it is staged once knot
+// t is done. Then the value function and the knot's Q blocks; the augmented
+// matrix of Gauss-Jordan and its pivots' inverses; last a stationary
+// curvature. The gains K and Quu K go over VA, dead after Q's assembly.
+// CURV is the curvature's place, each its own layout.
+template <int NJ, int CURV = RIC_FACTORED, int BUFS_ = 2>
 struct RicKnot {
+  static constexpr int BUFS = BUFS_;
   static constexpr int NX = 2 * NJ, RMAX = 6;
   // the dense blocks, from the curvature's base
   static constexpr int CXX = 0, CUU = CXX + NX * NX, CUX = CUU + NJ * NJ;
@@ -124,7 +126,7 @@ struct RicKnot {
   static constexpr int LU = LX + NX, JW = LU + NJ;
   static constexpr int TILE =
       JW + (CURV == RIC_FACTORED ? RMAX * NJ : CURV == RIC_DENSE ? DENSE : 0);
-  static constexpr int VX = 2 * TILE, VXX = VX + NX, QX = VXX + NX * NX;
+  static constexpr int VX = BUFS * TILE, VXX = VX + NX, QX = VXX + NX * NX;
   static constexpr int QU = QX + NX, QXX = QU + NJ, QUX = QXX + NX * NX;
   static constexpr int QUU = QUX + NJ * NX, KT = QUU + NJ * NJ;
   static constexpr int QUUK = KT + NJ, VA = QUUK + NJ;
@@ -140,9 +142,9 @@ struct RicKnot {
 // the problem's buffer (a compile-time choice of tile or state), and xx,
 // ux, uu the entry of lxx, lux, luu added to the product s, as FactoredCurv
 // adds it: blkdiag(Jw^T Jw, qd_diag I), 0, u_diag I.
-template <typename T, int NJ>
+template <typename T, int NJ, int BUFS = 2>
 struct FactoredIn {
-  using O = RicKnot<NJ, RIC_FACTORED>;
+  using O = RicKnot<NJ, RIC_FACTORED, BUFS>;
   static constexpr int NX = 2 * NJ;
   const T *A, *Bm, *lx, *lu, *Jw;
   long long B;
@@ -184,9 +186,9 @@ struct FactoredIn {
 // problem's state beside its value function (stage_once); a per-knot one
 // into the knot's tile with A and B. xx, ux, uu add the entry to the
 // product as DenseCurv adds it (s + l).
-template <typename T, int NJ, bool STATIONARY>
+template <typename T, int NJ, bool STATIONARY, int BUFS = 2>
 struct DenseIn {
-  using O = RicKnot<NJ, STATIONARY ? RIC_STATIONARY : RIC_DENSE>;
+  using O = RicKnot<NJ, STATIONARY ? RIC_STATIONARY : RIC_DENSE, BUFS>;
   static constexpr int NX = 2 * NJ;
   const T *A, *Bm, *lx, *lu, *lxx, *luu, *lux;
   long long B;
@@ -443,11 +445,12 @@ GT_HD void riccati_knot_warp(const Par& par, T* k, const T* tile,
 }
 
 // The block: G problems (units), unit `unit` runs its program with `par`.
-// Knot N - 1 down to 0; the tiles of knot t - 1 are staged while knot t is
-// computed (a stationary curvature once, with the value function, before
-// the first knot); the gains of knot t are written (G lanes a row) at the
-// start of the next step. `only` >= 0 (the host build) writes only that
-// unit's lanes.
+// Knot N - 1 down to 0; with two tile buffers the tiles of knot t - 1 are
+// staged while knot t is computed, with one once knot t + 1 is done (a
+// stationary curvature once, with the value function, before the first
+// knot); the gains of knot t are written (G lanes a row) at the start of
+// the next step. `only` >= 0 (the host build) writes only that unit's
+// lanes.
 template <typename T, int NJ, int G, class In, class Par>
 GT_HD void riccati_block(const Par& par, int tid, int nt, int unit, T* knots,
                          long long S, long long b0, const In& in,
@@ -455,8 +458,11 @@ GT_HD void riccati_block(const Par& par, int tid, int nt, int unit, T* knots,
                          long long B, T reg, int only = -1) {
   using O = typename In::O;
   constexpr int NX = 2 * NJ;
+  constexpr bool TWO = O::BUFS == 2;
   const int nvalid = (int)(B - b0 < G ? B - b0 : G);
   T* k = knots + unit * S;
+  // the offset of knot t's tiles in each problem's buffer
+  auto tile = [&](int t) { return TWO ? (t & 1) * O::TILE : 0; };
   auto store = [&](int t) {
     store_runs<G>(knots + O::KT, S, NJ, nvalid,
                   ks + (long long)t * NJ * B + b0, B, tid, nt, only);
@@ -466,22 +472,25 @@ GT_HD void riccati_block(const Par& par, int tid, int nt, int unit, T* knots,
   stage_runs<G>(Vx0 + b0, B, NX, nvalid, knots + O::VX, S, tid, nt);
   stage_runs<G>(Vxx0 + b0, B, NX * NX, nvalid, knots + O::VXX, S, tid, nt);
   in.template stage_once<G>(b0, nvalid, knots, S, tid, nt);
-  in.template stage<G>(N - 1, b0, nvalid, knots + ((N - 1) & 1) * O::TILE, S,
-                       tid, nt);
+  in.template stage<G>(N - 1, b0, nvalid, knots + tile(N - 1), S, tid, nt);
   async_commit();
   for (int t = N - 1; t >= 0; --t) {
     block_sync();   // knot t + 1 is done: its gains out, its tiles free
     if (t + 1 < N) store(t + 1);
-    if (t > 0) {
-      in.template stage<G>(t - 1, b0, nvalid,
-                           knots + ((t - 1) & 1) * O::TILE, S, tid, nt);
+    if (TWO && t > 0) {
+      in.template stage<G>(t - 1, b0, nvalid, knots + tile(t - 1), S, tid,
+                           nt);
       async_commit();
       async_wait<1>();
     } else {
+      if (!TWO && t + 1 < N) {
+        in.template stage<G>(t, b0, nvalid, knots + tile(t), S, tid, nt);
+        async_commit();
+      }
       async_wait<0>();
     }
     block_sync();   // knot t's tiles have landed
-    riccati_knot_warp<T, NJ>(par, k, k + (t & 1) * O::TILE, in, reg);
+    riccati_knot_warp<T, NJ>(par, k, k + tile(t), in, reg);
   }
   block_sync();
   store(0);
@@ -498,8 +507,10 @@ GT_HDI constexpr int ric_regs() { return sizeof(T) == 4 ? 96 : 104; }
 
 // The Riccati sweeps' plans: the threads a problem as BlockPlan picks them;
 // G the most problems a block, up to 8, that fit (whole sectors; B = 2048
-// problems then fill the card in one wave of blocks). Each curvature's
-// place has its own layout, so its own plan.
+// problems then fill the card in one wave of blocks); two tile buffers where
+// one problem fits with them, else one (the dense sweep at 28 joints in
+// float64: 241.5 KB a problem with two, 203.2 KB with one). Each
+// curvature's place has its own layout, so its own plan.
 GT_HDI constexpr int ric_g(long long head, long long knot_bytes, int lanes) {
   int g = MAX_KNOTS;
   while (g > 0 && (head + g * knot_bytes > SMEM_LIMIT ||
@@ -508,15 +519,20 @@ GT_HDI constexpr int ric_g(long long head, long long knot_bytes, int lanes) {
   return g;
 }
 
-template <typename T, int NJ, int CURV = RIC_FACTORED>
-struct RicPlan {
-  using BP =
-      BlockPlan<T, NoHead, RicKnot<NJ, CURV>::SIZE, WARP, ric_regs<T>()>;
+template <typename T, int NJ, int CURV, int BUFS_>
+struct RicShape {
+  static constexpr int BUFS = BUFS_;
+  using BP = BlockPlan<T, NoHead, RicKnot<NJ, CURV, BUFS>::SIZE, WARP,
+                       ric_regs<T>()>;
   static constexpr int LANES = BP::LANES, STRIDE = BP::STRIDE, ROWS = 1;
   static constexpr long long HEAD = BP::HEAD;
   static constexpr int G = ric_g(HEAD, BP::KNOT_BYTES, LANES);
   static constexpr long long BYTES = HEAD + (G > 0 ? G : 1) * BP::KNOT_BYTES;
 };
+
+template <typename T, int NJ, int CURV = RIC_FACTORED>
+struct RicPlan
+    : RicShape<T, NJ, CURV, RicShape<T, NJ, CURV, 2>::G >= 1 ? 2 : 1> {};
 
 // ---------------------------------------------------------------------------
 // the rollouts (linesearch_rollout, rollout): a thread group per rollout
@@ -1282,6 +1298,16 @@ struct LSPlan {
       HEAD + (long long)(2 * G * TILE + G * ROWS * STRIDE) * sizeof(T);
 };
 
+// The shared bytes of a one-row rollout's block of g problems: the head,
+// and a problem's two knots of its law's tile (tile values each) and its
+// rollout's state.
+template <typename T, int NJ>
+GT_HDI constexpr long long roll_bytes(int g, int tile) {
+  return (sizeof(LSHead<T, NJ>) + 15) / 16 * 16 +
+         (long long)g * (2 * tile + pad_stride<T>(LSRoll<NJ>::SIZE)) *
+             sizeof(T);
+}
+
 // A one-row rollout's block (the open-loop and the feedback rollout): G
 // problems, a rollout each, LANES threads a rollout (whole warps a block),
 // its tile the law's (OpenLoop: U_t, NJ values a problem; FoldedStepLaw:
@@ -1292,8 +1318,7 @@ struct RollShape {
   static constexpr int STRIDE = pad_stride<T>(LSRoll<NJ>::SIZE);
   static constexpr int TILE = Law::TILE;
   static constexpr long long HEAD = (sizeof(LSHead<T, NJ>) + 15) / 16 * 16;
-  static constexpr long long BYTES =
-      HEAD + (long long)(2 * G * TILE + G * STRIDE) * sizeof(T);
+  static constexpr long long BYTES = roll_bytes<T, NJ>(G, TILE);
   static_assert(G * LANES % WARP == 0 && G * LANES <= MAX_BLOCK_THREADS,
                 "a rollout block is whole warps");
   static_assert(BYTES <= SMEM_LIMIT, "a rollout block fits an SM");
@@ -1319,12 +1344,17 @@ using RollPlan = RollShape<T, NJ, roll_lanes<NJ>(), roll_g<NJ>()>;
 // (compare_kernels.py's block shapes at its main shapes; PERF.md): the
 // same step, with K, Xref, Uref and kf staged a knot; the rollout's
 // widths, and its problems a block but 8 on the chain of 7 (and
-// pendulum2).
-template <int NJ>
-GT_HDI constexpr int fb_g() { return NJ == 2 || NJ == 7 ? 8 : roll_g<NJ>(); }
+// pendulum2), halved while two knots' tiles and the rollouts do not fit a
+// block (28 joints in float64: 2 a block).
+template <typename T, int NJ>
+GT_HDI constexpr int fb_g() {
+  int g = NJ == 2 || NJ == 7 ? 8 : roll_g<NJ>();
+  while (g > 1 && roll_bytes<T, NJ>(g, LSTile<NJ>::SIZE) > SMEM_LIMIT) g /= 2;
+  return g;
+}
 
 template <typename T, int NJ>
-using FBPlan = RollShape<T, NJ, roll_lanes<NJ>(), fb_g<NJ>(),
+using FBPlan = RollShape<T, NJ, roll_lanes<NJ>(), fb_g<T, NJ>(),
                          FoldedStepLaw<T, NJ>>;
 
 }  // namespace gt
@@ -1353,6 +1383,7 @@ void riccati_host(const In& in, const T* Vx0, const T* Vxx0, T* ks, T* Ks,
   using O = typename In::O;
   using P = RicPlan<PlanType<T>, NJ, CURV>;
   static_assert(P::G >= 1, "one Riccati problem must fit");
+  static_assert(O::BUFS == P::BUFS, "the layout is the plan's");
   std::vector<T> knots((long long)P::G * O::SIZE);
   for (long long b0 = 0; b0 < B; b0 += P::G)
     for (int g = 0; g < P::G && b0 + g < B; ++g) {
@@ -1374,7 +1405,9 @@ void riccati_factored_host(const T* A, const T* Bm, const T* lx, const T* lu,
                            const T* Jw, const T* Vx0, const T* Vxx0, T* ks,
                            T* Ks, int N, long long B, int r, T reg, T qd_diag,
                            T u_diag) {
-  const FactoredIn<T, NJ> in{A, Bm, lx, lu, Jw, B, N, r, qd_diag, u_diag};
+  constexpr int BUFS = RicPlan<PlanType<T>, NJ>::BUFS;
+  const FactoredIn<T, NJ, BUFS> in{A, Bm, lx, lu, Jw, B, N, r, qd_diag,
+                                   u_diag};
   riccati_host<T, NJ, RIC_FACTORED>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
 }
 
@@ -1383,11 +1416,13 @@ void riccati_dense_host(const T* A, const T* Bm, const T* lx, const T* lu,
                         const T* lxx, const T* luu, const T* lux,
                         bool stationary, const T* Vx0, const T* Vxx0, T* ks,
                         T* Ks, int N, long long B, T reg) {
+  constexpr int SB = RicPlan<PlanType<T>, NJ, RIC_STATIONARY>::BUFS;
+  constexpr int DB = RicPlan<PlanType<T>, NJ, RIC_DENSE>::BUFS;
   if (stationary) {
-    const DenseIn<T, NJ, true> in{A, Bm, lx, lu, lxx, luu, lux, B};
+    const DenseIn<T, NJ, true, SB> in{A, Bm, lx, lu, lxx, luu, lux, B};
     riccati_host<T, NJ, RIC_STATIONARY>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
   } else {
-    const DenseIn<T, NJ, false> in{A, Bm, lx, lu, lxx, luu, lux, B};
+    const DenseIn<T, NJ, false, DB> in{A, Bm, lx, lu, lxx, luu, lux, B};
     riccati_host<T, NJ, RIC_DENSE>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
   }
 }

@@ -787,9 +787,12 @@ struct IDUKnot {
 
 // The column passes of id_du: one pass of 2 NJ columns runs the q and qd
 // columns side by side, where each of two passes leaves half the knot's
-// column threads idle (compare_kernels.py times both; PERF.md).
+// column threads idle (compare_kernels.py times both; PERF.md). Above 16
+// joints two passes: a one-pass knot of 28 joints (38 NJ^2 + 63 NJ values)
+// does not fit a block's shared memory in float64, and two passes ran
+// faster wherever knots an SM set the rate.
 template <int NJ>
-GT_HDI constexpr int idu_passes() { return 1; }
+GT_HDI constexpr int idu_passes() { return NJ > 16 ? 2 : 1; }
 
 // dc/d[q, qd] of the knot whose q, qd, qdd sit at IDUKnot's offsets in `k`
 // (dynamics.cuh:id_du_lane, split over the knot's threads): the joint
@@ -1624,8 +1627,9 @@ struct KnotShape {
       KNOT + ((16 / WORDS - KNOT % (32 / WORDS)) + 32 / WORDS) % (32 / WORDS);
   static constexpr long long HEAD = (sizeof(Head) + 15) / 16 * 16;
   static constexpr int LANES = LANES_, G = G_, ROWS = 1;
+  // one knot's where none fits (G = 0)
   static constexpr long long BYTES =
-      HEAD + (long long)G * STRIDE * (long long)sizeof(T);
+      HEAD + (long long)(G > 0 ? G : 1) * STRIDE * (long long)sizeof(T);
 };
 
 // The kernels' plans: fd_du's head is the robot constants, fdsva_so's and
@@ -1891,15 +1895,20 @@ inline cudaError_t smem_attrs(K* fn, long long bytes) {
 template <class P>
 inline int kernel_info(const void* fn, int* out) {
   out[8] = P::ROWS;
-  // the launch's attributes, which the occupancy calculator reads
-  cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)P::BYTES);
-  cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
-                       (int)cudaSharedmemCarveoutMaxShared);
-  int blocks = 0;
-  const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, fn, P::G * P::ROWS * P::LANES, (size_t)P::BYTES);
-  out[9] = occ == cudaSuccess ? blocks : -1;
+  out[9] = 0;
+  // the launch's attributes, which the occupancy calculator reads; a plan
+  // that holds no knot (G 0) is never launched, and querying it would leave
+  // an error that the library's next call reports
+  if (P::G >= 1) {
+    cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         (int)P::BYTES);
+    cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                         (int)cudaSharedmemCarveoutMaxShared);
+    int blocks = 0;
+    const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, fn, P::G * P::ROWS * P::LANES, (size_t)P::BYTES);
+    out[9] = occ == cudaSuccess ? blocks : -1;
+  }
   cudaFuncAttributes a;
   const cudaError_t err = cudaFuncGetAttributes(&a, fn);
   out[0] = P::G;

@@ -31,6 +31,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
@@ -53,7 +54,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # joint counts a library is built for (csrc/dynamics.cuh: GT_DISPATCH, one
 # joint count per library) and dtypes; a robot or dtype outside these raises
 # in the wrapper
-SUPPORTED_JOINTS = (2, 7, 8, 12, 16)
+SUPPORTED_JOINTS = (2, 7, 8, 12, 16, 17, 28)
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 # launches per kernel since the last reset: each wrapper adds one right after
@@ -61,6 +62,9 @@ DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 LAUNCHES = collections.Counter()
 # calls of each kernel's plain PyTorch version
 PLAIN_CALLS = collections.Counter()
+# seconds of nvcc (its compile jobs summed) of each library built by this
+# process, by joint count
+NVCC_SECONDS = {}
 
 _libs = {}
 _lib_lock = threading.Lock()
@@ -100,11 +104,13 @@ def build(joints=SUPPORTED_JOINTS, verbose: bool = False) -> dict:
     built for the current sources yet; ``{joint count: library path}``.
 
     Every (joint count, source) pair is one ``nvcc -c``, and all of them
-    run in one pool of ``os.cpu_count()`` processes; then each library
-    links from its objects and moves into place atomically.
+    run in one pool of ``os.cpu_count()`` processes, the most joints
+    first; then each library links from its objects and moves into place
+    atomically. Each built library's seconds go into ``NVCC_SECONDS``.
     """
     libs = {nj: _lib_path(nj) for nj in joints}
-    todo = [nj for nj, lib in libs.items() if not lib.exists()]
+    todo = sorted((nj for nj, lib in libs.items() if not lib.exists()),
+                  reverse=True)
     if not todo:
         return libs
     nvcc = _nvcc()
@@ -114,8 +120,10 @@ def build(joints=SUPPORTED_JOINTS, verbose: bool = False) -> dict:
     extra = ("-Xptxas", "-v") if verbose else ()
 
     def run(cmd):
-        return subprocess.run(cmd, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
+        t = time.perf_counter()
+        res = subprocess.run(cmd, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True)
+        return res, time.perf_counter() - t
 
     def compile_one(job):
         nj, src = job
@@ -128,17 +136,20 @@ def build(joints=SUPPORTED_JOINTS, verbose: bool = False) -> dict:
                     str(tmp[nj] / LIB_NAME)])
 
     jobs = [(nj, src) for nj in todo for src in SOURCES]
+    took = collections.Counter()
     with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
-        for (nj, src), res in zip(jobs, pool.map(compile_one, jobs)):
+        for (nj, src), (res, sec) in zip(jobs, pool.map(compile_one, jobs)):
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc failed on {src} ({nj} joints):\n"
                                    f"{res.stdout}")
             if verbose and res.stdout:
                 print(f"[nvcc {src}, {nj} joints]\n{res.stdout}", flush=True)
-        for nj, res in zip(todo, pool.map(link, todo)):
+            took[nj] += sec
+        for nj, (res, _) in zip(todo, pool.map(link, todo)):
             if res.returncode != 0:
                 raise RuntimeError(f"nvcc link failed ({nj} joints):\n"
                                    f"{res.stdout}")
+            NVCC_SECONDS[nj] = took[nj]
     for nj in todo:
         try:
             os.replace(tmp[nj], libs[nj].parent)
@@ -235,6 +246,25 @@ def warp_kernel_info(what: str, nj: int, dtype) -> dict:
     return dict(zip(INFO_FIELDS, out))
 
 
+_plans = {}
+
+
+def fits(what: str, nj: int, dtype, kernel: str = None):
+    """Raise, before any launch, if one knot (problem, rollout) of the
+    thread-group kernel ``what`` (one of ``WARP_KERNELS``; its plan read once
+    a process) does not fit a block's shared memory at ``nj`` joints in
+    ``dtype``. ``kernel`` names the kernel in the message."""
+    key = what, nj, dtype
+    if key not in _plans:
+        _plans[key] = warp_kernel_info(what, nj, dtype)
+    plan = _plans[key]
+    if plan["knots_per_block"] < 1:
+        raise RuntimeError(
+            f"{kernel or what}: one {nj}-joint {dtype} knot needs "
+            f"{plan['smem_bytes_per_block']} B of shared memory, more than "
+            f"a block may use")
+
+
 def check(err: int, what: str):
     """Raise if a C entry point reported a CUDA error."""
     if err != 0:
@@ -275,8 +305,9 @@ def kernel_key(model: RobotModel, like: torch.Tensor, what: str):
     if model.n not in SUPPORTED_JOINTS or any(
             j not in ("revolute", "prismatic") for j in model.jtype):
         raise NotImplementedError(
-            f"{what}: CUDA kernels are built for 1-dof robots with "
-            f"{SUPPORTED_JOINTS} joints; {model.name!r} has {model.n}")
+            f"{what}: CUDA kernels are built for robots of 1-dof joints "
+            f"with {', '.join(map(str, SUPPORTED_JOINTS))} joints; "
+            f"{model.name!r} has {model.n}")
     if dtype not in DTYPE_CODES:
         raise NotImplementedError(f"{what}: no CUDA kernel for {dtype}")
     return DTYPE_CODES[dtype], model.n

@@ -44,7 +44,10 @@ second-order outputs (4 n^3 values a lane; d2eepos 6 n^2 per EE), whose
 writes are the least time.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-or raises.
+or raises: the thread-group kernels (fd_du, id_du, idsva_so, fdsva_so,
+d2eepos) check their instance's block plan first, and refuse, before any
+launch, one whose knot does not fit a block (``build.fits``: idsva_so and
+fdsva_so at 28 joints).
 """
 
 from __future__ import annotations
@@ -101,17 +104,6 @@ def _empty(like: torch.Tensor, *shape):
 def _launched(what: str, err: int):
     build.check(err, what)
     build.LAUNCHES[what] += 1
-
-
-_plans = {}
-
-
-def _plan(what: str, nj: int, dtype) -> dict:
-    """``build.warp_kernel_info`` of an instance, once per process."""
-    key = what, nj, dtype
-    if key not in _plans:
-        _plans[key] = build.warp_kernel_info(what, nj, dtype)
-    return _plans[key]
 
 
 # ---------------------------------------------------------------------------
@@ -187,6 +179,7 @@ def fd_du(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
     if not q.is_cuda:
         return fd_du_plain(model, q, qd, u, gravity)
     dcode, nj, L = _lanes(model, FD_DU, dict(q=q, qd=qd, u=u))
+    build.fits(FD_DU, nj, q.dtype)
     n = model.n
     df_du = _empty(q, n, 2 * n, L)
     qdd, Mi = _empty(q, n, L), _empty(q, n, n, L)
@@ -215,6 +208,7 @@ def id_du(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
     if qdd is None:
         raise ValueError(f"{ID_DU}: qdd is required")
     dcode, nj, L = _lanes(model, ID_DU, dict(q=q, qd=qd, qdd=qdd))
+    build.fits(ID_DU, nj, q.dtype)
     dc_du = _empty(q, model.n, 2 * model.n, L)
     _launched(ID_DU, build.lib(nj).gridtorch_id_du(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
@@ -273,6 +267,8 @@ def _ee_launch(what: str, model: RobotModel, q, targets, *cols):
     """Launch EE kernel ``what`` over the EE rows of ``targets``: output
     (6 ne, *cols, L)."""
     dcode, nj, L = _lanes(model, what, dict(q=q))
+    if what in build.WARP_KERNELS:
+        build.fits(what, nj, q.dtype)
     ee = build.ee_buffer(model, targets)
     out = _empty(q, 6 * ee.shape[0], *cols, L)
     _launched(what, getattr(build.lib(nj), f"gridtorch_{what}")(
@@ -300,16 +296,6 @@ def d2eepos(model: RobotModel, q, targets=None):
     return _ee_launch(D2EEPOS, model, q, targets, model.n, model.n)
 
 
-def _fits(what: str, nj: int, dtype):
-    """Raise if one knot of ``what`` does not fit a block's shared memory."""
-    plan = _plan(what, nj, dtype)
-    if plan["knots_per_block"] < 1:
-        raise RuntimeError(
-            f"{what}: one {nj}-joint {dtype} knot needs "
-            f"{plan['smem_bytes_per_block']} B of shared memory, more than "
-            f"a block may use")
-
-
 def idsva_so(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
     """Each knot's IDSVA-SO tensors stay in the kernel's shared memory
     until written; raises if one knot does not fit there."""
@@ -318,7 +304,7 @@ def idsva_so(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
     if qdd is None:
         raise ValueError(f"{IDSVA_SO}: qdd is required")
     dcode, nj, L = _lanes(model, IDSVA_SO, dict(q=q, qd=qd, qdd=qdd))
-    _fits(IDSVA_SO, nj, q.dtype)
+    build.fits(IDSVA_SO, nj, q.dtype)
     n = model.n
     out = _empty(q, 4, n, n, n, L)
     _launched(IDSVA_SO, build.lib(nj).gridtorch_idsva_so(
@@ -334,7 +320,7 @@ def fdsva_so(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
     if not q.is_cuda:
         return fdsva_so_plain(model, q, qd, u, gravity)
     dcode, nj, L = _lanes(model, FDSVA_SO, dict(q=q, qd=qd, u=u))
-    _fits(FDSVA_SO, nj, q.dtype)
+    build.fits(FDSVA_SO, nj, q.dtype)
     n = model.n
     out = _empty(q, 4, n, n, n, L)
     _launched(FDSVA_SO, build.lib(nj).gridtorch_fdsva_so(

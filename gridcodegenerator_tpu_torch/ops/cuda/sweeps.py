@@ -31,7 +31,8 @@ problems with cp.async while the knot before is computed.
 
 Integrator: semi-implicit Euler — qd' = qd + dt*qdd, q' = q + dt*qd'.
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-or raises.
+or raises (a plan that holds no problem or rollout is refused before the
+launch: ``build.fits``).
 """
 
 from __future__ import annotations
@@ -98,6 +99,7 @@ def rollout(model: RobotModel, x0, U, dt, gravity=DEFAULT_GRAVITY,
     if not x0.is_cuda:
         return rollout_plain(model, x0, U, dt, gravity, u_lo, u_hi)
     dcode, nj = build.kernel_key(model, x0, ROLLOUT)
+    build.fits(ROLLOUT, nj, x0.dtype)
     n, nx = model.n, 2 * model.n
     N, B = U.shape[0], x0.shape[-1]
     if x0.shape != (nx, B) or U.shape != (N, n, B):
@@ -140,6 +142,7 @@ def feedback_rollout(model: RobotModel, x0, Uref, Xref, kff, K, dt,
         return feedback_rollout_plain(model, x0, Uref, Xref, kff, K, dt,
                                       gravity, u_lo, u_hi)
     dcode, nj = build.kernel_key(model, x0, FEEDBACK)
+    build.fits(FEEDBACK, nj, x0.dtype)
     n, nx = model.n, 2 * model.n
     N, B = Uref.shape[0], x0.shape[-1]
     given = dict(x0=x0, Uref=Uref, Xref=Xref, kff=kff, K=K)
@@ -200,6 +203,7 @@ def linesearch_rollout(model: RobotModel, x0, Uref, Xref, k, K, alpha_rows,
                                         alpha_rows, dt, gravity, u_lo, u_hi,
                                         cost)
     dcode, nj = build.kernel_key(model, x0, LINESEARCH)
+    build.fits("linesearch", nj, x0.dtype, LINESEARCH)
     n, nx = model.n, 2 * model.n
     N, B = Uref.shape[0], x0.shape[-1]
     na = alpha_rows.shape[0]
@@ -296,6 +300,7 @@ def riccati_factored(A, Bm, lx, lu, Jw, Vx0, Vxx0, reg, qd_diag, u_diag):
     N, nx, n, B = Bm.shape
     r = Jw.shape[0]
     _check_riccati_key(RICCATI, n, A.dtype)
+    build.fits(RICCATI, n, A.dtype)
     expect = dict(A=(N, nx, nx, B), lx=(nx, N * B), lu=(n, N * B),
                   Jw=(r, n, N * B), Vx0=(nx, B), Vxx0=(nx, nx, B))
     given = dict(A=A, lx=lx, lu=lu, Jw=Jw, Vx0=Vx0, Vxx0=Vxx0)
@@ -341,6 +346,8 @@ def riccati(A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg):
     N, nx, n, B = Bm.shape
     _check_riccati_key(RICCATI_DENSE, n, A.dtype)
     stationary = lxx.ndim == 3
+    build.fits("riccati" if stationary else "riccati_stacked", n, A.dtype,
+               RICCATI_DENSE)
     lead = () if stationary else (N,)
     expect = dict(A=(N, nx, nx, B), lx=(N, nx, B), lu=(N, n, B),
                   lxx=lead + (nx, nx, B), luu=lead + (n, n, B),

@@ -92,6 +92,19 @@ def resolve_control_bounds(model: RobotModel, cfg: ILQRConfig):
     return col(-eff), col(eff)
 
 
+def dynamics_step(model: RobotModel, x, u, dt, gravity=DEFAULT_GRAVITY):
+    """Semi-implicit Euler step on lane-major x = [q; qd] (2n, B) under u
+    (n, B). The counterpart of ``gridcodegenerator_tpu/trajopt/ilqr.py:
+    dynamics_step``: qdd from the ``aba`` kernel on a CUDA tensor, from the
+    plain ABA on the CPU."""
+    n = model.num_vel
+    q, qd = x[:n], x[n:]
+    qdd = _k.aba(model, q.contiguous(), qd.contiguous(), u.contiguous(),
+                 gravity)
+    qd_new = qd + dt * qdd
+    return torch.cat([q + dt * qd_new, qd_new], dim=0)
+
+
 def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
               expose_parts: bool = False):
     """Build a batched solver: solve(x0 (2n,B), U0 (N,n,B)) -> ILQRResult.

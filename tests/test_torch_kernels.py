@@ -65,14 +65,21 @@ KERNEL_OF = {"rnea_bias": "rnea", "minv_upper": "minv",
 TARGETS = {"pendulum2": None, "iiwa": ["ee_fixed"],
            "hyq": ["lf_foot_fixed", "rh_foot_fixed"],
            "gym_ant": ["front_left_leg_weld", "back_leg_weld"],
-           "dm_quadruped": ["toe_front_left_weld", "toe_back_right_weld"]}
+           "dm_quadruped": ["toe_front_left_weld", "toe_back_right_weld"],
+           "gym_humanoid": ["right_foot_weld"], "atlas": ["l_sole_fixed"]}
 # every joint count the kernels are built for: 2, 7, 12 (branched, 4 EEs),
-# 8 (EEs on the base) and 16 (branched, 4 EEs)
-ROBOTS = ("pendulum2", "iiwa", "hyq", "gym_ant", "dm_quadruped")
+# 8 (EEs on the base), 16 (branched, 4 EEs), 17 and 28 (humanoids, 2 EEs)
+ROBOTS = ("pendulum2", "iiwa", "hyq", "gym_ant", "dm_quadruped",
+          "gym_humanoid", "atlas")
+# at 28 joints one knot of idsva_so or fdsva_so does not fit a block's
+# shared memory: their wrappers refuse the launch (build.fits), so these
+# pairs have no kernel to test
+REFUSED = {("atlas", "idsva_so"), ("atlas", "fdsva_so")}
 # the sweeps' time step: dm_quadruped's joint damping (30) on its light links
-# makes semi-implicit Euler diverge at 0.01 (in the JAX reference too), so
-# its sweeps run at a step where the rollouts stay bounded
-DT = {"dm_quadruped": 0.002}
+# makes semi-implicit Euler diverge at 0.01 (in the JAX reference too), and
+# so does gym_humanoid's step (test_torch_mpc.py), so their sweeps run at a
+# step where the rollouts stay bounded
+DT = {"dm_quadruped": 0.002, "gym_humanoid": 0.002}
 
 
 def path_inputs(model, N, B, seed):
@@ -267,9 +274,10 @@ def test_kernel_key_refuses_what_the_build_does_not_cover():
     fl = build_model(load_robot("iiwa_floating"), dtype=torch.float64, device="cpu")
     with pytest.raises(NotImplementedError):
         build.kernel_key(fl, x, "t")
-    hum = build_model(load_robot("gym_humanoid"), dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError):   # 17 joints: not instantiated
-        build.kernel_key(hum, x, "t")
+    pend4 = build_model(load_robot("pendulum4"), dtype=torch.float64,
+                        device="cpu")
+    with pytest.raises(NotImplementedError):   # 4 joints: not instantiated
+        build.kernel_key(pend4, x, "t")
     hyq = build_model(load_robot("hyq"), dtype=torch.float64, device="cpu")
     assert build.kernel_key(hyq, x, "t") == (1, 12)
     iiwa = build_model(load_robot("iiwa"), dtype=torch.float64, device="cpu")
@@ -278,6 +286,29 @@ def test_kernel_key_refuses_what_the_build_does_not_cover():
         build.kernel_key(iiwa, x.float(), "t")
     with pytest.raises(NotImplementedError):
         build.kernel_key(iiwa.to(dtype=torch.float16), x.half(), "t")
+
+
+def test_fits_refuses_a_plan_that_holds_no_knot(monkeypatch):
+    """build.fits reads an instance's plan once and raises, with the bytes
+    one knot needs, where it holds none (idsva_so and fdsva_so at 28 joints
+    on the card); a plan that holds one passes."""
+    asked = []
+
+    def info(what, nj, dtype):
+        asked.append((what, nj, dtype))
+        g = 0 if nj == 28 and what in ("idsva_so", "fdsva_so") else 2
+        return {"knots_per_block": g, "smem_bytes_per_block": 412512}
+    monkeypatch.setattr(build, "warp_kernel_info", info)
+    monkeypatch.setattr(build, "_plans", {})
+    build.fits("fd_du", 28, torch.float32)
+    build.fits("fd_du", 28, torch.float32)
+    with pytest.raises(RuntimeError, match="412512 B of shared memory"):
+        build.fits("idsva_so", 28, torch.float32)
+    with pytest.raises(RuntimeError, match="^fdsva_so: one 28-joint"):
+        build.fits("fdsva_so", 28, torch.float64)
+    assert asked == [("fd_du", 28, torch.float32),
+                     ("idsva_so", 28, torch.float32),
+                     ("fdsva_so", 28, torch.float64)]
 
 
 def test_model_buffer_layout():
@@ -410,6 +441,19 @@ void plan_into(int* out) {
   out[1] = P::LANES;
   out[2] = (int)P::BYTES;
   out[3] = P::ROWS;
+}
+
+// idsva_so's block code where the card's plan holds a knot (elsewhere the
+// wrapper refuses the launch): 1 if it ran
+template <int NJ>
+int idsva_so_if_fits(const double* m, const double* q, const double* qd,
+                     const double* qdd, double* out, ll L) {
+  if constexpr (IDSOPlan<double, NJ>::G >= 1) {
+    idsva_so_host<double, NJ>(m, q, qd, qdd, out, L, -9.81);
+    return 1;
+  } else {
+    return 0;
+  }
 }
 
 #define HOST(NJ)                                                            \
@@ -594,10 +638,10 @@ extern "C" void ricd_lane_##NJ(const double* A, const double* Bm,          \
                                    stationary != 0, Vx0, Vxx0, ks, Ks, N,   \
                                    B, b, reg);                              \
 }                                                                           \
-extern "C" void idsva_so_##NJ(const double* m, const double* q,             \
+extern "C" int idsva_so_##NJ(const double* m, const double* q,              \
     const double* qd, const double* qdd, double* out, ll L) {               \
   race_reset();                                                             \
-  idsva_so_host<double, NJ>(m, q, qd, qdd, out, L, -9.81);                  \
+  return idsva_so_if_fits<NJ>(m, q, qd, qdd, out, L);                       \
 }                                                                           \
 extern "C" void idsva_so_lane_##NJ(const double* m, const double* q,        \
     const double* qd, const double* qdd, double* out, ll L) {               \
@@ -628,6 +672,8 @@ HOST(7)
 HOST(8)
 HOST(12)
 HOST(16)
+HOST(17)
+HOST(28)
 """
 
 
@@ -769,8 +815,16 @@ def _host_run(lib, name, args, lane=False):
     return X, U, c
 
 
-@pytest.mark.parametrize("robot", ROBOTS)
-@pytest.mark.parametrize("name", KERNELS)
+def pairs(names, robot_first=False):
+    """The (name, robot) cases of kernels on ROBOTS, but the refused ones;
+    (robot, name) with ``robot_first``."""
+    if robot_first:
+        return [(r, n) for r in ROBOTS for n in names
+                if (r, n) not in REFUSED]
+    return [(n, r) for n in names for r in ROBOTS if (r, n) not in REFUSED]
+
+
+@pytest.mark.parametrize("name,robot", pairs(KERNELS))
 def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
     m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
     assert getattr(host_lib, f"size_{m.n}")() == build.model_buffer(m).numel()
@@ -793,18 +847,26 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
     (riccati_factored, the dense riccati with a stationary curvature and
     with a block per knot) 1, 2 or 4 warps a problem; the line search
     (csrc/sweep_warp.cuh: LSPlan) 8 problems a block (4 where 8 do not
-    fit), 1 to 8 of their step-size rows, 8, 16 or 32 threads a rollout;
-    the open-loop rollout (RollPlan) and the feedback rollout (FBPlan) 2, 4
-    or 8 problems a block of 8, 16 or 32 threads each; idsva_so (IDSOPlan)
-    as fdsva_so; id_du (IDUPlan) as fd_du, a thread per gradient column of
-    its one pass; d2eepos (D2Plan) 8 threads a lane up to 8 joints, a warp
-    above, G a power of 2 that makes each output row's run 32 bytes or
-    more."""
+    fit, 2 in float64 at 28 joints), 1 to 8 of their step-size rows, 8, 16
+    or 32 threads a rollout; the open-loop rollout (RollPlan) and the
+    feedback rollout (FBPlan) 2, 4 or 8 problems a block of 8, 16 or 32
+    threads each;
+    idsva_so (IDSOPlan) as fdsva_so; id_du (IDUPlan) as fd_du, a thread per
+    gradient column of its pass (one pass of 2 NJ columns up to 16 joints,
+    two of NJ above); d2eepos (D2Plan) 8 threads a lane up to 8 joints, a
+    warp above, G a power of 2 that makes each output row's run 32 bytes or
+    more. At 28 joints one knot of fdsva_so or idsva_so does not fit a
+    block in either dtype: their plans hold none (G 0), and the wrappers
+    refuse the launch."""
     out = (ctypes.c_int * 88)()
     getattr(host_lib, f"plans_{nj}")(out)
     base = 16 if 2 * nj <= 16 else 32
+    refused = (2, 3, 14, 15) if nj == 28 else ()
     for k in range(22):
         g, lanes, nbytes, rows = out[4 * k: 4 * k + 4]
+        if k in refused:   # fdsva_so, idsva_so: not one knot a block
+            assert g == 0 and nbytes > 232448
+            continue
         assert 0 < nbytes <= 232448
         assert g * rows * lanes <= 512 and (g * rows * lanes) % 32 == 0
         if k >= 20:   # d2eepos, float32 then float64
@@ -814,15 +876,16 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
         elif k >= 18:   # id_du
             assert g >= 1 and rows == 1 and lanes in (base, 2 * base,
                                                       4 * base)
-            assert lanes >= 2 * nj
+            assert lanes >= (2 * nj if nj <= 16 else nj)
         elif k < 4 or 14 <= k < 16:
             assert g >= 1 and rows == 1 and lanes in (base, 2 * base,
                                                       4 * base)
             assert lanes >= nj
         elif k < 6 or 8 <= k < 12:
             assert g >= 1 and rows == 1 and lanes in (32, 64, 128)
-        elif k < 8:
-            assert g in (4, 8) and 1 <= rows <= 8 and lanes in (8, 16, 32)
+        elif k < 8:   # the line search: 2 a block only in float64 at 28
+            assert g in ((2, 4, 8) if nj == 28 and k == 7 else (4, 8))
+            assert 1 <= rows <= 8 and lanes in (8, 16, 32)
         else:   # the rollouts: RollPlan (12, 13), FBPlan (16, 17)
             assert g in (2, 4, 8) and rows == 1 and lanes in (8, 16, 32)
 
@@ -926,8 +989,10 @@ def test_compare_kernels_reads_ptxas_report():
 
 
 @pytest.mark.parametrize("robot,name", (
-    [pytest.param(r, "fdsva_so", id=r) for r in ROBOTS]
-    + [pytest.param(r, "idsva_so", id=f"{r}-idsva_so") for r in ROBOTS]))
+    [pytest.param(r, "fdsva_so", id=r) for r in ROBOTS
+     if (r, "fdsva_so") not in REFUSED]
+    + [pytest.param(r, "idsva_so", id=f"{r}-idsva_so") for r in ROBOTS
+       if (r, "idsva_so") not in REFUSED]))
 def test_host_fdsva_so_phases_touch_disjoint_entries(host_lib, robot, name):
     """The fdsva_so warp program splits the IDSVA-SO stages over (j, a, st)
     triples, the corrections over (j, a) pairs and the contractions over
@@ -951,9 +1016,9 @@ SWEEP_PROGRAMS = ("riccati_factored", "linesearch_rollout", "linesearch_quad",
                   "riccati", "riccati_stacked", "rollout", "feedback_rollout")
 
 
-@pytest.mark.parametrize("name", ("fd_du", "fdsva_so", "idsva_so")
-                         + SWEEP_PROGRAMS + ("id_du", "d2eepos"))
-@pytest.mark.parametrize("robot", ROBOTS)
+@pytest.mark.parametrize("robot,name", pairs(
+    ("fd_du", "fdsva_so", "idsva_so") + SWEEP_PROGRAMS + ("id_du", "d2eepos"),
+    robot_first=True))
 def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
                                                         name):
     """No thread of a phase of the thread-group programs (csrc/warp.cuh,
@@ -1141,10 +1206,9 @@ def test_host_riccati_factored_on_ragged_blocks(host_lib, robot, N, name, B):
     assert _max_err(got, want) <= TOL
 
 
-@pytest.mark.parametrize("robot", ROBOTS)
-@pytest.mark.parametrize("name", ["riccati", "riccati_stacked", "rollout",
-                                  "feedback_rollout", "idsva_so", "id_du",
-                                  "d2eepos"])
+@pytest.mark.parametrize("name,robot", pairs(
+    ("riccati", "riccati_stacked", "rollout", "feedback_rollout", "idsva_so",
+     "id_du", "d2eepos")))
 def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
                                                         robot):
     """The block code of the dense riccati (stationary and per knot), of
@@ -1180,7 +1244,8 @@ def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
 
 @pytest.mark.parametrize("robot,B", _ragged_cases(
     lambda robot, B: f"{robot}-{B}", [],
-    [(robot, B) for robot in ROBOTS for B in RAGGED_B]))
+    [(robot, B) for robot in ROBOTS for B in RAGGED_B
+     if (robot, "idsva_so") not in REFUSED]))
 def test_host_idsva_so_on_ragged_blocks(host_lib, robot, B):
     """idsva_so's block code with the card's plan (G knots a block, the
     inputs past the last lane read as zeros, the output rows masked) on 1,
@@ -1314,6 +1379,29 @@ def test_counted_second_order_lanes_compute_the_function(counts, kernel,
     assert np.abs(got - want).max() <= TOL * max(1.0, np.abs(want).max())
 
 
+@pytest.mark.parametrize("robot", ["gym_humanoid", "atlas"])
+def test_operation_counts_at_17_and_28_joints(robot):
+    """The counter covers the new joint counts: every kernel's need is at
+    most what its lane code executes; at 28 joints idsva_so and fdsva_so
+    execute nothing on the card (their wrappers refuse), so they have no
+    executed count."""
+    m = build_model(load_robot(robot), dtype=torch.float64, device="cpu")
+    quad = path_inputs(m, 2, 1, seed=0)["linesearch_quad"][-1]
+    for kernel in opcount.KERNELS:
+        kw = dict(N=4) if kernel in ("rollout", "feedback_rollout",
+                                     "riccati_factored", "riccati") else {}
+        if kernel == "linesearch_rollout":
+            kw = dict(N=4, cost=quad)
+        need = opcount.ops_per_lane(kernel, m, **kw)
+        if (robot, kernel) in REFUSED:
+            assert need > 0
+            with pytest.raises(ValueError):
+                opcount.ops_per_lane(kernel, m, executed=True, **kw)
+            continue
+        assert 0 < need <= opcount.ops_per_lane(kernel, m, executed=True,
+                                                **kw)
+
+
 def test_operation_counts_follow_the_work(counts):
     m, quad = counts
     ops = lambda k, **kw: opcount.ops_per_lane(k, m, **kw)
@@ -1337,8 +1425,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("robot", ROBOTS)
-@pytest.mark.parametrize("name", KERNELS)
+@pytest.mark.parametrize("name,robot", pairs(KERNELS))
 def test_cuda_kernel_matches_plain(cuda_device, name, robot):
     m = build_model(load_robot(robot), dtype=torch.float64,
                     device=cuda_device)
@@ -1437,6 +1524,14 @@ def test_cuda_slice_launches_every_kernel(cuda_device):
     assert float((res.cost_trace - ref.cost_trace).abs().max()) <= 1e-8
 
 
+# each GRiD method, the kernel it launches and its number of inputs
+GRID_CALLS = {"id": ("rnea", 3), "id_du": ("id_du", 3), "aba": ("aba", 3),
+              "fd_du": ("fd_du", 3), "minv": ("minv", 1), "fd": ("fd", 3),
+              "crba": ("crba", 1), "eepos": ("eepos", 1),
+              "deepos": ("deepos", 1), "d2eepos": ("d2eepos", 1),
+              "idsva_so": ("idsva_so", 3), "fdsva_so": ("fdsva_so", 3)}
+
+
 @pytest.mark.cuda
 def test_cuda_grid_launches_one_kernel_per_call(cuda_device):
     """Each GRiD method launches exactly its kernel, unbatched and at a
@@ -1445,15 +1540,9 @@ def test_cuda_grid_launches_one_kernel_per_call(cuda_device):
     plain = GRiD("iiwa", dtype=torch.float64, device=cuda_device,
                  use_kernels=False)
     rng = np.random.default_rng(4)
-    calls = {"id": ("rnea", 3), "id_du": ("id_du", 3), "aba": ("aba", 3),
-             "fd_du": ("fd_du", 3), "minv": ("minv", 1), "fd": ("fd", 3),
-             "crba": ("crba", 1), "eepos": ("eepos", 1),
-             "deepos": ("deepos", 1), "d2eepos": ("d2eepos", 1),
-             "idsva_so": ("idsva_so", 3),
-             "fdsva_so": ("fdsva_so", 3)}
     for shape in ((7,), (37, 7)):
         x = [rng.uniform(-1, 1, shape) for _ in range(3)]
-        for method, (kernel, nargs) in calls.items():
+        for method, (kernel, nargs) in GRID_CALLS.items():
             build.reset_counters()
             got = getattr(g, method)(*x[:nargs])
             torch.cuda.synchronize()
@@ -1463,9 +1552,104 @@ def test_cuda_grid_launches_one_kernel_per_call(cuda_device):
             assert build.PLAIN_CALLS[kernel] == 1
             assert got.is_cuda and got.shape == want.shape
             assert _max_err((got,), (want,)) <= TOL
-    with pytest.raises(NotImplementedError):   # 17 joints: no instance
-        GRiD("gym_humanoid", device=cuda_device).id(np.zeros(17),
-                                                     np.zeros(17))
+    with pytest.raises(NotImplementedError):   # 4 joints: no instance
+        GRiD("pendulum4", device=cuda_device).id(np.zeros(4), np.zeros(4))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["gym_humanoid", "atlas"])
+def test_cuda_grid_on_the_humanoids(cuda_device, robot):
+    """GRiD on the 17- and 28-joint instances: each method launches exactly
+    its kernel, unbatched and at a ragged B, and matches the plain GRiD
+    (float64); at 28 joints idsva_so and fdsva_so refuse before any
+    launch."""
+    g = GRiD(robot, dtype=torch.float64, device=cuda_device)
+    plain = GRiD(robot, dtype=torch.float64, device=cuda_device,
+                 use_kernels=False)
+    n = g.num_vel
+    rng = np.random.default_rng(4)
+    for shape in ((n,), (37, n)):
+        x = [rng.uniform(-1, 1, shape) for _ in range(3)]
+        for method, (kernel, nargs) in GRID_CALLS.items():
+            build.reset_counters()
+            if (robot, kernel) in REFUSED:
+                with pytest.raises(RuntimeError, match="shared memory"):
+                    getattr(g, method)(*x[:nargs])
+                assert not build.LAUNCHES and not build.PLAIN_CALLS
+                continue
+            got = getattr(g, method)(*x[:nargs])
+            torch.cuda.synchronize()
+            assert dict(build.LAUNCHES) == {kernel: 1}, method
+            assert not build.PLAIN_CALLS
+            want = getattr(plain, method)(*x[:nargs])
+            assert got.is_cuda and got.shape == want.shape
+            tol = TOL * max(1.0, float(want.abs().max()))
+            assert _max_err((got,), (want,)) <= tol, method
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_so_kernels_refuse_a_28_joint_knot(cuda_device, dtype):
+    """One 28-joint knot of idsva_so or fdsva_so does not fit a block's
+    shared memory in either dtype: the plan holds none, and the wrappers
+    raise with the reason before any launch."""
+    m = build_model(load_robot("atlas"), dtype=dtype, device=cuda_device)
+    q = torch.zeros((m.n, 5), dtype=dtype, device=cuda_device)
+    for name in ("idsva_so", "fdsva_so"):
+        assert build.warp_kernel_info(name, 28, dtype)["knots_per_block"] == 0
+        build.reset_counters()
+        with pytest.raises(RuntimeError, match="shared memory"):
+            getattr(K, name)(m, q, q, q)
+        assert not build.LAUNCHES and not build.PLAIN_CALLS
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["gym_humanoid", "atlas"])
+def test_cuda_scenario_step_launches_the_path_kernels(cuda_device, robot):
+    """Config 5's scenario step at S = 64 (N = 8, 2 iterations, QuadCost,
+    float64) launches the rollout once and fd_du, the stationary riccati
+    and the line search each iteration, runs no plain version, and matches
+    the plain step (u0, U_next, costs within 1e-8 of their scale); a
+    closed-loop period adds one aba launch."""
+    from gridcodegenerator_tpu_torch.parallel.scenario import (
+        ScenarioMPCConfig, closed_loop, make_scenario_step)
+    m = build_model(load_robot(robot), dtype=torch.float64,
+                    device=cuda_device)
+    n, S = m.n, 64
+    full = lambda v, k: torch.full((k,), v, dtype=torch.float64,
+                                   device=cuda_device)
+    xg = full(0.0, 2 * n)
+    xg[0] = 0.2
+    cost = QuadCost(Q=full(0.1, 2 * n), R=full(1e-3, n),
+                    Qf=full(10.0, 2 * n), x_goal=xg)
+    dt = DT.get(robot, 0.01)
+    x0s = torch.as_tensor(0.02 * np.random.default_rng(0).standard_normal(
+        (2 * n, S)), device=cuda_device)
+    U = torch.zeros((8, n, S), dtype=torch.float64, device=cuda_device)
+    outs = {}
+    for use_kernels in (True, False):
+        cfg = ScenarioMPCConfig(ILQRConfig(N=8, dt=dt, iters=2,
+                                           use_kernels=use_kernels), S)
+        build.reset_counters()
+        outs[use_kernels] = make_scenario_step(m, cost, cfg)(x0s, U)
+        torch.cuda.synchronize()
+        if use_kernels:
+            assert dict(build.LAUNCHES) == {
+                "rollout": 1, "fd_du": 2, "riccati": 2,
+                "linesearch_rollout": 2}
+            assert not build.PLAIN_CALLS
+    for got, want in zip(outs[True], outs[False]):
+        assert got.shape == want.shape
+        tol = 1e-8 * max(1.0, float(want.abs().max()))
+        assert float((got - want).abs().max()) <= tol
+    cfg = ScenarioMPCConfig(ILQRConfig(N=8, dt=dt, iters=2), S)
+    build.reset_counters()
+    xs, us = closed_loop(m, cost, cfg, torch.zeros(2 * n, dtype=torch.float64,
+                                                   device=cuda_device), 1)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"rollout": 1, "fd_du": 2, "riccati": 2,
+                                    "linesearch_rollout": 2, "aba": 1}
+    assert xs.shape == (2, 2 * n) and bool(torch.isfinite(xs).all())
 
 
 @pytest.mark.cuda
