@@ -9,15 +9,18 @@ Phases, one line each:
   0. device: fail without CUDA; print the card's name and power limit;
   1. build: compile the CUDA kernels from gridcodegenerator_tpu_torch/csrc,
      one library per joint count (2, 7, 8, 12, 16, 17 and 28), every nvcc
-     at once, and print each library's seconds (and the host operation
-     counter, utils/opcount.py); the block plan (knots, problems or
-     rollouts a block, shared bytes) and cudaFuncGetAttributes of every
-     instance of the thread-group kernels: fd_du, fdsva_so, idsva_so and
-     id_du (a warp per knot), d2eepos (a warp per lane), riccati_factored
-     and riccati (a warp per problem; riccati's stationary and per-knot
-     instances), linesearch_rollout, rollout and feedback_rollout (a group
-     of threads per rollout); each holds a knot, but idsva_so and fdsva_so
-     at 28 joints, which hold none (their wrappers refuse);
+     at once, and print each library's seconds; then the libraries of 4,
+     5 and 20 joints, each built at its first use (its wall seconds),
+     and the host operation counter (utils/opcount.py); the block plan
+     (knots, problems or rollouts a block, shared bytes, bands) and
+     cudaFuncGetAttributes of every instance of the thread-group kernels:
+     fd_du, fdsva_so, idsva_so and id_du (a warp per knot), d2eepos (a
+     warp per lane), riccati_factored and riccati (a warp per problem;
+     riccati's stationary and per-knot instances), linesearch_rollout,
+     rollout and feedback_rollout (a group of threads per rollout); each
+     holds a knot, but fdsva_so's fused kernel at 28 joints (20 in
+     float64), where the composed route runs, and idsva_so there holds a
+     band of a knot;
   2. each kernel against its plain PyTorch version on the same CUDA inputs,
      iiwa at small B and N (37 lanes: a ragged block), float64: max abs
      error <= 1e-9; and every GRiD kernel case on hyq (12 joints, branched,
@@ -27,9 +30,11 @@ Phases, one line each:
      dm_quadruped, every GRiD kernel case on gym_ant (8 joints, EEs at the
      feet) and dm_quadruped (16 joints, branched), and riccati (stationary
      and per knot) and rollout on iiwa, hyq, gym_ant and dm_quadruped (dt
-     0.002); and all 17 kernels on gym_humanoid (17 joints, dt 0.002) and
-     all but idsva_so and fdsva_so on atlas (28), whose wrappers must
-     refuse the launch;
+     0.002); and all 17 kernels on gym_humanoid (17 joints, dt 0.002),
+     atlas (28: idsva_so in bands, fdsva_so composed, also at 128 lanes)
+     and on the counts built at first use: pendulum4, mixed5 and a
+     20-joint chain (its sweeps at dt 0.002; in float64 idsva_so in bands
+     and fdsva_so composed, also at 128 lanes);
   3. the same in float32 (tolerances below): fd_du and fdsva_so at 37
      lanes on iiwa, hyq, gym_ant and dm_quadruped; with each kernel's and
      plain version's device time from CUDA events: the config-3 kernels and the
@@ -59,11 +64,18 @@ Phases, one line each:
      (iiwa) and B=512 (hyq); each call launched exactly its kernel and
      nothing plain ran; outputs agree with a float64 plain GRiD on the same
      inputs; fk (plain torch, no kernel) agrees too; µs per call and
-     evals/s;
+     evals/s; then path B: idsva_so and fdsva_so through GRiD on atlas and
+     gym_humanoid unbatched and at B=128 and 1024 (float32 rule at 1 and
+     128, launches by route, µs a call, evals/s), each step of the
+     composed route (fd_du, idsva_so, the contractions) and both fdsva_so
+     routes where both run at 128, 1024 and config 4's 16384 lanes, with
+     bounds: the faster route must be the one taken;
   6. config 4 (SQP with exact second-order Hessians, QuadCost, N=32, 4
      iterations, float32) on iiwa (B=1024), hyq, gym_ant and dm_quadruped
-     (B=512) through make_sqp: rollout, fd_du, fdsva_so and the line search
-     launched every iteration, nothing plain ran (the DDP backward is plain
+     (B=512), and path A: atlas and gym_humanoid (B=512, x0 from their own
+     seed 0; gym_humanoid at dt 0.002) through make_sqp: rollout, fd_du,
+     fdsva_so (atlas: fd_du and idsva_so, the composed route) and the
+     line search launched every iteration, nothing plain ran (the DDP backward is plain
      torch by design, not a kernel's plain twin); costs finite and
      non-increasing; on the first 64 problems, final costs against a
      float64 plain solve and a float64 kernel solve against it (after
@@ -71,10 +83,11 @@ Phases, one line each:
      solves/s and the time of each phase; then config 3's QuadCost task
      (first-order iLQR, iiwa, N=64, 5 iterations, B=2048) through the
      riccati kernel, likewise;
-  7. codegen: gen_all_code's module for iiwa and for hyq, written to a
+  7. codegen: gen_all_code's module for iiwa, hyq and atlas, written to a
      temporary directory and imported: nothing of JAX loaded, each of its
-     12 algorithms at B=1024 launched exactly its kernel and agrees with
-     the port's GRiD; then its single_timing_table;
+     12 algorithms at B=1024 launched exactly its kernel (atlas's
+     fdsva_so: fd_du and idsva_so) and agrees with the port's GRiD; then
+     its single_timing_table;
   8. config 5 (scenario-tree MPC, S=4096, N=16, 2 iterations, float32,
      QuadCost) on atlas (dt 0.01) and gym_humanoid (dt 0.002) through
      parallel/scenario.py: the step launched the rollout, fd_du, the
@@ -111,13 +124,31 @@ import torch
 N, ITERS, B, DT = 64, 5, 2048, 0.01
 # config 4 (bench.py:212-213)
 N4, ITERS4 = 32, 4
-B4 = {"iiwa": 1024, "hyq": 512, "gym_ant": 512, "dm_quadruped": 512}
+B4 = {"iiwa": 1024, "hyq": 512, "gym_ant": 512, "dm_quadruped": 512,
+      "atlas": 512, "gym_humanoid": 512}
 # dm_quadruped's joint damping (30) on its light links makes the
 # semi-implicit Euler step diverge at bench.py's dt = 0.01, in the JAX
 # reference too (every problem's rollout non-finite by knot 32:
 # tests/test_torch_sweeps.py::test_dm_quadruped_euler_step_diverges_at_0_01);
 # its config-4 solves run at the largest of 0.01 / 5^k that is stable
-DT4 = {"dm_quadruped": 0.002}
+# (tests/test_torch_sqp_humanoids.py: from config 4's x0 the JAX
+# reference's Euler step stays finite on atlas at 0.01, on gym_humanoid at
+# 0.002 only)
+DT4 = {"dm_quadruped": 0.002, "gym_humanoid": 0.002}
+# the 20-joint chain's sweeps in phase 2 run at 0.002: at 0.01 its
+# first-iteration line-search rollouts leave every bound (states 1.2e7,
+# costs 1.4e12, the plain version's too), where rounding is all they hold
+DT_NEW = {"pendulum20": 0.002}
+# path A: config 4's SQP on the zoo's humanoids (28 and 17 joints)
+ROBOTS4_SO = ("atlas", "gym_humanoid")
+# the joint counts whose libraries are built at first use (phase 1), and
+# the robots of phase 2 that run on them: pendulum4, mixed5 (a prismatic
+# and a skew-axis joint) and a 20-joint chain (models/zoo.py:pendulum_urdf)
+FIRST_USE = (4, 5, 20)
+ROBOTS_NEW = ("pendulum4", "mixed5", "pendulum20")
+# path B: GRiD's second-order calls on the humanoids (the JAX
+# benchmarks/so_bench.py's batch, and L1)
+B_SO = (128, 1024)
 # config 5 (bench.py:231-272): scenario-tree MPC, S scenarios of the zero
 # state (spread 0.02), N knots, ITERS5 iterations, QuadCost Q 0.1, R 1e-3,
 # Qf 10, x_goal[0] 0.2, float32, on atlas (28 joints) and gym_humanoid
@@ -212,7 +243,15 @@ def main():
     from gridcodegenerator_tpu_torch.codegen import ALGORITHMS, gen_all_code
     from gridcodegenerator_tpu_torch.codegen.emit import KERNELS as GEN_KERNELS
     from gridcodegenerator_tpu_torch.models.model import build_model
-    from gridcodegenerator_tpu_torch.models.zoo import load_robot
+    from gridcodegenerator_tpu_torch.models.zoo import load_robot as zoo_robot
+    from gridcodegenerator_tpu_torch.models.zoo import pendulum_urdf
+    from gridcodegenerator_tpu_torch.topology.urdf import parse_urdf
+
+    def load_robot(name):
+        """The zoo's robot, or "pendulum20": a 20-joint chain."""
+        if name == "pendulum20":
+            return parse_urdf(pendulum_urdf(20), name="pendulum20")
+        return zoo_robot(name)
     from gridcodegenerator_tpu_torch.ops import eepose
     from gridcodegenerator_tpu_torch.ops.cuda import build
     from gridcodegenerator_tpu_torch.ops.cuda import kernels as K
@@ -228,13 +267,28 @@ def main():
 
     # -- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
+
+    def elapsed():
+        """Seconds since the build began, for the lines of the phases this
+        run added last (where its time goes)."""
+        return round(time.perf_counter() - t0, 1)
+
     libs = build.build()
     for nj in libs:
         build.lib(nj)
     t1 = time.perf_counter()
+    # the libraries of other joint counts, each built at its first use
+    first_use = {}
+    for nj in FIRST_USE:
+        t = time.perf_counter()
+        build.lib(nj)
+        first_use[nj] = {"seconds": round(time.perf_counter() - t, 3),
+                         "nvcc_seconds": round(build.NVCC_SECONDS[nj], 3)}
+    t2 = time.perf_counter()
     opcount.lib()
     line("build", {"seconds": round(t1 - t0, 3),
-                   "opcount_seconds": round(time.perf_counter() - t1, 3),
+                   "first_use": first_use,
+                   "opcount_seconds": round(time.perf_counter() - t2, 3),
                    "sources": len(build.SOURCES), "nvcc_jobs": os.cpu_count(),
                    "libraries": {nj: str(p.relative_to(
                        build.BUILD_ROOT.parents[1])) for nj, p in libs.items()},
@@ -242,18 +296,28 @@ def main():
                                        build.NVCC_SECONDS.items()}})
     # the thread-group kernels: knots (problems, rollouts) a block, shared
     # bytes a block and cudaFuncGetAttributes of every instance; each holds
-    # one knot at least, but idsva_so's and fdsva_so's at 28 joints, whose
-    # wrappers refuse the launch (build.fits)
+    # one knot at least, but fdsva_so's where its knot does not fit (28
+    # joints, 20 in float64: the composed route runs there); idsva_so's
+    # there holds a band of a knot
     plans = {(what, nj, dtype): build.warp_kernel_info(what, nj, dtype)
-             for what in build.WARP_KERNELS for nj in build.SUPPORTED_JOINTS
+             for what in build.WARP_KERNELS
+             for nj in build.SUPPORTED_JOINTS + FIRST_USE
              for dtype in (torch.float32, torch.float64)}
     line("warp_kernel_plans", {f"{what} {str(dtype)[6:]} nj{nj}": info
                                for (what, nj, dtype), info in plans.items()})
+    composed = {(28, torch.float32), (28, torch.float64), (20, torch.float64)}
     for (what, nj, dtype), info in plans.items():
-        refused = nj == 28 and what in ("idsva_so", "fdsva_so")
-        if (info["knots_per_block"] < 1) != refused:
+        refused = what == "fdsva_so" and (nj, dtype) in composed
+        banded = what == "idsva_so" and (nj, dtype) in composed
+        if ((info["knots_per_block"] < 1) != refused
+                or (info["bands"] > 1) != banded):
             raise AssertionError(f"{what} {dtype} at {nj} joints: "
-                                 f"{info['knots_per_block']} knots a block")
+                                 f"{info['knots_per_block']} knots a block, "
+                                 f"{info['bands']} bands")
+        if what == "fdsva_so" and (K.fdsva_so_route(nj, dtype) == K.COMPOSED
+                                   ) != refused:
+            raise AssertionError(f"fdsva_so {dtype} at {nj} joints: route "
+                                 f"{K.fdsva_so_route(nj, dtype)}")
 
     topo = load_robot("iiwa")
 
@@ -561,9 +625,10 @@ def main():
                            "B": 37, "max_abs_err": small_hyq, "tol": 1e-9})
 
     # every kernel on the 17- and 28-joint instances (gym_humanoid, atlas;
-    # the sweeps at config 5's dt): within 1e-9 of each output's scale; at
-    # 28 joints one knot of idsva_so or fdsva_so does not fit a block, and
-    # their wrappers refuse before any launch
+    # the sweeps at config 5's dt) and on the counts built at first use
+    # (pendulum4, mixed5, the 20-joint chain): within 1e-9 of each output's
+    # scale; idsva_so in bands and fdsva_so composed where their knot does
+    # not fit (atlas; the chain in float64), held at 37 and 128 lanes
     kernel_of = case_kernel | {"rollout_bounded": "rollout",
                                "riccati_stacked": "riccati",
                                "linesearch_quad": "linesearch_rollout"}
@@ -572,9 +637,9 @@ def main():
         "rollout_bounded": case_fns["rollout"]}
     all_kernels = set(K.SOURCES) | set(S.SOURCES)
     humanoids = {}
-    for robot in ROBOTS5:
+    for robot in ROBOTS5 + ROBOTS_NEW:
         m = build_model(load_robot(robot), dtype=torch.float64, device=dev)
-        dt5 = DT5.get(robot, DT)
+        dt5 = DT5.get(robot, DT_NEW.get(robot, DT))
         q = torch.as_tensor(np.random.default_rng(1).uniform(
             -1, 1, (m.n, 37)), dtype=torch.float64, device=dev)
         quad = quad_inputs(m, 8, 37, seed=1, dt=dt5)
@@ -582,23 +647,20 @@ def main():
         cases = (path_inputs(m, 8, 37, seed=1, dt=dt5)
                  | lane_cases(m, 37, seed=1) | {"d2eepos": (m, q)} | quad
                  | so_cases(m, 37, seed=1))
-        errs, refused = {}, {}
+        if robot in ("atlas", "pendulum20"):
+            cases |= {f"{c} B=128": a
+                      for c, a in so_cases(m, 128, seed=2).items()}
+        errs, routes = {}, {}
         for case, args in cases.items():
-            name = kernel_of.get(case, case)
-            kern, plain = fns_of[case]
+            name = kernel_of.get(case.split(" ")[0], case.split(" ")[0])
+            kern, plain = fns_of[case.split(" ")[0]]
             what = f"{robot} {case}"
-            if m.n == 28 and name in ("idsva_so", "fdsva_so"):
-                build.reset_counters()
-                try:
-                    kern(*args)
-                except RuntimeError as e:
-                    if "shared memory" not in str(e) or build.LAUNCHES:
-                        raise
-                    refused[case] = str(e)
-                    continue
-                raise AssertionError(f"{what}: a 28-joint knot launched")
-            out, ref = as_tuple(kern(*args)), as_tuple(plain(*args))
+            build.reset_counters()
+            out = as_tuple(kern(*args))
             torch.cuda.synchronize()
+            if name in ("idsva_so", "fdsva_so"):
+                routes[case] = dict(build.LAUNCHES)
+            ref = as_tuple(plain(*args))
             if len(out) != len(ref) or any(o.shape != r.shape
                                            for o, r in zip(out, ref)):
                 raise AssertionError(f"{what}: kernel and plain outputs "
@@ -609,15 +671,26 @@ def main():
                 raise AssertionError(f"{what} float64: max abs err {err} > "
                                      f"{tol}")
             errs[case] = {"max_abs_err": err, "tol": tol}
-        covered = {kernel_of.get(c, c) for c in list(errs) + list(refused)}
-        if covered != all_kernels:
+            del out, ref
+        covered = {kernel_of.get(c, c) for c in errs}
+        if not all_kernels <= covered:
             raise AssertionError(f"{robot}: kernels not held "
                                  f"{sorted(all_kernels - covered)}")
-        humanoids[robot] = {"joints": m.n, "dt": dt5, "cases": errs,
-                            "refused": refused}
+        want = ({"fd_du": 1, "idsva_so": 1} if K.fdsva_so_route(
+            m.n, torch.float64) == K.COMPOSED else {"fdsva_so": 1})
+        if routes["fdsva_so"] != want or routes["idsva_so"] != {
+                "idsva_so": 1}:
+            raise AssertionError(f"{robot}: second-order launches {routes}")
+        humanoids[robot] = {
+            "joints": m.n, "dt": dt5, "cases": errs, "so_launches": routes,
+            "idsva_so_bands": build.plan("idsva_so", m.n,
+                                         torch.float64)["bands"]}
         del cases, quad
         torch.cuda.empty_cache()
-    line("small_f64_17_28_joints", {"B": 37, "N": 8, "robots": humanoids})
+    line("small_f64_17_28_joints", {"B": 37, "N": 8, "robots": {
+        r: humanoids[r] for r in ROBOTS5}})
+    line("small_f64_new_joint_counts", {"B": 37, "N": 8, "robots": {
+        r: humanoids[r] for r in ROBOTS_NEW}, "elapsed_s": elapsed()})
 
     # -- phase 3: config-3 shapes, float32 ----------------------------------
     m32 = build_model(topo, dtype=torch.float32, device=dev)
@@ -1113,6 +1186,124 @@ def main():
                   "api": api, "max_err_vs_f64_plain": errs,
                   "launches": grid_launches})
 
+    # -- path B: GRiD's second-order calls on the humanoids ---------------
+    # idsva_so and fdsva_so unbatched and at B_SO through GRiD (float32):
+    # the float32 rule against a float64 plain GRiD (unbatched and at the
+    # first B_SO), launches by route, µs a call and evals/s; then each
+    # step of the composed route (fd_du, idsva_so, the contractions) and,
+    # where both routes run (gym_humanoid), both at config 4's N*B lanes:
+    # the faster is the route
+    from gridcodegenerator_tpu_torch.ops.so import fdsva_compose_lanes
+    so_api, so_rows = {}, {}
+    for robot in ROBOTS4_SO:
+        gk = GRiD(robot, dtype=torch.float32, device=dev)
+        gp = GRiD(robot, dtype=torch.float32, device=dev, use_kernels=False)
+        g64 = GRiD(robot, dtype=torch.float64, device=dev, use_kernels=False)
+        gk64 = GRiD(robot, dtype=torch.float64, device=dev)
+        n, m = gk.num_vel, gk.model
+        route = K.fdsva_so_route(n, torch.float32)
+        expect = {"idsva_so": {"idsva_so": 1}, "fdsva_so": (
+            {"fd_du": 1, "idsva_so": 1} if route == K.COMPOSED
+            else {"fdsva_so": 1})}
+        expect64 = {"idsva_so": {"idsva_so": 1}, "fdsva_so": (
+            {"fd_du": 1, "idsva_so": 1}
+            if K.fdsva_so_route(n, torch.float64) == K.COMPOSED
+            else {"fdsva_so": 1})}
+        rng = np.random.default_rng(3)
+        row = {"route": route, "idsva_so_bands": build.plan(
+            "idsva_so", n, torch.float32)["bands"]}
+        for b in (1,) + B_SO:
+            shape = (n,) if b == 1 else (b, n)
+            x = on_card(rng.uniform(-1, 1, shape) for _ in range(3))
+            for method in ("idsva_so", "fdsva_so"):
+                fn = getattr(gk, method)
+                build.reset_counters()
+                out = fn(*x)
+                torch.cuda.synchronize()
+                if dict(build.LAUNCHES) != expect[method] or \
+                        build.PLAIN_CALLS:
+                    raise AssertionError(
+                        f"{robot} GRiD.{method} B={b} launched "
+                        f"{dict(build.LAUNCHES)}, expected {expect[method]}")
+                if b <= B_SO[0]:
+                    ref = getattr(gp, method)(*x)
+                    x64 = tuple(a.double() for a in x)
+                    ref64 = getattr(g64, method)(*x64)
+                    row[f"{method}_B{b}_err_vs_f64"] = check_f32(
+                        f"{robot} GRiD.{method} B={b}", out, ref, ref64)[0]
+                    # the float64 kernels against the float64 plain GRiD
+                    build.reset_counters()
+                    out64 = getattr(gk64, method)(*x64)
+                    torch.cuda.synchronize()
+                    err = max_err((out64,), (ref64,))
+                    tol = 1e-9 * max(1.0, float(ref64.abs().max()))
+                    if dict(build.LAUNCHES) != expect64[method] or \
+                            build.PLAIN_CALLS or not err <= tol:
+                        raise AssertionError(
+                            f"{robot} float64 GRiD.{method} B={b}: "
+                            f"{dict(build.LAUNCHES)}, err {err} (tol {tol})")
+                    row[f"{method}_B{b}_f64_err"] = {"max_abs_err": err,
+                                                     "tol": tol}
+                    del ref, ref64, out64, x64
+                del out
+                t_us = us(lambda: fn(*x), 20 if b < 1024 else 5)
+                row[f"{method}_us_B{b}"] = t_us
+                row[f"{method}_evals_per_s_B{b}"] = b / (t_us / 1e6)
+            del x
+        so_api[robot] = row
+        # the route's steps and bounds at B_SO lanes and config 4's N*B
+        for lanes in B_SO + (N4 * B4[robot],):
+            args = so_cases(build_model(load_robot(robot),
+                                        dtype=torch.float32, device=dev),
+                            lanes, seed=4)
+            mk = args["fdsva_so"][0]
+            q, qd, u = args["fdsva_so"][1:4]
+            d, qdd, Mi = K.fd_du(mk, q, qd, u)
+            T = K.idsva_so(mk, q, qd, qdd)
+            step = {"fd_du_ms": time_cuda(lambda: K.fd_du(mk, q, qd, u),
+                                          iters=5),
+                    "idsva_so_ms": time_cuda(
+                        lambda: K.idsva_so(mk, q, qd, qdd), iters=5)}
+            clone_ms = time_cuda(lambda: T.clone(), iters=3)
+            step["compose_ms"] = time_cuda(
+                lambda: fdsva_compose_lanes(T.clone(), d, Mi),
+                iters=3) - clone_ms
+            routes = {K.COMPOSED: K.fdsva_so_composed}
+            if route == K.FUSED:
+                routes[K.FUSED] = K.fdsva_so
+            for r, fn in routes.items():
+                step[f"fdsva_so_{r}_ms"] = time_cuda(
+                    lambda: fn(mk, q, qd, u), iters=5)
+            out = K.fdsva_so(mk, q, qd, u)
+            step["fdsva_so_bound"] = roofline("fdsva_so", mk,
+                                              args["fdsva_so"], (out,))
+            del out
+            outi = K.idsva_so(mk, q, qd, qdd)
+            step["idsva_so_bound"] = roofline(
+                "idsva_so", mk, (mk, q, qd, qdd, GRAVITY), (outi,))
+            del outi, T, d, qdd, Mi, args, q, qd, u
+            torch.cuda.empty_cache()
+            so_rows[f"{robot} L={lanes}"] = step
+            if lanes == N4 * B4[robot] and f"fdsva_so_{K.FUSED}_ms" in step:
+                faster = min((K.FUSED, K.COMPOSED),
+                             key=lambda r: step[f"fdsva_so_{r}_ms"])
+                if faster != route:
+                    raise AssertionError(f"{robot}: fdsva_so's route {route} "
+                                         f"is not the faster: {step}")
+    line("grid_so_humanoids", {"dtype": "float32", "device": smi,
+                               "api": so_api, "steps": so_rows,
+                               "elapsed_s": elapsed()})
+    for name in ("idsva_so", "fdsva_so"):
+        results[name]["humanoids"] = {
+            key: {"ms": (v["idsva_so_ms"] if name == "idsva_so" else
+                         v[f"fdsva_so_{so_api[key.split()[0]]['route']}_ms"]),
+                  "route": (so_api[key.split()[0]]["route"]
+                            if name == "fdsva_so" else
+                            f"{so_api[key.split()[0]]['idsva_so_bands']} "
+                            f"band(s)")}
+            | {k: v[f"{name}_bound"][k] for k in ("bound_ms", "bound_by")}
+            for key, v in so_rows.items()}
+
     # -- phase 6: config 4 (SQP) and config 3's QuadCost task -------------
     def first64(make, cfg_cls, cfg_kw, model32, goal, x0n, c_k32, f64_at):
         """On the first 64 problems: the float32 kernel solve's final costs,
@@ -1180,21 +1371,33 @@ def main():
     rng = np.random.default_rng(0)              # config 4 (bench.py:211)
     models4 = {"iiwa": m32, "hyq": hyq32, "gym_ant": gym32,
                "dm_quadruped": dmq32}
+    # path A: the same task on the humanoids, each x0 from its own
+    # default_rng(0); fdsva_so composed at 28 joints (fd_du and idsva_so a
+    # launch each)
+    for robot in ROBOTS4_SO:
+        models4[robot] = build_model(load_robot(robot), dtype=torch.float32,
+                                     device=dev)
+        f64_of[id(models4[robot])] = models4[robot].to(dtype=torch.float64)
     for robot, m in models4.items():
         n, b4 = m.n, B4[robot]
         cfg_kw = dict(N=N4, dt=DT4.get(robot, DT), iters=ITERS4)
         solve4, parts4 = make_sqp(m, quad_cost(m, QUAD4), SQPConfig(**cfg_kw),
                                   expose_parts=True)
-        x0n = rng.uniform(-0.2, 0.2, (2 * n, b4))
+        x0n = (np.random.default_rng(0) if robot in ROBOTS4_SO else
+               rng).uniform(-0.2, 0.2, (2 * n, b4))
         x4 = torch.as_tensor(x0n, dtype=torch.float32, device=dev)
         U4 = torch.zeros((N4, n, b4), dtype=torch.float32, device=dev)
+        route = K.fdsva_so_route(n, torch.float32)
+        second = ({"fd_du": 2 * ITERS4, "idsva_so": ITERS4}
+                  if route == K.COMPOSED
+                  else {"fd_du": ITERS4, "fdsva_so": ITERS4})
         build.reset_counters()
         res4 = solve4(x4, U4)
         torch.cuda.synchronize()
         path_runs.append(check_run(
             f"config 4 {robot}", res4,
-            {"rollout": 1, "fd_du": ITERS4, "fdsva_so": ITERS4,
-             "linesearch_rollout": ITERS4}, N4, b4, ITERS4, n))
+            {"rollout": 1, "linesearch_rollout": ITERS4} | second, N4, b4,
+            ITERS4, n))
         agree = first64(make_sqp, SQPConfig, cfg_kw, m, QUAD4,
                         x4.double().cpu().numpy(), res4.cost, f64_at=1)
         ms4 = time_cuda(lambda: solve4(x4, U4), iters=5, warmup=1)
@@ -1213,6 +1416,7 @@ def main():
             "forward_ms": time_cuda(lambda: parts4["forward"](X, U4, ks, Ks),
                                     iters=5)}
         config4[robot] = {
+            "joints": n, "fdsva_so_route": route,
             "B": b4, "dt": cfg_kw["dt"], "solve_ms": ms4, "solves_per_s": b4 / (ms4 / 1e3),
             "cost_first_mean": float(res4.cost_trace[0].mean()),
             "cost_last_mean": float(res4.cost_trace[-1].mean()),
@@ -1222,7 +1426,13 @@ def main():
         torch.cuda.empty_cache()
     line("config4", {"config": 4, "N": N4, "iters": ITERS4, "dtype": "float32",
                      "device": smi, "backward": "plain torch (DDP terms)",
-                     "robots": config4})
+                     "robots": {r: v for r, v in config4.items()
+                                if r not in ROBOTS4_SO}})
+    line("path_a_sqp_humanoids", {
+        "config": 4, "N": N4, "iters": ITERS4, "dtype": "float32",
+        "device": smi, "backward": "plain torch (DDP terms)",
+        "robots": {r: config4[r] for r in ROBOTS4_SO},
+        "elapsed_s": elapsed()})
 
     cfg_q = dict(N=N, dt=DT, iters=ITERS)
     solve_q, parts_q = make_ilqr(m32, quad_cost(m32, QUAD3),
@@ -1259,7 +1469,10 @@ def main():
     # -- phase 7: the generated per-robot modules --------------------------
     gen = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for robot in ("iiwa", "hyq"):
+        # atlas: its fdsva_so on the composed route, as the JAX generated
+        # module's fdsva_so_kernel() takes it above 16 joints
+        grids["atlas"] = (GRiD("atlas", dtype=torch.float32, device=dev),)
+        for robot in ("iiwa", "hyq", "atlas"):
             path = gen_all_code(load_robot(robot), f"grid_{robot}",
                                 os.path.join(tmp, f"grid_{robot}.py"))
             spec = importlib.util.spec_from_file_location(f"grid_{robot}",
@@ -1283,9 +1496,13 @@ def main():
                          for c, v in build.LAUNCHES.items()
                          if v != before.get(c, 0)}
                 kernel = GEN_KERNELS[algo][0]
-                if added != {kernel: 1}:
+                expect = {kernel: 1}
+                if kernel == "fdsva_so" and K.fdsva_so_route(
+                        ref.n, torch.float32) == K.COMPOSED:
+                    expect = {"fd_du": 1, "idsva_so": 1}
+                if added != expect:
                     raise AssertionError(f"grid_{robot}.{algo} launched "
-                                         f"{added}, expected {{{kernel!r}: 1}}")
+                                         f"{added}, expected {expect}")
                 err = max_err((got,), (want[algo],))
                 tol = 1e-6 * max(1.0, float(want[algo].abs().max()))
                 if got.shape != want[algo].shape or not err <= tol:
@@ -1308,7 +1525,7 @@ def main():
     if jax_loaded:
         raise AssertionError(f"JAX modules loaded: {jax_loaded}")
     line("codegen", {"robots": gen, "B": L1, "dtype": "float32",
-                     "device": smi})
+                     "device": smi, "elapsed_s": elapsed()})
 
     # -- phase 8: config 5, scenario-tree MPC on one card ------------------
     step5 = {"rollout": 1, "fd_du": ITERS5, "riccati": ITERS5,
@@ -1470,7 +1687,8 @@ def main():
         del x0s, U0, res, step, f64
         torch.cuda.empty_cache()
     line("config5", {"config": 5, "robots": config5})
-    line("grid_kernels_f32_17_28", {"L": L1, "robots": grid5})
+    line("grid_kernels_f32_17_28", {"L": L1, "robots": grid5,
+                                    "elapsed_s": elapsed()})
     for name in ("fd_du", "riccati", "linesearch_rollout", "rollout", "aba"):
         results[name]["config5"] = {
             robot: {k: v["kernels"][name][k] for k in (
@@ -1491,8 +1709,8 @@ def main():
                                          "bound_ms", "bound_by", "ops",
                                          "ops_executed")}
         | {"library_ms": None}
-        | ({"config5": results[name]["config5"]}
-           if "config5" in results[name] else {})
+        | {k: results[name][k] for k in ("config5", "humanoids")
+           if k in results[name]}
         for name in results]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

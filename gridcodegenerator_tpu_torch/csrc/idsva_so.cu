@@ -30,6 +30,15 @@
 // block and cudaFuncGetAttributes of each instance:
 // `gridtorch_idsva_so_info`.
 //
+// Where one knot's whole tile does not fit a block (above 23 joints in
+// float32, 18 in float64: 91420 values at 28 joints, 366 KB in float32),
+// the tile is cut into bands of rows (c, i) (warp.cuh:IDSOBandPlan: the
+// fewest that fit; at 28 joints 2 in float32, 5 in float64), a band a
+// block: each block runs the whole knot program, keeps the entries of its
+// band and sends the others to a sink (so.cuh:SOBand), since no entry's
+// update reads another row. The stage quantities and the triples are
+// repeated in every band; the output is still written once.
+//
 // Layout: q, qd, qdd (NJ, L); out (4, NJ, NJ, NJ, L).
 #include "warp.cuh"
 
@@ -68,6 +77,72 @@ __global__ void idsva_so_kernel(const T* __restrict__ model,
   }
 }
 
+// The banded kernel (IDSOPlan's G 0, warp.cuh:IDSOBandPlan): block (x, y)
+// takes band y, its rows [y BAND_ROWS, (y + 1) BAND_ROWS) of each lane's
+// tensor, and every gridDim.x-th group of G lanes; its knots hold that band
+// of the tile only. Each output value is written once, by its band's block.
+template <typename T, int NJ, class P>
+__global__ void idsva_so_band_kernel(const T* __restrict__ model,
+                                     const T* __restrict__ q,
+                                     const T* __restrict__ qd,
+                                     const T* __restrict__ qdd,
+                                     T* __restrict__ out, long long L,
+                                     T gravity) {
+  using O = typename P::Knot;
+  constexpr int N = P::LANES, S = P::STRIDE, ROWS = P::BAND_ROWS;
+  auto& H = *reinterpret_cast<gt::SOHead<T, NJ>*>(gt_smem);
+  T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  const int tid = threadIdx.x, nt = blockDim.x, G = nt / N;
+  const int r0 = blockIdx.y * ROWS;
+  const int rows = 4 * NJ - r0 < ROWS ? 4 * NJ - r0 : ROWS;
+  T* band_out = out + (long long)r0 * NJ * NJ * L;
+  H.R.load(model, tid, nt);
+  __syncthreads();
+  if (tid == 0) H.lists.build(H.R);
+  for (long long l0 = (long long)blockIdx.x * G; l0 < L;
+       l0 += (long long)gridDim.x * G) {
+    gt::load_inputs<T, NJ, S>(q, qd, qdd, L, l0, G, knots, tid, nt);
+    __syncthreads();
+    gt::idsva_so_knot<T, NJ, O, gt::DFormed, ROWS>(
+        gt::WarpPar<N>{tid % N, 1 + tid / N}, H.R, H.lists,
+        knots + (long long)(tid / N) * S, gravity, r0);
+    __syncthreads();
+    gt::store_rows<T, S>(knots + O::TILE, rows * NJ * NJ, band_out, L, l0,
+                         G, tid, nt);
+  }
+}
+
+// The banded launch: blocks resident (a band's head, built once a block, is
+// the robot's constants and its (j, a, st) lists: at 28 joints as long as
+// a knot's work), gridDim.x of them a band.
+template <typename T, int NJ, class P>
+static int launch_idsva_so_band(const void* model, const void* q,
+                                const void* qd, const void* qdd, void* out,
+                                long long L, double gravity,
+                                cudaStream_t stream) {
+  if (L == 0) return 0;
+  if (P::G < 1) return (int)cudaErrorInvalidConfiguration;
+  static const cudaError_t attr =
+      gt::smem_attrs(idsva_so_band_kernel<T, NJ, P>, P::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  static int per_sm = 0;
+  if (per_sm == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, idsva_so_band_kernel<T, NJ, P>, P::LANES * P::G, P::BYTES);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long groups = (L + P::G - 1) / P::G;
+  long long most = (long long)(per_sm > 0 ? per_sm : 1) * sms / P::BANDS;
+  if (most < 1) most = 1;
+  const dim3 grid((unsigned)(most < groups ? most : groups), P::BANDS);
+  idsva_so_band_kernel<T, NJ, P><<<grid, P::LANES * P::G, P::BYTES,
+                                   stream>>>(
+      (const T*)model, (const T*)q, (const T*)qd, (const T*)qdd, (T*)out, L,
+      (T)gravity);
+  return (int)cudaGetLastError();
+}
+
 // `resident`: as many blocks as the card holds at once (each takes every
 // gridDim.x-th group), else a block a group. The plan's launch is resident
 // where a block's run of a row is 16 bytes or more (G sizeof(T)): there
@@ -102,24 +177,46 @@ static int launch_idsva_so(const void* model, const void* q, const void* qd,
   return (int)cudaGetLastError();
 }
 
+// the plan that runs: the whole tile where one knot's fits, else bands
+template <typename T, int NJ>
+static int launch_idsva_so_plan(const void* model, const void* q,
+                                const void* qd, const void* qdd, void* out,
+                                long long L, double gravity,
+                                cudaStream_t stream) {
+  if constexpr (gt::IDSOPlan<T, NJ>::G >= 1)
+    return launch_idsva_so<T, NJ, gt::IDSOPlan<T, NJ>>(
+        model, q, qd, qdd, out, L, gravity, stream);
+  else
+    return launch_idsva_so_band<T, NJ, gt::IDSOBandPlan<T, NJ>>(
+        model, q, qd, qdd, out, L, gravity, stream);
+}
+
+template <typename T, int NJ>
+static int idsva_so_info(int* out) {
+  if constexpr (gt::IDSOPlan<T, NJ>::G >= 1)
+    return gt::kernel_info<gt::IDSOPlan<T, NJ>>(
+        (const void*)idsva_so_kernel<T, NJ, gt::IDSOPlan<T, NJ>>, out);
+  else
+    return gt::kernel_info<gt::IDSOBandPlan<T, NJ>>(
+        (const void*)idsva_so_band_kernel<T, NJ, gt::IDSOBandPlan<T, NJ>>,
+        out);
+}
+
 extern "C" int gridtorch_idsva_so(int dtype, int nj, const void* model,
                                   const void* q, const void* qd,
                                   const void* qdd, void* out, long long L,
                                   double gravity, void* stream) {
   GT_DISPATCH(dtype, nj,
-              (launch_idsva_so<T, NJ, gt::IDSOPlan<T, NJ>>(
-                  model, q, qd, qdd, out, L, gravity,
-                  (cudaStream_t)stream)));
+              (launch_idsva_so_plan<T, NJ>(model, q, qd, qdd, out, L,
+                                           gravity, (cudaStream_t)stream)));
 }
 
-// The block plan (G, 0 if one knot does not fit; threads a knot; bytes a
-// block, for one knot if G is 0) and cudaFuncGetAttributes of the instance
-// (warp.cuh:kernel_info), into out[10].
+// The block plan that runs (G, 0 if not even one band of a knot fits;
+// threads a knot; bytes a block, for one knot if G is 0; ...; the bands, 1
+// for the whole tile) and cudaFuncGetAttributes of its instance
+// (warp.cuh:kernel_info), into out[11].
 extern "C" int gridtorch_idsva_so_info(int dtype, int nj, int* out) {
-  GT_DISPATCH(dtype, nj,
-              gt::kernel_info<gt::IDSOPlan<T, NJ>>(
-                  (const void*)idsva_so_kernel<T, NJ, gt::IDSOPlan<T, NJ>>,
-                  out));
+  GT_DISPATCH(dtype, nj, (idsva_so_info<T, NJ>(out)));
 }
 
 #endif

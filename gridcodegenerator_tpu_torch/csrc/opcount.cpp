@@ -198,6 +198,51 @@ struct DStored {
   }
 };
 
+// fdsva_so's composed route after fd_du and idsva_so, one lane: the
+// contractions of ops/so.py:fdsva_compose_lanes, in place on T (4, NJ, NJ,
+// NJ; so.cuh's layout, lane stride 1), each a sum of NJ products; dfdu
+// (NJ, 2 NJ) and Mi (NJ, NJ) row-major.
+template <typename T, int NJ>
+void fdsva_compose_lane(T* t, const T* dfdu, const T* Mi) {
+  constexpr int N2 = NJ * NJ, N3 = NJ * N2;
+  auto at = [&](int c, int i, int j, int k) -> T& {
+    return t[c * N3 + i * N2 + j * NJ + k];
+  };
+  // (dM D)[i, a, b] = sum_m dM[i, m, a] D[m, b], dM = slice 3
+  auto dm = [&](int col0, int stride, std::vector<T>& o) {
+    for (int i = 0; i < NJ; ++i)
+      for (int a = 0; a < NJ; ++a)
+        for (int b = 0; b < NJ; ++b) {
+          T acc = at(3, i, 0, a) * (col0 < 0 ? Mi[b] : dfdu[col0 + b]);
+          for (int m = 1; m < NJ; ++m)
+            acc += at(3, i, m, a) *
+                   (col0 < 0 ? Mi[m * NJ + b] : dfdu[m * stride + col0 + b]);
+          o[i * N2 + a * NJ + b] = acc;
+        }
+  };
+  std::vector<T> cq(N3), cd(N3), ct(N3), inner(4 * N3);
+  dm(0, 2 * NJ, cq);
+  dm(NJ, 2 * NJ, cd);
+  dm(-1, 0, ct);
+  for (int i = 0; i < NJ; ++i)
+    for (int j = 0; j < NJ; ++j)
+      for (int k = 0; k < NJ; ++k) {
+        const int e = i * N2 + j * NJ + k, f = i * N2 + k * NJ + j;
+        inner[e] = at(0, i, j, k) + cq[e] + cq[f];
+        inner[N3 + e] = at(1, i, j, k);
+        inner[2 * N3 + e] = at(2, i, j, k) + cd[f];
+        inner[3 * N3 + e] = ct[f];
+      }
+  for (int c = 0; c < 4; ++c)
+    for (int i = 0; i < NJ; ++i)
+      for (int j = 0; j < N2; ++j) {
+        T acc = Mi[i * NJ] * inner[c * N3 + j];
+        for (int m = 1; m < NJ; ++m)
+          acc += Mi[i * NJ + m] * inner[c * N3 + m * N2 + j];
+        t[c * N3 + i * N2 + j] = -acc;
+      }
+}
+
 std::vector<C> constants(const double* src, long long n) {
   std::vector<C> out(n);
   for (long long i = 0; i < n; ++i) out[i] = C(src[i]);
@@ -340,29 +385,44 @@ long long count(int kernel, const double* model, const double* ee, int ne,
                                   c.data(), d.data(), x.data(),
                                   x.data() + big / 2, N, 1, reg);
       break;
-    case IDSVA_SO:   // executed: the knot's threads, every phase; none
-                     // where one knot does not fit a block (the wrapper
-                     // refuses the launch)
-      if (needed) {
+    case IDSVA_SO:   // executed: the knot's threads, every phase, in
+                     // every band where the whole tile does not fit (flag:
+                     // the float32 plan)
+      if (needed)
         idsva_so_lane<C, NJ, DStored>(R, a.data(), b.data(), c.data(), g,
                                       x.data(), 1);
-      } else {
-        if constexpr (IDSOPlan<double, NJ>::G >= 1)
-          idsva_so_host<C, NJ>(m.data(), a.data(), b.data(), c.data(),
-                               x.data(), 1, g);
-        else
-          return -1;
-      }
+      else if (flag)
+        idsva_so_plan_host<C, NJ, DFormed, float>(m.data(), a.data(),
+                                                  b.data(), c.data(),
+                                                  x.data(), 1, g);
+      else
+        idsva_so_plan_host<C, NJ, DFormed, double>(m.data(), a.data(),
+                                                   b.data(), c.data(),
+                                                   x.data(), 1, g);
       break;
-    case FDSVA_SO:
-      if (needed)
+    case FDSVA_SO:   // executed: the fused kernel where its knot fits a
+                     // block in the plan's dtype (flag: float32), else the
+                     // composed route: fd_du, idsva_so at its qdd, then the
+                     // contractions
+      if (needed) {
         fdsva_so_host<C, NJ, DStored>(m.data(), a.data(), b.data(), c.data(),
                                       x.data(), 1, g);
-      else if (SOPlan<double, NJ>::G >= 1)
+      } else if (flag ? SOPlan<float, NJ>::G >= 1
+                      : SOPlan<double, NJ>::G >= 1) {
         fdsva_so_host<C, NJ>(m.data(), a.data(), b.data(), c.data(),
                              x.data(), 1, g);
-      else
-        return -1;
+      } else {
+        fd_du_host<C, NJ>(m.data(), a.data(), b.data(), c.data(), y.data(),
+                          z.data(), d.data(), 1, g);
+        if (flag)
+          idsva_so_plan_host<C, NJ, DFormed, float>(
+              m.data(), a.data(), b.data(), z.data(), w.data(), 1, g);
+        else
+          idsva_so_plan_host<C, NJ, DFormed, double>(
+              m.data(), a.data(), b.data(), z.data(), w.data(), 1, g);
+        fdsva_compose_lane<C, NJ>(w.data(), y.data(), d.data());
+        for (int i = 0; i < 4 * NJ * NJ * NJ; ++i) x[i] = w[i];
+      }
       break;
     default: return -1;
   }
@@ -382,13 +442,16 @@ extern "C" long long gridtorch_opcount(int kernel, int nj, const double* model,
 #define GT_COUNT(NJ)                                                       \
   count<NJ>(kernel, model, ee, ne, cost, ncost, N, r, flag, needed != 0, \
             in, out, nout)
-  switch (nj) {
+  switch (nj) {   // the zoo's counts and a 20-joint chain
     case 2: return GT_COUNT(2);
+    case 4: return GT_COUNT(4);
+    case 5: return GT_COUNT(5);
     case 7: return GT_COUNT(7);
     case 8: return GT_COUNT(8);
     case 12: return GT_COUNT(12);
     case 16: return GT_COUNT(16);
     case 17: return GT_COUNT(17);
+    case 20: return GT_COUNT(20);
     case 28: return GT_COUNT(28);
   }
 #undef GT_COUNT

@@ -282,6 +282,31 @@ struct SOOut {
   GT_HDI T& dM(int i, int a, int b) const { return at(3, i, b, a); }
 };
 
+// One band of the (4, NJ, NJ, NJ) tensor: its rows (c, i), r = c NJ + i in
+// [r0, r0 + ROWS), lane stride 1, the band's row r0 at `tile`. Every
+// read-modify-write of SOBody and so_pair_corrections reads the entry it
+// writes, of the same component c and first index i, so the bands do not
+// read each other's rows: an entry outside the band goes to `sink`, a
+// value of the thread's own, which nothing reads back but that statement.
+template <typename T, int NJ, int ROWS>
+struct SOBand {
+  T* tile;
+  T* sink;
+  int r0;
+  GT_HDI T& at(int c, int i, int j, int k) const {
+    const int r = c * NJ + i - r0;
+    T& x = (unsigned)r < (unsigned)ROWS ? tile[(r * NJ + j) * NJ + k] : *sink;
+#ifdef GT_RACE_CHECK
+    gt_race_touch(&x);
+#endif
+    return x;
+  }
+  GT_HDI T& dq2(int i, int j, int k) const { return at(0, i, j, k); }
+  GT_HDI T& dqd2(int i, int j, int k) const { return at(1, i, j, k); }
+  GT_HDI T& dvdq(int i, int a, int b) const { return at(2, i, b, a); }
+  GT_HDI T& dM(int i, int a, int b) const { return at(3, i, b, a); }
+};
+
 // The (j, a, st) triples: j, then a over the ancestors of j ascending and j
 // itself (subtree(a) holds j), then st over subtree(j) ascending.
 template <typename T, int NJ, class F>
@@ -294,10 +319,11 @@ GT_HD void for_triples(const Robot<T, NJ>& R, F fn) {
     }
 }
 
-template <typename T, int NJ, class DOp>
+// Out: SOOut (the whole tensor) or SOBand (one band of its rows)
+template <typename T, int NJ, class DOp, class Out = SOOut<T, NJ>>
 struct SOBody {
   const SOStages<T, NJ>& s;
-  const SOOut<T, NJ>& o;
+  const Out& o;
   const DOp& D;
   int stage;
 
@@ -415,9 +441,9 @@ struct SOBody {
 
 // The p1..p6 corrections of the (j, a) pair (a an ancestor of j or j
 // itself), over st in subtree(j) ascending.
-template <typename T, int NJ, class Rb>
+template <typename T, int NJ, class Rb, class Out>
 GT_HD void so_pair_corrections(const Rb& R, const SOStages<T, NJ>& s,
-                               const SOOut<T, NJ>& o, int j, int a) {
+                               const Out& o, int j, int a) {
   const T* Sj = s.S[j];
   const T* Sa = s.S[a];
   T p1[6], p2[6], p3[6], p4[6], p5[6], ps[6], t[6];

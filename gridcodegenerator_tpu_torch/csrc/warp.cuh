@@ -863,6 +863,21 @@ struct IDKnot {
   static constexpr int SIZE = STAGES_END > TILE_END ? STAGES_END : TILE_END;
 };
 
+// idsva_so in bands: IDKnot's inputs and stage quantities, a tile of ROWS
+// rows (c, i) of NJ^2 values over XJ .. ICV, then a sink for each of the
+// knot's LANES threads (warp.cuh:idsva_so_knot).
+template <int NJ>
+GT_HDI constexpr int idband_size(int rows, int lanes) {
+  using K = IDKnot<NJ>;
+  const int tile_end = K::TILE + rows * NJ * NJ;
+  return (K::STAGES_END > tile_end ? K::STAGES_END : tile_end) + lanes;
+}
+template <int NJ, int ROWS, int LANES>
+struct IDBandKnot : IDKnot<NJ> {
+  static constexpr int SINK = idband_size<NJ>(ROWS, 0);
+  static constexpr int SIZE = SINK + LANES;
+};
+
 // The (j, a, st) triples of for_triples and the (j, a) pairs, packed
 // j | a << 8 | st << 16, in for_triples' order, and the pairs x <= y of
 // the contractions; built once per block.
@@ -1086,23 +1101,17 @@ GT_HD void so_stages_knot(const Par& par, const Rb& R, T* k, T gravity) {
 // (GT_RACE_CHECK: no entry touched by two threads of one phase).
 // Force-inlined: fdsva_so then compiles to the machine code of the program
 // written out in fdsva_so_knot (a call boundary moved its registers).
-template <typename T, int NJ, class O,
-          template <typename, int> class DOp = DFormed, class Rb, class Par>
-GT_HDI void idsva_so_knot(const Par& par, const Rb& R,
-                          const SOLists<NJ>& lists, T* k, T gravity) {
+template <typename T, int NJ, class DOp, class View, class Rb, class Par>
+GT_HDI void so_triples_knot(const Par& par, const Rb& R,
+                            const SOLists<NJ>& lists,
+                            const SOStages<T, NJ>& s, const DOp& D,
+                            View view) {
   constexpr int W = Par::LANES;
-  so_stages_knot<T, NJ, O>(par, R, k, gravity);
-  const SOStages<T, NJ>& s =
-      *reinterpret_cast<const SOStages<T, NJ>*>(k + O::STG);
-  T* tile = k + O::TILE;
-  const SOOut<T, NJ> o{tile, 1};
-  par([&](int t) {
-    for (int e = t; e < 4 * O::N3; e += W) tile[e] = T(0);
-  });
-  const DOp<T, NJ> D{s};
+  using Out = decltype(view(0));
   for (int stage = 1; stage <= 9; ++stage) {
     par([&](int t) {
-      const SOBody<T, NJ, DOp<T, NJ>> body{s, o, D, stage};
+      const Out o = view(t);
+      const SOBody<T, NJ, DOp, Out> body{s, o, D, stage};
       for (int n = t; n < lists.ntrip; n += W) {
         const int w = lists.trip[n];
         body(w & 255, (w >> 8) & 255, w >> 16);
@@ -1110,11 +1119,44 @@ GT_HDI void idsva_so_knot(const Par& par, const Rb& R,
     });
   }
   par([&](int t) {
+    const Out o = view(t);
     for (int n = t; n < lists.npair; n += W) {
       const int w = lists.pair[n];
       so_pair_corrections(R, s, o, w & 255, w >> 8);
     }
   });
+}
+
+// ROWS < 4 NJ: the tile holds one band of ROWS rows (c, i) from row r0
+// (so.cuh:SOBand), and each thread t sends the writes outside it to its
+// sink, k[O::SINK + t]. Every triple and pair runs in every band: a band's
+// block repeats the stage quantities and the work whose writes fall in
+// other bands (csrc/opcount.cpp counts it as executed).
+template <typename T, int NJ, class O,
+          template <typename, int> class DOp = DFormed, int ROWS = 4 * NJ,
+          class Rb, class Par>
+GT_HDI void idsva_so_knot(const Par& par, const Rb& R,
+                          const SOLists<NJ>& lists, T* k, T gravity,
+                          int r0 = 0) {
+  constexpr int W = Par::LANES;
+  so_stages_knot<T, NJ, O>(par, R, k, gravity);
+  const SOStages<T, NJ>& s =
+      *reinterpret_cast<const SOStages<T, NJ>*>(k + O::STG);
+  T* tile = k + O::TILE;
+  par([&](int t) {
+    for (int e = t; e < ROWS * NJ * NJ; e += W) tile[e] = T(0);
+  });
+  const DOp<T, NJ> D{s};
+  if constexpr (ROWS == 4 * NJ) {
+    so_triples_knot<T, NJ>(par, R, lists, s, D, [=](int) {
+      return SOOut<T, NJ>{tile, 1};
+    });
+  } else {
+    T* sink = k + O::SINK;
+    so_triples_knot<T, NJ>(par, R, lists, s, D, [=](int t) {
+      return SOBand<T, NJ, ROWS>{tile, sink + t, r0};
+    });
+  }
 }
 
 // FDSVA-SO of the knot whose q, qd, u sit at FDKnot's offsets in `k`, into
@@ -1604,11 +1646,18 @@ GT_HDI constexpr int lanes_for(long long head, long long knot_bytes, int base,
   return best;
 }
 
+// A knot of KNOT values of T padded to 16 banks past a multiple of 32
+// (BlockPlan).
+template <typename T>
+GT_HDI constexpr int knot_stride(int knot) {
+  constexpr int WORDS = (int)sizeof(T) / 4;
+  return knot + ((16 / WORDS - knot % (32 / WORDS)) + 32 / WORDS) %
+                    (32 / WORDS);
+}
+
 template <typename T, class Head, int KNOT, int BASE, int REGS>
 struct BlockPlan {
-  static constexpr int WORDS = (int)sizeof(T) / 4;
-  static constexpr int STRIDE =
-      KNOT + ((16 / WORDS - KNOT % (32 / WORDS)) + 32 / WORDS) % (32 / WORDS);
+  static constexpr int STRIDE = knot_stride<T>(KNOT);
   static constexpr long long HEAD = (sizeof(Head) + 15) / 16 * 16;
   static constexpr long long KNOT_BYTES = (long long)STRIDE * sizeof(T);
   static constexpr int LANES = lanes_for(HEAD, KNOT_BYTES, BASE, REGS);
@@ -1622,9 +1671,7 @@ struct BlockPlan {
 // compare_kernels.py times beside the plan.
 template <typename T, class Head, int KNOT, int LANES_, int G_>
 struct KnotShape {
-  static constexpr int WORDS = (int)sizeof(T) / 4;
-  static constexpr int STRIDE =
-      KNOT + ((16 / WORDS - KNOT % (32 / WORDS)) + 32 / WORDS) % (32 / WORDS);
+  static constexpr int STRIDE = knot_stride<T>(KNOT);
   static constexpr long long HEAD = (sizeof(Head) + 15) / 16 * 16;
   static constexpr int LANES = LANES_, G = G_, ROWS = 1;
   // one knot's where none fits (G = 0)
@@ -1670,6 +1717,44 @@ using IDSOPlan = KnotShape<
     best_knots(IDSOKnot<T, NJ>::HEAD,
                IDSOKnot<T, NJ>::STRIDE * (long long)sizeof(T),
                idso_lanes<NJ>(), so_regs<T>(), true)>;
+
+// idsva_so where one knot's whole tile does not fit a block (IDSOPlan's G
+// 0: above 23 joints in float32, 18 in float64): the tile in BANDS bands of
+// BAND_ROWS rows (c, i) (the last may be shorter), a band a block
+// (blockIdx.y), the fewest bands whose knot (IDBandKnot) and head fit;
+// IDSO_BAND_LANES threads a knot (atlas: 442 (j, a, st) triples, two
+// rounds a stage), G the largest power of 2 that fits.
+constexpr int IDSO_BAND_LANES = 256;
+template <typename T, int NJ>
+GT_HDI constexpr int idso_band_rows() {
+  constexpr long long head = (sizeof(SOHead<T, NJ>) + 15) / 16 * 16;
+  for (int bands = 1; bands <= 4 * NJ; ++bands) {
+    const int rows = (4 * NJ + bands - 1) / bands;
+    const long long knot =
+        knot_stride<T>(idband_size<NJ>(rows, IDSO_BAND_LANES)) *
+        (long long)sizeof(T);
+    if (knots_per_sm(head, knot, IDSO_BAND_LANES, 1, so_regs<T>()) > 0)
+      return rows;
+  }
+  return 0;
+}
+template <typename T, int NJ>
+struct IDSOBandPlan {
+  static constexpr int LANES = IDSO_BAND_LANES;
+  static constexpr int BAND_ROWS = idso_band_rows<T, NJ>();
+  static constexpr int BANDS =
+      BAND_ROWS > 0 ? (4 * NJ + BAND_ROWS - 1) / BAND_ROWS : 0;
+  using Knot = IDBandKnot<NJ, BAND_ROWS, LANES>;
+  static constexpr int STRIDE = knot_stride<T>(Knot::SIZE);
+  static constexpr long long HEAD = (sizeof(SOHead<T, NJ>) + 15) / 16 * 16;
+  static constexpr int G =
+      BAND_ROWS > 0 ? best_knots(HEAD, STRIDE * (long long)sizeof(T), LANES,
+                                 so_regs<T>(), true)
+                    : 0;
+  static constexpr long long BYTES =
+      HEAD + (long long)(G > 0 ? G : 1) * STRIDE * (long long)sizeof(T);
+  static constexpr int ROWS = 1;
+};
 
 // id_du's plan: fd_du's head and threads a knot, its own knot (IDUKnot,
 // PASSES column passes), G the knots that put the most on an SM.
@@ -1781,11 +1866,12 @@ void fdsva_so_host(const T* model, const T* q, const T* qd, const T* u,
   }
 }
 
-template <typename T, int NJ, template <typename, int> class DOp = DFormed>
+template <typename T, int NJ, template <typename, int> class DOp = DFormed,
+          typename PT = PlanType<T>>
 void idsva_so_host(const T* model, const T* q, const T* qd, const T* qdd,
                    T* out, long long L, T gravity) {
   using O = IDKnot<NJ>;
-  using P = IDSOPlan<PlanType<T>, NJ>;
+  using P = IDSOPlan<PT, NJ>;
   static_assert(P::G >= 1, "one idsva_so knot must fit");
   std::vector<RobotConst<T, NJ>> R(1);
   R[0].load(model, 0, 1);
@@ -1802,6 +1888,53 @@ void idsva_so_host(const T* model, const T* q, const T* qd, const T* qdd,
     store_rows<T, O::SIZE>(k.data() + O::TILE, 4 * O::N3, out, L, l0, P::G,
                            0, 1);
   }
+}
+
+// idsva_so's banded block code with the card's G (IDSOBandPlan of PT's
+// dtype): at each band (or only band `only`), each block's valid knots in
+// turn, then the band's rows
+template <typename T, int NJ, template <typename, int> class DOp = DFormed,
+          typename PT = PlanType<T>>
+void idsva_so_band_host(const T* model, const T* q, const T* qd,
+                        const T* qdd, T* out, long long L, T gravity,
+                        int only = -1) {
+  using P = IDSOBandPlan<PT, NJ>;
+  static_assert(P::G >= 1, "one idsva_so band must fit");
+  using O = IDBandKnot<NJ, P::BAND_ROWS, P::LANES>;
+  constexpr int ROWS = P::BAND_ROWS, N2 = NJ * NJ;
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load(model, 0, 1);
+  std::vector<SOLists<NJ>> lists(1);
+  lists[0].build(R[0]);
+  std::vector<T> k((long long)P::G * O::SIZE);
+  for (int band = 0; band < P::BANDS; ++band) {
+    if (only >= 0 && band != only) continue;
+    const int r0 = band * ROWS;
+    const int rows = 4 * NJ - r0 < ROWS ? 4 * NJ - r0 : ROWS;
+    for (long long l0 = 0; l0 < L; l0 += P::G) {
+      for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+      load_inputs<T, NJ, O::SIZE>(q, qd, qdd, L, l0, P::G, k.data(), 0, 1);
+      for (int g = 0; g < P::G && l0 + g < L; ++g)
+        idsva_so_knot<T, NJ, O, DOp, ROWS>(
+            HostPar<P::LANES>{}, R[0], lists[0],
+            k.data() + (long long)g * O::SIZE, gravity, r0);
+      store_rows<T, O::SIZE>(k.data() + O::TILE, rows * N2,
+                             out + (long long)r0 * N2 * L, L, l0, P::G, 0,
+                             1);
+    }
+  }
+}
+
+// idsva_so's block code as the card runs it in PT's dtype: the whole tile
+// where one knot's fits a block, else in bands
+template <typename T, int NJ, template <typename, int> class DOp = DFormed,
+          typename PT = PlanType<T>>
+void idsva_so_plan_host(const T* model, const T* q, const T* qd,
+                        const T* qdd, T* out, long long L, T gravity) {
+  if constexpr (IDSOPlan<PT, NJ>::G >= 1)
+    idsva_so_host<T, NJ, DOp, PT>(model, q, qd, qdd, out, L, gravity);
+  else
+    idsva_so_band_host<T, NJ, DOp, PT>(model, q, qd, qdd, out, L, gravity);
 }
 
 // id_du's block code with the card's G, each block's valid knots in turn
@@ -1872,6 +2005,8 @@ void d2eepos_host(const T* model, const T* ee, int ne, const T* q, T* out,
 #endif
 
 #ifdef __CUDACC__
+#include <type_traits>
+
 namespace gt {
 
 // A kernel's dynamic shared-memory limit, and the largest carve-out of an
@@ -1891,11 +2026,22 @@ inline cudaError_t smem_attrs(K* fn, long long bytes) {
 // bytes a block, registers a thread, local (stack) bytes a thread, static
 // shared bytes, max threads a block, max dynamic shared bytes, programs a
 // block per problem (the line search's step-size rows), blocks an SM holds
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor)}.
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), blocks a lane (idsva_so
+// in bands: the bands; else 1)}.
+template <class P, class = void>
+struct PlanBands {
+  static constexpr int value = 1;
+};
+template <class P>
+struct PlanBands<P, std::void_t<decltype(P::BANDS)>> {
+  static constexpr int value = P::BANDS;
+};
+
 template <class P>
 inline int kernel_info(const void* fn, int* out) {
   out[8] = P::ROWS;
   out[9] = 0;
+  out[10] = PlanBands<P>::value;
   // the launch's attributes, which the occupancy calculator reads; a plan
   // that holds no knot (G 0) is never launched, and querying it would leave
   // an error that the library's next call reports

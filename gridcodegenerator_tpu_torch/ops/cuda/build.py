@@ -51,10 +51,15 @@ LIB_NAME = "libgridtorch.so"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-# joint counts a library is built for (csrc/dynamics.cuh: GT_DISPATCH, one
-# joint count per library) and dtypes; a robot or dtype outside these raises
-# in the wrapper
+# One library per joint count (csrc/dynamics.cuh: GT_DISPATCH, GT_NJ), float
+# and double. build() prebuilds SUPPORTED_JOINTS, the zoo's counts of the
+# configs; lib(nj) builds any count from 1 to MAX_JOINTS at its first use.
+# Above MAX_JOINTS: at 32 joints riccati's, id_du's and the feedback
+# rollout's problem or knot does not fit a block's shared memory, and 28 is
+# the JAX package's ceiling for the fused second-order kernels
+# (gridcodegenerator_tpu/ops/pallas/kernels.py: SO_MAX_NV).
 SUPPORTED_JOINTS = (2, 7, 8, 12, 16, 17, 28)
+MAX_JOINTS = 28
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 # launches per kernel since the last reset: each wrapper adds one right after
@@ -201,11 +206,21 @@ _SIGNATURES = {
 }
 
 
+def check_joints(nj: int, what: str = "CUDA kernels"):
+    """Raise NotImplementedError, before any nvcc, for a joint count no
+    library can be built for."""
+    if not 1 <= nj <= MAX_JOINTS:
+        raise NotImplementedError(
+            f"{what}: no CUDA kernel library for {nj} joints (1 to "
+            f"{MAX_JOINTS}: above, riccati's, id_du's and the feedback "
+            f"rollout's problem or knot does not fit a block's shared "
+            f"memory, and {MAX_JOINTS} is the JAX package's SO_MAX_NV)")
+
+
 def lib(nj: int) -> ctypes.CDLL:
-    """The loaded kernel library of ``nj`` joints, built on first use."""
-    if nj not in SUPPORTED_JOINTS:
-        raise NotImplementedError(f"no CUDA kernel library for {nj} joints "
-                                  f"(built for {SUPPORTED_JOINTS})")
+    """The loaded kernel library of ``nj`` joints, built on first use (its
+    nvcc seconds go into ``NVCC_SECONDS``)."""
+    check_joints(nj)
     with _lib_lock:
         if nj not in _libs:
             handle = ctypes.CDLL(str(build((nj,))[nj]))
@@ -220,7 +235,7 @@ def lib(nj: int) -> ctypes.CDLL:
 INFO_FIELDS = ("knots_per_block", "threads_per_knot", "smem_bytes_per_block",
                "registers", "local_bytes", "static_smem_bytes",
                "max_threads_per_block", "max_dynamic_smem_bytes",
-               "rows_per_block", "blocks_per_sm")
+               "rows_per_block", "blocks_per_sm", "bands")
 # the kernels of a thread group per knot, problem or rollout, by the name of
 # their C info entry point (riccati: the dense sweep's stationary instance,
 # riccati_stacked: its instance with a block per knot)
@@ -236,7 +251,9 @@ def warp_kernel_info(what: str, nj: int, dtype) -> dict:
     not fit), threads_per_knot, smem_bytes_per_block (the line search: at
     the most rows), registers, local_bytes, ..., rows_per_block (the line
     search's step-size rows a block at most; 1 for the others),
-    blocks_per_sm (the occupancy calculator's, at the plan's block)}."""
+    blocks_per_sm (the occupancy calculator's, at the plan's block), bands
+    (blocks a lane: idsva_so's bands where one knot's whole tile does not
+    fit; else 1)}."""
     if what not in WARP_KERNELS:
         raise ValueError(f"no block plan for {what!r}")
     out = (ctypes.c_int * len(INFO_FIELDS))()
@@ -249,19 +266,24 @@ def warp_kernel_info(what: str, nj: int, dtype) -> dict:
 _plans = {}
 
 
+def plan(what: str, nj: int, dtype) -> dict:
+    """``warp_kernel_info(what, nj, dtype)``, read once a process."""
+    key = what, nj, dtype
+    if key not in _plans:
+        _plans[key] = warp_kernel_info(what, nj, dtype)
+    return _plans[key]
+
+
 def fits(what: str, nj: int, dtype, kernel: str = None):
     """Raise, before any launch, if one knot (problem, rollout) of the
     thread-group kernel ``what`` (one of ``WARP_KERNELS``; its plan read once
     a process) does not fit a block's shared memory at ``nj`` joints in
     ``dtype``. ``kernel`` names the kernel in the message."""
-    key = what, nj, dtype
-    if key not in _plans:
-        _plans[key] = warp_kernel_info(what, nj, dtype)
-    plan = _plans[key]
-    if plan["knots_per_block"] < 1:
+    p = plan(what, nj, dtype)
+    if p["knots_per_block"] < 1:
         raise RuntimeError(
             f"{kernel or what}: one {nj}-joint {dtype} knot needs "
-            f"{plan['smem_bytes_per_block']} B of shared memory, more than "
+            f"{p['smem_bytes_per_block']} B of shared memory, more than "
             f"a block may use")
 
 
@@ -302,12 +324,10 @@ def kernel_key(model: RobotModel, like: torch.Tensor, what: str):
                          f"inputs are {dtype} on {like.device}")
     if model.floating_base:
         raise NotImplementedError(f"{what}: CUDA kernels are fixed-base")
-    if model.n not in SUPPORTED_JOINTS or any(
-            j not in ("revolute", "prismatic") for j in model.jtype):
-        raise NotImplementedError(
-            f"{what}: CUDA kernels are built for robots of 1-dof joints "
-            f"with {', '.join(map(str, SUPPORTED_JOINTS))} joints; "
-            f"{model.name!r} has {model.n}")
+    if any(j not in ("revolute", "prismatic") for j in model.jtype):
+        raise NotImplementedError(f"{what}: CUDA kernels take 1-dof joints "
+                                  f"(revolute, prismatic) only")
+    check_joints(model.n, f"{what} ({model.name!r})")
     if dtype not in DTYPE_CODES:
         raise NotImplementedError(f"{what}: no CUDA kernel for {dtype}")
     return DTYPE_CODES[dtype], model.n

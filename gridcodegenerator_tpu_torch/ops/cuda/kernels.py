@@ -29,7 +29,11 @@ Lane-major tensors, L lanes on the trailing axis:
   ``kernels.py:idsva_so_pallas``.
 * ``fdsva_so(model, q, qd, u)`` -> (4, n, n, n, L) FDSVA-SO
   [d2qdd/dq2, d2qdd/dqd2, d2qdd/dqd dq, dMinv/dq] (in the solver L = N*B
-  knots, knot-major). Replaces ``kernels.py:fdsva_so_pallas``.
+  knots, knot-major). Replaces ``kernels.py:fdsva_so_pallas``: the fused
+  kernel where one knot fits a block, else (``fdsva_so_route``) the JAX
+  package's composed route, ``fdsva_so_composed``: the fd_du kernel with
+  extras, the idsva_so kernel at its qdd, then ``ops/so.py``'s
+  contractions in torch (``fdsva_compose_lanes``).
 
 Kernels: ``csrc/<name>.cu``, one thread per lane, everything in registers
 and local memory; but ``fd_du``, ``fdsva_so`` and ``idsva_so``: one warp
@@ -46,8 +50,10 @@ writes are the least time.
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises: the thread-group kernels (fd_du, id_du, idsva_so, fdsva_so,
 d2eepos) check their instance's block plan first, and refuse, before any
-launch, one whose knot does not fit a block (``build.fits``: idsva_so and
-fdsva_so at 28 joints).
+launch, one whose knot does not fit a block (``build.fits``). idsva_so
+runs its tile in bands where a knot's whole tile does not fit, and
+fdsva_so takes the composed route: every fixed-base robot of 1-28 one-dof
+joints has a kernel for each function (``build.MAX_JOINTS``).
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ from ..fd_grad import fd_grad
 from ..id_grad import id_grad
 from ..minv import minv as _minv
 from ..rnea import rnea as _rnea
+from ..so import fdsva_compose_lanes
 from ..so import fdsva_so as _fdsva_so
 from ..so import idsva_so as _idsva_so
 from . import build
@@ -298,7 +305,8 @@ def d2eepos(model: RobotModel, q, targets=None):
 
 def idsva_so(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
     """Each knot's IDSVA-SO tensors stay in the kernel's shared memory
-    until written; raises if one knot does not fit there."""
+    until written: the whole tile, or where that does not fit a block one
+    band of its rows a block (``build.warp_kernel_info``'s ``bands``)."""
     if not q.is_cuda:
         return idsva_so_plain(model, q, qd, qdd, gravity)
     if qdd is None:
@@ -314,12 +322,38 @@ def idsva_so(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
     return out
 
 
+FUSED, COMPOSED = "fused", "composed"
+
+
+def fdsva_so_route(nj: int, dtype) -> str:
+    """The route of ``fdsva_so`` at ``nj`` joints in ``dtype``: FUSED, the
+    fdsva_so kernel, where one knot fits a block (float32 up to 22 joints,
+    float64 up to 17; where both routes run, at gym_humanoid's 17 joints
+    and the 20-joint chain's in float32, the fused one was the faster on
+    an H100: PERF.md, Findings), else COMPOSED."""
+    fits = build.plan(FDSVA_SO, nj, dtype)["knots_per_block"] >= 1
+    return FUSED if fits else COMPOSED
+
+
+def fdsva_so_composed(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
+    """FDSVA-SO on the composed route: fd_du (df/du, qdd, Minv), idsva_so
+    at (q, qd, qdd), then ``ops/so.py:fdsva_compose_lanes`` in place on
+    idsva_so's output. On the card it launches fd_du and idsva_so once
+    each; on CPU tensors it runs their plain versions."""
+    df_du, qdd, Mi = fd_du(model, q, qd, u, gravity)
+    return fdsva_compose_lanes(idsva_so(model, q, qd, qdd, gravity), df_du,
+                               Mi)
+
+
 def fdsva_so(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
-    """Each knot's IDSVA-SO tensors and their contractions stay in the
-    kernel's shared memory; raises if one knot does not fit there."""
+    """The fused kernel keeps each knot's IDSVA-SO tensors and their
+    contractions in shared memory; where one knot does not fit a block
+    the composed route runs (``fdsva_so_route``)."""
     if not q.is_cuda:
         return fdsva_so_plain(model, q, qd, u, gravity)
     dcode, nj, L = _lanes(model, FDSVA_SO, dict(q=q, qd=qd, u=u))
+    if fdsva_so_route(nj, q.dtype) == COMPOSED:
+        return fdsva_so_composed(model, q, qd, u, gravity)
     build.fits(FDSVA_SO, nj, q.dtype)
     n = model.n
     out = _empty(q, 4, n, n, n, L)

@@ -370,8 +370,9 @@ def riccati(A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg):
 
 
 def _check_riccati_key(what, n, dtype):
-    if n not in build.SUPPORTED_JOINTS or dtype not in build.DTYPE_CODES:
-        raise NotImplementedError(f"{what}: no CUDA kernel for n={n}, {dtype}")
+    build.check_joints(n, what)
+    if dtype not in build.DTYPE_CODES:
+        raise NotImplementedError(f"{what}: no CUDA kernel for {dtype}")
 
 
 def _check_shapes(what, expect, given):

@@ -349,6 +349,38 @@ def fdsva_compose(T, df_du, Mi):
                         -_minv_contract(Mi, inner_tau)])
 
 
+def fdsva_compose_lanes(T, df_du, Mi, chunk_bytes: int = 1 << 28):
+    """``fdsva_compose`` in place on T, lane-major (..., L), a chunk of lanes
+    at a time, each chunk's temporaries about ``chunk_bytes`` a (4, n, n, n)
+    stack. A chunk goes lane-first once, its contractions are two batched
+    matrix products over its lanes (dM against [dfdq | dfdqd | Minv], then
+    Minv against the four inner stacks), and it goes back into T. Returns
+    T, now the FDSVA-SO stack. The composed route of
+    ``ops/cuda/kernels.py:fdsva_so`` (the JAX package's route above 16
+    joints, ``gridcodegenerator_tpu/ops/pallas/kernels.py:fdsva_so_pallas``,
+    composes on XLA too)."""
+    n, L = Mi.shape[0], Mi.shape[-1]
+    step = max(1, chunk_bytes // (4 * n ** 3 * T.element_size()))
+    for a in range(0, L, step):
+        t = T[..., a:a + step]
+        c = t.shape[-1]
+        tl = t.permute(4, 0, 1, 2, 3).contiguous()         # (c, 4, n, n, n)
+        M = Mi[..., a:a + step].permute(2, 0, 1)           # (c, n, n)
+        D = torch.cat([df_du[..., a:a + step], Mi[..., a:a + step]],
+                      dim=1).permute(2, 0, 1)              # (c, n, 3n)
+        # R[c, i, a, :] = sum_m dM[i, m, a] [dfdq | dfdqd | Minv][m, :]
+        R = torch.bmm(tl[:, 3].transpose(2, 3).reshape(c, n * n, n),
+                      D).reshape(c, n, n, 3 * n)
+        C = R[..., :n]
+        inner = torch.stack([tl[:, 0] + C + C.transpose(2, 3), tl[:, 1],
+                             tl[:, 2] + R[..., n:2 * n].transpose(2, 3),
+                             R[..., 2 * n:].transpose(2, 3)], dim=2)
+        del R, C, tl
+        out = torch.bmm(M, inner.reshape(c, n, 4 * n * n))
+        t.copy_(out.reshape(c, n, 4, n, n).permute(2, 1, 3, 4, 0).neg_())
+    return T
+
+
 def fdsva_so_unrolled(model: RobotModel, q, qd, u,
                       gravity: float = DEFAULT_GRAVITY):
     """FDSVA-SO from the IDSVA-SO tensors at qdd = FD(q, qd, u)."""

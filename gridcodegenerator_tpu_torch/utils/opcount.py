@@ -15,7 +15,11 @@ does, and d2eepos by the cheaper of the chain form and the kernel's twist
 form; ``executed=True`` counts every operation the kernel's lane code does
 (the thread-group kernels, fd_du, fdsva_so, idsva_so, id_du, d2eepos, the
 Riccati sweeps and the rollouts: every thread of the knot's, lane's,
-problem's or rollout's group, phase by phase, as ``HostPar`` runs them).
+problem's or rollout's group, phase by phase, as ``HostPar`` runs them),
+by the route the card takes in the model's dtype: idsva_so in every band
+where a knot's whole tile does not fit a block, fdsva_so's composed route
+(fd_du, idsva_so, the contractions) where its fused knot does not fit.
+Counted for the zoo's joint counts and a 20-joint chain.
 
 ``bound_ms(ops, nbytes, dtype)`` is the least time one NVIDIA H100 SXM could
 take for that work: the larger of the bytes over the memory rate and the
@@ -111,6 +115,8 @@ def _count(kernel, model, cost=None, N=0, rank=3, stationary=True,
         w = cost.kernel_weights
         flag = COST_KINDS[w["kind"]]
         cbuf = np.asarray(w["values"], np.float64)
+    elif kernel in ("idsva_so", "fdsva_so"):   # the plan of model's dtype
+        flag = int(model.dtype == torch.float32)
     ins = None if inputs is None else np.ascontiguousarray(
         np.concatenate([np.asarray(v, np.float64) for v in inputs]))
     out = np.zeros(max(nout, 1))

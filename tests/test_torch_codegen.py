@@ -29,6 +29,7 @@ from gridcodegenerator_tpu_torch.codegen import ALGORITHMS, gen_all_code
 from gridcodegenerator_tpu_torch.codegen.emit import KERNELS
 from gridcodegenerator_tpu_torch.models.zoo import load_robot
 from gridcodegenerator_tpu_torch.ops.cuda import build
+from gridcodegenerator_tpu_torch.ops.cuda import kernels as K
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -162,3 +163,22 @@ def test_pendulum_algorithms_match_the_jax_module(jax_pendulum, tmp_path,
     assert tuple(got.shape) == want.shape
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=JAX_F32_ATOL
                                * max(1.0, float(np.abs(want).max())))
+
+
+@pytest.mark.parametrize("algo", ["idsva_so", "fdsva_so"])
+def test_atlas_module_serves_the_second_order_calls(tmp_path, algo):
+    """The module of a 28-joint robot (atlas): its second-order calls match
+    the port's GRiD on the CPU, and its kernel tier is the wrapper whose
+    route at 28 joints is fdsva_so's composed one and idsva_so's bands."""
+    path = gen_all_code(load_robot("atlas"), file_namespace="grid_atlas",
+                        path=str(tmp_path / "grid_atlas.py"))
+    mod = _load(path, f"grid_atlas_{algo}")
+    mod.configure(device="cpu", dtype=torch.float64)
+    ref = GRiD("atlas", dtype=torch.float64, device="cpu")
+    x = _inputs(ref.n, 2, seed=3)
+    build.reset_counters()
+    got = getattr(mod, algo)(*x)
+    assert dict(build.PLAIN_CALLS) == {algo: 1} and not build.LAUNCHES
+    torch.testing.assert_close(got, getattr(ref, algo)(*x), rtol=0, atol=0)
+    kern = getattr(mod, algo + "_kernel")()
+    assert kern.func is getattr(K, algo) and kern.args[0] is mod.grid().model
