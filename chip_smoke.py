@@ -14,10 +14,11 @@ Phases, one line each:
      and the host operation counter (utils/opcount.py); the block plan
      (knots, problems or rollouts a block, shared bytes, bands) and
      cudaFuncGetAttributes of every instance of the thread-group kernels:
-     fd_du, fdsva_so, idsva_so and id_du (a warp per knot), d2eepos (a
-     warp per lane), riccati_factored and riccati (a warp per problem;
-     riccati's stationary and per-knot instances), linesearch_rollout,
-     rollout and feedback_rollout (a group of threads per rollout); each
+     fd_du, fdsva_so, idsva_so and id_du (a warp per knot), d2eepos, rnea
+     and aba (a group of threads per lane), riccati_factored and riccati (a
+     warp per problem; riccati's stationary and per-knot instances),
+     linesearch_rollout, rollout and feedback_rollout (a group of threads
+     per rollout); each
      holds a knot, but fdsva_so's fused kernel at 28 joints (20 in
      float64), where the composed route runs, and idsva_so there holds a
      band of a knot;
@@ -39,7 +40,9 @@ Phases, one line each:
      lanes on iiwa, hyq, gym_ant and dm_quadruped; with each kernel's and
      plain version's device time from CUDA events: the config-3 kernels and the
      feedback rollout at config-3 shapes, the GRiD kernels (rnea, id_du,
-     aba, minv, fd, crba, eepos, deepos) at 1024 and 131072 lanes, riccati
+     aba, minv, fd, crba, eepos, deepos) at 1024 and 131072 lanes, rnea
+     (with qdd and the bias form) and aba at one lane on iiwa, atlas and
+     gym_humanoid (config 1's id at B=1, config 5's plant), riccati
      (stationary) at the config-3 QuadCost shapes, idsva_so and fdsva_so at
      1024 lanes and at config 4's N*B lanes (iiwa 32768, hyq 16384),
      fd_du at 1024 lanes and at config 4's N*B lanes on its four robots,
@@ -843,6 +846,22 @@ def main():
                 del args
             torch.cuda.empty_cache()
     line("second_order_riccati_f32", new_f32)
+    # rnea (with qdd and the bias form) and aba at one lane, config 1's id
+    # at B=1 and config 5's plant, on iiwa and the humanoids: the float32
+    # rule, times and bounds (the bias form's bound counts rnea's need with
+    # qdd)
+    one_lane = {}
+    for robot in ("iiwa",) + ROBOTS5:
+        model = m32 if robot == "iiwa" else build_model(
+            load_robot(robot), dtype=torch.float32, device=dev)
+        f64_of.setdefault(id(model), model.to(dtype=torch.float64))
+        cases = lane_cases(model, 1, seed=0)
+        for case in ("rnea", "rnea_bias", "aba"):
+            what = f"{robot} {case} L=1"
+            one_lane[what] = timed_f32(what, *case_fns[case_kernel[case]],
+                                       cases[case], model, case_kernel[case],
+                                       100)
+    line("rnea_aba_f32_one_lane", one_lane)
 
     # the warp-per-knot kernels at the main paths' other shapes: fd_du at
     # L1 lanes and at config 4's N*B lanes, fdsva_so at config 4's lanes on

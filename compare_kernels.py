@@ -3,15 +3,15 @@ card.
 
     python3 compare_kernels.py --other DIR [--other DIR2 ...]
                                [--kernels riccati_factored,linesearch,...]
+                               [--sass rollout,fd_du,...]
                                [--out build/compare_kernels.json]
 
 Each DIR is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive``), named by its directory. The
 kernels (``--kernels``, any of fd_du, fdsva_so, idsva_so,
-riccati_factored, linesearch, riccati, rollout, feedback_rollout, id_du and
-d2eepos; by default riccati_factored, linesearch, riccati and rollout) are
-compiled
-from every tree's
+riccati_factored, linesearch, riccati, rollout, feedback_rollout, id_du,
+d2eepos, rnea (its bias form too) and aba; by default riccati_factored,
+linesearch, riccati and rollout) are compiled from every tree's
 ``csrc/`` with nvcc for sm_90a, one library per joint count and tree (the
 counts of JOINTS that the tree's ``build.py`` lists), every nvcc at once,
 with ``-Xptxas -v``; the script prints each kernel instance's
@@ -20,8 +20,9 @@ this tree's block plans and ``cudaFuncGetAttributes``
 (``build.warp_kernel_info``), and then each kernel's device time per launch
 (CUDA events) at the main paths' shapes in float32, every tree on the same
 inputs, in turns: the others, this, this, the others in reverse. The GRiD
-kernels (fd_du, fdsva_so, idsva_so and id_du with u as qdd, d2eepos on q
-at every EE of the robot) run on inputs ~ U(-1, 1); the sweeps on the inputs of the solver's first iteration (plain ops:
+kernels (fd_du, fdsva_so, idsva_so, id_du and rnea with u as qdd, rnea's
+bias form, aba, d2eepos on q at every EE of the robot) run on inputs ~
+U(-1, 1); the sweeps on the inputs of the solver's first iteration (plain ops:
 config 3's EE reach and QuadCost task at N=64, B=2048, config 4's
 QuadCost at N=32, each with six step sizes; the dense riccati on the
 QuadCost task's stationary curvature, the rollout on the solver's first
@@ -43,8 +44,12 @@ shapes (threads a knot x knots a block, csrc/warp.cuh: KnotShape; those
 that fit an SM; as many blocks as the card holds, each taking every
 gridDim.x-th group of lanes, and a block a group), for id_du one and two
 column passes, for d2eepos its shapes (threads a lane x lanes a block,
-staged or direct stores), at every shape of the kernel, against the plan's
-output.
+staged or direct stores), for rnea and aba theirs (threads a knot x
+knots a block, LANE_SHAPES), at every shape of the kernel, against the
+plan's output. ``--sass`` compiles the named kernels' sources in every tree
+too and compares this tree's machine code with the first other tree's
+(``cuobjdump -sass`` of each object, float and double, at each joint
+count), without timing them.
 Needs one NVIDIA GPU and nvcc.
 """
 
@@ -70,10 +75,15 @@ SOURCES = {"fd_du": "fd_du.cu", "fdsva_so": "fdsva_so.cu",
            "idsva_so": "idsva_so.cu", "riccati_factored": "riccati.cu",
            "linesearch": "linesearch.cu", "riccati": "riccati.cu",
            "rollout": "rollout.cu", "feedback_rollout": "feedback_rollout.cu",
-           "id_du": "id_du.cu", "d2eepos": "d2eepos.cu"}
+           "id_du": "id_du.cu", "d2eepos": "d2eepos.cu", "rnea": "rnea.cu",
+           "rnea_bias": "rnea.cu", "aba": "aba.cu"}
 # the kernels of a knot a thread group, on (n, lanes) inputs (d2eepos: q
-# only)
-KNOT_KERNELS = ("fd_du", "fdsva_so", "idsva_so", "id_du", "d2eepos")
+# only; rnea_bias: q and qd, rnea's bias form, timed wherever rnea is)
+KNOT_KERNELS = ("fd_du", "fdsva_so", "idsva_so", "id_du", "d2eepos", "rnea",
+                "rnea_bias", "aba")
+# the phase clock's knot programs (PHASE_CLOCK_CU: phase_clock's mode)
+CLOCK_MODE = {"fd_du": 0, "fdsva_so": 1, "idsva_so": 2, "id_du": 3,
+              "rnea": 4, "rnea_bias": 5, "aba": 6}
 DEFAULT_KERNELS = "riccati_factored,linesearch,riccati,rollout"
 # (kernel, robot, lanes): config 3 and the GRiD API (iiwa 131072 and 1024
 # lanes), config 4's N*B lanes (iiwa 32768, the others 16384); the sweeps
@@ -85,7 +95,10 @@ DEFAULT_KERNELS = "riccati_factored,linesearch,riccati,rollout"
 # lanes and config 4's N*B; the feedback rollout at config 3's tracking
 # shape (N=64, B=2048) and on config 4's trees (N=32, B=512); id_du and
 # d2eepos at configs 1 and 2's B=1 and 1024 lanes, config 3's 131072 and
-# 16384 lanes on the trees (gym_ant: its EEs welded to the base, zeros only)
+# 16384 lanes on the trees (gym_ant: its EEs welded to the base, zeros only);
+# rnea (with qdd and the bias form) and aba at 1, 1024 and 131072 iiwa
+# lanes, 16384 on hyq, at 1 (config 5's plant) and 1024 on atlas and (aba)
+# gym_humanoid
 SHAPES = [("fd_du", "iiwa", 131072), ("fd_du", "iiwa", 1024),
           ("fd_du", "iiwa", 32768), ("fd_du", "gym_ant", 16384),
           ("fd_du", "hyq", 16384), ("fd_du", "dm_quadruped", 16384),
@@ -119,6 +132,11 @@ SHAPES = [("fd_du", "iiwa", 131072), ("fd_du", "iiwa", 1024),
           ("d2eepos", "iiwa", 1), ("d2eepos", "iiwa", 1024),
           ("d2eepos", "iiwa", 131072), ("d2eepos", "hyq", 16384),
           ("d2eepos", "gym_ant", 16384), ("d2eepos", "dm_quadruped", 16384)]
+SHAPES += [(what, robot, lanes) for what in ("rnea", "rnea_bias", "aba")
+           for robot, lanes in (("iiwa", 1), ("iiwa", 1024), ("iiwa", 131072),
+                                ("hyq", 16384), ("atlas", 1), ("atlas", 1024),
+                                ("gym_humanoid", 1), ("gym_humanoid", 1024))
+           if what == "aba" or robot != "gym_humanoid"]
 # the rollout's block shapes timed beside its plan: (threads a rollout,
 # problems a block), whole warps a block (8 x 2 is half a warp)
 ROLL_SHAPES = ((8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 2), (32, 4),
@@ -133,6 +151,10 @@ IDU_PASSES = (1, 2)
 # d2eepos's shapes timed beside its plan: (threads a lane, lanes a block),
 # each with the staged and the direct stores
 D2_SHAPES = ((8, 8), (8, 16), (16, 4), (16, 8), (32, 4), (32, 8))
+# rnea's and aba's shapes timed beside their plans: (threads a knot, knots
+# a block), whole warps a block; those that fit an SM
+LANE_SHAPES = ((8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 1), (32, 2),
+               (32, 4), (32, 8))
 # the step size folded into the feedback rollout's kff (a power of 2: the
 # fold is exact)
 FB_ALPHA = 0.25
@@ -151,6 +173,8 @@ PHASE_CLOCK_CU = r"""
 #include "feedback_rollout.cu"
 #include "id_du.cu"
 #include "d2eepos.cu"
+#include "rnea.cu"
+#include "aba.cu"
 
 extern __shared__ double gt_smem[];
 
@@ -172,14 +196,37 @@ struct ClockPar {
 };
 
 // the knot programs: MODE 0 fd_du, 1 fdsva_so, 2 idsva_so, 3 id_du (u as
-// qdd)
+// qdd), 4 rnea (u as qdd), 5 rnea's bias form, 6 aba
 template <int MODE, typename T, int NJ>
-using KnotPlan = typename std::conditional<
-    MODE == 0, gt::FDPlan<T, NJ>,
-    typename std::conditional<
-        MODE == 1, gt::SOPlan<T, NJ>,
-        typename std::conditional<MODE == 2, gt::IDSOPlan<T, NJ>,
-                                  gt::IDUPlan<T, NJ>>::type>::type>::type;
+struct KnotPlanOf {
+  using type = gt::IDUPlan<T, NJ>;
+};
+template <typename T, int NJ>
+struct KnotPlanOf<0, T, NJ> {
+  using type = gt::FDPlan<T, NJ>;
+};
+template <typename T, int NJ>
+struct KnotPlanOf<1, T, NJ> {
+  using type = gt::SOPlan<T, NJ>;
+};
+template <typename T, int NJ>
+struct KnotPlanOf<2, T, NJ> {
+  using type = gt::IDSOPlan<T, NJ>;
+};
+template <typename T, int NJ>
+struct KnotPlanOf<4, T, NJ> {
+  using type = gt::RNEAPlan<T, NJ>;
+};
+template <typename T, int NJ>
+struct KnotPlanOf<5, T, NJ> {
+  using type = gt::RNEAPlan<T, NJ>;
+};
+template <typename T, int NJ>
+struct KnotPlanOf<6, T, NJ> {
+  using type = gt::ABAPlan<T, NJ>;
+};
+template <int MODE, typename T, int NJ>
+using KnotPlan = typename KnotPlanOf<MODE, T, NJ>::type;
 
 template <typename T, int NJ, int MODE>
 __global__ void clocked(const T* model, const T* q, const T* qd, const T* u,
@@ -192,9 +239,12 @@ __global__ void clocked(const T* model, const T* q, const T* qd, const T* u,
   T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
   const int tid = threadIdx.x, G = blockDim.x / N;
   const long long c0 = clock64();
-  H.R.load(model, tid, blockDim.x);
-  gt::load_inputs<T, NJ, S>(q, qd, u, L, (long long)blockIdx.x * G, G, knots,
-                            tid, blockDim.x);
+  if constexpr (MODE >= 4)   // rnea and aba: the tree's lists, in parallel
+    H.R.load_tree(model, tid, blockDim.x);
+  else
+    H.R.load(model, tid, blockDim.x);
+  gt::load_inputs<T, NJ, S, MODE == 5 ? 2 : 3>(
+      q, qd, u, L, (long long)blockIdx.x * G, G, knots, tid, blockDim.x);
   __syncthreads();
   if (SO && tid == 0) H.lists.build(H.R);
   __syncthreads();
@@ -203,7 +253,13 @@ __global__ void clocked(const T* model, const T* q, const T* qd, const T* u,
   int count = 0;
   const ClockPar<N> par{tid % N, 1 + tid / N, first ? rec : nullptr, &count};
   T* k = knots + (long long)(tid / N) * S;
-  if constexpr (MODE == 3)
+  if constexpr (MODE == 6)
+    gt::aba_knot<T, NJ>(par, H.R, k, gravity);
+  else if constexpr (MODE == 5)
+    gt::rnea_knot<gt::RNEA_BIAS, T, NJ>(par, H.R, k, gravity);
+  else if constexpr (MODE == 4)
+    gt::rnea_knot<gt::RNEA_FULL, T, NJ>(par, H.R, k, gravity);
+  else if constexpr (MODE == 3)
     gt::id_du_knot<T, NJ, gt::idu_passes<NJ>()>(par, H.R, k, gravity);
   else if constexpr (MODE == 2)
     gt::idsva_so_knot<T, NJ, gt::IDKnot<NJ>>(par, H.R, H.lists, k, gravity);
@@ -244,7 +300,50 @@ extern "C" int phase_clock(int mode, int nj, const void* model,
   if (mode == 0) return knot_clock<0>(model, q, qd, u, L, rec, phases, knot);
   if (mode == 1) return knot_clock<1>(model, q, qd, u, L, rec, phases, knot);
   if (mode == 2) return knot_clock<2>(model, q, qd, u, L, rec, phases, knot);
+  if (mode == 4) return knot_clock<4>(model, q, qd, u, L, rec, phases, knot);
+  if (mode == 5) return knot_clock<5>(model, q, qd, u, L, rec, phases, knot);
+  if (mode == 6) return knot_clock<6>(model, q, qd, u, L, rec, phases, knot);
   return knot_clock<3>(model, q, qd, u, L, rec, phases, knot);
+}
+
+// rnea (bias: its bias form, qdd null) and aba at shape (lanes threads a
+// knot, g knots a block), float32; a shape that does not fit an SM is not
+// built
+template <int W, int G>
+static int lane_shape_launch(int aba, int bias, const void* model,
+                             const void* q, const void* qd, const void* x,
+                             void* out, long long L) {
+  constexpr int NJ = GT_NJ;
+  using PR = gt::KnotShape<float, gt::RobotConst<float, NJ>,
+                           gt::RNEAKnot<NJ>::SIZE, W, G>;
+  using PA = gt::KnotShape<float, gt::RobotConst<float, NJ>,
+                           gt::ABAKnot<NJ>::SIZE, W, G>;
+  if constexpr (W * G > 512 || W * G % 32 != 0) {
+    return (int)cudaErrorInvalidConfiguration;
+  } else if (aba) {
+    if constexpr (PA::BYTES <= gt::SMEM_LIMIT)
+      return launch_aba<float, NJ, PA>(model, q, qd, x, out, L, -9.81, 0);
+    return (int)cudaErrorInvalidConfiguration;
+  } else {
+    if constexpr (PR::BYTES <= gt::SMEM_LIMIT)
+      return launch_rnea<float, NJ, PR>(model, q, qd, bias ? nullptr : x,
+                                        out, L, -9.81, 0);
+    return (int)cudaErrorInvalidConfiguration;
+  }
+}
+
+extern "C" int lane_shape(int aba, int bias, int lanes, int g, int nj,
+                          const void* model, const void* q, const void* qd,
+                          const void* x, void* out, long long L) {
+  if (nj != GT_NJ) return (int)cudaErrorInvalidValue;
+#define GT_SHAPE(W, G)                                                      \
+  if (lanes == W && g == G)                                                 \
+    return lane_shape_launch<W, G>(aba, bias, model, q, qd, x, out, L);
+  GT_SHAPE(8, 4) GT_SHAPE(8, 8) GT_SHAPE(16, 2) GT_SHAPE(16, 4)
+  GT_SHAPE(16, 8) GT_SHAPE(32, 1) GT_SHAPE(32, 2) GT_SHAPE(32, 4)
+  GT_SHAPE(32, 8)
+#undef GT_SHAPE
+  return (int)cudaErrorInvalidValue;
 }
 
 // d2eepos's plan, a row of blocks an EE; block (0, 0) (EE 0) clocks its
@@ -738,10 +837,44 @@ def compile_tree(tree: Path, out: Path, sources, clocked: bool = False):
     return libs, "\n".join(reports), clocks
 
 
+def compare_sass(work: Path, other: str, joints, sources) -> dict:
+    """{"<source> nj<n>": {"identical": bool, "lines": this tree's SASS
+    lines, "differing": lines that differ in place, and the difference in
+    length}}: cuobjdump -sass of this tree's object of each source (float
+    and double instances) against the other tree's, at each joint count
+    both trees build; where they differ, the first 4000 lines of `diff -u`
+    go to sass_<source>_nj<n>.diff in the work directory."""
+    exe = Path(nvcc()[0]).parent / "cuobjdump"
+    out = {}
+    for src in sources:
+        for nj in joints:
+            objs = [work / tree / f"{src}.nj{nj}.o" for tree in ("this", other)]
+            if not all(o.exists() for o in objs):   # a tree builds fewer
+                continue
+            a, b = (subprocess.run([str(exe), "-sass", str(o)], check=True,
+                                   capture_output=True,
+                                   text=True).stdout.splitlines()
+                    for o in objs)
+            diff = sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+            out[f"{src} nj{nj}"] = {"identical": a == b, "lines": len(a),
+                                    "differing": diff}
+            if a != b:
+                files = [work / f"{t}_{src}_nj{nj}.sass" for t in ("this",
+                                                                   other)]
+                for f, text in zip(files, (a, b)):
+                    f.write_text("\n".join(text))
+                d = subprocess.run(["diff", "-u", str(files[1]),
+                                    str(files[0])], capture_output=True,
+                                   text=True).stdout.splitlines()[:4000]
+                (work / f"sass_{src}_nj{nj}.diff").write_text("\n".join(d))
+    return out
+
+
 KERNEL_NAMES = ("fd_du_kernel", "fdsva_so_kernel", "riccati_factored_kernel",
                 "linesearch_kernel", "riccati_kernel", "rollout_kernel",
                 "riccati_dense_kernel", "idsva_so_kernel",
-                "feedback_rollout_kernel", "id_du_kernel", "d2eepos_kernel")
+                "feedback_rollout_kernel", "id_du_kernel", "d2eepos_kernel",
+                "rnea_kernel", "aba_kernel")
 
 
 def parse_ptxas(text: str) -> dict:
@@ -749,9 +882,9 @@ def parse_ptxas(text: str) -> dict:
     smem, cumulative_stack}} for the instances of the thread-group kernels
     (fd_du, fdsva_so, idsva_so, riccati_factored, linesearch_ee,
     linesearch_quad, riccati_stationary, riccati_stacked, rollout,
-    feedback_rollout, id_du, d2eepos; an earlier tree's riccati_dense and
-    its per-lane idsva_so, feedback_rollout, id_du and d2eepos) in
-    ptxas's report."""
+    feedback_rollout, id_du, d2eepos, rnea (with qdd), rnea_bias, aba; an
+    earlier tree's riccati_dense and its per-lane idsva_so,
+    feedback_rollout, id_du, d2eepos, rnea and aba) in ptxas's report."""
     def key(mangled):
         m = re.match(r"_Z\d+(\w+?_kernel)I([fd])Li(\d+)E", mangled)
         if not m or m.group(1) not in KERNEL_NAMES:
@@ -761,6 +894,8 @@ def parse_ptxas(text: str) -> dict:
             name += "_ee" if "EECost" in mangled else "_quad"
         if name == "riccati":
             name += "_stationary" if "Lb1E" in mangled else "_stacked"
+        if name == "rnea" and "RneaModeE0E" in mangled:   # RNEA_BIAS
+            name += "_bias"
         return f"{name} {'f32' if m.group(2) == 'f' else 'f64'} nj{m.group(3)}"
 
     stats, cur, props = {}, None, None
@@ -810,11 +945,13 @@ def bind(libs: dict, kernels, scratch: bool) -> dict:
            "idsva_so": [I, I, P, P, P, P, P, L, D, P],
            "feedback_rollout": [I, I] + [P] * 10 + [I, L, D, D, P],
            "id_du": [I, I, P, P, P, P, P, L, D, P],
-           "d2eepos": [I, I, P, P, I, P, P, L, P]}
+           "d2eepos": [I, I, P, P, I, P, P, L, P],
+           "rnea": [I, I, P, P, P, P, P, L, D, P],
+           "aba": [I, I, P, P, P, P, P, L, D, P]}
     out = {}
     for nj, path in libs.items():
         h = ctypes.CDLL(str(path))
-        for k in kernels:
+        for k in set(kernels) - {"rnea_bias"}:   # rnea's entry point
             fn = getattr(h, f"gridtorch_{k}")
             fn.argtypes, fn.restype = sig[k], I
         out[nj] = h
@@ -837,9 +974,11 @@ def bind_clock(path: Path):
     h.d2_clock.argtypes = [I, P, P, I, P, P, L, P, P, P]
     h.idu_shape.argtypes = [I, I] + [P] * 5 + [L]
     h.d2_shape.argtypes = [I, I, I, I, P, P, I, P, P, L]
+    h.lane_shape.argtypes = [I, I, I, I, I] + [P] * 5 + [L]
     for fn in (h.phase_clock, h.ric_clock, h.ls_clock, h.ricd_clock,
                h.roll_clock, h.roll_shape, h.fbr_clock, h.fbr_shape,
-               h.idso_shape, h.d2_clock, h.idu_shape, h.d2_shape):
+               h.idso_shape, h.d2_clock, h.idu_shape, h.d2_shape,
+               h.lane_shape):
         fn.restype = I
     return h
 
@@ -947,11 +1086,17 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, type=Path, action="append")
     ap.add_argument("--kernels", default=DEFAULT_KERNELS)
+    ap.add_argument("--sass", default="",
+                    help="kernels whose objects are compiled in every tree "
+                         "and compared by cuobjdump -sass with the first "
+                         "other tree's, not timed")
     ap.add_argument("--out", default="build/compare_kernels.json")
     args = ap.parse_args()
     kernels = tuple(args.kernels.split(","))
     if any(k not in SOURCES for k in kernels):
         raise ValueError(f"--kernels: each of {tuple(SOURCES)}")
+    if "rnea" in kernels and "rnea_bias" not in kernels:
+        kernels += ("rnea_bias",)
     if not torch.cuda.is_available():
         raise RuntimeError("compare_kernels.py needs a CUDA device")
     sys.path.insert(0, str(ROOT))
@@ -973,7 +1118,10 @@ def main():
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="compare-", dir=ROOT / "build"))
     result = {"device": smi, "ptxas": {}, "info": {}, "times": []}
-    sources = sorted({SOURCES[k] for k in kernels})
+    sass = tuple(k for k in args.sass.split(",") if k)
+    if any(k not in SOURCES for k in sass):
+        raise ValueError(f"--sass: each of {tuple(SOURCES)}")
+    sources = sorted({SOURCES[k] for k in kernels + sass})
     libs = {}
     for name, tree in trees.items():
         (work / name).mkdir()
@@ -987,9 +1135,13 @@ def main():
         libs[name] = bind(built, kernels, scratch), scratch
     for nj in JOINTS:
         for dtype in (torch.float32, torch.float64):
-            for what in kernels:
+            for what in set(kernels) - {"rnea_bias"}:   # rnea's plan
                 result["info"][f"{what} {str(dtype)[6:]} nj{nj}"] = \
                     build.warp_kernel_info(what, nj, dtype)
+    if sass:
+        result["sass"] = compare_sass(work, others[0], tree_joints(ROOT),
+                                      sorted({SOURCES[k] for k in sass}))
+        print("sass: " + json.dumps(result["sass"]), flush=True)
     print("ptxas: " + json.dumps(result["ptxas"]), flush=True)
     print("info: " + json.dumps(result["info"]), flush=True)
 
@@ -1026,6 +1178,17 @@ def main():
 
             def runner(tree):
                 lib = libs[tree][0][n]
+                if what in ("rnea", "rnea_bias", "aba"):
+                    outs = (torch.empty(n, lanes, device=dev),)
+                    x = None if what == "rnea_bias" else u
+                    entry = (lib.gridtorch_aba if what == "aba"
+                             else lib.gridtorch_rnea)
+
+                    def fn():
+                        build.check(entry(0, n, ptr(mb), ptr(q), ptr(qd),
+                                          ptr(x), ptr(outs[0]), lanes, -9.81,
+                                          stream), what)
+                    return fn, outs
                 if what == "id_du":
                     outs = (torch.empty(n, 2 * n, lanes, device=dev),)
 
@@ -1070,10 +1233,15 @@ def main():
                 return fn, outs
 
             sub = slice(0, min(lanes, 1024))
-            plain = getattr(K, f"{what}_plain")
-            ref64 = (plain(m64, q[:, sub].double()) if what == "d2eepos"
-                     else plain(m64, q[:, sub].double(), qd[:, sub].double(),
-                                u[:, sub].double()))
+            if what == "rnea_bias":
+                ref64 = K.rnea_plain(m64, q[:, sub].double(),
+                                     qd[:, sub].double())
+            elif what == "d2eepos":
+                ref64 = K.d2eepos_plain(m64, q[:, sub].double())
+            else:
+                ref64 = getattr(K, f"{what}_plain")(
+                    m64, q[:, sub].double(), qd[:, sub].double(),
+                    u[:, sub].double())
             ref64 = ref64 if isinstance(ref64, tuple) else (ref64,)
             cut = lambda outs: tuple(o[..., sub] for o in outs)
             rows = 1
@@ -1083,9 +1251,9 @@ def main():
                 if what == "d2eepos":
                     return clock.d2_clock(n, ptr(mb), ptr(eb), ne, ptr(q),
                                           ptr(d2_out()), lanes, *clock_out())
-                return clock.phase_clock(KNOT_KERNELS.index(what), n,
-                                         ptr(mb), ptr(q), ptr(qd), ptr(u),
-                                         lanes, *clock_out())
+                return clock.phase_clock(CLOCK_MODE[what], n, ptr(mb),
+                                         ptr(q), ptr(qd), ptr(u), lanes,
+                                         *clock_out())
         else:
             cost_kind, N, B = shape
             ins = sweep_inputs(m, cost_kind, N, B, dev)
@@ -1359,6 +1527,25 @@ def main():
                     "max_abs_diff_vs_plan": float(
                         (out - run["this"][1][0]).abs().max())}
             del out
+        if what in ("rnea", "rnea_bias", "aba"):   # shapes against the plan
+            out = torch.empty(n, lanes, device=dev)
+            shapes = {}
+            for w, g in LANE_SHAPES:
+                def shape_fn():
+                    return clock.lane_shape(int(what == "aba"),
+                                            int(what == "rnea_bias"), w, g,
+                                            n, ptr(mb), ptr(q), ptr(qd),
+                                            ptr(u), ptr(out), lanes)
+                code = shape_fn()
+                if code == 9:   # cudaErrorInvalidConfiguration: does not fit
+                    continue
+                build.check(code, f"{what} shape")
+                torch.cuda.synchronize()
+                shapes[f"{w}x{g}"] = {
+                    "ms": time_cuda(shape_fn, iters=iters),
+                    "max_abs_diff_vs_plan": float(
+                        (out - run["this"][1][0]).abs().max())}
+            del out
         build.check(clock_fn(), "phase clock")
         torch.cuda.synchronize()
         nph = min(int(phases.item()), 4096)
@@ -1369,7 +1556,7 @@ def main():
                               for t, e in err.items()},
                "knot_cycles": int(knot[0])}
         if what in ("rollout", "feedback_rollout", "idsva_so", "id_du",
-                    "d2eepos"):
+                    "d2eepos", "rnea", "rnea_bias", "aba"):
             row["block_shapes"] = shapes
         if what in KNOT_KERNELS:
             row["phase_cycles"] = cyc

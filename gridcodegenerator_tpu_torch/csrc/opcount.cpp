@@ -12,10 +12,10 @@
 //
 // Two counts per kernel:
 // * executed: every operation the kernel's lane code does (fd_du, fdsva_so,
-//   idsva_so, id_du and d2eepos: every thread of the knot's group,
-//   warp.cuh; the Riccati sweeps and the rollouts, open-loop, feedback and
-//   line search: every thread of the problem's or rollout's group,
-//   sweep_warp.cuh);
+//   idsva_so, id_du, rnea and d2eepos: every thread of the knot's group,
+//   warp.cuh; the Riccati sweeps, the rollouts, open-loop, feedback and
+//   line search, and aba: every thread of the problem's, rollout's or
+//   knot's group, sweep_warp.cuh);
 // * needed: the arithmetic of the function, the bound's numerator. Constants
 //   fold: literals and the robot's constants (GRiD generates code per
 //   robot) are known, the lane's inputs are not, and an operation whose
@@ -290,7 +290,13 @@ long long count(int kernel, const double* model, const double* ee, int ne,
   const C g(-9.81), dt(0.01), reg(1e-6);
   C::n = 0;
   switch (kernel) {
-    case RNEA: rnea_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data()); break;
+    case RNEA:   // executed: the knot's threads, every phase
+      if (needed)
+        rnea_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data());
+      else
+        rnea_host<C, NJ>(m.data(), a.data(), b.data(), c.data(), x.data(), 1,
+                         g);
+      break;
     case ID_DU:   // executed: the knot's threads, every phase
       if (needed)
         id_du_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data());
@@ -298,7 +304,13 @@ long long count(int kernel, const double* model, const double* ee, int ne,
         id_du_host<C, NJ>(m.data(), a.data(), b.data(), c.data(), x.data(), 1,
                           g);
       break;
-    case ABA: aba<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data()); break;
+    case ABA:   // executed: the knot's threads, every phase
+      if (needed)
+        aba<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data());
+      else
+        aba_host<C, NJ>(m.data(), a.data(), b.data(), c.data(), x.data(), 1,
+                        g);
+      break;
     case MINV: minv_lane<C, NJ>(R, a.data(), true, x.data()); break;
     case FD: fd_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data()); break;
     case CRBA: crba_lane<C, NJ>(R, a.data(), x.data()); break;

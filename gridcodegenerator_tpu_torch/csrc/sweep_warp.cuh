@@ -1,7 +1,8 @@
 // Thread-group programs of the sweeps: the Riccati sweeps (a warp per
 // problem: riccati_factored and the dense riccati) and the rollouts (a group
-// of threads per rollout: the line search and the open-loop rollout),
-// written once for the card and for the host.
+// of threads per rollout: the line search, the open-loop and the feedback
+// rollout), and aba's group of threads a lane on the rollouts' ABA phases
+// (aba_phases), written once for the card and for the host.
 //
 // All follow csrc/warp.cuh: a program is a sequence of phases, `par(f)`
 // runs f(t) for the group's threads t (Par::LANES of them) and then
@@ -17,7 +18,8 @@
 // float32), while the current knot is computed; it writes its outputs the
 // same way. The Riccati knot takes its curvature from an input policy
 // (FactoredIn, DenseIn), the rollout step its control law (FeedbackLaw,
-// OpenLoop) and its cost (EECostW, QuadCostW, NoCost) from policies. Every
+// OpenLoop) and its cost (EECostW, QuadCostW, NoCost) from policies, and
+// hands each joint's qdd to the Euler update (aba_knot: to its output). Every
 // value keeps the order of operations of the serial lane code
 // (csrc/riccati.cu:riccati_knot, csrc/dynamics.cuh:aba; products with the
 // exactly zero upper-right block of a joint transform are skipped), so the
@@ -59,12 +61,6 @@ template <int N>
 GT_HDI void async_wait() {
 #ifdef __CUDA_ARCH__
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-#endif
-}
-
-GT_HDI void block_sync() {
-#ifdef __CUDA_ARCH__
-  __syncthreads();
 #endif
 }
 
@@ -909,18 +905,40 @@ GT_HDI const T* ls_ia(const Rb& R, const T* IA, int i) {
   return R.cstart[i] == R.cstart[i + 1] ? R.Imat(i) : IA + 36 * i;
 }
 
-// One step of the rollout whose state sits at `k`, from its problem's tile
-// of the knot: the control law (Law), the stage cost, and a semi-implicit
-// Euler step on ABA (dynamics.cuh:feedback_u, euler_step, aba), in 4 L - 1
-// phases for a tree of L levels:
-// 1. u = clamp(Uref + (alpha k + K (x - Xref))) (or clamp(U_t)) a joint a
-//    thread; the joint
-//    transforms (and the cost's) a joint a thread; v of level 0 a row a
-//    thread;
+// Where ABA's quantities of one rollout (LSRoll) or knot (ABAKnot) sit in
+// shared memory: the joint transforms X, the articulated inertias IA (of
+// the joints with children; a leaf's is its I), X^T Ia (tmp), the
+// velocities v (the accelerations over them), the bias terms c and pA, pa,
+// 1 / D and u - tau_damp - pA[S], the state q then qd (xs) and the control
+// u. The caller forms the pointers once, at the top of its program, in the
+// order of its layout (formed in another order, the feedback rollout's
+// registers moved).
+template <typename T>
+struct AbaView {
+  T* X;
+  T* IA;
+  T* tmp;
+  T* v;
+  T* cb;
+  T* pA;
+  T* pac;
+  T* dinv;
+  T* uu;
+  T* xs;
+  T* u;
+};
+
+// ABA (dynamics.cuh:aba) on the view V, in 4 L - 1 phases for a tree of L
+// levels, split over the group's threads, with four hooks for the caller's
+// work in the same phases:
+// 1. head(d): the caller's items first (the rollouts' control law, a
+//    joint a thread, on the phase's Deal d); the joint transforms a joint
+//    a thread, each followed by prep(i, q_i, cos q_i, sin q_i) (the EE
+//    cost's chain transforms); v of level 0 a row a thread;
 // 2. .. L + 1: v of level l a row a thread, and c = v x S qd and pA = v x*
 //    I v of level l - 1 a joint a thread (a leaf's 1 / D and u - tau_damp -
-//    pA[S] too); the stage cost (the first of these, on the group's last
-//    thread);
+//    pA[S] too); then stage(l, t) on every thread (the rollouts' stage
+//    cost, at l = 1 on the group's last thread);
 // then per level l = L - 1 .. 1, deepest first, two phases:
 //    (a) for each joint i of level l, column c of X^T Ia a thread (Ia =
 //        IA - U Dinv U^T, its column formed in registers) and row r of pa
@@ -929,41 +947,44 @@ GT_HDI const T* ls_ia(const Rb& R, const T* IA, int i) {
 //        pA_p a thread, which adds in the children in descending order, as
 //        the serial sweep does; the thread of row S_p then forms 1 / D_p
 //        and u_p - tau_damp - pA_p[S];
-// then per level l = 0 .. L - 1: qdd, a and the Euler update of joint i
-// (its q and qd) a joint a thread.
+// then per level l = 0 .. L - 1, a joint a thread: its qdd, handed to
+// sink(i, qdd, put_a), which calls put_a() where joint i's acceleration
+// a_i is to be written (the rollouts: between the loads and the stores of
+// the Euler update of q_i and qd_i; aba: before it stores qdd).
 // A thread reads its operands into registers before it writes: a store to
 // shared memory keeps the loads after it from starting early.
-template <typename T, int NJ, class Cost, class Law, class Rb, class Par>
-GT_HD void linesearch_step(const Par& par, const Rb& R, const Cost& cost,
-                           const Law& law, const T* cc, T* k, const T* tile,
-                           const T* lo, const T* hi, T dt, T gravity) {
-  using O = LSRoll<NJ>;
+// Force-inlined: the open-loop and feedback rollouts compile to the machine
+// code of the step written out in one function; the line search's differs
+// only in the order of its address arithmetic and registers, and runs as
+// fast (compare_kernels.py --sass; PERF.md).
+template <typename T, int NJ, class Rb, class Par, class Head, class Prep,
+          class Stage, class Sink>
+GT_HDI void aba_phases(const Par& par, const Rb& R, const AbaView<T>& V,
+                       int nlev, T gravity, Head&& head, Prep&& prep,
+                       Stage&& stage, Sink&& sink) {
   constexpr int W = Par::LANES;
-  T* X = k + O::X;
-  T* IA = k + O::IA;
-  T* tmp = k + O::TMP;
-  T* Tj = k + O::TJ;
-  T* v = k + O::V;
-  T* a = k + O::A;
-  T* cb = k + O::CB;
-  T* pA = k + O::PA;
-  T* pac = k + O::PAC;
-  T* dinv = k + O::DINV;
-  T* uu = k + O::UU;
-  T* xs = k + O::XS;
-  T* u = k + O::U;
-  const T alpha = k[O::ALPHA];
-  const int nlev = R.nlev;
+  T* X = V.X;
+  T* IA = V.IA;
+  T* tmp = V.tmp;
+  T* v = V.v;
+  T* a = V.v;
+  T* cb = V.cb;
+  T* pA = V.pA;
+  T* pac = V.pac;
+  T* dinv = V.dinv;
+  T* uu = V.uu;
+  T* xs = V.xs;
+  T* u = V.u;
 
   par([&](int t) {
     Deal<W> d{t, 0};
-    d(NJ, [&](int j) { u[j] = law.u(tile, xs, alpha, j, lo, hi); });
+    head(d);
     d(NJ, [&](int i) {
       const T q = xs[i];
       const bool rev = R.jtype[i] == 0;
       const T c = rev ? gcos(q) : T(0), sn = rev ? gsin(q) : T(0);
       ls_xmat(R.Xtree(i), R.jtype[i], R.sind[i], q, c, sn, X + 36 * i);
-      cost.prep(R, i, q, c, sn, Tj);
+      prep(i, q, c, sn);
     });
     level<6>(d, R, 0,
              [&](int i, int r) { ls_v_row<T, NJ>(R, X, v, xs, i, r); });
@@ -977,8 +998,7 @@ GT_HD void linesearch_step(const Par& par, const Rb& R, const Cost& cost,
       if (l < nlev)
         level<6>(d, R, l,
                  [&](int i, int r) { ls_v_row<T, NJ>(R, X, v, xs, i, r); });
-      if (Cost::SUMS && l == 1 && t == W - 1)
-        k[O::COST] = k[O::COST] + cost.stage(R, cc, Tj, xs, u);
+      stage(l, t);
     });
   }
   for (int l = nlev - 1; l >= 1; --l) {
@@ -1081,15 +1101,98 @@ GT_HD void linesearch_step(const Par& par, const Rb& R, const Cost& cost,
         T dot = Ii[s] * ap[0];
         for (int m = 1; m < 6; ++m) dot += Ii[m * 6 + s] * ap[m];
         const T qdd = dinv[i] * (uu[i] - dot);
-        const T qdn = xs[NJ + i] + dt * qdd;
-        const T qn = xs[i] + dt * qdn;
-        for (int m = 0; m < 6; ++m)
-          a[6 * i + m] = m == s ? ap[m] + qdd : ap[m];
-        xs[i] = qn;
-        xs[NJ + i] = qdn;
+        sink(i, qdd, [&] {
+          for (int m = 0; m < 6; ++m)
+            a[6 * i + m] = m == s ? ap[m] + qdd : ap[m];
+        });
       });
     });
   }
+}
+
+// One step of the rollout whose state sits at `k`, from its problem's tile
+// of the knot: the control law (Law), the stage cost, and a semi-implicit
+// Euler step on ABA (dynamics.cuh:feedback_u, euler_step, aba): aba_phases,
+// its head the control law u = clamp(Uref + (alpha k + K (x - Xref))) (or
+// clamp(U_t)) a joint a thread, its prep the cost's chain transforms, its
+// stage the stage cost (the first bias phase, on the group's last thread),
+// its sink the Euler update of joint i's q and qd.
+template <typename T, int NJ, class Cost, class Law, class Rb, class Par>
+GT_HD void linesearch_step(const Par& par, const Rb& R, const Cost& cost,
+                           const Law& law, const T* cc, T* k, const T* tile,
+                           const T* lo, const T* hi, T dt, T gravity) {
+  using O = LSRoll<NJ>;
+  constexpr int W = Par::LANES;
+  T* X = k + O::X;
+  T* IA = k + O::IA;
+  T* tmp = k + O::TMP;
+  T* Tj = k + O::TJ;
+  T* v = k + O::V;
+  T* cb = k + O::CB;
+  T* pA = k + O::PA;
+  T* pac = k + O::PAC;
+  T* dinv = k + O::DINV;
+  T* uu = k + O::UU;
+  T* xs = k + O::XS;
+  T* u = k + O::U;
+  const T alpha = k[O::ALPHA];
+  const int nlev = R.nlev;
+  const AbaView<T> V{X, IA, tmp, v, cb, pA, pac, dinv, uu, xs, u};
+  aba_phases<T, NJ>(
+      par, R, V, nlev, gravity,
+      [&](Deal<W>& d) {
+        d(NJ, [&](int j) { u[j] = law.u(tile, xs, alpha, j, lo, hi); });
+      },
+      [&](int i, T q, T c, T sn) { cost.prep(R, i, q, c, sn, Tj); },
+      [&](int l, int t) {
+        if (Cost::SUMS && l == 1 && t == W - 1)
+          k[O::COST] = k[O::COST] + cost.stage(R, cc, Tj, xs, u);
+      },
+      [&](int i, T qdd, auto&& put_a) {
+        const T qdn = xs[NJ + i] + dt * qdd;
+        const T qn = xs[i] + dt * qdn;
+        put_a();
+        xs[i] = qn;
+        xs[NJ + i] = qdn;
+      });
+}
+
+// ---------------------------------------------------------------------------
+// aba: a thread group per lane on the rollouts' ABA phases
+// ---------------------------------------------------------------------------
+
+// One lane's state: its inputs q and qd (the view's xs) and u, its output
+// qdd, then the ABA quantities of LSRoll: X, IA and X^T Ia (NJ, 36), v (a
+// over it), c, pA and pa (NJ, 6), 1 / D and u - tau_damp - pA[S] (NJ): 138
+// NJ values (966 at 7 joints, 3864 at 28: 15.5 KB in float32, 31 KB in
+// float64).
+template <int NJ>
+struct ABAKnot {
+  static constexpr int Q = 0, QD = Q + NJ, U = QD + NJ, QDD = U + NJ;
+  static constexpr int X = QDD + NJ, IA = X + 36 * NJ, TMP = IA + 36 * NJ;
+  static constexpr int V = TMP + 36 * NJ, CB = V + 6 * NJ, PA = CB + 6 * NJ;
+  static constexpr int PAC = PA + 6 * NJ, DINV = PAC + 6 * NJ;
+  static constexpr int UU = DINV + NJ, SIZE = UU + NJ;
+};
+
+// qdd = ABA(q, qd, u) of the knot whose inputs sit at ABAKnot's offsets in
+// `k`: the rollouts' aba_phases with no hooks but the sink, which stores
+// joint i's qdd (the serial dynamics.cuh:aba's bits).
+template <typename T, int NJ, class Rb, class Par>
+GT_HD void aba_knot(const Par& par, const Rb& R, T* k, T gravity) {
+  using O = ABAKnot<NJ>;
+  T* qdd = k + O::QDD;
+  const int nlev = R.nlev;
+  const AbaView<T> V{k + O::X,  k + O::IA, k + O::TMP,  k + O::V,
+                     k + O::CB, k + O::PA, k + O::PAC,  k + O::DINV,
+                     k + O::UU, k + O::Q,  k + O::U};
+  aba_phases<T, NJ>(
+      par, R, V, nlev, gravity, [](auto&) {}, [](int, T, T, T) {},
+      [](int, int) {},
+      [&](int i, T x, auto&& put_a) {
+        put_a();
+        qdd[i] = x;
+      });
 }
 
 // after the last step: cost = acc + terminal
@@ -1357,6 +1460,20 @@ template <typename T, int NJ>
 using FBPlan = RollShape<T, NJ, roll_lanes<NJ>(), fb_g<T, NJ>(),
                          FoldedStepLaw<T, NJ>>;
 
+// aba's plan: the rollout's threads a lane (roll_lanes: 8 on the chains of
+// 2 and 7 joints, a warp otherwise), G the largest power of 2 up to 8 that
+// fits (its output rows are G consecutive lanes: 32-byte runs at G = 8 in
+// float32; 4 knots at 28 joints in float64).
+template <typename T, int NJ>
+using ABAKnot1 = KnotShape<T, RobotConst<T, NJ>, ABAKnot<NJ>::SIZE,
+                           roll_lanes<NJ>(), 1>;
+template <typename T, int NJ>
+using ABAPlan = KnotShape<
+    T, RobotConst<T, NJ>, ABAKnot<NJ>::SIZE, roll_lanes<NJ>(),
+    best_knots(ABAKnot1<T, NJ>::HEAD,
+               ABAKnot1<T, NJ>::STRIDE * (long long)sizeof(T),
+               roll_lanes<NJ>(), ls_regs<T>(), true)>;
+
 }  // namespace gt
 
 #ifndef __CUDACC__
@@ -1480,6 +1597,34 @@ void rollout_host(const T* model, const T* x0, const T* U, const T* lo,
   rollouts_host<T, NJ, NoCost<T, NJ>, P::G, P::LANES>(
       law, model, x0, lo, hi, X, nullptr, nullptr, N, B, 1, 1, dt, gravity,
       nullptr, 0);
+}
+
+// aba's block code with the card's G, each block's valid knots in turn
+template <typename T, int NJ>
+void aba_host(const T* model, const T* q, const T* qd, const T* u, T* qdd,
+              long long L, T gravity) {
+  using O = ABAKnot<NJ>;
+  using P = ABAPlan<PlanType<T>, NJ>;
+  static_assert(P::G >= 1, "one aba knot must fit");
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load_tree(model, 0, 1);
+  std::vector<T> k((long long)P::G * O::SIZE);
+  for (long long l0 = 0; l0 < L; l0 += P::G) {
+    fill_nan(k);
+    load_inputs<T, NJ, O::SIZE>(q, qd, u, L, l0, P::G, k.data(), 0, 1);
+    for (int g = 0; g < P::G && l0 + g < L; ++g) {
+#ifdef GT_RACE_CHECK
+      gt_race_watch(k.data() + (long long)g * O::SIZE,
+                    O::SIZE * (long)sizeof(T));
+#endif
+      aba_knot<T, NJ>(HostPar<P::LANES>{}, R[0],
+                      k.data() + (long long)g * O::SIZE, gravity);
+    }
+    store_rows<T, O::SIZE>(k.data() + O::QDD, NJ, qdd, L, l0, P::G, 0, 1);
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
 }
 
 template <typename T, int NJ>

@@ -1,7 +1,7 @@
 // One warp per knot: the fd_du, fdsva_so, idsva_so and id_du programs of
 // csrc/fd_du.cu, csrc/fdsva_so.cu, csrc/idsva_so.cu and csrc/id_du.cu, and
-// d2eepos's group of threads a lane (csrc/d2eepos.cu), written once for
-// the card and for the host.
+// the groups of threads a lane of d2eepos and rnea (csrc/d2eepos.cu,
+// csrc/rnea.cu), written once for the card and for the host.
 //
 // A block holds G knots, a warp each (a half warp up to 8 joints, where the
 // 2 NJ gradient columns fit in 16 threads: two knots a warp; 2 or 4 times
@@ -114,6 +114,13 @@ struct HostPar {
   }
 };
 
+// __syncthreads() on the card; nothing on the host, where one thread runs
+GT_HDI void block_sync() {
+#ifdef __CUDA_ARCH__
+  __syncthreads();
+#endif
+}
+
 // The packed robot constants (Layout<NJ>) and the topology as ints, in
 // shared memory; the accessors of Robot. The joints are also listed by
 // level (depth in the tree: 0 for a joint on the base), ascending ids
@@ -179,6 +186,58 @@ struct RobotConst {
         if (model[L::SUBTREE + i * NJ + j] != T(0)) rlist[n++] = i;
     }
     rstart[NJ] = n;
+  }
+  // The constants and the tree's lists (levels and children: those of
+  // load), built by all the block's threads together, thread `tid` of
+  // `nthreads` (every thread of the block calls it: it meets the block at
+  // two barriers), without the related lists, which only the ID-gradient
+  // columns read; rsub holds each joint's level meanwhile. A joint's level
+  // is the length of its root path; each list entry is a count over the
+  // parents in shared memory: the joints on the levels above a level
+  // (lstart), the children of the joints before a joint (cstart), a
+  // joint's place in its level, ascending, and among its parent's
+  // children, descending. (Where load's thread 0 walks them alone, the
+  // block's head took 12k-60k cycles at 7-28 joints on an H100, most of an
+  // RNEA or ABA knot's time at one lane.)
+  GT_HD void load_tree(const T* model, int tid, int nthreads) {
+    for (int e = tid; e < L::SIZE; e += nthreads) c[e] = model[e];
+    for (int i = tid; i < NJ; i += nthreads) {
+      parent[i] = (int)model[L::PARENT + i];
+      sind[i] = (int)model[L::SIND + i];
+      jtype[i] = (int)model[L::JTYPE + i];
+    }
+    block_sync();
+    for (int i = tid; i < NJ; i += nthreads) {
+      int l = 0;
+      for (int p = parent[i]; p >= 0; p = parent[p]) ++l;
+      rsub[i] = l;
+    }
+    block_sync();
+    for (int i = tid; i <= NJ; i += nthreads) {
+      int above = 0, kids = 0;
+      for (int j = 0; j < NJ; ++j) {
+        above += rsub[j] < i;
+        kids += parent[j] >= 0 && parent[j] < i;
+      }
+      lstart[i] = above;
+      cstart[i] = kids;
+    }
+    for (int i = tid; i < NJ; i += nthreads) {
+      const int li = rsub[i], p = parent[i];
+      int at = 0, sib = 0;
+      for (int j = 0; j < NJ; ++j) {
+        at += rsub[j] < li || (rsub[j] == li && j < i);
+        sib += parent[j] >= 0 && (parent[j] < p || (parent[j] == p && j > i));
+      }
+      ljoint[at] = i;
+      if (p >= 0) clist[sib] = i;
+    }
+    if (tid == 0) {
+      int deepest = 0;
+      for (int j = 0; j < NJ; ++j)
+        if (rsub[j] > deepest) deepest = rsub[j];
+      nlev = deepest + 1;
+    }
   }
   GT_HDI const T* Xtree(int i) const { return c + L::XTREE + 36 * i; }
   GT_HDI const T* Imat(int i) const { return c + L::IMAT + 36 * i; }
@@ -365,7 +424,8 @@ struct FDKnot {
 
 // ---------------------------------------------------------------------------
 // the RNEA passes and the ID-gradient columns of one knot, shared by fd_du
-// and id_du: the knot's state sits at the offsets of O (FDKnot, IDUKnot):
+// and id_du (rnea runs the passes alone): the knot's state sits at the
+// offsets of O (FDKnot, IDUKnot):
 // Q, QD, QDD, X (NJ, 36), V, A, F, IV (NJ, 6 each) and the columns' state
 // COL. Force-inlined, and the RNEA passes take their pointers, gravity and
 // level count from the caller (RneaView, nlev), formed once at the top of
@@ -818,6 +878,55 @@ GT_HD void id_du_knot(const Par& par, const Rb& R, T* k, T gravity) {
                                          [&](int pass, int t, const T* dc) {
     for (int r = 0; r < NJ; ++r)
       k[O::DC + r * O::NC + pass * O::COLS + t] = dc[r];
+  });
+}
+
+// ---------------------------------------------------------------------------
+// rnea: one knot's state and program, id_du's RNEA passes alone
+// ---------------------------------------------------------------------------
+
+// The knot's inputs q, qd, qdd (absent in the bias form), its output c, the
+// joint transforms (NJ, 36), v, a, f and I v (NJ, 6 each): 64 NJ values
+// (448 at 7 joints, 1.8 KB in float32).
+template <int NJ>
+struct RNEAKnot {
+  static constexpr int Q = 0, QD = Q + NJ, QDD = QD + NJ, C = QDD + NJ;
+  static constexpr int X = C + NJ, V = X + 36 * NJ, A = V + 6 * NJ;
+  static constexpr int F = A + 6 * NJ, IV = F + 6 * NJ;
+  static constexpr int SIZE = IV + 6 * NJ;
+};
+
+// c = RNEA(q, qd, qdd) (MODE RNEA_FULL) or the bias c(q, qd) (RNEA_BIAS)
+// of the knot whose inputs sit at RNEAKnot's offsets in `k`
+// (dynamics.cuh:rnea_lane, split over the knot's threads): the joint
+// transforms a joint a thread; the forward pass, a level a phase, a row of
+// each joint's v and a a thread, then I v and f a joint a thread; the
+// backward accumulation of f into the parents, a level a phase; c_i =
+// f_i[S_i] + damping_i qd_i a joint a thread. A tree of L levels takes
+// 2 L + 3 phases (iiwa 17, hyq 9, atlas 21). Every value is the serial
+// code's (rnea_forward_knot, rnea_backward_knot).
+template <RneaMode MODE, typename T, int NJ, class Rb, class Par>
+GT_HD void rnea_knot(const Par& par, const Rb& R, T* k, T gravity) {
+  using O = RNEAKnot<NJ>;
+  static_assert(MODE != RNEA_AT_QDD, "rnea forms v and I v itself");
+  constexpr int W = Par::LANES;
+  T* X = k + O::X;
+  const T* qd = k + O::QD;
+  const T* f = k + O::F;
+  T* c = k + O::C;
+  par([&](int t) {
+    for (int i = t; i < NJ; i += W)
+      joint_xmat(R.Xtree(i), R.jtype[i], R.sind[i], k[O::Q + i], X + 36 * i);
+  });
+  const int nlev = R.nlev;
+  const T g[6] = {0, 0, 0, 0, 0, -gravity};
+  const RneaView<T> rv{k + O::QD, k + O::QDD, X, k + O::V,
+                       k + O::A,  k + O::F,   k + O::IV, g};
+  rnea_forward_knot<MODE, T, NJ>(par, R, rv, nlev);
+  rnea_backward_knot<T>(par, R, rv, nlev);
+  par([&](int t) {
+    for (int i = t; i < NJ; i += W)
+      c[i] = f[6 * i + R.sind[i]] + R.damping(i) * qd[i];
   });
 }
 
@@ -1761,6 +1870,28 @@ struct IDSOBandPlan {
 template <typename T, int NJ, int PASSES = idu_passes<NJ>()>
 using IDUPlan = BlockPlan<T, RobotConst<T, NJ>, IDUKnot<NJ, PASSES>::SIZE,
                           knot_lanes<NJ>(), fd_regs<T>()>;
+// rnea's plan: threads a knot by joint count (rnea_lanes), the width that
+// ran fastest for the zoo's robot of that count at its main shapes
+// (compare_kernels.py's shapes; PERF.md): a phase has at most 6 items a
+// joint of the widest level (6 on a chain, 24 on hyq, 30 on atlas), and
+// fewer threads put more knots on an SM: 8 on the chains of 2 and 7 joints
+// (at 131072 iiwa lanes 1.4x 16 threads and 2.5x 32), 16 on hyq (12%
+// faster than 32 at 16384 lanes), a warp otherwise. G the largest power of
+// 2 up to 8 that fits (its output rows are G consecutive lanes: 32-byte
+// runs at G = 8 in float32).
+template <int NJ>
+GT_HDI constexpr int rnea_lanes() {
+  return NJ == 2 || NJ == 7 ? 8 : NJ == 12 ? 16 : WARP;
+}
+template <typename T, int NJ>
+using RNEAKnot1 = KnotShape<T, RobotConst<T, NJ>, RNEAKnot<NJ>::SIZE,
+                            rnea_lanes<NJ>(), 1>;
+template <typename T, int NJ>
+using RNEAPlan = KnotShape<
+    T, RobotConst<T, NJ>, RNEAKnot<NJ>::SIZE, rnea_lanes<NJ>(),
+    best_knots(RNEAKnot1<T, NJ>::HEAD,
+               RNEAKnot1<T, NJ>::STRIDE * (long long)sizeof(T),
+               rnea_lanes<NJ>(), fd_regs<T>(), true)>;
 // d2eepos's plan: threads a lane and the store route by joint count, the
 // shape that ran fastest for the zoo's robots at their main shapes
 // (compare_kernels.py's shapes; PERF.md): up to 8 joints (a chain) 8
@@ -1785,12 +1916,12 @@ using D2Plan = KnotShape<
                fd_regs<T>(), true)>;
 
 // Knot g of the block takes lane l0 + g. The block reads the (NJ, G) tiles
-// of q, qd and u (G consecutive lanes a row) into its knots; lanes past L
-// read zeros.
-template <typename T, int NJ, int KNOT>
+// of q, qd and u (G consecutive lanes a row; the first INPUTS of them) into
+// its knots; lanes past L read zeros.
+template <typename T, int NJ, int KNOT, int INPUTS = 3>
 GT_HD void load_inputs(const T* q, const T* qd, const T* u, long long L,
                        long long l0, int G, T* knots, int tid, int nthreads) {
-  for (int e = tid; e < 3 * NJ * G; e += nthreads) {
+  for (int e = tid; e < INPUTS * NJ * G; e += nthreads) {
     const int w = e / (NJ * G), r = (e / G) % NJ, g = e % G;
     const T* src = w == 0 ? q : (w == 1 ? qd : u);
     const long long l = l0 + g;
@@ -1960,6 +2091,41 @@ void id_du_host(const T* model, const T* q, const T* qd, const T* qdd,
     }
     store_rows<T, O::SIZE>(k.data() + O::DC, 2 * NJ * NJ, dcdu, L, l0, P::G,
                            0, 1);
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
+// rnea's block code with the card's G, each block's valid knots in turn (qdd
+// null: the bias form)
+template <typename T, int NJ>
+void rnea_host(const T* model, const T* q, const T* qd, const T* qdd, T* c,
+               long long L, T gravity) {
+  using O = RNEAKnot<NJ>;
+  using P = RNEAPlan<PlanType<T>, NJ>;
+  static_assert(P::G >= 1, "one rnea knot must fit");
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load_tree(model, 0, 1);
+  std::vector<T> k((long long)P::G * O::SIZE);
+  for (long long l0 = 0; l0 < L; l0 += P::G) {
+    for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+    if (qdd)
+      load_inputs<T, NJ, O::SIZE>(q, qd, qdd, L, l0, P::G, k.data(), 0, 1);
+    else
+      load_inputs<T, NJ, O::SIZE, 2>(q, qd, qdd, L, l0, P::G, k.data(), 0,
+                                     1);
+    for (int g = 0; g < P::G && l0 + g < L; ++g) {
+      T* kg = k.data() + (long long)g * O::SIZE;
+#ifdef GT_RACE_CHECK
+      gt_race_watch(kg, O::SIZE * (long)sizeof(T));
+#endif
+      if (qdd)
+        rnea_knot<RNEA_FULL, T, NJ>(HostPar<P::LANES>{}, R[0], kg, gravity);
+      else
+        rnea_knot<RNEA_BIAS, T, NJ>(HostPar<P::LANES>{}, R[0], kg, gravity);
+    }
+    store_rows<T, O::SIZE>(k.data() + O::C, NJ, c, L, l0, P::G, 0, 1);
   }
 #ifdef GT_RACE_CHECK
   gt_race_watch(nullptr, 0);

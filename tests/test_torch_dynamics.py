@@ -144,3 +144,28 @@ def test_plain_twin_matches_jax_pallas_kernel(pair, case):
     x = [rng.uniform(-1, 1, (jm.n, 8)) for _ in range(nargs)]   # B = 8
     _close(plain(tm, *map(_t, x)),
            pallas(jm)(*(jnp.asarray(a) for a in x)))
+
+
+def _pair_of(robot):
+    jm = jax_build_model(jax_load_robot(robot), dtype=jnp.float64)
+    tm = model_from_numpy({f: np.asarray(getattr(jm, f)) for f in ARRAY_FIELDS},
+                          {f: getattr(jm, f) for f in STATIC_FIELDS},
+                          device="cpu")
+    return jm, tm
+
+
+# gym_humanoid (17 joints) is left out: its three interpret runs take 32 s
+# on one CPU core (hyq's 19 s)
+@pytest.mark.parametrize("case", ["aba", "rnea", "rnea_bias"])
+@pytest.mark.parametrize("robot", ["hyq"])
+def test_plain_twin_matches_jax_pallas_kernel_on_trees(robot, case):
+    """rnea (with qdd and the bias form) and aba, whose kernels run a tree's
+    level a phase, on a branched robot, hyq (12 joints, four legs): each
+    plain twin against the JAX Pallas kernel it replaces, in interpret
+    mode, float64, B = 8."""
+    jm, tm = _pair_of(robot)
+    plain, pallas, nargs = PALLAS[case]
+    rng = np.random.default_rng(5)
+    x = [rng.uniform(-1, 1, (jm.n, 8)) for _ in range(nargs)]   # B = 8
+    _close(plain(tm, *map(_t, x)),
+           pallas(jm)(*(jnp.asarray(a) for a in x)))

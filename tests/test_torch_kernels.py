@@ -486,7 +486,8 @@ extern "C" long touch_count() { return g_touches; }
 // the warp kernels' block plans: {G, threads a knot, bytes a block, rows
 // a block} of fd_du, fdsva_so, riccati_factored, linesearch_rollout, the
 // dense riccati (stationary, then a block per knot), rollout, idsva_so,
-// feedback_rollout, id_du and d2eepos in float32 and float64
+// feedback_rollout, id_du, d2eepos, idsva_so's bands (then the bands of
+// each dtype), rnea and aba in float32 and float64
 template <typename P>
 void plan_into(int* out) {
   out[0] = P::G;
@@ -515,6 +516,22 @@ int idsva_so_band(const double* m, const double* q, const double* qd,
     }
   }
   return 0;
+}
+
+// whether two heads hold the same tree lists (levels and children)
+template <int NJ>
+int same_tree_lists(const RobotConst<double, NJ>& a,
+                    const RobotConst<double, NJ>& b) {
+  if (a.nlev != b.nlev) return 0;
+  for (int l = 0; l <= a.nlev; ++l)
+    if (a.lstart[l] != b.lstart[l]) return 0;
+  for (int p = 0; p <= NJ; ++p)
+    if (a.cstart[p] != b.cstart[p]) return 0;
+  for (int i = 0; i < NJ; ++i)
+    if (a.ljoint[i] != b.ljoint[i]) return 0;
+  for (int n = 0; n < a.cstart[NJ]; ++n)
+    if (a.clist[n] != b.clist[n]) return 0;
+  return 1;
 }
 
 #define HOST(NJ)                                                            \
@@ -546,11 +563,26 @@ extern "C" void plans_##NJ(int* out) {                                      \
   plan_into<IDSOBandPlan<double, NJ>>(out + 92);                            \
   out[96] = IDSOBandPlan<float, NJ>::BANDS;                                 \
   out[97] = IDSOBandPlan<double, NJ>::BANDS;                                \
+  plan_into<RNEAPlan<float, NJ>>(out + 100);                                \
+  plan_into<RNEAPlan<double, NJ>>(out + 104);                               \
+  plan_into<ABAPlan<float, NJ>>(out + 108);                                 \
+  plan_into<ABAPlan<double, NJ>>(out + 112);                                \
+}                                                                           \
+extern "C" int tree_lists_##NJ(const double* m) {                          \
+  std::vector<RobotConst<double, NJ>> R(2);                                 \
+  R[0].load(m, 0, 1);                                                       \
+  R[1].load_tree(m, 0, 1);                                                  \
+  return same_tree_lists(R[0], R[1]);                                       \
 }                                                                           \
 extern "C" void fd_du_##NJ(const double* m, const double* q,                \
     const double* qd, const double* u, double* d, double* a, double* mi,    \
     ll L) { fd_du_host<double, NJ>(m, q, qd, u, d, a, mi, L, -9.81); }       \
 extern "C" void rnea_##NJ(const double* m, const double* q,                 \
+    const double* qd, const double* qdd, double* c, ll L) {                 \
+  race_reset();                                                             \
+  rnea_host<double, NJ>(m, q, qd, qdd, c, L, -9.81);                        \
+}                                                                           \
+extern "C" void rnea_lane_##NJ(const double* m, const double* q,            \
     const double* qd, const double* qdd, double* c, ll L) {                 \
   Robot<double, NJ> R(m);                                                   \
   lanes3<NJ, NJ>(q, qd, qdd, c, L, [&](const double* a, const double* b,    \
@@ -570,6 +602,11 @@ extern "C" void id_du_lane_##NJ(const double* m, const double* q,           \
     id_du_lane<double, NJ>(R, a, b, x, -9.81, o); });                       \
 }                                                                           \
 extern "C" void aba_##NJ(const double* m, const double* q,                  \
+    const double* qd, const double* u, double* qdd, ll L) {                 \
+  race_reset();                                                             \
+  aba_host<double, NJ>(m, q, qd, u, qdd, L, -9.81);                         \
+}                                                                           \
+extern "C" void aba_lane_##NJ(const double* m, const double* q,             \
     const double* qd, const double* u, double* qdd, ll L) {                 \
   Robot<double, NJ> R(m);                                                   \
   lanes3<NJ, NJ>(q, qd, u, qdd, L, [&](const double* a, const double* b,   \
@@ -771,9 +808,10 @@ def _p(t):
 
 def _host_run(lib, name, args, lane=False):
     """Run the host build of kernel ``name`` on the wrapper's arguments: the
-    kernel's block code (the sweeps, fd_du, id_du, d2eepos and the
-    second-order kernels), or with ``lane`` the serial lane function (the
-    rollouts, the dense riccati, idsva_so, id_du and d2eepos)."""
+    kernel's block code (the sweeps, fd_du, rnea, id_du, aba, d2eepos and
+    the second-order kernels), or with ``lane`` the serial lane function
+    (the rollouts, the dense riccati, rnea, idsva_so, id_du, aba and
+    d2eepos)."""
     serial = "_lane" if lane else ""
     ll, D = ctypes.c_longlong, ctypes.c_double
     if name == "fd_du":
@@ -790,7 +828,7 @@ def _host_run(lib, name, args, lane=False):
         n, L = q.shape
         out = torch.empty((n, 2 * n, L) if name == "id_du" else (n, L),
                           dtype=q.dtype)
-        fn = KERNEL_OF.get(name, name) + (serial if name == "id_du" else "")
+        fn = KERNEL_OF.get(name, name) + serial
         getattr(lib, f"{fn}_{n}")(_p(build.model_buffer(m)), _p(q), _p(qd),
                                   _p(x), _p(out), ll(L))
         return (out,)
@@ -909,6 +947,11 @@ def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
         assert not got[0].permute(2, 0, 1).tril(-1).any()
 
 
+# the ints plans_<nj> writes: 4 a plan (k = offset / 4), idsva_so's bands
+# at 96 and 97, rnea's and aba's plans from 100
+PLANS = 116
+
+
 @pytest.mark.parametrize("nj", HOST_JOINTS)
 def test_warp_block_plans_fit_an_sm(host_lib, nj):
     """Every instance's block plan of the thread-group kernels holds a knot
@@ -932,8 +975,12 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
     composed route; where idsva_so's whole tile does not (the same counts),
     its banded plan (IDSOBandPlan) holds one band of a knot: the fewest
     bands of 256 threads that fit, 2 | 5 at 28 joints (float32 |
-    float64), 2 in float64 at 20."""
-    out = (ctypes.c_int * 98)()
+    float64), 2 in float64 at 20. rnea (RNEAPlan) and aba (ABAPlan, on the
+    rollouts' ABA phases) 8 threads a knot on the chains of 2 and 7 joints
+    and a warp otherwise (rnea 16 at 12 joints), G a power of 2 up to 8
+    that makes each output row's run 32 bytes or more but where a block
+    holds fewer (aba's 28-joint knot in float64: 4)."""
+    out = (ctypes.c_int * PLANS)()
     getattr(host_lib, f"plans_{nj}")(out)
     base = 16 if 2 * nj <= 16 else 32
     no_knot = {20: (3, 15), 28: (2, 3, 14, 15)}.get(nj, ())
@@ -971,21 +1018,37 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
             continue
         assert g >= 1 and lanes == 256 and rows == 1
         assert 0 < nbytes <= 232448 and g * lanes <= 512
+    for k in range(25, 29):   # rnea, aba: float32, then float64
+        g, lanes, nbytes, rows = out[4 * k: 4 * k + 4]
+        assert 0 < nbytes <= 232448 and rows == 1
+        assert lanes == (8 if nj in (2, 7) else
+                         16 if nj == 12 and k < 27 else 32)
+        assert g in (1, 2, 4, 8) and (g * lanes) % 32 == 0
+        f32 = k % 2 == 1
+        if k == 28 and nj == 28:   # aba's float64 knot: 4 a block
+            assert g == 4
+        else:   # 32-byte runs
+            assert g * (4 if f32 else 8) >= 32
 
 
 def test_compare_kernels_reads_ptxas_report():
     """compare_kernels.py keeps the thread-group kernels' instances (fd_du,
     fdsva_so, idsva_so, riccati_factored, the line search with each cost,
     the dense riccati by its curvature, the rollout, the feedback rollout,
-    id_du, d2eepos) from a ptxas report, with the frames of called
-    functions (cumulative)."""
+    id_du, d2eepos, rnea with qdd and in the bias form, aba) from a ptxas
+    report, with the frames of called functions (cumulative), and no other
+    kernel's."""
     spec = importlib.util.spec_from_file_location(
         "compare_kernels", Path(__file__).resolve().parents[1] /
         "compare_kernels.py")
     ck = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ck)
     fd = "_Z12fd_du_kernelIdLi7EEvPKT_S2_S2_S2_PS0_S3_S3_xS0_"
-    other = "_Z11rnea_kernelIfLi7EEvPKT_"
+    other = "_Z11minv_kernelIfLi7EEvPKT_"
+    rnea = ("_Z11rnea_kernelIfLi7ELN2gt8RneaModeE0ENS0_9KnotShapeIfNS0_9Robot"
+            "ConstIfLi7EEELi448ELi8ELi8EEEEvPKT_S8_S8_S8_PS6_xS6_")
+    aba = ("_Z10aba_kernelIdLi28EN2gt9KnotShapeIdNS0_9RobotConstIdLi28EEELi3864"
+           "ELi32ELi4EEEEvPKT_S7_S7_S7_PS5_xS5_")
     ric = "_Z23riccati_factored_kernelIfLi12EEvPKT_S2_S2_S2_S2_S2_S2_PS0_"
     ls = "_Z17linesearch_kernelIfLi7EN2gt9QuadCostWIfLi7EEEEvPKT_S5_"
     ricd = "_Z14riccati_kernelIdLi16ELb1EEvPKT_S2_S2_S2_S2_S2_S2_S2_S2_PS0_"
@@ -999,6 +1062,15 @@ def test_compare_kernels_reads_ptxas_report():
     d2 = ("_Z14d2eepos_kernelIdLi12EN2gt9KnotShapeIdNS0_6EEHeadIdLi12EEELi3220E"
           "Li32ELi8EEELb1EEvPKT_S8_iS8_PS6_x")
     report = "\n".join([
+        f"ptxas info    : Compiling entry function '{rnea}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {rnea}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 40 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{aba}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {aba}",
+        "    96 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 168 registers, used 1 barriers, 96 bytes "
+        "cumulative stack size",
         f"ptxas info    : Compiling entry function '{idu}' for 'sm_90a'",
         f"ptxas info    : Function properties for {idu}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -1068,7 +1140,12 @@ def test_compare_kernels_reads_ptxas_report():
                           "registers": 59, "smem": 0},
         "d2eepos f64 nj12": {
             "stack": 176, "spill_stores": 0, "spill_loads": 0,
-            "registers": 122, "smem": 0, "cumulative_stack": 176}}
+            "registers": 122, "smem": 0, "cumulative_stack": 176},
+        "rnea_bias f32 nj7": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                              "registers": 40, "smem": 0},
+        "aba f64 nj28": {
+            "stack": 96, "spill_stores": 0, "spill_loads": 0,
+            "registers": 168, "smem": 0, "cumulative_stack": 96}}
 
 
 @pytest.mark.parametrize("robot,name", (
@@ -1099,7 +1176,9 @@ SWEEP_PROGRAMS = ("riccati_factored", "linesearch_rollout", "linesearch_quad",
 
 
 @pytest.mark.parametrize("robot,name", pairs(
-    ("fd_du", "fdsva_so", "idsva_so") + SWEEP_PROGRAMS + ("id_du", "d2eepos"),
+    ("fd_du", "fdsva_so", "idsva_so") + SWEEP_PROGRAMS + ("id_du", "d2eepos",
+                                                          "rnea", "rnea_bias",
+                                                          "aba"),
     robot_first=True))
 def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
                                                         name):
@@ -1108,13 +1187,15 @@ def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
     run phase by phase on the host with the threads of each phase in
     reverse order, fd_du, fdsva_so, idsva_so, the Riccati sweeps (factored,
     dense stationary and per knot), the line search (both costs), the
-    open-loop and feedback rollouts, id_du and d2eepos give the same
-    bits."""
+    open-loop and feedback rollouts, id_du, d2eepos, rnea (with qdd and
+    the bias form) and aba give the same bits."""
     m = build_model(topo(robot), dtype=torch.float64, device="cpu")
     key = name if name in SWEEP_PROGRAMS else "fdsva_so"
     args = path_inputs(m, 2, 2, seed=3)[key]
     if name == "d2eepos":   # q
         args = args[:2]
+    if name == "rnea_bias":   # no qdd
+        args = args[:3] + (None,) + args[4:]
     got = _host_run(host_lib, name, args)
     host_lib.race_reverse(1)
     try:
@@ -1150,15 +1231,16 @@ def test_host_sweep_phases_write_disjoint_entries(host_lib, robot, name):
     assert _max_err(got, want) <= tol(robot, want)
 
 
-@pytest.mark.parametrize("name", ["id_du", "d2eepos", "d2eepos_targets"])
+@pytest.mark.parametrize("name", ["id_du", "d2eepos", "d2eepos_targets",
+                                  "rnea", "rnea_bias", "aba"])
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_host_knot_phases_write_disjoint_entries(host_lib, robot, name):
-    """id_du's and d2eepos's knot programs (csrc/warp.cuh) split each phase
-    over the knot's threads: run phase by phase on the host, no entry of a
-    knot's state is written by two threads of one phase (the harness
-    compares the knot before and after each thread); d2eepos on every EE of
-    the robot and on some of them (gym_ant: its four feet, on every
-    EE)."""
+    """id_du's, d2eepos's and rnea's knot programs (csrc/warp.cuh) and
+    aba's (csrc/sweep_warp.cuh) split each phase over the knot's threads:
+    run phase by phase on the host, no entry of a knot's state is written by
+    two threads of one phase (the harness compares the knot before and
+    after each thread); d2eepos on every EE of the robot and on some of
+    them (gym_ant: its four feet, on every EE)."""
     if robot == "gym_ant":
         m = gym_ant_feet(torch.float64, "cpu")
     else:
@@ -1175,6 +1257,8 @@ def test_host_knot_phases_write_disjoint_entries(host_lib, robot, name):
         host_lib.race_watch(0)
     if name == "id_du":
         least = 3 * m.n * m.n
+    elif name in ("rnea", "rnea_bias", "aba"):   # the joint transforms
+        least = 3 * 36 * m.n
     else:   # the chains' 4x4 matrices at least
         targets = args[2] if name == "d2eepos_targets" else None
         least = 3 * 16 * sum(len(c) for c, _ in eepose.ee_chains(m, targets))
@@ -1183,6 +1267,17 @@ def test_host_knot_phases_write_disjoint_entries(host_lib, robot, name):
     assert host_lib.race_count() == 0
     want = _outs(WRAPPERS[name][1](*args))
     assert _max_err(got, want) <= tol(robot, want)
+
+
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_host_tree_head_builds_the_lists_of_load(host_lib, robot):
+    """rnea's and aba's block head (warp.cuh:RobotConst::load_tree, the
+    lists counted by all the block's threads) holds the levels and
+    children lists that load's thread 0 walks, on chains and on trees with
+    several joints on the base (hyq, gym_ant, dm_quadruped, the
+    humanoids)."""
+    m = build_model(topo(robot), dtype=torch.float64, device="cpu")
+    assert getattr(host_lib, f"tree_lists_{m.n}")(_p(build.model_buffer(m)))
 
 
 @pytest.mark.parametrize("robot", ROBOTS)
@@ -1226,13 +1321,13 @@ RAGGED_B = ("1", "G-1", "G+1", "37")
 # the double plan's index in plans_<nj> (the host build runs it)
 PLAN_INDEX = {"riccati": 9, "riccati_stacked": 11, "rollout": 13,
               "idsva_so": 15, "feedback_rollout": 17, "id_du": 19,
-              "d2eepos": 21}
+              "d2eepos": 21, "rnea": 26, "rnea_bias": 26, "aba": 28}
 
 
 def _ragged_b(host_lib, name, nj, B):
     """The batch named B ("G-1", ...) for the double plan of ``name`` (of
     idsva_so: its banded plan where the whole tile's holds no knot)."""
-    out = (ctypes.c_int * 98)()
+    out = (ctypes.c_int * PLANS)()
     getattr(host_lib, f"plans_{nj}")(out)
     g = out[4 * PLAN_INDEX[name]] or out[4 * 23]
     return {"1": 1, "G-1": max(g - 1, 1), "G+1": g + 1, "37": 37}[B]
@@ -1295,15 +1390,16 @@ def test_host_riccati_factored_on_ragged_blocks(host_lib, robot, N, name, B):
 
 @pytest.mark.parametrize("name,robot", pairs(
     ("riccati", "riccati_stacked", "rollout", "feedback_rollout", "idsva_so",
-     "id_du", "d2eepos")))
+     "id_du", "d2eepos", "rnea", "rnea_bias", "aba")))
 def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
                                                         robot):
     """The block code of the dense riccati (stationary and per knot), of
-    the open-loop and feedback rollouts (csrc/sweep_warp.cuh) and idsva_so's
-    knot program (csrc/warp.cuh), run on the host with the card's plans,
-    gives the bits of the serial functions riccati_dense_lane,
-    rollout_lane, feedback_rollout_lane and idsva_so_lane: every value
-    keeps the serial order of operations. id_du's and d2eepos's knot
+    the open-loop and feedback rollouts and aba (csrc/sweep_warp.cuh: the
+    rollouts' ABA phases), and the knot programs of idsva_so and rnea (with
+    qdd and the bias form; csrc/warp.cuh), run on the host with the card's
+    plans, gives the bits of the serial functions riccati_dense_lane,
+    rollout_lane, feedback_rollout_lane, aba, idsva_so_lane and rnea_lane:
+    every value keeps the serial order of operations. id_du's and d2eepos's knot
     programs are held to TOL against id_du_lane and ee_hess_lane: id_du's
     columns skip the structural zeros of the transforms and walk only the
     related joints, and d2eepos forms a mixed second derivative as Xi_a
@@ -1404,6 +1500,23 @@ def test_host_id_du_and_d2eepos_on_ragged_blocks(host_lib, robot, name, B):
     got = _host_run(host_lib, name, args)
     want = _outs(WRAPPERS[name][1](*args))
     assert got[0].shape == want[0].shape and got[0].shape[-1] == L
+    assert _max_err(got, want) <= tol(robot, want)
+
+
+@pytest.mark.parametrize("robot,name,B", _ragged_cases(
+    lambda robot, name, B: f"{robot}-{name}-{B}", [],
+    [(robot, name, B) for name in ("rnea", "rnea_bias", "aba")
+     for robot in ROBOTS for B in RAGGED_B]))
+def test_host_rnea_and_aba_on_ragged_blocks(host_lib, robot, name, B):
+    """rnea's (with qdd and the bias form) and aba's block code with the
+    card's plan (G knots a block, the inputs past the last lane read as
+    zeros, the output rows masked) on 1, G - 1, G + 1 and 37 lanes."""
+    m = build_model(topo(robot), dtype=torch.float64, device="cpu")
+    L = _ragged_b(host_lib, name, m.n, B)
+    args = grid_inputs(m, robot, L, seed=13)[name]
+    got = _host_run(host_lib, name, args)
+    want = _outs(WRAPPERS[name][1](*args))
+    assert got[0].shape == want[0].shape == (m.n, L)
     assert _max_err(got, want) <= tol(robot, want)
 
 
@@ -1532,6 +1645,22 @@ def test_operation_counts_at_17_and_28_joints(robot):
             assert e["fdsva_so"] > e["fd_du"] + e["idsva_so"]
         # five bands repeat more of the knot program than two
         assert ex[torch.float64]["idsva_so"] > ex[torch.float32]["idsva_so"]
+
+
+@pytest.mark.parametrize("kernel", ["rnea", "aba"])
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_operation_counts_of_the_rnea_and_aba_knots(counts, robot, kernel):
+    """At every joint count of the host harness, the executed count of rnea
+    and aba is their knot program's (every thread of the knot's group,
+    phase by phase: warp.cuh:rnea_host, sweep_warp.cuh:aba_host), at least
+    the function's need (the serial lane with constants folded), and the
+    same in either dtype's plan's width."""
+    m = build_model(topo(robot), dtype=torch.float64, device="cpu")
+    need = opcount.ops_per_lane(kernel, m)
+    ran = opcount.ops_per_lane(kernel, m, executed=True)
+    assert 0 < need <= ran
+    assert ran == opcount.ops_per_lane(kernel, m.to(dtype=torch.float32),
+                                       executed=True)
 
 
 def test_operation_counts_follow_the_work(counts):
@@ -1664,6 +1793,41 @@ def test_cuda_slice_launches_every_kernel(cuda_device):
     ref = make_ilqr(m, cost, ILQRConfig(N=8, iters=2, use_kernels=False))(
         x0, U0)
     assert float((res.cost_trace - ref.cost_trace).abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_cuda_rnea_and_aba_plans_and_launches(cuda_device, robot):
+    """rnea and aba run a thread group a knot (build.WARP_KERNELS): each
+    instance's plan holds a knot, 8 threads on the chains of 2 and 7 joints
+    and a warp otherwise (rnea 16 on hyq), keeps no per-thread array of the
+    joints' transforms in local memory, and launches; each call (rnea with
+    qdd and the bias form, aba) launches its kernel once, runs nothing
+    plain and matches the plain twin in float64 at 1, G + 1 and 37
+    lanes."""
+    m = build_model(topo(robot), dtype=torch.float64, device=cuda_device)
+    for what in ("rnea", "aba"):
+        for dtype in (torch.float32, torch.float64):
+            info = build.warp_kernel_info(what, m.n, dtype)
+            assert info["knots_per_block"] >= 1 and info["blocks_per_sm"] >= 1
+            assert info["threads_per_knot"] == (
+                8 if m.n in (2, 7) else
+                16 if m.n == 12 and what == "rnea" else 32)
+            item = torch.finfo(dtype).bits // 8
+            assert info["local_bytes"] < 36 * m.n * item
+    g = build.plan("aba", m.n, torch.float64)["knots_per_block"]
+    for lanes in (1, g + 1, 37):
+        cases = grid_inputs(m, robot, lanes, seed=14)
+        for case in ("rnea", "rnea_bias", "aba"):
+            kern, plain = WRAPPERS[case]
+            build.reset_counters()
+            got = _outs(kern(*cases[case]))
+            torch.cuda.synchronize()
+            assert dict(build.LAUNCHES) == {KERNEL_OF.get(case, case): 1}
+            assert not build.PLAIN_CALLS
+            want = _outs(plain(*cases[case]))
+            assert got[0].is_cuda and got[0].shape == want[0].shape
+            assert _max_err(got, want) <= tol(robot, want)
 
 
 # each GRiD method, the kernel it launches and its number of inputs
