@@ -42,7 +42,8 @@ Phases, one line each:
      feedback rollout at config-3 shapes, the GRiD kernels (rnea, id_du,
      aba, minv, fd, crba, eepos, deepos) at 1024 and 131072 lanes, rnea
      (with qdd and the bias form) and aba at one lane on iiwa, atlas and
-     gym_humanoid (config 1's id at B=1, config 5's plant), riccati
+     gym_humanoid (config 1's id at B=1, config 5's plant), fd and eepos
+     at one lane on iiwa and atlas (config 1's fd and eepos), riccati
      (stationary) at the config-3 QuadCost shapes, idsva_so and fdsva_so at
      1024 lanes and at config 4's N*B lanes (iiwa 32768, hyq 16384),
      fd_du at 1024 lanes and at config 4's N*B lanes on its four robots,
@@ -847,7 +848,8 @@ def main():
             torch.cuda.empty_cache()
     line("second_order_riccati_f32", new_f32)
     # rnea (with qdd and the bias form) and aba at one lane, config 1's id
-    # at B=1 and config 5's plant, on iiwa and the humanoids: the float32
+    # at B=1 and config 5's plant, on iiwa and the humanoids, and fd and
+    # eepos (config 1's unbatched calls) on iiwa and atlas: the float32
     # rule, times and bounds (the bias form's bound counts rnea's need with
     # qdd)
     one_lane = {}
@@ -856,7 +858,8 @@ def main():
             load_robot(robot), dtype=torch.float32, device=dev)
         f64_of.setdefault(id(model), model.to(dtype=torch.float64))
         cases = lane_cases(model, 1, seed=0)
-        for case in ("rnea", "rnea_bias", "aba"):
+        for case in ("rnea", "rnea_bias", "aba") + (
+                ("fd", "eepos") if robot in ("iiwa", "atlas") else ()):
             what = f"{robot} {case} L=1"
             one_lane[what] = timed_f32(what, *case_fns[case_kernel[case]],
                                        cases[case], model, case_kernel[case],

@@ -10,19 +10,25 @@ Each DIR is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive``), named by its directory. The
 kernels (``--kernels``, any of fd_du, fdsva_so, idsva_so,
 riccati_factored, linesearch, riccati, rollout, feedback_rollout, id_du,
-d2eepos, rnea (its bias form too) and aba; by default riccati_factored,
-linesearch, riccati and rollout) are compiled from every tree's
-``csrc/`` with nvcc for sm_90a, one library per joint count and tree (the
-counts of JOINTS that the tree's ``build.py`` lists), every nvcc at once,
-with ``-Xptxas -v``; the script prints each kernel instance's
+d2eepos, rnea (its bias form too), aba, fd, eepos and the kernels of a
+thread a lane, minv (dense), crba and deepos; by default
+riccati_factored, linesearch, riccati and rollout) are compiled from every
+tree's ``csrc/`` with nvcc for sm_90a, one library per joint count and
+tree (the counts of JOINTS that the tree's ``build.py`` lists, the sources
+it has; a tree without a kernel or a joint count is not timed there),
+every nvcc at once, with ``-Xptxas -v``; the script prints each kernel
+instance's
 registers, stack, spills and static shared memory as ptxas reports them,
 this tree's block plans and ``cudaFuncGetAttributes``
 (``build.warp_kernel_info``), and then each kernel's device time per launch
 (CUDA events) at the main paths' shapes in float32, every tree on the same
-inputs, in turns: the others, this, this, the others in reverse. The GRiD
+inputs, in turns: the others, this, this, the others in reverse (the
+kernels of a knot or a lane at up to 1024 lanes also from a CUDA graph of
+20 launches, `graph_ms`: back-to-back calls of a kernel of a few
+microseconds read the host's time a call). The GRiD
 kernels (fd_du, fdsva_so, idsva_so, id_du and rnea with u as qdd, rnea's
-bias form, aba, d2eepos on q at every EE of the robot) run on inputs ~
-U(-1, 1); the sweeps on the inputs of the solver's first iteration (plain ops:
+bias form, aba, fd, minv, crba, and eepos, deepos and d2eepos on q at every
+EE of the robot) run on inputs ~ U(-1, 1); the sweeps on the inputs of the solver's first iteration (plain ops:
 config 3's EE reach and QuadCost task at N=64, B=2048, config 4's
 QuadCost at N=32, each with six step sizes; the dense riccati on the
 QuadCost task's stationary curvature, the rollout on the solver's first
@@ -36,7 +42,11 @@ per step-size row). And it clocks this tree's programs phase by phase
 phase in clock64()): the cycles of every phase of unit 0 of block 0, while
 the other blocks run as in a launch; for the sweeps the mean of each phase
 over the knots (for the knot programs also the cycles of the block's head:
-the robot's constants and lists). For the rollout and the feedback
+the robot's constants and lists). fd, eepos, minv, crba and deepos also
+get the cycles of their serial function (dynamics.cuh: fd_lane,
+ee_pose_lane, minv_lane, crba_lane, ee_jac_lane) on lane 0 of a thread a
+lane, and the time through this tree's wrapper (ops/cuda/kernels.py, as
+the GRiD API calls it). For the rollout and the feedback
 rollout it also times this tree's block shapes (threads a rollout x
 problems a block, csrc/sweep_warp.cuh: RollShape; those that fit an SM),
 for idsva_so its knot
@@ -44,9 +54,9 @@ shapes (threads a knot x knots a block, csrc/warp.cuh: KnotShape; those
 that fit an SM; as many blocks as the card holds, each taking every
 gridDim.x-th group of lanes, and a block a group), for id_du one and two
 column passes, for d2eepos its shapes (threads a lane x lanes a block,
-staged or direct stores), for rnea and aba theirs (threads a knot x
-knots a block, LANE_SHAPES), at every shape of the kernel, against the
-plan's output. ``--sass`` compiles the named kernels' sources in every tree
+staged or direct stores), for rnea, aba, fd and eepos theirs (threads a
+knot x knots a block, LANE_SHAPES), at every shape of the kernel, against
+the plan's output. ``--sass`` compiles the named kernels' sources in every tree
 too and compares this tree's machine code with the first other tree's
 (``cuobjdump -sass`` of each object, float and double, at each joint
 count), without timing them.
@@ -76,17 +86,27 @@ SOURCES = {"fd_du": "fd_du.cu", "fdsva_so": "fdsva_so.cu",
            "linesearch": "linesearch.cu", "riccati": "riccati.cu",
            "rollout": "rollout.cu", "feedback_rollout": "feedback_rollout.cu",
            "id_du": "id_du.cu", "d2eepos": "d2eepos.cu", "rnea": "rnea.cu",
-           "rnea_bias": "rnea.cu", "aba": "aba.cu"}
-# the kernels of a knot a thread group, on (n, lanes) inputs (d2eepos: q
-# only; rnea_bias: q and qd, rnea's bias form, timed wherever rnea is)
+           "rnea_bias": "rnea.cu", "aba": "aba.cu", "fd": "fd.cu",
+           "eepos": "eepos.cu", "minv": "minv.cu", "crba": "crba.cu",
+           "deepos": "deepos.cu"}
+# the kernels of a knot a thread group, on (n, lanes) inputs (d2eepos and
+# eepos: q only; rnea_bias: q and qd, rnea's bias form, timed wherever rnea
+# is); and the kernels of a thread a lane (minv dense, crba, deepos: q only)
 KNOT_KERNELS = ("fd_du", "fdsva_so", "idsva_so", "id_du", "d2eepos", "rnea",
-                "rnea_bias", "aba")
+                "rnea_bias", "aba", "fd", "eepos")
+LANE_KERNELS = ("minv", "crba", "deepos")
 # the phase clock's knot programs (PHASE_CLOCK_CU: phase_clock's mode)
 CLOCK_MODE = {"fd_du": 0, "fdsva_so": 1, "idsva_so": 2, "id_du": 3,
-              "rnea": 4, "rnea_bias": 5, "aba": 6}
+              "rnea": 4, "rnea_bias": 5, "aba": 6, "fd": 7}
+# the serial lane functions clocked a thread a lane (PHASE_CLOCK_CU:
+# lane_clock's mode): fd_lane, ee_pose_lane, minv_lane, crba_lane,
+# ee_jac_lane
+SERIAL_MODE = {"fd": 0, "eepos": 1, "minv": 2, "crba": 3, "deepos": 4}
 DEFAULT_KERNELS = "riccati_factored,linesearch,riccati,rollout"
 # (kernel, robot, lanes): config 3 and the GRiD API (iiwa 131072 and 1024
-# lanes), config 4's N*B lanes (iiwa 32768, the others 16384); the sweeps
+# lanes), config 4's N*B lanes (iiwa 32768, the others 16384), config 5's
+# fd_du (N*S = 65536 lanes on atlas and gym_humanoid) and gym_humanoid's
+# fused fdsva_so at config 4's 16384; the sweeps
 # (kernel, robot, (cost, N, B)): config 3 (EE reach and QuadCost task, N=64,
 # B=2048) and config 4 (QuadCost, N=32, iiwa B=1024, the others 512); the
 # dense riccati at the QuadCost task's (iiwa, N=64, B=2048) and on the
@@ -98,13 +118,17 @@ DEFAULT_KERNELS = "riccati_factored,linesearch,riccati,rollout"
 # 16384 lanes on the trees (gym_ant: its EEs welded to the base, zeros only);
 # rnea (with qdd and the bias form) and aba at 1, 1024 and 131072 iiwa
 # lanes, 16384 on hyq, at 1 (config 5's plant) and 1024 on atlas and (aba)
-# gym_humanoid
+# gym_humanoid; fd and eepos at 1 (configs 1 and 2), 1024 and 131072 iiwa
+# lanes, hyq at 16384 (fd) and 1024 (eepos: 4 EEs), atlas at 1 and 1024;
+# minv, crba and deepos at 1, 1024 and 131072 iiwa lanes
 SHAPES = [("fd_du", "iiwa", 131072), ("fd_du", "iiwa", 1024),
           ("fd_du", "iiwa", 32768), ("fd_du", "gym_ant", 16384),
           ("fd_du", "hyq", 16384), ("fd_du", "dm_quadruped", 16384),
+          ("fd_du", "atlas", 65536), ("fd_du", "gym_humanoid", 65536),
           ("fdsva_so", "iiwa", 32768), ("fdsva_so", "iiwa", 1024),
           ("fdsva_so", "gym_ant", 16384), ("fdsva_so", "hyq", 16384),
           ("fdsva_so", "dm_quadruped", 16384),
+          ("fdsva_so", "gym_humanoid", 16384),
           ("riccati_factored", "iiwa", ("ee", 64, 2048)),
           ("linesearch", "iiwa", ("ee", 64, 2048)),
           ("linesearch", "iiwa", ("quad3", 64, 2048)),
@@ -137,6 +161,12 @@ SHAPES += [(what, robot, lanes) for what in ("rnea", "rnea_bias", "aba")
                                 ("hyq", 16384), ("atlas", 1), ("atlas", 1024),
                                 ("gym_humanoid", 1), ("gym_humanoid", 1024))
            if what == "aba" or robot != "gym_humanoid"]
+SHAPES += [(what, robot, lanes) for what in ("fd", "eepos")
+           for robot, lanes in (("iiwa", 1), ("iiwa", 1024), ("iiwa", 131072),
+                                ("hyq", 16384 if what == "fd" else 1024),
+                                ("atlas", 1), ("atlas", 1024))]
+SHAPES += [(what, "iiwa", lanes) for what in LANE_KERNELS
+           for lanes in (1, 1024, 131072)]
 # the rollout's block shapes timed beside its plan: (threads a rollout,
 # problems a block), whole warps a block (8 x 2 is half a warp)
 ROLL_SHAPES = ((8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 2), (32, 4),
@@ -151,10 +181,13 @@ IDU_PASSES = (1, 2)
 # d2eepos's shapes timed beside its plan: (threads a lane, lanes a block),
 # each with the staged and the direct stores
 D2_SHAPES = ((8, 8), (8, 16), (16, 4), (16, 8), (32, 4), (32, 8))
-# rnea's and aba's shapes timed beside their plans: (threads a knot, knots
-# a block), whole warps a block; those that fit an SM
+# rnea's, aba's, fd's and eepos's shapes timed beside their plans: (threads
+# a knot, knots a block), whole warps a block; those that fit an SM
 LANE_SHAPES = ((8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 1), (32, 2),
                (32, 4), (32, 8))
+# eepos's also with 4 threads a lane (a phase has at most 12 items) and 16
+# lanes a block
+EE_SHAPES = LANE_SHAPES + ((4, 8), (4, 16), (8, 16))
 # the step size folded into the feedback rollout's kff (a power of 2: the
 # fold is exact)
 FB_ALPHA = 0.25
@@ -175,6 +208,8 @@ PHASE_CLOCK_CU = r"""
 #include "d2eepos.cu"
 #include "rnea.cu"
 #include "aba.cu"
+#include "fd.cu"
+#include "eepos.cu"
 
 extern __shared__ double gt_smem[];
 
@@ -196,7 +231,7 @@ struct ClockPar {
 };
 
 // the knot programs: MODE 0 fd_du, 1 fdsva_so, 2 idsva_so, 3 id_du (u as
-// qdd), 4 rnea (u as qdd), 5 rnea's bias form, 6 aba
+// qdd), 4 rnea (u as qdd), 5 rnea's bias form, 6 aba, 7 fd
 template <int MODE, typename T, int NJ>
 struct KnotPlanOf {
   using type = gt::IDUPlan<T, NJ>;
@@ -225,6 +260,10 @@ template <typename T, int NJ>
 struct KnotPlanOf<6, T, NJ> {
   using type = gt::ABAPlan<T, NJ>;
 };
+template <typename T, int NJ>
+struct KnotPlanOf<7, T, NJ> {
+  using type = gt::FDPlanQ<T, NJ>;
+};
 template <int MODE, typename T, int NJ>
 using KnotPlan = typename KnotPlanOf<MODE, T, NJ>::type;
 
@@ -239,7 +278,7 @@ __global__ void clocked(const T* model, const T* q, const T* qd, const T* u,
   T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
   const int tid = threadIdx.x, G = blockDim.x / N;
   const long long c0 = clock64();
-  if constexpr (MODE >= 4)   // rnea and aba: the tree's lists, in parallel
+  if constexpr (MODE >= 4)   // rnea, aba, fd: the tree's lists, in parallel
     H.R.load_tree(model, tid, blockDim.x);
   else
     H.R.load(model, tid, blockDim.x);
@@ -253,7 +292,9 @@ __global__ void clocked(const T* model, const T* q, const T* qd, const T* u,
   int count = 0;
   const ClockPar<N> par{tid % N, 1 + tid / N, first ? rec : nullptr, &count};
   T* k = knots + (long long)(tid / N) * S;
-  if constexpr (MODE == 6)
+  if constexpr (MODE == 7)
+    gt::fd_knot<T, NJ>(par, H.R, k, gravity);
+  else if constexpr (MODE == 6)
     gt::aba_knot<T, NJ>(par, H.R, k, gravity);
   else if constexpr (MODE == 5)
     gt::rnea_knot<gt::RNEA_BIAS, T, NJ>(par, H.R, k, gravity);
@@ -303,14 +344,78 @@ extern "C" int phase_clock(int mode, int nj, const void* model,
   if (mode == 4) return knot_clock<4>(model, q, qd, u, L, rec, phases, knot);
   if (mode == 5) return knot_clock<5>(model, q, qd, u, L, rec, phases, knot);
   if (mode == 6) return knot_clock<6>(model, q, qd, u, L, rec, phases, knot);
+  if (mode == 7) return knot_clock<7>(model, q, qd, u, L, rec, phases, knot);
   return knot_clock<3>(model, q, qd, u, L, rec, phases, knot);
 }
 
-// rnea (bias: its bias form, qdd null) and aba at shape (lanes threads a
-// knot, g knots a block), float32; a shape that does not fit an SM is not
-// built
+// the serial lane functions (dynamics.cuh) a thread a lane, in blocks of
+// 128 as the per-lane kernels run them: MODE 0 fd_lane, 1 ee_pose_lane, 2
+// minv_lane (dense), 3 crba_lane, 4 ee_jac_lane; the thread of lane 0
+// keeps its cycles, from its first load to its last store
+template <int NJ, int MODE>
+__global__ void clocked_lane(const float* model, const float* ee, int ne,
+                             const float* q, const float* qd,
+                             const float* u, float* out, long long L,
+                             long long* cycles) {
+  const long long lane = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (lane >= L) return;
+  const long long c0 = clock64();
+  const gt::Robot<float, NJ> R(model);
+  float ql[NJ];
+  gt::lane_load<float, NJ>(q, L, lane, ql);
+  if constexpr (MODE == 0) {
+    float qdl[NJ], ul[NJ], a[NJ];
+    gt::lane_load<float, NJ>(qd, L, lane, qdl);
+    gt::lane_load<float, NJ>(u, L, lane, ul);
+    gt::fd_lane<float, NJ>(R, ql, qdl, ul, -9.81f, a);
+    gt::lane_store<float, NJ>(a, L, lane, out);
+  } else if constexpr (MODE == 1) {
+    gt::ee_pose_lane<float, NJ>(R, ee, ne, ql, out + lane, L);
+  } else if constexpr (MODE == 2) {
+    float mi[NJ * NJ];
+    gt::minv_lane<float, NJ>(R, ql, true, mi);
+    gt::lane_store<float, NJ * NJ>(mi, L, lane, out);
+  } else if constexpr (MODE == 3) {
+    float m[NJ * NJ];
+    gt::crba_lane<float, NJ>(R, ql, m);
+    gt::lane_store<float, NJ * NJ>(m, L, lane, out);
+  } else {
+    gt::ee_jac_lane<float, NJ>(R, ee, ne, ql, out + lane, L);
+  }
+  if (lane == 0) *cycles = clock64() - c0;
+}
+
+template <int MODE>
+static int lane_clock_launch(const void* model, const void* ee, int ne,
+                             const void* q, const void* qd, const void* u,
+                             void* out, long long L, long long* cycles) {
+  clocked_lane<GT_NJ, MODE><<<gt_grid(L, 128), 128>>>(
+      (const float*)model, (const float*)ee, ne, (const float*)q,
+      (const float*)qd, (const float*)u, (float*)out, L, cycles);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int lane_clock(int mode, int nj, const void* model,
+                          const void* ee, int ne, const void* q,
+                          const void* qd, const void* u, void* out,
+                          long long L, long long* cycles) {
+  if (nj != GT_NJ) return (int)cudaErrorInvalidValue;
+  if (mode == 0)
+    return lane_clock_launch<0>(model, ee, ne, q, qd, u, out, L, cycles);
+  if (mode == 1)
+    return lane_clock_launch<1>(model, ee, ne, q, qd, u, out, L, cycles);
+  if (mode == 2)
+    return lane_clock_launch<2>(model, ee, ne, q, qd, u, out, L, cycles);
+  if (mode == 3)
+    return lane_clock_launch<3>(model, ee, ne, q, qd, u, out, L, cycles);
+  return lane_clock_launch<4>(model, ee, ne, q, qd, u, out, L, cycles);
+}
+
+// rnea (kind 0; bias: its bias form, qdd null), aba (1) and fd (2) at
+// shape (lanes threads a knot, g knots a block), float32; a shape that does
+// not fit an SM is not built
 template <int W, int G>
-static int lane_shape_launch(int aba, int bias, const void* model,
+static int lane_shape_launch(int kind, int bias, const void* model,
                              const void* q, const void* qd, const void* x,
                              void* out, long long L) {
   constexpr int NJ = GT_NJ;
@@ -318,9 +423,15 @@ static int lane_shape_launch(int aba, int bias, const void* model,
                            gt::RNEAKnot<NJ>::SIZE, W, G>;
   using PA = gt::KnotShape<float, gt::RobotConst<float, NJ>,
                            gt::ABAKnot<NJ>::SIZE, W, G>;
+  using PF = gt::KnotShape<float, gt::RobotConst<float, NJ>,
+                           gt::FDQKnot<NJ>::SIZE, W, G>;
   if constexpr (W * G > 512 || W * G % 32 != 0) {
     return (int)cudaErrorInvalidConfiguration;
-  } else if (aba) {
+  } else if (kind == 2) {
+    if constexpr (PF::BYTES <= gt::SMEM_LIMIT)
+      return launch_fd<float, NJ, PF>(model, q, qd, x, out, L, -9.81, 0);
+    return (int)cudaErrorInvalidConfiguration;
+  } else if (kind == 1) {
     if constexpr (PA::BYTES <= gt::SMEM_LIMIT)
       return launch_aba<float, NJ, PA>(model, q, qd, x, out, L, -9.81, 0);
     return (int)cudaErrorInvalidConfiguration;
@@ -332,13 +443,13 @@ static int lane_shape_launch(int aba, int bias, const void* model,
   }
 }
 
-extern "C" int lane_shape(int aba, int bias, int lanes, int g, int nj,
+extern "C" int lane_shape(int kind, int bias, int lanes, int g, int nj,
                           const void* model, const void* q, const void* qd,
                           const void* x, void* out, long long L) {
   if (nj != GT_NJ) return (int)cudaErrorInvalidValue;
 #define GT_SHAPE(W, G)                                                      \
   if (lanes == W && g == G)                                                 \
-    return lane_shape_launch<W, G>(aba, bias, model, q, qd, x, out, L);
+    return lane_shape_launch<W, G>(kind, bias, model, q, qd, x, out, L);
   GT_SHAPE(8, 4) GT_SHAPE(8, 8) GT_SHAPE(16, 2) GT_SHAPE(16, 4)
   GT_SHAPE(16, 8) GT_SHAPE(32, 1) GT_SHAPE(32, 2) GT_SHAPE(32, 4)
   GT_SHAPE(32, 8)
@@ -393,6 +504,80 @@ extern "C" int d2_clock(int nj, const void* model, const void* ee, int ne,
       (const float*)model, (const float*)ee, ne, (const float*)q,
       (float*)out, L, rec, phases, knot);
   return (int)cudaGetLastError();
+}
+
+// eepos's plan, a row of blocks an EE, each block a group of lanes; block
+// (0, 0) (EE 0) clocks its knot 0
+template <int NJ>
+__global__ void clocked_ee(const float* model, const float* ee, int ne,
+                           const float* q, float* out, long long L,
+                           long long* rec, int* phases, long long* knot) {
+  using P = gt::EEPlan<float, NJ>;
+  constexpr int N = P::LANES, S = P::STRIDE, G = P::G;
+  auto& H = *reinterpret_cast<gt::EEHead<float, NJ, false>*>(gt_smem);
+  float* knots =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  const int tid = threadIdx.x, nt = blockDim.x, e = blockIdx.y;
+  const long long l0 = (long long)blockIdx.x * G;
+  const long long c0 = clock64();
+  H.load(model, tid, nt);
+  H.select(ee + e * gt::EERow<NJ>::SIZE, tid, nt);
+  gt::load_q<float, NJ, S>(q, L, l0, G, knots, tid, nt);
+  __syncthreads();
+  const bool first = blockIdx.x == 0 && e == 0 && tid < N;
+  if (first && tid == 0) knot[1] = clock64() - c0;   // the block's head
+  int count = 0;
+  const ClockPar<N> par{tid % N, 1 + tid / N, first ? rec : nullptr, &count};
+  gt::eepos_knot<float, NJ>(par, H, knots + (long long)(tid / N) * S);
+  __syncthreads();
+  gt::store_rows<float, S>(knots + gt::EEKnot<NJ>::POSE, 6, out + 6LL * e * L,
+                           L, l0, G, tid, nt);
+  if (first && tid == 0) {
+    *phases = count;
+    *knot = clock64() - c0;
+  }
+}
+
+extern "C" int ee_clock(int nj, const void* model, const void* ee, int ne,
+                        const void* q, void* out, long long L, long long* rec,
+                        int* phases, long long* knot) {
+  constexpr int NJ = GT_NJ;
+  using P = gt::EEPlan<float, NJ>;
+  if (nj != NJ) return (int)cudaErrorInvalidValue;
+  gt::smem_attrs(clocked_ee<NJ>, P::BYTES);
+  clocked_ee<NJ><<<dim3((unsigned)((L + P::G - 1) / P::G), (unsigned)ne),
+                   P::G * P::LANES, P::BYTES>>>(
+      (const float*)model, (const float*)ee, ne, (const float*)q,
+      (float*)out, L, rec, phases, knot);
+  return (int)cudaGetLastError();
+}
+
+// the eepos kernel at shape (lanes threads a lane, g lanes a block),
+// float32; a shape that does not fit an SM is not built
+template <int W, int G>
+static int ee_shape_launch(const void* model, const void* ee, int ne,
+                           const void* q, void* out, long long L) {
+  constexpr int NJ = GT_NJ;
+  using P = gt::KnotShape<float, gt::EEHead<float, NJ, false>,
+                          gt::EEKnot<NJ>::SIZE, W, G>;
+  if constexpr (P::BYTES <= gt::SMEM_LIMIT && W * G <= 512 &&
+                W * G % 32 == 0)
+    return launch_eepos<float, NJ, P>(model, ee, ne, q, out, L, 0);
+  return (int)cudaErrorInvalidConfiguration;
+}
+
+extern "C" int ee_shape(int lanes, int g, int nj, const void* model,
+                        const void* ee, int ne, const void* q, void* out,
+                        long long L) {
+  if (nj != GT_NJ) return (int)cudaErrorInvalidValue;
+#define GT_SHAPE(W, G)                                                      \
+  if (lanes == W && g == G)                                                 \
+    return ee_shape_launch<W, G>(model, ee, ne, q, out, L);
+  GT_SHAPE(8, 4) GT_SHAPE(8, 8) GT_SHAPE(16, 2) GT_SHAPE(16, 4)
+  GT_SHAPE(16, 8) GT_SHAPE(32, 1) GT_SHAPE(32, 2) GT_SHAPE(32, 4)
+  GT_SHAPE(32, 8) GT_SHAPE(4, 8) GT_SHAPE(4, 16) GT_SHAPE(8, 16)
+#undef GT_SHAPE
+  return (int)cudaErrorInvalidValue;
 }
 
 // the id_du kernel with `passes` column passes (its BlockPlan), float32
@@ -799,12 +984,13 @@ def tree_joints(tree: Path) -> tuple:
 
 
 def compile_tree(tree: Path, out: Path, sources, clocked: bool = False):
-    """{nj: library path} at the joint counts the tree builds, and the
-    ptxas report of every object; with `clocked`, also {nj: phase-clock
-    library path}."""
+    """{nj: library path} at the joint counts the tree builds, of the
+    sources it has, and the ptxas report of every object; with `clocked`,
+    also {nj: phase-clock library path}."""
     exe, flags = nvcc()
     csrc = tree / "gridcodegenerator_tpu_torch" / "csrc"
     joints = tree_joints(tree)
+    sources = [src for src in sources if (csrc / src).exists()]
     jobs = [(nj, csrc / src) for nj in joints for src in sources]
     clock_joints = joints if clocked else ()
     if clocked:
@@ -874,7 +1060,7 @@ KERNEL_NAMES = ("fd_du_kernel", "fdsva_so_kernel", "riccati_factored_kernel",
                 "linesearch_kernel", "riccati_kernel", "rollout_kernel",
                 "riccati_dense_kernel", "idsva_so_kernel",
                 "feedback_rollout_kernel", "id_du_kernel", "d2eepos_kernel",
-                "rnea_kernel", "aba_kernel")
+                "rnea_kernel", "aba_kernel", "fd_kernel", "eepos_kernel")
 
 
 def parse_ptxas(text: str) -> dict:
@@ -882,9 +1068,10 @@ def parse_ptxas(text: str) -> dict:
     smem, cumulative_stack}} for the instances of the thread-group kernels
     (fd_du, fdsva_so, idsva_so, riccati_factored, linesearch_ee,
     linesearch_quad, riccati_stationary, riccati_stacked, rollout,
-    feedback_rollout, id_du, d2eepos, rnea (with qdd), rnea_bias, aba; an
-    earlier tree's riccati_dense and its per-lane idsva_so,
-    feedback_rollout, id_du, d2eepos, rnea and aba) in ptxas's report."""
+    feedback_rollout, id_du, d2eepos, rnea (with qdd), rnea_bias, aba, fd,
+    eepos; an earlier tree's riccati_dense and its per-lane idsva_so,
+    feedback_rollout, id_du, d2eepos, rnea, aba, fd and eepos) in ptxas's
+    report."""
     def key(mangled):
         m = re.match(r"_Z\d+(\w+?_kernel)I([fd])Li(\d+)E", mangled)
         if not m or m.group(1) not in KERNEL_NAMES:
@@ -947,12 +1134,19 @@ def bind(libs: dict, kernels, scratch: bool) -> dict:
            "id_du": [I, I, P, P, P, P, P, L, D, P],
            "d2eepos": [I, I, P, P, I, P, P, L, P],
            "rnea": [I, I, P, P, P, P, P, L, D, P],
-           "aba": [I, I, P, P, P, P, P, L, D, P]}
+           "aba": [I, I, P, P, P, P, P, L, D, P],
+           "fd": [I, I, P, P, P, P, P, L, D, P],
+           "eepos": [I, I, P, P, I, P, P, L, P],
+           "minv": [I, I, P, P, P, L, I, P],
+           "crba": [I, I, P, P, P, L, P],
+           "deepos": [I, I, P, P, I, P, P, L, P]}
     out = {}
     for nj, path in libs.items():
         h = ctypes.CDLL(str(path))
         for k in set(kernels) - {"rnea_bias"}:   # rnea's entry point
-            fn = getattr(h, f"gridtorch_{k}")
+            fn = getattr(h, f"gridtorch_{k}", None)
+            if fn is None:   # an earlier tree without the kernel
+                continue
             fn.argtypes, fn.restype = sig[k], I
         out[nj] = h
     return out
@@ -975,10 +1169,13 @@ def bind_clock(path: Path):
     h.idu_shape.argtypes = [I, I] + [P] * 5 + [L]
     h.d2_shape.argtypes = [I, I, I, I, P, P, I, P, P, L]
     h.lane_shape.argtypes = [I, I, I, I, I] + [P] * 5 + [L]
+    h.lane_clock.argtypes = [I, I, P, P, I, P, P, P, P, L, P]
+    h.ee_clock.argtypes = [I, P, P, I, P, P, L, P, P, P]
+    h.ee_shape.argtypes = [I, I, I, P, P, I, P, P, L]
     for fn in (h.phase_clock, h.ric_clock, h.ls_clock, h.ricd_clock,
                h.roll_clock, h.roll_shape, h.fbr_clock, h.fbr_shape,
                h.idso_shape, h.d2_clock, h.idu_shape, h.d2_shape,
-               h.lane_shape):
+               h.lane_shape, h.lane_clock, h.ee_clock, h.ee_shape):
         fn.restype = I
     return h
 
@@ -1130,12 +1327,12 @@ def main():
         if name == "this":
             clock_libs = {nj: bind_clock(p) for nj, p in clocks.items()}
         result["ptxas"][name] = parse_ptxas(report)
-        scratch = "void* scratch" in (tree / "gridcodegenerator_tpu_torch"
-                                      / "csrc" / "fdsva_so.cu").read_text()
+        so_src = tree / "gridcodegenerator_tpu_torch" / "csrc" / "fdsva_so.cu"
+        scratch = so_src.exists() and "void* scratch" in so_src.read_text()
         libs[name] = bind(built, kernels, scratch), scratch
     for nj in JOINTS:
         for dtype in (torch.float32, torch.float64):
-            for what in set(kernels) - {"rnea_bias"}:   # rnea's plan
+            for what in set(kernels) & set(build.WARP_KERNELS):
                 result["info"][f"{what} {str(dtype)[6:]} nj{nj}"] = \
                     build.warp_kernel_info(what, nj, dtype)
     if sass:
@@ -1153,6 +1350,25 @@ def main():
     phases = torch.zeros(1, dtype=torch.int32, device=dev)
     knot = torch.zeros(2, dtype=torch.int64, device=dev)
     clock_out = lambda: (ptr(rec), ptr(phases), ptr(knot))
+
+    def graph_ms(fn, launches=20, replays=5):
+        """Device ms a launch of `fn` (a bare launch on `stream`) from a CUDA
+        graph of `launches` launches, replayed: no host time between them,
+        where back-to-back calls of a kernel of a few microseconds read the
+        host's time a call; the error's text if the capture failed."""
+        nonlocal stream
+        g = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(g):
+                stream = torch.cuda.current_stream(dev).cuda_stream
+                for _ in range(launches):
+                    fn()
+        except RuntimeError as e:
+            return str(e)
+        finally:
+            stream = torch.cuda.current_stream(dev).cuda_stream
+        return time_cuda(g.replay, iters=replays) / launches
+
     for what, robot, shape in SHAPES:
         if what not in kernels:
             continue
@@ -1163,7 +1379,12 @@ def main():
         m64 = m.to(dtype=torch.float64)
         n = m.n
         clock = clock_libs[n]
-        if what in KNOT_KERNELS:
+        entry = "rnea" if what == "rnea_bias" else what
+        # the trees that build this joint count and kernel (an earlier tree
+        # may build fewer)
+        has = [t for t in trees if n in libs[t][0]
+               and hasattr(libs[t][0][n], f"gridtorch_{entry}")]
+        if what in KNOT_KERNELS + LANE_KERNELS:
             lanes = shape
             rng = np.random.default_rng(0)
             q, qd, u = (torch.as_tensor(rng.uniform(-1, 1, (n, lanes)),
@@ -1205,6 +1426,32 @@ def main():
                             0, n, ptr(mb), ptr(eb), ne, ptr(q), ptr(outs[0]),
                             lanes, stream), what)
                     return fn, outs
+                if what in ("eepos", "deepos"):
+                    cols = (n,) if what == "deepos" else ()
+                    outs = (torch.empty(6 * ne, *cols, lanes, device=dev),)
+                    ee_fn = getattr(lib, f"gridtorch_{what}")
+
+                    def fn():
+                        build.check(ee_fn(0, n, ptr(mb), ptr(eb), ne, ptr(q),
+                                          ptr(outs[0]), lanes, stream), what)
+                    return fn, outs
+                if what == "fd":
+                    outs = (torch.empty(n, lanes, device=dev),)
+
+                    def fn():
+                        build.check(lib.gridtorch_fd(
+                            0, n, ptr(mb), ptr(q), ptr(qd), ptr(u),
+                            ptr(outs[0]), lanes, -9.81, stream), what)
+                    return fn, outs
+                if what in ("minv", "crba"):
+                    outs = (torch.empty(n, n, lanes, device=dev),)
+                    dense = (1,) if what == "minv" else ()
+                    m_fn = getattr(lib, f"gridtorch_{what}")
+
+                    def fn():
+                        build.check(m_fn(0, n, ptr(mb), ptr(q), ptr(outs[0]),
+                                         lanes, *dense, stream), what)
+                    return fn, outs
                 if what == "fd_du":
                     outs = (torch.empty(n, 2 * n, lanes, device=dev),
                             torch.empty(n, lanes, device=dev),
@@ -1236,8 +1483,10 @@ def main():
             if what == "rnea_bias":
                 ref64 = K.rnea_plain(m64, q[:, sub].double(),
                                      qd[:, sub].double())
-            elif what == "d2eepos":
-                ref64 = K.d2eepos_plain(m64, q[:, sub].double())
+            elif what in ("d2eepos", "eepos", "deepos", "crba"):
+                ref64 = getattr(K, f"{what}_plain")(m64, q[:, sub].double())
+            elif what == "minv":
+                ref64 = K.minv_plain(m64, q[:, sub].double(), True)
             else:
                 ref64 = getattr(K, f"{what}_plain")(
                     m64, q[:, sub].double(), qd[:, sub].double(),
@@ -1251,9 +1500,19 @@ def main():
                 if what == "d2eepos":
                     return clock.d2_clock(n, ptr(mb), ptr(eb), ne, ptr(q),
                                           ptr(d2_out()), lanes, *clock_out())
+                if what == "eepos":
+                    out = torch.empty(6 * ne, lanes, device=dev)
+                    return clock.ee_clock(n, ptr(mb), ptr(eb), ne, ptr(q),
+                                          ptr(out), lanes, *clock_out())
                 return clock.phase_clock(CLOCK_MODE[what], n, ptr(mb),
                                          ptr(q), ptr(qd), ptr(u), lanes,
                                          *clock_out())
+
+            def wrapper_fn():   # this tree's wrapper, as GRiD calls it
+                if what in ("fd", "minv"):
+                    return getattr(K, what)(m, q, *((qd, u) if what == "fd"
+                                                    else (True,)))
+                return getattr(K, what)(m, q)
         else:
             cost_kind, N, B = shape
             ins = sweep_inputs(m, cost_kind, N, B, dev)
@@ -1412,7 +1671,7 @@ def main():
                         *map(ptr, outs), N, B, na, dt, ptr(cb),
                         *clock_out())
 
-        run = {tree: runner(tree) for tree in trees}
+        run = {tree: runner(tree) for tree in has}
         for fn, _ in run.values():
             fn()
         torch.cuda.synchronize()
@@ -1431,11 +1690,17 @@ def main():
                 raise AssertionError(f"{what} {robot} {label}: this tree's "
                                      f"error vs float64 {e.tolist()}, "
                                      f"{others[0]}'s {e0.tolist()}")
-        iters = 20 if what in KNOT_KERNELS and shape <= 32768 else 10
-        order = others + ["this", "this"] + others[::-1]
-        ms = {tree: [] for tree in trees}
+        iters = (20 if what in KNOT_KERNELS + LANE_KERNELS and shape <= 32768
+                 else 10)
+        mine = [t for t in others if t in run]
+        order = mine + ["this", "this"] + mine[::-1]
+        ms = {tree: [] for tree in run}
         for tree in order:
             ms[tree].append(time_cuda(run[tree][0], iters=iters))
+        gms = {tree: [] for tree in run}
+        if what in KNOT_KERNELS + LANE_KERNELS and shape <= 1024:
+            for tree in order:
+                gms[tree].append(graph_ms(run[tree][0]))
         if what == "rollout":   # the block shapes against the plan
             X = torch.empty(N, 2 * n, B, device=dev)
             ref = run["this"][1][0]
@@ -1527,15 +1792,19 @@ def main():
                     "max_abs_diff_vs_plan": float(
                         (out - run["this"][1][0]).abs().max())}
             del out
-        if what in ("rnea", "rnea_bias", "aba"):   # shapes against the plan
-            out = torch.empty(n, lanes, device=dev)
+        if what in ("rnea", "rnea_bias", "aba", "fd", "eepos"):
+            # the shapes against the plan
+            out = torch.empty_like(run["this"][1][0])
             shapes = {}
-            for w, g in LANE_SHAPES:
+            kind = {"aba": 1, "fd": 2}.get(what, 0)
+            for w, g in EE_SHAPES if what == "eepos" else LANE_SHAPES:
                 def shape_fn():
-                    return clock.lane_shape(int(what == "aba"),
-                                            int(what == "rnea_bias"), w, g,
-                                            n, ptr(mb), ptr(q), ptr(qd),
-                                            ptr(u), ptr(out), lanes)
+                    if what == "eepos":
+                        return clock.ee_shape(w, g, n, ptr(mb), ptr(eb), ne,
+                                              ptr(q), ptr(out), lanes)
+                    return clock.lane_shape(kind, int(what == "rnea_bias"),
+                                            w, g, n, ptr(mb), ptr(q),
+                                            ptr(qd), ptr(u), ptr(out), lanes)
                 code = shape_fn()
                 if code == 9:   # cudaErrorInvalidConfiguration: does not fit
                     continue
@@ -1546,22 +1815,33 @@ def main():
                     "max_abs_diff_vs_plan": float(
                         (out - run["this"][1][0]).abs().max())}
             del out
-        build.check(clock_fn(), "phase clock")
-        torch.cuda.synchronize()
-        nph = min(int(phases.item()), 4096)
-        cyc = rec[:nph].tolist()
         row = {"kernel": what, "robot": robot, "joints": n, "shape": label,
                "ms": ms,
+               **({"graph_ms": gms} if any(gms.values()) else {}),
                "err_vs_f64": {t: max(float(x.max()) for x in e)
-                              for t, e in err.items()},
-               "knot_cycles": int(knot[0])}
+                              for t, e in err.items()}}
+        if what not in LANE_KERNELS:   # the programs' phase clocks
+            build.check(clock_fn(), "phase clock")
+            torch.cuda.synchronize()
+            nph = min(int(phases.item()), 4096)
+            cyc = rec[:nph].tolist()
+            row["knot_cycles"] = int(knot[0])
+        if what in SERIAL_MODE:   # the serial function, a thread a lane
+            scratch_out = torch.empty(max(6 * ne, n) * n * lanes, device=dev)
+            build.check(clock.lane_clock(
+                SERIAL_MODE[what], n, ptr(mb), ptr(eb), ne, ptr(q), ptr(qd),
+                ptr(u), ptr(scratch_out), lanes, ptr(knot)), "lane clock")
+            torch.cuda.synchronize()
+            row["serial_cycles"] = int(knot[0])
+            row["wrapper_ms"] = time_cuda(wrapper_fn, iters=iters)
+            del scratch_out
         if what in ("rollout", "feedback_rollout", "idsva_so", "id_du",
-                    "d2eepos", "rnea", "rnea_bias", "aba"):
+                    "d2eepos", "rnea", "rnea_bias", "aba", "fd", "eepos"):
             row["block_shapes"] = shapes
         if what in KNOT_KERNELS:
             row["phase_cycles"] = cyc
             row["head_cycles"] = int(knot[1])
-        else:   # the mean of each phase position over the knots
+        elif what not in LANE_KERNELS:   # each phase's mean over the knots
             steps = N
             per = nph // steps
             arr = np.asarray(cyc[:per * steps]).reshape(steps, per)

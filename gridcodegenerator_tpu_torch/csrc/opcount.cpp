@@ -12,10 +12,10 @@
 //
 // Two counts per kernel:
 // * executed: every operation the kernel's lane code does (fd_du, fdsva_so,
-//   idsva_so, id_du, rnea and d2eepos: every thread of the knot's group,
-//   warp.cuh; the Riccati sweeps, the rollouts, open-loop, feedback and
-//   line search, and aba: every thread of the problem's, rollout's or
-//   knot's group, sweep_warp.cuh);
+//   idsva_so, id_du, rnea, fd, eepos and d2eepos: every thread of the
+//   knot's group, warp.cuh; the Riccati sweeps, the rollouts, open-loop,
+//   feedback and line search, and aba: every thread of the problem's,
+//   rollout's or knot's group, sweep_warp.cuh);
 // * needed: the arithmetic of the function, the bound's numerator. Constants
 //   fold: literals and the robot's constants (GRiD generates code per
 //   robot) are known, the lane's inputs are not, and an operation whose
@@ -312,9 +312,19 @@ long long count(int kernel, const double* model, const double* ee, int ne,
                         g);
       break;
     case MINV: minv_lane<C, NJ>(R, a.data(), true, x.data()); break;
-    case FD: fd_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data()); break;
+    case FD:   // executed: the knot's threads, every phase
+      if (needed)
+        fd_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data());
+      else
+        fd_host<C, NJ>(m.data(), a.data(), b.data(), c.data(), x.data(), 1, g);
+      break;
     case CRBA: crba_lane<C, NJ>(R, a.data(), x.data()); break;
-    case EEPOS: ee_pose_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
+    case EEPOS:   // executed: the lane's group, every phase, every EE
+      if (needed)
+        ee_pose_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1);
+      else
+        eepos_host<C, NJ>(m.data(), e.data(), ne, a.data(), x.data(), 1);
+      break;
     case DEEPOS: ee_jac_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
     case D2EEPOS:   // executed: the lane's group, every phase, and its
                     // share of the block's store; needed: the fewer of the

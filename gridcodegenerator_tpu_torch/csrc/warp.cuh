@@ -1,7 +1,8 @@
 // One warp per knot: the fd_du, fdsva_so, idsva_so and id_du programs of
 // csrc/fd_du.cu, csrc/fdsva_so.cu, csrc/idsva_so.cu and csrc/id_du.cu, and
-// the groups of threads a lane of d2eepos and rnea (csrc/d2eepos.cu,
-// csrc/rnea.cu), written once for the card and for the host.
+// the groups of threads a lane of d2eepos, rnea, fd and eepos
+// (csrc/d2eepos.cu, csrc/rnea.cu, csrc/fd.cu, csrc/eepos.cu), written once
+// for the card and for the host.
 //
 // A block holds G knots, a warp each (a half warp up to 8 joints, where the
 // 2 NJ gradient columns fit in 16 threads: two knots a warp; 2 or 4 times
@@ -264,6 +265,17 @@ struct Deal {
     first += n;
   }
 };
+
+// f(i) for the joints i = t, t + W, ... < NJ of thread t of a knot of W
+// threads: one test where the knot has a thread for every joint
+template <int NJ, int W, class F>
+GT_HDI void each_joint(int t, F&& f) {
+  if (NJ <= W) {
+    if (t < NJ) f(t);
+  } else {
+    for (int i = t; i < NJ; i += W) f(i);
+  }
+}
 
 // f(i, e) for every joint i of level l and e < K
 template <int K, int W, class Rb, class F>
@@ -671,41 +683,66 @@ GT_HDI void id_grad_columns_knot(const Par& par, const Rb& R, T* k,
   });
 }
 
-// df/du, qdd and Minv of the knot whose q, qd, u sit at FDKnot's offsets in
-// `k` (Carpentier's Minv, the bias RNEA, qdd = Minv (u - c), RNEA at qdd,
-// the analytical ID gradient dc/d[q, qd] one column a thread, df/du =
-// -Minv dc/du): the arithmetic of dynamics.cuh's fd_from_x and
-// id_du_columns, split over the knot's threads.
-template <typename T, int NJ, class Rb, class Par>
-GT_HD void fd_du_knot(const Par& par, const Rb& R, T* k, T gravity) {
-  using O = FDKnot<NJ>;
-  constexpr int NC = O::NC;
+// The knot's state that fd_qdd_knot reads and writes: its inputs, qdd, the
+// upper factor of Minv (NJ, NJ), the joint transforms, the forces, the bias
+// forces c and Minv's work space (FDKnot's or FDQKnot's offsets).
+template <typename T>
+struct FDView {
+  const T* q;
+  const T* qd;
+  const T* u;
+  T* qdd;
+  T* Mi;
+  T* X;
+  const T* f;
+  T* c;
+  T* IA;     // (NJ, 36) articulated inertias
+  T* FM;     // (NJ, 6, NJ) Minv's F
+  T* UU;     // (NJ, 6) U
+  T* Dinv;   // (NJ)
+  T* tmp;    // (NJ, 36) temporaries, one a joint
+  T* XU;     // (NJ, 6) X^T U
+};
+
+// qdd = Minv (u - c) of the knot at the caller's view `K`: the first half of
+// fd_du's program, which fd runs alone (dynamics.cuh:fd_from_x's
+// arithmetic, split over the knot's threads). The joint transforms, a joint
+// a thread; the bias RNEA on the caller's view `rv` and level count
+// (rnea_forward_knot<RNEA_BIAS>, rnea_backward_knot); Carpentier's Minv on
+// the same transforms, its backward pass and then its forward pass, a level
+// of the tree a phase, into the upper factor; then qdd a joint a thread,
+// reading the upper factor only (with MIRROR the same phase mirrors it into
+// the dense Minv). The phases of a joint a thread loop over the knot's
+// threads, so a knot may have fewer threads than joints. It reads the
+// constants and the tree's levels and children (RobotConst::load_tree), not
+// the related lists. Force-inlined, and its pointers come from the caller:
+// fd_du_knot forms them at the top of its program, in the order of its
+// machine code before the passes were shared (with the pointers formed
+// here, fd_du's SASS moved at every joint count; PERF.md, Findings).
+template <typename T, int NJ, bool MIRROR, class Rb, class Par>
+GT_HDI void fd_qdd_knot(const Par& par, const Rb& R, const FDView<T>& K,
+                        const RneaView<T>& rv, int nlev) {
   constexpr int W = Par::LANES;
-  static_assert(NJ <= W, "a thread per gradient column");
-  const T* q = k + O::Q;
-  const T* qd = k + O::QD;
-  const T* u = k + O::U;
-  T* qdd = k + O::QDD;
-  T* Mi = k + O::MI;
-  T* X = k + O::X;
-  T* v = k + O::V;
-  T* a = k + O::A;
-  T* f = k + O::F;
-  T* Iv = k + O::IV;
-  T* c = k + O::C;
-  T* IA = k + O::IA;
-  T* FM = k + O::FM;
-  T* UU = k + O::UU;
-  T* Dinv = k + O::DINV;
-  T* tmp = k + O::TMP;
-  T* XU = k + O::XU;
-  const T g[6] = {0, 0, 0, 0, 0, -gravity};
-  const int nlev = R.nlev;
-  const RneaView<T> rv{qd, qdd, X, v, a, f, Iv, g};
+  const T* q = K.q;
+  const T* qd = K.qd;
+  const T* u = K.u;
+  T* qdd = K.qdd;
+  T* Mi = K.Mi;
+  T* X = K.X;
+  const T* f = K.f;
+  T* c = K.c;
+  T* IA = K.IA;
+  T* FM = K.FM;
+  T* UU = K.UU;
+  T* Dinv = K.Dinv;
+  T* tmp = K.tmp;
+  T* XU = K.XU;
 
   // joint transforms (a joint a thread); Minv's IA and F set up
   par([&](int t) {
-    if (t < NJ) joint_xmat(R.Xtree(t), R.jtype[t], R.sind[t], q[t], X + 36 * t);
+    each_joint<NJ, W>(t, [&](int i) {
+      joint_xmat(R.Xtree(i), R.jtype[i], R.sind[i], q[i], X + 36 * i);
+    });
     for (int e = t; e < 36 * NJ; e += W) IA[e] = R.Imat(0)[e];
     for (int e = t; e < 6 * NJ * NJ; e += W) FM[e] = T(0);
   });
@@ -792,19 +829,57 @@ GT_HD void fd_du_knot(const Par& par, const Rb& R, T* k, T gravity) {
       });
     });
   }
-  // Minv dense (the upper factor mirrored) and qdd = Minv (u - c), a row a
-  // thread, reading the upper factor only
+  // qdd = Minv (u - c), a joint a thread, reading the upper factor only
+  // (MIRROR: and Minv dense, the upper factor mirrored)
   par([&](int t) {
-    for (int e = t; e < NJ * NJ; e += W) {
-      const int r = e / NJ, cc = e % NJ;
-      if (r > cc) Mi[e] = Mi[cc * NJ + r];
+    if (MIRROR) {
+      for (int e = t; e < NJ * NJ; e += W) {
+        const int r = e / NJ, cc = e % NJ;
+        if (r > cc) Mi[e] = Mi[cc * NJ + r];
+      }
     }
-    if (t >= NJ) return;
-    T acc = Mi[t < 1 ? t * NJ : t] * (u[0] - c[0]);
-    for (int m = 1; m < NJ; ++m)
-      acc += Mi[t <= m ? t * NJ + m : m * NJ + t] * (u[m] - c[m]);
-    qdd[t] = acc;
+    each_joint<NJ, W>(t, [&](int i) {
+      T acc = Mi[i < 1 ? i * NJ : i] * (u[0] - c[0]);
+      for (int m = 1; m < NJ; ++m)
+        acc += Mi[i <= m ? i * NJ + m : m * NJ + i] * (u[m] - c[m]);
+      qdd[i] = acc;
+    });
   });
+}
+
+// df/du, qdd and Minv of the knot whose q, qd, u sit at FDKnot's offsets in
+// `k` (fd_qdd_knot: the bias RNEA, Carpentier's Minv, qdd = Minv (u - c);
+// then RNEA at qdd, the analytical ID gradient dc/d[q, qd] one column a
+// thread, df/du = -Minv dc/du): the arithmetic of dynamics.cuh's fd_from_x
+// and id_du_columns, split over the knot's threads.
+template <typename T, int NJ, class Rb, class Par>
+GT_HD void fd_du_knot(const Par& par, const Rb& R, T* k, T gravity) {
+  using O = FDKnot<NJ>;
+  constexpr int NC = O::NC;
+  static_assert(NJ <= Par::LANES, "a thread per gradient column");
+  const T* q = k + O::Q;
+  const T* qd = k + O::QD;
+  const T* u = k + O::U;
+  T* qdd = k + O::QDD;
+  T* Mi = k + O::MI;
+  T* X = k + O::X;
+  T* v = k + O::V;
+  T* a = k + O::A;
+  T* f = k + O::F;
+  T* Iv = k + O::IV;
+  T* c = k + O::C;
+  T* IA = k + O::IA;
+  T* FM = k + O::FM;
+  T* UU = k + O::UU;
+  T* Dinv = k + O::DINV;
+  T* tmp = k + O::TMP;
+  T* XU = k + O::XU;
+  const T g[6] = {0, 0, 0, 0, 0, -gravity};
+  const int nlev = R.nlev;
+  const RneaView<T> rv{qd, qdd, X, v, a, f, Iv, g};
+  fd_qdd_knot<T, NJ, true>(
+      par, R, FDView<T>{q, qd, u, qdd, Mi, X, f, c, IA, FM, UU, Dinv, tmp, XU},
+      rv, nlev);
 
   // RNEA at qdd (v and I v are unchanged); f accumulates into the parents
   rnea_forward_knot<RNEA_AT_QDD, T, NJ>(par, R, rv, nlev);
@@ -823,6 +898,45 @@ GT_HD void fd_du_knot(const Par& par, const Rb& R, T* k, T gravity) {
       k[O::DFDU + r * NC + pass * NJ + t] = -acc;
     }
   });
+}
+
+// ---------------------------------------------------------------------------
+// fd: one knot's state and program, fd_du's first half
+// ---------------------------------------------------------------------------
+
+// The knot's inputs q, qd, u, its output qdd, the upper factor of Minv
+// (NJ, NJ), then fd_du's work space without the gradient's columns: the
+// joint transforms, v, a, f, I v, the bias forces c and Minv's IA, F, U,
+// Dinv, temporaries and X^T U: 7 NJ^2 + 150 NJ values (1393 at 7 joints,
+// 5.6 KB in float32; 9688 at 28, 38.8 KB | 77.5 KB in float32 | float64).
+template <int NJ>
+struct FDQKnot {
+  static constexpr int Q = 0, QD = Q + NJ, U = QD + NJ, QDD = U + NJ;
+  static constexpr int MI = QDD + NJ;          // (NJ, NJ) the upper factor
+  static constexpr int X = MI + NJ * NJ;       // (NJ, 36)
+  static constexpr int V = X + 36 * NJ, A = V + 6 * NJ, F = A + 6 * NJ;
+  static constexpr int IV = F + 6 * NJ, C = IV + 6 * NJ;
+  static constexpr int IA = C + NJ, FM = IA + 36 * NJ, UU = FM + 6 * NJ * NJ;
+  static constexpr int DINV = UU + 6 * NJ, TMP = DINV + NJ;
+  static constexpr int XU = TMP + 36 * NJ;
+  static constexpr int SIZE = XU + 6 * NJ;
+};
+
+// qdd = Minv (u - c) of the knot whose q, qd, u sit at FDQKnot's offsets in
+// `k` (dynamics.cuh:fd_lane, split over the knot's threads): fd_qdd_knot,
+// fd_du's first half. A tree of L levels takes 6 L phases (iiwa 42, hyq 18,
+// atlas 54).
+template <typename T, int NJ, class Rb, class Par>
+GT_HD void fd_knot(const Par& par, const Rb& R, T* k, T gravity) {
+  using O = FDQKnot<NJ>;
+  const T g[6] = {0, 0, 0, 0, 0, -gravity};
+  const RneaView<T> rv{k + O::QD, k + O::QDD, k + O::X,  k + O::V,
+                       k + O::A,  k + O::F,   k + O::IV, g};
+  const FDView<T> K{k + O::Q,  k + O::QD, k + O::U,    k + O::QDD,
+                    k + O::MI, k + O::X,  k + O::F,    k + O::C,
+                    k + O::IA, k + O::FM, k + O::UU,   k + O::DINV,
+                    k + O::TMP, k + O::XU};
+  fd_qdd_knot<T, NJ, false>(par, R, K, rv, R.nlev);
 }
 
 // ---------------------------------------------------------------------------
@@ -1372,15 +1486,16 @@ GT_HD void fdsva_so_knot(const Par& par, const Rb& R, const SOLists<NJ>& lists,
 // The block's head: the joints' Ttree and type, and the EE the block is
 // at: its fixed frame and its chain (joints ascending, root to leaf;
 // pos[j] a joint's place in it, -1 off it). Every lane of a block is at
-// the same EE.
-template <typename T, int NJ>
+// the same EE. TWISTS: also each joint's constant twist (d2eepos; eepos
+// reads none).
+template <typename T, int NJ, bool TWISTS = true>
 struct EEHead {
   T tt[16 * NJ];
   // each joint's twist (omega, v) Lambda = Ttree K Ttree^-1 of its
   // generator K: a revolute joint's axis e_ax (omega = R e_ax, v = p x
   // omega), a prismatic one's e_sind-3 (omega = 0, v = R e); Ttree = [R p;
   // 0 1]
-  T lam[6 * NJ];
+  T lam[TWISTS ? 6 * NJ : 1];
   T tfix[16];
   int jtype[NJ];
   int sind[NJ];
@@ -1394,6 +1509,7 @@ struct EEHead {
     for (int i = tid; i < NJ; i += nthreads) {
       jtype[i] = (int)model[L::JTYPE + i];
       sind[i] = (int)model[L::SIND + i];
+      if (!TWISTS) continue;
       const T* TT = model + L::TTREE + 16 * i;
       const int ax = sind[i] % 3;
       T* o = lam + 6 * i;
@@ -1692,6 +1808,85 @@ GT_HD void load_q(const T* q, long long L, long long l0, int G, T* knots,
 }
 
 // ---------------------------------------------------------------------------
+// eepos: a group of threads a lane, d2eepos's chain phases
+// ---------------------------------------------------------------------------
+
+// One lane's state at one EE, by chain position a < k: q; the joint
+// transforms T_a (4x4); the prefixes pre_s = T_0 ... T_s-1 (s = 2 .. k; pre_1
+// is T_0), rows 0-2; rows 0-2 of the chain's full transform F = pre_k Tfix;
+// the pose: 29 NJ + 18 values (221 at 7 joints, 0.9 KB in float32).
+template <int NJ>
+struct EEKnot {
+  static constexpr int Q = 0, TS = Q + NJ, PRE = TS + 16 * NJ;
+  static constexpr int FULL = PRE + 12 * NJ, POSE = FULL + 12;
+  static constexpr int SIZE = POSE + 6;
+};
+
+// Component m of dynamics.cuh:pose_from_T at Tm, its arithmetic: x, y, z,
+// then roll, pitch and yaw, each one atan2 on the same path (the threads
+// that take the angles take no branch of their own around it).
+template <typename T>
+GT_HDI T pose_component(const T* Tm, int m) {
+  if (m < 3) return Tm[4 * m + 3];
+  const T y = m == 3 ? Tm[9] : m == 4 ? Tm[8] : Tm[4];
+  const T x = m == 3   ? Tm[10]
+              : m == 4 ? gsqrt(Tm[9] * Tm[9] + Tm[10] * Tm[10])
+                       : Tm[0];
+  const T a = gatan2(y, x);
+  return m == 4 ? -a : a;
+}
+
+// The pose [x, y, z, roll, pitch, yaw] of one lane at the block's EE
+// (H.select; a head with or without the twists): dynamics.cuh:ee_pose_lane's
+// function and order of operations, so its bits, split over the group's
+// threads in k + 2 phases for a chain of k joints (iiwa 9):
+// 1. T_a, a chain joint's matrix a thread (joint_mat, joint_T's values);
+// 2. k - 1 phases of the prefixes pre_s+1 = pre_s T_s, rows 0-2, an entry a
+//    thread (mm44_rc, mm44's arithmetic): ee_chain_T's running product;
+// 3. F = pre_k Tfix, rows 0-2, an entry a thread (an empty chain: Tfix);
+// 4. the pose, a component a thread.
+template <typename T, int NJ, class Head, class Par>
+GT_HD void eepos_knot(const Par& par, const Head& H, T* k) {
+  using O = EEKnot<NJ>;
+  constexpr int W = Par::LANES;
+  const int kc = H.k;
+  const T* q = k + O::Q;
+  T* TS = k + O::TS;
+  T* PRE = k + O::PRE;
+  T* FULL = k + O::FULL;
+  T* pose = k + O::POSE;
+  // rows 0-2 of pre_s, s >= 1
+  auto pre = [&](int s) -> T* { return s == 1 ? TS : PRE + 12 * s - 24; };
+  if (kc > 0) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      d(kc, [&](int a) {
+        const int j = H.chain[a];
+        joint_mat(H.tt + 16 * j, H.jtype[j], H.sind[j], 0, q[j], TS + 16 * a);
+      });
+    });
+  }
+  for (int s = 1; s < kc; ++s) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      d(12, [&](int e) {
+        pre(s + 1)[e] = mm44_rc(pre(s), TS + 16 * s, e / 4, e % 4);
+      });
+    });
+  }
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(12, [&](int e) {
+      FULL[e] = kc == 0 ? H.tfix[e] : mm44_rc(pre(kc), H.tfix, e / 4, e % 4);
+    });
+  });
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(6, [&](int m) { pose[m] = pose_component(FULL, m); });
+  });
+}
+
+// ---------------------------------------------------------------------------
 // blocks: G knots after a head of block-wide constants
 // ---------------------------------------------------------------------------
 
@@ -1915,6 +2110,36 @@ using D2Plan = KnotShape<
                D2Knot1<T, NJ>::STRIDE * (long long)sizeof(T), d2_lanes<NJ>(),
                fd_regs<T>(), true)>;
 
+// fd's plan: a warp a knot at every joint count (compare_kernels.py's
+// shapes, PERF.md): Minv's phases have 36 + 6 NJ items of each child of a
+// level (iiwa: 78 on a chain), and on iiwa 8 threads a knot ran 1.5x a warp
+// at 1 and 1024 lanes (16 threads: 1.1x), unlike rnea's 6 items a joint.
+// G the largest power of 2 up to 8 that fits (its output rows are G
+// consecutive lanes: 32-byte runs at G = 8 in float32; at 28 joints 4 | 2
+// knots fit a block in float32 | float64).
+template <typename T, int NJ>
+using FDKnot1 = KnotShape<T, RobotConst<T, NJ>, FDQKnot<NJ>::SIZE, WARP, 1>;
+template <typename T, int NJ>
+using FDPlanQ = KnotShape<
+    T, RobotConst<T, NJ>, FDQKnot<NJ>::SIZE, WARP,
+    best_knots(FDKnot1<T, NJ>::HEAD,
+               FDKnot1<T, NJ>::STRIDE * (long long)sizeof(T), WARP,
+               fd_regs<T>(), true)>;
+// eepos's plan: a phase has at most 12 items (an entry of rows 0-2 of a
+// 4x4 product), so 8 threads a lane (4 and 16 ran no faster at 131072 iiwa
+// lanes), G the largest power of 2 up to 8 that fits (each of the 6 output
+// rows of an EE is G consecutive lanes).
+constexpr int EE_LANES = 8;
+template <typename T, int NJ>
+using EEKnot1 = KnotShape<T, EEHead<T, NJ, false>, EEKnot<NJ>::SIZE,
+                          EE_LANES, 1>;
+template <typename T, int NJ>
+using EEPlan = KnotShape<
+    T, EEHead<T, NJ, false>, EEKnot<NJ>::SIZE, EE_LANES,
+    best_knots(EEKnot1<T, NJ>::HEAD,
+               EEKnot1<T, NJ>::STRIDE * (long long)sizeof(T), EE_LANES,
+               fd_regs<T>(), true)>;
+
 // Knot g of the block takes lane l0 + g. The block reads the (NJ, G) tiles
 // of q, qd and u (G consecutive lanes a row; the first INPUTS of them) into
 // its knots; lanes past L read zeros.
@@ -2126,6 +2351,65 @@ void rnea_host(const T* model, const T* q, const T* qd, const T* qdd, T* c,
         rnea_knot<RNEA_BIAS, T, NJ>(HostPar<P::LANES>{}, R[0], kg, gravity);
     }
     store_rows<T, O::SIZE>(k.data() + O::C, NJ, c, L, l0, P::G, 0, 1);
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
+// fd's block code with the card's G, each block's valid knots in turn
+template <typename T, int NJ>
+void fd_host(const T* model, const T* q, const T* qd, const T* u, T* qdd,
+             long long L, T gravity) {
+  using O = FDQKnot<NJ>;
+  using P = FDPlanQ<PlanType<T>, NJ>;
+  static_assert(P::G >= 1, "one fd knot must fit");
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load_tree(model, 0, 1);
+  std::vector<T> k((long long)P::G * O::SIZE);
+  for (long long l0 = 0; l0 < L; l0 += P::G) {
+    for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+    load_inputs<T, NJ, O::SIZE>(q, qd, u, L, l0, P::G, k.data(), 0, 1);
+    for (int g = 0; g < P::G && l0 + g < L; ++g) {
+      T* kg = k.data() + (long long)g * O::SIZE;
+#ifdef GT_RACE_CHECK
+      gt_race_watch(kg, O::SIZE * (long)sizeof(T));
+#endif
+      fd_knot<T, NJ>(HostPar<P::LANES>{}, R[0], kg, gravity);
+    }
+    store_rows<T, O::SIZE>(k.data() + O::QDD, NJ, qdd, L, l0, P::G, 0, 1);
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
+// eepos's block code with the card's G: at each EE, each block's valid
+// knots in turn, then the block's rows
+template <typename T, int NJ>
+void eepos_host(const T* model, const T* ee, int ne, const T* q, T* out,
+                long long L) {
+  using O = EEKnot<NJ>;
+  using P = EEPlan<PlanType<T>, NJ>;
+  static_assert(P::G >= 1, "one eepos knot must fit");
+  std::vector<EEHead<T, NJ, false>> H(1);
+  H[0].load(model, 0, 1);
+  std::vector<T> k((long long)P::G * O::SIZE);
+  for (int e = 0; e < ne; ++e) {
+    H[0].select(ee + e * EERow<NJ>::SIZE, 0, 1);
+    for (long long l0 = 0; l0 < L; l0 += P::G) {
+      for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+      load_q<T, NJ, O::SIZE>(q, L, l0, P::G, k.data(), 0, 1);
+      for (int g = 0; g < P::G && l0 + g < L; ++g) {
+        T* kg = k.data() + (long long)g * O::SIZE;
+#ifdef GT_RACE_CHECK
+        gt_race_watch(kg, O::SIZE * (long)sizeof(T));
+#endif
+        eepos_knot<T, NJ>(HostPar<P::LANES>{}, H[0], kg);
+      }
+      store_rows<T, O::SIZE>(k.data() + O::POSE, 6, out + 6LL * e * L, L, l0,
+                             P::G, 0, 1);
+    }
   }
 #ifdef GT_RACE_CHECK
   gt_race_watch(nullptr, 0);

@@ -487,7 +487,7 @@ extern "C" long touch_count() { return g_touches; }
 // a block} of fd_du, fdsva_so, riccati_factored, linesearch_rollout, the
 // dense riccati (stationary, then a block per knot), rollout, idsva_so,
 // feedback_rollout, id_du, d2eepos, idsva_so's bands (then the bands of
-// each dtype), rnea and aba in float32 and float64
+// each dtype), rnea, aba, fd and eepos in float32 and float64
 template <typename P>
 void plan_into(int* out) {
   out[0] = P::G;
@@ -567,6 +567,10 @@ extern "C" void plans_##NJ(int* out) {                                      \
   plan_into<RNEAPlan<double, NJ>>(out + 104);                               \
   plan_into<ABAPlan<float, NJ>>(out + 108);                                 \
   plan_into<ABAPlan<double, NJ>>(out + 112);                                \
+  plan_into<FDPlanQ<float, NJ>>(out + 116);                                 \
+  plan_into<FDPlanQ<double, NJ>>(out + 120);                                \
+  plan_into<EEPlan<float, NJ>>(out + 124);                                  \
+  plan_into<EEPlan<double, NJ>>(out + 128);                                 \
 }                                                                           \
 extern "C" int tree_lists_##NJ(const double* m) {                          \
   std::vector<RobotConst<double, NJ>> R(2);                                 \
@@ -625,6 +629,11 @@ extern "C" void minv_##NJ(const double* m, const double* q, double* mi,    \
 }                                                                           \
 extern "C" void fd_##NJ(const double* m, const double* q,                   \
     const double* qd, const double* u, double* qdd, ll L) {                 \
+  race_reset();                                                             \
+  fd_host<double, NJ>(m, q, qd, u, qdd, L, -9.81);                          \
+}                                                                           \
+extern "C" void fd_lane_##NJ(const double* m, const double* q,              \
+    const double* qd, const double* u, double* qdd, ll L) {                 \
   Robot<double, NJ> R(m);                                                   \
   lanes3<NJ, NJ>(q, qd, u, qdd, L, [&](const double* a, const double* b,   \
       const double* x, double* o) {                                         \
@@ -641,6 +650,11 @@ extern "C" void crba_##NJ(const double* m, const double* q, double* M,     \
   }                                                                         \
 }                                                                           \
 extern "C" void eepos_##NJ(const double* m, const double* ee, int ne,      \
+    const double* q, double* out, ll L) {                                   \
+  race_reset();                                                             \
+  eepos_host<double, NJ>(m, ee, ne, q, out, L);                             \
+}                                                                           \
+extern "C" void eepos_lane_##NJ(const double* m, const double* ee, int ne, \
     const double* q, double* out, ll L) {                                   \
   Robot<double, NJ> R(m);                                                   \
   for (ll l = 0; l < L; ++l) {                                              \
@@ -808,10 +822,10 @@ def _p(t):
 
 def _host_run(lib, name, args, lane=False):
     """Run the host build of kernel ``name`` on the wrapper's arguments: the
-    kernel's block code (the sweeps, fd_du, rnea, id_du, aba, d2eepos and
-    the second-order kernels), or with ``lane`` the serial lane function
-    (the rollouts, the dense riccati, rnea, idsva_so, id_du, aba and
-    d2eepos)."""
+    kernel's block code (the sweeps, fd_du, rnea, id_du, aba, fd, eepos,
+    d2eepos and the second-order kernels), or with ``lane`` the serial lane
+    function (the rollouts, the dense riccati, rnea, idsva_so, id_du, aba,
+    fd, eepos and d2eepos)."""
     serial = "_lane" if lane else ""
     ll, D = ctypes.c_longlong, ctypes.c_double
     if name == "fd_du":
@@ -836,8 +850,8 @@ def _host_run(lib, name, args, lane=False):
         m, q, qd, u, _ = args
         n, L = q.shape
         out = torch.empty(n, L, dtype=q.dtype)
-        getattr(lib, f"fd_{n}")(_p(build.model_buffer(m)), _p(q), _p(qd),
-                                _p(u), _p(out), ll(L))
+        getattr(lib, f"fd{serial}_{n}")(_p(build.model_buffer(m)), _p(q),
+                                        _p(qd), _p(u), _p(out), ll(L))
         return (out,)
     if name == "crba":
         m, q = args
@@ -855,7 +869,7 @@ def _host_run(lib, name, args, lane=False):
         cols = {"eepos": (), "deepos": (n,), "d2eepos": (n, n)}[kernel]
         # NaN where the card would hand over uninitialised memory
         out = torch.full((6 * ne, *cols, L), float("nan"), dtype=q.dtype)
-        fn = kernel + (serial if kernel == "d2eepos" else "")
+        fn = kernel + (serial if kernel != "deepos" else "")
         getattr(lib, f"{fn}_{n}")(_p(build.model_buffer(m)), _p(ee),
                                   ctypes.c_int(ne), _p(q), _p(out), ll(L))
         return (out,)
@@ -948,8 +962,8 @@ def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
 
 
 # the ints plans_<nj> writes: 4 a plan (k = offset / 4), idsva_so's bands
-# at 96 and 97, rnea's and aba's plans from 100
-PLANS = 116
+# at 96 and 97, rnea's and aba's plans from 100, fd's and eepos's from 116
+PLANS = 132
 
 
 @pytest.mark.parametrize("nj", HOST_JOINTS)
@@ -979,7 +993,10 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
     rollouts' ABA phases) 8 threads a knot on the chains of 2 and 7 joints
     and a warp otherwise (rnea 16 at 12 joints), G a power of 2 up to 8
     that makes each output row's run 32 bytes or more but where a block
-    holds fewer (aba's 28-joint knot in float64: 4)."""
+    holds fewer (aba's 28-joint knot in float64: 4). fd (FDPlanQ, fd_du's
+    first half) a warp a knot, G as rnea's but 4 | 2 knots a block at 28
+    joints (float32 | float64); eepos (EEPlan) 8 threads a lane, 8 lanes a
+    block."""
     out = (ctypes.c_int * PLANS)()
     getattr(host_lib, f"plans_{nj}")(out)
     base = 16 if 2 * nj <= 16 else 32
@@ -1029,6 +1046,17 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
             assert g == 4
         else:   # 32-byte runs
             assert g * (4 if f32 else 8) >= 32
+    for k in range(29, 33):   # fd, eepos: float32, then float64
+        g, lanes, nbytes, rows = out[4 * k: 4 * k + 4]
+        assert 0 < nbytes <= 232448 and rows == 1
+        assert g in (1, 2, 4, 8) and (g * lanes) % 32 == 0
+        f32 = k % 2 == 1
+        if k >= 31:   # eepos
+            assert lanes == 8 and g == 8
+        elif nj == 28:   # fd's 28-joint knot: 4 | 2 a block
+            assert lanes == 32 and g == (4 if f32 else 2)
+        else:   # 32-byte runs
+            assert lanes == 32 and g * (4 if f32 else 8) >= 32
 
 
 def test_compare_kernels_reads_ptxas_report():
@@ -1178,7 +1206,8 @@ SWEEP_PROGRAMS = ("riccati_factored", "linesearch_rollout", "linesearch_quad",
 @pytest.mark.parametrize("robot,name", pairs(
     ("fd_du", "fdsva_so", "idsva_so") + SWEEP_PROGRAMS + ("id_du", "d2eepos",
                                                           "rnea", "rnea_bias",
-                                                          "aba"),
+                                                          "aba", "fd",
+                                                          "eepos"),
     robot_first=True))
 def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
                                                         name):
@@ -1188,11 +1217,11 @@ def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
     reverse order, fd_du, fdsva_so, idsva_so, the Riccati sweeps (factored,
     dense stationary and per knot), the line search (both costs), the
     open-loop and feedback rollouts, id_du, d2eepos, rnea (with qdd and
-    the bias form) and aba give the same bits."""
+    the bias form), aba, fd and eepos give the same bits."""
     m = build_model(topo(robot), dtype=torch.float64, device="cpu")
     key = name if name in SWEEP_PROGRAMS else "fdsva_so"
     args = path_inputs(m, 2, 2, seed=3)[key]
-    if name == "d2eepos":   # q
+    if name in ("d2eepos", "eepos"):   # q
         args = args[:2]
     if name == "rnea_bias":   # no qdd
         args = args[:3] + (None,) + args[4:]
@@ -1232,15 +1261,16 @@ def test_host_sweep_phases_write_disjoint_entries(host_lib, robot, name):
 
 
 @pytest.mark.parametrize("name", ["id_du", "d2eepos", "d2eepos_targets",
-                                  "rnea", "rnea_bias", "aba"])
+                                  "rnea", "rnea_bias", "aba", "fd", "eepos"])
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_host_knot_phases_write_disjoint_entries(host_lib, robot, name):
-    """id_du's, d2eepos's and rnea's knot programs (csrc/warp.cuh) and
-    aba's (csrc/sweep_warp.cuh) split each phase over the knot's threads:
-    run phase by phase on the host, no entry of a knot's state is written by
-    two threads of one phase (the harness compares the knot before and
-    after each thread); d2eepos on every EE of the robot and on some of
-    them (gym_ant: its four feet, on every EE)."""
+    """id_du's, d2eepos's, rnea's, fd's and eepos's knot programs
+    (csrc/warp.cuh) and aba's (csrc/sweep_warp.cuh) split each phase over
+    the knot's threads: run phase by phase on the host, no entry of a knot's
+    state is written by two threads of one phase (the harness compares the
+    knot before and after each thread); d2eepos on every EE of the robot and
+    on some of them, eepos on every EE (gym_ant: its four feet, on every
+    EE)."""
     if robot == "gym_ant":
         m = gym_ant_feet(torch.float64, "cpu")
     else:
@@ -1257,7 +1287,7 @@ def test_host_knot_phases_write_disjoint_entries(host_lib, robot, name):
         host_lib.race_watch(0)
     if name == "id_du":
         least = 3 * m.n * m.n
-    elif name in ("rnea", "rnea_bias", "aba"):   # the joint transforms
+    elif name in ("rnea", "rnea_bias", "aba", "fd"):   # the transforms
         least = 3 * 36 * m.n
     else:   # the chains' 4x4 matrices at least
         targets = args[2] if name == "d2eepos_targets" else None
@@ -1321,7 +1351,8 @@ RAGGED_B = ("1", "G-1", "G+1", "37")
 # the double plan's index in plans_<nj> (the host build runs it)
 PLAN_INDEX = {"riccati": 9, "riccati_stacked": 11, "rollout": 13,
               "idsva_so": 15, "feedback_rollout": 17, "id_du": 19,
-              "d2eepos": 21, "rnea": 26, "rnea_bias": 26, "aba": 28}
+              "d2eepos": 21, "rnea": 26, "rnea_bias": 26, "aba": 28,
+              "fd": 30, "eepos": 32}
 
 
 def _ragged_b(host_lib, name, nj, B):
@@ -1390,26 +1421,34 @@ def test_host_riccati_factored_on_ragged_blocks(host_lib, robot, N, name, B):
 
 @pytest.mark.parametrize("name,robot", pairs(
     ("riccati", "riccati_stacked", "rollout", "feedback_rollout", "idsva_so",
-     "id_du", "d2eepos", "rnea", "rnea_bias", "aba")))
+     "id_du", "d2eepos", "rnea", "rnea_bias", "aba", "eepos", "fd")))
 def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
                                                         robot):
     """The block code of the dense riccati (stationary and per knot), of
     the open-loop and feedback rollouts and aba (csrc/sweep_warp.cuh: the
-    rollouts' ABA phases), and the knot programs of idsva_so and rnea (with
-    qdd and the bias form; csrc/warp.cuh), run on the host with the card's
-    plans, gives the bits of the serial functions riccati_dense_lane,
-    rollout_lane, feedback_rollout_lane, aba, idsva_so_lane and rnea_lane:
-    every value keeps the serial order of operations. id_du's and d2eepos's knot
-    programs are held to TOL against id_du_lane and ee_hess_lane: id_du's
-    columns skip the structural zeros of the transforms and walk only the
-    related joints, and d2eepos forms a mixed second derivative as Xi_a
-    dT/dq_b, not along the chain. idsva_so is held to TOL: its
+    rollouts' ABA phases), and the knot programs of idsva_so, rnea (with
+    qdd and the bias form) and eepos (csrc/warp.cuh), run on the host with
+    the card's plans, gives the bits of the serial functions
+    riccati_dense_lane, rollout_lane, feedback_rollout_lane, aba,
+    idsva_so_lane, rnea_lane and ee_pose_lane: every value keeps the serial
+    order of operations (eepos on every robot, gym_ant's empty chains
+    included). id_du's, d2eepos's and fd's knot
+    programs are held to TOL against id_du_lane, ee_hess_lane and fd_lane:
+    id_du's columns skip the structural zeros of the transforms and walk
+    only the related joints, d2eepos forms a mixed second derivative as
+    Xi_a dT/dq_b, not along the chain, and fd's Minv passes (fd_du's,
+    warp.cuh:fd_qdd_knot) distribute X_c^T over the backward pass's sums,
+    F_p += X_c^T F_c + (X_c^T U_c) M_c and IA_p += (X_c^T IA_c) X_c -
+    (X_c^T U_c) Dinv_c (X_c^T U_c)^T, where dynamics.cuh:minv_upper forms
+    X_c^T (F_c + U_c M_c) and X_c^T (IA_c - U_c Dinv_c U_c^T) X_c. idsva_so
+    is held to TOL: its
     knot program (warp.cuh:so_stages_knot, the phase of BC and f, which
     fdsva_so runs too) forms f's bias term crf(v) IC v as a cross product,
     where so.cuh:so_stages multiplies by crf(v)'s 6x6 matrix, zeros
     included; that sum's other order is the only difference."""
     m = build_model(topo(robot), dtype=torch.float64, device="cpu")
-    args = (grid_inputs(m, robot, 11, seed=2)[name] if name == "d2eepos"
+    args = (grid_inputs(m, robot, 11, seed=2)[name]
+            if name in ("d2eepos", "eepos", "fd")
             else path_inputs(m, 6, 11, seed=2)[name])
     got = _host_run(host_lib, name, args)
     lane = _host_run(host_lib, name, args, lane=True)
@@ -1418,11 +1457,54 @@ def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
         assert _max_err(got, lane) <= tol(robot, lane)
         assert torch.equal(got[0] == 0, lane[0] == 0)
         return
-    if name in ("id_du", "d2eepos"):
+    if name in ("id_du", "d2eepos", "fd"):
         assert _max_err(got, lane) <= tol(robot, lane)
         return
     for a, b in zip(got, lane):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_host_fd_is_fd_du_first_half(host_lib, robot):
+    """fd and fd_du run one program for qdd (warp.cuh:fd_qdd_knot: the bias
+    RNEA, Carpentier's Minv, qdd = Minv (u - c)) in their own layouts
+    (FDQKnot, FDKnot) and plans: fd's qdd is fd_du's, bit for bit."""
+    m = build_model(topo(robot), dtype=torch.float64, device="cpu")
+    args = grid_inputs(m, robot, 5, seed=14)["fd"]
+    qdd, = _host_run(host_lib, "fd", args)
+    _, want, _ = _host_run(host_lib, "fd_du", args)
+    assert float(want.abs().max()) > 0.1
+    assert torch.equal(qdd, want)
+
+
+def test_host_eepos_of_an_empty_chain_is_its_fixed_frame(host_lib):
+    """An EE whose chain is empty takes its fixed frame's pose in every
+    lane, as ee_chain_T does, beside an EE on a chain (iiwa's, and one on no
+    joint with a turned and moved fixed frame): the knot program
+    (warp.cuh:eepos_knot) gives the serial ee_pose_lane's bits for both."""
+    m = build_model(topo("iiwa"), dtype=torch.float64, device="cpu")
+    n, L = m.n, 9
+    c, s = np.cos(0.3), np.sin(0.3)
+    tfix = np.array([[c, -s, 0, 0.1], [s, c, 0, -0.2], [0, 0, 1, 0.3],
+                     [0, 0, 0, 1]])
+    empty = torch.as_tensor(np.concatenate([tfix.ravel(), np.zeros(n)]))
+    ee = torch.stack([build.ee_buffer(m)[0], empty]).contiguous()
+    q = torch.as_tensor(np.random.default_rng(15).uniform(-1, 1, (n, L)))
+    outs = []
+    for fn in ("eepos", "eepos_lane"):
+        out = torch.full((12, L), float("nan"), dtype=torch.float64)
+        getattr(host_lib, f"{fn}_{n}")(_p(build.model_buffer(m)), _p(ee),
+                                       ctypes.c_int(2), _p(q), _p(out),
+                                       ctypes.c_longlong(L))
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    torch.testing.assert_close(outs[0][:6], K.eepos_plain(m, q), rtol=0,
+                               atol=TOL)
+    pose = torch.tensor([0.1, -0.2, 0.3, 0.0, 0.0, 0.3],
+                        dtype=torch.float64)[:, None].expand(6, L)
+    assert torch.equal(outs[0][6:], outs[0][6:, :1].expand(6, L))
+    assert torch.equal(outs[0][6:9], pose[:3])
+    torch.testing.assert_close(outs[0][6:], pose, rtol=0, atol=TOL)
 
 
 @pytest.mark.parametrize("robot,B", _ragged_cases(
@@ -1506,17 +1588,21 @@ def test_host_id_du_and_d2eepos_on_ragged_blocks(host_lib, robot, name, B):
 @pytest.mark.parametrize("robot,name,B", _ragged_cases(
     lambda robot, name, B: f"{robot}-{name}-{B}", [],
     [(robot, name, B) for name in ("rnea", "rnea_bias", "aba")
-     for robot in ROBOTS for B in RAGGED_B]))
+     for robot in ROBOTS for B in RAGGED_B]
+    + [(robot, name, B) for name in ("fd", "eepos") for robot in ROBOTS
+       for B in RAGGED_B]))
 def test_host_rnea_and_aba_on_ragged_blocks(host_lib, robot, name, B):
-    """rnea's (with qdd and the bias form) and aba's block code with the
-    card's plan (G knots a block, the inputs past the last lane read as
-    zeros, the output rows masked) on 1, G - 1, G + 1 and 37 lanes."""
+    """rnea's (with qdd and the bias form), aba's, fd's and eepos's block
+    code with the card's plan (G knots a block, the inputs past the last
+    lane read as zeros, the output rows masked) on 1, G - 1, G + 1 and 37
+    lanes."""
     m = build_model(topo(robot), dtype=torch.float64, device="cpu")
     L = _ragged_b(host_lib, name, m.n, B)
     args = grid_inputs(m, robot, L, seed=13)[name]
     got = _host_run(host_lib, name, args)
     want = _outs(WRAPPERS[name][1](*args))
-    assert got[0].shape == want[0].shape == (m.n, L)
+    rows = 6 * len(eepose.ee_chains(m)) if name == "eepos" else m.n
+    assert got[0].shape == want[0].shape == (rows, L)
     assert _max_err(got, want) <= tol(robot, want)
 
 
@@ -1647,18 +1733,22 @@ def test_operation_counts_at_17_and_28_joints(robot):
         assert ex[torch.float64]["idsva_so"] > ex[torch.float32]["idsva_so"]
 
 
-@pytest.mark.parametrize("kernel", ["rnea", "aba"])
+@pytest.mark.parametrize("kernel", ["rnea", "aba", "fd", "eepos"])
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_operation_counts_of_the_rnea_and_aba_knots(counts, robot, kernel):
-    """At every joint count of the host harness, the executed count of rnea
-    and aba is their knot program's (every thread of the knot's group,
-    phase by phase: warp.cuh:rnea_host, sweep_warp.cuh:aba_host), at least
-    the function's need (the serial lane with constants folded), and the
-    same in either dtype's plan's width."""
+    """At every joint count of the host harness, the executed count of rnea,
+    aba, fd and eepos is their knot program's (every thread of the knot's
+    group, phase by phase: warp.cuh:rnea_host, fd_host, eepos_host,
+    sweep_warp.cuh:aba_host), at least the function's need (the serial lane
+    with constants folded), and the same in either dtype's plan's width.
+    gym_ant's EEs are welded to its base: their poses are constants of the
+    robot, which the knot program forms and the function needs no
+    operation for."""
     m = build_model(topo(robot), dtype=torch.float64, device="cpu")
     need = opcount.ops_per_lane(kernel, m)
     ran = opcount.ops_per_lane(kernel, m, executed=True)
-    assert 0 < need <= ran
+    welded = kernel == "eepos" and robot == "gym_ant"
+    assert (0 == need if welded else 0 < need) and need <= ran and ran > 0
     assert ran == opcount.ops_per_lane(kernel, m.to(dtype=torch.float32),
                                        executed=True)
 
@@ -1819,6 +1909,42 @@ def test_cuda_rnea_and_aba_plans_and_launches(cuda_device, robot):
     for lanes in (1, g + 1, 37):
         cases = grid_inputs(m, robot, lanes, seed=14)
         for case in ("rnea", "rnea_bias", "aba"):
+            kern, plain = WRAPPERS[case]
+            build.reset_counters()
+            got = _outs(kern(*cases[case]))
+            torch.cuda.synchronize()
+            assert dict(build.LAUNCHES) == {KERNEL_OF.get(case, case): 1}
+            assert not build.PLAIN_CALLS
+            want = _outs(plain(*cases[case]))
+            assert got[0].is_cuda and got[0].shape == want[0].shape
+            assert _max_err(got, want) <= tol(robot, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_cuda_fd_and_eepos_plans_and_launches(cuda_device, robot):
+    """fd and eepos run a thread group a knot (build.WARP_KERNELS): each
+    instance's plan holds a knot (fd: a warp; eepos: 8 threads a lane),
+    keeps no
+    per-thread array of the joints' transforms in local memory, and
+    launches; each call launches its kernel once, runs nothing plain and
+    matches the plain twin in float64 at 1, G + 1 and 37 lanes (eepos on
+    every EE of the robot and on some of them)."""
+    m = build_model(topo(robot), dtype=torch.float64, device=cuda_device)
+    for what in ("fd", "eepos"):
+        for dtype in (torch.float32, torch.float64):
+            info = build.warp_kernel_info(what, m.n, dtype)
+            assert info["knots_per_block"] >= 1 and info["blocks_per_sm"] >= 1
+            assert info["threads_per_knot"] == (8 if what == "eepos"
+                                                 else 32)
+            item = torch.finfo(dtype).bits // 8
+            assert info["local_bytes"] < 36 * m.n * item
+    g = build.plan("fd", m.n, torch.float64)["knots_per_block"]
+    cases_of = ("fd", "eepos") + (("eepos_targets",) if TARGETS[robot]
+                                  else ())
+    for lanes in (1, g + 1, 37):
+        cases = grid_inputs(m, robot, lanes, seed=16)
+        for case in cases_of:
             kern, plain = WRAPPERS[case]
             build.reset_counters()
             got = _outs(kern(*cases[case]))
