@@ -14,12 +14,12 @@ Phases, one line each:
      and the host operation counter (utils/opcount.py); the block plan
      (knots, problems or rollouts a block, shared bytes, bands) and
      cudaFuncGetAttributes of every instance of the thread-group kernels:
-     fd_du, fdsva_so, idsva_so and id_du (a warp per knot), d2eepos, rnea
-     and aba (a group of threads per lane), riccati_factored and riccati (a
-     warp per problem; riccati's stationary and per-knot instances),
-     linesearch_rollout, rollout and feedback_rollout (a group of threads
-     per rollout); each
-     holds a knot, but fdsva_so's fused kernel at 28 joints (20 in
+     fd_du, fdsva_so, idsva_so and id_du (a warp per knot), d2eepos, rnea,
+     aba, fd, eepos, minv and crba (a group of threads per lane),
+     riccati_factored and riccati (a warp per problem; riccati's
+     stationary and per-knot instances), linesearch_rollout, rollout and
+     feedback_rollout (a group of threads per rollout); each holds a knot,
+     but fdsva_so's fused kernel at 28 joints (20 in
      float64), where the composed route runs, and idsva_so there holds a
      band of a knot;
   2. each kernel against its plain PyTorch version on the same CUDA inputs,
@@ -35,7 +35,10 @@ Phases, one line each:
      atlas (28: idsva_so in bands, fdsva_so composed, also at 128 lanes)
      and on the counts built at first use: pendulum4, mixed5 and a
      20-joint chain (its sweeps at dt 0.002; in float64 idsva_so in bands
-     and fdsva_so composed, also at 128 lanes);
+     and fdsva_so composed, also at 128 lanes); then minv (dense and the
+     upper factor, +0 below its diagonal) and crba on iiwa, hyq,
+     gym_humanoid and atlas at 1, G + 1 and 37 lanes (a block's one knot,
+     a ragged second block), one launch a call;
   3. the same in float32 (tolerances below): fd_du and fdsva_so at 37
      lanes on iiwa, hyq, gym_ant and dm_quadruped; with each kernel's and
      plain version's device time from CUDA events: the config-3 kernels and the
@@ -695,6 +698,39 @@ def main():
         r: humanoids[r] for r in ROBOTS5}})
     line("small_f64_new_joint_counts", {"B": 37, "N": 8, "robots": {
         r: humanoids[r] for r in ROBOTS_NEW}, "elapsed_s": elapsed()})
+
+    # minv (dense and the upper factor) and crba, a thread group a knot, G
+    # knots a block: a block's one knot, a ragged second block (G + 1) and
+    # 37 lanes, each call one launch, within 1e-9 of each output's scale
+    ragged = {}
+    for robot in ("iiwa", "hyq") + ROBOTS5:
+        m = build_model(load_robot(robot), dtype=torch.float64, device=dev)
+        for case in ("minv", "minv_upper", "crba"):
+            g = build.plan(case_kernel[case], m.n,
+                           torch.float64)["knots_per_block"]
+            for lanes in (1, g + 1, 37):
+                args = lane_cases(m, lanes, seed=3)[case]
+                kern, plain = case_fns[case_kernel[case]]
+                build.reset_counters()
+                out = kern(*args)
+                torch.cuda.synchronize()
+                what = f"{robot} {case} L={lanes}"
+                if dict(build.LAUNCHES) != {case_kernel[case]: 1}:
+                    raise AssertionError(f"{what}: launches "
+                                         f"{dict(build.LAUNCHES)}")
+                ref = plain(*args)
+                err = max_err((out,), (ref,))
+                tol = 1e-9 * max(1.0, float(ref.abs().max()))
+                if out.shape != ref.shape or not err <= tol:
+                    raise AssertionError(f"{what} float64: max abs err {err} "
+                                         f"> {tol}")
+                if case == "minv_upper":
+                    lo = out.permute(2, 0, 1).tril(-1)
+                    if bool(lo.any()) or bool(torch.signbit(lo).any()):
+                        raise AssertionError(f"{what}: not +0 below the "
+                                             f"diagonal")
+                ragged[what] = {"max_abs_err": err, "tol": tol}
+    line("minv_crba_f64_ragged", {"cases": ragged, "elapsed_s": elapsed()})
 
     # -- phase 3: config-3 shapes, float32 ----------------------------------
     m32 = build_model(topo, dtype=torch.float32, device=dev)

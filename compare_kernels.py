@@ -10,8 +10,8 @@ Each DIR is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive``), named by its directory. The
 kernels (``--kernels``, any of fd_du, fdsva_so, idsva_so,
 riccati_factored, linesearch, riccati, rollout, feedback_rollout, id_du,
-d2eepos, rnea (its bias form too), aba, fd, eepos and the kernels of a
-thread a lane, minv (dense), crba and deepos; by default
+d2eepos, rnea (its bias form too), aba, fd, eepos, minv (dense), crba and
+the kernel of a thread a lane, deepos; by default
 riccati_factored, linesearch, riccati and rollout) are compiled from every
 tree's ``csrc/`` with nvcc for sm_90a, one library per joint count and
 tree (the counts of JOINTS that the tree's ``build.py`` lists, the sources
@@ -46,7 +46,9 @@ the robot's constants and lists). fd, eepos, minv, crba and deepos also
 get the cycles of their serial function (dynamics.cuh: fd_lane,
 ee_pose_lane, minv_lane, crba_lane, ee_jac_lane) on lane 0 of a thread a
 lane, and the time through this tree's wrapper (ops/cuda/kernels.py, as
-the GRiD API calls it). For the rollout and the feedback
+the GRiD API calls it); crba on iiwa at 1 and 1024 lanes also the time of
+the crba wrapper followed by torch.linalg.inv of M, Minv by two calls
+(`crba_inv_ms`). For the rollout and the feedback
 rollout it also times this tree's block shapes (threads a rollout x
 problems a block, csrc/sweep_warp.cuh: RollShape; those that fit an SM),
 for idsva_so its knot
@@ -54,12 +56,12 @@ shapes (threads a knot x knots a block, csrc/warp.cuh: KnotShape; those
 that fit an SM; as many blocks as the card holds, each taking every
 gridDim.x-th group of lanes, and a block a group), for id_du one and two
 column passes, for d2eepos its shapes (threads a lane x lanes a block,
-staged or direct stores), for rnea, aba, fd and eepos theirs (threads a
-knot x knots a block, LANE_SHAPES), at every shape of the kernel, against
-the plan's output. ``--sass`` compiles the named kernels' sources in every tree
-too and compares this tree's machine code with the first other tree's
-(``cuobjdump -sass`` of each object, float and double, at each joint
-count), without timing them.
+staged or direct stores), for rnea, aba, fd, eepos, minv and crba theirs
+(threads a knot x knots a block, LANE_SHAPES), at every shape of the
+kernel, against the plan's output. ``--sass`` compiles the named kernels'
+sources in every tree too and compares this tree's machine code with the
+first other tree's (``cuobjdump -sass`` of each object, float and double,
+at each joint count), without timing them.
 Needs one NVIDIA GPU and nvcc.
 """
 
@@ -89,15 +91,17 @@ SOURCES = {"fd_du": "fd_du.cu", "fdsva_so": "fdsva_so.cu",
            "rnea_bias": "rnea.cu", "aba": "aba.cu", "fd": "fd.cu",
            "eepos": "eepos.cu", "minv": "minv.cu", "crba": "crba.cu",
            "deepos": "deepos.cu"}
-# the kernels of a knot a thread group, on (n, lanes) inputs (d2eepos and
-# eepos: q only; rnea_bias: q and qd, rnea's bias form, timed wherever rnea
-# is); and the kernels of a thread a lane (minv dense, crba, deepos: q only)
+# the kernels of a knot a thread group, on (n, lanes) inputs (d2eepos,
+# eepos, minv (dense) and crba: q only; rnea_bias: q and qd, rnea's bias
+# form, timed wherever rnea is); and the kernel of a thread a lane (deepos:
+# q only)
 KNOT_KERNELS = ("fd_du", "fdsva_so", "idsva_so", "id_du", "d2eepos", "rnea",
-                "rnea_bias", "aba", "fd", "eepos")
-LANE_KERNELS = ("minv", "crba", "deepos")
+                "rnea_bias", "aba", "fd", "eepos", "minv", "crba")
+LANE_KERNELS = ("deepos",)
 # the phase clock's knot programs (PHASE_CLOCK_CU: phase_clock's mode)
 CLOCK_MODE = {"fd_du": 0, "fdsva_so": 1, "idsva_so": 2, "id_du": 3,
-              "rnea": 4, "rnea_bias": 5, "aba": 6, "fd": 7}
+              "rnea": 4, "rnea_bias": 5, "aba": 6, "fd": 7, "minv": 8,
+              "crba": 9}
 # the serial lane functions clocked a thread a lane (PHASE_CLOCK_CU:
 # lane_clock's mode): fd_lane, ee_pose_lane, minv_lane, crba_lane,
 # ee_jac_lane
@@ -118,9 +122,9 @@ DEFAULT_KERNELS = "riccati_factored,linesearch,riccati,rollout"
 # 16384 lanes on the trees (gym_ant: its EEs welded to the base, zeros only);
 # rnea (with qdd and the bias form) and aba at 1, 1024 and 131072 iiwa
 # lanes, 16384 on hyq, at 1 (config 5's plant) and 1024 on atlas and (aba)
-# gym_humanoid; fd and eepos at 1 (configs 1 and 2), 1024 and 131072 iiwa
-# lanes, hyq at 16384 (fd) and 1024 (eepos: 4 EEs), atlas at 1 and 1024;
-# minv, crba and deepos at 1, 1024 and 131072 iiwa lanes
+# gym_humanoid; fd, minv and crba at 1 (configs 1 and 2), 1024 and 131072
+# iiwa lanes, hyq at 16384, atlas at 1 and 1024; eepos at those but hyq's
+# 1024 (4 EEs); deepos at 1, 1024 and 131072 iiwa lanes
 SHAPES = [("fd_du", "iiwa", 131072), ("fd_du", "iiwa", 1024),
           ("fd_du", "iiwa", 32768), ("fd_du", "gym_ant", 16384),
           ("fd_du", "hyq", 16384), ("fd_du", "dm_quadruped", 16384),
@@ -161,9 +165,9 @@ SHAPES += [(what, robot, lanes) for what in ("rnea", "rnea_bias", "aba")
                                 ("hyq", 16384), ("atlas", 1), ("atlas", 1024),
                                 ("gym_humanoid", 1), ("gym_humanoid", 1024))
            if what == "aba" or robot != "gym_humanoid"]
-SHAPES += [(what, robot, lanes) for what in ("fd", "eepos")
+SHAPES += [(what, robot, lanes) for what in ("fd", "eepos", "minv", "crba")
            for robot, lanes in (("iiwa", 1), ("iiwa", 1024), ("iiwa", 131072),
-                                ("hyq", 16384 if what == "fd" else 1024),
+                                ("hyq", 1024 if what == "eepos" else 16384),
                                 ("atlas", 1), ("atlas", 1024))]
 SHAPES += [(what, "iiwa", lanes) for what in LANE_KERNELS
            for lanes in (1, 1024, 131072)]
@@ -181,8 +185,9 @@ IDU_PASSES = (1, 2)
 # d2eepos's shapes timed beside its plan: (threads a lane, lanes a block),
 # each with the staged and the direct stores
 D2_SHAPES = ((8, 8), (8, 16), (16, 4), (16, 8), (32, 4), (32, 8))
-# rnea's, aba's, fd's and eepos's shapes timed beside their plans: (threads
-# a knot, knots a block), whole warps a block; those that fit an SM
+# rnea's, aba's, fd's, eepos's, minv's and crba's shapes timed beside their
+# plans: (threads a knot, knots a block), whole warps a block; those that
+# fit an SM
 LANE_SHAPES = ((8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 1), (32, 2),
                (32, 4), (32, 8))
 # eepos's also with 4 threads a lane (a phase has at most 12 items) and 16
@@ -210,6 +215,8 @@ PHASE_CLOCK_CU = r"""
 #include "aba.cu"
 #include "fd.cu"
 #include "eepos.cu"
+#include "minv.cu"
+#include "crba.cu"
 
 extern __shared__ double gt_smem[];
 
@@ -231,7 +238,8 @@ struct ClockPar {
 };
 
 // the knot programs: MODE 0 fd_du, 1 fdsva_so, 2 idsva_so, 3 id_du (u as
-// qdd), 4 rnea (u as qdd), 5 rnea's bias form, 6 aba, 7 fd
+// qdd), 4 rnea (u as qdd), 5 rnea's bias form, 6 aba, 7 fd, 8 minv
+// (dense), 9 crba
 template <int MODE, typename T, int NJ>
 struct KnotPlanOf {
   using type = gt::IDUPlan<T, NJ>;
@@ -264,6 +272,14 @@ template <typename T, int NJ>
 struct KnotPlanOf<7, T, NJ> {
   using type = gt::FDPlanQ<T, NJ>;
 };
+template <typename T, int NJ>
+struct KnotPlanOf<8, T, NJ> {
+  using type = gt::MinvPlan<T, NJ>;
+};
+template <typename T, int NJ>
+struct KnotPlanOf<9, T, NJ> {
+  using type = gt::CRBAPlan<T, NJ>;
+};
 template <int MODE, typename T, int NJ>
 using KnotPlan = typename KnotPlanOf<MODE, T, NJ>::type;
 
@@ -278,11 +294,11 @@ __global__ void clocked(const T* model, const T* q, const T* qd, const T* u,
   T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
   const int tid = threadIdx.x, G = blockDim.x / N;
   const long long c0 = clock64();
-  if constexpr (MODE >= 4)   // rnea, aba, fd: the tree's lists, in parallel
+  if constexpr (MODE >= 4)   // rnea, aba, fd, minv, crba: the tree's lists
     H.R.load_tree(model, tid, blockDim.x);
   else
     H.R.load(model, tid, blockDim.x);
-  gt::load_inputs<T, NJ, S, MODE == 5 ? 2 : 3>(
+  gt::load_inputs<T, NJ, S, MODE >= 8 ? 1 : MODE == 5 ? 2 : 3>(
       q, qd, u, L, (long long)blockIdx.x * G, G, knots, tid, blockDim.x);
   __syncthreads();
   if (SO && tid == 0) H.lists.build(H.R);
@@ -292,7 +308,11 @@ __global__ void clocked(const T* model, const T* q, const T* qd, const T* u,
   int count = 0;
   const ClockPar<N> par{tid % N, 1 + tid / N, first ? rec : nullptr, &count};
   T* k = knots + (long long)(tid / N) * S;
-  if constexpr (MODE == 7)
+  if constexpr (MODE == 9)
+    gt::crba_knot<T, NJ>(par, H.R, k);
+  else if constexpr (MODE == 8)
+    gt::minv_knot<true, T, NJ>(par, H.R, k);
+  else if constexpr (MODE == 7)
     gt::fd_knot<T, NJ>(par, H.R, k, gravity);
   else if constexpr (MODE == 6)
     gt::aba_knot<T, NJ>(par, H.R, k, gravity);
@@ -345,6 +365,8 @@ extern "C" int phase_clock(int mode, int nj, const void* model,
   if (mode == 5) return knot_clock<5>(model, q, qd, u, L, rec, phases, knot);
   if (mode == 6) return knot_clock<6>(model, q, qd, u, L, rec, phases, knot);
   if (mode == 7) return knot_clock<7>(model, q, qd, u, L, rec, phases, knot);
+  if (mode == 8) return knot_clock<8>(model, q, qd, u, L, rec, phases, knot);
+  if (mode == 9) return knot_clock<9>(model, q, qd, u, L, rec, phases, knot);
   return knot_clock<3>(model, q, qd, u, L, rec, phases, knot);
 }
 
@@ -411,9 +433,9 @@ extern "C" int lane_clock(int mode, int nj, const void* model,
   return lane_clock_launch<4>(model, ee, ne, q, qd, u, out, L, cycles);
 }
 
-// rnea (kind 0; bias: its bias form, qdd null), aba (1) and fd (2) at
-// shape (lanes threads a knot, g knots a block), float32; a shape that does
-// not fit an SM is not built
+// rnea (kind 0; bias: its bias form, qdd null), aba (1), fd (2), minv (3,
+// dense) and crba (4) at shape (lanes threads a knot, g knots a block),
+// float32; a shape that does not fit an SM is not built
 template <int W, int G>
 static int lane_shape_launch(int kind, int bias, const void* model,
                              const void* q, const void* qd, const void* x,
@@ -425,7 +447,19 @@ static int lane_shape_launch(int kind, int bias, const void* model,
                            gt::ABAKnot<NJ>::SIZE, W, G>;
   using PF = gt::KnotShape<float, gt::RobotConst<float, NJ>,
                            gt::FDQKnot<NJ>::SIZE, W, G>;
+  using PM = gt::KnotShape<float, gt::RobotConst<float, NJ>,
+                           gt::MinvKnot<NJ>::SIZE, W, G>;
+  using PC = gt::KnotShape<float, gt::RobotConst<float, NJ>,
+                           gt::CRBAKnot<NJ>::SIZE, W, G>;
   if constexpr (W * G > 512 || W * G % 32 != 0) {
+    return (int)cudaErrorInvalidConfiguration;
+  } else if (kind == 4) {
+    if constexpr (PC::BYTES <= gt::SMEM_LIMIT)
+      return launch_crba<float, NJ, PC>(model, q, out, L, 0);
+    return (int)cudaErrorInvalidConfiguration;
+  } else if (kind == 3) {
+    if constexpr (PM::BYTES <= gt::SMEM_LIMIT)
+      return launch_minv<float, NJ, PM>(model, q, out, L, 1, 0);
     return (int)cudaErrorInvalidConfiguration;
   } else if (kind == 2) {
     if constexpr (PF::BYTES <= gt::SMEM_LIMIT)
@@ -1060,7 +1094,8 @@ KERNEL_NAMES = ("fd_du_kernel", "fdsva_so_kernel", "riccati_factored_kernel",
                 "linesearch_kernel", "riccati_kernel", "rollout_kernel",
                 "riccati_dense_kernel", "idsva_so_kernel",
                 "feedback_rollout_kernel", "id_du_kernel", "d2eepos_kernel",
-                "rnea_kernel", "aba_kernel", "fd_kernel", "eepos_kernel")
+                "rnea_kernel", "aba_kernel", "fd_kernel", "eepos_kernel",
+                "minv_kernel", "crba_kernel")
 
 
 def parse_ptxas(text: str) -> dict:
@@ -1069,9 +1104,9 @@ def parse_ptxas(text: str) -> dict:
     (fd_du, fdsva_so, idsva_so, riccati_factored, linesearch_ee,
     linesearch_quad, riccati_stationary, riccati_stacked, rollout,
     feedback_rollout, id_du, d2eepos, rnea (with qdd), rnea_bias, aba, fd,
-    eepos; an earlier tree's riccati_dense and its per-lane idsva_so,
-    feedback_rollout, id_du, d2eepos, rnea, aba, fd and eepos) in ptxas's
-    report."""
+    eepos, minv (dense), minv_upper, crba; an earlier tree's riccati_dense
+    and its per-lane idsva_so, feedback_rollout, id_du, d2eepos, rnea, aba,
+    fd, eepos, minv and crba) in ptxas's report."""
     def key(mangled):
         m = re.match(r"_Z\d+(\w+?_kernel)I([fd])Li(\d+)E", mangled)
         if not m or m.group(1) not in KERNEL_NAMES:
@@ -1083,6 +1118,8 @@ def parse_ptxas(text: str) -> dict:
             name += "_stationary" if "Lb1E" in mangled else "_stacked"
         if name == "rnea" and "RneaModeE0E" in mangled:   # RNEA_BIAS
             name += "_bias"
+        if name == "minv" and mangled[m.end():].startswith("Lb0E"):
+            name += "_upper"   # the upper factor's instance
         return f"{name} {'f32' if m.group(2) == 'f' else 'f64'} nj{m.group(3)}"
 
     stats, cur, props = {}, None, None
@@ -1792,11 +1829,12 @@ def main():
                     "max_abs_diff_vs_plan": float(
                         (out - run["this"][1][0]).abs().max())}
             del out
-        if what in ("rnea", "rnea_bias", "aba", "fd", "eepos"):
+        if what in ("rnea", "rnea_bias", "aba", "fd", "eepos", "minv",
+                    "crba"):
             # the shapes against the plan
             out = torch.empty_like(run["this"][1][0])
             shapes = {}
-            kind = {"aba": 1, "fd": 2}.get(what, 0)
+            kind = {"aba": 1, "fd": 2, "minv": 3, "crba": 4}.get(what, 0)
             for w, g in EE_SHAPES if what == "eepos" else LANE_SHAPES:
                 def shape_fn():
                     if what == "eepos":
@@ -1835,8 +1873,14 @@ def main():
             row["serial_cycles"] = int(knot[0])
             row["wrapper_ms"] = time_cuda(wrapper_fn, iters=iters)
             del scratch_out
+        if what == "crba" and robot == "iiwa" and lanes <= 1024:
+            # Minv by two calls: the crba kernel, then torch.linalg.inv
+            row["crba_inv_ms"] = time_cuda(
+                lambda: torch.linalg.inv(K.crba(m, q).permute(2, 0, 1)),
+                iters=iters)
         if what in ("rollout", "feedback_rollout", "idsva_so", "id_du",
-                    "d2eepos", "rnea", "rnea_bias", "aba", "fd", "eepos"):
+                    "d2eepos", "rnea", "rnea_bias", "aba", "fd", "eepos",
+                    "minv", "crba"):
             row["block_shapes"] = shapes
         if what in KNOT_KERNELS:
             row["phase_cycles"] = cyc

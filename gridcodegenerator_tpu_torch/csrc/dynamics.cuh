@@ -1,9 +1,9 @@
 // Per-lane rigid-body dynamics for the port's CUDA kernels.
 //
 // Every kernel of this library but the thread-group ones (csrc/warp.cuh:
-// fd_du, fdsva_so, idsva_so, id_du, rnea, fd, eepos and d2eepos;
-// csrc/sweep_warp.cuh: the Riccati sweeps, the rollouts and aba) runs one
-// thread per problem lane (minv, crba, deepos); the
+// fd_du, fdsva_so, idsva_so, id_du, rnea, fd, minv, crba, eepos and
+// d2eepos; csrc/sweep_warp.cuh: the Riccati sweeps, the rollouts and aba)
+// runs one thread per problem lane (deepos); the
 // functions here are that thread's algebra (and the thread-group kernels'
 // serial reference), written for one lane in scalar
 // code: spatial algebra, joint transforms, RNEA, the analytical ID gradient,

@@ -12,8 +12,8 @@
 //
 // Two counts per kernel:
 // * executed: every operation the kernel's lane code does (fd_du, fdsva_so,
-//   idsva_so, id_du, rnea, fd, eepos and d2eepos: every thread of the
-//   knot's group, warp.cuh; the Riccati sweeps, the rollouts, open-loop,
+//   idsva_so, id_du, rnea, fd, minv, crba, eepos and d2eepos: every thread
+//   of the knot's group, warp.cuh; the Riccati sweeps, the rollouts, open-loop,
 //   feedback and line search, and aba: every thread of the problem's,
 //   rollout's or knot's group, sweep_warp.cuh);
 // * needed: the arithmetic of the function, the bound's numerator. Constants
@@ -311,14 +311,24 @@ long long count(int kernel, const double* model, const double* ee, int ne,
         aba_host<C, NJ>(m.data(), a.data(), b.data(), c.data(), x.data(), 1,
                         g);
       break;
-    case MINV: minv_lane<C, NJ>(R, a.data(), true, x.data()); break;
+    case MINV:   // executed: the knot's threads, every phase (dense)
+      if (needed)
+        minv_lane<C, NJ>(R, a.data(), true, x.data());
+      else
+        minv_host<C, NJ>(m.data(), a.data(), x.data(), 1, true);
+      break;
     case FD:   // executed: the knot's threads, every phase
       if (needed)
         fd_lane<C, NJ>(R, a.data(), b.data(), c.data(), g, x.data());
       else
         fd_host<C, NJ>(m.data(), a.data(), b.data(), c.data(), x.data(), 1, g);
       break;
-    case CRBA: crba_lane<C, NJ>(R, a.data(), x.data()); break;
+    case CRBA:   // executed: the knot's threads, every phase
+      if (needed)
+        crba_lane<C, NJ>(R, a.data(), x.data());
+      else
+        crba_host<C, NJ>(m.data(), a.data(), x.data(), 1);
+      break;
     case EEPOS:   // executed: the lane's group, every phase, every EE
       if (needed)
         ee_pose_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1);

@@ -704,39 +704,25 @@ struct FDView {
   T* XU;     // (NJ, 6) X^T U
 };
 
-// qdd = Minv (u - c) of the knot at the caller's view `K`: the first half of
-// fd_du's program, which fd runs alone (dynamics.cuh:fd_from_x's
-// arithmetic, split over the knot's threads). The joint transforms, a joint
-// a thread; the bias RNEA on the caller's view `rv` and level count
-// (rnea_forward_knot<RNEA_BIAS>, rnea_backward_knot); Carpentier's Minv on
-// the same transforms, its backward pass and then its forward pass, a level
-// of the tree a phase, into the upper factor; then qdd a joint a thread,
-// reading the upper factor only (with MIRROR the same phase mirrors it into
-// the dense Minv). The phases of a joint a thread loop over the knot's
-// threads, so a knot may have fewer threads than joints. It reads the
-// constants and the tree's levels and children (RobotConst::load_tree), not
-// the related lists. Force-inlined, and its pointers come from the caller:
-// fd_du_knot forms them at the top of its program, in the order of its
-// machine code before the passes were shared (with the pointers formed
-// here, fd_du's SASS moved at every joint count; PERF.md, Findings).
-template <typename T, int NJ, bool MIRROR, class Rb, class Par>
-GT_HDI void fd_qdd_knot(const Par& par, const Rb& R, const FDView<T>& K,
-                        const RneaView<T>& rv, int nlev) {
+// Carpentier's Minv of the knot at the caller's view `K` (its q, Mi, X and
+// Minv's work space; the fields of the bias RNEA are not read), split into
+// three force-inlined parts that fd_qdd_knot and minv_knot run alike:
+// minv_setup_knot, one phase: the joint transforms, a joint a thread, and
+// IA = I, F = 0; minv_backward_knot, two phases a level, deepest first,
+// into every entry of the factor's rows (entries left of the diagonal, where
+// subtree(i, cc) is 0, come out +-0); minv_forward_knot, two phases a level
+// (one at the root, none for the last level's F), the entries cc >= i of
+// the upper factor. The phases of a joint a thread loop over the knot's
+// threads, so a knot may have fewer threads than joints. They read the
+// constants and the tree's levels and children (RobotConst::load_tree),
+// not the related lists.
+template <typename T, int NJ, class Rb, class Par>
+GT_HDI void minv_setup_knot(const Par& par, const Rb& R, const FDView<T>& K) {
   constexpr int W = Par::LANES;
   const T* q = K.q;
-  const T* qd = K.qd;
-  const T* u = K.u;
-  T* qdd = K.qdd;
-  T* Mi = K.Mi;
   T* X = K.X;
-  const T* f = K.f;
-  T* c = K.c;
   T* IA = K.IA;
   T* FM = K.FM;
-  T* UU = K.UU;
-  T* Dinv = K.Dinv;
-  T* tmp = K.tmp;
-  T* XU = K.XU;
 
   // joint transforms (a joint a thread); Minv's IA and F set up
   par([&](int t) {
@@ -746,23 +732,33 @@ GT_HDI void fd_qdd_knot(const Par& par, const Rb& R, const FDView<T>& K,
     for (int e = t; e < 36 * NJ; e += W) IA[e] = R.Imat(0)[e];
     for (int e = t; e < 6 * NJ * NJ; e += W) FM[e] = T(0);
   });
+}
 
-  rnea_forward_knot<RNEA_BIAS, T, NJ>(par, R, rv, nlev);
-  rnea_backward_knot<T>(par, R, rv, nlev);
+// The backward pass; `first(d)` deals more items to the knot's threads in
+// the pass's first phase (fd: the bias forces c; minv: none).
+template <typename T, int NJ, class Rb, class Par, class First>
+GT_HDI void minv_backward_knot(const Par& par, const Rb& R,
+                               const FDView<T>& K, int nlev, First&& first) {
+  constexpr int W = Par::LANES;
+  T* Mi = K.Mi;
+  T* X = K.X;
+  T* IA = K.IA;
+  T* FM = K.FM;
+  T* UU = K.UU;
+  T* Dinv = K.Dinv;
+  T* tmp = K.tmp;
+  T* XU = K.XU;
 
   // Minv, backward pass (deepest level first): (A) per joint i of the
   // level, row i of the factor M_i, U_i, Dinv_i, X_i^T U_i and tmp_i =
-  // X_i^T IA_i (the first such phase also takes the bias forces c); (B)
-  // over the children c of each parent p, IA_p += X_c^T (IA_c - U_c
+  // X_i^T IA_i (the first such phase also takes the caller's first items);
+  // (B) over the children c of each parent p, IA_p += X_c^T (IA_c - U_c
   // Dinv_c U_c^T) X_c = tmp_c X_c - (X_c^T U_c) Dinv_c (X_c^T U_c)^T and
   // F_p += X_c^T (F_c + U_c M_c) = X_c^T F_c + (X_c^T U_c) M_c.
   for (int l = nlev - 1; l >= 0; --l) {
     par([&](int t) {
       Deal<W> d{t, 0};
-      if (l == nlev - 1)
-        d(NJ, [&](int i) {
-          c[i] = f[6 * i + R.sind[i]] + R.damping(i) * qd[i];
-        });
+      if (l == nlev - 1) first(d);
       level<NJ>(d, R, l, [&](int i, int cc) {
         const int s = R.sind[i];
         const T di = T(1) / IA[36 * i + s * 6 + s];
@@ -800,6 +796,19 @@ GT_HDI void fd_qdd_knot(const Par& par, const Rb& R, const FDView<T>& K,
       });
     });
   }
+}
+
+// The forward pass.
+template <typename T, int NJ, class Rb, class Par>
+GT_HDI void minv_forward_knot(const Par& par, const Rb& R, const FDView<T>& K,
+                              int nlev) {
+  constexpr int W = Par::LANES;
+  T* Mi = K.Mi;
+  T* X = K.X;
+  T* FM = K.FM;
+  T* Dinv = K.Dinv;
+  T* XU = K.XU;
+
   // forward pass (level by level), columns cc >= i: M_i += -Dinv_i (X_i^T
   // U_i) . F_p, then F_i = X_i F_p + e_s M_i
   for (int l = 0; l < nlev; ++l) {
@@ -829,6 +838,39 @@ GT_HDI void fd_qdd_knot(const Par& par, const Rb& R, const FDView<T>& K,
       });
     });
   }
+}
+
+// qdd = Minv (u - c) of the knot at the caller's view `K`: the first half of
+// fd_du's program, which fd runs alone (dynamics.cuh:fd_from_x's
+// arithmetic, split over the knot's threads). Carpentier's Minv set up
+// (the joint transforms, a joint a thread); the bias RNEA on the caller's
+// view `rv` and level count (rnea_forward_knot<RNEA_BIAS>,
+// rnea_backward_knot); Minv's backward pass, whose first phase also forms
+// the bias forces c, and its forward pass, into the upper factor; then qdd
+// a joint a thread, reading the upper factor only (with MIRROR the same
+// phase mirrors it into the dense Minv). Force-inlined, and its pointers
+// come from the caller: fd_du_knot forms them at the top of its program,
+// in the order of its machine code before the passes were shared (with the
+// pointers formed here, fd_du's SASS moved at every joint count; PERF.md,
+// Findings).
+template <typename T, int NJ, bool MIRROR, class Rb, class Par>
+GT_HDI void fd_qdd_knot(const Par& par, const Rb& R, const FDView<T>& K,
+                        const RneaView<T>& rv, int nlev) {
+  constexpr int W = Par::LANES;
+  const T* qd = K.qd;
+  const T* u = K.u;
+  T* qdd = K.qdd;
+  T* Mi = K.Mi;
+  const T* f = K.f;
+  T* c = K.c;
+
+  minv_setup_knot<T, NJ>(par, R, K);
+  rnea_forward_knot<RNEA_BIAS, T, NJ>(par, R, rv, nlev);
+  rnea_backward_knot<T>(par, R, rv, nlev);
+  minv_backward_knot<T, NJ>(par, R, K, nlev, [&](Deal<W>& d) {
+    d(NJ, [&](int i) { c[i] = f[6 * i + R.sind[i]] + R.damping(i) * qd[i]; });
+  });
+  minv_forward_knot<T, NJ>(par, R, K, nlev);
   // qdd = Minv (u - c), a joint a thread, reading the upper factor only
   // (MIRROR: and Minv dense, the upper factor mirrored)
   par([&](int t) {
@@ -937,6 +979,159 @@ GT_HD void fd_knot(const Par& par, const Rb& R, T* k, T gravity) {
                     k + O::IA, k + O::FM, k + O::UU,   k + O::DINV,
                     k + O::TMP, k + O::XU};
   fd_qdd_knot<T, NJ, false>(par, R, K, rv, R.nlev);
+}
+
+// ---------------------------------------------------------------------------
+// minv: one knot's state and program, fd's Minv passes alone
+// ---------------------------------------------------------------------------
+
+// The knot's input q, its output Minv (NJ, NJ), the joint transforms and
+// Minv's IA, F, U, Dinv, temporaries and X^T U: 7 NJ^2 + 122 NJ values
+// (1197 at 7 joints, 4.8 KB in float32; 8904 at 28, 35.6 KB | 71.2 KB in
+// float32 | float64).
+template <int NJ>
+struct MinvKnot {
+  static constexpr int Q = 0;
+  static constexpr int MI = Q + NJ;            // (NJ, NJ)
+  static constexpr int X = MI + NJ * NJ;       // (NJ, 36)
+  static constexpr int IA = X + 36 * NJ, FM = IA + 36 * NJ;
+  static constexpr int UU = FM + 6 * NJ * NJ, DINV = UU + 6 * NJ;
+  static constexpr int TMP = DINV + NJ, XU = TMP + 36 * NJ;
+  static constexpr int SIZE = XU + 6 * NJ;
+};
+
+// Minv of the knot whose q sits at MinvKnot's offsets in `k`
+// (dynamics.cuh:minv_lane, split over the knot's threads): the Minv passes
+// of fd_qdd_knot (minv_setup_knot, minv_backward_knot, minv_forward_knot),
+// then one phase over the entries below the diagonal: DENSE mirrors the
+// upper factor there (fd_du's Minv bit for bit), else exact zeros (+0, as
+// minv_upper and the JAX minv(dense=False) give; the backward pass leaves
+// +-0 there). A tree of L levels takes 4 L phases (iiwa 28, hyq 12, atlas
+// 36).
+template <bool DENSE, typename T, int NJ, class Rb, class Par>
+GT_HD void minv_knot(const Par& par, const Rb& R, T* k) {
+  using O = MinvKnot<NJ>;
+  constexpr int W = Par::LANES;
+  T* Mi = k + O::MI;
+  const FDView<T> K{k + O::Q,  nullptr,   nullptr,    nullptr,
+                    Mi,        k + O::X,  nullptr,    nullptr,
+                    k + O::IA, k + O::FM, k + O::UU,  k + O::DINV,
+                    k + O::TMP, k + O::XU};
+  const int nlev = R.nlev;
+  minv_setup_knot<T, NJ>(par, R, K);
+  minv_backward_knot<T, NJ>(par, R, K, nlev, [](Deal<W>&) {});
+  minv_forward_knot<T, NJ>(par, R, K, nlev);
+  par([&](int t) {
+    for (int e = t; e < NJ * NJ; e += W) {
+      const int r = e / NJ, cc = e % NJ;
+      if (r > cc) Mi[e] = DENSE ? Mi[cc * NJ + r] : T(0);
+    }
+  });
+}
+
+// ---------------------------------------------------------------------------
+// crba: one knot's state and program, a level of the tree a phase
+// ---------------------------------------------------------------------------
+
+// The knot's input q, its output M (NJ, NJ), the joint transforms, the
+// composite inertias Ic (NJ, 36), and two buffers each of the columns'
+// composite forces f (NJ, 6) and their current joints J (NJ; a joint id as
+// T): NJ^2 + 87 NJ values (658 at 7 joints, 2.6 KB in float32; 3220 at 28,
+// 12.9 KB | 25.8 KB in float32 | float64).
+template <int NJ>
+struct CRBAKnot {
+  static constexpr int Q = 0;
+  static constexpr int M = Q + NJ;             // (NJ, NJ)
+  static constexpr int X = M + NJ * NJ;        // (NJ, 36)
+  static constexpr int IC = X + 36 * NJ;       // (NJ, 36)
+  static constexpr int F = IC + 36 * NJ;       // (2, NJ, 6)
+  static constexpr int J = F + 12 * NJ;        // (2, NJ)
+  static constexpr int SIZE = J + 2 * NJ;
+};
+
+// M of the knot whose q sits at CRBAKnot's offsets in `k`
+// (dynamics.cuh:crba_lane, split over the knot's threads), the serial
+// function's bits: every value is summed in crba_lane's order. A first
+// phase forms the joint transforms (a joint a thread), Ic = I and M = 0.
+// Then one phase a level l from the deepest up to 1 does two things at
+// once: (1) each row r of each parent p on level l - 1 adds its children c
+// of level l in descending order, Ic_p[r, :] += (X_c^T Ic_c)[r, :] X_c (the
+// row of X_c^T Ic_c formed by the row's thread, as XTMX_add forms it); (2)
+// every column i of M whose current joint j is on level l (the columns of
+// the joints on levels >= l) steps to j's parent p, an entry of f a
+// thread: f = X_j^T f, starting from f = Ic_i[:, s_i] at j = i (complete:
+// the phase before added its children), then M[p, i] = M[i, p] = f[s_p]
+// (and M[i, i] = f[s_i] where the column starts). The steps read one
+// buffer of f and J and write the other. A last phase sets M[i, i] of the
+// joints on the base. A tree of L levels takes L + 1 phases (iiwa 8, hyq
+// 4, atlas 10); a branched tree walks its legs in the same phases.
+template <typename T, int NJ, class Rb, class Par>
+GT_HD void crba_knot(const Par& par, const Rb& R, T* k) {
+  using O = CRBAKnot<NJ>;
+  constexpr int W = Par::LANES;
+  const T* q = k + O::Q;
+  T* M = k + O::M;
+  T* X = k + O::X;
+  T* Ic = k + O::IC;
+  const int nlev = R.nlev;
+  par([&](int t) {
+    each_joint<NJ, W>(t, [&](int i) {
+      joint_xmat(R.Xtree(i), R.jtype[i], R.sind[i], q[i], X + 36 * i);
+    });
+    for (int e = t; e < 36 * NJ; e += W) Ic[e] = R.Imat(0)[e];
+    for (int e = t; e < NJ * NJ; e += W) M[e] = T(0);
+  });
+  for (int l = nlev - 1; l >= 1; --l) {
+    const int w = (nlev - 1 - l) & 1;   // the buffer this phase writes
+    T* fw = k + O::F + 6 * NJ * w;
+    const T* fr = k + O::F + 6 * NJ * (w ^ 1);
+    T* jw = k + O::J + NJ * w;
+    const T* jr = k + O::J + NJ * (w ^ 1);
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      children<6>(d, R, l, [&](int p, int r, int ch) {
+        const T* Xc = X + 36 * ch;
+        T tr[6];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int m = 0; m < 6; ++m) tr[m] = xcol(Xc, Ic + 36 * ch + m, r, 6);
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int cc = 0; cc < 6; ++cc) {
+          T acc = tr[0] * Xc[cc];
+          for (int m = 1; m < 6; ++m) acc += tr[m] * Xc[m * 6 + cc];
+          Ic[36 * p + r * 6 + cc] += acc;
+        }
+      });
+      const int c0 = R.lstart[l], c1 = R.lstart[l + 1];
+      d((NJ - c0) * 6, [&](int e) {
+        const int n = c0 + e / 6, r = e % 6;
+        const int i = R.ljoint[n];
+        const bool start = n < c1;   // i on level l: its column starts
+        const int j = start ? i : (int)jr[i];
+        const int p = R.parent[j];
+        const T x = start ? xcol(X + 36 * j, Ic + 36 * i + R.sind[i], r, 6)
+                          : xcol(X + 36 * j, fr + 6 * i, r);
+        fw[6 * i + r] = x;
+        if (r == R.sind[p]) {
+          M[p * NJ + i] = x;
+          M[i * NJ + p] = x;
+        }
+        if (r == 0) {
+          jw[i] = T(p);
+          if (start) M[i * NJ + i] = Ic[36 * i + R.sind[i] * 7];
+        }
+      });
+    });
+  }
+  par([&](int t) {
+    for (int n = t; n < R.lstart[1]; n += W) {
+      const int i = R.ljoint[n];
+      M[i * NJ + i] = Ic[36 * i + R.sind[i] * 7];
+    }
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -2125,6 +2320,43 @@ using FDPlanQ = KnotShape<
     best_knots(FDKnot1<T, NJ>::HEAD,
                FDKnot1<T, NJ>::STRIDE * (long long)sizeof(T), WARP,
                fd_regs<T>(), true)>;
+// minv's plan: fd's Minv phases, so fd's width, a warp a knot (16 threads
+// took 1.1x and 8 threads 1.7x a warp's time at 1 and 1024 iiwa lanes;
+// compare_kernels.py's shapes, PERF.md); G the largest power of 2 up to 8
+// that fits (its NJ^2 output rows are G consecutive lanes: 32-byte runs at
+// G = 8 in float32; at 28 joints 4 | 2 knots fit a block in float32 |
+// float64).
+template <typename T, int NJ>
+using MinvKnot1 = KnotShape<T, RobotConst<T, NJ>, MinvKnot<NJ>::SIZE, WARP,
+                            1>;
+template <typename T, int NJ>
+using MinvPlan = KnotShape<
+    T, RobotConst<T, NJ>, MinvKnot<NJ>::SIZE, WARP,
+    best_knots(MinvKnot1<T, NJ>::HEAD,
+               MinvKnot1<T, NJ>::STRIDE * (long long)sizeof(T), WARP,
+               fd_regs<T>(), true)>;
+// crba's plan: a phase has 6 items a column of the joints on its level and
+// below, and 6 rows of each parent; threads a knot by joint count
+// (crba_lanes), the width that ran fastest for the zoo's robot of that
+// count (compare_kernels.py's shapes; PERF.md): 16 on the chains of 2 and
+// 7 joints (iiwa: 1.06-1.08x a warp's time at 1 and 1024 lanes, but at
+// 131072 a warp took 1.6x and 8 threads 1.08x its time) and at 12 (hyq,
+// 16384 lanes), a warp otherwise (on atlas 16 threads took 1.3x a warp's
+// time); G the largest power of 2 up to 8 that fits (32-byte runs of its
+// output rows in either dtype).
+template <int NJ>
+GT_HDI constexpr int crba_lanes() {
+  return NJ == 2 || NJ == 7 || NJ == 12 ? 16 : WARP;
+}
+template <typename T, int NJ>
+using CRBAKnot1 = KnotShape<T, RobotConst<T, NJ>, CRBAKnot<NJ>::SIZE,
+                            crba_lanes<NJ>(), 1>;
+template <typename T, int NJ>
+using CRBAPlan = KnotShape<
+    T, RobotConst<T, NJ>, CRBAKnot<NJ>::SIZE, crba_lanes<NJ>(),
+    best_knots(CRBAKnot1<T, NJ>::HEAD,
+               CRBAKnot1<T, NJ>::STRIDE * (long long)sizeof(T),
+               crba_lanes<NJ>(), fd_regs<T>(), true)>;
 // eepos's plan: a phase has at most 12 items (an entry of rows 0-2 of a
 // 4x4 product), so 8 threads a lane (4 and 16 ran no faster at 131072 iiwa
 // lanes), G the largest power of 2 up to 8 that fits (each of the 6 output
@@ -2378,6 +2610,62 @@ void fd_host(const T* model, const T* q, const T* qd, const T* u, T* qdd,
       fd_knot<T, NJ>(HostPar<P::LANES>{}, R[0], kg, gravity);
     }
     store_rows<T, O::SIZE>(k.data() + O::QDD, NJ, qdd, L, l0, P::G, 0, 1);
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
+// minv's block code with the card's G, each block's valid knots in turn
+// (dense: the mirrored instance, else the upper factor's)
+template <typename T, int NJ>
+void minv_host(const T* model, const T* q, T* Mi, long long L, bool dense) {
+  using O = MinvKnot<NJ>;
+  using P = MinvPlan<PlanType<T>, NJ>;
+  static_assert(P::G >= 1, "one minv knot must fit");
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load_tree(model, 0, 1);
+  std::vector<T> k((long long)P::G * O::SIZE);
+  for (long long l0 = 0; l0 < L; l0 += P::G) {
+    for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+    load_q<T, NJ, O::SIZE>(q, L, l0, P::G, k.data(), 0, 1);
+    for (int g = 0; g < P::G && l0 + g < L; ++g) {
+      T* kg = k.data() + (long long)g * O::SIZE;
+#ifdef GT_RACE_CHECK
+      gt_race_watch(kg, O::SIZE * (long)sizeof(T));
+#endif
+      if (dense)
+        minv_knot<true, T, NJ>(HostPar<P::LANES>{}, R[0], kg);
+      else
+        minv_knot<false, T, NJ>(HostPar<P::LANES>{}, R[0], kg);
+    }
+    store_rows<T, O::SIZE>(k.data() + O::MI, NJ * NJ, Mi, L, l0, P::G, 0, 1);
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
+// crba's block code with the card's G, each block's valid knots in turn
+template <typename T, int NJ>
+void crba_host(const T* model, const T* q, T* M, long long L) {
+  using O = CRBAKnot<NJ>;
+  using P = CRBAPlan<PlanType<T>, NJ>;
+  static_assert(P::G >= 1, "one crba knot must fit");
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load_tree(model, 0, 1);
+  std::vector<T> k((long long)P::G * O::SIZE);
+  for (long long l0 = 0; l0 < L; l0 += P::G) {
+    for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+    load_q<T, NJ, O::SIZE>(q, L, l0, P::G, k.data(), 0, 1);
+    for (int g = 0; g < P::G && l0 + g < L; ++g) {
+      T* kg = k.data() + (long long)g * O::SIZE;
+#ifdef GT_RACE_CHECK
+      gt_race_watch(kg, O::SIZE * (long)sizeof(T));
+#endif
+      crba_knot<T, NJ>(HostPar<P::LANES>{}, R[0], kg);
+    }
+    store_rows<T, O::SIZE>(k.data() + O::M, NJ * NJ, M, L, l0, P::G, 0, 1);
   }
 #ifdef GT_RACE_CHECK
   gt_race_watch(nullptr, 0);

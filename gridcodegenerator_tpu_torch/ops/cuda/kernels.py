@@ -36,11 +36,12 @@ Lane-major tensors, L lanes on the trailing axis:
   contractions in torch (``fdsva_compose_lanes``).
 
 Kernels: ``csrc/<name>.cu``, one thread per lane, everything in registers
-and local memory (``minv``, ``crba``, ``deepos``); the others a thread
-group per lane (knot), its state in shared memory, G knots a block
-(``fd_du``, ``fdsva_so``, ``idsva_so``, ``id_du``, ``rnea``, ``fd`` (fd_du's
-bias and Minv passes), ``eepos`` and ``d2eepos`` on ``csrc/warp.cuh``;
-``aba`` on the rollouts' ABA phases, ``csrc/sweep_warp.cuh``).
+and local memory (``deepos``); the others a thread group per lane (knot),
+its state in shared memory, G knots a block (``fd_du``, ``fdsva_so``,
+``idsva_so``, ``id_du``, ``rnea``, ``fd`` (fd_du's bias and Minv passes),
+``minv`` (fd's Minv passes), ``crba`` (a level of the tree a phase),
+``eepos`` and ``d2eepos`` on ``csrc/warp.cuh``; ``aba`` on the rollouts'
+ABA phases, ``csrc/sweep_warp.cuh``).
 Inputs are read and outputs written along the lane axis, so every access
 is coalesced. What bounds them on the card: arithmetic and
 the local memory that holds each lane's joint transforms, inertias and
@@ -50,9 +51,9 @@ second-order outputs (4 n^3 values a lane; d2eepos 6 n^2 per EE), whose
 writes are the least time.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-or raises: the thread-group kernels (fd_du, rnea, id_du, aba, fd, eepos,
-idsva_so, fdsva_so, d2eepos) check their instance's block plan first, and
-refuse, before any launch, one whose knot does not fit a block
+or raises: the thread-group kernels (fd_du, rnea, id_du, aba, minv, fd,
+crba, eepos, idsva_so, fdsva_so, d2eepos) check their instance's block plan
+first, and refuse, before any launch, one whose knot does not fit a block
 (``build.fits``).
 idsva_so runs its tile in bands where a knot's whole tile does not fit,
 and fdsva_so takes the composed route: every fixed-base robot of 1-28
@@ -245,6 +246,7 @@ def minv(model: RobotModel, q, dense: bool = True):
     if not q.is_cuda:
         return minv_plain(model, q, dense)
     dcode, nj, L = _lanes(model, MINV, dict(q=q))
+    build.fits(MINV, nj, q.dtype)
     Mi = _empty(q, model.n, model.n, L)
     _launched(MINV, build.lib(nj).gridtorch_minv(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
@@ -269,6 +271,7 @@ def crba(model: RobotModel, q):
     if not q.is_cuda:
         return crba_plain(model, q)
     dcode, nj, L = _lanes(model, CRBA, dict(q=q))
+    build.fits(CRBA, nj, q.dtype)
     M = _empty(q, model.n, model.n, L)
     _launched(CRBA, build.lib(nj).gridtorch_crba(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),

@@ -487,7 +487,7 @@ extern "C" long touch_count() { return g_touches; }
 // a block} of fd_du, fdsva_so, riccati_factored, linesearch_rollout, the
 // dense riccati (stationary, then a block per knot), rollout, idsva_so,
 // feedback_rollout, id_du, d2eepos, idsva_so's bands (then the bands of
-// each dtype), rnea, aba, fd and eepos in float32 and float64
+// each dtype), rnea, aba, fd, eepos, minv and crba in float32 and float64
 template <typename P>
 void plan_into(int* out) {
   out[0] = P::G;
@@ -571,6 +571,10 @@ extern "C" void plans_##NJ(int* out) {                                      \
   plan_into<FDPlanQ<double, NJ>>(out + 120);                                \
   plan_into<EEPlan<float, NJ>>(out + 124);                                  \
   plan_into<EEPlan<double, NJ>>(out + 128);                                 \
+  plan_into<MinvPlan<float, NJ>>(out + 132);                                \
+  plan_into<MinvPlan<double, NJ>>(out + 136);                               \
+  plan_into<CRBAPlan<float, NJ>>(out + 140);                                \
+  plan_into<CRBAPlan<double, NJ>>(out + 144);                               \
 }                                                                           \
 extern "C" int tree_lists_##NJ(const double* m) {                          \
   std::vector<RobotConst<double, NJ>> R(2);                                 \
@@ -619,6 +623,11 @@ extern "C" void aba_lane_##NJ(const double* m, const double* q,             \
 }                                                                           \
 extern "C" void minv_##NJ(const double* m, const double* q, double* mi,    \
     ll L, int dense) {                                                      \
+  race_reset();                                                             \
+  minv_host<double, NJ>(m, q, mi, L, dense != 0);                           \
+}                                                                           \
+extern "C" void minv_lane_##NJ(const double* m, const double* q,            \
+    double* mi, ll L, int dense) {                                          \
   Robot<double, NJ> R(m);                                                   \
   for (ll l = 0; l < L; ++l) {                                              \
     double ql[NJ], ml[NJ * NJ];                                             \
@@ -641,6 +650,11 @@ extern "C" void fd_lane_##NJ(const double* m, const double* q,              \
 }                                                                           \
 extern "C" void crba_##NJ(const double* m, const double* q, double* M,     \
     ll L) {                                                                 \
+  race_reset();                                                             \
+  crba_host<double, NJ>(m, q, M, L);                                        \
+}                                                                           \
+extern "C" void crba_lane_##NJ(const double* m, const double* q,            \
+    double* M, ll L) {                                                      \
   Robot<double, NJ> R(m);                                                   \
   for (ll l = 0; l < L; ++l) {                                              \
     double ql[NJ], ml[NJ * NJ];                                             \
@@ -822,10 +836,10 @@ def _p(t):
 
 def _host_run(lib, name, args, lane=False):
     """Run the host build of kernel ``name`` on the wrapper's arguments: the
-    kernel's block code (the sweeps, fd_du, rnea, id_du, aba, fd, eepos,
-    d2eepos and the second-order kernels), or with ``lane`` the serial lane
-    function (the rollouts, the dense riccati, rnea, idsva_so, id_du, aba,
-    fd, eepos and d2eepos)."""
+    kernel's block code (the sweeps, fd_du, rnea, id_du, aba, minv, fd,
+    crba, eepos, d2eepos and the second-order kernels), or with ``lane`` the
+    serial lane function (the rollouts, the dense riccati, rnea, idsva_so,
+    id_du, aba, minv, fd, crba, eepos and d2eepos)."""
     serial = "_lane" if lane else ""
     ll, D = ctypes.c_longlong, ctypes.c_double
     if name == "fd_du":
@@ -857,8 +871,8 @@ def _host_run(lib, name, args, lane=False):
         m, q = args
         n, L = q.shape
         out = torch.empty(n, n, L, dtype=q.dtype)
-        getattr(lib, f"crba_{n}")(_p(build.model_buffer(m)), _p(q), _p(out),
-                                  ll(L))
+        getattr(lib, f"crba{serial}_{n}")(_p(build.model_buffer(m)), _p(q),
+                                          _p(out), ll(L))
         return (out,)
     if name.startswith(("eepos", "deepos", "d2eepos")):
         m, q, *targets = args
@@ -877,8 +891,9 @@ def _host_run(lib, name, args, lane=False):
         m, q, dense = args
         n, L = q.shape
         out = torch.empty(n, n, L, dtype=q.dtype)
-        getattr(lib, f"minv_{n}")(_p(build.model_buffer(m)), _p(q), _p(out),
-                                  ll(L), ctypes.c_int(int(dense)))
+        getattr(lib, f"minv{serial}_{n}")(_p(build.model_buffer(m)), _p(q),
+                                          _p(out), ll(L),
+                                          ctypes.c_int(int(dense)))
         return (out,)
     if name == "rollout":
         m, x0, U, dt, _, lo, hi = args
@@ -962,8 +977,9 @@ def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
 
 
 # the ints plans_<nj> writes: 4 a plan (k = offset / 4), idsva_so's bands
-# at 96 and 97, rnea's and aba's plans from 100, fd's and eepos's from 116
-PLANS = 132
+# at 96 and 97, rnea's and aba's plans from 100, fd's and eepos's from 116,
+# minv's and crba's from 132
+PLANS = 148
 
 
 @pytest.mark.parametrize("nj", HOST_JOINTS)
@@ -994,9 +1010,11 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
     and a warp otherwise (rnea 16 at 12 joints), G a power of 2 up to 8
     that makes each output row's run 32 bytes or more but where a block
     holds fewer (aba's 28-joint knot in float64: 4). fd (FDPlanQ, fd_du's
-    first half) a warp a knot, G as rnea's but 4 | 2 knots a block at 28
-    joints (float32 | float64); eepos (EEPlan) 8 threads a lane, 8 lanes a
-    block."""
+    first half) and minv (MinvPlan, fd's Minv passes) a warp a knot, G as
+    rnea's but 4 | 2 knots a block at 28 joints (float32 | float64); eepos
+    (EEPlan) 8 threads a lane, 8 lanes a block; crba (CRBAPlan) 16
+    threads a knot at 2, 7 and 12 joints and a warp otherwise, G as
+    rnea's."""
     out = (ctypes.c_int * PLANS)()
     getattr(host_lib, f"plans_{nj}")(out)
     base = 16 if 2 * nj <= 16 else 32
@@ -1057,22 +1075,39 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
             assert lanes == 32 and g == (4 if f32 else 2)
         else:   # 32-byte runs
             assert lanes == 32 and g * (4 if f32 else 8) >= 32
+    for k in range(33, 37):   # minv, crba: float32, then float64
+        g, lanes, nbytes, rows = out[4 * k: 4 * k + 4]
+        assert 0 < nbytes <= 232448 and rows == 1
+        assert g in (1, 2, 4, 8) and (g * lanes) % 32 == 0
+        f32 = k % 2 == 1
+        if k >= 35:   # crba: 16 at 2, 7 and 12 joints, 32-byte runs
+            assert lanes == (16 if nj in (2, 7, 12) else 32)
+            assert g * (4 if f32 else 8) >= 32
+        elif nj == 28:   # minv's 28-joint knot: 4 | 2 a block
+            assert lanes == 32 and g == (4 if f32 else 2)
+        else:   # 32-byte runs
+            assert lanes == 32 and g * (4 if f32 else 8) >= 32
 
 
 def test_compare_kernels_reads_ptxas_report():
     """compare_kernels.py keeps the thread-group kernels' instances (fd_du,
     fdsva_so, idsva_so, riccati_factored, the line search with each cost,
     the dense riccati by its curvature, the rollout, the feedback rollout,
-    id_du, d2eepos, rnea with qdd and in the bias form, aba) from a ptxas
-    report, with the frames of called functions (cumulative), and no other
-    kernel's."""
+    id_du, d2eepos, rnea with qdd and in the bias form, aba, minv dense and
+    its upper factor, crba) from a ptxas report, with the frames of called
+    functions (cumulative), and no other kernel's (deepos, a thread a
+    lane)."""
     spec = importlib.util.spec_from_file_location(
         "compare_kernels", Path(__file__).resolve().parents[1] /
         "compare_kernels.py")
     ck = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ck)
     fd = "_Z12fd_du_kernelIdLi7EEvPKT_S2_S2_S2_PS0_S3_S3_xS0_"
-    other = "_Z11minv_kernelIfLi7EEvPKT_"
+    other = "_Z13deepos_kernelIfLi7EEvPKT_S2_iS2_PS0_x"
+    minv = ("_Z11minv_kernelIfLi7ELb0EN2gt9KnotShapeIfNS0_9RobotConstIfLi7EEE"
+            "Li1197ELi32ELi8EEEEvPKT_S7_PS5_x")
+    crba = ("_Z11crba_kernelIdLi12EN2gt9KnotShapeIdNS0_9RobotConstIdLi12EEELi"
+            "1188ELi16ELi8EEEEvPKT_S7_PS5_x")
     rnea = ("_Z11rnea_kernelIfLi7ELN2gt8RneaModeE0ENS0_9KnotShapeIfNS0_9Robot"
             "ConstIfLi7EEELi448ELi8ELi8EEEEvPKT_S8_S8_S8_PS6_xS6_")
     aba = ("_Z10aba_kernelIdLi28EN2gt9KnotShapeIdNS0_9RobotConstIdLi28EEELi3864"
@@ -1090,6 +1125,14 @@ def test_compare_kernels_reads_ptxas_report():
     d2 = ("_Z14d2eepos_kernelIdLi12EN2gt9KnotShapeIdNS0_6EEHeadIdLi12EEELi3220E"
           "Li32ELi8EEELb1EEvPKT_S8_iS8_PS6_x")
     report = "\n".join([
+        f"ptxas info    : Compiling entry function '{minv}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {minv}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 56 registers, used 1 barriers",
+        f"ptxas info    : Compiling entry function '{crba}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {crba}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 64 registers, used 1 barriers",
         f"ptxas info    : Compiling entry function '{rnea}' for 'sm_90a'",
         f"ptxas info    : Function properties for {rnea}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -1173,7 +1216,11 @@ def test_compare_kernels_reads_ptxas_report():
                               "registers": 40, "smem": 0},
         "aba f64 nj28": {
             "stack": 96, "spill_stores": 0, "spill_loads": 0,
-            "registers": 168, "smem": 0, "cumulative_stack": 96}}
+            "registers": 168, "smem": 0, "cumulative_stack": 96},
+        "minv_upper f32 nj7": {"stack": 0, "spill_stores": 0,
+                               "spill_loads": 0, "registers": 56, "smem": 0},
+        "crba f64 nj12": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
+                          "registers": 64, "smem": 0}}
 
 
 @pytest.mark.parametrize("robot,name", (
@@ -1207,7 +1254,8 @@ SWEEP_PROGRAMS = ("riccati_factored", "linesearch_rollout", "linesearch_quad",
     ("fd_du", "fdsva_so", "idsva_so") + SWEEP_PROGRAMS + ("id_du", "d2eepos",
                                                           "rnea", "rnea_bias",
                                                           "aba", "fd",
-                                                          "eepos"),
+                                                          "eepos", "minv",
+                                                          "crba"),
     robot_first=True))
 def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
                                                         name):
@@ -1217,12 +1265,15 @@ def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
     reverse order, fd_du, fdsva_so, idsva_so, the Riccati sweeps (factored,
     dense stationary and per knot), the line search (both costs), the
     open-loop and feedback rollouts, id_du, d2eepos, rnea (with qdd and
-    the bias form), aba, fd and eepos give the same bits."""
+    the bias form), aba, fd, eepos, minv (dense) and crba give the same
+    bits."""
     m = build_model(topo(robot), dtype=torch.float64, device="cpu")
     key = name if name in SWEEP_PROGRAMS else "fdsva_so"
     args = path_inputs(m, 2, 2, seed=3)[key]
-    if name in ("d2eepos", "eepos"):   # q
+    if name in ("d2eepos", "eepos", "crba"):   # q
         args = args[:2]
+    if name == "minv":   # q, dense
+        args = args[:2] + (True,)
     if name == "rnea_bias":   # no qdd
         args = args[:3] + (None,) + args[4:]
     got = _host_run(host_lib, name, args)
@@ -1261,16 +1312,17 @@ def test_host_sweep_phases_write_disjoint_entries(host_lib, robot, name):
 
 
 @pytest.mark.parametrize("name", ["id_du", "d2eepos", "d2eepos_targets",
-                                  "rnea", "rnea_bias", "aba", "fd", "eepos"])
+                                  "rnea", "rnea_bias", "aba", "fd", "eepos",
+                                  "minv", "crba"])
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_host_knot_phases_write_disjoint_entries(host_lib, robot, name):
-    """id_du's, d2eepos's, rnea's, fd's and eepos's knot programs
-    (csrc/warp.cuh) and aba's (csrc/sweep_warp.cuh) split each phase over
-    the knot's threads: run phase by phase on the host, no entry of a knot's
-    state is written by two threads of one phase (the harness compares the
-    knot before and after each thread); d2eepos on every EE of the robot and
-    on some of them, eepos on every EE (gym_ant: its four feet, on every
-    EE)."""
+    """id_du's, d2eepos's, rnea's, fd's, eepos's, minv's and crba's knot
+    programs (csrc/warp.cuh) and aba's (csrc/sweep_warp.cuh) split each
+    phase over the knot's threads: run phase by phase on the host, no entry
+    of a knot's state is written by two threads of one phase (the harness
+    compares the knot before and after each thread); d2eepos on every EE of
+    the robot and on some of them, eepos on every EE (gym_ant: its four
+    feet, on every EE)."""
     if robot == "gym_ant":
         m = gym_ant_feet(torch.float64, "cpu")
     else:
@@ -1287,8 +1339,8 @@ def test_host_knot_phases_write_disjoint_entries(host_lib, robot, name):
         host_lib.race_watch(0)
     if name == "id_du":
         least = 3 * m.n * m.n
-    elif name in ("rnea", "rnea_bias", "aba", "fd"):   # the transforms
-        least = 3 * 36 * m.n
+    elif name in ("rnea", "rnea_bias", "aba", "fd", "minv", "crba"):
+        least = 3 * 36 * m.n   # the transforms
     else:   # the chains' 4x4 matrices at least
         targets = args[2] if name == "d2eepos_targets" else None
         least = 3 * 16 * sum(len(c) for c, _ in eepose.ee_chains(m, targets))
@@ -1352,7 +1404,8 @@ RAGGED_B = ("1", "G-1", "G+1", "37")
 PLAN_INDEX = {"riccati": 9, "riccati_stacked": 11, "rollout": 13,
               "idsva_so": 15, "feedback_rollout": 17, "id_du": 19,
               "d2eepos": 21, "rnea": 26, "rnea_bias": 26, "aba": 28,
-              "fd": 30, "eepos": 32}
+              "fd": 30, "eepos": 32, "minv": 34, "minv_upper": 34,
+              "crba": 36}
 
 
 def _ragged_b(host_lib, name, nj, B):
@@ -1421,23 +1474,28 @@ def test_host_riccati_factored_on_ragged_blocks(host_lib, robot, N, name, B):
 
 @pytest.mark.parametrize("name,robot", pairs(
     ("riccati", "riccati_stacked", "rollout", "feedback_rollout", "idsva_so",
-     "id_du", "d2eepos", "rnea", "rnea_bias", "aba", "eepos", "fd")))
+     "id_du", "d2eepos", "rnea", "rnea_bias", "aba", "eepos", "fd", "minv",
+     "minv_upper", "crba")))
 def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
                                                         robot):
     """The block code of the dense riccati (stationary and per knot), of
     the open-loop and feedback rollouts and aba (csrc/sweep_warp.cuh: the
     rollouts' ABA phases), and the knot programs of idsva_so, rnea (with
-    qdd and the bias form) and eepos (csrc/warp.cuh), run on the host with
-    the card's plans, gives the bits of the serial functions
+    qdd and the bias form), eepos and crba (csrc/warp.cuh), run on the host
+    with the card's plans, gives the bits of the serial functions
     riccati_dense_lane, rollout_lane, feedback_rollout_lane, aba,
-    idsva_so_lane, rnea_lane and ee_pose_lane: every value keeps the serial
-    order of operations (eepos on every robot, gym_ant's empty chains
-    included). id_du's, d2eepos's and fd's knot
-    programs are held to TOL against id_du_lane, ee_hess_lane and fd_lane:
+    idsva_so_lane, rnea_lane, ee_pose_lane and crba_lane: every value keeps
+    the serial order of operations (eepos on every robot, gym_ant's empty
+    chains included; crba's parents add their children's composite
+    inertias in descending order, and each row of X_c^T Ic_c is formed as
+    XTMX_add forms it). id_du's, d2eepos's, fd's and minv's (dense and the
+    upper factor) knot programs are held to TOL against id_du_lane,
+    ee_hess_lane, fd_lane and minv_lane:
     id_du's columns skip the structural zeros of the transforms and walk
     only the related joints, d2eepos forms a mixed second derivative as
-    Xi_a dT/dq_b, not along the chain, and fd's Minv passes (fd_du's,
-    warp.cuh:fd_qdd_knot) distribute X_c^T over the backward pass's sums,
+    Xi_a dT/dq_b, not along the chain, and fd's and minv's Minv passes
+    (fd_du's, warp.cuh:minv_backward_knot) distribute X_c^T over the
+    backward pass's sums,
     F_p += X_c^T F_c + (X_c^T U_c) M_c and IA_p += (X_c^T IA_c) X_c -
     (X_c^T U_c) Dinv_c (X_c^T U_c)^T, where dynamics.cuh:minv_upper forms
     X_c^T (F_c + U_c M_c) and X_c^T (IA_c - U_c Dinv_c U_c^T) X_c. idsva_so
@@ -1448,7 +1506,8 @@ def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
     included; that sum's other order is the only difference."""
     m = build_model(topo(robot), dtype=torch.float64, device="cpu")
     args = (grid_inputs(m, robot, 11, seed=2)[name]
-            if name in ("d2eepos", "eepos", "fd")
+            if name in ("d2eepos", "eepos", "fd", "minv", "minv_upper",
+                        "crba")
             else path_inputs(m, 6, 11, seed=2)[name])
     got = _host_run(host_lib, name, args)
     lane = _host_run(host_lib, name, args, lane=True)
@@ -1457,7 +1516,7 @@ def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
         assert _max_err(got, lane) <= tol(robot, lane)
         assert torch.equal(got[0] == 0, lane[0] == 0)
         return
-    if name in ("id_du", "d2eepos", "fd"):
+    if name in ("id_du", "d2eepos", "fd", "minv", "minv_upper"):
         assert _max_err(got, lane) <= tol(robot, lane)
         return
     for a, b in zip(got, lane):
@@ -1475,6 +1534,25 @@ def test_host_fd_is_fd_du_first_half(host_lib, robot):
     _, want, _ = _host_run(host_lib, "fd_du", args)
     assert float(want.abs().max()) > 0.1
     assert torch.equal(qdd, want)
+
+
+@pytest.mark.parametrize("robot", ROBOTS)
+def test_host_minv_is_fd_du_minv(host_lib, robot):
+    """minv, fd and fd_du run one program for Minv (warp.cuh:
+    minv_setup_knot, minv_backward_knot, minv_forward_knot) in their own
+    layouts (MinvKnot, FDKnot) and plans: minv's dense Minv is fd_du's
+    Minv, bit for bit; its upper instance has the same upper triangle and
+    +0 below the diagonal (no -0, which torch.equal would not tell)."""
+    m = build_model(topo(robot), dtype=torch.float64, device="cpu")
+    args = grid_inputs(m, robot, 5, seed=14)["fd"]
+    _, _, want = _host_run(host_lib, "fd_du", args)
+    dense, = _host_run(host_lib, "minv", (m, args[1], True))
+    upper, = _host_run(host_lib, "minv_upper", (m, args[1], False))
+    assert float(want.abs().max()) > 0.1
+    assert torch.equal(dense, want)
+    up, lo = (upper.permute(2, 0, 1).triu(), upper.permute(2, 0, 1).tril(-1))
+    assert torch.equal(up, dense.permute(2, 0, 1).triu())
+    assert not lo.any() and not bool(torch.signbit(lo).any())
 
 
 def test_host_eepos_of_an_empty_chain_is_its_fixed_frame(host_lib):
@@ -1590,19 +1668,22 @@ def test_host_id_du_and_d2eepos_on_ragged_blocks(host_lib, robot, name, B):
     [(robot, name, B) for name in ("rnea", "rnea_bias", "aba")
      for robot in ROBOTS for B in RAGGED_B]
     + [(robot, name, B) for name in ("fd", "eepos") for robot in ROBOTS
-       for B in RAGGED_B]))
+       for B in RAGGED_B]
+    + [(robot, name, B) for name in ("minv", "minv_upper", "crba")
+       for robot in ROBOTS for B in RAGGED_B]))
 def test_host_rnea_and_aba_on_ragged_blocks(host_lib, robot, name, B):
-    """rnea's (with qdd and the bias form), aba's, fd's and eepos's block
-    code with the card's plan (G knots a block, the inputs past the last
-    lane read as zeros, the output rows masked) on 1, G - 1, G + 1 and 37
-    lanes."""
+    """rnea's (with qdd and the bias form), aba's, fd's, eepos's, minv's
+    (dense and the upper factor) and crba's block code with the card's plan
+    (G knots a block, the inputs past the last lane read as zeros, the
+    output rows masked) on 1, G - 1, G + 1 and 37 lanes."""
     m = build_model(topo(robot), dtype=torch.float64, device="cpu")
     L = _ragged_b(host_lib, name, m.n, B)
     args = grid_inputs(m, robot, L, seed=13)[name]
     got = _host_run(host_lib, name, args)
     want = _outs(WRAPPERS[name][1](*args))
-    rows = 6 * len(eepose.ee_chains(m)) if name == "eepos" else m.n
-    assert got[0].shape == want[0].shape == (rows, L)
+    rows = ((6 * len(eepose.ee_chains(m)),) if name == "eepos" else
+            (m.n, m.n) if name in ("minv", "minv_upper", "crba") else (m.n,))
+    assert got[0].shape == want[0].shape == rows + (L,)
     assert _max_err(got, want) <= tol(robot, want)
 
 
@@ -1733,13 +1814,15 @@ def test_operation_counts_at_17_and_28_joints(robot):
         assert ex[torch.float64]["idsva_so"] > ex[torch.float32]["idsva_so"]
 
 
-@pytest.mark.parametrize("kernel", ["rnea", "aba", "fd", "eepos"])
+@pytest.mark.parametrize("kernel", ["rnea", "aba", "fd", "eepos", "minv",
+                                    "crba"])
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_operation_counts_of_the_rnea_and_aba_knots(counts, robot, kernel):
     """At every joint count of the host harness, the executed count of rnea,
-    aba, fd and eepos is their knot program's (every thread of the knot's
-    group, phase by phase: warp.cuh:rnea_host, fd_host, eepos_host,
-    sweep_warp.cuh:aba_host), at least the function's need (the serial lane
+    aba, fd, eepos, minv and crba is their knot program's (every thread of
+    the knot's group, phase by phase: warp.cuh:rnea_host, fd_host,
+    eepos_host, minv_host, crba_host, sweep_warp.cuh:aba_host), at least
+    the function's need (the serial lane
     with constants folded), and the same in either dtype's plan's width.
     gym_ant's EEs are welded to its base: their poses are constants of the
     robot, which the knot program forms and the function needs no
@@ -1923,37 +2006,45 @@ def test_cuda_rnea_and_aba_plans_and_launches(cuda_device, robot):
 @pytest.mark.cuda
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_cuda_fd_and_eepos_plans_and_launches(cuda_device, robot):
-    """fd and eepos run a thread group a knot (build.WARP_KERNELS): each
-    instance's plan holds a knot (fd: a warp; eepos: 8 threads a lane),
-    keeps no
+    """fd, eepos, minv and crba run a thread group a knot
+    (build.WARP_KERNELS): each instance's plan holds a knot (fd and minv: a
+    warp; eepos: 8 threads a lane; crba: 16 threads at 2, 7 and 12 joints,
+    else a warp), keeps no
     per-thread array of the joints' transforms in local memory, and
     launches; each call launches its kernel once, runs nothing plain and
     matches the plain twin in float64 at 1, G + 1 and 37 lanes (eepos on
-    every EE of the robot and on some of them)."""
+    every EE of the robot and on some of them; minv dense and the upper
+    factor, +0 below its diagonal)."""
     m = build_model(topo(robot), dtype=torch.float64, device=cuda_device)
-    for what in ("fd", "eepos"):
+    crba_lanes = 16 if m.n in (2, 7, 12) else 32
+    for what in ("fd", "eepos", "minv", "crba"):
         for dtype in (torch.float32, torch.float64):
             info = build.warp_kernel_info(what, m.n, dtype)
             assert info["knots_per_block"] >= 1 and info["blocks_per_sm"] >= 1
-            assert info["threads_per_knot"] == (8 if what == "eepos"
-                                                 else 32)
+            assert info["threads_per_knot"] == {"eepos": 8,
+                                                "crba": crba_lanes}.get(what,
+                                                                        32)
             item = torch.finfo(dtype).bits // 8
             assert info["local_bytes"] < 36 * m.n * item
-    g = build.plan("fd", m.n, torch.float64)["knots_per_block"]
-    cases_of = ("fd", "eepos") + (("eepos_targets",) if TARGETS[robot]
-                                  else ())
-    for lanes in (1, g + 1, 37):
-        cases = grid_inputs(m, robot, lanes, seed=16)
-        for case in cases_of:
+    cases_of = ("fd", "eepos", "minv", "minv_upper", "crba") + (
+        ("eepos_targets",) if TARGETS[robot] else ())
+    for case in cases_of:
+        kernel = KERNEL_OF.get(case, case)
+        g = build.plan(kernel, m.n, torch.float64)["knots_per_block"]
+        for lanes in (1, g + 1, 37):
+            args = grid_inputs(m, robot, lanes, seed=16)[case]
             kern, plain = WRAPPERS[case]
             build.reset_counters()
-            got = _outs(kern(*cases[case]))
+            got = _outs(kern(*args))
             torch.cuda.synchronize()
-            assert dict(build.LAUNCHES) == {KERNEL_OF.get(case, case): 1}
+            assert dict(build.LAUNCHES) == {kernel: 1}
             assert not build.PLAIN_CALLS
-            want = _outs(plain(*cases[case]))
+            want = _outs(plain(*args))
             assert got[0].is_cuda and got[0].shape == want[0].shape
             assert _max_err(got, want) <= tol(robot, want)
+            if case == "minv_upper":   # +0 below the diagonal
+                lo = got[0].permute(2, 0, 1).tril(-1)
+                assert not lo.any() and not bool(torch.signbit(lo).any())
 
 
 # each GRiD method, the kernel it launches and its number of inputs
