@@ -15,7 +15,7 @@ Phases, one line each:
      (knots, problems or rollouts a block, shared bytes, bands) and
      cudaFuncGetAttributes of every instance of the thread-group kernels:
      fd_du, fdsva_so, idsva_so and id_du (a warp per knot), d2eepos, rnea,
-     aba, fd, eepos, minv and crba (a group of threads per lane),
+     aba, fd, eepos, minv, crba and deepos (a group of threads per lane),
      riccati_factored and riccati (a warp per problem; riccati's
      stationary and per-knot instances), linesearch_rollout, rollout and
      feedback_rollout (a group of threads per rollout); each holds a knot,
@@ -36,7 +36,7 @@ Phases, one line each:
      and on the counts built at first use: pendulum4, mixed5 and a
      20-joint chain (its sweeps at dt 0.002; in float64 idsva_so in bands
      and fdsva_so composed, also at 128 lanes); then minv (dense and the
-     upper factor, +0 below its diagonal) and crba on iiwa, hyq,
+     upper factor, +0 below its diagonal), crba and deepos on iiwa, hyq,
      gym_humanoid and atlas at 1, G + 1 and 37 lanes (a block's one knot,
      a ragged second block), one launch a call;
   3. the same in float32 (tolerances below): fd_du and fdsva_so at 37
@@ -57,9 +57,12 @@ Phases, one line each:
      line search's alpha = FB_ALPHA row on the same inputs: equal, bit for
      bit;
   4. config 3 (iiwa, N=64, 5 iterations, B=2048, float32, EE reach) through
-     the port's make_ilqr with kernels: every kernel of the path launched,
-     nothing plain ran, costs finite and decreasing, final costs agree with
-     a plain solve of the same inputs; solves/s over 10 solves; then the
+     the port's make_ilqr with kernels: every kernel of the path launched
+     (the EE cost's eepos 2 + 2 I times and deepos 2 I times, I the
+     iterations), nothing plain ran, costs finite and decreasing, final
+     costs agree with a plain solve of the same inputs (which launches
+     nothing); solves/s over 10 solves and each phase's ms (the backward
+     phase's beside its ms with the EE cost in plain torch); then the
      solved policy run as a tracking controller through feedback_rollout
      (feedforward 0, the final gains): from x0 it retraces the solve as
      closely as the plain float32 replay does (and meets the float32 rule
@@ -185,6 +188,10 @@ L_HESS = {"iiwa": N * B, "hyq": 16384, "dm_quadruped": 16384}
 # the step size folded into the feedback rollout's feedforward term in
 # phases 2 and 3
 FB_ALPHA = 0.25
+# config 3's backward phase (phase 4) with the EE cost's pose and Jacobian
+# in plain torch, ms a call on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md),
+# printed beside the phase's ms on the kernels
+BACKWARD_MS_PLAIN_EE = 27.2
 
 # Phase 3 judges each float32 kernel against a float64 run of its plain
 # version on the same inputs and the same (float32-rounded) robot constants:
@@ -699,13 +706,14 @@ def main():
     line("small_f64_new_joint_counts", {"B": 37, "N": 8, "robots": {
         r: humanoids[r] for r in ROBOTS_NEW}, "elapsed_s": elapsed()})
 
-    # minv (dense and the upper factor) and crba, a thread group a knot, G
-    # knots a block: a block's one knot, a ragged second block (G + 1) and
-    # 37 lanes, each call one launch, within 1e-9 of each output's scale
+    # minv (dense and the upper factor), crba and deepos, a thread group a
+    # knot, G knots a block: a block's one knot, a ragged second block
+    # (G + 1) and 37 lanes, each call one launch, within 1e-9 of each
+    # output's scale
     ragged = {}
     for robot in ("iiwa", "hyq") + ROBOTS5:
         m = build_model(load_robot(robot), dtype=torch.float64, device=dev)
-        for case in ("minv", "minv_upper", "crba"):
+        for case in ("minv", "minv_upper", "crba", "deepos"):
             g = build.plan(case_kernel[case], m.n,
                            torch.float64)["knots_per_block"]
             for lanes in (1, g + 1, 37):
@@ -730,7 +738,11 @@ def main():
                         raise AssertionError(f"{what}: not +0 below the "
                                              f"diagonal")
                 ragged[what] = {"max_abs_err": err, "tol": tol}
-    line("minv_crba_f64_ragged", {"cases": ragged, "elapsed_s": elapsed()})
+    line("minv_crba_f64_ragged", {"cases": {
+        k: v for k, v in ragged.items() if " deepos " not in k}})
+    line("deepos_f64_ragged", {"cases": {
+        k: v for k, v in ragged.items() if " deepos " in k},
+        "elapsed_s": elapsed()})
 
     # -- phase 3: config-3 shapes, float32 ----------------------------------
     m32 = build_model(topo, dtype=torch.float32, device=dev)
@@ -991,8 +1003,12 @@ def main():
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     plain_calls = dict(build.PLAIN_CALLS)
+    # the EE cost: its pose in the first total cost's stage and terminal,
+    # then in each iteration's terminal expansion and GN factor, with its
+    # Jacobian
     expect = {"rollout": 1, "fd_du": ITERS, "riccati_factored": ITERS,
-              "linesearch_rollout": ITERS}
+              "linesearch_rollout": ITERS, "eepos": 2 + 2 * ITERS,
+              "deepos": 2 * ITERS}
     if launches != expect or plain_calls:
         raise AssertionError(f"main path launches {launches} (expected "
                              f"{expect}), plain calls {plain_calls}")
@@ -1027,9 +1043,15 @@ def main():
         return float((r <= 1e-3).float().mean())
 
     c_k32 = res.cost.double().cpu()
+    build.reset_counters()
     c_p32 = solve_with(m32, False)
+    plain_launches = dict(build.LAUNCHES)
     c_k64 = solve_with(m32_64, None)
+    build.reset_counters()
     c_p64 = solve_with(m32_64, False)
+    plain_launches |= dict(build.LAUNCHES)
+    if plain_launches:
+        raise AssertionError(f"the plain solves launched {plain_launches}")
     agree = {"f32_kernel_vs_plain": share(rel(c_k32, c_p32)),
              "f64_kernel_vs_plain": share(rel(c_k64, c_p64)),
              "f32_kernel_vs_f64_plain": share(rel(c_k32, c_p64)),
@@ -1065,7 +1087,8 @@ def main():
         "f32_mean_final_cost": {"kernel": float(c_k32.mean()),
                                 "plain": float(c_p32.mean()),
                                 "plain_f64": float(c_p64.mean())},
-        "launches": launches, "phases": phases})
+        "launches": launches, "phases": phases,
+        "backward_ms_plain_ee_cost": BACKWARD_MS_PLAIN_EE})
 
     # The solved policy as a tracking controller (feedback_rollout, the
     # sweep entry point): feedforward 0, the solve's final gains K about its
@@ -1667,9 +1690,7 @@ def main():
                                     args, m, case, 10) | {
                 "launches_per_step": step5.get(name, 0)}
         del X, A, Bm, ric, ks, Ks, cases5, parts5
-        # the GRiD kernels at L1 lanes on this instance (the per-lane ones
-        # keep their joint transforms in local memory: at 28 joints 13-71
-        # KB of stack a thread, ptxas)
+        # the GRiD kernels at L1 lanes on this instance
         cases = lane_cases(m, L1, seed=0)
         cases["d2eepos"] = cases["eepos"]
         grid5[robot] = {

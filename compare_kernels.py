@@ -11,8 +11,7 @@ commit, unpacked with ``git archive``), named by its directory. The
 kernels (``--kernels``, any of fd_du, fdsva_so, idsva_so,
 riccati_factored, linesearch, riccati, rollout, feedback_rollout, id_du,
 d2eepos, rnea (its bias form too), aba, fd, eepos, minv (dense), crba and
-the kernel of a thread a lane, deepos; by default
-riccati_factored, linesearch, riccati and rollout) are compiled from every
+deepos; by default riccati_factored, linesearch, riccati and rollout) are compiled from every
 tree's ``csrc/`` with nvcc for sm_90a, one library per joint count and
 tree (the counts of JOINTS that the tree's ``build.py`` lists, the sources
 it has; a tree without a kernel or a joint count is not timed there),
@@ -45,8 +44,8 @@ over the knots (for the knot programs also the cycles of the block's head:
 the robot's constants and lists). fd, eepos, minv, crba and deepos also
 get the cycles of their serial function (dynamics.cuh: fd_lane,
 ee_pose_lane, minv_lane, crba_lane, ee_jac_lane) on lane 0 of a thread a
-lane, and the time through this tree's wrapper (ops/cuda/kernels.py, as
-the GRiD API calls it); crba on iiwa at 1 and 1024 lanes also the time of
+lane, as an earlier tree's kernels ran them, and the time through this
+tree's wrapper (ops/cuda/kernels.py, as the GRiD API calls it); crba on iiwa at 1 and 1024 lanes also the time of
 the crba wrapper followed by torch.linalg.inv of M, Minv by two calls
 (`crba_inv_ms`). For the rollout and the feedback
 rollout it also times this tree's block shapes (threads a rollout x
@@ -56,8 +55,9 @@ shapes (threads a knot x knots a block, csrc/warp.cuh: KnotShape; those
 that fit an SM; as many blocks as the card holds, each taking every
 gridDim.x-th group of lanes, and a block a group), for id_du one and two
 column passes, for d2eepos its shapes (threads a lane x lanes a block,
-staged or direct stores), for rnea, aba, fd, eepos, minv and crba theirs
-(threads a knot x knots a block, LANE_SHAPES), at every shape of the
+staged or direct stores), for rnea, aba, fd, eepos, minv, crba and
+deepos theirs (threads a knot x knots a block, LANE_SHAPES; eepos and
+deepos EE_SHAPES), at every shape of the
 kernel, against the plan's output. ``--sass`` compiles the named kernels'
 sources in every tree too and compares this tree's machine code with the
 first other tree's (``cuobjdump -sass`` of each object, float and double,
@@ -92,12 +92,10 @@ SOURCES = {"fd_du": "fd_du.cu", "fdsva_so": "fdsva_so.cu",
            "eepos": "eepos.cu", "minv": "minv.cu", "crba": "crba.cu",
            "deepos": "deepos.cu"}
 # the kernels of a knot a thread group, on (n, lanes) inputs (d2eepos,
-# eepos, minv (dense) and crba: q only; rnea_bias: q and qd, rnea's bias
-# form, timed wherever rnea is); and the kernel of a thread a lane (deepos:
-# q only)
+# eepos, minv (dense), crba and deepos: q only; rnea_bias: q and qd, rnea's
+# bias form, timed wherever rnea is)
 KNOT_KERNELS = ("fd_du", "fdsva_so", "idsva_so", "id_du", "d2eepos", "rnea",
-                "rnea_bias", "aba", "fd", "eepos", "minv", "crba")
-LANE_KERNELS = ("deepos",)
+                "rnea_bias", "aba", "fd", "eepos", "minv", "crba", "deepos")
 # the phase clock's knot programs (PHASE_CLOCK_CU: phase_clock's mode)
 CLOCK_MODE = {"fd_du": 0, "fdsva_so": 1, "idsva_so": 2, "id_du": 3,
               "rnea": 4, "rnea_bias": 5, "aba": 6, "fd": 7, "minv": 8,
@@ -122,9 +120,10 @@ DEFAULT_KERNELS = "riccati_factored,linesearch,riccati,rollout"
 # 16384 lanes on the trees (gym_ant: its EEs welded to the base, zeros only);
 # rnea (with qdd and the bias form) and aba at 1, 1024 and 131072 iiwa
 # lanes, 16384 on hyq, at 1 (config 5's plant) and 1024 on atlas and (aba)
-# gym_humanoid; fd, minv and crba at 1 (configs 1 and 2), 1024 and 131072
-# iiwa lanes, hyq at 16384, atlas at 1 and 1024; eepos at those but hyq's
-# 1024 (4 EEs); deepos at 1, 1024 and 131072 iiwa lanes
+# gym_humanoid; fd, minv, crba and deepos at 1 (configs 1 and 2), 1024 and
+# 131072 (config 3's EE cost: deepos) iiwa lanes, hyq at 16384, atlas at 1
+# and 1024; eepos at those but hyq's 1024 (4 EEs); eepos and deepos also at
+# 2048 iiwa lanes
 SHAPES = [("fd_du", "iiwa", 131072), ("fd_du", "iiwa", 1024),
           ("fd_du", "iiwa", 32768), ("fd_du", "gym_ant", 16384),
           ("fd_du", "hyq", 16384), ("fd_du", "dm_quadruped", 16384),
@@ -165,12 +164,13 @@ SHAPES += [(what, robot, lanes) for what in ("rnea", "rnea_bias", "aba")
                                 ("hyq", 16384), ("atlas", 1), ("atlas", 1024),
                                 ("gym_humanoid", 1), ("gym_humanoid", 1024))
            if what == "aba" or robot != "gym_humanoid"]
-SHAPES += [(what, robot, lanes) for what in ("fd", "eepos", "minv", "crba")
+SHAPES += [(what, robot, lanes)
+           for what in ("fd", "eepos", "minv", "crba", "deepos")
            for robot, lanes in (("iiwa", 1), ("iiwa", 1024), ("iiwa", 131072),
                                 ("hyq", 1024 if what == "eepos" else 16384),
                                 ("atlas", 1), ("atlas", 1024))]
-SHAPES += [(what, "iiwa", lanes) for what in LANE_KERNELS
-           for lanes in (1, 1024, 131072)]
+# eepos and deepos at config 3's terminal cost: B = 2048 lanes
+SHAPES += [(what, "iiwa", 2048) for what in ("eepos", "deepos")]
 # the rollout's block shapes timed beside its plan: (threads a rollout,
 # problems a block), whole warps a block (8 x 2 is half a warp)
 ROLL_SHAPES = ((8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 2), (32, 4),
@@ -185,13 +185,13 @@ IDU_PASSES = (1, 2)
 # d2eepos's shapes timed beside its plan: (threads a lane, lanes a block),
 # each with the staged and the direct stores
 D2_SHAPES = ((8, 8), (8, 16), (16, 4), (16, 8), (32, 4), (32, 8))
-# rnea's, aba's, fd's, eepos's, minv's and crba's shapes timed beside their
-# plans: (threads a knot, knots a block), whole warps a block; those that
-# fit an SM
+# rnea's, aba's, fd's, eepos's, minv's, crba's and deepos's shapes timed
+# beside their plans: (threads a knot, knots a block), whole warps a block;
+# those that fit an SM
 LANE_SHAPES = ((8, 4), (8, 8), (16, 2), (16, 4), (16, 8), (32, 1), (32, 2),
                (32, 4), (32, 8))
-# eepos's also with 4 threads a lane (a phase has at most 12 items) and 16
-# lanes a block
+# eepos's and deepos's also with 4 threads a lane (an eepos phase has at
+# most 12 items, a deepos one 12 k) and 16 lanes a block
 EE_SHAPES = LANE_SHAPES + ((4, 8), (4, 16), (8, 16))
 # the step size folded into the feedback rollout's kff (a power of 2: the
 # fold is exact)
@@ -217,6 +217,7 @@ PHASE_CLOCK_CU = r"""
 #include "eepos.cu"
 #include "minv.cu"
 #include "crba.cu"
+#include "deepos.cu"
 
 extern __shared__ double gt_smem[];
 
@@ -607,6 +608,91 @@ extern "C" int ee_shape(int lanes, int g, int nj, const void* model,
 #define GT_SHAPE(W, G)                                                      \
   if (lanes == W && g == G)                                                 \
     return ee_shape_launch<W, G>(model, ee, ne, q, out, L);
+  GT_SHAPE(8, 4) GT_SHAPE(8, 8) GT_SHAPE(16, 2) GT_SHAPE(16, 4)
+  GT_SHAPE(16, 8) GT_SHAPE(32, 1) GT_SHAPE(32, 2) GT_SHAPE(32, 4)
+  GT_SHAPE(32, 8) GT_SHAPE(4, 8) GT_SHAPE(4, 16) GT_SHAPE(8, 16)
+#undef GT_SHAPE
+  return (int)cudaErrorInvalidValue;
+}
+
+// deepos's plan, a row of blocks an EE, each block a group of lanes; block
+// (0, 0) (EE 0) clocks its knot 0
+template <int NJ>
+__global__ void clocked_dj(const float* model, const float* ee, int ne,
+                           const float* q, float* out, long long L,
+                           long long* rec, int* phases, long long* knot) {
+  using P = gt::DJPlan<float, NJ>;
+  constexpr int N = P::LANES, S = P::STRIDE, G = P::G;
+  auto& H = *reinterpret_cast<gt::EEHead<float, NJ>*>(gt_smem);
+  float* knots =
+      reinterpret_cast<float*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  const int tid = threadIdx.x, nt = blockDim.x, e = blockIdx.y;
+  const long long l0 = (long long)blockIdx.x * G;
+  const long long c0 = clock64();
+  H.load(model, tid, nt);
+  H.select(ee + e * gt::EERow<NJ>::SIZE, tid, nt);
+  gt::load_q<float, NJ, S>(q, L, l0, G, knots, tid, nt);
+  __syncthreads();
+  const bool first = blockIdx.x == 0 && e == 0 && tid < N;
+  if (first && tid == 0) knot[1] = clock64() - c0;   // the block's head
+  int count = 0;
+  const ClockPar<N> par{tid % N, 1 + tid / N, first ? rec : nullptr, &count};
+  gt::deepos_knot<float, NJ>(par, H, knots + (long long)(tid / N) * S);
+  __syncthreads();
+  gt::deepos_store<float, NJ, S, G>(H, knots, out + 6LL * e * NJ * L, L, l0,
+                                    tid, nt);
+  if (first && tid == 0) {
+    *phases = count;
+    *knot = clock64() - c0;
+  }
+}
+
+extern "C" int dj_clock(int nj, const void* model, const void* ee, int ne,
+                        const void* q, void* out, long long L, long long* rec,
+                        int* phases, long long* knot) {
+  constexpr int NJ = GT_NJ;
+  using P = gt::DJPlan<float, NJ>;
+  if (nj != NJ) return (int)cudaErrorInvalidValue;
+  gt::smem_attrs(clocked_dj<NJ>, P::BYTES);
+  clocked_dj<NJ><<<dim3((unsigned)((L + P::G - 1) / P::G), (unsigned)ne),
+                   P::G * P::LANES, P::BYTES>>>(
+      (const float*)model, (const float*)ee, ne, (const float*)q,
+      (float*)out, L, rec, phases, knot);
+  return (int)cudaGetLastError();
+}
+
+// the deepos kernel at shape (lanes threads a lane, g lanes a block), its
+// knots group_stride apart (or, `banks16`, 16 banks apart: knot_stride),
+// float32; a shape that does not fit an SM is not built
+template <int W, int G, class P>
+static int dj_shape_launch(const void* model, const void* ee, int ne,
+                           const void* q, void* out, long long L) {
+  constexpr int NJ = GT_NJ;
+  if constexpr (P::BYTES <= gt::SMEM_LIMIT && W * G <= 512 &&
+                W * G % 32 == 0)
+    return launch_deepos<float, NJ, P>(model, ee, ne, q, out, L, 0);
+  return (int)cudaErrorInvalidConfiguration;
+}
+
+template <int W, int G>
+static int dj_shape_of(int banks16, const void* model, const void* ee,
+                       int ne, const void* q, void* out, long long L) {
+  constexpr int NJ = GT_NJ, K = gt::DJKnot<NJ>::SIZE;
+  using H = gt::EEHead<float, NJ>;
+  if (banks16)
+    return dj_shape_launch<W, G, gt::KnotShape<float, H, K, W, G>>(
+        model, ee, ne, q, out, L);
+  return dj_shape_launch<W, G, gt::GroupShape<float, H, K, W, G>>(
+      model, ee, ne, q, out, L);
+}
+
+extern "C" int dj_shape(int lanes, int g, int banks16, int nj,
+                        const void* model, const void* ee, int ne,
+                        const void* q, void* out, long long L) {
+  if (nj != GT_NJ) return (int)cudaErrorInvalidValue;
+#define GT_SHAPE(W, G)                                                      \
+  if (lanes == W && g == G)                                                 \
+    return dj_shape_of<W, G>(banks16, model, ee, ne, q, out, L);
   GT_SHAPE(8, 4) GT_SHAPE(8, 8) GT_SHAPE(16, 2) GT_SHAPE(16, 4)
   GT_SHAPE(16, 8) GT_SHAPE(32, 1) GT_SHAPE(32, 2) GT_SHAPE(32, 4)
   GT_SHAPE(32, 8) GT_SHAPE(4, 8) GT_SHAPE(4, 16) GT_SHAPE(8, 16)
@@ -1095,7 +1181,7 @@ KERNEL_NAMES = ("fd_du_kernel", "fdsva_so_kernel", "riccati_factored_kernel",
                 "riccati_dense_kernel", "idsva_so_kernel",
                 "feedback_rollout_kernel", "id_du_kernel", "d2eepos_kernel",
                 "rnea_kernel", "aba_kernel", "fd_kernel", "eepos_kernel",
-                "minv_kernel", "crba_kernel")
+                "minv_kernel", "crba_kernel", "deepos_kernel")
 
 
 def parse_ptxas(text: str) -> dict:
@@ -1104,9 +1190,10 @@ def parse_ptxas(text: str) -> dict:
     (fd_du, fdsva_so, idsva_so, riccati_factored, linesearch_ee,
     linesearch_quad, riccati_stationary, riccati_stacked, rollout,
     feedback_rollout, id_du, d2eepos, rnea (with qdd), rnea_bias, aba, fd,
-    eepos, minv (dense), minv_upper, crba; an earlier tree's riccati_dense
-    and its per-lane idsva_so, feedback_rollout, id_du, d2eepos, rnea, aba,
-    fd, eepos, minv and crba) in ptxas's report."""
+    eepos, minv (dense), minv_upper, crba, deepos; an earlier tree's
+    riccati_dense and its per-lane idsva_so, feedback_rollout, id_du,
+    d2eepos, rnea, aba, fd, eepos, minv, crba and deepos) in ptxas's
+    report."""
     def key(mangled):
         m = re.match(r"_Z\d+(\w+?_kernel)I([fd])Li(\d+)E", mangled)
         if not m or m.group(1) not in KERNEL_NAMES:
@@ -1209,10 +1296,13 @@ def bind_clock(path: Path):
     h.lane_clock.argtypes = [I, I, P, P, I, P, P, P, P, L, P]
     h.ee_clock.argtypes = [I, P, P, I, P, P, L, P, P, P]
     h.ee_shape.argtypes = [I, I, I, P, P, I, P, P, L]
+    h.dj_clock.argtypes = [I, P, P, I, P, P, L, P, P, P]
+    h.dj_shape.argtypes = [I, I, I, I, P, P, I, P, P, L]
     for fn in (h.phase_clock, h.ric_clock, h.ls_clock, h.ricd_clock,
                h.roll_clock, h.roll_shape, h.fbr_clock, h.fbr_shape,
                h.idso_shape, h.d2_clock, h.idu_shape, h.d2_shape,
-               h.lane_shape, h.lane_clock, h.ee_clock, h.ee_shape):
+               h.lane_shape, h.lane_clock, h.ee_clock, h.ee_shape,
+               h.dj_clock, h.dj_shape):
         fn.restype = I
     return h
 
@@ -1421,7 +1511,7 @@ def main():
         # may build fewer)
         has = [t for t in trees if n in libs[t][0]
                and hasattr(libs[t][0][n], f"gridtorch_{entry}")]
-        if what in KNOT_KERNELS + LANE_KERNELS:
+        if what in KNOT_KERNELS:
             lanes = shape
             rng = np.random.default_rng(0)
             q, qd, u = (torch.as_tensor(rng.uniform(-1, 1, (n, lanes)),
@@ -1537,10 +1627,12 @@ def main():
                 if what == "d2eepos":
                     return clock.d2_clock(n, ptr(mb), ptr(eb), ne, ptr(q),
                                           ptr(d2_out()), lanes, *clock_out())
-                if what == "eepos":
-                    out = torch.empty(6 * ne, lanes, device=dev)
-                    return clock.ee_clock(n, ptr(mb), ptr(eb), ne, ptr(q),
-                                          ptr(out), lanes, *clock_out())
+                if what in ("eepos", "deepos"):
+                    cols = (n,) if what == "deepos" else ()
+                    out = torch.empty(6 * ne, *cols, lanes, device=dev)
+                    fn = clock.dj_clock if cols else clock.ee_clock
+                    return fn(n, ptr(mb), ptr(eb), ne, ptr(q), ptr(out), lanes,
+                              *clock_out())
                 return clock.phase_clock(CLOCK_MODE[what], n, ptr(mb),
                                          ptr(q), ptr(qd), ptr(u), lanes,
                                          *clock_out())
@@ -1727,7 +1819,7 @@ def main():
                 raise AssertionError(f"{what} {robot} {label}: this tree's "
                                      f"error vs float64 {e.tolist()}, "
                                      f"{others[0]}'s {e0.tolist()}")
-        iters = (20 if what in KNOT_KERNELS + LANE_KERNELS and shape <= 32768
+        iters = (20 if what in KNOT_KERNELS and shape <= 32768
                  else 10)
         mine = [t for t in others if t in run]
         order = mine + ["this", "this"] + mine[::-1]
@@ -1735,7 +1827,7 @@ def main():
         for tree in order:
             ms[tree].append(time_cuda(run[tree][0], iters=iters))
         gms = {tree: [] for tree in run}
-        if what in KNOT_KERNELS + LANE_KERNELS and shape <= 1024:
+        if what in KNOT_KERNELS and shape <= 1024:
             for tree in order:
                 gms[tree].append(graph_ms(run[tree][0]))
         if what == "rollout":   # the block shapes against the plan
@@ -1830,13 +1922,22 @@ def main():
                         (out - run["this"][1][0]).abs().max())}
             del out
         if what in ("rnea", "rnea_bias", "aba", "fd", "eepos", "minv",
-                    "crba"):
+                    "crba", "deepos"):
             # the shapes against the plan
             out = torch.empty_like(run["this"][1][0])
             shapes = {}
             kind = {"aba": 1, "fd": 2, "minv": 3, "crba": 4}.get(what, 0)
-            for w, g in EE_SHAPES if what == "eepos" else LANE_SHAPES:
+            ee_kernel = what in ("eepos", "deepos")
+            # deepos's shapes also with its knots 16 banks apart
+            variants = ((0, ""), (1, " 16 banks")) if what == "deepos" else (
+                (0, ""),)
+            for (w, g), (banks16, tag) in itertools.product(
+                    EE_SHAPES if ee_kernel else LANE_SHAPES, variants):
                 def shape_fn():
+                    if what == "deepos":
+                        return clock.dj_shape(w, g, banks16, n, ptr(mb),
+                                              ptr(eb), ne, ptr(q), ptr(out),
+                                              lanes)
                     if what == "eepos":
                         return clock.ee_shape(w, g, n, ptr(mb), ptr(eb), ne,
                                               ptr(q), ptr(out), lanes)
@@ -1848,7 +1949,7 @@ def main():
                     continue
                 build.check(code, f"{what} shape")
                 torch.cuda.synchronize()
-                shapes[f"{w}x{g}"] = {
+                shapes[f"{w}x{g}{tag}"] = {
                     "ms": time_cuda(shape_fn, iters=iters),
                     "max_abs_diff_vs_plan": float(
                         (out - run["this"][1][0]).abs().max())}
@@ -1858,12 +1959,11 @@ def main():
                **({"graph_ms": gms} if any(gms.values()) else {}),
                "err_vs_f64": {t: max(float(x.max()) for x in e)
                               for t, e in err.items()}}
-        if what not in LANE_KERNELS:   # the programs' phase clocks
-            build.check(clock_fn(), "phase clock")
-            torch.cuda.synchronize()
-            nph = min(int(phases.item()), 4096)
-            cyc = rec[:nph].tolist()
-            row["knot_cycles"] = int(knot[0])
+        build.check(clock_fn(), "phase clock")   # the programs' phases
+        torch.cuda.synchronize()
+        nph = min(int(phases.item()), 4096)
+        cyc = rec[:nph].tolist()
+        row["knot_cycles"] = int(knot[0])
         if what in SERIAL_MODE:   # the serial function, a thread a lane
             scratch_out = torch.empty(max(6 * ne, n) * n * lanes, device=dev)
             build.check(clock.lane_clock(
@@ -1880,12 +1980,12 @@ def main():
                 iters=iters)
         if what in ("rollout", "feedback_rollout", "idsva_so", "id_du",
                     "d2eepos", "rnea", "rnea_bias", "aba", "fd", "eepos",
-                    "minv", "crba"):
+                    "minv", "crba", "deepos"):
             row["block_shapes"] = shapes
         if what in KNOT_KERNELS:
             row["phase_cycles"] = cyc
             row["head_cycles"] = int(knot[1])
-        elif what not in LANE_KERNELS:   # each phase's mean over the knots
+        else:   # each phase's mean over the knots
             steps = N
             per = nph // steps
             arr = np.asarray(cyc[:per * steps]).reshape(steps, per)

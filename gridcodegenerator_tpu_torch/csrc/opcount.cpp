@@ -12,8 +12,8 @@
 //
 // Two counts per kernel:
 // * executed: every operation the kernel's lane code does (fd_du, fdsva_so,
-//   idsva_so, id_du, rnea, fd, minv, crba, eepos and d2eepos: every thread
-//   of the knot's group, warp.cuh; the Riccati sweeps, the rollouts, open-loop,
+//   idsva_so, id_du, rnea, fd, minv, crba, eepos, deepos and d2eepos: every
+//   thread of the knot's group, warp.cuh; the Riccati sweeps, the rollouts, open-loop,
 //   feedback and line search, and aba: every thread of the problem's,
 //   rollout's or knot's group, sweep_warp.cuh);
 // * needed: the arithmetic of the function, the bound's numerator. Constants
@@ -26,9 +26,9 @@
 //   D_fam[st] x computed once, as the reference algorithm does
 //   (gridcodegenerator_tpu/ops/so.py:idsva_so_analytical), where the
 //   kernels form D_st x at every use to save per-thread memory. d2eepos
-//   counts the cheaper of its two algorithms: the chain form
-//   (dynamics.cuh:ee_hess_lane) and the knot program's twists
-//   (warp.cuh:d2eepos_knot), which needs fewer.
+//   and deepos count the cheaper of their two algorithms: the chain form
+//   (dynamics.cuh:ee_hess_lane, ee_jac_lane) and the knot program's twists
+//   (warp.cuh:d2eepos_knot, deepos_knot).
 #include <cmath>
 #include <vector>
 
@@ -335,7 +335,17 @@ long long count(int kernel, const double* model, const double* ee, int ne,
       else
         eepos_host<C, NJ>(m.data(), e.data(), ne, a.data(), x.data(), 1);
       break;
-    case DEEPOS: ee_jac_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1); break;
+    case DEEPOS:   // executed: the lane's group, every phase, every EE;
+                   // needed: the fewer of the chain form's and the knot
+                   // program's twist form's
+      deepos_host<C, NJ>(m.data(), e.data(), ne, a.data(), x.data(), 1);
+      if (needed) {
+        const long long twist = C::n;
+        C::n = 0;
+        ee_jac_lane<C, NJ>(R, e.data(), ne, a.data(), x.data(), 1);
+        if (twist < C::n) C::n = twist;
+      }
+      break;
     case D2EEPOS:   // executed: the lane's group, every phase, and its
                     // share of the block's store; needed: the fewer of the
                     // chain form's and the knot program's twist form's

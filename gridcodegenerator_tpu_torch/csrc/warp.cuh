@@ -1,8 +1,9 @@
 // One warp per knot: the fd_du, fdsva_so, idsva_so and id_du programs of
 // csrc/fd_du.cu, csrc/fdsva_so.cu, csrc/idsva_so.cu and csrc/id_du.cu, and
-// the groups of threads a lane of d2eepos, rnea, fd and eepos
-// (csrc/d2eepos.cu, csrc/rnea.cu, csrc/fd.cu, csrc/eepos.cu), written once
-// for the card and for the host.
+// the groups of threads a lane of d2eepos, rnea, fd, eepos, minv, crba and
+// deepos (csrc/d2eepos.cu, csrc/rnea.cu, csrc/fd.cu, csrc/eepos.cu,
+// csrc/minv.cu, csrc/crba.cu, csrc/deepos.cu), written once for the card
+// and for the host.
 //
 // A block holds G knots, a warp each (a half warp up to 8 joints, where the
 // 2 NJ gradient columns fit in 16 threads: two knots a warp; 2 or 4 times
@@ -1801,42 +1802,49 @@ GT_HDI T cross3_r(const T* a, int sa, const T* b, int sb, int r) {
   return a[i * sa] * b[j * sb] - a[j * sa] * b[i * sb];
 }
 
-// The (6, NJ, NJ) pose Hessian block of one lane at the block's EE
-// (H.select): dynamics.cuh:ee_hess_lane's function, in the frame of the
-// chain's full transform F = T_0 ... T_k-1 Tfix, formed as the chain form
-// forms it, T_0 suf_0 (formed as pre_k Tfix, F's float32 rounding moved
-// the Hessian of a near-singular pose, where atan2's 1/r^3 terms amplify
-// it, far from the plain version's). A joint's derivative is
-// dT_a = Lambda_a T_a, with Lambda_a = Ttree K Ttree^-1 a constant twist
-// of the joint (EEHead::lam; K its generator, K^2 = d2T_a T_a^-1 Ttree
-// conjugated away), so with Xi_a = pre_a Lambda_a pre_a^-1:
-// dF/dq_a = Xi_a F, and for a <= b d2F/dq_a dq_b = Xi_a Xi_b F (the
-// chain form's pre_a dT_a T_a+1 ... T_b-1 dT_b suf_b, and pre_a d2T_a
-// suf_a on the diagonal). Split over the group's threads:
+// The state of one lane at one EE that ee_twist_knot reads and writes, by
+// chain position (D2Knot's or DJKnot's offsets): q, the joint transforms,
+// the prefixes, the suffixes, the twists xi_a, rows 0-2 of dTf_a = Xi_a F
+// and rows 0-2 of F.
+template <typename T>
+struct EETwistView {
+  const T* q;
+  T* TS;
+  T* PRE;
+  T* SUF;
+  T* XI;
+  T* DTF;
+  T* FULL;
+};
+
+// The pose's first derivatives of one lane at the block's EE (H.select, a
+// chain of k >= 1 joints) in the twist form, at the caller's view V: the
+// first k + 2 phases of d2eepos_knot and deepos_knot. F = T_0 ... T_k-1
+// Tfix, the chain's full transform, is formed as the chain form forms it,
+// T_0 suf_0 (formed as pre_k Tfix, F's float32 rounding moved the Hessian
+// of a near-singular pose, where atan2's 1/r^3 terms amplify it, far from
+// the plain version's). A joint's derivative is dT_a = Lambda_a T_a, with
+// Lambda_a = Ttree K Ttree^-1 a constant twist of the joint (EEHead::lam;
+// K its generator), so with Xi_a = pre_a Lambda_a pre_a^-1: dF/dq_a = Xi_a
+// F (the chain form's pre_a dT_a suf_a). Split over the group's threads:
 // 1. T_a, a chain joint's matrix a thread (joint_mat);
 // 2. k - 1 phases of the prefix and suffix products, an entry a thread;
 // 3. xi_a = Ad(pre_a) lambda_a, a component a thread, and F;
-// 4. dTf_a = Xi_a F, rows 0-2, an entry a thread (omega_a x F's columns);
-// 5. the pairs a <= b, a pair a thread: Xi_a dTf_b at the 8 entries
-//    pose_hvp reads (omega_a x dTf_b's columns), then pose_hvp at F along
-//    dTf_a and dTf_b. STAGE: into the knot's tile by chain positions, both
-//    triangles (d2eepos_store writes them out); else straight to `out`
-//    (the EE's block, entry (0, 0, 0) of lane 0) at lane `lane` < L.
-// Only rows 0-2 of a transform are formed (row 3 is [0 0 0 1]).
-template <typename T, int NJ, bool STAGE, class Par>
-GT_HD void d2eepos_knot(const Par& par, const EEHead<T, NJ>& H, T* k, T* out,
-                        long long L, long long lane) {
-  using O = D2Knot<NJ>;
+// 4. dTf_a = Xi_a F, rows 0-2, an entry a thread (omega_a x F's columns).
+// Only rows 0-2 of a transform are formed (row 3 is [0 0 0 1]). The
+// caller forms V, as fd_qdd_knot's callers form its view.
+template <typename T, int NJ, class Par>
+GT_HDI void ee_twist_knot(const Par& par, const EEHead<T, NJ>& H,
+                          const EETwistView<T>& V) {
   constexpr int W = Par::LANES;
   const int kc = H.k;
-  if (kc == 0) return;
-  const T* q = k + O::Q;
-  T* TS = k + O::TS;
-  T* PRE = k + O::PRE;
-  T* XI = k + O::XI;
-  T* DTF = k + O::DTF;
-  T* FULL = k + O::FULL;
-  T* SUF = k + O::SUF;
+  const T* q = V.q;
+  T* TS = V.TS;
+  T* PRE = V.PRE;
+  T* XI = V.XI;
+  T* DTF = V.DTF;
+  T* FULL = V.FULL;
+  T* SUF = V.SUF;
   // rows 0-2 of pre_s, s >= 1; suf_a
   auto pre = [&](int s) -> const T* {
     return s == 1 ? TS : PRE + 12 * s - 12;
@@ -1905,6 +1913,32 @@ GT_HD void d2eepos_knot(const Par& par, const EEHead<T, NJ>& H, T* k, T* out,
       DTF[x] = y;
     });
   });
+}
+
+// The (6, NJ, NJ) pose Hessian block of one lane at the block's EE
+// (H.select): dynamics.cuh:ee_hess_lane's function, in the frame of F (see
+// ee_twist_knot): for a <= b d2F/dq_a dq_b = Xi_a Xi_b F (the chain form's
+// pre_a dT_a T_a+1 ... T_b-1 dT_b suf_b, and pre_a d2T_a suf_a on the
+// diagonal). Split over the group's threads:
+// 1-4. ee_twist_knot: T_a, the prefixes and suffixes, xi_a and F, dTf_a;
+// 5. the pairs a <= b, a pair a thread: Xi_a dTf_b at the 8 entries
+//    pose_hvp reads (omega_a x dTf_b's columns), then pose_hvp at F along
+//    dTf_a and dTf_b. STAGE: into the knot's tile by chain positions, both
+//    triangles (d2eepos_store writes them out); else straight to `out`
+//    (the EE's block, entry (0, 0, 0) of lane 0) at lane `lane` < L.
+template <typename T, int NJ, bool STAGE, class Par>
+GT_HD void d2eepos_knot(const Par& par, const EEHead<T, NJ>& H, T* k, T* out,
+                        long long L, long long lane) {
+  using O = D2Knot<NJ>;
+  constexpr int W = Par::LANES;
+  const int kc = H.k;
+  if (kc == 0) return;
+  T* XI = k + O::XI;
+  T* DTF = k + O::DTF;
+  T* FULL = k + O::FULL;
+  ee_twist_knot<T, NJ>(par, H,
+                       EETwistView<T>{k + O::Q, k + O::TS, k + O::PRE,
+                                      k + O::SUF, XI, DTF, FULL});
   par([&](int t) {
     Deal<W> d{t, 0};
     d(kc * (kc + 1) / 2, [&](int n) {   // pair n of the rows a <= b
@@ -2082,6 +2116,95 @@ GT_HD void eepos_knot(const Par& par, const Head& H, T* k) {
 }
 
 // ---------------------------------------------------------------------------
+// deepos: a group of threads a lane, d2eepos's twist phases
+// ---------------------------------------------------------------------------
+
+// One lane's state at one EE, by chain position a < k: d2eepos's (D2Knot)
+// q, T_a, prefixes, suffixes, xi_a, dTf_a and F, and the lane's (6, NJ)
+// Jacobian block by chain positions (row r, column a at r NJ + a). dTf_a
+// takes the suffixes' place (the last phase that reads them forms F) and
+// the block the prefixes' (read last by the twists' phase): 51 NJ + 12
+// values (369 at 7 joints, 1.4 KB in float32).
+template <int NJ>
+struct DJKnot {
+  static constexpr int Q = 0;
+  static constexpr int TS = Q + NJ, PRE = TS + 16 * NJ, SUF = PRE + 12 * NJ;
+  static constexpr int XI = SUF + 16 * NJ, FULL = XI + 6 * NJ;
+  static constexpr int DTF = SUF, JAC = PRE;
+  static constexpr int SIZE = FULL + 12;
+};
+
+// The (6, NJ) pose Jacobian block of one lane at the block's EE
+// (H.select): dynamics.cuh:ee_jac_lane's function in the twist form, k + 3
+// phases for a chain of k joints (iiwa 10):
+// 1-4. ee_twist_knot: T_a, the prefixes and suffixes, xi_a and F = T_0
+//    suf_0 (the serial lane's point of the JVP, in its order), dTf_a =
+//    dF/dq_a = Xi_a F;
+// 5. dynamics.cuh:pose_jvp at F along dTf_a, a (component, chain joint) a
+//    thread, into the knot's tile (deepos_store writes it out). The
+//    divisions depend on F only: each thread forms 1 / (x^2 + y^2) of the
+//    three angles' atan2 and 1 / r of pitch's r = sqrt(F21^2 + F22^2)
+//    once, then multiplies. An empty chain runs no phase: its block is
+//    zeros.
+template <typename T, int NJ, class Par>
+GT_HD void deepos_knot(const Par& par, const EEHead<T, NJ>& H, T* k) {
+  using O = DJKnot<NJ>;
+  constexpr int W = Par::LANES;
+  const int kc = H.k;
+  if (kc == 0) return;
+  const T* DTF = k + O::DTF;
+  const T* FULL = k + O::FULL;
+  T* JAC = k + O::JAC;
+  ee_twist_knot<T, NJ>(par, H,
+                       EETwistView<T>{k + O::Q, k + O::TS, k + O::PRE,
+                                      k + O::SUF, k + O::XI, k + O::DTF,
+                                      k + O::FULL});
+  par([&](int t) {
+    const T f0 = FULL[0], f4 = FULL[4], f8 = FULL[8], f9 = FULL[9];
+    const T f10 = FULL[10];
+    const T rr = f9 * f9 + f10 * f10, r = gsqrt(rr), ir = T(1) / r;
+    const T iroll = T(1) / rr, ipitch = T(1) / (r * r + f8 * f8);
+    const T iyaw = T(1) / (f0 * f0 + f4 * f4);
+    Deal<W> d{t, 0};
+    d(6 * kc, [&](int x) {   // one component of every joint, then the next
+      const int m = x / kc, a = x % kc;
+      const T* dT = DTF + 12 * a;
+      T v;
+      if (m < 3) {
+        v = dT[4 * m + 3];
+      } else if (m == 3) {   // roll = atan2(F21, F22)
+        v = (f10 * dT[9] - f9 * dT[10]) * iroll;
+      } else if (m == 4) {   // pitch = -atan2(F20, r)
+        const T dr = (f9 * dT[9] + f10 * dT[10]) * ir;
+        v = -((r * dT[8] - f8 * dr) * ipitch);
+      } else {   // yaw = atan2(F10, F00)
+        v = (f0 * dT[4] - f4 * dT[0]) * iyaw;
+      }
+      JAC[m * NJ + a] = v;
+    });
+  });
+}
+
+// The block's (6, NJ) Jacobian blocks of its G lanes at the block's EE to
+// `out` (the EE's block, lane-major), each of the 6 NJ rows as G
+// consecutive lanes: a chain joint's row from each knot's tile, a joint
+// off the chain's zeros, which read no lane's state (an empty chain: every
+// row zeros).
+template <typename T, int NJ, int S, int G>
+GT_HD void deepos_store(const EEHead<T, NJ>& H, const T* knots, T* out,
+                        long long L, long long l0, int tid, int nthreads) {
+  for (int x = tid; x < 6 * NJ * G; x += nthreads) {
+    const int row = x / G, g = x % G;
+    const long long l = l0 + g;
+    if (l >= L) continue;
+    const int a = H.pos[row % NJ];
+    out[row * L + l] =
+        a < 0 ? T(0)
+              : knots[(long long)g * S + DJKnot<NJ>::JAC + row / NJ * NJ + a];
+  }
+}
+
+// ---------------------------------------------------------------------------
 // blocks: G knots after a head of block-wide constants
 // ---------------------------------------------------------------------------
 
@@ -2105,15 +2228,16 @@ GT_HDI constexpr int knots_per_sm(long long head, long long knot_bytes,
   return g * (int)b;
 }
 
-// G, at most MAX_KNOTS and a multiple of the knots a warp holds: the one
-// that puts the most knots on an SM, the larger on a tie; with `pow2`, the
+// G, at most `cap` and a multiple of the knots a warp holds: the one that
+// puts the most knots on an SM, the larger on a tie; with `pow2`, the
 // largest power of 2 that fits (a block's run of a row then fills whole
 // 32-byte sectors or an aligned part of one); 0 if one knot does not fit
 GT_HDI constexpr int best_knots(long long head, long long knot_bytes,
-                                int lanes, int regs, bool pow2 = false) {
+                                int lanes, int regs, bool pow2 = false,
+                                int cap = MAX_KNOTS) {
   const int step = lanes < WARP ? WARP / lanes : 1;
   int best = 0, most = 0;
-  for (int g = step; g <= MAX_KNOTS; g = pow2 ? 2 * g : g + step) {
+  for (int g = step; g <= cap; g = pow2 ? 2 * g : g + step) {
     const int n = knots_per_sm(head, knot_bytes, lanes, g, regs);
     if (n > 0 && (pow2 || n >= most)) {
       best = g;
@@ -2174,6 +2298,30 @@ struct KnotShape {
   static constexpr long long HEAD = (sizeof(Head) + 15) / 16 * 16;
   static constexpr int LANES = LANES_, G = G_, ROWS = 1;
   // one knot's where none fits (G = 0)
+  static constexpr long long BYTES =
+      HEAD + (long long)(G > 0 ? G : 1) * STRIDE * (long long)sizeof(T);
+};
+
+// A knot of KNOT values of T padded so that the knots of a warp, LANES
+// threads each, start LANES banks apart (modulo 32): the 4 knots of 8
+// threads that a warp holds then read a knot's same entry from 4 banks
+// (knot_stride puts knots 16 banks apart: there knots 0 and 2 of a warp
+// share every bank, a 2-way conflict on each access). A knot of a warp or
+// more is padded as knot_stride pads it.
+template <typename T>
+GT_HDI constexpr int group_stride(int knot, int lanes) {
+  constexpr int WORDS = (int)sizeof(T) / 4;
+  const int row = 32 / WORDS;   // values in one row of the 32 banks
+  const int want = (lanes < WARP ? lanes : 16) / WORDS;
+  return knot + ((want - knot % row) + row) % row;
+}
+
+// A block of G knots of LANES threads each, padded by group_stride
+template <typename T, class Head, int KNOT, int LANES_, int G_>
+struct GroupShape {
+  static constexpr int STRIDE = group_stride<T>(KNOT, LANES_);
+  static constexpr long long HEAD = (sizeof(Head) + 15) / 16 * 16;
+  static constexpr int LANES = LANES_, G = G_, ROWS = 1;
   static constexpr long long BYTES =
       HEAD + (long long)(G > 0 ? G : 1) * STRIDE * (long long)sizeof(T);
 };
@@ -2371,6 +2519,24 @@ using EEPlan = KnotShape<
     best_knots(EEKnot1<T, NJ>::HEAD,
                EEKnot1<T, NJ>::STRIDE * (long long)sizeof(T), EE_LANES,
                fd_regs<T>(), true)>;
+
+// deepos's plan: the shape that ran fastest for iiwa at config 3's 131072
+// lanes (compare_kernels.py's shapes; PERF.md), one for every batch: 4
+// threads a lane (its phases have 7-84 items on iiwa), its knots
+// group_stride apart (16 banks apart, 4 threads a lane took 1.8x and 8
+// threads 1.27x the time), G the largest power of 2 up to DJ_MAX_G = 16
+// that fits (G = 16 ran 4% faster than 8 at
+// 131072 lanes; each of the 6 NJ output rows of an EE is G consecutive
+// lanes: 64-byte runs in float32).
+constexpr int DJ_LANES = 4, DJ_MAX_G = 16;
+template <typename T, int NJ>
+using DJKnot1 = GroupShape<T, EEHead<T, NJ>, DJKnot<NJ>::SIZE, DJ_LANES, 1>;
+template <typename T, int NJ>
+using DJPlan = GroupShape<
+    T, EEHead<T, NJ>, DJKnot<NJ>::SIZE, DJ_LANES,
+    best_knots(DJKnot1<T, NJ>::HEAD,
+               DJKnot1<T, NJ>::STRIDE * (long long)sizeof(T), DJ_LANES,
+               fd_regs<T>(), true, DJ_MAX_G)>;
 
 // Knot g of the block takes lane l0 + g. The block reads the (NJ, G) tiles
 // of q, qd and u (G consecutive lanes a row; the first INPUTS of them) into
@@ -2732,6 +2898,38 @@ void d2eepos_host(const T* model, const T* ee, int ne, const T* q, T* out,
       }
       d2eepos_store<T, NJ, O::SIZE, P::G, STAGE>(H[0], k.data(), oe, L, l0,
                                                  0, 1);
+    }
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
+// deepos's block code with the card's G: at each EE, each block's valid
+// knots in turn, then the block's rows
+template <typename T, int NJ>
+void deepos_host(const T* model, const T* ee, int ne, const T* q, T* out,
+                 long long L) {
+  using O = DJKnot<NJ>;
+  using P = DJPlan<PlanType<T>, NJ>;
+  static_assert(P::G >= 1, "one deepos knot must fit");
+  std::vector<EEHead<T, NJ>> H(1);
+  H[0].load(model, 0, 1);
+  std::vector<T> k((long long)P::G * O::SIZE);
+  for (int e = 0; e < ne; ++e) {
+    H[0].select(ee + e * EERow<NJ>::SIZE, 0, 1);
+    T* oe = out + 6LL * e * NJ * L;
+    for (long long l0 = 0; l0 < L; l0 += P::G) {
+      for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+      load_q<T, NJ, O::SIZE>(q, L, l0, P::G, k.data(), 0, 1);
+      for (int g = 0; g < P::G && l0 + g < L; ++g) {
+        T* kg = k.data() + (long long)g * O::SIZE;
+#ifdef GT_RACE_CHECK
+        gt_race_watch(kg, O::SIZE * (long)sizeof(T));
+#endif
+        deepos_knot<T, NJ>(HostPar<P::LANES>{}, H[0], kg);
+      }
+      deepos_store<T, NJ, O::SIZE, P::G>(H[0], k.data(), oe, L, l0, 0, 1);
     }
   }
 #ifdef GT_RACE_CHECK

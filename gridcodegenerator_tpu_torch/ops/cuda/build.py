@@ -2,12 +2,12 @@
 
 The counterpart of ``gridcodegenerator_tpu/ops/pallas/fuse.py``: where the
 JAX package tiles a batch axis over a Pallas grid and keeps the robot
-constants resident in VMEM, the port runs one thread per problem lane (fd_du,
-fdsva_so, idsva_so, id_du, rnea, aba, fd, minv, crba, eepos and d2eepos: a
-warp or a part of one per lane; the Riccati sweeps a warp per problem;
-linesearch_rollout, rollout and feedback_rollout a group of threads per
-rollout; the constants
-copied into shared memory once a block), masks the ragged last block, and
+constants resident in VMEM, the port runs a group of threads per problem
+lane (fd_du, fdsva_so, idsva_so, id_du, rnea, aba, fd, minv, crba, eepos,
+deepos and d2eepos: a warp or a part of one per lane; the Riccati sweeps a
+warp per problem; linesearch_rollout, rollout and feedback_rollout a group
+of threads per rollout; the constants copied into shared memory once a
+block), masks the ragged last block, and
 hands the robot constants over in one packed device buffer
 (:func:`model_buffer`; the end-effector kernels also take one row per EE,
 :func:`ee_buffer`).
@@ -208,6 +208,7 @@ _SIGNATURES = {
     "gridtorch_eepos_info": (_I, _I, _P),
     "gridtorch_minv_info": (_I, _I, _P),
     "gridtorch_crba_info": (_I, _I, _P),
+    "gridtorch_deepos_info": (_I, _I, _P),
     "gridtorch_d2eepos": (_I, _I, _P, _P, _I, _P, _P, _L, _P),
     "gridtorch_feedback_rollout": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                                    _P, _P, _I, _L, _D, _D, _P),
@@ -250,7 +251,7 @@ INFO_FIELDS = ("knots_per_block", "threads_per_knot", "smem_bytes_per_block",
 WARP_KERNELS = ("fd_du", "fdsva_so", "riccati_factored", "linesearch",
                 "riccati", "riccati_stacked", "rollout", "idsva_so",
                 "feedback_rollout", "id_du", "d2eepos", "rnea", "aba", "fd",
-                "eepos", "minv", "crba")
+                "eepos", "minv", "crba", "deepos")
 
 
 def warp_kernel_info(what: str, nj: int, dtype) -> dict:

@@ -35,25 +35,23 @@ Lane-major tensors, L lanes on the trailing axis:
   extras, the idsva_so kernel at its qdd, then ``ops/so.py``'s
   contractions in torch (``fdsva_compose_lanes``).
 
-Kernels: ``csrc/<name>.cu``, one thread per lane, everything in registers
-and local memory (``deepos``); the others a thread group per lane (knot),
-its state in shared memory, G knots a block (``fd_du``, ``fdsva_so``,
-``idsva_so``, ``id_du``, ``rnea``, ``fd`` (fd_du's bias and Minv passes),
-``minv`` (fd's Minv passes), ``crba`` (a level of the tree a phase),
-``eepos`` and ``d2eepos`` on ``csrc/warp.cuh``; ``aba`` on the rollouts'
-ABA phases, ``csrc/sweep_warp.cuh``).
-Inputs are read and outputs written along the lane axis, so every access
-is coalesced. What bounds them on the card: arithmetic and
-the local memory that holds each lane's joint transforms, inertias and
-Minv factors — not device memory, since a 7-DoF lane reads at most 21
+Kernels: ``csrc/<name>.cu``, a thread group per lane (knot), its state in
+shared memory, G knots a block (``fd_du``, ``fdsva_so``, ``idsva_so``,
+``id_du``, ``rnea``, ``fd`` (fd_du's bias and Minv passes), ``minv`` (fd's
+Minv passes), ``crba`` (a level of the tree a phase), ``eepos``,
+``deepos`` and ``d2eepos`` (one EE chain's twist phases) on
+``csrc/warp.cuh``; ``aba`` on the rollouts' ABA phases,
+``csrc/sweep_warp.cuh``).
+Inputs are read and outputs written along the lane axis, G consecutive
+lanes a row. What bounds them on the card: the phases' latency and
+arithmetic — not device memory, since a 7-DoF lane reads at most 21
 values and writes at most 154 (deepos: 42 per EE) — but for the
 second-order outputs (4 n^3 values a lane; d2eepos 6 n^2 per EE), whose
 writes are the least time.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-or raises: the thread-group kernels (fd_du, rnea, id_du, aba, minv, fd,
-crba, eepos, idsva_so, fdsva_so, d2eepos) check their instance's block plan
-first, and refuse, before any launch, one whose knot does not fit a block
+or raises: every kernel checks its instance's block plan first, and
+refuses, before any launch, one whose knot does not fit a block
 (``build.fits``).
 idsva_so runs its tile in bands where a knot's whole tile does not fit,
 and fdsva_so takes the composed route: every fixed-base robot of 1-28
@@ -283,8 +281,7 @@ def _ee_launch(what: str, model: RobotModel, q, targets, *cols):
     """Launch EE kernel ``what`` over the EE rows of ``targets``: output
     (6 ne, *cols, L)."""
     dcode, nj, L = _lanes(model, what, dict(q=q))
-    if what in build.WARP_KERNELS:
-        build.fits(what, nj, q.dtype)
+    build.fits(what, nj, q.dtype)
     ee = build.ee_buffer(model, targets)
     out = _empty(q, 6 * ee.shape[0], *cols, L)
     _launched(what, getattr(build.lib(nj), f"gridtorch_{what}")(

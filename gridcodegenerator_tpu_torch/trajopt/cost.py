@@ -7,7 +7,11 @@ x = [q; qd] (2n, B...), controls u (n, B...).
   expansions and a stationary curvature;
 * :class:`EEReachCost` — 0.5*w*||ee_xyz(q) - goal||^2 with a Gauss-Newton
   Hessian from the FK Jacobian, plus quadratic velocity and control
-  regularizers.
+  regularizers. Its pose and Jacobian come from the EE functions it is
+  given (``ee_fns``): by default the kernel wrappers
+  (``ops/cuda/kernels.py:eepos``, ``deepos``), which launch the eepos and
+  deepos kernels on CUDA tensors and run the counted plain twins on CPU
+  tensors; ``make_ilqr(use_kernels=False)`` hands it the plain twins.
 
 Both carry the line-search hooks: ``ls_stage``/``ls_terminal`` (the cost as
 the line-search kernel sums it along the sweep, in plain torch) and
@@ -24,6 +28,7 @@ import torch
 
 from ..models.model import RobotModel
 from ..ops import eepose as _eepose
+from ..ops.cuda import kernels as _k
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -112,6 +117,9 @@ class EEReachCost:
     w_vel: float = 1e-2
     w_u: float = 1e-4
     ee_index: int = 0
+    # (eepos, deepos), each (model, q) -> all EEs' poses (6 ne, B...) or
+    # Jacobians (6 ne, n, B...); None: the kernel wrappers
+    ee_fns: tuple = None
 
     def __post_init__(self):
         if self.goal_xyz.shape != (3,):
@@ -125,29 +133,40 @@ class EEReachCost:
     def _goal(self, like):
         return self.goal_xyz.to(like.dtype).reshape((3,) + (1,) * (like.ndim - 1))
 
-    def _err_jac(self, q):
-        """EE xyz error (3,B...) and Jacobian (3,n,B...) of EE ``ee_index``."""
-        pose = _eepose.eepos(self.model, q)
-        J = _eepose.deepos(self.model, q)
+    def _fns(self):
+        return self.ee_fns or (_k.eepos, _k.deepos)
+
+    def _err(self, q):
+        """EE xyz error (3,B...) of EE ``ee_index``: one pose call."""
+        pose = self._fns()[0](self.model, q.contiguous())
         k = 6 * self.ee_index
-        return pose[k:k + 3] - self._goal(q), J[k:k + 3]
+        return pose[k:k + 3] - self._goal(q)
+
+    def _err_jac(self, q):
+        """EE xyz error (3,B...) and Jacobian (3,n,B...) of EE ``ee_index``:
+        one pose call and one Jacobian call."""
+        J = self._fns()[1](self.model, q.contiguous())
+        k = 6 * self.ee_index
+        return self._err(q), J[k:k + 3]
 
     def stage(self, x, u):
         n = self.model.num_vel
-        e, _ = self._err_jac(x[:n])
+        e = self._err(x[:n])
         qd = x[n:]
         return (0.5 * self.w_pos * (e * e).sum(0)
                 + 0.5 * self.w_vel * (qd * qd).sum(0)
                 + 0.5 * self.w_u * (u * u).sum(0))
 
-    def terminal(self, x):
-        n = self.model.num_vel
-        e, _ = self._err_jac(x[:n])
-        qd = x[n:]
+    def _terminal(self, e, qd):
         return (0.5 * self.w_pos_f * (e * e).sum(0)
                 + 0.5 * self.w_vel * (qd * qd).sum(0))
 
+    def terminal(self, x):
+        n = self.model.num_vel
+        return self._terminal(self._err(x[:n]), x[n:])
+
     def _expand(self, x, w_pos):
+        """-> (e, lx, lxx) at the EE error e."""
         n = self.model.num_vel
         q, qd = x[:n], x[n:]
         e, J = self._err_jac(q)
@@ -159,12 +178,13 @@ class EEReachCost:
         z = torch.zeros_like(JTJ)
         lxx = torch.cat([torch.cat([w_pos * JTJ, z], dim=1),
                          torch.cat([z, self.w_vel * eye], dim=1)], dim=0)
-        return lx, lxx
+        return e, lx, lxx
 
     def terminal_expansion(self, x):
-        """-> (l, lx (2n,B...), lxx (2n,2n,B...))."""
-        lx, lxx = self._expand(x, self.w_pos_f)
-        return self.terminal(x), lx, lxx
+        """-> (l, lx (2n,B...), lxx (2n,2n,B...)): one pose and one
+        Jacobian call."""
+        e, lx, lxx = self._expand(x, self.w_pos_f)
+        return self._terminal(e, x[self.model.num_vel:]), lx, lxx
 
     def gn_stage_factor(self, x, u):
         """(Jw (3, n, B...), lx (2n, B...), lu (n, B...)): the stage curvature

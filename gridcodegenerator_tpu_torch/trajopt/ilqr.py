@@ -20,7 +20,8 @@ solve is an open-loop rollout, then ``iters`` iterations of
 
 ``ILQRConfig.use_kernels``: None runs the CUDA kernels iff the tensors are
 on CUDA (the wrappers dispatch on device); True insists on CUDA tensors;
-False runs the plain PyTorch versions on any device.
+False runs the plain PyTorch versions on any device, the EE cost's pose and
+Jacobian too (``EEReachCost.ee_fns``).
 
 Integrator: semi-implicit Euler — qd' = qd + dt*qdd, q' = q + dt*qd'.
 """
@@ -145,6 +146,9 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
     ls_roll = _s.linesearch_rollout_plain if plain else _s.linesearch_rollout
     ric_gn = _s.riccati_factored_plain if plain else _s.riccati_factored
     ric = _s.riccati_plain if plain else _s.riccati
+    if plain and hasattr(cost, "ee_fns"):   # the EE cost's plain twins too
+        cost = dataclasses.replace(cost, ee_fns=(_k.eepos_plain,
+                                                 _k.deepos_plain))
 
     def on_device(t):
         if cfg.use_kernels and not t.is_cuda:

@@ -11,12 +11,12 @@ shapes, not on the values, so one lane counts what every lane of a launch
 does. By default it counts the arithmetic the function needs: constants
 (literals, the robot's constants) folded, IDSVA-SO's D1-D4 formed once
 per joint with each product D x computed once, as the reference algorithm
-does, and d2eepos by the cheaper of the chain form and the kernel's twist
-form; ``executed=True`` counts every operation the kernel's lane code does
-(the thread-group kernels, fd_du, fdsva_so, idsva_so, id_du, rnea, aba,
-fd, minv, crba, eepos, d2eepos, the Riccati sweeps and the rollouts: every
-thread of the knot's, lane's, problem's or rollout's group, phase by phase,
-as ``HostPar`` runs them),
+does, and d2eepos and deepos by the cheaper of the chain form and the
+kernel's twist form; ``executed=True`` counts every operation the kernel's
+lane code does (the thread-group kernels, fd_du, fdsva_so, idsva_so, id_du,
+rnea, aba, fd, minv, crba, eepos, deepos, d2eepos, the Riccati sweeps and
+the rollouts: every thread of the knot's, lane's, problem's or rollout's
+group, phase by phase, as ``HostPar`` runs them),
 by the route the card takes in the model's dtype: idsva_so in every band
 where a knot's whole tile does not fit a block, fdsva_so's composed route
 (fd_du, idsva_so, the contractions) where its fused knot does not fit.

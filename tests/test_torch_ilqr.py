@@ -56,10 +56,13 @@ def test_slice_matches_jax_solver(problem):
     build.reset_counters()
     res = make_ilqr(tm, tcost, ILQRConfig(N=N, iters=ITERS))(
         torch.as_tensor(x0), torch.as_tensor(U0))
-    # CPU tensors: every phase ran its plain version, no kernel launched
+    # CPU tensors: every phase ran its plain version, the EE cost's pose
+    # and Jacobian too, no kernel launched
     assert dict(build.PLAIN_CALLS) == {"rollout": 1, "fd_du": ITERS,
                                        "riccati_factored": ITERS,
-                                       "linesearch_rollout": ITERS}
+                                       "linesearch_rollout": ITERS,
+                                       "eepos": 2 + 2 * ITERS,
+                                       "deepos": 2 * ITERS}
     assert not build.LAUNCHES
     for f in ("cost_trace", "X", "U"):
         np.testing.assert_allclose(getattr(res, f).numpy(),

@@ -575,6 +575,8 @@ extern "C" void plans_##NJ(int* out) {                                      \
   plan_into<MinvPlan<double, NJ>>(out + 136);                               \
   plan_into<CRBAPlan<float, NJ>>(out + 140);                                \
   plan_into<CRBAPlan<double, NJ>>(out + 144);                               \
+  plan_into<DJPlan<float, NJ>>(out + 148);                                  \
+  plan_into<DJPlan<double, NJ>>(out + 152);                                 \
 }                                                                           \
 extern "C" int tree_lists_##NJ(const double* m) {                          \
   std::vector<RobotConst<double, NJ>> R(2);                                 \
@@ -678,6 +680,11 @@ extern "C" void eepos_lane_##NJ(const double* m, const double* ee, int ne, \
   }                                                                         \
 }                                                                           \
 extern "C" void deepos_##NJ(const double* m, const double* ee, int ne,     \
+    const double* q, double* out, ll L) {                                   \
+  race_reset();                                                             \
+  deepos_host<double, NJ>(m, ee, ne, q, out, L);                            \
+}                                                                           \
+extern "C" void deepos_lane_##NJ(const double* m, const double* ee, int ne, \
     const double* q, double* out, ll L) {                                   \
   Robot<double, NJ> R(m);                                                   \
   for (ll l = 0; l < L; ++l) {                                              \
@@ -883,7 +890,7 @@ def _host_run(lib, name, args, lane=False):
         cols = {"eepos": (), "deepos": (n,), "d2eepos": (n, n)}[kernel]
         # NaN where the card would hand over uninitialised memory
         out = torch.full((6 * ne, *cols, L), float("nan"), dtype=q.dtype)
-        fn = kernel + (serial if kernel != "deepos" else "")
+        fn = kernel + serial
         getattr(lib, f"{fn}_{n}")(_p(build.model_buffer(m)), _p(ee),
                                   ctypes.c_int(ne), _p(q), _p(out), ll(L))
         return (out,)
@@ -978,8 +985,8 @@ def test_host_build_of_kernel_matches_plain(host_lib, name, robot):
 
 # the ints plans_<nj> writes: 4 a plan (k = offset / 4), idsva_so's bands
 # at 96 and 97, rnea's and aba's plans from 100, fd's and eepos's from 116,
-# minv's and crba's from 132
-PLANS = 148
+# minv's and crba's from 132, deepos's from 148
+PLANS = 156
 
 
 @pytest.mark.parametrize("nj", HOST_JOINTS)
@@ -1014,7 +1021,8 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
     rnea's but 4 | 2 knots a block at 28 joints (float32 | float64); eepos
     (EEPlan) 8 threads a lane, 8 lanes a block; crba (CRBAPlan) 16
     threads a knot at 2, 7 and 12 joints and a warp otherwise, G as
-    rnea's."""
+    rnea's; deepos (DJPlan, d2eepos's twist phases) 4 threads a lane, 16
+    lanes a block."""
     out = (ctypes.c_int * PLANS)()
     getattr(host_lib, f"plans_{nj}")(out)
     base = 16 if 2 * nj <= 16 else 32
@@ -1087,6 +1095,10 @@ def test_warp_block_plans_fit_an_sm(host_lib, nj):
             assert lanes == 32 and g == (4 if f32 else 2)
         else:   # 32-byte runs
             assert lanes == 32 and g * (4 if f32 else 8) >= 32
+    for k in (37, 38):   # deepos: float32, then float64
+        g, lanes, nbytes, rows = out[4 * k: 4 * k + 4]
+        assert 0 < nbytes <= 232448 and rows == 1
+        assert lanes == 4 and g == 16
 
 
 def test_compare_kernels_reads_ptxas_report():
@@ -1094,16 +1106,17 @@ def test_compare_kernels_reads_ptxas_report():
     fdsva_so, idsva_so, riccati_factored, the line search with each cost,
     the dense riccati by its curvature, the rollout, the feedback rollout,
     id_du, d2eepos, rnea with qdd and in the bias form, aba, minv dense and
-    its upper factor, crba) from a ptxas report, with the frames of called
-    functions (cumulative), and no other kernel's (deepos, a thread a
-    lane)."""
+    its upper factor, crba, and an earlier tree's deepos, a thread a lane)
+    from a ptxas report, with the frames of called functions (cumulative),
+    and no other kernel's (the script's own clock of a serial lane)."""
     spec = importlib.util.spec_from_file_location(
         "compare_kernels", Path(__file__).resolve().parents[1] /
         "compare_kernels.py")
     ck = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ck)
     fd = "_Z12fd_du_kernelIdLi7EEvPKT_S2_S2_S2_PS0_S3_S3_xS0_"
-    other = "_Z13deepos_kernelIfLi7EEvPKT_S2_iS2_PS0_x"
+    deepos = "_Z13deepos_kernelIfLi7EEvPKT_S2_iS2_PS0_x"
+    other = "_Z12clocked_laneILi7ELi4EEvPKfS1_iS1_S1_S1_PfxPx"
     minv = ("_Z11minv_kernelIfLi7ELb0EN2gt9KnotShapeIfNS0_9RobotConstIfLi7EEE"
             "Li1197ELi32ELi8EEEEvPKT_S7_PS5_x")
     crba = ("_Z11crba_kernelIdLi12EN2gt9KnotShapeIdNS0_9RobotConstIdLi12EEELi"
@@ -1177,10 +1190,14 @@ def test_compare_kernels_reads_ptxas_report():
         f"ptxas info    : Function properties for {ls}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 80 registers, 0 bytes cumulative stack size",
-        f"ptxas info    : Compiling entry function '{other}' for 'sm_90a'",
-        f"ptxas info    : Function properties for {other}",
+        f"ptxas info    : Compiling entry function '{deepos}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {deepos}",
         "    16 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
         "ptxas info    : Used 40 registers, 16 bytes cumulative stack size",
+        f"ptxas info    : Compiling entry function '{other}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {other}",
+        "    24 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 48 registers, 24 bytes cumulative stack size",
         f"ptxas info    : Compiling entry function '{fd}' for 'sm_90a'",
         f"ptxas info    : Function properties for {fd}",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
@@ -1220,7 +1237,10 @@ def test_compare_kernels_reads_ptxas_report():
         "minv_upper f32 nj7": {"stack": 0, "spill_stores": 0,
                                "spill_loads": 0, "registers": 56, "smem": 0},
         "crba f64 nj12": {"stack": 0, "spill_stores": 0, "spill_loads": 0,
-                          "registers": 64, "smem": 0}}
+                          "registers": 64, "smem": 0},
+        "deepos f32 nj7": {
+            "stack": 16, "spill_stores": 0, "spill_loads": 0,
+            "registers": 40, "smem": 0, "cumulative_stack": 16}}
 
 
 @pytest.mark.parametrize("robot,name", (
@@ -1255,7 +1275,7 @@ SWEEP_PROGRAMS = ("riccati_factored", "linesearch_rollout", "linesearch_quad",
                                                           "rnea", "rnea_bias",
                                                           "aba", "fd",
                                                           "eepos", "minv",
-                                                          "crba"),
+                                                          "crba", "deepos"),
     robot_first=True))
 def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
                                                         name):
@@ -1265,12 +1285,12 @@ def test_host_warp_phases_do_not_depend_on_thread_order(host_lib, robot,
     reverse order, fd_du, fdsva_so, idsva_so, the Riccati sweeps (factored,
     dense stationary and per knot), the line search (both costs), the
     open-loop and feedback rollouts, id_du, d2eepos, rnea (with qdd and
-    the bias form), aba, fd, eepos, minv (dense) and crba give the same
-    bits."""
+    the bias form), aba, fd, eepos, minv (dense), crba and deepos give the
+    same bits."""
     m = build_model(topo(robot), dtype=torch.float64, device="cpu")
     key = name if name in SWEEP_PROGRAMS else "fdsva_so"
     args = path_inputs(m, 2, 2, seed=3)[key]
-    if name in ("d2eepos", "eepos", "crba"):   # q
+    if name in ("d2eepos", "eepos", "crba", "deepos"):   # q
         args = args[:2]
     if name == "minv":   # q, dense
         args = args[:2] + (True,)
@@ -1313,16 +1333,16 @@ def test_host_sweep_phases_write_disjoint_entries(host_lib, robot, name):
 
 @pytest.mark.parametrize("name", ["id_du", "d2eepos", "d2eepos_targets",
                                   "rnea", "rnea_bias", "aba", "fd", "eepos",
-                                  "minv", "crba"])
+                                  "minv", "crba", "deepos"])
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_host_knot_phases_write_disjoint_entries(host_lib, robot, name):
-    """id_du's, d2eepos's, rnea's, fd's, eepos's, minv's and crba's knot
-    programs (csrc/warp.cuh) and aba's (csrc/sweep_warp.cuh) split each
-    phase over the knot's threads: run phase by phase on the host, no entry
-    of a knot's state is written by two threads of one phase (the harness
-    compares the knot before and after each thread); d2eepos on every EE of
-    the robot and on some of them, eepos on every EE (gym_ant: its four
-    feet, on every EE)."""
+    """id_du's, d2eepos's, rnea's, fd's, eepos's, minv's, crba's and
+    deepos's knot programs (csrc/warp.cuh) and aba's (csrc/sweep_warp.cuh)
+    split each phase over the knot's threads: run phase by phase on the
+    host, no entry of a knot's state is written by two threads of one phase
+    (the harness compares the knot before and after each thread); d2eepos
+    on every EE of the robot and on some of them, eepos and deepos on every
+    EE (gym_ant: its four feet, on every EE)."""
     if robot == "gym_ant":
         m = gym_ant_feet(torch.float64, "cpu")
     else:
@@ -1405,7 +1425,7 @@ PLAN_INDEX = {"riccati": 9, "riccati_stacked": 11, "rollout": 13,
               "idsva_so": 15, "feedback_rollout": 17, "id_du": 19,
               "d2eepos": 21, "rnea": 26, "rnea_bias": 26, "aba": 28,
               "fd": 30, "eepos": 32, "minv": 34, "minv_upper": 34,
-              "crba": 36}
+              "crba": 36, "deepos": 38}
 
 
 def _ragged_b(host_lib, name, nj, B):
@@ -1475,7 +1495,7 @@ def test_host_riccati_factored_on_ragged_blocks(host_lib, robot, N, name, B):
 @pytest.mark.parametrize("name,robot", pairs(
     ("riccati", "riccati_stacked", "rollout", "feedback_rollout", "idsva_so",
      "id_du", "d2eepos", "rnea", "rnea_bias", "aba", "eepos", "fd", "minv",
-     "minv_upper", "crba")))
+     "minv_upper", "crba", "deepos")))
 def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
                                                         robot):
     """The block code of the dense riccati (stationary and per knot), of
@@ -1488,12 +1508,13 @@ def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
     the serial order of operations (eepos on every robot, gym_ant's empty
     chains included; crba's parents add their children's composite
     inertias in descending order, and each row of X_c^T Ic_c is formed as
-    XTMX_add forms it). id_du's, d2eepos's, fd's and minv's (dense and the
-    upper factor) knot programs are held to TOL against id_du_lane,
-    ee_hess_lane, fd_lane and minv_lane:
+    XTMX_add forms it). id_du's, d2eepos's, deepos's, fd's and minv's
+    (dense and the upper factor) knot programs are held to TOL against
+    id_du_lane, ee_hess_lane, ee_jac_lane, fd_lane and minv_lane:
     id_du's columns skip the structural zeros of the transforms and walk
     only the related joints, d2eepos forms a mixed second derivative as
-    Xi_a dT/dq_b, not along the chain, and fd's and minv's Minv passes
+    Xi_a dT/dq_b, not along the chain, deepos dT/dq_a as Xi_a F, not as
+    prefix_a dT_a suffix_a, and fd's and minv's Minv passes
     (fd_du's, warp.cuh:minv_backward_knot) distribute X_c^T over the
     backward pass's sums,
     F_p += X_c^T F_c + (X_c^T U_c) M_c and IA_p += (X_c^T IA_c) X_c -
@@ -1507,7 +1528,7 @@ def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
     m = build_model(topo(robot), dtype=torch.float64, device="cpu")
     args = (grid_inputs(m, robot, 11, seed=2)[name]
             if name in ("d2eepos", "eepos", "fd", "minv", "minv_upper",
-                        "crba")
+                        "crba", "deepos")
             else path_inputs(m, 6, 11, seed=2)[name])
     got = _host_run(host_lib, name, args)
     lane = _host_run(host_lib, name, args, lane=True)
@@ -1516,7 +1537,7 @@ def test_host_block_code_is_the_serial_lane_bit_for_bit(host_lib, name,
         assert _max_err(got, lane) <= tol(robot, lane)
         assert torch.equal(got[0] == 0, lane[0] == 0)
         return
-    if name in ("id_du", "d2eepos", "fd", "minv", "minv_upper"):
+    if name in ("id_du", "d2eepos", "fd", "minv", "minv_upper", "deepos"):
         assert _max_err(got, lane) <= tol(robot, lane)
         return
     for a, b in zip(got, lane):
@@ -1670,19 +1691,22 @@ def test_host_id_du_and_d2eepos_on_ragged_blocks(host_lib, robot, name, B):
     + [(robot, name, B) for name in ("fd", "eepos") for robot in ROBOTS
        for B in RAGGED_B]
     + [(robot, name, B) for name in ("minv", "minv_upper", "crba")
-       for robot in ROBOTS for B in RAGGED_B]))
+       for robot in ROBOTS for B in RAGGED_B]
+    + [(robot, "deepos", B) for robot in ROBOTS for B in RAGGED_B]))
 def test_host_rnea_and_aba_on_ragged_blocks(host_lib, robot, name, B):
     """rnea's (with qdd and the bias form), aba's, fd's, eepos's, minv's
-    (dense and the upper factor) and crba's block code with the card's plan
-    (G knots a block, the inputs past the last lane read as zeros, the
-    output rows masked) on 1, G - 1, G + 1 and 37 lanes."""
+    (dense and the upper factor), crba's and deepos's block code with the
+    card's plan (G knots a block, the inputs past the last lane read as
+    zeros, the output rows masked) on 1, G - 1, G + 1 and 37 lanes."""
     m = build_model(topo(robot), dtype=torch.float64, device="cpu")
     L = _ragged_b(host_lib, name, m.n, B)
     args = grid_inputs(m, robot, L, seed=13)[name]
     got = _host_run(host_lib, name, args)
     want = _outs(WRAPPERS[name][1](*args))
-    rows = ((6 * len(eepose.ee_chains(m)),) if name == "eepos" else
-            (m.n, m.n) if name in ("minv", "minv_upper", "crba") else (m.n,))
+    ne = len(eepose.ee_chains(m))
+    rows = ((6 * ne,) if name == "eepos" else (6 * ne, m.n) if name == "deepos"
+            else (m.n, m.n) if name in ("minv", "minv_upper", "crba")
+            else (m.n,))
     assert got[0].shape == want[0].shape == rows + (L,)
     assert _max_err(got, want) <= tol(robot, want)
 
@@ -1815,22 +1839,23 @@ def test_operation_counts_at_17_and_28_joints(robot):
 
 
 @pytest.mark.parametrize("kernel", ["rnea", "aba", "fd", "eepos", "minv",
-                                    "crba"])
+                                    "crba", "deepos"])
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_operation_counts_of_the_rnea_and_aba_knots(counts, robot, kernel):
     """At every joint count of the host harness, the executed count of rnea,
-    aba, fd, eepos, minv and crba is their knot program's (every thread of
-    the knot's group, phase by phase: warp.cuh:rnea_host, fd_host,
-    eepos_host, minv_host, crba_host, sweep_warp.cuh:aba_host), at least
-    the function's need (the serial lane
-    with constants folded), and the same in either dtype's plan's width.
+    aba, fd, eepos, minv, crba and deepos is their knot program's (every
+    thread of the knot's group, phase by phase: warp.cuh:rnea_host,
+    fd_host, eepos_host, minv_host, crba_host, deepos_host,
+    sweep_warp.cuh:aba_host), at least the function's need (the serial lane
+    with constants folded; deepos: the fewer of the chain form's and the
+    twist form's), and the same in either dtype's plan's width.
     gym_ant's EEs are welded to its base: their poses are constants of the
     robot, which the knot program forms and the function needs no
-    operation for."""
+    operation for, and their Jacobians zeros."""
     m = build_model(topo(robot), dtype=torch.float64, device="cpu")
     need = opcount.ops_per_lane(kernel, m)
     ran = opcount.ops_per_lane(kernel, m, executed=True)
-    welded = kernel == "eepos" and robot == "gym_ant"
+    welded = kernel in ("eepos", "deepos") and robot == "gym_ant"
     assert (0 == need if welded else 0 < need) and need <= ran and ran > 0
     assert ran == opcount.ops_per_lane(kernel, m.to(dtype=torch.float32),
                                        executed=True)
@@ -1959,12 +1984,17 @@ def test_cuda_slice_launches_every_kernel(cuda_device):
     build.reset_counters()
     res = make_ilqr(m, cost, ILQRConfig(N=8, iters=2, use_kernels=True))(x0,
                                                                           U0)
+    # the EE cost's pose (the first total cost's stage and terminal, then
+    # each iteration's terminal expansion and GN factor) and Jacobian
     assert dict(build.LAUNCHES) == {"rollout": 1, "fd_du": 2,
                                     "riccati_factored": 2,
-                                    "linesearch_rollout": 2}
+                                    "linesearch_rollout": 2, "eepos": 6,
+                                    "deepos": 4}
     assert not build.PLAIN_CALLS
+    build.reset_counters()
     ref = make_ilqr(m, cost, ILQRConfig(N=8, iters=2, use_kernels=False))(
         x0, U0)
+    assert not build.LAUNCHES and build.PLAIN_CALLS["deepos"] == 4
     assert float((res.cost_trace - ref.cost_trace).abs().max()) <= 1e-8
 
 
@@ -2006,28 +2036,27 @@ def test_cuda_rnea_and_aba_plans_and_launches(cuda_device, robot):
 @pytest.mark.cuda
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_cuda_fd_and_eepos_plans_and_launches(cuda_device, robot):
-    """fd, eepos, minv and crba run a thread group a knot
+    """fd, eepos, minv, crba and deepos run a thread group a knot
     (build.WARP_KERNELS): each instance's plan holds a knot (fd and minv: a
-    warp; eepos: 8 threads a lane; crba: 16 threads at 2, 7 and 12 joints,
-    else a warp), keeps no
+    warp; eepos: 8 threads a lane; deepos: 4; crba: 16 threads at 2, 7 and
+    12 joints, else a warp), keeps no
     per-thread array of the joints' transforms in local memory, and
     launches; each call launches its kernel once, runs nothing plain and
-    matches the plain twin in float64 at 1, G + 1 and 37 lanes (eepos on
-    every EE of the robot and on some of them; minv dense and the upper
-    factor, +0 below its diagonal)."""
+    matches the plain twin in float64 at 1, G + 1 and 37 lanes (eepos and
+    deepos on every EE of the robot and on some of them; minv dense and the
+    upper factor, +0 below its diagonal)."""
     m = build_model(topo(robot), dtype=torch.float64, device=cuda_device)
     crba_lanes = 16 if m.n in (2, 7, 12) else 32
-    for what in ("fd", "eepos", "minv", "crba"):
+    for what in ("fd", "eepos", "minv", "crba", "deepos"):
         for dtype in (torch.float32, torch.float64):
             info = build.warp_kernel_info(what, m.n, dtype)
             assert info["knots_per_block"] >= 1 and info["blocks_per_sm"] >= 1
-            assert info["threads_per_knot"] == {"eepos": 8,
-                                                "crba": crba_lanes}.get(what,
-                                                                        32)
+            assert info["threads_per_knot"] == {
+                "eepos": 8, "deepos": 4, "crba": crba_lanes}.get(what, 32)
             item = torch.finfo(dtype).bits // 8
             assert info["local_bytes"] < 36 * m.n * item
-    cases_of = ("fd", "eepos", "minv", "minv_upper", "crba") + (
-        ("eepos_targets",) if TARGETS[robot] else ())
+    cases_of = ("fd", "eepos", "minv", "minv_upper", "crba", "deepos") + (
+        ("eepos_targets", "deepos_targets") if TARGETS[robot] else ())
     for case in cases_of:
         kernel = KERNEL_OF.get(case, case)
         g = build.plan(kernel, m.n, torch.float64)["knots_per_block"]
