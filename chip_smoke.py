@@ -1,5 +1,6 @@
 """On-card smoke test of the PyTorch/CUDA port: configs 3, 1, 2, 4 and 5 end
-to end, the rest of the GRiD API, and the per-robot generated modules.
+to end, the rest of the GRiD API, the per-robot generated modules, and the
+solver's per-knot cost route.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -38,7 +39,11 @@ Phases, one line each:
      and fdsva_so composed, also at 128 lanes); then minv (dense and the
      upper factor, +0 below its diagonal), crba and deepos on iiwa, hyq,
      gym_humanoid and atlas at 1, G + 1 and 37 lanes (a block's one knot,
-     a ragged second block), one launch a call;
+     a ragged second block), one launch a call; the line search without a
+     cost (the no-cost instance) on every robot of the phase; then rnea,
+     minv (dense), crba, aba, fd, id_du and fd_du on 3 lanes of every robot
+     of the phase against the float64 oracle (reference/oracle.py), lane
+     by lane: within 1e-10 of each output's scale;
   3. the same in float32 (tolerances below): fd_du and fdsva_so at 37
      lanes on iiwa, hyq, gym_ant and dm_quadruped; with each kernel's and
      plain version's device time from CUDA events: the config-3 kernels and the
@@ -109,9 +114,19 @@ Phases, one line each:
      bound; 3 closed-loop periods (one aba launch each), the state finite;
      a float64 kernel step on the first 64 scenarios against the plain
      one (costs by phase 6's rule; u0, U_next and every scenario's cost
-     within U0_REL).
+     within U0_REL);
+  9. the per-knot cost route (float32, iiwa), each solve's launches
+     asserted, nothing plain, its first 64 problems held by phase 6's rule,
+     solves/s and each phase's ms: a user CostModel of the knot index
+     (RampTracking) at config 3's shapes (six step sizes): the per-knot
+     expansions, the stacked riccati and the no-cost line search; config
+     3's EE reach task with a goal per problem at one step size (eepos
+     (N + 1)(1 + 2 I) and deepos (N + 1) I launches, 2048 lanes each); SQP
+     on config 3's EE reach task at config 4's shapes (N=32, 4 iterations,
+     B=1024, held after iteration 1); the stacked riccati and the no-cost
+     line search at these shapes (float32 rule, times, bound).
 Then a JSON line of per-kernel results (launches on the main paths of
-phases 4-8, error, times, and the roofline bound: the larger of the bytes
+phases 4-9, error, times, and the roofline bound: the larger of the bytes
 each call must move over 3.35 TB/s and the operations its function needs,
 counted by utils/opcount.py, over 67 TFLOP/s float32; beside them the
 operations the kernel's lane code executes), and last the device line.
@@ -219,6 +234,11 @@ F32_FLOOR = 1e-5
 # after its first. A wrong kernel moves most problems.
 F64_REL = 1e-5
 F64_SHARE = 0.9
+# Phase 2 holds the float64 dynamics kernels against the float64 oracle on
+# ORACLE_LANES lanes of each robot within ORACLE_REL of each output's scale:
+# the tolerance at which the oracle anchors the JAX package (README,
+# Testing)
+ORACLE_LANES, ORACLE_REL = 3, 1e-10
 
 
 def line(tag, obj):
@@ -272,7 +292,10 @@ def main():
     from gridcodegenerator_tpu_torch.ops.cuda import sweeps as S
     from gridcodegenerator_tpu_torch.parallel.scenario import (
         ScenarioMPCConfig, closed_loop, make_scenario_step)
-    from gridcodegenerator_tpu_torch.trajopt.cost import EEReachCost, QuadCost
+    from gridcodegenerator_tpu_torch.reference import oracle
+    from gridcodegenerator_tpu_torch.trajopt.cost import (CostModel,
+                                                          EEReachCost,
+                                                          QuadCost)
     from gridcodegenerator_tpu_torch.trajopt.ilqr import (
         ILQRConfig, make_ilqr, resolve_control_bounds)
     from gridcodegenerator_tpu_torch.trajopt.sqp import SQPConfig, make_sqp
@@ -354,7 +377,7 @@ def main():
         q, qd, u = fold(X[:n_knots, :n]), fold(X[:n_knots, n:]), fold(U0)
         A, Bm = parts["linearize"](X[:n_knots], U0)
         _, Vx0, Vxx0 = cost.terminal_expansion(X[n_knots])
-        Jw, lx, lu = cost.gn_stage_factor(fold(X[:n_knots]), fold(U0))
+        Jw, lx, lu = cost.gn_stage_factor(fold(X[:n_knots]), fold(U0), 0)
         ric = [A, Bm, lx.contiguous(), lu.contiguous(), Jw.contiguous(),
                Vx0.contiguous(), Vxx0.contiguous(), cfg.reg, *cost.gn_factor_diags]
         ks, Ks = S.riccati_factored_plain(*ric)
@@ -374,6 +397,11 @@ def main():
             "linesearch_rollout": (model, X[0].contiguous(), U0,
                                    X[:n_knots].contiguous(), ks, Ks, al, dt,
                                    GRAVITY, lo, hi, cost),
+            # the line search without a cost (a cost that is not
+            # time-invariant is summed over its rollouts by the solver)
+            "linesearch_nocost": (model, X[0].contiguous(), U0,
+                                  X[:n_knots].contiguous(), ks, Ks, al, dt,
+                                  GRAVITY, lo, hi, None),
         }
 
     def quad_cost(model, goal, qf=100.0):
@@ -413,7 +441,7 @@ def main():
             -2, 0)
         _, Vx0, Vxx0 = cost.terminal_expansion(X[n_knots])
         _, lx, lu, lxx, luu, lux = cost.stage_expansion(fold(X[:n_knots]),
-                                                        fold(U0))
+                                                        fold(U0), 0)
         head = (A, Bm, unfold(lx).contiguous(), unfold(lu).contiguous())
         tail = (Vx0.contiguous(), Vxx0.contiguous(), cfg.reg)
         scale = (1.0 + torch.arange(n_knots, dtype=model.dtype, device=dev)
@@ -459,7 +487,7 @@ def main():
         elif name.startswith("linesearch"):
             name, cost = "linesearch_rollout", args[-1]
             kw, lanes = dict(N=args[2].shape[0], cost=cost), args[6].numel()
-            extra = (build.cost_buffer(cost, args[1]),)
+            extra = () if cost is None else (build.cost_buffer(cost, args[1]),)
         elif name == "riccati_factored":
             kw = dict(N=args[0].shape[0], rank=args[4].shape[0])
             lanes = args[0].shape[-1]
@@ -493,6 +521,10 @@ def main():
                                S.linesearch_rollout_plain,
                                S.SOURCES[S.LINESEARCH],
                                S.REPLACES[S.LINESEARCH]),
+        "linesearch_nocost": (S.linesearch_rollout,
+                              S.linesearch_rollout_plain,
+                              S.SOURCES[S.LINESEARCH_NOCOST],
+                              S.REPLACES[S.LINESEARCH_NOCOST]),
     }
 
     # the GRiD API's kernels, and their cases: rnea with and without qdd,
@@ -744,6 +776,55 @@ def main():
         k: v for k, v in ragged.items() if " deepos " in k},
         "elapsed_s": elapsed()})
 
+    # the float64 dynamics kernels against the float64 oracle
+    # (reference/oracle.py, the numpy anchor of the JAX package), lane by
+    # lane, on ORACLE_LANES lanes of every robot of this phase: within
+    # ORACLE_REL of each output's scale max(1, max|oracle|), beside the
+    # plain twin's distance to it; one launch a call
+    oracle_of = {
+        "rnea": lambda t, q, qd, x: (oracle.rnea(t, q, qd, x)[0],),
+        "minv": lambda t, q, qd, x: (oracle.minv(t, q),),
+        "crba": lambda t, q, qd, x: (oracle.crba(t, q),),
+        "aba": lambda t, q, qd, x: (oracle.aba(t, q, qd, x),),
+        "fd": lambda t, q, qd, x: (oracle.forward_dynamics(t, q, qd, x),),
+        "id_du": lambda t, q, qd, x: (oracle.rnea_grad(t, q, qd, x),),
+        "fd_du": lambda t, q, qd, x: oracle.fd_grad(t, q, qd, x)}
+    vs_oracle = {}
+    for robot in ("iiwa", "hyq", "gym_ant", "dm_quadruped") + ROBOTS5 + \
+            ROBOTS_NEW:
+        topo_r = load_robot(robot)
+        m = build_model(topo_r, dtype=torch.float64, device=dev)
+        cases = lane_cases(m, ORACLE_LANES, seed=7, with_fd_du=True)
+        lanes_np = [a.cpu().numpy() for a in cases["rnea"][1:4]]
+        for case, orc in oracle_of.items():
+            args = cases[case]
+            kern, plain = case_fns[case]
+            build.reset_counters()
+            out = as_tuple(kern(*args))
+            torch.cuda.synchronize()
+            what = f"{robot} {case}"
+            if dict(build.LAUNCHES) != {case: 1} or build.PLAIN_CALLS:
+                raise AssertionError(f"{what}: launches "
+                                     f"{dict(build.LAUNCHES)}, plain calls "
+                                     f"{dict(build.PLAIN_CALLS)}")
+            per_lane = [orc(topo_r, *(a[:, b] for a in lanes_np))
+                        for b in range(ORACLE_LANES)]
+            ref = tuple(torch.as_tensor(np.stack([r[k] for r in per_lane],
+                                                 -1), device=dev)
+                        for k in range(len(out)))
+            err = max_err(out, ref)
+            tol = ORACLE_REL * max(1.0, max(float(r.abs().max())
+                                            for r in ref))
+            if any(o.shape != r.shape for o, r in zip(out, ref)) or \
+                    not err <= tol:
+                raise AssertionError(f"{what} float64 vs the oracle: max abs "
+                                     f"err {err} > {tol}")
+            vs_oracle[what] = {"max_abs_err": err, "tol": tol,
+                               "plain_max_abs_err": max_err(
+                                   as_tuple(plain(*args)), ref)}
+    line("oracle_f64", {"lanes": ORACLE_LANES, "rel": ORACLE_REL,
+                        "cases": vs_oracle, "elapsed_s": elapsed()})
+
     # -- phase 3: config-3 shapes, float32 ----------------------------------
     m32 = build_model(topo, dtype=torch.float32, device=dev)
     m32_64 = m32.to(dtype=torch.float64)
@@ -779,7 +860,7 @@ def main():
         # line-search lanes are judged per step-size row, so that rows the
         # float64 run itself sends off to huge values bound only themselves
         rows = ins["linesearch_rollout"][6].shape[0] \
-            if name == "linesearch_rollout" else 1
+            if name.startswith("linesearch") else 1
         for k, (o, p, r) in enumerate(zip(out, ref, ref64)):
             if not bool(torch.isfinite(o).all()):
                 raise AssertionError(f"{name} float32: non-finite output {k}")
@@ -1386,20 +1467,23 @@ def main():
             for key, v in so_rows.items()}
 
     # -- phase 6: config 4 (SQP) and config 3's QuadCost task -------------
-    def first64(make, cfg_cls, cfg_kw, model32, goal, x0n, c_k32, f64_at):
+    def first64(make, cfg_cls, cfg_kw, model32, goal, x0n, c_k32, f64_at,
+                cost_of=None):
         """On the first 64 problems: the float32 kernel solve's final costs,
         and a plain float32 solve's, each against a plain float64 solve
         (shares within rel 1e-3, median rel. differences); and a float64
         kernel solve against the plain float64 solve, iteration by
-        iteration, held at iteration ``f64_at`` (see F64_REL)."""
+        iteration, held at iteration ``f64_at`` (see F64_REL). The cost is
+        the QuadCost of ``goal``, or ``cost_of(model)`` for the first 64
+        problems."""
         def run(model, use_kernels):
             n = model.n
             x = torch.as_tensor(x0n[:, :64], dtype=model.dtype, device=dev)
             U = torch.zeros((cfg_kw["N"], n, x.shape[-1]), dtype=model.dtype,
                             device=dev)
             cfg = cfg_cls(**cfg_kw, use_kernels=use_kernels)
-            return make(model, quad_cost(model, goal), cfg)(
-                x, U).cost_trace.double().cpu()
+            cost = cost_of(model) if cost_of else quad_cost(model, goal)
+            return make(model, cost, cfg)(x, U).cost_trace.double().cpu()
         m64_ = f64_of[id(model32)]
         t_p32, t_p64, t_k64 = (run(model32, False), run(m64_, False),
                                run(m64_, None))
@@ -1663,7 +1747,7 @@ def main():
         A, Bm = parts5["linearize"](X[:N5], U0)
         _, Vx0, Vxx0 = cost5.terminal_expansion(X[N5])
         _, lx, lu, lxx, luu, lux = cost5.stage_expansion(fold(X[:N5]),
-                                                         fold(U0))
+                                                         fold(U0), 0)
         unfold = lambda z: z.reshape(z.shape[:-1] + (N5, S5)).movedim(-2, 0)
         ric = (A, Bm, unfold(lx).contiguous(), unfold(lu).contiguous(),
                *(c[..., :S5].contiguous() for c in (lxx, luu, lux)),
@@ -1774,6 +1858,189 @@ def main():
                 "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
                 "launches_per_step")} for robot, v in config5.items()}
 
+    # -- phase 9: the per-knot cost route ----------------------------------
+    class RampTracking(CostModel):
+        """A user cost of the knot index t, neither stationary nor
+        time-invariant: 0.5 s_t (x - x_ref[t])^T Q (x - x_ref[t])
+        + 0.5 u^T R u with s_t = (t + 1) / N and x_ref[t] = s_t x_goal;
+        terminal 0.5 (x - x_ref[N])^T Qf (x - x_ref[N]). Q 0.1, R 1e-3,
+        Qf 100, x_goal config 3's QuadCost task's."""
+
+        def __init__(self, model, n_knots):
+            n, kw = model.n, dict(dtype=model.dtype, device=model.device)
+            self.Q = torch.full((2 * n,), 0.1, **kw)
+            self.R = torch.full((n,), 1e-3, **kw)
+            self.Qf = torch.full((2 * n,), 100.0, **kw)
+            self.xg = torch.zeros(2 * n, **kw)
+            for i, v in QUAD3.items():
+                self.xg[i] = v
+            self.n_knots = n_knots
+
+        def _dx(self, x, t):
+            s = (t + 1) / self.n_knots
+            return s, x - s * self.xg[:, None]
+
+        def stage(self, x, u, t):
+            s, dx = self._dx(x, t)
+            return (0.5 * s * (self.Q[:, None] * dx * dx).sum(0)
+                    + 0.5 * (self.R[:, None] * u * u).sum(0))
+
+        def terminal(self, x):
+            _, dx = self._dx(x, self.n_knots)
+            return 0.5 * (self.Qf[:, None] * dx * dx).sum(0)
+
+        @staticmethod
+        def _diag(w, like):
+            return torch.diag(w)[:, :, None].expand(w.shape[0], w.shape[0],
+                                                    like.shape[-1])
+
+        def stage_expansion(self, x, u, t):
+            s, dx = self._dx(x, t)
+            lux = torch.zeros((), dtype=x.dtype, device=x.device).expand(
+                u.shape[0], x.shape[0], x.shape[-1])
+            return (self.stage(x, u, t), s * self.Q[:, None] * dx,
+                    self.R[:, None] * u, self._diag(s * self.Q, x),
+                    self._diag(self.R, x), lux)
+
+        def terminal_expansion(self, x):
+            _, dx = self._dx(x, self.n_knots)
+            return (self.terminal(x), self.Qf[:, None] * dx,
+                    self._diag(self.Qf, x))
+
+    def per_knot_run(tag, make, cfg_cls, cfg_kw, cost_of, x0n, expect,
+                     f64_at):
+        """One float32 solve on the kernels (launches as ``expect``,
+        nothing plain), its first 64 problems held by phase 6's rule,
+        solves/s over 5 solves and each phase's ms."""
+        n = m32.n
+        cost = cost_of(m32)
+        solve_, parts_ = make(m32, cost, cfg_cls(**cfg_kw), expose_parts=True)
+        x = torch.as_tensor(x0n, dtype=torch.float32, device=dev)
+        U = torch.zeros((cfg_kw["N"], n, x.shape[-1]), dtype=torch.float32,
+                        device=dev)
+        build.reset_counters()
+        res_ = solve_(x, U)
+        torch.cuda.synchronize()
+        path_runs.append(check_run(tag, res_, expect, cfg_kw["N"],
+                                   x.shape[-1], cfg_kw["iters"], n))
+        agree_ = first64(make, cfg_cls, cfg_kw, m32, None, x0n, res_.cost,
+                         f64_at, cost_of=lambda m: cost_of(m, 64))
+        ms_ = time_cuda(lambda: solve_(x, U), iters=5, warmup=1)
+        X_ = parts_["rollout"](x, U)
+        A_, Bm_ = parts_["linearize"](X_[:cfg_kw["N"]], U)
+        so_ = (parts_["second_order"](X_, U)
+               if cfg_cls(**cfg_kw).use_second_order else None)
+        ks_, Ks_ = parts_["backward"](X_, U, A_, Bm_, so_)
+        phases_ = {
+            "rollout_ms": time_cuda(lambda: parts_["rollout"](x, U), iters=5),
+            "linearize_ms": time_cuda(
+                lambda: parts_["linearize"](X_[:cfg_kw["N"]], U), iters=5),
+            "backward_ms": time_cuda(
+                lambda: parts_["backward"](X_, U, A_, Bm_, so_), iters=5),
+            "forward_ms": time_cuda(
+                lambda: parts_["forward"](X_, U, ks_, Ks_), iters=5)}
+        if so_ is not None:
+            phases_["fdsva_so_ms"] = time_cuda(
+                lambda: parts_["second_order"](X_, U), iters=5)
+        out = {"N": cfg_kw["N"], "iters": cfg_kw["iters"],
+               "B": x.shape[-1], "alphas": len(cfg_kw.get(
+                   "alphas", ILQRConfig.alphas)),
+               "dtype": "float32", "device": smi, "solve_ms": ms_,
+               "solves_per_s": x.shape[-1] / (ms_ / 1e3),
+               "cost_first_mean": float(res_.cost_trace[0].mean()),
+               "cost_last_mean": float(res_.cost_trace[-1].mean()),
+               "first64_final_cost": agree_, "launches": path_runs[-1],
+               "phases": phases_}
+        return out, (cost, X_, U, A_, Bm_, ks_, Ks_)
+
+    rng9 = np.random.default_rng(0)
+    x0n9 = rng9.uniform(-0.2, 0.2, (2 * m32.n, B))
+    # a tracking cost of the knot index at config 3's shapes: the per-knot
+    # expansions, the stacked riccati and the no-cost line search, the cost
+    # summed knot by knot over the six step sizes' rollouts
+    cfg_t = dict(N=N, dt=DT, iters=ITERS)
+    tracking, (cost_t, X9, U9, A9, Bm9, ks9, Ks9) = per_knot_run(
+        "per-knot tracking", make_ilqr, ILQRConfig, cfg_t,
+        lambda m, b=None: RampTracking(m, N), x0n9,
+        {"rollout": 1, "fd_du": ITERS, "riccati": ITERS,
+         "linesearch_nocost": ITERS}, ITERS)
+    line("per_knot_tracking", tracking | {"robot": "iiwa", "cost":
+                                          "RampTracking (t-varying)"})
+    # the stacked riccati at these shapes, and the no-cost line search at
+    # one step size (the per-problem task's shape), FB_ALPHA: at alpha = 1
+    # the first iteration's closed loop is unstable and float32 overflows
+    # (phase 3 holds the six rows per row)
+    _, Vx0, Vxx0 = cost_t.terminal_expansion(X9[N])
+    exps = [cost_t.stage_expansion(X9[t], U9[t], t) for t in range(N)]
+    ric_st = (A9, Bm9, torch.stack([e[1] for e in exps]),
+              torch.stack([e[2] for e in exps]),
+              *(torch.stack([e[k] for e in exps]).contiguous()
+                for k in (3, 4, 5)), Vx0.contiguous(), Vxx0.contiguous(),
+              ILQRConfig.reg)
+    del exps
+    blo, bhi = resolve_control_bounds(m32, ILQRConfig(**cfg_t))
+    al9 = torch.tensor(ILQRConfig.alphas, dtype=torch.float32,
+                       device=dev)[:, None].repeat(1, B)
+    ls_nc = (m32, X9[0].contiguous(), U9, X9[:N].contiguous(), ks9, Ks9,
+             al9, DT, GRAVITY, blo, bhi, None)
+    per_knot_k = {
+        f"riccati_stacked N={N} B={B}": timed_f32(
+            "riccati stacked", S.riccati, S.riccati_plain, ric_st, m32,
+            "riccati_stacked", 10),
+        f"linesearch_nocost N={N} 1x{B}": timed_f32(
+            "linesearch_nocost one step size", S.linesearch_rollout,
+            S.linesearch_rollout_plain,
+            ls_nc[:6] + (torch.full_like(al9[:1], FB_ALPHA),) + ls_nc[7:],
+            m32, "linesearch_nocost", 10)}
+    del ric_st, ls_nc, X9, U9, A9, Bm9, ks9, Ks9
+    torch.cuda.empty_cache()
+
+    # config 3's EE reach task with a goal per problem, at one step size
+    # (the case the JAX solver runs): eepos and deepos once a knot in each
+    # backward and terminal expansion, eepos once a knot in each total cost
+    qg = torch.as_tensor(0.5 + np.random.default_rng(1).uniform(
+        -0.1, 0.1, (m32.n, B)), dtype=torch.float32, device=dev)
+    goals9 = eepose.eepos(m32_64, qg.double())[:3]
+
+    def ee_per_problem(m, b=B):
+        return EEReachCost(model=m, goal_xyz=goals9[:, :b].to(m.dtype),
+                           w_pos=0.5, w_pos_f=200.0)
+    cfg_p = dict(N=N, dt=DT, iters=ITERS, alphas=(1.0,))
+    per_problem, _ = per_knot_run(
+        "per-problem EE goals", make_ilqr, ILQRConfig, cfg_p, ee_per_problem,
+        x0n9, {"rollout": 1, "fd_du": ITERS, "riccati": ITERS,
+               "linesearch_nocost": ITERS,
+               "eepos": (N + 1) * (1 + 2 * ITERS),
+               "deepos": (N + 1) * ITERS}, ITERS)
+    line("per_problem_ee", per_problem | {
+        "robot": "iiwa", "goal": "eepos(q = 0.5 + U(-0.1, 0.1)), seed 1",
+        "launches_derived": "eepos (N+1)(1+2I), deepos (N+1)I"})
+
+    # SQP on config 3's EE reach task (shared goal, its weights) at config
+    # 4's shapes: the DDP backward on the EE cost's dense Gauss-Newton
+    # expansion, one folded call a sweep; the EE line search
+    goal3 = eepose.eepos(m32_64, torch.full((m32.n, 1), 0.5,
+                                            dtype=torch.float64,
+                                            device=dev))[:3, 0]
+
+    def ee_shared(m, b=None):
+        return EEReachCost(model=m, goal_xyz=goal3.to(m.dtype), w_pos=0.5,
+                           w_pos_f=200.0)
+    b4 = B4["iiwa"]
+    sqp_ee, _ = per_knot_run(
+        "SQP EE reach", make_sqp, SQPConfig, dict(N=N4, dt=DT, iters=ITERS4),
+        ee_shared, np.random.default_rng(0).uniform(-0.2, 0.2,
+                                                    (2 * m32.n, b4)),
+        {"rollout": 1, "fd_du": ITERS4, "fdsva_so": ITERS4,
+         "linesearch_rollout": ITERS4, "eepos": 2 + 2 * ITERS4,
+         "deepos": 2 * ITERS4}, 1)
+    line("sqp_ee_reach", sqp_ee | {"robot": "iiwa", "backward":
+                                   "plain torch (DDP terms)"})
+    line("per_knot_kernels", per_knot_k | {"elapsed_s": elapsed()})
+    results["riccati"]["per_knot"] = per_knot_k[f"riccati_stacked N={N} B={B}"]
+    results["linesearch_nocost"]["per_knot"] = per_knot_k[
+        f"linesearch_nocost N={N} 1x{B}"]
+
     path_launches = {k: sum(run.get(k, 0) for run in path_runs)
                      for k in results}
     missing = [k for k, v in path_launches.items() if v == 0]
@@ -1788,7 +2055,7 @@ def main():
                                          "bound_ms", "bound_by", "ops",
                                          "ops_executed")}
         | {"library_ms": None}
-        | {k: results[name][k] for k in ("config5", "humanoids")
+        | {k: results[name][k] for k in ("config5", "humanoids", "per_knot")
            if k in results[name]}
         for name in results]}), flush=True)
     print(json.dumps({"ok": True, "device": {

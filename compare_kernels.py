@@ -1345,7 +1345,7 @@ def sweep_inputs(m, cost_kind, N, B, dev):
     _, Vx0, Vxx0 = cost.terminal_expansion(X[N])
     out = {}
     if cost_kind == "ee":
-        Jw, lx, lu = cost.gn_stage_factor(fold(X[:N]), fold(U0))
+        Jw, lx, lu = cost.gn_stage_factor(fold(X[:N]), fold(U0), 0)
         ric = (A, Bm, lx.contiguous(), lu.contiguous(), Jw.contiguous(),
                Vx0.contiguous(), Vxx0.contiguous(), cfg.reg,
                *cost.gn_factor_diags)
@@ -1354,7 +1354,7 @@ def sweep_inputs(m, cost_kind, N, B, dev):
     else:
         unfold = lambda z: z.reshape(z.shape[:-1] + (N, B)).movedim(-2, 0)
         _, lx, lu, lxx, luu, lux = cost.stage_expansion(fold(X[:N]),
-                                                        fold(U0))
+                                                        fold(U0), 0)
         ric = (A, Bm, unfold(lx).contiguous(), unfold(lu).contiguous(),
                *(c[..., :B].contiguous() for c in (lxx, luu, lux)),
                Vx0.contiguous(), Vxx0.contiguous(), cfg.reg)

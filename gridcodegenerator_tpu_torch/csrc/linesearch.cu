@@ -1,5 +1,6 @@
 // linesearch: feedback rollouts for every step size at once, with the cost
-// summed in the sweep; a group of threads per (step size, problem).
+// summed in the sweep or without a cost; a group of threads per (step size,
+// problem).
 //
 // Replaces gridcodegenerator_tpu/ops/pallas/sweeps.py:
 // linesearch_rollout_pallas and the in-kernel hooks of
@@ -18,7 +19,13 @@
 //   0.5 (w_pos_f |ee(q) - goal|^2 + w_vel |qd|^2), with ee() the
 //   position-only FK of the packed EE chain;
 // * QuadCostK (kind 1; buffer Q (2 NJ) | R (NJ) | Qf (2 NJ) | x_goal (2 NJ)):
-//   stage 0.5 (sum Q (x - xg)^2 + sum R u^2), terminal 0.5 sum Qf (x - xg)^2.
+//   stage 0.5 (sum Q (x - xg)^2 + sum R u^2), terminal 0.5 sum Qf (x - xg)^2;
+// * NoCostK (kind 2; no buffer): no cost, X and U only. It replaces
+//   linesearch_rollout_pallas called without cost_consts, which the JAX
+//   solver runs for a cost that is not time-invariant (a per-problem goal,
+//   a cost of the knot index) and then sums that cost over the rollouts
+//   outside the kernel; the block runs the rollout's and feedback
+//   rollout's NoCost policy (csrc/sweep_warp.cuh) under FeedbackLaw.
 //
 // The kernel (csrc/sweep_warp.cuh:linesearch_block with the control law
 // FeedbackLaw) holds G problems and `rows` of their step-size rows a block
@@ -37,7 +44,7 @@
 //
 // Layout: x0 (2 NJ, B), Uref/k (N, NJ, B), Xref (N, 2 NJ, B),
 // K (N, NJ, 2 NJ, B), alpha_rows (na, B), bounds (NJ) or null;
-// X (N, 2 NJ, na B), U (N, NJ, na B), cost (na B).
+// X (N, 2 NJ, na B), U (N, NJ, na B), cost (na B; null for kind 2).
 #include "sweep_warp.cuh"
 
 namespace gt {
@@ -61,6 +68,7 @@ GT_HD void ee_squares(const Robot<T, NJ>& R, const T* x, const T* goal,
 
 template <typename T, int NJ>
 struct EECost {
+  static constexpr bool SUMS = true;
   const T* c;   // goal (3) | w_pos | w_pos_f | w_vel | w_u
   GT_HD T stage(const Robot<T, NJ>& R, const T* x, const T* u) const {
     T e2, v2, u2 = T(0);
@@ -77,6 +85,7 @@ struct EECost {
 
 template <typename T, int NJ>
 struct QuadCostK {
+  static constexpr bool SUMS = true;
   static constexpr int NX = 2 * NJ;
   const T* c;   // Q (NX) | R (NJ) | Qf (NX) | x_goal (NX)
   GT_HD T squares(const T* w, const T* x) const {
@@ -98,8 +107,16 @@ struct QuadCostK {
   }
 };
 
+template <typename T, int NJ>
+struct NoCostK {
+  static constexpr bool SUMS = false;
+  const T* c;   // unused
+  GT_HD T stage(const Robot<T, NJ>&, const T*, const T*) const { return T(0); }
+  GT_HD T terminal(const Robot<T, NJ>&, const T*) const { return T(0); }
+};
+
 // One rollout serially: the arithmetic the function needs (csrc/opcount.cpp
-// counts it for the bound).
+// counts it for the bound); a cost that does not sum writes no cost.
 template <typename T, int NJ, class Cost>
 GT_HD void linesearch_lane(const Robot<T, NJ>& R, const T* x0,
                            const T* Uref, const T* Xref, const T* k,
@@ -120,12 +137,12 @@ GT_HD void linesearch_lane(const Robot<T, NJ>& R, const T* x0,
   for (int t = 0; t < N; ++t) {
     T u[NJ];
     feedback_u<T, NJ>(x, Uref, Xref, k, K, alpha, lo, hi, t, B, b, u);
-    acc += c.stage(R, x, u);
+    if constexpr (Cost::SUMS) acc += c.stage(R, x, u);
     euler_step(R, x, u, dt, gravity);
     for (int i = 0; i < NX; ++i) Xo[((long long)t * NX + i) * W + lane] = x[i];
     for (int j = 0; j < NJ; ++j) Uo[((long long)t * NJ + j) * W + lane] = u[j];
   }
-  cost[lane] = acc + c.terminal(R, x);
+  if constexpr (Cost::SUMS) cost[lane] = acc + c.terminal(R, x);
 }
 
 }  // namespace gt
@@ -191,6 +208,11 @@ static int launch_linesearch(const void* model, const void* x0,
     static const cudaError_t attr = gt::smem_attrs(fn, P::BYTES);
     if (attr != cudaSuccess) return (int)attr;
     fn<<<grid, threads, bytes, stream>>>(GT_LS_ARGS, 7 * NJ);
+  } else if (kind == 2) {
+    auto fn = linesearch_kernel<T, NJ, gt::NoCost<T, NJ>>;
+    static const cudaError_t attr = gt::smem_attrs(fn, P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    fn<<<grid, threads, bytes, stream>>>(GT_LS_ARGS, 0);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -386,22 +386,32 @@ long long count(int kernel, const double* model, const double* ee, int ne,
                                y.data(), z.data(), nullptr, nullptr, x.data(),
                                w.data(), x.data() + big - 1, N, 1, 1, 0, dt,
                                g, ec);
-      } else if (needed) {
+      } else if (needed && flag == 1) {
         const QuadCostK<C, NJ> qc{cb.data()};
         linesearch_lane<C, NJ>(R, a.data(), b.data(), c.data(), d.data(),
                                y.data(), z.data(), nullptr, nullptr, x.data(),
                                w.data(), x.data() + big - 1, N, 1, 1, 0, dt,
                                g, qc);
+      } else if (needed) {
+        const NoCostK<C, NJ> nc{nullptr};
+        linesearch_lane<C, NJ>(R, a.data(), b.data(), c.data(), d.data(),
+                               y.data(), z.data(), nullptr, nullptr, x.data(),
+                               w.data(), nullptr, N, 1, 1, 0, dt, g, nc);
       } else if (flag == 0) {
         linesearch_host<C, NJ, EECostW<C, NJ>>(
             m.data(), a.data(), b.data(), c.data(), d.data(), y.data(),
             z.data(), nullptr, nullptr, x.data(), w.data(),
             x.data() + big - 1, N, 1, 1, dt, g, cb.data(), ncost);
-      } else {
+      } else if (flag == 1) {
         linesearch_host<C, NJ, QuadCostW<C, NJ>>(
             m.data(), a.data(), b.data(), c.data(), d.data(), y.data(),
             z.data(), nullptr, nullptr, x.data(), w.data(),
             x.data() + big - 1, N, 1, 1, dt, g, cb.data(), ncost);
+      } else {
+        linesearch_host<C, NJ, NoCost<C, NJ>>(
+            m.data(), a.data(), b.data(), c.data(), d.data(), y.data(),
+            z.data(), nullptr, nullptr, x.data(), w.data(), nullptr, N, 1, 1,
+            dt, g, nullptr, 0);
       }
       break;
     case RICCATI_FACTORED:   // executed: the problem's warp, every phase

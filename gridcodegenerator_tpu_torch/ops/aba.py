@@ -18,9 +18,11 @@ from .spatial import Mv, XTMX, XTv, Xv, cross_fv, cross_mv, dot6, outer6
 from .xforms import all_xmats
 
 
-def aba(model: RobotModel, q, qd, u,
-        gravity: float = DEFAULT_GRAVITY) -> torch.Tensor:
-    """qdd = ABA(q, qd, u): (n, B...)."""
+def aba(model: RobotModel, q, qd, u, gravity: float = DEFAULT_GRAVITY,
+        return_stages: bool = False):
+    """qdd = ABA(q, qd, u): (n, B...). With ``return_stages`` also the
+    passes' intermediates (``utils/debug.py:aba_stages``): v, cbias, the
+    accumulated pA, U, Dinv, uu, a and qdd, stacked per joint."""
     check_fixed_base(model)
     n = model.n
     Xs = all_xmats(model, q)
@@ -65,4 +67,10 @@ def aba(model: RobotModel, q, qd, u,
             a_p = Xv(Xs[i], g.expand_as(cb[i]) if p == -1 else a[p]) + cb[i]
             qdd[i] = Dinv[i] * (uu[i] - dot6(U[i], a_p))
             a[i] = a_p + e_vec(model.S_ind[i], qdd[i])
-    return torch.stack(qdd)
+    out = torch.stack(qdd)
+    if return_stages:
+        return out, {"v": torch.stack(v), "cbias": torch.stack(cb),
+                     "pA": torch.stack(pA), "U": torch.stack(U),
+                     "Dinv": torch.stack(Dinv), "uu": torch.stack(uu),
+                     "a": torch.stack(a), "qdd": out}
+    return out

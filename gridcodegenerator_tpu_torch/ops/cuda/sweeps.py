@@ -6,8 +6,11 @@
   step size folded into the feedforward term. Replaces
   ``sweeps.py:feedback_rollout_pallas``.
 * ``linesearch_rollout`` — feedback rollouts for every step size at once,
-  with the cost (EE reach or quadratic) summed inside the sweep. Replaces
-  ``sweeps.py:linesearch_rollout_pallas``.
+  with the cost (EE reach or quadratic) summed inside the sweep, or with
+  no cost (``cost=None``: the solver sums a cost that is not
+  time-invariant over the rollouts itself). Replaces
+  ``sweeps.py:linesearch_rollout_pallas`` (without ``cost_consts``: the
+  no-cost instance).
 * ``riccati_factored`` — the backward Riccati sweep fed by the Gauss-Newton
   factor of the cost. Replaces ``sweeps.py:riccati_pallas_factored``.
 * ``riccati`` — the backward Riccati sweep with dense curvature blocks, per
@@ -49,20 +52,26 @@ from . import build
 ROLLOUT = "rollout"
 FEEDBACK = "feedback_rollout"
 LINESEARCH = "linesearch_rollout"
+# the line search's no-cost instance: counted apart from the instances with
+# an in-kernel cost
+LINESEARCH_NOCOST = "linesearch_nocost"
 RICCATI = "riccati_factored"
 RICCATI_DENSE = "riccati"
 SOURCES = {ROLLOUT: "gridcodegenerator_tpu_torch/csrc/rollout.cu",
            FEEDBACK: "gridcodegenerator_tpu_torch/csrc/feedback_rollout.cu",
            LINESEARCH: "gridcodegenerator_tpu_torch/csrc/linesearch.cu",
+           LINESEARCH_NOCOST:
+               "gridcodegenerator_tpu_torch/csrc/linesearch.cu",
            RICCATI: "gridcodegenerator_tpu_torch/csrc/riccati.cu",
            RICCATI_DENSE: "gridcodegenerator_tpu_torch/csrc/riccati.cu"}
 REPLACES = {ROLLOUT: "gridcodegenerator_tpu/ops/pallas/sweeps.py:406",
             FEEDBACK: "gridcodegenerator_tpu/ops/pallas/sweeps.py:440",
             LINESEARCH: "gridcodegenerator_tpu/ops/pallas/sweeps.py:486",
+            LINESEARCH_NOCOST: "gridcodegenerator_tpu/ops/pallas/sweeps.py:486",
             RICCATI: "gridcodegenerator_tpu/ops/pallas/sweeps.py:267",
             RICCATI_DENSE: "gridcodegenerator_tpu/ops/pallas/sweeps.py:689"}
-# the line-search kernel's cost kinds (csrc/linesearch.cu)
-COST_KINDS = {"ee": 0, "quad": 1}
+# the line-search kernel's cost kinds (csrc/linesearch.cu); "none": no cost
+COST_KINDS = {"ee": 0, "quad": 1, "none": 2}
 
 
 def euler_step(model: RobotModel, x, u, dt, gravity=DEFAULT_GRAVITY):
@@ -174,9 +183,10 @@ def linesearch_rollout_plain(model: RobotModel, x0, Uref, Xref, k, K,
     alpha-major ([a0*B | a1*B | ...]) -> (X (N,nx,na*B), U (N,n,na*B),
     cost (na*B)). ``cost`` (an ``EEReachCost`` or a ``QuadCost``) is summed
     along the sweep: ``ls_stage`` at each knot, ``ls_terminal`` at the
-    end.
+    end; with ``cost=None`` nothing is summed and the cost is None.
     """
-    build.PLAIN_CALLS[LINESEARCH] += 1
+    build.PLAIN_CALLS[LINESEARCH if cost is not None
+                      else LINESEARCH_NOCOST] += 1
     na = alpha_rows.shape[0]
 
     def widen(z):
@@ -189,10 +199,13 @@ def linesearch_rollout_plain(model: RobotModel, x0, Uref, Xref, k, K,
     for t in range(Uref.shape[0]):
         du = alpha * widen(k[t]) + bmv(widen(K[t]), x - widen(Xref[t]))
         u = _clamp(widen(Uref[t]) + du, u_lo, u_hi)
-        acc = acc + cost.ls_stage(x, u)
+        if cost is not None:
+            acc = acc + cost.ls_stage(x, u)
         x = euler_step(model, x, u, dt, gravity)
         xs.append(x)
         us.append(u)
+    if cost is None:
+        return torch.stack(xs), torch.stack(us), None
     return torch.stack(xs), torch.stack(us), acc + cost.ls_terminal(x)
 
 
@@ -202,34 +215,40 @@ def linesearch_rollout(model: RobotModel, x0, Uref, Xref, k, K, alpha_rows,
         return linesearch_rollout_plain(model, x0, Uref, Xref, k, K,
                                         alpha_rows, dt, gravity, u_lo, u_hi,
                                         cost)
-    dcode, nj = build.kernel_key(model, x0, LINESEARCH)
-    build.fits("linesearch", nj, x0.dtype, LINESEARCH)
+    what = LINESEARCH if cost is not None else LINESEARCH_NOCOST
+    dcode, nj = build.kernel_key(model, x0, what)
+    build.fits("linesearch", nj, x0.dtype, what)
     n, nx = model.n, 2 * model.n
     N, B = Uref.shape[0], x0.shape[-1]
     na = alpha_rows.shape[0]
     expect = dict(x0=(nx, B), Uref=(N, n, B), Xref=(N, nx, B), k=(N, n, B),
                   K=(N, n, nx, B), alpha_rows=(na, B))
     given = dict(x0=x0, Uref=Uref, Xref=Xref, k=k, K=K, alpha_rows=alpha_rows)
-    _check_shapes(LINESEARCH, expect, given)
+    _check_shapes(what, expect, given)
     build.require(dict(given, u_lo=u_lo, u_hi=u_hi), x0.dtype, x0.device,
-                  LINESEARCH)
+                  what)
     dev, dt_ = x0.device, x0.dtype
     X = torch.empty((N, nx, na * B), dtype=dt_, device=dev)
     U = torch.empty((N, n, na * B), dtype=dt_, device=dev)
-    c = torch.empty((na * B,), dtype=dt_, device=dev)
-    w = cost.kernel_weights
-    if w["kind"] not in COST_KINDS:
-        raise NotImplementedError(f"{LINESEARCH}: no kernel cost {w['kind']!r}")
+    kind, ee, c, cbuf = COST_KINDS["none"], 0, None, None
+    if cost is not None:
+        w = cost.kernel_weights
+        if w is None or w["kind"] not in COST_KINDS:
+            raise NotImplementedError(
+                f"{LINESEARCH}: no kernel cost for {type(cost).__name__}"
+                + ("" if w is None else f" (kind {w['kind']!r})"))
+        kind, ee = COST_KINDS[w["kind"]], w["ee_index"]
+        c = torch.empty((na * B,), dtype=dt_, device=dev)
+        cbuf = build.cost_buffer(cost, x0)
     err = build.lib(nj).gridtorch_linesearch(
-        dcode, nj, build.ptr(build.model_buffer(model, w["ee_index"])),
+        dcode, nj, build.ptr(build.model_buffer(model, ee)),
         build.ptr(x0), build.ptr(Uref),
         build.ptr(Xref), build.ptr(k), build.ptr(K), build.ptr(alpha_rows),
         build.ptr(u_lo), build.ptr(u_hi), build.ptr(X), build.ptr(U),
-        build.ptr(c), N, B, na, float(dt), float(gravity),
-        COST_KINDS[w["kind"]], build.ptr(build.cost_buffer(cost, x0)),
-        build.stream_ptr(dev))
-    build.check(err, LINESEARCH)
-    build.LAUNCHES[LINESEARCH] += 1
+        build.ptr(c), N, B, na, float(dt), float(gravity), kind,
+        build.ptr(cbuf), build.stream_ptr(dev))
+    build.check(err, what)
+    build.LAUNCHES[what] += 1
     return X, U, c
 
 

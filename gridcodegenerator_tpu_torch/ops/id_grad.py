@@ -29,8 +29,12 @@ def _col_add(D, col, val):
 
 
 def id_grad_inner(model: RobotModel, Xs: List[torch.Tensor], qd: torch.Tensor,
-                  v, a, f, gravity: float = DEFAULT_GRAVITY) -> torch.Tensor:
-    """dc_du (nv, 2*nv, B...) from RNEA intermediates (accumulated f)."""
+                  v, a, f, gravity: float = DEFAULT_GRAVITY,
+                  return_stages: bool = False):
+    """dc_du (nv, 2*nv, B...) from RNEA intermediates (accumulated f).
+    With ``return_stages`` also the stages' (n, 6, nv, B...) columns
+    (``utils/debug.py:id_grad_stages``): dv/du, da/du, df/du before and
+    after the backward accumulation, and dc_du."""
     check_fixed_base(model)
     n, nv = model.n, model.num_vel
     bshape = qd.shape[1:]
@@ -97,6 +101,7 @@ def id_grad_inner(model: RobotModel, Xs: List[torch.Tensor], qd: torch.Tensor,
                   + Xcols(FxvI[i], Dvqd[i]))
 
     # ---- stage 5: backward df accumulation + extraction ------------------
+    Dfq_body, Dfd_body = list(Dfq), list(Dfd)   # before the accumulation
     for lvl in reversed(model.bfs_levels):
         for i in lvl:
             p = model.parent[i]
@@ -111,7 +116,16 @@ def id_grad_inner(model: RobotModel, Xs: List[torch.Tensor], qd: torch.Tensor,
     dcd = dcd.clone()
     for i in range(n):
         dcd[i, i] = dcd[i, i] + model.damping[i]
-    return torch.cat([dcq, dcd], dim=1)
+    dc_du = torch.cat([dcq, dcd], dim=1)
+    if return_stages:
+        return dc_du, {
+            "dv_dq": torch.stack(Dvq), "dv_dqd": torch.stack(Dvqd),
+            "da_dq": torch.stack(Daq), "da_dqd": torch.stack(Dad),
+            "df_dq_body": torch.stack(Dfq_body),
+            "df_dqd_body": torch.stack(Dfd_body),
+            "df_dq": torch.stack(Dfq), "df_dqd": torch.stack(Dfd),
+            "dc_du": dc_du}
+    return dc_du
 
 
 def id_grad(model: RobotModel, q, qd, qdd=None,

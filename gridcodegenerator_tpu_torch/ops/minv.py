@@ -17,8 +17,12 @@ from .spatial import XTMX, XTcols, XTv, Xcols, outer6
 from .xforms import all_xmats
 
 
-def minv_factors(model: RobotModel, q: torch.Tensor, Xs=None) -> torch.Tensor:
-    """Both passes -> the upper-triangular factor Minv_upper (nv, nv, B...)."""
+def minv_factors(model: RobotModel, q: torch.Tensor, Xs=None,
+                 return_extras: bool = False):
+    """Both passes -> the upper-triangular factor Minv_upper (nv, nv, B...);
+    with ``return_extras`` also {U, Dinv, F, Xs}: per joint U (6, B...),
+    Dinv (B...), the final F columns (6, nv, B...) and X(q)
+    (``utils/debug.py:minv_stages``)."""
     check_fixed_base(model)
     n, nv = model.n, model.num_vel
     if Xs is None:
@@ -72,6 +76,8 @@ def minv_factors(model: RobotModel, q: torch.Tensor, Xs=None) -> torch.Tensor:
         Fi_new[s] = Fi_new[s] + Minv[i]
         F[i] = torch.cat([F[i][:, :i], Fi_new[:, i:]], dim=1)
 
+    if return_extras:
+        return Minv, dict(U=U, Dinv=Dinv, F=F, Xs=Xs)
     return Minv
 
 

@@ -2,9 +2,10 @@
 
 The counterpart of ``gridcodegenerator_tpu/parallel/scenario.py`` without
 its mesh: one batched solve runs all S perturbed scenarios of the current
-state as lanes (on the card: one rollout, then fd_du, the stationary
-Riccati sweep and the line search each iteration, every kernel over all S
-scenarios at once), and the scenario-tree consensus (all scenarios share
+state as lanes (on the card, with a QuadCost: one rollout, then fd_du,
+the stationary Riccati sweep and the line search each iteration, every
+kernel over all S scenarios at once; any ``CostModel`` the solver takes
+runs), and the scenario-tree consensus (all scenarios share
 the first move) is the softmin-by-cost weighted mean of their first
 controls, w = exp(-temp (c - min c)). The JAX package shards the
 scenarios over a device mesh and reduces with ``psum``; the port's

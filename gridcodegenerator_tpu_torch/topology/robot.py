@@ -108,11 +108,37 @@ class Joint:
     parent_link: str = ""
     child_link: str = ""
 
+    @property
+    def S(self) -> np.ndarray:
+        S = np.zeros(6, dtype=np.float64)
+        if self.S_ind >= 0:
+            S[self.S_ind] = 1.0
+        return S
+
     def num_pos(self) -> int:
         return 7 if self.jtype == "floating" else 1
 
     def num_vel(self) -> int:
         return 6 if self.jtype == "floating" else 1
+
+    def Xmat(self, q) -> np.ndarray:
+        """6x6 motion transform parent-link-frame -> link frame at position q
+        (the float64 oracle's; 1-dof joints)."""
+        if self.jtype == "floating":
+            raise NotImplementedError("Xmat of a floating joint: the port "
+                                      "is fixed-base")
+        q = float(np.asarray(q).reshape(()))
+        ax = self.S_ind % 3
+        if self.jtype == "revolute":
+            Xj = np.zeros((6, 6), dtype=np.float64)
+            E = rot_axis(ax, q).T
+            Xj[:3, :3] = E
+            Xj[3:, 3:] = E
+            return Xj @ self.Xtree
+        # prismatic: translate q along the joint axis in the joint frame
+        p = np.zeros(3)
+        p[self.S_ind - 3] = q
+        return xform_from_E_p(np.eye(3), p) @ self.Xtree
 
 
 @dataclasses.dataclass
@@ -201,6 +227,9 @@ class RobotTopology:
     def get_num_vel(self) -> int:
         return self._num_vel
 
+    def get_parent_id(self, jid: int) -> int:
+        return int(self._parent[jid])
+
     def get_parent_id_array(self) -> np.ndarray:
         return self._parent.copy()
 
@@ -219,8 +248,14 @@ class RobotTopology:
     def get_leaf_nodes(self) -> List[int]:
         return list(self._leaves)
 
+    def get_S_by_id(self, jid: int) -> np.ndarray:
+        return self.joints[jid].S
+
     def get_S_ind_by_id(self, jid: int) -> int:
         return self.joints[jid].S_ind
+
+    def get_Xmat_Func_by_id(self, jid: int):
+        return self.joints[jid].Xmat
 
     def get_damping_by_id(self, jid: int) -> float:
         return self.joints[jid].damping

@@ -8,15 +8,26 @@ solve is an open-loop rollout, then ``iters`` iterations of
    (lane = t*B + b), assembled into the discrete A, B blocks;
 2. ``second_order`` (``use_second_order`` only): one ``fdsva_so`` over the
    same N*B lanes, (4, n, n, n, N*B);
-3. ``backward``: the Riccati sweep. A Gauss-Newton-factored cost
-   (``EEReachCost``) runs the factored sweep kernel; a cost with a
-   stationary curvature (``QuadCost``) runs the dense sweep kernel with one
-   curvature block (first order needs one of the two); with
-   ``use_second_order`` it is the exact DDP sweep, plain torch on every
-   device (the JAX package runs it in XLA too): each knot contracts V'_x
-   with its lane slice [t*B, (t+1)*B) of the flat second-order tensors;
-4. ``forward``: one line-search rollout over every step size, with the cost
-   summed in the sweep, then the per-problem argmin and accept step.
+3. ``backward``: the Riccati sweep. A time-invariant Gauss-Newton-factored
+   cost (``EEReachCost`` with a shared goal) runs the factored sweep
+   kernel; any other cost runs the dense sweep kernel, on one curvature
+   block where the curvature is stationary (``QuadCost``), else on
+   per-knot curvature stacks. A time-invariant cost is expanded in one call
+   over the N*B folded lanes, any other knot by knot (``stage_expansion(x,
+   u, t)``). With ``use_second_order`` it is the exact DDP sweep, plain
+   torch on every device (the JAX package runs it in XLA too): each knot
+   contracts V'_x with its lane slice [t*B, (t+1)*B) of the flat
+   second-order tensors;
+4. ``forward``: one line-search rollout over every step size, then the
+   per-problem argmin and accept step. A cost with ``kernel_weights`` is
+   summed inside the sweep; any other runs the line search without a cost
+   and is summed over its rollouts by ``total_cost``, knot by knot where
+   it is not time-invariant.
+
+The cost is any ``CostModel`` (``trajopt/cost.py``), as in the JAX solver.
+A per-problem goal of more than one problem with more than one step size
+raises: the JAX solver cannot run it either (its line search widens the
+lanes to n_alpha*B, and the (., B) goal does not broadcast against them).
 
 ``ILQRConfig.use_kernels``: None runs the CUDA kernels iff the tensors are
 on CUDA (the wrappers dispatch on device); True insists on CUDA tensors;
@@ -110,10 +121,11 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
               expose_parts: bool = False):
     """Build a batched solver: solve(x0 (2n,B), U0 (N,n,B)) -> ILQRResult.
 
-    ``cost`` is an ``EEReachCost`` (first order only) or any cost with
-    ``stage_expansion`` (``QuadCost``). ``expose_parts=True`` also returns
-    the phase closures ({rollout, linearize, second_order, backward,
-    forward, total_cost}) so each phase can be timed on its own.
+    ``cost`` is a ``CostModel``: ``stage``/``terminal`` and their
+    expansions (or, time-invariant, ``gn_stage_factor`` for first order).
+    ``expose_parts=True`` also returns the phase closures ({rollout,
+    linearize, second_order, backward, forward, total_cost}) so each phase
+    can be timed on its own.
     """
     check_fixed_base(model)
     for flag in ("parallel_riccati", "ls_two_stage"):
@@ -121,22 +133,23 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
             raise NotImplementedError(f"ILQRConfig.{flag} is not ported")
     if cfg.knot_axis is not None:
         raise NotImplementedError("ILQRConfig.knot_axis is not ported")
-    factored = hasattr(cost, "gn_stage_factor")
-    if cfg.use_second_order and not hasattr(cost, "stage_expansion"):
-        raise NotImplementedError(
-            "DDP with a Gauss-Newton-factored cost (EEReachCost) is not "
-            "ported: ROADMAP Queue 1 item 3")
+    fold_t = getattr(cost, "time_invariant", False)
+    stationary = getattr(cost, "stationary_curvature", False)
+    factored = (fold_t and not stationary and not cfg.use_second_order
+                and hasattr(cost, "gn_stage_factor"))
     if not factored and not hasattr(cost, "stage_expansion"):
         raise NotImplementedError(
-            "the solver needs a cost with gn_stage_factor or stage_expansion")
-    if not (factored or cfg.use_second_order
-            or getattr(cost, "stationary_curvature", False)):
-        raise NotImplementedError(
-            "first-order iLQR with a per-knot stage curvature is not ported: "
-            "the dense sweep reads one stationary block (QuadCost)")
+            "the solver needs a cost with stage_expansion (or, time-invariant "
+            "and first order, gn_stage_factor)")
     n, nx = model.num_vel, 2 * model.num_vel
     N, dt, grav = cfg.N, cfg.dt, cfg.gravity
     na = len(cfg.alphas)
+    if na > 1 and getattr(cost, "goal_problems", 1) > 1:
+        raise NotImplementedError(
+            f"a per-problem goal ({cost.goal_problems} problems) with "
+            f"{na} step sizes: the JAX solver cannot run it either (its line "
+            f"search widens the lanes to n_alpha*B and the (., B) goal does "
+            f"not broadcast against them); use alphas=(1.0,)")
     alphas = torch.tensor(cfg.alphas, dtype=model.dtype, device=model.device)
     u_lo, u_hi = resolve_control_bounds(model, cfg)
     plain = cfg.use_kernels is False
@@ -149,6 +162,9 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
     if plain and hasattr(cost, "ee_fns"):   # the EE cost's plain twins too
         cost = dataclasses.replace(cost, ee_fns=(_k.eepos_plain,
                                                  _k.deepos_plain))
+    # the cost summed inside the line search, or None: summed after it
+    ls_cost = cost if getattr(cost, "kernel_weights", None) is not None \
+        else None
 
     def on_device(t):
         if cfg.use_kernels and not t.is_cuda:
@@ -168,8 +184,13 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
         return torch.cat([x0[None], X], dim=0)            # (N+1, 2n, B)
 
     def total_cost(X, U):
-        cs = cost.stage(fold(X[:N]), fold(U))
-        return cost.terminal(X[N]) + cs.reshape(N, -1).sum(0)
+        c = cost.terminal(X[N])
+        if fold_t:   # one stage call over the N*B folded lanes
+            return c + cost.stage(fold(X[:N]), fold(U), 0).reshape(
+                N, -1).sum(0)
+        for t in range(N):
+            c = c + cost.stage(X[t], U[t], t)
+        return c
 
     def linearize(Xs, U):
         """One fd_du over N*B knot-major lanes -> A (N,2n,2n,B), B (N,2n,n,B)."""
@@ -196,14 +217,34 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
         on_device(X)
         return fdsva(model, fold(X[:N, :n]), fold(X[:N, n:]), fold(U), grav)
 
+    def expansions(X, U, one_block):
+        """The stage expansion's (lx (N,nx,B), lu (N,n,B), lxx, luu, lux):
+        one call over the folded lanes for a time-invariant cost, else one
+        a knot. The curvature is knot 0's block ((nx,nx,B), ...) with
+        ``one_block``, else the per-knot stacks ((N,nx,nx,B), ...)."""
+        B = X.shape[-1]
+        if fold_t:
+            _, lxf, luf, lxxf, luuf, luxf = cost.stage_expansion(
+                fold(X[:N]), fold(U), 0)
+            curv = ((c[..., :B] for c in (lxxf, luuf, luxf)) if one_block
+                    else map(unfold, (lxxf, luuf, luxf)))
+            return (unfold(lxf), unfold(luf), *curv)
+        exps = [cost.stage_expansion(X[t], U[t], t) for t in range(N)]
+        shapes = ((nx, nx, B), (n, n, B), (n, nx, B))
+        if one_block:
+            curv = (c.expand(s) for c, s in zip(exps[0][3:], shapes))
+        else:
+            curv = (torch.stack([e[3 + k].expand(s) for e in exps])
+                    for k, s in enumerate(shapes))
+        return (torch.stack([e[1] for e in exps]),
+                torch.stack([e[2] for e in exps]), *curv)
+
     def ddp_backward(X, U, Amat, Bmat, so_flat):
         """The exact-Hessian sweep: the knot step with V'_x contracted with
         the second-order tensors of the semi-implicit Euler map."""
         B = X.shape[-1]
         _, Vx, Vxx = cost.terminal_expansion(X[N])
-        _, lxf, luf, lxxf, luuf, luxf = cost.stage_expansion(fold(X[:N]),
-                                                             fold(U))
-        lx, lu, lxx, luu, lux = map(unfold, (lxf, luf, lxxf, luuf, luxf))
+        lx, lu, lxx, luu, lux = expansions(X, U, one_block=False)
         ks, Ks = [None] * N, [None] * N
         for t in range(N - 1, -1, -1):
             d2q, d2qd, cr, dMi = (so_flat[c, ..., t * B:(t + 1) * B]
@@ -220,25 +261,21 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
         return torch.stack(ks), torch.stack(Ks)
 
     def backward(X, U, Amat, Bmat, so_flat=None):
-        """The Riccati sweep (see the module docstring for its three forms)."""
+        """The Riccati sweep (see the module docstring for its forms)."""
         on_device(X)
         if cfg.use_second_order:
             return ddp_backward(X, U, Amat, Bmat, so_flat)
         _, Vx0, Vxx0 = cost.terminal_expansion(X[N])
         if factored:
             # the (r, n) GN factor and flat lx/lu go in the knot-major layout
-            Jw, lxf, luf = cost.gn_stage_factor(fold(X[:N]), fold(U))
+            Jw, lxf, luf = cost.gn_stage_factor(fold(X[:N]), fold(U), 0)
             return ric_gn(Amat, Bmat, lxf.contiguous(), luf.contiguous(),
                           Jw.contiguous(), Vx0.contiguous(),
                           Vxx0.contiguous(), cfg.reg, *cost.gn_factor_diags)
-        B = X.shape[-1]
-        _, lxf, luf, lxxf, luuf, luxf = cost.stage_expansion(fold(X[:N]),
-                                                             fold(U))
-        # the stationary curvature: one block for every knot
-        curv = (c[..., :B].contiguous() for c in (lxxf, luuf, luxf))
-        return ric(Amat, Bmat, unfold(lxf).contiguous(),
-                   unfold(luf).contiguous(), *curv, Vx0.contiguous(),
-                   Vxx0.contiguous(), cfg.reg)
+        # a stationary curvature: one block for every knot; else the stacks
+        ex = expansions(X, U, one_block=stationary)
+        return ric(Amat, Bmat, *(e.contiguous() for e in ex),
+                   Vx0.contiguous(), Vxx0.contiguous(), cfg.reg)
 
     def forward(X, U, ks, Ks):
         """Line search: every step size in one sweep, then the argmin."""
@@ -246,7 +283,9 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
         B = X.shape[-1]
         alpha_rows = alphas[:, None].repeat(1, B)
         Xs, Uw, cw = ls_roll(model, X[0], U, X[:N], ks, Ks, alpha_rows, dt,
-                             grav, u_lo, u_hi, cost)
+                             grav, u_lo, u_hi, ls_cost)
+        if cw is None:   # the cost over the rollouts, lanes [a0*B | a1*B ..]
+            cw = total_cost(torch.cat([X[0].repeat(1, na)[None], Xs]), Uw)
         cw = cw.reshape(na, B)
         best = torch.argmin(cw, dim=0)                     # (B,)
         idx = best[None, None, None, :]

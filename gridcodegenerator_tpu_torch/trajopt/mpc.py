@@ -4,7 +4,8 @@ The counterpart of ``gridcodegenerator_tpu/trajopt/mpc.py:MPC``. The
 controller keeps the whole plan on the device and warm-starts each replan
 with the previous solution shifted one knot (``U[1:] ++ U[-1:]``). Each
 control period is one solve and one semi-implicit Euler step of the
-plant: on the card the solve's kernels and one ``aba`` launch.
+plant: on the card the solve's kernels and one ``aba`` launch. The cost is
+any ``CostModel`` the solver takes.
 """
 
 from __future__ import annotations

@@ -6,7 +6,10 @@ recursion with the second-order dynamics terms kept, which for the
 unconstrained subproblem is the exact-Hessian DDP backward sweep
 (``make_ilqr`` with ``use_second_order=True``). Control bounds are handled
 by the clamped rollouts of the line search. The second-order tensors come
-from FDSVA-SO (``ops/so.py``; the ``fdsva_so`` kernel on the card).
+from FDSVA-SO (``ops/so.py``; the ``fdsva_so`` kernel on the card). The
+cost is any ``CostModel`` with ``stage_expansion``: ``QuadCost``, a user
+cost of the knot index, or ``EEReachCost``, whose dense Gauss-Newton
+expansion takes its pose and Jacobian from the eepos and deepos kernels.
 """
 
 from __future__ import annotations

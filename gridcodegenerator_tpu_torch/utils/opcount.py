@@ -112,7 +112,9 @@ def _count(kernel, model, cost=None, N=0, rank=3, stationary=True,
     ee = _host(build.ee_buffer(model))
     flag = int(stationary)
     cbuf = np.zeros(1)
-    if kernel == "linesearch_rollout":
+    if kernel == "linesearch_rollout" and cost is None:   # no cost
+        flag = COST_KINDS["none"]
+    elif kernel == "linesearch_rollout":
         w = cost.kernel_weights
         flag = COST_KINDS[w["kind"]]
         cbuf = np.asarray(w["values"], np.float64)
@@ -137,7 +139,8 @@ def ops_per_lane(kernel: str, model: RobotModel, cost=None, N: int = 0,
                  executed: bool = False) -> int:
     """Floating-point operations of one lane of ``kernel`` (one problem
     over N knots for the sweeps; the EE kernels over every EE of the
-    model, the line search with ``cost``): the function's arithmetic, or
+    model, the line search with ``cost``, or without a cost where it is
+    None): the function's arithmetic, or
     with ``executed`` the lane code's own."""
     return _count(kernel, model, cost, N, rank, stationary, executed)[0]
 

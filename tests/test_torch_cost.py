@@ -60,12 +60,9 @@ def problem():
     return jm, tm, jcost, tcost, x0, U0, x, u
 
 
-def _call(cost, method, x, u, jax_cost=False):
-    if method == "stage":
-        return cost.stage(x, u, 0) if jax_cost else cost.stage(x, u)
-    if method == "gn_stage_factor":
-        return (cost.gn_stage_factor(x, u, 0) if jax_cost
-                else cost.gn_stage_factor(x, u))
+def _call(cost, method, x, u):
+    if method in ("stage", "gn_stage_factor"):
+        return getattr(cost, method)(x, u, 0)
     return getattr(cost, method)(x)
 
 
@@ -79,7 +76,7 @@ def test_ee_cost_terms_count_their_plain_calls(problem, method):
     got = _call(tcost, method, torch.as_tensor(x), torch.as_tensor(u))
     assert dict(build.PLAIN_CALLS) == CALLS[method]
     assert not build.LAUNCHES
-    want = _call(jcost, method, jnp.asarray(x), jnp.asarray(u), jax_cost=True)
+    want = _call(jcost, method, jnp.asarray(x), jnp.asarray(u))
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     assert len(got) == len(want)
@@ -132,6 +129,6 @@ def test_plain_solve_hands_the_cost_the_plain_twins(problem, monkeypatch):
     with pytest.raises(RuntimeError, match="wrapper"):
         make_ilqr(tm, tcost, ILQRConfig(N=N, iters=1))(*args)
     with pytest.raises(RuntimeError, match="wrapper"):
-        tcost.stage(torch.as_tensor(x), torch.as_tensor(u))
+        tcost.stage(torch.as_tensor(x), torch.as_tensor(u), 0)
     plain = dataclasses.replace(tcost, ee_fns=(K.eepos_plain, K.deepos_plain))
-    assert plain.stage(torch.as_tensor(x), torch.as_tensor(u)).shape == (5,)
+    assert plain.stage(torch.as_tensor(x), torch.as_tensor(u), 0).shape == (5,)

@@ -104,7 +104,19 @@ def test_expose_parts_compose_one_iteration(problem):
 @pytest.mark.parametrize("flag", ["use_second_order", "parallel_riccati",
                                   "ls_two_stage", "knot_axis"])
 def test_left_out_options_raise(problem, flag):
-    _, tm, _, tcost, _, _ = problem
+    _, tm, _, tcost, x0, U0 = problem
+    if flag == "use_second_order":
+        # DDP with the EE cost is ported (its dense Gauss-Newton
+        # expansion): it solves, as the plain route does
+        args = torch.as_tensor(x0), torch.as_tensor(U0)
+        a, b = (make_ilqr(tm, tcost, ILQRConfig(
+            N=N, iters=1, use_second_order=True, use_kernels=uk))(*args)
+            for uk in (None, False))
+        assert bool(torch.isfinite(a.cost_trace).all())
+        assert (a.cost_trace[1] <= a.cost_trace[0]).all()
+        for f in ("cost_trace", "X", "U"):
+            assert torch.equal(getattr(a, f), getattr(b, f)), f
+        return
     value = "knots" if flag == "knot_axis" else True
     with pytest.raises(NotImplementedError):
         make_ilqr(tm, tcost, ILQRConfig(N=N, **{flag: value}))

@@ -115,7 +115,7 @@ def path_inputs(model, N, B, seed):
     fold = lambda Z: Z.transpose(0, 1).reshape(Z.shape[1], -1)
     A, Bm = parts["linearize"](X[:N], U)
     _, Vx0, Vxx0 = cost.terminal_expansion(X[N])
-    Jw, lx, lu = cost.gn_stage_factor(fold(X[:N]), fold(U))
+    Jw, lx, lu = cost.gn_stage_factor(fold(X[:N]), fold(U), 0)
     ric = (A, Bm, lx.contiguous(), lu.contiguous(), Jw.contiguous(),
            Vx0.contiguous(), Vxx0.contiguous(), cfg.reg,
            *cost.gn_factor_diags)
@@ -162,6 +162,8 @@ def path_inputs(model, N, B, seed):
                                lo, hi, cost),
         "linesearch_quad": (model, X[0].contiguous(), U, X[:N].contiguous(),
                             ks, Ks, al, dt, -9.81, lo, hi, quad),
+        "linesearch_nocost": (model, X[0].contiguous(), U, X[:N].contiguous(),
+                              ks, Ks, al, dt, -9.81, lo, hi, None),
         "idsva_so": (model, q, qd, u, -9.81),   # u as qdd
         "fdsva_so": (model, q, qd, u, -9.81),
         "riccati": dense + (lxx[0].contiguous(), luu[0].contiguous(),
@@ -227,7 +229,9 @@ WRAPPERS = {"fd_du": (K.fd_du, K.fd_du_plain),
             "riccati": (S.riccati, S.riccati_plain),
             "riccati_stacked": (S.riccati, S.riccati_plain),
             "linesearch_quad": (S.linesearch_rollout,
-                                S.linesearch_rollout_plain)}
+                                S.linesearch_rollout_plain),
+            "linesearch_nocost": (S.linesearch_rollout,
+                                  S.linesearch_rollout_plain)}
 
 
 def _outs(o):
@@ -751,9 +755,22 @@ extern "C" void ls_##NJ(const double* m, const double* x0,                 \
   if (kind == 0)                                                            \
     linesearch_host<double, NJ, EECostW<double, NJ>>(m, x0, Ur, Xr, k, K,   \
         al, lo, hi, X, U, c, N, B, na, dt, -9.81, w, 7);                    \
-  else                                                                      \
+  else if (kind == 1)                                                       \
     linesearch_host<double, NJ, QuadCostW<double, NJ>>(m, x0, Ur, Xr, k, K, \
         al, lo, hi, X, U, c, N, B, na, dt, -9.81, w, 7 * NJ);               \
+  else                                                                      \
+    linesearch_host<double, NJ, NoCost<double, NJ>>(m, x0, Ur, Xr, k, K,    \
+        al, lo, hi, X, U, nullptr, N, B, na, dt, -9.81, nullptr, 0);        \
+}                                                                           \
+extern "C" void ls_nocost_lane_##NJ(const double* m, const double* x0,     \
+    const double* Ur, const double* Xr, const double* k, const double* K,   \
+    const double* al, const double* lo, const double* hi, double* X,        \
+    double* U, int N, ll B, int na, double dt) {                            \
+  Robot<double, NJ> R(m);                                                   \
+  const NoCostK<double, NJ> nc{nullptr};                                    \
+  for (ll l = 0; l < na * B; ++l)                                           \
+    linesearch_lane<double, NJ>(R, x0, Ur, Xr, k, K, al, lo, hi, X, U,      \
+                                nullptr, N, B, na, l, dt, -9.81, nc);       \
 }                                                                           \
 extern "C" void ricd_##NJ(const double* A, const double* Bm,               \
     const double* lx, const double* lu, const double* lxx,                  \
@@ -952,6 +969,15 @@ def _host_run(lib, name, args, lane=False):
     na = al.shape[0]
     X = torch.empty(N, 2 * n, na * B, dtype=x0.dtype)
     U = torch.empty(N, n, na * B, dtype=x0.dtype)
+    if cost is None:   # the no-cost instance, or its serial lane
+        ins = (build.model_buffer(m), x0, Ur, Xr, k, Km, al, lo, hi, X, U)
+        if lane:
+            getattr(lib, f"ls_nocost_lane_{n}")(*map(_p, ins), N, ll(B), na,
+                                                D(dt))
+        else:
+            getattr(lib, f"ls_{n}")(*map(_p, ins), _p(None), N, ll(B), na,
+                                    S.COST_KINDS["none"], _p(None), D(dt))
+        return X, U
     c = torch.empty(na * B, dtype=x0.dtype)
     w = cost.kernel_weights
     wv = torch.tensor(w["values"], dtype=torch.float64)
@@ -1421,7 +1447,7 @@ def test_host_d2eepos_direct_stores_match_the_staged(host_lib, robot):
 # the batches of the newer programs' ragged-block cases, by the plan's G
 RAGGED_B = ("1", "G-1", "G+1", "37")
 # the double plan's index in plans_<nj> (the host build runs it)
-PLAN_INDEX = {"riccati": 9, "riccati_stacked": 11, "rollout": 13,
+PLAN_INDEX = {"linesearch_nocost": 7, "riccati": 9, "riccati_stacked": 11, "rollout": 13,
               "idsva_so": 15, "feedback_rollout": 17, "id_du": 19,
               "d2eepos": 21, "rnea": 26, "rnea_bias": 26, "aba": 28,
               "fd": 30, "eepos": 32, "minv": 34, "minv_upper": 34,
@@ -1467,6 +1493,29 @@ def test_host_line_search_on_ragged_blocks(host_lib, robot, name, na, N, B):
     want = _outs(WRAPPERS[name][1](*args))
     assert got[0].shape == want[0].shape == (N, 2 * m.n, na * B)
     assert _max_err(got, want) <= tol(robot, want)
+
+
+@pytest.mark.parametrize("robot", ["iiwa", "hyq"])
+@pytest.mark.parametrize("B", RAGGED_B)
+def test_host_nocost_line_search_is_the_serial_lane_bit_for_bit(host_lib,
+                                                                 robot, B):
+    """The line search without a cost (kind "none": csrc/linesearch.cu's
+    NoCost instance, what a cost that is not time-invariant runs) on 1,
+    G - 1, G + 1 and 37 problems, six step sizes over blocks of rows: its
+    block code gives the serial linesearch_lane's bits for X and U, and the
+    plain version's X and U within TOL; it writes no cost."""
+    m = build_model(topo(robot), dtype=torch.float64, device="cpu")
+    B = _ragged_b(host_lib, "linesearch_nocost", m.n, B)
+    args = list(path_inputs(m, 2, B, seed=6)["linesearch_nocost"])
+    args[6] = torch.as_tensor(np.random.default_rng(7).uniform(
+        0.05, 1.0, (6, B)), dtype=torch.float64)
+    got = _host_run(host_lib, "linesearch_nocost", args)
+    lane = _host_run(host_lib, "linesearch_nocost", args, lane=True)
+    assert got[0].shape == (2, 2 * m.n, 6 * B)
+    for a, b in zip(got, lane):
+        assert torch.equal(a, b)
+    want = _outs(S.linesearch_rollout_plain(*args))
+    assert len(want) == 2 and _max_err(got, want) <= TOL
 
 
 @pytest.mark.parametrize("robot,N,name,B", _ragged_cases(
@@ -1969,6 +2018,26 @@ def test_cuda_ee_kernel_on_gym_ant_feet(cuda_device, case):
     want = _outs(WRAPPERS[case][1](*args))
     assert float(want[0].abs().max()) > 0.1
     assert _max_err(got, want) <= TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("robot", ["iiwa", "hyq", "atlas"])
+def test_cuda_nocost_line_search_matches_plain(cuda_device, robot):
+    """The line search's no-cost instance launches once, counted apart,
+    and its X and U match the plain twin's (float64, 37 problems, six step
+    sizes) and the EE instance's on the same inputs; no cost comes out."""
+    m = build_model(topo(robot), dtype=torch.float64, device=cuda_device)
+    ins = path_inputs(m, 6, 37, seed=3)
+    args = ins["linesearch_nocost"]
+    build.reset_counters()
+    X, U, c = S.linesearch_rollout(*args)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"linesearch_nocost": 1} and c is None
+    assert not build.PLAIN_CALLS
+    want = _outs(S.linesearch_rollout_plain(*args))
+    assert _max_err((X, U), want) <= tol(robot, want)
+    ee = S.linesearch_rollout(*ins["linesearch_rollout"])[:2]
+    assert _max_err((X, U), ee) <= tol(robot, ee)
 
 
 @pytest.mark.cuda

@@ -165,17 +165,29 @@ def test_sqp_parts_and_refusals():
                                torch.minimum(cn, c0).numpy(), atol=1e-12)
     with pytest.raises(ValueError):
         make_sqp(tm, tcost, SQPConfig(N=N, use_second_order=False))
-    with pytest.raises(NotImplementedError):   # per-problem goals
-        QuadCost(Q=tcost.Q, R=tcost.R, Qf=tcost.Qf,
-                 x_goal=torch.zeros(4, B, dtype=torch.float64))
+    # per-problem goals run (at one step size, as in the JAX solver): the
+    # shared goal given to each problem solves as the shared goal does
+    per_problem = QuadCost(Q=tcost.Q, R=tcost.R, Qf=tcost.Qf,
+                           x_goal=tcost.x_goal[:, None].repeat(1, B))
+    assert not per_problem.time_invariant
+    one = SQPConfig(N=N, iters=1, alphas=(1.0,))
+    a, b = (make_sqp(tm, c, one)(x0t, U0t) for c in (per_problem, tcost))
+    np.testing.assert_allclose(a.cost_trace.numpy(), b.cost_trace.numpy(),
+                               rtol=0, atol=1e-12)
 
     class PerKnotCurvature(QuadCost):
         stationary_curvature = False
 
     per_knot = PerKnotCurvature(Q=tcost.Q, R=tcost.R, Qf=tcost.Qf,
                                 x_goal=tcost.x_goal)
-    with pytest.raises(NotImplementedError):   # first order: one block only
-        make_ilqr(tm, per_knot, ILQRConfig(N=N))
+    # first order with a per-knot curvature runs the stacked riccati and
+    # solves as the stationary block does
+    build.reset_counters()
+    a = make_ilqr(tm, per_knot, ILQRConfig(N=N, iters=1))(x0t, U0t)
+    assert build.PLAIN_CALLS["riccati"] == 1
+    b = make_ilqr(tm, tcost, ILQRConfig(N=N, iters=1))(x0t, U0t)
+    for f in ("cost_trace", "X", "U"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
     make_sqp(tm, per_knot, SQPConfig(N=N))     # the DDP sweep reads any
 
 
