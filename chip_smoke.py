@@ -1,6 +1,7 @@
 """On-card smoke test of the PyTorch/CUDA port: configs 3, 1, 2, 4 and 5 end
-to end, the rest of the GRiD API, the per-robot generated modules, and the
-solver's per-knot cost route.
+to end, the rest of the GRiD API, the per-robot generated modules, the
+solver's per-knot cost route, config 3 with the associative-scan Riccati,
+and GRiD on floating-base robots.
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -124,9 +125,31 @@ Phases, one line each:
      (N + 1)(1 + 2 I) and deepos (N + 1) I launches, 2048 lanes each); SQP
      on config 3's EE reach task at config 4's shapes (N=32, 4 iterations,
      B=1024, held after iteration 1); the stacked riccati and the no-cost
-     line search at these shapes (float32 rule, times, bound).
+     line search at these shapes (float32 rule, times, bound);
+ 10. config 3 (phase 4's task, x0 and shapes) with parallel_riccati: the
+     backward the associative suffix scan in plain torch
+     (trajopt/priccati.py), so the rollout, fd_du, the line search and the
+     EE cost's eepos and deepos launch (as in phase 4) and neither Riccati
+     kernel; costs finite and non-increasing; its first 64 problems held by
+     phase 6's rule (float64 kernel vs plain parallel solves at the last
+     iteration, float32 vs float64); printed: solves/s over 5 solves, each
+     phase's ms, the backward's ms beside phase 4's riccati_factored
+     backward on the same inputs (in turns), the scan's rounds, and the
+     final costs' gap to phase 4's sequential solve;
+ 11. GRiD on iiwa_floating (14 q / 13 qd) and atlas_floating (35 q / 34
+     qd), float32, unbatched and at B=1024: every first-order method (id
+     with and without qdd, minv dense and upper, fd, aba, crba, id_du with
+     and without qdd, fd_du, eepos, deepos, d2eepos, fk, the packed forms)
+     launched no kernel and ran exactly its plain twin (the kernels are
+     fixed-base), finite, against a float64 GRiD on the card by the float32
+     rule; a float64 card call against the same call on the CPU within
+     1e-10 of scale on 3 lanes; in float64 on the card M Minv = I, id
+     linear in qdd with matrix M, fd and aba invert id; idsva_so, fdsva_so
+     and use_kernels=True raise; gen_all_code's module for atlas_floating
+     imported with nothing of JAX loaded, its algorithms equal GRiD's, its
+     timing table run; µs a call and evals/s.
 Then a JSON line of per-kernel results (launches on the main paths of
-phases 4-9, error, times, and the roofline bound: the larger of the bytes
+phases 4-10, error, times, and the roofline bound: the larger of the bytes
 each call must move over 3.35 TB/s and the operations its function needs,
 counted by utils/opcount.py, over 67 TFLOP/s float32; beside them the
 operations the kernel's lane code executes), and last the device line.
@@ -194,6 +217,21 @@ PERIODS5, S5_F64 = 3, 64
 # scaling the scenario states by 1 + 1e-13 moved u0 by 1.4e-14 on atlas,
 # 4.8e-15 on gym_humanoid; float32 and float64 u0 agreed within 1e-7)
 U0_REL = 1e-9
+# phase 11: GRiD on floating-base robots (14 q / 13 qd and 35 q / 34 qd),
+# every first-order method as (GRiD method, the plain twin it runs, its
+# inputs); "_nqdd" calls it without qdd, "minv_upper" with dense=False
+ROBOTS_FLOATING = ("iiwa_floating", "atlas_floating")
+FLOATING_METHODS = (
+    ("id", "rnea", "q qd qdd"), ("id_nqdd", "rnea", "q qd"),
+    ("minv", "minv", "q"), ("minv_upper", "minv", "q"),
+    ("fd", "fd", "q qd u"), ("aba", "aba", "q qd u"), ("crba", "crba", "q"),
+    ("id_du", "id_du", "q qd qdd"), ("id_du_nqdd", "id_du", "q qd"),
+    ("fd_du", "fd_du", "q qd u"), ("eepos", "eepos", "q"),
+    ("deepos", "deepos", "q"), ("d2eepos", "d2eepos", "q"),
+    ("fk", None, "q"), ("id_packed", "rnea", "q qd qdd"),
+    ("aba_packed", "aba", "q qd u"), ("fd_packed", "fd", "q qd u"),
+    ("fd_du_packed", "fd_du", "q qd u"))
+FLOATING_METHODS = tuple((m, t, a.split()) for m, t, a in FLOATING_METHODS)
 GRAVITY = -9.81
 DEVICE = torch.device("cuda:0")
 L1 = 1024            # lanes of the GRiD kernels' small case (and of codegen)
@@ -298,6 +336,7 @@ def main():
                                                           QuadCost)
     from gridcodegenerator_tpu_torch.trajopt.ilqr import (
         ILQRConfig, make_ilqr, resolve_control_bounds)
+    from gridcodegenerator_tpu_torch.trajopt import priccati
     from gridcodegenerator_tpu_torch.trajopt.sqp import SQPConfig, make_sqp
     from gridcodegenerator_tpu_torch.utils import opcount
     from gridcodegenerator_tpu_torch.utils.timing import time_cuda
@@ -2040,6 +2079,242 @@ def main():
     results["riccati"]["per_knot"] = per_knot_k[f"riccati_stacked N={N} B={B}"]
     results["linesearch_nocost"]["per_knot"] = per_knot_k[
         f"linesearch_nocost N={N} 1x{B}"]
+
+    # -- phase 10: config 3 with parallel_riccati --------------------------
+    # phase 4's task and x0, the backward the associative suffix scan in
+    # plain torch (trajopt/priccati.py): no Riccati kernel runs
+    cfg10 = dict(N=N, dt=DT, iters=ITERS, parallel_riccati=True)
+    n = m32.n
+    U0 = torch.zeros((N, n, B), dtype=torch.float32, device=dev)
+    solve10, parts10 = make_ilqr(m32, cost, ILQRConfig(**cfg10),
+                                 expose_parts=True)
+    build.reset_counters()
+    res10 = solve10(x0, U0)
+    torch.cuda.synchronize()
+    path_runs.append(check_run(
+        "parallel riccati", res10, {
+            "rollout": 1, "fd_du": ITERS, "linesearch_rollout": ITERS,
+            "eepos": 2 + 2 * ITERS, "deepos": 2 * ITERS}, N, B, ITERS, n))
+    agree10 = first64(make_ilqr, ILQRConfig, cfg10, m32, None, x0n9,
+                      res10.cost, ITERS, cost_of=lambda m: dataclasses.replace(
+                          cost, model=m, goal_xyz=cost.goal_xyz.to(m.dtype)))
+    ms10 = time_cuda(lambda: solve10(x0, U0), iters=5, warmup=1)
+    X10 = parts10["rollout"](x0, U0)
+    A10, Bm10 = parts10["linearize"](X10[:N], U0)
+    ks10, Ks10 = parts10["backward"](X10, U0, A10, Bm10)
+    _, parts4 = make_ilqr(m32, cost, ILQRConfig(N=N, dt=DT, iters=ITERS),
+                          expose_parts=True)
+    back = {}                   # the two backward phases in turns
+    for tag in ("scan", "factored", "factored", "scan"):
+        p_ = parts10 if tag == "scan" else parts4
+        back.setdefault(tag, []).append(time_cuda(
+            lambda: p_["backward"](X10, U0, A10, Bm10), iters=5))
+    # the scan alone on this backward's inputs (the folded EE expansion,
+    # unfolded to the knot stacks), and where its time goes: device time
+    # by op (torch.profiler) against the host's wall time
+    _, Vx10, Vxx10 = cost.terminal_expansion(X10[N])
+    ex10 = [t.reshape(t.shape[:-1] + (N, B)).movedim(-2, 0)
+            for t in cost.stage_expansion(
+                X10[:N].transpose(0, 1).reshape(2 * n, -1),
+                U0.transpose(0, 1).reshape(n, -1), 0)[1:]]
+    scan_args = (A10, Bm10, *ex10, Vx10, Vxx10)
+    scan_ms = time_cuda(lambda: priccati.suffix_value_functions(*scan_args),
+                        iters=5)
+    with torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        tw = time.perf_counter()
+        priccati.suffix_value_functions(*scan_args)
+        torch.cuda.synchronize()
+        tw = time.perf_counter() - tw
+    # the device's own rows (kernels, copies): an operator's row repeats
+    # the device time of the kernels it launched
+    ops10 = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.self_device_time_total > 0), key=lambda r: -r[1])
+    device_ms = sum(r[1] for r in ops10)
+    del ex10, scan_args
+    scan_rounds = []
+    priccati.associative_scan(lambda a, b: [a[0] + b[0]],
+                              [torch.zeros(N + 1)], scan_rounds)
+    gap = rel(res10.cost.double().cpu(), c_k32)
+    line("parallel_riccati", {
+        "config": 3, "robot": "iiwa", "N": N, "iters": ITERS, "B": B,
+        "dtype": "float32", "device": smi, "solve_ms": ms10,
+        "solves_per_s": B / (ms10 / 1e3),
+        "cost_first_mean": float(res10.cost_trace[0].mean()),
+        "cost_last_mean": float(res10.cost_trace[-1].mean()),
+        "first64_final_cost": agree10, "launches": path_runs[-1],
+        "phases": {"rollout_ms": time_cuda(
+            lambda: parts10["rollout"](x0, U0), iters=5),
+            "linearize_ms": time_cuda(
+                lambda: parts10["linearize"](X10[:N], U0), iters=5),
+            "forward_ms": time_cuda(lambda: parts10["forward"](
+                X10, U0, ks10, Ks10), iters=5)},
+        "backward_ms_scan": back["scan"],
+        "backward_ms_riccati_factored": back["factored"],
+        "scan_alone_ms": scan_ms,
+        "scan_profile": {"wall_ms": tw * 1e3, "device_ms": device_ms,
+                         "device_busy_share": device_ms / (tw * 1e3),
+                         "top_ops_device_ms_count": ops10[:6]},
+        "scan_rounds": len(scan_rounds), "scan_pairs_per_round": scan_rounds,
+        "final_cost_rel_gap_to_phase4": {
+            "median": float(gap.median()), "max": float(gap.max()),
+            "share_within_1e-3": share(gap)},
+        "elapsed_s": elapsed()})
+    del X10, A10, Bm10, ks10, Ks10, parts4, res10
+    torch.cuda.empty_cache()
+
+    # -- phase 11: the floating base -------------------------------------
+    # GRiD on *_floating robots: every first-order method on the plain
+    # twins, on the card (the kernels are fixed-base)
+    floating = {}
+    for robot in ROBOTS_FLOATING:
+        gf = {dt: GRiD(robot, dtype=dt, device=dev)
+              for dt in (torch.float32, torch.float64)}
+        g_cpu = GRiD(robot, dtype=torch.float64, device="cpu")
+        g32, g64 = gf[torch.float32], gf[torch.float64]
+        npos, nv = g32.num_pos, g32.num_vel
+        rng = np.random.default_rng(0)
+        qf = rng.uniform(-1, 1, (L1, npos))
+        qf[:, 3:7] = rng.standard_normal((L1, 4))     # unnormalized
+        vf = tuple(rng.uniform(-1, 1, (L1, nv)) for _ in range(3))
+        shapes = {"B1": (qf[0],) + tuple(v[0] for v in vf),
+                  f"B{L1}": (qf,) + vf}
+        cases = {}              # label -> (method, inputs, plain twin)
+        for bl, (q_, qd_, qdd_, u_) in shapes.items():
+            for method, twin, args in FLOATING_METHODS:
+                x = {"q": q_, "qd": qd_, "qdd": qdd_, "u": u_}
+                ins_ = [x[a] for a in args]
+                if method.endswith("_packed"):
+                    ins_ = [np.concatenate(ins_, axis=-1)]
+                cases[f"{method}_{bl}"] = (method, ins_, twin)
+
+        def call(g_, method, ins_):
+            if method == "minv_upper":
+                return g_.minv(*ins_, dense=False)
+            return getattr(g_, method.replace("_nqdd", ""))(*ins_)
+        errs, rates = {}, {}
+        for label, (method, ins_, twin) in cases.items():
+            build.reset_counters()
+            out = call(g32, method, ins_)
+            torch.cuda.synchronize()
+            if build.LAUNCHES or dict(build.PLAIN_CALLS) != (
+                    {twin: 1} if twin else {}):
+                raise AssertionError(
+                    f"{robot} GRiD.{method}: launches "
+                    f"{dict(build.LAUNCHES)}, plain calls "
+                    f"{dict(build.PLAIN_CALLS)} (expected {twin} once)")
+            ref64_ = call(g64, method, ins_)
+            if out.device.type != dev.type or out.shape != ref64_.shape:
+                raise AssertionError(f"{robot} {label}: {out.shape}")
+            # the float32 rule, where the plain twin is what ran: finite
+            # values of the float64 run's shape; the error is recorded
+            errs[label], _ = check_f32(f"{robot} {label}", out, out, ref64_)
+            iters_ = 2 if method == "d2eepos" else 3
+            ms_ = time_cuda(lambda: call(g32, method, ins_), iters=iters_)
+            rates[label] = ({"us_per_call": ms_ * 1e3} if label.endswith(
+                "_B1") else {"ms_per_call": ms_, "evals_per_s": L1 / (
+                    ms_ / 1e3)})
+        # float64: the card's plain twins against the CPU's on 3 lanes
+        lanes3 = (qf[:3],) + tuple(v[:3] for v in vf)
+        card_vs_cpu = {}
+        for method, _, args in FLOATING_METHODS:
+            x = dict(zip(("q", "qd", "qdd", "u"), lanes3))
+            ins_ = [x[a] for a in args]
+            if method.endswith("_packed"):
+                ins_ = [np.concatenate(ins_, axis=-1)]
+            got = call(g64, method, ins_).cpu()
+            want = call(g_cpu, method, ins_)
+            err = float((got - want).abs().max())
+            tol = 1e-10 * max(1.0, float(want.abs().max()))
+            if not err <= tol:
+                raise AssertionError(f"{robot} {method} float64 card vs CPU: "
+                                     f"{err} > {tol}")
+            card_vs_cpu[method] = err / tol
+        # the physical checks (JAX tests/test_floating_base.py) in float64
+        # on the card, the quaternion normalized
+        qn = qf[:64].copy()
+        qn[:, 3:7] /= np.linalg.norm(qn[:, 3:7], axis=1, keepdims=True)
+        qd_, qdd_ = vf[0][:64], vf[1][:64]
+        c, c0 = g64.id(qn, qd_, qdd_), g64.id(qn, qd_)
+        M, Mi = g64.crba(qn), g64.minv(qn)
+        qdd_t = torch.as_tensor(qdd_, device=dev)
+        eye = torch.eye(nv, dtype=torch.float64, device=dev)
+        phys = {
+            "M_Minv_minus_I": float((M @ Mi - eye).abs().max()),
+            "id_minus_id0_minus_M_qdd": float(
+                (c - c0 - torch.einsum("bij,bj->bi", M, qdd_t)).abs().max()
+                / max(1.0, float(c.abs().max()))),
+            "fd_of_id_minus_qdd": float(
+                (g64.fd(qn, qd_, c) - qdd_t).abs().max()),
+            "aba_of_id_minus_qdd": float(
+                (g64.aba(qn, qd_, c) - qdd_t).abs().max())}
+        if not all(v <= 1e-9 for v in phys.values()):
+            raise AssertionError(f"{robot} physical checks: {phys}")
+        refused = []
+        for what, fn in (
+                ("idsva_so", lambda: g32.idsva_so(qf[:2], vf[0][:2],
+                                                  vf[1][:2])),
+                ("fdsva_so", lambda: g32.fdsva_so(qf[:2], vf[0][:2],
+                                                  vf[1][:2])),
+                ("use_kernels=True", lambda: GRiD(robot, device=dev,
+                                                  use_kernels=True))):
+            try:
+                fn()
+            except NotImplementedError:
+                refused.append(what)
+        if len(refused) != 3:
+            raise AssertionError(f"{robot}: only {refused} refused")
+        floating[robot] = {"num_pos": npos, "num_vel": nv,
+                           "f32_max_abs_err_vs_f64": errs,
+                           "f64_card_vs_cpu_err_over_tol": card_vs_cpu,
+                           "f64_physical_checks": phys, "refused": refused,
+                           "times": rates}
+    # the generated module of atlas_floating: imported with nothing of JAX
+    # loaded, its algorithms on the plain twins agree with GRiD, its timing
+    # table runs
+    with tempfile.TemporaryDirectory() as tmp:
+        robot = ROBOTS_FLOATING[-1]
+        path = gen_all_code(load_robot(robot), "grid_floating",
+                            os.path.join(tmp, "grid_floating.py"))
+        spec = importlib.util.spec_from_file_location("grid_floating", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        mod.configure(device=dev)
+        gref = GRiD(robot, dtype=torch.float32, device=dev)
+        rng = np.random.default_rng(2)
+        x = [rng.uniform(-1, 1, (L1, d)) for d in (gref.num_pos,
+                                                   gref.num_vel,
+                                                   gref.num_vel)]
+        gen_errs = {}
+        for algo, k in mod._TIMING_SET:
+            build.reset_counters()
+            got = getattr(mod, algo)(*x[:k])
+            want = getattr(gref, algo)(*x[:k])
+            torch.cuda.synchronize()
+            if build.LAUNCHES or sum(build.PLAIN_CALLS.values()) != 2:
+                raise AssertionError(f"grid_floating.{algo}: launches "
+                                     f"{dict(build.LAUNCHES)}, plain "
+                                     f"{dict(build.PLAIN_CALLS)}")
+            gen_errs[algo] = max_err((got,), (want,))
+            if not gen_errs[algo] == 0.0:
+                raise AssertionError(f"grid_floating.{algo} differs from "
+                                     f"GRiD: {gen_errs[algo]}")
+        print(f"grid_floating ({robot}).single_timing_table"
+              f"(batch_size={L1}):", flush=True)
+        gen_floating = {"robot": robot, "max_abs_err_vs_grid": gen_errs,
+                        "timed": [a for a, _ in mod._TIMING_SET],
+                        "single_call_s": mod.single_timing_table(
+                            batch_size=L1, iters=3)}
+    jax_loaded = sorted(m for m in sys.modules
+                        if m.split(".")[0] in ("jax", "gridcodegenerator_tpu"))
+    if jax_loaded:
+        raise AssertionError(f"JAX modules loaded: {jax_loaded}")
+    line("floating_base", {"robots": floating, "codegen": gen_floating,
+                           "B": L1, "dtype": "float32", "device": smi,
+                           "elapsed_s": elapsed()})
 
     path_launches = {k: sum(run.get(k, 0) for run in path_runs)
                      for k in results}

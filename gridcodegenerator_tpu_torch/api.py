@@ -28,8 +28,16 @@ Example::
     d2tau = grid.idsva_so(q, qd, qdd)         # (B, 4, n, n, n)
     d2qdd = grid.fdsva_so(q, qd, u)           # (B, 4, n, n, n)
 
-``GRiD`` runs on the card unless ``device="cpu"`` is asked for; a
-floating-base robot raises ``NotImplementedError``.
+``GRiD`` runs on the card unless ``device="cpu"`` is asked for.
+
+A floating-base robot (``GRiD("atlas", floating_base=True)`` or
+``GRiD("atlas_floating")``: q is num_pos = num_vel + 1 wide, the root's
+[x, y, z, qx, qy, qz, qw] first) is served by every first-order method on
+the plain twins, on whatever device was asked for: the CUDA kernels are
+fixed-base, as the JAX package's Pallas kernels are. The route is fixed at
+construction by ``model.floating_base``: ``use_kernels=True`` on such a
+robot raises ``NotImplementedError``, and so do ``idsva_so`` and
+``fdsva_so`` (second order is fixed-base, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -42,7 +50,7 @@ import torch
 from .models.model import RobotModel, build_model, resolve_device
 from .models.zoo import list_robots, load_robot
 from .ops import eepose as _eepose
-from .ops.common import DEFAULT_GRAVITY, check_fixed_base
+from .ops.common import DEFAULT_GRAVITY
 from .ops.cuda import kernels as _k
 from .topology.robot import RobotTopology
 from .topology.urdf import parse_urdf
@@ -81,19 +89,23 @@ class GRiD:
         ``use_kernels``: None runs the CUDA kernels iff ``device`` is a
         CUDA device (the wrappers dispatch on the tensors' device); False
         runs the plain PyTorch versions on any device; True insists on a
-        CUDA device.
+        CUDA device. A floating-base robot runs the plain versions (None
+        or False) and refuses True: the kernels are fixed-base.
 
         ``ee_targets``: fixed-joint frame names to treat as end effectors
         (default: every fixed joint, or the leaf links without any); an
         unknown name raises ``ValueError``."""
         self.device = resolve_device(device)
+        self.topology = init_robot(robot, floating_base=floating_base)
+        if use_kernels and self.topology.floating_base:
+            raise NotImplementedError(
+                f"use_kernels=True: the CUDA kernels are fixed-base and "
+                f"{self.topology.name!r} has a floating base")
         if use_kernels and self.device.type != "cuda":
             raise ValueError(f"use_kernels=True needs a CUDA device, "
                              f"got {self.device}")
-        self.topology = init_robot(robot, floating_base=floating_base)
         self.model: RobotModel = build_model(self.topology, dtype=dtype,
                                              device=self.device)
-        check_fixed_base(self.model)
         self.dtype = dtype
         self.gravity = float(gravity)
         self.n = self.model.n
@@ -102,7 +114,8 @@ class GRiD:
         self.ee_targets = None if ee_targets is None else tuple(ee_targets)
         self.num_ees = _eepose.num_ees(self.model, self.ee_targets)
         self.use_kernels = use_kernels
-        plain = use_kernels is False
+        # the route, fixed here: a floating base takes the plain twins
+        plain = use_kernels is False or self.model.floating_base
         self._fd_du = _k.fd_du_plain if plain else _k.fd_du
         self._rnea = _k.rnea_plain if plain else _k.rnea
         self._id_du = _k.id_du_plain if plain else _k.id_du
@@ -262,4 +275,5 @@ class GRiD:
 
     def __repr__(self):
         return (f"GRiD({self.model.name!r}, n={self.n}, dtype={self.dtype}, "
-                f"device={self.device})")
+                f"device={self.device}, "
+                f"floating={self.model.floating_base})")

@@ -11,7 +11,10 @@ standalone module ``<namespace>.py`` per robot with
 * ``<name>_kernel()``: the lane-major kernel wrapper of
   ``ops/cuda/kernels.py`` bound to the module's model (the
   ``ALGORITHM_kernel`` analog; a CUDA tensor launches the kernel, a CPU
-  tensor runs its plain version);
+  tensor runs its plain version). A floating-base robot's module binds
+  the plain twins instead (``<wrapper>_plain``: the kernels are
+  fixed-base), as its ``GRiD`` routes, and leaves the second-order
+  algorithms, which raise there, out of its timing table;
 * ``<name>_single_timing`` (device seconds per call, CUDA events),
   ``single_timing_table`` and ``compile_all``.
 
@@ -55,6 +58,14 @@ ALGORITHMS = [
     ("d2eepos", "end_effector_position_hessians", "q"),
 ]
 
+# (algorithm, number of inputs) in the reference's timing-table order
+TIMING_SET = [
+    ("id", 3), ("minv", 1), ("fd", 3), ("aba", 3), ("crba", 1),
+    ("id_du", 3), ("fd_du", 3), ("idsva_so", 3), ("fdsva_so", 3),
+    ("eepos", 1), ("deepos", 1), ("d2eepos", 1),
+]
+SECOND_ORDER = ("idsva_so", "fdsva_so")
+
 # api name -> (its kernel wrapper in ops/cuda/kernels.py, takes gravity);
 # the wrapper's name is also the kernel's name in build.LAUNCHES
 KERNELS = {
@@ -84,6 +95,10 @@ def gen_all_code(
         f"#   [{j.jid:2d}] {j.name:24s} type={j.jtype:9s} "
         f"parent={j.parent_id:2d} S_ind={j.S_ind}" for j in topo.joints)
     fixed = topo.fixed_joints
+    # a floating base runs the plain twins (the kernels are fixed-base)
+    twin = "_plain" if topo.floating_base else ""
+    timed = [a for a in TIMING_SET
+             if not (topo.floating_base and a[0] in SECOND_ORDER)]
 
     code = f'''"""Generated PyTorch/CUDA dynamics suite for robot {topo.name!r}.
 
@@ -221,9 +236,9 @@ def {name}({args}):
 
 def {name}_kernel():
     """Kernel tier of {ref} (the ALGORITHM_kernel analog): the lane-major
-    wrapper ops/cuda/kernels.py:{wrapper} bound to the model, over (dim, B)
-    tensors of the model's dtype and device."""
-    return _functools.partial(_k.{wrapper}, grid().model{bind})
+    wrapper ops/cuda/kernels.py:{wrapper}{twin} bound to the model, over
+    (dim, B) tensors of the model's dtype and device."""
+    return _functools.partial(_k.{wrapper}{twin}, grid().model{bind})
 
 
 def {name}_single_timing(*args, iters: int = 100):
@@ -232,14 +247,12 @@ def {name}_single_timing(*args, iters: int = 100):
     return _single_timing("{name}", args, iters)
 '''
 
-    code += '''
+    code += f'''
 
 # (algorithm, number of inputs) in the reference's table order
-_TIMING_SET = [
-    ("id", 3), ("minv", 1), ("fd", 3), ("aba", 3), ("crba", 1),
-    ("id_du", 3), ("fd_du", 3), ("idsva_so", 3), ("fdsva_so", 3),
-    ("eepos", 1), ("deepos", 1), ("d2eepos", 1),
-]
+_TIMING_SET = {timed!r}
+'''
+    code += '''
 
 
 def _inputs(batch_size):
@@ -268,7 +281,7 @@ def compile_all(batch_size: int = 256):
     """Build the kernels (on the card) and run every algorithm once at
     ``batch_size``; returns the module's GRiD."""
     g = grid()
-    if g.device.type == "cuda":
+    if g.device.type == "cuda" and not FLOATING_BASE:
         _build.lib(NUM_JOINTS)
     q, v = _inputs(batch_size)
     for name, nargs in _TIMING_SET:

@@ -50,7 +50,9 @@ second-order outputs (4 n^3 values a lane; d2eepos 6 n^2 per EE), whose
 writes are the least time.
 
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
-or raises: every kernel checks its instance's block plan first, and
+or raises. The kernels are fixed-base (``build.kernel_key`` refuses a
+floating-base model, as the JAX Pallas kernels do); the plain versions
+take one, on any device, and ``GRiD`` routes a floating robot to them: every kernel checks its instance's block plan first, and
 refuses, before any launch, one whose knot does not fit a block
 (``build.fits``).
 idsva_so runs its tile in bands where a knot's whole tile does not fit,

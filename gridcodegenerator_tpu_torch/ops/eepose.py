@@ -8,8 +8,14 @@ dT_a . suffix_a, pushed through the derivative of the pose extraction.
 
 End-effectors default to the robot's fixed-joint frames when it has any,
 and to the leaf links otherwise; ``targets`` names the fixed-joint frames to
-use instead. ``fk`` gives the world transform of every joint frame. Fixed
-base, 1-dof joints.
+use instead. ``fk`` gives the world transform of every joint frame.
+
+A floating root takes its 7 coordinates [x, y, z, qx, qy, qz, qw]
+(``pos_layout``): its transform is [[R(quat / |quat|), p], [0, 1]], and its
+derivatives over all 7 are forward-mode JVPs of that one small expression
+(``torch.func.jvp``): the translation is linear, and only the 10
+quaternion-quaternion pairs carry curvature. So ``deepos`` has num_pos
+columns and ``d2eepos`` a 7x7 root block.
 """
 
 from __future__ import annotations
@@ -19,7 +25,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from ..models.model import RobotModel
-from .common import check_fixed_base
+from .common import pos_layout
 
 
 def _fixed_chain(model: RobotModel, fid: int):
@@ -122,8 +128,56 @@ def _joint_d2T(model: RobotModel, i: int, qi):
                                            R[2] + [z], [z, z, z, z]]))
 
 
+def _floating_T(q7):
+    """The floating root's link->parent transform from q7 = [x, y, z, qx,
+    qy, qz, qw] (7, B...) -> (4,4,B...); the quaternion is normalized
+    here."""
+    p = q7[:3]
+    x, y, z, w = q7[3:7] / torch.sqrt((q7[3:7] * q7[3:7]).sum(0))
+    zz, oo = torch.zeros_like(x), torch.ones_like(x)
+    return _stack44([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w),
+         p[0]],
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w),
+         p[1]],
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y),
+         p[2]],
+        [zz, zz, zz, oo]])
+
+
+def _floating_derivs(q7, hess: bool):
+    """(T, [dT/dq_c for the 7 coordinates], {(c1, c2): d2T/dq_c1 dq_c2}) of
+    the floating root, by JVPs of :func:`_floating_T`. The map holds the
+    10 quaternion pairs c1 <= c2 (with ``hess``): the translation is
+    linear and does not mix with the quaternion."""
+    seeds = []
+    for c in range(7):
+        e = torch.zeros_like(q7)
+        e[c] = 1.0
+        seeds.append(e)
+    dTs = [torch.func.jvp(_floating_T, (q7,), (e,))[1] for e in seeds]
+    d2 = {}
+    if hess:
+        for c1 in range(3, 7):
+            def along_c1(v, e=seeds[c1]):
+                return torch.func.jvp(_floating_T, (v,), (e,))[1]
+            for c2 in range(c1, 7):
+                d2[c1, c2] = torch.func.jvp(along_c1, (q7,), (seeds[c2],))[1]
+    return _floating_T(q7), dTs, d2
+
+
+def _coords(q, layout):
+    """A joint's coordinates at its ``pos_layout`` entry (off, k): q[off]
+    (B...), or (7, B...) for the floating root."""
+    off, k = layout
+    return q[off] if k == 1 else q[off:off + k]
+
+
 def _joint_T_lanes(model: RobotModel, i: int, qi):
-    """Link->parent transform of joint i: qi (B...) -> (4,4,B...)."""
+    """Link->parent transform of joint i: qi (B...) (the floating root's
+    (7, B...)) -> (4,4,B...)."""
+    if model.jtype[i] == "floating":
+        return _floating_T(qi)
     return _mm44(model.Ttree[i], _joint_T_parts(model, i, qi, False)[0])
 
 
@@ -133,9 +187,10 @@ def _chain_T(model: RobotModel, q, chain, fid):
         T = model.Tfixed[fid]
         return T.reshape((4, 4) + (1,) * (q.ndim - 1)).expand(
             (4, 4) + q.shape[1:])
-    T = _joint_T_lanes(model, chain[0], q[chain[0]])
+    pl = pos_layout(model)
+    T = _joint_T_lanes(model, chain[0], _coords(q, pl[chain[0]]))
     for j in chain[1:]:
-        T = _mm44(T, _joint_T_lanes(model, j, q[j]))
+        T = _mm44(T, _joint_T_lanes(model, j, _coords(q, pl[j])))
     if fid is not None:
         T = _mm44(T, model.Tfixed[fid])
     return T
@@ -193,28 +248,40 @@ def _pose_hvp(T, dT1, dT2, d2T):
 
 def eepos(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
     """EE poses: q (num_pos, B...) -> (num_ees*6, B...)."""
-    check_fixed_base(model)
     return torch.cat([_pose_from_T(_chain_T(model, q, chain, fid))
                       for chain, fid in ee_chains(model, targets)], dim=0)
 
 
 def eexyz(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
     """EE xyz positions only: q (num_pos, B...) -> (num_ees*3, B...)."""
-    check_fixed_base(model)
     return torch.cat([_chain_T(model, q, chain, fid)[:3, 3]
                       for chain, fid in ee_chains(model, targets)], dim=0)
 
 
-def _chain_parts(model: RobotModel, q, chain):
-    """Per chain joint a: T_a and dT_a (Ttree applied), prefix_a = T_0 ...
-    T_a-1 (None for a = 0) and suffix_a = T_a+1 ... T_k-1 Tfixed (None for
-    the last joint without a fixed frame); and the full chain transform."""
+def _chain_parts(model: RobotModel, q, chain, hess: bool = False):
+    """Per chain joint a: T_a, its derivatives dT_a (a list, one per
+    coordinate: one, or the floating root's seven) and, with ``hess``, its
+    second derivatives (a map over coordinate pairs c1 <= c2, zero pairs
+    left out), all with Ttree applied; prefix_a = T_0 ... T_a-1 (None for
+    a = 0) and suffix_a = T_a+1 ... T_k-1 Tfixed (None for the last joint
+    without a fixed frame); each joint's first q-column; and the full
+    chain transform."""
     chain, fid = chain
-    Ts, dTs = [], []
+    pl = pos_layout(model)
+    Ts, dTs, d2Ts, offs = [], [], [], []
     for j in chain:
-        Tj, dTj = _joint_T_parts(model, j, q[j], True)
-        Ts.append(_mm44(model.Ttree[j], Tj))
-        dTs.append(_mm44(model.Ttree[j], dTj))
+        qj = _coords(q, pl[j])
+        offs.append(pl[j][0])
+        if model.jtype[j] == "floating":
+            T, dT, d2 = _floating_derivs(qj, hess)
+        else:
+            Tj, dTj = _joint_T_parts(model, j, qj, True)
+            T, dT = _mm44(model.Ttree[j], Tj), [_mm44(model.Ttree[j], dTj)]
+            d2j = _joint_d2T(model, j, qj) if hess else None
+            d2 = {} if d2j is None else {(0, 0): d2j}
+        Ts.append(T)
+        dTs.append(dT)
+        d2Ts.append(d2)
     k = len(chain)
     prefix, acc = [None] * k, None
     for a in range(k):
@@ -225,22 +292,23 @@ def _chain_parts(model: RobotModel, q, chain):
     for a in range(k - 1, -1, -1):
         suffix[a] = acc
         acc = Ts[a] if acc is None else _mm44(Ts[a], acc)
-    return Ts, dTs, prefix, suffix, acc
+    return Ts, dTs, d2Ts, offs, prefix, suffix, acc
 
 
 def deepos(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
     """EE pose Jacobian, chain form: (num_ees*6, num_pos, B...)."""
-    check_fixed_base(model)
     npos = model.num_pos
     zero = torch.zeros((6,) + q.shape[1:], dtype=q.dtype, device=q.device)
     blocks = []
     for chain in ee_chains(model, targets):
         cols = {}
         if chain[0]:
-            _, dTs, prefix, suffix, Tfull = _chain_parts(model, q, chain)
-            for a, j in enumerate(chain[0]):
-                dT = _mm44_opt(_mm44_opt(prefix[a], dTs[a]), suffix[a])
-                cols[j] = _pose_jvp(Tfull, dT)
+            _, dTs, _, offs, prefix, suffix, Tfull = _chain_parts(model, q,
+                                                                 chain)
+            for a in range(len(chain[0])):
+                for c, dT_c in enumerate(dTs[a]):
+                    dT = _mm44_opt(_mm44_opt(prefix[a], dT_c), suffix[a])
+                    cols[offs[a] + c] = _pose_jvp(Tfull, dT)
         blocks.append(torch.stack([cols.get(c, zero) for c in range(npos)],
                                   dim=1))
     return torch.cat(blocks, dim=0)
@@ -250,12 +318,13 @@ def d2eepos(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
     """EE pose Hessian, chain form: (num_ees*6, num_pos, num_pos, B...),
     symmetric; ``gridcodegenerator_tpu/ops/eepose.py:d2eepos_chain``.
 
-    For chain joints a < b, d2T/dq_a dq_b = W_ab . dT_b . suffix_b with
-    W_ab = prefix_a . dT_a . T_a+1 ... T_b-1 (one sweep per a), and
-    d2T/dq_a^2 = prefix_a . d2T_a . suffix_a; each goes through the pose
-    extraction's second derivative (:func:`_pose_hvp`). Joints off the
-    chain, and every entry of an EE with an empty chain, are zero."""
-    check_fixed_base(model)
+    For chain coordinates of joints a < b, d2T/dq_a dq_b = W_ab . dT_b .
+    suffix_b with W_ab = prefix_a . dT_a . T_a+1 ... T_b-1 (one sweep per
+    coordinate of a), and within joint a's block d2T = prefix_a . d2T_a .
+    suffix_a (zero for a prismatic joint and the floating root's
+    translation); each goes through the pose extraction's second
+    derivative (:func:`_pose_hvp`). Joints off the chain, and every entry
+    of an EE with an empty chain, are zero."""
     npos = model.num_pos
     zero = torch.zeros((6,) + q.shape[1:], dtype=q.dtype, device=q.device)
     zero44 = torch.zeros((4, 4) + q.shape[1:], dtype=q.dtype, device=q.device)
@@ -263,21 +332,30 @@ def d2eepos(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
     for chain in ee_chains(model, targets):
         H = {}
         if chain[0]:
-            js = chain[0]
-            Ts, dTs, prefix, suffix, Tfull = _chain_parts(model, q, chain)
-            dTf = [_mm44_opt(_mm44_opt(prefix[a], dTs[a]), suffix[a])
-                   for a in range(len(js))]
-            for a, ja in enumerate(js):
-                d2j = _joint_d2T(model, ja, q[ja])
-                d2T = (zero44 if d2j is None else
-                       _mm44_opt(_mm44_opt(prefix[a], d2j), suffix[a]))
-                H[ja, ja] = _pose_hvp(Tfull, dTf[a], dTf[a], d2T)
-                W = _mm44_opt(prefix[a], dTs[a])
-                for b in range(a + 1, len(js)):
-                    d2T = _mm44_opt(_mm44(W, dTs[b]), suffix[b])
-                    H[ja, js[b]] = H[js[b], ja] = _pose_hvp(Tfull, dTf[a],
-                                                            dTf[b], d2T)
-                    W = _mm44(W, Ts[b])
+            k = len(chain[0])
+            Ts, dTs, d2Ts, offs, prefix, suffix, Tfull = _chain_parts(
+                model, q, chain, hess=True)
+            dTf = [[_mm44_opt(_mm44_opt(prefix[a], dT_c), suffix[a])
+                    for dT_c in dTs[a]] for a in range(k)]
+            for a in range(k):
+                oa, nca = offs[a], len(dTs[a])
+                for c1 in range(nca):
+                    for c2 in range(c1, nca):
+                        d2j = d2Ts[a].get((c1, c2))
+                        d2T = (zero44 if d2j is None else
+                               _mm44_opt(_mm44_opt(prefix[a], d2j),
+                                         suffix[a]))
+                        H[oa + c1, oa + c2] = H[oa + c2, oa + c1] = (
+                            _pose_hvp(Tfull, dTf[a][c1], dTf[a][c2], d2T))
+                W = [_mm44_opt(prefix[a], dT_c) for dT_c in dTs[a]]
+                for b in range(a + 1, k):
+                    for c1 in range(nca):
+                        for c2, dT_bc in enumerate(dTs[b]):
+                            d2T = _mm44_opt(_mm44(W[c1], dT_bc), suffix[b])
+                            H[oa + c1, offs[b] + c2] = H[
+                                offs[b] + c2, oa + c1] = _pose_hvp(
+                                    Tfull, dTf[a][c1], dTf[b][c2], d2T)
+                    W = [_mm44(Wc, Ts[b]) for Wc in W]
         blocks.append(torch.stack([
             torch.stack([H.get((r, c), zero) for c in range(npos)], dim=1)
             for r in range(npos)], dim=1))
@@ -287,10 +365,9 @@ def d2eepos(model: RobotModel, q, targets: Optional[Sequence[str]] = None):
 def fk(model: RobotModel, q):
     """World transforms of every joint frame: q (num_pos, B...) ->
     (n, 4, 4, B...); each parent's transform is reused down the tree."""
-    check_fixed_base(model)
     Tw = [None] * model.n
-    for i in range(model.n):   # ids are topologically ordered
-        Ti = _joint_T_lanes(model, i, q[i])
+    for i, layout in enumerate(pos_layout(model)):   # parents come first
+        Ti = _joint_T_lanes(model, i, _coords(q, layout))
         p = model.parent[i]
         Tw[i] = Ti if p < 0 else _mm44(Tw[p], Ti)
     return torch.stack(Tw)

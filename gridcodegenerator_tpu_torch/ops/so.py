@@ -32,6 +32,12 @@ from .xforms import all_xmats
 # spatial helpers (6-vectors (6, B...), operators (6, 6, B...))
 # ---------------------------------------------------------------------------
 
+# the JAX package's refusal (``gridcodegenerator_tpu/ops/so.py:61-66``)
+FIXED_BASE_ONLY = ("second-order tensors are fixed-base (matching the "
+                   "reference: floating-base robots get only ID/Minv/FD and "
+                   "their gradients)")
+
+
 def _sk(a, b, c, z):
     return [[z, -c, b], [c, z, -a], [-b, a, z]]
 
@@ -74,7 +80,7 @@ def _xinv_motion(X):
 
 def _sva_so_stages(model: RobotModel, q, qd, qdd, gravity):
     """Forward/backward second-order stage quantities, per-joint lists."""
-    check_fixed_base(model)
+    check_fixed_base(model, FIXED_BASE_ONLY)
     n = model.n
     bshape = qd.shape[1:]
     Xs = all_xmats(model, q)
@@ -384,7 +390,7 @@ def fdsva_compose_lanes(T, df_du, Mi, chunk_bytes: int = 1 << 28):
 def fdsva_so_unrolled(model: RobotModel, q, qd, u,
                       gravity: float = DEFAULT_GRAVITY):
     """FDSVA-SO from the IDSVA-SO tensors at qdd = FD(q, qd, u)."""
-    check_fixed_base(model)
+    check_fixed_base(model, FIXED_BASE_ONLY)
     df_du, qdd, Mi = fd_grad(model, q, qd, u, gravity, return_extras=True)
     T = idsva_so_analytical(model, q, qd, qdd, gravity)
     return fdsva_compose(T, df_du, Mi)

@@ -1,7 +1,9 @@
-"""Joint transforms X_i(q_i) for fixed-base robots, (6, 6, B...) per joint.
+"""Joint transforms X_i(q_i), (6, 6, B...) per joint.
 
-Each joint's ``X = X_joint(q) @ X_tree``: a coordinate rotation for a
-revolute joint, a translation along the axis for a prismatic one.
+Each 1-dof joint's ``X = X_joint(q) @ X_tree``: a coordinate rotation for a
+revolute joint, a translation along the axis for a prismatic one. The
+floating joint's X comes from its 7 coordinates [x, y, z, qx, qy, qz, qw]
+(``floating_xmat``).
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ from typing import List
 import torch
 
 from ..models.model import RobotModel
-from .common import check_fixed_base
+from .common import pos_layout
 
 
 def _rot_E(axis: int, c, s):
@@ -57,7 +59,31 @@ def joint_xmat(model: RobotModel, i: int, qi) -> torch.Tensor:
     raise NotImplementedError(model.jtype[i])
 
 
+def floating_xmat(q7) -> torch.Tensor:
+    """The floating joint's X from q7 = [x, y, z, qx, qy, qz, qw] (7, B...)
+    -> (6, 6, B...); the quaternion is normalized here."""
+    p = q7[:3]
+    x, y, z, w = q7[3:7] / torch.sqrt((q7[3:7] * q7[3:7]).sum(0))
+    # R takes child-frame vectors into the parent frame; E = R^T
+    R = torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w),
+                     2 * (x * z + y * w)]),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z),
+                     2 * (y * z - x * w)]),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w),
+                     1 - 2 * (x * x + y * y)])])
+    E = R.transpose(0, 1)
+    zz = torch.zeros_like(p[0])
+    sk = torch.stack([torch.stack([zz, -p[2], p[1]]),
+                      torch.stack([p[2], zz, -p[0]]),
+                      torch.stack([-p[1], p[0], zz])])
+    bl = -torch.einsum("ik...,kj...->ij...", E, sk)
+    return torch.cat([torch.cat([E, torch.zeros_like(E)], dim=1),
+                      torch.cat([bl, E], dim=1)], dim=0)
+
+
 def all_xmats(model: RobotModel, q) -> List[torch.Tensor]:
-    """Per-joint X(q) list; q is (n, B...)."""
-    check_fixed_base(model)
-    return [joint_xmat(model, i, q[i]) for i in range(model.n)]
+    """Per-joint X(q) list; q is (num_pos, B...) in ``pos_layout``."""
+    return [floating_xmat(q[off:off + k]) if k == 7
+            else joint_xmat(model, i, q[off])
+            for i, (off, k) in enumerate(pos_layout(model))]

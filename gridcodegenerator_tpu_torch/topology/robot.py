@@ -122,11 +122,11 @@ class Joint:
         return 6 if self.jtype == "floating" else 1
 
     def Xmat(self, q) -> np.ndarray:
-        """6x6 motion transform parent-link-frame -> link frame at position q
-        (the float64 oracle's; 1-dof joints)."""
+        """6x6 motion transform parent-link-frame -> link frame at position
+        q: (7,) [x, y, z, qx, qy, qz, qw] for the floating joint."""
         if self.jtype == "floating":
-            raise NotImplementedError("Xmat of a floating joint: the port "
-                                      "is fixed-base")
+            q = np.asarray(q, dtype=np.float64)
+            return xform_from_E_p(quat_to_R(q[3:7]).T, q[:3])
         q = float(np.asarray(q).reshape(()))
         ax = self.S_ind % 3
         if self.jtype == "revolute":
@@ -139,6 +139,32 @@ class Joint:
         p = np.zeros(3)
         p[self.S_ind - 3] = q
         return xform_from_E_p(np.eye(3), p) @ self.Xtree
+
+    def Tmat(self, q) -> np.ndarray:
+        """4x4 homogeneous transform link frame -> parent-link frame."""
+        if self.jtype == "floating":
+            q = np.asarray(q, dtype=np.float64)
+            return xform_hom_from_R_p(quat_to_R(q[3:7]), q[:3])
+        q = float(np.asarray(q).reshape(()))
+        Tj = np.eye(4)
+        if self.jtype == "revolute":
+            Tj[:3, :3] = rot_axis(self.S_ind % 3, q)
+        else:
+            Tj[self.S_ind - 3, 3] = q
+        return self.Ttree @ Tj
+
+
+def quat_to_R(quat: np.ndarray) -> np.ndarray:
+    """Quaternion (x, y, z, w), normalized here, to the rotation matrix that
+    takes child vectors to the parent frame."""
+    x, y, z, w = quat
+    n = np.sqrt(x * x + y * y + z * z + w * w)
+    x, y, z, w = x / n, y / n, z / n, w / n
+    return np.array([
+        [1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)],
+        [2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)],
+        [2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)],
+    ], dtype=np.float64)
 
 
 @dataclasses.dataclass

@@ -17,7 +17,10 @@ solve is an open-loop rollout, then ``iters`` iterations of
    u, t)``). With ``use_second_order`` it is the exact DDP sweep, plain
    torch on every device (the JAX package runs it in XLA too): each knot
    contracts V'_x with its lane slice [t*B, (t+1)*B) of the flat
-   second-order tensors;
+   second-order tensors. With ``parallel_riccati`` (first order) it is
+   ``trajopt/priccati.py``'s associative suffix scan in plain torch on the
+   dense stacks, then each knot's gain solve; ``use_second_order``
+   ignores the flag, as the JAX solver does;
 4. ``forward``: one line-search rollout over every step size, then the
    per-problem argmin and accept step. A cost with ``kernel_weights`` is
    summed inside the sweep; any other runs the line search without a cost
@@ -46,9 +49,19 @@ import numpy as np
 import torch
 
 from ..models.model import RobotModel
-from ..ops.common import DEFAULT_GRAVITY, check_fixed_base
+from ..ops.common import DEFAULT_GRAVITY, check_fixed_base, eye_b
 from ..ops.cuda import kernels as _k
 from ..ops.cuda import sweeps as _s
+from ..ops.linalg import gj_inverse
+from ..ops.spatial import bmm, bmv
+from .priccati import suffix_value_functions
+
+
+# the JAX solver's refusal (``gridcodegenerator_tpu/trajopt/ilqr.py:160-169``)
+FIXED_BASE_ONLY = (
+    "make_ilqr requires a fixed-base model: the solver's state is [q; qd] "
+    "with num_pos == num_vel. Floating-base trajopt needs "
+    "quaternion-manifold integration")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,8 +77,8 @@ class ILQRConfig:
                                   # effort limits (no clamp if it has none)
     use_kernels: Optional[bool] = None
     use_second_order: bool = False   # exact DDP terms from FDSVA-SO
+    parallel_riccati: bool = False   # first order: the associative scan
     # parts of the JAX solver the port leaves out; setting one raises
-    parallel_riccati: bool = False
     ls_two_stage: bool = False
     knot_axis: Optional[str] = None
 
@@ -108,7 +121,9 @@ def dynamics_step(model: RobotModel, x, u, dt, gravity=DEFAULT_GRAVITY):
     """Semi-implicit Euler step on lane-major x = [q; qd] (2n, B) under u
     (n, B). The counterpart of ``gridcodegenerator_tpu/trajopt/ilqr.py:
     dynamics_step``: qdd from the ``aba`` kernel on a CUDA tensor, from the
-    plain ABA on the CPU."""
+    plain ABA on the CPU. The state is [q; qd] with num_pos == num_vel, so
+    a floating base raises, as in ``make_ilqr``."""
+    check_fixed_base(model, FIXED_BASE_ONLY)
     n = model.num_vel
     q, qd = x[:n], x[n:]
     qdd = _k.aba(model, q.contiguous(), qd.contiguous(), u.contiguous(),
@@ -127,16 +142,17 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
     linearize, second_order, backward, forward, total_cost}) so each phase
     can be timed on its own.
     """
-    check_fixed_base(model)
-    for flag in ("parallel_riccati", "ls_two_stage"):
-        if getattr(cfg, flag):
-            raise NotImplementedError(f"ILQRConfig.{flag} is not ported")
+    check_fixed_base(model, FIXED_BASE_ONLY)
+    if cfg.ls_two_stage:
+        raise NotImplementedError("ILQRConfig.ls_two_stage is not ported")
     if cfg.knot_axis is not None:
         raise NotImplementedError("ILQRConfig.knot_axis is not ported")
     fold_t = getattr(cost, "time_invariant", False)
     stationary = getattr(cost, "stationary_curvature", False)
+    # the associative scan replaces the sweep kernels (first order only)
+    scan = cfg.parallel_riccati and not cfg.use_second_order
     factored = (fold_t and not stationary and not cfg.use_second_order
-                and hasattr(cost, "gn_stage_factor"))
+                and not scan and hasattr(cost, "gn_stage_factor"))
     if not factored and not hasattr(cost, "stage_expansion"):
         raise NotImplementedError(
             "the solver needs a cost with stage_expansion (or, time-invariant "
@@ -260,11 +276,35 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
                 lux[t], cfg.reg, dQxx, dQux)
         return torch.stack(ks), torch.stack(Ks)
 
+    def scan_backward(X, U, Amat, Bmat):
+        """The associative suffix scan (``reg=0``: the exact value
+        recursion, as the sequential sweep propagates it), then every
+        knot's gains, with ``cfg.reg`` in the Quu solves alone."""
+        _, Vx0, Vxx0 = cost.terminal_expansion(X[N])
+        lx, lu, lxx, luu, lux = expansions(X, U, one_block=False)
+        Vx, Vxx = suffix_value_functions(Amat, Bmat, lx, lu, lxx, luu, lux,
+                                         Vx0, Vxx0, reg=0.0)
+
+        def last(t):         # the knot axis to the last batch axis
+            return t.movedim(0, -1)
+        A, Bm, Vx, Vxx = last(Amat), last(Bmat), last(Vx[1:]), last(Vxx[1:])
+        Bt = Bm.transpose(0, 1)
+        Qu = last(lu) + bmv(Bt, Vx)
+        BtV = bmm(Bt, Vxx)
+        Qux = last(lux) + bmm(BtV, A)
+        Quu = last(luu) + bmm(BtV, Bm)
+        Quu_inv = gj_inverse(Quu + cfg.reg * eye_b(n, Quu))
+        # knot-major and contiguous, as the line-search kernel takes them
+        return ((-bmv(Quu_inv, Qu)).movedim(-1, 0).contiguous(),
+                (-bmm(Quu_inv, Qux)).movedim(-1, 0).contiguous())
+
     def backward(X, U, Amat, Bmat, so_flat=None):
         """The Riccati sweep (see the module docstring for its forms)."""
         on_device(X)
         if cfg.use_second_order:
             return ddp_backward(X, U, Amat, Bmat, so_flat)
+        if scan:
+            return scan_backward(X, U, Amat, Bmat)
         _, Vx0, Vxx0 = cost.terminal_expansion(X[N])
         if factored:
             # the (r, n) GN factor and flat lx/lu go in the knot-major layout

@@ -38,6 +38,12 @@ def _np_stages(stages) -> Dict[str, np.ndarray]:
     return {k: _np(v) for k, v in stages.items()}
 
 
+# the JAX package's refusal (``gridcodegenerator_tpu/utils/debug.py:65-69``)
+STAGES_FIXED_BASE = ("staged dumps beyond RNEA are fixed-base (the floating "
+                     "6-dof block's per-joint intermediates have mixed "
+                     "shapes)")
+
+
 def rnea_stages(model: RobotModel, q, qd, qdd=None,
                 gravity=DEFAULT_GRAVITY) -> Dict[str, np.ndarray]:
     """All RNEA intermediates for lane-major inputs: X, v, a, f_body,
@@ -71,7 +77,7 @@ def minv_stages(model: RobotModel, q) -> Dict[str, np.ndarray]:
     """Direct-Minv intermediates (lane-major inputs): per-joint U, Dinv,
     final F columns, the SYMMETRIC_UPPER factor and the dense inverse —
     the reference's DEBUG set."""
-    check_fixed_base(model)
+    check_fixed_base(model, STAGES_FIXED_BASE)
     Mu, extras = minv_factors(model, q, return_extras=True)
     return _np_stages({
         "U": torch.stack(extras["U"]),          # (n, 6, B)
@@ -93,7 +99,7 @@ def id_grad_stages(model: RobotModel, q, qd, qdd=None,
     """ID-gradient intermediates: dv/du, da/du, df/du (body + accumulated)
     and dc_du — the reference's staged DEBUG dumps. Layout (n, 6, nv, B):
     [joint, component, column, lane]."""
-    check_fixed_base(model)
+    check_fixed_base(model, STAGES_FIXED_BASE)
     Xs = all_xmats(model, q)
     v, a, f = rnea_fpass(model, Xs, qd, qdd, gravity)
     _, f_acc = rnea_bpass(model, Xs, qd, f)
@@ -122,7 +128,7 @@ def aba_stages(model: RobotModel, q, qd, u,
                gravity=DEFAULT_GRAVITY) -> Dict[str, np.ndarray]:
     """ABA intermediates: v, cbias, accumulated pA, U, Dinv, uu, a, qdd —
     the reference's DEBUG sites through its three passes."""
-    check_fixed_base(model)
+    check_fixed_base(model, STAGES_FIXED_BASE)
     _, st = _aba(model, q, qd, u, gravity, return_stages=True)
     return _np_stages(st)
 
@@ -148,7 +154,7 @@ def so_stages(model: RobotModel, q, qd, qdd=None,
     these stage for stage; localize numerical divergence by diffing against
     a float64 model's stages (``diff_stages(so_stages(m32, ...),
     so_stages(m64, ...))``)."""
-    check_fixed_base(model)
+    check_fixed_base(model, STAGES_FIXED_BASE)
     if qdd is None:
         qdd = torch.zeros_like(qd)
     _, st = idsva_so_analytical(model, q, qd, qdd, gravity,

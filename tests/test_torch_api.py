@@ -152,6 +152,13 @@ def test_grid_second_order_iiwa_matches_jax_ops(call):
     (dict(use_kernels=True), ValueError),   # kernels need a CUDA device
 ], ids=["floating_base", "use_kernels_on_cpu"])
 def test_constructor_refuses(kwargs, error):
+    if kwargs.get("floating_base"):
+        # a floating base is served (the plain twins), and refuses only
+        # the kernels, which are fixed-base
+        g = GRiD("iiwa", device="cpu", **kwargs)
+        assert g.model.floating_base and g.num_pos == 14
+        assert "floating=True" in repr(g)
+        kwargs = dict(kwargs, use_kernels=True)
     with pytest.raises(error):
         GRiD("iiwa", device="cpu", **kwargs)
 

@@ -105,12 +105,13 @@ def test_expose_parts_compose_one_iteration(problem):
                                   "ls_two_stage", "knot_axis"])
 def test_left_out_options_raise(problem, flag):
     _, tm, _, tcost, x0, U0 = problem
-    if flag == "use_second_order":
+    if flag in ("use_second_order", "parallel_riccati"):
         # DDP with the EE cost is ported (its dense Gauss-Newton
-        # expansion): it solves, as the plain route does
+        # expansion), and so is the associative-scan Riccati: each solves,
+        # as the plain route does
         args = torch.as_tensor(x0), torch.as_tensor(U0)
         a, b = (make_ilqr(tm, tcost, ILQRConfig(
-            N=N, iters=1, use_second_order=True, use_kernels=uk))(*args)
+            N=N, iters=1, use_kernels=uk, **{flag: True}))(*args)
             for uk in (None, False))
         assert bool(torch.isfinite(a.cost_trace).all())
         assert (a.cost_trace[1] <= a.cost_trace[0]).all()

@@ -2068,6 +2068,59 @@ def test_cuda_slice_launches_every_kernel(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_parallel_riccati_launches_no_riccati_kernel(cuda_device):
+    """config 3's EE task with ``parallel_riccati``: the rollout, fd_du, the
+    line search and the EE cost's kernels launch, no Riccati sweep (the
+    scan is plain torch on the card); its costs match the sequential
+    kernel solve at reg 0 (float64, N=8, 33 problems)."""
+    m = build_model(load_robot("iiwa"), dtype=torch.float64,
+                    device=cuda_device)
+    goal = eepose.eepos(m, torch.full((7, 1), 0.5, dtype=torch.float64,
+                                      device=cuda_device))[:3, 0]
+    cost = EEReachCost(model=m, goal_xyz=goal, w_pos=0.5, w_pos_f=200.0)
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.2, 0.2,
+                                                           (14, 33)),
+                         device=cuda_device)
+    U0 = torch.zeros((8, 7, 33), dtype=torch.float64, device=cuda_device)
+    build.reset_counters()
+    par = make_ilqr(m, cost, ILQRConfig(N=8, iters=2, reg=0.0,
+                                        parallel_riccati=True))(x0, U0)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"rollout": 1, "fd_du": 2,
+                                    "linesearch_rollout": 2, "eepos": 6,
+                                    "deepos": 4}
+    assert not build.PLAIN_CALLS
+    seq = make_ilqr(m, cost, ILQRConfig(N=8, iters=2, reg=0.0))(x0, U0)
+    assert float((par.cost_trace - seq.cost_trace).abs().max()) <= 1e-8
+
+
+@pytest.mark.cuda
+def test_cuda_floating_grid_launches_nothing(cuda_device):
+    """GRiD on hyq_floating on the card: every first-order method runs its
+    plain twin on CUDA tensors and launches no kernel; the kernels
+    themselves refuse the floating model."""
+    g = GRiD("hyq_floating", dtype=torch.float64, device=cuda_device)
+    rng = np.random.default_rng(0)
+    q = rng.uniform(-1, 1, (5, g.num_pos))
+    v = rng.uniform(-1, 1, (5, g.num_vel))
+    for method, twin, args in (
+            ("id", "rnea", (q, v, v)), ("minv", "minv", (q,)),
+            ("fd", "fd", (q, v, v)), ("aba", "aba", (q, v, v)),
+            ("crba", "crba", (q,)), ("id_du", "id_du", (q, v, v)),
+            ("fd_du", "fd_du", (q, v, v)), ("eepos", "eepos", (q,)),
+            ("deepos", "deepos", (q,)), ("d2eepos", "d2eepos", (q,))):
+        build.reset_counters()
+        out = getattr(g, method)(*args)
+        torch.cuda.synchronize()
+        assert out.is_cuda and bool(torch.isfinite(out).all()), method
+        assert not build.LAUNCHES
+        assert dict(build.PLAIN_CALLS) == {twin: 1}, method
+    qk = torch.as_tensor(q.T.copy(), device=cuda_device)
+    with pytest.raises(NotImplementedError, match="fixed-base"):
+        K.minv(g.model, qk)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("robot", ROBOTS)
 def test_cuda_rnea_and_aba_plans_and_launches(cuda_device, robot):
     """rnea and aba run a thread group a knot (build.WARP_KERNELS): each

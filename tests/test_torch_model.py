@@ -19,6 +19,7 @@ from gridcodegenerator_tpu_torch.models.model import (ARRAY_FIELDS,
                                                        model_from_numpy)
 from gridcodegenerator_tpu_torch.models.zoo import list_robots, load_robot
 from gridcodegenerator_tpu_torch.ops.aba import aba
+from gridcodegenerator_tpu_torch.ops.common import pos_layout, vel_layout
 from gridcodegenerator_tpu_torch.ops.xforms import all_xmats
 
 torch.set_num_threads(1)
@@ -66,11 +67,23 @@ def test_zoo_lists_the_same_robots():
 
 
 def test_floating_base_raises():
-    m = build_model(load_robot("iiwa_floating"), dtype=torch.float64, device="cpu")
-    assert m.floating_base
+    """A floating model is served now: its position and velocity layouts
+    put the root's 7 coordinates and 6 velocities first, ``all_xmats``
+    reads the root's transform from them, and ``aba`` takes it."""
+    m = build_model(load_robot("iiwa_floating"), dtype=torch.float64,
+                    device="cpu")
+    assert m.floating_base and (m.num_pos, m.num_vel) == (14, 13)
+    assert pos_layout(m) == [(0, 7)] + [(7 + i, 1) for i in range(7)]
+    assert vel_layout(m) == [(0, 6)] + [(6 + i, 1) for i in range(7)]
     q = torch.zeros((m.num_pos, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        all_xmats(m, q)
+    q[6] = 1.0                                  # the identity quaternion
+    Xs = all_xmats(m, q)
+    assert len(Xs) == 8
+    assert torch.equal(Xs[0], torch.eye(6, dtype=torch.float64)[:, :, None]
+                       .expand(6, 6, 2))
+    fixed = build_model(load_robot("iiwa"), dtype=torch.float64,
+                        device="cpu")
+    for a, b in zip(Xs[1:], all_xmats(fixed, q[7:])):
+        assert torch.equal(a, b)
     qd = torch.zeros((m.num_vel, 2), dtype=torch.float64)
-    with pytest.raises(NotImplementedError):
-        aba(m, q, qd, qd)
+    assert aba(m, q, qd, qd).shape == (13, 2)
