@@ -147,9 +147,30 @@ Phases, one line each:
      linear in qdd with matrix M, fd and aba invert id; idsva_so, fdsva_so
      and use_kernels=True raise; gen_all_code's module for atlas_floating
      imported with nothing of JAX loaded, its algorithms equal GRiD's, its
-     timing table run; µs a call and evals/s.
+     timing table run; µs a call and evals/s;
+ 12. config 5 on a mesh (parallel/: mesh.py, collectives.py,
+     knot_riccati.py, the mesh path of scenario.py), phase 8's task, S, x0
+     and robots: 4 ranks spawned on the one card over gloo (their CUDA
+     tensors staged through host memory), each loading the libraries
+     phase 1 built (no nvcc, nothing of JAX); a flat dp=4 mesh (each rank
+     1024 scenarios: rollout, fd_du, riccati, the line search) and a
+     hybrid (dp 2, kp 2) mesh whose solve is knot-sharded (each rank 2048
+     scenarios, fd_du on 8 of the 16 knots, the Riccati reduce in plain
+     torch, no Riccati kernel); the flat step's U_next and costs are phase
+     8's bit for bit and its u0 within 1e-6 of scale, the kp replicas'
+     equal bit for bit, the hybrid step against the flat one by the
+     float32 rule (a float64 one-card step the reference); on the hybrid
+     mesh 3 closed-loop periods (one aba launch each) against phase 8's
+     loop by the float32 rule (the same draws in float64 the reference),
+     and the float64 kernel step against the plain one
+     on the first 64 scenarios (phase 8's rule); an NCCL mesh over the
+     ranks that share the card raises; then one rank in this process on
+     NCCL, a (1, 1) mesh, whose step is phase 8's bit for bit. Printed:
+     step ms (the slowest rank) and scenario solves/s per mesh, the
+     knot-sharded backward's ms beside phase 8's riccati and fd_du, and
+     the bytes staged a step (time-sliced ranks: no scaling figure).
 Then a JSON line of per-kernel results (launches on the main paths of
-phases 4-10, error, times, and the roofline bound: the larger of the bytes
+phases 4-12, error, times, and the roofline bound: the larger of the bytes
 each call must move over 3.35 TB/s and the operations its function needs,
 counted by utils/opcount.py, over 67 TFLOP/s float32; beside them the
 operations the kernel's lane code executes), and last the device line.
@@ -296,6 +317,379 @@ def max_err(out, ref):
     """Max abs difference over paired outputs."""
     return max(float((o.double() - r.double()).abs().max())
                for o, r in zip(out, ref))
+
+
+
+# Phase 12: config 5 on a mesh. MESH_RANKS gloo ranks share the one card
+# (time-sliced, so their times are no scaling figure): a flat dp mesh and
+# a hybrid (dp, kp) mesh of kp KP12, whose solve is knot-sharded; each
+# rank's launches a step
+MESH_RANKS, KP12 = 4, 2
+MESH_STEP = {
+    "flat": {"rollout": 1, "fd_du": ITERS5, "riccati": ITERS5,
+             "linesearch_rollout": ITERS5},
+    "hybrid": {"rollout": 1, "fd_du": ITERS5, "linesearch_rollout": ITERS5}}
+MESH_NOTE = (f"{MESH_RANKS} ranks time-sliced on one card over gloo: not a "
+             f"scaling figure")
+
+
+def config5_cost(model):
+    """Config 5's QuadCost (bench.py:254): Q 0.1, R 1e-3, Qf 10, x_goal
+    zero but x_goal[0] = 0.2, in the model's dtype on its device."""
+    from gridcodegenerator_tpu_torch.trajopt.cost import QuadCost
+    n = model.n
+    full = lambda v, k: torch.full((k,), v, dtype=model.dtype,
+                                   device=model.device)
+    xg = full(0.0, 2 * n)
+    xg[0] = 0.2
+    return QuadCost(Q=full(0.1, 2 * n), R=full(1e-3, n),
+                    Qf=full(10.0, 2 * n), x_goal=xg)
+
+
+def config5_inputs(n, S, dev):
+    """Phase 8's scenario states: the zero state spread by SPREAD5."""
+    x0n = SPREAD5 * np.random.default_rng(0).standard_normal((2 * n, S))
+    return x0n, torch.as_tensor(x0n, dtype=torch.float32, device=dev)
+
+
+def config5_closed_loop64(m, dt5, S):
+    """Phase 8's closed loop in float64 on the same (float32-rounded)
+    robot constants: each period's draws are the float32 loop's (the same
+    generator, seed and order), widened; the step and the plant run in
+    float64 with kernels."""
+    from gridcodegenerator_tpu_torch.parallel.scenario import (
+        ScenarioMPCConfig, make_scenario_step)
+    from gridcodegenerator_tpu_torch.trajopt.ilqr import (ILQRConfig,
+                                                          dynamics_step)
+    icfg = ILQRConfig(N=N5, dt=dt5, iters=ITERS5)
+    m64, c = m.to(dtype=torch.float64), config5_cost(m)
+    step = make_scenario_step(m64, type(c)(
+        Q=c.Q.double(), R=c.R.double(), Qf=c.Qf.double(),
+        x_goal=c.x_goal.double()), ScenarioMPCConfig(icfg, S))
+    gen = torch.Generator(device=m.device).manual_seed(0)
+    x = torch.zeros(2 * m.n, dtype=torch.float64, device=m.device)
+    U = torch.zeros((N5, m.n, S), dtype=torch.float64, device=m.device)
+    xs = [x]
+    for _ in range(PERIODS5):
+        noise = torch.randn((2 * m.n, S), generator=gen, dtype=torch.float32,
+                            device=gen.device)
+        u0, U, _ = step(x[:, None] + SPREAD5 * noise.double(), U)
+        x = dynamics_step(m64, x[:, None], u0[:, None], dt5,
+                          icfg.gravity)[:, 0]
+        xs.append(x)
+    return torch.stack(xs)
+
+
+def mesh_rank(plan):
+    """Phase 12 on one rank of the gloo group: config 5's step on the flat
+    and the hybrid mesh (launches, ms, bytes staged, this rank's u0,
+    U_next and costs); on the hybrid mesh also the knot-sharded backward's
+    ms, 3 closed-loop periods and the float64 kernel step against the
+    plain one on the first S5_F64 scenarios; then, where the ranks share
+    the card over gloo, an NCCL mesh over them, which must raise. The
+    meshes run ``plan["backend"]`` (gloo unless given; a device of bare
+    "cuda" puts rank r on card r). Raises if a check fails, if this rank
+    ran nvcc or if it loaded a JAX module."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from gridcodegenerator_tpu_torch.models.model import build_model
+    from gridcodegenerator_tpu_torch.models.zoo import load_robot
+    from gridcodegenerator_tpu_torch.ops.cuda import build
+    from gridcodegenerator_tpu_torch.parallel import collectives
+    from gridcodegenerator_tpu_torch.parallel.mesh import (make_hybrid_mesh,
+                                                           make_mesh,
+                                                           shard_along)
+    from gridcodegenerator_tpu_torch.parallel.scenario import (
+        ScenarioMPCConfig, closed_loop, make_scenario_step, scenario_axes)
+    from gridcodegenerator_tpu_torch.trajopt.ilqr import ILQRConfig, make_ilqr
+    from gridcodegenerator_tpu_torch.utils.timing import time_cuda
+    import torch.distributed as dist
+    dev = torch.device(plan["device"])
+    on_card = dev.type == "cuda"
+    if on_card and dev.index is None:
+        dev = torch.device("cuda", dist.get_rank() % torch.cuda.device_count())
+    backend = plan.get("backend", "gloo")
+    # on the card every kernel launches; a CPU rehearsal counts plain calls
+    counts = build.LAUNCHES if on_card else build.PLAIN_CALLS
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def check_counts(what, want):
+        runs = dict(counts)
+        if runs != want or (on_card and build.PLAIN_CALLS):
+            raise AssertionError(f"{what}: launches {runs} (expected {want}),"
+                                 f" plain calls {dict(build.PLAIN_CALLS)}")
+        return runs
+
+    S = plan["S"]
+    meshes = {"flat": make_mesh(None, ("dp",), device=dev, backend=backend),
+              "hybrid": make_hybrid_mesh(("dp", "kp"), KP12, device=dev,
+                                         backend=backend)}
+    out = {"rank": meshes["flat"].rank, "robots": {}}
+    for robot, dt5 in plan["robots"].items():
+        m = build_model(load_robot(robot), dtype=torch.float32, device=dev)
+        n = m.n
+        cost5 = config5_cost(m)
+        cfg5 = ScenarioMPCConfig(ILQRConfig(N=N5, dt=dt5, iters=ITERS5), S)
+        x0n, x0_all = config5_inputs(n, S, dev)
+        res = {}
+        for kind, mesh in meshes.items():
+            step = make_scenario_step(m, cost5, cfg5, mesh)
+            ax, S_loc = step.scenario_axes, step.local_scenarios
+            _, icfg = scenario_axes(cost5, cfg5, mesh)
+            x0s = shard_along(x0_all, mesh, -1, ax)
+            U0 = torch.zeros((N5, n, S_loc), dtype=torch.float32, device=dev)
+            build.reset_counters()
+            collectives.reset_staged()
+            u0, U_next, costs = step(x0s, U0)
+            sync()
+            r = {"launches": check_counts(f"{robot} {kind} step",
+                                          MESH_STEP[kind]),
+                 "staged_bytes": dict(collectives.STAGED),
+                 "staged_s": dict(collectives.STAGED_SECONDS),
+                 "scenario_axes": ax, "local_scenarios": S_loc,
+                 "fd_du_lanes": N5 // icfg.knot_axis_size * S_loc,
+                 "u0": u0, "U_next": U_next, "costs": costs}
+            if plan["timed"]:
+                r["step_ms"] = time_cuda(lambda: step(x0s, U0), iters=3)
+            if kind == "hybrid":
+                _, parts = make_ilqr(m, cost5, icfg, expose_parts=True,
+                                     mesh=mesh)
+                X = parts["rollout"](x0s, U0)
+                if plan["timed"]:
+                    r["kp_backward_ms"] = time_cuda(
+                        lambda: parts["backward"](X, U0), iters=3)
+                del X, parts
+                build.reset_counters()
+                xs, _ = closed_loop(
+                    m, cost5, cfg5, torch.zeros(2 * n, dtype=torch.float32,
+                                                device=dev), PERIODS5,
+                    torch.Generator(device=dev).manual_seed(0), SPREAD5,
+                    mesh)
+                sync()
+                r["closed_loop_launches"] = check_counts(
+                    f"{robot} {kind} closed loop",
+                    {k: PERIODS5 * v for k, v in MESH_STEP[kind].items()}
+                    | {"aba": PERIODS5})
+                r["xs"] = xs
+                r["f64_first64"] = mesh_f64_check(m, cost5, dt5, x0n, mesh)
+            res[kind] = r
+        out["robots"][robot] = res
+    if on_card and backend == "gloo":
+        # NCCL runs one rank a card: a mesh over these ranks must refuse it
+        try:
+            make_mesh(None, ("dp",), device=dev, backend="nccl")
+            refused = False
+        except RuntimeError:
+            refused = True
+        if not refused:
+            raise AssertionError("an NCCL mesh over ranks that share the "
+                                 "card did not raise")
+        out["nccl_shared_card_refused"] = refused
+    if build.NVCC_SECONDS:
+        raise AssertionError(f"rank {out['rank']} ran nvcc: "
+                             f"{build.NVCC_SECONDS}")
+    jax_loaded = sorted(k for k in sys.modules
+                        if k.split(".")[0] in ("jax", "gridcodegenerator_tpu"))
+    if jax_loaded:
+        raise AssertionError(f"rank {out['rank']} loaded {jax_loaded}")
+    return out
+
+
+def mesh_f64_check(m, cost5, dt5, x0n, mesh):
+    """Phase 8's float64 check on a mesh: the kernel step against the
+    plain step on the first S5_F64 scenarios (u0, U_next and costs within
+    U0_REL of their scale; costs by phase 6's QuadCost rule)."""
+    from gridcodegenerator_tpu_torch.parallel.mesh import shard_along
+    from gridcodegenerator_tpu_torch.parallel.scenario import (
+        ScenarioMPCConfig, make_scenario_step)
+    from gridcodegenerator_tpu_torch.trajopt.cost import QuadCost
+    from gridcodegenerator_tpu_torch.trajopt.ilqr import ILQRConfig
+    m64 = m.to(dtype=torch.float64)
+    cost64 = QuadCost(Q=cost5.Q.double(), R=cost5.R.double(),
+                      Qf=cost5.Qf.double(), x_goal=cost5.x_goal.double())
+    x64 = torch.as_tensor(x0n[:, :S5_F64], dtype=torch.float64,
+                          device=m.device)
+    got = {}
+    for uk in (None, False):
+        step = make_scenario_step(m64, cost64, ScenarioMPCConfig(
+            ILQRConfig(N=N5, dt=dt5, iters=ITERS5, use_kernels=uk), S5_F64),
+            mesh)
+        got[uk] = step(shard_along(x64, mesh, -1, step.scenario_axes),
+                       torch.zeros((N5, m.n, step.local_scenarios),
+                                   dtype=torch.float64, device=m.device))
+    errs = {}
+    for what, k_, p_ in zip(("u0", "U_next", "costs"), got[None], got[False]):
+        err = float((k_ - p_).abs().max())
+        tol = U0_REL * max(1.0, float(p_.abs().max()))
+        errs[what] = {"max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            raise AssertionError(f"mesh float64: {what} off by {err} "
+                                 f"(tol {tol})")
+    r = (got[None][2] - got[False][2]).abs() / got[False][2].abs()
+    at = float((r <= F64_REL).double().mean())
+    if not at >= F64_SHARE:
+        raise AssertionError(f"mesh float64: costs within rel {F64_REL} on "
+                             f"{at}")
+    return {"costs_within_rel": F64_REL, "share": at,
+            "max_rel": float(r.max()), **errs}
+
+
+
+def nccl_step(plan, ref5, init_method):
+    """Config 5's step on a (1, 1) hybrid mesh of this one process over
+    NCCL: its launches, and its u0, U_next and costs against phase 8's
+    one-card step, bit for bit."""
+    import torch.distributed as dist
+    from gridcodegenerator_tpu_torch.models.model import build_model
+    from gridcodegenerator_tpu_torch.models.zoo import load_robot
+    from gridcodegenerator_tpu_torch.ops.cuda import build
+    from gridcodegenerator_tpu_torch.parallel.mesh import (
+        initialize_distributed, make_hybrid_mesh)
+    from gridcodegenerator_tpu_torch.parallel.scenario import (
+        ScenarioMPCConfig, make_scenario_step)
+    from gridcodegenerator_tpu_torch.trajopt.ilqr import ILQRConfig
+    from gridcodegenerator_tpu_torch.utils.timing import time_cuda
+    dev = torch.device(plan["device"])
+    initialize_distributed(init_method, 1, 0, backend="nccl", timeout_s=120)
+    try:
+        mesh = make_hybrid_mesh(("dp", "kp"), 1, device=dev)
+        if mesh.backend != "nccl":
+            raise AssertionError(f"the mesh runs {mesh.backend}, not NCCL")
+        out = {}
+        for robot, dt5 in plan["robots"].items():
+            m = build_model(load_robot(robot), dtype=torch.float32,
+                            device=dev)
+            step = make_scenario_step(m, config5_cost(m), ScenarioMPCConfig(
+                ILQRConfig(N=N5, dt=dt5, iters=ITERS5), plan["S"]), mesh)
+            _, x0s = config5_inputs(m.n, plan["S"], dev)
+            U0 = torch.zeros((N5, m.n, plan["S"]), dtype=torch.float32,
+                             device=dev)
+            build.reset_counters()
+            got = step(x0s, U0)
+            torch.cuda.synchronize()
+            runs = dict(build.LAUNCHES)
+            if runs != MESH_STEP["flat"] or build.PLAIN_CALLS:
+                raise AssertionError(f"{robot} NCCL step launches {runs}, "
+                                     f"plain {dict(build.PLAIN_CALLS)}")
+            for f, g in zip(("u0", "U_next", "costs"), got):
+                if not np.array_equal(g.cpu().numpy(), ref5[robot][f]):
+                    raise AssertionError(
+                        f"{robot} NCCL step: {f} is not phase 8's (max "
+                        f"diff {np.abs(g.cpu().numpy() - ref5[robot][f]).max()})")
+            out[robot] = {"launches": runs, "equal_to_phase8": True,
+                          "step_ms": time_cuda(lambda: step(x0s, U0),
+                                               iters=3)}
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def phase12(plan, ref5, ref64, check_f32):
+    """Config 5 on a mesh: the gloo ranks (``mesh_rank``), then one NCCL
+    rank in this process, each held against phase 8's one-card step
+    (``ref5``: u0, U_next, costs, the closed loop's states xs, numpy) and,
+    by the float32 rule, against the float64 one-card step and closed loop
+    (``ref64``).
+    Returns (the result, every launch dict of the main path)."""
+    from gridcodegenerator_tpu_torch.parallel.launch import RankGroup
+    t0 = time.perf_counter()
+    on_card = plan["device"].startswith("cuda")
+    with tempfile.TemporaryDirectory() as tmp:
+        with RankGroup(MESH_RANKS, f"file://{tmp}/gloo", "gloo",
+                       timeout_s=300) as group:
+            start_s = time.perf_counter() - t0
+            ranks = group.run(mesh_rank, plan, timeout_s=900)
+        nccl = (nccl_step(plan, ref5, f"file://{tmp}/nccl") if on_card
+                else None)
+    runs, robots = [], {}
+    for robot in plan["robots"]:
+        rr = [r["robots"][robot] for r in ranks]
+        ref = ref5[robot]
+        kinds = {}
+        for kind in MESH_STEP:
+            # the global arrays from each dp shard's first rank (rank
+            # dp * kp holds shard dp)
+            kp = KP12 if kind == "hybrid" else 1
+            firsts = [rr[d * kp][kind] for d in range(MESH_RANKS // kp)]
+            kinds[kind] = {"u0": firsts[0]["u0"]} | {
+                f: np.concatenate([x[f] for x in firsts], axis=-1)
+                for f in ("U_next", "costs")}
+            for x in rr:
+                runs.append(x[kind]["launches"])
+                if not np.array_equal(x[kind]["u0"], firsts[0]["u0"]):
+                    raise AssertionError(f"{robot} {kind}: u0 differs "
+                                         f"between ranks")
+        runs += [x["hybrid"]["closed_loop_launches"] for x in rr]
+        flat, hyb = kinds["flat"], kinds["hybrid"]
+        # flat: each scenario's cost and U_next are phase 8's, bit for bit
+        # (per-lane kernels); u0 sums in another order
+        for f in ("U_next", "costs"):
+            if not np.array_equal(flat[f], ref[f]):
+                raise AssertionError(
+                    f"{robot} flat mesh: {f} is not phase 8's (max diff "
+                    f"{np.abs(flat[f] - ref[f]).max()})")
+        u0_err = float(np.abs(flat["u0"] - ref["u0"]).max())
+        u0_tol = 1e-6 * max(1.0, float(np.abs(ref["u0"]).max()))
+        if not u0_err <= u0_tol:
+            raise AssertionError(f"{robot} flat mesh: u0 off phase 8's by "
+                                 f"{u0_err} (tol {u0_tol})")
+        # hybrid: the kp replicas of a dp shard are equal, bit for bit
+        for d in range(MESH_RANKS // KP12):
+            for q in range(1, KP12):
+                a, b = rr[d * KP12]["hybrid"], rr[d * KP12 + q]["hybrid"]
+                for f in ("U_next", "costs"):
+                    if not np.array_equal(a[f], b[f]):
+                        raise AssertionError(f"{robot} hybrid: kp replicas "
+                                             f"differ in {f}")
+        # hybrid against flat by the float32 rule (float64 one-card step)
+        rule = {}
+        for f in ("u0", "U_next", "costs"):
+            ek, ep = check_f32(f"{robot} hybrid mesh {f}",
+                               torch.as_tensor(hyb[f]),
+                               torch.as_tensor(flat[f]),
+                               torch.as_tensor(ref64[robot][f]))
+            rule[f] = {"hybrid_err_vs_f64": ek, "flat_err_vs_f64": ep}
+        # the closed loop on the hybrid mesh against phase 8's one-card
+        # loop by the float32 rule (the same loop in float64 the reference)
+        cl_err, cl_one = check_f32(
+            f"{robot} hybrid closed loop",
+            torch.as_tensor(rr[0]["hybrid"]["xs"]),
+            torch.as_tensor(ref["xs"]), torch.as_tensor(ref64[robot]["xs"]))
+        timing = {}
+        if plan["timed"]:
+            for kind in MESH_STEP:
+                ms = [x[kind]["step_ms"] for x in rr]
+                timing[kind] = {"step_ms": max(ms), "rank_step_ms": ms,
+                                "scenario_solves_per_s": plan["S"] / (
+                                    max(ms) / 1e3)}
+            timing["kp_backward_ms"] = max(
+                x["hybrid"]["kp_backward_ms"] for x in rr)
+            timing["rank_kp_backward_ms"] = [x["hybrid"]["kp_backward_ms"]
+                                             for x in rr]
+        robots[robot] = {
+            "flat_equal_to_phase8": True, "flat_u0_err": u0_err,
+            "hybrid_f32_rule": rule, "closed_loop_err_vs_f64": cl_err,
+            "one_card_closed_loop_err_vs_f64": cl_one,
+            "fd_du_lanes": {k: rr[0][k]["fd_du_lanes"] for k in MESH_STEP},
+            "local_scenarios": {k: rr[0][k]["local_scenarios"]
+                                for k in MESH_STEP},
+            "staged_bytes_per_step": {k: [x[k]["staged_bytes"] for x in rr]
+                                      for k in MESH_STEP},
+            "staged_s_per_step": {k: [x[k]["staged_s"] for x in rr]
+                                  for k in MESH_STEP},
+            "f64_first64": [x["hybrid"]["f64_first64"] for x in rr],
+            **timing}
+    if nccl is not None:
+        runs += [v["launches"] for v in nccl.values()]
+    return {"ranks": MESH_RANKS, "kp": KP12, "start_s": start_s,
+            "robots": robots, "nccl_one_rank": nccl,
+            "nccl_shared_card_refused": all(
+                r.get("nccl_shared_card_refused", False) for r in ranks)
+            if on_card and plan.get("backend", "gloo") == "gloo" else None,
+            "seconds": time.perf_counter() - t0}, runs
 
 
 def main():
@@ -1734,7 +2128,7 @@ def main():
     # -- phase 8: config 5, scenario-tree MPC on one card ------------------
     step5 = {"rollout": 1, "fd_du": ITERS5, "riccati": ITERS5,
              "linesearch_rollout": ITERS5}
-    config5, grid5 = {}, {}
+    config5, grid5, ref5 = {}, {}, {}
     for robot in ROBOTS5:
         dt5 = DT5.get(robot, DT)
         m = build_model(load_robot(robot), dtype=torch.float32, device=dev)
@@ -1750,6 +2144,9 @@ def main():
         build.reset_counters()
         u0, U_next, costs = step(x0s, U0)
         torch.cuda.synchronize()
+        # phase 12 holds its mesh steps against these
+        ref5[robot] = {f: v.cpu().numpy() for f, v in (
+            ("u0", u0), ("U_next", U_next), ("costs", costs))}
         runs = dict(build.LAUNCHES)
         if runs != step5 or build.PLAIN_CALLS:
             raise AssertionError(f"config 5 {robot} step launches {runs} "
@@ -1838,6 +2235,7 @@ def main():
                                  f"{runs} (expected {want}), plain calls "
                                  f"{dict(build.PLAIN_CALLS)}")
         path_runs.append(runs)
+        ref5[robot]["xs"] = xs.cpu().numpy()
         if xs.shape != (PERIODS5 + 1, 2 * n) or not bool(
                 torch.isfinite(xs).all()):
             raise AssertionError(f"config 5 {robot} closed loop: states "
@@ -2315,6 +2713,50 @@ def main():
     line("floating_base", {"robots": floating, "codegen": gen_floating,
                            "B": L1, "dtype": "float32", "device": smi,
                            "elapsed_s": elapsed()})
+
+    # -- phase 12: config 5 on a mesh ---------------------------------------
+    # the float32 rule's reference: phase 8's one-card step in float64 on
+    # the same (float32-rounded) scenario states and robot constants
+    plan12 = {"device": str(dev), "S": S5, "timed": True,
+              "robots": {r: DT5.get(r, DT) for r in ROBOTS5}}
+    ref64_5 = {}
+    for robot, dt5 in plan12["robots"].items():
+        m = build_model(load_robot(robot), dtype=torch.float32, device=dev)
+        m64_ = m.to(dtype=torch.float64)
+        _, x0s = config5_inputs(m.n, S5, dev)
+        step64 = make_scenario_step(m64_, to64(config5_cost(m)),
+                                    ScenarioMPCConfig(ILQRConfig(
+                                        N=N5, dt=dt5, iters=ITERS5), S5))
+        ref64_5[robot] = {f: v.cpu().numpy() for f, v in zip(
+            ("u0", "U_next", "costs"), step64(x0s.double(), torch.zeros(
+                (N5, m.n, S5), dtype=torch.float64, device=dev)))}
+        ref64_5[robot]["xs"] = config5_closed_loop64(m, dt5, S5).cpu().numpy()
+        del step64, x0s
+    torch.cuda.empty_cache()
+    mesh5, runs12 = phase12(plan12, ref5, ref64_5, check_f32)
+    path_runs += runs12
+    seen = {"device": smi, "note": MESH_NOTE}
+    line("config5_mesh", mesh5 | {"elapsed_s": elapsed()})
+    line("mesh_step", seen | {
+        robot: {k: v[k] for k in MESH_STEP} for robot, v in
+        mesh5["robots"].items()} | {"nccl_one_rank_step_ms": {
+            robot: v["step_ms"] for robot, v in mesh5[
+                "nccl_one_rank"].items()}})
+    line("mesh_kp_backward", seen | {robot: {
+        "kp_backward_ms": v["kp_backward_ms"],
+        "rank_kp_backward_ms": v["rank_kp_backward_ms"],
+        "fd_du_lanes": v["fd_du_lanes"]["hybrid"],
+        "phase8_riccati_ms": config5[robot]["kernels"]["riccati"]["ms"],
+        "phase8_fd_du_ms": config5[robot]["kernels"]["fd_du"]["ms"]}
+        for robot, v in mesh5["robots"].items()})
+    line("mesh_staged_bytes", seen | {
+        robot: {kind: {"per_rank": v["staged_bytes_per_step"][kind],
+                       "all_ranks": sum(sum(b.values()) for b in v[
+                           "staged_bytes_per_step"][kind]),
+                       "host_s_per_rank": v["staged_s_per_step"][kind]}
+                for kind in MESH_STEP} for robot, v in
+        mesh5["robots"].items()})
+    print(smi, flush=True)
 
     path_launches = {k: sum(run.get(k, 0) for run in path_runs)
                      for k in results}

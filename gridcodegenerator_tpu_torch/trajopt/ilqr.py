@@ -20,7 +20,12 @@ solve is an open-loop rollout, then ``iters`` iterations of
    second-order tensors. With ``parallel_riccati`` (first order) it is
    ``trajopt/priccati.py``'s associative suffix scan in plain torch on the
    dense stacks, then each knot's gain solve; ``use_second_order``
-   ignores the flag, as the JAX solver does;
+   ignores the flag, as the JAX solver does. With ``knot_axis`` (first
+   order, a time-invariant cost, the mesh passed to ``make_ilqr``) the
+   knots are split over that mesh axis: each rank linearizes its N/D
+   knots (fd_du over N/D*B lanes), expands the cost on them and runs
+   ``parallel/knot_riccati.py``'s reduce, and the gains are gathered for
+   the forward pass, which every rank of the axis runs whole;
 4. ``forward``: one line-search rollout over every step size, then the
    per-problem argmin and accept step. A cost with ``kernel_weights`` is
    summed inside the sweep; any other runs the line search without a cost
@@ -54,6 +59,8 @@ from ..ops.cuda import kernels as _k
 from ..ops.cuda import sweeps as _s
 from ..ops.linalg import gj_inverse
 from ..ops.spatial import bmm, bmv
+from ..parallel.collectives import all_gather
+from ..parallel.knot_riccati import local_knot_gains
 from .priccati import suffix_value_functions
 
 
@@ -78,9 +85,12 @@ class ILQRConfig:
     use_kernels: Optional[bool] = None
     use_second_order: bool = False   # exact DDP terms from FDSVA-SO
     parallel_riccati: bool = False   # first order: the associative scan
-    # parts of the JAX solver the port leaves out; setting one raises
-    ls_two_stage: bool = False
+    # the knot-sharded backward: the mesh axis the knots split over, and
+    # its size D (the axis is used where D > 1; make_ilqr takes the mesh)
     knot_axis: Optional[str] = None
+    knot_axis_size: int = 1
+    # a part of the JAX solver the port leaves out; setting it raises
+    ls_two_stage: bool = False
 
 
 class ILQRResult(NamedTuple):
@@ -132,21 +142,52 @@ def dynamics_step(model: RobotModel, x, u, dt, gravity=DEFAULT_GRAVITY):
     return torch.cat([q + dt * qd_new, qd_new], dim=0)
 
 
+def _knot_group(cfg: ILQRConfig, cost, mesh):
+    """The knot axis's group where the backward is knot-sharded, else
+    None; raises where the JAX solver does
+    (``gridcodegenerator_tpu/trajopt/ilqr.py:329-341``) and where no mesh
+    provides the axis."""
+    if cfg.knot_axis is None or cfg.knot_axis_size <= 1:
+        return None
+    if cfg.use_second_order or cfg.parallel_riccati:
+        raise NotImplementedError(
+            "knot-sharded backward is first-order and replaces "
+            "parallel_riccati")
+    if cfg.N % cfg.knot_axis_size != 0:
+        raise ValueError(f"knot count {cfg.N} must be divisible by the knot "
+                         f"axis size {cfg.knot_axis_size}")
+    if not getattr(cost, "time_invariant", False):
+        raise NotImplementedError(
+            "knot-sharded backward needs a time-invariant cost (local "
+            "chunks evaluate stage_expansion at t=0)")
+    if mesh is None or cfg.knot_axis not in mesh.axis_names:
+        raise ValueError(f"the knot axis '{cfg.knot_axis}' needs a mesh "
+                         f"that has it: make_ilqr(..., mesh=...)")
+    group = mesh.axis(cfg.knot_axis)
+    if group.size != cfg.knot_axis_size:
+        raise ValueError(f"knot_axis_size {cfg.knot_axis_size}, but the "
+                         f"mesh's '{cfg.knot_axis}' has {group.size} ranks")
+    return group
+
+
 def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
-              expose_parts: bool = False):
+              expose_parts: bool = False, mesh=None):
     """Build a batched solver: solve(x0 (2n,B), U0 (N,n,B)) -> ILQRResult.
 
     ``cost`` is a ``CostModel``: ``stage``/``terminal`` and their
     expansions (or, time-invariant, ``gn_stage_factor`` for first order).
     ``expose_parts=True`` also returns the phase closures ({rollout,
     linearize, second_order, backward, forward, total_cost}) so each phase
-    can be timed on its own.
+    can be timed on its own (with ``knot_axis``: {rollout, backward,
+    forward, total_cost}, the backward linearizing its own knots).
+    ``mesh`` (``parallel/mesh.py``) provides ``cfg.knot_axis``: every rank
+    of that axis calls ``solve`` on the same inputs, as the body of the
+    JAX package's ``shard_map`` does.
     """
     check_fixed_base(model, FIXED_BASE_ONLY)
     if cfg.ls_two_stage:
         raise NotImplementedError("ILQRConfig.ls_two_stage is not ported")
-    if cfg.knot_axis is not None:
-        raise NotImplementedError("ILQRConfig.knot_axis is not ported")
+    knot_group = _knot_group(cfg, cost, mesh)
     fold_t = getattr(cost, "time_invariant", False)
     stationary = getattr(cost, "stationary_curvature", False)
     # the associative scan replaces the sweep kernels (first order only)
@@ -187,12 +228,12 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
             raise ValueError("use_kernels=True needs CUDA tensors")
 
     def fold(Z):
-        """(N, d, B) -> (d, N*B), knot-major (lane = t*B + b)."""
+        """(Nk, d, B) -> (d, Nk*B), knot-major (lane = t*B + b)."""
         return Z.transpose(0, 1).reshape(Z.shape[1], -1)
 
-    def unfold(z):
-        """(..., N*B) -> (N, ..., B), the inverse of :func:`fold`."""
-        return z.reshape(z.shape[:-1] + (N, -1)).movedim(-2, 0)
+    def unfold(z, nk=N):
+        """(..., nk*B) -> (nk, ..., B), the inverse of :func:`fold`."""
+        return z.reshape(z.shape[:-1] + (nk, -1)).movedim(-2, 0)
 
     def rollout(x0, U):
         on_device(x0)
@@ -209,9 +250,11 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
         return c
 
     def linearize(Xs, U):
-        """One fd_du over N*B knot-major lanes -> A (N,2n,2n,B), B (N,2n,n,B)."""
+        """One fd_du over Nk*B knot-major lanes -> A (Nk,2n,2n,B),
+        B (Nk,2n,n,B), for the Nk knots of ``Xs`` (the horizon, or one
+        rank's chunk)."""
         on_device(Xs)
-        B = Xs.shape[-1]
+        Nk, B = Xs.shape[0], Xs.shape[-1]
         df_du, _, Mi = fd_du(model, fold(Xs[:, :n]), fold(Xs[:, n:]),
                              fold(U), grav)
         I_n = torch.eye(n, dtype=Xs.dtype, device=Xs.device)[:, :, None]
@@ -224,8 +267,8 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
         Amat = torch.cat([torch.cat([A11, A12], dim=1),
                           torch.cat([A21, A22], dim=1)], dim=0)
         Bmat = torch.cat([Bq, Bqd], dim=0)
-        Amat = Amat.reshape(nx, nx, N, B).permute(2, 0, 1, 3).contiguous()
-        Bmat = Bmat.reshape(nx, n, N, B).permute(2, 0, 1, 3).contiguous()
+        Amat = Amat.reshape(nx, nx, Nk, B).permute(2, 0, 1, 3).contiguous()
+        Bmat = Bmat.reshape(nx, n, Nk, B).permute(2, 0, 1, 3).contiguous()
         return Amat, Bmat
 
     def second_order(X, U):
@@ -298,6 +341,27 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
         return ((-bmv(Quu_inv, Qu)).movedim(-1, 0).contiguous(),
                 (-bmm(Quu_inv, Qux)).movedim(-1, 0).contiguous())
 
+    def knot_sharded_backward(X, U):
+        """This rank's N/D knots linearized and expanded, the reduce over
+        the knot axis, and every rank's gains gathered (JAX
+        ``backward_knot_sharded``)."""
+        on_device(X)
+        D, B = knot_group.size, X.shape[-1]
+        nl = N // D
+        t0 = knot_group.index * nl
+        X_loc, U_loc = X[t0:t0 + nl], U[t0:t0 + nl]
+        Amat, Bmat = linearize(X_loc, U_loc)
+        _, Vx0, Vxx0 = cost.terminal_expansion(X[N])
+        _, lxf, luf, lxxf, luuf, luxf = cost.stage_expansion(
+            fold(X_loc), fold(U_loc), 0)
+        lanes = nl * B
+        lxx, luu, lux = (unfold(c.expand(c.shape[:2] + (lanes,)), nl)
+                         for c in (lxxf, luuf, luxf))
+        ks, Ks = local_knot_gains(knot_group, D, cfg.reg, Amat, Bmat,
+                                  unfold(lxf, nl), unfold(luf, nl), lxx,
+                                  luu, lux, Vx0, Vxx0)
+        return all_gather(ks, knot_group, 0), all_gather(Ks, knot_group, 0)
+
     def backward(X, U, Amat, Bmat, so_flat=None):
         """The Riccati sweep (see the module docstring for its forms)."""
         on_device(X)
@@ -344,9 +408,13 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
         trace = [c]
         ks = Ks = None
         for _ in range(cfg.iters):
-            Amat, Bmat = linearize(X[:N], U)
-            so_flat = second_order(X, U) if cfg.use_second_order else None
-            ks, Ks = backward(X, U, Amat, Bmat, so_flat)
+            if knot_group is not None:
+                ks, Ks = knot_sharded_backward(X, U)
+            else:
+                Amat, Bmat = linearize(X[:N], U)
+                so_flat = (second_order(X, U) if cfg.use_second_order
+                           else None)
+                ks, Ks = backward(X, U, Amat, Bmat, so_flat)
             Xn, Un, cn = forward(X, U, ks, Ks)
             acc = cn < c
             X = torch.where(acc[None, None], Xn, X)
@@ -355,6 +423,9 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
             trace.append(c)
         return ILQRResult(X, U, c, torch.stack(trace), Ks, ks)
 
+    if expose_parts and knot_group is not None:
+        return solve, {"rollout": rollout, "backward": knot_sharded_backward,
+                       "forward": forward, "total_cost": total_cost}
     if expose_parts:
         return solve, {"rollout": rollout, "linearize": linearize,
                        "second_order": second_order, "backward": backward,

@@ -101,6 +101,25 @@ def associative_scan(fn, elems: Sequence[torch.Tensor],
     return [_interleave(e, o) for e, o in zip(even, odd)]
 
 
+def stage_elements(A, Bm, lx, lu, lxx, luu, lux, reg: float = 0.0) -> Elem:
+    """The stage elements of knots on the last batch axis: ``A (nx, nx,
+    B..., N)``, ``Bm (nx, nu, B..., N)``, ``lx (nx, B..., N)`` and so on,
+    with U = luu + reg I."""
+    Uinv = gj_inverse(luu + reg * eye_b(luu.shape[0], luu))
+    UiW = bmm(Uinv, lux)                      # (nu, nx, B, N)
+    Uilu = bmv(Uinv, lu)                      # (nu, B, N)
+    WT = lux.transpose(0, 1)
+    return (A - bmm(Bm, UiW), -bmv(Bm, Uilu),
+            bmm(Bm, bmm(Uinv, Bm.transpose(0, 1))),
+            -(lx - bmv(WT, Uilu)), lxx - bmm(WT, UiW))
+
+
+def terminal_element(VxN, VxxN) -> Elem:
+    """(0, 0, 0, -VxN, VxxN): the terminal value as an element."""
+    zM = torch.zeros_like(VxxN)
+    return (zM, torch.zeros_like(VxN), zM, -VxN, VxxN)
+
+
 def suffix_value_functions(Amat, Bmat, lx, lu, lxx, luu, lux, VxN, VxxN,
                            reg: float = 0.0):
     """Every knot's value function from one associative suffix scan.
@@ -118,18 +137,9 @@ def suffix_value_functions(Amat, Bmat, lx, lu, lxx, luu, lux, VxN, VxxN,
     def last(t):            # the knot axis to the last batch axis
         return t.movedim(0, -1)
 
-    A, Bm = last(Amat), last(Bmat)
-    lx, lu, lxx, luu, lux = map(last, (lx, lu, lxx, luu, lux))
-    Uinv = gj_inverse(luu + reg * eye_b(luu.shape[0], luu))
-    UiW = bmm(Uinv, lux)                      # (nu, nx, B, N)
-    Uilu = bmv(Uinv, lu)                      # (nu, B, N)
-    WT = lux.transpose(0, 1)
-    stage = (A - bmm(Bm, UiW), -bmv(Bm, Uilu),
-             bmm(Bm, bmm(Uinv, Bm.transpose(0, 1))),
-             -(lx - bmv(WT, Uilu)), lxx - bmm(WT, UiW))
-    zM = torch.zeros_like(VxxN)
-    zV = torch.zeros_like(VxN)
-    terminal = (zM, zV, zM, -VxN, VxxN)
+    stage = stage_elements(*map(last, (Amat, Bmat, lx, lu, lxx, luu, lux)),
+                           reg)
+    terminal = terminal_element(VxN, VxxN)
     elems = [torch.cat([s, t[..., None].to(s.dtype)], dim=-1)
              for s, t in zip(stage, terminal)]
     # reverse: scan the flipped knots with the later element first

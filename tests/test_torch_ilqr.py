@@ -24,7 +24,7 @@ from gridcodegenerator_tpu_torch.models.model import (ARRAY_FIELDS,
                                                        model_from_numpy)
 from gridcodegenerator_tpu_torch.models.zoo import load_robot
 from gridcodegenerator_tpu_torch.ops.cuda import build
-from gridcodegenerator_tpu_torch.trajopt.cost import EEReachCost
+from gridcodegenerator_tpu_torch.trajopt.cost import EEReachCost, QuadCost
 from gridcodegenerator_tpu_torch.trajopt.ilqr import (ILQRConfig, make_ilqr,
                                                       resolve_control_bounds)
 
@@ -118,9 +118,29 @@ def test_left_out_options_raise(problem, flag):
         for f in ("cost_trace", "X", "U"):
             assert torch.equal(getattr(a, f), getattr(b, f)), f
         return
-    value = "knots" if flag == "knot_axis" else True
+    if flag == "knot_axis":
+        # the knot-sharded backward runs on a mesh (tests/
+        # test_torch_knot_riccati.py); it raises where the JAX solver does,
+        # and without a mesh that has the axis
+        ko = dict(knot_axis="kp", knot_axis_size=2)
+        per_problem = QuadCost(Q=torch.full((14,), 0.1),
+                               R=torch.full((7,), 1e-3),
+                               Qf=torch.full((14,), 10.0),
+                               x_goal=torch.zeros((14, B)))
+        for kw, c, err in ((dict(use_second_order=True), tcost,
+                            NotImplementedError),
+                           (dict(parallel_riccati=True), tcost,
+                            NotImplementedError),
+                           (dict(knot_axis_size=3), tcost, ValueError),
+                           ({}, per_problem, NotImplementedError),
+                           ({}, tcost, ValueError)):   # no mesh
+            with pytest.raises(err):
+                make_ilqr(tm, c, ILQRConfig(N=N, **(ko | kw)))
+        # an axis of one rank is no split: the one-device solver
+        make_ilqr(tm, tcost, ILQRConfig(N=N, knot_axis="kp"))
+        return
     with pytest.raises(NotImplementedError):
-        make_ilqr(tm, tcost, ILQRConfig(N=N, **{flag: value}))
+        make_ilqr(tm, tcost, ILQRConfig(N=N, **{flag: True}))
 
 
 def test_control_bounds_are_per_dof_effort_limits():

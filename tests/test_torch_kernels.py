@@ -2378,3 +2378,31 @@ def test_cuda_sqp_and_quad_ilqr_launch_every_kernel(cuda_device, robot):
         tol = (1e-6 * float(ref.cost_trace.abs().max())
                if make is make_sqp else 1e-8)
         assert float((res.cost_trace - ref.cost_trace).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+def test_cuda_gloo_collectives_stage_through_the_host(cuda_device,
+                                                      tmp_path):
+    """Two gloo ranks on the one card: psum, ppermute and all_gather on
+    CUDA tensors give the host-side results, return CUDA tensors and
+    count every byte copied to and from host memory; NCCL over ranks that
+    share the card raises."""
+    import torch_rank_tasks as tasks
+    from gridcodegenerator_tpu_torch.parallel.launch import RankGroup
+    with RankGroup(2, f"file://{tmp_path / 'store'}", "gloo",
+                   timeout_s=120) as group:
+        got = group.run(tasks.cuda_collectives_probe)
+    for rank, res in enumerate(got):
+        assert res["on_card"] and res["nccl_refused"]
+        np.testing.assert_array_equal(res["psum"], [3.0, 30.0])
+        np.testing.assert_array_equal(res["all_gather"],
+                                      [[1.0, 10.0], [2.0, 20.0]])
+        # 16 bytes each way for psum, 16 out and 32 back for all_gather;
+        # ppermute: rank 1 sends x and 2x (32 bytes), rank 0 takes them
+        assert res["staged"] == {"psum": 32, "all_gather": 48,
+                                 "ppermute": 32}
+        if rank == 0:
+            np.testing.assert_array_equal(res["ppermute"],
+                                          [[2.0, 20.0], [4.0, 40.0]])
+        else:
+            assert res["ppermute"] is None

@@ -11,6 +11,8 @@ reproduce ``jax.random``: u0, U_next and the costs agree within 1e-8, on the
 first step and on a second one warm-started with the first's U_next.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -132,13 +134,26 @@ def test_closed_loop_composes_the_step_and_the_plant():
 
 
 def test_a_mesh_is_not_ported():
+    """The one-device step's refusals. A mesh runs now (tests/
+    test_torch_mesh.py, with the mesh's own refusals); without one, a
+    knot axis of more than one rank raises where the JAX solver raises, and
+    without a mesh to provide it."""
     _, tm, _, tcost = problem("pendulum2")
-    cfg = ScenarioMPCConfig(ILQRConfig(N=N, iters=ITERS), S)
-    with pytest.raises(NotImplementedError):
-        make_scenario_step(tm, tcost, cfg, mesh=make_mesh(1))
-    with pytest.raises(NotImplementedError):
-        make_scenario_step(tm, tcost, cfg, knot_axis="kp")
-    step = make_scenario_step(tm, tcost, cfg)
+    ko = dict(N=N, iters=ITERS, knot_axis="kp", knot_axis_size=2)
+    for kw, err in ((dict(use_second_order=True), NotImplementedError),
+                    (dict(parallel_riccati=True), NotImplementedError),
+                    (dict(N=5), ValueError),
+                    ({}, ValueError)):          # no mesh
+        with pytest.raises(err):
+            make_scenario_step(tm, tcost, ScenarioMPCConfig(
+                ILQRConfig(**(ko | kw)), S))
+    with pytest.raises(NotImplementedError):    # a time-varying cost
+        per_problem = dataclasses.replace(
+            tcost, x_goal=torch.zeros((4, S), dtype=torch.float64))
+        make_scenario_step(tm, per_problem, ScenarioMPCConfig(
+            ILQRConfig(**ko), S))
+    step = make_scenario_step(tm, tcost, ScenarioMPCConfig(
+        ILQRConfig(N=N, iters=ITERS), S))
     with pytest.raises(ValueError):   # S scenarios, not S - 1
         step(torch.zeros((4, S - 1), dtype=torch.float64),
              torch.zeros((N, 2, S - 1), dtype=torch.float64))
