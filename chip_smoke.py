@@ -168,7 +168,30 @@ Phases, one line each:
      NCCL, a (1, 1) mesh, whose step is phase 8's bit for bit. Printed:
      step ms (the slowest rank) and scenario solves/s per mesh, the
      knot-sharded backward's ms beside phase 8's riccati and fd_du, and
-     the bytes staged a step (time-sliced ranks: no scaling figure).
+     the bytes staged a step (time-sliced ranks: no scaling figure);
+ 13. above 28 joints: atlas_hands52, atlas with two four-finger hands of
+     12 joints each (tests/torch_big_robots.py, loaded by file path; 52
+     joints): its library built at first use (nvcc seconds) and every
+     thread-group plan at 52 joints (knots a block, shared bytes, the
+     device-memory route's workspace bytes: fd_du, id_du and the three
+     Riccati instances in both dtypes, minv and fd in float64); in float64
+     every kernel but the second-order pair against its plain version at 1
+     lane and 37 (a ragged block), the sweeps at N = 8 (riccati_factored,
+     the stationary and stacked riccati, the rollouts, the line search with
+     the EE cost, QuadCost and none), within 1e-9 of each output's scale,
+     one launch a call; rnea, minv, crba, aba, fd, id_du and fd_du against
+     the oracle on 3 lanes (1e-10 of scale); in float32 the Riccati sweeps,
+     the feedback rollout and the line search at N = 8 by the float32 rule;
+     config 5 (S 4096, N 16, 2 iterations, float32, QuadCost, dt 0.002:
+     the fingers' damping makes the Euler step diverge at 0.01, in the JAX
+     reference too) through the rollout, fd_du over 65536 lanes, the
+     stationary riccati and the line search, nothing plain: costs finite
+     and non-increasing, step ms, scenario solves/s, each kernel at the
+     step's shapes (fd_du's float32 rule and plain time on its first 1024
+     lanes) beside its bound, 3 closed-loop periods (one aba launch each)
+     and a float64 kernels-against-plain step at S = 64 (phase 8's rule);
+     then GRiD's first-order calls at B = 1 and 1024 (one launch each, the
+     float32 rule against a float64 plain GRiD), µs a call.
 Then a JSON line of per-kernel results (launches on the main paths of
 phases 4-12, error, times, and the roofline bound: the larger of the bytes
 each call must move over 3.35 TB/s and the operations its function needs,
@@ -231,6 +254,12 @@ DT5 = {"gym_humanoid": 0.002}
 ROBOTS5 = ("atlas", "gym_humanoid")
 # the closed loop's periods, and the scenarios of the float64 check
 PERIODS5, S5_F64 = 3, 64
+# phase 13: atlas with a hand of HANDS13 joints a side (52 joints), and its
+# step: the fingers' light links under the joint damping (0.1) make the
+# semi-implicit Euler step diverge at 0.01 within 13 steps, in the JAX
+# reference too (tests/test_torch_big_scenario.py), and stay bounded at
+# 0.002, as gym_humanoid's do
+HANDS13, DT13 = 12, 0.002
 # Phase 8 holds the consensus u0, U_next and costs of a float64 kernel step
 # on the first S5_F64 scenarios to the plain step's within U0_REL of
 # max(1, max|value|):
@@ -2756,6 +2785,342 @@ def main():
                        "host_s_per_rank": v["staged_s_per_step"][kind]}
                 for kind in MESH_STEP} for robot, v in
         mesh5["robots"].items()})
+
+    # -- phase 13: above 28 joints: atlas with hands -------------------------
+    spec = importlib.util.spec_from_file_location(
+        "torch_big_robots", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "torch_big_robots.py"))
+    hands = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(hands)
+    topo13 = parse_urdf(hands.atlas_hands_urdf(HANDS13),
+                        name=hands.atlas_hands_name(HANDS13))
+    nj13 = topo13.get_num_joints()
+    t = time.perf_counter()
+    build.lib(nj13)
+    lib13 = {"seconds": round(time.perf_counter() - t, 3),
+             "nvcc_seconds": round(build.NVCC_SECONDS[nj13], 3)}
+    dtypes = (torch.float32, torch.float64)
+    plans13 = {f"{what} {str(dt)[6:]}": build.warp_kernel_info(what, nj13, dt)
+               for what in build.WARP_KERNELS
+               if what not in ("idsva_so", "fdsva_so") for dt in dtypes}
+    # the instances on the device-memory route: a knot (problem) a block,
+    # its state in a workspace the wrapper allocates
+    ws13 = sorted(k for k, v in plans13.items() if v["workspace_bytes"])
+    want_ws = sorted(f"{w} {d}" for w in ("fd_du", "id_du", "riccati_factored",
+                                          "riccati", "riccati_stacked")
+                     for d in ("float32", "float64")) + ["fd float64",
+                                                         "minv float64"]
+    for k, v in plans13.items():
+        if v["knots_per_block"] < 1 and not v["workspace_bytes"]:
+            raise AssertionError(f"{k} at {nj13} joints: no plan")
+    if ws13 != sorted(want_ws):
+        raise AssertionError(f"device-memory instances at {nj13} joints: "
+                             f"{ws13}")
+    line("hands52_build", {"robot": topo13.name, "joints": nj13} | lib13 | {
+        "device_memory_instances": ws13, "plans": {
+            k: {f: v[f] for f in ("knots_per_block", "threads_per_knot",
+                                  "smem_bytes_per_block", "workspace_bytes",
+                                  "registers", "local_bytes", "blocks_per_sm")}
+            for k, v in plans13.items()}, "elapsed_s": elapsed()})
+
+    # float64: each kernel but the second-order pair against its plain
+    # version at 1 lane and 37 (a ragged block), one launch a call, within
+    # 1e-9 of each output's scale; then the dynamics kernels against the
+    # oracle on ORACLE_LANES lanes
+    def held64(tag, cases, f64_cases):
+        for case, args in cases.items():
+            name = kernel_of.get(case, case)
+            kern, plain = fns_of[case]
+            what = f"{tag} {case}"
+            build.reset_counters()
+            out = as_tuple(kern(*args))
+            torch.cuda.synchronize()
+            if dict(build.LAUNCHES) != {name: 1} or build.PLAIN_CALLS:
+                raise AssertionError(f"{what}: launches "
+                                     f"{dict(build.LAUNCHES)}, plain calls "
+                                     f"{dict(build.PLAIN_CALLS)}")
+            ref = as_tuple(plain(*args))
+            if len(out) != len(ref) or any(o.shape != r.shape
+                                           for o, r in zip(out, ref)):
+                raise AssertionError(f"{what}: kernel and plain outputs "
+                                     f"differ in number or shape")
+            err = max_err(out, ref)
+            tol = 1e-9 * max(1.0, max(float(r.abs().max()) for r in ref))
+            if not err <= tol:
+                raise AssertionError(f"{what} float64: max abs err {err} > "
+                                     f"{tol}")
+            f64_cases[case] = {"max_abs_err": err, "tol": tol}
+
+    m13 = build_model(topo13, dtype=torch.float64, device=dev)
+    f64_13 = {}
+    for lanes in (1, 37):
+        quad = quad_inputs(m13, 8, lanes, seed=13, dt=DT13)
+        quad["rollout_bounded"] = quad.pop("rollout")
+        q = torch.as_tensor(np.random.default_rng(13).uniform(
+            -1, 1, (nj13, lanes)), dtype=torch.float64, device=dev)
+        cases = (path_inputs(m13, 8, lanes, seed=13, dt=DT13) | quad
+                 | lane_cases(m13, lanes, seed=13, with_fd_du=True)
+                 | {"d2eepos": (m13, q)})
+        held = {}
+        held64(f"{topo13.name} L={lanes}", cases, held)
+        f64_13 |= {f"{case} L={lanes}": v for case, v in held.items()}
+        del cases, quad
+    covered = {kernel_of.get(c.split(" ")[0], c.split(" ")[0]) for c in f64_13}
+    if not all_kernels - {"idsva_so", "fdsva_so"} <= covered:
+        raise AssertionError(f"{topo13.name}: kernels not held "
+                             f"{sorted(all_kernels - covered)}")
+    cases = lane_cases(m13, ORACLE_LANES, seed=7, with_fd_du=True)
+    lanes_np = [a.cpu().numpy() for a in cases["rnea"][1:4]]
+    for case, orc in oracle_of.items():
+        out = as_tuple(case_fns[case][0](*cases[case]))
+        per_lane = [orc(topo13, *(a[:, b] for a in lanes_np))
+                    for b in range(ORACLE_LANES)]
+        ref = tuple(torch.as_tensor(np.stack([r[k] for r in per_lane], -1),
+                                    device=dev) for k in range(len(out)))
+        err = max_err(out, ref)
+        tol = ORACLE_REL * max(1.0, max(float(r.abs().max()) for r in ref))
+        if any(o.shape != r.shape for o, r in zip(out, ref)) or not err <= tol:
+            raise AssertionError(f"{topo13.name} {case} float64 vs the "
+                                 f"oracle: max abs err {err} > {tol}")
+        f64_13[f"{case} vs oracle L={ORACLE_LANES}"] = {"max_abs_err": err,
+                                                        "tol": tol}
+    line("hands52_f64", {"N": 8, "dt": DT13, "cases": f64_13,
+                         "elapsed_s": elapsed()})
+    del m13, cases
+    torch.cuda.empty_cache()
+
+    # float32: the sweeps that config 5 does not run, at N = 8 on 37
+    # problems, by the float32 rule
+    m = build_model(topo13, dtype=torch.float32, device=dev)
+    f64_of[id(m)] = m.to(dtype=torch.float64)
+    ins13 = path_inputs(m, 8, 37, seed=14, dt=DT13) | quad_inputs(
+        m, 8, 37, seed=14, dt=DT13)
+    f32_13 = {case: timed_f32(f"{topo13.name} {case} N=8", *fns_of[case],
+                              ins13[case], m, kernel_of.get(case, case), 3)
+              for case in ("riccati_factored", "riccati_stacked",
+                           "feedback_rollout", "linesearch_nocost")}
+    line("hands52_f32_small", {"N": 8, "B": 37, "cases": f32_13})
+    del ins13
+
+    # config 5 on atlas_hands52
+    n = m.n
+    cost5 = config5_cost(m)
+    cfg5 = ScenarioMPCConfig(ILQRConfig(N=N5, dt=DT13, iters=ITERS5), S5)
+    step = make_scenario_step(m, cost5, cfg5)
+    x0n, x0s = config5_inputs(n, S5, dev)
+    U0 = torch.zeros((N5, n, S5), dtype=torch.float32, device=dev)
+    build.reset_counters()
+    u0, U_next, costs = step(x0s, U0)
+    torch.cuda.synchronize()
+    runs = dict(build.LAUNCHES)
+    if runs != step5 or build.PLAIN_CALLS:
+        raise AssertionError(f"config 5 {topo13.name} step launches {runs} "
+                             f"(expected {step5}), plain calls "
+                             f"{dict(build.PLAIN_CALLS)}")
+    path_runs.append(runs)
+    res = make_ilqr(m, cost5, cfg5.ilqr)(x0s, U0)
+    tr = res.cost_trace
+    if not (torch.equal(res.cost, costs) and torch.equal(
+            U_next, torch.cat([res.U[1:], res.U[-1:]]))):
+        raise AssertionError(f"config 5 {topo13.name}: the step's costs or "
+                             f"U_next are not its solve's, shifted")
+    if not bool(torch.isfinite(tr).all()):
+        raise AssertionError(f"config 5 {topo13.name}: non-finite cost")
+    if not bool((tr[1:] <= tr[:-1]).all()):
+        raise AssertionError(f"config 5 {topo13.name}: cost increased")
+    lo, hi = res.U[0].amin(dim=1), res.U[0].amax(dim=1)
+    slack = 1e-6 * max(1.0, float(res.U[0].abs().max()))
+    if not (bool(torch.isfinite(u0).all()) and u0.shape == (n,)
+            and bool((u0 >= lo - slack).all())
+            and bool((u0 <= hi + slack).all())):
+        raise AssertionError(f"config 5 {topo13.name}: consensus u0 {u0} "
+                             f"outside the scenarios' first controls")
+    ms13 = time_cuda(lambda: step(x0s, U0), iters=2)
+    del res
+
+    # the step's kernels at its shapes, on the inputs its first iteration
+    # makes; fd_du's float32 rule and plain time on its first L1 lanes (its
+    # plain float64 version at 65536 lanes of 52 joints would take tens of
+    # gigabytes); aba at the closed loop's one lane
+    _, parts5 = make_ilqr(m, cost5, cfg5.ilqr, expose_parts=True)
+    X = parts5["rollout"](x0s, U0)
+    fold = lambda Z: Z.transpose(0, 1).reshape(Z.shape[1], -1)
+    A, Bm = parts5["linearize"](X[:N5], U0)
+    _, Vx0, Vxx0 = cost5.terminal_expansion(X[N5])
+    _, lx, lu, lxx, luu, lux = cost5.stage_expansion(fold(X[:N5]), fold(U0), 0)
+    unfold = lambda z: z.reshape(z.shape[:-1] + (N5, S5)).movedim(-2, 0)
+    ric = (A, Bm, unfold(lx).contiguous(), unfold(lu).contiguous(),
+           *(c[..., :S5].contiguous() for c in (lxx, luu, lux)),
+           Vx0.contiguous(), Vxx0.contiguous(), cfg5.ilqr.reg)
+    ks, Ks = S.riccati(*ric)
+    blo, bhi = resolve_control_bounds(m, cfg5.ilqr)
+    al = torch.tensor(cfg5.ilqr.alphas, dtype=torch.float32,
+                      device=dev)[:, None].repeat(1, S5)
+    q1 = torch.zeros((n, 1), dtype=torch.float32, device=dev)
+    fd_args = (m, fold(X[:N5, :n]), fold(X[:N5, n:]), fold(U0), GRAVITY)
+    cases5 = {"rollout": (m, x0s, U0, DT13, GRAVITY, blo, bhi),
+              "riccati": ric,
+              "linesearch_quad": (m, X[0].contiguous(), U0,
+                                  X[:N5].contiguous(), ks, Ks, al, DT13,
+                                  GRAVITY, blo, bhi, cost5),
+              "aba": (m, q1, q1, u0[:, None].contiguous(), GRAVITY)}
+    build.reset_counters()
+    kern13 = {}
+    for case, args in cases5.items():
+        name = kernel_of.get(case, case)
+        kern13[name] = timed_f32(f"config 5 {topo13.name} {case}",
+                                 *fns_of[case], args, m, case, 3) | {
+            "launches_per_step": step5.get(name, 0)}
+    out = as_tuple(K.fd_du(*fd_args))
+    head = (m, *(a[:, :L1].contiguous() for a in fd_args[1:4]), GRAVITY)
+    ref, ref64 = as_tuple(K.fd_du_plain(*head)), as_tuple(
+        K.fd_du_plain(*map(to64, head)))
+    ek = max(check_f32(f"config 5 {topo13.name} fd_du output {k}",
+                       o[..., :L1], r, r64)[0]
+             for k, (o, r, r64) in enumerate(zip(out, ref, ref64)))
+    kern13["fd_du"] = {"kernel_err_vs_f64_first_lanes": ek,
+                       "max_abs_err": max_err([o[..., :L1] for o in out],
+                                              ref),
+                       "ms": time_cuda(lambda: K.fd_du(*fd_args), iters=3),
+                       "plain_ms": time_cuda(lambda: K.fd_du_plain(*head),
+                                             iters=2),
+                       "plain_lanes": L1, "launches_per_step": ITERS5} | \
+        roofline("fd_du", m, fd_args, out)
+    del X, A, Bm, ric, ks, Ks, cases5, parts5, out, ref, ref64, fd_args, head
+    torch.cuda.empty_cache()
+
+    # three closed-loop periods: a scenario step each, then the consensus
+    # control through dynamics_step (one aba launch)
+    build.reset_counters()
+    xs, us13 = closed_loop(m, cost5, cfg5, torch.zeros(
+        2 * n, dtype=torch.float32, device=dev), PERIODS5,
+        torch.Generator(device=dev).manual_seed(0), SPREAD5)
+    torch.cuda.synchronize()
+    runs = dict(build.LAUNCHES)
+    want = {k: PERIODS5 * v for k, v in step5.items()} | {"aba": PERIODS5}
+    if runs != want or build.PLAIN_CALLS:
+        raise AssertionError(f"config 5 {topo13.name} closed loop launches "
+                             f"{runs} (expected {want}), plain calls "
+                             f"{dict(build.PLAIN_CALLS)}")
+    path_runs.append(runs)
+    if xs.shape != (PERIODS5 + 1, 2 * n) or not bool(torch.isfinite(xs).all()):
+        raise AssertionError(f"config 5 {topo13.name} closed loop: states "
+                             f"{tuple(xs.shape)}, finite "
+                             f"{bool(torch.isfinite(xs).all())}")
+
+    # float64 on the first S5_F64 scenarios: the kernel step against the
+    # plain step (phase 8's rule)
+    m64 = f64_of[id(m)]
+    cost64 = to64(cost5)
+    x64 = torch.as_tensor(x0n[:, :S5_F64], dtype=torch.float64, device=dev)
+    U64 = torch.zeros((N5, n, S5_F64), dtype=torch.float64, device=dev)
+    f64 = {uk: make_scenario_step(m64, cost64, ScenarioMPCConfig(ILQRConfig(
+        N=N5, dt=DT13, iters=ITERS5, use_kernels=uk), S5_F64))(x64, U64)
+           for uk in (None, False)}
+    f64_err = {}
+    for what, k_, p_ in zip(("u0", "U_next", "costs"), f64[None], f64[False]):
+        err = float((k_ - p_).abs().max())
+        tol = U0_REL * max(1.0, float(p_.abs().max()))
+        f64_err[what] = {"max_abs_err": err, "tol": tol}
+        if not err <= tol:
+            raise AssertionError(f"config 5 {topo13.name} float64: {what} "
+                                 f"off by {err} (tol {tol})")
+    config5_13 = {
+        "robot": topo13.name, "joints": n, "dt": DT13, "S": S5, "N": N5,
+        "iters": ITERS5, "dtype": "float32", "device": smi, "step_ms": ms13,
+        "scenario_solves_per_s": S5 / (ms13 / 1e3), "launches": path_runs[-2],
+        "closed_loop_launches": runs,
+        "cost_first_mean": float(tr[0].mean()),
+        "cost_last_mean": float(tr[-1].mean()),
+        "closed_loop_final_state_max": float(xs[-1].abs().max()),
+        "f64_first64": f64_err, "kernels": kern13, "elapsed_s": elapsed()}
+    line("config5_hands52", config5_13)
+    del x0s, U0, step, f64, xs
+    torch.cuda.empty_cache()
+
+    # GRiD's first-order calls at B = 1 and L1: one launch each, the float32
+    # rule against a float64 plain GRiD (and a float32 plain one), µs a call
+    g13 = (GRiD(topo13, dtype=torch.float32, device=dev),
+           GRiD(topo13, dtype=torch.float32, device=dev, use_kernels=False),
+           GRiD(topo13, dtype=torch.float64, device=dev, use_kernels=False))
+    rng = np.random.default_rng(5)
+    methods13 = {"id": ("rnea", 3), "id_bias": ("rnea", 2),
+                 "id_du": ("id_du", 3), "aba": ("aba", 3),
+                 "minv": ("minv", 1), "minv_upper": ("minv", 1),
+                 "fd": ("fd", 3), "crba": ("crba", 1), "fd_du": ("fd_du", 3),
+                 "eepos": ("eepos", 1), "deepos": ("deepos", 1),
+                 "d2eepos": ("d2eepos", 1)}
+    grid13, grid_runs = {}, {}
+    for batch in (1, L1):
+        x = tuple(torch.as_tensor(rng.uniform(-1, 1, (batch, nj13)),
+                                  dtype=torch.float32, device=dev)
+                  for _ in range(3))
+        for label, (kernel, nargs) in methods13.items():
+            method = {"id_bias": "id", "minv_upper": "minv"}.get(label, label)
+            kw = {"dense": False} if label == "minv_upper" else {}
+            call = lambda gg, xx: getattr(gg, method)(*xx[:nargs], **kw)
+            build.reset_counters()
+            out = call(g13[0], x)
+            torch.cuda.synchronize()
+            if dict(build.LAUNCHES) != {kernel: 1} or build.PLAIN_CALLS:
+                raise AssertionError(f"{topo13.name} GRiD.{label} B={batch}: "
+                                     f"launches {dict(build.LAUNCHES)}, "
+                                     f"plain calls "
+                                     f"{dict(build.PLAIN_CALLS)}")
+            grid_runs[kernel] = grid_runs.get(kernel, 0) + 1
+            ek, ep = check_f32(f"{topo13.name} GRiD.{label} B={batch}", out,
+                               call(g13[1], x),
+                               call(g13[2], tuple(a.double() for a in x)))
+            grid13[f"{label}_B{batch}"] = {
+                "us_per_call": time_cuda(lambda: call(g13[0], x), iters=(
+                    50 if batch == 1 else 10)) * 1e3,
+                "kernel_err_vs_f64": ek, "plain_err_vs_f64": ep} | {
+                k: v for k, v in roofline(kernel, m, (m, *(
+                    a.T for a in x[:nargs])), (out,)).items()
+                if k in ("bound_ms", "bound_by")}
+    path_runs.append(grid_runs)
+    # the second order has no kernel above build.SO_MAX_JOINTS: GRiD's
+    # calls and make_sqp refuse by name on the card, before any launch
+    refusals13 = {}
+    xs = tuple(a[:1] for a in x)
+    build.reset_counters()
+    for label, call in (
+            ("idsva_so", lambda: g13[0].idsva_so(*xs)),
+            ("fdsva_so", lambda: g13[0].fdsva_so(*xs)),
+            ("make_sqp", lambda: make_sqp(g13[0].model, config5_cost(
+                g13[0].model), SQPConfig(N=4)))):
+        try:
+            call()
+        except NotImplementedError as e:
+            refusals13[label] = str(e)[:80]
+        else:
+            raise AssertionError(f"{topo13.name} {label}: no refusal above "
+                                 f"{build.SO_MAX_JOINTS} joints")
+    if build.LAUNCHES or build.PLAIN_CALLS:
+        raise AssertionError(f"{topo13.name} second-order refusals ran "
+                             f"{dict(build.LAUNCHES)} "
+                             f"{dict(build.PLAIN_CALLS)}")
+    line("grid_hands52", {"robot": topo13.name, "device": smi,
+                          "calls": grid13, "second_order_refusals": refusals13,
+                          "elapsed_s": elapsed()})
+    for name in ("fd_du", "riccati", "linesearch_rollout", "rollout", "aba"):
+        results[name]["hands52"] = {k: kern13[name][k] for k in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+            "launches_per_step")}
+    for case, name in (("riccati_factored", "riccati_factored"),
+                       ("riccati_stacked", "riccati"),
+                       ("feedback_rollout", "feedback_rollout"),
+                       ("linesearch_nocost", "linesearch_nocost")):
+        results[name].setdefault("hands52", {})[f"{case}_N8_B37"] = {
+            k: f32_13[case][k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "max_abs_err")}
+    for label, (kernel, _) in methods13.items():
+        if kernel in results:
+            results[kernel].setdefault("hands52", {})[
+                f"grid_{label}_us"] = {b: grid13[f"{label}_B{b}"][
+                    "us_per_call"] for b in (1, L1)}
+    del g13, m
+    torch.cuda.empty_cache()
     print(smi, flush=True)
 
     path_launches = {k: sum(run.get(k, 0) for run in path_runs)
@@ -2772,8 +3137,8 @@ def main():
                                          "bound_ms", "bound_by", "ops",
                                          "ops_executed")}
         | {"library_ms": None}
-        | {k: results[name][k] for k in ("config5", "humanoids", "per_knot")
-           if k in results[name]}
+        | {k: results[name][k] for k in ("config5", "humanoids", "per_knot",
+                                         "hands52") if k in results[name]}
         for name in results]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1246,22 +1246,27 @@ def parse_ptxas(text: str) -> dict:
 def bind(libs: dict, kernels, scratch: bool) -> dict:
     P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_double)
-    sig = {"fd_du": [I, I, P, P, P, P, P, P, P, L, D, P],
+    # the kernels with a device-memory route take its workspace and blocks
+    # last (None, 0 here: every count timed keeps its knots in shared
+    # memory); an earlier tree's entry points without them ignore the two
+    # trailing arguments
+    ws = [P, L]
+    sig = {"fd_du": [I, I, P, P, P, P, P, P, P, L, D, P] + ws,
            "fdsva_so": ([I, I, P, P, P, P, P, P, L, D, P] if scratch
                         else [I, I, P, P, P, P, P, L, D, P]),
-           "riccati_factored": [I, I] + [P] * 9 + [I, L, I, D, D, D, P],
-           "linesearch": [I, I] + [P] * 12 + [I, L, I, D, D, I, P, P],
-           "riccati": [I, I] + [P] * 7 + [I] + [P] * 4 + [I, L, D, P],
+           "riccati_factored": [I, I] + [P] * 9 + [I, L, I, D, D, D, P] + ws,
+           "linesearch": [I, I] + [P] * 12 + [I, L, I, D, D, I, P, P] + ws,
+           "riccati": [I, I] + [P] * 7 + [I] + [P] * 4 + [I, L, D, P] + ws,
            "rollout": [I, I] + [P] * 6 + [I, L, D, D, P],
            "idsva_so": [I, I, P, P, P, P, P, L, D, P],
-           "feedback_rollout": [I, I] + [P] * 10 + [I, L, D, D, P],
-           "id_du": [I, I, P, P, P, P, P, L, D, P],
+           "feedback_rollout": [I, I] + [P] * 10 + [I, L, D, D, P] + ws,
+           "id_du": [I, I, P, P, P, P, P, L, D, P] + ws,
            "d2eepos": [I, I, P, P, I, P, P, L, P],
            "rnea": [I, I, P, P, P, P, P, L, D, P],
            "aba": [I, I, P, P, P, P, P, L, D, P],
-           "fd": [I, I, P, P, P, P, P, L, D, P],
+           "fd": [I, I, P, P, P, P, P, L, D, P] + ws,
            "eepos": [I, I, P, P, I, P, P, L, P],
-           "minv": [I, I, P, P, P, L, I, P],
+           "minv": [I, I, P, P, P, L, I, P] + ws,
            "crba": [I, I, P, P, P, L, P],
            "deepos": [I, I, P, P, I, P, P, L, P]}
     out = {}
@@ -1543,7 +1548,7 @@ def main():
                     def fn():
                         build.check(lib.gridtorch_id_du(
                             0, n, ptr(mb), ptr(q), ptr(qd), ptr(u),
-                            ptr(outs[0]), lanes, -9.81, stream), what)
+                            ptr(outs[0]), lanes, -9.81, stream, None, 0), what)
                     return fn, outs
                 if what == "d2eepos":
                     outs = (d2_out(),)
@@ -1568,16 +1573,17 @@ def main():
                     def fn():
                         build.check(lib.gridtorch_fd(
                             0, n, ptr(mb), ptr(q), ptr(qd), ptr(u),
-                            ptr(outs[0]), lanes, -9.81, stream), what)
+                            ptr(outs[0]), lanes, -9.81, stream, None, 0), what)
                     return fn, outs
                 if what in ("minv", "crba"):
                     outs = (torch.empty(n, n, lanes, device=dev),)
                     dense = (1,) if what == "minv" else ()
+                    no_ws = (None, 0) if what == "minv" else ()
                     m_fn = getattr(lib, f"gridtorch_{what}")
 
                     def fn():
                         build.check(m_fn(0, n, ptr(mb), ptr(q), ptr(outs[0]),
-                                         lanes, *dense, stream), what)
+                                         lanes, *dense, stream, *no_ws), what)
                     return fn, outs
                 if what == "fd_du":
                     outs = (torch.empty(n, 2 * n, lanes, device=dev),
@@ -1587,7 +1593,8 @@ def main():
                     def fn():
                         build.check(lib.gridtorch_fd_du(
                             0, n, ptr(mb), ptr(q), ptr(qd), ptr(u),
-                            *map(ptr, outs), lanes, -9.81, stream), what)
+                            *map(ptr, outs), lanes, -9.81, stream, None, 0),
+                            what)
                     return fn, outs
                 outs = (torch.empty(4, n, n, n, lanes, device=dev),)
                 if what == "idsva_so":
@@ -1661,8 +1668,8 @@ def main():
                     def fn():
                         build.check(lib.gridtorch_riccati_factored(
                             0, n, *map(ptr, (A, Bm, lx, lu, Jw, Vx0, Vxx0)),
-                            *map(ptr, outs), N, B, r, reg, qdg, udg, stream),
-                            what)
+                            *map(ptr, outs), N, B, r, reg, qdg, udg, stream,
+                            None, 0), what)
                     return fn, outs
                 ref64 = S.riccati_factored_plain(
                     *(a.double() if isinstance(a, torch.Tensor) else a
@@ -1691,7 +1698,7 @@ def main():
                         build.check(lib.gridtorch_riccati(
                             0, n, *map(ptr, (A, Bm, lx, lu, lxx, luu, lux)),
                             stat, ptr(Vx0), ptr(Vxx0), *map(ptr, outs), N, B,
-                            float(reg), stream), what)
+                            float(reg), stream, None, 0), what)
                     return fn, outs
                 ref64 = S.riccati_plain(*(
                     a[..., :nb].double() if isinstance(a, torch.Tensor)
@@ -1751,7 +1758,7 @@ def main():
                     def fn():
                         build.check(lib.gridtorch_feedback_rollout(
                             0, n, *fb_in, *map(ptr, outs), N, B, dt, g,
-                            stream), what)
+                            stream, None, 0), what)
                     return fn, outs
                 cut_fb = lambda z: z[..., :nb].contiguous()
                 head = fb[:1] + tuple(map(cut_fb, fb[1:6])) + fb[6:]
@@ -1781,7 +1788,7 @@ def main():
                             0, n, ptr(mb), *map(ptr, (x0, Ur, Xr, kf, Km, al,
                                                       lo, hi)),
                             *map(ptr, outs), N, B, na, dt, g, kind, ptr(cb),
-                            stream), what)
+                            stream, None, 0), what)
                     return fn, outs
                 head = head_ls(ins[what], nb)
                 ref64 = S.linesearch_rollout_plain(*to64(head, m64))

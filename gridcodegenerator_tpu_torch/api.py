@@ -38,6 +38,12 @@ fixed-base, as the JAX package's Pallas kernels are. The route is fixed at
 construction by ``model.floating_base``: ``use_kernels=True`` on such a
 robot raises ``NotImplementedError``, and so do ``idsva_so`` and
 ``fdsva_so`` (second order is fixed-base, as in the JAX package).
+
+A fixed-base robot of 1 to 64 one-dof joints runs every first-order method
+on the card; above 28 joints (``ops/cuda/build.py:SO_MAX_JOINTS``, the JAX
+package's ceiling for its fused second-order kernels) ``idsva_so`` and
+``fdsva_so`` raise ``NotImplementedError`` on the card; on the CPU, or with
+``use_kernels=False``, they run the plain versions.
 """
 
 from __future__ import annotations

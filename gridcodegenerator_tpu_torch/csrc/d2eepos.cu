@@ -14,11 +14,12 @@
 // d2T/dq_a dq_b = Xi_a dT/dq_b, cross products of Xi_a's axis with the
 // columns of dT/dq_b, through the closed-form second derivative of the
 // pose extraction (dynamics.cuh:pose_hvp, exact atan2), into the knot's
-// tile, or, where the plan stores directly (warp.cuh:d2_stage: up to 8
-// joints, 8 threads a lane), straight to device memory. The block writes
-// each staged output row as G consecutive lanes, and the zeros, wherever
-// the row or the column joint is off the chain, in 128-byte runs shared
-// with the neighbouring blocks. Every knot's state lives in shared memory,
+// tile, or, where the plan stores directly (warp.cuh:d2_stages: up to 8
+// joints, 8 threads a lane, and above 62 joints in float64, where the
+// staged knot does not fit a block), straight to device memory. The block
+// writes each staged output row as G consecutive lanes, and the zeros,
+// wherever the row or the column joint is off the chain, in 128-byte runs
+// shared with the neighbouring blocks. Every knot's state lives in shared memory,
 // with no device-memory scratch. Resident blocks (as many as the card holds
 // at once) take every gridDim.x-th group of G lanes. dynamics.cuh:
 // ee_hess_lane is the serial function in the chain form: csrc/opcount.cpp
@@ -70,7 +71,7 @@ __global__ void d2eepos_kernel(const T* __restrict__ model,
 // row taking the EEs in turn, and 17-32% faster than a block a group of
 // lanes (PERF.md).
 template <typename T, int NJ, class P = gt::D2Plan<T, NJ>,
-          bool STAGE = gt::d2_stage<NJ>()>
+          bool STAGE = gt::d2_stages<T, NJ>()>
 static int launch_d2eepos(const void* model, const void* ee, int ne,
                           const void* q, void* out, long long L,
                           cudaStream_t stream) {
@@ -111,7 +112,7 @@ extern "C" int gridtorch_d2eepos_info(int dtype, int nj, int* out) {
   GT_DISPATCH(dtype, nj,
               (gt::kernel_info<gt::D2Plan<T, NJ>>(
                   (const void*)d2eepos_kernel<T, NJ, gt::D2Plan<T, NJ>,
-                                              gt::d2_stage<NJ>()>,
+                                              gt::d2_stages<T, NJ>()>,
                   out)));
 }
 

@@ -26,6 +26,8 @@
 // operations); the design's limits are the serial phases' latency at small
 // batches and, at large ones, the knots an SM holds (5.6 KB of shared memory
 // a 7-joint knot in float32).
+// From 46 joints in float64 no knot fits a block: the knot runs a block at
+// a time, its state in device memory (fd_ws_kernel, warp.cuh:WsPlan).
 // G, the threads a knot, the bytes a block and cudaFuncGetAttributes of the
 // instance: `gridtorch_fd_info`.
 #include "warp.cuh"
@@ -55,38 +57,80 @@ __global__ void fd_kernel(const T* __restrict__ model,
   gt::store_rows<T, S>(knots + O::QDD, NJ, qdd, L, l0, G, tid, nt);
 }
 
+// The device-memory route (warp.cuh:WsPlan; from 46 joints in float64): a
+// knot a block at a time, the robot constants in shared memory, the knot's
+// state in the workspace `ws` (a knot a block), the blocks striding over
+// the lanes (warp.cuh:ws_lanes).
+template <typename T, int NJ, class P>
+__global__ void fd_ws_kernel(const T* __restrict__ model,
+                             const T* __restrict__ q,
+                             const T* __restrict__ qd,
+                             const T* __restrict__ u, T* __restrict__ qdd,
+                             long long L, T gravity, T* ws) {
+  using O = gt::FDQKnot<NJ>;
+  constexpr int N = P::LANES, S = O::SIZE;
+  auto& R = *reinterpret_cast<gt::RobotConst<T, NJ>*>(gt_smem);
+  T* k = ws + (long long)blockIdx.x * S;
+  const int tid = threadIdx.x;
+  R.load_tree(model, tid, N);
+  gt::ws_lanes(
+      L,
+      [&](long long l) {
+        gt::load_inputs<T, NJ, S>(q, qd, u, L, l, 1, k, tid, N);
+      },
+      [&] { gt::fd_knot<T, NJ>(gt::WarpPar<N>{tid, 1}, R, k, gravity); },
+      [&](long long l) {
+        gt::store_rows<T, S>(k + O::QDD, NJ, qdd, L, l, 1, tid, N);
+      });
+}
+
 template <typename T, int NJ, class P = gt::FDPlanQ<T, NJ>>
 static int launch_fd(const void* model, const void* q, const void* qd,
                      const void* u, void* qdd, long long L, double gravity,
-                     cudaStream_t stream) {
-  static_assert(P::G >= 1, "one fd knot must fit in shared memory");
-  if (L == 0) return 0;
-  static const cudaError_t attr = gt::smem_attrs(fd_kernel<T, NJ, P>,
-                                                 P::BYTES);
-  if (attr != cudaSuccess) return (int)attr;
-  fd_kernel<T, NJ, P><<<(unsigned)((L + P::G - 1) / P::G), P::LANES * P::G,
-                        P::BYTES, stream>>>(
-      (const T*)model, (const T*)q, (const T*)qd, (const T*)u, (T*)qdd, L,
-      (T)gravity);
-  return (int)cudaGetLastError();
+                     cudaStream_t stream, void* ws = nullptr,
+                     long long nws = 0) {
+  if constexpr (gt::PlanWs<P>::value > 0) {
+    return gt::launch_ws<P>(fd_ws_kernel<T, NJ, P>, L, ws, nws, stream,
+                            (const T*)model, (const T*)q, (const T*)qd,
+                            (const T*)u, (T*)qdd, L, (T)gravity, (T*)ws);
+  } else {
+    if (L == 0) return 0;
+    static const cudaError_t attr = gt::smem_attrs(fd_kernel<T, NJ, P>,
+                                                   P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    fd_kernel<T, NJ, P><<<(unsigned)((L + P::G - 1) / P::G),
+                          P::LANES * P::G, P::BYTES, stream>>>(
+        (const T*)model, (const T*)q, (const T*)qd, (const T*)u, (T*)qdd, L,
+        (T)gravity);
+    return (int)cudaGetLastError();
+  }
 }
 
+// ws: the workspace of the device-memory route, nws knots, problems or
+// blocks (its plan's workspace_bytes each; ops/cuda/build.py:workspace);
+// ignored where the plan keeps everything in shared memory.
 extern "C" int gridtorch_fd(int dtype, int nj, const void* model,
                             const void* q, const void* qd, const void* u,
                             void* qdd, long long L, double gravity,
-                            void* stream) {
+                            void* stream, void* ws, long long nws) {
   GT_DISPATCH(dtype, nj,
               launch_fd<T, NJ>(model, q, qd, u, qdd, L, gravity,
-                               (cudaStream_t)stream));
+                               (cudaStream_t)stream, ws, nws));
+}
+
+template <typename T, int NJ, class P = gt::FDPlanQ<T, NJ>>
+static int fd_info(int* out) {
+  if constexpr (P::WS > 0)
+    return gt::kernel_info<P>((const void*)fd_ws_kernel<T, NJ, P>, out);
+  else
+    return gt::kernel_info<P>((const void*)fd_kernel<T, NJ, P>, out);
 }
 
 // The block plan (G; threads a knot; bytes a block) and
 // cudaFuncGetAttributes of the instance (warp.cuh:kernel_info), into
 // out[11].
 extern "C" int gridtorch_fd_info(int dtype, int nj, int* out) {
-  GT_DISPATCH(dtype, nj,
-              (gt::kernel_info<gt::FDPlanQ<T, NJ>>(
-                  (const void*)fd_kernel<T, NJ, gt::FDPlanQ<T, NJ>>, out)));
+  GT_DISPATCH(dtype, nj, (fd_info<T, NJ>(out)));
 }
 
 #endif

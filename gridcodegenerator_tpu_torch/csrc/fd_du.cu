@@ -32,6 +32,9 @@
 //   8 joints   7 x 32, 56272  | 7 x 32, 111536
 //   12 joints  7 x 32, 113200 | 7 x 64, 224928
 //   16 joints  8 x 64, 213968 | 4 x 128, 221264
+// Above 32 joints a knot takes 64 threads or more (a thread a column of a
+// pass); from 47 joints in float32 (33 in float64) no knot fits a block,
+// and the knot runs on the device-memory route (fd_du_ws_kernel).
 #include "warp.cuh"
 
 #ifdef __CUDACC__
@@ -63,44 +66,92 @@ __global__ void fd_du_kernel(const T* __restrict__ model,
   gt::store_rows<T, S>(knots + O::MI, NJ * NJ, Mi, L, l0, G, tid, nt);
 }
 
+// The device-memory route (warp.cuh:WsPlan; from 47 joints in float32, 33
+// in float64): a knot a block at a time, the robot constants in shared
+// memory, the knot's state in the workspace `ws` (a knot a block), the
+// blocks striding over the lanes (warp.cuh:ws_lanes).
+template <typename T, int NJ>
+__global__ void fd_du_ws_kernel(const T* __restrict__ model,
+                                const T* __restrict__ q,
+                                const T* __restrict__ qd,
+                                const T* __restrict__ u, T* __restrict__ dfdu,
+                                T* __restrict__ qdd, T* __restrict__ Mi,
+                                long long L, T gravity, T* ws) {
+  using O = gt::FDKnot<NJ>;
+  constexpr int N = gt::FDPlan<T, NJ>::LANES, S = O::SIZE;
+  auto& R = *reinterpret_cast<gt::RobotConst<T, NJ>*>(gt_smem);
+  T* k = ws + (long long)blockIdx.x * S;
+  const int tid = threadIdx.x;
+  R.load(model, tid, N);
+  gt::ws_lanes(
+      L,
+      [&](long long l) {
+        gt::load_inputs<T, NJ, S>(q, qd, u, L, l, 1, k, tid, N);
+      },
+      [&] { gt::fd_du_knot<T, NJ>(gt::WarpPar<N>{tid, 1}, R, k, gravity); },
+      [&](long long l) {
+        gt::store_rows<T, S>(k + O::DFDU, 2 * NJ * NJ, dfdu, L, l, 1, tid, N);
+        gt::store_rows<T, S>(k + O::QDD, NJ, qdd, L, l, 1, tid, N);
+        gt::store_rows<T, S>(k + O::MI, NJ * NJ, Mi, L, l, 1, tid, N);
+      });
+}
+
 template <typename T, int NJ>
 static int launch_fd_du(const void* model, const void* q, const void* qd,
                         const void* u, void* dfdu, void* qdd, void* Mi,
-                        long long L, double gravity, cudaStream_t stream) {
+                        long long L, double gravity, cudaStream_t stream,
+                        void* ws = nullptr, long long nws = 0) {
   using P = gt::FDPlan<T, NJ>;
-  if (L == 0) return 0;
-  static_assert(P::G >= 1, "one fd_du knot must fit in shared memory");
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      fd_du_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)P::BYTES);
-  if (attr != cudaSuccess) return (int)attr;
-  fd_du_kernel<T, NJ><<<(unsigned)((L + P::G - 1) / P::G),
-                        P::LANES * P::G, P::BYTES, stream>>>(
-      (const T*)model, (const T*)q, (const T*)qd, (const T*)u, (T*)dfdu,
-      (T*)qdd, (T*)Mi, L, (T)gravity);
-  return (int)cudaGetLastError();
+  if constexpr (P::WS > 0) {
+    return gt::launch_ws<P>(fd_du_ws_kernel<T, NJ>, L, ws, nws, stream,
+                            (const T*)model, (const T*)q, (const T*)qd,
+                            (const T*)u, (T*)dfdu, (T*)qdd, (T*)Mi, L,
+                            (T)gravity, (T*)ws);
+  } else {
+    if (L == 0) return 0;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        fd_du_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    fd_du_kernel<T, NJ><<<(unsigned)((L + P::G - 1) / P::G),
+                          P::LANES * P::G, P::BYTES, stream>>>(
+        (const T*)model, (const T*)q, (const T*)qd, (const T*)u, (T*)dfdu,
+        (T*)qdd, (T*)Mi, L, (T)gravity);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <typename T, int NJ>
+static int fd_du_info(int* out) {
+  using P = gt::FDPlan<T, NJ>;
+  if constexpr (P::WS > 0)
+    return gt::kernel_info<P>((const void*)fd_du_ws_kernel<T, NJ>, out);
+  else
+    return gt::kernel_info<P>((const void*)fd_du_kernel<T, NJ>, out);
 }
 
 extern "C" int gridtorch_model_size(int nj) {
   return nj == GT_NJ ? gt::Layout<GT_NJ>::SIZE : -1;
 }
 
+// ws: the workspace of the device-memory route, nws knots, problems or
+// blocks (its plan's workspace_bytes each; ops/cuda/build.py:workspace);
+// ignored where the plan keeps everything in shared memory.
 extern "C" int gridtorch_fd_du(int dtype, int nj, const void* model,
                                const void* q, const void* qd, const void* u,
                                void* dfdu, void* qdd, void* Mi, long long L,
-                               double gravity, void* stream) {
+                               double gravity, void* stream,
+                               void* ws, long long nws) {
   GT_DISPATCH(dtype, nj,
               launch_fd_du<T, NJ>(model, q, qd, u, dfdu, qdd, Mi, L, gravity,
-                                  (cudaStream_t)stream));
+                                  (cudaStream_t)stream, ws, nws));
 }
 
 // The block plan (G; threads a knot; bytes a block) and
 // cudaFuncGetAttributes of the instance (warp.cuh:kernel_info), into
 // out[10].
 extern "C" int gridtorch_fd_du_info(int dtype, int nj, int* out) {
-  GT_DISPATCH(dtype, nj,
-              gt::kernel_info<gt::FDPlan<T, NJ>>(
-                  (const void*)fd_du_kernel<T, NJ>, out));
+  GT_DISPATCH(dtype, nj, (fd_du_info<T, NJ>(out)));
 }
 
 #endif

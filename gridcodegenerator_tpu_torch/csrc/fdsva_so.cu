@@ -67,17 +67,30 @@ static int launch_fdsva_so(const void* model, const void* q, const void* qd,
                            const void* u, void* out, long long L,
                            double gravity, cudaStream_t stream) {
   using P = gt::SOPlan<T, NJ>;
-  if (L == 0) return 0;
-  if (P::G < 1) return (int)cudaErrorInvalidConfiguration;
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      fdsva_so_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)P::BYTES);
-  if (attr != cudaSuccess) return (int)attr;
-  fdsva_so_kernel<T, NJ><<<(unsigned)((L + P::G - 1) / P::G),
-                           P::LANES * P::G, P::BYTES, stream>>>(
-      (const T*)model, (const T*)q, (const T*)qd, (const T*)u, (T*)out, L,
-      (T)gravity);
-  return (int)cudaGetLastError();
+  if constexpr (NJ > gt::SO_MAX_NJ) {   // the wrappers refuse it by name
+    return (int)cudaErrorNotSupported;
+  } else {
+    if (L == 0) return 0;
+    if (P::G < 1) return (int)cudaErrorInvalidConfiguration;
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        fdsva_so_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    fdsva_so_kernel<T, NJ><<<(unsigned)((L + P::G - 1) / P::G),
+                             P::LANES * P::G, P::BYTES, stream>>>(
+        (const T*)model, (const T*)q, (const T*)qd, (const T*)u, (T*)out, L,
+        (T)gravity);
+    return (int)cudaGetLastError();
+  }
+}
+
+template <typename T, int NJ>
+static int fdsva_so_info(int* out) {
+  if constexpr (NJ > gt::SO_MAX_NJ)
+    return gt::kernel_info<gt::SOPlan<T, NJ>>(nullptr, out);
+  else
+    return gt::kernel_info<gt::SOPlan<T, NJ>>(
+        (const void*)fdsva_so_kernel<T, NJ>, out);
 }
 
 extern "C" int gridtorch_fdsva_so(int dtype, int nj, const void* model,
@@ -93,9 +106,7 @@ extern "C" int gridtorch_fdsva_so(int dtype, int nj, const void* model,
 // block, for one knot if G is 0) and cudaFuncGetAttributes of the instance
 // (warp.cuh:kernel_info), into out[10].
 extern "C" int gridtorch_fdsva_so_info(int dtype, int nj, int* out) {
-  GT_DISPATCH(dtype, nj,
-              gt::kernel_info<gt::SOPlan<T, NJ>>(
-                  (const void*)fdsva_so_kernel<T, NJ>, out));
+  GT_DISPATCH(dtype, nj, (fdsva_so_info<T, NJ>(out)));
 }
 
 #endif

@@ -18,10 +18,11 @@
 // exact) the rollout is the line search's alpha row, bit for bit: the same
 // code computes both. What bounds it on the card: the bytes of K (N 2 NJ^2
 // values a problem) against N ABA steps; the design's limit is the step's
-// serial phases, as the rollout's. The plan:
-// `gridtorch_feedback_rollout_info`. feedback_rollout_lane is the serial
-// function: csrc/opcount.cpp counts the bound from it, and the host tests
-// hold the block code to its bits.
+// serial phases, as the rollout's. Above 52 joints in float64 the block's
+// tiles go to device memory (feedback_rollout_ws_kernel, sweep_warp.cuh:
+// RollShape's TILES_WS). The plan: `gridtorch_feedback_rollout_info`.
+// feedback_rollout_lane is the serial function: csrc/opcount.cpp counts
+// the bound from it, and the host tests hold the block code to its bits.
 //
 // Layout: x0 (2 NJ, B), Uref/kff (N, NJ, B), Xref (N, 2 NJ, B),
 // K (N, NJ, 2 NJ, B), bounds (NJ) or null; X (N, 2 NJ, B) holding the state
@@ -79,45 +80,96 @@ __global__ void feedback_rollout_kernel(
       N, B, 1, dt, gravity);
 }
 
+// The tiles in device memory (RollShape's TILES_WS; above 52 joints in
+// float64): nws blocks, each with its two buffers of G tiles at its place
+// in the workspace `ws`, striding over the groups of G problems.
+template <typename T, int NJ, class P>
+__global__ void feedback_rollout_ws_kernel(
+    const T* __restrict__ model, const T* __restrict__ x0,
+    const T* __restrict__ Uref, const T* __restrict__ Xref,
+    const T* __restrict__ kff, const T* __restrict__ K,
+    const T* __restrict__ lo, const T* __restrict__ hi, T* __restrict__ X,
+    T* __restrict__ U, int N, long long B, T dt, T gravity, T* ws) {
+  constexpr int W = P::LANES;
+  auto& H = *reinterpret_cast<gt::LSHead<T, NJ>*>(gt_smem);
+  T* rolls = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  T* tiles = ws + (long long)blockIdx.x * 2 * P::G * P::TILE;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  H.load(model, nullptr, 0, lo, hi, tid, nt);
+  for (long long b0 = (long long)blockIdx.x * P::G; b0 < B;
+       b0 += (long long)gridDim.x * P::G) {
+    __syncthreads();   // the head has landed; the last group's rows are out
+    gt::linesearch_block<T, NJ, gt::NoCost<T, NJ>, P::G, false>(
+        gt::WarpPar<W>{tid % W, 1 + tid / W}, tid, nt, tid / W, H, tiles,
+        P::TILE, rolls, P::STRIDE, 1, b0, 0, x0,
+        gt::FoldedStepLaw<T, NJ>{{Uref, Xref, kff, K, nullptr}}, X, U,
+        nullptr, N, B, 1, dt, gravity);
+  }
+}
+
 template <typename T, int NJ, class P>
 static int launch_feedback_rollout(const void* model, const void* x0,
                                    const void* Uref, const void* Xref,
                                    const void* kff, const void* K,
                                    const void* lo, const void* hi, void* X,
                                    void* U, int N, long long B, double dt,
-                                   double gravity, cudaStream_t stream) {
+                                   double gravity, cudaStream_t stream,
+                                   void* ws = nullptr, long long nws = 0) {
   if (B == 0 || N == 0) return 0;
-  static const cudaError_t attr =
-      gt::smem_attrs(feedback_rollout_kernel<T, NJ, P>, P::BYTES);
-  if (attr != cudaSuccess) return (int)attr;
-  feedback_rollout_kernel<T, NJ, P><<<(unsigned)((B + P::G - 1) / P::G),
-                                      P::G * P::LANES, P::BYTES, stream>>>(
-      (const T*)model, (const T*)x0, (const T*)Uref, (const T*)Xref,
-      (const T*)kff, (const T*)K, (const T*)lo, (const T*)hi, (T*)X, (T*)U,
-      N, B, (T)dt, (T)gravity);
+  const long long groups = (B + P::G - 1) / P::G;
+  if constexpr (P::TILES_WS) {
+    if (ws == nullptr || nws < 1) return (int)cudaErrorInvalidValue;
+    static const cudaError_t attr =
+        gt::smem_attrs(feedback_rollout_ws_kernel<T, NJ, P>, P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    feedback_rollout_ws_kernel<T, NJ, P>
+        <<<(unsigned)(nws < groups ? nws : groups), P::G * P::LANES,
+           P::BYTES, stream>>>(
+            (const T*)model, (const T*)x0, (const T*)Uref, (const T*)Xref,
+            (const T*)kff, (const T*)K, (const T*)lo, (const T*)hi, (T*)X,
+            (T*)U, N, B, (T)dt, (T)gravity, (T*)ws);
+  } else {
+    static const cudaError_t attr =
+        gt::smem_attrs(feedback_rollout_kernel<T, NJ, P>, P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    feedback_rollout_kernel<T, NJ, P><<<(unsigned)groups, P::G * P::LANES,
+                                        P::BYTES, stream>>>(
+        (const T*)model, (const T*)x0, (const T*)Uref, (const T*)Xref,
+        (const T*)kff, (const T*)K, (const T*)lo, (const T*)hi, (T*)X,
+        (T*)U, N, B, (T)dt, (T)gravity);
+  }
   return (int)cudaGetLastError();
 }
 
+// ws: the workspace of the device-memory route, nws knots, problems or
+// blocks (its plan's workspace_bytes each; ops/cuda/build.py:workspace);
+// ignored where the plan keeps everything in shared memory.
 extern "C" int gridtorch_feedback_rollout(
     int dtype, int nj, const void* model, const void* x0, const void* Uref,
     const void* Xref, const void* kff, const void* K, const void* lo,
     const void* hi, void* X, void* U, int N, long long B, double dt,
-    double gravity, void* stream) {
+    double gravity, void* stream, void* ws, long long nws) {
   GT_DISPATCH(dtype, nj,
               (launch_feedback_rollout<T, NJ, gt::FBPlan<T, NJ>>(
                   model, x0, Uref, Xref, kff, K, lo, hi, X, U, N, B, dt,
-                  gravity, (cudaStream_t)stream)));
+                  gravity, (cudaStream_t)stream, ws, nws)));
+}
+
+template <typename T, int NJ, class P = gt::FBPlan<T, NJ>>
+static int feedback_rollout_info(int* out) {
+  if constexpr (P::TILES_WS)
+    return gt::kernel_info<P>(
+        (const void*)feedback_rollout_ws_kernel<T, NJ, P>, out);
+  else
+    return gt::kernel_info<P>((const void*)feedback_rollout_kernel<T, NJ, P>,
+                              out);
 }
 
 // The block plan (problems a block; threads a rollout; bytes a block) and
 // cudaFuncGetAttributes of the instance (warp.cuh:kernel_info), into
 // out[10].
 extern "C" int gridtorch_feedback_rollout_info(int dtype, int nj, int* out) {
-  GT_DISPATCH(dtype, nj,
-              gt::kernel_info<gt::FBPlan<T, NJ>>(
-                  (const void*)feedback_rollout_kernel<T, NJ,
-                                                       gt::FBPlan<T, NJ>>,
-                  out));
+  GT_DISPATCH(dtype, nj, (feedback_rollout_info<T, NJ>(out)));
 }
 
 #endif

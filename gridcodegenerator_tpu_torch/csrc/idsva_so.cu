@@ -183,7 +183,9 @@ static int launch_idsva_so_plan(const void* model, const void* q,
                                 const void* qd, const void* qdd, void* out,
                                 long long L, double gravity,
                                 cudaStream_t stream) {
-  if constexpr (gt::IDSOPlan<T, NJ>::G >= 1)
+  if constexpr (NJ > gt::SO_MAX_NJ)   // the wrappers refuse it by name
+    return (int)cudaErrorNotSupported;
+  else if constexpr (gt::IDSOPlan<T, NJ>::G >= 1)
     return launch_idsva_so<T, NJ, gt::IDSOPlan<T, NJ>>(
         model, q, qd, qdd, out, L, gravity, stream);
   else
@@ -193,7 +195,9 @@ static int launch_idsva_so_plan(const void* model, const void* q,
 
 template <typename T, int NJ>
 static int idsva_so_info(int* out) {
-  if constexpr (gt::IDSOPlan<T, NJ>::G >= 1)
+  if constexpr (NJ > gt::SO_MAX_NJ)
+    return gt::kernel_info<gt::IDSOBandPlan<T, NJ>>(nullptr, out);
+  else if constexpr (gt::IDSOPlan<T, NJ>::G >= 1)
     return gt::kernel_info<gt::IDSOPlan<T, NJ>>(
         (const void*)idsva_so_kernel<T, NJ, gt::IDSOPlan<T, NJ>>, out);
   else

@@ -38,9 +38,11 @@
 // What bounds it on the card: operations (the ABA steps; bytes: N (2 NJ^2 +
 // 4 NJ) values a problem in, N 3 NJ a rollout out); the design's limits are
 // the step's serial phases (a chain of L joints is L levels) and the
-// rollouts shared memory holds on an SM. The plans (problems a block x
-// threads a rollout, rows a block, bytes a block):
-// `gridtorch_linesearch_info`.
+// rollouts shared memory holds on an SM. Above 52 joints in float64 a
+// problem's two tiles and one rollout do not fit a block: the tiles go to
+// device memory (linesearch_ws_kernel, sweep_warp.cuh:LSPlan's TILES_WS).
+// The plans (problems a block x threads a rollout, rows a block, bytes a
+// block): `gridtorch_linesearch_info`.
 //
 // Layout: x0 (2 NJ, B), Uref/k (N, NJ, B), Xref (N, 2 NJ, B),
 // K (N, NJ, 2 NJ, B), alpha_rows (na, B), bounds (NJ) or null;
@@ -176,6 +178,64 @@ __global__ void linesearch_kernel(
       na, dt, gravity);
 }
 
+// The tiles in device memory (LSPlan's TILES_WS; above 52 joints in
+// float64): nws blocks, each with its two buffers of G tiles at its place
+// in the workspace `ws`, striding over the grid's blocks (problems, then
+// step-size rows); the rollouts in shared memory, after the head.
+template <typename T, int NJ, class Cost>
+__global__ void linesearch_ws_kernel(
+    const T* __restrict__ model, const T* __restrict__ x0,
+    const T* __restrict__ Uref, const T* __restrict__ Xref,
+    const T* __restrict__ k, const T* __restrict__ K,
+    const T* __restrict__ alpha_rows, const T* __restrict__ lo,
+    const T* __restrict__ hi, T* __restrict__ X, T* __restrict__ U,
+    T* __restrict__ cost, int N, long long B, int na, int rows, T dt,
+    T gravity, const T* __restrict__ cbuf, int ncost, T* ws) {
+  using P = gt::LSPlan<T, NJ>;
+  constexpr int W = P::LANES;
+  auto& H = *reinterpret_cast<gt::LSHead<T, NJ>*>(gt_smem);
+  T* rolls = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  T* tiles = ws + (long long)blockIdx.x * 2 * P::G * P::TILE;
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const long long bx = (B + P::G - 1) / P::G;
+  const long long blocks = bx * ((na + rows - 1) / rows);
+  H.load(model, cbuf, ncost, lo, hi, tid, nt);
+  for (long long v = blockIdx.x; v < blocks; v += gridDim.x) {
+    __syncthreads();   // the head has landed; the last block's rows are out
+    gt::linesearch_block<T, NJ, Cost, P::G, false>(
+        gt::WarpPar<W>{tid % W, 1 + tid / W}, tid, nt, tid / W, H, tiles,
+        P::TILE, rolls, P::STRIDE, rows, v % bx * P::G, (int)(v / bx) * rows,
+        x0, gt::FeedbackLaw<T, NJ>{Uref, Xref, k, K, alpha_rows}, X, U, cost,
+        N, B, na, dt, gravity);
+  }
+}
+
+// One cost's kernel over `grid` (problems, step-size rows) blocks: on the
+// shared-memory route a block each; with the tiles in device memory (the
+// args then end with the workspace) min(nws, blocks) blocks striding over
+// them.
+template <typename T, int NJ, class Cost, class... A>
+static int launch_ls_cost(dim3 grid, int threads, int bytes,
+                          cudaStream_t stream, void* ws, long long nws,
+                          A... args) {
+  using P = gt::LSPlan<T, NJ>;
+  if constexpr (P::TILES_WS) {
+    auto fn = linesearch_ws_kernel<T, NJ, Cost>;
+    const long long blocks = (long long)grid.x * grid.y;
+    if (ws == nullptr || nws < 1) return (int)cudaErrorInvalidValue;
+    static const cudaError_t attr = gt::smem_attrs(fn, P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    fn<<<(unsigned)(nws < blocks ? nws : blocks), threads, bytes, stream>>>(
+        args..., (T*)ws);
+  } else {
+    auto fn = linesearch_kernel<T, NJ, Cost>;
+    static const cudaError_t attr = gt::smem_attrs(fn, P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    fn<<<grid, threads, bytes, stream>>>(args...);
+  }
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int NJ>
 static int launch_linesearch(const void* model, const void* x0,
                              const void* Uref, const void* Xref,
@@ -184,7 +244,8 @@ static int launch_linesearch(const void* model, const void* x0,
                              const void* hi, void* X, void* U, void* cost,
                              int N, long long B, int na, double dt,
                              double gravity, int kind, const void* cbuf,
-                             cudaStream_t stream) {
+                             cudaStream_t stream, void* ws = nullptr,
+                             long long nws = 0) {
   using P = gt::LSPlan<T, NJ>;
   static_assert(P::ROWS >= 1, "one line-search rollout a problem must fit");
   if (na == 0 || B == 0 || N == 0) return 0;
@@ -198,49 +259,52 @@ static int launch_linesearch(const void* model, const void* x0,
       (const T*)k, (const T*)K, (const T*)alpha_rows, (const T*)lo,         \
       (const T*)hi, (T*)X, (T*)U, (T*)cost, N, B, na, rows, (T)dt,          \
       (T)gravity, (const T*)cbuf
-  if (kind == 0) {
-    auto fn = linesearch_kernel<T, NJ, gt::EECostW<T, NJ>>;
-    static const cudaError_t attr = gt::smem_attrs(fn, P::BYTES);
-    if (attr != cudaSuccess) return (int)attr;
-    fn<<<grid, threads, bytes, stream>>>(GT_LS_ARGS, 7);
-  } else if (kind == 1) {
-    auto fn = linesearch_kernel<T, NJ, gt::QuadCostW<T, NJ>>;
-    static const cudaError_t attr = gt::smem_attrs(fn, P::BYTES);
-    if (attr != cudaSuccess) return (int)attr;
-    fn<<<grid, threads, bytes, stream>>>(GT_LS_ARGS, 7 * NJ);
-  } else if (kind == 2) {
-    auto fn = linesearch_kernel<T, NJ, gt::NoCost<T, NJ>>;
-    static const cudaError_t attr = gt::smem_attrs(fn, P::BYTES);
-    if (attr != cudaSuccess) return (int)attr;
-    fn<<<grid, threads, bytes, stream>>>(GT_LS_ARGS, 0);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
+  int err = (int)cudaErrorInvalidValue;
+  if (kind == 0)
+    err = launch_ls_cost<T, NJ, gt::EECostW<T, NJ>>(
+        grid, threads, bytes, stream, ws, nws, GT_LS_ARGS, 7);
+  else if (kind == 1)
+    err = launch_ls_cost<T, NJ, gt::QuadCostW<T, NJ>>(
+        grid, threads, bytes, stream, ws, nws, GT_LS_ARGS, 7 * NJ);
+  else if (kind == 2)
+    err = launch_ls_cost<T, NJ, gt::NoCost<T, NJ>>(
+        grid, threads, bytes, stream, ws, nws, GT_LS_ARGS, 0);
 #undef GT_LS_ARGS
-  return (int)cudaGetLastError();
+  return err;
 }
 
+// ws: the workspace of the device-memory route, nws knots, problems or
+// blocks (its plan's workspace_bytes each; ops/cuda/build.py:workspace);
+// ignored where the plan keeps everything in shared memory.
 extern "C" int gridtorch_linesearch(
     int dtype, int nj, const void* model, const void* x0, const void* Uref,
     const void* Xref, const void* k, const void* K, const void* alpha_rows,
     const void* lo, const void* hi, void* X, void* U, void* cost, int N,
     long long B, int na, double dt, double gravity, int kind,
-    const void* cbuf, void* stream) {
+    const void* cbuf, void* stream, void* ws, long long nws) {
   GT_DISPATCH(dtype, nj,
               launch_linesearch<T, NJ>(model, x0, Uref, Xref, k, K,
                                        alpha_rows, lo, hi, X, U, cost, N, B,
                                        na, dt, gravity, kind, cbuf,
-                                       (cudaStream_t)stream));
+                                       (cudaStream_t)stream, ws, nws));
+}
+
+template <typename T, int NJ>
+static int linesearch_info(int* out) {
+  using P = gt::LSPlan<T, NJ>;
+  using C = gt::EECostW<T, NJ>;
+  if constexpr (P::TILES_WS)
+    return gt::kernel_info<P>((const void*)linesearch_ws_kernel<T, NJ, C>,
+                              out);
+  else
+    return gt::kernel_info<P>((const void*)linesearch_kernel<T, NJ, C>, out);
 }
 
 // The block plan (problems a block; threads a rollout; bytes a block at
 // the most rows; rows a block at most) and cudaFuncGetAttributes of the EE
 // instance (warp.cuh:kernel_info), into out[10].
 extern "C" int gridtorch_linesearch_info(int dtype, int nj, int* out) {
-  GT_DISPATCH(dtype, nj,
-              gt::kernel_info<gt::LSPlan<T, NJ>>(
-                  (const void*)linesearch_kernel<T, NJ, gt::EECostW<T, NJ>>,
-                  out));
+  GT_DISPATCH(dtype, nj, (linesearch_info<T, NJ>(out)));
 }
 
 #endif

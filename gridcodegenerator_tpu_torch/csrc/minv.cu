@@ -30,6 +30,8 @@
 // operations); the design's limits are the serial phases' latency at small
 // batches and, at large ones, the knots an SM holds (4.8 KB of shared memory
 // a 7-joint knot in float32).
+// From 47 joints in float64 no knot fits a block: the knot runs a block at
+// a time, its state in device memory (minv_ws_kernel, warp.cuh:WsPlan).
 // G, the threads a knot, the bytes a block and cudaFuncGetAttributes of the
 // instance: `gridtorch_minv_info`.
 #include "warp.cuh"
@@ -58,45 +60,84 @@ __global__ void minv_kernel(const T* __restrict__ model,
   gt::store_rows<T, S>(knots + O::MI, NJ * NJ, Mi, L, l0, G, tid, nt);
 }
 
+// The device-memory route (warp.cuh:WsPlan; from 47 joints in float64): a
+// knot a block at a time, the robot constants in shared memory, the knot's
+// state in the workspace `ws` (a knot a block), the blocks striding over
+// the lanes (warp.cuh:ws_lanes).
+template <typename T, int NJ, bool DENSE, class P>
+__global__ void minv_ws_kernel(const T* __restrict__ model,
+                               const T* __restrict__ q, T* __restrict__ Mi,
+                               long long L, T* ws) {
+  using O = gt::MinvKnot<NJ>;
+  constexpr int N = P::LANES, S = O::SIZE;
+  auto& R = *reinterpret_cast<gt::RobotConst<T, NJ>*>(gt_smem);
+  T* k = ws + (long long)blockIdx.x * S;
+  const int tid = threadIdx.x;
+  R.load_tree(model, tid, N);
+  gt::ws_lanes(
+      L, [&](long long l) { gt::load_q<T, NJ, S>(q, L, l, 1, k, tid, N); },
+      [&] { gt::minv_knot<DENSE, T, NJ>(gt::WarpPar<N>{tid, 1}, R, k); },
+      [&](long long l) {
+        gt::store_rows<T, S>(k + O::MI, NJ * NJ, Mi, L, l, 1, tid, N);
+      });
+}
+
 template <typename T, int NJ, bool DENSE, class P>
 static int launch_minv_mode(const void* model, const void* q, void* Mi,
-                            long long L, cudaStream_t stream) {
-  static const cudaError_t attr =
-      gt::smem_attrs(minv_kernel<T, NJ, DENSE, P>, P::BYTES);
-  if (attr != cudaSuccess) return (int)attr;
-  minv_kernel<T, NJ, DENSE, P><<<(unsigned)((L + P::G - 1) / P::G),
-                                 P::LANES * P::G, P::BYTES, stream>>>(
-      (const T*)model, (const T*)q, (T*)Mi, L);
-  return (int)cudaGetLastError();
+                            long long L, cudaStream_t stream, void* ws,
+                            long long nws) {
+  if constexpr (gt::PlanWs<P>::value > 0) {
+    return gt::launch_ws<P>(minv_ws_kernel<T, NJ, DENSE, P>, L, ws, nws,
+                            stream, (const T*)model, (const T*)q, (T*)Mi, L,
+                            (T*)ws);
+  } else {
+    static const cudaError_t attr =
+        gt::smem_attrs(minv_kernel<T, NJ, DENSE, P>, P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    minv_kernel<T, NJ, DENSE, P><<<(unsigned)((L + P::G - 1) / P::G),
+                                   P::LANES * P::G, P::BYTES, stream>>>(
+        (const T*)model, (const T*)q, (T*)Mi, L);
+    return (int)cudaGetLastError();
+  }
 }
 
 // dense != 0: Minv dense; else the upper factor, exact zeros below.
 template <typename T, int NJ, class P = gt::MinvPlan<T, NJ>>
 static int launch_minv(const void* model, const void* q, void* Mi,
-                       long long L, int dense, cudaStream_t stream) {
-  static_assert(P::G >= 1, "one minv knot must fit in shared memory");
+                       long long L, int dense, cudaStream_t stream,
+                       void* ws = nullptr, long long nws = 0) {
   if (L == 0) return 0;
   if (dense)
-    return launch_minv_mode<T, NJ, true, P>(model, q, Mi, L, stream);
-  return launch_minv_mode<T, NJ, false, P>(model, q, Mi, L, stream);
+    return launch_minv_mode<T, NJ, true, P>(model, q, Mi, L, stream, ws,
+                                            nws);
+  return launch_minv_mode<T, NJ, false, P>(model, q, Mi, L, stream, ws, nws);
 }
 
+// ws: the workspace of the device-memory route, nws knots, problems or
+// blocks (its plan's workspace_bytes each; ops/cuda/build.py:workspace);
+// ignored where the plan keeps everything in shared memory.
 extern "C" int gridtorch_minv(int dtype, int nj, const void* model,
                               const void* q, void* Mi, long long L, int dense,
-                              void* stream) {
+                              void* stream, void* ws, long long nws) {
   GT_DISPATCH(dtype, nj,
               launch_minv<T, NJ>(model, q, Mi, L, dense,
-                                 (cudaStream_t)stream));
+                                 (cudaStream_t)stream, ws, nws));
+}
+
+template <typename T, int NJ, class P = gt::MinvPlan<T, NJ>>
+static int minv_info(int* out) {
+  if constexpr (P::WS > 0)
+    return gt::kernel_info<P>((const void*)minv_ws_kernel<T, NJ, true, P>,
+                              out);
+  else
+    return gt::kernel_info<P>((const void*)minv_kernel<T, NJ, true, P>, out);
 }
 
 // The block plan (G; threads a knot; bytes a block) and
 // cudaFuncGetAttributes of the dense instance (warp.cuh:kernel_info; the
 // upper one's plan is the same), into out[11].
 extern "C" int gridtorch_minv_info(int dtype, int nj, int* out) {
-  GT_DISPATCH(dtype, nj,
-              (gt::kernel_info<gt::MinvPlan<T, NJ>>(
-                  (const void*)minv_kernel<T, NJ, true, gt::MinvPlan<T, NJ>>,
-                  out)));
+  GT_DISPATCH(dtype, nj, (minv_info<T, NJ>(out)));
 }
 
 #endif

@@ -32,7 +32,10 @@
 // `gridtorch_riccati_factored_info`, `gridtorch_riccati_info` (stationary),
 // `gridtorch_riccati_stacked_info`. riccati_lane and riccati_dense_lane are
 // the serial functions: csrc/opcount.cpp counts the bound from them, and
-// the host tests hold the block code to their bits.
+// the host tests hold the block code to their bits. Where not even one
+// problem fits a block (from 30 to 48 joints, by curvature and dtype), a
+// problem runs a block at a time with 128 threads, its state in device
+// memory staged by plain copies (riccati_ws, sweep_warp.cuh:RicPlan).
 //
 // Layouts: A (N, NX, NX, B), Bm (N, NX, NJ, B), Vx0 (NX, B),
 // Vxx0 (NX, NX, B); outputs k (N, NJ, B), K (N, NJ, NX, B).
@@ -302,25 +305,65 @@ __global__ void riccati_factored_kernel(
                                  ks, Ks, N, B, reg);
 }
 
+// The device-memory route (warp.cuh:WsPlan, RicPlan; from 30 to 48
+// joints, by curvature and dtype): a problem a block at a time, its state
+// in the workspace `ws` (a problem a block), staged by plain copies, the
+// blocks striding over the problems.
+template <typename T, int NJ, class P, class In>
+__device__ __forceinline__ void riccati_ws(const In& in, const T* Vx0,
+                                           const T* Vxx0, T* ks, T* Ks,
+                                           int N, long long B, T reg, T* ws) {
+  constexpr int W = P::LANES;
+  T* k = ws + (long long)blockIdx.x * P::STRIDE;
+  const int tid = threadIdx.x;
+  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
+    __syncthreads();   // the last problem's gains are out
+    gt::riccati_block<T, NJ, 1, false>(gt::WarpPar<W>{tid, 1}, tid, W, 0, k,
+                                       P::STRIDE, b, in, Vx0, Vxx0, ks, Ks,
+                                       N, B, reg);
+  }
+}
+
+template <typename T, int NJ>
+__global__ void riccati_factored_ws_kernel(
+    const T* __restrict__ A, const T* __restrict__ Bm,
+    const T* __restrict__ lx, const T* __restrict__ lu,
+    const T* __restrict__ Jw, const T* __restrict__ Vx0,
+    const T* __restrict__ Vxx0, T* __restrict__ ks, T* __restrict__ Ks,
+    int N, long long B, int r, T reg, T qd_diag, T u_diag, T* ws) {
+  using P = gt::RicPlan<T, NJ>;
+  const gt::FactoredIn<T, NJ, P::BUFS> in{
+      A, Bm, lx, lu, Jw, B, N, r, qd_diag, u_diag};
+  riccati_ws<T, NJ, P>(in, Vx0, Vxx0, ks, Ks, N, B, reg, ws);
+}
+
 template <typename T, int NJ>
 static int launch_riccati(const void* A, const void* Bm, const void* lx,
                           const void* lu, const void* Jw, const void* Vx0,
                           const void* Vxx0, void* ks, void* Ks, int N,
                           long long B, int r, double reg, double qd_diag,
-                          double u_diag, cudaStream_t stream) {
+                          double u_diag, cudaStream_t stream,
+                          void* ws = nullptr, long long nws = 0) {
   using P = gt::RicPlan<T, NJ>;
-  static_assert(P::G >= 1, "one riccati_factored problem must fit");
   if (B == 0 || N == 0) return 0;
   if (r < 1 || r > gt::RicKnot<NJ>::RMAX) return (int)cudaErrorInvalidValue;
-  static const cudaError_t attr =
-      gt::smem_attrs(riccati_factored_kernel<T, NJ>, P::BYTES);
-  if (attr != cudaSuccess) return (int)attr;
-  riccati_factored_kernel<T, NJ><<<(unsigned)((B + P::G - 1) / P::G),
-                                   P::LANES * P::G, P::BYTES, stream>>>(
-      (const T*)A, (const T*)Bm, (const T*)lx, (const T*)lu, (const T*)Jw,
-      (const T*)Vx0, (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, r, (T)reg,
-      (T)qd_diag, (T)u_diag);
-  return (int)cudaGetLastError();
+  if constexpr (P::WS > 0) {
+    return gt::launch_ws<P>(riccati_factored_ws_kernel<T, NJ>, B, ws, nws,
+                            stream, (const T*)A, (const T*)Bm, (const T*)lx,
+                            (const T*)lu, (const T*)Jw, (const T*)Vx0,
+                            (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, r, (T)reg,
+                            (T)qd_diag, (T)u_diag, (T*)ws);
+  } else {
+    static const cudaError_t attr =
+        gt::smem_attrs(riccati_factored_kernel<T, NJ>, P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    riccati_factored_kernel<T, NJ><<<(unsigned)((B + P::G - 1) / P::G),
+                                     P::LANES * P::G, P::BYTES, stream>>>(
+        (const T*)A, (const T*)Bm, (const T*)lx, (const T*)lu, (const T*)Jw,
+        (const T*)Vx0, (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, r, (T)reg,
+        (T)qd_diag, (T)u_diag);
+    return (int)cudaGetLastError();
+  }
 }
 
 // the dense sweep: STAT, a stationary curvature in each problem's state
@@ -349,52 +392,102 @@ __global__ void riccati_kernel(
 }
 
 template <typename T, int NJ, bool STAT>
+__global__ void riccati_ws_kernel(
+    const T* __restrict__ A, const T* __restrict__ Bm,
+    const T* __restrict__ lx, const T* __restrict__ lu,
+    const T* __restrict__ lxx, const T* __restrict__ luu,
+    const T* __restrict__ lux, const T* __restrict__ Vx0,
+    const T* __restrict__ Vxx0, T* __restrict__ ks, T* __restrict__ Ks,
+    int N, long long B, T reg, T* ws) {
+  using P = DensePlan<T, NJ, STAT>;
+  const gt::DenseIn<T, NJ, STAT, P::BUFS> in{
+      A, Bm, lx, lu, lxx, luu, lux, B};
+  riccati_ws<T, NJ, P>(in, Vx0, Vxx0, ks, Ks, N, B, reg, ws);
+}
+
+template <typename T, int NJ, bool STAT>
 static int launch_dense(const void* A, const void* Bm, const void* lx,
                         const void* lu, const void* lxx, const void* luu,
                         const void* lux, const void* Vx0, const void* Vxx0,
                         void* ks, void* Ks, int N, long long B, double reg,
-                        cudaStream_t stream) {
+                        cudaStream_t stream, void* ws = nullptr,
+                        long long nws = 0) {
   using P = DensePlan<T, NJ, STAT>;
-  static_assert(P::G >= 1, "one riccati problem must fit");
   if (B == 0 || N == 0) return 0;
-  static const cudaError_t attr =
-      gt::smem_attrs(riccati_kernel<T, NJ, STAT>, P::BYTES);
-  if (attr != cudaSuccess) return (int)attr;
-  riccati_kernel<T, NJ, STAT><<<(unsigned)((B + P::G - 1) / P::G),
-                                P::LANES * P::G, P::BYTES, stream>>>(
-      (const T*)A, (const T*)Bm, (const T*)lx, (const T*)lu, (const T*)lxx,
-      (const T*)luu, (const T*)lux, (const T*)Vx0, (const T*)Vxx0, (T*)ks,
-      (T*)Ks, N, B, (T)reg);
-  return (int)cudaGetLastError();
+  if constexpr (P::WS > 0) {
+    return gt::launch_ws<P>(riccati_ws_kernel<T, NJ, STAT>, B, ws, nws,
+                            stream, (const T*)A, (const T*)Bm, (const T*)lx,
+                            (const T*)lu, (const T*)lxx, (const T*)luu,
+                            (const T*)lux, (const T*)Vx0, (const T*)Vxx0,
+                            (T*)ks, (T*)Ks, N, B, (T)reg, (T*)ws);
+  } else {
+    static const cudaError_t attr =
+        gt::smem_attrs(riccati_kernel<T, NJ, STAT>, P::BYTES);
+    if (attr != cudaSuccess) return (int)attr;
+    riccati_kernel<T, NJ, STAT><<<(unsigned)((B + P::G - 1) / P::G),
+                                  P::LANES * P::G, P::BYTES, stream>>>(
+        (const T*)A, (const T*)Bm, (const T*)lx, (const T*)lu,
+        (const T*)lxx, (const T*)luu, (const T*)lux, (const T*)Vx0,
+        (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, (T)reg);
+    return (int)cudaGetLastError();
+  }
 }
 
+// ws: the workspace of the device-memory route, nws knots, problems or
+// blocks (its plan's workspace_bytes each; ops/cuda/build.py:workspace);
+// ignored where the plan keeps everything in shared memory.
 extern "C" int gridtorch_riccati(int dtype, int nj, const void* A,
                                  const void* Bm, const void* lx,
                                  const void* lu, const void* lxx,
                                  const void* luu, const void* lux,
                                  int stationary, const void* Vx0,
                                  const void* Vxx0, void* ks, void* Ks, int N,
-                                 long long B, double reg, void* stream) {
+                                 long long B, double reg, void* stream,
+                                 void* ws, long long nws) {
   if (stationary)
     GT_DISPATCH(dtype, nj,
                 launch_dense<T, NJ, true>(
                     A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, ks, Ks, N, B,
-                    reg, (cudaStream_t)stream));
+                    reg, (cudaStream_t)stream, ws, nws));
   GT_DISPATCH(dtype, nj,
               launch_dense<T, NJ, false>(
                   A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, ks, Ks, N, B, reg,
-                  (cudaStream_t)stream));
+                  (cudaStream_t)stream, ws, nws));
 }
 
+// ws: the workspace of the device-memory route, nws knots, problems or
+// blocks (its plan's workspace_bytes each; ops/cuda/build.py:workspace);
+// ignored where the plan keeps everything in shared memory.
 extern "C" int gridtorch_riccati_factored(
     int dtype, int nj, const void* A, const void* Bm, const void* lx,
     const void* lu, const void* Jw, const void* Vx0, const void* Vxx0,
     void* ks, void* Ks, int N, long long B, int r, double reg,
-    double qd_diag, double u_diag, void* stream) {
+    double qd_diag, double u_diag, void* stream, void* ws, long long nws) {
   GT_DISPATCH(dtype, nj,
               launch_riccati<T, NJ>(A, Bm, lx, lu, Jw, Vx0, Vxx0, ks, Ks, N,
                                     B, r, reg, qd_diag, u_diag,
-                                    (cudaStream_t)stream));
+                                    (cudaStream_t)stream, ws, nws));
+}
+
+template <typename T, int NJ>
+static int riccati_factored_info(int* out) {
+  using P = gt::RicPlan<T, NJ>;
+  if constexpr (P::WS > 0)
+    return gt::kernel_info<P>(
+        (const void*)riccati_factored_ws_kernel<T, NJ>, out);
+  else
+    return gt::kernel_info<P>((const void*)riccati_factored_kernel<T, NJ>,
+                              out);
+}
+
+template <typename T, int NJ, bool STAT>
+static int riccati_info(int* out) {
+  using P = DensePlan<T, NJ, STAT>;
+  if constexpr (P::WS > 0)
+    return gt::kernel_info<P>((const void*)riccati_ws_kernel<T, NJ, STAT>,
+                              out);
+  else
+    return gt::kernel_info<P>((const void*)riccati_kernel<T, NJ, STAT>, out);
 }
 
 // The block plan (problems a block; threads a problem; bytes a block) and
@@ -402,21 +495,15 @@ extern "C" int gridtorch_riccati_factored(
 // out[10]: riccati_factored, the dense sweep with a stationary curvature
 // (riccati) and with a block per knot (riccati_stacked).
 extern "C" int gridtorch_riccati_factored_info(int dtype, int nj, int* out) {
-  GT_DISPATCH(dtype, nj,
-              gt::kernel_info<gt::RicPlan<T, NJ>>(
-                  (const void*)riccati_factored_kernel<T, NJ>, out));
+  GT_DISPATCH(dtype, nj, (riccati_factored_info<T, NJ>(out)));
 }
 
 extern "C" int gridtorch_riccati_info(int dtype, int nj, int* out) {
-  GT_DISPATCH(dtype, nj,
-              gt::kernel_info<DensePlan<T, NJ, true>>(
-                  (const void*)riccati_kernel<T, NJ, true>, out));
+  GT_DISPATCH(dtype, nj, (riccati_info<T, NJ, true>(out)));
 }
 
 extern "C" int gridtorch_riccati_stacked_info(int dtype, int nj, int* out) {
-  GT_DISPATCH(dtype, nj,
-              gt::kernel_info<DensePlan<T, NJ, false>>(
-                  (const void*)riccati_kernel<T, NJ, false>, out));
+  GT_DISPATCH(dtype, nj, (riccati_info<T, NJ, false>(out)));
 }
 
 #endif

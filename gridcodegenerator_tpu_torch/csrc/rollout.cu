@@ -79,6 +79,7 @@ static int launch_rollout(const void* model, const void* x0, const void* U,
                           const void* lo, const void* hi, void* X, int N,
                           long long B, double dt, double gravity,
                           cudaStream_t stream) {
+  static_assert(!P::TILES_WS, "the open-loop rollout's tiles fit a block");
   if (B == 0 || N == 0) return 0;
   static const cudaError_t attr =
       gt::smem_attrs(rollout_kernel<T, NJ, P>, P::BYTES);

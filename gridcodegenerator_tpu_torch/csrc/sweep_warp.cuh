@@ -37,10 +37,16 @@ namespace gt {
 // ---------------------------------------------------------------------------
 
 // One value from device memory into shared memory: cp.async on the card
-// (completed by async_wait), a plain copy on the host.
-template <typename T>
+// (completed by async_wait), a plain copy on the host. ASYNC false (a
+// destination in device memory: the device-memory routes, where cp.async,
+// which writes shared memory only, cannot stage): a plain copy.
+template <bool ASYNC = true, typename T>
 GT_HDI void async_copy(T* dst, const T* src) {
 #ifdef __CUDA_ARCH__
+  if (!ASYNC) {
+    *dst = *src;
+    return;
+  }
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d),
                "l"(src), "n"((int)sizeof(T))
@@ -67,15 +73,16 @@ GT_HDI void async_wait() {
 // rows x G values of a lane-major array into the buffers of G units (G a
 // compile-time constant: the index arithmetic folds), S values apart:
 // (row, g) at src[row * stride + g] goes to dst[g * S + row]; units
-// g >= nvalid (past the last lane) get zeros
-template <int G, typename T>
+// g >= nvalid (past the last lane) get zeros; ASYNC: by cp.async
+// (async_copy)
+template <int G, bool ASYNC = true, typename T>
 GT_HD void stage_runs(const T* src, long long stride, int rows, int nvalid,
                       T* dst, long long S, int tid, int nt) {
   for (int e = tid; e < rows * G; e += nt) {
     const int row = e / G, g = e % G;
     T* d = dst + g * S + row;
     if (g < nvalid) {
-      async_copy(d, src + row * stride + g);
+      async_copy<ASYNC>(d, src + row * stride + g);
     } else {
       *d = T(0);
     }
@@ -147,19 +154,20 @@ struct FactoredIn {
   int N, r;
   T qd_diag, u_diag;
   // knot t of problems b0 .. b0 + G - 1 into the tiles at `dst`
-  template <int G>
+  template <int G, bool ASYNC = true>
   GT_HD void stage(int t, long long b0, int nvalid, T* dst, long long S,
                    int tid, int nt) const {
     const long long NB = (long long)N * B, ln = (long long)t * B + b0;
-    stage_runs<G>(A + (long long)t * NX * NX * B + b0, B, NX * NX, nvalid,
-                  dst + O::AT, S, tid, nt);
-    stage_runs<G>(Bm + (long long)t * NX * NJ * B + b0, B, NX * NJ, nvalid,
-                  dst + O::BT, S, tid, nt);
-    stage_runs<G>(lx + ln, NB, NX, nvalid, dst + O::LX, S, tid, nt);
-    stage_runs<G>(lu + ln, NB, NJ, nvalid, dst + O::LU, S, tid, nt);
-    stage_runs<G>(Jw + ln, NB, r * NJ, nvalid, dst + O::JW, S, tid, nt);
+    stage_runs<G, ASYNC>(A + (long long)t * NX * NX * B + b0, B, NX * NX,
+                         nvalid, dst + O::AT, S, tid, nt);
+    stage_runs<G, ASYNC>(Bm + (long long)t * NX * NJ * B + b0, B, NX * NJ,
+                         nvalid, dst + O::BT, S, tid, nt);
+    stage_runs<G, ASYNC>(lx + ln, NB, NX, nvalid, dst + O::LX, S, tid, nt);
+    stage_runs<G, ASYNC>(lu + ln, NB, NJ, nvalid, dst + O::LU, S, tid, nt);
+    stage_runs<G, ASYNC>(Jw + ln, NB, r * NJ, nvalid, dst + O::JW, S, tid,
+                         nt);
   }
-  template <int G>
+  template <int G, bool ASYNC = true>
   GT_HDI void stage_once(long long, int, T*, long long, int, int) const {}
   GT_HDI const T* curv(const T*, const T* tile) const { return tile + O::JW; }
   GT_HDI T xx(const T* J, int i, int j, T s) const {
@@ -190,33 +198,35 @@ struct DenseIn {
   long long B;
   // knot t's blocks (block 0: the stationary ones) of problems b0 .. into
   // the dense blocks at `dst`
-  template <int G>
+  template <int G, bool ASYNC = true>
   GT_HD void stage_curv(int t, long long b0, int nvalid, T* dst, long long S,
                         int tid, int nt) const {
-    stage_runs<G>(lxx + (long long)t * NX * NX * B + b0, B, NX * NX, nvalid,
-                  dst + O::CXX, S, tid, nt);
-    stage_runs<G>(luu + (long long)t * NJ * NJ * B + b0, B, NJ * NJ, nvalid,
-                  dst + O::CUU, S, tid, nt);
-    stage_runs<G>(lux + (long long)t * NJ * NX * B + b0, B, NJ * NX, nvalid,
-                  dst + O::CUX, S, tid, nt);
+    stage_runs<G, ASYNC>(lxx + (long long)t * NX * NX * B + b0, B, NX * NX,
+                         nvalid, dst + O::CXX, S, tid, nt);
+    stage_runs<G, ASYNC>(luu + (long long)t * NJ * NJ * B + b0, B, NJ * NJ,
+                         nvalid, dst + O::CUU, S, tid, nt);
+    stage_runs<G, ASYNC>(lux + (long long)t * NJ * NX * B + b0, B, NJ * NX,
+                         nvalid, dst + O::CUX, S, tid, nt);
   }
-  template <int G>
+  template <int G, bool ASYNC = true>
   GT_HD void stage(int t, long long b0, int nvalid, T* dst, long long S,
                    int tid, int nt) const {
-    stage_runs<G>(A + (long long)t * NX * NX * B + b0, B, NX * NX, nvalid,
-                  dst + O::AT, S, tid, nt);
-    stage_runs<G>(Bm + (long long)t * NX * NJ * B + b0, B, NX * NJ, nvalid,
-                  dst + O::BT, S, tid, nt);
-    stage_runs<G>(lx + (long long)t * NX * B + b0, B, NX, nvalid,
-                  dst + O::LX, S, tid, nt);
-    stage_runs<G>(lu + (long long)t * NJ * B + b0, B, NJ, nvalid,
-                  dst + O::LU, S, tid, nt);
-    if (!STATIONARY) stage_curv<G>(t, b0, nvalid, dst + O::JW, S, tid, nt);
+    stage_runs<G, ASYNC>(A + (long long)t * NX * NX * B + b0, B, NX * NX,
+                         nvalid, dst + O::AT, S, tid, nt);
+    stage_runs<G, ASYNC>(Bm + (long long)t * NX * NJ * B + b0, B, NX * NJ,
+                         nvalid, dst + O::BT, S, tid, nt);
+    stage_runs<G, ASYNC>(lx + (long long)t * NX * B + b0, B, NX, nvalid,
+                         dst + O::LX, S, tid, nt);
+    stage_runs<G, ASYNC>(lu + (long long)t * NJ * B + b0, B, NJ, nvalid,
+                         dst + O::LU, S, tid, nt);
+    if (!STATIONARY)
+      stage_curv<G, ASYNC>(t, b0, nvalid, dst + O::JW, S, tid, nt);
   }
-  template <int G>
+  template <int G, bool ASYNC = true>
   GT_HD void stage_once(long long b0, int nvalid, T* knots, long long S,
                         int tid, int nt) const {
-    if (STATIONARY) stage_curv<G>(0, b0, nvalid, knots + O::CS, S, tid, nt);
+    if (STATIONARY)
+      stage_curv<G, ASYNC>(0, b0, nvalid, knots + O::CS, S, tid, nt);
   }
   GT_HDI const T* curv(const T* k, const T* tile) const {
     return STATIONARY ? k + O::CS : tile + O::JW;
@@ -446,8 +456,9 @@ GT_HD void riccati_knot_warp(const Par& par, T* k, const T* tile,
 // stationary curvature once, with the value function, before the first
 // knot); the gains of knot t are written (G lanes a row) at the start of
 // the next step. `only` >= 0 (the host build) writes only that unit's
-// lanes.
-template <typename T, int NJ, int G, class In, class Par>
+// lanes. ASYNC false: the problems' state in device memory (the
+// device-memory route), staged by plain copies.
+template <typename T, int NJ, int G, bool ASYNC = true, class In, class Par>
 GT_HD void riccati_block(const Par& par, int tid, int nt, int unit, T* knots,
                          long long S, long long b0, const In& in,
                          const T* Vx0, const T* Vxx0, T* ks, T* Ks, int N,
@@ -465,22 +476,25 @@ GT_HD void riccati_block(const Par& par, int tid, int nt, int unit, T* knots,
     store_runs<G>(knots + O::KK, S, NJ * NX, nvalid,
                   Ks + (long long)t * NJ * NX * B + b0, B, tid, nt, only);
   };
-  stage_runs<G>(Vx0 + b0, B, NX, nvalid, knots + O::VX, S, tid, nt);
-  stage_runs<G>(Vxx0 + b0, B, NX * NX, nvalid, knots + O::VXX, S, tid, nt);
-  in.template stage_once<G>(b0, nvalid, knots, S, tid, nt);
-  in.template stage<G>(N - 1, b0, nvalid, knots + tile(N - 1), S, tid, nt);
+  stage_runs<G, ASYNC>(Vx0 + b0, B, NX, nvalid, knots + O::VX, S, tid, nt);
+  stage_runs<G, ASYNC>(Vxx0 + b0, B, NX * NX, nvalid, knots + O::VXX, S, tid,
+                       nt);
+  in.template stage_once<G, ASYNC>(b0, nvalid, knots, S, tid, nt);
+  in.template stage<G, ASYNC>(N - 1, b0, nvalid, knots + tile(N - 1), S, tid,
+                              nt);
   async_commit();
   for (int t = N - 1; t >= 0; --t) {
     block_sync();   // knot t + 1 is done: its gains out, its tiles free
     if (t + 1 < N) store(t + 1);
     if (TWO && t > 0) {
-      in.template stage<G>(t - 1, b0, nvalid, knots + tile(t - 1), S, tid,
-                           nt);
+      in.template stage<G, ASYNC>(t - 1, b0, nvalid, knots + tile(t - 1), S,
+                                  tid, nt);
       async_commit();
       async_wait<1>();
     } else {
       if (!TWO && t + 1 < N) {
-        in.template stage<G>(t, b0, nvalid, knots + tile(t), S, tid, nt);
+        in.template stage<G, ASYNC>(t, b0, nvalid, knots + tile(t), S, tid,
+                                    nt);
         async_commit();
       }
       async_wait<0>();
@@ -526,9 +540,18 @@ struct RicShape {
   static constexpr long long BYTES = HEAD + (G > 0 ? G : 1) * BP::KNOT_BYTES;
 };
 
+// Where not even one buffer's problem fits a block (from 30 to 48 joints,
+// by curvature and dtype), the device-memory route (warp.cuh:WsPlan): a
+// problem a block at a time, its state in the workspace, with one buffer.
+template <typename T, int NJ, int CURV>
+GT_HDI constexpr int ric_bufs() {
+  return RicShape<T, NJ, CURV, 2>::G >= 1 ? 2 : 1;
+}
+
 template <typename T, int NJ, int CURV = RIC_FACTORED>
 struct RicPlan
-    : RicShape<T, NJ, CURV, RicShape<T, NJ, CURV, 2>::G >= 1 ? 2 : 1> {};
+    : WsPlan<T, RicShape<T, NJ, CURV, ric_bufs<T, NJ, CURV>()>,
+             RicKnot<NJ, CURV, ric_bufs<T, NJ, CURV>()>::SIZE> {};
 
 // ---------------------------------------------------------------------------
 // the rollouts (linesearch_rollout, rollout): a thread group per rollout
@@ -576,17 +599,17 @@ struct FeedbackLaw {
   static constexpr int NX = 2 * NJ, TILE = P::SIZE;
   static constexpr bool STORES_U = true;
   const T *Uref, *Xref, *kf, *K, *alpha_rows;
-  template <int G>
+  template <int G, bool ASYNC = true>
   GT_HD void stage(int t, long long b0, int nvalid, long long B, T* dst,
                    long long TS, int tid, int nt) const {
-    stage_runs<G>(K + (long long)t * NJ * NX * B + b0, B, NJ * NX, nvalid,
-                  dst + P::KM, TS, tid, nt);
-    stage_runs<G>(Xref + (long long)t * NX * B + b0, B, NX, nvalid,
-                  dst + P::XR, TS, tid, nt);
-    stage_runs<G>(Uref + (long long)t * NJ * B + b0, B, NJ, nvalid,
-                  dst + P::UR, TS, tid, nt);
-    stage_runs<G>(kf + (long long)t * NJ * B + b0, B, NJ, nvalid,
-                  dst + P::KF, TS, tid, nt);
+    stage_runs<G, ASYNC>(K + (long long)t * NJ * NX * B + b0, B, NJ * NX,
+                         nvalid, dst + P::KM, TS, tid, nt);
+    stage_runs<G, ASYNC>(Xref + (long long)t * NX * B + b0, B, NX, nvalid,
+                         dst + P::XR, TS, tid, nt);
+    stage_runs<G, ASYNC>(Uref + (long long)t * NJ * B + b0, B, NJ, nvalid,
+                         dst + P::UR, TS, tid, nt);
+    stage_runs<G, ASYNC>(kf + (long long)t * NJ * B + b0, B, NJ, nvalid,
+                         dst + P::KF, TS, tid, nt);
   }
   GT_HDI T alpha(long long lane) const { return alpha_rows[lane]; }
   GT_HDI T u(const T* tile, const T* xs, T alpha, int j, const T* lo,
@@ -614,11 +637,11 @@ struct OpenLoop {
   static constexpr int TILE = NJ;
   static constexpr bool STORES_U = false;
   const T* U;
-  template <int G>
+  template <int G, bool ASYNC = true>
   GT_HD void stage(int t, long long b0, int nvalid, long long B, T* dst,
                    long long TS, int tid, int nt) const {
-    stage_runs<G>(U + (long long)t * NJ * B + b0, B, NJ, nvalid, dst, TS,
-                  tid, nt);
+    stage_runs<G, ASYNC>(U + (long long)t * NJ * B + b0, B, NJ, nvalid, dst,
+                         TS, tid, nt);
   }
   GT_HDI T alpha(long long) const { return T(0); }
   GT_HDI T u(const T* tile, const T*, T, int j, const T* lo,
@@ -1223,8 +1246,11 @@ GT_HD void linesearch_finish(const Par& par, const Rb& R, const Cost& cost,
 // alpha-major lanes a B + b, G lanes a row, while the next step runs: one
 // block barrier a step. U is written only under a law that STORES_U, cost
 // only under a cost that SUMS (the open-loop rollout: one row, X only).
-// `only` >= 0 (the host build) writes only that unit's lanes.
-template <typename T, int NJ, class Cost, int G, class Law, class Par>
+// `only` >= 0 (the host build) writes only that unit's lanes. ASYNC false:
+// the tiles in device memory (TILES_WS of LSPlan and RollShape), staged by
+// plain copies.
+template <typename T, int NJ, class Cost, int G, bool ASYNC = true, class Law,
+          class Par>
 GT_HD void linesearch_block(const Par& par, int tid, int nt, int unit,
                             const LSHead<T, NJ>& H, T* tiles, long long TS,
                             T* rolls, long long S, int rows, long long b0,
@@ -1243,8 +1269,9 @@ GT_HD void linesearch_block(const Par& par, int tid, int nt, int unit,
   T* k = rolls + unit * S;
   const int g = unit % G;
   auto stage = [&](int t, int buf) {
-    law.template stage<G>(t, b0, nvalid, B, tiles + (long long)buf * G * TS,
-                          TS, tid, nt);
+    law.template stage<G, ASYNC>(t, b0, nvalid, B,
+                                 tiles + (long long)buf * G * TS, TS, tid,
+                                 nt);
   };
   // step t's (x, u) from the slots to X and U
   auto store = [&](int t) {
@@ -1379,31 +1406,43 @@ GT_HDI constexpr int pad_stride(int n) {
                  (32 / ((int)sizeof(T) / 4));
 }
 
+// Where one problem's two tiles and one rollout do not fit a block (above
+// 52 joints in float64), the tiles go to device memory (TILES_WS): the
+// block's two buffers of G tiles, WS bytes, in a workspace that the wrapper
+// allocates, a block's buffers for each block in flight, the blocks
+// striding over the blocks of the grid; the rollouts stay in shared memory.
 template <typename T, int NJ>
 struct LSPlan {
   static constexpr int STRIDE = pad_stride<T>(LSRoll<NJ>::SIZE);
   static constexpr int TILE = LSTile<NJ>::SIZE;
   static constexpr long long HEAD = (sizeof(LSHead<T, NJ>) + 15) / 16 * 16;
   static constexpr int LANES = ls_lanes<NJ>();
-  static constexpr int G = ls_g(HEAD, (long long)TILE * sizeof(T),
-                                (long long)STRIDE * sizeof(T), LANES);
-  static constexpr int ROWS =
-      ls_rows(HEAD, (long long)TILE * sizeof(T),
-              (long long)STRIDE * sizeof(T), LANES, G, ls_regs<T>());
+  static constexpr bool TILES_WS =
+      ls_block_bytes(HEAD, (long long)TILE * sizeof(T),
+                     (long long)STRIDE * sizeof(T), 1, 1) > SMEM_LIMIT;
+  // a tile's bytes in shared memory
+  static constexpr long long TILE_B =
+      TILES_WS ? 0 : (long long)TILE * sizeof(T);
+  static constexpr int G =
+      ls_g(HEAD, TILE_B, (long long)STRIDE * sizeof(T), LANES);
+  static constexpr int ROWS = ls_rows(HEAD, TILE_B,
+                                      (long long)STRIDE * sizeof(T), LANES, G,
+                                      ls_regs<T>());
+  static constexpr long long WS =
+      TILES_WS ? 2LL * G * TILE * (long long)sizeof(T) : 0;
   // rows a block for na step sizes: as even a split as ROWS allows
   static constexpr int rows_for(int na) {
     return (na + (na + ROWS - 1) / ROWS - 1) / ((na + ROWS - 1) / ROWS);
   }
   static constexpr long long bytes(int rows) {
-    return HEAD + (long long)(2 * G * TILE + G * rows * STRIDE) * sizeof(T);
+    return HEAD + 2 * G * TILE_B + (long long)G * rows * STRIDE * sizeof(T);
   }
-  static constexpr long long BYTES =
-      HEAD + (long long)(2 * G * TILE + G * ROWS * STRIDE) * sizeof(T);
+  static constexpr long long BYTES = bytes(ROWS);
 };
 
 // The shared bytes of a one-row rollout's block of g problems: the head,
-// and a problem's two knots of its law's tile (tile values each) and its
-// rollout's state.
+// and a problem's two knots of its law's tile (tile values each; 0 where
+// the tiles sit in device memory) and its rollout's state.
 template <typename T, int NJ>
 GT_HDI constexpr long long roll_bytes(int g, int tile) {
   return (sizeof(LSHead<T, NJ>) + 15) / 16 * 16 +
@@ -1414,14 +1453,19 @@ GT_HDI constexpr long long roll_bytes(int g, int tile) {
 // A one-row rollout's block (the open-loop and the feedback rollout): G
 // problems, a rollout each, LANES threads a rollout (whole warps a block),
 // its tile the law's (OpenLoop: U_t, NJ values a problem; FoldedStepLaw:
-// LSTile, 2 NJ^2 + 4 NJ).
+// LSTile, 2 NJ^2 + 4 NJ). Where the block's tiles and rollouts do not fit
+// (the feedback rollout above 52 joints in float64), the tiles go to
+// device memory as the line search's do (LSPlan: TILES_WS, WS).
 template <typename T, int NJ, int LANES_, int G_, class Law = OpenLoop<T, NJ>>
 struct RollShape {
   static constexpr int LANES = LANES_, G = G_, ROWS = 1;
   static constexpr int STRIDE = pad_stride<T>(LSRoll<NJ>::SIZE);
   static constexpr int TILE = Law::TILE;
   static constexpr long long HEAD = (sizeof(LSHead<T, NJ>) + 15) / 16 * 16;
-  static constexpr long long BYTES = roll_bytes<T, NJ>(G, TILE);
+  static constexpr bool TILES_WS = roll_bytes<T, NJ>(G, TILE) > SMEM_LIMIT;
+  static constexpr long long BYTES = roll_bytes<T, NJ>(G, TILES_WS ? 0 : TILE);
+  static constexpr long long WS =
+      TILES_WS ? 2LL * G * TILE * (long long)sizeof(T) : 0;
   static_assert(G * LANES % WARP == 0 && G * LANES <= MAX_BLOCK_THREADS,
                 "a rollout block is whole warps");
   static_assert(BYTES <= SMEM_LIMIT, "a rollout block fits an SM");
@@ -1434,14 +1478,20 @@ struct RollShape {
 // not rollouts an SM: the trees (hyq 12, gym_ant 8, dm_quadruped 16 joints)
 // run a level's joints in one round of 32 threads; the chain of 7 (iiwa)
 // has a joint a level, and 8 threads (4 rollouts a warp) execute a quarter
-// of the warp instructions of 32. 4 problems a block (2 at 8 joints).
+// of the warp instructions of 32. 4 problems a block (2 at 8 joints),
+// halved while the block does not fit (float64: 2 from 39 joints, 1 from
+// 60).
 template <int NJ>
 GT_HDI constexpr int roll_lanes() { return NJ == 2 || NJ == 7 ? 8 : 32; }
-template <int NJ>
-GT_HDI constexpr int roll_g() { return NJ == 8 ? 2 : 4; }
+template <typename T, int NJ>
+GT_HDI constexpr int roll_g() {
+  int g = NJ == 8 ? 2 : 4;
+  while (g > 1 && roll_bytes<T, NJ>(g, NJ) > SMEM_LIMIT) g /= 2;
+  return g;
+}
 
 template <typename T, int NJ>
-using RollPlan = RollShape<T, NJ, roll_lanes<NJ>(), roll_g<NJ>()>;
+using RollPlan = RollShape<T, NJ, roll_lanes<NJ>(), roll_g<T, NJ>()>;
 
 // The feedback rollout's plan by joint count, chosen as the rollout's
 // (compare_kernels.py's block shapes at its main shapes; PERF.md): the
@@ -1451,7 +1501,7 @@ using RollPlan = RollShape<T, NJ, roll_lanes<NJ>(), roll_g<NJ>()>;
 // block (28 joints in float64: 2 a block).
 template <typename T, int NJ>
 GT_HDI constexpr int fb_g() {
-  int g = NJ == 2 || NJ == 7 ? 8 : roll_g<NJ>();
+  int g = NJ == 2 || NJ == 7 ? 8 : roll_g<T, NJ>();
   while (g > 1 && roll_bytes<T, NJ>(g, LSTile<NJ>::SIZE) > SMEM_LIMIT) g /= 2;
   return g;
 }
@@ -1499,18 +1549,18 @@ void riccati_host(const In& in, const T* Vx0, const T* Vxx0, T* ks, T* Ks,
                   int N, long long B, T reg) {
   using O = typename In::O;
   using P = RicPlan<PlanType<T>, NJ, CURV>;
-  static_assert(P::G >= 1, "one Riccati problem must fit");
+  constexpr int G = plan_g<P>();
   static_assert(O::BUFS == P::BUFS, "the layout is the plan's");
-  std::vector<T> knots((long long)P::G * O::SIZE);
-  for (long long b0 = 0; b0 < B; b0 += P::G)
-    for (int g = 0; g < P::G && b0 + g < B; ++g) {
+  std::vector<T> knots((long long)G * O::SIZE);
+  for (long long b0 = 0; b0 < B; b0 += G)
+    for (int g = 0; g < G && b0 + g < B; ++g) {
       fill_nan(knots);
 #ifdef GT_RACE_CHECK
       gt_race_watch(knots.data() + g * O::SIZE, O::SIZE * (long)sizeof(T));
 #endif
-      riccati_block<T, NJ, P::G>(HostPar<P::LANES>{}, 0, 1, g, knots.data(),
-                                 O::SIZE, b0, in, Vx0, Vxx0, ks, Ks, N, B,
-                                 reg, g);
+      riccati_block<T, NJ, G>(HostPar<P::LANES>{}, 0, 1, g, knots.data(),
+                              O::SIZE, b0, in, Vx0, Vxx0, ks, Ks, N, B, reg,
+                              g);
     }
 #ifdef GT_RACE_CHECK
   gt_race_watch(nullptr, 0);
@@ -1583,6 +1633,7 @@ void linesearch_host(const T* model, const T* x0, const T* Uref,
                      T gravity, const T* cbuf, int ncost) {
   using P = LSPlan<PlanType<T>, NJ>;
   static_assert(P::ROWS >= 1, "one line-search rollout a problem must fit");
+  static_assert(P::BYTES <= SMEM_LIMIT, "the block fits an SM");
   const FeedbackLaw<T, NJ> law{Uref, Xref, kf, K, alpha_rows};
   rollouts_host<T, NJ, Cost, P::G, P::LANES>(law, model, x0, lo, hi, Xo, Uo,
                                              cost, N, B, na, P::rows_for(na),

@@ -24,8 +24,14 @@
 // The design follows the reference GRiDCodeGenerator (a thread block per
 // knot with its state in shared memory, GRiD paper, arXiv:2109.06976),
 // carried to a warp per knot: 2 NJ <= 32 gradient columns for every
-// instance up to 16 joints.
+// instance up to 16 joints. Above 32 joints a knot takes two warps or more
+// (knot_lanes), and where one knot does not fit a block's shared memory it
+// runs a block at a time with its state in device memory (WsPlan,
+// ws_lanes): the programs take the knot's buffer as a pointer, so the same
+// code runs on either memory.
 #pragma once
+
+#include <type_traits>
 
 #include "so.cuh"
 
@@ -33,9 +39,29 @@ namespace gt {
 
 constexpr int WARP = 32;
 // the fewest threads a knot takes: a half warp where its 2 NJ gradient
-// columns fit (two knots a warp), else a warp
+// columns fit (two knots a warp), a warp up to 32 joints, else two warps
+// (a thread for each of the NJ columns of a column pass, and for each
+// joint: fd_du_knot, id_du_knot)
 template <int NJ>
-GT_HDI constexpr int knot_lanes() { return 2 * NJ <= 16 ? 16 : 32; }
+GT_HDI constexpr int knot_lanes() {
+  return 2 * NJ <= 16 ? 16 : NJ <= WARP ? WARP : 2 * WARP;
+}
+// The second-order kernels (idsva_so, fdsva_so) run up to SO_MAX_NJ
+// joints, the JAX package's ceiling for its fused second-order kernels
+// (gridcodegenerator_tpu/ops/pallas/kernels.py: SO_MAX_NV); above it their
+// launchers refuse without instantiating a kernel (the libraries are built
+// for 1 to 64 joints: ops/cuda/build.py, MAX_JOINTS). ops/cuda/build.py
+// reads this line as SO_MAX_JOINTS, the wrappers' ceiling.
+constexpr int SO_MAX_NJ = 28;
+// a set of joints, a bit a joint: 64 bits above 32 joints
+template <bool WIDE>
+struct JointBits {
+  using type = unsigned;
+};
+template <>
+struct JointBits<true> {
+  using type = unsigned long long;
+};
 // a knot takes up to 4 such groups (BlockPlan)
 constexpr int MAX_KNOT_GROUPS = 4;
 constexpr int MIN_WARPS = 12;
@@ -651,10 +677,11 @@ GT_HDI void id_grad_columns_knot(const Par& par, const Rb& R, T* k,
       cross_fv(e, f + 6 * j, mv);
       XmTv(X + 36 * j, mv, dxf);
     }
-    unsigned related = 0;
+    using Bits = typename JointBits<(NJ > WARP)>::type;
+    Bits related = 0;
     for (int n = r0; n < R.rstart[j + 1]; ++n) {
       const int i = R.rlist[n];
-      related |= 1u << i;
+      related |= Bits(1) << i;
       if (n >= r0 + nsub) {
         const bool jp = i == R.parent[j];
         for (int m = 0; m < 6; ++m) st(i, 12 + m) = jp ? dxf[m] : T(0);
@@ -677,7 +704,7 @@ GT_HDI void id_grad_columns_knot(const Par& par, const Rb& R, T* k,
 #endif
     for (int i = 0; i < NJ; ++i) {
       const T x = st(i, 12 + R.sind[i]);   // stale unless related
-      dc[i] = ((related >> i) & 1u ? x : T(0)) +
+      dc[i] = ((related >> i) & Bits(1) ? x : T(0)) +
               ((!isq && i == j) ? R.damping(i) : T(0));
     }
     sink(pass, t, dc);
@@ -2326,6 +2353,42 @@ struct GroupShape {
       HEAD + (long long)(G > 0 ? G : 1) * STRIDE * (long long)sizeof(T);
 };
 
+// The device-memory route of a thread-group kernel (fd_du, id_du, minv,
+// fd, the Riccati sweeps): where its plan P holds no knot in a block's
+// shared memory (G 0: from 30 to 48 joints, by kernel and dtype), a block
+// runs one knot at a time with WS_LANES threads, its head (the robot
+// constants) still in shared memory and the knot's KNOT values in device
+// memory: a workspace that the wrapper allocates, one knot a block, sized
+// by the blocks in flight, which stride over the lanes (ws_lanes). Where P
+// holds a knot, P as it is (WS 0). The knot programs take the knot's
+// buffer as a pointer, so the same program runs on either memory.
+constexpr int WS_LANES = 128;
+template <typename T, class P, int KNOT>
+struct WsPlan : P {
+  static constexpr bool IN_WS = P::G == 0;
+  static constexpr int LANES = IN_WS ? WS_LANES : P::LANES;
+  static constexpr int STRIDE = IN_WS ? KNOT : P::STRIDE;
+  static constexpr long long BYTES = IN_WS ? P::HEAD : P::BYTES;
+  // device memory a block takes (0: its knots sit in shared memory)
+  static constexpr long long WS = IN_WS ? (long long)KNOT * sizeof(T) : 0;
+};
+
+// a plan's workspace bytes a block (PlanWs<P>::value; 0 for a plan without
+// a device-memory route)
+template <class P, class = void>
+struct PlanWs {
+  static constexpr long long value = 0;
+};
+template <class P>
+struct PlanWs<P, std::void_t<decltype(P::WS)>> {
+  static constexpr long long value = P::WS;
+};
+
+// the knots a block of plan P runs at a time: G, or one on the
+// device-memory route
+template <class P>
+GT_HDI constexpr int plan_g() { return P::G > 0 ? P::G : 1; }
+
 // The kernels' plans: fd_du's head is the robot constants, fdsva_so's and
 // idsva_so's also the (j, a, st) lists.
 template <typename T, int NJ>
@@ -2335,8 +2398,10 @@ struct SOHead {
 };
 
 template <typename T, int NJ>
-using FDPlan = BlockPlan<T, RobotConst<T, NJ>, FDKnot<NJ>::SIZE,
-                         knot_lanes<NJ>(), fd_regs<T>()>;
+using FDPlan = WsPlan<T,
+                      BlockPlan<T, RobotConst<T, NJ>, FDKnot<NJ>::SIZE,
+                                knot_lanes<NJ>(), fd_regs<T>()>,
+                      FDKnot<NJ>::SIZE>;
 template <typename T, int NJ>
 using SOPlan = BlockPlan<T, SOHead<T, NJ>, SOKnot<NJ>::SIZE,
                          knot_lanes<NJ>(), so_regs<T>()>;
@@ -2406,8 +2471,11 @@ struct IDSOBandPlan {
 // id_du's plan: fd_du's head and threads a knot, its own knot (IDUKnot,
 // PASSES column passes), G the knots that put the most on an SM.
 template <typename T, int NJ, int PASSES = idu_passes<NJ>()>
-using IDUPlan = BlockPlan<T, RobotConst<T, NJ>, IDUKnot<NJ, PASSES>::SIZE,
-                          knot_lanes<NJ>(), fd_regs<T>()>;
+using IDUPlan = WsPlan<T,
+                       BlockPlan<T, RobotConst<T, NJ>,
+                                 IDUKnot<NJ, PASSES>::SIZE, knot_lanes<NJ>(),
+                                 fd_regs<T>()>,
+                       IDUKnot<NJ, PASSES>::SIZE>;
 // rnea's plan: threads a knot by joint count (rnea_lanes), the width that
 // ran fastest for the zoo's robot of that count at its main shapes
 // (compare_kernels.py's shapes; PERF.md): a phase has at most 6 items a
@@ -2443,12 +2511,30 @@ template <int NJ>
 GT_HDI constexpr int d2_lanes() { return NJ <= 8 ? 8 : WARP; }
 template <int NJ>
 GT_HDI constexpr bool d2_stage() { return NJ > 8; }
+// Above 8 joints the staged route where its knot fits a block, else (above
+// 62 joints in float64) the direct one, whose knot holds no tile (D2Knot's
+// first TILE values: d2eepos_knot without STAGE writes none of the tile).
 template <typename T, int NJ>
-using D2Knot1 = KnotShape<T, EEHead<T, NJ>, D2Knot<NJ>::SIZE, d2_lanes<NJ>(),
+using D2Staged1 = KnotShape<T, EEHead<T, NJ>, D2Knot<NJ>::SIZE,
+                            d2_lanes<NJ>(), 1>;
+template <typename T, int NJ>
+GT_HDI constexpr bool d2_stages() {
+  return d2_stage<NJ>() &&
+         best_knots(D2Staged1<T, NJ>::HEAD,
+                    D2Staged1<T, NJ>::STRIDE * (long long)sizeof(T),
+                    d2_lanes<NJ>(), fd_regs<T>(), true) >= 1;
+}
+template <typename T, int NJ>
+GT_HDI constexpr int d2_knot() {
+  return d2_stage<NJ>() && !d2_stages<T, NJ>() ? D2Knot<NJ>::TILE
+                                               : D2Knot<NJ>::SIZE;
+}
+template <typename T, int NJ>
+using D2Knot1 = KnotShape<T, EEHead<T, NJ>, d2_knot<T, NJ>(), d2_lanes<NJ>(),
                           1>;
 template <typename T, int NJ>
 using D2Plan = KnotShape<
-    T, EEHead<T, NJ>, D2Knot<NJ>::SIZE, d2_lanes<NJ>(),
+    T, EEHead<T, NJ>, d2_knot<T, NJ>(), d2_lanes<NJ>(),
     best_knots(D2Knot1<T, NJ>::HEAD,
                D2Knot1<T, NJ>::STRIDE * (long long)sizeof(T), d2_lanes<NJ>(),
                fd_regs<T>(), true)>;
@@ -2463,11 +2549,13 @@ using D2Plan = KnotShape<
 template <typename T, int NJ>
 using FDKnot1 = KnotShape<T, RobotConst<T, NJ>, FDQKnot<NJ>::SIZE, WARP, 1>;
 template <typename T, int NJ>
-using FDPlanQ = KnotShape<
-    T, RobotConst<T, NJ>, FDQKnot<NJ>::SIZE, WARP,
-    best_knots(FDKnot1<T, NJ>::HEAD,
-               FDKnot1<T, NJ>::STRIDE * (long long)sizeof(T), WARP,
-               fd_regs<T>(), true)>;
+using FDPlanQ = WsPlan<
+    T,
+    KnotShape<T, RobotConst<T, NJ>, FDQKnot<NJ>::SIZE, WARP,
+              best_knots(FDKnot1<T, NJ>::HEAD,
+                         FDKnot1<T, NJ>::STRIDE * (long long)sizeof(T), WARP,
+                         fd_regs<T>(), true)>,
+    FDQKnot<NJ>::SIZE>;
 // minv's plan: fd's Minv phases, so fd's width, a warp a knot (16 threads
 // took 1.1x and 8 threads 1.7x a warp's time at 1 and 1024 iiwa lanes;
 // compare_kernels.py's shapes, PERF.md); G the largest power of 2 up to 8
@@ -2478,11 +2566,13 @@ template <typename T, int NJ>
 using MinvKnot1 = KnotShape<T, RobotConst<T, NJ>, MinvKnot<NJ>::SIZE, WARP,
                             1>;
 template <typename T, int NJ>
-using MinvPlan = KnotShape<
-    T, RobotConst<T, NJ>, MinvKnot<NJ>::SIZE, WARP,
-    best_knots(MinvKnot1<T, NJ>::HEAD,
-               MinvKnot1<T, NJ>::STRIDE * (long long)sizeof(T), WARP,
-               fd_regs<T>(), true)>;
+using MinvPlan = WsPlan<
+    T,
+    KnotShape<T, RobotConst<T, NJ>, MinvKnot<NJ>::SIZE, WARP,
+              best_knots(MinvKnot1<T, NJ>::HEAD,
+                         MinvKnot1<T, NJ>::STRIDE * (long long)sizeof(T),
+                         WARP, fd_regs<T>(), true)>,
+    MinvKnot<NJ>::SIZE>;
 // crba's plan: a phase has 6 items a column of the joints on its level and
 // below, and 6 rows of each parent; threads a knot by joint count
 // (crba_lanes), the width that ran fastest for the zoo's robot of that
@@ -2697,14 +2787,14 @@ void id_du_host(const T* model, const T* q, const T* qd, const T* qdd,
                 T* dcdu, long long L, T gravity) {
   using O = IDUKnot<NJ, PASSES>;
   using P = IDUPlan<PlanType<T>, NJ, PASSES>;
-  static_assert(P::G >= 1, "one id_du knot must fit");
+  constexpr int G = plan_g<P>();
   std::vector<RobotConst<T, NJ>> R(1);
   R[0].load(model, 0, 1);
-  std::vector<T> k((long long)P::G * O::SIZE);
-  for (long long l0 = 0; l0 < L; l0 += P::G) {
+  std::vector<T> k((long long)G * O::SIZE);
+  for (long long l0 = 0; l0 < L; l0 += G) {
     for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
-    load_inputs<T, NJ, O::SIZE>(q, qd, qdd, L, l0, P::G, k.data(), 0, 1);
-    for (int g = 0; g < P::G && l0 + g < L; ++g) {
+    load_inputs<T, NJ, O::SIZE>(q, qd, qdd, L, l0, G, k.data(), 0, 1);
+    for (int g = 0; g < G && l0 + g < L; ++g) {
 #ifdef GT_RACE_CHECK
       gt_race_watch(k.data() + (long long)g * O::SIZE,
                     O::SIZE * (long)sizeof(T));
@@ -2712,8 +2802,8 @@ void id_du_host(const T* model, const T* q, const T* qd, const T* qdd,
       id_du_knot<T, NJ, PASSES>(HostPar<P::LANES>{}, R[0],
                                 k.data() + (long long)g * O::SIZE, gravity);
     }
-    store_rows<T, O::SIZE>(k.data() + O::DC, 2 * NJ * NJ, dcdu, L, l0, P::G,
-                           0, 1);
+    store_rows<T, O::SIZE>(k.data() + O::DC, 2 * NJ * NJ, dcdu, L, l0, G, 0,
+                           1);
   }
 #ifdef GT_RACE_CHECK
   gt_race_watch(nullptr, 0);
@@ -2761,21 +2851,21 @@ void fd_host(const T* model, const T* q, const T* qd, const T* u, T* qdd,
              long long L, T gravity) {
   using O = FDQKnot<NJ>;
   using P = FDPlanQ<PlanType<T>, NJ>;
-  static_assert(P::G >= 1, "one fd knot must fit");
+  constexpr int G = plan_g<P>();
   std::vector<RobotConst<T, NJ>> R(1);
   R[0].load_tree(model, 0, 1);
-  std::vector<T> k((long long)P::G * O::SIZE);
-  for (long long l0 = 0; l0 < L; l0 += P::G) {
+  std::vector<T> k((long long)G * O::SIZE);
+  for (long long l0 = 0; l0 < L; l0 += G) {
     for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
-    load_inputs<T, NJ, O::SIZE>(q, qd, u, L, l0, P::G, k.data(), 0, 1);
-    for (int g = 0; g < P::G && l0 + g < L; ++g) {
+    load_inputs<T, NJ, O::SIZE>(q, qd, u, L, l0, G, k.data(), 0, 1);
+    for (int g = 0; g < G && l0 + g < L; ++g) {
       T* kg = k.data() + (long long)g * O::SIZE;
 #ifdef GT_RACE_CHECK
       gt_race_watch(kg, O::SIZE * (long)sizeof(T));
 #endif
       fd_knot<T, NJ>(HostPar<P::LANES>{}, R[0], kg, gravity);
     }
-    store_rows<T, O::SIZE>(k.data() + O::QDD, NJ, qdd, L, l0, P::G, 0, 1);
+    store_rows<T, O::SIZE>(k.data() + O::QDD, NJ, qdd, L, l0, G, 0, 1);
   }
 #ifdef GT_RACE_CHECK
   gt_race_watch(nullptr, 0);
@@ -2788,14 +2878,14 @@ template <typename T, int NJ>
 void minv_host(const T* model, const T* q, T* Mi, long long L, bool dense) {
   using O = MinvKnot<NJ>;
   using P = MinvPlan<PlanType<T>, NJ>;
-  static_assert(P::G >= 1, "one minv knot must fit");
+  constexpr int G = plan_g<P>();
   std::vector<RobotConst<T, NJ>> R(1);
   R[0].load_tree(model, 0, 1);
-  std::vector<T> k((long long)P::G * O::SIZE);
-  for (long long l0 = 0; l0 < L; l0 += P::G) {
+  std::vector<T> k((long long)G * O::SIZE);
+  for (long long l0 = 0; l0 < L; l0 += G) {
     for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
-    load_q<T, NJ, O::SIZE>(q, L, l0, P::G, k.data(), 0, 1);
-    for (int g = 0; g < P::G && l0 + g < L; ++g) {
+    load_q<T, NJ, O::SIZE>(q, L, l0, G, k.data(), 0, 1);
+    for (int g = 0; g < G && l0 + g < L; ++g) {
       T* kg = k.data() + (long long)g * O::SIZE;
 #ifdef GT_RACE_CHECK
       gt_race_watch(kg, O::SIZE * (long)sizeof(T));
@@ -2805,7 +2895,7 @@ void minv_host(const T* model, const T* q, T* Mi, long long L, bool dense) {
       else
         minv_knot<false, T, NJ>(HostPar<P::LANES>{}, R[0], kg);
     }
-    store_rows<T, O::SIZE>(k.data() + O::MI, NJ * NJ, Mi, L, l0, P::G, 0, 1);
+    store_rows<T, O::SIZE>(k.data() + O::MI, NJ * NJ, Mi, L, l0, G, 0, 1);
   }
 #ifdef GT_RACE_CHECK
   gt_race_watch(nullptr, 0);
@@ -2872,7 +2962,7 @@ void eepos_host(const T* model, const T* ee, int ne, const T* q, T* out,
 
 // d2eepos's block code with the card's G: at each EE, each block's valid
 // knots in turn, then the block's store
-template <typename T, int NJ, bool STAGE = d2_stage<NJ>()>
+template <typename T, int NJ, bool STAGE = d2_stages<PlanType<T>, NJ>()>
 void d2eepos_host(const T* model, const T* ee, int ne, const T* q, T* out,
                   long long L) {
   using O = D2Knot<NJ>;
@@ -2945,6 +3035,24 @@ void deepos_host(const T* model, const T* ee, int ne, const T* q, T* out,
 
 namespace gt {
 
+// The lanes of a block on the device-memory route (WsPlan): lanes
+// blockIdx.x, + gridDim.x, ... one at a time, through the block's knot in
+// the workspace: load(l), run(), store(l), the block meeting between them
+// (a barrier orders the block's device-memory accesses as it does its
+// shared ones).
+template <class Load, class Run, class Store>
+__device__ __forceinline__ void ws_lanes(long long L, Load&& load, Run&& run,
+                                         Store&& store) {
+  for (long long l = blockIdx.x; l < L; l += gridDim.x) {
+    __syncthreads();   // the head has landed; the last lane's rows are out
+    load(l);
+    __syncthreads();
+    run();
+    __syncthreads();
+    store(l);
+  }
+}
+
 // A kernel's dynamic shared-memory limit, and the largest carve-out of an
 // SM's L1 for shared memory, so that as many blocks as the plan counts fit.
 template <class K>
@@ -2957,13 +3065,32 @@ inline cudaError_t smem_attrs(K* fn, long long bytes) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
+// Launch `fn`, a kernel of plan P on the device-memory route, over `units`
+// lanes or problems: min(units, nws) blocks of P::LANES threads, the
+// workspace `ws` holding nws knots (its last argument). The attributes are
+// set at every launch: kernels of one signature (minv's dense and upper
+// instances) share this instantiation.
+template <class P, class... K, class... A>
+inline int launch_ws(void (*fn)(K...), long long units, void* ws,
+                     long long nws, cudaStream_t stream, A... args) {
+  if (units == 0) return 0;
+  if (ws == nullptr || nws < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t attr = smem_attrs(fn, P::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  fn<<<(unsigned)(nws < units ? nws : units), P::LANES, P::BYTES, stream>>>(
+      args...);
+  return (int)cudaGetLastError();
+}
+
 // The block plan P of kernel `fn` and its launch attributes, for the
 // wrappers and chip_smoke.py: out = {G, threads a knot, dynamic shared
 // bytes a block, registers a thread, local (stack) bytes a thread, static
 // shared bytes, max threads a block, max dynamic shared bytes, programs a
 // block per problem (the line search's step-size rows), blocks an SM holds
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), blocks a lane (idsva_so
-// in bands: the bands; else 1)}.
+// in bands: the bands; else 1), device-memory bytes a block (the workspace
+// of the device-memory route; 0 on the shared-memory one)}. `fn` null (a
+// kernel above its ceiling, not instantiated): the plan alone.
 template <class P, class = void>
 struct PlanBands {
   static constexpr int value = 1;
@@ -2978,21 +3105,24 @@ inline int kernel_info(const void* fn, int* out) {
   out[8] = P::ROWS;
   out[9] = 0;
   out[10] = PlanBands<P>::value;
+  out[11] = (int)PlanWs<P>::value;
   // the launch's attributes, which the occupancy calculator reads; a plan
-  // that holds no knot (G 0) is never launched, and querying it would leave
-  // an error that the library's next call reports
-  if (P::G >= 1) {
+  // that holds no knot (G 0) and has no device-memory route is never
+  // launched, and querying it would leave an error that the library's next
+  // call reports
+  if (fn != nullptr && (P::G >= 1 || PlanWs<P>::value > 0)) {
     cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)P::BYTES);
     cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
                          (int)cudaSharedmemCarveoutMaxShared);
     int blocks = 0;
     const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fn, P::G * P::ROWS * P::LANES, (size_t)P::BYTES);
+        &blocks, fn, plan_g<P>() * P::ROWS * P::LANES, (size_t)P::BYTES);
     out[9] = occ == cudaSuccess ? blocks : -1;
   }
-  cudaFuncAttributes a;
-  const cudaError_t err = cudaFuncGetAttributes(&a, fn);
+  cudaFuncAttributes a{};
+  const cudaError_t err =
+      fn == nullptr ? cudaSuccess : cudaFuncGetAttributes(&a, fn);
   out[0] = P::G;
   out[1] = P::LANES;
   out[2] = (int)P::BYTES;

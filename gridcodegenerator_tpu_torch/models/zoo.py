@@ -2,8 +2,8 @@
 
 A copy of ``gridcodegenerator_tpu/models/zoo.py`` (see ``topology/robot.py``
 for why it is copied). The inline robots emit URDF strings; the vendor URDFs
-are read by file path from the JAX package's ``models/vendor/`` folder, which
-is plain data and imports nothing.
+are the port's own copies of the JAX package's ``models/vendor/`` files, in
+``models/vendor/`` here (byte for byte the same: tests/test_torch_model.py).
 
 * ``iiwa``      — 7-DoF revolute serial chain in the KUKA iiwa14 layout
 * ``iiwa14``    — the vendor iiwa14 URDF
@@ -26,8 +26,7 @@ from ..topology.urdf import parse_urdf
 
 PI = math.pi
 VENDOR_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                          os.pardir, os.pardir, "gridcodegenerator_tpu",
-                          "models", "vendor")
+                          "vendor")
 
 
 def _link(name, mass, com, ixx, iyy, izz, ixy=0.0, ixz=0.0, iyz=0.0) -> str:

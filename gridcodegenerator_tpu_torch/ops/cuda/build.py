@@ -29,6 +29,7 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -56,12 +57,23 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # One library per joint count (csrc/dynamics.cuh: GT_DISPATCH, GT_NJ), float
 # and double. build() prebuilds SUPPORTED_JOINTS, the zoo's counts of the
 # configs; lib(nj) builds any count from 1 to MAX_JOINTS at its first use.
-# Above MAX_JOINTS: at 32 joints riccati's, id_du's and the feedback
-# rollout's problem or knot does not fit a block's shared memory, and 28 is
-# the JAX package's ceiling for the fused second-order kernels
-# (gridcodegenerator_tpu/ops/pallas/kernels.py: SO_MAX_NV).
+# Every kernel but the second-order pair runs at
+# every count up to it: where a knot or problem does not fit a block's
+# shared memory (fd_du, id_du, the Riccati sweeps; minv and fd in float64),
+# its state goes to device memory (warp.cuh: WsPlan), and the rollouts'
+# tiles too where theirs do not fit (sweep_warp.cuh: TILES_WS). 64 bounds
+# the plans' constants: a joint set is one 64-bit word (warp.cuh:
+# JointBits), and at 64 joints in float64 the rollouts' head and one
+# rollout (177 KB) still fit a block beside nothing else. The second-order
+# kernels stop at SO_MAX_JOINTS, the JAX package's ceiling for its fused
+# second-order kernels (gridcodegenerator_tpu/ops/pallas/kernels.py:
+# SO_MAX_NV; above it the JAX package runs its XLA tier), read from the
+# kernels' own header (csrc/warp.cuh: SO_MAX_NJ) so that the wrappers'
+# refusal and the compiled one agree.
 SUPPORTED_JOINTS = (2, 7, 8, 12, 16, 17, 28)
-MAX_JOINTS = 28
+MAX_JOINTS = 64
+SO_MAX_JOINTS = int(re.search(r"constexpr int SO_MAX_NJ = (\d+);",
+                              (CSRC / "warp.cuh").read_text()).group(1))
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 # launches per kernel since the last reset: each wrapper adds one right after
@@ -171,24 +183,29 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
+# the kernels with a device-memory route (fd_du, id_du, minv, fd, the two
+# Riccati sweeps, the line search, the feedback rollout) take its workspace
+# and blocks last (workspace(); None, 0 on the shared-memory route)
 _SIGNATURES = {
     "gridtorch_model_size": (_I,),
-    "gridtorch_fd_du": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_fd_du": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _D, _P, _P,
+                        _L),
     "gridtorch_rnea": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
-    "gridtorch_id_du": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_id_du": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P, _P, _L),
     "gridtorch_aba": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
-    "gridtorch_minv": (_I, _I, _P, _P, _P, _L, _I, _P),
-    "gridtorch_fd": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_minv": (_I, _I, _P, _P, _P, _L, _I, _P, _P, _L),
+    "gridtorch_fd": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P, _P, _L),
     "gridtorch_crba": (_I, _I, _P, _P, _P, _L, _P),
     "gridtorch_eepos": (_I, _I, _P, _P, _I, _P, _P, _L, _P),
     "gridtorch_deepos": (_I, _I, _P, _P, _I, _P, _P, _L, _P),
     "gridtorch_rollout": (_I, _I, _P, _P, _P, _P, _P, _P, _I, _L, _D, _D, _P),
     "gridtorch_linesearch": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                             _P, _P, _P, _I, _L, _I, _D, _D, _I, _P, _P),
+                             _P, _P, _P, _I, _L, _I, _D, _D, _I, _P, _P,
+                             _P, _L),
     "gridtorch_riccati_factored": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _I, _L, _I, _D, _D, _D, _P),
+                                   _P, _I, _L, _I, _D, _D, _D, _P, _P, _L),
     "gridtorch_riccati": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
-                          _P, _I, _L, _D, _P),
+                          _P, _I, _L, _D, _P, _P, _L),
     "gridtorch_idsva_so": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
     "gridtorch_fdsva_so": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
     "gridtorch_fd_du_info": (_I, _I, _P),
@@ -211,9 +228,8 @@ _SIGNATURES = {
     "gridtorch_deepos_info": (_I, _I, _P),
     "gridtorch_d2eepos": (_I, _I, _P, _P, _I, _P, _P, _L, _P),
     "gridtorch_feedback_rollout": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                                   _P, _P, _I, _L, _D, _D, _P),
+                                   _P, _P, _I, _L, _D, _D, _P, _P, _L),
 }
-
 
 def check_joints(nj: int, what: str = "CUDA kernels"):
     """Raise NotImplementedError, before any nvcc, for a joint count no
@@ -221,9 +237,23 @@ def check_joints(nj: int, what: str = "CUDA kernels"):
     if not 1 <= nj <= MAX_JOINTS:
         raise NotImplementedError(
             f"{what}: no CUDA kernel library for {nj} joints (1 to "
-            f"{MAX_JOINTS}: above, riccati's, id_du's and the feedback "
-            f"rollout's problem or knot does not fit a block's shared "
-            f"memory, and {MAX_JOINTS} is the JAX package's SO_MAX_NV)")
+            f"{MAX_JOINTS}: the kernels' plans hold a joint set in one 64-bit "
+            f"word, and at {MAX_JOINTS} joints in float64 a rollout block's "
+            f"robot constants and one rollout fill most of a block's shared "
+            f"memory)")
+
+
+def check_so_joints(nj: int, what: str):
+    """Raise NotImplementedError above SO_MAX_JOINTS: the second-order
+    kernels stop at the JAX package's ceiling for its fused second-order
+    kernels."""
+    if nj > SO_MAX_JOINTS:
+        raise NotImplementedError(
+            f"{what}: no second-order kernel for {nj} joints (1 to "
+            f"{SO_MAX_JOINTS}, the JAX package's SO_MAX_NV, "
+            f"gridcodegenerator_tpu/ops/pallas/kernels.py; above it the JAX "
+            f"package runs its XLA tier, which the port does not have yet: "
+            f"ROADMAP.md, Queue 2, second order above 28 joints)")
 
 
 def lib(nj: int) -> ctypes.CDLL:
@@ -244,7 +274,7 @@ def lib(nj: int) -> ctypes.CDLL:
 INFO_FIELDS = ("knots_per_block", "threads_per_knot", "smem_bytes_per_block",
                "registers", "local_bytes", "static_smem_bytes",
                "max_threads_per_block", "max_dynamic_smem_bytes",
-               "rows_per_block", "blocks_per_sm", "bands")
+               "rows_per_block", "blocks_per_sm", "bands", "workspace_bytes")
 # the kernels of a thread group per knot, problem or rollout, by the name of
 # their C info entry point (riccati: the dense sweep's stationary instance,
 # riccati_stacked: its instance with a block per knot)
@@ -263,7 +293,10 @@ def warp_kernel_info(what: str, nj: int, dtype) -> dict:
     search's step-size rows a block at most; 1 for the others),
     blocks_per_sm (the occupancy calculator's, at the plan's block), bands
     (blocks a lane: idsva_so's bands where one knot's whole tile does not
-    fit; else 1)}."""
+    fit; else 1), workspace_bytes (device memory a block takes on the
+    device-memory route: its knot, or the rollouts' tiles; 0 where all of
+    it sits in shared memory)}. Above SO_MAX_JOINTS the second-order
+    kernels' plans come without their kernels' attributes."""
     if what not in WARP_KERNELS:
         raise ValueError(f"no block plan for {what!r}")
     out = (ctypes.c_int * len(INFO_FIELDS))()
@@ -288,13 +321,33 @@ def fits(what: str, nj: int, dtype, kernel: str = None):
     """Raise, before any launch, if one knot (problem, rollout) of the
     thread-group kernel ``what`` (one of ``WARP_KERNELS``; its plan read once
     a process) does not fit a block's shared memory at ``nj`` joints in
-    ``dtype``. ``kernel`` names the kernel in the message."""
+    ``dtype`` and the kernel has no device-memory route there. ``kernel``
+    names the kernel in the message."""
     p = plan(what, nj, dtype)
-    if p["knots_per_block"] < 1:
+    if p["knots_per_block"] < 1 and not p.get("workspace_bytes"):
         raise RuntimeError(
             f"{kernel or what}: one {nj}-joint {dtype} knot needs "
             f"{p['smem_bytes_per_block']} B of shared memory, more than "
             f"a block may use")
+
+
+def workspace(what: str, nj: int, like: torch.Tensor, units: int):
+    """The device-memory workspace of the thread-group kernel ``what`` at
+    ``nj`` joints for ``units`` lanes, problems or blocks, in the dtype and
+    on the device of ``like``: (tensor, blocks), sized by the blocks in
+    flight (the occupancy calculator's blocks an SM times the card's SMs,
+    at most ``units``), a block's workspace_bytes each; (None, 0) where the
+    plan keeps everything in shared memory. The caller holds the tensor
+    until the kernel is launched."""
+    p = plan(what, nj, like.dtype)
+    per = p["workspace_bytes"]
+    if per == 0 or units == 0:
+        return None, 0
+    sms = torch.cuda.get_device_properties(like.device).multi_processor_count
+    blocks = min(units, max(1, p["blocks_per_sm"]) * sms)
+    ws = torch.empty(blocks * per // like.element_size(), dtype=like.dtype,
+                     device=like.device)
+    return ws, blocks
 
 
 def check(err: int, what: str):

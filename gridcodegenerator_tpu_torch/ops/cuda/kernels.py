@@ -57,7 +57,12 @@ refuses, before any launch, one whose knot does not fit a block
 (``build.fits``).
 idsva_so runs its tile in bands where a knot's whole tile does not fit,
 and fdsva_so takes the composed route: every fixed-base robot of 1-28
-one-dof joints has a kernel for each function (``build.MAX_JOINTS``).
+one-dof joints has a kernel for each function. From 29 to
+``build.MAX_JOINTS`` = 64 joints every first-order function has one (where
+a knot does not fit a block, fd_du, id_du, and minv and fd in float64 keep
+it in device memory, a workspace from ``build.workspace``, one knot a
+block); idsva_so and fdsva_so raise there on the card
+(``build.SO_MAX_JOINTS``) and run their plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -194,10 +199,12 @@ def fd_du(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
     n = model.n
     df_du = _empty(q, n, 2 * n, L)
     qdd, Mi = _empty(q, n, L), _empty(q, n, n, L)
+    ws, nws = build.workspace(FD_DU, nj, q, L)
     _launched(FD_DU, build.lib(nj).gridtorch_fd_du(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(u), build.ptr(df_du), build.ptr(qdd),
-        build.ptr(Mi), L, float(gravity), build.stream_ptr(q.device)))
+        build.ptr(Mi), L, float(gravity), build.stream_ptr(q.device),
+        build.ptr(ws), nws))
     return df_du, qdd, Mi
 
 
@@ -222,10 +229,11 @@ def id_du(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
     dcode, nj, L = _lanes(model, ID_DU, dict(q=q, qd=qd, qdd=qdd))
     build.fits(ID_DU, nj, q.dtype)
     dc_du = _empty(q, model.n, 2 * model.n, L)
+    ws, nws = build.workspace(ID_DU, nj, q, L)
     _launched(ID_DU, build.lib(nj).gridtorch_id_du(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(qdd), build.ptr(dc_du), L, float(gravity),
-        build.stream_ptr(q.device)))
+        build.stream_ptr(q.device), build.ptr(ws), nws))
     return dc_du
 
 
@@ -248,9 +256,11 @@ def minv(model: RobotModel, q, dense: bool = True):
     dcode, nj, L = _lanes(model, MINV, dict(q=q))
     build.fits(MINV, nj, q.dtype)
     Mi = _empty(q, model.n, model.n, L)
+    ws, nws = build.workspace(MINV, nj, q, L)
     _launched(MINV, build.lib(nj).gridtorch_minv(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
-        build.ptr(Mi), L, int(bool(dense)), build.stream_ptr(q.device)))
+        build.ptr(Mi), L, int(bool(dense)), build.stream_ptr(q.device),
+        build.ptr(ws), nws))
     return Mi
 
 
@@ -260,10 +270,11 @@ def fd(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
     dcode, nj, L = _lanes(model, FD, dict(q=q, qd=qd, u=u))
     build.fits(FD, nj, q.dtype)
     qdd = _empty(q, model.n, L)
+    ws, nws = build.workspace(FD, nj, q, L)
     _launched(FD, build.lib(nj).gridtorch_fd(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(u), build.ptr(qdd), L, float(gravity),
-        build.stream_ptr(q.device)))
+        build.stream_ptr(q.device), build.ptr(ws), nws))
     return qdd
 
 
@@ -314,9 +325,12 @@ def d2eepos(model: RobotModel, q, targets=None):
 def idsva_so(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
     """Each knot's IDSVA-SO tensors stay in the kernel's shared memory
     until written: the whole tile, or where that does not fit a block one
-    band of its rows a block (``build.warp_kernel_info``'s ``bands``)."""
+    band of its rows a block (``build.warp_kernel_info``'s ``bands``).
+    Above ``build.SO_MAX_JOINTS`` it raises on a CUDA tensor, before any
+    launch; the plain version runs on CPU tensors at any count."""
     if not q.is_cuda:
         return idsva_so_plain(model, q, qd, qdd, gravity)
+    build.check_so_joints(model.n, IDSVA_SO)
     if qdd is None:
         raise ValueError(f"{IDSVA_SO}: qdd is required")
     dcode, nj, L = _lanes(model, IDSVA_SO, dict(q=q, qd=qd, qdd=qdd))
@@ -356,9 +370,12 @@ def fdsva_so_composed(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
 def fdsva_so(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
     """The fused kernel keeps each knot's IDSVA-SO tensors and their
     contractions in shared memory; where one knot does not fit a block
-    the composed route runs (``fdsva_so_route``)."""
+    the composed route runs (``fdsva_so_route``). Above
+    ``build.SO_MAX_JOINTS`` it raises on a CUDA tensor, before any launch;
+    the plain version runs on CPU tensors at any count."""
     if not q.is_cuda:
         return fdsva_so_plain(model, q, qd, u, gravity)
+    build.check_so_joints(model.n, FDSVA_SO)
     dcode, nj, L = _lanes(model, FDSVA_SO, dict(q=q, qd=qd, u=u))
     if fdsva_so_route(nj, q.dtype) == COMPOSED:
         return fdsva_so_composed(model, q, qd, u, gravity)

@@ -35,7 +35,12 @@ problems with cp.async while the knot before is computed.
 Integrator: semi-implicit Euler — qd' = qd + dt*qdd, q' = q + dt*qd'.
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises (a plan that holds no problem or rollout is refused before the
-launch: ``build.fits``).
+launch: ``build.fits``). Where a Riccati problem does not fit a block
+(from 30 to 48 joints, by curvature and dtype) it runs on the device-memory
+route, a problem a block, its state in a workspace sized by the blocks in
+flight (``build.workspace``); where a rollout block's tiles do not fit (the
+line search and the feedback rollout above 52 joints in float64),
+the tiles go there.
 """
 
 from __future__ import annotations
@@ -161,11 +166,16 @@ def feedback_rollout(model: RobotModel, x0, Uref, Xref, kff, K, dt,
                   FEEDBACK)
     X = torch.empty((N, nx, B), dtype=x0.dtype, device=x0.device)
     U = torch.empty((N, n, B), dtype=x0.dtype, device=x0.device)
+    # a workspace where the tiles sit in device memory: a block a group of
+    # G problems at most
+    groups = -(-B // build.plan(FEEDBACK, nj, x0.dtype)["knots_per_block"])
+    ws, nws = build.workspace(FEEDBACK, nj, x0, groups)
     err = build.lib(nj).gridtorch_feedback_rollout(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(x0),
         build.ptr(Uref), build.ptr(Xref), build.ptr(kff), build.ptr(K),
         build.ptr(u_lo), build.ptr(u_hi), build.ptr(X), build.ptr(U), N, B,
-        float(dt), float(gravity), build.stream_ptr(x0.device))
+        float(dt), float(gravity), build.stream_ptr(x0.device),
+        build.ptr(ws), nws)
     build.check(err, FEEDBACK)
     build.LAUNCHES[FEEDBACK] += 1
     return X, U
@@ -240,13 +250,17 @@ def linesearch_rollout(model: RobotModel, x0, Uref, Xref, k, K, alpha_rows,
         kind, ee = COST_KINDS[w["kind"]], w["ee_index"]
         c = torch.empty((na * B,), dtype=dt_, device=dev)
         cbuf = build.cost_buffer(cost, x0)
+    # a workspace where the tiles sit in device memory: the grid's blocks at
+    # most, a block of G problems for each step size
+    blocks = -(-B // build.plan("linesearch", nj, dt_)["knots_per_block"]) * na
+    ws, nws = build.workspace("linesearch", nj, x0, blocks)
     err = build.lib(nj).gridtorch_linesearch(
         dcode, nj, build.ptr(build.model_buffer(model, ee)),
         build.ptr(x0), build.ptr(Uref),
         build.ptr(Xref), build.ptr(k), build.ptr(K), build.ptr(alpha_rows),
         build.ptr(u_lo), build.ptr(u_hi), build.ptr(X), build.ptr(U),
         build.ptr(c), N, B, na, float(dt), float(gravity), kind,
-        build.ptr(cbuf), build.stream_ptr(dev))
+        build.ptr(cbuf), build.stream_ptr(dev), build.ptr(ws), nws)
     build.check(err, what)
     build.LAUNCHES[what] += 1
     return X, U, c
@@ -329,11 +343,13 @@ def riccati_factored(A, Bm, lx, lu, Jw, Vx0, Vxx0, reg, qd_diag, u_diag):
     build.require(dict(given, Bm=Bm), A.dtype, A.device, RICCATI)
     ks = torch.empty((N, n, B), dtype=A.dtype, device=A.device)
     Ks = torch.empty((N, n, nx, B), dtype=A.dtype, device=A.device)
+    ws, nws = build.workspace(RICCATI, n, A, B)
     err = build.lib(n).gridtorch_riccati_factored(
         build.DTYPE_CODES[A.dtype], n, build.ptr(A), build.ptr(Bm),
         build.ptr(lx), build.ptr(lu), build.ptr(Jw), build.ptr(Vx0),
         build.ptr(Vxx0), build.ptr(ks), build.ptr(Ks), N, B, r, float(reg),
-        float(qd_diag), float(u_diag), build.stream_ptr(A.device))
+        float(qd_diag), float(u_diag), build.stream_ptr(A.device),
+        build.ptr(ws), nws)
     build.check(err, RICCATI)
     build.LAUNCHES[RICCATI] += 1
     return ks, Ks
@@ -365,8 +381,8 @@ def riccati(A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg):
     N, nx, n, B = Bm.shape
     _check_riccati_key(RICCATI_DENSE, n, A.dtype)
     stationary = lxx.ndim == 3
-    build.fits("riccati" if stationary else "riccati_stacked", n, A.dtype,
-               RICCATI_DENSE)
+    instance = "riccati" if stationary else "riccati_stacked"
+    build.fits(instance, n, A.dtype, RICCATI_DENSE)
     lead = () if stationary else (N,)
     expect = dict(A=(N, nx, nx, B), lx=(N, nx, B), lu=(N, n, B),
                   lxx=lead + (nx, nx, B), luu=lead + (n, n, B),
@@ -377,12 +393,13 @@ def riccati(A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg):
     build.require(dict(given, Bm=Bm), A.dtype, A.device, RICCATI_DENSE)
     ks = torch.empty((N, n, B), dtype=A.dtype, device=A.device)
     Ks = torch.empty((N, n, nx, B), dtype=A.dtype, device=A.device)
+    ws, nws = build.workspace(instance, n, A, B)
     err = build.lib(n).gridtorch_riccati(
         build.DTYPE_CODES[A.dtype], n, build.ptr(A), build.ptr(Bm),
         build.ptr(lx), build.ptr(lu), build.ptr(lxx), build.ptr(luu),
         build.ptr(lux), int(stationary), build.ptr(Vx0), build.ptr(Vxx0),
         build.ptr(ks), build.ptr(Ks), N, B, float(reg),
-        build.stream_ptr(A.device))
+        build.stream_ptr(A.device), build.ptr(ws), nws)
     build.check(err, RICCATI_DENSE)
     build.LAUNCHES[RICCATI_DENSE] += 1
     return ks, Ks

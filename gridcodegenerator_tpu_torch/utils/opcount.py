@@ -20,7 +20,8 @@ group, phase by phase, as ``HostPar`` runs them),
 by the route the card takes in the model's dtype: idsva_so in every band
 where a knot's whole tile does not fit a block, fdsva_so's composed route
 (fd_du, idsva_so, the contractions) where its fused knot does not fit.
-Counted for the zoo's joint counts and a 20-joint chain.
+Counted for the zoo's joint counts, a 20-joint chain and atlas with two
+12-joint hands (52 joints; no second order there).
 
 ``bound_ms(ops, nbytes, dtype)`` is the least time one NVIDIA H100 SXM could
 take for that work: the larger of the bytes over the memory rate and the

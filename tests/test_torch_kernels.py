@@ -41,6 +41,7 @@ from gridcodegenerator_tpu_torch.trajopt.ilqr import (ILQRConfig, make_ilqr,
                                                       resolve_control_bounds)
 from gridcodegenerator_tpu_torch.trajopt.sqp import SQPConfig, make_sqp
 from gridcodegenerator_tpu_torch.utils import opcount
+from torch_big_robots import atlas_hands_name, atlas_hands_urdf
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -93,7 +94,8 @@ def topo(robot):
 # step where the rollouts stay bounded
 # (the 20-joint chain's line-search rollouts leave every bound at 0.01:
 # states 1.2e7, costs 1.4e12)
-DT = {"dm_quadruped": 0.002, "gym_humanoid": 0.002, "pendulum20": 0.002}
+DT = {"dm_quadruped": 0.002, "gym_humanoid": 0.002, "pendulum20": 0.002,
+      "atlas_grippers64": 0.002}
 
 
 def path_inputs(model, N, B, seed):
@@ -308,8 +310,11 @@ def test_kernel_key_refuses_what_the_build_does_not_cover():
         build.kernel_key(fl, x, "t")
     pend29 = build_model(parse_urdf(pendulum_urdf(29), name="pendulum29"),
                          dtype=torch.float64, device="cpu")
-    with pytest.raises(NotImplementedError, match="29 joints"):
-        build.kernel_key(pend29, x, "t")
+    assert build.kernel_key(pend29, x, "t") == (1, 29)
+    pend65 = build_model(parse_urdf(pendulum_urdf(65), name="pendulum65"),
+                         dtype=torch.float64, device="cpu")
+    with pytest.raises(NotImplementedError, match="65 joints"):
+        build.kernel_key(pend65, x, "t")
     hyq = build_model(load_robot("hyq"), dtype=torch.float64, device="cpu")
     assert build.kernel_key(hyq, x, "t") == (1, 12)
     iiwa = build_model(load_robot("iiwa"), dtype=torch.float64, device="cpu")
@@ -320,17 +325,18 @@ def test_kernel_key_refuses_what_the_build_does_not_cover():
         build.kernel_key(iiwa.to(dtype=torch.float16), x.half(), "t")
 
 
-@pytest.mark.parametrize("nj", [1, 4, 5, 20, 28, 29])
+@pytest.mark.parametrize("nj", [1, 4, 5, 20, 28, 29, 64, 65])
 def test_kernel_key_takes_every_count_from_1_to_28(monkeypatch, nj):
-    """A chain of 1 to 28 joints has a kernel library, built at its first
-    use; 29 raises with the reason, before any nvcc."""
+    """A chain of 1 to 64 joints (build.MAX_JOINTS; 28 before the
+    device-memory routes) has a kernel library, built at its first use; 65
+    raises with the reason, before any nvcc."""
     ran = []
     monkeypatch.setattr(build, "build", lambda *a, **k: ran.append(a))
     monkeypatch.setattr(build, "_nvcc", lambda: ran.append("nvcc"))
     m = build_model(parse_urdf(pendulum_urdf(nj), name=f"pendulum{nj}"),
                     dtype=torch.float32, device="cpu")
     x = torch.zeros(3, dtype=torch.float32)
-    if nj <= 28:
+    if nj <= build.MAX_JOINTS:
         assert build.kernel_key(m, x, "t") == (0, nj)
         S._check_riccati_key("t", nj, torch.float32)
     else:
@@ -338,7 +344,7 @@ def test_kernel_key_takes_every_count_from_1_to_28(monkeypatch, nj):
                       lambda: S._check_riccati_key("t", nj, torch.float32),
                       lambda: build.lib(nj)):
             with pytest.raises(NotImplementedError,
-                               match="does not fit a block's shared memory"):
+                               match=f"{nj} joints .1 to 64: the kernels"):
                 check()
     assert not ran
 
@@ -1952,6 +1958,134 @@ def test_cuda_kernel_matches_plain(cuda_device, name, robot):
     assert _max_err(got, want) <= tol(robot, want)
     if name == "minv_upper":   # exact zeros below the diagonal
         assert not got[0].permute(2, 0, 1).tril(-1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["linesearch_rollout", "linesearch_quad",
+                                  "linesearch_nocost", "feedback_rollout",
+                                  "d2eepos"])
+def test_cuda_tiles_in_device_memory_at_64_joints(cuda_device, name):
+    """At 64 joints in float64 (atlas with two 18-joint grippers,
+    tests/torch_big_robots.py; its library built at first use) the line
+    search's and the feedback rollout's tiles sit in device memory
+    (TILES_WS) and d2eepos stores directly: each launches once and matches
+    its plain twin on 5 problems (N = 4) within TOL of each output's
+    scale."""
+    m = build_model(parse_urdf(atlas_hands_urdf(18),
+                               name=atlas_hands_name(18)),
+                    dtype=torch.float64, device=cuda_device)
+    assert m.n == 64 and m.name in DT
+    for what in ("linesearch", "feedback_rollout"):
+        assert build.plan(what, m.n, torch.float64)["workspace_bytes"] > 0
+    if name == "d2eepos":
+        args = (m, torch.as_tensor(np.random.default_rng(4).uniform(
+            -1, 1, (m.n, 5)), dtype=torch.float64, device=cuda_device))
+    else:
+        args = path_inputs(m, 4, 5, seed=4)[name]
+    kern, plain = WRAPPERS[name]
+    build.reset_counters()
+    got = _outs(kern(*args))
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {KERNEL_OF.get(name, name): 1}
+    assert not build.PLAIN_CALLS
+    want = _outs(plain(*args))
+    assert all(g.is_cuda and g.shape == w.shape for g, w in zip(got, want))
+    scale = max(1.0, max(float(w.abs().max()) for w in want))
+    assert _max_err(got, want) <= TOL * scale
+
+
+# Above 32 joints fd_du's and id_du's knots take more than one warp in
+# shared memory (warp.cuh: knot_lanes, at least 64 threads: a thread a
+# column of a pass, a thread a joint, and barriers across the warps; the
+# plan may give a knot more): fd_du in float32 at 33-46 joints, id_du in
+# float32 at 33-47 and in float64 at 33. Their other instances at these
+# counts take the device-memory route. The robots: the 33- and
+# 46-joint chains (the first and the last count of fd_du's two-warp plan in
+# float32) and atlas_grippers34 (a tree: two 3-joint grippers on atlas).
+TWO_WARP_ROBOTS = {"pendulum33": 33, "atlas_grippers34": 34,
+                   "pendulum46": 46}
+# the (kernel, dtype) instances whose knots sit in shared memory there
+TWO_WARP_SHARED = {("fd_du", torch.float32): range(33, 47),
+                   ("id_du", torch.float32): range(33, 48),
+                   ("id_du", torch.float64): range(33, 34)}
+# float32 against a float64 plain run: chip_smoke.py's rule, within
+# F32_FACTOR times the plain float32 version's own error plus F32_FLOOR of
+# the output's scale
+F32_FACTOR, F32_FLOOR = 10.0, 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("robot", list(TWO_WARP_ROBOTS))
+@pytest.mark.parametrize("name", ["fd_du", "id_du"])
+def test_cuda_two_warp_knots_match_plain(cuda_device, name, robot, dtype):
+    """fd_du and id_du at 33, 34 and 46 joints (libraries built at first
+    use) take the plan TWO_WARP_SHARED says: more than a warp a knot in
+    shared memory, else the device-memory route. Each launches once on 37 lanes (a
+    ragged block) and holds its float64 plain version within TOL of each
+    output's scale in float64, by the float32 rule in float32."""
+    nj = TWO_WARP_ROBOTS[robot]
+    t = (parse_urdf(atlas_hands_urdf(3), name=atlas_hands_name(3))
+         if robot.startswith("atlas") else
+         parse_urdf(pendulum_urdf(nj), name=robot))
+    m64 = build_model(t, dtype=torch.float64, device=cuda_device)
+    assert m64.n == nj
+    p = build.plan(name, nj, dtype)
+    if nj in TWO_WARP_SHARED.get((name, dtype), ()):
+        assert p["knots_per_block"] >= 1 and p["threads_per_knot"] > 32
+        assert p["workspace_bytes"] == 0
+    else:
+        assert p["knots_per_block"] == 0 and p["workspace_bytes"] > 0
+    rng = np.random.default_rng(5)
+    x64 = tuple(torch.as_tensor(rng.uniform(-1, 1, (nj, 37)),
+                                dtype=torch.float64, device=cuda_device)
+                for _ in range(3))
+    m = m64.to(dtype=dtype)
+    kern, plain = WRAPPERS[name]
+    build.reset_counters()
+    got = _outs(kern(m, *(x.to(dtype) for x in x64)))
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {name: 1}
+    assert not build.PLAIN_CALLS
+    want = _outs(plain(m64, *x64))
+    assert all(g.is_cuda and g.dtype == dtype and g.shape == w.shape
+               for g, w in zip(got, want))
+    if dtype == torch.float64:
+        scale = max(1.0, max(float(w.abs().max()) for w in want))
+        assert _max_err(got, want) <= TOL * scale
+        return
+    ref32 = _outs(plain(m, *(x.to(dtype) for x in x64)))
+    for g, w, r in zip(got, want, ref32):
+        assert bool(torch.isfinite(g).all())
+        own = float((r.double() - w).abs().max())
+        bound = F32_FACTOR * own + F32_FLOOR * max(1.0, float(w.abs().max()))
+        assert float((g.double() - w).abs().max()) <= bound
+
+
+@pytest.mark.cuda
+def test_cuda_second_order_refuses_above_28_joints(cuda_device):
+    """On the card GRiD's second order and make_sqp refuse
+    atlas_grippers34 by name, before any launch or nvcc; with
+    use_kernels=False they run the plain versions."""
+    t = parse_urdf(atlas_hands_urdf(3), name=atlas_hands_name(3))
+    g = GRiD(t, dtype=torch.float64, device=cuda_device)
+    xb = np.zeros((2, g.n))
+    n, kw = g.n, dict(dtype=torch.float64, device=cuda_device)
+    cost = QuadCost(Q=torch.ones(2 * n, **kw), R=torch.ones(n, **kw),
+                    Qf=torch.ones(2 * n, **kw),
+                    x_goal=torch.zeros(2 * n, **kw))
+    build.reset_counters()
+    for method in ("idsva_so", "fdsva_so"):
+        with pytest.raises(NotImplementedError, match="34 joints.*SO_MAX_NV"):
+            getattr(g, method)(xb, xb, xb)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        make_sqp(g.model, cost, SQPConfig(N=4))
+    assert not build.LAUNCHES and not build.PLAIN_CALLS
+    make_sqp(g.model, cost, SQPConfig(N=4, use_kernels=False))
+    plain = GRiD(t, dtype=torch.float64, device=cuda_device,
+                 use_kernels=False)
+    assert plain.idsva_so(xb, xb, xb).shape == (2, 4, n, n, n)
 
 
 # the float32 sweeps' robots: not the 20-joint chain, whose float32

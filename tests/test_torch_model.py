@@ -87,3 +87,22 @@ def test_floating_base_raises():
         assert torch.equal(a, b)
     qd = torch.zeros((m.num_vel, 2), dtype=torch.float64)
     assert aba(m, q, qd, qd).shape == (13, 2)
+
+
+@pytest.mark.parametrize("fname", ["iiwa14.urdf", "gym_ant.urdf",
+                                   "gym_humanoid.urdf", "dm_quadruped.urdf"])
+def test_vendor_urdfs_are_the_ports_own_copies(fname):
+    """The port reads its own copy of each vendor URDF, inside the port's
+    package, byte for byte the JAX package's."""
+    from pathlib import Path
+
+    import gridcodegenerator_tpu
+    import gridcodegenerator_tpu_torch
+    from gridcodegenerator_tpu_torch.models import zoo
+
+    port = Path(gridcodegenerator_tpu_torch.__file__).resolve().parent
+    vendor = Path(zoo.VENDOR_DIR).resolve()
+    assert vendor.is_relative_to(port)
+    jax_copy = (Path(gridcodegenerator_tpu.__file__).resolve().parent
+                / "models" / "vendor" / fname)
+    assert (vendor / fname).read_bytes() == jax_copy.read_bytes()
