@@ -1,7 +1,9 @@
 """On-card smoke test of the PyTorch/CUDA port: configs 3, 1, 2, 4 and 5 end
 to end, the rest of the GRiD API, the per-robot generated modules, the
 solver's per-knot cost route, config 3 with the associative-scan Riccati,
-and GRiD on floating-base robots.
+GRiD on floating-base robots, config 5 on a mesh, and the first- and
+second-order paths above 28 joints (config 5 and config 4 on atlas with
+two hands).
 
 Run from the root of a checkout, on a machine with one NVIDIA GPU:
 
@@ -10,10 +12,10 @@ Run from the root of a checkout, on a machine with one NVIDIA GPU:
 Phases, one line each:
   0. device: fail without CUDA; print the card's name and power limit;
   1. build: compile the CUDA kernels from gridcodegenerator_tpu_torch/csrc,
-     one library per joint count (2, 7, 8, 12, 16, 17 and 28), every nvcc
-     at once, and print each library's seconds; then the libraries of 4,
-     5 and 20 joints, each built at its first use (its wall seconds),
-     and the host operation counter (utils/opcount.py); the block plan
+     one library per joint count the run loads (the zoo's 2, 7, 8, 12, 16,
+     17 and 28; phase 2's 4, 5 and 20; phases 13 and 14's 52 and 34), every
+     nvcc at once, the host operation counter's g++ (utils/opcount.py)
+     beside them, and print each library's seconds; the block plan
      (knots, problems or rollouts a block, shared bytes, bands) and
      cudaFuncGetAttributes of every instance of the thread-group kernels:
      fd_du, fdsva_so, idsva_so and id_du (a warp per knot), d2eepos, rnea,
@@ -171,7 +173,7 @@ Phases, one line each:
      the bytes staged a step (time-sliced ranks: no scaling figure);
  13. above 28 joints: atlas_hands52, atlas with two four-finger hands of
      12 joints each (tests/torch_big_robots.py, loaded by file path; 52
-     joints): its library built at first use (nvcc seconds) and every
+     joints): its library's nvcc seconds (built in phase 1) and every
      thread-group plan at 52 joints (knots a block, shared bytes, the
      device-memory route's workspace bytes: fd_du, id_du and the three
      Riccati instances in both dtypes, minv and fd in float64); in float64
@@ -188,12 +190,33 @@ Phases, one line each:
      stationary riccati and the line search, nothing plain: costs finite
      and non-increasing, step ms, scenario solves/s, each kernel at the
      step's shapes (fd_du's float32 rule and plain time on its first 1024
-     lanes) beside its bound, 3 closed-loop periods (one aba launch each)
+     lanes) beside its bound, PERIODS13 closed-loop period (one aba launch)
      and a float64 kernels-against-plain step at S = 64 (phase 8's rule);
      then GRiD's first-order calls at B = 1 and 1024 (one launch each, the
-     float32 rule against a float64 plain GRiD), µs a call.
+     float32 rule against a float64 plain GRiD), µs a call;
+ 14. the second order above 28 joints, on atlas_grippers34 (34 joints, its
+     library built in phase 1) and atlas_hands52: idsva_so's plan and
+     route at 28, 34 and 52 joints (fdsva_so composed above 22 | 17
+     joints; idsva_so's tile in device memory at 34 and 52); (a) in
+     float64 GRiD.idsva_so and GRiD.fdsva_so at 1 and 37 lanes, and
+     GRiD.idsva_so at L_STRIDE14 (each block more than one group of
+     lanes), against their plain versions within 1e-9 of each output's
+     scale, each call launching idsva_so (and fd_du for fdsva_so) once and
+     nothing plain; float32 GRiD.idsva_so at 34 joints on those L_STRIDE14
+     lanes by the float32 rule; (b) in float32 on
+     atlas_hands52 GRiD's second order at B = 1, 128 and 1024: µs a call,
+     the kernel's ms beside its bound, the float32 rule at 128, the error
+     against the float64 kernels; (c) config 4's SQP (QuadCost, N=32, 4
+     iterations, B=512, dt 0.002) on atlas_hands52 in float32: rollout,
+     fd_du, the composed fdsva_so and the line search launched, nothing
+     plain, costs finite and non-increasing, solves/s, each phase's ms and
+     the peak device memory; (d) a float64 kernel solve of its first 64
+     problems against the plain one after iteration 1 (phase 6's rule),
+     beside the kernel solve with fdsva_so's output scaled by 1 + EPS14
+     against the unscaled one over all 4 iterations: each pair's share
+     within F64_REL at every iteration it ran.
 Then a JSON line of per-kernel results (launches on the main paths of
-phases 4-12, error, times, and the roofline bound: the larger of the bytes
+phases 4-14, error, times, and the roofline bound: the larger of the bytes
 each call must move over 3.35 TB/s and the operations its function needs,
 counted by utils/opcount.py, over 67 TFLOP/s float32; beside them the
 operations the kernel's lane code executes), and last the device line.
@@ -208,6 +231,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -260,6 +284,21 @@ PERIODS5, S5_F64 = 3, 64
 # reference too (tests/test_torch_big_scenario.py), and stay bounded at
 # 0.002, as gym_humanoid's do
 HANDS13, DT13 = 12, 0.002
+# one closed-loop period there (phase 8 runs PERIODS5 on atlas): each is a
+# 1.3 s step, cut for the run's time limit
+PERIODS13 = 1
+# phase 14: the second order above 28 joints on atlas_grippers34 (a
+# three-joint gripper a side) and atlas_hands52; GRiD's
+# batches (path B's, and one lane), the float64 batch at which idsva_so's
+# blocks take more than one group of lanes each (the card holds 132 blocks
+# of its float64 plan at once, 2 knots a block at 34 joints, 1 at 52), and
+# config 4's B there (bench.py:199-228, the humanoids' B of path A) at
+# phase 13's dt
+GRIPPERS14, B_SO14, L_STRIDE14, B14 = 3, (1, 128, 1024), 300, 512
+# phase 14's float64 solves scale fdsva_so's output by 1 + EPS14 to show
+# how far the SQP solve itself parts rounding-level differences (as
+# tests/test_torch_sqp.py:config4_float64_sensitivity does on the CPU)
+EPS14 = 1e-15
 # Phase 8 holds the consensus u0, U_next and costs of a float64 kernel step
 # on the first S5_F64 scenarios to the plain step's within U0_REL of
 # max(1, max|value|):
@@ -772,22 +811,40 @@ def main():
         run added last (where its time goes)."""
         return round(time.perf_counter() - t0, 1)
 
-    libs = build.build()
+    # the robots above 28 joints of phases 13 and 14 (tests/
+    # torch_big_robots.py): atlas with two hands, atlas with two grippers
+    spec = importlib.util.spec_from_file_location(
+        "torch_big_robots", os.path.join(os.path.dirname(os.path.abspath(
+            __file__)), "tests", "torch_big_robots.py"))
+    hands = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(hands)
+    topo13 = parse_urdf(hands.atlas_hands_urdf(HANDS13),
+                        name=hands.atlas_hands_name(HANDS13))
+    topo34 = parse_urdf(hands.atlas_hands_urdf(GRIPPERS14),
+                        name=hands.atlas_hands_name(GRIPPERS14))
+    nj13, nj34 = topo13.get_num_joints(), topo34.get_num_joints()
+    # every library the run loads, in one pool of nvcc jobs (the zoo's
+    # counts, phase 2's new counts, phases 13 and 14's), and the host
+    # operation counter's g++ beside it
+    opcount_build = {}
+
+    def build_opcount():
+        t = time.perf_counter()
+        opcount.lib()
+        opcount_build["seconds"] = round(time.perf_counter() - t, 3)
+
+    counter = threading.Thread(target=build_opcount)
+    counter.start()
+    libs = build.build(build.SUPPORTED_JOINTS + FIRST_USE + (nj34, nj13))
     for nj in libs:
         build.lib(nj)
     t1 = time.perf_counter()
-    # the libraries of other joint counts, each built at its first use
-    first_use = {}
-    for nj in FIRST_USE:
-        t = time.perf_counter()
-        build.lib(nj)
-        first_use[nj] = {"seconds": round(time.perf_counter() - t, 3),
-                         "nvcc_seconds": round(build.NVCC_SECONDS[nj], 3)}
-    t2 = time.perf_counter()
+    counter.join()
     opcount.lib()
     line("build", {"seconds": round(t1 - t0, 3),
-                   "first_use": first_use,
-                   "opcount_seconds": round(time.perf_counter() - t2, 3),
+                   "opcount_seconds": opcount_build["seconds"],
+                   "opcount_wait_seconds": round(time.perf_counter() - t1,
+                                                 3),
                    "sources": len(build.SOURCES), "nvcc_jobs": os.cpu_count(),
                    "libraries": {nj: str(p.relative_to(
                        build.BUILD_ROOT.parents[1])) for nj, p in libs.items()},
@@ -1409,7 +1466,8 @@ def main():
 
     def timed_f32(what, kern, plain, args, model, name, iters):
         """The float32 rule on every output, and the kernel's and plain
-        version's times and bound."""
+        version's times and bound (the plain version's reference call is its
+        warm-up: at 52 joints a plain call takes seconds)."""
         out, ref = as_tuple(kern(*args)), as_tuple(plain(*args))
         ref64 = as_tuple(plain(*map(to64, args)))
         torch.cuda.synchronize()
@@ -1421,7 +1479,8 @@ def main():
         return {"max_abs_err": max_err(out, ref), "kernel_err_vs_f64": ek,
                 "plain_err_vs_f64": ep,
                 "ms": time_cuda(lambda: kern(*args), iters=iters),
-                "plain_ms": time_cuda(lambda: plain(*args), iters=2)} | \
+                "plain_ms": time_cuda(lambda: plain(*args), iters=2,
+                                      warmup=0)} | \
             roofline(name, model, args, out)
 
     # riccati with the stationary curvature at config 3's QuadCost shapes
@@ -2787,14 +2846,6 @@ def main():
         mesh5["robots"].items()})
 
     # -- phase 13: above 28 joints: atlas with hands -------------------------
-    spec = importlib.util.spec_from_file_location(
-        "torch_big_robots", os.path.join(os.path.dirname(os.path.abspath(
-            __file__)), "tests", "torch_big_robots.py"))
-    hands = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(hands)
-    topo13 = parse_urdf(hands.atlas_hands_urdf(HANDS13),
-                        name=hands.atlas_hands_name(HANDS13))
-    nj13 = topo13.get_num_joints()
     t = time.perf_counter()
     build.lib(nj13)
     lib13 = {"seconds": round(time.perf_counter() - t, 3),
@@ -2983,27 +3034,28 @@ def main():
                                               ref),
                        "ms": time_cuda(lambda: K.fd_du(*fd_args), iters=3),
                        "plain_ms": time_cuda(lambda: K.fd_du_plain(*head),
-                                             iters=2),
+                                             iters=2, warmup=0),
                        "plain_lanes": L1, "launches_per_step": ITERS5} | \
         roofline("fd_du", m, fd_args, out)
     del X, A, Bm, ric, ks, Ks, cases5, parts5, out, ref, ref64, fd_args, head
     torch.cuda.empty_cache()
 
-    # three closed-loop periods: a scenario step each, then the consensus
-    # control through dynamics_step (one aba launch)
+    # PERIODS13 closed-loop periods: a scenario step each, then the
+    # consensus control through dynamics_step (one aba launch)
     build.reset_counters()
     xs, us13 = closed_loop(m, cost5, cfg5, torch.zeros(
-        2 * n, dtype=torch.float32, device=dev), PERIODS5,
+        2 * n, dtype=torch.float32, device=dev), PERIODS13,
         torch.Generator(device=dev).manual_seed(0), SPREAD5)
     torch.cuda.synchronize()
     runs = dict(build.LAUNCHES)
-    want = {k: PERIODS5 * v for k, v in step5.items()} | {"aba": PERIODS5}
+    want = {k: PERIODS13 * v for k, v in step5.items()} | {"aba": PERIODS13}
     if runs != want or build.PLAIN_CALLS:
         raise AssertionError(f"config 5 {topo13.name} closed loop launches "
                              f"{runs} (expected {want}), plain calls "
                              f"{dict(build.PLAIN_CALLS)}")
     path_runs.append(runs)
-    if xs.shape != (PERIODS5 + 1, 2 * n) or not bool(torch.isfinite(xs).all()):
+    if xs.shape != (PERIODS13 + 1, 2 * n) or not bool(
+            torch.isfinite(xs).all()):
         raise AssertionError(f"config 5 {topo13.name} closed loop: states "
                              f"{tuple(xs.shape)}, finite "
                              f"{bool(torch.isfinite(xs).all())}")
@@ -3079,30 +3131,8 @@ def main():
                     a.T for a in x[:nargs])), (out,)).items()
                 if k in ("bound_ms", "bound_by")}
     path_runs.append(grid_runs)
-    # the second order has no kernel above build.SO_MAX_JOINTS: GRiD's
-    # calls and make_sqp refuse by name on the card, before any launch
-    refusals13 = {}
-    xs = tuple(a[:1] for a in x)
-    build.reset_counters()
-    for label, call in (
-            ("idsva_so", lambda: g13[0].idsva_so(*xs)),
-            ("fdsva_so", lambda: g13[0].fdsva_so(*xs)),
-            ("make_sqp", lambda: make_sqp(g13[0].model, config5_cost(
-                g13[0].model), SQPConfig(N=4)))):
-        try:
-            call()
-        except NotImplementedError as e:
-            refusals13[label] = str(e)[:80]
-        else:
-            raise AssertionError(f"{topo13.name} {label}: no refusal above "
-                                 f"{build.SO_MAX_JOINTS} joints")
-    if build.LAUNCHES or build.PLAIN_CALLS:
-        raise AssertionError(f"{topo13.name} second-order refusals ran "
-                             f"{dict(build.LAUNCHES)} "
-                             f"{dict(build.PLAIN_CALLS)}")
     line("grid_hands52", {"robot": topo13.name, "device": smi,
-                          "calls": grid13, "second_order_refusals": refusals13,
-                          "elapsed_s": elapsed()})
+                          "calls": grid13, "elapsed_s": elapsed()})
     for name in ("fd_du", "riccati", "linesearch_rollout", "rollout", "aba"):
         results[name]["hands52"] = {k: kern13[name][k] for k in (
             "ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
@@ -3120,6 +3150,293 @@ def main():
                 f"grid_{label}_us"] = {b: grid13[f"{label}_B{b}"][
                     "us_per_call"] for b in (1, L1)}
     del g13, m
+    torch.cuda.empty_cache()
+
+    # -- phase 14: the second order above 28 joints --------------------------
+    t = time.perf_counter()
+    build.lib(nj34)
+    lib14 = {"seconds": round(time.perf_counter() - t, 3),
+             "nvcc_seconds": round(build.NVCC_SECONDS[nj34], 3)}
+    # idsva_so's plan and route at 28, 34 and 52 joints; fdsva_so is
+    # composed above 22 | 17 joints
+    plans14 = {}
+    for nj in (28, topo34.get_num_joints(), nj13):
+        for dt in dtypes:
+            p = build.plan("idsva_so", nj, dt)
+            plans14[f"{nj} {str(dt)[6:]}"] = {f: p[f] for f in (
+                "knots_per_block", "threads_per_knot", "smem_bytes_per_block",
+                "bands", "device_tile", "registers", "local_bytes",
+                "blocks_per_sm")} | {
+                "route": K.idsva_so_route(nj, dt),
+                "fdsva_so_route": K.fdsva_so_route(nj, dt)}
+            if K.fdsva_so_route(nj, dt) != K.COMPOSED or (
+                    nj == nj13 and K.idsva_so_route(nj, dt) != K.DEVICE):
+                raise AssertionError(f"second order at {nj} joints in {dt}: "
+                                     f"{plans14}")
+    line("so_big_build", {"robot": topo34.name} | lib14 | {
+        "idsva_so_plans": plans14, "elapsed_s": elapsed()})
+
+    # (a) float64: GRiD's second order against the plain versions at 1 and
+    # 37 lanes, and idsva_so at L_STRIDE14 (its blocks over more than one
+    # group of lanes), each call its route's kernels and nothing plain,
+    # within 1e-9 of each output's scale; float32 idsva_so at 34 joints on
+    # those lanes by the float32 rule
+    so_launches = {"idsva_so": {"idsva_so": 1},
+                   "fdsva_so": {"fd_du": 1, "idsva_so": 1}}
+    f64_14 = {}
+    for tp in (topo34, topo13):
+        gk = GRiD(tp, dtype=torch.float64, device=dev)
+        gp = GRiD(tp, dtype=torch.float64, device=dev, use_kernels=False)
+        rng = np.random.default_rng(14)
+        for b in (1, 37, L_STRIDE14):
+            shape = (gk.n,) if b == 1 else (b, gk.n)
+            x = tuple(torch.as_tensor(rng.uniform(-1, 1, shape),
+                                      dtype=torch.float64, device=dev)
+                      for _ in range(3))
+            for method, want in so_launches.items():
+                if b == L_STRIDE14 and method != "idsva_so":
+                    continue
+                what = f"{tp.name} GRiD.{method} B={b} float64"
+                build.reset_counters()
+                out = getattr(gk, method)(*x)
+                torch.cuda.synchronize()
+                if dict(build.LAUNCHES) != want or build.PLAIN_CALLS:
+                    raise AssertionError(f"{what}: launches "
+                                         f"{dict(build.LAUNCHES)}, plain "
+                                         f"calls {dict(build.PLAIN_CALLS)}")
+                ref = getattr(gp, method)(*x)
+                err = max_err((out,), (ref,))
+                tol = 1e-9 * max(1.0, float(ref.abs().max()))
+                if out.shape != ref.shape or not err <= tol:
+                    raise AssertionError(f"{what}: max abs err {err} > {tol}")
+                f64_14[what] = {"max_abs_err": err, "tol": tol}
+                del out
+                if b == L_STRIDE14 and tp is topo34:
+                    # float32's device tile (4 knots a block) by the float32
+                    # rule, against the float64 plain output above
+                    x32 = tuple(a.float() for a in x)
+                    g32, gp32 = (GRiD(tp, dtype=torch.float32, device=dev,
+                                      use_kernels=uk) for uk in (None, False))
+                    what = f"{tp.name} GRiD.idsva_so B={b} float32"
+                    build.reset_counters()
+                    out = g32.idsva_so(*x32)
+                    torch.cuda.synchronize()
+                    if dict(build.LAUNCHES) != want or build.PLAIN_CALLS:
+                        raise AssertionError(f"{what}: launches "
+                                             f"{dict(build.LAUNCHES)}")
+                    ek, ep = check_f32(what, out, gp32.idsva_so(*x32), ref)
+                    f64_14[what] = {"kernel_err_vs_f64": ek,
+                                    "plain_err_vs_f64": ep}
+                    del out, g32, gp32
+                del ref
+        del gk, gp
+    line("so_big_f64", {"cases": f64_14, "elapsed_s": elapsed()})
+
+    # (b) float32 on atlas_hands52: GRiD's second order at B_SO14 (µs a
+    # call, launches), each kernel's ms at those lanes beside its bound
+    # (operations counted once a lane), the float32 rule at B=128 against
+    # plain float32 and float64 GRiD, and the error against the float64
+    # kernels (held to plain above) at every B
+    m = build_model(topo13, dtype=torch.float32, device=dev)
+    f64_of[id(m)] = m.to(dtype=torch.float64)
+    gk, gk64 = (GRiD(topo13, dtype=dt, device=dev) for dt in dtypes)
+    gp, gp64 = (GRiD(topo13, dtype=dt, device=dev, use_kernels=False)
+                for dt in dtypes)
+    ops14 = {(k, ex): opcount.ops_per_lane(k, m, executed=ex)
+             for k in ("idsva_so", "fdsva_so") for ex in (False, True)}
+    grid14 = {}
+    rng = np.random.default_rng(16)
+    for b in B_SO14:
+        shape = (nj13,) if b == 1 else (b, nj13)
+        x = tuple(torch.as_tensor(rng.uniform(-1, 1, shape),
+                                  dtype=torch.float32, device=dev)
+                  for _ in range(3))
+        x64 = tuple(a.double() for a in x)
+        lanes = tuple(a.reshape(-1, nj13).T.contiguous() for a in x)
+        for method, want in so_launches.items():
+            what = f"{topo13.name} GRiD.{method} B={b}"
+            build.reset_counters()
+            out = getattr(gk, method)(*x)
+            torch.cuda.synchronize()
+            if dict(build.LAUNCHES) != want or build.PLAIN_CALLS:
+                raise AssertionError(f"{what}: launches "
+                                     f"{dict(build.LAUNCHES)}, plain calls "
+                                     f"{dict(build.PLAIN_CALLS)}")
+            row = {"kernel_err_vs_f64_kernel": max_err(
+                (out,), (getattr(gk64, method)(*x64),))}
+            if b == 128:   # the plain versions take seconds a call here
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                ref = getattr(gp, method)(*x)
+                ev[1].record()
+                ev[1].synchronize()
+                row["plain_ms"] = ev[0].elapsed_time(ev[1])
+                ref64 = getattr(gp64, method)(*x64)
+                row["kernel_err_vs_f64"], row["plain_err_vs_f64"] = \
+                    check_f32(what, out, ref, ref64)
+                del ref, ref64
+            kern = getattr(K, method)
+            kargs = (m, *lanes, GRAVITY)
+            row["us_per_call"] = time_cuda(lambda: getattr(gk, method)(*x),
+                                           iters=5 if b < 1024 else 3) * 1e3
+            row["ms"] = time_cuda(lambda: kern(*kargs), iters=3)
+            ops = ops14[method, False] * b
+            row |= dict(zip(("bound_ms", "bound_by"), opcount.bound_ms(
+                ops, opcount.tensor_bytes(kargs, (out,),
+                                          build.model_buffer(m)),
+                torch.float32)))
+            row |= {"ops": ops, "ops_executed": ops14[method, True] * b}
+            grid14[f"{method}_B{b}"] = row
+            del out
+        del x, x64, lanes
+        torch.cuda.empty_cache()
+    line("grid_so_hands52", {"robot": topo13.name, "device": smi,
+                             "dtype": "float32", "calls": grid14,
+                             "ops_per_lane": {
+                                 f"{k} {('needed', 'executed')[ex]}": v
+                                 for (k, ex), v in ops14.items()},
+                             "elapsed_s": elapsed()})
+    del gk, gk64, gp, gp64
+
+    # (c) config 4's SQP (bench.py:199-228: QuadCost, N=32, 4 iterations)
+    # on atlas_hands52 at B14, float32, dt DT13, x0 from its own
+    # default_rng(0) as path A's: rollout, fd_du, the composed fdsva_so
+    # (fd_du and idsva_so) and the line search every iteration, nothing
+    # plain; costs finite and non-increasing; solves/s, each phase's ms and
+    # the peak device memory
+    n = m.n
+    cfg_kw = dict(N=N4, dt=DT13, iters=ITERS4)
+    solve14, parts14 = make_sqp(m, quad_cost(m, QUAD4), SQPConfig(**cfg_kw),
+                                expose_parts=True)
+    x0n = np.random.default_rng(0).uniform(-0.2, 0.2, (2 * n, B14))
+    x14 = torch.as_tensor(x0n, dtype=torch.float32, device=dev)
+    U14 = torch.zeros((N4, n, B14), dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_counters()
+    res14 = solve14(x14, U14)
+    torch.cuda.synchronize()
+    peak14 = torch.cuda.max_memory_allocated()
+    path_runs.append(check_run(
+        f"config 4 {topo13.name}", res14,
+        {"rollout": 1, "linesearch_rollout": ITERS4, "fd_du": 2 * ITERS4,
+         "idsva_so": ITERS4}, N4, B14, ITERS4, n))
+    ms14 = time_cuda(lambda: solve14(x14, U14), iters=1, warmup=0)
+    X = parts14["rollout"](x14, U14)
+    A, Bm = parts14["linearize"](X[:N4], U14)
+    so = parts14["second_order"](X, U14)
+    ks, Ks = parts14["backward"](X, U14, A, Bm, so)
+    phases14 = {"backward_ms": time_cuda(
+        lambda: parts14["backward"](X, U14, A, Bm, so), iters=1)}
+    del so
+    phases14 |= {
+        "rollout_ms": time_cuda(lambda: parts14["rollout"](x14, U14),
+                                iters=3),
+        "linearize_ms": time_cuda(lambda: parts14["linearize"](X[:N4], U14),
+                                  iters=3),
+        "fdsva_so_ms": time_cuda(lambda: parts14["second_order"](X, U14),
+                                 iters=1),
+        "forward_ms": time_cuda(lambda: parts14["forward"](X, U14, ks, Ks),
+                                iters=3)}
+    # the composed fdsva_so's kernels at the solve's N*B lanes (its first
+    # iteration's inputs), idsva_so beside its bound
+    fold = lambda Z: Z.transpose(0, 1).reshape(Z.shape[1], -1)
+    q, qd, u = fold(X[:N4, :n]), fold(X[:N4, n:]), fold(U14)
+    qdd = K.fd_du(m, q, qd, u)[1]
+    phases14["fd_du_ms"] = time_cuda(lambda: K.fd_du(m, q, qd, u), iters=3)
+    phases14["idsva_so_ms"] = time_cuda(lambda: K.idsva_so(m, q, qd, qdd),
+                                        iters=3)
+    lanes14 = N4 * B14
+    phases14["idsva_so_bound_ms"], phases14["idsva_so_bound_by"] = \
+        opcount.bound_ms(ops14["idsva_so", False] * lanes14,
+                         opcount.tensor_bytes(q, qd, qdd) + 4 * n ** 3
+                         * lanes14 * 4, torch.float32)
+    phases14["lanes"] = lanes14
+    del X, A, Bm, ks, Ks, q, qd, u, qdd
+    torch.cuda.empty_cache()
+
+    # (d) float64 on the first 64 problems: the kernel solve against the
+    # plain one after iteration 1 (phase 6's rule for SQP; the plain solve
+    # stops there, since a plain float64 iteration takes 8-11 s at 52
+    # joints), and, to show how far the solve itself parts rounding-level
+    # differences, the kernel solve with fdsva_so's output scaled by
+    # 1 + EPS14 against the unscaled one over all ITERS4 iterations; each
+    # pair's share within F64_REL and largest rel difference at every
+    # iteration it ran, and each solve's seconds
+    m64 = f64_of[id(m)]
+    x64 = torch.as_tensor(x0n[:, :64], dtype=torch.float64, device=dev)
+    U64 = torch.zeros((N4, n, 64), dtype=torch.float64, device=dev)
+    fdsva_kernel = K.fdsva_so
+
+    def solve64(use_kernels, eps, iters):
+        if eps:
+            K.fdsva_so = lambda *a: fdsva_kernel(*a).mul_(1 + eps)
+        try:
+            solve = make_sqp(m64, quad_cost(m64, QUAD4), SQPConfig(
+                **(cfg_kw | {"iters": iters}), use_kernels=use_kernels))
+        finally:
+            K.fdsva_so = fdsva_kernel
+        t = time.perf_counter()
+        trace = solve(x64, U64).cost_trace.cpu()
+        return trace, time.perf_counter() - t
+
+    tr64, s64 = {}, {}
+    for key, uk, eps, iters in (("kernel", None, 0.0, ITERS4),
+                                ("plain", False, 0.0, 1),
+                                ("kernel_scaled", None, EPS14, ITERS4)):
+        tr64[key], s64[key] = solve64(uk, eps, iters)
+    per_iter = {}
+    for pair, (a, b) in (("kernel_vs_plain", ("kernel", "plain")),
+                         ("scaled_vs_kernel", ("kernel_scaled", "kernel"))):
+        it = min(len(tr64[a]), len(tr64[b]))
+        r = rel(tr64[a][:it], tr64[b][:it])
+        per_iter[pair] = {
+            "share": [float(x) for x in (r <= F64_REL).double().mean(1)],
+            "max_rel": [float(x) for x in r.max(1).values]}
+    f64_at = per_iter["kernel_vs_plain"]["share"][1]
+    agree14 = {
+        "f64_held_at_iter": 1, "f64_kernel_vs_plain_share_at_iter": f64_at,
+        "f64_kernel_vs_plain_max_rel_at_iter": per_iter[
+            "kernel_vs_plain"]["max_rel"][1],
+        "per_iteration": per_iter, "scaled_eps": EPS14,
+        "cost_mean_per_iteration": {k: [float(c) for c in v.mean(1)]
+                                    for k, v in tr64.items()},
+        "solve_s": s64}
+    if not f64_at >= F64_SHARE:
+        raise AssertionError(f"config 4 {topo13.name} float64: kernel solve "
+                             f"within rel {F64_REL} of the plain one on "
+                             f"{f64_at} of the problems after iteration 1 < "
+                             f"{F64_SHARE}: {agree14}")
+    config4_14 = {
+        "robot": topo13.name, "joints": n, "B": B14, "N": N4,
+        "iters": ITERS4, "dt": DT13, "dtype": "float32", "device": smi,
+        "fdsva_so_route": K.fdsva_so_route(n, torch.float32),
+        "idsva_so_route": K.idsva_so_route(n, torch.float32),
+        "solve_ms": ms14, "solves_per_s": B14 / (ms14 / 1e3),
+        "max_memory_allocated_bytes": peak14,
+        "cost_first_mean": float(res14.cost_trace[0].mean()),
+        "cost_last_mean": float(res14.cost_trace[-1].mean()),
+        "launches": path_runs[-1], "phases": phases14,
+        "first64": agree14, "elapsed_s": elapsed()}
+    line("config4_hands52", config4_14)
+    for name in ("idsva_so", "fdsva_so"):
+        results[name]["hands52"] = {
+            f"B{b}": {k: grid14[f"{name}_B{b}"][k] for k in (
+                "ms", "bound_ms", "bound_by", "ops", "ops_executed",
+                "kernel_err_vs_f64_kernel")} for b in B_SO14} | {
+            "plain_ms_B128": grid14[f"{name}_B128"]["plain_ms"],
+            "route": (K.idsva_so_route(nj13, torch.float32)
+                      if name == "idsva_so" else
+                      K.fdsva_so_route(nj13, torch.float32)),
+            "config4_launches_per_solve": path_runs[-1][name] if
+            name in path_runs[-1] else 0,
+            "f64_max_abs_err": max(v["max_abs_err"] for k, v in
+                                   f64_14.items() if topo13.name in k
+                                   and f"GRiD.{name} " in k),
+            "config4_ms": phases14[f"{name}_ms"]}
+    results["idsva_so"]["hands52"]["config4_bound_ms"] = phases14[
+        "idsva_so_bound_ms"]
+    del res14, m, m64, tr64, x14, U14, solve14, parts14
     torch.cuda.empty_cache()
     print(smi, flush=True)
 

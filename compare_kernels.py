@@ -1258,7 +1258,7 @@ def bind(libs: dict, kernels, scratch: bool) -> dict:
            "linesearch": [I, I] + [P] * 12 + [I, L, I, D, D, I, P, P] + ws,
            "riccati": [I, I] + [P] * 7 + [I] + [P] * 4 + [I, L, D, P] + ws,
            "rollout": [I, I] + [P] * 6 + [I, L, D, D, P],
-           "idsva_so": [I, I, P, P, P, P, P, L, D, P],
+           "idsva_so": [I, I, P, P, P, P, P, L, D, P, P, I, I],
            "feedback_rollout": [I, I] + [P] * 10 + [I, L, D, D, P] + ws,
            "id_du": [I, I, P, P, P, P, P, L, D, P] + ws,
            "d2eepos": [I, I, P, P, I, P, P, L, P],
@@ -1601,7 +1601,8 @@ def main():
                     def fn():
                         build.check(lib.gridtorch_idsva_so(
                             0, n, ptr(mb), ptr(q), ptr(qd), ptr(u),
-                            ptr(outs[0]), lanes, -9.81, stream), what)
+                            ptr(outs[0]), lanes, -9.81, stream, None, 0, 0),
+                            what)
                     return fn, outs
                 extra = ((torch.empty(4, n, n, n, lanes, device=dev),)
                          if libs[tree][1] else ())

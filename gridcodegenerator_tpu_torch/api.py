@@ -39,11 +39,11 @@ construction by ``model.floating_base``: ``use_kernels=True`` on such a
 robot raises ``NotImplementedError``, and so do ``idsva_so`` and
 ``fdsva_so`` (second order is fixed-base, as in the JAX package).
 
-A fixed-base robot of 1 to 64 one-dof joints runs every first-order method
-on the card; above 28 joints (``ops/cuda/build.py:SO_MAX_JOINTS``, the JAX
-package's ceiling for its fused second-order kernels) ``idsva_so`` and
-``fdsva_so`` raise ``NotImplementedError`` on the card; on the CPU, or with
-``use_kernels=False``, they run the plain versions.
+A fixed-base robot of 1 to 64 one-dof joints runs every method on the
+card, the second order too (above 28 joints, where the JAX package leaves
+its Pallas kernels for its XLA tier, ``idsva_so`` accumulates its tile in
+device memory and ``fdsva_so`` is composed from it); on the CPU, or with
+``use_kernels=False``, the plain versions run.
 """
 
 from __future__ import annotations

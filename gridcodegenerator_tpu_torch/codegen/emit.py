@@ -30,7 +30,6 @@ from typing import Optional
 
 import numpy as np
 
-from ..ops.cuda.build import SO_MAX_JOINTS
 from ..topology.robot import RobotTopology
 
 
@@ -99,10 +98,9 @@ def gen_all_code(
     # a floating base runs the plain twins (the kernels are fixed-base)
     twin = "_plain" if topo.floating_base else ""
     # the timing table leaves out the second order where the card has no
-    # kernel for it: on a floating base, and above the second-order
-    # kernels' joint ceiling (where it raises on the card)
-    no_so = topo.floating_base or n > SO_MAX_JOINTS
-    timed = [a for a in TIMING_SET if not (no_so and a[0] in SECOND_ORDER)]
+    # kernel for it: on a floating base
+    timed = [a for a in TIMING_SET
+             if not (topo.floating_base and a[0] in SECOND_ORDER)]
 
     code = f'''"""Generated PyTorch/CUDA dynamics suite for robot {topo.name!r}.
 

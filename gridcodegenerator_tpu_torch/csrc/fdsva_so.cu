@@ -67,11 +67,12 @@ static int launch_fdsva_so(const void* model, const void* q, const void* qd,
                            const void* u, void* out, long long L,
                            double gravity, cudaStream_t stream) {
   using P = gt::SOPlan<T, NJ>;
-  if constexpr (NJ > gt::SO_MAX_NJ) {   // the wrappers refuse it by name
-    return (int)cudaErrorNotSupported;
+  // where one knot does not fit a block the wrappers take the composed
+  // route (fd_du, idsva_so, the contractions), and no kernel is built
+  if constexpr (P::G < 1) {
+    return (int)cudaErrorInvalidConfiguration;
   } else {
     if (L == 0) return 0;
-    if (P::G < 1) return (int)cudaErrorInvalidConfiguration;
     static const cudaError_t attr = cudaFuncSetAttribute(
         fdsva_so_kernel<T, NJ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)P::BYTES);
@@ -86,7 +87,7 @@ static int launch_fdsva_so(const void* model, const void* q, const void* qd,
 
 template <typename T, int NJ>
 static int fdsva_so_info(int* out) {
-  if constexpr (NJ > gt::SO_MAX_NJ)
+  if constexpr (gt::SOPlan<T, NJ>::G < 1)
     return gt::kernel_info<gt::SOPlan<T, NJ>>(nullptr, out);
   else
     return gt::kernel_info<gt::SOPlan<T, NJ>>(

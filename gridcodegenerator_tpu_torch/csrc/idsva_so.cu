@@ -39,6 +39,24 @@
 // update reads another row. The stage quantities and the triples are
 // repeated in every band; the output is still written once.
 //
+// Above IDSO_BANDS_MAX_NJ = 28 joints (warp.cuh:idso_route; the bands and
+// the band's head grow with the joints: at 52 joints 52 bands in float32
+// and none in float64, whose knot of 4 rows does not fit), the tile goes
+// to device memory (warp.cuh:IDSOTilePlan):
+// a block holds the robot constants and G knots' inputs and stage
+// quantities (225 NJ values a knot), each knot runs its program once, and
+// its stages and corrections read-modify-write their entries in the
+// output itself, lane stride L, G adjacent lanes a block; the launcher
+// zeroes the output first (a memset: most of a knot's 4 NJ^3 entries are
+// zero; the stages touch 35.7k of 562k at 52 joints, 14.0k of 157k at 34,
+// counted by the host build's race check). The (j, a, st) lists are
+// the robot's, built on the host by SOLists itself (gridtorch_so_lists:
+// 2034 triples and 394 pairs at 52 joints, 9.7 KB, where the arrays sized
+// for a chain take 110 KB), copied to the card once a model
+// (ops/cuda/build.py:so_lists) and read from device memory. No workspace:
+// the tile is the output. The library builds only the route idso_route
+// picks at its joint count.
+//
 // Layout: q, qd, qdd (NJ, L); out (4, NJ, NJ, NJ, L).
 #include "warp.cuh"
 
@@ -177,48 +195,143 @@ static int launch_idsva_so(const void* model, const void* q, const void* qd,
   return (int)cudaGetLastError();
 }
 
-// the plan that runs: the whole tile where one knot's fits, else bands
-template <typename T, int NJ>
-static int launch_idsva_so_plan(const void* model, const void* q,
+// The device-memory tile's kernel (warp.cuh:IDSOTilePlan): G knots a
+// block, each knot's inputs and stage quantities in shared memory after the
+// robot constants, each knot's tensor accumulated in place in `out` (zeroed
+// by the launcher), knot g at lane l0 + g; the blocks resident, each taking
+// every gridDim.x-th group of G lanes. The (j, a, st) lists are the robot's
+// (`lists`: ntrip triples, then npair pairs, ops/cuda/build.py:so_lists),
+// read from device memory through L1.
+template <typename T, int NJ, class P>
+__global__ void __launch_bounds__(P::LANES * gt::plan_g<P>())
+    idsva_so_tile_kernel(const T* __restrict__ model,
+                         const T* __restrict__ q, const T* __restrict__ qd,
+                         const T* __restrict__ qdd, T* __restrict__ out,
+                         long long L, T gravity,
+                         const int* __restrict__ lists, int ntrip,
+                         int npair) {
+  constexpr int N = P::LANES, S = P::STRIDE;
+  auto& R = *reinterpret_cast<gt::RobotConst<T, NJ>*>(gt_smem);
+  T* knots = reinterpret_cast<T*>(reinterpret_cast<char*>(gt_smem) + P::HEAD);
+  const int tid = threadIdx.x, nt = blockDim.x, G = nt / N, g = tid / N;
+  const gt::SOListView lv{ntrip, npair, lists, lists + ntrip};
+  R.load_tree(model, tid, nt);
+  for (long long l0 = (long long)blockIdx.x * G; l0 < L;
+       l0 += (long long)gridDim.x * G) {
+    __syncthreads();   // the head has landed; the last group's knots are done
+    gt::load_inputs<T, NJ, S>(q, qd, qdd, L, l0, G, knots, tid, nt);
+    __syncthreads();
+    if (l0 + g < L)   // a knot's threads skip together
+      gt::idsva_so_knot_to<T, NJ>(gt::WarpPar<N>{tid % N, 1 + g}, R, lv,
+                                  knots + (long long)g * S, gravity,
+                                  out + l0 + g, L);
+  }
+}
+
+// The device-memory tile's launch: the output zeroed (one memset of 4 NJ^3
+// L values), then as many blocks as the card holds at once.
+template <typename T, int NJ, class P>
+static int launch_idsva_so_tile(const void* model, const void* q,
                                 const void* qd, const void* qdd, void* out,
                                 long long L, double gravity,
-                                cudaStream_t stream) {
-  if constexpr (NJ > gt::SO_MAX_NJ)   // the wrappers refuse it by name
-    return (int)cudaErrorNotSupported;
-  else if constexpr (gt::IDSOPlan<T, NJ>::G >= 1)
+                                cudaStream_t stream, const int* lists,
+                                int ntrip, int npair) {
+  if (L == 0) return 0;
+  if (P::G < 1) return (int)cudaErrorInvalidConfiguration;
+  if (lists == nullptr || ntrip < 1 || npair < 1)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t zero = cudaMemsetAsync(
+      out, 0, (size_t)L * 4 * NJ * NJ * NJ * sizeof(T), stream);
+  if (zero != cudaSuccess) return (int)zero;
+  static const cudaError_t attr =
+      gt::smem_attrs(idsva_so_tile_kernel<T, NJ, P>, P::BYTES);
+  if (attr != cudaSuccess) return (int)attr;
+  static int per_sm = 0;
+  if (per_sm == 0)
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, idsva_so_tile_kernel<T, NJ, P>, P::LANES * P::G, P::BYTES);
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long groups = (L + P::G - 1) / P::G;
+  const long long most = (long long)(per_sm > 0 ? per_sm : 1) * sms;
+  idsva_so_tile_kernel<T, NJ, P><<<(unsigned)(most < groups ? most : groups),
+                                   P::LANES * P::G, P::BYTES, stream>>>(
+      (const T*)model, (const T*)q, (const T*)qd, (const T*)qdd, (T*)out, L,
+      (T)gravity, lists, ntrip, npair);
+  return (int)cudaGetLastError();
+}
+
+// The route warp.cuh:idso_route picks at NJ joints in T, the only one
+// instantiated: the whole tile where it fits a block, else the bands up to
+// IDSO_BANDS_MAX_NJ joints, else the device tile.
+template <typename T, int NJ>
+static int launch_idsva_so_route(const void* model, const void* q,
+                                 const void* qd, const void* qdd, void* out,
+                                 long long L, double gravity,
+                                 cudaStream_t stream, const int* lists,
+                                 int ntrip, int npair) {
+  constexpr int route = gt::idso_route<T, NJ>();
+  if constexpr (route == gt::IDSO_WHOLE)
     return launch_idsva_so<T, NJ, gt::IDSOPlan<T, NJ>>(
         model, q, qd, qdd, out, L, gravity, stream);
-  else
+  else if constexpr (route == gt::IDSO_BANDS)
     return launch_idsva_so_band<T, NJ, gt::IDSOBandPlan<T, NJ>>(
         model, q, qd, qdd, out, L, gravity, stream);
+  else
+    return launch_idsva_so_tile<T, NJ, gt::IDSOTilePlan<T, NJ>>(
+        model, q, qd, qdd, out, L, gravity, stream, lists, ntrip, npair);
 }
 
 template <typename T, int NJ>
 static int idsva_so_info(int* out) {
-  if constexpr (NJ > gt::SO_MAX_NJ)
-    return gt::kernel_info<gt::IDSOBandPlan<T, NJ>>(nullptr, out);
-  else if constexpr (gt::IDSOPlan<T, NJ>::G >= 1)
+  constexpr int route = gt::idso_route<T, NJ>();
+  if constexpr (route == gt::IDSO_WHOLE)
     return gt::kernel_info<gt::IDSOPlan<T, NJ>>(
         (const void*)idsva_so_kernel<T, NJ, gt::IDSOPlan<T, NJ>>, out);
-  else
+  else if constexpr (route == gt::IDSO_BANDS)
     return gt::kernel_info<gt::IDSOBandPlan<T, NJ>>(
         (const void*)idsva_so_band_kernel<T, NJ, gt::IDSOBandPlan<T, NJ>>,
         out);
+  else
+    return gt::kernel_info<gt::IDSOTilePlan<T, NJ>>(
+        (const void*)idsva_so_tile_kernel<T, NJ, gt::IDSOTilePlan<T, NJ>>,
+        out);
 }
 
+// lists, ntrip, npair: the robot's (j, a, st) triples and (j, a) pairs
+// (gridtorch_so_lists, on the card), which the device tile reads (the
+// other routes build theirs in shared memory).
 extern "C" int gridtorch_idsva_so(int dtype, int nj, const void* model,
                                   const void* q, const void* qd,
                                   const void* qdd, void* out, long long L,
-                                  double gravity, void* stream) {
+                                  double gravity, void* stream,
+                                  const int* lists, int ntrip, int npair) {
   GT_DISPATCH(dtype, nj,
-              (launch_idsva_so_plan<T, NJ>(model, q, qd, qdd, out, L,
-                                           gravity, (cudaStream_t)stream)));
+              (launch_idsva_so_route<T, NJ>(model, q, qd, qdd, out, L,
+                                            gravity, (cudaStream_t)stream,
+                                            lists, ntrip, npair)));
 }
 
-// The block plan that runs (G, 0 if not even one band of a knot fits;
-// threads a knot; bytes a block, for one knot if G is 0; ...; the bands, 1
-// for the whole tile) and cudaFuncGetAttributes of its instance
-// (warp.cuh:kernel_info), into out[11].
+// The robot's (j, a, st) triples, then its (j, a) pairs, on the host
+// (warp.cuh:so_lists_host, SOLists' order): `model` the packed model
+// buffer in double on the host, `out` room for SOLists<NJ>'s MAX_TRIPLES +
+// MAX_PAIRS ints, counts[0..1] = ntrip, npair.
+extern "C" int gridtorch_so_lists(int nj, const double* model, int* out,
+                                  int* counts) {
+  constexpr int NJ = GT_NJ;
+  if (nj != NJ) return (int)cudaErrorInvalidValue;
+  std::vector<gt::RobotConst<double, NJ>> R(1);
+  R[0].load(model, 0, 1);
+  const std::vector<int> lists =
+      gt::so_lists_host<NJ>(R[0], counts, counts + 1);
+  for (size_t e = 0; e < lists.size(); ++e) out[e] = lists[e];
+  return 0;
+}
+
+// The block plan of the route that runs (G; threads a knot; bytes a block;
+// ...; the bands, 1 but in bands; 1 on the device tile) and
+// cudaFuncGetAttributes of its instance (warp.cuh:kernel_info).
 extern "C" int gridtorch_idsva_so_info(int dtype, int nj, int* out) {
   GT_DISPATCH(dtype, nj, (idsva_so_info<T, NJ>(out)));
 }

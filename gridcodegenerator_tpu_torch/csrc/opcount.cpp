@@ -289,8 +289,6 @@ long long count(int kernel, const double* model, const double* ee, int ne,
     }
   const C g(-9.81), dt(0.01), reg(1e-6);
   C::n = 0;
-  if constexpr (NJ > SO_MAX_NJ)   // no second-order kernel above its ceiling
-    if (kernel == IDSVA_SO || kernel == FDSVA_SO) return -1;
   switch (kernel) {
     case RNEA:   // executed: the knot's threads, every phase
       if (needed)
@@ -440,10 +438,9 @@ long long count(int kernel, const double* model, const double* ee, int ne,
                                   x.data() + big / 2, N, 1, reg);
       break;
     case IDSVA_SO:   // executed: the knot's threads, every phase, in
-                     // every band where the whole tile does not fit (flag:
-                     // the float32 plan)
-      if constexpr (NJ > SO_MAX_NJ) break;
-      else if (needed)
+                     // every band on the banded route (flag: the float32
+                     // plan's route, warp.cuh:idso_route)
+      if (needed)
         idsva_so_lane<C, NJ, DStored>(R, a.data(), b.data(), c.data(), g,
                                       x.data(), 1);
       else if (flag)
@@ -459,8 +456,7 @@ long long count(int kernel, const double* model, const double* ee, int ne,
                      // block in the plan's dtype (flag: float32), else the
                      // composed route: fd_du, idsva_so at its qdd, then the
                      // contractions
-      if constexpr (NJ > SO_MAX_NJ) break;
-      else if (needed) {
+      if (needed) {
         fdsva_so_host<C, NJ, DStored>(m.data(), a.data(), b.data(), c.data(),
                                       x.data(), 1, g);
       } else if (flag ? SOPlan<float, NJ>::G >= 1
@@ -499,7 +495,8 @@ extern "C" long long gridtorch_opcount(int kernel, int nj, const double* model,
   count<NJ>(kernel, model, ee, ne, cost, ncost, N, r, flag, needed != 0, \
             in, out, nout)
   switch (nj) {   // the zoo's counts, a 20-joint chain and atlas with
-                  // two hands (tests/torch_big_robots.py: 52 joints)
+                  // grippers and with two hands (tests/torch_big_robots.py:
+                  // 34 and 52 joints)
     case 2: return GT_COUNT(2);
     case 4: return GT_COUNT(4);
     case 5: return GT_COUNT(5);
@@ -510,6 +507,7 @@ extern "C" long long gridtorch_opcount(int kernel, int nj, const double* model,
     case 17: return GT_COUNT(17);
     case 20: return GT_COUNT(20);
     case 28: return GT_COUNT(28);
+    case 34: return GT_COUNT(34);
     case 52: return GT_COUNT(52);
   }
 #undef GT_COUNT

@@ -32,6 +32,7 @@
 #pragma once
 
 #include <type_traits>
+#include <vector>
 
 #include "so.cuh"
 
@@ -46,13 +47,6 @@ template <int NJ>
 GT_HDI constexpr int knot_lanes() {
   return 2 * NJ <= 16 ? 16 : NJ <= WARP ? WARP : 2 * WARP;
 }
-// The second-order kernels (idsva_so, fdsva_so) run up to SO_MAX_NJ
-// joints, the JAX package's ceiling for its fused second-order kernels
-// (gridcodegenerator_tpu/ops/pallas/kernels.py: SO_MAX_NV); above it their
-// launchers refuse without instantiating a kernel (the libraries are built
-// for 1 to 64 joints: ops/cuda/build.py, MAX_JOINTS). ops/cuda/build.py
-// reads this line as SO_MAX_JOINTS, the wrappers' ceiling.
-constexpr int SO_MAX_NJ = 28;
 // a set of joints, a bit a joint: 64 bits above 32 joints
 template <bool WIDE>
 struct JointBits {
@@ -1326,7 +1320,7 @@ struct IDBandKnot : IDKnot<NJ> {
 
 // The (j, a, st) triples of for_triples and the (j, a) pairs, packed
 // j | a << 8 | st << 16, in for_triples' order, and the pairs x <= y of
-// the contractions; built once per block.
+// the contractions; built once per block, in arrays sized for a chain.
 template <int NJ>
 struct SOLists {
   static constexpr int MAX_TRIPLES = NJ * (NJ + 1) * (NJ + 2) / 6;
@@ -1351,6 +1345,31 @@ struct SOLists {
       }
   }
 };
+
+// The same triples and pairs sized by the robot, read where they lie (the
+// device-memory tile's kernel: a buffer built once per model on the host,
+// so_lists_host, ntrip triples then npair pairs).
+struct SOListView {
+  int ntrip, npair;
+  const int* trip;
+  const int* pair;
+};
+
+// The robot's (j, a, st) triples, then its (j, a) pairs, as SOLists
+// builds them, on the host: the device-memory tile's lists (the library
+// exports them, csrc/idsva_so.cu:gridtorch_so_lists, and
+// ops/cuda/build.py:so_lists copies them to the card; the host drivers
+// build theirs here too)
+template <int NJ, class Rb>
+std::vector<int> so_lists_host(const Rb& R, int* ntrip, int* npair) {
+  std::vector<SOLists<NJ>> lists(1);
+  lists[0].build(R);
+  *ntrip = lists[0].ntrip;
+  *npair = lists[0].npair;
+  std::vector<int> out(lists[0].trip, lists[0].trip + *ntrip);
+  out.insert(out.end(), lists[0].pair, lists[0].pair + *npair);
+  return out;
+}
 
 // so.cuh's so_stages, split over the knot's threads: a phase a level of the
 // tree, parallel over the 6 or 36 entries of each joint's quantities. O is
@@ -1547,9 +1566,9 @@ GT_HD void so_stages_knot(const Par& par, const Rb& R, T* k, T gravity) {
 // (GT_RACE_CHECK: no entry touched by two threads of one phase).
 // Force-inlined: fdsva_so then compiles to the machine code of the program
 // written out in fdsva_so_knot (a call boundary moved its registers).
-template <typename T, int NJ, class DOp, class View, class Rb, class Par>
-GT_HDI void so_triples_knot(const Par& par, const Rb& R,
-                            const SOLists<NJ>& lists,
+template <typename T, int NJ, class DOp, class View, class Lists, class Rb,
+          class Par>
+GT_HDI void so_triples_knot(const Par& par, const Rb& R, const Lists& lists,
                             const SOStages<T, NJ>& s, const DOp& D,
                             View view) {
   constexpr int W = Par::LANES;
@@ -1603,6 +1622,24 @@ GT_HDI void idsva_so_knot(const Par& par, const Rb& R,
       return SOBand<T, NJ, ROWS>{tile, sink + t, r0};
     });
   }
+}
+
+// IDSVA-SO of the knot whose inputs and stage quantities sit in `k`
+// (IDKnot's layout up to STAGES_END: no tile there) into `out`, the lane's
+// entry (0, 0, 0, 0) of a lane-major output zeroed beforehand, lane stride
+// L: the stage quantities in k, then the stages and the corrections
+// read-modify-write their entries in device memory, as idsva_so_lane does.
+// Each (j, a, st) triple and (j, a) pair runs once.
+template <typename T, int NJ, class Lists, class Rb, class Par>
+GT_HDI void idsva_so_knot_to(const Par& par, const Rb& R, const Lists& lists,
+                             T* k, T gravity, T* out, long long L) {
+  using O = IDKnot<NJ>;
+  so_stages_knot<T, NJ, O>(par, R, k, gravity);
+  const SOStages<T, NJ>& s =
+      *reinterpret_cast<const SOStages<T, NJ>*>(k + O::STG);
+  const DFormed<T, NJ> D{s};
+  so_triples_knot<T, NJ>(par, R, lists, s, D,
+                         [=](int) { return SOOut<T, NJ>{out, L}; });
 }
 
 // FDSVA-SO of the knot whose q, qd, u sit at FDKnot's offsets in `k`, into
@@ -2468,6 +2505,53 @@ struct IDSOBandPlan {
   static constexpr int ROWS = 1;
 };
 
+// idsva_so with its tile in device memory (idsva_so_knot_to): each knot
+// program runs once, as in the whole tile's plan, but the block holds only
+// the robot constants (the head: the lists are read from device memory)
+// and G knots of IDKnot's inputs and stage quantities (225 NJ values: 46.8
+// KB at 52 joints in float32); each knot's (4, NJ, NJ, NJ) tensor
+// accumulates in the output itself, lane l0 + g for knot g, zeroed before
+// the launch: no workspace. Threads a knot: IDSO_TILE_LANES times 1, 2 or
+// 4, the most knots an SM (lanes_for); G the largest power of 2 that fits,
+// so that the G adjacent lanes of a row share sectors (at 52 joints: 4
+// knots of 128 threads in float32, 1 of 256 in float64).
+constexpr int IDSO_TILE_LANES = 128;
+template <typename T, int NJ>
+struct IDSOTilePlan {
+  static constexpr int STRIDE = knot_stride<T>(IDKnot<NJ>::STAGES_END);
+  static constexpr long long HEAD =
+      (sizeof(RobotConst<T, NJ>) + 15) / 16 * 16;
+  static constexpr long long KNOT_BYTES = (long long)STRIDE * sizeof(T);
+  static constexpr int LANES =
+      lanes_for(HEAD, KNOT_BYTES, IDSO_TILE_LANES, so_regs<T>());
+  static constexpr int G =
+      best_knots(HEAD, KNOT_BYTES, LANES, so_regs<T>(), true);
+  static constexpr long long BYTES = HEAD + (G > 0 ? G : 1) * KNOT_BYTES;
+  static constexpr int ROWS = 1;
+  static constexpr bool DEVICE_TILE = true;
+};
+
+// idsva_so's routes (csrc/idsva_so.cu): a knot's whole tile in shared
+// memory where it fits a block (IDSOPlan), else in bands of rows
+// (IDSOBandPlan) up to IDSO_BANDS_MAX_NJ joints, else in device memory
+// (IDSOTilePlan); the library builds only the route chosen here. A band
+// repeats the knot's whole program, one knot a block; the device tile
+// runs it once, 4 knots a block in float32, and pays a read-modify-write
+// in device memory for each entry the stages touch. On an H100 the device
+// tile ran 7.7-12.4x faster than the bands at 28 and 34 joints in both
+// dtypes (PERF.md, Findings): it serves every count above 28; at 28 and below
+// the bands stay as they were measured on atlas's paths (moving them is a
+// separate change of those paths).
+enum { IDSO_WHOLE = 0, IDSO_BANDS = 1, IDSO_DEVICE = 2 };
+constexpr int IDSO_BANDS_MAX_NJ = 28;
+template <typename T, int NJ>
+GT_HDI constexpr int idso_route() {
+  return IDSOPlan<T, NJ>::G >= 1 ? IDSO_WHOLE
+         : NJ <= IDSO_BANDS_MAX_NJ && IDSOBandPlan<T, NJ>::G >= 1
+             ? IDSO_BANDS
+             : IDSO_DEVICE;
+}
+
 // id_du's plan: fd_du's head and threads a knot, its own knot (IDUKnot,
 // PASSES column passes), G the knots that put the most on an SM.
 template <typename T, int NJ, int PASSES = idu_passes<NJ>()>
@@ -2769,16 +2853,59 @@ void idsva_so_band_host(const T* model, const T* q, const T* qd,
   }
 }
 
-// idsva_so's block code as the card runs it in PT's dtype: the whole tile
-// where one knot's fits a block, else in bands
+// idsva_so's device-memory tile (IDSOTilePlan of PT's dtype) with the
+// card's G: the output zeroed (the launcher's memset), then each block's
+// valid knots in turn, each accumulating in its lane of `out`; the lists
+// `lists` (ntrip triples, then npair pairs)
+template <typename T, int NJ, typename PT = PlanType<T>>
+void idsva_so_tile_host(const T* model, const T* q, const T* qd,
+                        const T* qdd, T* out, long long L, T gravity,
+                        const int* lists, int ntrip, int npair) {
+  using O = IDKnot<NJ>;
+  using P = IDSOTilePlan<PT, NJ>;
+  static_assert(P::G >= 1, "one idsva_so knot's stage quantities must fit");
+  constexpr int S = O::STAGES_END;
+  const SOListView lv{ntrip, npair, lists, lists + ntrip};
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load_tree(model, 0, 1);
+  for (long long e = 0; e < 4LL * O::N3 * L; ++e) out[e] = T(0);
+  std::vector<T> k((long long)P::G * S);
+  for (long long l0 = 0; l0 < L; l0 += P::G) {
+    for (auto& x : k) x = T(std::numeric_limits<double>::quiet_NaN());
+    load_inputs<T, NJ, S>(q, qd, qdd, L, l0, P::G, k.data(), 0, 1);
+    for (int g = 0; g < P::G && l0 + g < L; ++g) {
+#ifdef GT_RACE_CHECK
+      gt_race_watch(k.data() + (long long)g * S, S * (long)sizeof(T));
+#endif
+      idsva_so_knot_to<T, NJ>(HostPar<P::LANES>{}, R[0], lv,
+                              k.data() + (long long)g * S, gravity,
+                              out + l0 + g, L);
+    }
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
+// idsva_so's block code as the card runs it in PT's dtype (idso_route):
+// the whole tile where one knot's fits a block, else in bands, else in
+// device memory (the lists built here)
 template <typename T, int NJ, template <typename, int> class DOp = DFormed,
           typename PT = PlanType<T>>
 void idsva_so_plan_host(const T* model, const T* q, const T* qd,
                         const T* qdd, T* out, long long L, T gravity) {
-  if constexpr (IDSOPlan<PT, NJ>::G >= 1)
+  if constexpr (idso_route<PT, NJ>() == IDSO_WHOLE) {
     idsva_so_host<T, NJ, DOp, PT>(model, q, qd, qdd, out, L, gravity);
-  else
+  } else if constexpr (idso_route<PT, NJ>() == IDSO_BANDS) {
     idsva_so_band_host<T, NJ, DOp, PT>(model, q, qd, qdd, out, L, gravity);
+  } else {
+    std::vector<RobotConst<T, NJ>> R(1);
+    R[0].load(model, 0, 1);
+    int ntrip = 0, npair = 0;
+    const std::vector<int> lists = so_lists_host<NJ>(R[0], &ntrip, &npair);
+    idsva_so_tile_host<T, NJ, PT>(model, q, qd, qdd, out, L, gravity,
+                                  lists.data(), ntrip, npair);
+  }
 }
 
 // id_du's block code with the card's G, each block's valid knots in turn
@@ -3089,8 +3216,9 @@ inline int launch_ws(void (*fn)(K...), long long units, void* ws,
 // block per problem (the line search's step-size rows), blocks an SM holds
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), blocks a lane (idsva_so
 // in bands: the bands; else 1), device-memory bytes a block (the workspace
-// of the device-memory route; 0 on the shared-memory one)}. `fn` null (a
-// kernel above its ceiling, not instantiated): the plan alone.
+// of the device-memory route; 0 on the shared-memory one), 1 where the
+// output tile accumulates in device memory (idsva_so: IDSOTilePlan)}. `fn`
+// null (a kernel that is not instantiated): the plan alone.
 template <class P, class = void>
 struct PlanBands {
   static constexpr int value = 1;
@@ -3099,6 +3227,14 @@ template <class P>
 struct PlanBands<P, std::void_t<decltype(P::BANDS)>> {
   static constexpr int value = P::BANDS;
 };
+template <class P, class = void>
+struct PlanDeviceTile {
+  static constexpr int value = 0;
+};
+template <class P>
+struct PlanDeviceTile<P, std::void_t<decltype(P::DEVICE_TILE)>> {
+  static constexpr int value = P::DEVICE_TILE ? 1 : 0;
+};
 
 template <class P>
 inline int kernel_info(const void* fn, int* out) {
@@ -3106,6 +3242,7 @@ inline int kernel_info(const void* fn, int* out) {
   out[9] = 0;
   out[10] = PlanBands<P>::value;
   out[11] = (int)PlanWs<P>::value;
+  out[12] = PlanDeviceTile<P>::value;
   // the launch's attributes, which the occupancy calculator reads; a plan
   // that holds no knot (G 0) and has no device-memory route is never
   // launched, and querying it would leave an error that the library's next

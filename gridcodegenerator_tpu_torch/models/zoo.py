@@ -239,3 +239,10 @@ def load_robot(name: str) -> RobotTopology:
     if base not in _URDF_SOURCES:
         raise KeyError(f"unknown robot {name!r}; have {list_robots()}")
     return parse_urdf(_URDF_SOURCES[base](), floating_base=floating, name=name)
+
+
+def robot_urdf(name: str) -> str:
+    """The URDF string of a bundled robot (``_floating`` names give their
+    fixed-base robot's)."""
+    base = name[:-len("_floating")] if name.endswith("_floating") else name
+    return _URDF_SOURCES[base]()

@@ -29,7 +29,6 @@ import concurrent.futures
 import ctypes
 import hashlib
 import os
-import re
 import shutil
 import subprocess
 import tempfile
@@ -57,23 +56,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # One library per joint count (csrc/dynamics.cuh: GT_DISPATCH, GT_NJ), float
 # and double. build() prebuilds SUPPORTED_JOINTS, the zoo's counts of the
 # configs; lib(nj) builds any count from 1 to MAX_JOINTS at its first use.
-# Every kernel but the second-order pair runs at
-# every count up to it: where a knot or problem does not fit a block's
-# shared memory (fd_du, id_du, the Riccati sweeps; minv and fd in float64),
-# its state goes to device memory (warp.cuh: WsPlan), and the rollouts'
-# tiles too where theirs do not fit (sweep_warp.cuh: TILES_WS). 64 bounds
-# the plans' constants: a joint set is one 64-bit word (warp.cuh:
-# JointBits), and at 64 joints in float64 the rollouts' head and one
-# rollout (177 KB) still fit a block beside nothing else. The second-order
-# kernels stop at SO_MAX_JOINTS, the JAX package's ceiling for its fused
-# second-order kernels (gridcodegenerator_tpu/ops/pallas/kernels.py:
-# SO_MAX_NV; above it the JAX package runs its XLA tier), read from the
-# kernels' own header (csrc/warp.cuh: SO_MAX_NJ) so that the wrappers'
-# refusal and the compiled one agree.
+# Every kernel runs at every count up to it: where a knot or problem does
+# not fit a block's shared memory (fd_du, id_du, the Riccati sweeps; minv
+# and fd in float64), its state goes to device memory (warp.cuh: WsPlan),
+# the rollouts' tiles too where theirs do not fit (sweep_warp.cuh:
+# TILES_WS), and idsva_so's tile where bands would not do (warp.cuh:
+# IDSOTilePlan; fdsva_so is composed there). 64 bounds the plans'
+# constants: a joint set is one 64-bit word (warp.cuh: JointBits), and at
+# 64 joints in float64 the rollouts' head and one rollout (177 KB) still
+# fit a block beside nothing else.
 SUPPORTED_JOINTS = (2, 7, 8, 12, 16, 17, 28)
 MAX_JOINTS = 64
-SO_MAX_JOINTS = int(re.search(r"constexpr int SO_MAX_NJ = (\d+);",
-                              (CSRC / "warp.cuh").read_text()).group(1))
 DTYPE_CODES = {torch.float32: 0, torch.float64: 1}
 
 # launches per kernel since the last reset: each wrapper adds one right after
@@ -206,7 +199,9 @@ _SIGNATURES = {
                                    _P, _I, _L, _I, _D, _D, _D, _P, _P, _L),
     "gridtorch_riccati": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                           _P, _I, _L, _D, _P, _P, _L),
-    "gridtorch_idsva_so": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
+    "gridtorch_idsva_so": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P, _P, _I,
+                           _I),
+    "gridtorch_so_lists": (_I, _P, _P, _P),
     "gridtorch_fdsva_so": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
     "gridtorch_fd_du_info": (_I, _I, _P),
     "gridtorch_fdsva_so_info": (_I, _I, _P),
@@ -243,19 +238,6 @@ def check_joints(nj: int, what: str = "CUDA kernels"):
             f"memory)")
 
 
-def check_so_joints(nj: int, what: str):
-    """Raise NotImplementedError above SO_MAX_JOINTS: the second-order
-    kernels stop at the JAX package's ceiling for its fused second-order
-    kernels."""
-    if nj > SO_MAX_JOINTS:
-        raise NotImplementedError(
-            f"{what}: no second-order kernel for {nj} joints (1 to "
-            f"{SO_MAX_JOINTS}, the JAX package's SO_MAX_NV, "
-            f"gridcodegenerator_tpu/ops/pallas/kernels.py; above it the JAX "
-            f"package runs its XLA tier, which the port does not have yet: "
-            f"ROADMAP.md, Queue 2, second order above 28 joints)")
-
-
 def lib(nj: int) -> ctypes.CDLL:
     """The loaded kernel library of ``nj`` joints, built on first use (its
     nvcc seconds go into ``NVCC_SECONDS``)."""
@@ -274,7 +256,8 @@ def lib(nj: int) -> ctypes.CDLL:
 INFO_FIELDS = ("knots_per_block", "threads_per_knot", "smem_bytes_per_block",
                "registers", "local_bytes", "static_smem_bytes",
                "max_threads_per_block", "max_dynamic_smem_bytes",
-               "rows_per_block", "blocks_per_sm", "bands", "workspace_bytes")
+               "rows_per_block", "blocks_per_sm", "bands", "workspace_bytes",
+               "device_tile")
 # the kernels of a thread group per knot, problem or rollout, by the name of
 # their C info entry point (riccati: the dense sweep's stationary instance,
 # riccati_stacked: its instance with a block per knot)
@@ -295,8 +278,11 @@ def warp_kernel_info(what: str, nj: int, dtype) -> dict:
     (blocks a lane: idsva_so's bands where one knot's whole tile does not
     fit; else 1), workspace_bytes (device memory a block takes on the
     device-memory route: its knot, or the rollouts' tiles; 0 where all of
-    it sits in shared memory)}. Above SO_MAX_JOINTS the second-order
-    kernels' plans come without their kernels' attributes."""
+    it sits in shared memory), device_tile (1 where each knot's output
+    tile accumulates in device memory, in the output itself: idsva_so
+    where bands would not do)}. fdsva_so's plan where its knot does not
+    fit a block comes without its kernel's attributes: that kernel is not
+    built."""
     if what not in WARP_KERNELS:
         raise ValueError(f"no block plan for {what!r}")
     out = (ctypes.c_int * len(INFO_FIELDS))()
@@ -463,6 +449,29 @@ def ee_buffer(model: RobotModel, targets=None) -> torch.Tensor:
         flat = np.asarray(rows, np.float64).reshape(len(rows), 16 + model.n)
         return torch.as_tensor(flat, dtype=model.dtype, device=model.device)
     return _cached(_ee_buffers, model, targets, make)
+
+
+_so_lists = {}
+
+
+def so_lists(model: RobotModel):
+    """The robot's IDSVA-SO work lists for the idsva_so kernel's
+    device-memory tile (``csrc/warp.cuh``: ``SOListView``): (int32 tensor on
+    the model's device, ntrip, npair), the (j, a, st) triples packed
+    j | a << 8 | st << 16, then the (j, a) pairs packed j | a << 8, as
+    ``SOLists`` builds them (the library's ``gridtorch_so_lists``, on the
+    host, from the packed model); cached per model."""
+    def make():
+        n = model.n
+        flat = model_buffer(model).detach().to("cpu", torch.float64)
+        out = torch.empty(n * (n + 1) * (n + 2) // 6 + n * (n + 1) // 2,
+                          dtype=torch.int32)
+        counts = torch.zeros(2, dtype=torch.int32)
+        check(lib(n).gridtorch_so_lists(n, ptr(flat), ptr(out), ptr(counts)),
+              "so_lists")
+        ntrip, npair = map(int, counts)
+        return out[:ntrip + npair].to(model.device), ntrip, npair
+    return _cached(_so_lists, model, None, make)
 
 
 def cost_buffer(cost, like: torch.Tensor) -> torch.Tensor:

@@ -55,14 +55,13 @@ floating-base model, as the JAX Pallas kernels do); the plain versions
 take one, on any device, and ``GRiD`` routes a floating robot to them: every kernel checks its instance's block plan first, and
 refuses, before any launch, one whose knot does not fit a block
 (``build.fits``).
-idsva_so runs its tile in bands where a knot's whole tile does not fit,
-and fdsva_so takes the composed route: every fixed-base robot of 1-28
-one-dof joints has a kernel for each function. From 29 to
-``build.MAX_JOINTS`` = 64 joints every first-order function has one (where
-a knot does not fit a block, fd_du, id_du, and minv and fd in float64 keep
-it in device memory, a workspace from ``build.workspace``, one knot a
-block); idsva_so and fdsva_so raise there on the card
-(``build.SO_MAX_JOINTS``) and run their plain versions on the CPU.
+Every fixed-base robot of 1 to ``build.MAX_JOINTS`` = 64 one-dof joints
+has a kernel for each function: where a knot does not fit a block, fd_du,
+id_du, and minv and fd in float64 keep it in device memory (a workspace
+from ``build.workspace``, one knot a block); idsva_so runs its tile in
+bands of rows, or in device memory where bands would not do
+(``idsva_so_route``); fdsva_so takes the composed route
+(``fdsva_so_route``).
 """
 
 from __future__ import annotations
@@ -322,25 +321,40 @@ def d2eepos(model: RobotModel, q, targets=None):
     return _ee_launch(D2EEPOS, model, q, targets, model.n, model.n)
 
 
+WHOLE, BANDS, DEVICE = "whole", "bands", "device"
+IDSO_ROUTES = (WHOLE, BANDS, DEVICE)   # csrc/warp.cuh: IDSO_WHOLE, ...
+
+
+def idsva_so_route(nj: int, dtype) -> str:
+    """The route of ``idsva_so`` at ``nj`` joints in ``dtype``
+    (``csrc/warp.cuh:idso_route``): WHOLE, each knot's whole tile in a
+    block's shared memory, where it fits (float32 up to 23 joints, float64
+    up to 18); else, up to 28 joints, BANDS, the tile in bands of rows, a
+    band a block, each running the knot's whole program; else DEVICE, the
+    tile accumulated in the output in device memory, each knot's program
+    run once (on an H100 7.7-12.4x faster than the bands at 28 and 34
+    joints: PERF.md, Findings)."""
+    p = build.plan(IDSVA_SO, nj, dtype)
+    return DEVICE if p["device_tile"] else BANDS if p["bands"] > 1 else WHOLE
+
+
 def idsva_so(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
     """Each knot's IDSVA-SO tensors stay in the kernel's shared memory
-    until written: the whole tile, or where that does not fit a block one
-    band of its rows a block (``build.warp_kernel_info``'s ``bands``).
-    Above ``build.SO_MAX_JOINTS`` it raises on a CUDA tensor, before any
-    launch; the plain version runs on CPU tensors at any count."""
+    until written, the whole tile or one band of its rows a block, or
+    accumulate in the output in device memory (``idsva_so_route``)."""
     if not q.is_cuda:
         return idsva_so_plain(model, q, qd, qdd, gravity)
-    build.check_so_joints(model.n, IDSVA_SO)
     if qdd is None:
         raise ValueError(f"{IDSVA_SO}: qdd is required")
     dcode, nj, L = _lanes(model, IDSVA_SO, dict(q=q, qd=qd, qdd=qdd))
     build.fits(IDSVA_SO, nj, q.dtype)
     n = model.n
+    lists, ntrip, npair = build.so_lists(model)
     out = _empty(q, 4, n, n, n, L)
     _launched(IDSVA_SO, build.lib(nj).gridtorch_idsva_so(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(qdd), build.ptr(out), L, float(gravity),
-        build.stream_ptr(q.device)))
+        build.stream_ptr(q.device), build.ptr(lists), ntrip, npair))
     return out
 
 
@@ -370,12 +384,9 @@ def fdsva_so_composed(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
 def fdsva_so(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
     """The fused kernel keeps each knot's IDSVA-SO tensors and their
     contractions in shared memory; where one knot does not fit a block
-    the composed route runs (``fdsva_so_route``). Above
-    ``build.SO_MAX_JOINTS`` it raises on a CUDA tensor, before any launch;
-    the plain version runs on CPU tensors at any count."""
+    the composed route runs (``fdsva_so_route``)."""
     if not q.is_cuda:
         return fdsva_so_plain(model, q, qd, u, gravity)
-    build.check_so_joints(model.n, FDSVA_SO)
     dcode, nj, L = _lanes(model, FDSVA_SO, dict(q=q, qd=qd, u=u))
     if fdsva_so_route(nj, q.dtype) == COMPOSED:
         return fdsva_so_composed(model, q, qd, u, gravity)

@@ -415,6 +415,8 @@ def make_ilqr(model: RobotModel, cost, cfg: ILQRConfig,
                 so_flat = (second_order(X, U) if cfg.use_second_order
                            else None)
                 ks, Ks = backward(X, U, Amat, Bmat, so_flat)
+                # freed before the next iteration's: 4 n^3 N B values
+                del so_flat
             Xn, Un, cn = forward(X, U, ks, Ks)
             acc = cn < c
             X = torch.where(acc[None, None], Xn, X)

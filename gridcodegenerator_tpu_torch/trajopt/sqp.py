@@ -18,7 +18,6 @@ import dataclasses
 from typing import Optional
 
 from ..models.model import RobotModel
-from ..ops.cuda import build
 from .ilqr import ILQRConfig, make_ilqr
 
 
@@ -29,18 +28,10 @@ class SQPConfig(ILQRConfig):
 
 def make_sqp(model: RobotModel, cost, cfg: Optional[SQPConfig] = None,
              expose_parts: bool = False, **kw):
-    """Build the SQP solver (the solve signature of ``make_ilqr``). Above
-    ``build.SO_MAX_JOINTS`` joints it raises ``NotImplementedError`` where
-    the solve would launch the second-order kernels (a model on the card
-    and ``use_kernels`` not False): they stop there. The plain route runs
-    at any count."""
+    """Build the SQP solver (the solve signature of ``make_ilqr``)."""
     if cfg is None:
         cfg = SQPConfig(**kw)
     if not cfg.use_second_order:
         raise ValueError("SQP needs the exact-Hessian sweep "
                          "(use_second_order=True)")
-    # a floating base gets make_ilqr's own refusal
-    if (model.device.type == "cuda" and cfg.use_kernels is not False
-            and not model.floating_base):
-        build.check_so_joints(model.n, "make_sqp")
     return make_ilqr(model, cost, cfg, expose_parts)

@@ -18,10 +18,11 @@ rnea, aba, fd, minv, crba, eepos, deepos, d2eepos, the Riccati sweeps and
 the rollouts: every thread of the knot's, lane's, problem's or rollout's
 group, phase by phase, as ``HostPar`` runs them),
 by the route the card takes in the model's dtype: idsva_so in every band
-where a knot's whole tile does not fit a block, fdsva_so's composed route
-(fd_du, idsva_so, the contractions) where its fused knot does not fit.
-Counted for the zoo's joint counts, a 20-joint chain and atlas with two
-12-joint hands (52 joints; no second order there).
+on its banded route, once on its device-memory tile, fdsva_so's composed
+route (fd_du, idsva_so, the contractions) where its fused knot does not
+fit. Counted for the zoo's joint counts, a 20-joint chain and atlas with
+grippers and with two hands (34 and 52 joints,
+``tests/torch_big_robots.py``).
 
 ``bound_ms(ops, nbytes, dtype)`` is the least time one NVIDIA H100 SXM could
 take for that work: the larger of the bytes over the memory rate and the

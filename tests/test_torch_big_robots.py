@@ -15,12 +15,13 @@ parse the same URDF string with their own ``parse_urdf``.
   and fd_du against the JAX package's float64 oracle
   (gridcodegenerator_tpu/reference/oracle.py) on 2 lanes, within 1e-10 of
   scale.
-* Above 28 joints the second-order wrappers raise ``NotImplementedError``
-  on CUDA tensors before any launch, and ``make_sqp`` where its solve would
-  launch them (on the card: tests/test_torch_kernels.py,
-  ``test_cuda_second_order_refuses_above_28_joints``); on the CPU they, ``GRiD``'s second order and ``make_sqp`` run
-  the plain versions (tests/test_torch_big_so.py holds them against the
-  JAX package's XLA tier).
+* Above 64 joints (``build.MAX_JOINTS``) the second-order wrappers raise
+  ``NotImplementedError`` on CUDA tensors before any launch or nvcc; at 34
+  joints on the CPU they, ``GRiD``'s second order and ``make_sqp`` run the
+  plain versions (tests/test_torch_big_so.py holds them against the JAX
+  package's XLA tier; on the card they launch the kernels:
+  tests/test_torch_kernels.py,
+  ``test_cuda_second_order_refuses_above_28_joints``).
 
 Config 5's scenario step on these robots: tests/test_torch_big_scenario.py.
 """
@@ -177,13 +178,16 @@ def test_plain_ops_match_the_jax_oracle_at_52_joints(fn):
 
 
 # ---------------------------------------------------------------------------
-# the second order stops at 28 joints
+# the second order's ceiling: 64 joints, as every kernel's
 # ---------------------------------------------------------------------------
 
 class _OnCard:
-    """Stands for a CUDA tensor: the second-order wrappers check the joint
-    ceiling before they read anything else of it."""
+    """Stands for a CUDA tensor of the model's dtype and device: the
+    wrappers check the joint count before they read anything else of it."""
     is_cuda = True
+
+    def __init__(self, m):
+        self.dtype, self.device = m.dtype, m.device
 
 
 def quad_cost(m):
@@ -194,16 +198,22 @@ def quad_cost(m):
 
 
 def test_second_order_refuses_above_28_joints():
-    """On a CUDA tensor the second-order wrappers refuse atlas_grippers34
-    by name before any launch or nvcc; on the CPU they, GRiD's second
-    order and make_sqp run the plain versions."""
+    """On a CUDA tensor the second-order wrappers refuse atlas with two
+    19-joint hands (66 joints, above build.MAX_JOINTS) by name before any
+    launch or nvcc; on the CPU at 34 joints they, GRiD's second order and
+    make_sqp run the plain versions."""
+    m66 = build_model(robot(19), dtype=torch.float64, device="cpu")
+    assert m66.n == 66 > build.MAX_JOINTS
+    build.reset_counters()
+    for fn in (K.idsva_so, K.fdsva_so):
+        x = _OnCard(m66)
+        with pytest.raises(NotImplementedError,
+                           match=f"^{fn.__name__} .*66 joints .1 to 64"):
+            fn(m66, x, x, x)
+    assert not build.LAUNCHES and not build.PLAIN_CALLS
     g = GRiD(robot(GRIPPERS), dtype=torch.float64, device="cpu")
     m = g.model
-    for fn in (K.idsva_so, K.fdsva_so):
-        with pytest.raises(NotImplementedError, match="34 joints.*SO_MAX_NV"):
-            fn(m, _OnCard(), _OnCard(), _OnCard())
     xb = np.random.default_rng(25).uniform(-1, 1, (2, m.n))
-    build.reset_counters()
     for method in ("idsva_so", "fdsva_so"):
         out = getattr(g, method)(xb, xb, xb)
         assert out.shape == (2, 4, m.n, m.n, m.n)
@@ -214,10 +224,9 @@ def test_second_order_refuses_above_28_joints():
 
 
 def test_generated_module_of_a_52_joint_robot(tmp_path):
-    """gen_all_code's module for atlas_hands52 imports, its first-order
-    algorithms equal GRiD's on the CPU, and its timing table leaves out the
-    second order, which the card has no kernel for (on the CPU it runs the
-    plain version, as GRiD does)."""
+    """gen_all_code's module for atlas_hands52 imports, its algorithms
+    equal GRiD's on the CPU, and its timing table holds them all, the
+    second order too (the card has a kernel for it up to 64 joints)."""
     import importlib.util
 
     from gridcodegenerator_tpu_torch.codegen import gen_all_code
@@ -228,8 +237,8 @@ def test_generated_module_of_a_52_joint_robot(tmp_path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     assert [a for a, _ in mod._TIMING_SET] == [
-        "id", "minv", "fd", "aba", "crba", "id_du", "fd_du", "eepos",
-        "deepos", "d2eepos"]
+        "id", "minv", "fd", "aba", "crba", "id_du", "fd_du", "idsva_so",
+        "fdsva_so", "eepos", "deepos", "d2eepos"]
     mod.configure(device="cpu", dtype=torch.float64)
     g = GRiD(topo, dtype=torch.float64, device="cpu")
     rng = np.random.default_rng(23)
@@ -237,4 +246,3 @@ def test_generated_module_of_a_52_joint_robot(tmp_path):
     for name, nargs in mod._TIMING_SET:
         assert torch.equal(getattr(mod, name)(*x[:nargs]),
                            getattr(g, name)(*x[:nargs])), name
-    assert torch.equal(mod.idsva_so(*x), g.idsva_so(*x))

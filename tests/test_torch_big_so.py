@@ -1,10 +1,11 @@
 """The port's second order above 28 joints on the CPU against the JAX
 package's XLA tier (float64).
 
-The card has no second-order kernel above ``build.SO_MAX_JOINTS`` (28, the
-JAX package's ``SO_MAX_NV``), and the wrappers refuse there on CUDA
-tensors; on CPU tensors the plain versions run at any count, as the JAX
-package's XLA tier does. The robot is atlas_grippers30 (atlas with a
+Above the JAX package's ``SO_MAX_NV`` (28) the JAX package leaves its
+Pallas kernels for its XLA tier; the port's kernels serve up to
+``build.MAX_JOINTS`` (64; on the card: tests/test_torch_ws_kernels.py and
+tests/test_torch_kernels.py hold them against the plain versions), and on
+CPU tensors the plain versions run, as here. The robot is atlas_grippers30 (atlas with a
 one-joint gripper on each hand, tests/torch_big_robots.py): both packages
 parse the same URDF string with their own ``parse_urdf``. On 2 lanes, within
 1e-10 of each output's scale:
@@ -65,15 +66,17 @@ def case():
 
 
 def test_second_order_ceiling_is_the_jax_packages():
-    """build.SO_MAX_JOINTS, read from csrc/warp.cuh's SO_MAX_NJ, is the JAX
-    package's ceiling for its fused second-order kernels."""
-    assert build.SO_MAX_JOINTS == SO_MAX_NV == 28
+    """The JAX package's ceiling for its fused second-order kernels is 28
+    joints; the port's second-order kernels have none of their own: they
+    stop where every kernel does, at build.MAX_JOINTS."""
+    assert SO_MAX_NV == 28 < build.MAX_JOINTS == 64
+    assert not hasattr(build, "SO_MAX_JOINTS")
 
 
 @pytest.mark.parametrize("method", ["idsva_so", "fdsva_so"])
 def test_plain_second_order_above_28_matches_jax(method):
     grid, inputs, ref = case()
-    assert grid.n == 30 > build.SO_MAX_JOINTS
+    assert grid.n == 30 > SO_MAX_NV
     build.reset_counters()
     got = getattr(grid, method)(*(a.T for a in inputs[method]))
     assert got.shape == (B, 4, grid.n, grid.n, grid.n)

@@ -408,44 +408,9 @@ def test_ee_buffer_layout():
 # host build of the kernels' per-lane code
 # ---------------------------------------------------------------------------
 
-HARNESS = r"""
-#define GT_RACE_CHECK
-#include <cstring>
-#include <unordered_map>
-#include "fd_du.cu"
-#include "rollout.cu"
-#include "linesearch.cu"
-#include "riccati.cu"
-#include "rnea.cu"
-#include "id_du.cu"
-#include "aba.cu"
-#include "minv.cu"
-#include "fd.cu"
-#include "crba.cu"
-#include "eepos.cu"
-#include "deepos.cu"
-#include "idsva_so.cu"
-#include "fdsva_so.cu"
-#include "d2eepos.cu"
-#include "feedback_rollout.cu"
-using namespace gt;
-typedef long long ll;
-
-// (q, qd, x) -> out over L lanes for the per-lane functions of rnea (x =
-// qdd, may be null), id_du (x = qdd) and aba (x = u)
-template <int NJ, int OUT, class F>
-void lanes3(const double* q, const double* qd, const double* x, double* out,
-            ll L, F lane_fn) {
-  for (ll l = 0; l < L; ++l) {
-    double ql[NJ], qdl[NJ], xl[NJ], ol[OUT];
-    lane_load<double, NJ>(q, L, l, ql);
-    lane_load<double, NJ>(qd, L, l, qdl);
-    if (x) lane_load<double, NJ>(x, L, l, xl);
-    lane_fn(ql, qdl, x ? xl : nullptr, ol);
-    lane_store<double, OUT>(ol, L, l, out);
-  }
-}
-
+# the host's race check of the knot programs (GT_RACE_CHECK), which the
+# harnesses of this file and tests/test_torch_ws_kernels.py define
+RACE_CHECK = r"""
 // the host's race check of the warp programs (warp.cuh, so.cuh): which
 // thread of which phase last touched each tensor entry
 static std::unordered_map<const void*, std::pair<long, int>> g_touch;
@@ -492,6 +457,47 @@ extern "C" void race_watch(int on) { g_watch_on = on != 0; }
 extern "C" void race_reset() { g_touch.clear(); g_races = g_touches = 0; }
 extern "C" long race_count() { return g_races; }
 extern "C" long touch_count() { return g_touches; }
+"""
+
+HARNESS = r"""
+#define GT_RACE_CHECK
+#include <cstring>
+#include <unordered_map>
+#include "fd_du.cu"
+#include "rollout.cu"
+#include "linesearch.cu"
+#include "riccati.cu"
+#include "rnea.cu"
+#include "id_du.cu"
+#include "aba.cu"
+#include "minv.cu"
+#include "fd.cu"
+#include "crba.cu"
+#include "eepos.cu"
+#include "deepos.cu"
+#include "idsva_so.cu"
+#include "fdsva_so.cu"
+#include "d2eepos.cu"
+#include "feedback_rollout.cu"
+using namespace gt;
+typedef long long ll;
+
+// (q, qd, x) -> out over L lanes for the per-lane functions of rnea (x =
+// qdd, may be null), id_du (x = qdd) and aba (x = u)
+template <int NJ, int OUT, class F>
+void lanes3(const double* q, const double* qd, const double* x, double* out,
+            ll L, F lane_fn) {
+  for (ll l = 0; l < L; ++l) {
+    double ql[NJ], qdl[NJ], xl[NJ], ol[OUT];
+    lane_load<double, NJ>(q, L, l, ql);
+    lane_load<double, NJ>(qd, L, l, qdl);
+    if (x) lane_load<double, NJ>(x, L, l, xl);
+    lane_fn(ql, qdl, x ? xl : nullptr, ol);
+    lane_store<double, OUT>(ol, L, l, out);
+  }
+}
+
+""" + RACE_CHECK + r"""
 
 // the warp kernels' block plans: {G, threads a knot, bytes a block, rows
 // a block} of fd_du, fdsva_so, riccati_factored, linesearch_rollout, the
@@ -2065,27 +2071,51 @@ def test_cuda_two_warp_knots_match_plain(cuda_device, name, robot, dtype):
 
 @pytest.mark.cuda
 def test_cuda_second_order_refuses_above_28_joints(cuda_device):
-    """On the card GRiD's second order and make_sqp refuse
-    atlas_grippers34 by name, before any launch or nvcc; with
-    use_kernels=False they run the plain versions."""
+    """Above 28 joints the second order runs on the card, where the JAX
+    package leaves its Pallas kernels: on atlas_grippers34 in float64
+    GRiD.idsva_so launches idsva_so (its tile in device memory) and
+    GRiD.fdsva_so fd_du and idsva_so (the composed route), no plain
+    version, at 5 lanes (a ragged block), within 1e-9 of the plain
+    version's scale; make_sqp solves there on the kernels (rollout, fd_du
+    twice, idsva_so and the line search an iteration), within 1e-6 of a
+    plain solve's cost scale."""
     t = parse_urdf(atlas_hands_urdf(3), name=atlas_hands_name(3))
     g = GRiD(t, dtype=torch.float64, device=cuda_device)
-    xb = np.zeros((2, g.n))
-    n, kw = g.n, dict(dtype=torch.float64, device=cuda_device)
-    cost = QuadCost(Q=torch.ones(2 * n, **kw), R=torch.ones(n, **kw),
-                    Qf=torch.ones(2 * n, **kw),
-                    x_goal=torch.zeros(2 * n, **kw))
-    build.reset_counters()
-    for method in ("idsva_so", "fdsva_so"):
-        with pytest.raises(NotImplementedError, match="34 joints.*SO_MAX_NV"):
-            getattr(g, method)(xb, xb, xb)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_sqp(g.model, cost, SQPConfig(N=4))
-    assert not build.LAUNCHES and not build.PLAIN_CALLS
-    make_sqp(g.model, cost, SQPConfig(N=4, use_kernels=False))
     plain = GRiD(t, dtype=torch.float64, device=cuda_device,
                  use_kernels=False)
-    assert plain.idsva_so(xb, xb, xb).shape == (2, 4, n, n, n)
+    n = g.n
+    assert K.idsva_so_route(n, torch.float64) == K.DEVICE
+    xb = np.random.default_rng(34).uniform(-1, 1, (5, n))
+    for method, launches in (("idsva_so", {"idsva_so": 1}),
+                             ("fdsva_so", {"fd_du": 1, "idsva_so": 1})):
+        build.reset_counters()
+        got = getattr(g, method)(xb, xb, xb)
+        torch.cuda.synchronize()
+        assert dict(build.LAUNCHES) == launches and not build.PLAIN_CALLS
+        want = getattr(plain, method)(xb, xb, xb)
+        assert got.is_cuda and got.shape == want.shape == (5, 4, n, n, n)
+        scale = max(1.0, float(want.abs().max()))
+        assert _max_err((got,), (want,)) <= TOL * scale, method
+    kw = dict(dtype=torch.float64, device=cuda_device)
+    xg = torch.zeros(2 * n, **kw)
+    xg[0] = 0.2
+    cost = QuadCost(Q=torch.full((2 * n,), 0.1, **kw),
+                    R=torch.full((n,), 1e-3, **kw),
+                    Qf=torch.full((2 * n,), 10.0, **kw), x_goal=xg)
+    x0 = torch.as_tensor(np.random.default_rng(0).uniform(-0.05, 0.05,
+                                                          (2 * n, 3)), **kw)
+    U0 = torch.zeros((4, n, 3), **kw)
+    build.reset_counters()
+    res = make_sqp(g.model, cost, SQPConfig(N=4, dt=0.002, iters=2))(x0, U0)
+    torch.cuda.synchronize()
+    assert dict(build.LAUNCHES) == {"rollout": 1, "fd_du": 4, "idsva_so": 2,
+                                    "linesearch_rollout": 2}
+    assert not build.PLAIN_CALLS
+    ref = make_sqp(g.model, cost, SQPConfig(N=4, dt=0.002, iters=2,
+                                            use_kernels=False))(x0, U0)
+    assert bool(torch.isfinite(res.cost_trace).all())
+    tol = 1e-6 * float(ref.cost_trace.abs().max())
+    assert float((res.cost_trace - ref.cost_trace).abs().max()) <= tol
 
 
 # the float32 sweeps' robots: not the 20-joint chain, whose float32

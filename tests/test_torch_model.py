@@ -106,3 +106,29 @@ def test_vendor_urdfs_are_the_ports_own_copies(fname):
     jax_copy = (Path(gridcodegenerator_tpu.__file__).resolve().parent
                 / "models" / "vendor" / fname)
     assert (vendor / fname).read_bytes() == jax_copy.read_bytes()
+
+
+def test_top_level_exports_cover_the_jax_packages():
+    """The port's package exports every name of the JAX package's
+    ``__all__``, each the port's own (nothing of the JAX package)."""
+    import gridcodegenerator_tpu
+    import gridcodegenerator_tpu_torch
+
+    assert set(gridcodegenerator_tpu.__all__) <= set(
+        gridcodegenerator_tpu_torch.__all__)
+    for name in gridcodegenerator_tpu_torch.__all__:
+        obj = getattr(gridcodegenerator_tpu_torch, name)
+        assert getattr(obj, "__module__", "gridcodegenerator_tpu_torch"
+                       ).startswith("gridcodegenerator_tpu_torch"), name
+    assert (gridcodegenerator_tpu_torch.__version__
+            == gridcodegenerator_tpu.__version__)
+
+
+@pytest.mark.parametrize("name", list_robots())
+def test_robot_urdf_is_the_jax_packages(name):
+    """``robot_urdf`` gives the JAX package's string for every bundled
+    robot, ``_floating`` names included."""
+    from gridcodegenerator_tpu.models.zoo import robot_urdf as jax_robot_urdf
+    from gridcodegenerator_tpu_torch import robot_urdf
+
+    assert robot_urdf(name) == jax_robot_urdf(name)

@@ -1,5 +1,6 @@
 """The kernels above 28 joints on the host: their block plans, and the
-block code of the instances that the device-memory routes changed.
+block code of the instances that the device-memory routes changed or
+added.
 
 * Every block plan of every kernel but the second-order pair, at every
   joint count from 29 to 64 in float32 and float64, holds a knot (problem,
@@ -14,6 +15,14 @@ block code of the instances that the device-memory routes changed.
   hands, tests/torch_big_robots.py), driven over a few lanes through
   ctypes as tests/test_torch_kernels.py drives its harness, against the
   plain PyTorch versions in float64 (1e-9 of each output's scale).
+* idsva_so's device-memory tile (csrc/warp.cuh: IDSOTilePlan,
+  idsva_so_knot_to; the float64 plan's G and threads a knot, on the lists
+  so_lists_host builds, as the library's gridtorch_so_lists does for the
+  card) at 34 and 52 joints, with the race check on (each entry of the
+  output and of the knot's shared state touched by one thread of a phase;
+  the threads of each phase also run in reverse), against idsva_so_plain
+  in float64 (1e-9 of its scale); and idsva_so's routes there
+  (csrc/warp.cuh: idso_route).
 
 Skipped without a host C++ compiler. This file imports no jax.
 """
@@ -24,6 +33,7 @@ import subprocess
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -84,6 +94,9 @@ int main() { all(std::make_integer_sequence<int, 36>{}); }
 """
 
 HARNESS = r"""
+#define GT_RACE_CHECK
+#include <cstring>
+#include <unordered_map>
 #include "fd_du.cu"
 #include "id_du.cu"
 #include "minv.cu"
@@ -92,8 +105,11 @@ HARNESS = r"""
 #include "rollout.cu"
 #include "feedback_rollout.cu"
 #include "linesearch.cu"
+#include "idsva_so.cu"
 using namespace gt;
 typedef long long ll;
+
+""" + tk.RACE_CHECK + r"""
 
 // the entry points of tests/test_torch_kernels.py's harness (its
 // _host_run drives them), for the kernels whose plans changed
@@ -160,6 +176,20 @@ extern "C" void threads_##NJ(int* out) {                                    \
   out[2] = MinvPlan<double, NJ>::LANES;                                     \
   out[3] = FDPlanQ<double, NJ>::LANES;                                      \
   out[4] = RicPlan<double, NJ>::LANES;                                      \
+}                                                                           \
+extern "C" void idso_tile_##NJ(const double* m, const double* q,           \
+    const double* qd, const double* qdd, double* out, ll L) {               \
+  idsva_so_plan_host<double, NJ>(m, q, qd, qdd, out, L, -9.81);             \
+}                                                                           \
+extern "C" void idso_routes_##NJ(int* out) {                                \
+  out[0] = idso_route<float, NJ>();                                         \
+  out[1] = idso_route<double, NJ>();                                        \
+  out[2] = IDSOBandPlan<float, NJ>::BANDS;                                  \
+  out[3] = IDSOBandPlan<double, NJ>::BANDS;                                 \
+  out[4] = IDSOTilePlan<float, NJ>::G;                                      \
+  out[5] = IDSOTilePlan<float, NJ>::LANES;                                  \
+  out[6] = IDSOTilePlan<double, NJ>::G;                                     \
+  out[7] = IDSOTilePlan<double, NJ>::LANES;                                 \
 }
 HOST(34)
 HOST(52)
@@ -269,3 +299,92 @@ def test_host_block_code_above_28_joints_matches_plain(ws_lib, name, nj):
         assert float((g - w).abs().max()) <= TOL * scale, name
     if name == "minv_upper":   # exact zeros below the diagonal
         assert not got[0].permute(2, 0, 1).tril(-1).any()
+
+
+# idsva_so's routes (csrc/warp.cuh: idso_route) where the whole tile does
+# not fit: {joints: (float32, float64)}, and the bands of each dtype's band
+# plan (0: not even one band fits)
+IDSO_ROUTES = {34: ("device", "device"), 52: ("device", "device")}
+IDSO_BANDS = {34: (4, 11), 52: (52, 0)}
+
+
+@pytest.mark.parametrize("nj", sorted(HANDS))
+def test_idsva_so_routes_above_28_joints(ws_lib, nj):
+    """Above 28 joints both dtypes take the device tile, where the bands
+    would be 4 | 11 (float32 | float64) at 34 joints and 52 | none (not one
+    band fits) at 52: 4 knots of 128 threads a block in float32, 1 of 256
+    in float64 at 52."""
+    out = (ctypes.c_int * 8)()
+    getattr(ws_lib, f"idso_routes_{nj}")(out)
+    routes = tuple(tk.K.IDSO_ROUTES[r] for r in out[:2])
+    assert routes == IDSO_ROUTES[nj]
+    assert tuple(out[2:4]) == IDSO_BANDS[nj]
+    if nj == 52:
+        assert list(out[4:8]) == [4, 128, 1, 256]
+
+
+# the lanes of the race-checked device tile: a ragged block of the float64
+# plan's 2 knots at 34 joints; one knot at 52, whose race check and plain
+# reference take seconds a lane
+TILE_LANES = {34: 3, 52: 1}
+
+
+@pytest.mark.parametrize("nj", sorted(HANDS))
+def test_host_idsva_so_device_tile_matches_plain(ws_lib, nj):
+    """idsva_so's device-memory tile (the float64 plan: G knots a block,
+    each accumulating in its lane of the zeroed output, on the robot's
+    lists from so_lists_host) on TILE_LANES lanes: no entry of the output
+    or of a knot's shared state touched by two threads of one phase, the
+    same output with each phase's threads in reverse order, and within
+    1e-9 of idsva_so_plain's scale."""
+    m, args = inputs(nj)
+    _, q, qd, u, _ = args["fd_du"]
+    L = TILE_LANES[nj]
+    q, qd = q[:, :L].contiguous(), qd[:, :L].contiguous()
+    qdd = torch.as_tensor(np.random.default_rng(nj).uniform(-1, 1, q.shape))
+    n = q.shape[0]
+    outs = []
+    ws_lib.race_watch(1)
+    for reverse in (0, 1):
+        ws_lib.race_reverse(reverse)
+        ws_lib.race_reset()
+        out = torch.full((4, n, n, n, L), float("nan"), dtype=torch.float64)
+        getattr(ws_lib, f"idso_tile_{nj}")(
+            *map(tk._p, (tk.build.model_buffer(m), q, qd, qdd, out)),
+            ctypes.c_longlong(L))
+        assert ws_lib.race_count() == 0
+        outs.append(out)
+    ws_lib.race_reverse(0)
+    ws_lib.race_watch(0)
+    assert torch.equal(outs[0], outs[1])
+    want = tk.K.idsva_so_plain(m, q, qd, qdd, -9.81)
+    scale = max(1.0, float(want.abs().max()))
+    assert float((outs[0] - want).abs().max()) <= TOL * scale
+
+
+@pytest.mark.parametrize("nj", sorted(HANDS))
+def test_operation_counts_of_the_second_order_above_28_joints(nj):
+    """utils/opcount.py counts idsva_so at 34 and 52 joints and fdsva_so at
+    34 (its count at 52 runs the same code over a larger tree, for
+    seconds): the counted lane of the card's route computes what the plain
+    version does; the need is at most what runs; both dtypes run idsva_so's
+    device tile, each knot's program once, so they execute the same;
+    fdsva_so executes the composed route, more than fd_du and idsva_so
+    together."""
+    m, args = inputs(nj)
+    _, q, qd, u, _ = args["fd_du"]
+    x = [a[:, 0].numpy() for a in (q, qd, u)]
+    ops = lambda k, dt, ex: tk.opcount.ops_per_lane(
+        k, m.to(dtype=dt), executed=ex)
+    kernels = ("idsva_so", "fdsva_so") if nj == 34 else ("idsva_so",)
+    ran = {k: ops(k, torch.float64, True) for k in kernels + ("fd_du",)}
+    for k in kernels:
+        assert 0 < ops(k, torch.float64, False) <= ran[k]
+        want = getattr(tk.K, k + "_plain")(
+            m, *(torch.as_tensor(v)[:, None] for v in x), -9.81)[..., 0]
+        got = tk.opcount.so_lane_values(k, m, *x, executed=True)
+        scale = max(1.0, float(want.abs().max()))
+        assert float(np.abs(got - want.numpy()).max()) <= TOL * scale
+    if "fdsva_so" in ran:
+        assert ran["fdsva_so"] > ran["fd_du"] + ran["idsva_so"]
+    assert ops("idsva_so", torch.float32, True) == ran["idsva_so"]
