@@ -175,13 +175,18 @@ Phases, one line each:
      12 joints each (tests/torch_big_robots.py, loaded by file path; 52
      joints): its library's nvcc seconds (built in phase 1) and every
      thread-group plan at 52 joints (knots a block, shared bytes, the
-     device-memory route's workspace bytes: fd_du, id_du and the three
-     Riccati instances in both dtypes, minv and fd in float64); in float64
+     device-memory route's workspace bytes: id_du and riccati_factored in
+     both dtypes, minv and fd in float64; blocks a problem), and the
+     on-chip plans of fd_du and the stationary and stacked riccati at 34,
+     52 and 64 joints (a knot or problem a block or a cluster, no
+     workspace); in float64
      every kernel but the second-order pair against its plain version at 1
      lane and 37 (a ragged block), the sweeps at N = 8 (riccati_factored,
      the stationary and stacked riccati, the rollouts, the line search with
      the EE cost, QuadCost and none), within 1e-9 of each output's scale,
-     one launch a call; rnea, minv, crba, aba, fd, id_du and fd_du against
+     one launch a call, and fd_du and the dense riccati on 37 lanes at 34
+     and 64 joints too (atlas_grippers34, atlas_grippers64, their libraries
+     built in phase 1); rnea, minv, crba, aba, fd, id_du and fd_du against
      the oracle on 3 lanes (1e-10 of scale); in float32 the Riccati sweeps,
      the feedback rollout and the line search at N = 8 by the float32 rule;
      config 5 (S 4096, N 16, 2 iterations, float32, QuadCost, dt 0.002:
@@ -284,6 +289,11 @@ PERIODS5, S5_F64 = 3, 64
 # reference too (tests/test_torch_big_scenario.py), and stay bounded at
 # 0.002, as gym_humanoid's do
 HANDS13, DT13 = 12, 0.002
+# atlas_grippers64 (an 18-joint gripper a side), and the kernels that keep
+# one knot or problem on chip above the block limit, held in float64 at 34,
+# 52 and 64 joints
+GRIPPERS13 = 18
+ONCHIP13 = ("fd_du", "riccati", "riccati_stacked")
 # one closed-loop period there (phase 8 runs PERIODS5 on atlas): each is a
 # 1.3 s step, cut for the run's time limit
 PERIODS13 = 1
@@ -822,7 +832,10 @@ def main():
                         name=hands.atlas_hands_name(HANDS13))
     topo34 = parse_urdf(hands.atlas_hands_urdf(GRIPPERS14),
                         name=hands.atlas_hands_name(GRIPPERS14))
+    topo64 = parse_urdf(hands.atlas_hands_urdf(GRIPPERS13),
+                        name=hands.atlas_hands_name(GRIPPERS13))
     nj13, nj34 = topo13.get_num_joints(), topo34.get_num_joints()
+    nj64 = topo64.get_num_joints()
     # every library the run loads, in one pool of nvcc jobs (the zoo's
     # counts, phase 2's new counts, phases 13 and 14's), and the host
     # operation counter's g++ beside it
@@ -835,7 +848,8 @@ def main():
 
     counter = threading.Thread(target=build_opcount)
     counter.start()
-    libs = build.build(build.SUPPORTED_JOINTS + FIRST_USE + (nj34, nj13))
+    libs = build.build(build.SUPPORTED_JOINTS + FIRST_USE
+                       + (nj34, nj13, nj64))
     for nj in libs:
         build.lib(nj)
     t1 = time.perf_counter()
@@ -1464,7 +1478,8 @@ def main():
             "plain_ms": grid_f32[name, L1]["plain_ms"]} | grid_f32[
                 name, L1]["bound"]
 
-    def timed_f32(what, kern, plain, args, model, name, iters):
+    def timed_f32(what, kern, plain, args, model, name, iters,
+                  plain_iters=2):
         """The float32 rule on every output, and the kernel's and plain
         version's times and bound (the plain version's reference call is its
         warm-up: at 52 joints a plain call takes seconds)."""
@@ -1479,8 +1494,8 @@ def main():
         return {"max_abs_err": max_err(out, ref), "kernel_err_vs_f64": ek,
                 "plain_err_vs_f64": ep,
                 "ms": time_cuda(lambda: kern(*args), iters=iters),
-                "plain_ms": time_cuda(lambda: plain(*args), iters=2,
-                                      warmup=0)} | \
+                "plain_ms": time_cuda(lambda: plain(*args),
+                                      iters=plain_iters, warmup=0)} | \
             roofline(name, model, args, out)
 
     # riccati with the stationary curvature at config 3's QuadCost shapes
@@ -2857,8 +2872,7 @@ def main():
     # the instances on the device-memory route: a knot (problem) a block,
     # its state in a workspace the wrapper allocates
     ws13 = sorted(k for k, v in plans13.items() if v["workspace_bytes"])
-    want_ws = sorted(f"{w} {d}" for w in ("fd_du", "id_du", "riccati_factored",
-                                          "riccati", "riccati_stacked")
+    want_ws = sorted(f"{w} {d}" for w in ("id_du", "riccati_factored")
                      for d in ("float32", "float64")) + ["fd float64",
                                                          "minv float64"]
     for k, v in plans13.items():
@@ -2867,12 +2881,27 @@ def main():
     if ws13 != sorted(want_ws):
         raise AssertionError(f"device-memory instances at {nj13} joints: "
                              f"{ws13}")
+    # fd_du and the dense riccati on chip at 34, 52 and 64 joints: a knot or
+    # problem a block or a cluster (csrc/warp.cuh: ChipPack), no workspace
+    onchip13 = {f"{what} {str(dt)[6:]} nj{nj}": build.warp_kernel_info(
+        what, nj, dt) for what in ONCHIP13 for nj in (nj34, nj13, nj64)
+        for dt in dtypes}
+    for k, v in onchip13.items():
+        if (v["workspace_bytes"] or v["knots_per_block"] != 1
+                or not 1 <= v["cluster_blocks"] <= 4
+                or v["smem_bytes_per_block"] > 232448):
+            raise AssertionError(f"{k}: not on chip: {v}")
     line("hands52_build", {"robot": topo13.name, "joints": nj13} | lib13 | {
         "device_memory_instances": ws13, "plans": {
             k: {f: v[f] for f in ("knots_per_block", "threads_per_knot",
                                   "smem_bytes_per_block", "workspace_bytes",
-                                  "registers", "local_bytes", "blocks_per_sm")}
-            for k, v in plans13.items()}, "elapsed_s": elapsed()})
+                                  "registers", "local_bytes", "blocks_per_sm",
+                                  "cluster_blocks")}
+            for k, v in plans13.items()}, "onchip_plans": {
+            k: {f: v[f] for f in ("cluster_blocks", "threads_per_knot",
+                                  "smem_bytes_per_block", "registers",
+                                  "local_bytes", "blocks_per_sm")}
+            for k, v in onchip13.items()}, "elapsed_s": elapsed()})
 
     # float64: each kernel but the second-order pair against its plain
     # version at 1 lane and 37 (a ragged block), one launch a call, within
@@ -2916,6 +2945,22 @@ def main():
         held64(f"{topo13.name} L={lanes}", cases, held)
         f64_13 |= {f"{case} L={lanes}": v for case, v in held.items()}
         del cases, quad
+    # fd_du and the dense riccati (on chip) at 34 and 64 joints too, on a
+    # ragged block of lanes (one lane: at 52); for the time limit, phase
+    # 13's plain versions of config 5's kernels are timed once (they take
+    # seconds a call at 52 joints)
+    for topo in (topo34, topo64):
+        mk = build_model(topo, dtype=torch.float64, device=dev)
+        for lanes in (37,):
+            ins = quad_inputs(mk, 8, lanes, seed=13, dt=DT13)
+            cases = {c: ins[c] for c in ONCHIP13 if c != "fd_du"} | {
+                "fd_du": lane_cases(mk, lanes, seed=13,
+                                    with_fd_du=True)["fd_du"]}
+            held = {}
+            held64(f"{topo.name} L={lanes}", cases, held)
+            f64_13 |= {f"{topo.name} {case} L={lanes}": v
+                       for case, v in held.items()}
+        del mk, ins, cases
     covered = {kernel_of.get(c.split(" ")[0], c.split(" ")[0]) for c in f64_13}
     if not all_kernels - {"idsva_so", "fdsva_so"} <= covered:
         raise AssertionError(f"{topo13.name}: kernels not held "
@@ -3020,7 +3065,7 @@ def main():
     for case, args in cases5.items():
         name = kernel_of.get(case, case)
         kern13[name] = timed_f32(f"config 5 {topo13.name} {case}",
-                                 *fns_of[case], args, m, case, 3) | {
+                                 *fns_of[case], args, m, case, 3, 1) | {
             "launches_per_step": step5.get(name, 0)}
     out = as_tuple(K.fd_du(*fd_args))
     head = (m, *(a[:, :L1].contiguous() for a in fd_args[1:4]), GRAVITY)
@@ -3034,7 +3079,7 @@ def main():
                                               ref),
                        "ms": time_cuda(lambda: K.fd_du(*fd_args), iters=3),
                        "plain_ms": time_cuda(lambda: K.fd_du_plain(*head),
-                                             iters=2, warmup=0),
+                                             iters=1, warmup=0),
                        "plain_lanes": L1, "launches_per_step": ITERS5} | \
         roofline("fd_du", m, fd_args, out)
     del X, A, Bm, ric, ks, Ks, cases5, parts5, out, ref, ref64, fd_args, head

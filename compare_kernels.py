@@ -5,6 +5,32 @@ card.
                                [--kernels riccati_factored,linesearch,...]
                                [--sass rollout,fd_du,...]
                                [--out build/compare_kernels.json]
+    python3 compare_kernels.py --other DIR --hands52
+
+``--hands52`` compares only fd_du and the dense riccati (stationary and
+per knot) at 52 joints (atlas_hands52, tests/torch_big_robots.py), where a
+knot or problem does not fit a block beside others (an earlier tree's
+device-memory route, this tree's on-chip one): each tree's fd_du.cu and
+riccati.cu compiled at 52 joints with ``-Xptxas -v`` (registers, stack and
+spills of each instance), each tree's block plans, and the device time of
+a launch in float32 at config 5's shapes (fd_du over N S = 65536 lanes,
+riccati at N = 16, S = 4096; the stacked riccati at N = 16 on 512
+problems) on the same inputs (a seed's random states and controls for
+fd_du; for the sweeps A = I + dt (random), B = dt (random), an SPD
+curvature), in turns: the others, this, this, the others in reverse; and
+the largest difference of each output from the first other tree's,
+relative to its scale, and for the sweeps each tree's from a float64 plain
+run on the first 8 problems (`err_vs_f64`). It also clocks this tree's on-chip programs phase
+by phase at those shapes in float32 (fd_du.cu and riccati.cu built with
+``-DGT_CHIP_CLOCK``: clock64() after each phase of one lane or problem,
+one cluster alone on the card; `phase_cycles`, the riccati's grouped by
+step of its knot program and averaged over the knots), and times this
+tree's two routes at the joint counts of ``--thresholds`` (kernel:dtype:
+joints items; by default fd_du and the stationary riccati at 28 joints,
+atlas, in both dtypes, just below where the on-chip routes take over;
+atlas with grippers above 28), config 5's shapes: the route the library
+takes there against the on-chip program forced there
+(`gridtorch_riccati_chip_forced`, `gridtorch_fd_du_chip_forced`).
 
 Each DIR is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive``), named by its directory. The
@@ -1103,13 +1129,14 @@ def tree_joints(tree: Path) -> tuple:
                  if str(nj) in (v.strip() for v in listed.split(",")))
 
 
-def compile_tree(tree: Path, out: Path, sources, clocked: bool = False):
-    """{nj: library path} at the joint counts the tree builds, of the
-    sources it has, and the ptxas report of every object; with `clocked`,
-    also {nj: phase-clock library path}."""
+def compile_tree(tree: Path, out: Path, sources, clocked: bool = False,
+                 joints=None):
+    """{nj: library path} at the joint counts the tree builds (or
+    `joints`), of the sources it has, and the ptxas report of every object;
+    with `clocked`, also {nj: phase-clock library path}."""
     exe, flags = nvcc()
     csrc = tree / "gridcodegenerator_tpu_torch" / "csrc"
-    joints = tree_joints(tree)
+    joints = tree_joints(tree) if joints is None else joints
     sources = [src for src in sources if (csrc / src).exists()]
     jobs = [(nj, csrc / src) for nj in joints for src in sources]
     clock_joints = joints if clocked else ()
@@ -1176,7 +1203,9 @@ def compare_sass(work: Path, other: str, joints, sources) -> dict:
     return out
 
 
-KERNEL_NAMES = ("fd_du_kernel", "fdsva_so_kernel", "riccati_factored_kernel",
+KERNEL_NAMES = ("fd_du_chip_kernel", "fd_du_ws_kernel", "riccati_chip_kernel",
+                "riccati_ws_kernel",
+                "fd_du_kernel", "fdsva_so_kernel", "riccati_factored_kernel",
                 "linesearch_kernel", "riccati_kernel", "rollout_kernel",
                 "riccati_dense_kernel", "idsva_so_kernel",
                 "feedback_rollout_kernel", "id_du_kernel", "d2eepos_kernel",
@@ -1201,7 +1230,7 @@ def parse_ptxas(text: str) -> dict:
         name = m.group(1)[:-7]
         if name == "linesearch":
             name += "_ee" if "EECost" in mangled else "_quad"
-        if name == "riccati":
+        if name in ("riccati", "riccati_chip", "riccati_ws"):
             name += "_stationary" if "Lb1E" in mangled else "_stacked"
         if name == "rnea" and "RneaModeE0E" in mangled:   # RNEA_BIAS
             name += "_bias"
@@ -1411,6 +1440,352 @@ def to64(args, m64):
     return (m64,) + tuple(one(a) for a in args[1:])
 
 
+THRESHOLDS = "fd_du:f32:28,fd_du:f64:28,riccati:f32:28,riccati:f64:28"
+
+
+def thresholds(work: Path, time_cuda, items: str) -> dict:
+    """--hands52's `thresholds` (the module's docstring): {"kernel dtype":
+    {joints: {route_ms, chip_ms}}}."""
+    from gridcodegenerator_tpu_torch.models.model import build_model
+    from gridcodegenerator_tpu_torch.topology.urdf import parse_urdf
+    from gridcodegenerator_tpu_torch.ops.cuda import build
+    from torch_big_robots import atlas_hands_name, atlas_hands_urdf
+
+    P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    exe, flags = nvcc()
+    csrc = ROOT / "gridcodegenerator_tpu_torch" / "csrc"
+    want = [(k, d, int(j)) for k, d, j in
+            (item.split(":") for item in items.split(","))]
+    joints = sorted({j for _, _, j in want})
+    out_dir = work / "thresholds"
+    out_dir.mkdir()
+
+    def one(job):
+        nj, src = job
+        subprocess.run([exe, *flags, f"-DGT_NJ={nj}", "-DGT_CHIP_CLOCK",
+                        "-I", str(csrc), "-c", str(csrc / src), "-o",
+                        str(out_dir / f"{src}.nj{nj}.o")], check=True,
+                       capture_output=True)
+
+    with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(one, [(nj, src) for nj in joints
+                            for src in ("fd_du.cu", "riccati.cu")]))
+    dev = torch.device("cuda:0")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    res = {f"{k} {d}": {} for k, d, _ in want}
+    for nj in joints:
+        lib = out_dir / f"lib{nj}.so"
+        subprocess.run([exe, *flags, "-shared",
+                        str(out_dir / f"fd_du.cu.nj{nj}.o"),
+                        str(out_dir / f"riccati.cu.nj{nj}.o"), "-o",
+                        str(lib)], check=True, capture_output=True)
+        h = ctypes.CDLL(str(lib))
+        h.gridtorch_fd_du.argtypes = [I, I] + [P] * 7 + [L, ctypes.c_double,
+                                                         P, P, L]
+        h.gridtorch_riccati.argtypes = ([I, I] + [P] * 7 + [I] + [P] * 4
+                                        + [I, L, ctypes.c_double, P, P, L])
+        h.gridtorch_fd_du_chip_forced.argtypes = [I] + [P] * 7 + [L, P]
+        h.gridtorch_riccati_chip_forced.argtypes = ([I] + [P] * 11
+                                                    + [I, L, P, L, P])
+        h.gridtorch_riccati_chip_forced.restype = L
+        h.gridtorch_riccati_info.argtypes = [I, I, P]
+        k = (nj - 28) // 2
+        topo = parse_urdf(atlas_hands_urdf(k), name=atlas_hands_name(k))
+        for kernel, dname, _ in (w for w in want if w[2] == nj):
+            dt = torch.float32 if dname == "f32" else torch.float64
+            code = build.DTYPE_CODES[dt]
+            m = build_model(topo, dtype=dt, device=dev)
+            res[f"{kernel} {dname}"][nj] = threshold_times(
+                h, kernel, m, code, stream, time_cuda)
+            torch.cuda.empty_cache()
+        print(f"thresholds nj{nj}: " + json.dumps(
+            {k: v.get(nj) for k, v in res.items()}), flush=True)
+    return res
+
+
+def threshold_times(h, kernel, m, code, stream, time_cuda) -> dict:
+    """One kernel's route and its forced on-chip program on model m (the
+    library h of its joint count), config 5's shapes: {route_ms,
+    chip_ms}."""
+    from gridcodegenerator_tpu_torch.ops.cuda import build
+
+    dev, nj = m.device, m.n
+    gen = torch.Generator(device=dev).manual_seed(nj)
+    rand = lambda *sh: (torch.rand(*sh, generator=gen, device=dev,
+                                   dtype=m.dtype) * 2 - 1)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    n, nx = nj, 2 * nj
+    if kernel == "fd_du":
+        lanes = 16 * 4096
+        mb = build.model_buffer(m)
+        q, qd, u = rand(n, lanes), rand(n, lanes), rand(n, lanes)
+        outs = (torch.empty(n, 2 * n, lanes, device=dev, dtype=m.dtype),
+                torch.empty(n, lanes, device=dev, dtype=m.dtype),
+                torch.empty(n, n, lanes, device=dev, dtype=m.dtype))
+        args = (ptr(mb), ptr(q), ptr(qd), ptr(u), *map(ptr, outs))
+        return {
+            "route_ms": time_cuda(lambda: build.check(h.gridtorch_fd_du(
+                code, nj, *args, lanes, -9.81, stream, None, 0),
+                "fd_du"), iters=3),
+            "chip_ms": time_cuda(lambda: build.check(
+                h.gridtorch_fd_du_chip_forced(code, *args, lanes,
+                                              stream), "fd_du chip"),
+                iters=3)}
+    N, B, dt = 16, 4096, 0.002
+    eye = lambda k: torch.eye(k, device=dev, dtype=m.dtype)[:, :,
+                                                             None]
+    A = (eye(nx)[None] + dt * rand(N, nx, nx, B)).contiguous()
+    Bm = (dt * rand(N, nx, n, B)).contiguous()
+    Mx = rand(nx, nx, B)
+    ins = (A, Bm, rand(N, nx, B), rand(N, n, B),
+           (torch.einsum("ikb,jkb->ijb", Mx, Mx) / nx).contiguous(),
+           (1e-2 * eye(n).expand(n, n, B)).contiguous(),
+           (0.1 * rand(n, nx, B)).contiguous(), rand(nx, B),
+           (10 * eye(nx).expand(nx, nx, B)).contiguous())
+    outs = (torch.empty(N, n, B, device=dev, dtype=m.dtype),
+            torch.empty(N, n, nx, B, device=dev, dtype=m.dtype))
+    per = h.gridtorch_riccati_chip_forced(code, *([None] * 11), N, B,
+                                          None, 0, None)
+    rec = torch.empty(per, device=dev, dtype=m.dtype)
+    a7, (Vx0, Vxx0) = tuple(map(ptr, ins[:7])), ins[7:]
+    # the library's route: a workspace where it takes device memory
+    info = (ctypes.c_int * 16)()
+    build.check(h.gridtorch_riccati_info(code, nj, info), "info")
+    p = dict(zip(build.INFO_FIELDS, info))
+    ws, nws = None, 0
+    if p["workspace_bytes"]:
+        sms = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+        nws = min(B, max(1, p["blocks_per_sm"]) * sms)
+        ws = torch.empty(nws * p["workspace_bytes"] // 4,
+                         device=dev)
+    return {
+        "route_ms": time_cuda(lambda: build.check(
+            h.gridtorch_riccati(code, nj, *a7, 1, ptr(Vx0),
+                                ptr(Vxx0), *map(ptr, outs), N, B,
+                                1e-6, stream, ptr(ws), nws),
+            "riccati"), iters=3),
+        "chip_ms": time_cuda(lambda: build.check(
+            h.gridtorch_riccati_chip_forced(
+                code, *a7, ptr(Vx0), ptr(Vxx0), *map(ptr, outs), N,
+                B, ptr(rec), rec.numel(), stream), "riccati chip"),
+            iters=3)}
+
+
+def hands52(trees: dict, work: Path, time_cuda,
+            threshold_items: str = THRESHOLDS) -> dict:
+    """--hands52: fd_du and the dense riccati of every tree at 52 joints
+    (the module's docstring)."""
+    from gridcodegenerator_tpu_torch.models.model import build_model
+    from gridcodegenerator_tpu_torch.topology.urdf import parse_urdf
+    sys.path.insert(0, str(ROOT / "tests"))
+    from torch_big_robots import atlas_hands_name, atlas_hands_urdf
+    from gridcodegenerator_tpu_torch.ops.cuda import build
+    from gridcodegenerator_tpu_torch.ops.cuda import sweeps as S
+
+    P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                  ctypes.c_double)
+    nj, dev = 52, torch.device("cuda:0")
+    out = {"ptxas": {}, "plans": {}, "ms": {}, "rel_diff": {},
+           "err_vs_f64": {}}
+    libs = {}
+    for name, tree in trees.items():
+        (work / name).mkdir()
+        built, report, _ = compile_tree(tree, work / name,
+                                        ["fd_du.cu", "riccati.cu"],
+                                        joints=(nj,))
+        out["ptxas"][name] = {k: v for k, v in parse_ptxas(report).items()
+                              if "nj52" in k and (k.startswith("fd_du")
+                                                  or k.startswith("riccati"))
+                              and "factored" not in k}
+        h = ctypes.CDLL(str(built[nj]))
+        h.gridtorch_fd_du.argtypes = [I, I] + [P] * 7 + [L, D, P, P, L]
+        h.gridtorch_riccati.argtypes = ([I, I] + [P] * 7 + [I] + [P] * 4
+                                        + [I, L, D, P, P, L])
+        for what in ("fd_du", "riccati", "riccati_stacked"):
+            getattr(h, f"gridtorch_{what}_info").argtypes = [I, I, P]
+        libs[name] = h
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def plan(name, what):
+        info = (ctypes.c_int * 16)()
+        build.check(getattr(libs[name], f"gridtorch_{what}_info")(
+            0, nj, info), what)
+        return dict(zip(build.INFO_FIELDS, info))
+
+    def workspace(name, what, units, N=0):
+        """An earlier tree's device-memory workspace (build.workspace), or
+        this tree's problem-major copy of the sweep's inputs (B records)."""
+        h = libs[name]
+        inputs = getattr(h, "gridtorch_riccati_inputs", None)
+        if what != "fd_du" and inputs is not None:
+            inputs.argtypes, inputs.restype = [I, I, I, I], L
+            per = inputs(0, nj, N, int(what == "riccati"))
+            if per > 0:
+                return torch.empty(units * per, device=dev), units * per
+        p = plan(name, what)
+        if not p["workspace_bytes"]:
+            return None, 0
+        blocks = min(units, max(1, p["blocks_per_sm"]) * sms)
+        return torch.empty(blocks * p["workspace_bytes"] // 4,
+                           device=dev), blocks
+
+    k = (nj - 28) // 2
+    m = build_model(parse_urdf(atlas_hands_urdf(k),
+                               name=atlas_hands_name(k)),
+                    dtype=torch.float32, device=dev)
+    mb = build.model_buffer(m)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rand = lambda *s: torch.rand(*s, generator=gen, device=dev) * 2 - 1
+    n, nx, dt, stream = nj, 2 * nj, 0.002, torch.cuda.current_stream(
+        dev).cuda_stream
+    lanes = 16 * 4096
+    q, qd, u = rand(n, lanes), rand(n, lanes), rand(n, lanes)
+
+    def sweep(N, B, stat):
+        eye = lambda k: torch.eye(k, device=dev)[:, :, None]
+        A = (eye(nx)[None] + dt * rand(N, nx, nx, B)).contiguous()
+        Bm = (dt * rand(N, nx, n, B)).contiguous()
+        lead = () if stat else (N,)
+        Mx = rand(*lead, nx, nx, B)
+        lxx = (torch.einsum("...ikb,...jkb->...ijb", Mx, Mx) / nx).contiguous()
+        luu = (1e-2 * eye(n).expand(*lead, n, n, B)).contiguous()
+        lux = (0.1 * rand(*lead, n, nx, B)).contiguous()
+        return (A, Bm, rand(N, nx, B), rand(N, n, B), lxx, luu, lux,
+                rand(nx, B), (10 * eye(nx).expand(nx, nx, B)).contiguous())
+
+    cases = {"fd_du": None, "riccati": sweep(16, 4096, True),
+             "riccati_stacked": sweep(16, 512, False)}
+    ptr = lambda t: None if t is None else t.data_ptr()
+
+    def runner(name, what):
+        h = libs[name]
+        if what == "fd_du":
+            outs = (torch.empty(n, 2 * n, lanes, device=dev),
+                    torch.empty(n, lanes, device=dev),
+                    torch.empty(n, n, lanes, device=dev))
+            ws, nws = workspace(name, what, lanes)
+
+            def fn():
+                build.check(h.gridtorch_fd_du(
+                    0, nj, ptr(mb), ptr(q), ptr(qd), ptr(u),
+                    *map(ptr, outs), lanes, -9.81, stream, ptr(ws), nws),
+                    what)
+            return fn, outs
+        A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0 = cases[what]
+        N, B = A.shape[0], A.shape[-1]
+        outs = (torch.empty(N, n, B, device=dev),
+                torch.empty(N, n, nx, B, device=dev))
+        ws, nws = workspace(name, what, B, N)
+
+        def fn():
+            build.check(h.gridtorch_riccati(
+                0, nj, *map(ptr, (A, Bm, lx, lu, lxx, luu, lux)),
+                int(what == "riccati"), ptr(Vx0), ptr(Vxx0),
+                *map(ptr, outs), N, B, 1e-6, stream, ptr(ws), nws), what)
+        return fn, outs
+
+    # this tree's phase clock (GT_CHIP_CLOCK)
+    exe, flags = nvcc()
+    csrc = ROOT / "gridcodegenerator_tpu_torch" / "csrc"
+    clk_dir = work / "clock"
+    clk_dir.mkdir()
+    objs = []
+    for src in ("fd_du.cu", "riccati.cu"):
+        obj = clk_dir / (src + ".o")
+        subprocess.run([exe, *flags, f"-DGT_NJ={nj}", "-DGT_CHIP_CLOCK",
+                        "-I", str(csrc), "-c", str(csrc / src), "-o",
+                        str(obj)], check=True, capture_output=True)
+        objs.append(str(obj))
+    subprocess.run([exe, *flags, "-shared", *objs, "-o",
+                    str(clk_dir / "libclock.so")], check=True,
+                   capture_output=True)
+    hc = ctypes.CDLL(str(clk_dir / "libclock.so"))
+    hc.gridtorch_fd_du_clock.argtypes = [P] * 9
+    hc.gridtorch_riccati_clock.argtypes = [P] * 5 + [I, P, P]
+    hc.gridtorch_riccati.argtypes = libs["this"].gridtorch_riccati.argtypes
+    hc.gridtorch_riccati_inputs.argtypes = [I, I, I, I]
+    hc.gridtorch_riccati_inputs.restype = L
+    clk = torch.zeros(1 << 14, dtype=torch.int64, device=dev)
+    cnt = torch.zeros(1, dtype=torch.int32, device=dev)
+    one = lambda x: x[..., :1].contiguous()   # lane or problem 0
+    fouts = (torch.empty(n, 2 * n, 1, device=dev),
+             torch.empty(n, 1, device=dev), torch.empty(n, n, 1, device=dev))
+    build.check(hc.gridtorch_fd_du_clock(
+        ptr(mb), *map(ptr, (one(q), one(qd), one(u)) + fouts), ptr(clk),
+        ptr(cnt)), "fd_du clock")
+    torch.cuda.synchronize()
+    c = clk[:int(cnt)].cpu().numpy()
+    out["phase_cycles"] = {"fd_du": [int(x) for x in np.diff(c)]}
+    A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0 = cases["riccati"]
+    N, B = A.shape[0], A.shape[-1]
+    per = hc.gridtorch_riccati_inputs(0, nj, N, 1)
+    rec = torch.empty(B * per, device=dev)
+    routs = (torch.empty(N, n, B, device=dev),
+             torch.empty(N, n, nx, B, device=dev))
+    build.check(hc.gridtorch_riccati(
+        0, nj, *map(ptr, (A, Bm, lx, lu, lxx, luu, lux)), 1, ptr(Vx0),
+        ptr(Vxx0), *map(ptr, routs), N, B, 1e-6, stream, ptr(rec),
+        rec.numel()), "riccati")
+    clk.zero_()
+    routs = tuple(one(o) for o in routs)
+    build.check(hc.gridtorch_riccati_clock(
+        *map(ptr, (rec, one(Vx0), one(Vxx0)) + routs), N, ptr(clk),
+        ptr(cnt)), "riccati clock")
+    torch.cuda.synchronize()
+    c = np.diff(clk[:int(cnt)].cpu().numpy()).reshape(N, -1)
+    # a knot's phases: the wait, Qx/Qu and the first slab, a phase a slab,
+    # [Quu + reg I | I], Gauss-Jordan a pivot a phase, K, W, V, Vxx
+    ns = c.shape[1] - 7 - nj
+    steps = [("wait", 0, 1), ("q_and_first_slab", 1, 2),
+             ("slabs", 2, 2 + ns), ("aug", 2 + ns, 3 + ns),
+             ("gauss_jordan", 3 + ns, 3 + ns + nj),
+             ("gains", 3 + ns + nj, 4 + ns + nj),
+             ("w", 4 + ns + nj, 5 + ns + nj),
+             ("value", 5 + ns + nj, 6 + ns + nj),
+             ("symmetrize", 6 + ns + nj, 7 + ns + nj)]
+    out["phase_cycles"]["riccati_knot_mean"] = {
+        k: float(c[1:, a:b].sum(1).mean()) for k, a, b in steps}
+    print("hands52 phase_cycles: " + json.dumps(out["phase_cycles"]),
+          flush=True)
+    out["thresholds"] = thresholds(work, time_cuda, threshold_items)
+
+    names = list(trees)
+    order = names[1:] + ["this", "this"] + names[1:][::-1]
+    for what in cases:
+        out["plans"][what] = {name: {
+            f: v for f, v in plan(name, what).items()
+            if f in ("knots_per_block", "threads_per_knot",
+                     "smem_bytes_per_block", "registers", "local_bytes",
+                     "blocks_per_sm", "workspace_bytes", "cluster_blocks")}
+            for name in names}
+        runs = {name: runner(name, what) for name in names}
+        for name in names:
+            runs[name][0]()
+        torch.cuda.synchronize()
+        first = runs[names[1]][1]
+        out["rel_diff"][what] = max(
+            float((o - r).abs().max()) / max(1.0, float(r.abs().max()))
+            for o, r in zip(runs["this"][1], first))
+        if what != "fd_du":
+            ref = S.riccati_plain(*(a[..., :8].double()
+                                    for a in cases[what]), 1e-6)
+            out["err_vs_f64"][what] = {name: max(
+                float((o[..., :8].double() - r).abs().max())
+                / max(1.0, float(r.abs().max()))
+                for o, r in zip(runs[name][1], ref)) for name in names}
+        ms = {name: [] for name in names}
+        for name in order:
+            ms[name].append(time_cuda(runs[name][0], iters=3))
+        out["ms"][what] = ms
+        print(f"hands52 {what}: " + json.dumps({
+            "ms": ms, "rel_diff": out["rel_diff"][what],
+            "err_vs_f64": out["err_vs_f64"].get(what)}), flush=True)
+        del runs
+        torch.cuda.empty_cache()
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", required=True, type=Path, action="append")
@@ -1420,6 +1795,12 @@ def main():
                          "and compared by cuobjdump -sass with the first "
                          "other tree's, not timed")
     ap.add_argument("--out", default="build/compare_kernels.json")
+    ap.add_argument("--hands52", action="store_true",
+                    help="only fd_du and the dense riccati at 52 joints, "
+                         "config 5's shapes (the module's docstring)")
+    ap.add_argument("--thresholds", default=THRESHOLDS,
+                    help="with --hands52: kernel:dtype:joints items whose "
+                         "route is timed against the forced on-chip one")
     args = ap.parse_args()
     kernels = tuple(args.kernels.split(","))
     if any(k not in SOURCES for k in kernels):
@@ -1446,6 +1827,12 @@ def main():
     others = list(trees)[1:]
     (ROOT / "build").mkdir(exist_ok=True)
     work = Path(tempfile.mkdtemp(prefix="compare-", dir=ROOT / "build"))
+    if args.hands52:
+        result = {"device": smi} | hands52(trees, work, time_cuda,
+                                           args.thresholds)
+        print("hands52: " + json.dumps(result), flush=True)
+        Path(args.out).write_text(json.dumps(result, indent=1))
+        return
     result = {"device": smi, "ptxas": {}, "info": {}, "times": []}
     sass = tuple(k for k in args.sass.split(",") if k)
     if any(k not in SOURCES for k in sass):

@@ -33,9 +33,22 @@
 // `gridtorch_riccati_stacked_info`. riccati_lane and riccati_dense_lane are
 // the serial functions: csrc/opcount.cpp counts the bound from them, and
 // the host tests hold the block code to their bits. Where not even one
-// problem fits a block (from 30 to 48 joints, by curvature and dtype), a
-// problem runs a block at a time with 128 threads, its state in device
-// memory staged by plain copies (riccati_ws, sweep_warp.cuh:RicPlan).
+// problem fits a block (from 30 to 48 joints, by curvature and dtype),
+// riccati_factored runs a problem a block at a time with 128 threads, its
+// state in device memory staged by plain copies (riccati_ws,
+// sweep_warp.cuh:RicPlan). The dense sweep from 29 joints (warp.cuh:
+// CHIP_FROM; stationary or a block per knot) keeps each problem
+// on chip instead (riccati_chip_kernel, sweep_warp.cuh:RicChipPlan,
+// riccati_chip_knot): a problem a block of 512 threads, or a
+// thread-block cluster of 2 or 4 blocks of 256 whose shared memory holds
+// the problem's regions between them (from 55 | 39 joints); the knot's
+// products are 4 x 4 register tiles a thread over rows of shared memory,
+// [Vxx A | Vxx B] a slab of columns at a time folded into Qxx, Qux and
+// Quu, A and B of the next knot staged with cp.async once the slabs are
+// folded. What bounds it on the card: operations (O(NX^3) a knot); float32
+// stays on FP32 FMAs (TF32 keeps 3 digits) and float64 on FP64 FMAs (no
+// tensor-core instruction), and one problem an SM sets how many tiles a
+// phase has.
 //
 // Layouts: A (N, NX, NX, B), Bm (N, NX, NJ, B), Vx0 (NX, B),
 // Vxx0 (NX, NX, B); outputs k (N, NJ, B), K (N, NJ, NX, B).
@@ -370,6 +383,11 @@ static int launch_riccati(const void* A, const void* Bm, const void* lx,
 template <typename T, int NJ, bool STAT>
 using DensePlan =
     gt::RicPlan<T, NJ, STAT ? gt::RIC_STATIONARY : gt::RIC_DENSE>;
+template <typename T, int NJ, bool STAT>
+constexpr bool dense_on_chip() {
+  return gt::ric_on_chip<T, NJ,
+                         STAT ? gt::RIC_STATIONARY : gt::RIC_DENSE>();
+}
 
 template <typename T, int NJ, bool STAT>
 __global__ void riccati_kernel(
@@ -391,35 +409,162 @@ __global__ void riccati_kernel(
                                  ks, Ks, N, B, reg);
 }
 
-template <typename T, int NJ, bool STAT>
-__global__ void riccati_ws_kernel(
-    const T* __restrict__ A, const T* __restrict__ Bm,
-    const T* __restrict__ lx, const T* __restrict__ lu,
-    const T* __restrict__ lxx, const T* __restrict__ luu,
-    const T* __restrict__ lux, const T* __restrict__ Vx0,
-    const T* __restrict__ Vxx0, T* __restrict__ ks, T* __restrict__ Ks,
-    int N, long long B, T reg, T* ws) {
-  using P = DensePlan<T, NJ, STAT>;
-  const gt::DenseIn<T, NJ, STAT, P::BUFS> in{
-      A, Bm, lx, lu, lxx, luu, lux, B};
-  riccati_ws<T, NJ, P>(in, Vx0, Vxx0, ks, Ks, N, B, reg, ws);
+// One lane-major input (R rows of B lanes) into the problem-major records
+// (DS values a problem) of the on-chip sweep (sweep_warp.cuh:
+// gather_rows' map: row r = (g, w, x) to value off + g GS + w WP + x): a
+// 32 x 32 tile of rows and lanes a block, read along the lanes, written
+// along the rows.
+template <typename T>
+__global__ void riccati_gather_kernel(const T* __restrict__ src, long long R,
+                                      long long B, int W, int WP, int G,
+                                      long long GS, long long off,
+                                      T* __restrict__ dst, long long DS) {
+  __shared__ T tile[32][33];
+  const long long r0 = (long long)blockIdx.x * 32;
+  const long long b0 = (long long)blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  for (int i = ty; i < 32; i += 8) {
+    const long long r = r0 + i, b = b0 + tx;
+    if (r < R && b < B) tile[i][tx] = src[r * B + b];
+  }
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    const long long b = b0 + i, r = r0 + tx;
+    if (r < R && b < B) {
+      const long long g = r / ((long long)W * G), w = (r / W) % G;
+      dst[b * DS + off + g * GS + w * WP + r % W] = tile[tx][i];
+    }
+  }
 }
+
+// On chip (sweep_warp.cuh:RicChipPlan; where DensePlan would take device
+// memory): a problem a block or a cluster, its state in the cluster's
+// shared memory, its inputs from its record in the problem-major copy
+// `rec` (DS values a problem), the clusters striding over the problems.
+// CLOCKED (the phase clock of a build with -DGT_CHIP_CLOCK, launched as one
+// cluster): clk[0] the start, then clock64() after each phase, *count the
+// phases.
+template <typename T, int NJ, bool STAT, bool CLOCKED = false>
+__global__ void __launch_bounds__(gt::RicChipPlan<T, NJ>::NT)
+    riccati_chip_kernel(const T* __restrict__ rec, long long DS,
+                        const T* __restrict__ Vx0,
+                        const T* __restrict__ Vxx0, T* __restrict__ ks,
+                        T* __restrict__ Ks, int N, long long B, T reg,
+                        long long* clk, int* count) {
+  using P = gt::RicChipPlan<T, NJ>;
+  char* smem = reinterpret_cast<char*>(gt_smem);
+  const int rank = gt::chip_rank<P::CL>(), tid = threadIdx.x;
+  T* rg[7];
+  P::regions(
+      [&](int r) { return reinterpret_cast<T*>(gt::chip_map<P::CL>(smem, r)); },
+      rg);
+  int n = 1;
+  if (CLOCKED && rank == 0 && tid == 0) clk[0] = clock64();
+  const long long nc = gridDim.x / P::CL;
+  for (long long b = blockIdx.x / P::CL; b < B; b += nc)
+    gt::riccati_chip_problem<T, NJ, P, STAT>(
+        gt::ChipPar<P::LANES, P::CL, CLOCKED>{rank * P::NT + tid, clk, &n},
+        rg, [&](int r) { return r == rank; }, tid, P::NT, rec + b * DS, Vx0,
+        Vxx0, ks, Ks, N, B, b, reg);
+  if (CLOCKED && rank == 0 && tid == 0) *count = n;
+  gt::chip_sync<P::CL>();   // no block leaves while another reads it
+}
+
+// The problem-major copy of the inputs (the on-chip sweep's records: each
+// tensor by riccati_gather_kernel) into `rec`, nrec values; then the sweep.
+template <typename T, int NJ, bool STAT>
+static int launch_chip_dense(const gt::DenseIn<T, NJ, STAT, 1>& in,
+                             const T* Vx0, const T* Vxx0, T* ks, T* Ks,
+                             int N, long long B, T reg, cudaStream_t stream,
+                             T* rec, long long nrec) {
+  using P = gt::RicChipPlan<T, NJ>;
+  const long long DS = P::O::record(N, STAT);
+  if (rec == nullptr || nrec < B * DS) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSuccess;
+  gt::ric_chip_gathers<typename P::O>(
+      in, N, STAT,
+      [&](const T* src, long long R, int W, int WP, int G, long long GS,
+          long long off) {
+        if (err != cudaSuccess) return;
+        riccati_gather_kernel<T>
+            <<<dim3((unsigned)((R + 31) / 32), (unsigned)((B + 31) / 32)),
+               dim3(32, 8), 0, stream>>>(src, R, B, W, WP, G, GS, off, rec,
+                                         DS);
+        err = cudaGetLastError();
+      });
+  if (err != cudaSuccess) return (int)err;
+  return gt::launch_chip<P>(riccati_chip_kernel<T, NJ, STAT>, B, stream,
+                            (const T*)rec, DS, Vx0, Vxx0, ks, Ks, N, B, reg,
+                            (long long*)nullptr, (int*)nullptr);
+}
+
+#ifdef GT_CHIP_CLOCK
+// The phase clock of the float32 stationary instance on problem 0 of
+// (..., 1) value functions and outputs, from the problem-major record
+// `rec` (of N knots) that a gridtorch_riccati call wrote.
+extern "C" int gridtorch_riccati_clock(const void* rec, const void* Vx0,
+                                       const void* Vxx0, void* ks, void* Ks,
+                                       int N, void* clk, void* count) {
+  using T = float;
+  if constexpr (dense_on_chip<T, GT_NJ, true>())
+    return gt::launch_chip<gt::RicChipPlan<T, GT_NJ>>(
+        riccati_chip_kernel<T, GT_NJ, true, true>, 1, nullptr,
+        (const T*)rec, gt::RicChipPlan<T, GT_NJ>::O::record(N, true),
+        (const T*)Vx0, (const T*)Vxx0, (T*)ks, (T*)Ks, N, 1LL, (T)1e-6,
+        (long long*)clk, (int*)count);
+  else
+    return (int)cudaErrorInvalidValue;
+}
+
+// The on-chip sweep (stationary) at this joint count whatever its route,
+// to time it where the shared-memory route runs: rec null returns the
+// values of B records; else the gathers and the sweep.
+template <typename T>
+static long long riccati_chip_forced(const void* A, const void* Bm,
+                                     const void* lx, const void* lu,
+                                     const void* lxx, const void* luu,
+                                     const void* lux, const void* Vx0,
+                                     const void* Vxx0, void* ks, void* Ks,
+                                     int N, long long B, void* rec,
+                                     long long nrec, void* stream) {
+  if (rec == nullptr)
+    return B * gt::RicChipPlan<T, GT_NJ>::O::record(N, true);
+  const gt::DenseIn<T, GT_NJ, true, 1> in{
+      (const T*)A,   (const T*)Bm,  (const T*)lx,  (const T*)lu,
+      (const T*)lxx, (const T*)luu, (const T*)lux, B};
+  return launch_chip_dense<T, GT_NJ, true>(
+      in, (const T*)Vx0, (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, (T)1e-6,
+      (cudaStream_t)stream, (T*)rec, nrec);
+}
+
+extern "C" long long gridtorch_riccati_chip_forced(
+    int dtype, const void* A, const void* Bm, const void* lx, const void* lu,
+    const void* lxx, const void* luu, const void* lux, const void* Vx0,
+    const void* Vxx0, void* ks, void* Ks, int N, long long B, void* rec,
+    long long nrec, void* stream) {
+  return (dtype == gt::kF32 ? riccati_chip_forced<float>
+                            : riccati_chip_forced<double>)(
+      A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, ks, Ks, N, B, rec, nrec,
+      stream);
+}
+#endif
 
 template <typename T, int NJ, bool STAT>
 static int launch_dense(const void* A, const void* Bm, const void* lx,
                         const void* lu, const void* lxx, const void* luu,
                         const void* lux, const void* Vx0, const void* Vxx0,
                         void* ks, void* Ks, int N, long long B, double reg,
-                        cudaStream_t stream, void* ws = nullptr,
-                        long long nws = 0) {
+                        cudaStream_t stream, void* rec, long long nrec) {
   using P = DensePlan<T, NJ, STAT>;
   if (B == 0 || N == 0) return 0;
-  if constexpr (P::WS > 0) {
-    return gt::launch_ws<P>(riccati_ws_kernel<T, NJ, STAT>, B, ws, nws,
-                            stream, (const T*)A, (const T*)Bm, (const T*)lx,
-                            (const T*)lu, (const T*)lxx, (const T*)luu,
-                            (const T*)lux, (const T*)Vx0, (const T*)Vxx0,
-                            (T*)ks, (T*)Ks, N, B, (T)reg, (T*)ws);
+  if constexpr (dense_on_chip<T, NJ, STAT>()) {
+    const gt::DenseIn<T, NJ, STAT, 1> in{(const T*)A,   (const T*)Bm,
+                                         (const T*)lx,  (const T*)lu,
+                                         (const T*)lxx, (const T*)luu,
+                                         (const T*)lux, B};
+    return launch_chip_dense<T, NJ, STAT>(in, (const T*)Vx0, (const T*)Vxx0,
+                                          (T*)ks, (T*)Ks, N, B, (T)reg,
+                                          stream, (T*)rec, nrec);
   } else {
     static const cudaError_t attr =
         gt::smem_attrs(riccati_kernel<T, NJ, STAT>, P::BYTES);
@@ -433,9 +578,9 @@ static int launch_dense(const void* A, const void* Bm, const void* lx,
   }
 }
 
-// ws: the workspace of the device-memory route, nws knots, problems or
-// blocks (its plan's workspace_bytes each; ops/cuda/build.py:workspace);
-// ignored where the plan keeps everything in shared memory.
+// ws, nws: where the instance runs on chip (gridtorch_riccati_inputs > 0),
+// the problem-major copy of the inputs, B of its records (nws values);
+// else unused.
 extern "C" int gridtorch_riccati(int dtype, int nj, const void* A,
                                  const void* Bm, const void* lx,
                                  const void* lu, const void* lxx,
@@ -453,6 +598,28 @@ extern "C" int gridtorch_riccati(int dtype, int nj, const void* A,
               launch_dense<T, NJ, false>(
                   A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, ks, Ks, N, B, reg,
                   (cudaStream_t)stream, ws, nws));
+}
+
+// The values of one problem's record in the problem-major copy of the
+// inputs that the dense sweep's on-chip instance takes (the wrapper
+// allocates B of them); 0 where the instance keeps its problems in shared
+// memory; -1 for another library's joint count or dtype.
+template <typename T, int NJ, bool STAT>
+static long long riccati_inputs(int N) {
+  if constexpr (dense_on_chip<T, NJ, STAT>())
+    return gt::RicChipPlan<T, NJ>::O::record(N, STAT);
+  else
+    return 0;
+}
+
+extern "C" long long gridtorch_riccati_inputs(int dtype, int nj, int N,
+                                             int stationary) {
+  if (nj != GT_NJ || (dtype != gt::kF32 && dtype != gt::kF64)) return -1;
+  if (dtype == gt::kF32)
+    return stationary ? riccati_inputs<float, GT_NJ, true>(N)
+                      : riccati_inputs<float, GT_NJ, false>(N);
+  return stationary ? riccati_inputs<double, GT_NJ, true>(N)
+                    : riccati_inputs<double, GT_NJ, false>(N);
 }
 
 // ws: the workspace of the device-memory route, nws knots, problems or
@@ -482,12 +649,12 @@ static int riccati_factored_info(int* out) {
 
 template <typename T, int NJ, bool STAT>
 static int riccati_info(int* out) {
-  using P = DensePlan<T, NJ, STAT>;
-  if constexpr (P::WS > 0)
-    return gt::kernel_info<P>((const void*)riccati_ws_kernel<T, NJ, STAT>,
-                              out);
+  if constexpr (dense_on_chip<T, NJ, STAT>())
+    return gt::kernel_info<gt::RicChipPlan<T, NJ>>(
+        (const void*)riccati_chip_kernel<T, NJ, STAT>, out);
   else
-    return gt::kernel_info<P>((const void*)riccati_kernel<T, NJ, STAT>, out);
+    return gt::kernel_info<DensePlan<T, NJ, STAT>>(
+        (const void*)riccati_kernel<T, NJ, STAT>, out);
 }
 
 // The block plan (problems a block; threads a problem; bytes a block) and

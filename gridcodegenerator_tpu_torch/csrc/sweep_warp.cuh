@@ -56,6 +56,23 @@ GT_HDI void async_copy(T* dst, const T* src) {
 #endif
 }
 
+// 16 bytes, V values of the plan's number type (V = 16 / sizeof(T) on the
+// card), from device memory into shared memory: one cp.async of 16 bytes
+// on the card (both addresses 16-byte aligned), a plain copy of V values on
+// the host.
+template <int V, typename T>
+GT_HDI void async_copy16(T* dst, const T* src) {
+#ifdef __CUDA_ARCH__
+  static_assert(V * sizeof(T) == 16, "16 bytes");
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+               "l"(src)
+               : "memory");
+#else
+  for (int i = 0; i < V; ++i) dst[i] = src[i];
+#endif
+}
+
 GT_HDI void async_commit() {
 #ifdef __CUDA_ARCH__
   asm volatile("cp.async.commit_group;\n" ::: "memory");
@@ -250,6 +267,67 @@ GT_HDI T gj_inv(const T* aug, const T* piv, int i, int j) {
   return i == NJ - 1 ? x * piv[i] : x;
 }
 
+// Gauss-Jordan without pivoting on aug = [Quu + reg I | I] (NJ, 2 NJ, its
+// first pivot's inverse in piv[0]), a pivot p a phase, an entry a thread,
+// in place: rows i != p, the columns still read later (left j > p, right
+// NJ + j for j <= p; the others keep their values exactly); the pivot row
+// is scaled when the next pivot reads it, by the thread of each entry, as
+// the serial code scales it; the thread of entry (p + 1, p + 1) stores that
+// pivot's inverse. gj_inv reads the inverse.
+template <typename T, int NJ, class Par>
+GT_HDI void gj_phases(const Par& par, T* aug, T* piv) {
+  constexpr int W = Par::LANES, M2 = 2 * NJ;
+  for (int p = 0; p < NJ; ++p) {
+    par([&](int t) {
+      // rows i != p, columns j: left p + 1 .. NJ - 1, then right NJ .. NJ + p
+      for (int e = t; e < (NJ - 1) * NJ; e += W) {
+        const int i = e / NJ + (e / NJ >= p), c = e % NJ;
+        const int j = c < NJ - 1 - p ? p + 1 + c : NJ + c - (NJ - 1 - p);
+        const T rp = aug[p * M2 + j] * piv[p];
+        T x = aug[i * M2 + j], ci = aug[i * M2 + p];
+        if (i == p - 1) {   // the last pivot row, scaled as it is read
+          x = x * piv[i];
+          ci = ci * piv[i];
+        }
+        x = x - ci * rp;
+        aug[i * M2 + j] = x;
+        if (i == p + 1 && j == p + 1) piv[i] = T(1) / x;
+      }
+    });
+  }
+}
+
+// gj_phases over W >= NJ threads with each thread on one column: thread t
+// takes column (t % NJ) of the phase's NJ columns and a group (t / NJ) of
+// its rows i != p, so the pivot row's entry of its column is read once
+// for all of them; the same arithmetic, entry by entry. No entry a phase
+// writes is read in it but by its own thread.
+template <typename T, int NJ, class Par>
+GT_HDI void gj_phases_cols(const Par& par, T* aug, T* piv) {
+  constexpr int W = Par::LANES, M2 = 2 * NJ, GR = W / NJ;
+  constexpr int ROWS = (NJ - 1 + GR - 1) / GR;   // rows a thread
+  static_assert(GR >= 1, "a thread a column at least");
+  for (int p = 0; p < NJ; ++p) {
+    par([&](int t) {
+      if (t >= GR * NJ) return;
+      const int c = t % NJ, r0 = (t / NJ) * ROWS;
+      const int j = c < NJ - 1 - p ? p + 1 + c : NJ + c - (NJ - 1 - p);
+      const T rp = aug[p * M2 + j] * piv[p];
+      for (int r = r0; r < r0 + ROWS && r < NJ - 1; ++r) {
+        const int i = r + (r >= p);
+        T x = aug[i * M2 + j], ci = aug[i * M2 + p];
+        if (i == p - 1) {   // the last pivot row, scaled as it is read
+          x = x * piv[i];
+          ci = ci * piv[i];
+        }
+        x = x - ci * rp;
+        aug[i * M2 + j] = x;
+        if (i == p + 1 && j == p + 1) piv[i] = T(1) / x;
+      }
+    });
+  }
+}
+
 // One backward knot of the problem whose state sits at `k`, from the tile
 // at `tile` (the layout and the curvature: the policy In):
 // riccati.cu:riccati_knot split over the warp, an entry of each
@@ -365,24 +443,7 @@ GT_HD void riccati_knot_warp(const Par& par, T* k, const T* tile,
       if (e == 0) piv[0] = T(1) / (q + reg);
     });
   });
-  for (int p = 0; p < NJ; ++p) {
-    par([&](int t) {
-      // rows i != p, columns j: left p + 1 .. NJ - 1, then right NJ .. NJ + p
-      for (int e = t; e < (NJ - 1) * NJ; e += W) {
-        const int i = e / NJ + (e / NJ >= p), c = e % NJ;
-        const int j = c < NJ - 1 - p ? p + 1 + c : NJ + c - (NJ - 1 - p);
-        const T rp = aug[p * M2 + j] * piv[p];
-        T x = aug[i * M2 + j], ci = aug[i * M2 + p];
-        if (i == p - 1) {   // the last pivot row, scaled as it is read
-          x = x * piv[i];
-          ci = ci * piv[i];
-        }
-        x = x - ci * rp;
-        aug[i * M2 + j] = x;
-        if (i == p + 1 && j == p + 1) piv[i] = T(1) / x;
-      }
-    });
-  }
+  gj_phases<T, NJ>(par, aug, piv);
   par([&](int t) {
     Deal<W> d{t, 0};
     d(NJ, [&](int i) {
@@ -542,7 +603,8 @@ struct RicShape {
 
 // Where not even one buffer's problem fits a block (from 30 to 48 joints,
 // by curvature and dtype), the device-memory route (warp.cuh:WsPlan): a
-// problem a block at a time, its state in the workspace, with one buffer.
+// problem a block at a time, its state in the workspace, with one buffer
+// (riccati_factored; the dense sweep runs on chip there: RicChipPlan).
 template <typename T, int NJ, int CURV>
 GT_HDI constexpr int ric_bufs() {
   return RicShape<T, NJ, CURV, 2>::G >= 1 ? 2 : 1;
@@ -552,6 +614,445 @@ template <typename T, int NJ, int CURV = RIC_FACTORED>
 struct RicPlan
     : WsPlan<T, RicShape<T, NJ, CURV, ric_bufs<T, NJ, CURV>()>,
              RicKnot<NJ, CURV, ric_bufs<T, NJ, CURV>()>::SIZE> {};
+
+// ---------------------------------------------------------------------------
+// the dense Riccati sweep on chip: one problem a block or a cluster
+// ---------------------------------------------------------------------------
+
+// Where RicPlan would put the dense sweep's problem (a stationary
+// curvature or a block per knot) in device memory, one problem a block or
+// a cluster keeps it on chip (warp.cuh: ChipPack) for the whole sweep; a
+// knot holds only what its products need at once. Its regions:
+// AB, the knot's A (NX, NXP) and B (NX, NJP), lx, lu, staged with cp.async
+// by the region's rank while the knot before finishes (once Vxx A and Vxx B
+// are folded, A and B are free); VXX, the value function's Vxx (NX, NXP;
+// its transpose for the first knot, Vxx0 as given, symmetric after),
+// and over it once the products are folded the augmented [Quu + reg I | I]
+// (NJ, 2 NJ), then W = Quu K + Qux (NJ, NXP), and K (NJ, NXP) in its second
+// half; QXX, Qxx (NX, NXP), then Vxx' in place; QUX, Qux (NJ, NXP); QUU,
+// Quu^T (NJ, NJP); SL, two slabs of SW columns of [Vxx A | Vxx B] (NX, SW);
+// SMALL, Vx, Qx, Qu, k, Qu + Quu k and the pivots' inverses. NXP and NJP
+// are NX and NJ rounded up to 4, so every row is 16-byte aligned; columns
+// past NX or NJ are never written, and only outputs past them read them.
+// The curvature blocks are read from device memory where they are added
+// (the stationary ones stay in L2 across the knots), and the gains k, K are
+// written to the outputs as they are formed.
+template <int NJ, int SW_>
+struct RicChipKnot {
+  static constexpr int NX = 2 * NJ, NXP = (int)round4(NX);
+  static constexpr int NJP = (int)round4(NJ), SW = SW_;
+  // the columns of [A | B] (A's padded to NXP), SW a slab
+  static constexpr int NCOL = NXP + NJP, NS = (NCOL + SW - 1) / SW;
+  static constexpr int A = 0, BM = A + NX * NXP, LX = BM + NX * NJP;
+  static constexpr int LU = LX + NXP, AB = LU + NJP;
+  static constexpr int VXX = NX * NXP, KK = NJ * NXP;
+  static constexpr int QXX = NX * NXP, QUX = NJ * NXP, QUU = NJ * NJP;
+  static constexpr int SL = 2 * NX * SW;
+  static constexpr int VX = 0, QX = VX + NXP, QU = QX + NXP, KT = QU + NJP;
+  static constexpr int UP = KT + NJP, PIV = UP + NJP, SMALL = PIV + NJP;
+  // the regions, in the order they are packed
+  enum { R_AB, R_QXX, R_VXX, R_QUX, R_QUU, R_SL, R_SMALL, NREG };
+  // A problem's record in the problem-major copy of the inputs
+  // (riccati.cu: riccati_gather_kernel): its N knots' tiles as the AB
+  // region holds them (AB values each), then its curvature, one block or
+  // a block a knot (CURV values each): lxx (NX, NXP), luu (NJ, NJP), lux
+  // (NJ, NXP).
+  static constexpr int CXX = 0, CUU = NX * NXP, CUX = CUU + NJ * NJP;
+  static constexpr int CURV = CUX + NJ * NXP;
+  static constexpr long long record(int N, bool stationary) {
+    return (long long)N * AB + (long long)(stationary ? 1 : N) * CURV;
+  }
+};
+
+// One lane-major input (R rows of B lanes) into problem b's record of the
+// problem-major copy (riccati_gather_kernel, a problem at a time): row r =
+// (g, w, x), g = r / (W G), w = (r / W) % G, x = r % W, goes to value
+// off + g GS + w WP + x of the record.
+template <typename T>
+GT_HD void gather_rows(const T* src, long long R, long long B, int W,
+                       int WP, int G, long long GS, long long off, T* rec,
+                       long long b) {
+  for (long long r = 0; r < R; ++r) {
+    const long long g = r / ((long long)W * G), w = (r / W) % G, x = r % W;
+    rec[off + g * GS + w * WP + x] = src[r * B + b];
+  }
+}
+
+// The gathers of the dense sweep's inputs (In: DenseIn's pointers) into
+// the problem-major records of plan shape O, one call a tensor:
+// g(src, rows, W, WP, G, GS, off).
+template <class O, class In, class Gather>
+GT_HD void ric_chip_gathers(const In& in, int N, bool stationary,
+                            Gather&& g) {
+  constexpr int NX = O::NX, NJ = NX / 2, NXP = O::NXP, NJP = O::NJP;
+  const long long NC = stationary ? 1 : N, c0 = (long long)N * O::AB;
+  g(in.A, (long long)N * NX * NX, NX, NXP, NX, O::AB, O::A);
+  g(in.Bm, (long long)N * NX * NJ, NJ, NJP, NX, O::AB, O::BM);
+  g(in.lx, (long long)N * NX, NX, NXP, 1, O::AB, O::LX);
+  g(in.lu, (long long)N * NJ, NJ, NJP, 1, O::AB, O::LU);
+  g(in.lxx, NC * NX * NX, NX, NXP, NX, O::CURV, c0 + O::CXX);
+  g(in.luu, NC * NJ * NJ, NJ, NJP, NJ, O::CURV, c0 + O::CUU);
+  g(in.lux, NC * NJ * NX, NX, NXP, NJ, O::CURV, c0 + O::CUX);
+}
+
+template <typename T, int NJ, int SW>
+GT_HDI constexpr ChipPack<7> ric_chip_pack(int cl) {
+  using O = RicChipKnot<NJ, SW>;
+  const long long size[7] = {O::AB,  O::QXX, O::VXX,  O::QUX,
+                             O::QUU, O::SL,  O::SMALL};
+  return chip_pack(size, (int)sizeof(T), 0, cl);
+}
+
+// The slab width: the widest (up to 64, at least RIC_CHIP_SWMIN) that fits
+// the fewest blocks, then evened out over its slabs; each slab is a phase
+// (at 52 joints in float32 three slabs of 52 columns: A's two halves, then
+// B), and a narrower slab gives 512 threads too few tiles.
+constexpr int RIC_CHIP_SWMIN = 24;
+template <typename T, int NJ, int SW>
+GT_HDI constexpr int ric_chip_swmax(int cl) {
+  if constexpr (SW < RIC_CHIP_SWMIN) {
+    return 0;
+  } else {
+    return ric_chip_pack<T, NJ, SW>(cl).cl ? SW
+                                           : ric_chip_swmax<T, NJ, SW - 4>(cl);
+  }
+}
+template <int NJ>
+GT_HDI constexpr int ric_chip_top() {
+  constexpr int ncol = (int)round4(2 * NJ) + (int)round4(NJ);
+  return ncol < 64 ? ncol : 64;
+}
+template <typename T, int NJ>
+GT_HDI constexpr int ric_chip_cl() {
+  constexpr int top = ric_chip_top<NJ>();
+  return ric_chip_swmax<T, NJ, top>(1) ? 1
+         : ric_chip_swmax<T, NJ, top>(2) ? 2
+         : ric_chip_swmax<T, NJ, top>(4) ? 4
+                                          : 0;
+}
+template <typename T, int NJ>
+GT_HDI constexpr int ric_chip_sw() {
+  constexpr int cl = ric_chip_cl<T, NJ>();
+  constexpr int sw = cl ? ric_chip_swmax<T, NJ, ric_chip_top<NJ>()>(cl) : 8;
+  constexpr int ncol = (int)round4(2 * NJ) + (int)round4(NJ);
+  constexpr int ns = (ncol + sw - 1) / sw;
+  return (int)round4((ncol + ns - 1) / ns);
+}
+
+// One problem a block of 2 CHIP_THREADS threads, or a cluster of CL blocks
+// of CHIP_THREADS (at 52 joints: one block in float32, 229 KB; a cluster
+// of 2 in float64; at 64 joints 2 | 4, float32 | float64).
+template <typename T, int NJ>
+struct RicChipPlan {
+  static constexpr int SW = ric_chip_sw<T, NJ>();
+  using O = RicChipKnot<NJ, SW>;
+  static constexpr ChipPack<7> PACK =
+      ric_chip_pack<T, NJ, SW>(ric_chip_cl<T, NJ>());
+  static constexpr int CL = PACK.cl;
+  static constexpr int NT = CL == 1 ? 2 * CHIP_THREADS : CHIP_THREADS;
+  static constexpr int LANES = CL * NT, G = 1, ROWS = 1;
+  static constexpr int VEC = 16 / (int)sizeof(T);   // values a 16-byte copy
+  static constexpr long long HEAD = 0;
+  static constexpr long long RANK_VALUES = chip_rank_values(PACK);
+  static constexpr long long BYTES = chip_bytes(PACK, (int)sizeof(T), 0);
+  static constexpr int RK0 = PACK.rank[0], RK1 = PACK.rank[1];
+  static constexpr int RK2 = PACK.rank[2], RK3 = PACK.rank[3];
+  static constexpr int RK4 = PACK.rank[4], RK5 = PACK.rank[5];
+  static constexpr int RK6 = PACK.rank[6];
+  static constexpr long long OF0 = PACK.off[0], OF1 = PACK.off[1];
+  static constexpr long long OF2 = PACK.off[2], OF3 = PACK.off[3];
+  static constexpr long long OF4 = PACK.off[4], OF5 = PACK.off[5];
+  static constexpr long long OF6 = PACK.off[6];
+  // each region's pointer, from base(rank): that rank's state (of U: the
+  // host runs a plan's program in another number type)
+  template <class Base, typename U>
+  GT_HDI static void regions(Base&& base, U** rg) {
+    rg[0] = base(RK0) + OF0;
+    rg[1] = base(RK1) + OF1;
+    rg[2] = base(RK2) + OF2;
+    rg[3] = base(RK3) + OF3;
+    rg[4] = base(RK4) + OF4;
+    rg[5] = base(RK5) + OF5;
+    rg[6] = base(RK6) + OF6;
+  }
+};
+
+// the dense sweep (CURV: stationary or a block per knot) runs on chip
+// from CHIP_FROM joints (warp.cuh: fd_on_chip)
+template <typename T, int NJ, int CURV>
+GT_HDI constexpr bool ric_on_chip() {
+  return CURV != RIC_FACTORED && NJ >= CHIP_FROM;
+}
+
+// One backward knot tk of the problem on chip (RicChipPlan P; its
+// regions at rg; the curvature lxx, luu, lux of the problem b of B, the
+// stationary block, or knot tk's), riccati.cu:riccati_knot's math in
+// 5 + NS + NJ phases of the cluster's threads, every product a 4 x 4
+// register tile a thread (warp.cuh: mma4) over rows of shared memory, the
+// tiles dealt columns fastest (the threads of a warp read few rows of the
+// left operand and neighbouring 16-byte runs of the right one):
+// 1. Qx = lx + A^T Vx, Qu = lu + B^T Vx, and the first slab of
+//    [Vxx A | Vxx B];
+// 2. a phase a slab s: its columns folded into Qxx = A^T (Vxx A) + lxx and
+//    Qux = B^T (Vxx A) + lux, or Quu = B^T (Vxx B) + luu (stored
+//    transposed), while slab s + 1 is formed; then after() (the next
+//    knot's A and B may be staged);
+// 3. [Quu + reg I | I] with its first pivot's inverse; Gauss-Jordan
+//    without pivoting, a pivot a phase (gj_phases_cols);
+// 4. k = -Quu^-1 Qu, K = -Quu^-1 Qux, written to ks, Ks as well;
+// 5. Qu + Quu k, W = Quu K + Qux;
+// 6. Vx = Qx + K^T (Qu + Quu k) + Qux^T k, Vxx' = Qxx + K^T W + Qux^T K
+//    (the full value update: K^T Quu K + K^T Qux + Qux^T K + Qxx), in
+//    place over Qxx;
+// 7. Vxx = (Vxx' + Vxx'^T) / 2.
+template <typename T, int NJ, class P, class Par, class After>
+GT_HD void riccati_chip_knot(const Par& par, T* const* rg, const T* cv,
+                             long long B, long long b, int tk, T mu, T* ks,
+                             T* Ks, After&& after) {
+  using O = typename P::O;
+  constexpr int NX = O::NX, NXP = O::NXP, NJP = O::NJP, SW = O::SW;
+  constexpr int NS = O::NS, NCOL = O::NCOL, W = Par::LANES, M2 = 2 * NJ;
+  constexpr int XT = NXP / 4, JT = NJP / 4;   // row tiles
+  const T* A = rg[O::R_AB] + O::A;
+  const T* Bm = rg[O::R_AB] + O::BM;
+  const T* lx = rg[O::R_AB] + O::LX;
+  const T* lu = rg[O::R_AB] + O::LU;
+  T* Vxx = rg[O::R_VXX];
+  T* aug = Vxx;
+  T* Wm = Vxx;
+  T* Kk = Vxx + O::KK;
+  T* Qxx = rg[O::R_QXX];
+  T* Qux = rg[O::R_QUX];
+  T* QuuT = rg[O::R_QUU];
+  T* sm = rg[O::R_SMALL];
+  T* Vx = sm + O::VX;
+  T* Qx = sm + O::QX;
+  T* Qu = sm + O::QU;
+  T* kt = sm + O::KT;
+  T* up = sm + O::UP;
+  T* piv = sm + O::PIV;
+  auto slab = [&](int s) { return rg[O::R_SL] + (s & 1) * NX * SW; };
+  // rows i0 .. i0 + 3 (those below M) of a curvature block, ld values a row
+  auto curv = [&](const T* c, int ld, int i0, int M, T (&cur)[4][4]) {
+    for (int a = 0; a < 4; ++a) {
+      if (i0 + a < M) {
+        ld4(c + (i0 + a) * ld, cur[a]);
+      } else {
+        for (int j = 0; j < 4; ++j) cur[a][j] = T(0);
+      }
+    }
+  };
+  auto cols = [&](int s) { return NCOL - s * SW < SW ? NCOL - s * SW : SW; };
+  // slab s of [Vxx A | Vxx B]: rows of Vxx^T times columns of A or B
+  auto vab = [&](Deal<W>& d, int s) {
+    const int c0 = s * SW;
+    T* out = slab(s);
+    d(XT * (cols(s) / 4), [&](int e) {
+      const int i0 = 4 * (e / (cols(s) / 4)), cc = 4 * (e % (cols(s) / 4));
+      const int c = c0 + cc;
+      const T* R = c < NXP ? A + c : Bm + (c - NXP);
+      const int ldr = c < NXP ? NXP : NJP;
+      T acc[4][4] = {};
+      mma4(acc, NX, [&](int k, T* l) { ld4(Vxx + k * NXP + i0, l); },
+           [&](int k, T* r) { ld4(R + k * ldr, r); });
+      for (int a = 0; a < 4; ++a)
+        if (i0 + a < NX)
+          for (int j = 0; j < 4; ++j) out[(i0 + a) * SW + cc + j] = acc[a][j];
+    });
+  };
+  // slab s folded: A's columns into Qxx and Qux, B's into Quu^T
+  auto fold = [&](Deal<W>& d, int s) {
+    const int c0 = s * SW;
+    const int na = c0 >= NXP ? 0 : (c0 + cols(s) < NXP ? cols(s) : NXP - c0);
+    const T* in = slab(s);
+    d((XT + JT) * (na / 4), [&](int e) {
+      const int cc = 4 * (e % (na / 4)), rt = e / (na / 4), c = c0 + cc;
+      const bool xx = rt < XT;
+      const int i0 = 4 * (xx ? rt : rt - XT), M = xx ? NX : NJ;
+      const int ldl = xx ? NXP : NJP;
+      const T* Lm = xx ? A : Bm;
+      T cur[4][4];
+      curv(cv + (xx ? O::CXX : O::CUX) + c, NXP, i0, M, cur);
+      T acc[4][4] = {};
+      mma4(acc, NX, [&](int k, T* l) { ld4(Lm + k * ldl + i0, l); },
+           [&](int k, T* r) { ld4(in + k * SW + cc, r); });
+      T* out = xx ? Qxx : Qux;
+      for (int a = 0; a < 4; ++a)
+        for (int j = 0; j < 4; ++j)
+          if (i0 + a < M && c + j < NX)
+            out[(i0 + a) * NXP + c + j] = acc[a][j] + cur[a][j];
+    });
+    d(JT * ((cols(s) - na) / 4), [&](int e) {
+      const int nb = (cols(s) - na) / 4;
+      const int cc = na + 4 * (e % nb), i0 = 4 * (e / nb);
+      const int j0 = c0 + cc - NXP;
+      T cur[4][4];
+      curv(cv + O::CUU + j0, NJP, i0, NJ, cur);
+      T acc[4][4] = {};
+      mma4(acc, NX, [&](int k, T* l) { ld4(Bm + k * NJP + i0, l); },
+           [&](int k, T* r) { ld4(in + k * SW + cc, r); });
+      for (int a = 0; a < 4; ++a)
+        for (int j = 0; j < 4; ++j)
+          if (i0 + a < NJ && j0 + j < NJ)
+            QuuT[(j0 + j) * NJP + i0 + a] = acc[a][j] + cur[a][j];
+    });
+  };
+
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(NX, [&](int i) {
+      T s = A[i] * Vx[0];
+      for (int k = 1; k < NX; ++k) s += A[k * NXP + i] * Vx[k];
+      Qx[i] = lx[i] + s;
+    });
+    d(NJ, [&](int i) {
+      T s = Bm[i] * Vx[0];
+      for (int k = 1; k < NX; ++k) s += Bm[k * NJP + i] * Vx[k];
+      Qu[i] = lu[i] + s;
+    });
+    vab(d, 0);
+  });
+  for (int s = 0; s < NS; ++s) {
+    par([&](int t) {
+      Deal<W> d{t, 0};
+      fold(d, s);
+      if (s + 1 < NS) vab(d, s + 1);
+    });
+  }
+  after();
+  par([&](int t) {
+    for (int e = t; e < NJ * NJ; e += W) {
+      const int i = e / NJ, j = e % NJ;
+      const T q = QuuT[j * NJP + i];
+      aug[i * M2 + j] = i == j ? q + mu : q;
+      aug[i * M2 + NJ + j] = i == j ? T(1) : T(0);
+      if (e == 0) piv[0] = T(1) / (q + mu);
+    }
+  });
+  gj_phases_cols<T, NJ>(par, aug, piv);
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(NJ, [&](int i) {
+      T s = gj_inv<T, NJ>(aug, piv, i, 0) * Qu[0];
+      for (int j = 1; j < NJ; ++j) s += gj_inv<T, NJ>(aug, piv, i, j) * Qu[j];
+      kt[i] = -s;
+      ks[((long long)tk * NJ + i) * B + b] = -s;
+    });
+    d(JT * XT, [&](int e) {
+      const int i0 = 4 * (e / XT), m0 = 4 * (e % XT);
+      T acc[4][4] = {};
+      mma4(acc, NJ,
+           [&](int j, T* l) {
+             for (int a = 0; a < 4; ++a)
+               l[a] = gj_inv<T, NJ>(aug, piv, i0 + a < NJ ? i0 + a : NJ - 1,
+                                    j);
+           },
+           [&](int j, T* r) { ld4(Qux + j * NXP + m0, r); });
+      for (int a = 0; a < 4; ++a)
+        for (int c = 0; c < 4; ++c)
+          if (i0 + a < NJ && m0 + c < NX) {
+            Kk[(i0 + a) * NXP + m0 + c] = -acc[a][c];
+            Ks[(((long long)tk * NJ + i0 + a) * NX + m0 + c) * B + b] =
+                -acc[a][c];
+          }
+    });
+  });
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(NJ, [&](int i) {
+      T s = QuuT[i] * kt[0];
+      for (int j = 1; j < NJ; ++j) s += QuuT[j * NJP + i] * kt[j];
+      up[i] = Qu[i] + s;
+    });
+    d(JT * XT, [&](int e) {
+      const int i0 = 4 * (e / XT), m0 = 4 * (e % XT);
+      T acc[4][4] = {};
+      mma4(acc, NJ, [&](int j, T* l) { ld4(QuuT + j * NJP + i0, l); },
+           [&](int j, T* r) { ld4(Kk + j * NXP + m0, r); });
+      for (int a = 0; a < 4; ++a)
+        for (int c = 0; c < 4; ++c)
+          if (i0 + a < NJ && m0 + c < NX) {
+            const int o = (i0 + a) * NXP + m0 + c;
+            Wm[o] = Qux[o] + acc[a][c];
+          }
+    });
+  });
+  par([&](int t) {
+    Deal<W> d{t, 0};
+    d(NX, [&](int m) {
+      T s1 = Kk[m] * up[0], s2 = Qux[m] * kt[0];
+      for (int i = 1; i < NJ; ++i) {
+        s1 += Kk[i * NXP + m] * up[i];
+        s2 += Qux[i * NXP + m] * kt[i];
+      }
+      Vx[m] = Qx[m] + s1 + s2;
+    });
+    d(XT * XT, [&](int e) {
+      const int m0 = 4 * (e / XT), l0 = 4 * (e % XT);
+      T acc[4][4] = {};
+      mma4(acc, NJ, [&](int i, T* l) { ld4(Kk + i * NXP + m0, l); },
+           [&](int i, T* r) { ld4(Wm + i * NXP + l0, r); });
+      mma4(acc, NJ, [&](int i, T* l) { ld4(Qux + i * NXP + m0, l); },
+           [&](int i, T* r) { ld4(Kk + i * NXP + l0, r); });
+      for (int a = 0; a < 4; ++a)
+        for (int c = 0; c < 4; ++c)
+          if (m0 + a < NX && l0 + c < NX)
+            Qxx[(m0 + a) * NXP + l0 + c] += acc[a][c];
+    });
+  });
+  par([&](int t) {
+    for (int e = t; e < NX * NX; e += W) {
+      const int m = e / NX, l = e % NX;
+      Vxx[m * NXP + l] = T(0.5) * (Qxx[m * NXP + l] + Qxx[l * NXP + m]);
+    }
+  });
+}
+
+// The sweep of problem b on chip, from its record `rec` in the
+// problem-major copy of the inputs (RicChipKnot::record): the value
+// function (Vxx0 transposed) and knot N - 1's tile staged by their
+// regions' ranks (mine(rank): this thread's block holds the rank; thread
+// tid of the block's nt), then knot N - 1 down to 0, each staging the knot
+// after it (16-byte copies of its record's tile) once its products are
+// folded, and reading its curvature from the record (STAT: one block).
+template <typename T, int NJ, class P, bool STAT, class Par, class Mine>
+GT_HD void riccati_chip_problem(const Par& par, T* const* rg, Mine&& mine,
+                                int tid, int nt, const T* rec, const T* Vx0,
+                                const T* Vxx0, T* ks, T* Ks, int N,
+                                long long B, long long b, T mu) {
+  using O = typename P::O;
+  constexpr int NX = O::NX, NXP = O::NXP, V = P::VEC;
+  static_assert(O::R_AB == 0 && O::R_VXX == 2 && O::R_SMALL == 6,
+                "RK0, RK2, RK6: the AB, VXX and SMALL regions' ranks");
+  auto stage = [&](int t) {
+    if (!mine(P::RK0)) return;
+    T* ab = rg[O::R_AB];
+    const T* src = rec + (long long)t * O::AB;
+    for (int e = tid * V; e < O::AB; e += nt * V)
+      async_copy16<V>(ab + e, src + e);
+  };
+  if (mine(P::RK6))
+    for (int e = tid; e < NX; e += nt)
+      async_copy(rg[O::R_SMALL] + O::VX + e, Vx0 + (long long)e * B + b);
+  if (mine(P::RK2))
+    for (int e = tid; e < NX * NX; e += nt)
+      async_copy(rg[O::R_VXX] + (e % NX) * NXP + e / NX,
+                 Vxx0 + (long long)e * B + b);
+  stage(N - 1);
+  async_commit();
+  const T* curv = rec + (long long)N * O::AB;
+  for (int t = N - 1; t >= 0; --t) {
+    async_wait<0>();
+    par([](int) {});   // knot t's tiles have landed in every block
+    riccati_chip_knot<T, NJ, P>(par, rg, curv + (STAT ? 0 : t) * O::CURV, B,
+                                b, t, mu, ks, Ks, [&] {
+                                  if (t > 0) {
+                                    stage(t - 1);
+                                    async_commit();
+                                  }
+                                });
+  }
+}
 
 // ---------------------------------------------------------------------------
 // the rollouts (linesearch_rollout, rollout): a thread group per rollout
@@ -1578,19 +2079,60 @@ void riccati_factored_host(const T* A, const T* Bm, const T* lx, const T* lu,
   riccati_host<T, NJ, RIC_FACTORED>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
 }
 
+// the dense sweep on chip (RicChipPlan of PT's dtype): a problem at a
+// time, the cluster's regions in one buffer
+template <typename T, int NJ, bool STAT, typename PT = PlanType<T>,
+          class In>
+void riccati_chip_host(const In& in, const T* Vx0, const T* Vxx0, T* ks,
+                       T* Ks, int N, long long B, T reg) {
+  using P = RicChipPlan<PT, NJ>;
+  static_assert(P::CL >= 1, "one Riccati problem fits a cluster");
+  std::vector<T> buf(P::CL * P::RANK_VALUES);
+  std::vector<T> rec(P::O::record(N, STAT));
+  T* rg[7];
+  P::regions([&](int r) { return buf.data() + r * P::RANK_VALUES; }, rg);
+  for (long long b = 0; b < B; ++b) {
+    fill_nan(buf);
+    fill_nan(rec);
+    ric_chip_gathers<typename P::O>(
+        in, N, STAT,
+        [&](const T* src, long long R, int W, int WP, int G, long long GS,
+            long long off) {
+          gather_rows(src, R, B, W, WP, G, GS, off, rec.data(), 0LL + b);
+        });
+#ifdef GT_RACE_CHECK
+    gt_race_watch(buf.data(), (long)(buf.size() * sizeof(T)));
+#endif
+    riccati_chip_problem<T, NJ, P, STAT>(HostPar<P::LANES>{}, rg,
+                                         [](int) { return true; }, 0, 1,
+                                         rec.data(), Vx0, Vxx0, ks, Ks, N, B,
+                                         b, reg);
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
 template <typename T, int NJ>
 void riccati_dense_host(const T* A, const T* Bm, const T* lx, const T* lu,
                         const T* lxx, const T* luu, const T* lux,
                         bool stationary, const T* Vx0, const T* Vxx0, T* ks,
                         T* Ks, int N, long long B, T reg) {
-  constexpr int SB = RicPlan<PlanType<T>, NJ, RIC_STATIONARY>::BUFS;
-  constexpr int DB = RicPlan<PlanType<T>, NJ, RIC_DENSE>::BUFS;
+  using PT = PlanType<T>;
+  constexpr int SB = RicPlan<PT, NJ, RIC_STATIONARY>::BUFS;
+  constexpr int DB = RicPlan<PT, NJ, RIC_DENSE>::BUFS;
   if (stationary) {
     const DenseIn<T, NJ, true, SB> in{A, Bm, lx, lu, lxx, luu, lux, B};
-    riccati_host<T, NJ, RIC_STATIONARY>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
+    if constexpr (ric_on_chip<PT, NJ, RIC_STATIONARY>())
+      riccati_chip_host<T, NJ, true>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
+    else
+      riccati_host<T, NJ, RIC_STATIONARY>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
   } else {
     const DenseIn<T, NJ, false, DB> in{A, Bm, lx, lu, lxx, luu, lux, B};
-    riccati_host<T, NJ, RIC_DENSE>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
+    if constexpr (ric_on_chip<PT, NJ, RIC_DENSE>())
+      riccati_chip_host<T, NJ, false>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
+    else
+      riccati_host<T, NJ, RIC_DENSE>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
   }
 }
 

@@ -27,8 +27,10 @@
 // instance up to 16 joints. Above 32 joints a knot takes two warps or more
 // (knot_lanes), and where one knot does not fit a block's shared memory it
 // runs a block at a time with its state in device memory (WsPlan,
-// ws_lanes): the programs take the knot's buffer as a pointer, so the same
-// code runs on either memory.
+// ws_lanes; id_du, minv, fd), or, fd_du, a block or a thread-block cluster
+// at a time with its state on chip (FDChipPlan, fd_du_chip_lane): the
+// programs take the knot's buffers as pointers, so the same code runs on
+// either memory.
 #pragma once
 
 #include <type_traits>
@@ -571,6 +573,115 @@ GT_HDI void rnea_backward_knot(const Par& par, const Rb& R,
   }
 }
 
+// One gradient column of id_grad_columns_knot, by its thread: column j,
+// a q column (isq) or a qd one, over the accumulated forces f; st(i, m)
+// is entry m of joint i's dv, da, df (18 values VS apart); out(i, x) takes
+// dc's entry i. Force-inlined: fd_du's and id_du's column passes and fd_du's
+// column chunks on chip (fd_du_chip_lane) run it.
+template <typename T, int NJ, int VS, class Rb, class St, class Out>
+GT_HDI void grad_column(const Rb& R, const T* qd, const T* X, const T* v,
+                        const T* a, const T* f, const T* Iv, const T* g,
+                        bool isq, int j, St&& st, Out&& out) {
+  const int r0 = R.rstart[j], nsub = R.rsub[j];
+  // forward over subtree(j), ascending: j first
+  for (int n = r0 + nsub - 1; n >= r0; --n) {
+    const int i = R.rlist[n], p = R.parent[i], s = R.sind[i];
+    const bool at_j = i == j;
+    const T* Xi = X + 36 * i;
+    T e[6], dv[6], da[6], tv[6], mv[6];
+    unit6(s, e);
+    // dv_i = X dv_p + [i == j] (crm(X v_p) S | S)
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int m = 0; m < 6; ++m)
+      dv[m] = at_j ? T(0) : xmrow(Xi, &st(p, 0), m, VS);
+    if (at_j) {
+      if (isq) {
+        if (p != -1) {
+          Xmv(Xi, v + 6 * p, tv);
+          cross_mv(tv, e, mv);
+          for (int m = 0; m < 6; ++m) dv[m] += mv[m];
+        }
+      } else {
+        for (int m = 0; m < 6; ++m) dv[m] += e[m];
+      }
+    }
+    // da_i = crm(dv_i) S qd_i + [i == j] (crm(X a_p) S | crm(v_i) S)
+    //        + X da_p
+    cross_mv(dv, e, mv);
+    for (int m = 0; m < 6; ++m) da[m] = mv[m] * qd[i];
+    if (at_j) {
+      if (isq) {
+        if (p == -1) {
+          Xmv(Xi, g, tv);
+        } else {
+          Xmv(Xi, a + 6 * p, tv);
+        }
+        cross_mv(tv, e, mv);
+      } else {
+        cross_mv(v + 6 * i, e, mv);
+      }
+      for (int m = 0; m < 6; ++m) da[m] += mv[m];
+    } else {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int m = 0; m < 6; ++m) da[m] += xmrow(Xi, &st(p, 6), m, VS);
+    }
+    // df_i = crf(dv_i) I v_i + I da_i + crf(v_i) I dv_i
+    T t1[6], t2[6], t3[6];
+    cross_fv(dv, Iv + 6 * i, t1);
+    Xv(R.Imat(i), da, t2);
+    Xv(R.Imat(i), dv, tv);
+    cross_fv(v + 6 * i, tv, t3);
+    for (int m = 0; m < 6; ++m) {
+      st(i, m) = dv[m];
+      st(i, 6 + m) = da[m];
+      st(i, 12 + m) = t1[m] + t2[m] + t3[m];
+    }
+  }
+  // the ancestors' df start at zero, but for j's parent in a q column,
+  // which starts at d(X_j^T)/dq_j f_j = X_j^T crf(S_j) f_j; the backward
+  // pass adds each related joint into its parent, descending
+  T dxf[6] = {0, 0, 0, 0, 0, 0};
+  if (isq) {
+    T e[6], mv[6];
+    unit6(R.sind[j], e);
+    cross_fv(e, f + 6 * j, mv);
+    XmTv(X + 36 * j, mv, dxf);
+  }
+  using Bits = typename JointBits<(NJ > WARP)>::type;
+  Bits related = 0;
+  for (int n = r0; n < R.rstart[j + 1]; ++n) {
+    const int i = R.rlist[n];
+    related |= Bits(1) << i;
+    if (n >= r0 + nsub) {
+      const bool jp = i == R.parent[j];
+      for (int m = 0; m < 6; ++m) st(i, 12 + m) = jp ? dxf[m] : T(0);
+    }
+  }
+  for (int n = r0; n < R.rstart[j + 1]; ++n) {
+    const int i = R.rlist[n], p = R.parent[i];
+    if (p == -1) continue;
+    T tv[6];
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int m = 0; m < 6; ++m)
+      tv[m] = xmcol(X + 36 * i, &st(i, 12), m, VS);
+    for (int m = 0; m < 6; ++m) st(p, 12 + m) += tv[m];
+  }
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+  for (int i = 0; i < NJ; ++i) {
+    const T x = st(i, 12 + R.sind[i]);   // stale unless related
+    out(i, ((related >> i) & Bits(1) ? x : T(0)) +
+               ((!isq && i == j) ? R.damping(i) : T(0)));
+  }
+}
+
 // The ID gradient dc/d[q, qd] on the accumulated forces of rnea_backward_knot,
 // one column a thread, in PASSES phases of 2 NJ / PASSES columns (2: the q
 // columns, then the qd ones; 1: all 2 NJ at once), each thread over its
@@ -601,106 +712,11 @@ GT_HDI void id_grad_columns_knot(const Par& par, const Rb& R, T* k,
     if (t >= COLS) return;
     const bool isq = PASSES == 2 ? pass == 0 : t < NJ;
     const int j = PASSES == 2 || t < NJ ? t : t - NJ;
-    const int r0 = R.rstart[j], nsub = R.rsub[j];
-    auto st = [&](int i, int m) -> T& { return col[(i * 18 + m) * COLS + t]; };
-    // forward over subtree(j), ascending: j first
-    for (int n = r0 + nsub - 1; n >= r0; --n) {
-      const int i = R.rlist[n], p = R.parent[i], s = R.sind[i];
-      const bool at_j = i == j;
-      const T* Xi = X + 36 * i;
-      T e[6], dv[6], da[6], tv[6], mv[6];
-      unit6(s, e);
-      // dv_i = X dv_p + [i == j] (crm(X v_p) S | S)
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-      for (int m = 0; m < 6; ++m)
-        dv[m] = at_j ? T(0) : xmrow(Xi, &st(p, 0), m, COLS);
-      if (at_j) {
-        if (isq) {
-          if (p != -1) {
-            Xmv(Xi, v + 6 * p, tv);
-            cross_mv(tv, e, mv);
-            for (int m = 0; m < 6; ++m) dv[m] += mv[m];
-          }
-        } else {
-          for (int m = 0; m < 6; ++m) dv[m] += e[m];
-        }
-      }
-      // da_i = crm(dv_i) S qd_i + [i == j] (crm(X a_p) S | crm(v_i) S)
-      //        + X da_p
-      cross_mv(dv, e, mv);
-      for (int m = 0; m < 6; ++m) da[m] = mv[m] * qd[i];
-      if (at_j) {
-        if (isq) {
-          if (p == -1) {
-            Xmv(Xi, g, tv);
-          } else {
-            Xmv(Xi, a + 6 * p, tv);
-          }
-          cross_mv(tv, e, mv);
-        } else {
-          cross_mv(v + 6 * i, e, mv);
-        }
-        for (int m = 0; m < 6; ++m) da[m] += mv[m];
-      } else {
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-        for (int m = 0; m < 6; ++m) da[m] += xmrow(Xi, &st(p, 6), m, COLS);
-      }
-      // df_i = crf(dv_i) I v_i + I da_i + crf(v_i) I dv_i
-      T t1[6], t2[6], t3[6];
-      cross_fv(dv, Iv + 6 * i, t1);
-      Xv(R.Imat(i), da, t2);
-      Xv(R.Imat(i), dv, tv);
-      cross_fv(v + 6 * i, tv, t3);
-      for (int m = 0; m < 6; ++m) {
-        st(i, m) = dv[m];
-        st(i, 6 + m) = da[m];
-        st(i, 12 + m) = t1[m] + t2[m] + t3[m];
-      }
-    }
-    // the ancestors' df start at zero, but for j's parent in a q column,
-    // which starts at d(X_j^T)/dq_j f_j = X_j^T crf(S_j) f_j; the backward
-    // pass adds each related joint into its parent, descending
-    T dxf[6] = {0, 0, 0, 0, 0, 0};
-    if (isq) {
-      T e[6], mv[6];
-      unit6(R.sind[j], e);
-      cross_fv(e, f + 6 * j, mv);
-      XmTv(X + 36 * j, mv, dxf);
-    }
-    using Bits = typename JointBits<(NJ > WARP)>::type;
-    Bits related = 0;
-    for (int n = r0; n < R.rstart[j + 1]; ++n) {
-      const int i = R.rlist[n];
-      related |= Bits(1) << i;
-      if (n >= r0 + nsub) {
-        const bool jp = i == R.parent[j];
-        for (int m = 0; m < 6; ++m) st(i, 12 + m) = jp ? dxf[m] : T(0);
-      }
-    }
-    for (int n = r0; n < R.rstart[j + 1]; ++n) {
-      const int i = R.rlist[n], p = R.parent[i];
-      if (p == -1) continue;
-      T tv[6];
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-      for (int m = 0; m < 6; ++m)
-        tv[m] = xmcol(X + 36 * i, &st(i, 12), m, COLS);
-      for (int m = 0; m < 6; ++m) st(p, 12 + m) += tv[m];
-    }
     T dc[NJ];
-#ifdef __CUDACC__
-#pragma unroll
-#endif
-    for (int i = 0; i < NJ; ++i) {
-      const T x = st(i, 12 + R.sind[i]);   // stale unless related
-      dc[i] = ((related >> i) & Bits(1) ? x : T(0)) +
-              ((!isq && i == j) ? R.damping(i) : T(0));
-    }
+    grad_column<T, NJ, COLS>(
+        R, qd, X, v, a, f, Iv, g, isq, j,
+        [&](int i, int m) -> T& { return col[(i * 18 + m) * COLS + t]; },
+        [&](int i, T x) { dc[i] = x; });
     sink(pass, t, dc);
   });
 }
@@ -2390,8 +2406,10 @@ struct GroupShape {
       HEAD + (long long)(G > 0 ? G : 1) * STRIDE * (long long)sizeof(T);
 };
 
-// The device-memory route of a thread-group kernel (fd_du, id_du, minv,
-// fd, the Riccati sweeps): where its plan P holds no knot in a block's
+// The device-memory route of a thread-group kernel (id_du, minv, fd,
+// riccati_factored; fd_du and the dense riccati keep their knot or problem
+// on chip there instead: FDChipPlan, RicChipPlan): where its plan P holds
+// no knot in a block's
 // shared memory (G 0: from 30 to 48 joints, by kernel and dtype), a block
 // runs one knot at a time with WS_LANES threads, its head (the robot
 // constants) still in shared memory and the knot's KNOT values in device
@@ -2426,6 +2444,329 @@ struct PlanWs<P, std::void_t<decltype(P::WS)>> {
 template <class P>
 GT_HDI constexpr int plan_g() { return P::G > 0 ? P::G : 1; }
 
+// ---------------------------------------------------------------------------
+// on chip: one problem or knot a block, or a thread-block cluster
+// ---------------------------------------------------------------------------
+
+// Where one problem's (knot's) state does not fit a block's shared memory
+// beside others, or above 28 joints (fd_du and the dense Riccati sweep from
+// CHIP_FROM = 29 joints), a block, or a cluster of CL = 2 or 4 blocks on
+// neighbouring SMs, holds that one problem's state on chip. The state is
+// split in regions; each region sits whole in the shared memory of one
+// block of the cluster (its rank), and every thread of the cluster reads
+// and writes every region through its address in the cluster's distributed
+// shared memory (chip_map: PTX mapa), so a knot program takes one
+// pointer a region and runs unchanged on one block or on a cluster. Rank 0
+// holds the kernel's head (the robot constants) first, the others none; the
+// regions go to the ranks first fit, in the order the plan lists them. A
+// phase of the program is all the cluster's threads (ChipPar), ended by the
+// block's barrier or the cluster's. The host build runs the same program
+// over one buffer (HostPar).
+constexpr int CHIP_MAX_CLUSTER = 4;
+
+GT_HDI constexpr long long round4(long long n) { return (n + 3) / 4 * 4; }
+
+template <int NR>
+struct ChipPack {
+  int cl = 0;   // blocks a problem; 0: the regions do not fit CL blocks
+  int rank[NR] = {};
+  long long off[NR] = {};   // values of T from the rank's state
+  long long used[CHIP_MAX_CLUSTER] = {};
+};
+
+// size[i] values of `bytes` each (rounded up to 4: 16-byte aligned rows in
+// float32), in order, into cl blocks, rank 0 holding `head` bytes before
+// its state
+template <int NR>
+GT_HDI constexpr ChipPack<NR> chip_pack(const long long (&size)[NR],
+                                        int bytes, long long head, int cl) {
+  ChipPack<NR> p{};
+  for (int i = 0; i < NR; ++i) {
+    int r = 0;
+    for (; r < cl; ++r) {
+      const long long cap = (SMEM_LIMIT - (r == 0 ? head : 0)) / bytes;
+      if (p.used[r] + round4(size[i]) <= cap) break;
+    }
+    if (r == cl) return ChipPack<NR>{};
+    p.rank[i] = r;
+    p.off[i] = p.used[r];
+    p.used[r] += round4(size[i]);
+  }
+  p.cl = cl;
+  return p;
+}
+
+// the values a rank's state takes at most, and the bytes a block of the
+// pack takes (rank 0: its head too)
+template <int NR>
+GT_HDI constexpr long long chip_rank_values(const ChipPack<NR>& p) {
+  long long m = 0;
+  for (int r = 0; r < CHIP_MAX_CLUSTER; ++r)
+    if (p.used[r] > m) m = p.used[r];
+  return m;
+}
+template <int NR>
+GT_HDI constexpr long long chip_bytes(const ChipPack<NR>& p, int bytes,
+                                      long long head) {
+  long long m = head + p.used[0] * bytes;
+  for (int r = 1; r < CHIP_MAX_CLUSTER; ++r)
+    if (p.used[r] * bytes > m) m = p.used[r] * bytes;
+  return m;
+}
+
+// Four consecutive values at p (16-byte aligned on the card: one 16-byte
+// load in float32, two in float64) into v.
+template <typename T>
+GT_HDI void ld4(const T* p, T* v) {
+#ifdef __CUDA_ARCH__
+  if constexpr (sizeof(T) == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = x.z;
+    v[3] = x.w;
+  } else {
+    const double2 x = *reinterpret_cast<const double2*>(p);
+    const double2 y = *reinterpret_cast<const double2*>(p + 2);
+    v[0] = x.x;
+    v[1] = x.y;
+    v[2] = y.x;
+    v[3] = y.y;
+  }
+#else
+  for (int i = 0; i < 4; ++i) v[i] = p[i];
+#endif
+}
+
+// A 4 x 4 register tile of a matrix product: acc[a][c] += sum over k < K
+// of l_k[a] r_k[c], lrow(k, l) and rrow(k, r) loading the 4 values of step
+// k. Float32 stays on FP32 FMAs (TF32 would keep 3 digits), float64 on
+// FP64 FMAs.
+template <typename T, class LF, class RF>
+GT_HDI void mma4(T (&acc)[4][4], int K, LF&& lrow, RF&& rrow) {
+#ifdef __CUDACC__
+#pragma unroll 4
+#endif
+  for (int k = 0; k < K; ++k) {
+    T l[4], r[4];
+    lrow(k, l);
+    rrow(k, r);
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int a = 0; a < 4; ++a)
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int c = 0; c < 4; ++c) acc[a][c] += l[a] * r[c];
+  }
+}
+
+// fd_du on chip: one knot a block or cluster (FDChipPlan), its state in
+// three regions: BASE, the inputs, qdd, Minv (NJ, NJ), the joint
+// transforms, v, a, f, I v and the bias forces, as FDKnot holds them, and
+// the gradient's 2 NJ columns in the order the chunks take them; MSM,
+// Minv's IA, U, Dinv, temporaries and X^T U; FMC, Minv's F (NJ, 6, NJ),
+// and over it, once Minv is done, the gradient's column state of a chunk
+// of C columns (NJ, 18, C) and two buffers of the chunk's dc (NJ, CP),
+// CP = C rounded up to 4.
+template <int NJ, int C>
+struct FDChipKnot {
+  static constexpr int CP = (int)round4(C);
+  static constexpr int Q = 0, QD = Q + NJ, U = QD + NJ, QDD = U + NJ;
+  static constexpr int MI = QDD + NJ, X = MI + NJ * NJ, V = X + 36 * NJ;
+  static constexpr int A = V + 6 * NJ, F = A + 6 * NJ, IV = F + 6 * NJ;
+  static constexpr int CC = IV + 6 * NJ, CO = CC + NJ, BASE = CO + 2 * NJ;
+  static constexpr int IA = 0, UU = IA + 36 * NJ, DINV = UU + 6 * NJ;
+  static constexpr int TMP = DINV + NJ, XU = TMP + 36 * NJ, MSM = XU + 6 * NJ;
+  static constexpr int FM = 0, COL = 0;
+  static constexpr int DC = (int)round4(18LL * NJ * C);
+  static constexpr int FMC =
+      6 * NJ * NJ > DC + 2 * NJ * CP ? 6 * NJ * NJ : DC + 2 * NJ * CP;
+  enum { R_BASE, R_MSM, R_FMC, NREG };
+};
+
+template <typename T, int NJ>
+GT_HDI constexpr long long fd_chip_head() {
+  return (sizeof(RobotConst<T, NJ>) + 15) / 16 * 16;
+}
+
+template <typename T, int NJ, int C>
+GT_HDI constexpr ChipPack<3> fd_chip_pack(int cl) {
+  using O = FDChipKnot<NJ, C>;
+  const long long size[3] = {O::BASE, O::MSM, O::FMC};
+  return chip_pack(size, (int)sizeof(T), fd_chip_head<T, NJ>(), cl);
+}
+
+// The chunk width C: the widest (up to 64, at least FD_CHIP_CMIN) that
+// fits the fewest blocks, then evened out over its chunks. Each chunk is a
+// phase in which C threads walk a column each, so fewer, wider chunks take
+// fewer phases; the chunks' memory sits over Minv's F, so at 52 joints in
+// float32 the widest that fits is 32 (4 chunks, even at 28: 28, 28, 28,
+// 20).
+constexpr int FD_CHIP_CMIN = 16;
+template <typename T, int NJ, int CMAX>
+GT_HDI constexpr int fd_chip_cmax(int cl) {
+  if constexpr (CMAX < FD_CHIP_CMIN) {
+    return 0;
+  } else {
+    return fd_chip_pack<T, NJ, CMAX>(cl).cl ? CMAX
+                                           : fd_chip_cmax<T, NJ, CMAX - 4>(cl);
+  }
+}
+template <typename T, int NJ>
+GT_HDI constexpr int fd_chip_cl() {
+  constexpr int top = (int)round4(2 * NJ) < 64 ? (int)round4(2 * NJ) : 64;
+  return fd_chip_cmax<T, NJ, top>(1) ? 1
+         : fd_chip_cmax<T, NJ, top>(2) ? 2
+         : fd_chip_cmax<T, NJ, top>(4) ? 4
+                                        : 0;
+}
+template <typename T, int NJ>
+GT_HDI constexpr int fd_chip_c() {
+  constexpr int top = (int)round4(2 * NJ) < 64 ? (int)round4(2 * NJ) : 64;
+  constexpr int cl = fd_chip_cl<T, NJ>();
+  constexpr int cmax = cl ? fd_chip_cmax<T, NJ, top>(cl) : 4;
+  constexpr int chunks = (2 * NJ + cmax - 1) / cmax;
+  return (int)round4((2 * NJ + chunks - 1) / chunks);
+}
+
+// threads a block of an on-chip program
+constexpr int CHIP_THREADS = 256;
+
+template <typename T, int NJ>
+struct FDChipPlan {
+  static constexpr int C = fd_chip_c<T, NJ>();
+  using O = FDChipKnot<NJ, C>;
+  static constexpr ChipPack<3> PACK =
+      fd_chip_pack<T, NJ, C>(fd_chip_cl<T, NJ>());
+  static constexpr int CL = PACK.cl, NT = CHIP_THREADS, LANES = CL * NT;
+  static constexpr int G = 1, ROWS = 1, CHUNKS = (2 * NJ + C - 1) / C;
+  static constexpr long long HEAD = fd_chip_head<T, NJ>();
+  static constexpr long long RANK_VALUES = chip_rank_values(PACK);
+  static constexpr long long BYTES = chip_bytes(PACK, (int)sizeof(T), HEAD);
+  static_assert(C <= NT / 2, "a thread a column of a chunk, the rest fold");
+  static constexpr int RK_BASE = PACK.rank[0], RK_MSM = PACK.rank[1];
+  static constexpr int RK_FMC = PACK.rank[2];
+  static constexpr long long OF_BASE = PACK.off[0], OF_MSM = PACK.off[1];
+  static constexpr long long OF_FMC = PACK.off[2];
+};
+
+// a plan's blocks a problem (1 but for an on-chip plan on a cluster)
+template <class P, class = void>
+struct PlanCluster {
+  static constexpr int value = 1;
+};
+template <class P>
+struct PlanCluster<P, std::void_t<decltype(P::PACK)>> {
+  static constexpr int value = P::CL;
+};
+
+// One knot (lane l of L) of fd_du on chip (FDChipPlan P; its regions BASE,
+// MSM, FMC at rg), by the cluster's threads: its inputs in; fd_qdd_knot
+// (the bias RNEA, Carpentier's Minv, mirrored dense, qdd); the RNEA at qdd;
+// then the ID gradient in P::CHUNKS chunks of C columns, a phase each:
+// threads t < C walk column chunk C + t (grad_column, a column a thread,
+// [q, qd] order) into the chunk's dc buffer, while the other threads fold
+// the chunk before into df/du = -Minv dc, a 4 x 4 register tile of rows
+// and columns a thread (mma4), straight to the lane's rows of dfdu, so
+// that df/du never sits on chip whole; the last phase folds the last chunk
+// while the other threads write qdd and Minv. Minv is symmetric
+// (mirrored), so
+// its rows are read as columns. A chunk's phase lasts as long as its
+// longest column's walk (over the column joint's subtree, then its related
+// joints), so the columns go to the chunks by subtree size, the largest
+// first (the first phase ranks them): the long walks share one chunk.
+template <typename T, int NJ, class P, class Rb, class Par>
+GT_HD void fd_du_chip_lane(const Par& par, const Rb& R, T* const* rg,
+                           const T* q, const T* qd, const T* u, T* dfdu,
+                           T* qdd_o, T* Mi_o, long long L, long long l,
+                           T gravity) {
+  using O = typename P::O;
+  constexpr int W = Par::LANES, C = P::C, CP = O::CP, NC = 2 * NJ;
+  constexpr int RT = (NJ + 3) / 4, CT = CP / 4;   // tiles of a chunk
+  static_assert(C + RT * CT < W, "walks, folds and stores of the last phase");
+  T* b = rg[O::R_BASE];
+  T* ms = rg[O::R_MSM];
+  T* fm = rg[O::R_FMC];
+  // column n of the chunks' order: an int in the n-th value of CO
+  auto cols = [&](int n) -> int& {
+    return *reinterpret_cast<int*>(b + O::CO + n);
+  };
+  par([&](int t) {
+    for (int e = t; e < 3 * NJ; e += W) {
+      const int w = e / NJ, i = e % NJ;
+      b[O::Q + e] = (w == 0 ? q : w == 1 ? qd : u)[i * L + l];
+    }
+    for (int c = t; c < NC; c += W) {   // c's rank by subtree size
+      const int sc = R.rsub[c % NJ];
+      int rank = 0;
+      for (int c2 = 0; c2 < NC; ++c2) {
+        const int s2 = R.rsub[c2 % NJ];
+        rank += s2 > sc || (s2 == sc && c2 < c);
+      }
+      cols(rank) = c;
+    }
+  });
+  const T g[6] = {0, 0, 0, 0, 0, -gravity};
+  const int nlev = R.nlev;
+  const RneaView<T> rv{b + O::QD, b + O::QDD, b + O::X,  b + O::V,
+                       b + O::A,  b + O::F,   b + O::IV, g};
+  fd_qdd_knot<T, NJ, true>(
+      par, R,
+      FDView<T>{b + O::Q, b + O::QD, b + O::U, b + O::QDD, b + O::MI,
+                b + O::X, b + O::F, b + O::CC, ms + O::IA, fm + O::FM,
+                ms + O::UU, ms + O::DINV, ms + O::TMP, ms + O::XU},
+      rv, nlev);
+  rnea_forward_knot<RNEA_AT_QDD, T, NJ>(par, R, rv, nlev);
+  rnea_backward_knot<T>(par, R, rv, nlev);
+  const T* Mi = b + O::MI;
+  T* col = fm + O::COL;
+  for (int k = 0; k <= P::CHUNKS; ++k) par([&](int t) {
+    if (t < C) {
+      if (k < P::CHUNKS && k * C + t < NC) {
+        const int c = cols(k * C + t);
+        T* dc = fm + O::DC + (k & 1) * NJ * CP;
+        grad_column<T, NJ, C>(
+            R, b + O::QD, b + O::X, b + O::V, b + O::A, b + O::F, b + O::IV,
+            g, c < NJ, c < NJ ? c : c - NJ,
+            [&](int i, int m) -> T& { return col[(i * 18 + m) * C + t]; },
+            [&](int i, T x) { dc[i * CP + t] = x; });
+      }
+    }
+    // the last phase: the threads that neither walk nor fold write qdd and
+    // Minv (scattered stores, which the walks' shared loads would queue
+    // behind in an earlier phase)
+    const int idle = t < C ? t : t - RT * CT;
+    if (k == P::CHUNKS && (t < C || t - C >= RT * CT))
+      for (int e = idle; e < NJ + NJ * NJ; e += W - RT * CT) {
+        if (e < NJ)
+          qdd_o[e * L + l] = b[O::QDD + e];
+        else
+          Mi_o[(e - NJ) * L + l] = Mi[e - NJ];
+      }
+    if (t < C || k == 0) return;
+    const T* dc = fm + O::DC + ((k - 1) & 1) * NJ * CP;
+    const int c0 = (k - 1) * C;
+    for (int e = t - C; e < RT * CT; e += W - C) {
+      const int r0 = 4 * (e / CT), j0 = 4 * (e % CT);
+      T acc[4][4] = {};
+      mma4(acc, NJ,
+           [&](int m, T* lv) {
+             for (int a = 0; a < 4; ++a)
+               lv[a] = Mi[m * NJ + (r0 + a < NJ ? r0 + a : NJ - 1)];
+           },
+           [&](int m, T* rv) { ld4(dc + m * CP + j0, rv); });
+      for (int j = 0; j < 4; ++j) {
+        if (j0 + j >= C || c0 + j0 + j >= NC) continue;
+        const long long c = cols(c0 + j0 + j);
+        for (int a = 0; a < 4; ++a)
+          if (r0 + a < NJ) dfdu[((r0 + a) * NC + c) * L + l] = -acc[a][j];
+      }
+    }
+  });
+}
+
 // The kernels' plans: fd_du's head is the robot constants, fdsva_so's and
 // idsva_so's also the (j, a, st) lists.
 template <typename T, int NJ>
@@ -2439,6 +2780,18 @@ using FDPlan = WsPlan<T,
                       BlockPlan<T, RobotConst<T, NJ>, FDKnot<NJ>::SIZE,
                                 knot_lanes<NJ>(), fd_regs<T>()>,
                       FDKnot<NJ>::SIZE>;
+// fd_du and the dense riccati run on chip (FDChipPlan, RicChipPlan) from
+// CHIP_FROM joints, above the 28 that their shared-memory plans were
+// built for: at config 5's shapes the on-chip programs ran 1.9-2.0x
+// (fd_du, 34-46 joints) and 2.4-4.0x (riccati, 30-42) faster than those
+// plans in float32, and 1.2-2.4x at 28 joints in both dtypes (PERF.md,
+// compare_kernels.py --hands52); every plan at or below 28 joints holds
+// its knot or problem in shared memory.
+constexpr int CHIP_FROM = 29;
+template <typename T, int NJ>
+GT_HDI constexpr bool fd_on_chip() {
+  return NJ >= CHIP_FROM;
+}
 template <typename T, int NJ>
 using SOPlan = BlockPlan<T, SOHead<T, NJ>, SOKnot<NJ>::SIZE,
                          knot_lanes<NJ>(), so_regs<T>()>;
@@ -2756,9 +3109,39 @@ template <typename T>
 using PlanType =
     typename std::conditional<sizeof(T) == 4, float, double>::type;
 
+// fd_du on chip (FDChipPlan of PT's dtype): a knot at a time, the
+// cluster's regions in one buffer
+template <typename T, int NJ, typename PT = PlanType<T>>
+void fd_du_chip_host(const T* model, const T* q, const T* qd, const T* u,
+                     T* dfdu, T* qdd, T* Mi, long long L, T gravity) {
+  using P = FDChipPlan<PT, NJ>;
+  static_assert(P::CL >= 1, "one fd_du knot fits a cluster");
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load(model, 0, 1);
+  std::vector<T> buf(P::CL * P::RANK_VALUES);
+  T* rg[3] = {buf.data() + P::RK_BASE * P::RANK_VALUES + P::OF_BASE,
+              buf.data() + P::RK_MSM * P::RANK_VALUES + P::OF_MSM,
+              buf.data() + P::RK_FMC * P::RANK_VALUES + P::OF_FMC};
+  for (long long l = 0; l < L; ++l) {
+    for (auto& x : buf) x = T(std::numeric_limits<double>::quiet_NaN());
+#ifdef GT_RACE_CHECK
+    gt_race_watch(buf.data(), (long)(buf.size() * sizeof(T)));
+#endif
+    fd_du_chip_lane<T, NJ, P>(HostPar<P::LANES>{}, R[0], rg, q, qd, u, dfdu,
+                              qdd, Mi, L, l, gravity);
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
 template <typename T, int NJ>
 void fd_du_host(const T* model, const T* q, const T* qd, const T* u, T* dfdu,
                 T* qdd, T* Mi, long long L, T gravity) {
+  if constexpr (fd_on_chip<PlanType<T>, NJ>()) {
+    fd_du_chip_host<T, NJ>(model, q, qd, u, dfdu, qdd, Mi, L, gravity);
+    return;
+  }
   using O = FDKnot<NJ>;
   std::vector<RobotConst<T, NJ>> R(1);
   R[0].load(model, 0, 1);
@@ -3180,6 +3563,64 @@ __device__ __forceinline__ void ws_lanes(long long L, Load&& load, Run&& run,
   }
 }
 
+// The on-chip programs' cluster (warp.cuh: ChipPack; CL blocks, CL 1: the
+// block alone), in PTX (cooperative_groups' header would add seconds of
+// nvcc to every source): this block's rank (%cluster_ctarank), the
+// cluster's barrier (arrive with release, wait with acquire: every shared
+// write of a phase is seen by the next phase in every block), and the
+// generic address of `p` (this block's shared memory) in rank r's (mapa;
+// this block's own address for its own rank).
+template <int CL>
+__device__ __forceinline__ int chip_rank() {
+  if constexpr (CL == 1) {
+    return 0;
+  } else {
+    unsigned r;
+    asm volatile("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
+    return (int)r;
+  }
+}
+template <int CL>
+__device__ __forceinline__ void chip_sync() {
+  if constexpr (CL == 1) {
+    __syncthreads();
+  } else {
+    asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+    asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+  }
+}
+template <int CL, typename P>
+__device__ __forceinline__ P* chip_map(P* p, int r) {
+  if constexpr (CL == 1) {
+    return p;
+  } else {
+    if (r == chip_rank<CL>()) return p;
+    unsigned long long q;
+    asm volatile("mapa.u64 %0, %1, %2;"
+                 : "=l"(q)
+                 : "l"(reinterpret_cast<unsigned long long>(p)), "r"(r));
+    return reinterpret_cast<P*>(q);
+  }
+}
+
+// The cluster's N threads (thread `lane` = rank * threads a block + the
+// thread's index), a phase ended by the cluster's barrier. CLOCKED (the
+// phase clock of the kernels built with GT_CHIP_CLOCK): thread 0 records
+// clock64() after each phase at clk[(*n)++].
+template <int N, int CL, bool CLOCKED = false>
+struct ChipPar {
+  static constexpr int LANES = N;
+  int lane;
+  long long* clk = nullptr;
+  int* n = nullptr;
+  template <class F>
+  __device__ __forceinline__ void operator()(F&& f) const {
+    f(lane);
+    chip_sync<CL>();
+    if (CLOCKED && lane == 0) clk[(*n)++] = clock64();
+  }
+};
+
 // A kernel's dynamic shared-memory limit, and the largest carve-out of an
 // SM's L1 for shared memory, so that as many blocks as the plan counts fit.
 template <class K>
@@ -3209,6 +3650,38 @@ inline int launch_ws(void (*fn)(K...), long long units, void* ws,
   return (int)cudaGetLastError();
 }
 
+// Launch `fn`, a kernel of an on-chip plan P (FDChipPlan, RicChipPlan),
+// over `units` lanes or problems: clusters of P::CL blocks of P::NT
+// threads, as many as the card holds at once (the occupancy calculator's
+// active clusters) and at most `units`, each striding over the units.
+template <class P, class... K, class... A>
+inline int launch_chip(void (*fn)(K...), long long units, cudaStream_t stream,
+                       A... args) {
+  if (units == 0) return 0;
+  cudaError_t e = smem_attrs(fn, P::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P::CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(P::CL);
+  cfg.blockDim = dim3(P::NT);
+  cfg.dynamicSmemBytes = (size_t)P::BYTES;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int most = 0;
+  e = cudaOccupancyMaxActiveClusters(&most, fn, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (most < 1) return (int)cudaErrorInvalidConfiguration;
+  cfg.gridDim = dim3((unsigned)((units < most ? units : most) * P::CL));
+  e = cudaLaunchKernelEx(&cfg, fn, args...);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 // The block plan P of kernel `fn` and its launch attributes, for the
 // wrappers and chip_smoke.py: out = {G, threads a knot, dynamic shared
 // bytes a block, registers a thread, local (stack) bytes a thread, static
@@ -3217,8 +3690,9 @@ inline int launch_ws(void (*fn)(K...), long long units, void* ws,
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor), blocks a lane (idsva_so
 // in bands: the bands; else 1), device-memory bytes a block (the workspace
 // of the device-memory route; 0 on the shared-memory one), 1 where the
-// output tile accumulates in device memory (idsva_so: IDSOTilePlan)}. `fn`
-// null (a kernel that is not instantiated): the plan alone.
+// output tile accumulates in device memory (idsva_so: IDSOTilePlan), blocks
+// a problem (an on-chip plan's cluster; else 1)}. `fn` null (a kernel that
+// is not instantiated): the plan alone.
 template <class P, class = void>
 struct PlanBands {
   static constexpr int value = 1;
@@ -3238,11 +3712,13 @@ struct PlanDeviceTile<P, std::void_t<decltype(P::DEVICE_TILE)>> {
 
 template <class P>
 inline int kernel_info(const void* fn, int* out) {
+  constexpr int cl = PlanCluster<P>::value;
   out[8] = P::ROWS;
   out[9] = 0;
   out[10] = PlanBands<P>::value;
   out[11] = (int)PlanWs<P>::value;
   out[12] = PlanDeviceTile<P>::value;
+  out[13] = cl;
   // the launch's attributes, which the occupancy calculator reads; a plan
   // that holds no knot (G 0) and has no device-memory route is never
   // launched, and querying it would leave an error that the library's next
@@ -3254,7 +3730,8 @@ inline int kernel_info(const void* fn, int* out) {
                          (int)cudaSharedmemCarveoutMaxShared);
     int blocks = 0;
     const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks, fn, plan_g<P>() * P::ROWS * P::LANES, (size_t)P::BYTES);
+        &blocks, fn, plan_g<P>() * P::ROWS * P::LANES / cl,
+        (size_t)P::BYTES);
     out[9] = occ == cudaSuccess ? blocks : -1;
   }
   cudaFuncAttributes a{};

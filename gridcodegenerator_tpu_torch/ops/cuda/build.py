@@ -57,8 +57,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # and double. build() prebuilds SUPPORTED_JOINTS, the zoo's counts of the
 # configs; lib(nj) builds any count from 1 to MAX_JOINTS at its first use.
 # Every kernel runs at every count up to it: where a knot or problem does
-# not fit a block's shared memory (fd_du, id_du, the Riccati sweeps; minv
-# and fd in float64), its state goes to device memory (warp.cuh: WsPlan),
+# not fit a block's shared memory (id_du, riccati_factored; minv and fd in
+# float64), its state goes to device memory (warp.cuh: WsPlan), fd_du's
+# knot and the dense riccati's problem stay on chip in a block or a
+# thread-block cluster (warp.cuh: FDChipPlan, sweep_warp.cuh: RicChipPlan),
 # the rollouts' tiles too where theirs do not fit (sweep_warp.cuh:
 # TILES_WS), and idsva_so's tile where bands would not do (warp.cuh:
 # IDSOTilePlan; fdsva_so is composed there). 64 bounds the plans'
@@ -176,9 +178,10 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
-# the kernels with a device-memory route (fd_du, id_du, minv, fd, the two
-# Riccati sweeps, the line search, the feedback rollout) take its workspace
-# and blocks last (workspace(); None, 0 on the shared-memory route)
+# the kernels with a device-memory route (id_du, minv, fd,
+# riccati_factored, the line search, the feedback rollout) take its
+# workspace and blocks last (workspace(); None, 0 on the shared-memory
+# route); fd_du and the dense riccati take the two and ignore them
 _SIGNATURES = {
     "gridtorch_model_size": (_I,),
     "gridtorch_fd_du": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _D, _P, _P,
@@ -199,6 +202,7 @@ _SIGNATURES = {
                                    _P, _I, _L, _I, _D, _D, _D, _P, _P, _L),
     "gridtorch_riccati": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                           _P, _I, _L, _D, _P, _P, _L),
+    "gridtorch_riccati_inputs": (_I, _I, _I, _I),
     "gridtorch_idsva_so": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P, _P, _I,
                            _I),
     "gridtorch_so_lists": (_I, _P, _P, _P),
@@ -226,6 +230,10 @@ _SIGNATURES = {
                                    _P, _P, _I, _L, _D, _D, _P, _P, _L),
 }
 
+# the entry points that return a count, not a cudaError
+_RESTYPES = {"gridtorch_riccati_inputs": _L}
+
+
 def check_joints(nj: int, what: str = "CUDA kernels"):
     """Raise NotImplementedError, before any nvcc, for a joint count no
     library can be built for."""
@@ -248,7 +256,7 @@ def lib(nj: int) -> ctypes.CDLL:
             for name, args in _SIGNATURES.items():
                 fn = getattr(handle, name)
                 fn.argtypes = list(args)
-                fn.restype = ctypes.c_int
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
             _libs[nj] = handle
     return _libs[nj]
 
@@ -257,7 +265,7 @@ INFO_FIELDS = ("knots_per_block", "threads_per_knot", "smem_bytes_per_block",
                "registers", "local_bytes", "static_smem_bytes",
                "max_threads_per_block", "max_dynamic_smem_bytes",
                "rows_per_block", "blocks_per_sm", "bands", "workspace_bytes",
-               "device_tile")
+               "device_tile", "cluster_blocks")
 # the kernels of a thread group per knot, problem or rollout, by the name of
 # their C info entry point (riccati: the dense sweep's stationary instance,
 # riccati_stacked: its instance with a block per knot)
@@ -280,9 +288,11 @@ def warp_kernel_info(what: str, nj: int, dtype) -> dict:
     device-memory route: its knot, or the rollouts' tiles; 0 where all of
     it sits in shared memory), device_tile (1 where each knot's output
     tile accumulates in device memory, in the output itself: idsva_so
-    where bands would not do)}. fdsva_so's plan where its knot does not
-    fit a block comes without its kernel's attributes: that kernel is not
-    built."""
+    where bands would not do), cluster_blocks (blocks a problem: a
+    thread-block cluster's where one problem's state sits on chip across
+    the cluster's shared memory, csrc/warp.cuh: ChipPack; else 1)}.
+    fdsva_so's plan where its knot does not fit a block comes without its
+    kernel's attributes: that kernel is not built."""
     if what not in WARP_KERNELS:
         raise ValueError(f"no block plan for {what!r}")
     out = (ctypes.c_int * len(INFO_FIELDS))()

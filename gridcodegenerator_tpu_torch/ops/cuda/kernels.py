@@ -198,12 +198,13 @@ def fd_du(model: RobotModel, q, qd, u, gravity=DEFAULT_GRAVITY):
     n = model.n
     df_du = _empty(q, n, 2 * n, L)
     qdd, Mi = _empty(q, n, L), _empty(q, n, n, L)
-    ws, nws = build.workspace(FD_DU, nj, q, L)
+    # no workspace: above 28 joints a knot runs on chip in a block or a
+    # cluster (csrc/warp.cuh: FDChipPlan, CHIP_FROM)
     _launched(FD_DU, build.lib(nj).gridtorch_fd_du(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(u), build.ptr(df_du), build.ptr(qdd),
-        build.ptr(Mi), L, float(gravity), build.stream_ptr(q.device),
-        build.ptr(ws), nws))
+        build.ptr(Mi), L, float(gravity), build.stream_ptr(q.device), None,
+        0))
     return df_du, qdd, Mi
 
 

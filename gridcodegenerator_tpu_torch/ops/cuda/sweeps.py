@@ -393,13 +393,20 @@ def riccati(A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg):
     build.require(dict(given, Bm=Bm), A.dtype, A.device, RICCATI_DENSE)
     ks = torch.empty((N, n, B), dtype=A.dtype, device=A.device)
     Ks = torch.empty((N, n, nx, B), dtype=A.dtype, device=A.device)
-    ws, nws = build.workspace(instance, n, A, B)
+    # above 28 joints a problem runs on chip in a block or a cluster
+    # (csrc/sweep_warp.cuh: RicChipPlan), its inputs first copied
+    # problem-major, a record a problem (no workspace)
+    per = build.lib(n).gridtorch_riccati_inputs(
+        build.DTYPE_CODES[A.dtype], n, N, int(stationary))
+    rec = (torch.empty(B * per, dtype=A.dtype, device=A.device) if per > 0
+           else None)
     err = build.lib(n).gridtorch_riccati(
         build.DTYPE_CODES[A.dtype], n, build.ptr(A), build.ptr(Bm),
         build.ptr(lx), build.ptr(lu), build.ptr(lxx), build.ptr(luu),
         build.ptr(lux), int(stationary), build.ptr(Vx0), build.ptr(Vxx0),
         build.ptr(ks), build.ptr(Ks), N, B, float(reg),
-        build.stream_ptr(A.device), build.ptr(ws), nws)
+        build.stream_ptr(A.device), build.ptr(rec), 0 if rec is None
+        else rec.numel())
     build.check(err, RICCATI_DENSE)
     build.LAUNCHES[RICCATI_DENSE] += 1
     return ks, Ks

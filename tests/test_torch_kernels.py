@@ -2000,19 +2000,18 @@ def test_cuda_tiles_in_device_memory_at_64_joints(cuda_device, name):
     assert _max_err(got, want) <= TOL * scale
 
 
-# Above 32 joints fd_du's and id_du's knots take more than one warp in
-# shared memory (warp.cuh: knot_lanes, at least 64 threads: a thread a
-# column of a pass, a thread a joint, and barriers across the warps; the
-# plan may give a knot more): fd_du in float32 at 33-46 joints, id_du in
-# float32 at 33-47 and in float64 at 33. Their other instances at these
-# counts take the device-memory route. The robots: the 33- and
-# 46-joint chains (the first and the last count of fd_du's two-warp plan in
-# float32) and atlas_grippers34 (a tree: two 3-joint grippers on atlas).
+# Above 32 joints id_du's knots take more than one warp in shared memory
+# (warp.cuh: knot_lanes, at least 64 threads: a thread a column of a pass,
+# a thread a joint, and barriers across the warps; the plan may give a
+# knot more): in float32 at 33-47 joints and in float64 at 33. Its other
+# instances at these counts take the device-memory route; fd_du runs one
+# knot on chip in a block or a cluster of blocks there (warp.cuh:
+# FDChipPlan; from 29 joints). The robots: the 33- and 46-joint chains
+# and atlas_grippers34 (a tree: two 3-joint grippers on atlas).
 TWO_WARP_ROBOTS = {"pendulum33": 33, "atlas_grippers34": 34,
                    "pendulum46": 46}
 # the (kernel, dtype) instances whose knots sit in shared memory there
-TWO_WARP_SHARED = {("fd_du", torch.float32): range(33, 47),
-                   ("id_du", torch.float32): range(33, 48),
+TWO_WARP_SHARED = {("id_du", torch.float32): range(33, 48),
                    ("id_du", torch.float64): range(33, 34)}
 # float32 against a float64 plain run: chip_smoke.py's rule, within
 # F32_FACTOR times the plain float32 version's own error plus F32_FLOOR of
@@ -2028,7 +2027,9 @@ F32_FACTOR, F32_FLOOR = 10.0, 1e-5
 def test_cuda_two_warp_knots_match_plain(cuda_device, name, robot, dtype):
     """fd_du and id_du at 33, 34 and 46 joints (libraries built at first
     use) take the plan TWO_WARP_SHARED says: more than a warp a knot in
-    shared memory, else the device-memory route. Each launches once on 37 lanes (a
+    shared memory, else the device-memory route (id_du) or one knot on
+    chip, a block or a cluster of blocks of 256 threads and no workspace
+    (fd_du). Each launches once on 37 lanes (a
     ragged block) and holds its float64 plain version within TOL of each
     output's scale in float64, by the float32 rule in float32."""
     nj = TWO_WARP_ROBOTS[robot]
@@ -2041,6 +2042,9 @@ def test_cuda_two_warp_knots_match_plain(cuda_device, name, robot, dtype):
     if nj in TWO_WARP_SHARED.get((name, dtype), ()):
         assert p["knots_per_block"] >= 1 and p["threads_per_knot"] > 32
         assert p["workspace_bytes"] == 0
+    elif name == "fd_du":
+        assert p["knots_per_block"] == 1 and p["workspace_bytes"] == 0
+        assert p["threads_per_knot"] == 256 * p["cluster_blocks"]
     else:
         assert p["knots_per_block"] == 0 and p["workspace_bytes"] > 0
     rng = np.random.default_rng(5)

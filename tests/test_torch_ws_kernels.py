@@ -1,6 +1,6 @@
 """The kernels above 28 joints on the host: their block plans, and the
-block code of the instances that the device-memory routes changed or
-added.
+block code of the instances that the device-memory routes and the on-chip
+routes changed or added.
 
 * Every block plan of every kernel but the second-order pair, at every
   joint count from 29 to 64 in float32 and float64, holds a knot (problem,
@@ -11,10 +11,18 @@ added.
 * A host C++ build of the kernels whose plans changed (fd_du, id_du, minv,
   fd, the three Riccati instances, the rollouts and the line search; their
   device-memory instances run one knot a block with csrc/warp.cuh:
-  WS_LANES threads), at 34 and 52 joints (atlas with grippers and with
-  hands, tests/torch_big_robots.py), driven over a few lanes through
-  ctypes as tests/test_torch_kernels.py drives its harness, against the
-  plain PyTorch versions in float64 (1e-9 of each output's scale).
+  WS_LANES threads; fd_du and the dense riccati run one knot or problem a
+  block or a thread-block cluster with its state on chip instead:
+  csrc/warp.cuh: FDChipPlan, csrc/sweep_warp.cuh: RicChipPlan), at 34 and
+  52 joints (atlas with grippers and with hands,
+  tests/torch_big_robots.py), driven over a few lanes through ctypes as
+  tests/test_torch_kernels.py drives its harness, against the plain
+  PyTorch versions in float64 (1e-9 of each output's scale).
+* The on-chip programs of fd_du and the dense riccati with the plans of
+  both dtypes (the chunks, slabs and threads of each; run in float64), and
+  with the race check on: no entry of the knot's or problem's state
+  written by two threads of one phase, and the same bits with each phase's
+  threads in reverse order.
 * idsva_so's device-memory tile (csrc/warp.cuh: IDSOTilePlan,
   idsva_so_knot_to; the float64 plan's G and threads a knot, on the lists
   so_lists_host builds, as the library's gridtorch_so_lists does for the
@@ -60,16 +68,25 @@ PLANS = r"""
 using namespace gt;
 
 // name, dtype, joints, G, threads, bytes a block, device-memory bytes a
-// block, and whether the instance has a device-memory route
+// block, blocks a problem (a cluster's on chip)
 template <class P>
 void row(const char* name, const char* dt, int nj) {
-  std::printf("%s %s %d %d %d %lld %lld\n", name, dt, nj, (int)P::G,
+  std::printf("%s %s %d %d %d %lld %lld %d\n", name, dt, nj, (int)P::G,
               (int)P::LANES, (long long)P::BYTES,
-              (long long)PlanWs<P>::value);
+              (long long)PlanWs<P>::value, PlanCluster<P>::value);
+}
+// the route's plan: on chip where the shared-memory plan holds no knot
+template <bool CHIP, class Chip, class Shared>
+void route(const char* name, const char* dt, int nj) {
+  if constexpr (CHIP)
+    row<Chip>(name, dt, nj);
+  else
+    row<Shared>(name, dt, nj);
 }
 template <typename T, int NJ>
 void plans(const char* dt) {
-  row<FDPlan<T, NJ>>("fd_du", dt, NJ);
+  route<fd_on_chip<T, NJ>(), FDChipPlan<T, NJ>, FDPlan<T, NJ>>("fd_du", dt,
+                                                                NJ);
   row<IDUPlan<T, NJ>>("id_du", dt, NJ);
   row<MinvPlan<T, NJ>>("minv", dt, NJ);
   row<FDPlanQ<T, NJ>>("fd", dt, NJ);
@@ -80,8 +97,10 @@ void plans(const char* dt) {
   row<DJPlan<T, NJ>>("deepos", dt, NJ);
   row<D2Plan<T, NJ>>("d2eepos", dt, NJ);
   row<RicPlan<T, NJ>>("riccati_factored", dt, NJ);
-  row<RicPlan<T, NJ, RIC_STATIONARY>>("riccati", dt, NJ);
-  row<RicPlan<T, NJ, RIC_DENSE>>("riccati_stacked", dt, NJ);
+  route<ric_on_chip<T, NJ, RIC_STATIONARY>(), RicChipPlan<T, NJ>,
+        RicPlan<T, NJ, RIC_STATIONARY>>("riccati", dt, NJ);
+  route<ric_on_chip<T, NJ, RIC_DENSE>(), RicChipPlan<T, NJ>,
+        RicPlan<T, NJ, RIC_DENSE>>("riccati_stacked", dt, NJ);
   row<LSPlan<T, NJ>>("linesearch", dt, NJ);
   row<RollPlan<T, NJ>>("rollout", dt, NJ);
   row<FBPlan<T, NJ>>("feedback_rollout", dt, NJ);
@@ -176,6 +195,41 @@ extern "C" void threads_##NJ(int* out) {                                    \
   out[2] = MinvPlan<double, NJ>::LANES;                                     \
   out[3] = FDPlanQ<double, NJ>::LANES;                                      \
   out[4] = RicPlan<double, NJ>::LANES;                                      \
+  out[5] = FDChipPlan<double, NJ>::LANES;                                   \
+  out[6] = FDChipPlan<double, NJ>::CL;                                      \
+  out[7] = RicChipPlan<double, NJ>::LANES;                                  \
+  out[8] = RicChipPlan<double, NJ>::CL;                                     \
+  out[9] = fd_on_chip<double, NJ>();                                        \
+  out[10] = ric_on_chip<double, NJ, RIC_STATIONARY>();                      \
+  out[11] = ric_on_chip<double, NJ, RIC_DENSE>();                           \
+}                                                                           \
+extern "C" void fdc_##NJ(const double* m, const double* q,                 \
+    const double* qd, const double* u, double* d, double* a, double* mi,    \
+    ll L, int f32plan) {                                                    \
+  if (f32plan)                                                              \
+    fd_du_chip_host<double, NJ, float>(m, q, qd, u, d, a, mi, L, -9.81);    \
+  else                                                                      \
+    fd_du_chip_host<double, NJ, double>(m, q, qd, u, d, a, mi, L, -9.81);   \
+}                                                                           \
+extern "C" void ricc_##NJ(const double* A, const double* Bm,               \
+    const double* lx, const double* lu, const double* lxx,                  \
+    const double* luu, const double* lux, int stationary,                   \
+    const double* Vx0, const double* Vxx0, double* ks, double* Ks, int N,   \
+    ll B, double reg, int f32plan) {                                        \
+  const DenseIn<double, NJ, true, 1> st{A, Bm, lx, lu, lxx, luu, lux, B};   \
+  const DenseIn<double, NJ, false, 1> dn{A, Bm, lx, lu, lxx, luu, lux, B};  \
+  if (stationary && f32plan)                                                \
+    riccati_chip_host<double, NJ, true, float>(st, Vx0, Vxx0, ks, Ks, N, B, \
+                                               reg);                        \
+  else if (stationary)                                                      \
+    riccati_chip_host<double, NJ, true, double>(st, Vx0, Vxx0, ks, Ks, N,   \
+                                                B, reg);                    \
+  else if (f32plan)                                                         \
+    riccati_chip_host<double, NJ, false, float>(dn, Vx0, Vxx0, ks, Ks, N,   \
+                                                B, reg);                    \
+  else                                                                      \
+    riccati_chip_host<double, NJ, false, double>(dn, Vx0, Vxx0, ks, Ks, N,  \
+                                                 B, reg);                   \
 }                                                                           \
 extern "C" void idso_tile_##NJ(const double* m, const double* q,           \
     const double* qd, const double* qdd, double* out, ll L) {               \
@@ -209,38 +263,87 @@ def _cxx():
     return cxx
 
 
+_plan_rows = {}
+
+
+def plan_rows(tmp_path):
+    """The PLANS program's rows (a g++ build of the plan constants alone),
+    once: name, dtype, joints, G, threads, bytes a block, device-memory
+    bytes a block, blocks a problem."""
+    if not _plan_rows:
+        cxx = _cxx()
+        (tmp_path / "plans.cpp").write_text(PLANS)
+        exe = tmp_path / "plans"
+        subprocess.run([cxx, "-O0", "-std=c++17", "-I", str(CSRC),
+                        str(tmp_path / "plans.cpp"), "-o", str(exe)],
+                       check=True, capture_output=True, timeout=300)
+        out = subprocess.run([str(exe)], check=True, capture_output=True,
+                             text=True, timeout=60).stdout.split()
+        for i in range(0, len(out), 8):
+            name, dt, *nums = out[i:i + 8]
+            _plan_rows[name, dt, int(nums[0])] = tuple(map(int, nums[1:]))
+    return _plan_rows
+
+
 def test_plans_hold_a_knot_or_take_device_memory_from_29_to_64(tmp_path):
-    """Each plan at 29-64 joints in both dtypes: a knot in shared memory, or
-    (fd_du, id_du, minv, fd, the Riccati sweeps) the device-memory route,
-    within a block's shared memory either way; the rollouts' blocks fit
-    with their tiles in device memory where they must."""
-    cxx = _cxx()
-    (tmp_path / "plans.cpp").write_text(PLANS)
-    exe = tmp_path / "plans"
-    subprocess.run([cxx, "-O0", "-std=c++17", "-I", str(CSRC),
-                    str(tmp_path / "plans.cpp"), "-o", str(exe)], check=True,
-                   capture_output=True, timeout=300)
-    rows = subprocess.run([str(exe)], check=True, capture_output=True,
-                          text=True, timeout=60).stdout.split()
-    rows = [rows[i:i + 7] for i in range(0, len(rows), 7)]
+    """Each plan at 29-64 joints in both dtypes: a knot in shared memory,
+    or (id_du, minv, fd, riccati_factored) the device-memory route, or
+    (fd_du, the dense riccati) one knot or problem on chip, within a
+    block's shared memory every way; the rollouts' blocks fit with their
+    tiles in device memory where they must."""
+    rows = plan_rows(tmp_path)
     assert len(rows) == 16 * 2 * 36
-    ws_route = {"fd_du", "id_du", "minv", "fd", "riccati_factored", "riccati",
-                "riccati_stacked"}
+    ws_route = {"id_du", "minv", "fd", "riccati_factored"}
     seen_ws = set()
-    for name, dt, nj, g, lanes, nbytes, ws in rows:
-        nj, g, lanes, nbytes, ws = map(int, (nj, g, lanes, nbytes, ws))
+    for (name, dt, nj), (g, lanes, nbytes, ws, cl) in rows.items():
         where = f"{name} {dt} at {nj} joints"
         assert 0 < nbytes <= SMEM_LIMIT, where
-        assert 0 < lanes <= 512, where
+        assert 0 < lanes <= 512 * cl, where
         if g == 0:
             assert name in ws_route and ws > 0, where
             seen_ws.add(name)
         if name in ("fd_du", "id_du"):   # a thread a column of a pass
             assert lanes >= nj, where
+        if name in ("fd_du", "riccati", "riccati_stacked"):
+            assert ws == 0 and g >= 1, where
         if name in ("linesearch", "feedback_rollout") and ws:
             assert dt == "float64" and g >= 1, where
             seen_ws.add(name)
     assert seen_ws == ws_route | {"linesearch", "feedback_rollout"}
+
+
+# where fd_du and the dense riccati (stationary and stacked) keep one knot
+# or problem on chip, {name: (float32, float64)}: from 29 joints
+# (csrc/warp.cuh: CHIP_FROM), every count above the 28 their shared-memory
+# plans were built for
+ON_CHIP_FROM = {"fd_du": (29, 29), "riccati": (29, 29),
+                "riccati_stacked": (29, 29)}
+# the most joints whose problem one block holds in float32 (fd_du: all)
+ONE_BLOCK_F32 = {"fd_du": 64, "riccati": 54, "riccati_stacked": 54}
+
+
+@pytest.mark.parametrize("name", sorted(ON_CHIP_FROM))
+def test_onchip_plans_fit_a_block_or_cluster_from_29_to_64(tmp_path, name):
+    """fd_du's and the dense riccati's instances at 29-64 joints in both
+    dtypes: from 29 joints one knot or problem sits on chip in a block, or
+    in a cluster of at most 4 blocks, each
+    within the 232,448 bytes a block may use, with no device memory; one
+    block holds it in float32 up to 64 joints (fd_du) and 54 (riccati); a
+    block of 256 threads a cluster's rank, 512 alone (riccati)."""
+    rows = plan_rows(tmp_path)
+    for d, dt in enumerate(("float32", "float64")):
+        for nj in range(29, 65):
+            g, lanes, nbytes, ws, cl = rows[name, dt, nj]
+            where = f"{name} {dt} at {nj} joints"
+            if nj < ON_CHIP_FROM[name][d]:
+                assert cl == 1 and lanes <= 512, where
+                continue
+            assert g == 1 and ws == 0 and 0 < nbytes <= SMEM_LIMIT, where
+            assert cl in (1, 2, 4), where
+            assert lanes == 256 * cl * (2 if name != "fd_du" and cl == 1
+                                        else 1), where
+            if dt == "float32":
+                assert (cl == 1) == (nj <= ONE_BLOCK_F32[name]), where
 
 
 @pytest.fixture(scope="module")
@@ -279,11 +382,16 @@ def inputs(nj):
 
 def test_ws_instances_run_on_more_than_a_warp(ws_lib):
     """At 52 joints in float64 the device-memory instances run one knot a
-    block with WS_LANES threads: fd_du's columns and id_du's joints, more
-    than a warp's 32, each get a thread."""
-    out = (ctypes.c_int * 5)()
+    block with WS_LANES threads (id_du's joints, more than a warp's 32,
+    each get a thread; minv, fd, riccati_factored); fd_du and the dense
+    riccati run on chip instead: one knot or problem a cluster of 2 blocks
+    of 256 threads (fd_du's chunk columns a thread each, the other threads
+    folding df/du), and the shared-memory plan they replace would hold
+    none (WS_LANES)."""
+    out = (ctypes.c_int * 12)()
     ws_lib.threads_52(out)
-    assert list(out) == [128] * 5
+    assert list(out[:5]) == [128] * 5
+    assert list(out[5:]) == [512, 2, 512, 2, 1, 1, 1]
 
 
 @pytest.mark.parametrize("nj", sorted(HANDS))
@@ -299,6 +407,89 @@ def test_host_block_code_above_28_joints_matches_plain(ws_lib, name, nj):
         assert float((g - w).abs().max()) <= TOL * scale, name
     if name == "minv_upper":   # exact zeros below the diagonal
         assert not got[0].permute(2, 0, 1).tril(-1).any()
+
+
+ONCHIP = ("fd_du", "riccati", "riccati_stacked")
+
+
+def _onchip_run(lib, name, args, nj, f32plan):
+    """fd_du's or the dense riccati's on-chip program (FDChipPlan,
+    RicChipPlan) with the plan of float32 (f32plan) or float64, run in
+    float64 on the wrapper's arguments."""
+    if name == "fd_du":
+        m, q, qd, u, _ = args
+        n, L = q.shape
+        out = (torch.empty(n, 2 * n, L, dtype=q.dtype),
+               torch.empty(n, L, dtype=q.dtype),
+               torch.empty(n, n, L, dtype=q.dtype))
+        getattr(lib, f"fdc_{nj}")(
+            *map(tk._p, (tk.build.model_buffer(m), q, qd, u) + out),
+            ctypes.c_longlong(L), ctypes.c_int(f32plan))
+        return out
+    A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, reg = args
+    N, nx, n, B = Bm.shape
+    out = (torch.empty(N, n, B, dtype=A.dtype),
+           torch.empty(N, n, nx, B, dtype=A.dtype))
+    getattr(lib, f"ricc_{nj}")(
+        *map(tk._p, (A, Bm, lx, lu, lxx, luu, lux)),
+        ctypes.c_int(int(lxx.ndim == 3)), *map(tk._p, (Vx0, Vxx0) + out),
+        ctypes.c_int(N), ctypes.c_longlong(B), ctypes.c_double(reg),
+        ctypes.c_int(f32plan))
+    return out
+
+
+def _held(got, want, what):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert torch.isfinite(w).all()
+        scale = max(1.0, float(w.abs().max()))
+        assert float((g - w).abs().max()) <= TOL * scale, what
+
+
+@pytest.mark.parametrize("nj", sorted(HANDS))
+@pytest.mark.parametrize("plan", ("float32", "float64"))
+@pytest.mark.parametrize("name", ONCHIP)
+def test_host_onchip_programs_match_plain(ws_lib, name, plan, nj):
+    """fd_du's on-chip program (chunks of C gradient columns, df/du folded
+    chunk by chunk) and the dense riccati's (slabs of [Vxx A | Vxx B]
+    folded into the Q blocks) with each dtype's plan (its chunk or slab
+    width, threads and cluster) against the plain versions in float64,
+    within 1e-9 of each output's scale."""
+    m, args = inputs(nj)
+    got = _onchip_run(ws_lib, name, args[name], nj, plan == "float32")
+    _held(got, tk._outs(tk.WRAPPERS[name][1](*args[name])), name)
+
+
+@pytest.mark.parametrize("nj", sorted(HANDS))
+@pytest.mark.parametrize("name", ("fd_du", "riccati_stacked"))
+def test_host_onchip_phases_write_disjoint_entries(ws_lib, name, nj):
+    """The on-chip programs with the float64 plan (at 52 joints a cluster
+    of 2 blocks for both) on one knot or problem of two knots, with the
+    race check on: no entry of the state written by two threads of one
+    phase, the same bits with each phase's threads in reverse order, and
+    within 1e-9 of the plain version's scale."""
+    m, args = inputs(nj)
+    if name == "fd_du":
+        mm, q, qd, u, gr = args[name]
+        case = (mm, q[:, :1].contiguous(), qd[:, :1].contiguous(),
+                u[:, :1].contiguous(), gr)
+    else:
+        *knots, Vx0, Vxx0, reg = args[name]   # knots: a leading N axis
+        case = (*(a[:2, ..., :1].contiguous() for a in knots),
+                Vx0[:, :1].contiguous(), Vxx0[..., :1].contiguous(), reg)
+    outs = []
+    ws_lib.race_watch(1)
+    try:
+        for reverse in (0, 1):
+            ws_lib.race_reverse(reverse)
+            ws_lib.race_reset()
+            outs.append(_onchip_run(ws_lib, name, case, nj, 0))
+            assert ws_lib.race_count() == 0
+    finally:
+        ws_lib.race_reverse(0)
+        ws_lib.race_watch(0)
+    assert all(torch.equal(a, b) for a, b in zip(*outs))
+    _held(outs[0], tk._outs(tk.WRAPPERS[name][1](*case)), name)
 
 
 # idsva_so's routes (csrc/warp.cuh: idso_route) where the whole tile does
