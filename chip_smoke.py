@@ -175,20 +175,24 @@ Phases, one line each:
      12 joints each (tests/torch_big_robots.py, loaded by file path; 52
      joints): its library's nvcc seconds (built in phase 1) and every
      thread-group plan at 52 joints (knots a block, shared bytes, the
-     device-memory route's workspace bytes: id_du and riccati_factored in
-     both dtypes, minv and fd in float64; blocks a problem), and the
-     on-chip plans of fd_du and the stationary and stacked riccati at 34,
-     52 and 64 joints (a knot or problem a block or a cluster, no
-     workspace); in float64
+     device-memory route's workspace bytes: minv and fd in float64; blocks
+     a problem), and the on-chip plans of fd_du, id_du and the factored,
+     stationary and stacked riccati at 34, 52 and 64 joints (a knot or
+     problem a block or a cluster, no workspace); in float64
      every kernel but the second-order pair against its plain version at 1
      lane and 37 (a ragged block), the sweeps at N = 8 (riccati_factored,
      the stationary and stacked riccati, the rollouts, the line search with
      the EE cost, QuadCost and none), within 1e-9 of each output's scale,
-     one launch a call, and fd_du and the dense riccati on 37 lanes at 34
-     and 64 joints too (atlas_grippers34, atlas_grippers64, their libraries
-     built in phase 1); rnea, minv, crba, aba, fd, id_du and fd_du against
+     one launch a call, and the on-chip kernels at 34 and 64 joints too
+     (atlas_grippers34, atlas_grippers64, their libraries built in phase
+     1; riccati_factored and id_du on 1 and 37 lanes, fd_du and the dense
+     riccati on 37; at 34 joints riccati_factored (N = 2) and id_du also
+     on STRIDE13 problems and lanes, each cluster taking more than one);
+     rnea, minv, crba, aba, fd, id_du and fd_du against
      the oracle on 3 lanes (1e-10 of scale); in float32 the Riccati sweeps,
-     the feedback rollout and the line search at N = 8 by the float32 rule;
+     the feedback rollout and the line search at N = 8 by the float32 rule,
+     and riccati_factored at N = 64 on 2048 problems and id_du on 65536
+     lanes beside their bounds;
      config 5 (S 4096, N 16, 2 iterations, float32, QuadCost, dt 0.002:
      the fingers' damping makes the Euler step diverge at 0.01, in the JAX
      reference too) through the rollout, fd_du over 65536 lanes, the
@@ -204,8 +208,8 @@ Phases, one line each:
      route at 28, 34 and 52 joints (fdsva_so composed above 22 | 17
      joints; idsva_so's tile in device memory at 34 and 52); (a) in
      float64 GRiD.idsva_so and GRiD.fdsva_so at 1 and 37 lanes, and
-     GRiD.idsva_so at L_STRIDE14 (each block more than one group of
-     lanes), against their plain versions within 1e-9 of each output's
+     GRiD.idsva_so at L_STRIDE14 on atlas_grippers34 (each block more than
+     one group of lanes), against their plain versions within 1e-9 of each output's
      scale, each call launching idsva_so (and fd_du for fdsva_so) once and
      nothing plain; float32 GRiD.idsva_so at 34 joints on those L_STRIDE14
      lanes by the float32 rule; (b) in float32 on
@@ -220,7 +224,8 @@ Phases, one line each:
      beside the kernel solve with fdsva_so's output scaled by 1 + EPS14
      against the unscaled one over all 4 iterations: each pair's share
      within F64_REL at every iteration it ran.
-Then a JSON line of per-kernel results (launches on the main paths of
+Then each phase's seconds (`phase_seconds:`, phase 1 from the build's
+start), a JSON line of per-kernel results (launches on the main paths of
 phases 4-14, error, times, and the roofline bound: the larger of the bytes
 each call must move over 3.35 TB/s and the operations its function needs,
 counted by utils/opcount.py, over 67 TFLOP/s float32; beside them the
@@ -291,9 +296,17 @@ PERIODS5, S5_F64 = 3, 64
 HANDS13, DT13 = 12, 0.002
 # atlas_grippers64 (an 18-joint gripper a side), and the kernels that keep
 # one knot or problem on chip above the block limit, held in float64 at 34,
-# 52 and 64 joints
+# 52 and 64 joints (riccati_factored and id_du on 1 and 37 lanes, the others
+# on 37); riccati_factored (at N = 2) and id_du also on STRIDE13 problems
+# and lanes at 34 joints, more than the card's 132 SMs hold at once (one
+# knot or problem an SM there)
 GRIPPERS13 = 18
-ONCHIP13 = ("fd_du", "riccati", "riccati_stacked")
+ONCHIP13 = ("fd_du", "id_du", "riccati_factored", "riccati",
+            "riccati_stacked")
+STRIDE13 = 300
+# phase 13's float32 shapes of the on-chip riccati_factored (config 3's N
+# and B) and id_du (config 5's N S lanes), timed beside their bounds
+RIC13_BIG, IDU13_LANES = (64, 2048), 65536
 # one closed-loop period there (phase 8 runs PERIODS5 on atlas): each is a
 # 1.3 s step, cut for the run's time limit
 PERIODS13 = 1
@@ -821,6 +834,9 @@ def main():
         run added last (where its time goes)."""
         return round(time.perf_counter() - t0, 1)
 
+    # each phase's start (elapsed()), for the phase_seconds line
+    phase_start = {1: 0.0}
+
     # the robots above 28 joints of phases 13 and 14 (tests/
     # torch_big_robots.py): atlas with two hands, atlas with two grippers
     spec = importlib.util.spec_from_file_location(
@@ -1013,8 +1029,11 @@ def main():
         ``name`` on ``args`` -> ``out`` (bound_ms, bound_by "bytes" or
         "operations"): each input and output tensor moved once, and the
         operations one lane of the function needs (utils/opcount.py) times
-        the lanes; and the operations the kernel executes (ops_executed)."""
-        kw, extra = {}, ()
+        the lanes; and the operations the kernel executes (ops_executed).
+        A Riccati sweep's count is N times one knot's (every knot runs the
+        same arithmetic: counted at N = 1, for the counting's time at 52
+        joints)."""
+        kw, extra, knots = {}, (), 1
         if name in ("rollout", "feedback_rollout"):
             kw, lanes = dict(N=args[2].shape[0]), args[1].shape[-1]
         elif name.startswith("linesearch"):
@@ -1022,24 +1041,24 @@ def main():
             kw, lanes = dict(N=args[2].shape[0], cost=cost), args[6].numel()
             extra = () if cost is None else (build.cost_buffer(cost, args[1]),)
         elif name == "riccati_factored":
-            kw = dict(N=args[0].shape[0], rank=args[4].shape[0])
+            kw, knots = dict(N=1, rank=args[4].shape[0]), args[0].shape[0]
             lanes = args[0].shape[-1]
         elif name.startswith("riccati"):
             name = "riccati"
-            kw = dict(N=args[0].shape[0], stationary=args[4].ndim == 3)
-            lanes = args[0].shape[-1]
+            kw = dict(N=1, stationary=args[4].ndim == 3)
+            knots, lanes = args[0].shape[0], args[0].shape[-1]
         else:
             lanes = args[1].shape[-1]
             if name in ("eepos", "deepos", "d2eepos"):
                 extra = (build.ee_buffer(model),)
         if isinstance(args[0], type(model)):
             extra += (build.model_buffer(model),)
-        ops = opcount.ops_per_lane(name, model, **kw) * lanes
+        ops = opcount.ops_per_lane(name, model, **kw) * lanes * knots
         ms, by = opcount.bound_ms(ops, opcount.tensor_bytes(args, out, extra),
                                   model.dtype)
         return {"bound_ms": ms, "bound_by": by, "ops": ops,
                 "ops_executed": opcount.ops_per_lane(
-                    name, model, executed=True, **kw) * lanes}
+                    name, model, executed=True, **kw) * lanes * knots}
 
     kernels = {
         "fd_du": (K.fd_du, K.fd_du_plain, K.SOURCES[K.FD_DU],
@@ -1108,6 +1127,7 @@ def main():
                      if t is not None)
 
     # -- phase 2: small float64 --------------------------------------------
+    phase_start[2] = elapsed()
     m64 = build_model(topo, dtype=torch.float64, device=dev)
     ins = path_inputs(m64, 8, 37, seed=1)
     small = {}
@@ -1359,6 +1379,7 @@ def main():
                         "cases": vs_oracle, "elapsed_s": elapsed()})
 
     # -- phase 3: config-3 shapes, float32 ----------------------------------
+    phase_start[3] = elapsed()
     m32 = build_model(topo, dtype=torch.float32, device=dev)
     m32_64 = m32.to(dtype=torch.float64)
     hyq32 = build_model(load_robot("hyq"), dtype=torch.float32, device=dev)
@@ -1605,6 +1626,7 @@ def main():
                          "replaces": repl} | new_f32[key]
 
     # -- phase 4: the slice ------------------------------------------------
+    phase_start[4] = elapsed()
     n = m32.n
     goal = eepose.eepos(m32, torch.full((n, 1), 0.5, device=dev))[:3, 0]
     cost = EEReachCost(model=m32, goal_xyz=goal, w_pos=0.5, w_pos_f=200.0)
@@ -1759,6 +1781,7 @@ def main():
     del track
 
     # -- phase 5: configs 1 and 2 and the rest of the API through GRiD -----
+    phase_start[5] = elapsed()
     grids = {robot: (GRiD(robot, dtype=torch.float32, device=dev),
                      GRiD(robot, dtype=torch.float32, device=dev,
                           use_kernels=False),
@@ -2003,6 +2026,7 @@ def main():
             for key, v in so_rows.items()}
 
     # -- phase 6: config 4 (SQP) and config 3's QuadCost task -------------
+    phase_start[6] = elapsed()
     def first64(make, cfg_cls, cfg_kw, model32, goal, x0n, c_k32, f64_at,
                 cost_of=None):
         """On the first 64 problems: the float32 kernel solve's final costs,
@@ -2168,6 +2192,7 @@ def main():
                           "launches": path_runs[-1], "phases": phases_q})
 
     # -- phase 7: the generated per-robot modules --------------------------
+    phase_start[7] = elapsed()
     gen = {}
     with tempfile.TemporaryDirectory() as tmp:
         # atlas: its fdsva_so on the composed route, as the JAX generated
@@ -2229,6 +2254,7 @@ def main():
                      "device": smi, "elapsed_s": elapsed()})
 
     # -- phase 8: config 5, scenario-tree MPC on one card ------------------
+    phase_start[8] = elapsed()
     step5 = {"rollout": 1, "fd_du": ITERS5, "riccati": ITERS5,
              "linesearch_rollout": ITERS5}
     config5, grid5, ref5 = {}, {}, {}
@@ -2399,6 +2425,7 @@ def main():
                 "launches_per_step")} for robot, v in config5.items()}
 
     # -- phase 9: the per-knot cost route ----------------------------------
+    phase_start[9] = elapsed()
     class RampTracking(CostModel):
         """A user cost of the knot index t, neither stationary nor
         time-invariant: 0.5 s_t (x - x_ref[t])^T Q (x - x_ref[t])
@@ -2582,6 +2609,7 @@ def main():
         f"linesearch_nocost N={N} 1x{B}"]
 
     # -- phase 10: config 3 with parallel_riccati --------------------------
+    phase_start[10] = elapsed()
     # phase 4's task and x0, the backward the associative suffix scan in
     # plain torch (trajopt/priccati.py): no Riccati kernel runs
     cfg10 = dict(N=N, dt=DT, iters=ITERS, parallel_riccati=True)
@@ -2668,6 +2696,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- phase 11: the floating base -------------------------------------
+    phase_start[11] = elapsed()
     # GRiD on *_floating robots: every first-order method on the plain
     # twins, on the card (the kernels are fixed-base)
     floating = {}
@@ -2818,6 +2847,7 @@ def main():
                            "elapsed_s": elapsed()})
 
     # -- phase 12: config 5 on a mesh ---------------------------------------
+    phase_start[12] = elapsed()
     # the float32 rule's reference: phase 8's one-card step in float64 on
     # the same (float32-rounded) scenario states and robot constants
     plan12 = {"device": str(dev), "S": S5, "timed": True,
@@ -2861,6 +2891,7 @@ def main():
         mesh5["robots"].items()})
 
     # -- phase 13: above 28 joints: atlas with hands -------------------------
+    phase_start[13] = elapsed()
     t = time.perf_counter()
     build.lib(nj13)
     lib13 = {"seconds": round(time.perf_counter() - t, 3),
@@ -2869,20 +2900,20 @@ def main():
     plans13 = {f"{what} {str(dt)[6:]}": build.warp_kernel_info(what, nj13, dt)
                for what in build.WARP_KERNELS
                if what not in ("idsva_so", "fdsva_so") for dt in dtypes}
-    # the instances on the device-memory route: a knot (problem) a block,
-    # its state in a workspace the wrapper allocates
+    # the instances on the device-memory route: a knot a block, its state
+    # in a workspace the wrapper allocates (minv and fd in float64; the
+    # others keep theirs in shared memory or on chip)
     ws13 = sorted(k for k, v in plans13.items() if v["workspace_bytes"])
-    want_ws = sorted(f"{w} {d}" for w in ("id_du", "riccati_factored")
-                     for d in ("float32", "float64")) + ["fd float64",
-                                                         "minv float64"]
+    want_ws = ["fd float64", "minv float64"]
     for k, v in plans13.items():
         if v["knots_per_block"] < 1 and not v["workspace_bytes"]:
             raise AssertionError(f"{k} at {nj13} joints: no plan")
     if ws13 != sorted(want_ws):
         raise AssertionError(f"device-memory instances at {nj13} joints: "
                              f"{ws13}")
-    # fd_du and the dense riccati on chip at 34, 52 and 64 joints: a knot or
-    # problem a block or a cluster (csrc/warp.cuh: ChipPack), no workspace
+    # fd_du, id_du and the Riccati sweeps on chip at 34, 52 and 64 joints: a
+    # knot or problem a block or a cluster (csrc/warp.cuh: ChipPack), no
+    # workspace
     onchip13 = {f"{what} {str(dt)[6:]} nj{nj}": build.warp_kernel_info(
         what, nj, dt) for what in ONCHIP13 for nj in (nj34, nj13, nj64)
         for dt in dtypes}
@@ -2945,22 +2976,52 @@ def main():
         held64(f"{topo13.name} L={lanes}", cases, held)
         f64_13 |= {f"{case} L={lanes}": v for case, v in held.items()}
         del cases, quad
-    # fd_du and the dense riccati (on chip) at 34 and 64 joints too, on a
-    # ragged block of lanes (one lane: at 52); for the time limit, phase
-    # 13's plain versions of config 5's kernels are timed once (they take
-    # seconds a call at 52 joints)
+    # the on-chip kernels at 34 and 64 joints too: riccati_factored and
+    # id_du on 1 lane and 37 (a ragged block), fd_du and the dense riccati
+    # on 37 (one lane: at 52); for the time limit, phase 13's plain versions
+    # of config 5's kernels are timed once (they take seconds a call at 52
+    # joints)
+    def first_lane(case, args):
+        """A case's inputs of its first lane or problem (riccati_factored's
+        lx, lu, Jw in the knot-major lanes t B + b)."""
+        if case == "id_du":
+            return (args[0], *(a[:, :1].contiguous() for a in args[1:4]),
+                    args[4])
+        A, Bm, lx, lu, Jw, Vx0, Vxx0, *rest = args
+        lanes = torch.arange(A.shape[0], device=dev) * A.shape[-1]
+        return (A[..., :1].contiguous(), Bm[..., :1].contiguous(),
+                lx[:, lanes].contiguous(), lu[:, lanes].contiguous(),
+                Jw[..., lanes].contiguous(), Vx0[:, :1].contiguous(),
+                Vxx0[..., :1].contiguous(), *rest)
+
     for topo in (topo34, topo64):
         mk = build_model(topo, dtype=torch.float64, device=dev)
-        for lanes in (37,):
-            ins = quad_inputs(mk, 8, lanes, seed=13, dt=DT13)
-            cases = {c: ins[c] for c in ONCHIP13 if c != "fd_du"} | {
-                "fd_du": lane_cases(mk, lanes, seed=13,
-                                    with_fd_du=True)["fd_du"]}
+        ins = quad_inputs(mk, 8, 37, seed=13, dt=DT13)
+        grid_in = lane_cases(mk, 37, seed=13, with_fd_du=True)
+        cases = {"fd_du": grid_in["fd_du"], "id_du": grid_in["id_du"],
+                 "riccati_factored": path_inputs(
+                     mk, 8, 37, seed=13, dt=DT13)["riccati_factored"],
+                 "riccati": ins["riccati"],
+                 "riccati_stacked": ins["riccati_stacked"]}
+        for lanes, held_cases in ((37, cases), (1, {
+                c: first_lane(c, cases[c])
+                for c in ("id_du", "riccati_factored")})):
             held = {}
-            held64(f"{topo.name} L={lanes}", cases, held)
+            held64(f"{topo.name} L={lanes}", held_cases, held)
             f64_13 |= {f"{topo.name} {case} L={lanes}": v
                        for case, v in held.items()}
-        del mk, ins, cases
+        if topo is topo34:
+            # more knots and problems than the card holds clusters: each
+            # cluster takes two or three in turn, its state reused
+            held = {}
+            held64(f"{topo.name} L={STRIDE13}", {
+                "id_du": lane_cases(mk, STRIDE13, seed=13)["id_du"],
+                "riccati_factored": path_inputs(
+                    mk, 2, STRIDE13, seed=13,
+                    dt=DT13)["riccati_factored"]}, held)
+            f64_13 |= {f"{topo.name} {case} L={STRIDE13}": v
+                       for case, v in held.items()}
+        del mk, ins, cases, grid_in
     covered = {kernel_of.get(c.split(" ")[0], c.split(" ")[0]) for c in f64_13}
     if not all_kernels - {"idsva_so", "fdsva_so"} <= covered:
         raise AssertionError(f"{topo13.name}: kernels not held "
@@ -2986,17 +3047,62 @@ def main():
     torch.cuda.empty_cache()
 
     # float32: the sweeps that config 5 does not run, at N = 8 on 37
-    # problems, by the float32 rule
+    # problems, by the float32 rule (the plain versions, seconds a call
+    # here, timed once: the time the striding holds above take)
     m = build_model(topo13, dtype=torch.float32, device=dev)
     f64_of[id(m)] = m.to(dtype=torch.float64)
     ins13 = path_inputs(m, 8, 37, seed=14, dt=DT13) | quad_inputs(
         m, 8, 37, seed=14, dt=DT13)
     f32_13 = {case: timed_f32(f"{topo13.name} {case} N=8", *fns_of[case],
-                              ins13[case], m, kernel_of.get(case, case), 3)
+                              ins13[case], m, kernel_of.get(case, case), 3,
+                              plain_iters=1)
               for case in ("riccati_factored", "riccati_stacked",
                            "feedback_rollout", "linesearch_nocost")}
     line("hands52_f32_small", {"N": 8, "B": 37, "cases": f32_13})
     del ins13
+    # the on-chip riccati_factored at config 3's N and B and id_du on
+    # IDU13_LANES lanes (float32, inputs ~ U(-1, 1): A = I + dt U, B = dt U,
+    # a rank-3 factor; q, qd, qdd), one launch a call, finite outputs: ms
+    # beside the bound (the plain versions take seconds a call there)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    rnd = lambda *sh: torch.rand(*sh, generator=gen, device=dev) * 2 - 1
+    N13, B13 = RIC13_BIG
+    nx13 = 2 * nj13
+    eye13 = torch.eye(nx13, device=dev)[None, :, :, None]
+    big13 = {"riccati_factored": (
+        (eye13 + DT13 * rnd(N13, nx13, nx13, B13)).contiguous(),
+        (DT13 * rnd(N13, nx13, nj13, B13)).contiguous(),
+        rnd(nx13, N13 * B13), rnd(nj13, N13 * B13), rnd(3, nj13, N13 * B13),
+        rnd(nx13, B13), (10 * eye13[0].expand(nx13, nx13, B13)).contiguous(),
+        1e-6, 0.1, 1e-2), "id_du": (m, *(rnd(nj13, IDU13_LANES)
+                                         for _ in range(3)), GRAVITY)}
+    del eye13
+    onchip_f32 = {}
+    for name, args in big13.items():
+        build.reset_counters()
+        out = as_tuple(fns_of[name][0](*args))
+        torch.cuda.synchronize()
+        if (dict(build.LAUNCHES) != {name: 1} or build.PLAIN_CALLS
+                or not all(bool(torch.isfinite(o).all()) for o in out)):
+            raise AssertionError(f"{topo13.name} {name} float32 at its big "
+                                 f"shape: launches {dict(build.LAUNCHES)}, "
+                                 f"finite outputs required")
+        onchip_f32[name] = {"ms": time_cuda(
+            lambda: fns_of[name][0](*args), iters=3)} | {
+            k: v for k, v in roofline(name, m, args, out).items()
+            if k in ("bound_ms", "bound_by")} | {
+            "plan": {f: v for f, v in build.warp_kernel_info(
+                name, nj13, torch.float32).items()
+                if f in ("cluster_blocks", "threads_per_knot",
+                         "smem_bytes_per_block", "registers", "local_bytes",
+                         "blocks_per_sm")}}
+        del out
+    onchip_f32["riccati_factored"] |= {"N": N13, "B": B13}
+    onchip_f32["id_du"]["lanes"] = IDU13_LANES
+    line("hands52_onchip_f32", onchip_f32 | {"device": smi,
+                                             "elapsed_s": elapsed()})
+    del big13
+    torch.cuda.empty_cache()
 
     # config 5 on atlas_hands52
     n = m.n
@@ -3198,6 +3304,7 @@ def main():
     torch.cuda.empty_cache()
 
     # -- phase 14: the second order above 28 joints --------------------------
+    phase_start[14] = elapsed()
     t = time.perf_counter()
     build.lib(nj34)
     lib14 = {"seconds": round(time.perf_counter() - t, 3),
@@ -3239,7 +3346,10 @@ def main():
                                       dtype=torch.float64, device=dev)
                       for _ in range(3))
             for method, want in so_launches.items():
-                if b == L_STRIDE14 and method != "idsva_so":
+                # the striding blocks' code is the same at every count:
+                # held at 34 joints (2 knots a block in float64)
+                if b == L_STRIDE14 and (method != "idsva_so"
+                                        or tp is not topo34):
                     continue
                 what = f"{tp.name} GRiD.{method} B={b} float64"
                 build.reset_counters()
@@ -3483,6 +3593,10 @@ def main():
         "idsva_so_bound_ms"]
     del res14, m, m64, tr64, x14, U14, solve14, parts14
     torch.cuda.empty_cache()
+    phase_start[15] = elapsed()
+    line("phase_seconds", {k: round(phase_start[k + 1] - phase_start[k], 1)
+                           for k in range(1, 15)} | {
+        "last_phase_end_s": phase_start[15]})
     print(smi, flush=True)
 
     path_launches = {k: sum(run.get(k, 0) for run in path_runs)

@@ -7,30 +7,40 @@ card.
                                [--out build/compare_kernels.json]
     python3 compare_kernels.py --other DIR --hands52
 
-``--hands52`` compares only fd_du and the dense riccati (stationary and
-per knot) at 52 joints (atlas_hands52, tests/torch_big_robots.py), where a
-knot or problem does not fit a block beside others (an earlier tree's
-device-memory route, this tree's on-chip one): each tree's fd_du.cu and
-riccati.cu compiled at 52 joints with ``-Xptxas -v`` (registers, stack and
-spills of each instance), each tree's block plans, and the device time of
-a launch in float32 at config 5's shapes (fd_du over N S = 65536 lanes,
-riccati at N = 16, S = 4096; the stacked riccati at N = 16 on 512
-problems) on the same inputs (a seed's random states and controls for
-fd_du; for the sweeps A = I + dt (random), B = dt (random), an SPD
-curvature), in turns: the others, this, this, the others in reverse; and
-the largest difference of each output from the first other tree's,
-relative to its scale, and for the sweeps each tree's from a float64 plain
-run on the first 8 problems (`err_vs_f64`). It also clocks this tree's on-chip programs phase
-by phase at those shapes in float32 (fd_du.cu and riccati.cu built with
+``--hands52`` compares only fd_du, id_du and the Riccati sweeps
+(factored, stationary and per knot) at 52 joints (atlas_hands52,
+tests/torch_big_robots.py), where a knot or problem does not fit a block
+beside others (an earlier tree's device-memory route, this tree's on-chip
+one): each tree's fd_du.cu, id_du.cu and riccati.cu compiled at 52 joints
+with ``-Xptxas -v`` (registers, stack and spills of each instance), each
+tree's block plans, and the device time of a launch in float32 at config
+5's shapes (fd_du over N S = 65536 lanes, riccati at N = 16, S = 4096;
+the stacked riccati at N = 16 on 512 problems), riccati_factored at N = 8
+on 37 problems and at config 3's N = 64 on 2048 (a rank-3 factor), id_du
+on 1, 1024 and 65536 lanes, on the same inputs (a seed's random states
+and controls for fd_du and id_du; for the sweeps A = I + dt (random), B =
+dt (random), an SPD curvature), in turns: the others, this, this, the
+others in reverse; and the largest difference of each output from the
+first other tree's, relative to its scale, and for the sweeps each tree's
+from a float64 plain run on the first 8 problems (`err_vs_f64`). It also
+clocks this tree's on-chip programs phase by phase at those shapes in
+float32 (fd_du.cu, id_du.cu and riccati.cu built with
 ``-DGT_CHIP_CLOCK``: clock64() after each phase of one lane or problem,
 one cluster alone on the card; `phase_cycles`, the riccati's grouped by
 step of its knot program and averaged over the knots), and times this
-tree's two routes at the joint counts of ``--thresholds`` (kernel:dtype:
+tree's routes at the joint counts of ``--thresholds`` (kernel:dtype:
 joints items; by default fd_du and the stationary riccati at 28 joints,
-atlas, in both dtypes, just below where the on-chip routes take over;
-atlas with grippers above 28), config 5's shapes: the route the library
-takes there against the on-chip program forced there
-(`gridtorch_riccati_chip_forced`, `gridtorch_fd_du_chip_forced`).
+atlas, in both dtypes, just below where the on-chip routes take over, and
+riccati_factored and id_du at 28-46 joints in float32 and 28-32 in
+float64; atlas with grippers or hands above 28), config 5's shapes (for
+riccati_factored config 3's): the route the library takes there against
+the on-chip program forced there (`gridtorch_riccati_chip_forced`,
+`gridtorch_fd_du_chip_forced`), and for riccati_factored and id_du the
+shared-memory plan against the on-chip one, both forced
+(`gridtorch_riccati_factored_forced`, `gridtorch_id_du_forced`). Last,
+``GRiD.id_du`` at B = 1 and 1024 through each tree's own package (its
+library of 52 joints built at the first call), µs a call, in the same
+turns (`grid_id_du_us`).
 
 Each DIR is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive``), named by its directory. The
@@ -732,8 +742,10 @@ extern "C" int idu_shape(int passes, int nj, const void* model,
                          void* out, long long L) {
   if (nj != GT_NJ) return (int)cudaErrorInvalidValue;
   if (passes == 1)
-    return launch_id_du<float, GT_NJ, 1>(model, q, qd, qdd, out, L, -9.81, 0);
-  return launch_id_du<float, GT_NJ, 2>(model, q, qd, qdd, out, L, -9.81, 0);
+    return launch_id_du_shared<float, GT_NJ, 1>(model, q, qd, qdd, out, L,
+                                                -9.81, 0);
+  return launch_id_du_shared<float, GT_NJ, 2>(model, q, qd, qdd, out, L,
+                                              -9.81, 0);
 }
 
 // the d2eepos kernel at shape (lanes threads a lane, g lanes a block),
@@ -1204,7 +1216,8 @@ def compare_sass(work: Path, other: str, joints, sources) -> dict:
 
 
 KERNEL_NAMES = ("fd_du_chip_kernel", "fd_du_ws_kernel", "riccati_chip_kernel",
-                "riccati_ws_kernel",
+                "riccati_ws_kernel", "id_du_chip_kernel", "id_du_ws_kernel",
+                "riccati_factored_ws_kernel",
                 "fd_du_kernel", "fdsva_so_kernel", "riccati_factored_kernel",
                 "linesearch_kernel", "riccati_kernel", "rollout_kernel",
                 "riccati_dense_kernel", "idsva_so_kernel",
@@ -1230,7 +1243,12 @@ def parse_ptxas(text: str) -> dict:
         name = m.group(1)[:-7]
         if name == "linesearch":
             name += "_ee" if "EECost" in mangled else "_quad"
-        if name in ("riccati", "riccati_chip", "riccati_ws"):
+        rest = mangled[m.end():]
+        if name == "riccati_chip" and rest.startswith("Li"):
+            # the curvature (RIC_FACTORED 0, RIC_DENSE 1, RIC_STATIONARY 2)
+            name += {"Li0E": "_factored", "Li1E": "_stacked",
+                     "Li2E": "_stationary"}[rest[:4]]
+        elif name in ("riccati", "riccati_chip", "riccati_ws"):
             name += "_stationary" if "Lb1E" in mangled else "_stacked"
         if name == "rnea" and "RneaModeE0E" in mangled:   # RNEA_BIAS
             name += "_bias"
@@ -1272,13 +1290,21 @@ def parse_ptxas(text: str) -> dict:
     return stats
 
 
-def bind(libs: dict, kernels, scratch: bool) -> dict:
+def takes_workspace(tree: Path, src: str) -> bool:
+    """Whether the tree's entry point in csrc/``src`` takes a device-memory
+    workspace and its blocks last (id_du's did until it ran on chip above
+    28 joints)."""
+    path = tree / "gridcodegenerator_tpu_torch" / "csrc" / src
+    return path.exists() and "long long nws" in path.read_text()
+
+
+def bind(libs: dict, kernels, scratch: bool, idu_ws: bool) -> dict:
     P, I, L, D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                   ctypes.c_double)
     # the kernels with a device-memory route take its workspace and blocks
     # last (None, 0 here: every count timed keeps its knots in shared
     # memory); an earlier tree's entry points without them ignore the two
-    # trailing arguments
+    # trailing arguments; id_du takes them only in an earlier tree (idu_ws)
     ws = [P, L]
     sig = {"fd_du": [I, I, P, P, P, P, P, P, P, L, D, P] + ws,
            "fdsva_so": ([I, I, P, P, P, P, P, P, L, D, P] if scratch
@@ -1289,7 +1315,7 @@ def bind(libs: dict, kernels, scratch: bool) -> dict:
            "rollout": [I, I] + [P] * 6 + [I, L, D, D, P],
            "idsva_so": [I, I, P, P, P, P, P, L, D, P, P, I, I],
            "feedback_rollout": [I, I] + [P] * 10 + [I, L, D, D, P] + ws,
-           "id_du": [I, I, P, P, P, P, P, L, D, P] + ws,
+           "id_du": [I, I, P, P, P, P, P, L, D, P] + (ws if idu_ws else []),
            "d2eepos": [I, I, P, P, I, P, P, L, P],
            "rnea": [I, I, P, P, P, P, P, L, D, P],
            "aba": [I, I, P, P, P, P, P, L, D, P],
@@ -1440,7 +1466,38 @@ def to64(args, m64):
     return (m64,) + tuple(one(a) for a in args[1:])
 
 
-THRESHOLDS = "fd_du:f32:28,fd_du:f64:28,riccati:f32:28,riccati:f64:28"
+# --hands52: GRiD.id_du on atlas_hands52 in float32 through one tree's own
+# package (argv[1]; its library of 52 joints built at the first call), µs a
+# call at B = 1 and 1024 on inputs ~ U(-1, 1), as chip_smoke.py's phase 13
+# times it: {B: µs} on the last line
+GRID_ID_DU = """
+import json, sys
+import numpy as np
+import torch
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/tests"]
+from gridcodegenerator_tpu_torch.api import GRiD
+from gridcodegenerator_tpu_torch.topology.urdf import parse_urdf
+from gridcodegenerator_tpu_torch.utils.timing import time_cuda
+from torch_big_robots import atlas_hands_name, atlas_hands_urdf
+dev = torch.device("cuda:0")
+g = GRiD(parse_urdf(atlas_hands_urdf(12), name=atlas_hands_name(12)),
+         dtype=torch.float32, device=dev)
+rng = np.random.default_rng(5)
+us = {}
+for batch, iters in ((1, 50), (1024, 10)):
+    x = tuple(torch.as_tensor(rng.uniform(-1, 1, (batch, g.n)),
+                              dtype=torch.float32, device=dev)
+              for _ in range(3))
+    us[batch] = time_cuda(lambda: g.id_du(*x), iters=iters) * 1e3
+print(json.dumps(us))
+"""
+
+THRESHOLDS = ("fd_du:f32:28,fd_du:f64:28,riccati:f32:28,riccati:f64:28,"
+              + ",".join(f"{k}:f32:{j}" for k in ("riccati_factored", "id_du")
+                         for j in (28, 30, 34, 38, 42, 46))
+              + "," + ",".join(f"{k}:f64:{j}"
+                               for k in ("riccati_factored", "id_du")
+                               for j in (28, 30, 32)))
 
 
 def thresholds(work: Path, time_cuda, items: str) -> dict:
@@ -1460,6 +1517,8 @@ def thresholds(work: Path, time_cuda, items: str) -> dict:
     out_dir = work / "thresholds"
     out_dir.mkdir()
 
+    srcs = ("fd_du.cu", "riccati.cu", "id_du.cu")
+
     def one(job):
         nj, src = job
         subprocess.run([exe, *flags, f"-DGT_NJ={nj}", "-DGT_CHIP_CLOCK",
@@ -1468,17 +1527,16 @@ def thresholds(work: Path, time_cuda, items: str) -> dict:
                        capture_output=True)
 
     with concurrent.futures.ThreadPoolExecutor(os.cpu_count() or 1) as pool:
-        list(pool.map(one, [(nj, src) for nj in joints
-                            for src in ("fd_du.cu", "riccati.cu")]))
+        list(pool.map(one, [(nj, src) for nj in sorted(joints, reverse=True)
+                            for src in srcs]))
     dev = torch.device("cuda:0")
     stream = torch.cuda.current_stream(dev).cuda_stream
     res = {f"{k} {d}": {} for k, d, _ in want}
     for nj in joints:
         lib = out_dir / f"lib{nj}.so"
         subprocess.run([exe, *flags, "-shared",
-                        str(out_dir / f"fd_du.cu.nj{nj}.o"),
-                        str(out_dir / f"riccati.cu.nj{nj}.o"), "-o",
-                        str(lib)], check=True, capture_output=True)
+                        *(str(out_dir / f"{src}.nj{nj}.o") for src in srcs),
+                        "-o", str(lib)], check=True, capture_output=True)
         h = ctypes.CDLL(str(lib))
         h.gridtorch_fd_du.argtypes = [I, I] + [P] * 7 + [L, ctypes.c_double,
                                                          P, P, L]
@@ -1489,6 +1547,11 @@ def thresholds(work: Path, time_cuda, items: str) -> dict:
                                                     + [I, L, P, L, P])
         h.gridtorch_riccati_chip_forced.restype = L
         h.gridtorch_riccati_info.argtypes = [I, I, P]
+        h.gridtorch_riccati_factored_forced.argtypes = (
+            [I, I] + [P] * 9 + [I, L, I, ctypes.c_double, ctypes.c_double,
+                                P, L, P])
+        h.gridtorch_riccati_factored_forced.restype = L
+        h.gridtorch_id_du_forced.argtypes = [I, I] + [P] * 5 + [L, P]
         k = (nj - 28) // 2
         topo = parse_urdf(atlas_hands_urdf(k), name=atlas_hands_name(k))
         for kernel, dname, _ in (w for w in want if w[2] == nj):
@@ -1506,7 +1569,11 @@ def thresholds(work: Path, time_cuda, items: str) -> dict:
 def threshold_times(h, kernel, m, code, stream, time_cuda) -> dict:
     """One kernel's route and its forced on-chip program on model m (the
     library h of its joint count), config 5's shapes: {route_ms,
-    chip_ms}."""
+    chip_ms}; riccati_factored (config 3's N = 64 on 2048 problems) and
+    id_du (65536 lanes; also 1024 and 1, the keys' _L1024 and _L1):
+    {shared_ms (the shared-memory plan, null where it holds no problem or
+    knot), chip_ms (the on-chip program)}, each the forced route of
+    gridtorch_riccati_factored_forced or gridtorch_id_du_forced."""
     from gridcodegenerator_tpu_torch.ops.cuda import build
 
     dev, nj = m.device, m.n
@@ -1515,6 +1582,46 @@ def threshold_times(h, kernel, m, code, stream, time_cuda) -> dict:
                                    dtype=m.dtype) * 2 - 1)
     ptr = lambda t: None if t is None else t.data_ptr()
     n, nx = nj, 2 * nj
+
+    def forced(call):
+        """ms a call of call(), or None where the route does not exist
+        (cudaErrorInvalidValue: no problem or knot fits its plan)."""
+        err = call()
+        if err == 1:
+            return None
+        build.check(err, kernel)
+        return time_cuda(lambda: build.check(call(), kernel), iters=3)
+
+    if kernel == "id_du":
+        mb = build.model_buffer(m)
+        res = {}
+        for lanes in (65536, 1024, 1):
+            q, qd, qdd = rand(n, lanes), rand(n, lanes), rand(n, lanes)
+            out = torch.empty(n, 2 * n, lanes, device=dev, dtype=m.dtype)
+            args = (ptr(mb), ptr(q), ptr(qd), ptr(qdd), ptr(out))
+            at = "" if lanes == 65536 else f"_L{lanes}"
+            res |= {f"{k}_ms{at}": forced(
+                lambda r=r: h.gridtorch_id_du_forced(code, r, *args, lanes,
+                                                     stream))
+                for k, r in (("shared", 0), ("chip", 1))}
+        return res
+    if kernel == "riccati_factored":
+        N, B, r, dt = 64, 2048, 3, 0.002
+        eye = lambda k: torch.eye(k, device=dev, dtype=m.dtype)[:, :, None]
+        A = (eye(nx)[None] + dt * rand(N, nx, nx, B)).contiguous()
+        Bm = (dt * rand(N, nx, n, B)).contiguous()
+        ins = (A, Bm, rand(nx, N * B), rand(n, N * B), rand(r, n, N * B),
+               rand(nx, B), (10 * eye(nx).expand(nx, nx, B)).contiguous())
+        outs = (torch.empty(N, n, B, device=dev, dtype=m.dtype),
+                torch.empty(N, n, nx, B, device=dev, dtype=m.dtype))
+        a = tuple(map(ptr, ins + outs))
+        per = h.gridtorch_riccati_factored_forced(
+            code, 1, *([None] * 9), N, B, r, 0.1, 1e-2, None, 0, None)
+        rec = torch.empty(per, device=dev, dtype=m.dtype)
+        return {f"{k}_ms": forced(
+            lambda c=c: h.gridtorch_riccati_factored_forced(
+                code, c, *a, N, B, r, 0.1, 1e-2, ptr(rec), rec.numel(),
+                stream)) for k, c in (("shared", 0), ("chip", 1))}
     if kernel == "fd_du":
         lanes = 16 * 4096
         mb = build.model_buffer(m)
@@ -1574,8 +1681,8 @@ def threshold_times(h, kernel, m, code, stream, time_cuda) -> dict:
 
 def hands52(trees: dict, work: Path, time_cuda,
             threshold_items: str = THRESHOLDS) -> dict:
-    """--hands52: fd_du and the dense riccati of every tree at 52 joints
-    (the module's docstring)."""
+    """--hands52: fd_du, id_du and the Riccati sweeps of every tree at 52
+    joints (the module's docstring)."""
     from gridcodegenerator_tpu_torch.models.model import build_model
     from gridcodegenerator_tpu_torch.topology.urdf import parse_urdf
     sys.path.insert(0, str(ROOT / "tests"))
@@ -1588,21 +1695,27 @@ def hands52(trees: dict, work: Path, time_cuda,
     nj, dev = 52, torch.device("cuda:0")
     out = {"ptxas": {}, "plans": {}, "ms": {}, "rel_diff": {},
            "err_vs_f64": {}}
-    libs = {}
+    libs, idu_ws = {}, {}
     for name, tree in trees.items():
         (work / name).mkdir()
         built, report, _ = compile_tree(tree, work / name,
-                                        ["fd_du.cu", "riccati.cu"],
-                                        joints=(nj,))
+                                        ["fd_du.cu", "riccati.cu",
+                                         "id_du.cu"], joints=(nj,))
         out["ptxas"][name] = {k: v for k, v in parse_ptxas(report).items()
-                              if "nj52" in k and (k.startswith("fd_du")
-                                                  or k.startswith("riccati"))
-                              and "factored" not in k}
+                              if "nj52" in k and k.startswith(
+                                  ("fd_du", "riccati", "id_du"))}
         h = ctypes.CDLL(str(built[nj]))
         h.gridtorch_fd_du.argtypes = [I, I] + [P] * 7 + [L, D, P, P, L]
         h.gridtorch_riccati.argtypes = ([I, I] + [P] * 7 + [I] + [P] * 4
                                         + [I, L, D, P, P, L])
-        for what in ("fd_du", "riccati", "riccati_stacked"):
+        h.gridtorch_riccati_factored.argtypes = ([I, I] + [P] * 9
+                                                 + [I, L, I, D, D, D, P, P,
+                                                    L])
+        idu_ws[name] = takes_workspace(tree, "id_du.cu")
+        h.gridtorch_id_du.argtypes = ([I, I] + [P] * 5 + [L, D, P]
+                                      + ([P, L] if idu_ws[name] else []))
+        for what in ("fd_du", "riccati", "riccati_stacked",
+                     "riccati_factored", "id_du"):
             getattr(h, f"gridtorch_{what}_info").argtypes = [I, I, P]
         libs[name] = h
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -1618,9 +1731,15 @@ def hands52(trees: dict, work: Path, time_cuda,
         this tree's problem-major copy of the sweep's inputs (B records)."""
         h = libs[name]
         inputs = getattr(h, "gridtorch_riccati_inputs", None)
-        if what != "fd_du" and inputs is not None:
+        if what in ("riccati", "riccati_stacked") and inputs is not None:
             inputs.argtypes, inputs.restype = [I, I, I, I], L
             per = inputs(0, nj, N, int(what == "riccati"))
+            if per > 0:
+                return torch.empty(units * per, device=dev), units * per
+        inputs = getattr(h, "gridtorch_riccati_factored_inputs", None)
+        if what == "riccati_factored" and inputs is not None:
+            inputs.argtypes, inputs.restype = [I, I, I], L
+            per = inputs(0, nj, N)
             if per > 0:
                 return torch.empty(units * per, device=dev), units * per
         p = plan(name, what)
@@ -1654,12 +1773,62 @@ def hands52(trees: dict, work: Path, time_cuda,
         return (A, Bm, rand(N, nx, B), rand(N, n, B), lxx, luu, lux,
                 rand(nx, B), (10 * eye(nx).expand(nx, nx, B)).contiguous())
 
+    def factored(N, B, r=3):
+        eye = lambda k: torch.eye(k, device=dev)[:, :, None]
+        A = (eye(nx)[None] + dt * rand(N, nx, nx, B)).contiguous()
+        Bm = (dt * rand(N, nx, n, B)).contiguous()
+        return (A, Bm, rand(nx, N * B), rand(n, N * B), rand(r, n, N * B),
+                rand(nx, B), (10 * eye(nx).expand(nx, nx, B)).contiguous())
+
+    def first_problems(args, k):
+        """riccati_factored's inputs of its first k problems (lx, lu, Jw
+        in the knot-major lanes t B + b)."""
+        A, Bm, lx, lu, Jw, Vx0, Vxx0 = args
+        N, B = A.shape[0], A.shape[-1]
+        lanes = (torch.arange(N, device=dev)[:, None] * B
+                 + torch.arange(k, device=dev)).reshape(-1)
+        return (A[..., :k], Bm[..., :k], lx[:, lanes], lu[:, lanes],
+                Jw[..., lanes], Vx0[:, :k], Vxx0[..., :k])
+
+    # the cases: config 5's fd_du and dense sweeps; riccati_factored at
+    # N = 8 on 37 problems and at config 3's N = 64 on 2048; id_du on 1,
+    # 1024 and 65536 lanes (u as qdd); {case: kernel}
     cases = {"fd_du": None, "riccati": sweep(16, 4096, True),
-             "riccati_stacked": sweep(16, 512, False)}
+             "riccati_stacked": sweep(16, 512, False),
+             "riccati_factored": factored(8, 37),
+             "riccati_factored_N64": factored(64, 2048),
+             "id_du": 65536, "id_du_L1024": 1024, "id_du_L1": 1}
+    kernel_of = {"riccati_factored_N64": "riccati_factored",
+                 "id_du_L1024": "id_du", "id_du_L1": "id_du"}
     ptr = lambda t: None if t is None else t.data_ptr()
 
-    def runner(name, what):
-        h = libs[name]
+    def runner(name, case):
+        h, what = libs[name], kernel_of.get(case, case)
+        if what == "id_du":
+            L = cases[case]
+            xs = tuple(x[:, :L].contiguous() for x in (q, qd, u))
+            outs = (torch.empty(n, 2 * n, L, device=dev),)
+            ws, nws = workspace(name, what, L)
+            wsa = (ptr(ws), nws) if idu_ws[name] else ()
+
+            def fn():
+                build.check(h.gridtorch_id_du(
+                    0, nj, ptr(mb), *map(ptr, xs), ptr(outs[0]), L, -9.81,
+                    stream, *wsa), what)
+            return fn, outs
+        if what == "riccati_factored":
+            A, Bm, lx, lu, Jw, Vx0, Vxx0 = cases[case]
+            N, B, r = A.shape[0], A.shape[-1], Jw.shape[0]
+            outs = (torch.empty(N, n, B, device=dev),
+                    torch.empty(N, n, nx, B, device=dev))
+            ws, nws = workspace(name, what, B, N)
+
+            def fn():
+                build.check(h.gridtorch_riccati_factored(
+                    0, nj, *map(ptr, (A, Bm, lx, lu, Jw, Vx0, Vxx0)),
+                    *map(ptr, outs), N, B, r, 1e-6, 0.1, 1e-2, stream,
+                    ptr(ws), nws), what)
+            return fn, outs
         if what == "fd_du":
             outs = (torch.empty(n, 2 * n, lanes, device=dev),
                     torch.empty(n, lanes, device=dev),
@@ -1672,7 +1841,7 @@ def hands52(trees: dict, work: Path, time_cuda,
                     *map(ptr, outs), lanes, -9.81, stream, ptr(ws), nws),
                     what)
             return fn, outs
-        A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0 = cases[what]
+        A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0 = cases[case]
         N, B = A.shape[0], A.shape[-1]
         outs = (torch.empty(N, n, B, device=dev),
                 torch.empty(N, n, nx, B, device=dev))
@@ -1691,7 +1860,7 @@ def hands52(trees: dict, work: Path, time_cuda,
     clk_dir = work / "clock"
     clk_dir.mkdir()
     objs = []
-    for src in ("fd_du.cu", "riccati.cu"):
+    for src in ("fd_du.cu", "riccati.cu", "id_du.cu"):
         obj = clk_dir / (src + ".o")
         subprocess.run([exe, *flags, f"-DGT_NJ={nj}", "-DGT_CHIP_CLOCK",
                         "-I", str(csrc), "-c", str(csrc / src), "-o",
@@ -1702,6 +1871,7 @@ def hands52(trees: dict, work: Path, time_cuda,
                    capture_output=True)
     hc = ctypes.CDLL(str(clk_dir / "libclock.so"))
     hc.gridtorch_fd_du_clock.argtypes = [P] * 9
+    hc.gridtorch_id_du_clock.argtypes = [P] * 7
     hc.gridtorch_riccati_clock.argtypes = [P] * 5 + [I, P, P]
     hc.gridtorch_riccati.argtypes = libs["this"].gridtorch_riccati.argtypes
     hc.gridtorch_riccati_inputs.argtypes = [I, I, I, I]
@@ -1717,6 +1887,13 @@ def hands52(trees: dict, work: Path, time_cuda,
     torch.cuda.synchronize()
     c = clk[:int(cnt)].cpu().numpy()
     out["phase_cycles"] = {"fd_du": [int(x) for x in np.diff(c)]}
+    clk.zero_()
+    build.check(hc.gridtorch_id_du_clock(
+        ptr(mb), *map(ptr, (one(q), one(qd), one(u), fouts[0])), ptr(clk),
+        ptr(cnt)), "id_du clock")
+    torch.cuda.synchronize()
+    c = clk[:int(cnt)].cpu().numpy()
+    out["phase_cycles"]["id_du"] = [int(x) for x in np.diff(c)]
     A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0 = cases["riccati"]
     N, B = A.shape[0], A.shape[-1]
     per = hc.gridtorch_riccati_inputs(0, nj, N, 1)
@@ -1752,37 +1929,53 @@ def hands52(trees: dict, work: Path, time_cuda,
 
     names = list(trees)
     order = names[1:] + ["this", "this"] + names[1:][::-1]
-    for what in cases:
-        out["plans"][what] = {name: {
+    for case in cases:
+        what = kernel_of.get(case, case)
+        out["plans"][case] = {name: {
             f: v for f, v in plan(name, what).items()
             if f in ("knots_per_block", "threads_per_knot",
                      "smem_bytes_per_block", "registers", "local_bytes",
                      "blocks_per_sm", "workspace_bytes", "cluster_blocks")}
             for name in names}
-        runs = {name: runner(name, what) for name in names}
+        runs = {name: runner(name, case) for name in names}
         for name in names:
             runs[name][0]()
         torch.cuda.synchronize()
         first = runs[names[1]][1]
-        out["rel_diff"][what] = max(
+        out["rel_diff"][case] = max(
             float((o - r).abs().max()) / max(1.0, float(r.abs().max()))
             for o, r in zip(runs["this"][1], first))
-        if what != "fd_du":
+        if what == "riccati_factored":
+            ref = S.riccati_factored_plain(
+                *(a.double() for a in first_problems(cases[case], 8)), 1e-6,
+                0.1, 1e-2)
+        elif what in ("riccati", "riccati_stacked"):
             ref = S.riccati_plain(*(a[..., :8].double()
-                                    for a in cases[what]), 1e-6)
-            out["err_vs_f64"][what] = {name: max(
+                                    for a in cases[case]), 1e-6)
+        if what not in ("fd_du", "id_du"):
+            out["err_vs_f64"][case] = {name: max(
                 float((o[..., :8].double() - r).abs().max())
                 / max(1.0, float(r.abs().max()))
                 for o, r in zip(runs[name][1], ref)) for name in names}
         ms = {name: [] for name in names}
         for name in order:
             ms[name].append(time_cuda(runs[name][0], iters=3))
-        out["ms"][what] = ms
-        print(f"hands52 {what}: " + json.dumps({
-            "ms": ms, "rel_diff": out["rel_diff"][what],
-            "err_vs_f64": out["err_vs_f64"].get(what)}), flush=True)
+        out["ms"][case] = ms
+        print(f"hands52 {case}: " + json.dumps({
+            "ms": ms, "rel_diff": out["rel_diff"][case],
+            "err_vs_f64": out["err_vs_f64"].get(case)}), flush=True)
         del runs
         torch.cuda.empty_cache()
+    us = {name: [] for name in names}
+    for name in order:
+        res = subprocess.run([sys.executable, "-c", GRID_ID_DU,
+                              str(trees[name])], cwd=trees[name],
+                             capture_output=True, text=True)
+        if res.returncode:
+            raise RuntimeError(f"GRiD.id_du in {name}:\n{res.stderr}")
+        us[name].append(json.loads(res.stdout.splitlines()[-1]))
+    out["grid_id_du_us"] = us
+    print("hands52 grid_id_du_us: " + json.dumps(us), flush=True)
     return out
 
 
@@ -1796,8 +1989,8 @@ def main():
                          "other tree's, not timed")
     ap.add_argument("--out", default="build/compare_kernels.json")
     ap.add_argument("--hands52", action="store_true",
-                    help="only fd_du and the dense riccati at 52 joints, "
-                         "config 5's shapes (the module's docstring)")
+                    help="only fd_du, id_du and the Riccati sweeps at 52 "
+                         "joints (the module's docstring)")
     ap.add_argument("--thresholds", default=THRESHOLDS,
                     help="with --hands52: kernel:dtype:joints items whose "
                          "route is timed against the forced on-chip one")
@@ -1848,7 +2041,8 @@ def main():
         result["ptxas"][name] = parse_ptxas(report)
         so_src = tree / "gridcodegenerator_tpu_torch" / "csrc" / "fdsva_so.cu"
         scratch = so_src.exists() and "void* scratch" in so_src.read_text()
-        libs[name] = bind(built, kernels, scratch), scratch
+        idu_ws = takes_workspace(tree, "id_du.cu")
+        libs[name] = bind(built, kernels, scratch, idu_ws), scratch, idu_ws
     for nj in JOINTS:
         for dtype in (torch.float32, torch.float64):
             for what in set(kernels) & set(build.WARP_KERNELS):
@@ -1935,7 +2129,8 @@ def main():
                     def fn():
                         build.check(lib.gridtorch_id_du(
                             0, n, ptr(mb), ptr(q), ptr(qd), ptr(u),
-                            ptr(outs[0]), lanes, -9.81, stream, None, 0), what)
+                            ptr(outs[0]), lanes, -9.81, stream,
+                            *((None, 0) if libs[tree][2] else ())), what)
                     return fn, outs
                 if what == "d2eepos":
                     outs = (d2_out(),)

@@ -200,8 +200,7 @@ extern "C" int gridtorch_model_size(int nj) {
 }
 
 // ws, nws: unused (every instance keeps its knots on chip), in the C
-// interface that id_du and the other kernels with a device-memory route
-// share.
+// interface that id_du and the kernels with a device-memory route share.
 extern "C" int gridtorch_fd_du(int dtype, int nj, const void* model,
                                const void* q, const void* qd, const void* u,
                                void* dfdu, void* qdd, void* Mi, long long L,

@@ -27,10 +27,24 @@
 // on an SM (a knot: 38 NJ^2 + 63 NJ values with one pass of 2 NJ columns,
 // 2303 at 7 joints, 9.2 KB float32). G, the threads a knot, the bytes a
 // block and cudaFuncGetAttributes of each instance: `gridtorch_id_du_info`.
-// Above 32 joints a knot takes 64 threads or more (a thread a joint and a
-// column of a pass); from 48 joints in float32 (34 in float64) no knot
-// fits a block, and the knot runs on the device-memory route
-// (id_du_ws_kernel, warp.cuh:WsPlan).
+// From 29 joints (warp.cuh: CHIP_FROM, idu_on_chip; where the shared plan
+// would give a knot 64 threads or more above 32 joints, and hold none
+// from 48 | 34 joints, float32 | float64) one knot runs a block of 128
+// threads with its state on chip (id_du_chip_kernel, warp.cuh:
+// IDUChipPlan, id_du_chip_lane; a cluster of 2 or 4 blocks where one block
+// cannot hold it): fd_du_chip_lane's program without Minv, the gradient's
+// columns in chunks of C by subtree size, C threads walking a column each
+// while the block's other threads store the chunk before straight to the
+// output, 2 NJ^2 scattered stores a knot spread over the walks' phases.
+// The on-chip plans (blocks a knot x threads a block, C, bytes a block),
+// float32 | float64:
+//   34 joints  1 x 128, C 36, 129824 | 1 x 128, C 24, 188512
+//   52 joints  1 x 128, C 36, 206000 | 1 x 128, C 12, 199616
+//   64 joints  1 x 128, C 28, 218704 | 1 x 128, C 8, 213904
+// What bounds it on the card: one knot's state takes most of an SM's
+// shared memory, so one knot runs an SM at a time and its serial phases'
+// latency (the RNEA's levels, then the longest walk of each chunk) sets the
+// rate.
 #include "warp.cuh"
 
 #ifdef __CUDACC__
@@ -59,47 +73,52 @@ __global__ void id_du_kernel(const T* __restrict__ model,
   gt::store_rows<T, S>(knots + O::DC, 2 * NJ * NJ, dcdu, L, l0, G, tid, nt);
 }
 
-// The device-memory route (warp.cuh:WsPlan; from 48 joints in float32, 34
-// in float64): a knot a block at a time, the robot constants in shared
-// memory, the knot's state in the workspace `ws` (a knot a block), the
-// blocks striding over the lanes (warp.cuh:ws_lanes).
-template <typename T, int NJ, int PASSES>
-__global__ void id_du_ws_kernel(const T* __restrict__ model,
-                                const T* __restrict__ q,
-                                const T* __restrict__ qd,
-                                const T* __restrict__ qdd,
-                                T* __restrict__ dcdu, long long L, T gravity,
-                                T* ws) {
-  using O = gt::IDUKnot<NJ, PASSES>;
-  constexpr int N = gt::IDUPlan<T, NJ, PASSES>::LANES, S = O::SIZE;
-  auto& R = *reinterpret_cast<gt::RobotConst<T, NJ>*>(gt_smem);
-  T* k = ws + (long long)blockIdx.x * S;
-  const int tid = threadIdx.x;
-  R.load(model, tid, N);
-  gt::ws_lanes(
-      L,
-      [&](long long l) {
-        gt::load_inputs<T, NJ, S>(q, qd, qdd, L, l, 1, k, tid, N);
-      },
-      [&] {
-        gt::id_du_knot<T, NJ, PASSES>(gt::WarpPar<N>{tid, 1}, R, k, gravity);
-      },
-      [&](long long l) {
-        gt::store_rows<T, S>(k + O::DC, 2 * NJ * NJ, dcdu, L, l, 1, tid, N);
-      });
+// On chip (warp.cuh:IDUChipPlan, idu_on_chip; from CHIP_FROM joints): a
+// knot a block or a cluster, the robot constants in rank 0's shared
+// memory, the knot's regions in the cluster's, the clusters striding over
+// the lanes (warp.cuh:id_du_chip_lane). CLOCKED (the phase
+// clock of a build with -DGT_CHIP_CLOCK, launched as one cluster): clk[0]
+// the start, then clock64() after each phase, *count the phases.
+template <typename T, int NJ, bool CLOCKED = false>
+__global__ void __launch_bounds__(gt::IDUChipPlan<T, NJ>::NT)
+    id_du_chip_kernel(const T* __restrict__ model, const T* __restrict__ q,
+                      const T* __restrict__ qd, const T* __restrict__ qdd,
+                      T* __restrict__ dcdu, long long L, T gravity,
+                      long long* clk, int* count) {
+  using P = gt::IDUChipPlan<T, NJ>;
+  char* smem = reinterpret_cast<char*>(gt_smem);
+  const int rank = gt::chip_rank<P::CL>(), tid = threadIdx.x;
+  if (rank == 0)
+    reinterpret_cast<gt::RobotConst<T, NJ>*>(smem)->load(model, tid, P::NT);
+  auto base = [&](int r) {
+    return reinterpret_cast<T*>(gt::chip_map<P::CL>(smem, r) +
+                                (r == 0 ? P::HEAD : 0));
+  };
+  T* rg[2] = {base(P::RK_BASE) + P::OF_BASE, base(P::RK_COL) + P::OF_COL};
+  const auto& R =
+      *reinterpret_cast<const gt::RobotConst<T, NJ>*>(gt::chip_map<P::CL>(
+          smem, 0));
+  gt::chip_sync<P::CL>();   // the constants have landed
+  int n = 1;
+  if (CLOCKED && rank == 0 && tid == 0) clk[0] = clock64();
+  const long long nc = gridDim.x / P::CL;
+  for (long long l = blockIdx.x / P::CL; l < L; l += nc)
+    gt::id_du_chip_lane<T, NJ, P>(
+        gt::ChipPar<P::LANES, P::CL, CLOCKED>{rank * P::NT + tid, clk, &n}, R,
+        rg, q, qd, qdd, dcdu, L, l, gravity);
+  if (CLOCKED && rank == 0 && tid == 0) *count = n;
+  gt::chip_sync<P::CL>();   // no block leaves while another reads it
 }
 
+// id_du's shared-memory plan (IDUPlan): G knots a block
 template <typename T, int NJ, int PASSES = gt::idu_passes<NJ>()>
-static int launch_id_du(const void* model, const void* q, const void* qd,
-                        const void* qdd, void* dcdu, long long L,
-                        double gravity, cudaStream_t stream,
-                        void* ws = nullptr, long long nws = 0) {
+static int launch_id_du_shared(const void* model, const void* q,
+                               const void* qd, const void* qdd, void* dcdu,
+                               long long L, double gravity,
+                               cudaStream_t stream) {
   using P = gt::IDUPlan<T, NJ, PASSES>;
-  if constexpr (P::WS > 0) {
-    return gt::launch_ws<P>(id_du_ws_kernel<T, NJ, PASSES>, L, ws, nws,
-                            stream, (const T*)model, (const T*)q,
-                            (const T*)qd, (const T*)qdd, (T*)dcdu, L,
-                            (T)gravity, (T*)ws);
+  if constexpr (P::G < 1) {
+    return (int)cudaErrorInvalidValue;   // no knot fits a block
   } else {
     if (L == 0) return 0;
     static const cudaError_t attr =
@@ -113,26 +132,88 @@ static int launch_id_du(const void* model, const void* q, const void* qd,
   }
 }
 
-// ws: the workspace of the device-memory route, nws knots, problems or
-// blocks (its plan's workspace_bytes each; ops/cuda/build.py:workspace);
-// ignored where the plan keeps everything in shared memory.
+template <typename T, int NJ>
+static int launch_id_du_chip(const void* model, const void* q,
+                             const void* qd, const void* qdd, void* dcdu,
+                             long long L, double gravity,
+                             cudaStream_t stream) {
+  return gt::launch_chip<gt::IDUChipPlan<T, NJ>>(
+      id_du_chip_kernel<T, NJ>, L, stream, (const T*)model, (const T*)q,
+      (const T*)qd, (const T*)qdd, (T*)dcdu, L, (T)gravity,
+      (long long*)nullptr, (int*)nullptr);
+}
+
+#ifdef GT_CHIP_CLOCK
+// The phase clock of the float32 instance on lane 0 of (n, 1) inputs.
+extern "C" int gridtorch_id_du_clock(const void* model, const void* q,
+                                     const void* qd, const void* qdd,
+                                     void* dcdu, void* clk, void* count) {
+  using T = float;
+  if constexpr (gt::idu_on_chip<T, GT_NJ>()) {
+    return gt::launch_chip<gt::IDUChipPlan<T, GT_NJ>>(
+        id_du_chip_kernel<T, GT_NJ, true>, 1, nullptr, (const T*)model,
+        (const T*)q, (const T*)qd, (const T*)qdd, (T*)dcdu, 1LL, (T)-9.81,
+        (long long*)clk, (int*)count);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+}
+
+// id_du at this joint count on a route of choice, to time the routes where
+// more than one exists: route 0 the shared-memory plan
+// (cudaErrorInvalidValue where no knot fits a block), 1 on chip; gravity
+// -9.81
+template <typename T>
+static int id_du_forced(int route, const void* model, const void* q,
+                        const void* qd, const void* qdd, void* dcdu,
+                        long long L, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (route == 0)
+    return launch_id_du_shared<T, GT_NJ>(model, q, qd, qdd, dcdu, L, -9.81,
+                                         st);
+  return launch_id_du_chip<T, GT_NJ>(model, q, qd, qdd, dcdu, L, -9.81, st);
+}
+
+extern "C" int gridtorch_id_du_forced(int dtype, int route,
+                                      const void* model, const void* q,
+                                      const void* qd, const void* qdd,
+                                      void* dcdu, long long L, void* stream) {
+  return (dtype == gt::kF32 ? id_du_forced<float> : id_du_forced<double>)(
+      route, model, q, qd, qdd, dcdu, L, stream);
+}
+#endif
+
+// id_du: on chip from CHIP_FROM joints (idu_on_chip), else the
+// shared-memory plan
+template <typename T, int NJ>
+static int launch_id_du(const void* model, const void* q, const void* qd,
+                        const void* qdd, void* dcdu, long long L,
+                        double gravity, cudaStream_t stream) {
+  if constexpr (gt::idu_on_chip<T, NJ>())
+    return launch_id_du_chip<T, NJ>(model, q, qd, qdd, dcdu, L, gravity,
+                                    stream);
+  else
+    return launch_id_du_shared<T, NJ>(model, q, qd, qdd, dcdu, L, gravity,
+                                      stream);
+}
+
 extern "C" int gridtorch_id_du(int dtype, int nj, const void* model,
                                const void* q, const void* qd, const void* qdd,
                                void* dcdu, long long L, double gravity,
-                               void* stream, void* ws, long long nws) {
+                               void* stream) {
   GT_DISPATCH(dtype, nj,
               launch_id_du<T, NJ>(model, q, qd, qdd, dcdu, L, gravity,
-                                  (cudaStream_t)stream, ws, nws));
+                                  (cudaStream_t)stream));
 }
 
 template <typename T, int NJ, int PASSES = gt::idu_passes<NJ>()>
 static int id_du_info(int* out) {
-  using P = gt::IDUPlan<T, NJ, PASSES>;
-  if constexpr (P::WS > 0)
-    return gt::kernel_info<P>((const void*)id_du_ws_kernel<T, NJ, PASSES>,
-                              out);
+  if constexpr (gt::idu_on_chip<T, NJ>())
+    return gt::kernel_info<gt::IDUChipPlan<T, NJ>>(
+        (const void*)id_du_chip_kernel<T, NJ>, out);
   else
-    return gt::kernel_info<P>((const void*)id_du_kernel<T, NJ, PASSES>, out);
+    return gt::kernel_info<gt::IDUPlan<T, NJ, PASSES>>(
+        (const void*)id_du_kernel<T, NJ, PASSES>, out);
 }
 
 // The block plan (G; threads a knot; bytes a block) and

@@ -32,23 +32,27 @@
 // `gridtorch_riccati_factored_info`, `gridtorch_riccati_info` (stationary),
 // `gridtorch_riccati_stacked_info`. riccati_lane and riccati_dense_lane are
 // the serial functions: csrc/opcount.cpp counts the bound from them, and
-// the host tests hold the block code to their bits. Where not even one
-// problem fits a block (from 30 to 48 joints, by curvature and dtype),
-// riccati_factored runs a problem a block at a time with 128 threads, its
-// state in device memory staged by plain copies (riccati_ws,
-// sweep_warp.cuh:RicPlan). The dense sweep from 29 joints (warp.cuh:
-// CHIP_FROM; stationary or a block per knot) keeps each problem
-// on chip instead (riccati_chip_kernel, sweep_warp.cuh:RicChipPlan,
-// riccati_chip_knot): a problem a block of 512 threads, or a
-// thread-block cluster of 2 or 4 blocks of 256 whose shared memory holds
-// the problem's regions between them (from 55 | 39 joints); the knot's
-// products are 4 x 4 register tiles a thread over rows of shared memory,
-// [Vxx A | Vxx B] a slab of columns at a time folded into Qxx, Qux and
-// Quu, A and B of the next knot staged with cp.async once the slabs are
-// folded. What bounds it on the card: operations (O(NX^3) a knot); float32
-// stays on FP32 FMAs (TF32 keeps 3 digits) and float64 on FP64 FMAs (no
-// tensor-core instruction), and one problem an SM sets how many tiles a
-// phase has.
+// the host tests hold the block code to their bits. From 29 joints
+// (warp.cuh: CHIP_FROM, sweep_warp.cuh: ric_on_chip), where not even one
+// problem fits a block from 30 to 48 joints, every sweep (factored,
+// stationary or a block per knot) keeps each problem on chip instead
+// (riccati_chip_kernel, sweep_warp.cuh:RicChipPlan, riccati_chip_knot): a
+// problem a block of 512 threads, or a thread-block cluster of 2 or 4
+// blocks of 256 whose shared memory holds the problem's regions between
+// them (from 55 | 39 joints, float32 | float64); the knot's products are
+// 4 x 4 register tiles a thread over rows of shared memory, [Vxx A | Vxx
+// B] a slab of columns at a time folded into Qxx, Qux and Quu with the
+// curvature added where it is folded (the dense blocks read from device
+// memory, ChipDenseCurv; the factored blkdiag(Jw^T Jw, qd_diag I) and
+// u_diag I formed from the knot's Jw on chip, ChipFactoredCurv), A, B (and
+// Jw) of the next knot staged with cp.async once the slabs are folded.
+// The inputs are first copied problem-major (riccati_gather_kernel, a
+// record of N knots' tiles a problem, then the dense curvature; the
+// factored inputs' lx, lu and Jw, whose lanes are knot-major, land in each
+// knot's tile). What bounds it on the card: operations (O(NX^3) a knot);
+// float32 stays on FP32 FMAs (TF32 keeps 3 digits) and float64 on FP64
+// FMAs (no tensor-core instruction), and one problem an SM sets how many
+// tiles a phase has.
 //
 // Layouts: A (N, NX, NX, B), Bm (N, NX, NJ, B), Vx0 (NX, B),
 // Vxx0 (NX, NX, B); outputs k (N, NJ, B), K (N, NJ, NX, B).
@@ -318,54 +322,18 @@ __global__ void riccati_factored_kernel(
                                  ks, Ks, N, B, reg);
 }
 
-// The device-memory route (warp.cuh:WsPlan, RicPlan; from 30 to 48
-// joints, by curvature and dtype): a problem a block at a time, its state
-// in the workspace `ws` (a problem a block), staged by plain copies, the
-// blocks striding over the problems.
-template <typename T, int NJ, class P, class In>
-__device__ __forceinline__ void riccati_ws(const In& in, const T* Vx0,
-                                           const T* Vxx0, T* ks, T* Ks,
-                                           int N, long long B, T reg, T* ws) {
-  constexpr int W = P::LANES;
-  T* k = ws + (long long)blockIdx.x * P::STRIDE;
-  const int tid = threadIdx.x;
-  for (long long b = blockIdx.x; b < B; b += gridDim.x) {
-    __syncthreads();   // the last problem's gains are out
-    gt::riccati_block<T, NJ, 1, false>(gt::WarpPar<W>{tid, 1}, tid, W, 0, k,
-                                       P::STRIDE, b, in, Vx0, Vxx0, ks, Ks,
-                                       N, B, reg);
-  }
-}
-
+// riccati_factored's shared-memory plan (RicPlan): G problems a block
 template <typename T, int NJ>
-__global__ void riccati_factored_ws_kernel(
-    const T* __restrict__ A, const T* __restrict__ Bm,
-    const T* __restrict__ lx, const T* __restrict__ lu,
-    const T* __restrict__ Jw, const T* __restrict__ Vx0,
-    const T* __restrict__ Vxx0, T* __restrict__ ks, T* __restrict__ Ks,
-    int N, long long B, int r, T reg, T qd_diag, T u_diag, T* ws) {
+static int launch_factored_shared(const void* A, const void* Bm,
+                                  const void* lx, const void* lu,
+                                  const void* Jw, const void* Vx0,
+                                  const void* Vxx0, void* ks, void* Ks, int N,
+                                  long long B, int r, double reg,
+                                  double qd_diag, double u_diag,
+                                  cudaStream_t stream) {
   using P = gt::RicPlan<T, NJ>;
-  const gt::FactoredIn<T, NJ, P::BUFS> in{
-      A, Bm, lx, lu, Jw, B, N, r, qd_diag, u_diag};
-  riccati_ws<T, NJ, P>(in, Vx0, Vxx0, ks, Ks, N, B, reg, ws);
-}
-
-template <typename T, int NJ>
-static int launch_riccati(const void* A, const void* Bm, const void* lx,
-                          const void* lu, const void* Jw, const void* Vx0,
-                          const void* Vxx0, void* ks, void* Ks, int N,
-                          long long B, int r, double reg, double qd_diag,
-                          double u_diag, cudaStream_t stream,
-                          void* ws = nullptr, long long nws = 0) {
-  using P = gt::RicPlan<T, NJ>;
-  if (B == 0 || N == 0) return 0;
-  if (r < 1 || r > gt::RicKnot<NJ>::RMAX) return (int)cudaErrorInvalidValue;
-  if constexpr (P::WS > 0) {
-    return gt::launch_ws<P>(riccati_factored_ws_kernel<T, NJ>, B, ws, nws,
-                            stream, (const T*)A, (const T*)Bm, (const T*)lx,
-                            (const T*)lu, (const T*)Jw, (const T*)Vx0,
-                            (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, r, (T)reg,
-                            (T)qd_diag, (T)u_diag, (T*)ws);
+  if constexpr (P::G < 1) {
+    return (int)cudaErrorInvalidValue;   // no problem fits a block
   } else {
     static const cudaError_t attr =
         gt::smem_attrs(riccati_factored_kernel<T, NJ>, P::BYTES);
@@ -383,10 +351,12 @@ static int launch_riccati(const void* A, const void* Bm, const void* lx,
 template <typename T, int NJ, bool STAT>
 using DensePlan =
     gt::RicPlan<T, NJ, STAT ? gt::RIC_STATIONARY : gt::RIC_DENSE>;
+constexpr int dense_curv(bool STAT) {
+  return STAT ? gt::RIC_STATIONARY : gt::RIC_DENSE;
+}
 template <typename T, int NJ, bool STAT>
 constexpr bool dense_on_chip() {
-  return gt::ric_on_chip<T, NJ,
-                         STAT ? gt::RIC_STATIONARY : gt::RIC_DENSE>();
+  return gt::ric_on_chip<T, NJ, dense_curv(STAT)>();
 }
 
 template <typename T, int NJ, bool STAT>
@@ -411,14 +381,15 @@ __global__ void riccati_kernel(
 
 // One lane-major input (R rows of B lanes) into the problem-major records
 // (DS values a problem) of the on-chip sweep (sweep_warp.cuh:
-// gather_rows' map: row r = (g, w, x) to value off + g GS + w WP + x): a
-// 32 x 32 tile of rows and lanes a block, read along the lanes, written
+// gather_rows' map: row r = (g, w, x) to value off + g GS + w WP + x XS):
+// a 32 x 32 tile of rows and lanes a block, read along the lanes, written
 // along the rows.
 template <typename T>
 __global__ void riccati_gather_kernel(const T* __restrict__ src, long long R,
                                       long long B, int W, int WP, int G,
                                       long long GS, long long off,
-                                      T* __restrict__ dst, long long DS) {
+                                      long long XS, T* __restrict__ dst,
+                                      long long DS) {
   __shared__ T tile[32][33];
   const long long r0 = (long long)blockIdx.x * 32;
   const long long b0 = (long long)blockIdx.y * 32;
@@ -432,70 +403,116 @@ __global__ void riccati_gather_kernel(const T* __restrict__ src, long long R,
     const long long b = b0 + i, r = r0 + tx;
     if (r < R && b < B) {
       const long long g = r / ((long long)W * G), w = (r / W) % G;
-      dst[b * DS + off + g * GS + w * WP + r % W] = tile[tx][i];
+      dst[b * DS + off + g * GS + w * WP + (r % W) * XS] = tile[tx][i];
     }
   }
 }
 
-// On chip (sweep_warp.cuh:RicChipPlan; where DensePlan would take device
-// memory): a problem a block or a cluster, its state in the cluster's
+// On chip (sweep_warp.cuh:RicChipPlan, ric_on_chip; from CHIP_FROM
+// joints): a problem a block or a cluster, its state in the cluster's
 // shared memory, its inputs from its record in the problem-major copy
-// `rec` (DS values a problem), the clusters striding over the problems.
+// `rec` (DS values a problem), the clusters striding over the problems;
+// CURV the curvature (RIC_FACTORED: of rank r, with qd_diag and u_diag).
 // CLOCKED (the phase clock of a build with -DGT_CHIP_CLOCK, launched as one
 // cluster): clk[0] the start, then clock64() after each phase, *count the
 // phases.
-template <typename T, int NJ, bool STAT, bool CLOCKED = false>
-__global__ void __launch_bounds__(gt::RicChipPlan<T, NJ>::NT)
+template <typename T, int NJ, int CURV>
+using ChipPlanOf = gt::RicChipPlan<T, NJ, CURV == gt::RIC_FACTORED>;
+template <typename T, int NJ, int CURV, bool CLOCKED = false>
+__global__ void __launch_bounds__(ChipPlanOf<T, NJ, CURV>::NT)
     riccati_chip_kernel(const T* __restrict__ rec, long long DS,
                         const T* __restrict__ Vx0,
                         const T* __restrict__ Vxx0, T* __restrict__ ks,
-                        T* __restrict__ Ks, int N, long long B, T reg,
-                        long long* clk, int* count) {
-  using P = gt::RicChipPlan<T, NJ>;
+                        T* __restrict__ Ks, int N, long long B, T reg, int r,
+                        T qd_diag, T u_diag, long long* clk, int* count) {
+  using P = ChipPlanOf<T, NJ, CURV>;
   char* smem = reinterpret_cast<char*>(gt_smem);
   const int rank = gt::chip_rank<P::CL>(), tid = threadIdx.x;
   T* rg[7];
   P::regions(
-      [&](int r) { return reinterpret_cast<T*>(gt::chip_map<P::CL>(smem, r)); },
+      [&](int k) { return reinterpret_cast<T*>(gt::chip_map<P::CL>(smem, k)); },
       rg);
   int n = 1;
   if (CLOCKED && rank == 0 && tid == 0) clk[0] = clock64();
   const long long nc = gridDim.x / P::CL;
   for (long long b = blockIdx.x / P::CL; b < B; b += nc)
-    gt::riccati_chip_problem<T, NJ, P, STAT>(
+    gt::riccati_chip_problem<T, NJ, P, CURV>(
         gt::ChipPar<P::LANES, P::CL, CLOCKED>{rank * P::NT + tid, clk, &n},
-        rg, [&](int r) { return r == rank; }, tid, P::NT, rec + b * DS, Vx0,
-        Vxx0, ks, Ks, N, B, b, reg);
+        rg, [&](int k) { return k == rank; }, tid, P::NT, rec + b * DS, Vx0,
+        Vxx0, ks, Ks, N, B, b, reg, r, qd_diag, u_diag);
   if (CLOCKED && rank == 0 && tid == 0) *count = n;
   gt::chip_sync<P::CL>();   // no block leaves while another reads it
 }
 
 // The problem-major copy of the inputs (the on-chip sweep's records: each
-// tensor by riccati_gather_kernel) into `rec`, nrec values; then the sweep.
-template <typename T, int NJ, bool STAT>
-static int launch_chip_dense(const gt::DenseIn<T, NJ, STAT, 1>& in,
-                             const T* Vx0, const T* Vxx0, T* ks, T* Ks,
-                             int N, long long B, T reg, cudaStream_t stream,
-                             T* rec, long long nrec) {
-  using P = gt::RicChipPlan<T, NJ>;
+// tensor by riccati_gather_kernel) into `rec`, nrec values; then the sweep
+// (In: DenseIn, or FactoredIn with CURV RIC_FACTORED).
+template <typename T, int NJ, int CURV, class In>
+static int launch_chip_sweep(const In& in, const T* Vx0, const T* Vxx0,
+                             T* ks, T* Ks, int N, long long B, T reg,
+                             cudaStream_t stream, T* rec, long long nrec,
+                             int r = 0, T qd_diag = T(0), T u_diag = T(0)) {
+  using P = ChipPlanOf<T, NJ, CURV>;
+  constexpr bool STAT = CURV == gt::RIC_STATIONARY;
   const long long DS = P::O::record(N, STAT);
   if (rec == nullptr || nrec < B * DS) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSuccess;
   gt::ric_chip_gathers<typename P::O>(
       in, N, STAT,
       [&](const T* src, long long R, int W, int WP, int G, long long GS,
-          long long off) {
+          long long off, long long XS) {
         if (err != cudaSuccess) return;
         riccati_gather_kernel<T>
             <<<dim3((unsigned)((R + 31) / 32), (unsigned)((B + 31) / 32)),
-               dim3(32, 8), 0, stream>>>(src, R, B, W, WP, G, GS, off, rec,
-                                         DS);
+               dim3(32, 8), 0, stream>>>(src, R, B, W, WP, G, GS, off, XS,
+                                         rec, DS);
         err = cudaGetLastError();
       });
   if (err != cudaSuccess) return (int)err;
-  return gt::launch_chip<P>(riccati_chip_kernel<T, NJ, STAT>, B, stream,
+  return gt::launch_chip<P>(riccati_chip_kernel<T, NJ, CURV>, B, stream,
                             (const T*)rec, DS, Vx0, Vxx0, ks, Ks, N, B, reg,
-                            (long long*)nullptr, (int*)nullptr);
+                            r, qd_diag, u_diag, (long long*)nullptr,
+                            (int*)nullptr);
+}
+
+// riccati_factored on chip: the records of its inputs (A, B, lx, lu and Jw
+// a knot), then the sweep
+template <typename T, int NJ>
+static int launch_chip_factored(const void* A, const void* Bm,
+                                const void* lx, const void* lu,
+                                const void* Jw, const void* Vx0,
+                                const void* Vxx0, void* ks, void* Ks, int N,
+                                long long B, int r, double reg,
+                                double qd_diag, double u_diag,
+                                cudaStream_t stream, void* rec,
+                                long long nrec) {
+  const gt::FactoredIn<T, NJ, 1> in{
+      (const T*)A, (const T*)Bm, (const T*)lx, (const T*)lu, (const T*)Jw,
+      B,           N,            r,            (T)qd_diag,   (T)u_diag};
+  return launch_chip_sweep<T, NJ, gt::RIC_FACTORED>(
+      in, (const T*)Vx0, (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, (T)reg,
+      stream, (T*)rec, nrec, r, (T)qd_diag, (T)u_diag);
+}
+
+// riccati_factored: on chip from CHIP_FROM joints (ric_on_chip), else the
+// shared-memory plan
+template <typename T, int NJ>
+static int launch_riccati(const void* A, const void* Bm, const void* lx,
+                          const void* lu, const void* Jw, const void* Vx0,
+                          const void* Vxx0, void* ks, void* Ks, int N,
+                          long long B, int r, double reg, double qd_diag,
+                          double u_diag, cudaStream_t stream, void* rec,
+                          long long nrec) {
+  if (B == 0 || N == 0) return 0;
+  if (r < 1 || r > gt::RicKnot<NJ>::RMAX) return (int)cudaErrorInvalidValue;
+  if constexpr (gt::ric_on_chip<T, NJ, gt::RIC_FACTORED>())
+    return launch_chip_factored<T, NJ>(A, Bm, lx, lu, Jw, Vx0, Vxx0, ks, Ks,
+                                       N, B, r, reg, qd_diag, u_diag, stream,
+                                       rec, nrec);
+  else
+    return launch_factored_shared<T, NJ>(A, Bm, lx, lu, Jw, Vx0, Vxx0, ks,
+                                         Ks, N, B, r, reg, qd_diag, u_diag,
+                                         stream);
 }
 
 #ifdef GT_CHIP_CLOCK
@@ -508,10 +525,10 @@ extern "C" int gridtorch_riccati_clock(const void* rec, const void* Vx0,
   using T = float;
   if constexpr (dense_on_chip<T, GT_NJ, true>())
     return gt::launch_chip<gt::RicChipPlan<T, GT_NJ>>(
-        riccati_chip_kernel<T, GT_NJ, true, true>, 1, nullptr,
+        riccati_chip_kernel<T, GT_NJ, gt::RIC_STATIONARY, true>, 1, nullptr,
         (const T*)rec, gt::RicChipPlan<T, GT_NJ>::O::record(N, true),
-        (const T*)Vx0, (const T*)Vxx0, (T*)ks, (T*)Ks, N, 1LL, (T)1e-6,
-        (long long*)clk, (int*)count);
+        (const T*)Vx0, (const T*)Vxx0, (T*)ks, (T*)Ks, N, 1LL, (T)1e-6, 0,
+        T(0), T(0), (long long*)clk, (int*)count);
   else
     return (int)cudaErrorInvalidValue;
 }
@@ -532,7 +549,7 @@ static long long riccati_chip_forced(const void* A, const void* Bm,
   const gt::DenseIn<T, GT_NJ, true, 1> in{
       (const T*)A,   (const T*)Bm,  (const T*)lx,  (const T*)lu,
       (const T*)lxx, (const T*)luu, (const T*)lux, B};
-  return launch_chip_dense<T, GT_NJ, true>(
+  return launch_chip_sweep<T, GT_NJ, gt::RIC_STATIONARY>(
       in, (const T*)Vx0, (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, (T)1e-6,
       (cudaStream_t)stream, (T*)rec, nrec);
 }
@@ -546,6 +563,38 @@ extern "C" long long gridtorch_riccati_chip_forced(
                             : riccati_chip_forced<double>)(
       A, Bm, lx, lu, lxx, luu, lux, Vx0, Vxx0, ks, Ks, N, B, rec, nrec,
       stream);
+}
+
+// riccati_factored at this joint count on a route of choice, to time the
+// two where both exist (chip 1: on chip, rec null returning the values of
+// B records, else the gathers and the sweep; chip 0: the shared-memory
+// plan, cudaErrorInvalidValue where no problem fits a block), reg 1e-6
+template <typename T>
+static long long riccati_factored_forced(
+    int chip, const void* A, const void* Bm, const void* lx, const void* lu,
+    const void* Jw, const void* Vx0, const void* Vxx0, void* ks, void* Ks,
+    int N, long long B, int r, double qd_diag, double u_diag, void* rec,
+    long long nrec, void* stream) {
+  if (!chip)
+    return launch_factored_shared<T, GT_NJ>(A, Bm, lx, lu, Jw, Vx0, Vxx0, ks,
+                                            Ks, N, B, r, 1e-6, qd_diag,
+                                            u_diag, (cudaStream_t)stream);
+  if (rec == nullptr)
+    return B * gt::RicChipPlan<T, GT_NJ, true>::O::record(N, false);
+  return launch_chip_factored<T, GT_NJ>(A, Bm, lx, lu, Jw, Vx0, Vxx0, ks, Ks,
+                                        N, B, r, 1e-6, qd_diag, u_diag,
+                                        (cudaStream_t)stream, rec, nrec);
+}
+
+extern "C" long long gridtorch_riccati_factored_forced(
+    int dtype, int chip, const void* A, const void* Bm, const void* lx,
+    const void* lu, const void* Jw, const void* Vx0, const void* Vxx0,
+    void* ks, void* Ks, int N, long long B, int r, double qd_diag,
+    double u_diag, void* rec, long long nrec, void* stream) {
+  return (dtype == gt::kF32 ? riccati_factored_forced<float>
+                            : riccati_factored_forced<double>)(
+      chip, A, Bm, lx, lu, Jw, Vx0, Vxx0, ks, Ks, N, B, r, qd_diag, u_diag,
+      rec, nrec, stream);
 }
 #endif
 
@@ -562,9 +611,9 @@ static int launch_dense(const void* A, const void* Bm, const void* lx,
                                          (const T*)lx,  (const T*)lu,
                                          (const T*)lxx, (const T*)luu,
                                          (const T*)lux, B};
-    return launch_chip_dense<T, NJ, STAT>(in, (const T*)Vx0, (const T*)Vxx0,
-                                          (T*)ks, (T*)Ks, N, B, (T)reg,
-                                          stream, (T*)rec, nrec);
+    return launch_chip_sweep<T, NJ, dense_curv(STAT)>(
+        in, (const T*)Vx0, (const T*)Vxx0, (T*)ks, (T*)Ks, N, B, (T)reg,
+        stream, (T*)rec, nrec);
   } else {
     static const cudaError_t attr =
         gt::smem_attrs(riccati_kernel<T, NJ, STAT>, P::BYTES);
@@ -622,36 +671,54 @@ extern "C" long long gridtorch_riccati_inputs(int dtype, int nj, int N,
                     : riccati_inputs<double, GT_NJ, false>(N);
 }
 
-// ws: the workspace of the device-memory route, nws knots, problems or
-// blocks (its plan's workspace_bytes each; ops/cuda/build.py:workspace);
-// ignored where the plan keeps everything in shared memory.
+// The values of one problem's record in the problem-major copy of
+// riccati_factored's inputs that its on-chip instance takes (the wrapper
+// allocates B of them); 0 on the shared-memory plan; -1 for another
+// library's joint count or dtype.
+template <typename T, int NJ>
+static long long riccati_factored_inputs(int N) {
+  if constexpr (gt::ric_on_chip<T, NJ, gt::RIC_FACTORED>())
+    return gt::RicChipPlan<T, NJ, true>::O::record(N, false);
+  else
+    return 0;
+}
+
+extern "C" long long gridtorch_riccati_factored_inputs(int dtype, int nj,
+                                                      int N) {
+  if (nj != GT_NJ || (dtype != gt::kF32 && dtype != gt::kF64)) return -1;
+  return dtype == gt::kF32 ? riccati_factored_inputs<float, GT_NJ>(N)
+                           : riccati_factored_inputs<double, GT_NJ>(N);
+}
+
+// rec, nrec: where the instance runs on chip
+// (gridtorch_riccati_factored_inputs > 0), the problem-major copy of the
+// inputs, B of its records (nrec values); else unused.
 extern "C" int gridtorch_riccati_factored(
     int dtype, int nj, const void* A, const void* Bm, const void* lx,
     const void* lu, const void* Jw, const void* Vx0, const void* Vxx0,
     void* ks, void* Ks, int N, long long B, int r, double reg,
-    double qd_diag, double u_diag, void* stream, void* ws, long long nws) {
+    double qd_diag, double u_diag, void* stream, void* rec, long long nrec) {
   GT_DISPATCH(dtype, nj,
               launch_riccati<T, NJ>(A, Bm, lx, lu, Jw, Vx0, Vxx0, ks, Ks, N,
                                     B, r, reg, qd_diag, u_diag,
-                                    (cudaStream_t)stream, ws, nws));
+                                    (cudaStream_t)stream, rec, nrec));
 }
 
 template <typename T, int NJ>
 static int riccati_factored_info(int* out) {
-  using P = gt::RicPlan<T, NJ>;
-  if constexpr (P::WS > 0)
-    return gt::kernel_info<P>(
-        (const void*)riccati_factored_ws_kernel<T, NJ>, out);
+  if constexpr (gt::ric_on_chip<T, NJ, gt::RIC_FACTORED>())
+    return gt::kernel_info<gt::RicChipPlan<T, NJ, true>>(
+        (const void*)riccati_chip_kernel<T, NJ, gt::RIC_FACTORED>, out);
   else
-    return gt::kernel_info<P>((const void*)riccati_factored_kernel<T, NJ>,
-                              out);
+    return gt::kernel_info<gt::RicPlan<T, NJ>>(
+        (const void*)riccati_factored_kernel<T, NJ>, out);
 }
 
 template <typename T, int NJ, bool STAT>
 static int riccati_info(int* out) {
   if constexpr (dense_on_chip<T, NJ, STAT>())
     return gt::kernel_info<gt::RicChipPlan<T, NJ>>(
-        (const void*)riccati_chip_kernel<T, NJ, STAT>, out);
+        (const void*)riccati_chip_kernel<T, NJ, dense_curv(STAT)>, out);
   else
     return gt::kernel_info<DensePlan<T, NJ, STAT>>(
         (const void*)riccati_kernel<T, NJ, STAT>, out);

@@ -171,20 +171,19 @@ struct FactoredIn {
   int N, r;
   T qd_diag, u_diag;
   // knot t of problems b0 .. b0 + G - 1 into the tiles at `dst`
-  template <int G, bool ASYNC = true>
+  template <int G>
   GT_HD void stage(int t, long long b0, int nvalid, T* dst, long long S,
                    int tid, int nt) const {
     const long long NB = (long long)N * B, ln = (long long)t * B + b0;
-    stage_runs<G, ASYNC>(A + (long long)t * NX * NX * B + b0, B, NX * NX,
-                         nvalid, dst + O::AT, S, tid, nt);
-    stage_runs<G, ASYNC>(Bm + (long long)t * NX * NJ * B + b0, B, NX * NJ,
-                         nvalid, dst + O::BT, S, tid, nt);
-    stage_runs<G, ASYNC>(lx + ln, NB, NX, nvalid, dst + O::LX, S, tid, nt);
-    stage_runs<G, ASYNC>(lu + ln, NB, NJ, nvalid, dst + O::LU, S, tid, nt);
-    stage_runs<G, ASYNC>(Jw + ln, NB, r * NJ, nvalid, dst + O::JW, S, tid,
-                         nt);
+    stage_runs<G>(A + (long long)t * NX * NX * B + b0, B, NX * NX,
+                  nvalid, dst + O::AT, S, tid, nt);
+    stage_runs<G>(Bm + (long long)t * NX * NJ * B + b0, B, NX * NJ,
+                  nvalid, dst + O::BT, S, tid, nt);
+    stage_runs<G>(lx + ln, NB, NX, nvalid, dst + O::LX, S, tid, nt);
+    stage_runs<G>(lu + ln, NB, NJ, nvalid, dst + O::LU, S, tid, nt);
+    stage_runs<G>(Jw + ln, NB, r * NJ, nvalid, dst + O::JW, S, tid, nt);
   }
-  template <int G, bool ASYNC = true>
+  template <int G>
   GT_HDI void stage_once(long long, int, T*, long long, int, int) const {}
   GT_HDI const T* curv(const T*, const T* tile) const { return tile + O::JW; }
   GT_HDI T xx(const T* J, int i, int j, T s) const {
@@ -215,35 +214,35 @@ struct DenseIn {
   long long B;
   // knot t's blocks (block 0: the stationary ones) of problems b0 .. into
   // the dense blocks at `dst`
-  template <int G, bool ASYNC = true>
+  template <int G>
   GT_HD void stage_curv(int t, long long b0, int nvalid, T* dst, long long S,
                         int tid, int nt) const {
-    stage_runs<G, ASYNC>(lxx + (long long)t * NX * NX * B + b0, B, NX * NX,
-                         nvalid, dst + O::CXX, S, tid, nt);
-    stage_runs<G, ASYNC>(luu + (long long)t * NJ * NJ * B + b0, B, NJ * NJ,
-                         nvalid, dst + O::CUU, S, tid, nt);
-    stage_runs<G, ASYNC>(lux + (long long)t * NJ * NX * B + b0, B, NJ * NX,
-                         nvalid, dst + O::CUX, S, tid, nt);
+    stage_runs<G>(lxx + (long long)t * NX * NX * B + b0, B, NX * NX,
+                  nvalid, dst + O::CXX, S, tid, nt);
+    stage_runs<G>(luu + (long long)t * NJ * NJ * B + b0, B, NJ * NJ,
+                  nvalid, dst + O::CUU, S, tid, nt);
+    stage_runs<G>(lux + (long long)t * NJ * NX * B + b0, B, NJ * NX,
+                  nvalid, dst + O::CUX, S, tid, nt);
   }
-  template <int G, bool ASYNC = true>
+  template <int G>
   GT_HD void stage(int t, long long b0, int nvalid, T* dst, long long S,
                    int tid, int nt) const {
-    stage_runs<G, ASYNC>(A + (long long)t * NX * NX * B + b0, B, NX * NX,
-                         nvalid, dst + O::AT, S, tid, nt);
-    stage_runs<G, ASYNC>(Bm + (long long)t * NX * NJ * B + b0, B, NX * NJ,
-                         nvalid, dst + O::BT, S, tid, nt);
-    stage_runs<G, ASYNC>(lx + (long long)t * NX * B + b0, B, NX, nvalid,
-                         dst + O::LX, S, tid, nt);
-    stage_runs<G, ASYNC>(lu + (long long)t * NJ * B + b0, B, NJ, nvalid,
-                         dst + O::LU, S, tid, nt);
+    stage_runs<G>(A + (long long)t * NX * NX * B + b0, B, NX * NX,
+                  nvalid, dst + O::AT, S, tid, nt);
+    stage_runs<G>(Bm + (long long)t * NX * NJ * B + b0, B, NX * NJ,
+                  nvalid, dst + O::BT, S, tid, nt);
+    stage_runs<G>(lx + (long long)t * NX * B + b0, B, NX, nvalid,
+                  dst + O::LX, S, tid, nt);
+    stage_runs<G>(lu + (long long)t * NJ * B + b0, B, NJ, nvalid,
+                  dst + O::LU, S, tid, nt);
     if (!STATIONARY)
-      stage_curv<G, ASYNC>(t, b0, nvalid, dst + O::JW, S, tid, nt);
+      stage_curv<G>(t, b0, nvalid, dst + O::JW, S, tid, nt);
   }
-  template <int G, bool ASYNC = true>
+  template <int G>
   GT_HD void stage_once(long long b0, int nvalid, T* knots, long long S,
                         int tid, int nt) const {
     if (STATIONARY)
-      stage_curv<G, ASYNC>(0, b0, nvalid, knots + O::CS, S, tid, nt);
+      stage_curv<G>(0, b0, nvalid, knots + O::CS, S, tid, nt);
   }
   GT_HDI const T* curv(const T* k, const T* tile) const {
     return STATIONARY ? k + O::CS : tile + O::JW;
@@ -517,9 +516,8 @@ GT_HD void riccati_knot_warp(const Par& par, T* k, const T* tile,
 // stationary curvature once, with the value function, before the first
 // knot); the gains of knot t are written (G lanes a row) at the start of
 // the next step. `only` >= 0 (the host build) writes only that unit's
-// lanes. ASYNC false: the problems' state in device memory (the
-// device-memory route), staged by plain copies.
-template <typename T, int NJ, int G, bool ASYNC = true, class In, class Par>
+// lanes.
+template <typename T, int NJ, int G, class In, class Par>
 GT_HD void riccati_block(const Par& par, int tid, int nt, int unit, T* knots,
                          long long S, long long b0, const In& in,
                          const T* Vx0, const T* Vxx0, T* ks, T* Ks, int N,
@@ -537,25 +535,22 @@ GT_HD void riccati_block(const Par& par, int tid, int nt, int unit, T* knots,
     store_runs<G>(knots + O::KK, S, NJ * NX, nvalid,
                   Ks + (long long)t * NJ * NX * B + b0, B, tid, nt, only);
   };
-  stage_runs<G, ASYNC>(Vx0 + b0, B, NX, nvalid, knots + O::VX, S, tid, nt);
-  stage_runs<G, ASYNC>(Vxx0 + b0, B, NX * NX, nvalid, knots + O::VXX, S, tid,
-                       nt);
-  in.template stage_once<G, ASYNC>(b0, nvalid, knots, S, tid, nt);
-  in.template stage<G, ASYNC>(N - 1, b0, nvalid, knots + tile(N - 1), S, tid,
-                              nt);
+  stage_runs<G>(Vx0 + b0, B, NX, nvalid, knots + O::VX, S, tid, nt);
+  stage_runs<G>(Vxx0 + b0, B, NX * NX, nvalid, knots + O::VXX, S, tid, nt);
+  in.template stage_once<G>(b0, nvalid, knots, S, tid, nt);
+  in.template stage<G>(N - 1, b0, nvalid, knots + tile(N - 1), S, tid, nt);
   async_commit();
   for (int t = N - 1; t >= 0; --t) {
     block_sync();   // knot t + 1 is done: its gains out, its tiles free
     if (t + 1 < N) store(t + 1);
     if (TWO && t > 0) {
-      in.template stage<G, ASYNC>(t - 1, b0, nvalid, knots + tile(t - 1), S,
-                                  tid, nt);
+      in.template stage<G>(t - 1, b0, nvalid, knots + tile(t - 1), S, tid,
+                           nt);
       async_commit();
       async_wait<1>();
     } else {
       if (!TWO && t + 1 < N) {
-        in.template stage<G, ASYNC>(t, b0, nvalid, knots + tile(t), S, tid,
-                                    nt);
+        in.template stage<G>(t, b0, nvalid, knots + tile(t), S, tid, nt);
         async_commit();
       }
       async_wait<0>();
@@ -601,31 +596,31 @@ struct RicShape {
   static constexpr long long BYTES = HEAD + (G > 0 ? G : 1) * BP::KNOT_BYTES;
 };
 
-// Where not even one buffer's problem fits a block (from 30 to 48 joints,
-// by curvature and dtype), the device-memory route (warp.cuh:WsPlan): a
-// problem a block at a time, its state in the workspace, with one buffer
-// (riccati_factored; the dense sweep runs on chip there: RicChipPlan).
+// Two tile buffers where a problem fits a block with them, else one; G 0
+// where not even one buffer's problem fits (from 30 to 48 joints, by
+// curvature and dtype): there, and from CHIP_FROM joints, every curvature
+// runs on chip instead (RicChipPlan, ric_on_chip).
 template <typename T, int NJ, int CURV>
 GT_HDI constexpr int ric_bufs() {
   return RicShape<T, NJ, CURV, 2>::G >= 1 ? 2 : 1;
 }
 
 template <typename T, int NJ, int CURV = RIC_FACTORED>
-struct RicPlan
-    : WsPlan<T, RicShape<T, NJ, CURV, ric_bufs<T, NJ, CURV>()>,
-             RicKnot<NJ, CURV, ric_bufs<T, NJ, CURV>()>::SIZE> {};
+struct RicPlan : RicShape<T, NJ, CURV, ric_bufs<T, NJ, CURV>()> {};
 
 // ---------------------------------------------------------------------------
-// the dense Riccati sweep on chip: one problem a block or a cluster
+// the Riccati sweeps on chip: one problem a block or a cluster
 // ---------------------------------------------------------------------------
 
-// Where RicPlan would put the dense sweep's problem (a stationary
-// curvature or a block per knot) in device memory, one problem a block or
-// a cluster keeps it on chip (warp.cuh: ChipPack) for the whole sweep; a
-// knot holds only what its products need at once. Its regions:
-// AB, the knot's A (NX, NXP) and B (NX, NJP), lx, lu, staged with cp.async
-// by the region's rank while the knot before finishes (once Vxx A and Vxx B
-// are folded, A and B are free); VXX, the value function's Vxx (NX, NXP;
+// Above the block limit (from CHIP_FROM joints: ric_on_chip), one problem
+// of either sweep (riccati_factored, or the dense one with a stationary
+// curvature or a block per knot) a block or a cluster keeps it on chip
+// (warp.cuh: ChipPack) for the whole sweep; a knot holds only what its
+// products need at once. Its regions:
+// AB, the knot's A (NX, NXP) and B (NX, NJP), lx, lu and, for the factored
+// curvature (FACT), its factor Jw (RMAX, NJP: r rows used), staged with
+// cp.async by the region's rank while the knot before finishes (once Vxx A
+// and Vxx B are folded, A, B and Jw are free); VXX, the value function's Vxx (NX, NXP;
 // its transpose for the first knot, Vxx0 as given, symmetric after),
 // and over it once the products are folded the augmented [Quu + reg I | I]
 // (NJ, 2 NJ), then W = Quu K + Qux (NJ, NXP), and K (NJ, NXP) in its second
@@ -634,17 +629,19 @@ struct RicPlan
 // SMALL, Vx, Qx, Qu, k, Qu + Quu k and the pivots' inverses. NXP and NJP
 // are NX and NJ rounded up to 4, so every row is 16-byte aligned; columns
 // past NX or NJ are never written, and only outputs past them read them.
-// The curvature blocks are read from device memory where they are added
-// (the stationary ones stay in L2 across the knots), and the gains k, K are
-// written to the outputs as they are formed.
-template <int NJ, int SW_>
+// The dense curvature blocks are read from device memory where they are
+// added (the stationary ones stay in L2 across the knots); the factored
+// one is formed from Jw where it is added (ChipFactoredCurv); the gains k,
+// K are written to the outputs as they are formed.
+template <int NJ, int SW_, bool FACT = false>
 struct RicChipKnot {
   static constexpr int NX = 2 * NJ, NXP = (int)round4(NX);
-  static constexpr int NJP = (int)round4(NJ), SW = SW_;
+  static constexpr int NJP = (int)round4(NJ), SW = SW_, RMAX = 6;
   // the columns of [A | B] (A's padded to NXP), SW a slab
   static constexpr int NCOL = NXP + NJP, NS = (NCOL + SW - 1) / SW;
   static constexpr int A = 0, BM = A + NX * NXP, LX = BM + NX * NJP;
-  static constexpr int LU = LX + NXP, AB = LU + NJP;
+  static constexpr int LU = LX + NXP, JW = LU + NJP;
+  static constexpr int AB = JW + (FACT ? RMAX * NJP : 0);
   static constexpr int VXX = NX * NXP, KK = NJ * NXP;
   static constexpr int QXX = NX * NXP, QUX = NJ * NXP, QUU = NJ * NJP;
   static constexpr int SL = 2 * NX * SW;
@@ -654,50 +651,69 @@ struct RicChipKnot {
   enum { R_AB, R_QXX, R_VXX, R_QUX, R_QUU, R_SL, R_SMALL, NREG };
   // A problem's record in the problem-major copy of the inputs
   // (riccati.cu: riccati_gather_kernel): its N knots' tiles as the AB
-  // region holds them (AB values each), then its curvature, one block or
-  // a block a knot (CURV values each): lxx (NX, NXP), luu (NJ, NJP), lux
-  // (NJ, NXP).
+  // region holds them (AB values each), then the dense sweep's curvature,
+  // one block or a block a knot (CURV values each): lxx (NX, NXP), luu
+  // (NJ, NJP), lux (NJ, NXP); the factored curvature's Jw is in the tiles.
   static constexpr int CXX = 0, CUU = NX * NXP, CUX = CUU + NJ * NJP;
   static constexpr int CURV = CUX + NJ * NXP;
   static constexpr long long record(int N, bool stationary) {
-    return (long long)N * AB + (long long)(stationary ? 1 : N) * CURV;
+    return (long long)N * AB +
+           (FACT ? 0 : (long long)(stationary ? 1 : N) * CURV);
   }
 };
 
 // One lane-major input (R rows of B lanes) into problem b's record of the
 // problem-major copy (riccati_gather_kernel, a problem at a time): row r =
 // (g, w, x), g = r / (W G), w = (r / W) % G, x = r % W, goes to value
-// off + g GS + w WP + x of the record.
+// off + g GS + w WP + x XS of the record.
 template <typename T>
 GT_HD void gather_rows(const T* src, long long R, long long B, int W,
-                       int WP, int G, long long GS, long long off, T* rec,
-                       long long b) {
+                       int WP, int G, long long GS, long long off,
+                       long long XS, T* rec, long long b) {
   for (long long r = 0; r < R; ++r) {
     const long long g = r / ((long long)W * G), w = (r / W) % G, x = r % W;
-    rec[off + g * GS + w * WP + x] = src[r * B + b];
+    rec[off + g * GS + w * WP + x * XS] = src[r * B + b];
   }
 }
 
-// The gathers of the dense sweep's inputs (In: DenseIn's pointers) into
-// the problem-major records of plan shape O, one call a tensor:
-// g(src, rows, W, WP, G, GS, off).
+// The gathers of a sweep's inputs into the problem-major records of plan
+// shape O, one call a tensor: g(src, rows, W, WP, G, GS, off, XS). The
+// dense sweep's (DenseIn's pointers): each (N, ..., B) tensor's rows keep
+// their order, the knot outermost.
 template <class O, class In, class Gather>
 GT_HD void ric_chip_gathers(const In& in, int N, bool stationary,
                             Gather&& g) {
   constexpr int NX = O::NX, NJ = NX / 2, NXP = O::NXP, NJP = O::NJP;
   const long long NC = stationary ? 1 : N, c0 = (long long)N * O::AB;
-  g(in.A, (long long)N * NX * NX, NX, NXP, NX, O::AB, O::A);
-  g(in.Bm, (long long)N * NX * NJ, NJ, NJP, NX, O::AB, O::BM);
-  g(in.lx, (long long)N * NX, NX, NXP, 1, O::AB, O::LX);
-  g(in.lu, (long long)N * NJ, NJ, NJP, 1, O::AB, O::LU);
-  g(in.lxx, NC * NX * NX, NX, NXP, NX, O::CURV, c0 + O::CXX);
-  g(in.luu, NC * NJ * NJ, NJ, NJP, NJ, O::CURV, c0 + O::CUU);
-  g(in.lux, NC * NJ * NX, NX, NXP, NJ, O::CURV, c0 + O::CUX);
+  g(in.A, (long long)N * NX * NX, NX, NXP, NX, O::AB, O::A, 1LL);
+  g(in.Bm, (long long)N * NX * NJ, NJ, NJP, NX, O::AB, O::BM, 1LL);
+  g(in.lx, (long long)N * NX, NX, NXP, 1, O::AB, O::LX, 1LL);
+  g(in.lu, (long long)N * NJ, NJ, NJP, 1, O::AB, O::LU, 1LL);
+  g(in.lxx, NC * NX * NX, NX, NXP, NX, O::CURV, c0 + O::CXX, 1LL);
+  g(in.luu, NC * NJ * NJ, NJ, NJP, NJ, O::CURV, c0 + O::CUU, 1LL);
+  g(in.lux, NC * NJ * NX, NX, NXP, NJ, O::CURV, c0 + O::CUX, 1LL);
 }
 
-template <typename T, int NJ, int SW>
+// riccati_factored's (FactoredIn's pointers): A and B as the dense sweep's;
+// lx (NX, N B), lu (NJ, N B) and Jw (r, NJ, N B) in the solver's knot-major
+// lanes t B + b, so that seen as rows of B lanes the knot t is the row's
+// innermost part: x = t, its value AB apart in the record (lx's row i =
+// (i, t): g = i; Jw's (rr, i, t): g = rr, w = i).
+template <class O, typename T, int NJ, int BUFS, class Gather>
+GT_HD void ric_chip_gathers(const FactoredIn<T, NJ, BUFS>& in, int N, bool,
+                            Gather&& g) {
+  constexpr int NX = O::NX, NXP = O::NXP, NJP = O::NJP;
+  g(in.A, (long long)N * NX * NX, NX, NXP, NX, O::AB, O::A, 1LL);
+  g(in.Bm, (long long)N * NX * NJ, NJ, NJP, NX, O::AB, O::BM, 1LL);
+  g(in.lx, (long long)NX * N, N, 0, 1, 1, O::LX, (long long)O::AB);
+  g(in.lu, (long long)NJ * N, N, 0, 1, 1, O::LU, (long long)O::AB);
+  g(in.Jw, (long long)in.r * NJ * N, N, 1, NJ, NJP, O::JW,
+    (long long)O::AB);
+}
+
+template <typename T, int NJ, int SW, bool FACT = false>
 GT_HDI constexpr ChipPack<7> ric_chip_pack(int cl) {
-  using O = RicChipKnot<NJ, SW>;
+  using O = RicChipKnot<NJ, SW, FACT>;
   const long long size[7] = {O::AB,  O::QXX, O::VXX,  O::QUX,
                              O::QUU, O::SL,  O::SMALL};
   return chip_pack(size, (int)sizeof(T), 0, cl);
@@ -708,13 +724,14 @@ GT_HDI constexpr ChipPack<7> ric_chip_pack(int cl) {
 // (at 52 joints in float32 three slabs of 52 columns: A's two halves, then
 // B), and a narrower slab gives 512 threads too few tiles.
 constexpr int RIC_CHIP_SWMIN = 24;
-template <typename T, int NJ, int SW>
+template <typename T, int NJ, int SW, bool FACT = false>
 GT_HDI constexpr int ric_chip_swmax(int cl) {
   if constexpr (SW < RIC_CHIP_SWMIN) {
     return 0;
   } else {
-    return ric_chip_pack<T, NJ, SW>(cl).cl ? SW
-                                           : ric_chip_swmax<T, NJ, SW - 4>(cl);
+    return ric_chip_pack<T, NJ, SW, FACT>(cl).cl
+               ? SW
+               : ric_chip_swmax<T, NJ, SW - 4, FACT>(cl);
   }
 }
 template <int NJ>
@@ -722,18 +739,19 @@ GT_HDI constexpr int ric_chip_top() {
   constexpr int ncol = (int)round4(2 * NJ) + (int)round4(NJ);
   return ncol < 64 ? ncol : 64;
 }
-template <typename T, int NJ>
+template <typename T, int NJ, bool FACT = false>
 GT_HDI constexpr int ric_chip_cl() {
   constexpr int top = ric_chip_top<NJ>();
-  return ric_chip_swmax<T, NJ, top>(1) ? 1
-         : ric_chip_swmax<T, NJ, top>(2) ? 2
-         : ric_chip_swmax<T, NJ, top>(4) ? 4
-                                          : 0;
+  return ric_chip_swmax<T, NJ, top, FACT>(1)   ? 1
+         : ric_chip_swmax<T, NJ, top, FACT>(2) ? 2
+         : ric_chip_swmax<T, NJ, top, FACT>(4) ? 4
+                                                : 0;
 }
-template <typename T, int NJ>
+template <typename T, int NJ, bool FACT = false>
 GT_HDI constexpr int ric_chip_sw() {
-  constexpr int cl = ric_chip_cl<T, NJ>();
-  constexpr int sw = cl ? ric_chip_swmax<T, NJ, ric_chip_top<NJ>()>(cl) : 8;
+  constexpr int cl = ric_chip_cl<T, NJ, FACT>();
+  constexpr int sw =
+      cl ? ric_chip_swmax<T, NJ, ric_chip_top<NJ>(), FACT>(cl) : 8;
   constexpr int ncol = (int)round4(2 * NJ) + (int)round4(NJ);
   constexpr int ns = (ncol + sw - 1) / sw;
   return (int)round4((ncol + ns - 1) / ns);
@@ -741,13 +759,14 @@ GT_HDI constexpr int ric_chip_sw() {
 
 // One problem a block of 2 CHIP_THREADS threads, or a cluster of CL blocks
 // of CHIP_THREADS (at 52 joints: one block in float32, 229 KB; a cluster
-// of 2 in float64; at 64 joints 2 | 4, float32 | float64).
-template <typename T, int NJ>
+// of 2 in float64; at 64 joints 2 | 4, float32 | float64). FACT: the
+// factored curvature's plan (Jw in the tiles, no curvature block).
+template <typename T, int NJ, bool FACT = false>
 struct RicChipPlan {
-  static constexpr int SW = ric_chip_sw<T, NJ>();
-  using O = RicChipKnot<NJ, SW>;
+  static constexpr int SW = ric_chip_sw<T, NJ, FACT>();
+  using O = RicChipKnot<NJ, SW, FACT>;
   static constexpr ChipPack<7> PACK =
-      ric_chip_pack<T, NJ, SW>(ric_chip_cl<T, NJ>());
+      ric_chip_pack<T, NJ, SW, FACT>(ric_chip_cl<T, NJ, FACT>());
   static constexpr int CL = PACK.cl;
   static constexpr int NT = CL == 1 ? 2 * CHIP_THREADS : CHIP_THREADS;
   static constexpr int LANES = CL * NT, G = 1, ROWS = 1;
@@ -777,16 +796,90 @@ struct RicChipPlan {
   }
 };
 
-// the dense sweep (CURV: stationary or a block per knot) runs on chip
+// every curvature (factored, stationary or a block per knot) runs on chip
 // from CHIP_FROM joints (warp.cuh: fd_on_chip)
 template <typename T, int NJ, int CURV>
 GT_HDI constexpr bool ric_on_chip() {
-  return CURV != RIC_FACTORED && NJ >= CHIP_FROM;
+  return NJ >= CHIP_FROM;
 }
+
+// The curvature of the knot program on chip (riccati_chip_knot), rows
+// i0 .. i0 + 3 and columns c0 .. c0 + 3 of lxx (x with xx) or lux (x
+// without), or of luu (uu), into a 4 x 4 tile `cur`, added to the
+// product's tile where it is folded. The dense blocks (NXP, NJP: their
+// rows' lengths) from device memory at c, rows past M zeros:
+template <typename T, int NJ, int NXP, int NJP, int CXX, int CUX, int CUU>
+struct ChipDenseCurv {
+  const T* c;
+  GT_HDI static void rows(const T* p, int ld, int i0, int M,
+                          T (&cur)[4][4]) {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int a = 0; a < 4; ++a) {
+      if (i0 + a < M) {
+        ld4(p + (i0 + a) * ld, cur[a]);
+      } else {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+        for (int j = 0; j < 4; ++j) cur[a][j] = T(0);
+      }
+    }
+  }
+  GT_HDI void x(bool xx, int i0, int c0, T (&cur)[4][4]) const {
+    rows(c + (xx ? CXX : CUX) + c0, NXP, i0, xx ? 2 * NJ : NJ, cur);
+  }
+  GT_HDI void uu(int i0, int c0, T (&cur)[4][4]) const {
+    rows(c + CUU + c0, NJP, i0, NJ, cur);
+  }
+};
+
+// the factored one (FactoredIn's): lxx = blkdiag(Jw^T Jw, qd_diag I), formed
+// from the knot's factor J (r rows of NJP values, in its tile on chip) an
+// entry a thread, each entry once a knot (each lies in one slab); luu =
+// u_diag I; lux = 0
+template <typename T, int NJ, int NJP>
+struct ChipFactoredCurv {
+  const T* J;
+  int r;
+  T qd_diag, u_diag;
+  GT_HDI void x(bool xx, int i0, int c0, T (&cur)[4][4]) const {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int a = 0; a < 4; ++a)
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int j = 0; j < 4; ++j) {
+        const int i = i0 + a, k = c0 + j;
+        T v = T(0);
+        if (xx && i < NJ && k < NJ) {
+          v = J[i] * J[k];
+          for (int rr = 1; rr < r; ++rr) v += J[rr * NJP + i] * J[rr * NJP + k];
+        } else if (xx && i == k && i >= NJ) {
+          v = qd_diag;
+        }
+        cur[a][j] = v;
+      }
+  }
+  GT_HDI void uu(int i0, int c0, T (&cur)[4][4]) const {
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+    for (int a = 0; a < 4; ++a)
+#ifdef __CUDACC__
+#pragma unroll
+#endif
+      for (int j = 0; j < 4; ++j) cur[a][j] = i0 + a == c0 + j ? u_diag : T(0);
+  }
+};
 
 // One backward knot tk of the problem on chip (RicChipPlan P; its
 // regions at rg; the curvature lxx, luu, lux of the problem b of B, the
-// stationary block, or knot tk's), riccati.cu:riccati_knot's math in
+// policy cv: ChipDenseCurv, the stationary block or knot tk's, or
+// ChipFactoredCurv), riccati.cu:riccati_knot's math in
 // 5 + NS + NJ phases of the cluster's threads, every product a 4 x 4
 // register tile a thread (warp.cuh: mma4) over rows of shared memory, the
 // tiles dealt columns fastest (the threads of a warp read few rows of the
@@ -805,8 +898,8 @@ GT_HDI constexpr bool ric_on_chip() {
 //    (the full value update: K^T Quu K + K^T Qux + Qux^T K + Qxx), in
 //    place over Qxx;
 // 7. Vxx = (Vxx' + Vxx'^T) / 2.
-template <typename T, int NJ, class P, class Par, class After>
-GT_HD void riccati_chip_knot(const Par& par, T* const* rg, const T* cv,
+template <typename T, int NJ, class P, class Par, class Curv, class After>
+GT_HD void riccati_chip_knot(const Par& par, T* const* rg, const Curv& cv,
                              long long B, long long b, int tk, T mu, T* ks,
                              T* Ks, After&& after) {
   using O = typename P::O;
@@ -832,16 +925,6 @@ GT_HD void riccati_chip_knot(const Par& par, T* const* rg, const T* cv,
   T* up = sm + O::UP;
   T* piv = sm + O::PIV;
   auto slab = [&](int s) { return rg[O::R_SL] + (s & 1) * NX * SW; };
-  // rows i0 .. i0 + 3 (those below M) of a curvature block, ld values a row
-  auto curv = [&](const T* c, int ld, int i0, int M, T (&cur)[4][4]) {
-    for (int a = 0; a < 4; ++a) {
-      if (i0 + a < M) {
-        ld4(c + (i0 + a) * ld, cur[a]);
-      } else {
-        for (int j = 0; j < 4; ++j) cur[a][j] = T(0);
-      }
-    }
-  };
   auto cols = [&](int s) { return NCOL - s * SW < SW ? NCOL - s * SW : SW; };
   // slab s of [Vxx A | Vxx B]: rows of Vxx^T times columns of A or B
   auto vab = [&](Deal<W>& d, int s) {
@@ -872,7 +955,7 @@ GT_HD void riccati_chip_knot(const Par& par, T* const* rg, const T* cv,
       const int ldl = xx ? NXP : NJP;
       const T* Lm = xx ? A : Bm;
       T cur[4][4];
-      curv(cv + (xx ? O::CXX : O::CUX) + c, NXP, i0, M, cur);
+      cv.x(xx, i0, c, cur);
       T acc[4][4] = {};
       mma4(acc, NX, [&](int k, T* l) { ld4(Lm + k * ldl + i0, l); },
            [&](int k, T* r) { ld4(in + k * SW + cc, r); });
@@ -887,7 +970,7 @@ GT_HD void riccati_chip_knot(const Par& par, T* const* rg, const T* cv,
       const int cc = na + 4 * (e % nb), i0 = 4 * (e / nb);
       const int j0 = c0 + cc - NXP;
       T cur[4][4];
-      curv(cv + O::CUU + j0, NJP, i0, NJ, cur);
+      cv.uu(i0, j0, cur);
       T acc[4][4] = {};
       mma4(acc, NX, [&](int k, T* l) { ld4(Bm + k * NJP + i0, l); },
            [&](int k, T* r) { ld4(in + k * SW + cc, r); });
@@ -1014,12 +1097,15 @@ GT_HD void riccati_chip_knot(const Par& par, T* const* rg, const T* cv,
 // regions' ranks (mine(rank): this thread's block holds the rank; thread
 // tid of the block's nt), then knot N - 1 down to 0, each staging the knot
 // after it (16-byte copies of its record's tile) once its products are
-// folded, and reading its curvature from the record (STAT: one block).
-template <typename T, int NJ, class P, bool STAT, class Par, class Mine>
+// folded, and reading its dense curvature from the record
+// (RIC_STATIONARY: one block) or forming the factored one (RIC_FACTORED:
+// rank r, qd_diag, u_diag) from the Jw of its tile.
+template <typename T, int NJ, class P, int CURV, class Par, class Mine>
 GT_HD void riccati_chip_problem(const Par& par, T* const* rg, Mine&& mine,
                                 int tid, int nt, const T* rec, const T* Vx0,
                                 const T* Vxx0, T* ks, T* Ks, int N,
-                                long long B, long long b, T mu) {
+                                long long B, long long b, T mu, int r,
+                                T qd_diag, T u_diag) {
   using O = typename P::O;
   constexpr int NX = O::NX, NXP = O::NXP, V = P::VEC;
   static_assert(O::R_AB == 0 && O::R_VXX == 2 && O::R_SMALL == 6,
@@ -1044,13 +1130,21 @@ GT_HD void riccati_chip_problem(const Par& par, T* const* rg, Mine&& mine,
   for (int t = N - 1; t >= 0; --t) {
     async_wait<0>();
     par([](int) {});   // knot t's tiles have landed in every block
-    riccati_chip_knot<T, NJ, P>(par, rg, curv + (STAT ? 0 : t) * O::CURV, B,
-                                b, t, mu, ks, Ks, [&] {
-                                  if (t > 0) {
-                                    stage(t - 1);
-                                    async_commit();
-                                  }
-                                });
+    auto after = [&] {
+      if (t > 0) {
+        stage(t - 1);
+        async_commit();
+      }
+    };
+    if constexpr (CURV == RIC_FACTORED) {
+      const ChipFactoredCurv<T, NJ, O::NJP> cv{rg[O::R_AB] + O::JW, r,
+                                               qd_diag, u_diag};
+      riccati_chip_knot<T, NJ, P>(par, rg, cv, B, b, t, mu, ks, Ks, after);
+    } else {
+      const ChipDenseCurv<T, NJ, O::NXP, O::NJP, O::CXX, O::CUX, O::CUU> cv{
+          curv + (CURV == RIC_STATIONARY ? 0 : t) * O::CURV};
+      riccati_chip_knot<T, NJ, P>(par, rg, cv, B, b, t, mu, ks, Ks, after);
+    }
   }
 }
 
@@ -2068,49 +2162,58 @@ void riccati_host(const In& in, const T* Vx0, const T* Vxx0, T* ks, T* Ks,
 #endif
 }
 
-template <typename T, int NJ>
-void riccati_factored_host(const T* A, const T* Bm, const T* lx, const T* lu,
-                           const T* Jw, const T* Vx0, const T* Vxx0, T* ks,
-                           T* Ks, int N, long long B, int r, T reg, T qd_diag,
-                           T u_diag) {
-  constexpr int BUFS = RicPlan<PlanType<T>, NJ>::BUFS;
-  const FactoredIn<T, NJ, BUFS> in{A, Bm, lx, lu, Jw, B, N, r, qd_diag,
-                                   u_diag};
-  riccati_host<T, NJ, RIC_FACTORED>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
-}
-
-// the dense sweep on chip (RicChipPlan of PT's dtype): a problem at a
-// time, the cluster's regions in one buffer
-template <typename T, int NJ, bool STAT, typename PT = PlanType<T>,
-          class In>
+// a sweep on chip (RicChipPlan of PT's dtype; CURV: the input policy In's
+// curvature): a problem at a time, the cluster's regions in one buffer
+template <typename T, int NJ, int CURV, typename PT = PlanType<T>, class In>
 void riccati_chip_host(const In& in, const T* Vx0, const T* Vxx0, T* ks,
-                       T* Ks, int N, long long B, T reg) {
-  using P = RicChipPlan<PT, NJ>;
+                       T* Ks, int N, long long B, T reg, int r = 0,
+                       T qd_diag = T(0), T u_diag = T(0)) {
+  using P = RicChipPlan<PT, NJ, CURV == RIC_FACTORED>;
+  constexpr bool STAT = CURV == RIC_STATIONARY;
   static_assert(P::CL >= 1, "one Riccati problem fits a cluster");
   std::vector<T> buf(P::CL * P::RANK_VALUES);
   std::vector<T> rec(P::O::record(N, STAT));
   T* rg[7];
-  P::regions([&](int r) { return buf.data() + r * P::RANK_VALUES; }, rg);
+  P::regions([&](int k) { return buf.data() + k * P::RANK_VALUES; }, rg);
   for (long long b = 0; b < B; ++b) {
     fill_nan(buf);
     fill_nan(rec);
     ric_chip_gathers<typename P::O>(
         in, N, STAT,
         [&](const T* src, long long R, int W, int WP, int G, long long GS,
-            long long off) {
-          gather_rows(src, R, B, W, WP, G, GS, off, rec.data(), 0LL + b);
+            long long off, long long XS) {
+          gather_rows(src, R, B, W, WP, G, GS, off, XS, rec.data(), 0LL + b);
         });
 #ifdef GT_RACE_CHECK
     gt_race_watch(buf.data(), (long)(buf.size() * sizeof(T)));
 #endif
-    riccati_chip_problem<T, NJ, P, STAT>(HostPar<P::LANES>{}, rg,
-                                         [](int) { return true; }, 0, 1,
-                                         rec.data(), Vx0, Vxx0, ks, Ks, N, B,
-                                         b, reg);
+    riccati_chip_problem<T, NJ, P, CURV>(
+        HostPar<P::LANES>{}, rg, [](int) { return true; }, 0, 1, rec.data(),
+        Vx0, Vxx0, ks, Ks, N, B, b, reg, r, qd_diag, u_diag);
   }
 #ifdef GT_RACE_CHECK
   gt_race_watch(nullptr, 0);
 #endif
+}
+
+// riccati_factored as the card runs it in PT's dtype: on chip from
+// CHIP_FROM joints, else the shared-memory plan's block code
+template <typename T, int NJ, typename PT = PlanType<T>>
+void riccati_factored_host(const T* A, const T* Bm, const T* lx, const T* lu,
+                           const T* Jw, const T* Vx0, const T* Vxx0, T* ks,
+                           T* Ks, int N, long long B, int r, T reg, T qd_diag,
+                           T u_diag) {
+  if constexpr (ric_on_chip<PT, NJ, RIC_FACTORED>()) {
+    const FactoredIn<T, NJ, 1> in{A, Bm, lx, lu, Jw, B, N, r, qd_diag,
+                                  u_diag};
+    riccati_chip_host<T, NJ, RIC_FACTORED, PT>(in, Vx0, Vxx0, ks, Ks, N, B,
+                                               reg, r, qd_diag, u_diag);
+  } else {
+    constexpr int BUFS = RicPlan<PT, NJ>::BUFS;
+    const FactoredIn<T, NJ, BUFS> in{A, Bm, lx, lu, Jw, B, N, r, qd_diag,
+                                     u_diag};
+    riccati_host<T, NJ, RIC_FACTORED>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
+  }
 }
 
 template <typename T, int NJ>
@@ -2124,13 +2227,14 @@ void riccati_dense_host(const T* A, const T* Bm, const T* lx, const T* lu,
   if (stationary) {
     const DenseIn<T, NJ, true, SB> in{A, Bm, lx, lu, lxx, luu, lux, B};
     if constexpr (ric_on_chip<PT, NJ, RIC_STATIONARY>())
-      riccati_chip_host<T, NJ, true>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
+      riccati_chip_host<T, NJ, RIC_STATIONARY>(in, Vx0, Vxx0, ks, Ks, N, B,
+                                               reg);
     else
       riccati_host<T, NJ, RIC_STATIONARY>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
   } else {
     const DenseIn<T, NJ, false, DB> in{A, Bm, lx, lu, lxx, luu, lux, B};
     if constexpr (ric_on_chip<PT, NJ, RIC_DENSE>())
-      riccati_chip_host<T, NJ, false>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
+      riccati_chip_host<T, NJ, RIC_DENSE>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
     else
       riccati_host<T, NJ, RIC_DENSE>(in, Vx0, Vxx0, ks, Ks, N, B, reg);
   }

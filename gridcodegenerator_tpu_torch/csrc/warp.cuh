@@ -25,10 +25,11 @@
 // knot with its state in shared memory, GRiD paper, arXiv:2109.06976),
 // carried to a warp per knot: 2 NJ <= 32 gradient columns for every
 // instance up to 16 joints. Above 32 joints a knot takes two warps or more
-// (knot_lanes), and where one knot does not fit a block's shared memory it
-// runs a block at a time with its state in device memory (WsPlan,
-// ws_lanes; id_du, minv, fd), or, fd_du, a block or a thread-block cluster
-// at a time with its state on chip (FDChipPlan, fd_du_chip_lane): the
+// (knot_lanes); from 29 joints fd_du and id_du run a knot a block or a
+// thread-block cluster at a time with its state on chip (FDChipPlan,
+// fd_du_chip_lane; IDUChipPlan, id_du_chip_lane), and where one knot of
+// minv or fd (float64) does not fit a block's shared memory it runs a
+// block at a time with its state in device memory (WsPlan, ws_lanes): the
 // programs take the knot's buffers as pointers, so the same code runs on
 // either memory.
 #pragma once
@@ -2406,11 +2407,11 @@ struct GroupShape {
       HEAD + (long long)(G > 0 ? G : 1) * STRIDE * (long long)sizeof(T);
 };
 
-// The device-memory route of a thread-group kernel (id_du, minv, fd,
-// riccati_factored; fd_du and the dense riccati keep their knot or problem
-// on chip there instead: FDChipPlan, RicChipPlan): where its plan P holds
-// no knot in a block's
-// shared memory (G 0: from 30 to 48 joints, by kernel and dtype), a block
+// The device-memory route of a thread-group kernel (minv and fd in
+// float64; fd_du, id_du and the Riccati sweeps keep their knot or problem
+// on chip there instead: FDChipPlan, IDUChipPlan, RicChipPlan): where its
+// plan P holds no knot in a block's shared memory (G 0: from 47 | 46
+// joints in float64, minv | fd), a block
 // runs one knot at a time with WS_LANES threads, its head (the robot
 // constants) still in shared memory and the knot's KNOT values in device
 // memory: a workspace that the wrapper allocates, one knot a block, sized
@@ -2767,6 +2768,94 @@ GT_HD void fd_du_chip_lane(const Par& par, const Rb& R, T* const* rg,
   });
 }
 
+// id_du on chip: one knot a block or cluster (IDUChipPlan), fd_du_chip_lane's
+// program without Minv, its state in two regions: BASE, the inputs qd and
+// qdd, the joint transforms, v, a, f and I v (as IDUKnot holds them) and
+// the gradient's 2 NJ columns in the order the chunks take them; COL, the
+// column state of a chunk of C columns (NJ, 18, C) and two buffers of the
+// chunk's dc (NJ, CP), CP = C rounded up to 4.
+template <int NJ, int C>
+struct IDUChipKnot {
+  static constexpr int CP = (int)round4(C);
+  static constexpr int QD = 0, QDD = QD + NJ, X = QDD + NJ;
+  static constexpr int V = X + 36 * NJ, A = V + 6 * NJ, F = A + 6 * NJ;
+  static constexpr int IV = F + 6 * NJ, CO = IV + 6 * NJ, BASE = CO + 2 * NJ;
+  static constexpr int COL = 0, DC = (int)round4(18LL * NJ * C);
+  static constexpr int COLS = DC + 2 * NJ * CP;
+  enum { R_BASE, R_COL, NREG };
+};
+
+// One knot (lane l of L) of id_du on chip (IDUChipPlan P; its regions BASE
+// and COL at rg), by the cluster's threads: qd and qdd in, the joint
+// transforms from q, and the columns ranked by subtree size (as
+// fd_du_chip_lane ranks them: the long walks share a chunk); the RNEA at
+// qdd (rnea_forward_knot<RNEA_FULL>, rnea_backward_knot); then the ID
+// gradient in P::CHUNKS chunks of C columns, a phase each: threads t < C
+// walk column chunk C + t (grad_column) into the chunk's dc buffer, while
+// the other threads store the chunk before straight to the lane's rows of
+// dcdu (2 NJ^2 scattered stores a knot, spread over the walks' phases);
+// the last phase, with no walk, stores the last chunk with every thread.
+template <typename T, int NJ, class P, class Rb, class Par>
+GT_HD void id_du_chip_lane(const Par& par, const Rb& R, T* const* rg,
+                           const T* q, const T* qd, const T* qdd, T* dcdu,
+                           long long L, long long l, T gravity) {
+  using O = typename P::O;
+  constexpr int W = Par::LANES, C = P::C, CP = O::CP, NC = 2 * NJ;
+  static_assert(C < W, "a thread a column of a chunk, the rest store");
+  T* b = rg[O::R_BASE];
+  T* cs = rg[O::R_COL];
+  // column n of the chunks' order: an int in the n-th value of CO
+  auto cols = [&](int n) -> int& {
+    return *reinterpret_cast<int*>(b + O::CO + n);
+  };
+  par([&](int t) {
+    for (int e = t; e < 2 * NJ; e += W)
+      b[O::QD + e] = (e < NJ ? qd : qdd)[(e % NJ) * L + l];
+    for (int i = t; i < NJ; i += W)
+      joint_xmat(R.Xtree(i), R.jtype[i], R.sind[i], q[i * L + l],
+                 b + O::X + 36 * i);
+    for (int c = t; c < NC; c += W) {   // c's rank by subtree size
+      const int sc = R.rsub[c % NJ];
+      int rank = 0;
+      for (int c2 = 0; c2 < NC; ++c2) {
+        const int s2 = R.rsub[c2 % NJ];
+        rank += s2 > sc || (s2 == sc && c2 < c);
+      }
+      cols(rank) = c;
+    }
+  });
+  const T g[6] = {0, 0, 0, 0, 0, -gravity};
+  const int nlev = R.nlev;
+  const RneaView<T> rv{b + O::QD, b + O::QDD, b + O::X,  b + O::V,
+                       b + O::A,  b + O::F,   b + O::IV, g};
+  rnea_forward_knot<RNEA_FULL, T, NJ>(par, R, rv, nlev);
+  rnea_backward_knot<T>(par, R, rv, nlev);
+  T* col = cs + O::COL;
+  for (int k = 0; k <= P::CHUNKS; ++k) par([&](int t) {
+    const bool walk = k < P::CHUNKS;
+    if (walk && t < C) {
+      if (k * C + t < NC) {
+        const int c = cols(k * C + t);
+        T* dc = cs + O::DC + (k & 1) * NJ * CP;
+        grad_column<T, NJ, C>(
+            R, b + O::QD, b + O::X, b + O::V, b + O::A, b + O::F, b + O::IV,
+            g, c < NJ, c < NJ ? c : c - NJ,
+            [&](int i, int m) -> T& { return col[(i * 18 + m) * C + t]; },
+            [&](int i, T x) { dc[i * CP + t] = x; });
+      }
+      return;
+    }
+    if (k == 0) return;
+    const T* dc = cs + O::DC + ((k - 1) & 1) * NJ * CP;
+    const int c0 = (k - 1) * C, n = NC - c0 < C ? NC - c0 : C;
+    const int s = walk ? C : 0;   // the threads that store
+    for (int e = t - s; e < NJ * n; e += W - s) {
+      const int i = e / n, j = e % n;
+      dcdu[((long long)i * NC + cols(c0 + j)) * L + l] = dc[i * CP + j];
+    }
+  });
+}
+
 // The kernels' plans: fd_du's head is the robot constants, fdsva_so's and
 // idsva_so's also the (j, a, st) lists.
 template <typename T, int NJ>
@@ -2780,13 +2869,16 @@ using FDPlan = WsPlan<T,
                       BlockPlan<T, RobotConst<T, NJ>, FDKnot<NJ>::SIZE,
                                 knot_lanes<NJ>(), fd_regs<T>()>,
                       FDKnot<NJ>::SIZE>;
-// fd_du and the dense riccati run on chip (FDChipPlan, RicChipPlan) from
-// CHIP_FROM joints, above the 28 that their shared-memory plans were
-// built for: at config 5's shapes the on-chip programs ran 1.9-2.0x
-// (fd_du, 34-46 joints) and 2.4-4.0x (riccati, 30-42) faster than those
-// plans in float32, and 1.2-2.4x at 28 joints in both dtypes (PERF.md,
-// compare_kernels.py --hands52); every plan at or below 28 joints holds
-// its knot or problem in shared memory.
+// fd_du, id_du and the Riccati sweeps (factored, stationary, a block a
+// knot) run on chip (FDChipPlan, IDUChipPlan, RicChipPlan) from CHIP_FROM
+// joints, above the 28 that their shared-memory plans were built for: at
+// config 5's shapes the on-chip programs ran 1.9-2.0x (fd_du, 34-46
+// joints) and 2.4-4.0x (the dense riccati, 30-42) faster than those plans
+// in float32, and 1.2-2.4x at 28 joints in both dtypes (PERF.md, PR 22);
+// riccati_factored's and id_du's route table (compare_kernels.py
+// --hands52's thresholds: PERF.md, PR 23) sets the same count for them;
+// every plan at or below 28 joints holds its knot or problem in shared
+// memory.
 constexpr int CHIP_FROM = 29;
 template <typename T, int NJ>
 GT_HDI constexpr bool fd_on_chip() {
@@ -2906,13 +2998,74 @@ GT_HDI constexpr int idso_route() {
 }
 
 // id_du's plan: fd_du's head and threads a knot, its own knot (IDUKnot,
-// PASSES column passes), G the knots that put the most on an SM.
+// PASSES column passes), G the knots that put the most on an SM (0 where
+// none fits: from 48 | 34 joints, float32 | float64); from CHIP_FROM
+// joints id_du runs on chip instead (IDUChipPlan, idu_on_chip).
 template <typename T, int NJ, int PASSES = idu_passes<NJ>()>
-using IDUPlan = WsPlan<T,
-                       BlockPlan<T, RobotConst<T, NJ>,
-                                 IDUKnot<NJ, PASSES>::SIZE, knot_lanes<NJ>(),
-                                 fd_regs<T>()>,
-                       IDUKnot<NJ, PASSES>::SIZE>;
+using IDUPlan = BlockPlan<T, RobotConst<T, NJ>, IDUKnot<NJ, PASSES>::SIZE,
+                          knot_lanes<NJ>(), fd_regs<T>()>;
+
+// id_du on chip (id_du_chip_lane): a knot a block of IDU_CHIP_THREADS
+// threads, or a cluster of 2 or 4 blocks where one block cannot hold it;
+// C the widest chunk (IDU_CHIP_CMIN to 64 columns) that fits the fewest
+// blocks, evened out over its chunks, as fd_du's (fd_chip_c). Its state
+// is fd_du's without Minv, so its chunks are wider: at 52 joints in
+// float32 3 chunks of 36 columns in one block, where fd_du's are 4 of 28.
+constexpr int IDU_CHIP_THREADS = 128, IDU_CHIP_CMIN = 8;
+template <typename T, int NJ, int C>
+GT_HDI constexpr ChipPack<2> idu_chip_pack(int cl) {
+  using O = IDUChipKnot<NJ, C>;
+  const long long size[2] = {O::BASE, O::COLS};
+  return chip_pack(size, (int)sizeof(T), fd_chip_head<T, NJ>(), cl);
+}
+template <typename T, int NJ, int CMAX>
+GT_HDI constexpr int idu_chip_cmax(int cl) {
+  if constexpr (CMAX < IDU_CHIP_CMIN) {
+    return 0;
+  } else {
+    return idu_chip_pack<T, NJ, CMAX>(cl).cl
+               ? CMAX
+               : idu_chip_cmax<T, NJ, CMAX - 4>(cl);
+  }
+}
+template <int NJ>
+GT_HDI constexpr int idu_chip_top() {
+  return (int)round4(2 * NJ) < 64 ? (int)round4(2 * NJ) : 64;
+}
+template <typename T, int NJ>
+GT_HDI constexpr int idu_chip_cl() {
+  constexpr int top = idu_chip_top<NJ>();
+  return idu_chip_cmax<T, NJ, top>(1)   ? 1
+         : idu_chip_cmax<T, NJ, top>(2) ? 2
+         : idu_chip_cmax<T, NJ, top>(4) ? 4
+                                        : 0;
+}
+template <typename T, int NJ>
+GT_HDI constexpr int idu_chip_c() {
+  constexpr int cl = idu_chip_cl<T, NJ>();
+  constexpr int cmax = cl ? idu_chip_cmax<T, NJ, idu_chip_top<NJ>()>(cl) : 4;
+  constexpr int chunks = (2 * NJ + cmax - 1) / cmax;
+  return (int)round4((2 * NJ + chunks - 1) / chunks);
+}
+template <typename T, int NJ>
+struct IDUChipPlan {
+  static constexpr int C = idu_chip_c<T, NJ>();
+  using O = IDUChipKnot<NJ, C>;
+  static constexpr ChipPack<2> PACK =
+      idu_chip_pack<T, NJ, C>(idu_chip_cl<T, NJ>());
+  static constexpr int CL = PACK.cl, NT = IDU_CHIP_THREADS, LANES = CL * NT;
+  static constexpr int G = 1, ROWS = 1, CHUNKS = (2 * NJ + C - 1) / C;
+  static constexpr long long HEAD = fd_chip_head<T, NJ>();
+  static constexpr long long RANK_VALUES = chip_rank_values(PACK);
+  static constexpr long long BYTES = chip_bytes(PACK, (int)sizeof(T), HEAD);
+  static constexpr int RK_BASE = PACK.rank[0], RK_COL = PACK.rank[1];
+  static constexpr long long OF_BASE = PACK.off[0], OF_COL = PACK.off[1];
+};
+// id_du runs on chip from CHIP_FROM joints, as fd_du does
+template <typename T, int NJ>
+GT_HDI constexpr bool idu_on_chip() {
+  return NJ >= CHIP_FROM;
+}
 // rnea's plan: threads a knot by joint count (rnea_lanes), the width that
 // ran fastest for the zoo's robot of that count at its main shapes
 // (compare_kernels.py's shapes; PERF.md): a phase has at most 6 items a
@@ -3291,10 +3444,40 @@ void idsva_so_plan_host(const T* model, const T* q, const T* qd,
   }
 }
 
+// id_du on chip (IDUChipPlan of PT's dtype): a knot at a time, the
+// cluster's regions in one buffer
+template <typename T, int NJ, typename PT = PlanType<T>>
+void id_du_chip_host(const T* model, const T* q, const T* qd, const T* qdd,
+                     T* dcdu, long long L, T gravity) {
+  using P = IDUChipPlan<PT, NJ>;
+  static_assert(P::CL >= 1, "one id_du knot fits a cluster");
+  std::vector<RobotConst<T, NJ>> R(1);
+  R[0].load(model, 0, 1);
+  std::vector<T> buf(P::CL * P::RANK_VALUES);
+  T* rg[2] = {buf.data() + P::RK_BASE * P::RANK_VALUES + P::OF_BASE,
+              buf.data() + P::RK_COL * P::RANK_VALUES + P::OF_COL};
+  for (long long l = 0; l < L; ++l) {
+    for (auto& x : buf) x = T(std::numeric_limits<double>::quiet_NaN());
+#ifdef GT_RACE_CHECK
+    gt_race_watch(buf.data(), (long)(buf.size() * sizeof(T)));
+#endif
+    id_du_chip_lane<T, NJ, P>(HostPar<P::LANES>{}, R[0], rg, q, qd, qdd,
+                              dcdu, L, l, gravity);
+  }
+#ifdef GT_RACE_CHECK
+  gt_race_watch(nullptr, 0);
+#endif
+}
+
 // id_du's block code with the card's G, each block's valid knots in turn
+// (on chip from CHIP_FROM joints)
 template <typename T, int NJ, int PASSES = idu_passes<NJ>()>
 void id_du_host(const T* model, const T* q, const T* qd, const T* qdd,
                 T* dcdu, long long L, T gravity) {
+  if constexpr (idu_on_chip<PlanType<T>, NJ>()) {
+    id_du_chip_host<T, NJ>(model, q, qd, qdd, dcdu, L, gravity);
+    return;
+  }
   using O = IDUKnot<NJ, PASSES>;
   using P = IDUPlan<PlanType<T>, NJ, PASSES>;
   constexpr int G = plan_g<P>();

@@ -178,16 +178,17 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 _D = ctypes.c_double
-# the kernels with a device-memory route (id_du, minv, fd,
-# riccati_factored, the line search, the feedback rollout) take its
-# workspace and blocks last (workspace(); None, 0 on the shared-memory
-# route); fd_du and the dense riccati take the two and ignore them
+# the kernels with a device-memory route (minv, fd, the line search, the
+# feedback rollout) take its workspace and blocks last (workspace(); None,
+# 0 on the shared-memory route); fd_du takes the two and ignores them;
+# the Riccati sweeps take there the problem-major copy of their
+# inputs and its values where they run on chip
 _SIGNATURES = {
     "gridtorch_model_size": (_I,),
     "gridtorch_fd_du": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _L, _D, _P, _P,
                         _L),
     "gridtorch_rnea": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
-    "gridtorch_id_du": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P, _P, _L),
+    "gridtorch_id_du": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
     "gridtorch_aba": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P),
     "gridtorch_minv": (_I, _I, _P, _P, _P, _L, _I, _P, _P, _L),
     "gridtorch_fd": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P, _P, _L),
@@ -203,6 +204,7 @@ _SIGNATURES = {
     "gridtorch_riccati": (_I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
                           _P, _I, _L, _D, _P, _P, _L),
     "gridtorch_riccati_inputs": (_I, _I, _I, _I),
+    "gridtorch_riccati_factored_inputs": (_I, _I, _I),
     "gridtorch_idsva_so": (_I, _I, _P, _P, _P, _P, _P, _L, _D, _P, _P, _I,
                            _I),
     "gridtorch_so_lists": (_I, _P, _P, _P),
@@ -231,7 +233,8 @@ _SIGNATURES = {
 }
 
 # the entry points that return a count, not a cudaError
-_RESTYPES = {"gridtorch_riccati_inputs": _L}
+_RESTYPES = {"gridtorch_riccati_inputs": _L,
+             "gridtorch_riccati_factored_inputs": _L}
 
 
 def check_joints(nj: int, what: str = "CUDA kernels"):

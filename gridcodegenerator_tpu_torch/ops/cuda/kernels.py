@@ -56,9 +56,11 @@ take one, on any device, and ``GRiD`` routes a floating robot to them: every ker
 refuses, before any launch, one whose knot does not fit a block
 (``build.fits``).
 Every fixed-base robot of 1 to ``build.MAX_JOINTS`` = 64 one-dof joints
-has a kernel for each function: where a knot does not fit a block, fd_du,
-id_du, and minv and fd in float64 keep it in device memory (a workspace
-from ``build.workspace``, one knot a block); idsva_so runs its tile in
+has a kernel for each function: from 29 joints fd_du and id_du keep one
+knot on chip, in a block or a thread-block cluster (csrc/warp.cuh:
+FDChipPlan, IDUChipPlan); where a knot does not fit a block, minv and fd
+in float64 keep it in device memory (a workspace from
+``build.workspace``, one knot a block); idsva_so runs its tile in
 bands of rows, or in device memory where bands would not do
 (``idsva_so_route``); fdsva_so takes the composed route
 (``fdsva_so_route``).
@@ -229,11 +231,12 @@ def id_du(model: RobotModel, q, qd, qdd, gravity=DEFAULT_GRAVITY):
     dcode, nj, L = _lanes(model, ID_DU, dict(q=q, qd=qd, qdd=qdd))
     build.fits(ID_DU, nj, q.dtype)
     dc_du = _empty(q, model.n, 2 * model.n, L)
-    ws, nws = build.workspace(ID_DU, nj, q, L)
+    # no workspace: above 28 joints a knot runs on chip in a block or a
+    # cluster (csrc/warp.cuh: IDUChipPlan, CHIP_FROM)
     _launched(ID_DU, build.lib(nj).gridtorch_id_du(
         dcode, nj, build.ptr(build.model_buffer(model)), build.ptr(q),
         build.ptr(qd), build.ptr(qdd), build.ptr(dc_du), L, float(gravity),
-        build.stream_ptr(q.device), build.ptr(ws), nws))
+        build.stream_ptr(q.device)))
     return dc_du
 
 

@@ -35,12 +35,13 @@ problems with cp.async while the knot before is computed.
 Integrator: semi-implicit Euler — qd' = qd + dt*qdd, q' = q + dt*qd'.
 A CPU tensor goes to the plain version; a CUDA tensor launches the kernel
 or raises (a plan that holds no problem or rollout is refused before the
-launch: ``build.fits``). Where a Riccati problem does not fit a block
-(from 30 to 48 joints, by curvature and dtype) it runs on the device-memory
-route, a problem a block, its state in a workspace sized by the blocks in
-flight (``build.workspace``); where a rollout block's tiles do not fit (the
-line search and the feedback rollout above 52 joints in float64),
-the tiles go there.
+launch: ``build.fits``). From 29 joints a Riccati problem (either sweep)
+runs on chip, a problem a block or a thread-block cluster
+(csrc/sweep_warp.cuh: RicChipPlan), its inputs first copied problem-major
+into a record a problem that the wrapper allocates; where a rollout
+block's tiles do not fit (the line search and the feedback rollout above
+52 joints in float64), the tiles go to a device-memory workspace sized by
+the blocks in flight (``build.workspace``).
 """
 
 from __future__ import annotations
@@ -343,13 +344,19 @@ def riccati_factored(A, Bm, lx, lu, Jw, Vx0, Vxx0, reg, qd_diag, u_diag):
     build.require(dict(given, Bm=Bm), A.dtype, A.device, RICCATI)
     ks = torch.empty((N, n, B), dtype=A.dtype, device=A.device)
     Ks = torch.empty((N, n, nx, B), dtype=A.dtype, device=A.device)
-    ws, nws = build.workspace(RICCATI, n, A, B)
+    # above 28 joints a problem runs on chip in a block or a cluster
+    # (csrc/sweep_warp.cuh: RicChipPlan), its inputs first copied
+    # problem-major, a record a problem (no workspace)
+    per = build.lib(n).gridtorch_riccati_factored_inputs(
+        build.DTYPE_CODES[A.dtype], n, N)
+    rec = (torch.empty(B * per, dtype=A.dtype, device=A.device) if per > 0
+           else None)
     err = build.lib(n).gridtorch_riccati_factored(
         build.DTYPE_CODES[A.dtype], n, build.ptr(A), build.ptr(Bm),
         build.ptr(lx), build.ptr(lu), build.ptr(Jw), build.ptr(Vx0),
         build.ptr(Vxx0), build.ptr(ks), build.ptr(Ks), N, B, r, float(reg),
         float(qd_diag), float(u_diag), build.stream_ptr(A.device),
-        build.ptr(ws), nws)
+        build.ptr(rec), 0 if rec is None else rec.numel())
     build.check(err, RICCATI)
     build.LAUNCHES[RICCATI] += 1
     return ks, Ks

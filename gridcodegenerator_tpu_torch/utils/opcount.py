@@ -11,8 +11,10 @@ shapes, not on the values, so one lane counts what every lane of a launch
 does. By default it counts the arithmetic the function needs: constants
 (literals, the robot's constants) folded, IDSVA-SO's D1-D4 formed once
 per joint with each product D x computed once, as the reference algorithm
-does, and d2eepos and deepos by the cheaper of the chain form and the
-kernel's twist form; ``executed=True`` counts every operation the kernel's
+does, d2eepos and deepos by the cheaper of the chain form and the
+kernel's twist form, and the Riccati sweeps by the cheaper of the serial
+lane and the problem's program (on chip above 28 joints it forms the
+value update with one product fewer); ``executed=True`` counts every operation the kernel's
 lane code does (the thread-group kernels, fd_du, fdsva_so, idsva_so, id_du,
 rnea, aba, fd, minv, crba, eepos, deepos, d2eepos, the Riccati sweeps and
 the rollouts: every thread of the knot's, lane's, problem's or rollout's

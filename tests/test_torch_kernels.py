@@ -424,7 +424,9 @@ void gt::gt_race_touch(const void* p) {
 }
 // the watched buffer of the sweep programs (sweep_warp.cuh): compared
 // before and after each thread of a phase, each changed double a touch by
-// that thread
+// that thread; the comparison runs a span of 256 bytes at a time, and
+// brings the snapshot up to date where the thread changed it (the whole
+// snapshot is taken again at each phase's start)
 static const unsigned char* g_watch = nullptr;
 static long g_watch_bytes = 0;
 static bool g_watch_on = false;
@@ -432,9 +434,16 @@ static std::vector<unsigned char> g_snap;
 static int g_prev = -1;
 static void watch_diff() {
   if (!g_watch_on || !g_watch || g_prev < 0) return;
-  for (long o = 0; o < g_watch_bytes; o += 8)
-    if (std::memcmp(g_watch + o, g_snap.data() + o, 8) != 0)
-      gt::gt_race_touch(g_watch + o);
+  constexpr long SPAN = 256;
+  for (long s = 0; s < g_watch_bytes; s += SPAN) {
+    const long e = s + SPAN < g_watch_bytes ? s + SPAN : g_watch_bytes;
+    if (std::memcmp(g_watch + s, g_snap.data() + s, e - s) == 0) continue;
+    for (long o = s; o < e; o += 8)
+      if (std::memcmp(g_watch + o, g_snap.data() + o, 8) != 0) {
+        gt::gt_race_touch(g_watch + o);
+        std::memcpy(g_snap.data() + o, g_watch + o, 8);
+      }
+  }
 }
 static void watch_snap() {
   if (g_watch_on && g_watch) std::memcpy(g_snap.data(), g_watch, g_watch_bytes);
@@ -442,7 +451,7 @@ static void watch_snap() {
 void gt::gt_race_phase() { ++g_phase; g_prev = -1; watch_snap(); }
 void gt::gt_race_thread(int t) {
   const int t_now = t;
-  if (g_prev >= 0) { g_thread = g_prev; watch_diff(); watch_snap(); }
+  if (g_prev >= 0) { g_thread = g_prev; watch_diff(); }
   g_prev = g_thread = t_now;
 }
 void gt::gt_race_done() { watch_diff(); g_prev = -1; }
@@ -2000,19 +2009,17 @@ def test_cuda_tiles_in_device_memory_at_64_joints(cuda_device, name):
     assert _max_err(got, want) <= TOL * scale
 
 
-# Above 32 joints id_du's knots take more than one warp in shared memory
-# (warp.cuh: knot_lanes, at least 64 threads: a thread a column of a pass,
-# a thread a joint, and barriers across the warps; the plan may give a
-# knot more): in float32 at 33-47 joints and in float64 at 33. Its other
-# instances at these counts take the device-memory route; fd_du runs one
-# knot on chip in a block or a cluster of blocks there (warp.cuh:
-# FDChipPlan; from 29 joints). The robots: the 33- and 46-joint chains
-# and atlas_grippers34 (a tree: two 3-joint grippers on atlas).
+# Above 32 joints the shared-memory plans of fd_du and id_du would give a
+# knot more than one warp (warp.cuh: knot_lanes, at least 64 threads: a
+# thread a column of a pass, a thread a joint, and barriers across the
+# warps); both run one knot on chip in a block or a cluster of blocks
+# there instead (warp.cuh: FDChipPlan, IDUChipPlan; from 29 joints). The
+# robots: the 33- and 46-joint chains and atlas_grippers34 (a tree: two
+# 3-joint grippers on atlas).
 TWO_WARP_ROBOTS = {"pendulum33": 33, "atlas_grippers34": 34,
                    "pendulum46": 46}
-# the (kernel, dtype) instances whose knots sit in shared memory there
-TWO_WARP_SHARED = {("id_du", torch.float32): range(33, 48),
-                   ("id_du", torch.float64): range(33, 34)}
+# the threads a block of fd_du's and id_du's on-chip plans there
+CHIP_BLOCK_THREADS = {"fd_du": 256, "id_du": 128}
 # float32 against a float64 plain run: chip_smoke.py's rule, within
 # F32_FACTOR times the plain float32 version's own error plus F32_FLOOR of
 # the output's scale
@@ -2026,10 +2033,9 @@ F32_FACTOR, F32_FLOOR = 10.0, 1e-5
 @pytest.mark.parametrize("name", ["fd_du", "id_du"])
 def test_cuda_two_warp_knots_match_plain(cuda_device, name, robot, dtype):
     """fd_du and id_du at 33, 34 and 46 joints (libraries built at first
-    use) take the plan TWO_WARP_SHARED says: more than a warp a knot in
-    shared memory, else the device-memory route (id_du) or one knot on
-    chip, a block or a cluster of blocks of 256 threads and no workspace
-    (fd_du). Each launches once on 37 lanes (a
+    use) run one knot on chip, a block or a cluster of blocks of
+    CHIP_BLOCK_THREADS threads, and no workspace. Each launches once on
+    37 lanes (a
     ragged block) and holds its float64 plain version within TOL of each
     output's scale in float64, by the float32 rule in float32."""
     nj = TWO_WARP_ROBOTS[robot]
@@ -2039,14 +2045,9 @@ def test_cuda_two_warp_knots_match_plain(cuda_device, name, robot, dtype):
     m64 = build_model(t, dtype=torch.float64, device=cuda_device)
     assert m64.n == nj
     p = build.plan(name, nj, dtype)
-    if nj in TWO_WARP_SHARED.get((name, dtype), ()):
-        assert p["knots_per_block"] >= 1 and p["threads_per_knot"] > 32
-        assert p["workspace_bytes"] == 0
-    elif name == "fd_du":
-        assert p["knots_per_block"] == 1 and p["workspace_bytes"] == 0
-        assert p["threads_per_knot"] == 256 * p["cluster_blocks"]
-    else:
-        assert p["knots_per_block"] == 0 and p["workspace_bytes"] > 0
+    assert p["knots_per_block"] == 1 and p["workspace_bytes"] == 0
+    assert p["threads_per_knot"] == (CHIP_BLOCK_THREADS[name]
+                                     * p["cluster_blocks"])
     rng = np.random.default_rng(5)
     x64 = tuple(torch.as_tensor(rng.uniform(-1, 1, (nj, 37)),
                                 dtype=torch.float64, device=cuda_device)

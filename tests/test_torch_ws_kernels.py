@@ -4,25 +4,26 @@ routes changed or added.
 
 * Every block plan of every kernel but the second-order pair, at every
   joint count from 29 to 64 in float32 and float64, holds a knot (problem,
-  rollout) in a block's shared memory or takes the device-memory route
-  (csrc/warp.cuh: WsPlan; the rollouts' tiles: TILES_WS), and stays within
-  the 232,448 bytes a block may use: a g++ build of the plan constants
-  alone (csrc/warp.cuh, csrc/sweep_warp.cuh).
+  rollout) in a block's shared memory, on chip in a block or a cluster, or
+  (minv and fd in float64; the rollouts' tiles: TILES_WS) takes the
+  device-memory route (csrc/warp.cuh: WsPlan), and stays within the
+  232,448 bytes a block may use: a g++ build of the plan constants alone
+  (csrc/warp.cuh, csrc/sweep_warp.cuh).
 * A host C++ build of the kernels whose plans changed (fd_du, id_du, minv,
-  fd, the three Riccati instances, the rollouts and the line search; their
-  device-memory instances run one knot a block with csrc/warp.cuh:
-  WS_LANES threads; fd_du and the dense riccati run one knot or problem a
-  block or a thread-block cluster with its state on chip instead:
-  csrc/warp.cuh: FDChipPlan, csrc/sweep_warp.cuh: RicChipPlan), at 34 and
-  52 joints (atlas with grippers and with hands,
+  fd, the three Riccati instances, the rollouts and the line search; minv's
+  and fd's device-memory instances run one knot a block with csrc/warp.cuh:
+  WS_LANES threads; fd_du, id_du and the three Riccati instances run one
+  knot or problem a block or a thread-block cluster with its state on chip
+  instead: csrc/warp.cuh: FDChipPlan, IDUChipPlan, csrc/sweep_warp.cuh:
+  RicChipPlan), at 34 and 52 joints (atlas with grippers and with hands,
   tests/torch_big_robots.py), driven over a few lanes through ctypes as
   tests/test_torch_kernels.py drives its harness, against the plain
   PyTorch versions in float64 (1e-9 of each output's scale).
-* The on-chip programs of fd_du and the dense riccati with the plans of
-  both dtypes (the chunks, slabs and threads of each; run in float64), and
-  with the race check on: no entry of the knot's or problem's state
-  written by two threads of one phase, and the same bits with each phase's
-  threads in reverse order.
+* The on-chip programs of fd_du, id_du and the Riccati sweeps with the
+  plans of both dtypes (the chunks, slabs and threads of each; run in
+  float64), and with the race check on: no entry of the knot's or
+  problem's state written by two threads of one phase, and the same bits
+  with each phase's threads in reverse order.
 * idsva_so's device-memory tile (csrc/warp.cuh: IDSOTilePlan,
   idsva_so_knot_to; the float64 plan's G and threads a knot, on the lists
   so_lists_host builds, as the library's gridtorch_so_lists does for the
@@ -31,6 +32,9 @@ routes changed or added.
   the threads of each phase also run in reverse), against idsva_so_plain
   in float64 (1e-9 of its scale); and idsva_so's routes there
   (csrc/warp.cuh: idso_route).
+* The operation counts of the second order at 34 and 52 joints, and of the
+  Riccati sweeps at 34 joints (on chip there: their need the cheaper of
+  the serial lane and the on-chip knot program, linear in the knots).
 
 Skipped without a host C++ compiler. This file imports no jax.
 """
@@ -87,7 +91,8 @@ template <typename T, int NJ>
 void plans(const char* dt) {
   route<fd_on_chip<T, NJ>(), FDChipPlan<T, NJ>, FDPlan<T, NJ>>("fd_du", dt,
                                                                 NJ);
-  row<IDUPlan<T, NJ>>("id_du", dt, NJ);
+  route<idu_on_chip<T, NJ>(), IDUChipPlan<T, NJ>, IDUPlan<T, NJ>>("id_du", dt,
+                                                                   NJ);
   row<MinvPlan<T, NJ>>("minv", dt, NJ);
   row<FDPlanQ<T, NJ>>("fd", dt, NJ);
   row<RNEAPlan<T, NJ>>("rnea", dt, NJ);
@@ -96,7 +101,8 @@ void plans(const char* dt) {
   row<EEPlan<T, NJ>>("eepos", dt, NJ);
   row<DJPlan<T, NJ>>("deepos", dt, NJ);
   row<D2Plan<T, NJ>>("d2eepos", dt, NJ);
-  row<RicPlan<T, NJ>>("riccati_factored", dt, NJ);
+  route<ric_on_chip<T, NJ, RIC_FACTORED>(), RicChipPlan<T, NJ, true>,
+        RicPlan<T, NJ>>("riccati_factored", dt, NJ);
   route<ric_on_chip<T, NJ, RIC_STATIONARY>(), RicChipPlan<T, NJ>,
         RicPlan<T, NJ, RIC_STATIONARY>>("riccati", dt, NJ);
   route<ric_on_chip<T, NJ, RIC_DENSE>(), RicChipPlan<T, NJ>,
@@ -190,18 +196,23 @@ extern "C" void ric_##NJ(const double* A, const double* Bm,                \
                                     N, B, r, reg, qd, ud);                  \
 }                                                                           \
 extern "C" void threads_##NJ(int* out) {                                    \
-  out[0] = FDPlan<double, NJ>::LANES;                                       \
-  out[1] = IDUPlan<double, NJ>::LANES;                                      \
-  out[2] = MinvPlan<double, NJ>::LANES;                                     \
-  out[3] = FDPlanQ<double, NJ>::LANES;                                      \
-  out[4] = RicPlan<double, NJ>::LANES;                                      \
-  out[5] = FDChipPlan<double, NJ>::LANES;                                   \
-  out[6] = FDChipPlan<double, NJ>::CL;                                      \
-  out[7] = RicChipPlan<double, NJ>::LANES;                                  \
-  out[8] = RicChipPlan<double, NJ>::CL;                                     \
-  out[9] = fd_on_chip<double, NJ>();                                        \
-  out[10] = ric_on_chip<double, NJ, RIC_STATIONARY>();                      \
-  out[11] = ric_on_chip<double, NJ, RIC_DENSE>();                           \
+  out[0] = MinvPlan<double, NJ>::LANES;                                     \
+  out[1] = FDPlanQ<double, NJ>::LANES;                                      \
+  out[2] = FDChipPlan<double, NJ>::LANES;                                   \
+  out[3] = FDChipPlan<double, NJ>::CL;                                      \
+  out[4] = RicChipPlan<double, NJ>::LANES;                                  \
+  out[5] = RicChipPlan<double, NJ>::CL;                                     \
+  out[6] = RicChipPlan<double, NJ, true>::LANES;                            \
+  out[7] = RicChipPlan<double, NJ, true>::CL;                               \
+  out[8] = IDUChipPlan<double, NJ>::LANES;                                  \
+  out[9] = IDUChipPlan<double, NJ>::CL;                                     \
+  out[10] = fd_on_chip<double, NJ>();                                       \
+  out[11] = ric_on_chip<double, NJ, RIC_STATIONARY>();                      \
+  out[12] = ric_on_chip<double, NJ, RIC_DENSE>();                           \
+  out[13] = ric_on_chip<double, NJ, RIC_FACTORED>();                        \
+  out[14] = idu_on_chip<double, NJ>();                                      \
+  out[15] = PlanWs<MinvPlan<double, NJ>>::value > 0;                        \
+  out[16] = PlanWs<FDPlanQ<double, NJ>>::value > 0;                         \
 }                                                                           \
 extern "C" void fdc_##NJ(const double* m, const double* q,                 \
     const double* qd, const double* u, double* d, double* a, double* mi,    \
@@ -219,17 +230,37 @@ extern "C" void ricc_##NJ(const double* A, const double* Bm,               \
   const DenseIn<double, NJ, true, 1> st{A, Bm, lx, lu, lxx, luu, lux, B};   \
   const DenseIn<double, NJ, false, 1> dn{A, Bm, lx, lu, lxx, luu, lux, B};  \
   if (stationary && f32plan)                                                \
-    riccati_chip_host<double, NJ, true, float>(st, Vx0, Vxx0, ks, Ks, N, B, \
-                                               reg);                        \
+    riccati_chip_host<double, NJ, RIC_STATIONARY, float>(st, Vx0, Vxx0, ks, \
+                                                         Ks, N, B, reg);    \
   else if (stationary)                                                      \
-    riccati_chip_host<double, NJ, true, double>(st, Vx0, Vxx0, ks, Ks, N,   \
-                                                B, reg);                    \
+    riccati_chip_host<double, NJ, RIC_STATIONARY, double>(st, Vx0, Vxx0,    \
+                                                          ks, Ks, N, B,     \
+                                                          reg);             \
   else if (f32plan)                                                         \
-    riccati_chip_host<double, NJ, false, float>(dn, Vx0, Vxx0, ks, Ks, N,   \
-                                                B, reg);                    \
+    riccati_chip_host<double, NJ, RIC_DENSE, float>(dn, Vx0, Vxx0, ks, Ks,  \
+                                                    N, B, reg);             \
   else                                                                      \
-    riccati_chip_host<double, NJ, false, double>(dn, Vx0, Vxx0, ks, Ks, N,  \
-                                                 B, reg);                   \
+    riccati_chip_host<double, NJ, RIC_DENSE, double>(dn, Vx0, Vxx0, ks, Ks, \
+                                                     N, B, reg);            \
+}                                                                           \
+extern "C" void ricfc_##NJ(const double* A, const double* Bm,              \
+    const double* lx, const double* lu, const double* Jw,                   \
+    const double* Vx0, const double* Vxx0, double* ks, double* Ks, int N,   \
+    ll B, int r, double reg, double qd, double ud, int f32plan) {           \
+  if (f32plan)                                                              \
+    riccati_factored_host<double, NJ, float>(A, Bm, lx, lu, Jw, Vx0, Vxx0,  \
+                                             ks, Ks, N, B, r, reg, qd, ud); \
+  else                                                                      \
+    riccati_factored_host<double, NJ, double>(A, Bm, lx, lu, Jw, Vx0, Vxx0, \
+                                              ks, Ks, N, B, r, reg, qd,     \
+                                              ud);                          \
+}                                                                           \
+extern "C" void iduc_##NJ(const double* m, const double* q,                \
+    const double* qd, const double* qdd, double* d, ll L, int f32plan) {    \
+  if (f32plan)                                                              \
+    id_du_chip_host<double, NJ, float>(m, q, qd, qdd, d, L, -9.81);         \
+  else                                                                      \
+    id_du_chip_host<double, NJ, double>(m, q, qd, qdd, d, L, -9.81);        \
 }                                                                           \
 extern "C" void idso_tile_##NJ(const double* m, const double* q,           \
     const double* qd, const double* qdd, double* out, ll L) {               \
@@ -287,24 +318,24 @@ def plan_rows(tmp_path):
 
 def test_plans_hold_a_knot_or_take_device_memory_from_29_to_64(tmp_path):
     """Each plan at 29-64 joints in both dtypes: a knot in shared memory,
-    or (id_du, minv, fd, riccati_factored) the device-memory route, or
-    (fd_du, the dense riccati) one knot or problem on chip, within a
+    or (minv and fd in float64) the device-memory route, or (fd_du, id_du
+    and the three Riccati instances) one knot or problem on chip, within a
     block's shared memory every way; the rollouts' blocks fit with their
     tiles in device memory where they must."""
     rows = plan_rows(tmp_path)
     assert len(rows) == 16 * 2 * 36
-    ws_route = {"id_du", "minv", "fd", "riccati_factored"}
+    ws_route = {"minv", "fd"}
     seen_ws = set()
     for (name, dt, nj), (g, lanes, nbytes, ws, cl) in rows.items():
         where = f"{name} {dt} at {nj} joints"
         assert 0 < nbytes <= SMEM_LIMIT, where
         assert 0 < lanes <= 512 * cl, where
         if g == 0:
-            assert name in ws_route and ws > 0, where
+            assert name in ws_route and ws > 0 and dt == "float64", where
             seen_ws.add(name)
         if name in ("fd_du", "id_du"):   # a thread a column of a pass
             assert lanes >= nj, where
-        if name in ("fd_du", "riccati", "riccati_stacked"):
+        if name in ON_CHIP_FROM:
             assert ws == 0 and g >= 1, where
         if name in ("linesearch", "feedback_rollout") and ws:
             assert dt == "float64" and g >= 1, where
@@ -312,24 +343,32 @@ def test_plans_hold_a_knot_or_take_device_memory_from_29_to_64(tmp_path):
     assert seen_ws == ws_route | {"linesearch", "feedback_rollout"}
 
 
-# where fd_du and the dense riccati (stationary and stacked) keep one knot
-# or problem on chip, {name: (float32, float64)}: from 29 joints
-# (csrc/warp.cuh: CHIP_FROM), every count above the 28 their shared-memory
-# plans were built for
-ON_CHIP_FROM = {"fd_du": (29, 29), "riccati": (29, 29),
+# where fd_du, id_du and the Riccati sweeps (factored, stationary and
+# stacked) keep one knot or problem on chip, {name: (float32, float64)}:
+# from 29 joints (csrc/warp.cuh: CHIP_FROM), every count above the 28
+# their shared-memory plans were built for
+ON_CHIP_FROM = {"fd_du": (29, 29), "id_du": (29, 29),
+                "riccati_factored": (29, 29), "riccati": (29, 29),
                 "riccati_stacked": (29, 29)}
-# the most joints whose problem one block holds in float32 (fd_du: all)
-ONE_BLOCK_F32 = {"fd_du": 64, "riccati": 54, "riccati_stacked": 54}
+# the most joints whose problem one block holds in float32 (fd_du, id_du:
+# all)
+ONE_BLOCK_F32 = {"fd_du": 64, "id_du": 64, "riccati_factored": 54,
+                 "riccati": 54, "riccati_stacked": 54}
+# threads a block of each on-chip plan where one block holds the problem
+# (a cluster's blocks: CHIP_THREADS, 256, but id_du's IDU_CHIP_THREADS)
+BLOCK_THREADS = {"fd_du": 256, "id_du": 128, "riccati_factored": 512,
+                 "riccati": 512, "riccati_stacked": 512}
 
 
 @pytest.mark.parametrize("name", sorted(ON_CHIP_FROM))
 def test_onchip_plans_fit_a_block_or_cluster_from_29_to_64(tmp_path, name):
-    """fd_du's and the dense riccati's instances at 29-64 joints in both
-    dtypes: from 29 joints one knot or problem sits on chip in a block, or
-    in a cluster of at most 4 blocks, each
-    within the 232,448 bytes a block may use, with no device memory; one
-    block holds it in float32 up to 64 joints (fd_du) and 54 (riccati); a
-    block of 256 threads a cluster's rank, 512 alone (riccati)."""
+    """The on-chip instances (fd_du, id_du, the three Riccati sweeps) at
+    29-64 joints in both dtypes: from 29 joints one knot or problem sits on
+    chip in a block, or in a cluster of at most 4 blocks, each within the
+    232,448 bytes a block may use, with no device memory; one block holds
+    it in float32 up to 64 joints (fd_du, id_du) and 54 (the Riccati
+    sweeps); a block of 256 threads a cluster's rank, 512 alone (the
+    Riccati sweeps), 128 either way (id_du)."""
     rows = plan_rows(tmp_path)
     for d, dt in enumerate(("float32", "float64")):
         for nj in range(29, 65):
@@ -340,8 +379,9 @@ def test_onchip_plans_fit_a_block_or_cluster_from_29_to_64(tmp_path, name):
                 continue
             assert g == 1 and ws == 0 and 0 < nbytes <= SMEM_LIMIT, where
             assert cl in (1, 2, 4), where
-            assert lanes == 256 * cl * (2 if name != "fd_du" and cl == 1
-                                        else 1), where
+            per = BLOCK_THREADS[name] if cl == 1 else min(
+                256, BLOCK_THREADS[name])
+            assert lanes == per * cl, where
             if dt == "float32":
                 assert (cl == 1) == (nj <= ONE_BLOCK_F32[name]), where
 
@@ -381,17 +421,18 @@ def inputs(nj):
 
 
 def test_ws_instances_run_on_more_than_a_warp(ws_lib):
-    """At 52 joints in float64 the device-memory instances run one knot a
-    block with WS_LANES threads (id_du's joints, more than a warp's 32,
-    each get a thread; minv, fd, riccati_factored); fd_du and the dense
-    riccati run on chip instead: one knot or problem a cluster of 2 blocks
-    of 256 threads (fd_du's chunk columns a thread each, the other threads
-    folding df/du), and the shared-memory plan they replace would hold
-    none (WS_LANES)."""
-    out = (ctypes.c_int * 12)()
+    """At 52 joints in float64 only minv and fd keep the device-memory
+    route, one knot a block with WS_LANES threads; fd_du, id_du and the
+    three Riccati instances run on chip instead: fd_du and the Riccati
+    sweeps one knot or problem a cluster of 2 blocks of 256 threads (fd_du's
+    chunk columns a thread each, the other threads folding df/du), id_du
+    one a block of 128 (its chunk columns a thread each, the other threads
+    storing dc/du)."""
+    out = (ctypes.c_int * 17)()
     ws_lib.threads_52(out)
-    assert list(out[:5]) == [128] * 5
-    assert list(out[5:]) == [512, 2, 512, 2, 1, 1, 1]
+    assert list(out[:2]) == [128] * 2
+    assert list(out[2:10]) == [512, 2, 512, 2, 512, 2, 128, 1]
+    assert list(out[10:]) == [1] * 7
 
 
 @pytest.mark.parametrize("nj", sorted(HANDS))
@@ -409,13 +450,33 @@ def test_host_block_code_above_28_joints_matches_plain(ws_lib, name, nj):
         assert not got[0].permute(2, 0, 1).tril(-1).any()
 
 
-ONCHIP = ("fd_du", "riccati", "riccati_stacked")
+ONCHIP = ("fd_du", "id_du", "riccati_factored", "riccati",
+          "riccati_stacked")
 
 
 def _onchip_run(lib, name, args, nj, f32plan):
-    """fd_du's or the dense riccati's on-chip program (FDChipPlan,
-    RicChipPlan) with the plan of float32 (f32plan) or float64, run in
-    float64 on the wrapper's arguments."""
+    """An on-chip program (fd_du's FDChipPlan, id_du's IDUChipPlan, the
+    Riccati sweeps' RicChipPlan) with the plan of float32 (f32plan) or
+    float64, run in float64 on the wrapper's arguments."""
+    if name == "id_du":
+        m, q, qd, qdd, _ = args
+        n, L = q.shape
+        out = torch.empty(n, 2 * n, L, dtype=q.dtype)
+        getattr(lib, f"iduc_{nj}")(
+            *map(tk._p, (tk.build.model_buffer(m), q, qd, qdd, out)),
+            ctypes.c_longlong(L), ctypes.c_int(f32plan))
+        return (out,)
+    if name == "riccati_factored":
+        A, Bm, lx, lu, Jw, Vx0, Vxx0, reg, qd, ud = args
+        N, nx, n, B = Bm.shape
+        out = (torch.empty(N, n, B, dtype=A.dtype),
+               torch.empty(N, n, nx, B, dtype=A.dtype))
+        getattr(lib, f"ricfc_{nj}")(
+            *map(tk._p, (A, Bm, lx, lu, Jw, Vx0, Vxx0) + out),
+            ctypes.c_int(N), ctypes.c_longlong(B),
+            ctypes.c_int(Jw.shape[0]), ctypes.c_double(reg),
+            ctypes.c_double(qd), ctypes.c_double(ud), ctypes.c_int(f32plan))
+        return out
     if name == "fd_du":
         m, q, qd, u, _ = args
         n, L = q.shape
@@ -451,28 +512,40 @@ def _held(got, want, what):
 @pytest.mark.parametrize("name", ONCHIP)
 def test_host_onchip_programs_match_plain(ws_lib, name, plan, nj):
     """fd_du's on-chip program (chunks of C gradient columns, df/du folded
-    chunk by chunk) and the dense riccati's (slabs of [Vxx A | Vxx B]
-    folded into the Q blocks) with each dtype's plan (its chunk or slab
-    width, threads and cluster) against the plain versions in float64,
-    within 1e-9 of each output's scale."""
+    chunk by chunk), id_du's (chunks of C columns, dc/du stored chunk by
+    chunk) and the Riccati sweeps' (slabs of [Vxx A | Vxx B] folded into
+    the Q blocks with the dense or the factored curvature) with each
+    dtype's plan (its chunk or slab width, threads and cluster) against the
+    plain versions in float64, within 1e-9 of each output's scale."""
     m, args = inputs(nj)
     got = _onchip_run(ws_lib, name, args[name], nj, plan == "float32")
     _held(got, tk._outs(tk.WRAPPERS[name][1](*args[name])), name)
 
 
 @pytest.mark.parametrize("nj", sorted(HANDS))
-@pytest.mark.parametrize("name", ("fd_du", "riccati_stacked"))
+@pytest.mark.parametrize("name", ("fd_du", "id_du", "riccati_factored",
+                                  "riccati_stacked"))
 def test_host_onchip_phases_write_disjoint_entries(ws_lib, name, nj):
     """The on-chip programs with the float64 plan (at 52 joints a cluster
-    of 2 blocks for both) on one knot or problem of two knots, with the
-    race check on: no entry of the state written by two threads of one
-    phase, the same bits with each phase's threads in reverse order, and
-    within 1e-9 of the plain version's scale."""
+    of 2 blocks for fd_du and the Riccati sweeps, one block for id_du) on
+    one knot or problem of two knots, with the race check on: no entry of
+    the state written by two threads of one phase, the same bits with each
+    phase's threads in reverse order, and within 1e-9 of the plain
+    version's scale."""
     m, args = inputs(nj)
-    if name == "fd_du":
+    if name in ("fd_du", "id_du"):
         mm, q, qd, u, gr = args[name]
         case = (mm, q[:, :1].contiguous(), qd[:, :1].contiguous(),
                 u[:, :1].contiguous(), gr)
+    elif name == "riccati_factored":
+        # knots 0 and 1 of problem 0: lanes t B of the knot-major inputs
+        A, Bm, lx, lu, Jw, Vx0, Vxx0, reg, qd, ud = args[name]
+        B = Bm.shape[-1]
+        lanes = torch.tensor([0, B])
+        case = (A[:2, ..., :1].contiguous(), Bm[:2, ..., :1].contiguous(),
+                lx[:, lanes].contiguous(), lu[:, lanes].contiguous(),
+                Jw[..., lanes].contiguous(), Vx0[:, :1].contiguous(),
+                Vxx0[..., :1].contiguous(), reg, qd, ud)
     else:
         *knots, Vx0, Vxx0, reg = args[name]   # knots: a leading N axis
         case = (*(a[:2, ..., :1].contiguous() for a in knots),
@@ -579,3 +652,18 @@ def test_operation_counts_of_the_second_order_above_28_joints(nj):
     if "fdsva_so" in ran:
         assert ran["fdsva_so"] > ran["fd_du"] + ran["idsva_so"]
     assert ops("idsva_so", torch.float32, True) == ran["idsva_so"]
+
+
+@pytest.mark.parametrize("kernel", ["riccati_factored", "riccati"])
+def test_operation_counts_of_the_riccati_sweeps_above_28_joints(kernel):
+    """At 34 joints a Riccati problem runs on chip, whose knot forms the
+    value update with one product fewer than the serial lane
+    (K^T (Quu K + Qux) for K^T Quu K + K^T Qux): the need, the cheaper of
+    the two, is at most what runs, and both counts are the same for every
+    knot (N knots count N times one)."""
+    m, _ = inputs(34)
+    ops = lambda N, ex: tk.opcount.ops_per_lane(kernel, m, N=N, executed=ex)
+    for ex in (False, True):
+        one = ops(1, ex)
+        assert one > 0 and ops(2, ex) == 2 * one and ops(3, ex) == 3 * one
+    assert ops(3, False) <= ops(3, True)
